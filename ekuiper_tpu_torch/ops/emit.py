@@ -1,0 +1,273 @@
+"""Direct (vectorized) window emission — the post-aggregation tail of a
+rule (HAVING → ORDER BY → LIMIT → SELECT projection) compiled into numpy
+operations over the finalize arrays (counterpart of ekuiper_tpu/ops/emit.py,
+unchanged in behaviour).
+
+For the fused rule shape
+    SELECT dims..., agg(...) AS x FROM s GROUP BY dims, WINDOW(...)
+    HAVING f(aggs) ORDER BY g(dims, aggs) LIMIT n
+the emit path is: finalize (device, one transfer) → vectorized HAVING
+mask → vectorized sort keys + argsort → vectorized field expressions →
+output dicts (`run`) or one ColumnBatch (`run_columnar`).
+
+Aggregate calls inside expressions are rewritten to column references on the
+finalize output (keyed by aggspec call key), so any host-compilable scalar
+expression over dims+aggs vectorizes.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..functions import registry
+from ..sql import ast
+from ..sql.compiler import CompiledExpr, try_compile
+from .aggspec import KernelPlan, _call_key
+
+
+def _substitute_aggs(expr: ast.Expr, spec_keys: Dict[str, int]) -> ast.Expr:
+    """Replace aggregate Call nodes with FieldRefs on the finalize output
+    columns (__agg_{i}), recursing through composite expressions."""
+    sub = lambda e: _substitute_aggs(e, spec_keys)  # noqa: E731
+    if isinstance(expr, ast.Call) and registry.is_aggregate(expr.name):
+        key = _call_key(expr)
+        idx = spec_keys.get(key)
+        if idx is None:
+            # not in the kernel plan — marker ref that fails the allowed-
+            # columns check in compile_tail, forcing row-path fallback
+            return ast.FieldRef(name=f"__missing_{key}")
+        return ast.FieldRef(name=f"__agg_{idx}")
+    if isinstance(expr, ast.BinaryExpr):
+        return ast.BinaryExpr(expr.op, sub(expr.lhs), sub(expr.rhs))
+    if isinstance(expr, ast.UnaryExpr):
+        return ast.UnaryExpr(expr.op, sub(expr.expr))
+    if isinstance(expr, ast.BetweenExpr):
+        return ast.BetweenExpr(sub(expr.value), sub(expr.lo), sub(expr.hi),
+                               expr.negate)
+    if isinstance(expr, ast.InExpr):
+        return ast.InExpr(sub(expr.value), [sub(v) for v in expr.values],
+                          expr.negate)
+    if isinstance(expr, ast.CaseExpr):
+        return ast.CaseExpr(
+            sub(expr.value) if expr.value is not None else None,
+            [ast.WhenClause(sub(w.cond), sub(w.result)) for w in expr.whens],
+            sub(expr.else_expr) if expr.else_expr is not None else None,
+        )
+    if isinstance(expr, ast.Call):
+        return ast.Call(name=expr.name, args=[sub(a) for a in expr.args],
+                        func_id=expr.func_id, filter=expr.filter,
+                        partition=expr.partition, when=expr.when)
+    return expr
+
+
+@dataclass
+class DirectField:
+    out_name: str
+    kind: str  # dim | agg | window_start | window_end | expr
+    dim_name: str = ""
+    spec_idx: int = -1
+    compiled: Optional[CompiledExpr] = None
+
+
+@dataclass
+class DirectEmitPlan:
+    fields: List[DirectField]
+    having: Optional[CompiledExpr]
+    sorts: List[Tuple[CompiledExpr, bool]]  # (key expr, ascending)
+    limit: Optional[int]
+
+    def _prepare(
+        self,
+        dim_cols: Dict[str, np.ndarray],
+        agg_cols: List[np.ndarray],
+    ) -> Tuple[Optional[Dict[str, np.ndarray]], int]:
+        """Shared HAVING→ORDER tail; returns (env, n) or (None, 0)."""
+        n = len(next(iter(dim_cols.values()))) if dim_cols else (
+            len(agg_cols[0]) if agg_cols else 0
+        )
+        if n == 0:
+            return None, 0
+        env: Dict[str, np.ndarray] = dict(dim_cols)
+        for i, col in enumerate(agg_cols):
+            env[f"__agg_{i}"] = col
+        sel = None
+        if self.having is not None:
+            mask = np.asarray(self.having(env), dtype=bool)
+            # NaN agg results (NULL) fail the condition
+            sel = np.nonzero(mask)[0]
+            if len(sel) == 0:
+                return None, 0
+            env = {k: v[sel] for k, v in env.items()}
+            n = len(sel)
+        if self.sorts:
+            keys = []
+            for ce, asc in reversed(self.sorts):
+                col = np.asarray(ce(env))
+                if col.dtype == np.object_:
+                    # incomparable Nones sort as empty string (row path treats
+                    # incomparables as equal; this is the stable analogue);
+                    # mixed types stringify so lexsort never sees incomparables
+                    vals = ["" if v is None else v for v in col.tolist()]
+                    if not all(isinstance(v, str) for v in vals):
+                        vals = [v if isinstance(v, str) else str(v) for v in vals]
+                    col = np.array(vals)
+                if not asc:
+                    if np.issubdtype(col.dtype, np.number) or col.dtype == np.bool_:
+                        col = -col.astype(np.float64)
+                    else:
+                        # descending non-numeric: negate the sort ranks
+                        _, inv = np.unique(col, return_inverse=True)
+                        col = -inv
+                keys.append(col)
+            order = np.lexsort(keys)
+            env = {k: v[order] for k, v in env.items()}
+        return env, n
+
+    def run(
+        self,
+        dim_cols: Dict[str, np.ndarray],
+        agg_cols: List[np.ndarray],
+        window_start: int,
+        window_end: int,
+    ) -> List[Dict[str, Any]]:
+        """Produce the final output messages for one window."""
+        env, n = self._prepare(dim_cols, agg_cols)
+        if env is None:
+            return []
+        out_cols: List[Tuple[str, List[Any]]] = []
+        limit = self.limit if self.limit is not None else n
+        for f in self.fields:
+            if f.kind == "dim":
+                col = env[f.dim_name][:limit]
+                out_cols.append((f.out_name, col.tolist()))
+            elif f.kind == "agg":
+                col = env[f"__agg_{f.spec_idx}"][:limit]
+                out_cols.append((f.out_name, _nan_to_none(col)))
+            elif f.kind == "window_start":
+                out_cols.append((f.out_name, [window_start] * min(limit, n)))
+            elif f.kind == "window_end":
+                out_cols.append((f.out_name, [window_end] * min(limit, n)))
+            else:
+                col = np.asarray(f.compiled(env))[:limit]
+                out_cols.append((f.out_name, _nan_to_none(col)))
+        names = [name for name, _ in out_cols]
+        cols = [vals for _, vals in out_cols]
+        return [dict(zip(names, vals)) for vals in zip(*cols)]
+
+    def run_columnar(
+        self,
+        dim_cols: Dict[str, np.ndarray],
+        agg_cols: List[np.ndarray],
+        window_start: int,
+        window_end: int,
+    ):
+        """Columnar variant of run(): the window result stays a ColumnBatch
+        (NaN→valid-mask for NULLs) instead of exploding into per-group dicts.
+        Downstream nodes/sinks consume ColumnBatch natively; sinks that need
+        per-message dicts convert at the edge (to_messages). At 10k+ groups
+        this removes ~20ms of dict building from the emit path."""
+        from ..data.batch import ColumnBatch
+
+        env, n = self._prepare(dim_cols, agg_cols)
+        if env is None:
+            return None
+        limit = min(self.limit if self.limit is not None else n, n)
+        columns: Dict[str, np.ndarray] = {}
+        valid: Dict[str, np.ndarray] = {}
+        for f in self.fields:
+            if f.kind == "dim":
+                columns[f.out_name] = env[f.dim_name][:limit]
+            elif f.kind == "agg":
+                columns[f.out_name] = _null_preserving(
+                    env[f"__agg_{f.spec_idx}"][:limit])
+            elif f.kind == "window_start":
+                columns[f.out_name] = np.full(limit, window_start, dtype=np.int64)
+            elif f.kind == "window_end":
+                columns[f.out_name] = np.full(limit, window_end, dtype=np.int64)
+            else:
+                columns[f.out_name] = _null_preserving(
+                    np.asarray(f.compiled(env))[:limit])
+        return ColumnBatch(
+            n=limit, columns=columns, valid=valid,
+            timestamps=np.full(limit, window_end, dtype=np.int64),
+        )
+
+
+def _null_preserving(col: np.ndarray) -> np.ndarray:
+    """NaN aggregates are NULLs and must stay as explicit None in the sink
+    payload (a valid-mask would make to_tuples OMIT the key — a different
+    message shape than the row path emits). NaN-free columns (the common
+    case) stay numeric; NULL-bearing ones go object with None holes."""
+    if np.issubdtype(col.dtype, np.floating):
+        nan = np.isnan(col)
+        if nan.any():
+            out = col.astype(object)
+            out[nan] = None
+            return out
+    return col
+
+
+def _nan_to_none(col: np.ndarray) -> List[Any]:
+    if np.issubdtype(col.dtype, np.floating):
+        return [None if v != v else v for v in col.tolist()]
+    return col.tolist() if isinstance(col, np.ndarray) else list(col)
+
+
+def build_direct_emit(
+    stmt: ast.SelectStatement, plan: KernelPlan, dim_names: List[str]
+) -> Optional[DirectEmitPlan]:
+    """Try to compile the rule's post-agg tail into a DirectEmitPlan.
+    Returns None if any part needs the row-path evaluator."""
+    spec_keys = {_call_key(s.call): i for i, s in enumerate(plan.specs)}
+
+    def compile_tail(expr: ast.Expr) -> Optional[CompiledExpr]:
+        sub = _substitute_aggs(expr, spec_keys)
+        ce = try_compile(sub)
+        if ce is None:
+            return None
+        allowed = set(dim_names) | {f"__agg_{i}" for i in range(len(plan.specs))}
+        if not ce.columns <= allowed:
+            return None
+        return ce
+
+    fields: List[DirectField] = []
+    for f in stmt.fields:
+        if f.invisible:
+            continue
+        name = f.output_name or f.name
+        e = f.expr
+        if isinstance(e, ast.FieldRef) and e.name in dim_names:
+            fields.append(DirectField(name, "dim", dim_name=e.name))
+            continue
+        if isinstance(e, ast.Call) and registry.is_aggregate(e.name):
+            key = _call_key(e)
+            if key in spec_keys:
+                fields.append(DirectField(name, "agg", spec_idx=spec_keys[key]))
+                continue
+            return None
+        if isinstance(e, ast.Call) and e.name in ("window_start", "window_end"):
+            fields.append(DirectField(name, e.name))
+            continue
+        ce = compile_tail(e)
+        if ce is None:
+            return None
+        fields.append(DirectField(name, "expr", compiled=ce))
+
+    having: Optional[CompiledExpr] = None
+    if stmt.having is not None:
+        having = compile_tail(stmt.having)
+        if having is None:
+            return None
+
+    sorts: List[Tuple[CompiledExpr, bool]] = []
+    for sf in stmt.sorts:
+        expr = sf.expr if sf.expr is not None else ast.FieldRef(sf.name, sf.stream)
+        ce = compile_tail(expr)
+        if ce is None:
+            return None
+        sorts.append((ce, sf.ascending))
+
+    return DirectEmitPlan(fields=fields, having=having, sorts=sorts,
+                          limit=stmt.limit)

@@ -14,7 +14,14 @@
 //                        (ekuiper_tpu/ops/groupby.py:348-441)
 // groupby_finalize_scalar replaces _finalize_impl/_finalize_dyn_impl ->
 //                        _finalize_body/_merged/_final_value (444-520)
-// groupby_reset_pane     replaces _reset_pane_impl (763)
+// groupby_reset_pane     replaces _reset_pane_impl (763), for every
+//                        component: the scalar ones, act, and the wide
+//                        sketch components of csrc/sketches.cu
+//
+// The sketch kernels (the wide fold, the wide finalize, heavy-hitter
+// recovery) live in csrc/sketches.cu and fill other rows of the same
+// finalize output: groupby_finalize_scalar writes each scalar spec's row
+// and act, and skips the sketch kinds.
 //
 // What bounds them on an H100: each moves a few hundred KB to a few MB
 // (rows in, the touched state lines, or one pane of state), which is
@@ -35,7 +42,8 @@
 
 enum { C_N = 0, C_S1 = 1, C_S2 = 2, C_MN = 3, C_MX = 4 };
 enum { K_COUNT = 0, K_SUM, K_AVG, K_MIN, K_MAX, K_STDDEV, K_STDDEVS, K_VAR,
-       K_VARS };
+       K_VARS };  // codes above K_VARS: sketch kinds, written by sketches.cu
+#define MAX_RESET 16
 
 struct Comps {
   float* p[N_COMPS];
@@ -49,10 +57,18 @@ struct ColMap {  // one entry per (component, k) column of the state
   int spec[MAX_COLS];
 };
 
-struct SpecTab {  // per spec: final-value kind and its column in each comp
-  int n;
+struct SpecTab {  // per spec: final-value kind, its column in each comp
+  int n;            // and its output row
   int kind[MAX_SPECS];
   int kc[N_COMPS][MAX_SPECS];  // -1 where the spec has no such component
+  int row[MAX_SPECS];
+};
+
+struct ResetTab {  // every component: its data, one pane's length, identity
+  int n;
+  float* p[MAX_RESET];
+  long long len[MAX_RESET];
+  float init[MAX_RESET];
 };
 
 __device__ __forceinline__ float f32_inf() { return __int_as_float(0x7f800000); }
@@ -133,19 +149,21 @@ __device__ __forceinline__ float merged(const Comps& cp, int comp, int k,
   return m;
 }
 
-// One thread per slot: merge the masked panes, compute each spec's final
-// value with the reference's NaN-for-empty rules (_final_value), write
-// out[(S+1), C] with the merged act as the last row. The _rn intrinsics
+// One thread per slot: merge the masked panes, compute each scalar spec's
+// final value with the reference's NaN-for-empty rules (_final_value) into
+// its row of out (rows, C), and the merged act into the last row. The _rn
+// intrinsics
 // keep nvcc from contracting a*b-c into an FMA, so the result rounds as
 // the plain version (one torch op per step) does.
 __global__ void finalize_scalar_kernel(Comps cp, const float* __restrict__ act,
                                        const uint8_t* __restrict__ pm, int P,
-                                       int C, SpecTab st,
+                                       int C, SpecTab st, int rows,
                                        float* __restrict__ out) {
   for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < C;
        c += gridDim.x * blockDim.x) {
     for (int s = 0; s < st.n; ++s) {
       const int kind = st.kind[s];
+      if (kind > K_VARS) continue;
       const float n =
           st.kc[C_N][s] >= 0 ? merged(cp, C_N, st.kc[C_N][s], pm, P, C, c) : 0.f;
       float val;
@@ -174,30 +192,27 @@ __global__ void finalize_scalar_kernel(Comps cp, const float* __restrict__ act,
         const bool ok = (kind == K_STDDEV || kind == K_VAR) ? n > 0.f : n >= 2.f;
         val = ok ? v : f32_nan();
       }
-      out[(int64_t)s * C + c] = val;
+      out[(int64_t)st.row[s] * C + c] = val;
     }
     float a = 0.0f;
     for (int p = 0; p < P; ++p)
       if (pm[p]) a = __fadd_rn(a, act[(int64_t)p * C + c]);
-    out[(int64_t)st.n * C + c] = a;
+    out[(int64_t)(rows - 1) * C + c] = a;
   }
 }
 
-// One thread per slot: write the identity into pane `pane` of every
-// component and of act.
-__global__ void reset_pane_kernel(Comps cp, float* __restrict__ act, int pane,
-                                  int C) {
-  for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < C;
-       c += gridDim.x * blockDim.x) {
-    const int64_t pc = (int64_t)pane * C + c;
-    act[pc] = 0.0f;
-    for (int j = 0; j < N_COMPS; ++j) {
-      float* a = cp.p[j];
-      if (a == nullptr) continue;
-      const int K = cp.k[j];
-      const float init = j == C_MN ? f32_inf() : (j == C_MX ? -f32_inf() : 0.0f);
-      for (int k = 0; k < K; ++k) a[pc * K + k] = init;
-    }
+// Grid-stride over each component's pane in turn: a pane of a (P, C, ...)
+// component is one contiguous run of len floats, so neighbouring threads
+// store to neighbouring addresses (coalesced) for the narrow scalar
+// components and the wide sketch ones alike.
+__global__ void reset_pane_kernel(ResetTab rt, int pane) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int j = 0; j < rt.n; ++j) {
+    float* a = rt.p[j] + (int64_t)pane * rt.len[j];
+    const float init = rt.init[j];
+    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+         i < rt.len[j]; i += stride)
+      a[i] = init;
   }
 }
 
@@ -243,36 +258,51 @@ int groupby_fold_scalar(const uint8_t* base, const float* V, const uint8_t* M,
   return (int)cudaGetLastError();
 }
 
-// spectab: host int32 (nspecs, 1 + N_COMPS) = (kind, k_n, k_s1, k_s2,
-// k_mn, k_mx); pane_mask: device uint8 (P,); out: device float32
-// (nspecs + 1, C).
+// spectab: host int32 (nspecs, 2 + N_COMPS) = (kind, k_n, k_s1, k_s2,
+// k_mn, k_mx, output row); pane_mask: device uint8 (P,); out: device
+// float32 (rows, C), act in its last row.
 int groupby_finalize_scalar(float* const* comp_ptrs, const int32_t* comp_k,
                             const float* act, const uint8_t* pane_mask, int P,
                             int C, const int32_t* spectab, int nspecs,
-                            float* out, void* stream) {
-  if (nspecs > MAX_SPECS || C < 0) return (int)cudaErrorInvalidValue;
+                            int rows, float* out, void* stream) {
+  if (nspecs > MAX_SPECS || C < 0 || rows < 1) return (int)cudaErrorInvalidValue;
   if (C == 0) return (int)cudaSuccess;
   SpecTab st;
   st.n = nspecs;
   for (int s = 0; s < nspecs; ++s) {
-    st.kind[s] = spectab[s * (1 + N_COMPS)];
-    for (int j = 0; j < N_COMPS; ++j)
-      st.kc[j][s] = spectab[s * (1 + N_COMPS) + 1 + j];
+    const int32_t* e = spectab + s * (2 + N_COMPS);
+    st.kind[s] = e[0];
+    for (int j = 0; j < N_COMPS; ++j) st.kc[j][s] = e[1 + j];
+    st.row[s] = e[1 + N_COMPS];
+    if (st.kind[s] <= K_VARS && (st.row[s] < 0 || st.row[s] >= rows - 1))
+      return (int)cudaErrorInvalidValue;
   }
   const int threads = 256;
   finalize_scalar_kernel<<<grid_for(C, threads), threads, 0,
                            (cudaStream_t)stream>>>(
-      make_comps(comp_ptrs, comp_k), act, pane_mask, P, C, st, out);
+      make_comps(comp_ptrs, comp_k), act, pane_mask, P, C, st, rows, out);
   return (int)cudaGetLastError();
 }
 
-int groupby_reset_pane(float* const* comp_ptrs, const int32_t* comp_k,
-                       float* act, int pane, int C, void* stream) {
-  if (C <= 0) return (int)cudaSuccess;
+// ptrs / lens / inits: host arrays of n components (device pointer, floats
+// in one pane, identity).
+int groupby_reset_pane(float* const* ptrs, const long long* lens,
+                       const float* inits, int n, int pane, void* stream) {
+  if (n > MAX_RESET || n < 0) return (int)cudaErrorInvalidValue;
+  ResetTab rt;
+  rt.n = n;
+  long long most = 0;
+  for (int j = 0; j < n; ++j) {
+    rt.p[j] = ptrs[j];
+    rt.len[j] = lens[j];
+    rt.init[j] = inits[j];
+    if (lens[j] > most) most = lens[j];
+  }
+  if (most == 0) return (int)cudaSuccess;
   const int threads = 256;
-  reset_pane_kernel<<<grid_for(C, threads), threads, 0,
-                      (cudaStream_t)stream>>>(make_comps(comp_ptrs, comp_k),
-                                              act, pane, C);
+  const long long blocks = (most + threads - 1) / threads;
+  reset_pane_kernel<<<blocks < 4096 ? (int)blocks : 4096, threads, 0,
+                      (cudaStream_t)stream>>>(rt, pane);
   return (int)cudaGetLastError();
 }
 

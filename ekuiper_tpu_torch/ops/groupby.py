@@ -2,14 +2,17 @@
 (counterpart of ekuiper_tpu/ops/groupby.py `DeviceGroupBy`).
 
 Per-key partial state lives in dense tensors of shape (n_panes, capacity,
-k) — one column per aggregate spec, one pane per window sub-interval:
+k) — one column per aggregate spec, one pane per window sub-interval —
+and (n_panes, capacity, k, W) for the sketch components:
 
 - TUMBLING windows: 1 pane, reset after emit.
 - HOPPING windows: P = length/interval panes; emit merges the live panes,
   expiry resets one pane.
 
 State components per spec: n (count), s1 (sum), s2 (sum of squares), mn
-(min), mx (max), plus `act` (rows per key per pane after WHERE). Keys,
+(min), mx (max), the wide hll (HyperLogLog registers, W 256), hist
+(log-histogram, W 1,024) and hh (heavy-hitters counters, W 2,688), plus
+`act` (rows per key per pane after WHERE). Keys,
 shapes, dtypes and identities are the reference's, so a `state_to_host`
 snapshot of either package restores in the other.
 
@@ -28,7 +31,8 @@ import torch
 
 from ..utils.device import Device, resolve_device
 from . import kernels
-from .aggspec import KernelPlan
+from .aggspec import WIDE_COMPONENTS, KernelPlan, materialize_hll_columns
+from .prefinalize import hh_dedupe_topk
 
 _INIT = kernels.INIT
 
@@ -90,8 +94,37 @@ class TorchGroupBy:
             for comp in sorted(spec.components):
                 self.comp_specs.setdefault(comp, []).append(i)
         self._colmap = kernels.column_map(self.comp_specs)
+        self._widemap = kernels.wide_column_map(self.comp_specs)
+        # heavy_hitters plans finalize to the reference's compact layout
+        # (groupby.py _hh_finalize_impl): 2·k2 rows of recovered (codes,
+        # estimates) per hh spec, one final-value row per other spec, act
+        # last; the top-k lists are assembled on the host (hh_assemble)
+        self._host_finalize_only = any(
+            s.kind == "heavy_hitters" for s in plan.specs)
+        rows, row = [], 0
+        widetab, fracs, hhtab = [], [], []
+        for i, spec in enumerate(plan.specs):
+            rows.append(row)
+            if spec.kind == "heavy_hitters":
+                hhtab.append((self.comp_specs["hh"].index(i),
+                              2 * spec.topk, row))
+                row += 4 * spec.topk
+                continue
+            if spec.kind == "hll":
+                widetab.append((kernels.WIDE_KIND_IDS["hll"],
+                                self.comp_specs["hll"].index(i), row))
+                fracs.append(0.0)
+            elif spec.kind == "percentile_approx":
+                widetab.append((kernels.WIDE_KIND_IDS["percentile_approx"],
+                                self.comp_specs["hist"].index(i), row))
+                fracs.append(spec.frac)
+            row += 1
+        self._rows = row + 1  # act last
         self._spectab = kernels.spec_table([s.kind for s in plan.specs],
-                                           self.comp_specs)
+                                           self.comp_specs, rows)
+        self._widetab = np.asarray(widetab, dtype=np.int32).reshape(-1, 3)
+        self._fracs = np.asarray(fracs, dtype=np.float32)
+        self._hhtab = np.asarray(hhtab, dtype=np.int32).reshape(-1, 3)
         self._masks: Dict[Tuple[bool, ...], torch.Tensor] = {}
 
     # ------------------------------------------------------------------ state
@@ -99,6 +132,8 @@ class TorchGroupBy:
         state: Dict[str, torch.Tensor] = {}
         for comp, spec_idxs in self.comp_specs.items():
             shape = (self.n_panes, self.capacity, len(spec_idxs))
+            if comp in WIDE_COMPONENTS:
+                shape = shape + (kernels.WIDE_W[comp],)
             state[comp] = torch.full(shape, _INIT[comp], dtype=torch.float32,
                                      device=self.device)
         # activity: rows per key per pane (post-WHERE), for group existence
@@ -108,7 +143,8 @@ class TorchGroupBy:
 
     def grow(self, state: Dict[str, torch.Tensor],
              new_capacity: int) -> Dict[str, torch.Tensor]:
-        """Raise the key capacity, preserving partials, on the device."""
+        """Raise the key capacity, preserving partials, on the device (a
+        heavy-hitters state is hundreds of MB: no host round trip)."""
         out: Dict[str, torch.Tensor] = {}
         for comp, arr in state.items():
             pad_shape = list(arr.shape)
@@ -183,6 +219,7 @@ class TorchGroupBy:
             raise ValueError(
                 f"slot outside [0, {self.capacity}): grow the state first")
         valid = valid or {}
+        cols = materialize_hll_columns(self.plan.columns, cols, n)
         mb = self.micro_batch
         for start in range(0, n, mb):
             end = min(start + mb, n)
@@ -199,6 +236,9 @@ class TorchGroupBy:
             base, V, M = self.spec_inputs(dev_cols, cnt)
             kernels.groupby_fold_scalar(state, base, V, M, s_dev, pane,
                                         self._colmap)
+            if len(self._widemap):
+                kernels.groupby_fold_wide(state, V, M, s_dev, pane,
+                                          self._widemap)
         return state
 
     # --------------------------------------------------------------- finalize
@@ -221,14 +261,50 @@ class TorchGroupBy:
 
         Returns (per-spec value arrays, active-row-count array); keys with
         active == 0 did not appear in this window and must not emit a group.
-        NaN encodes NULL for empty-group sum/avg/min/max. The stacked
-        result crosses to the host in ONE copy.
+        NaN encodes NULL for empty-group sum/avg/min/max; a heavy_hitters
+        spec gives an object array of [(code, count), ...] lists. The
+        scalar, sketch and heavy-hitters kernels fill one stacked result,
+        which crosses to the host in ONE copy.
         """
-        stacked = kernels.groupby_finalize_scalar(
-            state, self._pane_mask(panes), self._spectab).cpu().numpy()
+        pm = self._pane_mask(panes)
+        out = kernels.groupby_finalize_scalar(state, pm, self._spectab,
+                                              self._rows)
+        if len(self._widetab):
+            kernels.groupby_finalize_wide(state, pm, self._widetab,
+                                          self._fracs, out)
+        if len(self._hhtab):
+            kernels.groupby_hh_finalize(state, pm, self._hhtab, out)
+        stacked = out.cpu().numpy()
+        if self._host_finalize_only:
+            return self.hh_assemble(stacked, n_keys)
         host = [stacked[i][:n_keys] for i in range(len(self.plan.specs))]
         host = apply_int_semantics(self.plan.specs, host)
         return host, stacked[-1][:n_keys]
+
+    def hh_assemble(self, stacked: np.ndarray, n_keys: int
+                    ) -> Tuple[List[np.ndarray], np.ndarray]:
+        """Host tail of the heavy-hitters finalize: dedupe candidates (a
+        code can appear once per depth) and trim to top-k; plain specs read
+        their final-value row."""
+        outs: List[np.ndarray] = []
+        r = 0
+        for spec in self.plan.specs:
+            if spec.kind == "heavy_hitters":
+                k2 = 2 * spec.topk
+                codes = stacked[r:r + k2, :n_keys]
+                est = stacked[r + k2:r + 2 * k2, :n_keys]
+                r += 2 * k2
+                col = np.empty(n_keys, dtype=np.object_)
+                for j in range(n_keys):
+                    col[j] = hh_dedupe_topk(codes[:, j], est[:, j],
+                                            spec.topk)
+                outs.append(col)
+            else:
+                outs.append(stacked[r, :n_keys].copy())
+                r += 1
+        act = stacked[-1]
+        outs = apply_int_semantics(self.plan.specs, outs)
+        return outs, np.asarray(act[:n_keys])
 
     # ------------------------------------------------------------------ reset
     def reset_pane(self, state: Dict[str, torch.Tensor],

@@ -9,13 +9,19 @@ device (pane merge + final values, one kernel), one device-to-host copy,
 emit through the vectorized direct-emit tail or as GroupedTuplesSet, then
 reset the expired pane (one kernel).
 
+The sketch aggregates fold through derived columns built here per batch:
+hll(col) reads `__hll__col` (the distinct-preserving float32 encoding of
+the raw column) and heavy_hitters(col, k) reads `__hhc__col` (dense codes
+from a per-column ValueDict, decoded back to the original values at
+emit).
+
 Not ported yet, and refused at construction: sliding, session, count and
 state windows, event time, the latency-hiding prefinalize pipeline (every
-boundary finalizes synchronously), sketch aggregates, tiered key state and
-the mesh.
+boundary finalizes synchronously), tiered key state and the mesh.
 """
 from __future__ import annotations
 
+import logging
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -23,13 +29,16 @@ import torch
 
 from ..data.batch import ColumnBatch
 from ..data.rows import GroupedTuples, GroupedTuplesSet, Tuple, WindowRange
-from ..ops.aggspec import KernelPlan, _call_key
+from ..ops.aggspec import (HH_COL_PREFIX, HLL_COL_PREFIX, KernelPlan,
+                           ValueDict, _call_key, encode_hll_column)
 from ..ops.groupby import TorchGroupBy
 from ..ops.keytable import KeyTable
 from ..sql import ast
 from ..utils.device import Device
 from .events import Trigger
 from .node import Node
+
+logger = logging.getLogger(__name__)
 
 
 class FusedWindowAggNode(Node):
@@ -62,6 +71,19 @@ class FusedWindowAggNode(Node):
         else:
             raise NotImplementedError(
                 f"{self.wt.name} windows are not ported yet")
+        # heavy_hitters: per-column reversible dictionaries (codes -> values)
+        # + the spec index -> raw column map for emit-time decoding. The hh
+        # component is wide (sketches.HH_SIZE floats/key), so start small and
+        # grow on demand instead of allocating the full default capacity.
+        self._hh_cols: Dict[int, str] = {
+            i: next(iter(s.arg.columns))[len(HH_COL_PREFIX):]
+            for i, s in enumerate(plan.specs)
+            if s.kind == "heavy_hitters"
+        }
+        self._hh_dicts: Dict[str, ValueDict] = {}
+        self._hh_overflow_warned: set = set()
+        if self._hh_cols and capacity > 2048:
+            capacity = 2048
         self.gb = TorchGroupBy(plan, capacity=capacity,
                                n_panes=int(self.n_panes),
                                micro_batch=micro_batch, device=device)
@@ -108,6 +130,35 @@ class FusedWindowAggNode(Node):
         cols: Dict[str, np.ndarray] = {}
         valid: Dict[str, np.ndarray] = {}
         for name in self.plan.columns:
+            if name.startswith(HLL_COL_PREFIX):
+                # derived hashed copy for hll; raw column stays numeric for
+                # any other spec / WHERE / FILTER that shares it
+                raw = name[len(HLL_COL_PREFIX):]
+                cols[name] = encode_hll_column(sub.columns.get(raw), sub.n)
+                v = sub.valid.get(raw)
+                if v is not None:
+                    valid[name] = v
+                continue
+            if name.startswith(HH_COL_PREFIX):
+                # heavy_hitters: dictionary-encode to dense codes the sketch
+                # can bit-recover; the dict decodes them back at emit
+                raw = name[len(HH_COL_PREFIX):]
+                col = sub.columns.get(raw)
+                vd = self._hh_dicts.setdefault(raw, ValueDict())
+                if col is None:
+                    cols[name] = np.full(sub.n, np.nan, dtype=np.float32)
+                else:
+                    cols[name] = vd.encode(col)
+                    if vd.overflowed and raw not in self._hh_overflow_warned:
+                        self._hh_overflow_warned.add(raw)
+                        logger.warning(
+                            "heavy_hitters(%s): value dictionary exceeded "
+                            "%d distinct values; new values are invisible "
+                            "to the sketch", raw, len(vd.snapshot()))
+                v = sub.valid.get(raw)
+                if v is not None:
+                    valid[name] = v
+                continue
             col = sub.columns.get(name)
             if col is None:
                 cols[name] = np.full(sub.n, np.nan, dtype=np.float32)
@@ -172,9 +223,27 @@ class FusedWindowAggNode(Node):
             return
         self._emit_grouped(outs, active, wr)
 
+    def _decode_hh(self, outs):
+        """Map heavy_hitters (code, count) pairs back to original values."""
+        if not self._hh_cols:
+            return outs
+        outs = list(outs)
+        for i, raw in self._hh_cols.items():
+            vd = self._hh_dicts.get(raw)
+            col = outs[i]
+            dec = np.empty(len(col), dtype=np.object_)
+            dec[:] = [
+                [{"value": vd.decode(c) if vd else None, "count": n}
+                 for c, n in row]
+                for row in col
+            ]
+            outs[i] = dec
+        return outs
+
     def _emit_grouped(self, outs, active: np.ndarray, wr: WindowRange) -> None:
         """Row-path emit tail: build GroupedTuplesSet for downstream
         HAVING/ORDER/PROJECT nodes."""
+        outs = self._decode_hh(outs)
         active_list = active.tolist()
         out_lists = []
         for col in outs:
@@ -209,6 +278,7 @@ class FusedWindowAggNode(Node):
     def _emit_direct(self, outs, active: np.ndarray, wr: WindowRange) -> None:
         """Vectorized tail: HAVING/ORDER/LIMIT/projection computed over the
         finalize arrays; emits the final output messages directly."""
+        outs = self._decode_hh(outs)
         dim_names = [d.name for d in self.dims]
         dim_cols: Dict[str, np.ndarray] = {}
         if dim_names:
@@ -243,12 +313,18 @@ class FusedWindowAggNode(Node):
         if self.state is None:
             self.state = self.gb.init_state()
         host = self.gb.state_to_host(self.state)
-        return {
+        snap = {
             "keys": self.kt.decode_all(),
             "partials": {k: v.tolist() for k, v in host.items()},
             "cur_pane": self.cur_pane,
             "rows_in_window": self._rows_in_window,
         }
+        if self._hh_dicts:
+            # code order indexes the saved sketch counters — must persist
+            snap["hh_dicts"] = {
+                c: vd.snapshot() for c, vd in self._hh_dicts.items()
+            }
+        return snap
 
     def restore_state(self, state: dict) -> None:
         keys = state.get("keys", [])
@@ -261,3 +337,7 @@ class FusedWindowAggNode(Node):
             self.kt.capacity = max(self.kt.capacity, self.gb.capacity)
         self.cur_pane = state.get("cur_pane", 0)
         self._rows_in_window = state.get("rows_in_window", 0)
+        for c, values in state.get("hh_dicts", {}).items():
+            vd = ValueDict()
+            vd.restore(values)
+            self._hh_dicts[c] = vd

@@ -16,6 +16,9 @@ Tolerances, each against the JAX result:
   ~0 (a key with one or two rows): 16·ε32·mean² for var(s), its square
   root for stddev(s). XLA and torch round s2/n - mean² differently there.
 """
+import gc
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -40,6 +43,21 @@ SQL = (
 KINDS_EXACT = ("count", "min", "max")
 KINDS_SUM = ("sum", "avg")
 CAP, MB, KEYS = 256, 512, 200
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_cyclic_gc_inside_jax_locks():
+    """The JAX package's devwatch registry prunes its weakrefs under a lock
+    that a dying watch's __del__ also takes, so a cyclic collection that
+    lands inside the prune deadlocks the process. This module builds many
+    JAX group-bys: it runs with the cyclic collector off and collects once
+    at its end, outside any lock."""
+    enabled = gc.isenabled()
+    gc.disable()
+    yield
+    if enabled:
+        gc.enable()
+    gc.collect()
 
 
 def _build(n_panes: int, sql: str = SQL, cap: int = CAP):
@@ -203,3 +221,150 @@ def test_cpu_state_takes_plain_versions_only():
     assert kernels._lib is None
     assert all(t.device.type == "cpu" and t.dtype == torch.float32
                for t in st.values())
+
+
+# ------------------------------------------------------------ sketch cases
+# Every sketch aggregate beside scalar ones: "wide" finalizes through the
+# scalar and sketch kernels' plain versions, "hh" through the reference's
+# compact heavy-hitters layout (2·k2 candidate rows per hh spec). Extra
+# tolerances: hll registers exact outside the cells where a value's rho
+# comes from a jnp.log2 miss (ops/sketches.py of the port reads rho from
+# the float exponent; those cells are found in float64 and counted), hll
+# estimates within ±1, hist and hh counters exact, heavy-hitter lists
+# equal, percentiles in the same bin within 4 ulp (torch.exp against
+# XLA's exp on the bin centre).
+SKETCH_SQL = {
+    "wide": ("SELECT k, count(*) AS c, hll(v) AS u, "
+             "distinct_count_approx(iv) AS du, percentile_approx(v, 0.9) AS p, "
+             "sum(v) AS s FROM s WHERE w > -1 GROUP BY k, "
+             "TUMBLINGWINDOW(ss, 10)"),
+    "hh": ("SELECT k, heavy_hitters(code, 3) AS top, count(*) AS c, "
+           "percentile_approx(w, 0.5) AS pw, hll(v) AS u FROM s "
+           "GROUP BY k, TUMBLINGWINDOW(ss, 10)"),
+}
+SK_CAP, SK_KEYS = 64, 50
+
+
+def _sketch_batch(rng, n, keys=SK_KEYS):
+    cols, valid, slots = _batch(rng, n, keys)
+    p = rng.random(n)
+    code = np.where(p < 0.35, 7, np.where(p < 0.55, 13, rng.integers(
+        100, 400, n))).astype(np.float32)
+    code[rng.random(n) < 0.05] = np.nan  # NULL codes
+    cols["__hhc__code"] = code
+    return cols, valid, slots
+
+
+def _hll_miss_cells(tgb, cols, slots, pane):
+    """(pane, slot, k, register) cells that received a value whose rho
+    from jnp.log2 differs from the exact floor(log2) rule."""
+    from ekuiper_tpu.ops import sketches as jsk
+    from ekuiper_tpu_torch.ops.aggspec import materialize_hll_columns
+
+    cells = set()
+    full = materialize_hll_columns(tgb.plan.columns, cols, len(slots))
+    for k, si in enumerate(tgb.comp_specs.get("hll", [])):
+        (col,) = tgb.plan.specs[si].arg.columns
+        v = full[col]
+        h2 = np.asarray(jsk.hash_f32(v, 1))
+        hv = np.maximum(h2, 1).astype(np.float32)
+        exact = np.floor(np.log2(hv.astype(np.float64)))
+        miss = np.asarray(jnp.floor(jnp.log2(jnp.asarray(hv)))) != exact
+        reg = np.asarray(jsk.hash_f32(v, 0)) & (jsk.HLL_M - 1)
+        for r in np.nonzero(miss & ~np.isnan(v))[0]:
+            cells.add((pane, int(slots[r]), k, int(reg[r])))
+    return cells
+
+
+def _assert_sketch_state(got, ref, miss):
+    assert set(got) == set(ref)
+    for comp in ref:
+        g, r = got[comp], np.asarray(ref[comp])
+        assert g.shape == r.shape and g.dtype == r.dtype, comp
+        if comp in ("s1", "s2"):
+            np.testing.assert_allclose(g, r, rtol=1e-5, err_msg=comp)
+        elif comp == "hll":
+            g, r = g.copy(), r.copy()
+            for cell in miss:
+                g[cell] = r[cell] = 0.0
+            np.testing.assert_array_equal(g, r, err_msg=comp)
+        else:
+            np.testing.assert_array_equal(g, r, err_msg=comp)
+
+
+def _assert_sketch_outs(specs, got, ref):
+    for spec, g, r in zip(specs, got, ref):
+        if spec.kind == "heavy_hitters":
+            assert g.tolist() == r.tolist()
+        elif spec.kind == "hll":
+            assert g.dtype == r.dtype == np.int64
+            assert np.abs(g - r).max() <= 1
+        elif spec.kind == "percentile_approx":
+            assert (np.isnan(g) == np.isnan(r)).all()
+            np.testing.assert_allclose(g, r, rtol=4 * 2.0 ** -23)
+        elif spec.kind == "sum":
+            np.testing.assert_allclose(g, r, rtol=1e-5, equal_nan=True)
+        else:
+            np.testing.assert_array_equal(g, r)
+
+
+@pytest.fixture(scope="module", params=[("wide", 1), ("hh", 2)],
+                ids=lambda p: f"{p[0]}-P{p[1]}")
+def sketch_pair(request):
+    """Both packages' group-bys of one sketch plan, folded with the same
+    batches (the port's state is mutated in place: tests clone it)."""
+    name, n_panes = request.param
+    jgb, tgb = _build(n_panes, SKETCH_SQL[name], cap=SK_CAP)
+    rng = np.random.default_rng(17)
+    js, ts, miss = jgb.init_state(), tgb.init_state(), set()
+    for pane in range(n_panes):
+        cols, valid, slots = _sketch_batch(rng, 400)
+        js = jgb.fold(js, cols, slots, valid, pane)
+        ts = tgb.fold(ts, cols, slots, valid, pane)
+        miss |= _hll_miss_cells(tgb, cols, slots, pane)
+    return jgb, tgb, js, ts, miss
+
+
+def test_sketch_state_matches_reference(sketch_pair):
+    jgb, tgb, js, ts, miss = sketch_pair
+    assert tgb.state_to_host(ts)["act"].shape == (tgb.n_panes, SK_CAP)
+    _assert_sketch_state(tgb.state_to_host(ts), jgb.state_to_host(js), miss)
+
+
+def test_sketch_finalize_matches_reference(sketch_pair):
+    jgb, tgb, js, ts, _ = sketch_pair
+    for panes in [None] + ([[1]] if tgb.n_panes == 2 else []):
+        got, got_act = tgb.finalize(ts, SK_KEYS, panes)
+        ref, ref_act = jgb.finalize(js, SK_KEYS, panes)
+        np.testing.assert_array_equal(got_act, ref_act)
+        _assert_sketch_outs(tgb.plan.specs, got, ref)
+
+
+def test_sketch_grow_and_reset_match_reference(sketch_pair):
+    jgb, tgb, js, ts, miss = sketch_pair
+    ts = {k: v.clone() for k, v in ts.items()}
+    cap = jgb.capacity
+    try:
+        js2, ts2 = jgb.grow(js, 2 * SK_CAP), tgb.grow(ts, 2 * SK_CAP)
+        assert tgb.capacity == 2 * SK_CAP
+        _assert_sketch_state(tgb.state_to_host(ts2),
+                             jgb.state_to_host(js2), miss)
+        js2, ts2 = jgb.reset_pane(js2, 0), tgb.reset_pane(ts2, 0)
+        _assert_sketch_state(tgb.state_to_host(ts2),
+                             jgb.state_to_host(js2), miss)
+    finally:
+        jgb.capacity = tgb.capacity = cap
+
+
+def test_sketch_snapshot_crosses_packages(sketch_pair):
+    """The port's state restores into the JAX package and the JAX
+    package's into the port; each then finalizes as its own does."""
+    jgb, tgb, js, ts, _ = sketch_pair
+    ref, ref_act = jgb.finalize(js, SK_KEYS)
+    mine, mine_act = tgb.finalize(ts, SK_KEYS)
+    back = jgb.finalize(jgb.state_from_host(tgb.state_to_host(ts)), SK_KEYS)
+    there = tgb.finalize(tgb.state_from_host(jgb.state_to_host(js)), SK_KEYS)
+    np.testing.assert_array_equal(back[1], ref_act)
+    _assert_sketch_outs(tgb.plan.specs, back[0], ref)
+    np.testing.assert_array_equal(there[1], mine_act)
+    _assert_sketch_outs(tgb.plan.specs, there[0], mine)

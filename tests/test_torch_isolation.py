@@ -11,6 +11,7 @@ import sys
 import warnings
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -108,6 +109,36 @@ def test_state_classes_need_cuda_unless_cpu_is_asked(cls, monkeypatch):
     assert build(device="cpu").device.type == "cpu"
 
 
+HH_SQL = ("SELECT deviceId, heavy_hitters(code, 3) AS top, hll(h) AS u, "
+          "percentile_approx(t, 0.9) AS p FROM demo "
+          "GROUP BY deviceId, HOPPINGWINDOW(ss, 10, 5)")
+
+
+@pytest.mark.parametrize("entry", ["plan_fused_rule", "TorchGroupBy"])
+def test_sketch_paths_need_cuda_unless_cpu_is_asked(entry, monkeypatch):
+    """The sketch aggregates' paths (wide state, the hh node's smaller
+    starting capacity) are as strict about the device as the scalar one."""
+    from ekuiper_tpu_torch.ops.aggspec import extract_kernel_plan
+    from ekuiper_tpu_torch.ops.groupby import TorchGroupBy
+    from ekuiper_tpu_torch.sql.parser import parse_select
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    plan = extract_kernel_plan(parse_select(HH_SQL))
+
+    def build(**kw):
+        if entry == "TorchGroupBy":
+            return TorchGroupBy(plan, capacity=64, n_panes=2, **kw)
+        return fused.plan_fused_rule(HH_SQL, micro_batch=64, **kw).gb
+
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build(**kw)
+    gb = build(device="cpu")
+    st = gb.init_state()
+    assert gb.device.type == "cpu" and st["hh"].device.type == "cpu"
+    assert st["hh"].shape[-1] == kernels.WIDE_W["hh"]
+
+
 def _fake_cuda_inputs(bad: str = ""):
     """State and fold inputs as fake CUDA tensors (no card needed); `bad`
     spoils one of them."""
@@ -180,3 +211,44 @@ def test_wrapper_checks_inputs(bad):
                                     x["slots"], x["pane"],
                                     kernels.column_map({"n": [0]}))
     assert kernels._lib is None
+
+
+def test_sketch_wrappers_never_take_the_plain_versions(monkeypatch):
+    """The three sketch kernels' wrappers, and the pane reset over wide
+    state, given CUDA tensors: the launch path fails loudly without a
+    card or nvcc, and no plain version runs."""
+    _needs_no_card()
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    taken = []
+    for name in ("fold_wide_plain", "finalize_wide_plain",
+                 "hh_finalize_plain", "reset_pane_plain"):
+        monkeypatch.setattr(kernels, name,
+                            lambda *a, _n=name, **k: taken.append(_n))
+    kernels.reset_launches()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        state = {comp: torch.zeros((1, 8, 1, w), device="cuda")
+                 for comp, w in kernels.WIDE_W.items()}
+        state["act"] = torch.zeros((1, 8), device="cuda")
+        V = torch.ones((3, 4), device="cuda")
+        M = torch.ones((3, 4), dtype=torch.bool, device="cuda")
+        slots = torch.zeros(4, dtype=torch.int32, device="cuda")
+        mask = torch.ones(1, dtype=torch.bool, device="cuda")
+        out = torch.zeros((9, 8), device="cuda")
+    widemap = np.array([[0, 0, 0], [1, 0, 1], [2, 0, 2]], dtype=np.int32)
+    calls = [
+        lambda: kernels.groupby_fold_wide(state, V, M, slots, 0, widemap),
+        lambda: kernels.groupby_finalize_wide(
+            state, mask, np.array([[0, 0, 0], [1, 0, 1]]),
+            np.array([0.0, 0.5]), out),
+        lambda: kernels.groupby_hh_finalize(state, mask,
+                                            np.array([[0, 3, 2]]), out),
+        lambda: kernels.groupby_reset_pane(state, 0),
+    ]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # fake data_ptr()
+        for call in calls:
+            with pytest.raises((RuntimeError, AssertionError)):
+                call()
+    assert taken == []
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)

@@ -8,6 +8,9 @@ Tolerances, each against the JAX node's output: keys, counts, min and max
 exact; avg rtol 1e-5 (float32 scatter-add order); stddev rtol 1e-4 plus
 the cancellation floor 4·sqrt(ε32)·|mean| for keys whose variance is ~0.
 """
+import gc
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -40,6 +43,21 @@ HOPPING = (
     "FROM demo GROUP BY deviceId, HOPPINGWINDOW(ss, 10, 5)"
 )
 N_DEV, ROWS, SLOTS, MB = 150, 400, 256, 256
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_cyclic_gc_inside_jax_locks():
+    """The JAX package's devwatch registry prunes its weakrefs under a lock
+    that a dying watch's __del__ also takes, so a cyclic collection that
+    lands inside the prune deadlocks the process. This module builds many
+    JAX group-bys: it runs with the cyclic collector off and collects once
+    at its end, outside any lock."""
+    enabled = gc.isenabled()
+    gc.disable()
+    yield
+    if enabled:
+        gc.enable()
+    gc.collect()
 
 
 def _jax_node(sql, columnar=True, direct=True):
@@ -87,13 +105,16 @@ def _batches(seed, n_batches):
 
 
 def _drive(jnode, tnode, batches, per_window, t0=0):
+    """Each batch is a column dict, or (column dict, validity dict)."""
     interval = jnode._tick_interval()
     for w in range(len(batches) // per_window):
         for cols in batches[w * per_window:(w + 1) * per_window]:
-            jnode.process(JaxBatch(n=ROWS, columns=dict(cols),
-                                   emitter="demo"))
-            tnode.process(ColumnBatch(n=ROWS, columns=dict(cols),
-                                      emitter="demo"))
+            cols, valid = cols if isinstance(cols, tuple) else (cols, {})
+            n = len(next(iter(cols.values())))
+            jnode.process(JaxBatch(n=n, columns=dict(cols),
+                                   valid=dict(valid), emitter="demo"))
+            tnode.process(ColumnBatch(n=n, columns=dict(cols),
+                                      valid=dict(valid), emitter="demo"))
         ts = t0 + (w + 1) * interval
         jnode.on_trigger(JaxTrigger(ts=ts))
         jnode._drain_async_emits()
@@ -128,6 +149,10 @@ def _assert_same_windows(got, ref):
                     floor = 4 * np.sqrt(np.finfo(np.float32).eps) * abs(
                         r.get("avg_t", 20.0))
                     assert abs(gv - rv) <= 1e-4 * abs(rv) + floor, k
+                elif k.startswith("p9"):  # percentile: the same bin centre
+                    assert gv == pytest.approx(rv, rel=4 * 2.0 ** -23), k
+                elif k.startswith("u_"):  # hll estimate
+                    assert abs(gv - rv) <= 1, k
                 else:
                     assert gv == rv, k
 
@@ -185,7 +210,7 @@ def test_reference_checkpoint_restores_into_port(sql):
 def test_port_rejects_shapes_it_does_not_run():
     with pytest.raises(NotImplementedError):
         plan_fused_rule("SELECT d, hll(v) AS h FROM s "
-                        "GROUP BY d, TUMBLINGWINDOW(ss, 10)", device="cpu")
+                        "GROUP BY d, COUNTWINDOW(100)", device="cpu")
     with pytest.raises(NotImplementedError):
         plan_fused_rule("SELECT d, avg(v) AS a FROM s "
                         "GROUP BY d, SLIDINGWINDOW(ss, 10)", device="cpu")
@@ -230,5 +255,135 @@ def test_kernel_failure_reaches_the_caller(stage, monkeypatch):
     monkeypatch.setattr(kernels, stage, fail)
     with pytest.raises(RuntimeError, match="failed"):
         tnode.process(ColumnBatch(n=ROWS, columns=dict(batch)))
+        tnode.on_trigger(Trigger(ts=10_000))
+    assert got == []
+
+
+# ------------------------------------------------------------ sketch rules
+# BASELINE config #2 (bench.py bench_hopping_heavy_hitters), and the other
+# three sketch aggregates of bench.py's 256-rule mix (bench.py:1623,
+# 1626) in one hopping rule. Tolerances beyond the ones above:
+# heavy-hitter lists equal; the percentile in the same bin within 4 ulp
+# (torch.exp against XLA's exp on the bin centre); hll estimates within
+# ±1 (a 256-term float32 sum in another order). The hll inputs here hit no
+# value where jnp.log2 misses floor(log2) (the register-level exception,
+# tests/test_torch_sketches.py), which _hll_misses checks.
+HH_RULE = ("SELECT deviceId, heavy_hitters(code, 3) AS top, count(*) AS c "
+           "FROM demo GROUP BY deviceId, HOPPINGWINDOW(ss, 10, 5)")
+WIDE_RULE = ("SELECT deviceId, stddev(temperature) AS sd, percentile_approx"
+             "(temperature, 0.9) AS p90, hll(humidity) AS u_h, "
+             "distinct_count_approx(code) AS u_c FROM demo "
+             "GROUP BY deviceId, HOPPINGWINDOW(ss, 10, 5)")
+
+
+def _sketch_batches(seed, n_batches, codes="int"):
+    """bench.py's skewed codes (7 at 35 %, 13 at 20 %, 99 at 15 %, a
+    2,000-value tail), N(20, 5) temperatures, humidity on the 1,000
+    one-decimal values; dev_empty's codes are all NULL."""
+    rng = np.random.default_rng(seed)
+    ids = np.array([f"dev_{i}" for i in range(N_DEV)] + ["dev_empty"],
+                   dtype=np.object_)
+    out = []
+    for _ in range(n_batches):
+        idx = rng.integers(0, N_DEV + 1, ROWS)
+        p = rng.random(ROWS)
+        code = np.where(p < 0.35, 7, np.where(p < 0.55, 13, np.where(
+            p < 0.70, 99, rng.integers(100, 2100, ROWS)))).astype(np.int64)
+        null = (rng.random(ROWS) < 0.05) | (idx == N_DEV)
+        cols = {"deviceId": ids[idx],
+                "temperature": rng.normal(20, 5, ROWS).astype(np.float32),
+                "humidity": (rng.integers(0, 1000, ROWS) / 10).astype(
+                    np.float32)}
+        if codes == "str":
+            col = np.array([f"c{c}" for c in code], dtype=np.object_)
+            col[null] = None
+            cols["code"] = col
+            out.append(cols)
+        else:
+            cols["code"] = code
+            out.append((cols, {"code": ~null}))
+    return out
+
+
+def _hll_misses(batches):
+    from ekuiper_tpu.ops import sketches as jsk
+    from ekuiper_tpu_torch.ops.aggspec import encode_hll_column
+
+    vals = np.unique(np.concatenate([
+        encode_hll_column(b[0]["humidity"] if isinstance(b, tuple)
+                          else b["humidity"], ROWS) for b in batches]))
+    hv = np.maximum(np.asarray(jsk.hash_f32(vals, 1)), 1).astype(np.float32)
+    exact = np.floor(np.log2(hv.astype(np.float64)))
+    return int((np.asarray(jnp.floor(jnp.log2(jnp.asarray(hv)))) != exact)
+               .sum())
+
+
+@pytest.mark.parametrize("sql,codes,per_window", [
+    (HH_RULE, "str", 2), (WIDE_RULE, "int", 2)],
+    ids=["heavy_hitters-str", "percentile-hll"])
+def test_sketch_rule_matches_reference(sql, codes, per_window):
+    jnode, ref = _jax_node(sql)
+    tnode, got = _port_node(sql)
+    batches = _sketch_batches(21, 3 * per_window, codes)
+    assert _hll_misses(batches) == 0
+    _drive(jnode, tnode, batches, per_window)
+    _assert_same_windows(got, ref)
+    for cb in got:
+        rows = {r["deviceId"]: r for r in _rows(cb)}
+        if "top" in rows["dev_0"]:
+            assert rows["dev_empty"]["top"] == []  # NULL codes only
+            lead = [r["top"][0]["value"] for r in rows.values() if r["top"]]
+            assert lead.count("c7") > len(lead) / 2  # 35 % of the rows
+
+
+def test_heavy_hitters_checkpoint_restores_across_packages():
+    """A JAX checkpoint with its value dictionaries restores into the port
+    and the port's into the JAX package; integer codes decode to ints."""
+    jnode, ref = _jax_node(HH_RULE)
+    batches = _sketch_batches(23, 6, "int")
+    for cols, valid in batches[:2]:
+        jnode.process(JaxBatch(n=ROWS, columns=dict(cols),
+                               valid=dict(valid), emitter="demo"))
+    jnode.on_trigger(JaxTrigger(ts=jnode._tick_interval()))
+    jnode._drain_async_emits()
+    cols, valid = batches[2]
+    jnode.process(JaxBatch(n=ROWS, columns=dict(cols), valid=dict(valid),
+                           emitter="demo"))
+    snap = jnode.snapshot_state()
+    assert snap["hh_dicts"]["code"][:3] == [7, 13, 99]
+    ref.clear()
+    tnode, got = _port_node(HH_RULE)
+    tnode.restore_state(snap)
+    mine = tnode.snapshot_state()
+    assert mine["hh_dicts"] == snap["hh_dicts"]
+    assert mine["partials"] == {k: v for k, v in snap["partials"].items()
+                                if k != "touch"}
+    back, _ = _jax_node(HH_RULE)
+    back.restore_state(mine)
+    assert back.snapshot_state()["partials"] == snap["partials"]
+    _drive(jnode, tnode, batches[3:], 3, t0=jnode._tick_interval())
+    _assert_same_windows(got, ref)
+    top = {r["deviceId"]: r["top"] for r in _rows(got[-1])}
+    assert top["dev_empty"] == []
+    assert all(type(e["value"]) is int for t in top.values() for e in t)
+
+
+@pytest.mark.parametrize("stage", ["fold_wide_plain", "finalize_wide_plain",
+                                   "hh_finalize_plain"])
+def test_sketch_kernel_failure_reaches_the_caller(stage, monkeypatch):
+    """As test_kernel_failure_reaches_the_caller, for the sketch kernels."""
+    sql = ("SELECT deviceId, heavy_hitters(code, 3) AS top, "
+           "hll(humidity) AS u FROM demo "
+           "GROUP BY deviceId, TUMBLINGWINDOW(ss, 10)")
+    tnode, got = _port_node(sql)
+    cols, valid = _sketch_batches(5, 1)[0]
+
+    def fail(*args, **kwargs):
+        raise RuntimeError(f"{stage} failed")
+
+    monkeypatch.setattr(kernels, stage, fail)
+    with pytest.raises(RuntimeError, match="failed"):
+        tnode.process(ColumnBatch(n=ROWS, columns=dict(cols),
+                                  valid=dict(valid)))
         tnode.on_trigger(Trigger(ts=10_000))
     assert got == []

@@ -10,14 +10,16 @@ Phases (each prints its own lines; any failure exits non-zero and prints
 no result):
 
 1. the card (nvidia-smi name and power limit) and the kernels' build time
-   (csrc/groupby.cu and csrc/sketches.cu, one nvcc each for sm_90a, run
-   together);
+   (csrc/groupby.cu, csrc/sketches.cu and csrc/prefinalize.cu, one nvcc
+   each for sm_90a, run together);
 2. each kernel against its plain PyTorch version on the card, at the main
    path's shapes (65,536 rows, 16,384 slots; the sketch kernels at the
-   sketch rules' state, up to 2 panes x 16,384 x 2,688 floats): error,
-   kernel time (CUDA events), the kernel body's own device time (profiler
-   trace) and the host time of one wrapper call, plain time, a library
-   yardstick and the bytes/operations bound;
+   sketch rules' state, up to 2 panes x 16,384 x 2,688 floats; the
+   components merge and the absorb at the phase C rules' state, up to
+   16,384 x 1,028 floats): error, kernel time (CUDA events), the kernel
+   body's own device time (profiler trace) and the host time of one
+   wrapper call, plain time, a library yardstick and the bytes/operations
+   bound;
 3. end to end, tumbling: the flagship rule
    `SELECT deviceId, avg(temperature), count(*), min(temperature),
    max(temperature) FROM demo GROUP BY deviceId, TUMBLINGWINDOW(ss, 10)`
@@ -37,6 +39,22 @@ B. the wide finalize: bench.py:1623 (`stddev` + `percentile_approx
    hopping), every emitted value held against numpy twins of the bins and
    registers (the percentile in the same bin, hll within ±1), and the
    sketches' error against exact quantiles and distinct counts printed;
+   (phases 3, 4, A and B plan with prefinalizeLeadMs 0, the synchronous
+   boundary, and drive on_trigger by hand);
+C. the boundary as the reference runs it by default (prefinalizeLeadMs
+   250, tailMode device, the tumbling backstop): each rule opened on the
+   mock clock, whose timers fire the pre-triggers and boundaries, with
+   two of every 16 batches in a window's tail. C1 the flagship tumbling
+   rule three times (backstop on; backstop off, where every boundary must
+   be served by its device fetch; tailMode host with a snapshot inside
+   the frozen span, whose absorbed partials must equal a lead-0 twin's),
+   C2 the hopping stddev rule (every other window's pre-issue held on the
+   card past its boundary, so the emit worker delivers it), C3 the
+   percentile and hll rules, C4 the heavy-hitters rule on the async emit.
+   Every emitted row is held against the same references as phases
+   3/4/A/B; any boundary served by a recovery route fails the run. Per run:
+   rows/s, the boundary's stall on the fold thread, delivery latency, the
+   fetches' copy time and size, shadow fold time, boundaries by source;
 5. each kernel's launch count on the paths that use it (each must be
    > 0), then the JSON kernel table and the one-line result.
 """
@@ -89,6 +107,9 @@ SKETCH_WINDOWS, SKETCH_BATCHES = 9, 16
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
 EPS32 = float(np.finfo(np.float32).eps)
+#: the synchronous boundary (prefinalizeLeadMs 0): phases 3, 4, A and B
+#: measure the finalize route as they did before phase C existed
+SYNC = {"prefinalizeLeadMs": 0}
 SOURCE = {
     "groupby_fold_scalar": "ekuiper_tpu_torch/csrc/groupby.cu",
     "groupby_finalize_scalar": "ekuiper_tpu_torch/csrc/groupby.cu",
@@ -96,6 +117,8 @@ SOURCE = {
     "groupby_fold_wide": "ekuiper_tpu_torch/csrc/sketches.cu",
     "groupby_finalize_wide": "ekuiper_tpu_torch/csrc/sketches.cu",
     "groupby_hh_finalize": "ekuiper_tpu_torch/csrc/sketches.cu",
+    "groupby_components": "ekuiper_tpu_torch/csrc/prefinalize.cu",
+    "groupby_absorb": "ekuiper_tpu_torch/csrc/prefinalize.cu",
 }
 REPLACES = {
     "groupby_fold_scalar": "ekuiper_tpu/ops/groupby.py:348",
@@ -104,6 +127,8 @@ REPLACES = {
     "groupby_fold_wide": "ekuiper_tpu/ops/groupby.py:419",
     "groupby_finalize_wide": "ekuiper_tpu/ops/groupby.py:510",
     "groupby_hh_finalize": "ekuiper_tpu/ops/groupby.py:628",
+    "groupby_components": "ekuiper_tpu/ops/groupby.py:541",
+    "groupby_absorb": "ekuiper_tpu/ops/groupby.py:729",
 }
 #: which end-to-end paths launch each kernel (phase 5 checks each > 0)
 PATHS = {
@@ -113,6 +138,9 @@ PATHS = {
     "groupby_fold_wide": ("hh", "pct", "hll"),
     "groupby_finalize_wide": ("pct", "hll"),
     "groupby_hh_finalize": ("hh",),
+    "groupby_components": ("c1", "c1_nobackstop", "c1_host", "c2", "c3_pct",
+                           "c3_hll"),
+    "groupby_absorb": ("c1_host",),
 }
 
 
@@ -148,10 +176,11 @@ def time_ms(torch, fn, reps: int) -> float:
 
 
 def body_ms(torch, fn, kernel: str, reps: int):
-    """Mean device time of the CUDA kernel `kernel` inside `fn`, from the
-    profiler's CUPTI trace: the kernel body alone, without the launch and
-    the timing events around it. None when the trace holds no such
-    kernel."""
+    """Median device time of the CUDA kernel `kernel` inside `fn`, from
+    the profiler's CUPTI trace: the kernel body alone, without the launch
+    and the timing events around it; over the last `reps` launches the
+    trace holds (a trace can also hold a launch of an earlier session, or
+    miss one). None when the trace holds no such kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -161,9 +190,11 @@ def body_ms(torch, fn, kernel: str, reps: int):
             fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if kernel in e.name and e.device_type == cuda]
-    return statistics.median(us) / 1e3 if len(us) == reps else None
+    ev = sorted((e.time_range.start, e.time_range.elapsed_us())
+                for e in prof.events()
+                if kernel in e.name and e.device_type == cuda)
+    us = [d for _, d in ev[-reps:]]
+    return statistics.median(us) / 1e3 if us else None
 
 
 def host_ms(torch, fn, reps: int) -> float:
@@ -722,7 +753,8 @@ def run_rule(torch, seed, sql, interval_ms, span, kernels, mods):
     parts = [reference_aggs(idx[w * per:(w + 1) * per],
                             temp[w * per:(w + 1) * per], N_KEYS)
              for w in range(n_int)]
-    node = plan_fused_rule(sql, key_slots=SLOTS, micro_batch=ROWS)
+    node = plan_fused_rule(sql, key_slots=SLOTS, micro_batch=ROWS,
+                           options=SYNC)
     check(node.gb.device.type == "cuda", "rule is not on the card")
     emitted = []
     node.broadcast = emitted.append
@@ -733,7 +765,8 @@ def run_rule(torch, seed, sql, interval_ms, span, kernels, mods):
                                       "encode")
     node.gb.fold = timed(node.gb.fold, stages, "fold")
     # warm the path (allocator, pinned pool) on a throwaway node
-    warm = plan_fused_rule(sql, key_slots=SLOTS, micro_batch=ROWS)
+    warm = plan_fused_rule(sql, key_slots=SLOTS, micro_batch=ROWS,
+                           options=SYNC)
     warm.broadcast = lambda item: None
     warm.process(batches[0])
     warm.on_trigger(Trigger(ts=interval_ms))
@@ -860,13 +893,70 @@ def key_ids(col):
     return np.array([int(k[4:]) for k in col.tolist()])
 
 
+class HHTwin:
+    """The heavy-hitters rule's numpy twin over its hop windows: its own
+    value dictionary, two pane sketches, exact counts and exact rows of
+    code 7; `close_window` returns the expected (top lists, counts,
+    sevens) of the window that ends and expires its oldest pane."""
+
+    def __init__(self):
+        self.codes = TwinCodes()
+        self.panes = [np.zeros(N_KEYS * HH_SIZE), np.zeros(N_KEYS * HH_SIZE)]
+        self.counts = [np.zeros(N_KEYS), np.zeros(N_KEYS)]
+        self.sevens = [np.zeros(N_KEYS), np.zeros(N_KEYS)]
+
+    def close_window(self, w, idx, code):
+        cur = w % 2
+        for b in range(len(idx)):
+            twin_hh_fold(self.panes[cur], idx[b], self.codes.encode(code[b]))
+            self.counts[cur] += np.bincount(idx[b], minlength=N_KEYS)
+            self.sevens[cur] += np.bincount(idx[b][code[b] == 7],
+                                            minlength=N_KEYS)
+        merged = (self.panes[0] + self.panes[1]).reshape(N_KEYS, HH_SIZE)
+        out = (twin_hh_top(merged, 3), self.counts[0] + self.counts[1],
+               self.sevens[0] + self.sevens[1])
+        for x in (self.panes, self.counts, self.sevens):
+            x[1 - cur][:] = 0.0  # the pane that expires now
+        return out
+
+
+def check_hh_windows(emitted, expect, values, what):
+    """Every emitted heavy-hitters row against the twin: keys, counts and
+    top lists equal; returns (rows, lists led by code 7)."""
+    check(len(emitted) == len(expect),
+          f"{what}: {len(emitted)} windows, want {len(expect)}")
+    n_rows, led = 0, 0
+    for w, (cb, (tops, cnt, seven)) in enumerate(zip(emitted, expect)):
+        keys = key_ids(cb.columns["deviceId"])
+        live = np.nonzero(cnt > 0)[0]
+        check(cb.n == len(live) and (np.sort(keys) == live).all(),
+              f"{what} window {w}: emitted keys differ")
+        check((cb.columns["c"] == cnt[keys]).all(),
+              f"{what} window {w}: count")
+        for key, top in zip(keys.tolist(), cb.columns["top"].tolist()):
+            want = [{"value": values[c], "count": n} for c, n in tops[key]]
+            check(top == want, f"{what} window {w} key {key}: {top} != "
+                  f"{want}")
+            led += bool(top) and top[0]["value"] == 7
+            # another code leads only where 7's exact count does not
+            # exceed the leader's (over-)estimate
+            check(top[0]["value"] == 7 or seven[key] <= top[0]["count"],
+                  f"{what} window {w} key {key}: 7 ({seven[key]:.0f} rows) "
+                  f"behind {top[0]}")
+        n_rows += cb.n
+    check(led >= 0.99 * n_rows, f"{what}: 7 leads only {led} of {n_rows} "
+          "lists")
+    return n_rows, led
+
+
 def run_hh_rule(torch, seed, kernels, mods):
     """Phase A: the heavy-hitters hopping rule on the card, every emitted
     row held against the numpy twin."""
     plan_fused_rule, ColumnBatch, Trigger = mods
     rng = np.random.default_rng(seed + 7)
     ids = np.array([f"dev_{i}" for i in range(N_KEYS)], dtype=np.object_)
-    node = plan_fused_rule(HH_RULE, key_slots=SLOTS, micro_batch=ROWS)
+    node = plan_fused_rule(HH_RULE, key_slots=SLOTS, micro_batch=ROWS,
+                           options=SYNC)
     check(node.gb.device.type == "cuda", "rule is not on the card")
     check(node.gb.capacity == 2048, "heavy-hitters state does not start "
           f"at 2,048 slots ({node.gb.capacity})")
@@ -884,15 +974,11 @@ def run_hh_rule(torch, seed, kernels, mods):
     node.gb.finalize = timed(node.gb.finalize, stages, "finalize")
     node.gb.hh_assemble = timed(node.gb.hh_assemble, stages, "assemble")
     node._decode_hh = timed(node._decode_hh, stages, "decode")
-    twin_dict = TwinCodes()
-    panes = [np.zeros(N_KEYS * HH_SIZE), np.zeros(N_KEYS * HH_SIZE)]
-    counts = [np.zeros(N_KEYS), np.zeros(N_KEYS)]
-    sevens = [np.zeros(N_KEYS), np.zeros(N_KEYS)]  # exact rows of code 7
+    twin = HHTwin()
     expect = []
     kernels.reset_launches()
     emit_ms, wall = [], 0.0
     for w in range(SKETCH_WINDOWS):
-        cur = w % 2
         idx = rng.integers(0, N_KEYS, (SKETCH_BATCHES, ROWS))
         code = skewed_codes(rng, SKETCH_BATCHES * ROWS).reshape(idx.shape)
         last = w == SKETCH_WINDOWS - 1
@@ -910,40 +996,12 @@ def run_hh_rule(torch, seed, kernels, mods):
         wall += t1 - t0
         if last:
             busy = trace.busy_us() / ((t1 - t0) * 1e6)
-        for b in range(SKETCH_BATCHES):
-            twin_hh_fold(panes[cur], idx[b], twin_dict.encode(code[b]))
-            counts[cur] += np.bincount(idx[b], minlength=N_KEYS)
-            sevens[cur] += np.bincount(idx[b][code[b] == 7],
-                                       minlength=N_KEYS)
-        merged = (panes[0] + panes[1]).reshape(N_KEYS, HH_SIZE)
-        expect.append((twin_hh_top(merged, 3), counts[0] + counts[1],
-                       sevens[0] + sevens[1]))
-        for x in (panes, counts, sevens):  # the pane that expires now
-            x[1 - cur][:] = 0.0
+        expect.append(twin.close_window(w, idx, code))
     launches = dict(kernels.LAUNCHES)
     check(node.gb.capacity == SLOTS and node.state["hh"].shape[1] == SLOTS,
           f"heavy-hitters state at {node.gb.capacity} slots, want {SLOTS}")
-    check(len(emitted) == SKETCH_WINDOWS,
-          f"{len(emitted)} windows, want {SKETCH_WINDOWS}")
-    n_rows, led = 0, 0
-    for w, (cb, (tops, cnt, seven)) in enumerate(zip(emitted, expect)):
-        keys = key_ids(cb.columns["deviceId"])
-        live = np.nonzero(cnt > 0)[0]
-        check(cb.n == len(live) and (np.sort(keys) == live).all(),
-              f"window {w}: emitted keys differ")
-        check((cb.columns["c"] == cnt[keys]).all(), f"window {w}: count")
-        for key, top in zip(keys.tolist(), cb.columns["top"].tolist()):
-            want = [{"value": twin_dict.values[c], "count": n}
-                    for c, n in tops[key]]
-            check(top == want, f"window {w} key {key}: {top} != {want}")
-            led += bool(top) and top[0]["value"] == 7
-            # another code leads only where 7's exact count does not
-            # exceed the leader's (over-)estimate
-            check(top[0]["value"] == 7 or seven[key] <= top[0]["count"],
-                  f"window {w} key {key}: 7 ({seven[key]:.0f} rows) "
-                  f"behind {top[0]}")
-        n_rows += cb.n
-    check(led >= 0.99 * n_rows, f"7 leads only {led} of {n_rows} lists")
+    n_rows, led = check_hh_windows(emitted, expect, twin.codes.values,
+                                   "phase A")
     n_b = SKETCH_WINDOWS * SKETCH_BATCHES
     return launches, dict(
         rows=n_rows, led_by_7=led, rows_per_s=n_b * ROWS / wall,
@@ -1044,6 +1102,65 @@ def value_bin(v):
                     np.where(v < 0, HIST_HALF - 1 - m, HIST_HALF))
 
 
+def wide_data(rng, tag):
+    """One interval of a sketch rule's rows: key indices and values
+    (temperature N(20, 5), or humidity on its 1,000 one-decimal values)."""
+    idx = rng.integers(0, N_KEYS, (SKETCH_BATCHES, ROWS))
+    if tag == "pct":
+        vals = rng.normal(20, 5, (SKETCH_BATCHES, ROWS)).astype(np.float32)
+    else:
+        vals = (rng.integers(0, 1000, (SKETCH_BATCHES, ROWS))
+                / 10).astype(np.float32)
+    return idx, vals
+
+
+def check_wide_windows(tag, emitted, spans, span, what):
+    """Every emitted value of a sketch rule against the twins: the
+    percentile in the twin's bin (one over only at a bin edge), hll within
+    ±1. Returns (rows, rows one bin over, mean sketch error)."""
+    check(len(emitted) == len(spans),
+          f"{what}: {len(emitted)} windows, want {len(spans)}")
+    n_rows, edge_rows, errs = 0, 0, []
+    for w, cb in enumerate(emitted):
+        ks = np.concatenate([s[0] for s in spans[max(0, w - span + 1):
+                                                 w + 1]])
+        vs = np.concatenate([s[1] for s in spans[max(0, w - span + 1):
+                                                 w + 1]])
+        keys = key_ids(cb.columns["deviceId"])
+        live = np.unique(ks)
+        check(cb.n == len(live) and (np.sort(keys) == live).all(),
+              f"{what} window {w}: emitted keys differ")
+        if tag == "pct":
+            b, near = twin_bins(vs)
+            hist = np.bincount(ks * HIST_BINS + b,
+                               minlength=N_KEYS * HIST_BINS).reshape(
+                                   N_KEYS, HIST_BINS)
+            qb, _ = twin_quantile_bin(hist, 0.9)
+            edge_key = np.zeros(N_KEYS, dtype=bool)
+            edge_key[ks[near]] = True
+            got = value_bin(np.asarray(cb.columns["p90"], dtype=np.float32))
+            d = np.abs(got - qb[keys])
+            check(((d == 0) | ((d == 1) & edge_key[keys])).all(),
+                  f"{what} window {w}: percentile bin differs")
+            edge_rows += int((d == 1).sum())
+            errs.append(exact_quantile_err(ks, vs, keys, cb.columns["p90"],
+                                           0.9))
+        else:
+            reg, rho = twin_hll(vs)
+            regs = twin_registers(ks * HLL_M + reg, rho)
+            est = twin_hll_estimate(regs)
+            u = np.asarray(cb.columns["u"], dtype=np.float64)
+            check((np.abs(u - est[keys]) <= 1).all(),
+                  f"{what} window {w}: estimate beyond ±1 "
+                  f"(max {np.abs(u - est[keys]).max()})")
+            exact = np.bincount(np.unique(ks * 1000 + np.rint(
+                vs * 10).astype(np.int64)) // 1000, minlength=N_KEYS)
+            errs.append(float(np.mean(np.abs(u - exact[keys])
+                                      / exact[keys])))
+        n_rows += cb.n
+    return n_rows, edge_rows, float(np.mean(errs))
+
+
 def run_wide_rules(torch, seed, kernels, mods):
     """Phase B: the percentile tumbling rule and the hll hopping rule on
     the card against the twins; prints the sketches' error against exact
@@ -1054,23 +1171,17 @@ def run_wide_rules(torch, seed, kernels, mods):
     out = {}
     for tag, sql, interval, span in (("pct", PCT_RULE, 10_000, 1),
                                      ("hll", HLL_RULE, 5_000, 2)):
-        node = plan_fused_rule(sql, key_slots=SLOTS, micro_batch=ROWS)
+        node = plan_fused_rule(sql, key_slots=SLOTS, micro_batch=ROWS,
+                               options=SYNC)
         check(node.gb.device.type == "cuda", "rule is not on the card")
         emitted = []
         node.broadcast = emitted.append
         spans = []  # per interval: (key idx, values)
         kernels.reset_launches()
         emit_ms = []
+        col = "temperature" if tag == "pct" else "humidity"
         for w in range(SKETCH_WINDOWS):
-            idx = rng.integers(0, N_KEYS, (SKETCH_BATCHES, ROWS))
-            if tag == "pct":
-                vals = rng.normal(20, 5, (SKETCH_BATCHES, ROWS)).astype(
-                    np.float32)
-                col = "temperature"
-            else:
-                vals = (rng.integers(0, 1000, (SKETCH_BATCHES, ROWS))
-                        / 10).astype(np.float32)
-                col = "humidity"
+            idx, vals = wide_data(rng, tag)
             for b in range(SKETCH_BATCHES):
                 node.process(ColumnBatch(n=ROWS, columns={
                     "deviceId": ids[idx[b]], col: vals[b]}, emitter="demo"))
@@ -1080,48 +1191,10 @@ def run_wide_rules(torch, seed, kernels, mods):
             emit_ms.append((time.perf_counter() - t) * 1e3)
             spans.append((idx.ravel(), vals.ravel()))
         launches = dict(kernels.LAUNCHES)
-        check(len(emitted) == SKETCH_WINDOWS, f"{tag}: {len(emitted)} windows")
-        n_rows, edge_rows, errs = 0, 0, []
-        for w, cb in enumerate(emitted):
-            ks = np.concatenate([s[0] for s in spans[max(0, w - span + 1):
-                                                     w + 1]])
-            vs = np.concatenate([s[1] for s in spans[max(0, w - span + 1):
-                                                     w + 1]])
-            keys = key_ids(cb.columns["deviceId"])
-            live = np.unique(ks)
-            check(cb.n == len(live) and (np.sort(keys) == live).all(),
-                  f"{tag} window {w}: emitted keys differ")
-            if tag == "pct":
-                b, near = twin_bins(vs)
-                hist = np.bincount(ks * HIST_BINS + b,
-                                   minlength=N_KEYS * HIST_BINS).reshape(
-                                       N_KEYS, HIST_BINS)
-                qb, _ = twin_quantile_bin(hist, 0.9)
-                edge_key = np.zeros(N_KEYS, dtype=bool)
-                edge_key[ks[near]] = True
-                got = value_bin(np.asarray(cb.columns["p90"],
-                                           dtype=np.float32))
-                d = np.abs(got - qb[keys])
-                check(((d == 0) | ((d == 1) & edge_key[keys])).all(),
-                      f"pct window {w}: percentile bin differs")
-                edge_rows += int((d == 1).sum())
-                errs.append(exact_quantile_err(ks, vs, keys,
-                                               cb.columns["p90"], 0.9))
-            else:
-                reg, rho = twin_hll(vs)
-                regs = twin_registers(ks * HLL_M + reg, rho)
-                est = twin_hll_estimate(regs)
-                u = np.asarray(cb.columns["u"], dtype=np.float64)
-                check((np.abs(u - est[keys]) <= 1).all(),
-                      f"hll window {w}: estimate beyond ±1 "
-                      f"(max {np.abs(u - est[keys]).max()})")
-                exact = np.bincount(np.unique(ks * 1000 + np.rint(
-                    vs * 10).astype(np.int64)) // 1000, minlength=N_KEYS)
-                errs.append(float(np.mean(np.abs(u - exact[keys])
-                                          / exact[keys])))
-            n_rows += cb.n
+        n_rows, edge_rows, err = check_wide_windows(tag, emitted, spans,
+                                                    span, tag)
         out[tag] = dict(launches=launches, rows=n_rows, edge_rows=edge_rows,
-                        sketch_err=float(np.mean(errs)), emit_ms=emit_ms)
+                        sketch_err=err, emit_ms=emit_ms)
     return out
 
 
@@ -1137,6 +1210,465 @@ def exact_quantile_err(ks, vs, keys, got, q):
     exact = vs[start + lo] + (vs[start + hi] - vs[start + lo]) * (pos - lo)
     return float(np.mean(np.abs(np.asarray(got, dtype=np.float64) - exact)
                          / np.abs(exact)))
+
+
+# ---------------------------------------- phase 2, the prefinalize kernels
+def library_components(torch, state, pm, comps, kernels):
+    """Yardstick, never called by the port: the pane merge as PyTorch's
+    own calls, where + sum/amin/amax over the pane axis per component,
+    then one cat."""
+    C = state["act"].shape[1]
+    parts = []
+    for comp in comps:
+        arr = state[comp]
+        m = pm.view(-1, *([1] * (arr.dim() - 1)))
+        if comp == "mn":
+            r = torch.where(m, arr, float("inf")).amin(dim=0)
+        elif comp in ("mx", "hll"):
+            r = torch.where(m, arr, float("-inf")).amax(dim=0)
+        else:
+            r = torch.where(m, arr, 0.0).sum(dim=0)
+        parts.append(r.reshape(C, -1))
+    return torch.cat(parts, dim=1)
+
+
+def library_absorb(torch, state, shadow, pane):
+    """Yardstick: one in-place add_ / minimum / maximum per component."""
+    for comp, sh in shadow.items():
+        dst = state[comp][pane, :sh.shape[0]]
+        if comp == "mn":
+            torch.minimum(dst, sh, out=dst)
+        elif comp in ("mx", "hll"):
+            torch.maximum(dst, sh, out=dst)
+        else:
+            dst.add_(sh)
+
+
+def random_shadow(torch, gb, state, rng, dev):
+    """A shadow's components over every slot: small integer counters and
+    registers, N(20, 5) sums, mins and maxes."""
+    C = gb.capacity
+    out = {}
+    for comp, arr in state.items():
+        shape = (C, *arr.shape[2:])
+        if comp in ("s1", "s2", "mn", "mx"):
+            host = rng.normal(20, 5, shape).astype(np.float32)
+        else:
+            host = rng.integers(0, 5, shape).astype(np.float32)
+        out[comp] = torch.from_numpy(host).to(dev)
+    return out
+
+
+def prefinalize_kernel_checks(torch, seed, kernels, plan_fused_rule, dev):
+    """groupby_components and groupby_absorb against their plain versions
+    at the phase C rules' full state: the merge bit-equal under the full,
+    a subset and the empty mask (the -inf / +inf identities); the absorb
+    bit-equal (one add, min or max per element)."""
+    rows = {}
+    for tag, sql in (("tumbling", TUMBLING), ("hopping", HOPPING),
+                     ("pct", PCT_RULE), ("hll", HLL_RULE)):
+        node = plan_fused_rule(sql, key_slots=SLOTS, micro_batch=ROWS,
+                               device=dev)
+        gb = node.gb
+        P = gb.n_panes
+        st = gb.init_state()
+        for pane in range(P):
+            base, V, M, s_dev, _ = sketch_inputs(torch, gb, seed + 70 + pane,
+                                                 dev)
+            kernels.fold_scalar_plain(st, base, V, M, s_dev, pane,
+                                      gb._colmap)
+            if len(gb._widemap):
+                kernels.fold_wide_plain(st, V, M, s_dev, pane, gb._widemap)
+        comps = gb._comp_order
+        width = sum(st[c][0, 0].numel() for c in comps)
+        for panes in [None, []] + ([[1]] if P == 2 else []):
+            pm = gb._pane_mask(panes)
+            mtag = ("full" if panes is None else
+                    f"subset{panes}" if panes else "empty")
+            got = kernels.groupby_components(st, pm, comps)
+            ref = kernels.components_plain(st, pm, comps)
+            torch.cuda.synchronize()
+            g, r = got.cpu().numpy(), ref.cpu().numpy()
+            check(g.shape == (SLOTS, width), f"components {tag}: shape "
+                  f"{g.shape}")
+            check(((g == r) | (np.isnan(g) & np.isnan(r))).all(),
+                  f"components {tag} {mtag}: differs from plain at "
+                  f"{int((g != r).sum())} places")
+            if not panes and panes is not None:
+                act = g[:, -1]
+                check((act == 0).all(), "empty mask: act not 0")
+                continue
+            fn = functools.partial(kernels.groupby_components, st, pm, comps)
+            t_k = time_ms(torch, fn, REPS)
+            split = launch_split(torch, fn, "components_kernel", REPS)
+            t_p = time_ms(torch, lambda: kernels.components_plain(
+                st, pm, comps), REPS)
+            t_l = time_ms(torch, lambda: library_components(
+                torch, st, pm, comps, kernels), REPS)
+            live = int(pm.sum().item())
+            nbytes = live * SLOTS * width * 4 + SLOTS * width * 4 + P
+            b_ms, b_by = bound(nbytes, live * SLOTS * width)
+            print(f"kernel groupby_components {tag} P={P} mask={mtag} "
+                  f"C={SLOTS} W={width}: max_abs_err=0 kernel_ms={t_k:.4f} "
+                  f"{split_text(split)} plain_ms={t_p:.4f} "
+                  f"library_ms={t_l:.4f} bound_ms={b_ms:.5f} ({b_by}) "
+                  f"MB_moved={nbytes / 1e6:.1f}")
+            rows[f"groupby_components/{tag}/{mtag}"] = dict(
+                max_abs_err=0.0, ms=t_k, **split, plain_ms=t_p,
+                bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+        if tag in ("tumbling", "pct"):
+            rng = np.random.default_rng(seed + 80)
+            sh = random_shadow(torch, gb, st, rng, dev)
+            a, b = clone_state(st), clone_state(st)
+            kernels.groupby_absorb(a, sh, 0)
+            kernels.absorb_plain(b, sh, 0)
+            torch.cuda.synchronize()
+            state_err(a, b, exact=tuple(a))
+            fn = functools.partial(kernels.groupby_absorb, a, sh, 0)
+            t_k = time_ms(torch, fn, REPS)
+            split = launch_split(torch, fn, "absorb_kernel", REPS)
+            t_p = time_ms(torch, lambda: kernels.absorb_plain(b, sh, 0), REPS)
+            t_l = time_ms(torch, lambda: library_absorb(torch, b, sh, 0),
+                          REPS)
+            sh_bytes = sum(x.numel() for x in sh.values()) * 4
+            b_ms, b_by = bound(3 * sh_bytes, sh_bytes // 4)
+            print(f"kernel groupby_absorb {tag} P={P} C={SLOTS}: "
+                  f"max_abs_err=0 kernel_ms={t_k:.4f} {split_text(split)} "
+                  f"plain_ms={t_p:.4f} library_ms={t_l:.4f} "
+                  f"bound_ms={b_ms:.5f} ({b_by})")
+            rows[f"groupby_absorb/{tag}"] = dict(
+                max_abs_err=0.0, ms=t_k, **split, plain_ms=t_p,
+                bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+            del a, b, sh
+        del st
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------------------------------------------ phase C
+#: a trigger interval's 16 batch times: 14 spread over its first 84 %,
+#: then two in the tail, after the 2x-lead pre-trigger (the reference's
+#: 250 ms lead: pre-triggers at interval - 500 and interval - 250)
+def batch_offsets(interval):
+    return [i * interval * 6 // 100 for i in range(14)] + [
+        interval - 400, interval - 200]
+
+
+#: device-side sleep that holds a pre-issue's copy past its boundary in
+#: phase C2 (cycles of the SM clock; ~100 ms at 1.98 GHz)
+SLEEP_CYCLES = 200_000_000
+
+
+class BoundaryProbe:
+    """What phase C reads off one node: each boundary's stall on the fold
+    thread (on_trigger wall time, no synchronize: the fold thread goes on
+    when it returns), each window's delivery (wall time and
+    last_emit_info), every fetch the node started, and the shadow folds'
+    host time, split into the backstop's and the pre-issues' shadows."""
+
+    def __init__(self, node, prefinalize):
+        self.node = node
+        self.stall_ms, self.t_trigger, self.deliveries = [], [], []
+        self.fetches = []
+        self.folds = {"tail": [], "backstop": []}
+        on_trigger = node.on_trigger
+
+        def timed_trigger(trig):
+            t = time.perf_counter()
+            self.t_trigger.append(t)
+            on_trigger(trig)
+            self.stall_ms.append((time.perf_counter() - t) * 1e3)
+
+        node.on_trigger = timed_trigger
+        node.broadcast = lambda item: self.deliveries.append(
+            (time.perf_counter(), item, dict(node.last_emit_info or {})))
+        for name in ("prefinalize_begin", "finalize_begin"):
+            fn = getattr(node.gb, name)
+
+            def begin(*a, _fn=fn, **k):
+                pending = _fn(*a, **k)
+                self.fetches.append(pending)
+                return pending
+
+            setattr(node.gb, name, begin)
+        self._pf = prefinalize
+        self._fold = prefinalize.HostShadow.fold
+
+        def fold(shadow, *a, **k):
+            t = time.perf_counter()
+            self._fold(shadow, *a, **k)
+            pipe = node._pipeline
+            kind = ("backstop" if pipe and pipe[0][1] is shadow
+                    and isinstance(pipe[0][0], prefinalize.IdentityFinalize)
+                    else "tail")
+            self.folds[kind].append((time.perf_counter() - t) * 1e3)
+
+        prefinalize.HostShadow.fold = fold
+
+    def close(self):
+        self._pf.HostShadow.fold = self._fold
+
+    def summary(self):
+        delivery = [t - self.t_trigger[i]
+                    for i, (t, _, _) in enumerate(self.deliveries)]
+        copies = [(p.nbytes, p.copy_ms()) for p in self.fetches]
+        landed = [(n, c) for n, c in copies if c is not None]
+        fetch = [d["fetch_ms"] for _, _, d in self.deliveries
+                 if d.get("fetch_ms") is not None]
+        sources = {}
+        for _, _, d in self.deliveries:
+            sources[d.get("source")] = sources.get(d.get("source"), 0) + 1
+        return dict(
+            stall_p50=pct(self.stall_ms, 50), stall_p99=pct(self.stall_ms, 99),
+            delivery_p50=pct(delivery, 50) * 1e3,
+            delivery_p99=pct(delivery, 99) * 1e3,
+            fetch_ms_p50=pct(fetch, 50) if fetch else None,
+            fetches=len(copies),
+            d2h_mb=(landed[0][0] / 1e6) if landed else None,
+            copy_ms_p50=pct([c for _, c in landed], 50) if landed else None,
+            d2h_gb_s=(sum(n for n, _ in landed)
+                      / sum(c for _, c in landed) / 1e6) if landed else None,
+            fold_tail_ms=(float(np.mean(self.folds["tail"]))
+                          if self.folds["tail"] else None),
+            fold_backstop_ms=(float(np.mean(self.folds["backstop"]))
+                              if self.folds["backstop"] else None),
+            sources=sources)
+
+
+def fused_node(mods, sql, opts, backstop):
+    """A rule's node as plan_fused_rule builds it, but with the backstop
+    switch the reference's node takes (no rule option sets it)."""
+    plan_fused_rule = mods[0]
+    node = plan_fused_rule(sql, key_slots=SLOTS, micro_batch=ROWS,
+                           options=opts)
+    if not backstop:
+        from ekuiper_tpu_torch.runtime.nodes_fused import FusedWindowAggNode
+
+        node = FusedWindowAggNode(
+            node.name, node.window, node.plan, node.dims, capacity=SLOTS,
+            micro_batch=ROWS, direct_emit=node.direct_emit,
+            emit_columnar=True, prefinalize_lead_ms=node.prefinalize_lead_ms,
+            prefinalize_backstop=False, tail_mode=node.tail_mode)
+    return node
+
+
+def drive_on_clock(torch, node, batches, interval, hook=None):
+    """Open `node` on a fresh mock clock and feed it batches[w][i] at
+    w * interval + batch_offsets(interval)[i]; the boundaries and their
+    pre-triggers fire from the clock. `hook(w, t)` runs before each move
+    to t. Returns the wall seconds, deliveries drained, card synchronized."""
+    from ekuiper_tpu_torch.utils import timex
+
+    clock = timex.set_mock_clock(0)
+    node.on_open()
+    offs = batch_offsets(interval)
+    t0 = time.perf_counter()
+    for w, window in enumerate(batches):
+        for i, batch in enumerate(window):
+            t = w * interval + offs[i]
+            if hook is not None:
+                hook(w, t)
+            clock.set(t)
+            node.process(batch)
+        clock.set((w + 1) * interval)
+    node._drain_async_emits()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    node.on_close()
+    timex.use_real_clock()
+    return wall
+
+
+def phase_c_run(torch, kernels, prefinalize, mods, sql, interval, batches,
+                opts=None, backstop=True, hook=None, node=None):
+    node = node or fused_node(mods, sql, opts, backstop)
+    check(node.gb.device.type == "cuda", "rule is not on the card")
+    probe = BoundaryProbe(node, prefinalize)
+    kernels.reset_launches()
+    try:
+        wall = drive_on_clock(torch, node, batches, interval, hook)
+    finally:
+        probe.close()
+    launches = dict(kernels.LAUNCHES)
+    check(not node.recoveries, f"recovery routes taken: "
+          f"{dict(node.recoveries)}")
+    n_rows = sum(len(w) for w in batches) * ROWS
+    out = probe.summary()
+    out.update(rows_per_s=n_rows / wall, launches=launches)
+    emitted = [item for _, item, _ in probe.deliveries]
+    return node, emitted, out
+
+
+def scalar_batches(rng, ColumnBatch):
+    batches, idx, temp = make_batches(rng, ColumnBatch, WINDOWS * BATCHES)
+    parts = [reference_aggs(idx[w * BATCHES:(w + 1) * BATCHES],
+                            temp[w * BATCHES:(w + 1) * BATCHES], N_KEYS)
+             for w in range(WINDOWS)]
+    return [batches[w * BATCHES:(w + 1) * BATCHES]
+            for w in range(WINDOWS)], parts
+
+
+def check_scalar_windows(emitted, parts, span, what):
+    check(len(emitted) == len(parts),
+          f"{what}: {len(emitted)} windows, want {len(parts)}")
+    worst = 0.0
+    for w, cb in enumerate(emitted):
+        ref = merge_aggs(parts[max(0, w - span + 1):w + 1])
+        worst = max(worst, check_window(cb, ref, "sd_t" in cb.columns,
+                                        f"{what} window {w}"))
+    return worst
+
+
+def partials_err(got, ref, what):
+    """Two snapshots' partials: counts, act, min, max exact; sums rtol
+    1e-5 (a host shadow's float64 bincount against float32 atomics)."""
+    worst = 0.0
+    for comp, r in ref["partials"].items():
+        g, r = np.asarray(got["partials"][comp]), np.asarray(r)
+        with np.errstate(invalid="ignore"):  # inf - inf at identities
+            d = np.abs(g.astype(np.float64) - r)
+        fin = np.isfinite(r)
+        check((g[~fin] == r[~fin]).all(), f"{what} {comp}: identity")
+        if comp in ("s1", "s2"):
+            check((d[fin] <= 1e-5 * np.abs(r[fin])).all(),
+                  f"{what} {comp}: beyond rtol 1e-5")
+        else:
+            check((d[fin] == 0).all(), f"{what} {comp}: differs")
+        worst = max(worst, float(d[fin].max(initial=0.0)))
+    return worst
+
+
+def run_phase_c(torch, seed, kernels, prefinalize, mods):
+    """Phase C: the boundary as the reference runs it by default
+    (prefinalizeLeadMs 250, tailMode device, the tumbling backstop),
+    timers on the mock clock, full data size."""
+    plan_fused_rule, ColumnBatch, Trigger = mods
+    res = {}
+    ok_sources = {"device", "backstop", "device-async-late", "device-async"}
+
+    # C1: the flagship tumbling rule, three runs
+    rng = np.random.default_rng(seed + 20)
+    batches, parts = scalar_batches(rng, ColumnBatch)
+    node, emitted, out = phase_c_run(torch, kernels, prefinalize, mods,
+                                     TUMBLING, 10_000, batches)
+    out["max_abs_err"] = check_scalar_windows(emitted, parts, 1, "C1")
+    res["c1"] = out
+    node, emitted, out = phase_c_run(torch, kernels, prefinalize, mods,
+                                     TUMBLING, 10_000, batches,
+                                     backstop=False)
+    out["max_abs_err"] = check_scalar_windows(emitted, parts, 1,
+                                              "C1 no backstop")
+    check(out["sources"] == {"device": WINDOWS},
+          f"C1 no backstop: boundaries served by {out['sources']}")
+    res["c1_nobackstop"] = out
+    snaps = {}
+    host_node = fused_node(mods, TUMBLING, {"tailMode": "host"}, True)
+
+    def snapshot_in_frozen_span(w, t):
+        # after the first tail batch (9600), before the 1x-lead refresh
+        if w == 2 and t == 2 * 10_000 + 9800:
+            check(host_node._device_frozen, "C1 host tail: not frozen")
+            snaps["host"] = host_node.snapshot_state()
+
+    node, emitted, out = phase_c_run(
+        torch, kernels, prefinalize, mods, TUMBLING, 10_000, batches,
+        hook=snapshot_in_frozen_span, node=host_node)
+    check(out["launches"]["groupby_absorb"] == 1,
+          f"C1 host tail: {out['launches']['groupby_absorb']} absorbs")
+    out["max_abs_err"] = check_scalar_windows(emitted, parts, 1,
+                                              "C1 host tail")
+    # the lead-0 twin, fed the same batches up to the snapshot
+    twin = plan_fused_rule(TUMBLING, key_slots=SLOTS, micro_batch=ROWS,
+                           options=SYNC)
+    twin.broadcast = lambda item: None
+    for w in range(3):
+        for b in batches[w][:15 if w == 2 else BATCHES]:
+            twin.process(b)
+        if w < 2:
+            twin.on_trigger(Trigger(ts=(w + 1) * 10_000))
+    out["absorb_partials_err"] = partials_err(snaps["host"],
+                                              twin.snapshot_state(),
+                                              "C1 host tail snapshot")
+    res["c1_host"] = out
+    del twin, batches, host_node
+
+    # C2: the hopping stddev rule; every other window's pre-issue held on
+    # the card past its boundary, so that boundary goes to the worker
+    rng = np.random.default_rng(seed + 21)
+    batches, parts = scalar_batches(rng, ColumnBatch)
+
+    def hold_the_card(w, t):
+        if w % 2 == 1 and t == w * 5_000 + 4_600:  # the move that fires
+            torch.cuda._sleep(SLEEP_CYCLES)       # the 2x-lead pre-issue
+
+    node, emitted, out = phase_c_run(torch, kernels, prefinalize, mods,
+                                     HOPPING, 5_000, batches,
+                                     hook=hold_the_card)
+    out["max_abs_err"] = check_scalar_windows(emitted, parts, 2, "C2")
+    check(out["sources"].get("device-async-late", 0) >= 1,
+          f"C2: no boundary went to the worker ({out['sources']})")
+    res["c2"] = out
+    del batches
+
+    # C3: the percentile and hll rules (wide components)
+    ids = np.array([f"dev_{i}" for i in range(N_KEYS)], dtype=np.object_)
+    for tag, sql, interval, span, col in (
+            ("pct", PCT_RULE, 10_000, 1, "temperature"),
+            ("hll", HLL_RULE, 5_000, 2, "humidity")):
+        rng = np.random.default_rng(seed + 22)
+        spans, batches = [], []
+        for w in range(WINDOWS):
+            idx, vals = wide_data(rng, tag)
+            spans.append((idx.ravel(), vals.ravel()))
+            batches.append([ColumnBatch(n=ROWS, columns={
+                "deviceId": ids[idx[b]], col: vals[b]}, emitter="demo")
+                for b in range(SKETCH_BATCHES)])
+        node, emitted, out = phase_c_run(torch, kernels, prefinalize, mods,
+                                         sql, interval, batches)
+        out["rows"], out["edge_rows"], out["sketch_err"] = \
+            check_wide_windows(tag, emitted, spans, span, f"C3 {tag}")
+        res[f"c3_{tag}"] = out
+        del batches, node
+        torch.cuda.empty_cache()
+
+    # C4: heavy hitters on the async emit
+    rng = np.random.default_rng(seed + 23)
+    twin = HHTwin()
+    expect, batches = [], []
+    for w in range(WINDOWS):
+        idx = rng.integers(0, N_KEYS, (SKETCH_BATCHES, ROWS))
+        code = skewed_codes(rng, SKETCH_BATCHES * ROWS).reshape(idx.shape)
+        batches.append([ColumnBatch(n=ROWS, columns={
+            "deviceId": ids[idx[b]], "code": code[b]}, emitter="demo")
+            for b in range(SKETCH_BATCHES)])
+        expect.append(twin.close_window(w, idx, code))
+    node, emitted, out = phase_c_run(torch, kernels, prefinalize, mods,
+                                     HH_RULE, 5_000, batches)
+    out["rows"], out["led_by_7"] = check_hh_windows(
+        emitted, expect, twin.codes.values, "C4")
+    check(out["sources"] == {"device-async": WINDOWS},
+          f"C4: boundaries served by {out['sources']}")
+    res["c4_hh"] = out
+    for tag, r in res.items():
+        bad = set(r["sources"]) - ok_sources
+        check(not bad, f"{tag}: boundaries served by {sorted(bad)}")
+    return res
+
+
+def phase_c_line(tag, r):
+    f = lambda x, d=3: "n/a" if x is None else f"{x:.{d}f}"  # noqa: E731
+    return (f"phase C {tag}: rows/s={r['rows_per_s']:.0f} "
+            f"stall_p50_ms={r['stall_p50']:.3f} "
+            f"stall_p99_ms={r['stall_p99']:.3f} "
+            f"delivery_p50_ms={r['delivery_p50']:.3f} "
+            f"delivery_p99_ms={r['delivery_p99']:.3f} "
+            f"fetch_ms_p50(engine clock)={f(r['fetch_ms_p50'], 1)} "
+            f"fetches={r['fetches']} d2h_MB={f(r['d2h_mb'])} "
+            f"copy_ms_p50={f(r['copy_ms_p50'], 4)} "
+            f"d2h_GB_s={f(r['d2h_gb_s'], 2)} "
+            f"shadow_fold_ms tail={f(r['fold_tail_ms'])} "
+            f"backstop={f(r['fold_backstop_ms'])} "
+            f"sources={r['sources']} launches={r['launches']}")
 
 
 def pct(xs, q):
@@ -1157,7 +1689,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from ekuiper_tpu_torch.data.batch import ColumnBatch
-    from ekuiper_tpu_torch.ops import kernels, sketches
+    from ekuiper_tpu_torch.ops import kernels, prefinalize, sketches
     from ekuiper_tpu_torch.ops.groupby import TorchGroupBy
     from ekuiper_tpu_torch.planner.fused import plan_fused_rule
     from ekuiper_tpu_torch.runtime.events import Trigger
@@ -1179,6 +1711,8 @@ def main() -> int:
     rows = kernel_checks(torch, args.seed, kernels, plan_fused_rule, dev)
     rows.update(sketch_kernel_checks(torch, args.seed, kernels, sketches,
                                      plan_fused_rule, TorchGroupBy, dev))
+    rows.update(prefinalize_kernel_checks(torch, args.seed, kernels,
+                                          plan_fused_rule, dev))
     print("phase 2 kernels vs plain: ok")
 
     mods = (plan_fused_rule, ColumnBatch, Trigger)
@@ -1231,9 +1765,25 @@ def main() -> int:
           f"emit_p50_ms={pct(b['hll']['emit_ms'], 50):.3f} "
           f"launches={b['hll']['launches']}")
 
+    # phase C: the reference's default boundary on the mock clock
+    c = run_phase_c(torch, args.seed, kernels, prefinalize, mods)
+    print(f"phase C: {WINDOWS} windows x {BATCHES} batches x {ROWS} rows, "
+          f"{N_KEYS} keys, {SLOTS} slots, prefinalizeLeadMs 250, every "
+          "emitted row checked against its reference")
+    for tag in c:
+        print(phase_c_line(tag, c[tag]))
+    print(f"phase C checks: C1/C2 max_abs_err "
+          f"{max(c[t]['max_abs_err'] for t in ('c1', 'c1_nobackstop', 'c1_host', 'c2')):.3g}; "
+          f"C1 host tail snapshot partials vs the lead-0 twin max abs diff "
+          f"{c['c1_host']['absorb_partials_err']:.3g}; C3 pct "
+          f"{c['c3_pct']['rows']} rows ({c['c3_pct']['edge_rows']} one bin "
+          f"over at an edge), hll {c['c3_hll']['rows']} rows within ±1; C4 "
+          f"{c['c4_hh']['rows']} top lists equal to the twin")
+
     # phase 5: every kernel launched on each path that uses it
     paths = {"tumbling": counts_t, "hopping": counts_h, "hh": counts_hh,
-             "pct": b["pct"]["launches"], "hll": b["hll"]["launches"]}
+             "pct": b["pct"]["launches"], "hll": b["hll"]["launches"],
+             **{tag: c[tag]["launches"] for tag in c}}
     for name, used_by in PATHS.items():
         for path in used_by:
             check(paths[path][name] > 0,
@@ -1243,9 +1793,12 @@ def main() -> int:
         for n in PATHS))
     main_row = {"groupby_fold_wide": "groupby_fold_wide/hh",
                 "groupby_finalize_wide": "groupby_finalize_wide/pct/full",
-                "groupby_hh_finalize": "groupby_hh_finalize/full"}
+                "groupby_hh_finalize": "groupby_hh_finalize/full",
+                "groupby_components": "groupby_components/tumbling/full",
+                "groupby_absorb": "groupby_absorb/tumbling"}
     main_path = {"groupby_fold_wide": "hh", "groupby_finalize_wide": "pct",
-                 "groupby_hh_finalize": "hh"}
+                 "groupby_hh_finalize": "hh", "groupby_components": "c1",
+                 "groupby_absorb": "c1_host"}
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name],
@@ -1255,6 +1808,12 @@ def main() -> int:
         for name in PATHS]}
     table["kernels"][2]["wide_state"] = rows["groupby_reset_pane/hh"]
     table["kernels"][4]["hll_hopping"] = rows["groupby_finalize_wide/hll/full"]
+    table["kernels"][6]["hopping_subset"] = rows[
+        "groupby_components/hopping/subset[1]"]
+    table["kernels"][6]["percentile"] = rows["groupby_components/pct/full"]
+    table["kernels"][6]["hll_hopping"] = rows["groupby_components/hll/full"]
+    table["kernels"][7]["percentile"] = rows["groupby_absorb/pct"]
+    check(len(table["kernels"]) == 8, "kernel table")
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -237,6 +237,10 @@ class AggSpec:
     int_input: bool = False  # observed integer input → integer avg/sum results
     frac: float = 0.5  # percentile_approx quantile (2nd literal arg)
     topk: int = 3  # heavy_hitters k (2nd literal arg)
+    # numpy twins of arg/filter, used by the window tail's shadow fold
+    # (ops/prefinalize.py); None when the expr only compiles for the device
+    arg_host: Optional[CompiledExpr] = None
+    filter_host: Optional[CompiledExpr] = None
 
     @property
     def is_star(self) -> bool:
@@ -250,6 +254,20 @@ class KernelPlan:
     specs: List[AggSpec]
     filter: Optional[CompiledExpr]  # WHERE clause (device)
     columns: Set[str] = field(default_factory=set)  # float32 columns to upload
+    filter_host: Optional[CompiledExpr] = None  # numpy twin of `filter`
+
+    @property
+    def host_foldable(self) -> bool:
+        """True when every closure has a numpy twin, so a tail of rows can be
+        folded on the host by the latency-hiding emit."""
+        if self.filter is not None and self.filter_host is None:
+            return False
+        for s in self.specs:
+            if s.arg is not None and s.arg_host is None:
+                return False
+            if s.filter is not None and s.filter_host is None:
+                return False
+        return True
 
 
 def _compile_device(expr: ast.Expr, want: str
@@ -280,6 +298,7 @@ def extract_kernel_plan(stmt: ast.SelectStatement) -> Optional[KernelPlan]:
         frac = 0.5
         topk = 3
         arg_ce: Optional[CompiledExpr] = None
+        arg_host: Optional[CompiledExpr] = None
         if call.args and not isinstance(call.args[0], ast.Wildcard):
             if call.name == "heavy_hitters":
                 # heavy_hitters(col, k): bare column + literal k only — the
@@ -305,38 +324,51 @@ def extract_kernel_plan(stmt: ast.SelectStatement) -> Optional[KernelPlan]:
             elif len(call.args) != 1:
                 return None
             if kind == "heavy_hitters":
-                arg_ce = _derived_column(HH_COL_PREFIX + call.args[0].name)
+                arg_ce = arg_host = _derived_column(
+                    HH_COL_PREFIX + call.args[0].name)
             elif kind in ("hll", "distinct_count_approx") and isinstance(
                 call.args[0], ast.FieldRef
             ):
-                arg_ce = _derived_column(HLL_COL_PREFIX + call.args[0].name)
+                arg_ce = arg_host = _derived_column(
+                    HLL_COL_PREFIX + call.args[0].name)
             else:
                 arg_ce = _compile_device(call.args[0], "number")
                 if arg_ce is None:
                     return None
+                arg_host = expr_ir.try_compile_ir(call.args[0], mode="host",
+                                                  want="number")
             columns |= arg_ce.columns
         filter_ce: Optional[CompiledExpr] = None
+        filter_host: Optional[CompiledExpr] = None
         if call.filter is not None:
             filter_ce = _compile_device(call.filter, "bool")
             if filter_ce is None:
                 return None
+            filter_host = expr_ir.try_compile_ir(call.filter, mode="host",
+                                                 want="bool")
             columns |= filter_ce.columns
         specs.append(AggSpec(
             call=call, kind="hll" if kind == "distinct_count_approx" else kind,
             components=set(DEVICE_AGGS[call.name]), arg=arg_ce,
-            filter=filter_ce, frac=frac, topk=topk))
+            filter=filter_ce, frac=frac, topk=topk, arg_host=arg_host,
+            filter_host=filter_host))
     where_ce: Optional[CompiledExpr] = None
+    where_host: Optional[CompiledExpr] = None
     if stmt.condition is not None:
         where_ce = _compile_device(stmt.condition, "bool")
         if where_ce is None:
             return None
+        where_host = expr_ir.try_compile_ir(stmt.condition, mode="host",
+                                            want="bool")
         columns |= where_ce.columns
-    return KernelPlan(specs=specs, filter=where_ce, columns=columns)
+    return KernelPlan(specs=specs, filter=where_ce, columns=columns,
+                      filter_host=where_host)
 
 
 def _derived_column(name: str) -> CompiledExpr:
     """The argument closure of a sketch over a derived column (the hll
-    encoding or the heavy-hitters codes, built on the host per batch)."""
+    encoding or the heavy-hitters codes, built on the host per batch); it
+    reads a torch or a numpy column alike, so it is its own host twin."""
     return CompiledExpr(lambda cols, _n=name: cols[_n], {name})
 
 

@@ -17,10 +17,13 @@ shapes, dtypes and identities are the reference's, so a `state_to_host`
 snapshot of either package restores in the other.
 
 Unlike the reference (pure functions over immutable jax arrays, state
-buffers donated to each call), the fold and the pane reset update the
-state tensors IN PLACE — no second copy of the state exists. The methods
-still return the state dict, so callers read exactly as they read the
-reference.
+buffers donated to each call), the fold, the pane reset and the absorb
+update the state tensors IN PLACE — no second copy of the state exists.
+The methods still return the state dict, so callers read exactly as they
+read the reference. What the reference gets from immutability, a
+snapshot that later folds cannot disturb, the port gets from its kernels
+writing fresh output tensors on the compute stream, in order with the
+folds (see ops/prefinalize.py).
 """
 from __future__ import annotations
 
@@ -32,7 +35,9 @@ import torch
 from ..utils.device import Device, resolve_device
 from . import kernels
 from .aggspec import WIDE_COMPONENTS, KernelPlan, materialize_hll_columns
-from .prefinalize import hh_dedupe_topk
+from .prefinalize import (DeferredFetch, FetchPool, PendingFinalize,
+                          begin_pending, final_value_np, hh_dedupe_topk,
+                          merge_components)
 
 _INIT = kernels.INIT
 
@@ -80,6 +85,9 @@ class TorchGroupBy:
     """Group-by aggregation state on one device + its kernels. `device`
     defaults to CUDA and raises without a card unless it is "cpu"."""
 
+    #: the latency-hiding emit pipeline (ops/prefinalize.py) works here
+    supports_prefinalize = True
+
     def __init__(self, plan: KernelPlan, capacity: int = 16384,
                  n_panes: int = 1, micro_batch: int = 4096,
                  device: Device = None) -> None:
@@ -126,6 +134,8 @@ class TorchGroupBy:
         self._fracs = np.asarray(fracs, dtype=np.float32)
         self._hhtab = np.asarray(hhtab, dtype=np.int32).reshape(-1, 3)
         self._masks: Dict[Tuple[bool, ...], torch.Tensor] = {}
+        self._comp_order = [comp for comp, *_ in self._components_layout()]
+        self._fetch: Optional[FetchPool] = None  # built at the first fetch
 
     # ------------------------------------------------------------------ state
     def init_state(self) -> Dict[str, torch.Tensor]:
@@ -248,11 +258,29 @@ class TorchGroupBy:
             pm[:] = True
         else:
             pm[panes] = True
-        key = tuple(pm.tolist())
+        return self._mask_tensor(pm)
+
+    def _mask_tensor(self, pm: np.ndarray) -> torch.Tensor:
+        key = tuple(np.asarray(pm, dtype=np.bool_).tolist())
         t = self._masks.get(key)
         if t is None:  # one small upload per distinct mask, then cached
-            t = self._masks[key] = torch.from_numpy(pm).to(self.device)
+            t = self._masks[key] = torch.tensor(key, dtype=torch.bool,
+                                                device=self.device)
         return t
+
+    def _finalize(self, state: Dict[str, torch.Tensor],
+                  pm: torch.Tensor) -> torch.Tensor:
+        """Launch the finalize kernels into one (rows, C) result on the
+        device: the scalar, sketch and heavy-hitters kernels fill one
+        stacked result, which crosses to the host in ONE copy."""
+        out = kernels.groupby_finalize_scalar(state, pm, self._spectab,
+                                              self._rows)
+        if len(self._widetab):
+            kernels.groupby_finalize_wide(state, pm, self._widetab,
+                                          self._fracs, out)
+        if len(self._hhtab):
+            kernels.groupby_hh_finalize(state, pm, self._hhtab, out)
+        return out
 
     def finalize(self, state: Dict[str, torch.Tensor], n_keys: int,
                  panes: Optional[List[int]] = None
@@ -262,24 +290,104 @@ class TorchGroupBy:
         Returns (per-spec value arrays, active-row-count array); keys with
         active == 0 did not appear in this window and must not emit a group.
         NaN encodes NULL for empty-group sum/avg/min/max; a heavy_hitters
-        spec gives an object array of [(code, count), ...] lists. The
-        scalar, sketch and heavy-hitters kernels fill one stacked result,
-        which crosses to the host in ONE copy.
+        spec gives an object array of [(code, count), ...] lists.
         """
-        pm = self._pane_mask(panes)
-        out = kernels.groupby_finalize_scalar(state, pm, self._spectab,
-                                              self._rows)
-        if len(self._widetab):
-            kernels.groupby_finalize_wide(state, pm, self._widetab,
-                                          self._fracs, out)
-        if len(self._hhtab):
-            kernels.groupby_hh_finalize(state, pm, self._hhtab, out)
-        stacked = out.cpu().numpy()
+        out = self._finalize(state, self._pane_mask(panes))
+        return self.host_tail(out.cpu().numpy(), n_keys)
+
+    def host_tail(self, stacked: np.ndarray, n_keys: int
+                  ) -> Tuple[List[np.ndarray], np.ndarray]:
+        """(outs, act) of a finalize result on the host."""
         if self._host_finalize_only:
             return self.hh_assemble(stacked, n_keys)
         host = [stacked[i][:n_keys] for i in range(len(self.plan.specs))]
         host = apply_int_semantics(self.plan.specs, host)
         return host, stacked[-1][:n_keys]
+
+    def _fetch_pool(self) -> Optional[FetchPool]:
+        if self.device.type != "cuda":
+            return None
+        if self._fetch is None:
+            self._fetch = FetchPool(self.device)
+        return self._fetch
+
+    def finalize_begin(self, state: Dict[str, torch.Tensor]
+                       ) -> PendingFinalize:
+        """Launch the finalize over every pane and start its copy to the
+        host; the async emit reads it with host_tail (the reference's
+        _finalize / _hh_fin dispatch + copy_to_host_async)."""
+        out = self._finalize(state, self._pane_mask(None))
+        return begin_pending(out, None, self._fetch_pool())
+
+    def finalize_later(self, state: Dict[str, torch.Tensor]) -> DeferredFetch:
+        """Launch the finalize over every pane; its copy starts only if
+        the result is asked for (the deferred boundary's backup)."""
+        return DeferredFetch(self._finalize(state, self._pane_mask(None)),
+                             self._fetch_pool())
+
+    # ------------------------------------------------------------ prefinalize
+    def _components_layout(self):
+        """(comp, col_start, width, per-key shape) for the stacked
+        components array: one flat (capacity, W) float32 array, so one
+        copy per fetch."""
+        layout = []
+        col = 0
+        for comp in sorted(self.comp_specs):
+            shape: Tuple[int, ...] = (len(self.comp_specs[comp]),)
+            if comp in WIDE_COMPONENTS:
+                shape = shape + (kernels.WIDE_W[comp],)
+            w = int(np.prod(shape))
+            layout.append((comp, col, w, shape))
+            col += w
+        layout.append(("act", col, 1, ()))
+        return layout
+
+    def prefinalize_begin(self, state: Dict[str, torch.Tensor],
+                          panes: Optional[List[int]] = None
+                          ) -> PendingFinalize:
+        """Launch the pane-merged components kernel and start the async
+        copy to the host; returns a PendingFinalize. Folds issued later on
+        the compute stream run after the kernel, so they cannot reach the
+        fetched components."""
+        return self._components_begin(state, self._pane_mask(panes))
+
+    def components_begin_dyn(self, state: Dict[str, torch.Tensor],
+                             pane_mask: np.ndarray) -> PendingFinalize:
+        """As prefinalize_begin, over an arbitrary live-pane subset given
+        as a (P,) bool array."""
+        return self._components_begin(state, self._mask_tensor(pane_mask))
+
+    def _components_begin(self, state, pm: torch.Tensor) -> PendingFinalize:
+        out = kernels.groupby_components(state, pm, self._comp_order)
+        return begin_pending(out, self._components_layout(),
+                             self._fetch_pool())
+
+    def _final_from_components(
+        self, comb: Dict[str, np.ndarray], n_keys: int,
+    ) -> Tuple[List[np.ndarray], np.ndarray]:
+        """Numpy final values from pane-merged host components."""
+        act = comb["act"]
+        outs: List[np.ndarray] = []
+        for i, spec in enumerate(self.plan.specs):
+            c = {
+                comp: comb[comp][:, self.comp_specs[comp].index(i)]
+                for comp in spec.components
+            }
+            outs.append(np.asarray(final_value_np(spec, c))[:n_keys])
+        outs = apply_int_semantics(self.plan.specs, outs)
+        return outs, np.asarray(act[:n_keys])
+
+    def prefinalize_merge(self, pending, shadow, n_keys: int
+                          ) -> Tuple[List[np.ndarray], np.ndarray]:
+        """Complete a pre-issued finalize: the fetched components (usually
+        landed already) ⊕ the tail shadow, final values in numpy. Same
+        (outs, act) contract as finalize()."""
+        # capacity may have grown during a frozen tail (new keys live only
+        # in the shadow): merge at the widest extent so no slot is cut
+        cap = max(self.capacity,
+                  shadow.capacity if shadow is not None else 0)
+        comb = merge_components(pending.get(), shadow, cap)
+        return self._final_from_components(comb, n_keys)
 
     def hh_assemble(self, stacked: np.ndarray, n_keys: int
                     ) -> Tuple[List[np.ndarray], np.ndarray]:
@@ -305,6 +413,19 @@ class TorchGroupBy:
         act = stacked[-1]
         outs = apply_int_semantics(self.plan.specs, outs)
         return outs, np.asarray(act[:n_keys])
+
+    # ----------------------------------------------------------------- absorb
+    def absorb(self, state: Dict[str, torch.Tensor],
+               shadow_data: Dict[str, np.ndarray],
+               pane_idx: int) -> Dict[str, torch.Tensor]:
+        """Merge host-shadow components into one pane of the state, in
+        place: a checkpoint in a host-only window tail flushes the tail's
+        rows to the card so the snapshot is complete. The shadow arrays go
+        up through pinned, non-blocking copies."""
+        sh = {k: self._upload(v, np.float32) for k, v in shadow_data.items()
+              if k in state}
+        kernels.groupby_absorb(state, sh, int(pane_idx))
+        return state
 
     # ------------------------------------------------------------------ reset
     def reset_pane(self, state: Dict[str, torch.Tensor],

@@ -2,7 +2,7 @@
 wrappers that launch them, their plain PyTorch versions and their launch
 counts.
 
-Six kernels, written by hand in CUDA C++ for Hopper, each replacing one
+Eight kernels, written by hand in CUDA C++ for Hopper, each replacing one
 device program of the reference (ekuiper_tpu/ops/groupby.py). Three in
 ekuiper_tpu_torch/csrc/groupby.cu:
 
@@ -55,6 +55,17 @@ components are wide: (P, C, K, W) with W = 256 / 1,024 / 2,688:
   reading the live panes of hh once (352 MB at the main path's sizes,
   0.105 ms).
 
+And two in ekuiper_tpu_torch/csrc/prefinalize.cu, for the latency-hiding
+window emit (ops/prefinalize.py):
+
+- `groupby_components` replaces `_components_impl` / `_components_dyn_impl`
+  (groupby.py:541-566): the panes under a (P,) mask tensor merged into one
+  fresh (C, W) array of raw components, which the boundary fetches to the
+  host ahead of time. Bound: reading the live panes and writing the result
+  once (67 MB each way for the percentile rule, 0.040 ms).
+- `groupby_absorb` replaces `_absorb_impl` (groupby.py:729): host-shadow
+  partials merged into one pane of the state in place (min / max / add).
+
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and
 only there; for a CUDA tensor it launches the kernel or raises. A wrapper
 adds one to `LAUNCHES[name]` where it launches its kernel and nowhere else.
@@ -81,7 +92,8 @@ from . import sketches
 _PKG = Path(__file__).resolve().parents[1]
 #: library name -> CUDA source; each builds into its own shared library
 SOURCES = {"groupby": _PKG / "csrc" / "groupby.cu",
-           "sketches": _PKG / "csrc" / "sketches.cu"}
+           "sketches": _PKG / "csrc" / "sketches.cu",
+           "prefinalize": _PKG / "csrc" / "prefinalize.cu"}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -107,6 +119,9 @@ INIT = {"n": 0.0, "s1": 0.0, "s2": 0.0, "mn": float("inf"),
 MAX_COLS = 64  # csrc/*.cu MAX_COLS / MAX_SPECS
 MAX_SPECS = 64
 MAX_RESET = 16  # csrc/groupby.cu MAX_RESET
+MAX_PARTS = 16  # csrc/prefinalize.cu MAX_PARTS
+#: pane-merge op of a component in csrc/prefinalize.cu
+MERGE_OPS = {"mn": 1, "mx": 2, "hll": 2}  # every other component: 0, a sum
 #: the log histogram's float32 constants, as csrc/sketches.cu HistConsts
 #: takes them (lo, hi, 1/lo, 1/log_gamma, log_gamma, centre scale)
 HIST_CONSTS = np.array([sketches._HIST_LO, sketches._HIST_HI * 0.999,
@@ -123,9 +138,12 @@ LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0,
                             "groupby_reset_pane": 0,
                             "groupby_fold_wide": 0,
                             "groupby_finalize_wide": 0,
-                            "groupby_hh_finalize": 0}
+                            "groupby_hh_finalize": 0,
+                            "groupby_components": 0,
+                            "groupby_absorb": 0}
 
-#: the loaded libraries (SimpleNamespace(groupby=..., sketches=...)),
+#: the loaded libraries (SimpleNamespace(groupby=..., sketches=...,
+#: prefinalize=...)),
 #: None until the first launch
 _lib = None
 _lib_lock = threading.Lock()
@@ -218,17 +236,21 @@ def _load():
             sk.groupby_finalize_wide.argtypes = [P, P, P, I, I, P, P, I, P,
                                                  L, P, P]
             sk.groupby_hh_finalize.argtypes = [P, I, P, I, I, P, I, P, P]
+            pf = ctypes.CDLL(str(paths["prefinalize"]))
+            pf.groupby_components.argtypes = [P, P, P, I, P, I, I, P, P]
+            pf.groupby_absorb.argtypes = [P, P, P, P, I, I, I, I, P]
             for lib, fns in ((gb, ("groupby_fold_scalar",
                                    "groupby_finalize_scalar",
                                    "groupby_reset_pane")),
                              (sk, ("groupby_fold_wide",
                                    "groupby_finalize_wide",
-                                   "groupby_hh_finalize"))):
+                                   "groupby_hh_finalize")),
+                             (pf, ("groupby_components", "groupby_absorb"))):
                 for fn in fns:
                     getattr(lib, fn).restype = I
             gb.groupby_error_string.argtypes = [I]
             gb.groupby_error_string.restype = ctypes.c_char_p
-            _lib = SimpleNamespace(groupby=gb, sketches=sk)
+            _lib = SimpleNamespace(groupby=gb, sketches=sk, prefinalize=pf)
         return _lib
 
 
@@ -703,6 +725,111 @@ def reset_pane_plain(state, pane: int) -> None:
     """Plain PyTorch version of groupby_reset_pane."""
     for comp, arr in state.items():
         arr[pane].fill_(INIT[comp])
+
+
+# -------------------------------------------------------- prefinalize
+def _slot_width(arr: torch.Tensor) -> int:
+    """Floats per slot of one pane of a state component (1 for act)."""
+    return int(np.prod(arr.shape[2:], dtype=np.int64))
+
+
+def groupby_components(state: Dict[str, torch.Tensor],
+                       pane_mask: torch.Tensor,
+                       comps: Sequence[str]) -> torch.Tensor:
+    """Merge the panes selected by `pane_mask` (bool (P,)) of each of
+    `comps` (state component names, act included, in output order) into
+    one fresh float32 (C, W) tensor: each component's slot row flattened
+    to its K (x register width) columns, side by side. mn merges by min
+    from +inf, mx and hll by max from -inf, the others by sum from 0."""
+    name = "groupby_components"
+    if not _on_cuda(name, state):
+        return components_plain(state, pane_mask, comps)
+    act = state["act"]
+    P, C = act.shape
+    dev = act.device
+    _check(name, pane_mask, torch.bool, (P,), dev)
+    if not 0 < len(comps) <= MAX_PARTS or P > 255:
+        raise ValueError(f"{name}: {len(comps)} components (max "
+                         f"{MAX_PARTS}), {P} panes (max 255)")
+    ptrs = np.zeros(len(comps), dtype=np.uint64)
+    ws = np.zeros(len(comps), dtype=np.int32)
+    ops = np.zeros(len(comps), dtype=np.int32)
+    for t, comp in enumerate(comps):
+        arr = state[comp]
+        _check(name, arr, torch.float32, (P, C, *arr.shape[2:]), dev)
+        ptrs[t], ws[t], ops[t] = arr.data_ptr(), _slot_width(arr), \
+            MERGE_OPS.get(comp, 0)
+    out = torch.empty((C, int(ws.sum())), dtype=torch.float32, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.prefinalize.groupby_components(
+            _ptr(ptrs), _ptr(ws), _ptr(ops), len(comps), _ptr(pane_mask), P,
+            C, _ptr(out), _stream(dev))
+        LAUNCHES[name] += 1
+    _raise_on(lib, name, rc)
+    return out
+
+
+def components_plain(state, pane_mask, comps) -> torch.Tensor:
+    """Plain PyTorch version of groupby_components."""
+    C = state["act"].shape[1]
+    return torch.cat([_merged_plain(state[c], c, pane_mask).reshape(C, -1)
+                      for c in comps], dim=1)
+
+
+def groupby_absorb(state: Dict[str, torch.Tensor],
+                   shadow: Dict[str, torch.Tensor], pane: int) -> None:
+    """Merge `shadow` (component -> float32 (Cs, K[, W]), or (Cs,) for
+    act, on the state's device, Cs <= C) into pane `pane` of the state in
+    place: min for mn, max for mx and hll, add otherwise; components the
+    shadow lacks are left alone."""
+    name = "groupby_absorb"
+    if not _on_cuda(name, state):
+        absorb_plain(state, shadow, pane)
+        return
+    act = state["act"]
+    P, C = act.shape
+    dev = act.device
+    if not 0 <= pane < P:
+        raise ValueError(f"{name}: pane {pane} outside [0, {P})")
+    parts = [c for c in state if c in shadow]
+    if len(parts) > MAX_PARTS:
+        raise ValueError(f"{name}: {len(parts)} components (max {MAX_PARTS})")
+    Cs = next((shadow[c].shape[0] for c in parts), 0)
+    dst = np.zeros(len(parts), dtype=np.uint64)
+    src = np.zeros(len(parts), dtype=np.uint64)
+    ws = np.zeros(len(parts), dtype=np.int32)
+    ops = np.zeros(len(parts), dtype=np.int32)
+    for t, comp in enumerate(parts):
+        arr, sh = state[comp], shadow[comp]
+        _check(name, arr, torch.float32, (P, C, *arr.shape[2:]), dev)
+        _check(name, sh, torch.float32, (Cs, *arr.shape[2:]), dev)
+        dst[t], src[t] = arr.data_ptr(), sh.data_ptr()
+        ws[t], ops[t] = _slot_width(arr), MERGE_OPS.get(comp, 0)
+    if Cs > C:
+        raise ValueError(f"{name}: shadow of {Cs} slots, state of {C}")
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.prefinalize.groupby_absorb(
+            _ptr(dst), _ptr(src), _ptr(ws), _ptr(ops), len(parts), int(pane),
+            C, Cs, _stream(dev))
+        LAUNCHES[name] += 1
+    _raise_on(lib, name, rc)
+
+
+def absorb_plain(state, shadow, pane: int) -> None:
+    """Plain PyTorch version of groupby_absorb."""
+    for comp, arr in state.items():
+        sh = shadow.get(comp)
+        if sh is None:
+            continue
+        dst = arr[pane, :sh.shape[0]]
+        if comp == "mn":
+            torch.minimum(dst, sh, out=dst)
+        elif comp in ("mx", "hll"):
+            torch.maximum(dst, sh, out=dst)
+        else:
+            dst.add_(sh)
 
 
 # ------------------------------------------------------------ host tables

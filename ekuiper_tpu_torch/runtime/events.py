@@ -6,7 +6,24 @@ from dataclasses import dataclass
 
 
 @dataclass
+class EOF:
+    """Stream end (bounded sources): the window node flushes its open
+    window and forwards the event."""
+
+    source_id: str = ""
+
+
+@dataclass
 class Trigger:
     """Window trigger tick (processing time): `ts` is the window end."""
+
+    ts: int
+
+
+@dataclass
+class PreTrigger:
+    """Advance notice of an upcoming window boundary, delivered a lead
+    before it so the fused node can pre-issue its components fetch
+    (ops/prefinalize.py). `ts` is the boundary the notice is for."""
 
     ts: int

@@ -18,9 +18,11 @@ and null discipline are the reference's).
   arithmetic/BETWEEN/IN propagate NULL, and a WHERE that evaluates to
   NULL drops the row.
 
-The closures bind the torch namespace of `sql/xp.py` (where the reference
-binds jax.numpy): they run on the columns' device, before the fold kernel
-launches.
+The device closures bind the torch namespace of `sql/xp.py` (where the
+reference binds jax.numpy): they run on the columns' device, before the
+fold kernel launches. The host twins (`mode="host"`) bind its numpy
+namespace over the same lowering: the window tail's shadow fold evaluates
+them over host columns.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import numpy as np
 import torch
 
 from . import ast
-from .xp import TORCH
+from .xp import NUMPY, TORCH
 
 # ------------------------------------------------------------------ errors
 
@@ -804,20 +806,21 @@ class CompiledIR:
         return self.fn(cols)
 
 
-def compile_expr_ir(expr: ast.Expr, want: str = "auto") -> CompiledIR:
-    """Lower + compile one expression to a closure over torch tensors.
-    `want`:
+def compile_expr_ir(expr: ast.Expr, mode: str = "device",
+                    want: str = "auto") -> CompiledIR:
+    """Lower + compile one expression for `mode` ("device" → closures over
+    torch tensors, "host" → the numpy twin). `want`:
       "bool"   — a WHERE/FILTER mask: NULL and non-boolean drop the row
                  (sql/eval.py eval_condition's `v is True`).
       "number" — a float32 value column with NaN at NULLs (agg args).
       "auto"   — the node's own value (bool: NULL→False; num: NULL→NaN).
     Raises NotVectorizable (with a structured `reason`) when any node
-    has no device form.
+    has no vectorized form.
     """
     types = infer_column_types(expr)
     ctx = _LowerCtx(types)
     root = Lowerer(ctx).lower(expr)
-    xp = TORCH
+    xp = TORCH if mode == "device" else NUMPY
     inner = root.build(xp)
     ty = root.ty
 
@@ -858,3 +861,11 @@ def compile_expr_ir(expr: ast.Expr, want: str = "auto") -> CompiledIR:
 
     return CompiledIR(fn, set(ctx.referenced),
                       ir_key=f"{root.key}|want={want}", ty=ty)
+
+
+def try_compile_ir(expr: ast.Expr, mode: str = "device",
+                   want: str = "auto") -> Optional[CompiledIR]:
+    try:
+        return compile_expr_ir(expr, mode=mode, want=want)
+    except NotVectorizable:
+        return None

@@ -1,9 +1,11 @@
-"""The array namespace the expression IR binds its closures to.
+"""The array namespaces the expression IR binds its closures to.
 
 `sql/expr_ir.py` lowers an expression once and builds its closures against
-an array namespace `xp`. The reference binds `jax.numpy`; the port binds
-`TORCH` (tensors, on whatever device the columns live), which mirrors the
-jnp calls the IR makes, with jnp's treatment of Python scalars:
+an array namespace `xp`. Where the reference binds `jax.numpy` (its device
+mode) or `numpy` (its host mode), the port binds `TORCH` or `NUMPY`.
+
+`TORCH` (tensors, on whatever device the columns live) mirrors the jnp
+calls the IR makes, with jnp's treatment of Python scalars:
 
 - a scalar operand becomes a 0-dim CPU tensor, which torch passes to a
   kernel on any device by value (no host-to-device copy per evaluation),
@@ -15,6 +17,10 @@ jnp calls the IR makes, with jnp's treatment of Python scalars:
 It adds `astype(v, np_dtype)` and `const_like(values, like)`: torch
 tensors have no `.astype`, and a constant vector must be placed on the
 device of the column it is compared with.
+
+`NUMPY` is numpy itself with those two helpers: the host twins that the
+window tail's shadow fold evaluates over host columns
+(ops/prefinalize.py HostShadow).
 """
 from __future__ import annotations
 
@@ -146,3 +152,21 @@ class _TorchNS:
 
 
 TORCH = _TorchNS()
+
+
+class _NumpyNS:
+    """numpy, plus the two helpers the IR calls beside the array API."""
+
+    def __getattr__(self, name: str) -> Any:
+        return getattr(np, name)
+
+    @staticmethod
+    def astype(v, dtype):
+        return np.asarray(v).astype(dtype)
+
+    @staticmethod
+    def const_like(values: np.ndarray, like):
+        return values
+
+
+NUMPY = _NumpyNS()

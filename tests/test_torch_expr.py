@@ -1,6 +1,7 @@
 """Parity of the port's expression IR (ekuiper_tpu_torch/sql/expr_ir.py,
 device mode: closures over torch tensors) against the JAX package's
-device closures (jax.numpy), over the operator classes a rule's WHERE,
+device closures (jax.numpy), and of its host twins (mode "host", numpy)
+against the JAX package's host twins, over the operator classes a rule's WHERE,
 FILTER and aggregate arguments compile to in the port: numeric/logic with
 three-valued NULL logic, BETWEEN, IN (literal and dynamic), CASE, bitwise
 operators and math functions. The reference's string-dictionary and
@@ -13,6 +14,8 @@ FILTER masks) must be equal; numeric results (aggregate arguments) must be
 equal to float32 rounding: rtol 1e-6, NaN (NULL) in the same places —
 both evaluate the same float32 operations in the same order, and only the
 transcendental functions' last bit may differ between XLA and torch.
+The host twins of both packages evaluate the same numpy calls, so their
+results must be bit-equal, NaN in the same places.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -133,6 +136,26 @@ def test_number_closures_match_reference(sql, batch):
     assert got.dtype == np.float32, sql
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=0, equal_nan=True,
                                err_msg=sql)
+
+
+@pytest.mark.parametrize(
+    "sql,want",
+    [(x, "bool") for x in BOOL_EXPRS] + [(x, "number") for x in NUMBER_EXPRS])
+def test_host_twins_match_reference(sql, want, batch):
+    """The numpy binding the window tail's shadow folds with."""
+    jce = jax_ir.compile_expr_ir(_where(sql, jax_parse), mode="host",
+                                 want=want, anchor_ms=ANCHOR)
+    tce = expr_ir.compile_expr_ir(_where(sql, parse_select), mode="host",
+                                  want=want)
+    assert tce.ir_key == jce.ir_key and tce.columns == jce.columns
+    cols = _cols(batch)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ref = np.broadcast_to(np.asarray(jce(dict(cols))), (batch.n,))
+        got = tce(dict(cols))
+    assert isinstance(got, (np.ndarray, np.generic, bool)), sql  # no torch
+    got = np.broadcast_to(np.asarray(got), (batch.n,))
+    assert got.dtype == ref.dtype, sql
+    np.testing.assert_array_equal(got, ref, err_msg=sql)
 
 
 @pytest.mark.parametrize(

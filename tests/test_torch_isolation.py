@@ -252,3 +252,42 @@ def test_sketch_wrappers_never_take_the_plain_versions(monkeypatch):
                 call()
     assert taken == []
     assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
+
+
+def test_prefinalize_wrappers_never_take_the_plain_versions(monkeypatch):
+    """The components and absorb wrappers, given CUDA tensors: the launch
+    path fails loudly without a card or nvcc, and no plain version runs;
+    a shadow larger than the state is refused before any launch."""
+    _needs_no_card()
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    taken = []
+    for name in ("components_plain", "absorb_plain"):
+        monkeypatch.setattr(kernels, name,
+                            lambda *a, _n=name, **k: taken.append(_n))
+    kernels.reset_launches()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        state = {"n": torch.zeros((2, 8, 1), device="cuda"),
+                 "hll": torch.zeros((2, 8, 1, kernels.WIDE_W["hll"]),
+                                    device="cuda"),
+                 "act": torch.zeros((2, 8), device="cuda")}
+        mask = torch.ones(2, dtype=torch.bool, device="cuda")
+        shadow = {"n": torch.zeros((8, 1), device="cuda"),
+                  "act": torch.zeros(8, device="cuda")}
+        wide = {"n": torch.zeros((16, 1), device="cuda"),
+                "act": torch.zeros(16, device="cuda")}
+    calls = [
+        lambda: kernels.groupby_components(state, mask, ["hll", "n", "act"]),
+        lambda: kernels.groupby_absorb(state, shadow, 1),
+    ]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # fake data_ptr()
+        for call in calls:
+            with pytest.raises((RuntimeError, AssertionError)):
+                call()
+        with pytest.raises(ValueError):
+            kernels.groupby_absorb(state, wide, 0)
+        with pytest.raises(ValueError):
+            kernels.groupby_absorb(state, shadow, 2)
+    assert taken == []
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)

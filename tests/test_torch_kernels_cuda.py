@@ -13,6 +13,10 @@ atomics); the heavy-hitter candidates (codes, estimates and their order)
 bit-equal; the hll estimate within ±1 (its 256-term sum runs in another
 order than torch.sum's, which can move the rounded estimate by one); the
 percentile within 4 ulp (expf of the kernel against torch.exp).
+Prefinalize: the pane-merged components and the absorbed state
+bit-equal (a merge of at most two panes, and one add per element, round
+alike in any order); the components fetch lands in pinned host memory
+and holds no row folded after its launch.
 """
 import numpy as np
 import pytest
@@ -228,3 +232,83 @@ def test_reset_wide_matches_plain(sgb):
     kernels.reset_pane_plain(st, 1)
     torch.cuda.synchronize()
     _same(got, st, 0)
+
+
+# ------------------------------------------------------------ prefinalize
+def _comps_state(gb, panes):
+    """A state with rows in both panes, and the pane mask of `panes`."""
+    st = _folded_sketch_state(gb) if "hh" in gb.comp_specs else None
+    if st is None:
+        st = gb.init_state()
+        for pane in (0, 1):
+            base, V, M, slots = _inputs(gb, 40 + pane)
+            kernels.fold_scalar_plain(st, base, V, M, slots, pane,
+                                      gb._colmap)
+    pm = gb._pane_mask(panes) if panes != "empty" else \
+        gb._mask_tensor(np.zeros(gb.n_panes, dtype=bool))
+    return st, pm
+
+
+@pytest.mark.parametrize("panes", [None, [0], [1], "empty"])
+@pytest.mark.parametrize("which", ["scalar", "sketch"])
+def test_components_match_plain(gb, sgb, which, panes):
+    g = gb if which == "scalar" else sgb
+    st, pm = _comps_state(g, panes)
+    kernels.reset_launches()
+    got = kernels.groupby_components(st, pm, g._comp_order)
+    ref = kernels.components_plain(st, pm, g._comp_order)
+    assert kernels.LAUNCHES["groupby_components"] == 1
+    assert got.shape == ref.shape == (g.capacity, sum(
+        w for _, _, w, _ in g._components_layout()))
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.parametrize("pane", [0, 1])
+@pytest.mark.parametrize("which,lacks", [("scalar", "mx"),
+                                         ("sketch", "s1")])
+def test_absorb_matches_plain(gb, sgb, which, lacks, pane):
+    g = gb if which == "scalar" else sgb
+    st, _ = _comps_state(g, None)
+    rng = np.random.default_rng(50)
+    cs = g.capacity // 2  # a shadow narrower than the state
+    shadow = {}
+    for comp, arr in st.items():
+        if comp == lacks:
+            continue  # a component the shadow lacks stays as it is
+        host = (rng.normal(20, 5, (cs, *arr.shape[2:])) if comp in (
+            "mn", "mx", "s1", "s2") else rng.integers(
+            0, 5, (cs, *arr.shape[2:])))
+        shadow[comp] = torch.from_numpy(host.astype(np.float32)).to(
+            g.device)
+    got = {k: v.clone() for k, v in st.items()}
+    kernels.reset_launches()
+    kernels.groupby_absorb(got, shadow, pane)
+    kernels.absorb_plain(st, shadow, pane)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["groupby_absorb"] == 1
+    _same(got, st, 0)
+
+
+def test_fetch_is_pinned_and_holds_no_later_fold(gb):
+    """The components fetch copies into pinned memory on its own stream;
+    a fold launched right after the pre-issue (no synchronize between)
+    does not reach it."""
+    st = gb.init_state()
+    base, V, M, slots = _inputs(gb, 60)
+    kernels.groupby_fold_scalar(st, base, V, M, slots, 0, gb._colmap)
+    head = kernels.components_plain(st, gb._pane_mask(None), gb._comp_order)
+    pending = gb.prefinalize_begin(st)
+    for seed in range(61, 64):
+        base, V, M, slots = _inputs(gb, seed)
+        kernels.groupby_fold_scalar(st, base, V, M, slots, 0, gb._colmap)
+    assert pending._buf.is_pinned()
+    comps = pending.get()
+    assert pending.ready() and pending.copy_ms() is not None
+    torch.cuda.synchronize()
+    full = kernels.components_plain(st, gb._pane_mask(None), gb._comp_order)
+    want = head.cpu().numpy()
+    assert not np.array_equal(want, full.cpu().numpy())
+    got = np.concatenate([comps[c].reshape(len(want), -1)
+                          for c, *_ in gb._components_layout()], axis=1)
+    np.testing.assert_array_equal(got, want)
+    pending.release()

@@ -76,9 +76,14 @@ def _jax_node(sql, columnar=True, direct=True):
 
 
 def _port_node(sql, columnar=True, direct=True):
+    """The port's node on the synchronous boundary (prefinalizeLeadMs 0):
+    every window finalizes on the device route, as the JAX node's boundary
+    without a pre-issue does (tests/test_torch_prefinalize.py drives the
+    pre-issued route)."""
     if columnar and direct:
         node = plan_fused_rule(sql, key_slots=SLOTS, micro_batch=MB,
-                               device="cpu")
+                               device="cpu",
+                               options={"prefinalizeLeadMs": 0})
     else:
         stmt = parse_select(sql)
         plan = extract_kernel_plan(stmt)
@@ -87,7 +92,7 @@ def _port_node(sql, columnar=True, direct=True):
             capacity=SLOTS, micro_batch=MB,
             direct_emit=(build_direct_emit(stmt, plan, ["deviceId"])
                          if direct else None),
-            emit_columnar=columnar, device="cpu")
+            emit_columnar=columnar, device="cpu", prefinalize_lead_ms=0)
     got = []
     node.broadcast = got.append
     return node, got

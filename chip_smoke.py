@@ -10,16 +10,18 @@ Phases (each prints its own lines; any failure exits non-zero and prints
 no result):
 
 1. the card (nvidia-smi name and power limit) and the kernels' build time
-   (csrc/groupby.cu, csrc/sketches.cu and csrc/prefinalize.cu, one nvcc
-   each for sm_90a, run together);
+   (csrc/groupby.cu, csrc/sketches.cu, csrc/prefinalize.cu and
+   csrc/slidingring.cu, one nvcc each for sm_90a, run together);
 2. each kernel against its plain PyTorch version on the card, at the main
    path's shapes (65,536 rows, 16,384 slots; the sketch kernels at the
    sketch rules' state, up to 2 panes x 16,384 x 2,688 floats; the
    components merge and the absorb at the phase C rules' state, up to
-   16,384 x 1,028 floats): error, kernel time (CUDA events), the kernel
-   body's own device time (profiler trace) and the host time of one
-   wrapper call, plain time, a library yardstick and the bytes/operations
-   bound;
+   16,384 x 1,028 floats; the sliding ring's advance, flip and query and
+   the folds with a per-row pane vector at the phase D rules' state, up
+   to 53 panes x 16,384 x 1,026 floats): error, kernel time (CUDA
+   events), the kernel body's own device time (profiler trace) and the
+   host time of one wrapper call, plain time, a library yardstick and the
+   bytes/operations bound;
 3. end to end, tumbling: the flagship rule
    `SELECT deviceId, avg(temperature), count(*), min(temperature),
    max(temperature) FROM demo GROUP BY deviceId, TUMBLINGWINDOW(ss, 10)`
@@ -55,6 +57,22 @@ C. the boundary as the reference runs it by default (prefinalizeLeadMs
    3/4/A/B; any boundary served by a recovery route fails the run. Per run:
    rows/s, the boundary's stall on the fold thread, delivery latency, the
    fetches' copy time and size, shadow fold time, boundaries by source;
+D. SLIDINGWINDOW rules on the DABA ring, each opened on the mock clock
+   at full size and fed the BASELINE ingest rate: 65,536-row batches of
+   62.5 ms of stream each (16 a second), row timestamps rising evenly
+   across the batch, temperature ~ N(20, 5), a trigger row (temperature
+   99 at a random row) in every 20th batch. D1 BASELINE config #3
+   (bench.py:268-282), `percentile_approx(temperature, 0.99)` +
+   `count(*)` over `SLIDINGWINDOW(ss, 10) OVER (WHEN temperature > 44.5)`,
+   720 batches (45 s: a re-anchor of the running totals falls in it);
+   D2 avg/min/max/count of temperature on the same window, 720 batches
+   with one 12 s gap; D2 delay, the same rule on SLIDINGWINDOW(ss, 10, 1)
+   (the timer route); D3 `hll(humidity)` on the coarsened ring, 400
+   batches. Every emitted window is held against a numpy reference over
+   exactly the rows in (t - L, t + delay] the node had received: the
+   float64 group-by (D2), the percentile twin's bin (D1), hll within ±1
+   (D3). Per rule: rows/s, the trigger's stall on the fold thread, the
+   delivery, triggers by route and flips;
 5. each kernel's launch count on the paths that use it (each must be
    > 0), then the JSON kernel table and the one-line result.
 """
@@ -110,6 +128,35 @@ EPS32 = float(np.finfo(np.float32).eps)
 #: the synchronous boundary (prefinalizeLeadMs 0): phases 3, 4, A and B
 #: measure the finalize route as they did before phase C existed
 SYNC = {"prefinalizeLeadMs": 0}
+#: phase D: the sliding rules (D1 is BASELINE config #3, bench.py:268-282)
+TRIGGER = "OVER (WHEN temperature > 44.5)"
+D1_RULE = ("SELECT deviceId, percentile_approx(temperature, 0.99) AS p99, "
+           "count(*) AS c FROM demo GROUP BY deviceId, SLIDINGWINDOW(ss, 10) "
+           + TRIGGER)
+D2_RULE = ("SELECT deviceId, avg(temperature) AS avg_t, count(*) AS cnt, "
+           "min(temperature) AS min_t, max(temperature) AS max_t FROM demo "
+           "GROUP BY deviceId, SLIDINGWINDOW(ss, 10) " + TRIGGER)
+D2_DELAY_RULE = D2_RULE.replace("SLIDINGWINDOW(ss, 10)",
+                                "SLIDINGWINDOW(ss, 10, 1)")
+D3_RULE = ("SELECT deviceId, hll(humidity) AS u FROM demo GROUP BY deviceId, "
+           "SLIDINGWINDOW(ss, 10) " + TRIGGER)
+#: batches per run, the trigger every 20th batch, the gap in D2
+D_BATCHES = {"d1": 720, "d2": 720, "d2_delay": 240, "d3": 400}
+TRIGGER_EVERY, GAP_AT, GAP_MS = 20, 360, 12_000
+#: stream time per 65,536-row batch: 125/2 ms (16 batches a second)
+BATCH_MS_NUM, BATCH_MS_DEN = 125, 2
+#: the stream's first row time: off the bucket grid, so that batches cross
+#: bucket edges on every ring (D3's 1,250 ms buckets hold exactly 20
+#: batches, which a start on the grid would never cross)
+T0_MS = 100_031
+#: phase D1's near-edge band of the percentile twin, in bin positions: the
+#: float32 position of the reference's compiled arithmetic (and the
+#: port's) is within ~4.4e-5 of the float64 one at |x| ~ 20 (c / lo
+#: rounded: 6e-7; logf's ulp at ~24: 2e-5; the float32 1/log_gamma: 1.5e-5;
+#: the product's rounding: 7.6e-6). Over D1's 580,000 percentiles a value
+#: 1.04e-5 from an edge was binned one over, past the 1e-5 band that
+#: phases B and C keep.
+D_EDGE = 5e-5
 SOURCE = {
     "groupby_fold_scalar": "ekuiper_tpu_torch/csrc/groupby.cu",
     "groupby_finalize_scalar": "ekuiper_tpu_torch/csrc/groupby.cu",
@@ -119,6 +166,9 @@ SOURCE = {
     "groupby_hh_finalize": "ekuiper_tpu_torch/csrc/sketches.cu",
     "groupby_components": "ekuiper_tpu_torch/csrc/prefinalize.cu",
     "groupby_absorb": "ekuiper_tpu_torch/csrc/prefinalize.cu",
+    "ring_advance": "ekuiper_tpu_torch/csrc/slidingring.cu",
+    "ring_flip": "ekuiper_tpu_torch/csrc/slidingring.cu",
+    "ring_query": "ekuiper_tpu_torch/csrc/slidingring.cu",
 }
 REPLACES = {
     "groupby_fold_scalar": "ekuiper_tpu/ops/groupby.py:348",
@@ -129,19 +179,31 @@ REPLACES = {
     "groupby_hh_finalize": "ekuiper_tpu/ops/groupby.py:628",
     "groupby_components": "ekuiper_tpu/ops/groupby.py:541",
     "groupby_absorb": "ekuiper_tpu/ops/groupby.py:729",
+    "ring_advance": "ekuiper_tpu/ops/slidingring.py:283",
+    "ring_flip": "ekuiper_tpu/ops/slidingring.py:303",
+    "ring_query": "ekuiper_tpu/ops/slidingring.py:332",
 }
 #: which end-to-end paths launch each kernel (phase 5 checks each > 0)
 PATHS = {
-    "groupby_fold_scalar": ("tumbling", "hopping", "hh", "pct", "hll"),
+    "groupby_fold_scalar": ("tumbling", "hopping", "hh", "pct", "hll", "d1",
+                            "d2", "d2_delay", "d3"),
     "groupby_finalize_scalar": ("tumbling", "hopping", "hh", "pct", "hll"),
-    "groupby_reset_pane": ("tumbling", "hopping", "hh", "pct", "hll"),
-    "groupby_fold_wide": ("hh", "pct", "hll"),
+    "groupby_reset_pane": ("tumbling", "hopping", "hh", "pct", "hll", "d1",
+                           "d2", "d3"),
+    "groupby_fold_wide": ("hh", "pct", "hll", "d1", "d3"),
     "groupby_finalize_wide": ("pct", "hll"),
     "groupby_hh_finalize": ("hh",),
     "groupby_components": ("c1", "c1_nobackstop", "c1_host", "c2", "c3_pct",
-                           "c3_hll"),
+                           "c3_hll", "d2", "d2_delay"),
     "groupby_absorb": ("c1_host",),
+    "ring_advance": ("d1", "d2", "d2_delay", "d3"),
+    "ring_flip": ("d1", "d2", "d3"),
+    "ring_query": ("d1", "d2", "d3"),
 }
+#: the folds that must take a per-row pane vector on each sliding path (a
+#: batch that crosses a bucket edge)
+ROW_PANE_PATHS = {"groupby_fold_scalar": ("d1", "d2", "d2_delay", "d3"),
+                  "groupby_fold_wide": ("d1", "d3")}
 
 
 class SmokeFailure(Exception):
@@ -378,7 +440,8 @@ def kernel_checks(torch, seed, kernels, plan_fused_rule, dev):
 
 def library_fold(torch, state, base, V, M, slots, pane, colmap, kernels):
     """Yardstick, never called by the port: the fold as PyTorch's own
-    scatter calls (index_add_ for the sums, scatter_reduce_ for min/max)."""
+    scatter calls (index_add_ for the sums, scatter_reduce_ for min/max);
+    `pane` an int or a per-row int64 tensor."""
     act = state["act"]
     C = act.shape[1]
     pc = pane * C + slots.long()
@@ -455,7 +518,8 @@ def sketch_inputs(torch, gb, seed, dev):
 
 def wide_updates(torch, gb, V, M, slots, pane, sketches):
     """Per wide column: (flat state tensor, flat index, value, reduce op)
-    of its nonzero updates, as the library yardstick scatters them."""
+    of its nonzero updates, as the library yardstick scatters them; `pane`
+    an int or a per-row int64 tensor."""
     C = gb.capacity
     pc = pane * C + slots.long()
     out = []
@@ -1070,15 +1134,15 @@ def twin_hll_estimate(regs):
     return np.rint(np.where((raw < 2.5 * HLL_M) & (zeros > 0), small, raw))
 
 
-def twin_bins(values):
+def twin_bins(values, edge=1e-5):
     """(bin, near_edge) per value: the signed log bin from the float64
-    bin position, and whether that position lies within 1e-5 of a bin
+    bin position, and whether that position lies within `edge` of a bin
     edge (where the card's float32 log may land one bin over)."""
     mag = np.clip(np.abs(values.astype(np.float64)), HIST_LO,
                   HIST_HI * 0.999)
     pos = np.log(mag / HIST_LO) / LOG_GAMMA
     idx = np.clip(np.floor(pos), 0, HIST_HALF - 1).astype(np.int64)
-    near = np.abs(pos - np.round(pos)) < 1e-5
+    near = np.abs(pos - np.round(pos)) < edge
     b = np.where(values > 0, HIST_HALF + 1 + idx,
                  np.where(values < 0, HIST_HALF - 1 - idx, HIST_HALF))
     return b, near
@@ -1675,12 +1739,532 @@ def pct(xs, q):
     return float(np.percentile(np.asarray(xs), q))
 
 
+
+# ------------------------------------------- phase 2, the sliding ring
+def rand_state(torch, gen, comp, shape, dev):
+    """A component's values on the card, from the generator: small integer
+    counters and registers, N(20, 5) sums, min/max with some identities."""
+    if comp in ("n", "act", "hist"):
+        return torch.randint(0, 6, shape, generator=gen, device=dev,
+                             dtype=torch.float32)
+    if comp == "hll":
+        return torch.randint(0, 30, shape, generator=gen, device=dev,
+                             dtype=torch.float32)
+    v = torch.normal(20.0, 5.0, shape, generator=gen, device=dev)
+    if comp in ("mn", "mx"):
+        ident = float("inf") if comp == "mn" else float("-inf")
+        v = torch.where(torch.rand(shape, generator=gen, device=dev) < 0.2,
+                        ident, v)
+    return v
+
+
+def ring_err(got, ref, sum_rtol, what):
+    """Ring tensors or query columns against the plain version: bit-equal,
+    except the sums (s1/s2) within sum_rtol."""
+    worst = 0.0
+    for key in ref:
+        g, r = got[key].cpu().numpy(), ref[key].cpu().numpy()
+        same = (g == r) | (np.isnan(g) & np.isnan(r))
+        if key.split("_", 1)[-1] in ("s1", "s2") and sum_rtol:
+            with np.errstate(invalid="ignore"):
+                d = np.abs(g.astype(np.float64) - r)
+            ok = same | (d <= sum_rtol * np.abs(r))
+            check(ok.all(), f"{what} {key}: beyond rtol {sum_rtol}")
+            worst = max(worst, float(np.nan_to_num(d[~same]).max(
+                initial=0.0)))
+        else:
+            check(same.all(), f"{what} {key}: differs from plain at "
+                  f"{int((~same).sum())} places")
+    return worst
+
+
+def library_advance(torch, ring, st, comps, closed, evict, kernels):
+    """Yardstick: add_ / sub_ per additive component, one in-place
+    minimum / maximum per two-stack one."""
+    for c in comps:
+        if c in kernels.MERGE_OPS:
+            back = ring["back_" + c]
+            (torch.minimum if c == "mn" else torch.maximum)(
+                back, st[c][closed], out=back)
+        else:
+            ring["tot_" + c].add_(st[c][closed]).sub_(st[c][evict])
+
+
+def library_flip(torch, ring, st, comps, order_t, kernels):
+    """Yardstick: index_select + sum per additive component; index_select,
+    flip, cummin / cummax, flip, index_copy_ per two-stack one."""
+    for c in comps:
+        g = st[c].index_select(0, order_t)
+        if c in kernels.MERGE_OPS:
+            scan = torch.cummin if c == "mn" else torch.cummax
+            ring["front_" + c].index_copy_(
+                0, order_t, scan(g.flip(0), dim=0).values.flip(0))
+            ring["back_" + c].fill_(kernels.INIT[c])
+        else:
+            torch.sum(g, dim=0, out=ring["tot_" + c])
+
+
+def library_query(torch, ring, st, comps, q, kernels):
+    """Yardstick: where + tensordot of the weighted slices per additive
+    component, where + amin/amax per two-stack one, then one cat."""
+    C = st["act"].shape[1]
+    parts = []
+    for c in comps:
+        if c in kernels.MERGE_OPS:
+            stack = torch.stack([ring["front_" + c][q["f_slot"]],
+                                 ring["back_" + c], st[c][q["mm_slot"]]])
+            v = (stack.amin(0) if c == "mn" else stack.amax(0))
+        else:
+            v = torch.tensordot(q["w_t"], st[c].index_select(
+                0, q["slots_t"]), dims=1) + ring["tot_" + c]
+        parts.append(v.reshape(C, -1))
+    return torch.cat(parts, dim=1)
+
+
+def ring_kernel_checks(torch, seed, kernels, plan_fused_rule, dev):
+    """ring_advance, ring_flip and ring_query against their plain versions
+    at the phase D rules' full state (16,384 slots; R = 52 / 132 / 11
+    ring panes), with a steady-state query (front and back, two trailing
+    subtractions, the head pane)."""
+    rows = {}
+    for tag, sql in (("pct", D1_RULE), ("scalar", D2_RULE), ("hll", D3_RULE)):
+        node = plan_fused_rule(sql, key_slots=SLOTS, micro_batch=ROWS,
+                               device=dev)
+        ring, gb = node.ring, node.gb
+        R, P = ring.n_ring_panes, gb.n_panes
+        gen = torch.Generator(device=dev).manual_seed(seed + 90)
+        st = {c: rand_state(torch, gen, c, tuple(a.shape), dev)
+              for c, a in gb.init_state().items()}
+        rs = {k: rand_state(torch, gen, k.split("_", 1)[1], tuple(a.shape),
+                            dev)
+              for k, a in ring.init_state().items()}
+        comps = ring._comps
+        per_slot = {c: st[c][0].numel() * 4 for c in comps}  # bytes a pane
+        # advance: pane 1 closes, pane R - 1 is evicted
+        got, ref = clone_state(rs), clone_state(rs)
+        kernels.ring_advance(got, st, comps, 1, True, R - 1, True)
+        kernels.ring_advance_plain(ref, st, comps, 1, True, R - 1, True)
+        torch.cuda.synchronize()
+        err = ring_err(got, ref, 0, f"ring_advance {tag}")
+        fn = functools.partial(kernels.ring_advance, got, st, comps, 1, True,
+                               R - 1, True)
+        t_k = time_ms(torch, fn, REPS)
+        split = launch_split(torch, fn, "ring_advance_kernel", REPS)
+        t_p = time_ms(torch, lambda: kernels.ring_advance_plain(
+            ref, st, comps, 1, True, R - 1, True), REPS)
+        t_l = time_ms(torch, lambda: library_advance(
+            torch, ref, st, comps, 1, R - 1, kernels), REPS)
+        nbytes = sum((3 if c in kernels.MERGE_OPS else 4) * per_slot[c]
+                     for c in comps)
+        ops = sum(per_slot[c] // 4 * (1 if c in kernels.MERGE_OPS else 2)
+                  for c in comps)
+        b_ms, b_by = bound(nbytes, ops)
+        print(f"kernel ring_advance {tag} R={R} C={SLOTS} comps={comps}: "
+              f"max_abs_err={err:.3g} kernel_ms={t_k:.4f} "
+              f"{split_text(split)} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
+              f"bound_ms={b_ms:.5f} ({b_by}) MB_moved={nbytes / 1e6:.1f}")
+        rows[f"ring_advance/{tag}"] = dict(
+            max_abs_err=err, ms=t_k, **split, plain_ms=t_p, bound_ms=b_ms,
+            bound_by=b_by, library_ms=t_l)
+
+        # flip: every ring slot live, the rotation starting at slot 5
+        order = ((5 + np.arange(R)) % R).astype(np.int32)
+        valid = np.ones(R, dtype=bool)
+        got, ref = clone_state(rs), clone_state(rs)
+        kernels.ring_flip(got, st, comps, order, valid)
+        kernels.ring_flip_plain(ref, st, comps, order, valid)
+        torch.cuda.synchronize()
+        err = ring_err(got, ref, 1e-5, f"ring_flip {tag}")
+        fn = functools.partial(kernels.ring_flip, got, st, comps, order,
+                               valid)
+        t_k = time_ms(torch, fn, REPS)
+        split = launch_split(torch, fn, "ring_flip_kernel", REPS)
+        t_p = time_ms(torch, lambda: kernels.ring_flip_plain(
+            ref, st, comps, order, valid), REPS)
+        order_t = torch.from_numpy(order.astype(np.int64)).to(dev)
+        t_l = time_ms(torch, lambda: library_flip(
+            torch, ref, st, comps, order_t, kernels), REPS)
+        nbytes = sum(R * per_slot[c] + ((R + 1) * per_slot[c]
+                                        if c in kernels.MERGE_OPS
+                                        else per_slot[c]) for c in comps)
+        ops = sum(R * per_slot[c] // 4 for c in comps)
+        b_ms, b_by = bound(nbytes, ops)
+        print(f"kernel ring_flip {tag} R={R} C={SLOTS}: max_abs_err={err:.3g} "
+              f"kernel_ms={t_k:.4f} {split_text(split)} plain_ms={t_p:.4f} "
+              f"library_ms={t_l:.4f} bound_ms={b_ms:.5f} ({b_by}) "
+              f"MB_moved={nbytes / 1e6:.1f}")
+        rows[f"ring_flip/{tag}"] = dict(
+            max_abs_err=err, ms=t_k, **split, plain_ms=t_p, bound_ms=b_ms,
+            bound_by=b_by, library_ms=t_l)
+
+        # query: front[3] and back, panes 1 and 2 subtracted, the head
+        # (pane R - 1) added
+        q = dict(body_on=True, f_on=bool(ring.mm_comps), f_slot=3,
+                 adj_slots=np.array([1, 2, R - 1, 0], np.int32),
+                 adj_w=np.array([-1, -1, 1, 0], np.float32),
+                 adj_mm=np.array([0, 0, 1, 0], bool))
+        qc = ring._query_comps
+        args = (q["body_on"], q["f_on"], q["f_slot"], q["adj_slots"],
+                q["adj_w"], q["adj_mm"])
+        out_k = kernels.ring_query(rs, st, qc, *args)
+        out_p = kernels.ring_query_plain(rs, st, qc, *args)
+        torch.cuda.synchronize()
+        err = ring_err({"q": out_k}, {"q": out_p}, 0, f"ring_query {tag}")
+        fn = functools.partial(kernels.ring_query, rs, st, qc, *args)
+        t_k = time_ms(torch, fn, REPS)
+        split = launch_split(torch, fn, "ring_query_kernel", REPS)
+        t_p = time_ms(torch, lambda: kernels.ring_query_plain(
+            rs, st, qc, *args), REPS)
+        lq = dict(f_slot=3, mm_slot=R - 1,
+                  w_t=torch.tensor([-1.0, -1.0, 1.0, 0.0], device=dev),
+                  slots_t=torch.tensor([1, 2, R - 1, 0], device=dev))
+        t_l = time_ms(torch, lambda: library_query(
+            torch, rs, st, qc, lq, kernels), REPS)
+        # additive: tot and the 4 weighted slices read, the result written;
+        # two-stack: front[f], back and the head slice read, written
+        nbytes = sum((6 if c not in kernels.MERGE_OPS else 4) * per_slot[c]
+                     for c in qc)
+        ops = sum(per_slot[c] // 4 * (8 if c not in kernels.MERGE_OPS else 3)
+                  for c in qc)
+        b_ms, b_by = bound(nbytes, ops)
+        print(f"kernel ring_query {tag} R={R} C={SLOTS} "
+              f"W={out_k.shape[1]}: max_abs_err={err:.3g} kernel_ms={t_k:.4f} "
+              f"{split_text(split)} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
+              f"bound_ms={b_ms:.5f} ({b_by}) MB_moved={nbytes / 1e6:.1f}")
+        rows[f"ring_query/{tag}"] = dict(
+            max_abs_err=err, ms=t_k, **split, plain_ms=t_p, bound_ms=b_ms,
+            bound_by=b_by, library_ms=t_l)
+        if tag in ("scalar", "pct"):
+            rows.update(row_pane_fold_check(torch, seed, kernels, gb, tag,
+                                            dev))
+        del st, rs, got, ref, node
+        torch.cuda.empty_cache()
+    return rows
+
+
+def row_pane_fold_check(torch, seed, kernels, gb, tag, dev):
+    """The scalar (D2 plan) or wide (D1 plan) fold with a per-row pane
+    vector against its plain version: a 65,536-row batch whose first 40 %
+    of rows land in pane 7 and the rest in pane 8 (a bucket edge)."""
+    from ekuiper_tpu_torch.ops import sketches
+
+    r = np.random.default_rng(seed + 95)
+    temp = r.normal(20, 5, ROWS).astype(np.float32)
+    cols = {"temperature": torch.from_numpy(temp).to(dev)}
+    base, V, M = gb.spec_inputs(cols, ROWS)
+    s_host = r.integers(0, N_KEYS, ROWS).astype(np.int32)
+    slots = torch.from_numpy(s_host).to(dev)
+    pv_host = np.where(np.arange(ROWS) < int(0.4 * ROWS), 7, 8).astype(
+        np.uint8)
+    pv = torch.from_numpy(pv_host).to(dev)
+    got, ref = gb.init_state(), gb.init_state()
+    if tag == "scalar":
+        name, kernel = "groupby_fold_scalar", "fold_scalar_kernel"
+        fn = functools.partial(kernels.groupby_fold_scalar, got, base, V, M,
+                               slots, 0, gb._colmap, pv)
+        plain = functools.partial(kernels.fold_scalar_plain, ref, base, V, M,
+                                  slots, 0, gb._colmap, pv)
+        width = sum(a.shape[2] for k, a in got.items() if k != "act") + 1
+    else:
+        name, kernel = "groupby_fold_wide", "fold_wide_kernel"
+        fn = functools.partial(kernels.groupby_fold_wide, got, V, M, slots,
+                               0, gb._widemap, pv)
+        plain = functools.partial(kernels.fold_wide_plain, ref, V, M, slots,
+                                  0, gb._widemap, pv)
+        width = 1  # one bin per row
+    fn()
+    plain()
+    torch.cuda.synchronize()
+    err = state_err(got, ref, exact=EXACT)
+    t_k = time_ms(torch, fn, REPS)
+    split = launch_split(torch, fn, kernel, REPS)
+    t_p = time_ms(torch, plain, REPS)
+    if tag == "scalar":
+        t_l = time_ms(torch, lambda: library_fold(
+            torch, ref, base, V, M, slots, pv.long(), gb._colmap, kernels),
+            REPS)
+    else:
+        upd = wide_updates(torch, gb, V, M, slots, pv.long(), sketches)
+        t_l = time_ms(torch, lambda: library_fold_wide(torch, ref, upd),
+                      REPS)
+    touched = len(np.unique(pv_host.astype(np.int64) * SLOTS + s_host))
+    nbytes = V.numel() * 4 + M.numel() + ROWS * 5 + ROWS + touched * width * 8
+    n_upd = ROWS * (len(gb._colmap) + 1 if tag == "scalar" else 1)
+    b_ms, b_by = bound(nbytes, n_upd)
+    print(f"kernel {name} pane_vec {tag} P={gb.n_panes} R={ROWS} C={SLOTS}: "
+          f"max_abs_err={err[0]:.3g} kernel_ms={t_k:.4f} {split_text(split)} "
+          f"plain_ms={t_p:.4f} library_ms={t_l:.4f} bound_ms={b_ms:.5f} "
+          f"({b_by})")
+    return {f"{name}/pane_vec": dict(
+        max_abs_err=err[0], ms=t_k, **split, plain_ms=t_p, bound_ms=b_ms,
+        bound_by=b_by, library_ms=t_l)}
+
+
+# ------------------------------------------------------------ phase D
+class SlidingStream:
+    """One phase D run's rows, made in bulk from the seed: key indices,
+    temperature ~ N(20, 5) (99 at a random row of every 20th batch), for
+    D3 humidity on its 1,000 one-decimal values, and row timestamps
+    rising evenly, 62.5 ms a batch (plus the gap, where there is one)."""
+
+    def __init__(self, rng, n_batches, humidity=False, gap_at=None):
+        self.n = n_batches
+        self.idx = rng.integers(0, N_KEYS, (n_batches, ROWS)).astype(
+            np.int32)
+        self.temp = rng.normal(20, 5, (n_batches, ROWS)).astype(np.float32)
+        for b in range(TRIGGER_EVERY - 1, n_batches, TRIGGER_EVERY):
+            self.temp[b, rng.integers(0, ROWS)] = 99.0
+        self.hum = (rng.integers(0, 1000, (n_batches, ROWS)).astype(np.int16)
+                    if humidity else None)
+        g = np.arange(n_batches * ROWS, dtype=np.int64)
+        self.ts = T0_MS + g * BATCH_MS_NUM // (BATCH_MS_DEN * ROWS)
+        if gap_at is not None:
+            self.ts[gap_at * ROWS:] += GAP_MS
+        self.ts = self.ts.reshape(n_batches, ROWS)
+
+    def batches(self, ColumnBatch):
+        ids = np.array([f"dev_{i}" for i in range(N_KEYS)], dtype=np.object_)
+        out = []
+        for b in range(self.n):
+            cols = {"deviceId": ids[self.idx[b]], "temperature": self.temp[b]}
+            if self.hum is not None:
+                cols["humidity"] = (self.hum[b] / 10).astype(np.float32)
+            out.append(ColumnBatch(n=ROWS, columns=cols,
+                                   timestamps=self.ts[b], emitter="demo"))
+        return out
+
+    def rows(self, lo, hi, received):
+        """The global row range [a, b) of the rows in (lo, hi] among the
+        first `received` rows."""
+        flat = self.ts.reshape(-1)
+        a = int(np.searchsorted(flat, lo, side="right"))
+        b = min(int(np.searchsorted(flat, hi, side="right")), received)
+        return a, max(a, b)
+
+
+def batch_aggs(idx, t):
+    """float64 count, sum, sum of squares, sum of |x|, min, max per key of
+    one span of rows (bincount, and a sort for min/max)."""
+    t = t.astype(np.float64)
+    out = {"cnt": np.bincount(idx, minlength=N_KEYS).astype(np.float64),
+           "sum": np.bincount(idx, weights=t, minlength=N_KEYS),
+           "sumsq": np.bincount(idx, weights=t * t, minlength=N_KEYS),
+           "sumabs": np.bincount(idx, weights=np.abs(t), minlength=N_KEYS),
+           "min": np.full(N_KEYS, np.inf), "max": np.full(N_KEYS, -np.inf)}
+    if len(idx):
+        order = np.argsort(idx, kind="stable")
+        k, v = idx[order], t[order]
+        starts = np.nonzero(np.r_[True, k[1:] != k[:-1]])[0]
+        out["min"][k[starts]] = np.minimum.reduceat(v, starts)
+        out["max"][k[starts]] = np.maximum.reduceat(v, starts)
+    return out
+
+
+class ScalarTwin:
+    """The float64 group-by of any row range of a stream: per-batch
+    partials as prefix sums (counts and sums) and per-batch min/max, the
+    two partial batches at the ends from their rows."""
+
+    def __init__(self, stream):
+        self.s = stream
+        parts = [batch_aggs(stream.idx[b], stream.temp[b])
+                 for b in range(stream.n)]
+        self.prefix = {k: np.concatenate([np.zeros((1, N_KEYS)), np.cumsum(
+            [p[k] for p in parts], axis=0)]) for k in ("cnt", "sum", "sumsq",
+                                                       "sumabs")}
+        self.mins = np.array([p["min"] for p in parts])
+        self.maxs = np.array([p["max"] for p in parts])
+
+    def window(self, a, b):
+        idx, temp = self.s.idx.reshape(-1), self.s.temp.reshape(-1)
+        ba, bb = -(-a // ROWS), b // ROWS
+        if ba >= bb:
+            return batch_aggs(idx[a:b], temp[a:b])
+        ends = [batch_aggs(idx[a:ba * ROWS], temp[a:ba * ROWS]),
+                batch_aggs(idx[bb * ROWS:b], temp[bb * ROWS:b])]
+        mid = {k: self.prefix[k][bb] - self.prefix[k][ba] for k in self.prefix}
+        mid["min"] = self.mins[ba:bb].min(axis=0)
+        mid["max"] = self.maxs[ba:bb].max(axis=0)
+        return merge_aggs([mid] + ends)
+
+
+def check_pct_window(cb, stream, a, b, what):
+    """D1: count(*) exact and p99 in the twin's bin (one over only for a
+    key holding a value within 1e-5 of a bin edge). Returns rows one bin
+    over."""
+    ks = stream.idx.reshape(-1)[a:b]
+    vs = stream.temp.reshape(-1)[a:b]
+    keys = key_ids(cb.columns["deviceId"])
+    cnt = np.bincount(ks, minlength=N_KEYS)
+    live = np.nonzero(cnt)[0]
+    check(cb.n == len(live) and (np.sort(keys) == live).all(),
+          f"{what}: emitted keys differ")
+    check((np.asarray(cb.columns["c"]) == cnt[keys]).all(), f"{what}: count")
+    bins, near = twin_bins(vs, D_EDGE)
+    hist = np.bincount(ks.astype(np.int64) * HIST_BINS + bins,
+                       minlength=N_KEYS * HIST_BINS).reshape(N_KEYS,
+                                                             HIST_BINS)
+    qb, _ = twin_quantile_bin(hist, 0.99)
+    edge = np.zeros(N_KEYS, dtype=bool)
+    edge[ks[near]] = True
+    got = value_bin(np.asarray(cb.columns["p99"], dtype=np.float32))
+    d = np.abs(got - qb[keys])
+    check(((d == 0) | ((d == 1) & edge[keys])).all(),
+          f"{what}: percentile bin differs at {int((d != 0).sum())} keys")
+    return int((d == 1).sum())
+
+
+class HllTwin:
+    """D3: registers per key from the humidity values present (a value's
+    register and rank depend on the value alone)."""
+
+    def __init__(self):
+        vals = (np.arange(1000) / 10).astype(np.float32)
+        self.reg, self.rho = twin_hll(vals)
+
+    def check(self, cb, stream, a, b, what):
+        ks = stream.idx.reshape(-1)[a:b].astype(np.int64)
+        hv = stream.hum.reshape(-1)[a:b].astype(np.int64)
+        present = np.bincount(ks * 1000 + hv, minlength=N_KEYS * 1000
+                              ).reshape(N_KEYS, 1000) > 0
+        regs = np.zeros((N_KEYS, HLL_M), dtype=np.int64)
+        for v in range(1000):
+            col = self.reg[v]
+            regs[:, col] = np.maximum(regs[:, col],
+                                      np.where(present[:, v], self.rho[v], 0))
+        keys = key_ids(cb.columns["deviceId"])
+        live = np.nonzero(present.any(axis=1))[0]
+        check(cb.n == len(live) and (np.sort(keys) == live).all(),
+              f"{what}: emitted keys differ")
+        est = twin_hll_estimate(regs)
+        u = np.asarray(cb.columns["u"], dtype=np.float64)
+        d = np.abs(u - est[keys])
+        check((d <= 1).all(), f"{what}: estimate beyond ±1 (max {d.max()})")
+        return int((d == 1).sum())
+
+
+def run_sliding(torch, kernels, mods, sql, stream, what):
+    """Open the rule's node on a fresh mock clock and feed it the stream,
+    each batch after the clock moves to its last row's time. Returns the
+    node, the emissions [(t, rows received, stall s, delivery s, item,
+    source)], rows/s and the launch counts."""
+    from ekuiper_tpu_torch.utils import timex
+
+    plan_fused_rule, ColumnBatch, _ = mods
+    batches = stream.batches(ColumnBatch)
+    node = plan_fused_rule(sql, key_slots=SLOTS, micro_batch=ROWS)
+    check(node.gb.device.type == "cuda", f"{what}: rule is not on the card")
+    check(node.sliding_impl == "daba", f"{what}: not on the DABA ring")
+    received = [0]
+    trig, deliveries = [], []
+    emit_sliding = node._emit_sliding
+
+    def timed_emit(t):
+        t0 = time.perf_counter()
+        emit_sliding(t)
+        trig.append((t, received[0], t0, time.perf_counter() - t0))
+
+    node._emit_sliding = timed_emit
+    node.broadcast = lambda item: deliveries.append(
+        (time.perf_counter(), item, dict(node.last_emit_info or {})))
+    clock = timex.set_mock_clock(int(stream.ts[0, 0]) - 1)
+    node.on_open()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for b, batch in enumerate(batches):
+        received[0] = b * ROWS
+        clock.set(int(stream.ts[b, -1]))
+        received[0] = (b + 1) * ROWS
+        node.process(batch)
+    clock.advance(5_000)  # the last delayed emissions
+    node._drain_async_emits()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    row_pane = dict(kernels.ROW_PANE_LAUNCHES)
+    node.on_close()
+    timex.use_real_clock()
+    check(len(deliveries) == len(trig),
+          f"{what}: {len(deliveries)} deliveries for {len(trig)} triggers")
+    check(not node.recoveries, f"{what}: recoveries {dict(node.recoveries)}")
+    emissions = [(t, n, st, tw - t_s, item, info.get("source"))
+                 for (t, n, t_s, st), (tw, item, info) in zip(trig,
+                                                             deliveries)]
+    bad = {src for *_, src in emissions} - {"device-ring"}
+    check(not bad, f"{what}: triggers served by {bad}")
+    return node, emissions, stream.n * ROWS / wall, launches, row_pane
+
+
+def run_phase_d(torch, seed, kernels, mods):
+    """Phase D: the sliding rules on the mock clock at full size, every
+    emitted window against its numpy reference."""
+    res = {}
+    hll_twin = HllTwin()
+    for tag, sql in (("d1", D1_RULE), ("d2", D2_RULE),
+                     ("d2_delay", D2_DELAY_RULE), ("d3", D3_RULE)):
+        rng = np.random.default_rng(seed + 30 + len(res))
+        stream = SlidingStream(rng, D_BATCHES[tag], humidity=tag == "d3",
+                               gap_at=GAP_AT if tag == "d2" else None)
+        node, em, rps, launches, row_pane = run_sliding(
+            torch, kernels, mods, sql, stream, tag)
+        delay = node.delay_ms
+        want_trig = int((stream.temp > 44.5).sum())
+        check(len(em) == want_trig,
+              f"{tag}: {len(em)} triggers, {want_trig} trigger rows")
+        twin = ScalarTwin(stream) if tag.startswith("d2") else None
+        worst, edge = 0.0, 0
+        t_check = time.perf_counter()
+        for i, (t, received, _, _, cb, _) in enumerate(em):
+            a, b = stream.rows(t - node.length_ms, t + delay, received)
+            what = f"{tag} trigger {i} (t={t})"
+            if tag == "d1":
+                edge += check_pct_window(cb, stream, a, b, what)
+            elif tag == "d3":
+                edge += hll_twin.check(cb, stream, a, b, what)
+            else:
+                worst = max(worst, check_window(cb, twin.window(a, b), False,
+                                                what))
+        res[tag] = dict(
+            rows_per_s=rps, triggers=len(em),
+            stall=[st * 1e3 for _, _, st, _, _, _ in em],
+            delivery=[dl * 1e3 for _, _, _, dl, _, _ in em],
+            counts=dict(node.ring_counts), launches=launches,
+            row_pane=row_pane, max_abs_err=worst, edge=edge,
+            bucket_ms=node.bucket_ms, ring_panes=node.n_ring_panes,
+            ring_mb=node.ring_dev_bytes() / 1e6,
+            check_s=time.perf_counter() - t_check)
+        del node, em, stream, twin
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_d_line(tag, r):
+    c = r["counts"]
+    routes = {k: c.get(k, 0) for k in ("fast", "dyn", "head", "edge")}
+    return (f"phase D {tag}: bucket_ms={r['bucket_ms']} "
+            f"ring_panes={r['ring_panes']} ring_MB={r['ring_mb']:.1f} "
+            f"rows/s={r['rows_per_s']:.0f} triggers={r['triggers']} "
+            f"stall_p50_ms={pct(r['stall'], 50):.3f} "
+            f"stall_p99_ms={pct(r['stall'], 99):.3f} "
+            f"delivery_p50_ms={pct(r['delivery'], 50):.3f} "
+            f"delivery_p99_ms={pct(r['delivery'], 99):.3f} "
+            f"device-ring={r['triggers']} routes={routes} "
+            f"flips={c.get('flip', 0)} reanchors={c.get('reanchor', 0)} "
+            f"advances={c.get('advance', 0)} "
+            f"recycled_refolds={c.get('recycled_refold', 0)} "
+            f"late_rows={c.get('late_dropped', 0)} "
+            f"pane_vec_folds={r['row_pane']} launches={r['launches']} "
+            f"check_s={r['check_s']:.1f}")
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the generated rows")
     args = ap.parse_args()
+    t_run = time.perf_counter()
 
     import torch
 
@@ -1713,7 +2297,9 @@ def main() -> int:
                                      plan_fused_rule, TorchGroupBy, dev))
     rows.update(prefinalize_kernel_checks(torch, args.seed, kernels,
                                           plan_fused_rule, dev))
-    print("phase 2 kernels vs plain: ok")
+    rows.update(ring_kernel_checks(torch, args.seed, kernels,
+                                   plan_fused_rule, dev))
+    print(f"phase 2 kernels vs plain: ok (wall {time.perf_counter() - t_run:.0f} s)")
 
     mods = (plan_fused_rule, ColumnBatch, Trigger)
     # phase 3: end to end, tumbling (the main path)
@@ -1778,16 +2364,35 @@ def main() -> int:
           f"{c['c1_host']['absorb_partials_err']:.3g}; C3 pct "
           f"{c['c3_pct']['rows']} rows ({c['c3_pct']['edge_rows']} one bin "
           f"over at an edge), hll {c['c3_hll']['rows']} rows within ±1; C4 "
-          f"{c['c4_hh']['rows']} top lists equal to the twin")
+          f"{c['c4_hh']['rows']} top lists equal to the twin "
+          f"(wall {time.perf_counter() - t_run:.0f} s)")
+
+    # phase D: sliding rules on the DABA ring, mock clock, full size
+    d = run_phase_d(torch, args.seed, kernels, mods)
+    print(f"phase D: 65536-row batches of 62.5 ms, {N_KEYS} keys, {SLOTS} "
+          f"slots, a trigger row in every {TRIGGER_EVERY}th batch; every "
+          "emitted window checked against its numpy reference")
+    for tag in d:
+        print(phase_d_line(tag, d[tag]))
+    print(f"phase D checks: D2 max_abs_err "
+          f"{max(d[t]['max_abs_err'] for t in ('d2', 'd2_delay')):.3g}; D1 "
+          f"{d['d1']['edge']} percentiles one bin over at an edge; D3 "
+          f"{d['d3']['edge']} estimates off by one (wall "
+          f"{time.perf_counter() - t_run:.0f} s)")
 
     # phase 5: every kernel launched on each path that uses it
     paths = {"tumbling": counts_t, "hopping": counts_h, "hh": counts_hh,
              "pct": b["pct"]["launches"], "hll": b["hll"]["launches"],
-             **{tag: c[tag]["launches"] for tag in c}}
+             **{tag: c[tag]["launches"] for tag in c},
+             **{tag: d[tag]["launches"] for tag in d}}
     for name, used_by in PATHS.items():
         for path in used_by:
             check(paths[path][name] > 0,
                   f"{name} was not launched on the {path} path")
+    for name, used_by in ROW_PANE_PATHS.items():
+        for path in used_by:
+            check(d[path]["row_pane"][name] > 0,
+                  f"{name} took no per-row pane vector on the {path} path")
     print("phase 5 kernels: " + " ".join(
         f"{n}=" + "+".join(f"{paths[p][n]}({p})" for p in PATHS[n])
         for n in PATHS))
@@ -1795,10 +2400,14 @@ def main() -> int:
                 "groupby_finalize_wide": "groupby_finalize_wide/pct/full",
                 "groupby_hh_finalize": "groupby_hh_finalize/full",
                 "groupby_components": "groupby_components/tumbling/full",
-                "groupby_absorb": "groupby_absorb/tumbling"}
+                "groupby_absorb": "groupby_absorb/tumbling",
+                "ring_advance": "ring_advance/pct",
+                "ring_flip": "ring_flip/pct",
+                "ring_query": "ring_query/pct"}
     main_path = {"groupby_fold_wide": "hh", "groupby_finalize_wide": "pct",
                  "groupby_hh_finalize": "hh", "groupby_components": "c1",
-                 "groupby_absorb": "c1_host"}
+                 "groupby_absorb": "c1_host", "ring_advance": "d1",
+                 "ring_flip": "d1", "ring_query": "d1"}
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name],
@@ -1813,7 +2422,16 @@ def main() -> int:
     table["kernels"][6]["percentile"] = rows["groupby_components/pct/full"]
     table["kernels"][6]["hll_hopping"] = rows["groupby_components/hll/full"]
     table["kernels"][7]["percentile"] = rows["groupby_absorb/pct"]
-    check(len(table["kernels"]) == 8, "kernel table")
+    # the folds with a per-row pane vector (the sliding paths)
+    for i, name in ((0, "groupby_fold_scalar"), (3, "groupby_fold_wide")):
+        table["kernels"][i]["pane_vec"] = dict(
+            rows[f"{name}/pane_vec"], launches_by_path={
+                p: d[p]["row_pane"][name] for p in ROW_PANE_PATHS[name]})
+    for i, name in ((8, "ring_advance"), (9, "ring_flip"),
+                    (10, "ring_query")):
+        table["kernels"][i]["scalar_rule"] = rows[f"{name}/scalar"]
+        table["kernels"][i]["hll_rule"] = rows[f"{name}/hll"]
+    check(len(table["kernels"]) == 11, "kernel table")
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

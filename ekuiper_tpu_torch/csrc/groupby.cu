@@ -101,19 +101,25 @@ __device__ __forceinline__ void atomic_max_f32(float* a, float v) {
 // FILTER), V[s] its float32 argument. A masked row writes nothing: the
 // reference adds/mins/maxes the identity for it, which leaves the same
 // state. A slot outside [0, C) is dropped, as XLA drops an out-of-range
-// scatter update.
+// scatter update. The destination pane is `pane`, or pane_vec[r] when
+// pane_vec is given (per-row panes: a sliding batch that crosses a bucket
+// edge, the reference's uint8 pane vector); a pane outside [0, P) is
+// dropped likewise.
 __global__ void fold_scalar_kernel(const uint8_t* __restrict__ base,
                                    const float* __restrict__ V,
                                    const uint8_t* __restrict__ M,
                                    const int32_t* __restrict__ slots, int R,
-                                   int pane, int C, ColMap cm, Comps cp,
+                                   int pane, const uint8_t* __restrict__ pane_vec,
+                                   int P, int C, ColMap cm, Comps cp,
                                    float* __restrict__ act) {
   for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < R;
        r += gridDim.x * blockDim.x) {
     if (!base[r]) continue;
     const int slot = slots[r];
     if (slot < 0 || slot >= C) continue;
-    const int64_t pc = (int64_t)pane * C + slot;
+    const int p = pane_vec != nullptr ? (int)pane_vec[r] : pane;
+    if (p >= P) continue;
+    const int64_t pc = (int64_t)p * C + slot;
     atomicAdd(act + pc, 1.0f);
     for (int j = 0; j < cm.n; ++j) {
       const int64_t at = (int64_t)cm.spec[j] * R + r;
@@ -236,8 +242,10 @@ extern "C" {
 
 // colmap: host int32 (ncols, 3) = (comp, k, spec). comp_ptrs / comp_k:
 // host arrays of N_COMPS device pointers (null = absent) and widths.
+// pane_vec: device uint8 (R,) per-row panes, or null for the scalar pane.
 int groupby_fold_scalar(const uint8_t* base, const float* V, const uint8_t* M,
-                        const int32_t* slots, int R, int pane, int C,
+                        const int32_t* slots, int R, int pane,
+                        const uint8_t* pane_vec, int P, int C,
                         const int32_t* colmap, int ncols,
                         float* const* comp_ptrs, const int32_t* comp_k,
                         float* act, void* stream) {
@@ -252,8 +260,9 @@ int groupby_fold_scalar(const uint8_t* base, const float* V, const uint8_t* M,
   }
   const int threads = 256;
   fold_scalar_kernel<<<grid_for(R, threads), threads, 0,
-                       (cudaStream_t)stream>>>(base, V, M, slots, R, pane, C,
-                                               cm, make_comps(comp_ptrs, comp_k),
+                       (cudaStream_t)stream>>>(base, V, M, slots, R, pane,
+                                               pane_vec, P, C, cm,
+                                               make_comps(comp_ptrs, comp_k),
                                                act);
   return (int)cudaGetLastError();
 }

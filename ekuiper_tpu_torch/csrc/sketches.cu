@@ -132,23 +132,28 @@ __device__ __forceinline__ int hist_bin(float v, const HistConsts& hc) {
 // after WHERE AND column validity AND not-NaN AND its FILTER), V[s] its
 // float32 argument: the hll encoding, the value, or the heavy-hitters
 // dictionary code. A masked row writes nothing (the reference max-es 0 or
-// adds 0 for it); a slot outside [0, C) is dropped.
+// adds 0 for it); a slot outside [0, C) is dropped. The pane is `pane`, or
+// pane_vec[r] when pane_vec is given (per-row panes, as
+// groupby_fold_scalar); a pane outside [0, P) is dropped.
 __global__ void fold_wide_kernel(const float* __restrict__ V,
                                  const uint8_t* __restrict__ M,
                                  const int32_t* __restrict__ slots, int R,
-                                 int pane, int C, WideCols wc, Wide w,
+                                 int pane, const uint8_t* __restrict__ pane_vec,
+                                 int P, int C, WideCols wc, Wide w,
                                  HistConsts hc) {
   for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < R;
        r += gridDim.x * blockDim.x) {
     const int slot = slots[r];
     if (slot < 0 || slot >= C) continue;
+    const int p = pane_vec != nullptr ? (int)pane_vec[r] : pane;
+    if (p >= P) continue;
     for (int j = 0; j < wc.n; ++j) {
       const int64_t at = (int64_t)wc.spec[j] * R + r;
       if (!M[at]) continue;
       const int comp = wc.comp[j];
       const int W = kWideW[comp];
       float* dst =
-          w.p[comp] + (((int64_t)pane * C + slot) * w.k[comp] + wc.k[j]) * W;
+          w.p[comp] + (((int64_t)p * C + slot) * w.k[comp] + wc.k[j]) * W;
       const float v = V[at];
       if (comp == W_HLL) {
         const uint32_t h1 = hash_f32(v, 1u);
@@ -375,9 +380,10 @@ extern "C" {
 // colmap: host int32 (ncols, 3) = (wide comp, k, spec). wide_ptrs /
 // wide_k: host arrays of N_WIDE device pointers (null = absent) and K.
 // hist_consts: host float32 (lo, hi, 1/lo, 1/log_gamma, log_gamma,
-// center_scale).
+// center_scale). pane_vec: device uint8 (R,) per-row panes, or null.
 int groupby_fold_wide(const float* V, const uint8_t* M, const int32_t* slots,
-                      int R, int pane, int C, const int32_t* colmap, int ncols,
+                      int R, int pane, const uint8_t* pane_vec, int P, int C,
+                      const int32_t* colmap, int ncols,
                       float* const* wide_ptrs, const int32_t* wide_k,
                       const float* hist_consts, void* stream) {
   if (ncols > MAX_COLS || R < 0) return (int)cudaErrorInvalidValue;
@@ -391,7 +397,7 @@ int groupby_fold_wide(const float* V, const uint8_t* M, const int32_t* slots,
   }
   const int threads = 256;
   fold_wide_kernel<<<grid_for(R, threads), threads, 0, (cudaStream_t)stream>>>(
-      V, M, slots, R, pane, C, wc, make_wide(wide_ptrs, wide_k),
+      V, M, slots, R, pane, pane_vec, P, C, wc, make_wide(wide_ptrs, wide_k),
       make_hc(hist_consts));
   return (int)cudaGetLastError();
 }

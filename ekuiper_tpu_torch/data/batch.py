@@ -32,3 +32,12 @@ class ColumnBatch:
 
     def __len__(self) -> int:
         return self.n
+
+    def take(self, idx: np.ndarray) -> "ColumnBatch":
+        """The rows at `idx`, every column, mask and timestamp with them."""
+        return ColumnBatch(
+            n=len(idx),
+            columns={k: v[idx] for k, v in self.columns.items()},
+            valid={k: v[idx] for k, v in self.valid.items()},
+            timestamps=None if self.timestamps is None else self.timestamps[idx],
+            emitter=self.emitter)

@@ -214,16 +214,23 @@ class TorchGroupBy:
 
         cols: numeric columns referenced by the kernel plan (numpy).
         slots: int32 key slot per row. valid: optional per-column masks.
-        pane_idx: the destination pane (a scalar: processing-time windows).
+        pane_idx: the destination pane, a scalar, or a per-row array (a
+        sliding batch that crosses a bucket edge routes each row to its
+        bucket's pane; shipped as uint8, as the reference ships it).
         Rows are folded in chunks of at most `micro_batch`.
         """
-        if isinstance(pane_idx, np.ndarray):
-            raise NotImplementedError(
-                "per-row panes (event-time windows) are not ported yet")
-        pane = int(pane_idx)
-        if not 0 <= pane < self.n_panes:
-            raise ValueError(f"pane {pane} outside [0, {self.n_panes})")
         n = n_rows if n_rows is not None else len(slots)
+        pane_vec = None
+        if isinstance(pane_idx, np.ndarray):
+            pane_vec = np.asarray(pane_idx)[:n]
+            pane = 0
+            if n and (pane_vec.min() < 0 or pane_vec.max() >= self.n_panes):
+                raise ValueError(f"pane outside [0, {self.n_panes})")
+            pane_vec = pane_vec.astype(np.uint8)
+        else:
+            pane = int(pane_idx)
+            if not 0 <= pane < self.n_panes:
+                raise ValueError(f"pane {pane} outside [0, {self.n_panes})")
         slots = np.asarray(slots)
         if n and (slots[:n].min() < 0 or slots[:n].max() >= self.capacity):
             raise ValueError(
@@ -243,12 +250,14 @@ class TorchGroupBy:
                     dev_cols["__valid_" + name] = self._upload(
                         vm[start:end], np.bool_)
             s_dev = self._upload(slots[start:end], np.int32)
+            p_dev = (None if pane_vec is None
+                     else self._upload(pane_vec[start:end], np.uint8))
             base, V, M = self.spec_inputs(dev_cols, cnt)
             kernels.groupby_fold_scalar(state, base, V, M, s_dev, pane,
-                                        self._colmap)
+                                        self._colmap, p_dev)
             if len(self._widemap):
                 kernels.groupby_fold_wide(state, V, M, s_dev, pane,
-                                          self._widemap)
+                                          self._widemap, p_dev)
         return state
 
     # --------------------------------------------------------------- finalize

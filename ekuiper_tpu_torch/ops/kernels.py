@@ -2,8 +2,9 @@
 wrappers that launch them, their plain PyTorch versions and their launch
 counts.
 
-Eight kernels, written by hand in CUDA C++ for Hopper, each replacing one
-device program of the reference (ekuiper_tpu/ops/groupby.py). Three in
+Eleven kernels, written by hand in CUDA C++ for Hopper, each replacing one
+device program of the reference (ekuiper_tpu/ops/groupby.py and
+ekuiper_tpu/ops/slidingring.py). Three in
 ekuiper_tpu_torch/csrc/groupby.cu:
 
 - `groupby_fold_scalar` replaces `DeviceGroupBy._fold_impl` → `_fold_core`
@@ -17,7 +18,10 @@ ekuiper_tpu_torch/csrc/groupby.cu:
   per row, one launch per batch, native float atomicAdd and a sign-split
   integer atomic for min/max (no compare-and-swap loop), and the
   expression closures evaluated by torch into dense (S, R) value/mask
-  tensors first, so the kernel itself does no expression work.
+  tensors first, so the kernel itself does no expression work. Rows go
+  to one pane, or each to its own pane (`pane_vec`, the reference's
+  uint8 per-row pane vector, groupby.py:334-338: a sliding batch that
+  crosses a bucket edge).
 - `groupby_finalize_scalar` replaces `_finalize_impl`/`_finalize_dyn_impl`
   → `_finalize_body`/`_merged`/`_final_value` (groupby.py:444-520): pane
   merge under a (P,) mask tensor, the per-spec final value, and the
@@ -42,7 +46,9 @@ components are wide: (P, C, K, W) with W = 256 / 1,024 / 2,688:
   h1 & 255, an atomic add into the value's log bin, or, per depth,
   atomic adds into the code's cell total and its set bits. One launch per
   batch beside groupby_fold_scalar (which adds act and the scalar
-  columns). Likely bound: its atomics at L2 (at most 42 a row for hh).
+  columns), with the same per-row panes (the hh branch indexes
+  (pane_vec[r], slot, k, idx), groupby.py:432-434). Likely bound: its
+  atomics at L2 (at most 42 a row for hh).
 - `groupby_finalize_wide` replaces the `hll` and `percentile_approx`
   kinds of `_final_value` (groupby.py:510-519) and their pane merge: one
   block per slot; it writes those specs' rows of the same output that
@@ -65,6 +71,27 @@ window emit (ops/prefinalize.py):
   once (67 MB each way for the percentile rule, 0.040 ms).
 - `groupby_absorb` replaces `_absorb_impl` (groupby.py:729): host-shadow
   partials merged into one pane of the state in place (min / max / add).
+
+And three in ekuiper_tpu_torch/csrc/slidingring.cu, for the sliding
+window's DABA ring (ops/slidingring.py), each one launch over a table of
+every component:
+
+- `ring_advance` replaces `SlidingRing._advance_impl` (slidingring.py:283):
+  the closed pane added to and the evicted pane subtracted from the
+  additive running totals, the closed pane min/max-ed into the two-stack
+  components' back partials, in place. Bound: reading two panes and
+  reading and writing the partials (268 MB for the percentile rule,
+  0.08 ms at 3.35 TB/s).
+- `ring_flip` replaces `_flip_impl` (slidingring.py:303): every running
+  partial rebuilt from the live panes in age order, the additive totals as
+  a masked sum, the front stacks as reverse cumulative min/max, the back
+  partials reset, in place. Bound: reading R panes once (3.49 GB for the
+  percentile rule, 1.04 ms).
+- `ring_query` replaces `_query_impl` (slidingring.py:332): the window body
+  (running partials plus at most four weighted pane slices) into a fresh
+  (C, W) array in the components layout, which the trigger fetches like a
+  pre-issue. Bound: reading the partials and the slices and writing the
+  result (0.12 ms for the percentile rule).
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and
 only there; for a CUDA tensor it launches the kernel or raises. A wrapper
@@ -93,7 +120,8 @@ _PKG = Path(__file__).resolve().parents[1]
 #: library name -> CUDA source; each builds into its own shared library
 SOURCES = {"groupby": _PKG / "csrc" / "groupby.cu",
            "sketches": _PKG / "csrc" / "sketches.cu",
-           "prefinalize": _PKG / "csrc" / "prefinalize.cu"}
+           "prefinalize": _PKG / "csrc" / "prefinalize.cu",
+           "slidingring": _PKG / "csrc" / "slidingring.cu"}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -119,9 +147,12 @@ INIT = {"n": 0.0, "s1": 0.0, "s2": 0.0, "mn": float("inf"),
 MAX_COLS = 64  # csrc/*.cu MAX_COLS / MAX_SPECS
 MAX_SPECS = 64
 MAX_RESET = 16  # csrc/groupby.cu MAX_RESET
-MAX_PARTS = 16  # csrc/prefinalize.cu MAX_PARTS
+MAX_PARTS = 16  # csrc/prefinalize.cu, csrc/slidingring.cu MAX_PARTS
+MAX_RING = 256  # csrc/slidingring.cu MAX_RING
+QUERY_ADJ = 4  # csrc/slidingring.cu QUERY_ADJ (ops/slidingring.py)
 #: pane-merge op of a component in csrc/prefinalize.cu
 MERGE_OPS = {"mn": 1, "mx": 2, "hll": 2}  # every other component: 0, a sum
+#: csrc/slidingring.cu's combine codes are the same: 0 add, 1 min, 2 max
 #: the log histogram's float32 constants, as csrc/sketches.cu HistConsts
 #: takes them (lo, hi, 1/lo, 1/log_gamma, log_gamma, centre scale)
 HIST_CONSTS = np.array([sketches._HIST_LO, sketches._HIST_HI * 0.999,
@@ -140,11 +171,16 @@ LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0,
                             "groupby_finalize_wide": 0,
                             "groupby_hh_finalize": 0,
                             "groupby_components": 0,
-                            "groupby_absorb": 0}
+                            "groupby_absorb": 0,
+                            "ring_advance": 0,
+                            "ring_flip": 0,
+                            "ring_query": 0}
+#: of LAUNCHES' folds, those that took a per-row pane vector
+ROW_PANE_LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0,
+                                     "groupby_fold_wide": 0}
 
 #: the loaded libraries (SimpleNamespace(groupby=..., sketches=...,
-#: prefinalize=...)),
-#: None until the first launch
+#: prefinalize=..., slidingring=...)), None until the first launch
 _lib = None
 _lib_lock = threading.Lock()
 #: seconds the last build took (0.0 when cached libraries were loaded)
@@ -152,8 +188,9 @@ build_seconds = 0.0
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROW_PANE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 # ------------------------------------------------------------------ build
@@ -225,32 +262,40 @@ def _load():
             paths = build_library()
             P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             gb = ctypes.CDLL(str(paths["groupby"]))
-            gb.groupby_fold_scalar.argtypes = [P, P, P, P, I, I, I, P, I,
-                                               P, P, P, P]
+            gb.groupby_fold_scalar.argtypes = [P, P, P, P, I, I, P, I, I,
+                                               P, I, P, P, P, P]
             gb.groupby_finalize_scalar.argtypes = [P, P, P, P, I, I, P, I,
                                                    I, P, P]
             gb.groupby_reset_pane.argtypes = [P, P, P, I, I, P]
             sk = ctypes.CDLL(str(paths["sketches"]))
-            sk.groupby_fold_wide.argtypes = [P, P, P, I, I, I, P, I, P, P,
-                                             P, P]
+            sk.groupby_fold_wide.argtypes = [P, P, P, I, I, P, I, I, P, I,
+                                             P, P, P, P]
             sk.groupby_finalize_wide.argtypes = [P, P, P, I, I, P, P, I, P,
                                                  L, P, P]
             sk.groupby_hh_finalize.argtypes = [P, I, P, I, I, P, I, P, P]
             pf = ctypes.CDLL(str(paths["prefinalize"]))
             pf.groupby_components.argtypes = [P, P, P, I, P, I, I, P, P]
             pf.groupby_absorb.argtypes = [P, P, P, P, I, I, I, I, P]
+            sr = ctypes.CDLL(str(paths["slidingring"]))
+            sr.ring_advance.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
+            sr.ring_flip.argtypes = [P, P, P, P, P, P, I, I, P, P, I, P]
+            sr.ring_query.argtypes = [P, P, P, P, P, P, I, I, I, I, I, P, P,
+                                      P, P, P]
             for lib, fns in ((gb, ("groupby_fold_scalar",
                                    "groupby_finalize_scalar",
                                    "groupby_reset_pane")),
                              (sk, ("groupby_fold_wide",
                                    "groupby_finalize_wide",
                                    "groupby_hh_finalize")),
-                             (pf, ("groupby_components", "groupby_absorb"))):
+                             (pf, ("groupby_components", "groupby_absorb")),
+                             (sr, ("ring_advance", "ring_flip",
+                                   "ring_query"))):
                 for fn in fns:
                     getattr(lib, fn).restype = I
             gb.groupby_error_string.argtypes = [I]
             gb.groupby_error_string.restype = ctypes.c_char_p
-            _lib = SimpleNamespace(groupby=gb, sketches=sk, prefinalize=pf)
+            _lib = SimpleNamespace(groupby=gb, sketches=sk, prefinalize=pf,
+                                   slidingring=sr)
         return _lib
 
 
@@ -332,41 +377,54 @@ def _ptr(a) -> ctypes.c_void_p:
 def groupby_fold_scalar(state: Dict[str, torch.Tensor], base: torch.Tensor,
                         V: torch.Tensor, M: torch.Tensor,
                         slots: torch.Tensor, pane: int,
-                        colmap: np.ndarray) -> None:
+                        colmap: np.ndarray,
+                        pane_vec: Optional[torch.Tensor] = None) -> None:
     """Fold one micro-batch into `state` in place: act and the scalar
     components.
 
     base: bool (R,) row mask after WHERE. V: float32 (S, R) spec values;
     M: bool (S, R) spec masks (each already ANDed with base). slots: int32
     (R,). colmap: int32 (ncols, 3) of (COMP_IDS[comp], k, spec).
+    pane_vec: optional uint8 (R,) per-row panes, which replace `pane`; the
+    caller checks their range on the host (a pane outside [0, P) is
+    dropped, as an out-of-range slot is).
     """
     name = "groupby_fold_scalar"
     if not _on_cuda(name, state):
-        fold_scalar_plain(state, base, V, M, slots, pane, colmap)
+        fold_scalar_plain(state, base, V, M, slots, pane, colmap, pane_vec)
         return
     act = state["act"]
     P, C = act.shape
     S, R = V.shape
     dev = act.device
     _check(name, base, torch.bool, (R,), dev)
-    colmap = _check_batch(name, V, M, slots, pane, P, colmap, dev)
+    colmap = _check_batch(name, V, M, slots, pane, P, colmap, dev, pane_vec)
     ptrs, ks = _comp_table(name, state)
     lib = _load()
     with torch.cuda.device(dev):
         rc = lib.groupby.groupby_fold_scalar(
-            _ptr(base), _ptr(V), _ptr(M), _ptr(slots), R, int(pane), C,
-            _ptr(colmap), len(colmap), _ptr(ptrs), _ptr(ks), _ptr(act),
-            _stream(dev))
+            _ptr(base), _ptr(V), _ptr(M), _ptr(slots), R, int(pane),
+            _opt_ptr(pane_vec), P, C, _ptr(colmap), len(colmap), _ptr(ptrs),
+            _ptr(ks), _ptr(act), _stream(dev))
         LAUNCHES[name] += 1
+        if pane_vec is not None:
+            ROW_PANE_LAUNCHES[name] += 1
     _raise_on(lib, name, rc)
 
 
-def _check_batch(name, V, M, slots, pane, P, colmap, dev) -> np.ndarray:
+def _opt_ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _check_batch(name, V, M, slots, pane, P, colmap, dev,
+                 pane_vec=None) -> np.ndarray:
     """Checks shared by the two folds; returns the contiguous column map."""
     S, R = V.shape
     _check(name, V, torch.float32, (S, R), dev)
     _check(name, M, torch.bool, (S, R), dev)
     _check(name, slots, torch.int32, (R,), dev)
+    if pane_vec is not None:
+        _check(name, pane_vec, torch.uint8, (R,), dev)
     colmap = np.ascontiguousarray(colmap, dtype=np.int32).reshape(-1, 3)
     if len(colmap) > MAX_COLS:
         raise ValueError(f"{name}: {len(colmap)} state columns "
@@ -382,13 +440,24 @@ _COMP_NAMES = {j: c for c, j in COMP_IDS.items()}
 _WIDE_NAMES = {j: c for c, j in WIDE_IDS.items()}
 
 
-def fold_scalar_plain(state, base, V, M, slots, pane, colmap) -> None:
+def _pane_rows(pane, pane_vec, slots, P: int, C: int):
+    """(flat pane * C + slot index, in-range mask) of each row: the scalar
+    pane or the row's own; out-of-range slots and panes are dropped."""
+    slots = slots.long()
+    ok = (slots >= 0) & (slots < C)
+    if pane_vec is None:
+        return pane * C + slots.clamp(0, C - 1), ok
+    p = pane_vec.long()
+    ok = ok & (p < P)
+    return p.clamp(0, P - 1) * C + slots.clamp(0, C - 1), ok
+
+
+def fold_scalar_plain(state, base, V, M, slots, pane, colmap,
+                      pane_vec=None) -> None:
     """Plain PyTorch version of groupby_fold_scalar (same contract)."""
     act = state["act"]
     P, C = act.shape
-    slots = slots.long()
-    ok = (slots >= 0) & (slots < C)  # out-of-range updates are dropped
-    pc = pane * C + slots.clamp(0, C - 1)
+    pc, ok = _pane_rows(pane, pane_vec, slots, P, C)
     act.view(-1).index_put_((pc,), (base & ok).to(act.dtype),
                             accumulate=True)
     for comp_id, k, s in np.asarray(colmap).reshape(-1, 3).tolist():
@@ -416,21 +485,23 @@ def fold_scalar_plain(state, base, V, M, slots, pane, colmap) -> None:
 
 def groupby_fold_wide(state: Dict[str, torch.Tensor], V: torch.Tensor,
                       M: torch.Tensor, slots: torch.Tensor, pane: int,
-                      widemap: np.ndarray) -> None:
+                      widemap: np.ndarray,
+                      pane_vec: Optional[torch.Tensor] = None) -> None:
     """Fold one micro-batch into the wide sketch components, in place.
 
-    V, M, slots, pane: as groupby_fold_scalar (M already holds the row
-    mask). widemap: int32 (ncols, 3) of (WIDE_IDS[comp], k, spec).
+    V, M, slots, pane, pane_vec: as groupby_fold_scalar (M already holds
+    the row mask). widemap: int32 (ncols, 3) of (WIDE_IDS[comp], k, spec).
     """
     name = "groupby_fold_wide"
     if not _on_cuda(name, state):
-        fold_wide_plain(state, V, M, slots, pane, widemap)
+        fold_wide_plain(state, V, M, slots, pane, widemap, pane_vec)
         return
     act = state["act"]
     P, C = act.shape
     S, R = V.shape
     dev = act.device
-    widemap = _check_batch(name, V, M, slots, pane, P, widemap, dev)
+    widemap = _check_batch(name, V, M, slots, pane, P, widemap, dev,
+                           pane_vec)
     ptrs, ks = _wide_table(name, state)
     for comp_id, k, _ in widemap.tolist():
         if not 0 <= k < ks[comp_id]:
@@ -439,21 +510,22 @@ def groupby_fold_wide(state: Dict[str, torch.Tensor], V: torch.Tensor,
     lib = _load()
     with torch.cuda.device(dev):
         rc = lib.sketches.groupby_fold_wide(
-            _ptr(V), _ptr(M), _ptr(slots), R, int(pane), C, _ptr(widemap),
-            len(widemap), _ptr(ptrs), _ptr(ks), _ptr(HIST_CONSTS),
-            _stream(dev))
+            _ptr(V), _ptr(M), _ptr(slots), R, int(pane), _opt_ptr(pane_vec),
+            P, C, _ptr(widemap), len(widemap), _ptr(ptrs), _ptr(ks),
+            _ptr(HIST_CONSTS), _stream(dev))
         LAUNCHES[name] += 1
+        if pane_vec is not None:
+            ROW_PANE_LAUNCHES[name] += 1
     _raise_on(lib, name, rc)
 
 
-def fold_wide_plain(state, V, M, slots, pane, widemap) -> None:
+def fold_wide_plain(state, V, M, slots, pane, widemap,
+                    pane_vec=None) -> None:
     """Plain PyTorch version of groupby_fold_wide (the reference's
     scatter-max / scatter-add of sketches.hll_parts / hist_bin /
     hh_update_parts)."""
-    C = state["act"].shape[1]
-    slots = slots.long()
-    ok = (slots >= 0) & (slots < C)
-    pc = pane * C + slots.clamp(0, C - 1)
+    P, C = state["act"].shape
+    pc, ok = _pane_rows(pane, pane_vec, slots, P, C)
     for comp_id, k, s in np.asarray(widemap).reshape(-1, 3).tolist():
         comp = _WIDE_NAMES[comp_id]
         arr = state[comp]
@@ -830,6 +902,215 @@ def absorb_plain(state, shadow, pane: int) -> None:
             torch.maximum(dst, sh, out=dst)
         else:
             dst.add_(sh)
+
+
+# ------------------------------------------------------------- sliding ring
+def _ring_table(name: str, ring: Dict[str, torch.Tensor],
+                state: Dict[str, torch.Tensor], comps: Sequence[str]):
+    """The launch table of `comps`: pane, running partial (tot or back) and
+    front pointers, floats per slot, combine codes, identities; checked
+    against the pane state's (P, C) and the ring's capacity."""
+    act = state["act"]
+    P, C = act.shape
+    dev = act.device
+    if not 0 < len(comps) <= MAX_PARTS:
+        raise ValueError(f"{name}: {len(comps)} components (max {MAX_PARTS})")
+    n = len(comps)
+    pane, run, front = (np.zeros(n, dtype=np.uint64) for _ in range(3))
+    ws = np.zeros(n, dtype=np.int32)
+    ops = np.zeros(n, dtype=np.int32)
+    inits = np.zeros(n, dtype=np.float32)
+    R = None
+    for t, comp in enumerate(comps):
+        arr = state[comp]
+        _check(name, arr, torch.float32, (P, C, *arr.shape[2:]), dev)
+        ops[t] = MERGE_OPS.get(comp, 0)
+        key = ("back_" if ops[t] else "tot_") + comp
+        _check(name, ring[key], torch.float32, (C, *arr.shape[2:]), dev)
+        pane[t], run[t] = arr.data_ptr(), ring[key].data_ptr()
+        if ops[t]:
+            fr = ring["front_" + comp]
+            R = fr.shape[0] if R is None else R
+            _check(name, fr, torch.float32, (R, C, *arr.shape[2:]), dev)
+            front[t] = fr.data_ptr()
+        ws[t], inits[t] = _slot_width(arr), INIT[comp]
+    return dict(pane=pane, run=run, front=front, w=ws, ops=ops, init=inits,
+                n=n, P=P, C=C, R=R, dev=dev)
+
+
+def ring_advance(ring: Dict[str, torch.Tensor],
+                 state: Dict[str, torch.Tensor], comps: Sequence[str],
+                 closed: int, closed_on: bool, evict: int,
+                 evict_on: bool) -> None:
+    """The DABA ring step, in place: for each additive component of
+    `comps` tot = (tot + closed_on·pane[closed]) − evict_on·pane[evict];
+    for each two-stack one (mn, mx, hll) back = min/max(back,
+    pane[closed] if closed_on else the identity)."""
+    name = "ring_advance"
+    if not _on_cuda(name, state):
+        ring_advance_plain(ring, state, comps, closed, closed_on, evict,
+                           evict_on)
+        return
+    tab = _ring_table(name, ring, state, comps)
+    for pane in (closed, evict):
+        if not 0 <= pane < tab["P"]:
+            raise ValueError(f"{name}: pane {pane} outside [0, {tab['P']})")
+    lib = _load()
+    dev = tab["dev"]
+    with torch.cuda.device(dev):
+        rc = lib.slidingring.ring_advance(
+            _ptr(tab["pane"]), _ptr(tab["run"]), _ptr(tab["w"]), _ptr(tab["ops"]),
+            _ptr(tab["init"]), tab["n"], tab["C"], int(closed),
+            int(bool(closed_on)), int(evict), int(bool(evict_on)),
+            _stream(dev))
+        LAUNCHES[name] += 1
+    _raise_on(lib, name, rc)
+
+
+def _ring_combine(comp: str, a: torch.Tensor, b: torch.Tensor):
+    return torch.minimum(a, b) if comp == "mn" else torch.maximum(a, b)
+
+
+def ring_advance_plain(ring, state, comps, closed, closed_on, evict,
+                       evict_on) -> None:
+    """Plain PyTorch version of ring_advance (the reference's
+    _advance_impl, in place)."""
+    for comp in comps:
+        arr = state[comp]
+        if comp in MERGE_OPS:
+            new = arr[closed] if closed_on else torch.full_like(
+                arr[closed], INIT[comp])
+            back = ring["back_" + comp]
+            back.copy_(_ring_combine(comp, back, new))
+            continue
+        tot = ring["tot_" + comp]
+        zero = torch.zeros_like(tot)
+        tot.copy_((tot + (arr[closed] if closed_on else zero))
+                  - (arr[evict] if evict_on else zero))
+
+
+def _ring_order(name: str, order, valid, R: int):
+    order = np.ascontiguousarray(order, dtype=np.int32).reshape(-1)
+    valid = np.ascontiguousarray(valid, dtype=np.uint8).reshape(-1)
+    if len(order) != R or len(valid) != R or R > MAX_RING:
+        raise ValueError(f"{name}: order / valid of {len(order)} / "
+                         f"{len(valid)} for a ring of {R} slots")
+    if R and not np.array_equal(np.sort(order), np.arange(R)):
+        raise ValueError(f"{name}: order is not a permutation of the slots")
+    return order, valid
+
+
+def ring_flip(ring: Dict[str, torch.Tensor], state: Dict[str, torch.Tensor],
+              comps: Sequence[str], order: np.ndarray,
+              valid: np.ndarray) -> None:
+    """The DABA flip, in place: over the ring slots in the age order
+    `order` (int32 (R,), a permutation), masked by `valid` (bool (R,)),
+    each additive component's tot becomes the masked sum; each two-stack
+    component's front[order[i]] becomes the combine of slots i..R-1 (the
+    reverse cumulative min/max) and its back the identity."""
+    name = "ring_flip"
+    R = next((ring["front_" + c].shape[0] for c in comps if c in MERGE_OPS),
+             len(np.asarray(order).reshape(-1)))
+    order, valid = _ring_order(name, order, valid, R)
+    if not _on_cuda(name, state):
+        ring_flip_plain(ring, state, comps, order, valid)
+        return
+    tab = _ring_table(name, ring, state, comps)
+    if R > tab["P"]:
+        raise ValueError(f"{name}: {R} ring slots, {tab['P']} panes")
+    lib = _load()
+    dev = tab["dev"]
+    with torch.cuda.device(dev):
+        rc = lib.slidingring.ring_flip(
+            _ptr(tab["pane"]), _ptr(tab["run"]), _ptr(tab["front"]), _ptr(tab["w"]),
+            _ptr(tab["ops"]), _ptr(tab["init"]), tab["n"], tab["C"],
+            _ptr(order), _ptr(valid), R, _stream(dev))
+        LAUNCHES[name] += 1
+    _raise_on(lib, name, rc)
+
+
+def ring_flip_plain(ring, state, comps, order, valid) -> None:
+    """Plain PyTorch version of ring_flip (the reference's _flip_impl, in
+    place): gather in age order, masked sum, flip + cummin/cummax + flip,
+    scatter back by `order`."""
+    dev = state["act"].device
+    order = torch.as_tensor(np.asarray(order, dtype=np.int64), device=dev)
+    valid = torch.as_tensor(np.asarray(valid, dtype=np.bool_), device=dev)
+    for comp in comps:
+        g = state[comp][order]
+        vm = valid.view(-1, *([1] * (g.dim() - 1)))
+        if comp not in MERGE_OPS:
+            ring["tot_" + comp].copy_(torch.where(vm, g, 0.0).sum(dim=0))
+            continue
+        g = torch.where(vm, g, INIT[comp])
+        scan = torch.cummin if comp == "mn" else torch.cummax
+        suffix = scan(g.flip(0), dim=0).values.flip(0)
+        ring["front_" + comp].index_copy_(0, order, suffix)
+        ring["back_" + comp].fill_(INIT[comp])
+
+
+def ring_query(ring: Dict[str, torch.Tensor], state: Dict[str, torch.Tensor],
+               comps: Sequence[str], body_on: bool, f_on: bool, f_idx: int,
+               adj_slots: np.ndarray, adj_w: np.ndarray,
+               adj_mm: np.ndarray) -> torch.Tensor:
+    """The window body of one trigger into a fresh float32 (C, W) tensor,
+    `comps` side by side in that order (the components layout): for each
+    additive component (tot if body_on else 0) + Σ adj_w[i] ·
+    pane[adj_slots[i]] over all QUERY_ADJ slots; for each two-stack one the
+    combine of front[f_idx] (if body_on and f_on), back (if body_on) and
+    the panes whose adj_mm is set."""
+    name = "ring_query"
+    adj_slots = np.ascontiguousarray(adj_slots, dtype=np.int32).reshape(-1)
+    adj_w = np.ascontiguousarray(adj_w, dtype=np.float32).reshape(-1)
+    adj_mm = np.ascontiguousarray(adj_mm, dtype=np.uint8).reshape(-1)
+    if not len(adj_slots) == len(adj_w) == len(adj_mm) == QUERY_ADJ:
+        raise ValueError(f"{name}: {QUERY_ADJ} adjustment slots expected")
+    if not _on_cuda(name, state):
+        return ring_query_plain(ring, state, comps, body_on, f_on, f_idx,
+                                adj_slots, adj_w, adj_mm)
+    tab = _ring_table(name, ring, state, comps)
+    if ((adj_slots < 0) | (adj_slots >= tab["P"])).any():
+        raise ValueError(f"{name}: adjustment slot outside the panes")
+    if tab["R"] is not None and not 0 <= f_idx < tab["R"]:
+        raise ValueError(f"{name}: front slot {f_idx} outside the ring")
+    out = torch.empty((tab["C"], int(tab["w"].sum())), dtype=torch.float32,
+                      device=tab["dev"])
+    lib = _load()
+    dev = tab["dev"]
+    with torch.cuda.device(dev):
+        rc = lib.slidingring.ring_query(
+            _ptr(tab["pane"]), _ptr(tab["run"]), _ptr(tab["front"]), _ptr(tab["w"]),
+            _ptr(tab["ops"]), _ptr(tab["init"]), tab["n"], tab["C"],
+            int(bool(body_on)), int(bool(f_on)), int(f_idx), _ptr(adj_slots),
+            _ptr(adj_w), _ptr(adj_mm), _ptr(out), _stream(dev))
+        LAUNCHES[name] += 1
+    _raise_on(lib, name, rc)
+    return out
+
+
+def ring_query_plain(ring, state, comps, body_on, f_on, f_idx, adj_slots,
+                     adj_w, adj_mm) -> torch.Tensor:
+    """Plain PyTorch version of ring_query (the reference's _query_impl)."""
+    C = state["act"].shape[1]
+    parts = []
+    for comp in comps:
+        arr = state[comp]
+        if comp not in MERGE_OPS:
+            tot = ring["tot_" + comp]
+            v = tot if body_on else torch.zeros_like(tot)
+            for i in range(QUERY_ADJ):
+                v = v + float(adj_w[i]) * arr[int(adj_slots[i])]
+        else:
+            ident = torch.full_like(arr[0], INIT[comp])
+            v = (ring["front_" + comp][int(f_idx)] if body_on and f_on
+                 else ident)
+            v = _ring_combine(comp, v, ring["back_" + comp] if body_on
+                              else ident)
+            for i in range(QUERY_ADJ):
+                v = _ring_combine(comp, v, arr[int(adj_slots[i])]
+                                  if adj_mm[i] else ident)
+        parts.append(v.reshape(C, -1))
+    return torch.cat(parts, dim=1)
 
 
 # ------------------------------------------------------------ host tables

@@ -8,16 +8,20 @@ from typing import Mapping, Optional
 
 from ..ops.aggspec import extract_kernel_plan
 from ..ops.emit import build_direct_emit
+from ..ops.slidingring import ring_layout_for
 from ..runtime.nodes_fused import FusedWindowAggNode
+from ..sql import ast
+from ..sql.compiler import try_compile
 from ..sql.parser import parse_select
 from ..utils.device import Device, resolve_device
 from ..utils.infra import PlanError
 
 
 #: the rule options the port takes (the reference's names,
-#: ekuiper_tpu/planner/planner.py:172-173) and their defaults
-#: (ekuiper_tpu/utils/config.py:97, 101)
-RULE_OPTIONS = {"prefinalizeLeadMs": 250, "tailMode": "device"}
+#: ekuiper_tpu/planner/planner.py:172-173, 178-179) and their defaults
+#: (ekuiper_tpu/utils/config.py:68, 72, 97, 101)
+RULE_OPTIONS = {"prefinalizeLeadMs": 250, "tailMode": "device",
+                "slidingDevRingMb": 256, "slidingImpl": "daba"}
 
 
 def plan_fused_rule(sql: str, key_slots: int = 16384,
@@ -25,16 +29,22 @@ def plan_fused_rule(sql: str, key_slots: int = 16384,
                     options: Optional[Mapping[str, object]] = None
                     ) -> FusedWindowAggNode:
     """Plan a `SELECT dims, aggs FROM s GROUP BY dims, TUMBLINGWINDOW(...)`
-    (or HOPPINGWINDOW) rule onto a fused node on `device`.
+    (or HOPPINGWINDOW, or SLIDINGWINDOW(...) OVER (WHEN cond)) rule onto a
+    fused node on `device`.
 
     The node folds ColumnBatches given to `process` and emits one
     ColumnBatch per window at each boundary: on its own timers once
     `on_open()` has armed them on the engine clock (utils/timex.py), or
-    at each `on_trigger` its caller makes. `options` takes the rule
-    options `prefinalizeLeadMs` (ms before a boundary at which its
-    components fetch is pre-issued; 0 finalizes each boundary
-    synchronously) and `tailMode` ("device" or "host"), with the
-    reference's defaults (250, "device").
+    at each `on_trigger` its caller makes. A sliding rule emits one
+    window per trigger row (rows matching `cond`, by their timestamps),
+    through its emit worker (`node._drain_async_emits()` waits for it);
+    a delayed sliding window fires on the engine clock. `options` takes
+    the rule options `prefinalizeLeadMs` (ms before a boundary at which
+    its components fetch is pre-issued; 0 finalizes each boundary
+    synchronously), `tailMode` ("device" or "host"), `slidingDevRingMb`
+    (the sliding ring's budget, which coarsens its buckets) and
+    `slidingImpl` ("daba"), with the reference's defaults (250, "device",
+    256, "daba").
 
     Raises PlanError for a statement that is not a windowed aggregate or
     an option value it cannot take, NotImplementedError for a shape or an
@@ -54,6 +64,14 @@ def plan_fused_rule(sql: str, key_slots: int = 16384,
     if opts["tailMode"] not in ("device", "host"):
         raise PlanError(f"tailMode must be 'device' or 'host', got "
                         f"{opts['tailMode']!r}")
+    ring_mb = opts["slidingDevRingMb"]
+    if isinstance(ring_mb, bool) or not isinstance(ring_mb, int) \
+            or ring_mb < 0:
+        raise PlanError(f"slidingDevRingMb must be a non-negative int of "
+                        f"MB, got {ring_mb!r}")
+    if opts["slidingImpl"] not in ("daba", "refold"):
+        raise PlanError(f"slidingImpl must be 'daba' or 'refold', got "
+                        f"{opts['slidingImpl']!r}")
     stmt = parse_select(sql)
     if stmt.window is None:
         raise PlanError("plan_fused_rule needs a GROUP BY window")
@@ -62,6 +80,21 @@ def plan_fused_rule(sql: str, key_slots: int = 16384,
         raise NotImplementedError(
             "rule does not fold on the device; the host path is not "
             "ported yet")
+    sliding = stmt.window.window_type == ast.WindowType.SLIDING_WINDOW
+    ring_layout = None
+    if sliding:
+        # the reference's device eligibility (planner.py:316-327): a
+        # processing-time sliding window gated by a trigger condition that
+        # compiles on the host; the rest is its host window path
+        cond = stmt.window.trigger_condition
+        if cond is None or try_compile(cond) is None:
+            raise NotImplementedError(
+                "sliding rule without a host-compilable OVER (WHEN ...) "
+                "condition runs on the host path, which is not ported yet")
+        # ring geometry is a plan-time choice: buckets coarsen until the
+        # ring's static footprint fits slidingDevRingMb
+        ring_layout = ring_layout_for(stmt.window, plan, capacity=key_slots,
+                                      budget_mb=ring_mb)
     dims = [d.expr for d in stmt.dimensions]
     direct = build_direct_emit(stmt, plan, [d.name for d in dims])
     if direct is None:
@@ -71,4 +104,6 @@ def plan_fused_rule(sql: str, key_slots: int = 16384,
     return FusedWindowAggNode(
         "window_agg", stmt.window, plan, dims, capacity=key_slots,
         micro_batch=micro_batch, direct_emit=direct, emit_columnar=True,
-        device=dev, prefinalize_lead_ms=lead, tail_mode=opts["tailMode"])
+        device=dev, prefinalize_lead_ms=lead, tail_mode=opts["tailMode"],
+        dev_ring_budget_mb=ring_mb, sliding_impl=opts["slidingImpl"],
+        ring_layout=ring_layout)

@@ -3,6 +3,7 @@ ekuiper_tpu/runtime/events.py)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any, Optional
 
 
 @dataclass
@@ -15,9 +16,12 @@ class EOF:
 
 @dataclass
 class Trigger:
-    """Window trigger tick (processing time): `ts` is the window end."""
+    """Window trigger tick (processing time): `ts` is the window end. A
+    delayed sliding emission carries tag ("sliding", t), t its trigger
+    row's time."""
 
     ts: int
+    tag: Optional[Any] = None
 
 
 @dataclass

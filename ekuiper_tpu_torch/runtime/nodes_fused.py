@@ -1,6 +1,6 @@
 """Fused window→GROUP BY→aggregate node (counterpart of
 ekuiper_tpu/runtime/nodes_fused.py `FusedWindowAggNode`, processing-time
-TUMBLING and HOPPING windows).
+TUMBLING, HOPPING and SLIDING windows).
 
 Per micro-batch: encode GROUP BY keys to slots (host dictionary), upload
 the kernel's columns and fold them into the device partials
@@ -38,8 +38,22 @@ the raw column) and heavy_hitters(col, k) reads `__hhc__col` (dense codes
 from a per-column ValueDict, decoded back to the original values at
 emit).
 
-Not ported yet, and refused at construction: sliding, session, count and
-state windows, event time, tiered key state and the mesh.
+SLIDING windows (`SLIDINGWINDOW(unit, L[, delay]) OVER (WHEN cond)`) run
+on the reference's DABA ring (ops/slidingring.py): rows fold into time
+panes of `bucket_ms` by row timestamp (a batch that crosses a bucket edge
+folds with a per-row pane vector), each closed bucket advances the ring's
+running partials, and a trigger row t emits the window (t - L, t + delay]
+as one ring query (the body) plus the two partial edge buckets folded on
+the host from a retained row ring into a HostShadow; the emit worker
+merges the two (`"ring"` deliveries, source `"device-ring"`). Off the
+in-order discipline (a gap, late rows, a recycled pane, a delayed
+emission) a trigger rebuilds the ring with one flip or merges the
+window's live panes with the components kernel. The reference's refold
+path (`slidingImpl: "refold"`, the heavy_hitters and over-budget
+fallbacks) is not ported: those raise NotImplementedError.
+
+Not ported yet, and refused at construction: session, count and state
+windows, event time, tiered key state and the mesh.
 """
 from __future__ import annotations
 
@@ -60,13 +74,44 @@ from ..ops.aggspec import (HH_COL_PREFIX, HLL_COL_PREFIX, KernelPlan,
 from ..ops.groupby import TorchGroupBy
 from ..ops.keytable import KeyTable
 from ..ops.prefinalize import HostShadow, IdentityFinalize
+from ..ops.slidingring import QUERY_ADJ, SlidingRing, ring_layout_for
 from ..sql import ast
+from ..sql.compiler import try_compile
 from ..utils import timex
 from ..utils.device import Device
 from .events import EOF, PreTrigger, Trigger
 from .node import Node
 
 logger = logging.getLogger(__name__)
+
+
+def _host_mask(ce, columns: Dict[str, np.ndarray], n: int) -> np.ndarray:
+    """Vectorized host condition -> per-row bool mask. A batch missing the
+    referenced column (or with uncoercible types) evaluates to all-false:
+    null semantics, as the host row evaluator's."""
+    try:
+        return np.broadcast_to(np.asarray(ce(columns), dtype=np.bool_), (n,))
+    except Exception:
+        return np.zeros(n, dtype=np.bool_)
+
+
+def _enc_arr(a: np.ndarray) -> dict:
+    """Checkpoint encoding of a numpy array (the reference's): raw bytes
+    in base64 and the dtype."""
+    import base64
+
+    a = np.ascontiguousarray(a)
+    return {"d": str(a.dtype),
+            "b": base64.b64encode(a.tobytes()).decode("ascii")}
+
+
+def _dec_arr(v) -> np.ndarray:
+    import base64
+
+    if isinstance(v, dict) and "b" in v:
+        return np.frombuffer(base64.b64decode(v["b"]),
+                             dtype=np.dtype(v["d"])).copy()
+    return np.asarray(v)  # list-encoded checkpoints
 
 
 class FusedWindowAggNode(Node):
@@ -84,6 +129,9 @@ class FusedWindowAggNode(Node):
         prefinalize_lead_ms: int = 250,  # latency-hiding emit (prefinalize.py)
         prefinalize_backstop: bool = True,  # host backstop: boundaries never block
         tail_mode: str = "device",  # window-tail rows: "device" | "host"
+        dev_ring_budget_mb: int = 256,  # sliding ring state cap (MB)
+        sliding_impl: str = "daba",  # only "daba" is ported
+        ring_layout=None,  # ops.slidingring.RingLayout chosen at plan time
     ) -> None:
         super().__init__(name)
         self.window = window
@@ -99,6 +147,9 @@ class FusedWindowAggNode(Node):
             self.n_panes = max((self.length_ms + iv - 1) // iv, 1)
         elif self.wt == ast.WindowType.TUMBLING_WINDOW:
             self.n_panes = 1
+        elif self.wt == ast.WindowType.SLIDING_WINDOW:
+            self._init_sliding(window, plan, capacity, dev_ring_budget_mb,
+                               sliding_impl, ring_layout)
         else:
             raise NotImplementedError(
                 f"{self.wt.name} windows are not ported yet")
@@ -118,6 +169,10 @@ class FusedWindowAggNode(Node):
         self.gb = TorchGroupBy(plan, capacity=capacity,
                                n_panes=int(self.n_panes),
                                micro_batch=micro_batch, device=device)
+        self.ring: Optional[SlidingRing] = None
+        self._ring_dev: Optional[Dict[str, torch.Tensor]] = None
+        if self.wt == ast.WindowType.SLIDING_WINDOW:
+            self.sliding_impl = self._choose_sliding_impl(sliding_impl)
         self.kt = KeyTable(self.gb.capacity)
         self.state: Optional[Dict[str, torch.Tensor]] = None
         self.cur_pane = 0
@@ -133,7 +188,8 @@ class FusedWindowAggNode(Node):
         self._pipeline: list = []
         self.prefinalize_lead_ms = int(prefinalize_lead_ms)
         self._prefinalize_ok = (
-            self.prefinalize_lead_ms > 0
+            self.wt != ast.WindowType.SLIDING_WINDOW  # no boundary timers
+            and self.prefinalize_lead_ms > 0
             and self.gb.supports_prefinalize
             and plan.host_foldable
             # heavy-hitters boundaries use the compact recovery finalize:
@@ -199,7 +255,10 @@ class FusedWindowAggNode(Node):
             self._fold(item)
 
     def _fold(self, batch: ColumnBatch) -> int:
-        """Fold the batch into the current pane; returns rows folded."""
+        """Fold the batch into the current pane (a sliding window: into
+        its rows' time panes); returns rows folded."""
+        if self.wt == ast.WindowType.SLIDING_WINDOW:
+            return self._fold_sliding(batch)
         return self._fold_rows(batch, self.cur_pane)
 
     def _build_kernel_inputs(self, sub: ColumnBatch, frozen: bool = False):
@@ -304,12 +363,14 @@ class FusedWindowAggNode(Node):
             if self.state is None:  # keep checkpoint-restored partials
                 self.state = self.gb.init_state()
             self._opened = True
-            self._schedule_next_tick()
+            if self.wt != ast.WindowType.SLIDING_WINDOW:
+                self._schedule_next_tick()
 
     def on_close(self) -> None:
         with self._lock:
             self._opened = False
-            for t in [self._timer, *self._pre_timers]:
+            for t in [self._timer, *self._pre_timers,
+                      *getattr(self, "_slide_timers", {}).values()]:
                 if t is not None:
                     t.stop()
         self._drain_async_emits()
@@ -366,6 +427,13 @@ class FusedWindowAggNode(Node):
         self._device_frozen = self._tail_host_only
 
     def on_trigger(self, trig: Trigger) -> None:
+        if self.wt == ast.WindowType.SLIDING_WINDOW:
+            # a delayed sliding emission, armed at its trigger row
+            if isinstance(trig.tag, tuple) and trig.tag[0] == "sliding":
+                self._pending_slides.pop(trig.tag[1], None)
+                self._slide_timers.pop(trig.tag[1], None)
+                self._emit_sliding(trig.tag[1])
+            return
         end = trig.ts
         wr = WindowRange(end - self.length_ms, end)
         if self._async_hh:
@@ -402,9 +470,13 @@ class FusedWindowAggNode(Node):
 
     def on_eof(self, eof: EOF) -> None:
         """Flush the open window (through its pre-issues, if any) and
-        forward the EOF."""
+        forward the EOF. A sliding window emits only on trigger rows: its
+        deliveries in flight land first."""
         now = timex.now_ms()
         self._drain_async_emits()
+        if self.wt == ast.WindowType.SLIDING_WINDOW:
+            self.broadcast(eof)
+            return
         self._emit(WindowRange(now - self.length_ms, now))
         if self.wt == ast.WindowType.TUMBLING_WINDOW:
             self.state = self.gb.reset_pane(self.state, 0)
@@ -482,6 +554,23 @@ class FusedWindowAggNode(Node):
                 break
             kind, payload, n_keys, wr, t_issue = item
             try:
+                if kind == "ring":
+                    # a sliding trigger: the ring query (or components)
+                    # fetch merged with the host edge shadow
+                    pending, shadow = payload
+                    try:
+                        outs, act = self.gb.prefinalize_merge(
+                            pending, shadow, n_keys)
+                        self.last_emit_info = {
+                            "source": "device-ring",
+                            "fetch_ms": (pending.fetch_ms()
+                                         if hasattr(pending, "fetch_ms")
+                                         else 0.0),
+                            "ages_ms": []}
+                        self._deliver(outs, act, wr)
+                    finally:
+                        pending.release()
+                    continue
                 if kind == "pf":
                     pipeline, backup = payload
                     try:
@@ -724,6 +813,399 @@ class FusedWindowAggNode(Node):
         finally:
             self._release(pipeline)
 
+    # ---------------------------------------------------------------- sliding
+    def _init_sliding(self, window, plan, capacity, dev_ring_budget_mb,
+                      sliding_impl, ring_layout) -> None:
+        """Sliding-window geometry and bookkeeping (the reference's
+        constructor branch): the ring layout (chosen at plan time, or
+        derived here the same way), the delay, the trigger condition."""
+        self.delay_ms = window.delay_ms()
+        if ring_layout is None:
+            ring_layout = ring_layout_for(window, plan, capacity=capacity,
+                                          budget_mb=dev_ring_budget_mb)
+        self._ring_layout = ring_layout
+        self.bucket_ms = ring_layout.bucket_ms
+        self.n_ring_panes = ring_layout.n_ring_panes
+        self.n_panes = ring_layout.n_panes
+        if sliding_impl not in ("daba", "refold"):
+            raise ValueError(f"slidingImpl must be 'daba' or 'refold', "
+                             f"got {sliding_impl!r}")
+        self.dev_ring_budget_bytes = int(dev_ring_budget_mb) << 20
+        self._pane_bucket: Dict[int, int] = {}  # pane -> bucket it holds
+        self._ring: Dict[int, list] = {}  # bucket -> [(cols, valid, slots, ts)]
+        self._bucket_max_ts: Dict[int, int] = {}
+        self._ring_max_bucket = -1
+        self._pending_slides: Dict[int, int] = {}  # trigger t -> fire_at ms
+        self._slide_timers: Dict[int, Any] = {}
+        # per-node counts: ring triggers by route ("fast", "dyn", "head",
+        # "edge"), "flip"s (of which "reanchor"s), "advance"s,
+        # "late_dropped" rows, "recycled_refold" buckets
+        self.ring_counts: collections.Counter = collections.Counter()
+        if window.trigger_condition is None:
+            raise ValueError(
+                "sliding device path requires a trigger condition: per-row "
+                "emission at device batch rates must be gated")
+        self._trigger_host = try_compile(window.trigger_condition)
+        if self._trigger_host is None:
+            raise ValueError("sliding device path needs a vectorizable "
+                             "OVER (WHEN ...) trigger condition")
+
+    def _choose_sliding_impl(self, requested: str) -> str:
+        """The DABA ring, or NotImplementedError where the reference would
+        take its refold path (not ported): a requested refold, a
+        heavy_hitters plan, a ring over the slidingDevRingMb budget."""
+        if requested != "daba":
+            raise NotImplementedError(
+                "slidingImpl 'refold' is not ported yet (only the DABA ring)")
+        if self.gb._host_finalize_only:
+            raise NotImplementedError(
+                "heavy_hitters sliding rules take the reference's refold "
+                "path, which is not ported yet")
+        ring = SlidingRing(self.gb, self._ring_layout)
+        est = ring.estimate_bytes(self.gb.capacity)
+        if est > self.dev_ring_budget_bytes:
+            raise NotImplementedError(
+                f"sliding ring needs {est / 2**20:.1f} MB > slidingDevRingMb "
+                f"{self.dev_ring_budget_bytes / 2**20:.0f} MB; the refold "
+                "path the reference takes then is not ported yet")
+        self.ring = ring
+        self._ring_reset_tracking()
+        # the running total keeps one spare bucket beyond the window span:
+        # an evicted pane is subtracted before bucket b + R can recycle it
+        self._span_tot = self._ring_layout.span_buckets + 1
+        return "daba"
+
+    def _ring_reset_tracking(self) -> None:
+        """Host-side ring bookkeeping to a cold (dirty) state: the next
+        trigger rebuilds the partials from the panes in one flip."""
+        self._rg_head = -1       # newest bucket any row has folded into
+        self._rg_closed = -1     # last bucket absorbed into the partials
+        self._rg_dirty = True    # the partials need a flip before serving
+        self._rg_flip_lo = -1    # front-stack span [flip_lo, flip_hi]
+        self._rg_flip_hi = -1
+        self._rg_closes = 0      # advance count (re-anchor cadence)
+        self._rg_anchor = 0
+        self._rg_tot: collections.deque = collections.deque()  # (b, slot, on)
+
+    def _ring_state_now(self) -> Dict[str, torch.Tensor]:
+        """The ring tensors, allocated at first use and kept at the group
+        by's (possibly grown) key capacity."""
+        if self._ring_dev is None:
+            self.ring.capacity = int(self.gb.capacity)
+            self._ring_dev = self.ring.init_state()
+        elif self.ring.capacity < self.gb.capacity:
+            self._ring_dev = self.ring.grow(self._ring_dev, self.gb.capacity)
+        return self._ring_dev
+
+    def ring_dev_bytes(self) -> int:
+        """Bytes of the ring partials on the card (0 until allocated)."""
+        if self._ring_dev is None:
+            return 0
+        return SlidingRing.state_nbytes(self._ring_dev)
+
+    def _ring_advance_buckets(self, buckets: np.ndarray) -> None:
+        """Bucket-close maintenance after a fold: absorb newly closed panes
+        into the running partials (one ring_advance per bucket). Late rows
+        into absorbed buckets and time gaps mark the partials dirty; the
+        next trigger heals them with one flip."""
+        ubs = np.unique(buckets).tolist()
+        nh = int(ubs[-1])
+        if self._rg_closed >= 0 and int(ubs[0]) <= self._rg_closed:
+            self._rg_dirty = True
+        if nh <= self._rg_head:
+            return
+        if self._rg_head < 0 or nh - self._rg_head > 8:
+            # cold start or a time gap: no per-bucket advances, one flip
+            # at the next trigger rebuilds everything
+            self._rg_dirty = True
+            self._rg_tot.clear()
+            self._rg_head = nh
+            self._rg_closed = nh - 1
+            return
+        for b in range(self._rg_head, nh):
+            self._ring_close_bucket(b)
+        self._rg_head = nh
+
+    def _ring_close_bucket(self, b: int) -> None:
+        slot = b % self.n_ring_panes
+        on = self._pane_bucket.get(slot) == b
+        ev_slot, ev_on = 0, False
+        self._rg_tot.append((b, slot, on))
+        if len(self._rg_tot) > self._span_tot:
+            ob, oslot, oon = self._rg_tot.popleft()
+            if oon and self._pane_bucket.get(oslot) != ob:
+                # the evicted bucket's pane was already recycled (a burst
+                # batch): rebuild from the panes at the next trigger
+                self._rg_dirty = True
+            else:
+                ev_slot, ev_on = oslot, bool(oon)
+        if not self._rg_dirty:
+            self._ring_dev = self.ring.advance(
+                self._ring_state_now(), self.state, slot, bool(on), ev_slot,
+                ev_on)
+            self.ring_counts["advance"] += 1
+        self._rg_closes += 1
+        self._rg_closed = b
+
+    def _fold_sliding(self, sub: ColumnBatch) -> int:
+        """Fold rows into the time panes of their timestamps, keep them in
+        the host row ring (for the trigger's edge folds), advance the ring,
+        and fire the trigger rows."""
+        if self.state is None:
+            self.state = self.gb.init_state()
+        ts = sub.timestamps
+        if ts is None:
+            ts = np.full(sub.n, timex.now_ms(), dtype=np.int64)
+        buckets = ts // self.bucket_ms
+        R = self.n_ring_panes
+        # a batch spanning >= R buckets would alias two buckets onto one
+        # pane within one fold: split it into alias-free chunks folded in
+        # bucket order, so each recycle lands before its pane's new rows
+        if int(buckets.max() - buckets.min()) >= R:
+            order = np.argsort(buckets, kind="stable")
+            sorted_b = buckets[order]
+            start = 0
+            base = int(sorted_b[0])
+            for i in range(1, len(order) + 1):
+                if i == len(order) or int(sorted_b[i]) - base >= R:
+                    self._fold_sliding(sub.take(order[start:i]))
+                    if i < len(order):
+                        base = int(sorted_b[i])
+                        start = i
+            return sub.n
+        # late guard: drop a row only when its pane was recycled past its
+        # bucket (folding it would corrupt newer data)
+        if self._ring_max_bucket >= 0:
+            drop = []
+            for b in np.unique(buckets).tolist():
+                held = self._pane_bucket.get(int(b) % R)
+                if held is not None and held > int(b):
+                    drop.append(int(b))
+            if drop:
+                late = np.isin(buckets, drop)
+                n_late = int(late.sum())
+                self.ring_counts["late_dropped"] += n_late
+                logger.warning("%s: %d sliding rows older than the pane "
+                               "retention dropped", self.name, n_late)
+                keep = np.nonzero(~late)[0]
+                if len(keep) == 0:
+                    return 0
+                sub = sub.take(keep)
+                ts = ts[keep]
+                buckets = buckets[keep]
+        # recycle panes: reset any pane about to receive a newer bucket
+        ubs = np.unique(buckets).tolist()
+        for b in ubs:
+            pane = int(b) % R
+            held = self._pane_bucket.get(pane)
+            if held is not None and held != int(b):
+                self.state = self.gb.reset_pane(self.state, pane)
+            self._pane_bucket[pane] = int(b)
+        self._ring_max_bucket = max(self._ring_max_bucket, int(ubs[-1]))
+        # the row ring outlives the panes by a margin, so a trigger whose
+        # pane was recycled can still fold the bucket's rows on the host
+        floor_b = self._ring_max_bucket - R - 8
+        for b in [b for b in self._ring if b < floor_b]:
+            del self._ring[b]
+            self._bucket_max_ts.pop(b, None)
+        cols, valid, slots = self._build_kernel_inputs(sub)
+        pane_vec = (buckets % R).astype(np.uint8)
+        if len(ubs) == 1:
+            # single-bucket batch: the scalar pane (the common case)
+            self.state = self.gb.fold(self.state, cols, slots, valid,
+                                      int(pane_vec[0]))
+        else:
+            self.state = self.gb.fold(self.state, cols, slots, valid,
+                                      pane_vec)
+        for b in ubs:
+            m = buckets == b
+            sel = np.nonzero(m)[0]
+            seg = ((cols, valid, slots, ts) if len(ubs) == 1 else (
+                {k: v[sel] for k, v in cols.items()},
+                {k: v[sel] for k, v in valid.items()}, slots[sel], ts[sel]))
+            self._ring.setdefault(int(b), []).append(seg)
+            bmax = int(ts[sel].max())
+            if bmax > self._bucket_max_ts.get(int(b), -1):
+                self._bucket_max_ts[int(b)] = bmax
+        self._ring_advance_buckets(buckets)
+        # trigger rows: OVER (WHEN ...) on the raw batch columns
+        trig = _host_mask(self._trigger_host, sub.columns, sub.n)
+        for i in np.nonzero(trig)[0].tolist():
+            t = int(ts[i])
+            if self.delay_ms > 0:
+                self._schedule_sliding(t, timex.now_ms() + self.delay_ms)
+            else:
+                self._emit_sliding(t)
+        return sub.n
+
+    def _schedule_sliding(self, t: int, fire_at: int) -> None:
+        """Arm a delayed sliding emission; tracked in _pending_slides so a
+        checkpoint re-arms it."""
+        self._pending_slides[t] = fire_at
+        delay = max(fire_at - timex.now_ms(), 0)
+        self._slide_timers[t] = timex.after(
+            delay, lambda _ts, t0=t: self.put_control(
+                Trigger(ts=t0, tag=("sliding", t0))))
+
+    def _emit_sliding(self, t: int) -> None:
+        """Emit the window (t - L, t + delay] for trigger time t: the body
+        as one ring query, the partial edge buckets folded on the host
+        into the trigger's shadow; the emit worker merges and delivers."""
+        n_keys = self.kt.n_keys
+        if n_keys == 0:
+            return
+        lo = t - self.length_ms  # exclusive
+        hi = t + self.delay_ms  # inclusive
+        b_lo, b_hi = lo // self.bucket_ms, hi // self.bucket_ms
+        shadow = HostShadow(self.plan, self.gb.comp_specs, self.kt.capacity)
+        include_head = False
+        if b_lo == b_hi:
+            # the window inside one bucket: the host edge fold is all of it
+            self._shadow_ring_rows(shadow, b_lo, lo_excl=lo, hi_incl=hi)
+            body = None
+        else:
+            self._shadow_ring_rows(shadow, b_lo, lo_excl=lo)
+            body = (b_lo + 1, b_hi - 1)
+            # the high edge straight from the live pane when it holds
+            # exactly (b_hi * B, hi]: no received row of it exceeds hi
+            if (self._pane_bucket.get(b_hi % self.n_ring_panes) == b_hi
+                    and self._bucket_max_ts.get(b_hi, hi + 1) <= hi):
+                include_head = True
+            else:
+                self._shadow_ring_rows(shadow, b_hi, hi_incl=hi)
+        pending = self._ring_body_query(body, include_head, b_hi, shadow)
+        if pending is None:
+            self.ring_counts["edge"] += 1
+            pending = IdentityFinalize(self.gb.comp_specs, self.kt.capacity)
+        self._enqueue("ring", (pending, shadow), WindowRange(lo, hi))
+
+    def _shadow_ring_rows(self, shadow, b: int, lo_excl: Optional[int] = None,
+                          hi_incl: Optional[int] = None) -> None:
+        """Fold bucket b's retained rows (optionally time-cut) into the
+        trigger's HostShadow: at most one bucket of rows."""
+        for cols, valid, slots, ts in self._ring.get(b, []):
+            m = np.ones(len(ts), dtype=np.bool_)
+            if lo_excl is not None:
+                m &= ts > lo_excl
+            if hi_incl is not None:
+                m &= ts <= hi_incl
+            if not m.any():
+                continue
+            if m.all():
+                shadow.fold(cols, slots, valid)
+            else:
+                sel = np.nonzero(m)[0]
+                shadow.fold({k: v[sel] for k, v in cols.items()},
+                            slots[sel], {k: v[sel] for k, v in valid.items()})
+
+    def _ring_body_query(self, body, include_head: bool, b_hi: int, shadow):
+        """Launch the body of one trigger: the ring query when the running
+        partials cover it, after a flip when they do not, and the masked
+        components merge for shapes off the in-order discipline (delayed
+        emissions, recycled panes). None for an empty body."""
+        head_slot = b_hi % self.n_ring_panes
+        if body is None:
+            return None
+        j, e = body
+        if j > e:
+            if not include_head:
+                return None
+            adj_slots = np.zeros(QUERY_ADJ, dtype=np.int32)
+            adj_w = np.zeros(QUERY_ADJ, dtype=np.float32)
+            adj_mm = np.zeros(QUERY_ADJ, dtype=np.bool_)
+            adj_slots[0], adj_w[0], adj_mm[0] = head_slot, 1.0, True
+            self.ring_counts["head"] += 1
+            return self.ring.query_begin(
+                self._ring_state_now(), self.state, body_on=False,
+                f_on=False, f_slot=0, adj_slots=adj_slots,
+                adj_weights=adj_w, adj_mm=adj_mm)
+        if self._rg_closed == e and self._rg_head == b_hi:
+            ok = not self._rg_dirty and self._ring_fast_ok(j)
+            if not ok:
+                self._ring_flip(j, e)
+                ok = not self._rg_dirty and self._ring_fast_ok(j)
+            if ok:
+                self.ring_counts["fast"] += 1
+                return self._ring_query_fast(j, include_head, head_slot)
+        self.ring_counts["dyn"] += 1
+        return self._ring_query_dyn(j, e, include_head, head_slot, shadow)
+
+    def _ring_fast_ok(self, j: int) -> bool:
+        """Can the running partials serve a body starting at bucket j?"""
+        if self._rg_closes - self._rg_anchor > 4 * self._span_tot:
+            # periodic re-anchor: rebuild the float totals from the panes
+            # before subtract-on-evict drift can build up
+            self.ring_counts["reanchor"] += 1
+            return False
+        if self.ring.mm_comps:
+            if self._rg_flip_lo < 0 or j < self._rg_flip_lo \
+                    or j > self._rg_flip_hi + 1:
+                return False
+        if not self._rg_tot or self._rg_tot[0][0] > j:
+            return False  # the total no longer covers the window start
+        n_sub = sum(1 for (b, _s, on) in self._rg_tot if b < j and on)
+        return n_sub <= QUERY_ADJ - 1
+
+    def _ring_flip(self, j: int, e: int) -> None:
+        """Rebuild every running partial from the live panes over [j, e]
+        (one ring_flip). A bucket whose pane was recycled while its rows
+        are retained cannot flip: the caller then merges the panes."""
+        valid = np.zeros(self.n_ring_panes, dtype=np.bool_)
+        tot_entries = []
+        for b in range(j, e + 1):
+            s = b % self.n_ring_panes
+            live = self._pane_bucket.get(s) == b
+            if not live and b in self._ring:
+                return
+            valid[b - j] = live
+            tot_entries.append((b, s, live))
+        self._ring_dev = self.ring.flip(
+            self._ring_state_now(), self.state, j % self.n_ring_panes, valid)
+        self.ring_counts["flip"] += 1
+        self._rg_tot = collections.deque(tot_entries)
+        self._rg_flip_lo, self._rg_flip_hi = j, e
+        self._rg_anchor = self._rg_closes
+        self._rg_dirty = False
+
+    def _ring_query_fast(self, j: int, include_head: bool, head_slot: int):
+        """The constant-time trigger: combine(front[j], back) for the
+        two-stack components, the running total minus at most two trailing
+        pane slices for the additive ones, plus the live head pane."""
+        adj_slots = np.zeros(QUERY_ADJ, dtype=np.int32)
+        adj_w = np.zeros(QUERY_ADJ, dtype=np.float32)
+        adj_mm = np.zeros(QUERY_ADJ, dtype=np.bool_)
+        k = 0
+        for b, s, on in self._rg_tot:
+            if b < j and on:
+                adj_slots[k], adj_w[k] = s, -1.0
+                k += 1
+        if include_head:
+            adj_slots[k], adj_w[k], adj_mm[k] = head_slot, 1.0, True
+        f_on = bool(self.ring.mm_comps) and j <= self._rg_flip_hi
+        return self.ring.query_begin(
+            self._ring_state_now(), self.state, body_on=True, f_on=f_on,
+            f_slot=j % self.n_ring_panes, adj_slots=adj_slots,
+            adj_weights=adj_w, adj_mm=adj_mm)
+
+    def _ring_query_dyn(self, j: int, e: int, include_head: bool,
+                        head_slot: int, shadow):
+        """Exact fallback body: the window's live panes merged under a mask
+        (groupby_components); buckets whose pane was recycled fold their
+        retained rows on the host into the trigger's shadow."""
+        pane_mask = np.zeros(self.gb.n_panes, dtype=np.bool_)
+        for b in range(j, e + 1):
+            s = b % self.n_ring_panes
+            if self._pane_bucket.get(s) == b:
+                pane_mask[s] = True
+            elif b in self._ring:
+                self._shadow_ring_rows(shadow, b)
+                self.ring_counts["recycled_refold"] += 1
+        if include_head:
+            pane_mask[head_slot] = True
+        if not pane_mask.any():
+            return None
+        return self.gb.components_begin_dyn(self.state, pane_mask)
+
     # ------------------------------------------------------------------ state
     def snapshot_state(self) -> Optional[dict]:
         """The reference's snapshot format (keys, partials, cur_pane,
@@ -750,6 +1232,18 @@ class FusedWindowAggNode(Node):
             snap["hh_dicts"] = {
                 c: vd.snapshot() for c, vd in self._hh_dicts.items()
             }
+        if self.wt == ast.WindowType.SLIDING_WINDOW:
+            snap["pane_bucket"] = dict(self._pane_bucket)
+            snap["ring_max_bucket"] = self._ring_max_bucket
+            snap["pending_slides"] = dict(self._pending_slides)
+            # the retained rows as raw bytes (the reference's encoding)
+            snap["ring"] = {
+                str(b): [
+                    {"cols": {k: _enc_arr(v) for k, v in cols.items()},
+                     "valid": {k: _enc_arr(v) for k, v in valid.items()},
+                     "slots": _enc_arr(slots), "ts": _enc_arr(ts)}
+                    for cols, valid, slots, ts in segs]
+                for b, segs in self._ring.items()}
         return snap
 
     def restore_state(self, state: dict) -> None:
@@ -771,3 +1265,28 @@ class FusedWindowAggNode(Node):
             vd = ValueDict()
             vd.restore(values)
             self._hh_dicts[c] = vd
+        if self.wt == ast.WindowType.SLIDING_WINDOW:
+            self._restore_sliding(state)
+
+    def _restore_sliding(self, state: dict) -> None:
+        self._pane_bucket = {int(k): v for k, v in
+                             state.get("pane_bucket", {}).items()}
+        self._ring_max_bucket = state.get("ring_max_bucket", -1)
+        self._bucket_max_ts = {}
+        self._ring = {
+            int(b): [({k: _dec_arr(v) for k, v in seg["cols"].items()},
+                      {k: _dec_arr(v) for k, v in seg["valid"].items()},
+                      _dec_arr(seg["slots"]), _dec_arr(seg["ts"]))
+                     for seg in segs]
+            for b, segs in state.get("ring", {}).items()}
+        # the ring partials are caches of the panes, never checkpointed:
+        # the first trigger after a restore rebuilds them with one flip
+        self._ring_dev = None
+        self._ring_reset_tracking()
+        self._rg_head = self._ring_max_bucket
+        self._rg_closed = self._rg_head - 1 if self._rg_head >= 0 else -1
+        # re-arm the delayed emissions pending at the checkpoint (past-due
+        # ones fire at the next clock move)
+        self._pending_slides = {}
+        for t, fire_at in state.get("pending_slides", {}).items():
+            self._schedule_sliding(int(t), int(fire_at))

@@ -291,3 +291,89 @@ def test_prefinalize_wrappers_never_take_the_plain_versions(monkeypatch):
             kernels.groupby_absorb(state, shadow, 2)
     assert taken == []
     assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
+
+
+SLIDING_SQL = ("SELECT deviceId, percentile_approx(t, 0.99) AS p99, "
+               "min(t) AS mn, count(*) AS c FROM demo GROUP BY deviceId, "
+               "SLIDINGWINDOW(ss, 10) OVER (WHEN t > 44.5)")
+
+
+def test_sliding_rule_needs_cuda_unless_cpu_is_asked(monkeypatch):
+    """The sliding path (its ring state included) is as strict about the
+    device as the others."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fused.plan_fused_rule(SLIDING_SQL, key_slots=64, **kw)
+    node = fused.plan_fused_rule(SLIDING_SQL, key_slots=64, micro_batch=64,
+                                 device="cpu")
+    assert node.sliding_impl == "daba"
+    ring = node._ring_state_now()
+    assert {t.device.type for t in ring.values()} == {"cpu"}
+
+
+def test_ring_wrappers_never_take_the_plain_versions(monkeypatch):
+    """The three ring kernels' wrappers and the folds with a per-row pane
+    vector, given CUDA tensors: the launch path fails loudly without a
+    card or nvcc, and no plain version runs."""
+    _needs_no_card()
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    taken = []
+    for name in ("ring_advance_plain", "ring_flip_plain", "ring_query_plain",
+                 "fold_scalar_plain", "fold_wide_plain"):
+        monkeypatch.setattr(kernels, name,
+                            lambda *a, _n=name, **k: taken.append(_n))
+    kernels.reset_launches()
+    R, P, C = 3, 4, 8
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        state = {"n": torch.zeros((P, C, 1), device="cuda"),
+                 "mn": torch.zeros((P, C, 1), device="cuda"),
+                 "hist": torch.zeros((P, C, 1, kernels.WIDE_W["hist"]),
+                                     device="cuda"),
+                 "act": torch.zeros((P, C), device="cuda")}
+        ring = {"tot_n": torch.zeros((C, 1), device="cuda"),
+                "tot_hist": torch.zeros((C, 1, kernels.WIDE_W["hist"]),
+                                        device="cuda"),
+                "tot_act": torch.zeros(C, device="cuda"),
+                "back_mn": torch.zeros((C, 1), device="cuda"),
+                "front_mn": torch.zeros((R, C, 1), device="cuda")}
+        V = torch.ones((1, 4), device="cuda")
+        M = torch.ones((1, 4), dtype=torch.bool, device="cuda")
+        base = torch.ones(4, dtype=torch.bool, device="cuda")
+        slots = torch.zeros(4, dtype=torch.int32, device="cuda")
+        pane_vec = torch.zeros(4, dtype=torch.uint8, device="cuda")
+    comps = ["act", "hist", "n", "mn"]
+    adj = (np.zeros(4, dtype=np.int32), np.zeros(4, dtype=np.float32),
+           np.zeros(4, dtype=bool))
+    calls = [
+        lambda: kernels.ring_advance(ring, state, comps, 1, True, 2, True),
+        lambda: kernels.ring_flip(ring, state, comps, np.arange(R),
+                                  np.ones(R, dtype=bool)),
+        lambda: kernels.ring_query(ring, state, ["hist", "mn", "n", "act"],
+                                   True, True, 0, *adj),
+        lambda: kernels.groupby_fold_scalar(
+            state, base, V, M, slots, 0, kernels.column_map({"n": [0]}),
+            pane_vec),
+        lambda: kernels.groupby_fold_wide(
+            state, V, M, slots, 0, kernels.wide_column_map({"hist": [0]}),
+            pane_vec),
+    ]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # fake data_ptr()
+        for call in calls:
+            with pytest.raises((RuntimeError, AssertionError)):
+                call()
+        # refused before any build: a pane outside the state, a front slot
+        # outside the ring, a pane vector of another dtype
+        with pytest.raises(ValueError):
+            kernels.ring_advance(ring, state, comps, P, True, 0, False)
+        with pytest.raises(ValueError):
+            kernels.ring_query(ring, state, ["hist", "mn", "n", "act"],
+                               True, True, R, *adj)
+        with pytest.raises(TypeError):
+            kernels.groupby_fold_scalar(
+                state, base, V, M, slots, 0, kernels.column_map({"n": [0]}),
+                pane_vec.to(torch.int32))
+    assert taken == []
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)

@@ -16,7 +16,13 @@ percentile within 4 ulp (expf of the kernel against torch.exp).
 Prefinalize: the pane-merged components and the absorbed state
 bit-equal (a merge of at most two panes, and one add per element, round
 alike in any order); the components fetch lands in pinned host memory
-and holds no row folded after its launch.
+and holds no row folded after its launch. Sliding ring: advance and query
+bit-equal (one add and one subtract per element; query weights 0 and ±1,
+zero-weight slots included, so 0·inf gives NaN in both); flip bit-equal
+except s1/s2 within rtol 1e-5 (the kernel sums the ring slots in age
+order, torch.sum in its own); the folds with a per-row pane vector as
+the folds; a ring query's fetch holds no fold, advance, flip or pane
+reset launched after it.
 """
 import numpy as np
 import pytest
@@ -311,4 +317,167 @@ def test_fetch_is_pinned_and_holds_no_later_fold(gb):
     got = np.concatenate([comps[c].reshape(len(want), -1)
                           for c, *_ in gb._components_layout()], axis=1)
     np.testing.assert_array_equal(got, want)
+    pending.release()
+
+
+# ------------------------------------------------------------ sliding ring
+RING_SQL = (
+    "SELECT k, count(*) AS c, sum(v) AS s, stddev(v) AS sd, min(v) AS mn, "
+    "max(v) AS mx, percentile_approx(v, 0.9) AS p, hll(v) AS u "
+    "FROM s GROUP BY k, SLIDINGWINDOW(ss, 2) OVER (WHEN v > 90)"
+)
+
+
+@pytest.fixture
+def rnode():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return plan_fused_rule(RING_SQL, key_slots=512, micro_batch=4096)
+
+
+def _ring_states(node, seed):
+    """Pane state and ring state of the node's plan on the card, made from
+    numpy: counts, N(20, 5) sums, min/max with some identities, ranks."""
+    rng = np.random.default_rng(seed)
+
+    def like(comp, shape):
+        if comp in ("n", "act", "hist"):
+            return rng.integers(0, 6, shape).astype(np.float32)
+        if comp == "hll":
+            return rng.integers(0, 30, shape).astype(np.float32)
+        v = rng.normal(20, 5, shape).astype(np.float32)
+        if comp in ("mn", "mx"):
+            v[rng.random(shape) < 0.2] = kernels.INIT[comp]
+        return v
+
+    dev = node.gb.device
+    st = {c: torch.from_numpy(like(c, tuple(a.shape))).to(dev)
+          for c, a in node.gb.init_state().items()}
+    ring = {k: torch.from_numpy(like(k.split("_", 1)[1],
+                                     tuple(a.shape))).to(dev)
+            for k, a in node.ring.init_state().items()}
+    return st, ring
+
+
+def _same_ring(got, ref, rtol):
+    for key in ref:
+        g, r = got[key].cpu().numpy(), ref[key].cpu().numpy()
+        if key.split("_", 1)[1] in ("s1", "s2"):
+            np.testing.assert_allclose(g, r, rtol=rtol, err_msg=key)
+        else:
+            np.testing.assert_array_equal(g, r, err_msg=key)
+
+
+@pytest.mark.parametrize("closed_on,evict_on", [(True, True), (True, False),
+                                                (False, True)])
+def test_ring_advance_matches_plain(rnode, closed_on, evict_on):
+    st, ring = _ring_states(rnode, 70)
+    ref = {k: v.clone() for k, v in ring.items()}
+    comps = rnode.ring._comps
+    kernels.reset_launches()
+    kernels.ring_advance(ring, st, comps, 5, closed_on, 40, evict_on)
+    kernels.ring_advance_plain(ref, st, comps, 5, closed_on, 40, evict_on)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ring_advance"] == 1
+    _same_ring(ring, ref, 0)
+
+
+@pytest.mark.parametrize("base,pattern", [(0, "all"), (29, "some"),
+                                          (7, "none")])
+def test_ring_flip_matches_plain(rnode, base, pattern):
+    st, ring = _ring_states(rnode, 71)
+    R = rnode.n_ring_panes
+    order = ((base + np.arange(R)) % R).astype(np.int32)
+    valid = {"all": np.ones(R, dtype=bool), "none": np.zeros(R, dtype=bool),
+             "some": np.random.default_rng(base).random(R) < 0.6}[pattern]
+    ref = {k: v.clone() for k, v in ring.items()}
+    comps = rnode.ring._comps
+    kernels.ring_flip(ring, st, comps, order, valid)
+    kernels.ring_flip_plain(ref, st, comps, order, valid)
+    torch.cuda.synchronize()
+    _same_ring(ring, ref, 1e-5)
+
+
+@pytest.mark.parametrize("case", ["fast", "head_only", "zero_weight_inf"])
+def test_ring_query_matches_plain(rnode, case):
+    st, ring = _ring_states(rnode, 72)
+    if case == "zero_weight_inf":
+        st["s1"][0, 3, 0] = float("inf")
+    body = case != "head_only"
+    slots = np.array([3, 4, 12, 0] if body else [21, 0, 0, 0], np.int32)
+    w = np.array([-1, -1, 1, 0] if body else [1, 0, 0, 0], np.float32)
+    mm = np.array([0, 0, 1, 0] if body else [1, 0, 0, 0], bool)
+    comps = rnode.ring._query_comps
+    got = kernels.ring_query(ring, st, comps, body, body, 9, slots, w, mm)
+    ref = kernels.ring_query_plain(ring, st, comps, body, body, 9, slots, w,
+                                   mm)
+    g, r = got.cpu().numpy(), ref.cpu().numpy()
+    assert g.shape == (rnode.gb.capacity, sum(
+        w_ for _, _, w_, _ in rnode.gb._components_layout()))
+    np.testing.assert_array_equal(g, r)
+    if case == "zero_weight_inf":  # 0 · inf in an unused slot: NaN
+        col = next(c for comp, c, *_ in rnode.gb._components_layout()
+                   if comp == "s1")
+        assert np.isnan(g[3, col])
+
+
+@pytest.mark.parametrize("which", ["scalar", "wide"])
+def test_fold_with_pane_vector_matches_plain(rnode, which):
+    gb = rnode.gb
+    rng = np.random.default_rng(73)
+    rows = 4096
+    v = rng.normal(20, 5, rows).astype(np.float32)
+    dev = gb.device
+    cols = {"v": torch.from_numpy(v).to(dev),
+            "__hll__v": torch.from_numpy(encode_hll_column(v, rows)).to(dev)}
+    base, V, M = gb.spec_inputs(cols, rows)
+    slots = torch.from_numpy(rng.integers(0, 300, rows).astype(np.int32)
+                             ).to(dev)
+    pv = torch.from_numpy(rng.integers(0, gb.n_panes, rows).astype(np.uint8)
+                          ).to(dev)
+    got, ref = gb.init_state(), gb.init_state()
+    kernels.reset_launches()
+    if which == "scalar":
+        kernels.groupby_fold_scalar(got, base, V, M, slots, 0, gb._colmap, pv)
+        kernels.fold_scalar_plain(ref, base, V, M, slots, 0, gb._colmap, pv)
+    else:
+        kernels.groupby_fold_wide(got, V, M, slots, 0, gb._widemap, pv)
+        kernels.fold_wide_plain(ref, V, M, slots, 0, gb._widemap, pv)
+    torch.cuda.synchronize()
+    name = f"groupby_fold_{which}"
+    assert kernels.LAUNCHES[name] == kernels.ROW_PANE_LAUNCHES[name] == 1
+    _same(got, ref, 1e-5)
+
+
+def test_ring_query_fetch_holds_no_later_update(rnode):
+    """In place against the reference's donation: a ring query launched
+    right before a fold, an advance, a flip and a pane reset (no
+    synchronize between) fetches the body as it stood at its launch."""
+    st, ring = _ring_states(rnode, 74)
+    ring_ref = {k: v.clone() for k, v in ring.items()}
+    st_ref = {k: v.clone() for k, v in st.items()}
+    args = dict(body_on=True, f_on=True, f_slot=9,
+                adj_slots=np.array([3, 4, 12, 0], np.int32),
+                adj_weights=np.array([-1, -1, 1, 0], np.float32),
+                adj_mm=np.array([0, 0, 1, 0], bool))
+    want = kernels.ring_query_plain(
+        ring_ref, st_ref, rnode.ring._query_comps, True, True, 9,
+        args["adj_slots"], args["adj_weights"], args["adj_mm"])
+    pending = rnode.ring.query_begin(ring, st, **args)
+    rnode.gb.fold(st, {"v": np.full(65_536, 7.0, np.float32)},
+                  np.zeros(65_536, np.int32), pane_idx=12)
+    rnode.ring.advance(ring, st, 12, True, 3, True)
+    rnode.ring.flip(ring, st, 0, np.ones(rnode.n_ring_panes, dtype=bool))
+    rnode.gb.reset_pane(st, 4)
+    assert pending._buf.is_pinned()
+    comps = pending.get()
+    torch.cuda.synchronize()
+    got = np.concatenate([comps[c].reshape(rnode.gb.capacity, -1)
+                          for c, *_ in rnode.gb._components_layout()],
+                         axis=1)
+    np.testing.assert_array_equal(got, want.cpu().numpy())
+    now = kernels.ring_query_plain(
+        ring, st, rnode.ring._query_comps, True, True, 9,
+        args["adj_slots"], args["adj_weights"], args["adj_mm"])
+    assert not np.array_equal(now.cpu().numpy(), got)
     pending.release()

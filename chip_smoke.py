@@ -10,15 +10,18 @@ Phases (each prints its own lines; any failure exits non-zero and prints
 no result):
 
 1. the card (nvidia-smi name and power limit) and the kernels' build time
-   (csrc/groupby.cu, csrc/sketches.cu, csrc/prefinalize.cu and
-   csrc/slidingring.cu, one nvcc each for sm_90a, run together);
+   (csrc/groupby.cu, csrc/sketches.cu, csrc/prefinalize.cu,
+   csrc/slidingring.cu and csrc/multirule.cu, one nvcc each for sm_90a,
+   run together);
 2. each kernel against its plain PyTorch version on the card, at the main
    path's shapes (65,536 rows, 16,384 slots; the sketch kernels at the
    sketch rules' state, up to 2 panes x 16,384 x 2,688 floats; the
    components merge and the absorb at the phase C rules' state, up to
    16,384 x 1,028 floats; the sliding ring's advance, flip and query and
    the folds with a per-row pane vector at the phase D rules' state, up
-   to 53 panes x 16,384 x 1,026 floats): error, kernel time (CUDA
+   to 53 panes x 16,384 x 1,026 floats; the rule group's fold, finalize
+   and reset at E1's 256 rules x 16,384 slots, the finalize also at E3's
+   two panes): error, kernel time (CUDA
    events), the kernel body's own device time (profiler trace) and the
    host time of one wrapper call, plain time, a library yardstick and the
    bytes/operations bound;
@@ -73,6 +76,25 @@ D. SLIDINGWINDOW rules on the DABA ring, each opened on the mock clock
    float64 group-by (D2), the percentile twin's bin (D1), hll within ±1
    (D3). Per rule: rows/s, the trigger's stall on the fold thread, the
    delivery, triggers by route and flips;
+E. rule groups (BASELINE config #5), each group one node opened on the
+   mock clock with its default boundary. E1, bench.py:197-246: 256 rules
+   `SELECT deviceId, avg(temperature) AS a, count(*) AS c FROM demo
+   WHERE temperature > {10.0 + 0.1 r} GROUP BY deviceId,
+   TUMBLINGWINDOW(ss, 10)`, 10,000 keys, 16,384 slots, 65,536-row batches,
+   temperature ~ N(20, 5), 16 batches a window, 4 windows (the tumbling
+   group's boundaries on the emit worker); E2, bench.py:1595-1666: the
+   four families fa, fb, fc, fd (63 rules each: avg/count, min/max,
+   sum/stddev, count/avg under a `<` WHERE), one node each fed the same
+   32,768-row micro-batches of 4,096 keys, temperature N(20, 5) and
+   humidity N(50, 15) rounded to 2 decimals, pressure U(0, 1) rounded to
+   3, 2 windows (the bench's four solo rules and its shared-source
+   subtopology are out of scope); E3: E1's rules on HOPPINGWINDOW(ss, 10,
+   5), 4 slides (the synchronous group emit over two panes). Every rule's
+   every window is held against an independent numpy float64 group-by
+   over the rows passing that rule's WHERE, compared in float32. Per run:
+   rows/s and rule-rows/s, the fold kernel's time per batch, the
+   boundary's stall on the fold thread, delivery p50/p99, the stacked
+   result's size and its copy time;
 5. each kernel's launch count on the paths that use it (each must be
    > 0), then the JSON kernel table and the one-line result.
 """
@@ -157,6 +179,48 @@ T0_MS = 100_031
 #: 1.04e-5 from an edge was binned one over, past the 1e-5 band that
 #: phases B and C keep.
 D_EDGE = 5e-5
+#: phase E: rule groups. E1 is BASELINE config #5 (bench.py:197-246): 256
+#: rules, rule r keeping temperature > 10.0 + 0.1 r
+E1_SQL = ("SELECT deviceId, avg(temperature) AS a, count(*) AS c FROM demo "
+          "WHERE temperature > {x} GROUP BY deviceId, {window}")
+E1_RULES, E1_BASE, E1_STEP = 256, 10.0, 0.1
+E_TUMBLING, E_HOPPING = "TUMBLINGWINDOW(ss, 10)", "HOPPINGWINDOW(ss, 10, 5)"
+#: E2: the four rule families of bench.py:1595-1610, 63 rules each
+#: (name, SQL, first threshold, step)
+E2_FAMILIES = (
+    ("fa", "SELECT deviceId, avg(temperature) AS a, count(*) AS c "
+           "FROM sensors WHERE temperature > {x} "
+           "GROUP BY deviceId, TUMBLINGWINDOW(ss, 10)", 14.0, 0.05),
+    ("fb", "SELECT deviceId, min(pressure) AS mn, max(pressure) AS mx "
+           "FROM sensors WHERE pressure > {x} "
+           "GROUP BY deviceId, TUMBLINGWINDOW(ss, 10)", 0.4, 0.002),
+    ("fc", "SELECT deviceId, sum(humidity) AS s, stddev(humidity) AS sd "
+           "FROM sensors WHERE humidity > {x} "
+           "GROUP BY deviceId, TUMBLINGWINDOW(ss, 10)", 30.0, 0.1),
+    ("fd", "SELECT deviceId, count(*) AS c, avg(pressure) AS ap "
+           "FROM sensors WHERE temperature < {x} "
+           "GROUP BY deviceId, TUMBLINGWINDOW(ss, 10)", 26.0, 0.05),
+)
+#: E2's rules a family, keys and rows a micro-batch (bench.py:1620, 1650)
+E2_RULES, E2_KEYS, E2_ROWS = 63, 4096, 32_768
+#: per family: the WHERE column and comparison, and each output column's
+#: aggregate and argument (what the numpy twin recomputes)
+E_TWIN = {
+    "e1": ("temperature", ">", {"a": ("avg", "temperature"),
+                                "c": ("count", None)}),
+    "e3": ("temperature", ">", {"a": ("avg", "temperature"),
+                                "c": ("count", None)}),
+    "fa": ("temperature", ">", {"a": ("avg", "temperature"),
+                                "c": ("count", None)}),
+    "fb": ("pressure", ">", {"mn": ("min", "pressure"),
+                             "mx": ("max", "pressure")}),
+    "fc": ("humidity", ">", {"s": ("sum", "humidity"),
+                             "sd": ("stddev", "humidity")}),
+    "fd": ("temperature", "<", {"c": ("count", None),
+                                "ap": ("avg", "pressure")}),
+}
+#: windows per phase E run (E1 tumbling, E2 tumbling, E3 hop slides)
+E_WINDOWS = {"e1": 4, "e2": 2, "e3": 4}
 SOURCE = {
     "groupby_fold_scalar": "ekuiper_tpu_torch/csrc/groupby.cu",
     "groupby_finalize_scalar": "ekuiper_tpu_torch/csrc/groupby.cu",
@@ -169,6 +233,9 @@ SOURCE = {
     "ring_advance": "ekuiper_tpu_torch/csrc/slidingring.cu",
     "ring_flip": "ekuiper_tpu_torch/csrc/slidingring.cu",
     "ring_query": "ekuiper_tpu_torch/csrc/slidingring.cu",
+    "multirule_fold": "ekuiper_tpu_torch/csrc/multirule.cu",
+    "multirule_finalize": "ekuiper_tpu_torch/csrc/multirule.cu",
+    "multirule_reset_pane": "ekuiper_tpu_torch/csrc/multirule.cu",
 }
 REPLACES = {
     "groupby_fold_scalar": "ekuiper_tpu/ops/groupby.py:348",
@@ -182,6 +249,9 @@ REPLACES = {
     "ring_advance": "ekuiper_tpu/ops/slidingring.py:283",
     "ring_flip": "ekuiper_tpu/ops/slidingring.py:303",
     "ring_query": "ekuiper_tpu/ops/slidingring.py:332",
+    "multirule_fold": "ekuiper_tpu/parallel/multirule.py:196",
+    "multirule_finalize": "ekuiper_tpu/parallel/multirule.py:210",
+    "multirule_reset_pane": "ekuiper_tpu/parallel/multirule.py:256",
 }
 #: which end-to-end paths launch each kernel (phase 5 checks each > 0)
 PATHS = {
@@ -199,6 +269,9 @@ PATHS = {
     "ring_advance": ("d1", "d2", "d2_delay", "d3"),
     "ring_flip": ("d1", "d2", "d3"),
     "ring_query": ("d1", "d2", "d3"),
+    "multirule_fold": ("e1", "e2", "e3"),
+    "multirule_finalize": ("e1", "e2", "e3"),
+    "multirule_reset_pane": ("e1", "e2", "e3"),
 }
 #: the folds that must take a per-row pane vector on each sliding path (a
 #: batch that crosses a bucket edge)
@@ -1517,14 +1590,17 @@ def fused_node(mods, sql, opts, backstop):
 
 
 def drive_on_clock(torch, node, batches, interval, hook=None):
-    """Open `node` on a fresh mock clock and feed it batches[w][i] at
-    w * interval + batch_offsets(interval)[i]; the boundaries and their
-    pre-triggers fire from the clock. `hook(w, t)` runs before each move
-    to t. Returns the wall seconds, deliveries drained, card synchronized."""
+    """Open `node` (or each node of a list, fed alike) on a fresh mock
+    clock and feed it batches[w][i] at w * interval +
+    batch_offsets(interval)[i]; the boundaries and their pre-triggers fire
+    from the clock. `hook(w, t)` runs before each move to t. Returns the
+    wall seconds, deliveries drained, card synchronized."""
     from ekuiper_tpu_torch.utils import timex
 
+    nodes = node if isinstance(node, list) else [node]
     clock = timex.set_mock_clock(0)
-    node.on_open()
+    for n in nodes:
+        n.on_open()
     offs = batch_offsets(interval)
     t0 = time.perf_counter()
     for w, window in enumerate(batches):
@@ -1533,12 +1609,15 @@ def drive_on_clock(torch, node, batches, interval, hook=None):
             if hook is not None:
                 hook(w, t)
             clock.set(t)
-            node.process(batch)
+            for n in nodes:
+                n.process(batch)
         clock.set((w + 1) * interval)
-    node._drain_async_emits()
+    for n in nodes:
+        n._drain_async_emits()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    node.on_close()
+    for n in nodes:
+        n.on_close()
     timex.use_real_clock()
     return wall
 
@@ -2258,6 +2337,553 @@ def phase_d_line(tag, r):
             f"check_s={r['check_s']:.1f}")
 
 
+# ----------------------------------------------- phase 2, the rule group
+def e1_sqls(window=E_TUMBLING):
+    """E1's 256 statements, each literal written as bench.py writes it."""
+    return [E1_SQL.format(x=E1_BASE + E1_STEP * r, window=window)
+            for r in range(E1_RULES)]
+
+
+def rule_ids(prefix, n):
+    return [f"{prefix}{r}" for r in range(n)]
+
+
+def library_group_fold(torch, state, base, V, M, slots, pane, colmap,
+                       kernels):
+    """Yardstick, never called by the port: the group fold as PyTorch's own
+    scatter calls over a rule-offset flat index (r, pane, slot):
+    index_add_ for the sums, scatter_reduce_ for min/max."""
+    act = state["act"]
+    NR, P, C = act.shape
+    rule = torch.arange(NR, device=act.device)[:, None]
+    pc = ((rule * P + pane) * C + slots.long()[None, :]).reshape(-1)
+    act.view(-1).index_add_(0, pc, base.reshape(-1).float())
+    names = {j: c for c, j in kernels.COMP_IDS.items()}
+    for comp_id, k, s in colmap.tolist():
+        comp = names[comp_id]
+        arr = state[comp]
+        idx = pc * arr.shape[3] + k
+        m = (M[s][None, :] & base).reshape(-1)
+        v = V[s].repeat(NR)
+        flat = arr.view(-1)
+        if comp == "n":
+            flat.index_add_(0, idx, m.float())
+        elif comp == "s1":
+            flat.index_add_(0, idx, torch.where(m, v, 0.0))
+        elif comp == "s2":
+            flat.index_add_(0, idx, torch.where(m, v * v, 0.0))
+        else:
+            ident = float("inf") if comp == "mn" else float("-inf")
+            flat.scatter_reduce_(0, idx, torch.where(m, v, ident),
+                                 "amin" if comp == "mn" else "amax",
+                                 include_self=True)
+
+
+def rows_first(out):
+    """A (R, rows, K) group finalize as (rows, R * K), for finalize_err."""
+    return out.permute(1, 0, 2).reshape(out.shape[1], -1)
+
+
+def group_kernel_checks(torch, seed, kernels, plan_rule_group, dev):
+    """The three rule-group kernels against their plain versions at E1's
+    shapes (256 rules, 65,536 rows, 16,384 slots, 67 MB of state), the
+    finalize also at E3's two panes under a subset mask."""
+    rows = {}
+    node = plan_rule_group(rule_ids("e1_", E1_RULES), e1_sqls(),
+                           key_slots=SLOTS, micro_batch=ROWS, device=dev)
+    gb = node.gb
+    r = np.random.default_rng(seed + 40)
+    temp = r.normal(20, 5, ROWS).astype(np.float32)
+    s_dev = torch.from_numpy(
+        r.integers(0, N_KEYS, ROWS).astype(np.int32)).to(dev)
+    base, V, M = gb.rule_inputs({"temperature": torch.from_numpy(temp)
+                                 .to(dev)}, ROWS)
+    colmap = gb._colmap
+    st = gb.init_state()
+    state_bytes = sum(a.numel() * 4 for a in st.values())
+    ref, got = clone_state(st), clone_state(st)
+    kernels.multirule_fold_plain(ref, base, V, M, s_dev, 0, colmap)
+    kernels.multirule_fold(got, base, V, M, s_dev, 0, colmap)
+    torch.cuda.synchronize()
+    err = state_err(got, ref)
+    fold = functools.partial(kernels.multirule_fold, got, base, V, M, s_dev,
+                             0, colmap)
+    t_k = time_ms(torch, fold, REPS)
+    split = launch_split(torch, fold, "multirule_fold_kernel", REPS)
+    t_p = time_ms(torch, lambda: kernels.multirule_fold_plain(
+        ref, base, V, M, s_dev, 0, colmap), REPS)
+    t_l = time_ms(torch, lambda: library_group_fold(
+        torch, ref, base, V, M, s_dev, 0, colmap, kernels), REPS)
+    S, n = V.shape
+    in_bytes = V.numel() * 4 + M.numel() + base.numel() + n * 4
+    # one atomic per (rule, row) past the rule's WHERE for act, and one per
+    # state column whose spec mask holds: what this batch's data needs
+    passing = int(base.sum().item())
+    col_atomics = sum(int((M[s][None, :] & base).sum().item())
+                      for s in colmap[:, 2].tolist())
+    atomics = passing + col_atomics
+    b_ms, b_by = bound(in_bytes, atomics)
+    print(f"kernel multirule_fold R={E1_RULES} rows={n} C={SLOTS} "
+          f"cols={len(colmap)}: max_abs_err={err[0]:.3g} "
+          f"max_rel_err={err[1]:.3g} kernel_ms={t_k:.4f} "
+          f"{split_text(split)} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
+          f"bound_ms={b_ms:.5f} ({b_by}; inputs {in_bytes / 1e6:.2f} MB) "
+          f"atomics={atomics} ({passing} rule-rows past WHERE) "
+          f"atomics_per_s={atomics / (t_k / 1e3):.4g} "
+          f"state_MB={state_bytes / 1e6:.1f}")
+    rows["multirule_fold"] = dict(
+        max_abs_err=err[0], max_rel_err=err[1], ms=t_k, **split,
+        plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l,
+        input_bytes=in_bytes, atomics=atomics, rule_rows=passing,
+        atomics_per_s=atomics / (t_k / 1e3), state_bytes=state_bytes)
+
+    # finalize: every rule, the key cut of 10,000 keys (K = 16,384)
+    K = gb._slice_keys(N_KEYS)
+    pm = gb._pane_mask(None)
+    out_k = kernels.multirule_finalize(got, pm, gb._spectab, K)
+    out_p = kernels.multirule_finalize_plain(got, pm, gb._spectab, K)
+    err = finalize_err(rows_first(out_k), rows_first(out_p), gb._spectab,
+                       kernels)
+    fin = functools.partial(kernels.multirule_finalize, got, pm, gb._spectab,
+                            K)
+    t_k = time_ms(torch, fin, REPS)
+    split = launch_split(torch, fin, "multirule_finalize_kernel", REPS)
+    t_p = time_ms(torch, lambda: kernels.multirule_finalize_plain(
+        got, pm, gb._spectab, K), REPS)
+    out_bytes = out_k.numel() * 4
+    b_ms, b_by = bound(state_bytes * K // SLOTS + out_bytes,
+                       E1_RULES * K * (len(gb._spectab) * 8 + 4))
+    print(f"kernel multirule_finalize R={E1_RULES} P=1 K={K} "
+          f"S={len(gb._spectab)}: max_abs_err={err[0]:.3g} "
+          f"max_rel_err={err[1]:.3g} kernel_ms={t_k:.4f} "
+          f"{split_text(split)} plain_ms={t_p:.4f} library_ms=null "
+          f"bound_ms={b_ms:.5f} ({b_by}) out_MB={out_bytes / 1e6:.1f}")
+    rows["multirule_finalize"] = dict(
+        max_abs_err=err[0], max_rel_err=err[1], ms=t_k, **split,
+        plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        out_bytes=out_bytes)
+
+    # reset: pane 0 of every rule and component
+    a, b = clone_state(got), clone_state(got)
+    kernels.multirule_reset_pane(a, 0)
+    kernels.multirule_reset_pane_plain(b, 0)
+    torch.cuda.synchronize()
+    err = state_err(a, b, exact=tuple(a))
+    reset = functools.partial(kernels.multirule_reset_pane, a, 0)
+    t_k = time_ms(torch, reset, REPS)
+    split = launch_split(torch, reset, "multirule_reset_kernel", REPS)
+    # the plain version is the library yardstick itself: one fill_ per
+    # component over every rule's pane
+    t_p = t_l = time_ms(
+        torch, lambda: kernels.multirule_reset_pane_plain(b, 0), REPS)
+    b_ms, b_by = bound(state_bytes, 0)
+    print(f"kernel multirule_reset_pane R={E1_RULES} P=1 C={SLOTS}: "
+          f"max_abs_err={err[0]:.3g} max_rel_err={err[1]:.3g} "
+          f"kernel_ms={t_k:.4f} {split_text(split)} plain_ms={t_p:.4f} "
+          f"library_ms={t_l:.4f} bound_ms={b_ms:.5f} ({b_by})")
+    rows["multirule_reset_pane"] = dict(
+        max_abs_err=err[0], max_rel_err=err[1], ms=t_k, **split,
+        plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+    del node, gb, st, ref, got, a, b
+
+    # E3's shape: two panes, the finalize under the subset mask [1]
+    node = plan_rule_group(rule_ids("e3_", E1_RULES), e1_sqls(E_HOPPING),
+                           key_slots=SLOTS, micro_batch=ROWS, device=dev)
+    gb = node.gb
+    st = gb.init_state()
+    for pane in (0, 1):
+        kernels.multirule_fold_plain(st, base, V, M, s_dev, pane, colmap)
+    pm = gb._pane_mask([1])
+    out_k = kernels.multirule_finalize(st, pm, gb._spectab, K)
+    out_p = kernels.multirule_finalize_plain(st, pm, gb._spectab, K)
+    err = finalize_err(rows_first(out_k), rows_first(out_p), gb._spectab,
+                       kernels)
+    fin = functools.partial(kernels.multirule_finalize, st, pm, gb._spectab,
+                            K)
+    t_k = time_ms(torch, fin, REPS)
+    split = launch_split(torch, fin, "multirule_finalize_kernel", REPS)
+    t_p = time_ms(torch, lambda: kernels.multirule_finalize_plain(
+        st, pm, gb._spectab, K), REPS)
+    b_ms, b_by = bound(state_bytes + out_bytes,
+                       E1_RULES * K * (len(gb._spectab) * 8 + 4))
+    print(f"kernel multirule_finalize R={E1_RULES} P=2 mask=subset[1] K={K}: "
+          f"max_abs_err={err[0]:.3g} max_rel_err={err[1]:.3g} "
+          f"kernel_ms={t_k:.4f} {split_text(split)} plain_ms={t_p:.4f} "
+          f"library_ms=null bound_ms={b_ms:.5f} ({b_by})")
+    rows["multirule_finalize/hopping_subset"] = dict(
+        max_abs_err=err[0], max_rel_err=err[1], ms=t_k, **split,
+        plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del node, gb, st
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------------------------------------------ phase E
+class GroupProbe:
+    """What phase E reads off one group node: each boundary's stall on the
+    fold thread (on_trigger wall time), each rule's windows and when they
+    reached its sink, and the stacked finalize results (the async fetches'
+    size and copy time; a synchronous boundary's result size)."""
+
+    def __init__(self, node, ends):
+        from ekuiper_tpu_torch.runtime.node import Node
+
+        self.node = node
+        self.ends = ends  # each boundary's window end, in trigger order
+        self.stall_ms, self.t_trigger, self.fetches, self.sync_bytes = \
+            [], [], [], []
+        self.sync_ms = []  # synchronous finalize: launch, copy, host tail
+        self.got = {rid: [] for rid in node.gb.rule_ids}
+        self.t_got = {}  # window end -> arrival times at the rules' sinks
+        probe = self
+
+        class Sink(Node):
+            def process(self, item):
+                probe.t_got.setdefault(int(item.timestamps[0]), []).append(
+                    time.perf_counter())
+                probe.got[self.name].append(item)
+
+        for rid in node.gb.rule_ids:
+            node.add_rule_output(rid, Sink(rid))
+        on_trigger = node.on_trigger
+
+        def timed_trigger(trig):
+            t = time.perf_counter()
+            self.t_trigger.append(t)
+            on_trigger(trig)
+            self.stall_ms.append((time.perf_counter() - t) * 1e3)
+
+        node.on_trigger = timed_trigger
+        gb = node.gb
+        begin, finalize_rules = gb.finalize_begin, gb._finalize_rules
+
+        def finalize_begin(*a, **k):
+            pending = begin(*a, **k)
+            self.fetches.append(pending)
+            return pending
+
+        def timed_rules(*a, **k):
+            out = finalize_rules(*a, **k)
+            self.sync_bytes.append(out.numel() * 4)
+            return out
+
+        finalize = gb.finalize
+
+        def timed_finalize(*a, **k):
+            t = time.perf_counter()
+            try:
+                return finalize(*a, **k)
+            finally:
+                self.sync_ms.append((time.perf_counter() - t) * 1e3)
+
+        gb.finalize_begin = finalize_begin
+        gb._finalize_rules = timed_rules
+        gb.finalize = timed_finalize
+
+    def summary(self):
+        # a window has reached every rule's sink when its last rule does
+        check(len(self.t_trigger) == len(self.ends), "boundaries fired")
+        delivery = [max(self.t_got[end]) - self.t_trigger[w]
+                    for w, end in enumerate(self.ends)]
+        copies = [(p.nbytes, p.copy_ms()) for p in self.fetches]
+        landed = [(n, c) for n, c in copies if c is not None]
+        return dict(
+            stall_p50=pct(self.stall_ms, 50), stall_p99=pct(self.stall_ms, 99),
+            delivery_p50=pct(delivery, 50) * 1e3,
+            delivery_p99=pct(delivery, 99) * 1e3,
+            fetches=len(copies),
+            stacked_mb=(max(self.sync_bytes) / 1e6 if self.sync_bytes
+                        else None),
+            copy_ms_p50=pct([c for _, c in landed], 50) if landed else None,
+            d2h_gb_s=(sum(n for n, _ in landed)
+                      / sum(c for _, c in landed) / 1e6) if landed else None,
+            sync_finalize_ms_p50=(pct(self.sync_ms, 50) if self.sync_ms
+                                  else None),
+            sources=dict(self.node.last_emit_info or {}).get("source"))
+
+
+class FoldTimer:
+    """The group fold kernel's device time per launch: CUDA events around
+    each multirule_fold call (they bracket the one launch on the stream;
+    nothing synchronizes until the run ends)."""
+
+    def __init__(self, torch, kernels):
+        self.torch, self.kernels, self.events = torch, kernels, []
+        self._orig = kernels.multirule_fold
+
+    def __enter__(self):
+        def timed(*a, **k):
+            start = self.torch.cuda.Event(enable_timing=True)
+            end = self.torch.cuda.Event(enable_timing=True)
+            start.record()
+            self._orig(*a, **k)
+            end.record()
+            self.events.append((start, end))
+
+        self.kernels.multirule_fold = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.kernels.multirule_fold = self._orig
+        return False
+
+    def ms(self):
+        self.torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def twin_check_family(tag, thresholds, emitted, rows, names, slot_keys,
+                      what):
+    """Every rule's window of one family against an independent numpy
+    float64 group-by over exactly the rows passing that rule's WHERE: the
+    float32 column against the float32 threshold, as the engine compares
+    them. Rules are visited in nesting order (each one's rows are a sorted
+    prefix or suffix of the column), so each adds only its delta rows.
+
+    emitted[i]: rule i's ColumnBatch for this window, or None. rows: the
+    window's key indices ("idx") and float32 columns. names: key index ->
+    key string; slot_keys: each slot's key index in the node's key table
+    (the order the node emits its keys in). Tolerances as check_window's:
+    keys, counts, min and max exact; avg within ε·(Σ|x| + |mean|), a sum
+    within ε·n·Σ|x| (a float32 sum of n terms in any order); stddev
+    within the bound check_window carries through s2/n − mean². Returns
+    (rows checked, max abs error of the rounded aggregates)."""
+    col, op, aggs = E_TWIN[tag]
+    x = rows[col]
+    order = np.argsort(x, kind="stable")
+    xs = x[order]
+    t32 = np.asarray(thresholds, dtype=np.float32)
+    if op == ">":  # rule i keeps order[bound_i:]
+        bounds = np.searchsorted(xs, t32, side="right")
+        visit = np.argsort(-bounds, kind="stable")
+        prev = len(x)
+    else:  # "<": rule i keeps order[:bound_i]
+        bounds = np.searchsorted(xs, t32, side="left")
+        visit = np.argsort(bounds, kind="stable")
+        prev = 0
+    K = len(names)
+    cnt = np.zeros(K)
+    args = {a for _, a in aggs.values() if a is not None}
+    need_mm = any(kind in ("min", "max") for kind, _ in aggs.values())
+    acc = {a: {"sum": np.zeros(K), "sumsq": np.zeros(K), "sumabs": np.zeros(K),
+               "min": np.full(K, np.inf), "max": np.full(K, -np.inf)}
+           for a in args}
+    n_rows, worst = 0, 0.0
+    for i in visit.tolist():
+        b = int(bounds[i])
+        delta = order[b:prev] if op == ">" else order[prev:b]
+        prev = b
+        k = rows["idx"][delta]
+        cnt += np.bincount(k, minlength=K)
+        for a, st in acc.items():
+            v = rows[a][delta].astype(np.float64)
+            st["sum"] += np.bincount(k, v, minlength=K)
+            st["sumsq"] += np.bincount(k, v * v, minlength=K)
+            st["sumabs"] += np.bincount(k, np.abs(v), minlength=K)
+            if need_mm:
+                np.minimum.at(st["min"], k, v)
+                np.maximum.at(st["max"], k, v)
+        live = np.nonzero(cnt[slot_keys] > 0)[0]
+        cb = emitted[i]
+        w = f"{what} rule {i}"
+        if len(live) == 0:
+            check(cb is None, f"{w}: a window without rows")
+            continue
+        check(cb is not None and cb.n == len(live),
+              f"{w}: {0 if cb is None else cb.n} rows, want {len(live)}")
+        keys = slot_keys[live]
+        check(np.array_equal(cb.columns["deviceId"], names[keys]),
+              f"{w}: emitted keys differ")
+        n = cnt[keys]
+        for out, (kind, a) in aggs.items():
+            got = np.asarray(cb.columns[out], dtype=np.float64)
+            if kind == "count":
+                check((got == n).all(), f"{w}: {out} count")
+                continue
+            st = {name: arr[keys] for name, arr in acc[a].items()}
+            if kind in ("min", "max"):
+                check((got == st[kind]).all(), f"{w}: {out} {kind}")
+                continue
+            mean = st["sum"] / n
+            if kind == "avg":
+                d = np.abs(got - mean)
+                check((d <= EPS32 * (st["sumabs"] + np.abs(mean))).all(),
+                      f"{w}: {out} avg beyond bound (max {d.max()})")
+            elif kind == "sum":
+                d = np.abs(got - st["sum"])
+                check((d <= EPS32 * n * st["sumabs"]).all(),
+                      f"{w}: {out} sum beyond bound (max {d.max()})")
+            else:  # stddev, as check_window
+                s2n = st["sumsq"] / n
+                var = np.maximum(s2n - mean * mean, 0.0)
+                tol = EPS32 * (st["sumsq"] + s2n + 2 * np.abs(mean)
+                               * (st["sumabs"] + np.abs(mean))
+                               + mean * mean + var)
+                d = np.abs(got * got - var)
+                check((d <= tol + 2 * EPS32 * got * got).all(),
+                      f"{w}: {out} stddev beyond bound (max {d.max()})")
+                d = np.abs(got - np.sqrt(var))
+            worst = max(worst, float(d.max()))
+        n_rows += cb.n
+    return n_rows, worst
+
+
+def group_node(plan_rule_group, ids, sqls, slots, micro_batch):
+    node = plan_rule_group(ids, sqls, key_slots=slots,
+                           micro_batch=micro_batch)
+    check(node.gb.device.type == "cuda", "rule group is not on the card")
+    return node
+
+
+def run_groups(torch, kernels, nodes, batches, interval):
+    """Drive group nodes (fed alike) on the mock clock; returns the wall
+    seconds, each node's probe, the fold kernel times and the launches."""
+    ends = [(w + 1) * interval for w in range(len(batches))]
+    probes = {tag: GroupProbe(node, ends) for tag, node in nodes.items()}
+    kernels.reset_launches()
+    with FoldTimer(torch, kernels) as timer:
+        wall = drive_on_clock(torch, list(nodes.values()), batches, interval)
+    launches = dict(kernels.LAUNCHES)
+    for tag, node in nodes.items():
+        check(not node.recoveries, f"{tag}: recovery routes taken")
+    return wall, probes, timer.ms(), launches
+
+
+def group_line(tag, r):
+    f = lambda x, d=3: "n/a" if x is None else f"{x:.{d}f}"  # noqa: E731
+    return (f"phase E {tag}: rules={r['rules']} rows/s={r['rows_per_s']:.0f} "
+            f"rule_rows/s={r['rule_rows_per_s']:.0f} "
+            f"fold_kernel_ms_per_batch p50={r['fold_p50']:.4f} "
+            f"mean={r['fold_mean']:.4f} (fold kernels {r['fold_share']:.4f} "
+            f"of the wall) stall_p50_ms={r['stall_p50']:.3f} "
+            f"stall_p99_ms={r['stall_p99']:.3f} "
+            f"delivery_p50_ms={r['delivery_p50']:.3f} "
+            f"delivery_p99_ms={r['delivery_p99']:.3f} "
+            f"stacked_MB={f(r['stacked_mb'])} fetches={r['fetches']} "
+            f"copy_ms_p50={f(r['copy_ms_p50'], 4)} "
+            f"d2h_GB_s={f(r['d2h_gb_s'], 2)} "
+            f"sync_finalize_ms_p50={f(r['sync_finalize_ms_p50'])} "
+            f"source={r['sources']} "
+            f"windows={r['windows']} rows_checked={r['rows_checked']} "
+            f"max_abs_err={r['max_abs_err']:.3g} launches="
+            f"{ {k: v for k, v in r['launches'].items() if 'multirule' in k} }")
+
+
+def group_result(tag, probe, node, wall, n_rows, fold_ms, launches,
+                 windows_rows, check_out):
+    out = probe.summary()
+    n_rules = node.gb.n_rules
+    out.update(rules=n_rules, rows_per_s=n_rows / wall,
+               rule_rows_per_s=n_rows * n_rules / wall,
+               fold_p50=pct(fold_ms, 50), fold_mean=float(np.mean(fold_ms)),
+               fold_share=sum(fold_ms) / 1e3 / wall, launches=launches,
+               windows=windows_rows, rows_checked=check_out[0],
+               max_abs_err=check_out[1])
+    return out
+
+
+def check_group_windows(tag, thresholds, probe, node, spans, span, names):
+    """Every rule's every window of one node against the twin; window w
+    covers spans[max(0, w - span + 1) .. w]."""
+    slot_keys = np.array([int(k[4:]) for k in node.kt.decode_all()])
+    n_win = len(spans)
+    for rid, got in probe.got.items():
+        ends = [int(cb.timestamps[0]) for cb in got]
+        check(len(set(ends)) == len(ends) and set(ends) <= set(probe.ends),
+              f"{tag} {rid}: windows ending at {ends}")
+    rows_checked, worst = 0, 0.0
+    for w in range(n_win):
+        part = spans[max(0, w - span + 1):w + 1]
+        rows = {k: np.concatenate([p[k] for p in part]) for k in part[0]}
+        # each rule's window ending at this boundary (a rule without rows
+        # in a window emits none)
+        emitted = [next((cb for cb in probe.got[rid]
+                         if int(cb.timestamps[0]) == probe.ends[w]), None)
+                   for rid in node.gb.rule_ids]
+        n, d = twin_check_family(tag, thresholds, emitted, rows, names,
+                                 slot_keys, f"{tag} window {w}")
+        rows_checked += n
+        worst = max(worst, d)
+    return rows_checked, worst
+
+
+def run_phase_e(torch, seed, kernels, plan_rule_group, ColumnBatch):
+    """Phase E: rule groups on the card, opened on the mock clock."""
+    res = {}
+    names = np.array([f"dev_{i}" for i in range(N_KEYS)], dtype=np.object_)
+
+    # E1 (tumbling, the "mr" worker) and E3 (hopping, synchronous): the
+    # 256-rule group of BASELINE config #5
+    for tag, window, interval, span in (("e1", E_TUMBLING, 10_000, 1),
+                                        ("e3", E_HOPPING, 5_000, 2)):
+        rng = np.random.default_rng(seed + (50 if tag == "e1" else 51))
+        n_win = E_WINDOWS[tag]
+        flat, idx, temp = make_batches(rng, ColumnBatch, n_win * BATCHES)
+        batches = [flat[w * BATCHES:(w + 1) * BATCHES] for w in range(n_win)]
+        spans = [{"idx": idx[w * BATCHES:(w + 1) * BATCHES].ravel(),
+                  "temperature": temp[w * BATCHES:(w + 1) * BATCHES].ravel()}
+                 for w in range(n_win)]
+        node = group_node(plan_rule_group, rule_ids(f"{tag}_", E1_RULES),
+                          e1_sqls(window), SLOTS, ROWS)
+        check(node._async_mr == (tag == "e1"), f"{tag}: boundary route")
+        wall, probes, fold_ms, launches = run_groups(
+            torch, kernels, {tag: node}, batches, interval)
+        probe = probes[tag]
+        thresholds = [E1_BASE + E1_STEP * r for r in range(E1_RULES)]
+        out = check_group_windows(tag, thresholds, probe, node, spans, span,
+                                  names)
+        res[tag] = group_result(tag, probe, node, wall,
+                                n_win * BATCHES * ROWS, fold_ms, launches,
+                                n_win, out)
+        check(launches["multirule_fold"] == n_win * BATCHES,
+              f"{tag}: {launches['multirule_fold']} fold launches")
+        check(launches["multirule_finalize"] == n_win
+              and launches["multirule_reset_pane"] == n_win,
+              f"{tag}: one finalize and one reset per boundary: {launches}")
+        del node, probes, probe, batches, flat, spans
+        torch.cuda.empty_cache()
+
+    # E2: the four families of bench.py:1595-1610, one node each, fed the
+    # same batches (bench.py:1650-1666's draws)
+    rng = np.random.default_rng(seed + 52)
+    n_win = E_WINDOWS["e2"]
+    ids = names[:E2_KEYS]
+    batches, spans = [], []
+    for w in range(n_win):
+        idx = rng.integers(0, E2_KEYS, (BATCHES, E2_ROWS))
+        cols = {"temperature": rng.normal(20, 5, idx.shape).round(2),
+                "pressure": rng.random(idx.shape).round(3),
+                "humidity": rng.normal(50, 15, idx.shape).round(2)}
+        batches.append([ColumnBatch(n=E2_ROWS, columns={
+            "deviceId": ids[idx[b]], **{c: v[b] for c, v in cols.items()}},
+            emitter="sensors") for b in range(BATCHES)])
+        spans.append({"idx": idx.ravel(), **{
+            c: v.ravel().astype(np.float32) for c, v in cols.items()}})
+    nodes = {fam: group_node(
+        plan_rule_group, rule_ids(f"{fam}", E2_RULES),
+        [sql.format(x=base + step * i) for i in range(E2_RULES)], SLOTS,
+        E2_ROWS) for fam, sql, base, step in E2_FAMILIES}
+    wall, probes, fold_ms, launches = run_groups(torch, kernels, nodes,
+                                                 batches, 10_000)
+    n_rows = n_win * BATCHES * E2_ROWS
+    for fam, sql, base, step in E2_FAMILIES:
+        probe = probes[fam]
+        thresholds = [base + step * i for i in range(E2_RULES)]
+        out = check_group_windows(fam, thresholds, probe, nodes[fam], spans,
+                                  1, ids)
+        # the four nodes share the run: its wall, fold times and launches
+        res[f"e2_{fam}"] = group_result(
+            fam, probe, nodes[fam], wall, n_rows, fold_ms, launches, n_win,
+            out)
+    # each node folds each batch in one launch (a batch is one chunk) and
+    # finalizes once a window: the shared counts are four nodes' worth
+    check(launches["multirule_fold"] == 4 * n_win * BATCHES
+          and launches["multirule_finalize"] == 4 * n_win
+          and launches["multirule_reset_pane"] == 4 * n_win,
+          f"e2: launches {launches}")
+    return res
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2276,6 +2902,7 @@ def main() -> int:
     from ekuiper_tpu_torch.ops import kernels, prefinalize, sketches
     from ekuiper_tpu_torch.ops.groupby import TorchGroupBy
     from ekuiper_tpu_torch.planner.fused import plan_fused_rule
+    from ekuiper_tpu_torch.planner.rulegroup import plan_rule_group
     from ekuiper_tpu_torch.runtime.events import Trigger
 
     # phase 1: the card and the build
@@ -2299,6 +2926,8 @@ def main() -> int:
                                           plan_fused_rule, dev))
     rows.update(ring_kernel_checks(torch, args.seed, kernels,
                                    plan_fused_rule, dev))
+    rows.update(group_kernel_checks(torch, args.seed, kernels,
+                                    plan_rule_group, dev))
     print(f"phase 2 kernels vs plain: ok (wall {time.perf_counter() - t_run:.0f} s)")
 
     mods = (plan_fused_rule, ColumnBatch, Trigger)
@@ -2380,11 +3009,33 @@ def main() -> int:
           f"{d['d3']['edge']} estimates off by one (wall "
           f"{time.perf_counter() - t_run:.0f} s)")
 
+    # phase E: rule groups (BASELINE config #5), mock clock, full size
+    e = run_phase_e(torch, args.seed, kernels, plan_rule_group, ColumnBatch)
+    print(f"phase E: E1 {E1_RULES} rules x {E_WINDOWS['e1']} tumbling "
+          f"windows, E3 the same rules x {E_WINDOWS['e3']} hop slides "
+          f"({BATCHES} batches x {ROWS} rows, {N_KEYS} keys, {SLOTS} "
+          f"slots); E2 four families x {E2_RULES} rules x "
+          f"{E_WINDOWS['e2']} windows ({BATCHES} batches x {E2_ROWS} rows, "
+          f"{E2_KEYS} keys); every rule's every window checked against a "
+          "numpy float64 group-by of the rows passing its WHERE")
+    for tag in e:
+        print(group_line(tag, e[tag]))
+    e2 = [e[f"e2_{fam}"] for fam, *_ in E2_FAMILIES]
+    print(f"phase E checks: E1 {e['e1']['rows_checked']} rows, E2 "
+          f"{sum(r['rows_checked'] for r in e2)} rows, E3 "
+          f"{e['e3']['rows_checked']} rows; max abs err "
+          f"{max(r['max_abs_err'] for r in e.values()):.3g}; E2 all four "
+          f"families rule_rows/s={sum(r['rule_rows_per_s'] for r in e2):.0f} "
+          f"(wall {time.perf_counter() - t_run:.0f} s)")
+
     # phase 5: every kernel launched on each path that uses it
     paths = {"tumbling": counts_t, "hopping": counts_h, "hh": counts_hh,
              "pct": b["pct"]["launches"], "hll": b["hll"]["launches"],
              **{tag: c[tag]["launches"] for tag in c},
-             **{tag: d[tag]["launches"] for tag in d}}
+             **{tag: d[tag]["launches"] for tag in d},
+             # E2's four family nodes share one run and its counts
+             "e1": e["e1"]["launches"], "e2": e["e2_fa"]["launches"],
+             "e3": e["e3"]["launches"]}
     for name, used_by in PATHS.items():
         for path in used_by:
             check(paths[path][name] > 0,
@@ -2407,7 +3058,9 @@ def main() -> int:
     main_path = {"groupby_fold_wide": "hh", "groupby_finalize_wide": "pct",
                  "groupby_hh_finalize": "hh", "groupby_components": "c1",
                  "groupby_absorb": "c1_host", "ring_advance": "d1",
-                 "ring_flip": "d1", "ring_query": "d1"}
+                 "ring_flip": "d1", "ring_query": "d1",
+                 "multirule_fold": "e1", "multirule_finalize": "e1",
+                 "multirule_reset_pane": "e1"}
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name],
@@ -2431,7 +3084,9 @@ def main() -> int:
                     (10, "ring_query")):
         table["kernels"][i]["scalar_rule"] = rows[f"{name}/scalar"]
         table["kernels"][i]["hll_rule"] = rows[f"{name}/hll"]
-    check(len(table["kernels"]) == 11, "kernel table")
+    table["kernels"][12]["hopping_subset"] = rows[
+        "multirule_finalize/hopping_subset"]
+    check(len(table["kernels"]) == 14, "kernel table")
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -67,12 +67,13 @@ def observe_int_inputs(specs, columns: Dict[str, np.ndarray]) -> None:
                 spec.int_input = True
 
 
-def _as_mask(x, n: int, device: torch.device) -> torch.Tensor:
-    """A closure's boolean result (tensor or Python/numpy bool) as a
-    bool (n,) tensor."""
+def _as_mask(x, shape, device: torch.device) -> torch.Tensor:
+    """A closure's boolean result (tensor or Python/numpy bool) as a bool
+    tensor of `shape` ((n,) rows, or (R, n) under a rule group's (R, 1)
+    parameters), broadcast and contiguous."""
     if isinstance(x, torch.Tensor):
-        return x.to(torch.bool).expand(n)
-    return torch.full((n,), bool(x), dtype=torch.bool, device=device)
+        return x.to(torch.bool).expand(shape).contiguous()
+    return torch.full(shape, bool(x), dtype=torch.bool, device=device)
 
 
 def _as_values(x, n: int, device: torch.device) -> torch.Tensor:
@@ -138,30 +139,37 @@ class TorchGroupBy:
         self._fetch: Optional[FetchPool] = None  # built at the first fetch
 
     # ------------------------------------------------------------------ state
+    def _lead(self) -> Tuple[int, ...]:
+        """Axes of every state tensor before (panes, capacity): none for one
+        rule (a rule group's BatchedGroupBy has its rule axis here)."""
+        return ()
+
     def init_state(self) -> Dict[str, torch.Tensor]:
+        lead = (*self._lead(), self.n_panes, self.capacity)
         state: Dict[str, torch.Tensor] = {}
         for comp, spec_idxs in self.comp_specs.items():
-            shape = (self.n_panes, self.capacity, len(spec_idxs))
+            shape = lead + (len(spec_idxs),)
             if comp in WIDE_COMPONENTS:
                 shape = shape + (kernels.WIDE_W[comp],)
             state[comp] = torch.full(shape, _INIT[comp], dtype=torch.float32,
                                      device=self.device)
         # activity: rows per key per pane (post-WHERE), for group existence
-        state["act"] = torch.zeros((self.n_panes, self.capacity),
-                                   dtype=torch.float32, device=self.device)
+        state["act"] = torch.zeros(lead, dtype=torch.float32,
+                                   device=self.device)
         return state
 
     def grow(self, state: Dict[str, torch.Tensor],
              new_capacity: int) -> Dict[str, torch.Tensor]:
         """Raise the key capacity, preserving partials, on the device (a
         heavy-hitters state is hundreds of MB: no host round trip)."""
+        axis = len(self._lead()) + 1
         out: Dict[str, torch.Tensor] = {}
         for comp, arr in state.items():
             pad_shape = list(arr.shape)
-            pad_shape[1] = new_capacity - arr.shape[1]
+            pad_shape[axis] = new_capacity - arr.shape[axis]
             pad = torch.full(pad_shape, _INIT[comp], dtype=arr.dtype,
                              device=arr.device)
-            out[comp] = torch.cat([arr, pad], dim=1)
+            out[comp] = torch.cat([arr, pad], dim=axis)
         self.capacity = int(new_capacity)
         return out
 
@@ -183,28 +191,38 @@ class TorchGroupBy:
         the row mask after WHERE, and each spec's float32 argument and its
         mask (base ∧ column validity ∧ not NaN ∧ FILTER) — the closure work
         of the reference's _fold_core, done by torch before the launch."""
+        base = self._where(cols, (n,))
+        V, M = self._spec_values(cols, n)
+        return base, V, M & base
+
+    def _where(self, cols: Dict[str, torch.Tensor], shape) -> torch.Tensor:
+        """The row mask after WHERE, of `shape`."""
+        if self.plan.filter is None:
+            return torch.ones(shape, dtype=torch.bool, device=self.device)
+        return _as_mask(self.plan.filter(cols), shape, self.device)
+
+    def _spec_values(self, cols: Dict[str, torch.Tensor], n: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(V (S, n), M (S, n)): each spec's float32 argument and its mask
+        without the row mask (column validity ∧ not NaN ∧ FILTER)."""
         dev = self.device
-        base = torch.ones(n, dtype=torch.bool, device=dev)
-        if self.plan.filter is not None:
-            base = base & _as_mask(self.plan.filter(cols), n, dev)
         vs, ms = [], []
         for spec in self.plan.specs:
+            m = torch.ones(n, dtype=torch.bool, device=dev)
             if spec.arg is None:
                 v = torch.ones(n, dtype=torch.float32, device=dev)
-                m = base
             else:
                 v = _as_values(spec.arg(cols), n, dev)
-                m = base
                 for col in spec.arg.columns:
                     vm = cols.get("__valid_" + col)
                     if vm is not None:
                         m = m & vm
                 m = m & ~torch.isnan(v)
             if spec.filter is not None:
-                m = m & _as_mask(spec.filter(cols), n, dev)
+                m = m & _as_mask(spec.filter(cols), (n,), dev)
             vs.append(v)
             ms.append(m)
-        return base.contiguous(), torch.stack(vs), torch.stack(ms)
+        return torch.stack(vs), torch.stack(ms)
 
     def fold(self, state: Dict[str, torch.Tensor], cols: Dict[str, np.ndarray],
              slots: np.ndarray, valid: Optional[Dict[str, np.ndarray]] = None,
@@ -252,13 +270,21 @@ class TorchGroupBy:
             s_dev = self._upload(slots[start:end], np.int32)
             p_dev = (None if pane_vec is None
                      else self._upload(pane_vec[start:end], np.uint8))
-            base, V, M = self.spec_inputs(dev_cols, cnt)
-            kernels.groupby_fold_scalar(state, base, V, M, s_dev, pane,
-                                        self._colmap, p_dev)
-            if len(self._widemap):
-                kernels.groupby_fold_wide(state, V, M, s_dev, pane,
-                                          self._widemap, p_dev)
+            self._fold_chunk(state, dev_cols, cnt, s_dev, pane, p_dev)
         return state
+
+    def _fold_chunk(self, state: Dict[str, torch.Tensor],
+                    cols: Dict[str, torch.Tensor], n: int,
+                    slots: torch.Tensor, pane: int,
+                    pane_vec: Optional[torch.Tensor]) -> None:
+        """The launches of one uploaded chunk of `n` rows: the closures,
+        then the scalar fold and, with sketch components, the wide one."""
+        base, V, M = self.spec_inputs(cols, n)
+        kernels.groupby_fold_scalar(state, base, V, M, slots, pane,
+                                    self._colmap, pane_vec)
+        if len(self._widemap):
+            kernels.groupby_fold_wide(state, V, M, slots, pane,
+                                      self._widemap, pane_vec)
 
     # --------------------------------------------------------------- finalize
     def _pane_mask(self, panes: Optional[List[int]]) -> torch.Tensor:
@@ -473,7 +499,8 @@ class TorchGroupBy:
 
     def host_from_partials(self, partials: Dict[str, object]
                            ) -> Tuple[Dict[str, np.ndarray], int]:
-        """Checkpoint partials -> (float32 host arrays, capacity)."""
+        """Checkpoint partials -> (float32 host arrays, capacity: act's
+        last axis)."""
         host = {k: np.asarray(v, dtype=np.float32)
                 for k, v in partials.items() if k != "touch"}
-        return host, host["act"].shape[1]
+        return host, host["act"].shape[-1]

@@ -2,9 +2,10 @@
 wrappers that launch them, their plain PyTorch versions and their launch
 counts.
 
-Eleven kernels, written by hand in CUDA C++ for Hopper, each replacing one
-device program of the reference (ekuiper_tpu/ops/groupby.py and
-ekuiper_tpu/ops/slidingring.py). Three in
+Fourteen kernels, written by hand in CUDA C++ for Hopper, each replacing
+one device program of the reference (ekuiper_tpu/ops/groupby.py,
+ekuiper_tpu/ops/slidingring.py and ekuiper_tpu/parallel/multirule.py).
+Three in
 ekuiper_tpu_torch/csrc/groupby.cu:
 
 - `groupby_fold_scalar` replaces `DeviceGroupBy._fold_impl` → `_fold_core`
@@ -93,6 +94,23 @@ every component:
   pre-issue. Bound: reading the partials and the slices and writing the
   result (0.12 ms for the percentile rule).
 
+And three in ekuiper_tpu_torch/csrc/multirule.cu, for a rule group (N
+homogeneous rules on a leading rule axis, parallel/multirule.py), each
+ONE launch for every rule of the group, with the per-row and per-slot code
+of the single-rule kernels (csrc/groupby_common.cuh):
+
+- `multirule_fold` replaces `BatchedGroupBy._batched_fold_impl`
+  (multirule.py:196), the vmap of #1 with each rule's WHERE parameters
+  bound: the shared spec values and masks, each rule's row mask, into
+  (R, P, C, k). Bound: 17.6 MB of inputs at the 256-rule group (5.3 µs),
+  but ~33M scattered atomics a batch into 67 MB of state, which set its
+  time.
+- `multirule_finalize` replaces `_batched_finalize_impl` (multirule.py:210)
+  and the key cut of `finalize_begin`: every rule's pane merge and final
+  values into a fresh (R, S+1, K) result, K the columns the host takes.
+- `multirule_reset_pane` replaces `_batched_reset_impl` (multirule.py:256):
+  pane p of every rule and component to its identity.
+
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and
 only there; for a CUDA tensor it launches the kernel or raises. A wrapper
 adds one to `LAUNCHES[name]` where it launches its kernel and nowhere else.
@@ -121,7 +139,10 @@ _PKG = Path(__file__).resolve().parents[1]
 SOURCES = {"groupby": _PKG / "csrc" / "groupby.cu",
            "sketches": _PKG / "csrc" / "sketches.cu",
            "prefinalize": _PKG / "csrc" / "prefinalize.cu",
-           "slidingring": _PKG / "csrc" / "slidingring.cu"}
+           "slidingring": _PKG / "csrc" / "slidingring.cu",
+           "multirule": _PKG / "csrc" / "multirule.cu"}
+#: headers the sources include (part of every library's build tag)
+HEADERS = (_PKG / "csrc" / "groupby_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -149,6 +170,7 @@ MAX_SPECS = 64
 MAX_RESET = 16  # csrc/groupby.cu MAX_RESET
 MAX_PARTS = 16  # csrc/prefinalize.cu, csrc/slidingring.cu MAX_PARTS
 MAX_RING = 256  # csrc/slidingring.cu MAX_RING
+MAX_RULES = 65535  # csrc/multirule.cu MAX_RULES (the grid's y extent)
 QUERY_ADJ = 4  # csrc/slidingring.cu QUERY_ADJ (ops/slidingring.py)
 #: pane-merge op of a component in csrc/prefinalize.cu
 MERGE_OPS = {"mn": 1, "mx": 2, "hll": 2}  # every other component: 0, a sum
@@ -174,13 +196,17 @@ LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0,
                             "groupby_absorb": 0,
                             "ring_advance": 0,
                             "ring_flip": 0,
-                            "ring_query": 0}
+                            "ring_query": 0,
+                            "multirule_fold": 0,
+                            "multirule_finalize": 0,
+                            "multirule_reset_pane": 0}
 #: of LAUNCHES' folds, those that took a per-row pane vector
 ROW_PANE_LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0,
                                      "groupby_fold_wide": 0}
 
 #: the loaded libraries (SimpleNamespace(groupby=..., sketches=...,
-#: prefinalize=..., slidingring=...)), None until the first launch
+#: prefinalize=..., slidingring=..., multirule=...)), None until the
+#: first launch
 _lib = None
 _lib_lock = threading.Lock()
 #: seconds the last build took (0.0 when cached libraries were loaded)
@@ -214,8 +240,9 @@ def build_library() -> Dict[str, Path]:
     global build_seconds
     outs: Dict[str, Path] = {}
     todo: Dict[str, Path] = {}
+    headers = b"".join(h.read_bytes() for h in HEADERS)
     for name, src in SOURCES.items():
-        tag = hashlib.sha1(src.read_bytes()
+        tag = hashlib.sha1(src.read_bytes() + headers
                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
         outs[name] = BUILD_DIR / f"lib{name}_{tag}.so"
         if not outs[name].exists():
@@ -281,6 +308,12 @@ def _load():
             sr.ring_flip.argtypes = [P, P, P, P, P, P, I, I, P, P, I, P]
             sr.ring_query.argtypes = [P, P, P, P, P, P, I, I, I, I, I, P, P,
                                       P, P, P]
+            mr = ctypes.CDLL(str(paths["multirule"]))
+            mr.multirule_fold.argtypes = [P, P, P, P, I, I, I, I, I, P, I,
+                                          P, P, P, P]
+            mr.multirule_finalize.argtypes = [P, P, P, P, I, I, I, I, P, I,
+                                              I, P, P]
+            mr.multirule_reset_pane.argtypes = [P, P, P, I, I, I, I, P]
             for lib, fns in ((gb, ("groupby_fold_scalar",
                                    "groupby_finalize_scalar",
                                    "groupby_reset_pane")),
@@ -289,13 +322,15 @@ def _load():
                                    "groupby_hh_finalize")),
                              (pf, ("groupby_components", "groupby_absorb")),
                              (sr, ("ring_advance", "ring_flip",
-                                   "ring_query"))):
+                                   "ring_query")),
+                             (mr, ("multirule_fold", "multirule_finalize",
+                                   "multirule_reset_pane"))):
                 for fn in fns:
                     getattr(lib, fn).restype = I
             gb.groupby_error_string.argtypes = [I]
             gb.groupby_error_string.restype = ctypes.c_char_p
             _lib = SimpleNamespace(groupby=gb, sketches=sk, prefinalize=pf,
-                                   slidingring=sr)
+                                   slidingring=sr, multirule=mr)
         return _lib
 
 
@@ -418,7 +453,7 @@ def _opt_ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
 
 def _check_batch(name, V, M, slots, pane, P, colmap, dev,
                  pane_vec=None) -> np.ndarray:
-    """Checks shared by the two folds; returns the contiguous column map."""
+    """Checks shared by the folds; returns the contiguous column map."""
     S, R = V.shape
     _check(name, V, torch.float32, (S, R), dev)
     _check(name, M, torch.bool, (S, R), dev)
@@ -455,17 +490,23 @@ def _pane_rows(pane, pane_vec, slots, P: int, C: int):
 def fold_scalar_plain(state, base, V, M, slots, pane, colmap,
                       pane_vec=None) -> None:
     """Plain PyTorch version of groupby_fold_scalar (same contract)."""
-    act = state["act"]
-    P, C = act.shape
+    P, C = state["act"].shape
     pc, ok = _pane_rows(pane, pane_vec, slots, P, C)
-    act.view(-1).index_put_((pc,), (base & ok).to(act.dtype),
-                            accumulate=True)
+    _fold_columns_plain(state, pc, base & ok, V, M & ok, colmap)
+
+
+def _fold_columns_plain(state, pc, rows, V, M, colmap) -> None:
+    """The plain folds' scatters: act += rows at the flat (pane, slot)
+    indices pc; each state column adds / mins / maxes its spec's V where
+    its M (already inside rows) is set. pc, rows: (N,); V, M: (S, N)."""
+    act = state["act"]
+    act.view(-1).index_put_((pc,), rows.to(act.dtype), accumulate=True)
     for comp_id, k, s in np.asarray(colmap).reshape(-1, 3).tolist():
         comp = _COMP_NAMES[comp_id]
         arr = state[comp]
-        K = arr.shape[2]
+        K = arr.shape[-1]
         idx = pc * K + k
-        m = M[s] & ok
+        m = M[s]
         v = V[s]
         flat = arr.view(-1)
         if comp == "n":
@@ -571,16 +612,7 @@ def groupby_finalize_scalar(state: Dict[str, torch.Tensor],
     if S > MAX_SPECS:
         raise ValueError(f"{name}: {S} specs (max {MAX_SPECS})")
     ptrs, ks = _comp_table(name, state)
-    for kind, *kc, row in spectab.tolist():
-        if kind not in KIND_IDS.values():
-            raise ValueError(f"{name}: unknown kind code {kind}")
-        if kind <= SCALAR_KINDS_MAX and not 0 <= row < rows - 1:
-            raise ValueError(f"{name}: output row {row} outside "
-                             f"[0, {rows - 1})")
-        for j, k in enumerate(kc):
-            if k >= ks[j]:
-                raise ValueError(f"{name}: spec column {k} outside "
-                                 f"component {_COMP_NAMES[j]}")
+    _check_spectab(name, spectab, rows, ks)
     out = torch.empty((rows, C), dtype=torch.float32, device=dev)
     lib = _load()
     with torch.cuda.device(dev):
@@ -592,13 +624,31 @@ def groupby_finalize_scalar(state: Dict[str, torch.Tensor],
     return out
 
 
-def _merged_plain(arr: torch.Tensor, comp: str, pm: torch.Tensor):
-    pm = pm.view(-1, *([1] * (arr.dim() - 1)))
+def _check_spectab(name: str, spectab: np.ndarray, rows: int,
+                   ks: np.ndarray) -> None:
+    """Known kinds, scalar specs' rows inside the result (act's last row
+    apart), and spec columns inside their components (widths ks)."""
+    for kind, *kc, row in spectab.tolist():
+        if kind not in KIND_IDS.values():
+            raise ValueError(f"{name}: unknown kind code {kind}")
+        if kind <= SCALAR_KINDS_MAX and not 0 <= row < rows - 1:
+            raise ValueError(f"{name}: output row {row} outside "
+                             f"[0, {rows - 1})")
+        for j, k in enumerate(kc):
+            if k >= ks[j]:
+                raise ValueError(f"{name}: spec column {k} outside "
+                                 f"component {_COMP_NAMES[j]}")
+
+
+def _merged_plain(arr: torch.Tensor, comp: str, pm: torch.Tensor,
+                  dim: int = 0):
+    """The panes (axis `dim`) of `arr` selected by pm merged."""
+    pm = pm.view(-1, *([1] * (arr.dim() - 1 - dim)))
     if comp == "mn":
-        return torch.amin(torch.where(pm, arr, INIT["mn"]), dim=0)
+        return torch.amin(torch.where(pm, arr, INIT["mn"]), dim=dim)
     if comp in ("mx", "hll"):  # hll registers merge by max
-        return torch.amax(torch.where(pm, arr, INIT["mx"]), dim=0)
-    return torch.sum(torch.where(pm, arr, 0.0), dim=0)
+        return torch.amax(torch.where(pm, arr, INIT["mx"]), dim=dim)
+    return torch.sum(torch.where(pm, arr, 0.0), dim=dim)
 
 
 def final_value_plain(kind: str, c: Dict[str, torch.Tensor],
@@ -640,22 +690,28 @@ def finalize_scalar_plain(state, pane_mask, spectab,
                           rows: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of groupby_finalize_scalar; the sketch kinds'
     rows are left NaN."""
+    return _finalize_plain(state, pane_mask, spectab, rows, 0)
+
+
+def _finalize_plain(state, pane_mask, spectab, rows, dim: int
+                    ) -> torch.Tensor:
+    """The plain finalizes: panes on axis `dim` of the state (0 for one
+    rule, 1 behind the rule axis) merged under pane_mask, one row per spec
+    (NaN for the sketch kinds) and act last, stacked on axis `dim`."""
     kinds = {v: k for k, v in KIND_IDS.items()}
     spectab = np.asarray(spectab).reshape(-1, 2 + len(COMP_IDS))
     rows = len(spectab) + 1 if rows is None else int(rows)
-    act = state["act"]
-    out = torch.full((rows, act.shape[1]), float("nan"), dtype=act.dtype,
-                     device=act.device)
-    merged = {comp: _merged_plain(state[comp], comp, pane_mask)
+    act = _merged_plain(state["act"], "act", pane_mask, dim)
+    out = [torch.full_like(act, float("nan")) for _ in range(rows - 1)]
+    merged = {comp: _merged_plain(state[comp], comp, pane_mask, dim)
               for comp in COMP_IDS if comp in state}
     for kind, *kc, row in spectab.tolist():
         if kind > SCALAR_KINDS_MAX:
             continue
-        c = {comp: merged[comp][:, kc[j]]
+        c = {comp: merged[comp][..., kc[j]]
              for comp, j in COMP_IDS.items() if kc[j] >= 0}
         out[row] = final_value_plain(kinds[kind], c)
-    out[rows - 1] = _merged_plain(act, "act", pane_mask)
-    return out
+    return torch.stack(out + [act], dim=dim)
 
 
 def groupby_finalize_wide(state: Dict[str, torch.Tensor],
@@ -1111,6 +1167,167 @@ def ring_query_plain(ring, state, comps, body_on, f_on, f_idx, adj_slots,
                                   if adj_mm[i] else ident)
         parts.append(v.reshape(C, -1))
     return torch.cat(parts, dim=1)
+
+
+# ------------------------------------------------------------- rule group
+def _rule_table(name: str, state: Dict[str, torch.Tensor]):
+    """(rules, panes, slots, pointer array, width array) of a rule group's
+    state (act (R, P, C), each scalar component (R, P, C, K)), checked;
+    the pointers are rule 0's, the kernels add each rule's offset."""
+    act = state["act"]
+    if act.dim() != 3:
+        raise ValueError(f"{name}: act of shape {tuple(act.shape)}, want "
+                         "(rules, panes, slots)")
+    NR, P, C = act.shape
+    _check(name, act, torch.float32, (NR, P, C), act.device)
+    if NR > MAX_RULES:
+        raise ValueError(f"{name}: {NR} rules (max {MAX_RULES})")
+    other = sorted(set(state) - set(COMP_IDS) - {"act"})
+    if other:
+        raise ValueError(f"{name}: components {other} have no batched "
+                         "kernel")
+    ptrs = np.zeros(len(COMP_IDS), dtype=np.uint64)
+    ks = np.zeros(len(COMP_IDS), dtype=np.int32)
+    for comp, j in COMP_IDS.items():
+        arr = state.get(comp)
+        if arr is None:
+            continue
+        _check(name, arr, torch.float32,
+               (NR, P, C, arr.shape[3] if arr.dim() == 4 else -1),
+               act.device)
+        ptrs[j] = arr.data_ptr()
+        ks[j] = arr.shape[3]
+    return NR, P, C, ptrs, ks
+
+
+def multirule_fold(state: Dict[str, torch.Tensor], base: torch.Tensor,
+                   V: torch.Tensor, M: torch.Tensor, slots: torch.Tensor,
+                   pane: int, colmap: np.ndarray) -> None:
+    """Fold one micro-batch into every rule of a group's state, in place,
+    in one launch: act and the scalar components of rule r take the rows
+    of base[r].
+
+    base: bool (R, n), each rule's row mask after its WHERE. V: float32
+    (S, n) spec values and M: bool (S, n) spec masks (validity, not-NaN,
+    FILTER: the same for every rule, without the row mask). slots: int32
+    (n,). colmap: int32 (ncols, 3) of (COMP_IDS[comp], k, spec).
+    """
+    name = "multirule_fold"
+    if not _on_cuda(name, state):
+        multirule_fold_plain(state, base, V, M, slots, pane, colmap)
+        return
+    NR, P, C, ptrs, ks = _rule_table(name, state)
+    act = state["act"]
+    dev = act.device
+    S, n = V.shape
+    _check(name, base, torch.bool, (NR, n), dev)
+    colmap = _check_batch(name, V, M, slots, pane, P, colmap, dev)
+    for comp_id, k, _ in colmap.tolist():
+        if not 0 <= k < ks[comp_id]:
+            raise ValueError(f"{name}: column {k} outside component "
+                             f"{_COMP_NAMES[comp_id]}")
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.multirule.multirule_fold(
+            _ptr(base), _ptr(V), _ptr(M), _ptr(slots), n, NR, int(pane), P,
+            C, _ptr(colmap), len(colmap), _ptr(ptrs), _ptr(ks), _ptr(act),
+            _stream(dev))
+        LAUNCHES[name] += 1
+    _raise_on(lib, name, rc)
+
+
+def multirule_fold_plain(state, base, V, M, slots, pane, colmap) -> None:
+    """Plain PyTorch version of multirule_fold: the single-rule plain fold's
+    scatters over a rule-offset flat index, (r, pane, slot)."""
+    NR, P, C = state["act"].shape
+    S, n = V.shape
+    slots = slots.long()
+    ok = (slots >= 0) & (slots < C)
+    rule = torch.arange(NR, device=slots.device)[:, None]
+    pc = ((rule * P + pane) * C + slots.clamp(0, C - 1)[None, :]).reshape(-1)
+    rows = base & ok
+    _fold_columns_plain(state, pc, rows.reshape(-1), V.repeat(1, NR),
+                        (M[:, None, :] & rows[None]).reshape(S, -1), colmap)
+
+
+def multirule_finalize(state: Dict[str, torch.Tensor],
+                       pane_mask: torch.Tensor, spectab: np.ndarray,
+                       n_cols: int, rows: Optional[int] = None
+                       ) -> torch.Tensor:
+    """Every rule's final values in one launch: merge the panes selected
+    by `pane_mask` (bool (P,)) and compute each scalar spec's final value
+    (spectab as groupby_finalize_scalar's) for slots [0, n_cols). Returns
+    a fresh float32 (R, rows, n_cols) on the state's device (rows defaults
+    to S + 1), each rule's act in its last row."""
+    name = "multirule_finalize"
+    spectab = np.ascontiguousarray(spectab, dtype=np.int32).reshape(
+        -1, 2 + len(COMP_IDS))
+    S = len(spectab)
+    rows = S + 1 if rows is None else int(rows)
+    if not _on_cuda(name, state):
+        return multirule_finalize_plain(state, pane_mask, spectab, n_cols,
+                                        rows)
+    NR, P, C, ptrs, ks = _rule_table(name, state)
+    act = state["act"]
+    dev = act.device
+    _check(name, pane_mask, torch.bool, (P,), dev)
+    if not 0 <= n_cols <= C:
+        raise ValueError(f"{name}: {n_cols} columns of {C} slots")
+    if S > MAX_SPECS:
+        raise ValueError(f"{name}: {S} specs (max {MAX_SPECS})")
+    if len(spectab) and spectab[:, 0].max() > SCALAR_KINDS_MAX:
+        raise ValueError(f"{name}: sketch kinds have no batched final value")
+    _check_spectab(name, spectab, rows, ks)
+    out = torch.empty((NR, rows, n_cols), dtype=torch.float32, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.multirule.multirule_finalize(
+            _ptr(ptrs), _ptr(ks), _ptr(act), _ptr(pane_mask), NR, P, C,
+            int(n_cols), _ptr(spectab), S, rows, _ptr(out), _stream(dev))
+        LAUNCHES[name] += 1
+    _raise_on(lib, name, rc)
+    return out
+
+
+def multirule_finalize_plain(state, pane_mask, spectab, n_cols,
+                             rows: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of multirule_finalize: the single-rule plain
+    finalize behind the rule axis, on slots [0, n_cols)."""
+    cut = {comp: arr[:, :, :n_cols] for comp, arr in state.items()}
+    return _finalize_plain(cut, pane_mask, spectab, rows, 1)
+
+
+def multirule_reset_pane(state: Dict[str, torch.Tensor], pane: int) -> None:
+    """Write the identity into pane `pane` of every rule, every component
+    and act, in one launch."""
+    name = "multirule_reset_pane"
+    if not _on_cuda(name, state):
+        multirule_reset_pane_plain(state, pane)
+        return
+    NR, P, C, _, _ = _rule_table(name, state)
+    if not 0 <= pane < P:
+        raise ValueError(f"{name}: pane {pane} outside [0, {P})")
+    ptrs = np.zeros(len(state), dtype=np.uint64)
+    lens = np.zeros(len(state), dtype=np.int64)
+    inits = np.zeros(len(state), dtype=np.float32)
+    for j, (comp, arr) in enumerate(state.items()):
+        ptrs[j] = arr.data_ptr()
+        lens[j] = arr[0, 0].numel()
+        inits[j] = INIT[comp]
+    lib = _load()
+    dev = state["act"].device
+    with torch.cuda.device(dev):
+        rc = lib.multirule.multirule_reset_pane(
+            _ptr(ptrs), _ptr(lens), _ptr(inits), len(state), NR, P,
+            int(pane), _stream(dev))
+        LAUNCHES[name] += 1
+    _raise_on(lib, name, rc)
+
+
+def multirule_reset_pane_plain(state, pane: int) -> None:
+    """Plain PyTorch version of multirule_reset_pane."""
+    for comp, arr in state.items():
+        arr[:, pane].fill_(INIT[comp])
 
 
 # ------------------------------------------------------------ host tables

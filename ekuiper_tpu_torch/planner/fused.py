@@ -52,26 +52,7 @@ def plan_fused_rule(sql: str, key_slots: int = 16384,
     are not ported).
     """
     dev = resolve_device(device)
-    opts = dict(RULE_OPTIONS)
-    for key, value in (options or {}).items():
-        if key not in RULE_OPTIONS:
-            raise NotImplementedError(f"rule option {key!r} is not ported yet")
-        opts[key] = value
-    lead = opts["prefinalizeLeadMs"]
-    if isinstance(lead, bool) or not isinstance(lead, int) or lead < 0:
-        raise PlanError(f"prefinalizeLeadMs must be a non-negative int of "
-                        f"ms, got {lead!r}")
-    if opts["tailMode"] not in ("device", "host"):
-        raise PlanError(f"tailMode must be 'device' or 'host', got "
-                        f"{opts['tailMode']!r}")
-    ring_mb = opts["slidingDevRingMb"]
-    if isinstance(ring_mb, bool) or not isinstance(ring_mb, int) \
-            or ring_mb < 0:
-        raise PlanError(f"slidingDevRingMb must be a non-negative int of "
-                        f"MB, got {ring_mb!r}")
-    if opts["slidingImpl"] not in ("daba", "refold"):
-        raise PlanError(f"slidingImpl must be 'daba' or 'refold', got "
-                        f"{opts['slidingImpl']!r}")
+    opts = rule_options(options)
     stmt = parse_select(sql)
     if stmt.window is None:
         raise PlanError("plan_fused_rule needs a GROUP BY window")
@@ -94,7 +75,7 @@ def plan_fused_rule(sql: str, key_slots: int = 16384,
         # ring geometry is a plan-time choice: buckets coarsen until the
         # ring's static footprint fits slidingDevRingMb
         ring_layout = ring_layout_for(stmt.window, plan, capacity=key_slots,
-                                      budget_mb=ring_mb)
+                                      budget_mb=opts["slidingDevRingMb"])
     dims = [d.expr for d in stmt.dimensions]
     direct = build_direct_emit(stmt, plan, [d.name for d in dims])
     if direct is None:
@@ -104,6 +85,34 @@ def plan_fused_rule(sql: str, key_slots: int = 16384,
     return FusedWindowAggNode(
         "window_agg", stmt.window, plan, dims, capacity=key_slots,
         micro_batch=micro_batch, direct_emit=direct, emit_columnar=True,
-        device=dev, prefinalize_lead_ms=lead, tail_mode=opts["tailMode"],
-        dev_ring_budget_mb=ring_mb, sliding_impl=opts["slidingImpl"],
-        ring_layout=ring_layout)
+        device=dev, prefinalize_lead_ms=opts["prefinalizeLeadMs"],
+        tail_mode=opts["tailMode"],
+        dev_ring_budget_mb=opts["slidingDevRingMb"],
+        sliding_impl=opts["slidingImpl"], ring_layout=ring_layout)
+
+
+def rule_options(options: Optional[Mapping[str, object]]) -> dict:
+    """RULE_OPTIONS with `options` applied, each value checked: PlanError
+    for a value the option cannot take, NotImplementedError for an option
+    the port does not take."""
+    opts = dict(RULE_OPTIONS)
+    for key, value in (options or {}).items():
+        if key not in RULE_OPTIONS:
+            raise NotImplementedError(f"rule option {key!r} is not ported yet")
+        opts[key] = value
+    lead = opts["prefinalizeLeadMs"]
+    if isinstance(lead, bool) or not isinstance(lead, int) or lead < 0:
+        raise PlanError(f"prefinalizeLeadMs must be a non-negative int of "
+                        f"ms, got {lead!r}")
+    if opts["tailMode"] not in ("device", "host"):
+        raise PlanError(f"tailMode must be 'device' or 'host', got "
+                        f"{opts['tailMode']!r}")
+    ring_mb = opts["slidingDevRingMb"]
+    if isinstance(ring_mb, bool) or not isinstance(ring_mb, int) \
+            or ring_mb < 0:
+        raise PlanError(f"slidingDevRingMb must be a non-negative int of "
+                        f"MB, got {ring_mb!r}")
+    if opts["slidingImpl"] not in ("daba", "refold"):
+        raise PlanError(f"slidingImpl must be 'daba' or 'refold', got "
+                        f"{opts['slidingImpl']!r}")
+    return opts

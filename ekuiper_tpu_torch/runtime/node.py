@@ -2,7 +2,7 @@
 
 Its caller calls `process` with each data item, in order, on one thread;
 output goes to the connected downstream nodes through `emit` /
-`broadcast`. Control events (window triggers, pre-triggers, EOF) arrive
+`broadcast`, or to one of them through `send_to`. Control events (window triggers, pre-triggers, EOF) arrive
 through `put_control`, which the clock's timers call once the node is
 opened (`on_open`); a caller that never opens the node calls `on_trigger`
 itself. The port has no input queue or worker thread yet: `put_control`
@@ -69,7 +69,12 @@ class Node:
 
     def broadcast(self, item: Any) -> None:
         for out in self.outputs:
-            out.process(item)
+            self.send_to(out, item)
+
+    def send_to(self, out: "Node", item: Any) -> None:
+        """Hand `item` to one downstream node (a rule group routes each
+        rule's window to that rule's own node through it)."""
+        out.process(item)
 
     # ------------------------------------------------------------------- state
     def snapshot_state(self) -> Optional[dict]:

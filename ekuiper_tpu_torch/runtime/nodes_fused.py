@@ -21,7 +21,9 @@ node is opened on the engine clock (`on_open` arms the timers):
   backstop), so its boundary never waits on the card.
 - A boundary whose fetch has not landed is handed to the emit worker
   (`_deliver_pf`); heavy-hitters boundaries always go to the worker
-  (`_emit_hh_async`), which runs the host dedupe off the fold thread.
+  (`_emit_hh_async`), which runs the host dedupe off the fold thread, and
+  so do a rule group's tumbling boundaries (`"mr"`,
+  runtime/nodes_multirule.py), one stacked finalize for every rule.
 - `tail_mode="host"` freezes the device state at the first pre-issue of a
   tumbling window: tail rows fold into the shadow only, and a checkpoint in
   that span flushes the shadow back to the card (`groupby_absorb`).
@@ -166,9 +168,7 @@ class FusedWindowAggNode(Node):
         self._hh_overflow_warned: set = set()
         if self._hh_cols and capacity > 2048:
             capacity = 2048
-        self.gb = TorchGroupBy(plan, capacity=capacity,
-                               n_panes=int(self.n_panes),
-                               micro_batch=micro_batch, device=device)
+        self.gb = self._make_gb(plan, capacity, micro_batch, device)
         self.ring: Optional[SlidingRing] = None
         self._ring_dev: Optional[Dict[str, torch.Tensor]] = None
         if self.wt == ast.WindowType.SLIDING_WINDOW:
@@ -228,6 +228,9 @@ class FusedWindowAggNode(Node):
         # to the worker instead of stalling the folds
         self._emit_late_async = (self.gb.supports_prefinalize
                                  and not self._hh_cols)
+        # a rule group's tumbling boundaries emit on the worker (set by
+        # runtime/nodes_multirule.py MultiRuleFusedNode)
+        self._async_mr = False
         self._emit_q: Optional[queue.Queue] = None
         self._emit_worker: Optional[threading.Thread] = None
         # per-boundary record: {"source": "device" | "backstop" | "sync" |
@@ -240,6 +243,14 @@ class FusedWindowAggNode(Node):
         # emitted the backup finalize), "failed" (a worker delivery lost)
         self.recoveries: collections.Counter = collections.Counter()
         self._identity: Optional[IdentityFinalize] = None  # per capacity
+
+    def _make_gb(self, plan: KernelPlan, capacity: int, micro_batch: int,
+                 device: Device) -> TorchGroupBy:
+        """Build the group-by state and kernels; MultiRuleFusedNode builds
+        a BatchedGroupBy (with the already-computed self.n_panes)."""
+        return TorchGroupBy(plan, capacity=capacity,
+                            n_panes=int(self.n_panes),
+                            micro_batch=micro_batch, device=device)
 
     # ------------------------------------------------------------------- data
     def process(self, item: Any) -> None:
@@ -438,6 +449,8 @@ class FusedWindowAggNode(Node):
         wr = WindowRange(end - self.length_ms, end)
         if self._async_hh:
             self._emit_hh_async(wr)
+        elif self._async_mr:
+            self._emit_mr_async(wr)
         else:
             self._boundary_emit(wr)
         if self.wt == ast.WindowType.TUMBLING_WINDOW:
@@ -578,6 +591,19 @@ class FusedWindowAggNode(Node):
                                          t_issue)
                     finally:
                         self._release(pipeline)
+                    continue
+                if kind == "mr":
+                    # a rule group's boundary: the stacked (R, S+1, K)
+                    # finalize, sliced per rule (nodes_multirule.py)
+                    try:
+                        arr = payload.get()
+                        self.last_emit_info = {
+                            "source": "device-async",
+                            "fetch_ms": (time.perf_counter() - t_issue) * 1e3,
+                            "ages_ms": []}
+                        self._deliver_mr(arr, n_keys, wr)
+                    finally:  # the rules' columns may view the pinned buffer
+                        payload.release()
                     continue
                 try:  # "hh": the compact finalize, assembled here
                     outs, act = self.gb.host_tail(payload.get(), n_keys)

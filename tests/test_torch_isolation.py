@@ -58,6 +58,9 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
     mods = [m.name for m in pkgutil.walk_packages(
         ekuiper_tpu_torch.__path__, "ekuiper_tpu_torch.")]
     assert "ekuiper_tpu_torch.planner.fused" in mods
+    assert {"ekuiper_tpu_torch.parallel.multirule",
+            "ekuiper_tpu_torch.runtime.nodes_multirule",
+            "ekuiper_tpu_torch.planner.rulegroup"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -375,5 +378,81 @@ def test_ring_wrappers_never_take_the_plain_versions(monkeypatch):
             kernels.groupby_fold_scalar(
                 state, base, V, M, slots, 0, kernels.column_map({"n": [0]}),
                 pane_vec.to(torch.int32))
+    assert taken == []
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
+
+
+GROUP_SQL = ("SELECT deviceId, avg(t) AS a, min(t) AS mn FROM demo "
+             "WHERE t > {x} GROUP BY deviceId, TUMBLINGWINDOW(ss, 10)")
+
+
+def test_rule_group_needs_cuda_unless_cpu_is_asked(monkeypatch):
+    """plan_rule_group, and its group-by built directly, are as strict
+    about the device as the single-rule entry point."""
+    from ekuiper_tpu_torch.parallel.multirule import (BatchedGroupBy,
+                                                      build_rule_batch)
+    from ekuiper_tpu_torch.planner.rulegroup import plan_rule_group
+    from ekuiper_tpu_torch.sql.parser import parse_select
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sqls = [GROUP_SQL.format(x=x) for x in (1, 2, 3)]
+    ids = ["a", "b", "c"]
+    spec = build_rule_batch(ids, [parse_select(q) for q in sqls])
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            plan_rule_group(ids, sqls, key_slots=64, **kw)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            BatchedGroupBy(spec, capacity=64, **kw)
+    node = plan_rule_group(ids, sqls, key_slots=64, micro_batch=64,
+                           device="cpu")
+    assert node.gb.device.type == "cpu"
+    assert {t.device.type for t in node.gb.init_state().values()} == {"cpu"}
+
+
+def test_group_wrappers_never_take_the_plain_versions(monkeypatch):
+    """The rule group's three kernel wrappers, given CUDA tensors: the
+    launch path fails loudly without a card or nvcc, and no plain version
+    runs; a pane outside the state and a row mask of another shape are
+    refused before any build."""
+    _needs_no_card()
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    taken = []
+    for name in ("multirule_fold_plain", "multirule_finalize_plain",
+                 "multirule_reset_pane_plain"):
+        monkeypatch.setattr(kernels, name,
+                            lambda *a, _n=name, **k: taken.append(_n))
+    kernels.reset_launches()
+    NR, P, C = 3, 2, 8
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        state = {"n": torch.zeros((NR, P, C, 1), device="cuda"),
+                 "mn": torch.zeros((NR, P, C, 1), device="cuda"),
+                 "act": torch.zeros((NR, P, C), device="cuda")}
+        base = torch.ones((NR, 4), dtype=torch.bool, device="cuda")
+        short = torch.ones((NR - 1, 4), dtype=torch.bool, device="cuda")
+        V = torch.ones((1, 4), device="cuda")
+        M = torch.ones((1, 4), dtype=torch.bool, device="cuda")
+        slots = torch.zeros(4, dtype=torch.int32, device="cuda")
+        mask = torch.ones(P, dtype=torch.bool, device="cuda")
+    colmap = kernels.column_map({"n": [0], "mn": [0]})
+    spectab = kernels.spec_table(["min"], {"n": [0], "mn": [0]})
+    calls = [
+        lambda: kernels.multirule_fold(state, base, V, M, slots, 1, colmap),
+        lambda: kernels.multirule_finalize(state, mask, spectab, C),
+        lambda: kernels.multirule_reset_pane(state, 1),
+    ]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # fake data_ptr()
+        for call in calls:
+            with pytest.raises((RuntimeError, AssertionError)):
+                call()
+        with pytest.raises(ValueError):
+            kernels.multirule_fold(state, base, V, M, slots, P, colmap)
+        with pytest.raises(ValueError):
+            kernels.multirule_fold(state, short, V, M, slots, 0, colmap)
+        with pytest.raises(ValueError):
+            kernels.multirule_finalize(state, mask, spectab, C + 1)
+        with pytest.raises(ValueError):
+            kernels.multirule_reset_pane(state, P)
     assert taken == []
     assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)

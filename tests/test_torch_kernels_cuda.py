@@ -22,7 +22,9 @@ zero-weight slots included, so 0·inf gives NaN in both); flip bit-equal
 except s1/s2 within rtol 1e-5 (the kernel sums the ring slots in age
 order, torch.sum in its own); the folds with a per-row pane vector as
 the folds; a ring query's fetch holds no fold, advance, flip or pane
-reset launched after it.
+reset launched after it. Rule group: the batched fold, finalize (on the
+key cut) and pane reset with the single-rule tolerances; a group
+boundary's fetch holds no fold or pane reset launched after it.
 """
 import numpy as np
 import pytest
@@ -480,4 +482,126 @@ def test_ring_query_fetch_holds_no_later_update(rnode):
         ring, st, rnode.ring._query_comps, True, True, 9,
         args["adj_slots"], args["adj_weights"], args["adj_mm"])
     assert not np.array_equal(now.cpu().numpy(), got)
+    pending.release()
+
+
+# ------------------------------------------------------------- rule group
+GROUP_SQL = (
+    "SELECT k, count(*) AS c, sum(v) AS s, avg(v) AS a, min(v) AS mn, "
+    "max(v) AS mx, stddev(v) AS sd, vars(v) AS vas, "
+    "count(v) FILTER (WHERE w > 0) AS cf "
+    "FROM s WHERE v > {lo} OR w < {hi} GROUP BY k, HOPPINGWINDOW(ss, 10, 5)"
+)
+
+
+@pytest.fixture
+def mnode():
+    """A 6-rule hopping group on the card, 2,048 slots (so 300 keys cut to
+    a 1,024-column finalize)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ekuiper_tpu_torch.planner.rulegroup import plan_rule_group
+
+    sqls = [GROUP_SQL.format(lo=10 + 2 * i, hi=-1 + 0.25 * i)
+            for i in range(6)]
+    return plan_rule_group([f"r{i}" for i in range(6)], sqls,
+                           key_slots=2048, micro_batch=4096)
+
+
+def _group_inputs(gb, seed, rows=4096, keys=300):
+    """(base (R, rows), V, M, slots) for one batch, specials as _inputs."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(20, 5, rows).astype(np.float32)
+    v[rng.random(rows) < 0.05] = np.nan
+    v[:8] = [0.0, -0.0, -1.5, 3.0e38, 1.0e30, 1e-30, -1e-30, 2.0]
+    dev = gb.device
+    cols = {"v": torch.from_numpy(v).to(dev),
+            "w": torch.from_numpy(
+                rng.normal(0, 1, rows).astype(np.float32)).to(dev),
+            "__valid_w": torch.from_numpy(rng.random(rows) > 0.1).to(dev)}
+    base, V, M = gb.rule_inputs(cols, rows)
+    slots = torch.from_numpy(
+        rng.integers(0, keys, rows).astype(np.int32)).to(dev)
+    return base, V, M, slots
+
+
+@pytest.mark.parametrize("pane", [0, 1])
+def test_multirule_fold_matches_plain(mnode, pane):
+    """One launch per batch folds every rule; each rule's row mask differs."""
+    gb = mnode.gb
+    kernels.reset_launches()
+    got, ref = gb.init_state(), gb.init_state()
+    for seed in range(3):
+        base, V, M, slots = _group_inputs(gb, 80 + seed)
+        assert tuple(base.shape) == (6, 4096)
+        kernels.multirule_fold(got, base, V, M, slots, pane, gb._colmap)
+        kernels.multirule_fold_plain(ref, base, V, M, slots, pane,
+                                     gb._colmap)
+    torch.cuda.synchronize()
+    _same(got, ref, 1e-5)
+    assert kernels.LAUNCHES["multirule_fold"] == 3
+    act = got["act"].cpu().numpy()
+    assert (act[0] != act[-1]).any()
+
+
+def _group_state(gb):
+    st = gb.init_state()
+    for pane in (0, 1):
+        base, V, M, slots = _group_inputs(gb, 90 + pane)
+        kernels.multirule_fold_plain(st, base, V, M, slots, pane, gb._colmap)
+    return st
+
+
+@pytest.mark.parametrize("panes", [None, [0], [1]])
+def test_multirule_finalize_matches_plain(mnode, panes):
+    """Every rule's final values and act in one launch, only the K = 1,024
+    columns of the key cut written; rtol 1e-6 as the single-rule
+    finalize."""
+    gb = mnode.gb
+    st = _group_state(gb)
+    pm = gb._pane_mask(panes)
+    K = gb._slice_keys(300)
+    kernels.reset_launches()
+    got = kernels.multirule_finalize(st, pm, gb._spectab, K)
+    ref = kernels.multirule_finalize_plain(st, pm, gb._spectab, K)
+    assert tuple(got.shape) == (6, len(gb.plan.specs) + 1, 1024)
+    assert kernels.LAUNCHES["multirule_finalize"] == 1
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-6, atol=0, equal_nan=True)
+
+
+def test_multirule_reset_matches_plain(mnode):
+    gb = mnode.gb
+    st = _group_state(gb)
+    got = {k: v.clone() for k, v in st.items()}
+    kernels.multirule_reset_pane(got, 1)
+    kernels.multirule_reset_pane_plain(st, 1)
+    torch.cuda.synchronize()
+    _same(got, st, 0)
+    assert not got["act"][:, 1].any() and got["act"][:, 0].any()
+
+
+def test_group_fetch_holds_no_later_fold_or_reset(mnode):
+    """The group boundary's stacked finalize writes a fresh tensor and its
+    copy lands in pinned memory on the fetch stream: a fold and a pane
+    reset launched right after finalize_begin (no synchronize between)
+    are absent from the fetch."""
+    gb = mnode.gb
+    st = _group_state(gb)
+    want = kernels.multirule_finalize_plain(
+        st, gb._pane_mask(None), gb._spectab, gb._slice_keys(300)
+    ).cpu().numpy()
+    pending = gb.finalize_begin(st, 300)
+    base, V, M, slots = _group_inputs(gb, 99, rows=65_536)
+    kernels.multirule_fold(st, base, V, M, slots, 0, gb._colmap)
+    gb.reset_pane(st, 1)
+    assert pending._buf.is_pinned()
+    got = pending.get()
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got, want)
+    now = kernels.multirule_finalize_plain(
+        st, gb._pane_mask(None), gb._spectab, gb._slice_keys(300))
+    assert not np.array_equal(now.cpu().numpy(), want, equal_nan=True)
+    outs, act = gb.host_tail(got, 300)
+    assert act.shape == (6, 300) and outs[0].dtype == np.int64
     pending.release()

@@ -21,7 +21,10 @@ no result):
    the folds with a per-row pane vector at the phase D rules' state, up
    to 53 panes x 16,384 x 1,026 floats; the rule group's fold, finalize
    and reset at E1's 256 rules x 16,384 slots, the finalize also at E3's
-   two panes): error, kernel time (CUDA
+   two panes; the masked fold at phase F's batches, a 65,536-row padded
+   batch with uint16 slots under a refold's row mask, into each rule's
+   scratch pane at its own pane count, F1's 53 x 16,384 x 2,688 floats):
+   error, kernel time (CUDA
    events), the kernel body's own device time (profiler trace) and the
    host time of one wrapper call, plain time, a library yardstick and the
    bytes/operations bound;
@@ -95,6 +98,27 @@ E. rule groups (BASELINE config #5), each group one node opened on the
    rows/s and rule-rows/s, the fold kernel's time per batch, the
    boundary's stall on the fold thread, delivery p50/p99, the stacked
    result's size and its copy time;
+F. the sliding refold path (slidingImpl "refold" and the cases that fall
+   back to it) on phase D's stream, 240 batches a run, each opened on the
+   mock clock: F1 `SELECT deviceId, heavy_hitters(code, 3) AS top FROM
+   demo GROUP BY deviceId, SLIDINGWINDOW(ss, 10) OVER (WHEN temperature >
+   44.5)` over phase A's skewed codes (state 2,048 -> 16,384 slots; the
+   synchronous finalize and host dedupe), every top list against a numpy
+   twin of the sketch over exactly (t - 10 s, t]; F2 D2's rule under
+   slidingImpl "refold" with the 12 s gap half-way, every window against
+   the float64 twin and against the DABA ring's window of the same
+   trigger (a second run on the same stream); F3 D3's hll rule with
+   slidingDevRingMb 48, under its ring's ~201 MB, so it falls back, and
+   the device batch cache (capped by the same budget) holds less than a
+   window: triggers refold edges from cached batches and from host rows
+   (both must run), hll within ±1; F4 D2's delayed rule under refold
+   through a backlog (the 26 batches after batch 179's trigger row folded
+   with the engine clock held, so its pending window's panes are recycled
+   before its timer fires): that window refolds whole from the cache (the
+   stale route must run), every window against the float64 twin over
+   (t - 10 s, t + 1 s]. Per run: rows/s, stall and delivery,
+   refold routes (cached, host, stale, evicted), the masked fold's
+   launches;
 5. each kernel's launch count on the paths that use it (each must be
    > 0), then the JSON kernel table and the one-line result.
 """
@@ -164,6 +188,25 @@ D3_RULE = ("SELECT deviceId, hll(humidity) AS u FROM demo GROUP BY deviceId, "
            "SLIDINGWINDOW(ss, 10) " + TRIGGER)
 #: batches per run, the trigger every 20th batch, the gap in D2
 D_BATCHES = {"d1": 720, "d2": 720, "d2_delay": 240, "d3": 400}
+#: phase F: the sliding refold path on phase D's stream. F1: the
+#: heavy_hitters sliding rule (the refold fallback); F2: D2's rule under
+#: slidingImpl "refold", with the 12 s gap half-way; F3: D3's hll rule
+#: with a slidingDevRingMb too small for its ring (~201 MB at 16,384
+#: slots), which also caps the device batch cache (~128 batches of 384 KB
+#: at 48 MB, under the ~160 batches a window spans), so later triggers
+#: refold their low edge from host rows
+F1_RULE = ("SELECT deviceId, heavy_hitters(code, 3) AS top FROM demo "
+           "GROUP BY deviceId, SLIDINGWINDOW(ss, 10) " + TRIGGER)
+F_BATCHES, F_GAP_AT, F3_RING_MB = 240, 120, 48
+#: F4's backlog: the 26 batches (1.625 s of stream) after the trigger row
+#: of batch 179, folded with the engine clock held. With 78 ms buckets and
+#: R = 145 ring panes, rows past about t + 1.4 s recycle a pane inside the
+#: pending window (t - 10 s, t + 1 s]; the row ring keeps a bucket until
+#: the newest is R + 8 buckets past it, so a backlog past about t + 1.9 s
+#: would drop the window's oldest rows before its refold (the reference
+#: does the same; ROADMAP Queue 3)
+F4_HOLD = range(180, 206)
+REFOLD = {"slidingImpl": "refold"}
 TRIGGER_EVERY, GAP_AT, GAP_MS = 20, 360, 12_000
 #: stream time per 65,536-row batch: 125/2 ms (16 batches a second)
 BATCH_MS_NUM, BATCH_MS_DEN = 125, 2
@@ -236,6 +279,8 @@ SOURCE = {
     "multirule_fold": "ekuiper_tpu_torch/csrc/multirule.cu",
     "multirule_finalize": "ekuiper_tpu_torch/csrc/multirule.cu",
     "multirule_reset_pane": "ekuiper_tpu_torch/csrc/multirule.cu",
+    "groupby_fold_masked_scalar": "ekuiper_tpu_torch/csrc/groupby.cu",
+    "groupby_fold_masked_wide": "ekuiper_tpu_torch/csrc/sketches.cu",
 }
 REPLACES = {
     "groupby_fold_scalar": "ekuiper_tpu/ops/groupby.py:348",
@@ -252,17 +297,20 @@ REPLACES = {
     "multirule_fold": "ekuiper_tpu/parallel/multirule.py:196",
     "multirule_finalize": "ekuiper_tpu/parallel/multirule.py:210",
     "multirule_reset_pane": "ekuiper_tpu/parallel/multirule.py:256",
+    "groupby_fold_masked_scalar": "ekuiper_tpu/ops/groupby.py:354",
+    "groupby_fold_masked_wide": "ekuiper_tpu/ops/groupby.py:354",
 }
 #: which end-to-end paths launch each kernel (phase 5 checks each > 0)
 PATHS = {
     "groupby_fold_scalar": ("tumbling", "hopping", "hh", "pct", "hll", "d1",
-                            "d2", "d2_delay", "d3"),
-    "groupby_finalize_scalar": ("tumbling", "hopping", "hh", "pct", "hll"),
+                            "d2", "d2_delay", "d3", "f1", "f2", "f3", "f4"),
+    "groupby_finalize_scalar": ("tumbling", "hopping", "hh", "pct", "hll",
+                                "f1", "f2", "f3", "f4"),
     "groupby_reset_pane": ("tumbling", "hopping", "hh", "pct", "hll", "d1",
-                           "d2", "d3"),
-    "groupby_fold_wide": ("hh", "pct", "hll", "d1", "d3"),
-    "groupby_finalize_wide": ("pct", "hll"),
-    "groupby_hh_finalize": ("hh",),
+                           "d2", "d3", "f1", "f2", "f3", "f4"),
+    "groupby_fold_wide": ("hh", "pct", "hll", "d1", "d3", "f1", "f3"),
+    "groupby_finalize_wide": ("pct", "hll", "f3"),
+    "groupby_hh_finalize": ("hh", "f1"),
     "groupby_components": ("c1", "c1_nobackstop", "c1_host", "c2", "c3_pct",
                            "c3_hll", "d2", "d2_delay"),
     "groupby_absorb": ("c1_host",),
@@ -272,11 +320,14 @@ PATHS = {
     "multirule_fold": ("e1", "e2", "e3"),
     "multirule_finalize": ("e1", "e2", "e3"),
     "multirule_reset_pane": ("e1", "e2", "e3"),
+    "groupby_fold_masked_scalar": ("f1", "f2", "f3", "f4"),
+    "groupby_fold_masked_wide": ("f1", "f3"),
 }
 #: the folds that must take a per-row pane vector on each sliding path (a
-#: batch that crosses a bucket edge)
-ROW_PANE_PATHS = {"groupby_fold_scalar": ("d1", "d2", "d2_delay", "d3"),
-                  "groupby_fold_wide": ("d1", "d3")}
+#: batch that crosses a bucket edge; on the F paths from the cached upload)
+ROW_PANE_PATHS = {"groupby_fold_scalar": ("d1", "d2", "d2_delay", "d3",
+                                          "f1", "f2", "f3", "f4"),
+                  "groupby_fold_wide": ("d1", "d3", "f1", "f3")}
 
 
 class SmokeFailure(Exception):
@@ -2086,7 +2137,8 @@ class SlidingStream:
     D3 humidity on its 1,000 one-decimal values, and row timestamps
     rising evenly, 62.5 ms a batch (plus the gap, where there is one)."""
 
-    def __init__(self, rng, n_batches, humidity=False, gap_at=None):
+    def __init__(self, rng, n_batches, humidity=False, gap_at=None,
+                 codes=False):
         self.n = n_batches
         self.idx = rng.integers(0, N_KEYS, (n_batches, ROWS)).astype(
             np.int32)
@@ -2100,6 +2152,9 @@ class SlidingStream:
         if gap_at is not None:
             self.ts[gap_at * ROWS:] += GAP_MS
         self.ts = self.ts.reshape(n_batches, ROWS)
+        # F1: phase A's skewed heavy-hitters codes
+        self.code = (skewed_codes(rng, n_batches * ROWS).reshape(
+            n_batches, ROWS) if codes else None)
 
     def batches(self, ColumnBatch):
         ids = np.array([f"dev_{i}" for i in range(N_KEYS)], dtype=np.object_)
@@ -2108,6 +2163,8 @@ class SlidingStream:
             cols = {"deviceId": ids[self.idx[b]], "temperature": self.temp[b]}
             if self.hum is not None:
                 cols["humidity"] = (self.hum[b] / 10).astype(np.float32)
+            if self.code is not None:
+                cols["code"] = self.code[b]
             out.append(ColumnBatch(n=ROWS, columns=cols,
                                    timestamps=self.ts[b], emitter="demo"))
         return out
@@ -2222,18 +2279,27 @@ class HllTwin:
         return int((d == 1).sum())
 
 
-def run_sliding(torch, kernels, mods, sql, stream, what):
-    """Open the rule's node on a fresh mock clock and feed it the stream,
-    each batch after the clock moves to its last row's time. Returns the
-    node, the emissions [(t, rows received, stall s, delivery s, item,
-    source)], rows/s and the launch counts."""
+def run_sliding(torch, kernels, mods, sql, stream, what, options=None,
+                impl="daba", sources=("device-ring",), hook=None, hold=()):
+    """Open the rule's node (rule `options`, sliding implementation `impl`,
+    `hook(node)` before its first batch) on a fresh mock clock and feed it
+    the stream, each batch after the clock moves to its last row's time,
+    except the batches in `hold` (a backlog: they are folded while the
+    engine clock, and so every timer, stands still); every trigger must be
+    served by one of `sources`. Returns the node,
+    the emissions [(t, rows received, stall s, delivery s, item, source)],
+    rows/s and the launch counts."""
     from ekuiper_tpu_torch.utils import timex
 
     plan_fused_rule, ColumnBatch, _ = mods
     batches = stream.batches(ColumnBatch)
-    node = plan_fused_rule(sql, key_slots=SLOTS, micro_batch=ROWS)
+    node = plan_fused_rule(sql, key_slots=SLOTS, micro_batch=ROWS,
+                           options=options)
     check(node.gb.device.type == "cuda", f"{what}: rule is not on the card")
-    check(node.sliding_impl == "daba", f"{what}: not on the DABA ring")
+    check(node.sliding_impl == impl, f"{what}: not on the {impl} path "
+          f"({node.sliding_impl})")
+    if hook is not None:
+        hook(node)
     received = [0]
     trig, deliveries = [], []
     emit_sliding = node._emit_sliding
@@ -2253,7 +2319,8 @@ def run_sliding(torch, kernels, mods, sql, stream, what):
     t0 = time.perf_counter()
     for b, batch in enumerate(batches):
         received[0] = b * ROWS
-        clock.set(int(stream.ts[b, -1]))
+        if b not in hold:
+            clock.set(int(stream.ts[b, -1]))
         received[0] = (b + 1) * ROWS
         node.process(batch)
     clock.advance(5_000)  # the last delayed emissions
@@ -2270,7 +2337,7 @@ def run_sliding(torch, kernels, mods, sql, stream, what):
     emissions = [(t, n, st, tw - t_s, item, info.get("source"))
                  for (t, n, t_s, st), (tw, item, info) in zip(trig,
                                                              deliveries)]
-    bad = {src for *_, src in emissions} - {"device-ring"}
+    bad = {src for *_, src in emissions} - set(sources)
     check(not bad, f"{what}: triggers served by {bad}")
     return node, emissions, stream.n * ROWS / wall, launches, row_pane
 
@@ -2335,6 +2402,384 @@ def phase_d_line(tag, r):
             f"late_rows={c.get('late_dropped', 0)} "
             f"pane_vec_folds={r['row_pane']} launches={r['launches']} "
             f"check_s={r['check_s']:.1f}")
+
+
+# ------------------------------------------------------------ phase F
+class HHWindowTwin:
+    """F1: the heavy-hitters sketch of any row range of a stream, from the
+    exact per-(key, code) counts of its rows: the sketch is linear in
+    them (one occurrence of a code adds 1 to its cell's total and to each
+    of its set bits' counters, at each depth), so the window's counters
+    are one float32 product per depth, exact below 2^24. The codes are
+    the node's dictionary codes, assigned batch by batch (TwinCodes)."""
+
+    def __init__(self, stream):
+        codes = TwinCodes()
+        self.s = stream
+        self.cid = np.stack([codes.encode(stream.code[b])
+                             for b in range(stream.n)])
+        self.values = codes.values
+        nc = len(self.values)
+        c = np.arange(nc, dtype=U32)
+        self.g = []
+        for d in range(HH_DEPTH):
+            g = np.zeros((nc, HH_WIDTH, HH_CELL), np.float32)
+            slot = np_hh_slot(c, d).astype(np.int64)
+            g[np.arange(nc), slot, 0] = 1.0
+            for b in range(HH_BITS):
+                g[np.arange(nc), slot, 1 + b] = (c >> U32(b)) & U32(1)
+            self.g.append(g.reshape(nc, -1))
+
+    def window(self, a, b):
+        """(top-3 lists of every key, row count of every key) over the
+        stream's rows [a, b)."""
+        nc = len(self.values)
+        keys = self.s.idx.reshape(-1)[a:b].astype(np.int64)
+        cid = self.cid.reshape(-1)[a:b].astype(np.int64)
+        C = np.bincount(keys * nc + cid, minlength=N_KEYS * nc).reshape(
+            N_KEYS, nc).astype(np.float32)
+        merged = np.stack([C @ g for g in self.g], axis=1).reshape(
+            N_KEYS, HH_SIZE)
+        return (twin_hh_top(merged.astype(np.float64), 3),
+                np.bincount(keys, minlength=N_KEYS))
+
+
+def check_hh_window(cb, want, values, what):
+    """F1: the emitted keys are the window's, each top list the twin's."""
+    tops, cnt = want
+    live = np.nonzero(cnt)[0]
+    keys = key_ids(cb.columns["deviceId"])
+    check(cb.n == len(live) and (np.sort(keys) == live).all(),
+          f"{what}: emitted keys differ")
+    for key, top in zip(keys.tolist(), cb.columns["top"].tolist()):
+        exp = [{"value": values[c], "count": n} for c, n in tops[key]]
+        check(top == exp, f"{what} key {key}: {top} != {exp}")
+    return cb.n
+
+
+def check_same_window(cb, other, ref, what):
+    """F2: the refold window against the DABA one of the same trigger:
+    keys, counts, min and max equal; avg within twice the float32 bound
+    each keeps to the float64 reference. Returns the largest avg
+    difference."""
+    def rows(x):
+        keys = key_ids(x.columns["deviceId"])
+        o = np.argsort(keys)
+        return keys[o], {k: np.asarray(v)[o] for k, v in x.columns.items()}
+
+    ka, a = rows(cb)
+    kb, b = rows(other)
+    check(np.array_equal(ka, kb), f"{what}: keys differ from DABA's")
+    for col in ("cnt", "min_t", "max_t"):
+        check(np.array_equal(a[col], b[col]), f"{what}: {col} differs "
+              "from DABA's")
+    n = ref["cnt"][ka]
+    mean = ref["sum"][ka] / n
+    d = np.abs(a["avg_t"].astype(np.float64) - b["avg_t"])
+    check((d <= 2 * EPS32 * (ref["sumabs"][ka] + np.abs(mean))).all(),
+          f"{what}: avg differs from DABA's beyond the bound ({d.max()})")
+    return float(d.max(initial=0.0))
+
+
+def refold_result(node, em, rps, launches, row_pane, stream, t_check):
+    c = node.refold_counts
+    return dict(
+        rows_per_s=rps, triggers=len(em),
+        stall=[st * 1e3 for _, _, st, _, _, _ in em],
+        delivery=[dl * 1e3 for _, _, _, dl, _, _ in em],
+        routes={k: c.get(k, 0) for k in ("cached", "host", "stale",
+                                          "evicted")},
+        launches=launches, row_pane=row_pane, fallback=node.sliding_fallback,
+        bucket_ms=node.bucket_ms, panes=node.n_panes,
+        cache_mb=node._dev_ring_bytes / 1e6,
+        budget_mb=node.dev_ring_budget_bytes / 2**20,
+        rows=stream.n * ROWS, want_triggers=int((stream.temp > 44.5).sum()),
+        check_s=time.perf_counter() - t_check)
+
+
+def run_phase_f(torch, seed, kernels, mods):
+    """Phase F: the sliding refold path at full size on the mock clock,
+    every window against its numpy twin (and F2's against the DABA
+    ring's)."""
+    from ekuiper_tpu_torch.ops.slidingring import SlidingRing
+
+    res = {}
+    # F1: heavy_hitters sliding, the sync finalize with the host dedupe
+    rng = np.random.default_rng(seed + 60)
+    stream = SlidingStream(rng, F_BATCHES, codes=True)
+    stages = {"finalize": 0.0, "assemble": 0.0}
+
+    def hh_hook(node):
+        check(node.sliding_fallback == "heavy_hitters",
+              f"f1: fallback {node.sliding_fallback}")
+        check(node.gb.capacity == 2048, "f1: heavy-hitters state does not "
+              f"start at 2,048 slots ({node.gb.capacity})")
+        node.gb.finalize = timed(node.gb.finalize, stages, "finalize")
+        node.gb.hh_assemble = timed(node.gb.hh_assemble, stages, "assemble")
+
+    node, em, rps, launches, row_pane = run_sliding(
+        torch, kernels, mods, F1_RULE, stream, "f1", impl="refold",
+        sources=("sync",), hook=hh_hook)
+    check(node.gb.capacity == SLOTS, f"f1: state at {node.gb.capacity} "
+          f"slots, want {SLOTS}")
+    t_check = time.perf_counter()
+    twin = HHWindowTwin(stream)
+    n_rows = 0
+    for i, (t, received, _, _, cb, _) in enumerate(em):
+        a, b = stream.rows(t - node.length_ms, t, received)
+        n_rows += check_hh_window(cb, twin.window(a, b), twin.values,
+                                  f"f1 trigger {i} (t={t})")
+    res["f1"] = refold_result(node, em, rps, launches, row_pane, stream,
+                              t_check)
+    res["f1"].update(checked_rows=n_rows, finalize_ms=stages["finalize"]
+                     * 1e3 / max(len(em), 1),
+                     assemble_ms=stages["assemble"] * 1e3 / max(len(em), 1))
+    del node, em, twin, stream
+    torch.cuda.empty_cache()
+
+    # F2: D2's rule under slidingImpl "refold", and the DABA ring's run
+    # of the same stream
+    rng = np.random.default_rng(seed + 61)
+    stream = SlidingStream(rng, F_BATCHES, gap_at=F_GAP_AT)
+    node, em, rps, launches, row_pane = run_sliding(
+        torch, kernels, mods, D2_RULE, stream, "f2", options=REFOLD,
+        impl="refold", sources=("device-async",))
+    check(node.sliding_fallback is None, "f2: a fallback on request")
+    dnode, dem, drps, dlaunches, _ = run_sliding(
+        torch, kernels, mods, D2_RULE, stream, "f2_daba")
+    check([e[0] for e in em] == [e[0] for e in dem],
+          "f2: triggers differ from the DABA run's")
+    t_check = time.perf_counter()
+    twin = ScalarTwin(stream)
+    worst = worst_daba = 0.0
+    for i, ((t, received, _, _, cb, _), dcb) in enumerate(
+            zip(em, [e[4] for e in dem])):
+        a, b = stream.rows(t - node.length_ms, t, received)
+        what = f"f2 trigger {i} (t={t})"
+        ref = twin.window(a, b)
+        worst = max(worst, check_window(cb, ref, False, what))
+        check_window(dcb, ref, False, what + " DABA")
+        worst_daba = max(worst_daba, check_same_window(cb, dcb, ref, what))
+    res["f2"] = refold_result(node, em, rps, launches, row_pane, stream,
+                              t_check)
+    res["f2"].update(max_abs_err=worst, vs_daba=worst_daba,
+                     daba_rows_per_s=drps)
+    del node, dnode, em, dem, twin, stream
+    torch.cuda.empty_cache()
+
+    # F3: D3's hll rule over its budget: the fallback, and a device cache
+    # that holds less than a window, so both refold routes run
+    rng = np.random.default_rng(seed + 62)
+    stream = SlidingStream(rng, F_BATCHES, humidity=True)
+    est = {}
+
+    def budget_hook(node):
+        check(node.sliding_fallback == "ring_budget",
+              f"f3: fallback {node.sliding_fallback}")
+        est["ring"] = SlidingRing(node.gb, node._ring_layout).estimate_bytes(
+            SLOTS)
+
+    node, em, rps, launches, row_pane = run_sliding(
+        torch, kernels, mods, D3_RULE, stream, "f3",
+        options={"slidingDevRingMb": F3_RING_MB}, impl="refold",
+        sources=("device-async",), hook=budget_hook)
+    t_check = time.perf_counter()
+    hll_twin = HllTwin()
+    edge = 0
+    for i, (t, received, _, _, cb, _) in enumerate(em):
+        a, b = stream.rows(t - node.length_ms, t, received)
+        edge += hll_twin.check(cb, stream, a, b, f"f3 trigger {i} (t={t})")
+    c = node.refold_counts
+    check(c["cached"] > 0 and c["host"] > 0 and c["evicted"] > 0,
+          f"f3: both refold routes must run ({dict(c)})")
+    res["f3"] = refold_result(node, em, rps, launches, row_pane, stream,
+                              t_check)
+    res["f3"].update(edge=edge, ring_estimate_mb=est["ring"] / 2**20)
+    del node, em, stream
+    torch.cuda.empty_cache()
+
+    # F4: D2's delayed rule under refold through a backlog: the batches
+    # after a trigger row are folded while the engine clock stands still,
+    # so rows of bucket b + R recycle the panes of buckets inside the
+    # pending window before its timer fires, and that window refolds
+    # whole from the cached batches (the stale route)
+    rng = np.random.default_rng(seed + 63)
+    stream = SlidingStream(rng, F_BATCHES)
+    node, em, rps, launches, row_pane = run_sliding(
+        torch, kernels, mods, D2_DELAY_RULE, stream, "f4", options=REFOLD,
+        impl="refold", sources=("device-async",), hold=F4_HOLD)
+    t_check = time.perf_counter()
+    twin = ScalarTwin(stream)
+    worst = 0.0
+    for i, (t, received, _, _, cb, _) in enumerate(em):
+        a, b = stream.rows(t - node.length_ms, t + node.delay_ms, received)
+        worst = max(worst, check_window(cb, twin.window(a, b), False,
+                                        f"f4 trigger {i} (t={t})"))
+    c = node.refold_counts
+    check(c["stale"] > 0 and c["cached"] > 0,
+          f"f4: no whole-window refold from the cache ({dict(c)})")
+    res["f4"] = refold_result(node, em, rps, launches, row_pane, stream,
+                              t_check)
+    res["f4"].update(max_abs_err=worst)
+    del node, em, twin, stream
+    torch.cuda.empty_cache()
+    for tag in ("f1", "f2", "f3", "f4"):
+        r = res[tag]
+        check(r["triggers"] == r["want_triggers"],
+              f"{tag}: {r['triggers']} triggers, {r['want_triggers']} "
+              "trigger rows")
+    res["f2_daba"] = {"launches": dlaunches}
+    return res
+
+
+def phase_f_line(tag, r):
+    masked = {k.replace("groupby_fold_masked_", ""): r["launches"][k]
+              for k in ("groupby_fold_masked_scalar",
+                        "groupby_fold_masked_wide")}
+    extra = ""
+    if tag == "f1":
+        extra = (f" top_lists={r['checked_rows']} finalize_ms_per_trigger="
+                 f"{r['finalize_ms']:.3f} (hh_assemble "
+                 f"{r['assemble_ms']:.3f})")
+    elif tag == "f2":
+        extra = (f" max_abs_err={r['max_abs_err']:.3g} "
+                 f"vs_daba_max_abs={r['vs_daba']:.3g} "
+                 f"daba_rows/s={r['daba_rows_per_s']:.0f}")
+    elif tag == "f4":
+        extra = (f" max_abs_err={r['max_abs_err']:.3g} held_batches="
+                 f"{F4_HOLD.start}..{F4_HOLD.stop - 1}")
+    else:
+        extra = (f" ring_estimate_MB={r['ring_estimate_mb']:.1f} > "
+                 f"slidingDevRingMb={r['budget_mb']:.0f} "
+                 f"hll_off_by_one={r['edge']}")
+    return (f"phase F {tag}: fallback={r['fallback']} "
+            f"bucket_ms={r['bucket_ms']} panes={r['panes']} "
+            f"rows/s={r['rows_per_s']:.0f} triggers={r['triggers']} "
+            f"stall_p50_ms={pct(r['stall'], 50):.3f} "
+            f"stall_p99_ms={pct(r['stall'], 99):.3f} "
+            f"delivery_p50_ms={pct(r['delivery'], 50):.3f} "
+            f"delivery_p99_ms={pct(r['delivery'], 99):.3f} "
+            f"routes={r['routes']} cache_MB={r['cache_mb']:.1f} "
+            f"masked_fold_launches={masked} "
+            f"pane_vec_folds={r['row_pane']} launches={r['launches']} "
+            f"check_s={r['check_s']:.1f}{extra}")
+
+
+def masked_kernel_checks(torch, seed, kernels, sketches, plan_fused_rule,
+                         TorchGroupBy, dev):
+    """The masked fold (#2) against its plain version at phase F's
+    shapes: a 65,536-row batch (61,440 real rows, the rest padding with
+    slot 0 and mask 0) with uint16 slots over 16,384 slots, the mask a
+    refold's low-edge time cut (rows [18,432, 61,440)), into the node's
+    own scratch pane over rows already folded there, with the node's own
+    pane count. F2's scalar rule (the scalar kernel), F1's heavy_hitters
+    and F3's hll rules (the wide kernel). F1's state is 53 panes of
+    176 MB, so its scratch pane starts past 2^31 floats and the check
+    holds the kernel's 64-bit addressing at the main path's offset. The
+    written pane is compared with the plain version's; every other pane
+    must be bit-equal on the card."""
+    rows = {}
+    n_real = ROWS * 15 // 16
+    for tag, sql, opts in (("scalar", D2_RULE, REFOLD), ("hh", F1_RULE, {}),
+                           ("hll", D3_RULE,
+                            {"slidingDevRingMb": F3_RING_MB})):
+        node = plan_fused_rule(sql, key_slots=SLOTS, micro_batch=ROWS,
+                               device=dev, options=opts)
+        check(node.sliding_impl == "refold", f"#2 {tag}: not on refold")
+        plan, P, pane = node.plan, node.n_panes, node._scratch_pane
+        del node
+        torch.cuda.empty_cache()
+        gb = TorchGroupBy(plan, capacity=SLOTS, n_panes=P,
+                          micro_batch=ROWS, device=dev)
+        r = np.random.default_rng(seed + 100)
+        host = {"temperature": r.normal(20, 5, ROWS).astype(np.float32),
+                "__hhc__code": skewed_codes(r, ROWS).astype(np.float32),
+                "__hll__humidity": (r.integers(0, 1000, ROWS) / 10).astype(
+                    np.float32)}
+        s_host = r.integers(0, N_KEYS, ROWS)
+        mask = np.zeros(ROWS, dtype=bool)
+        mask[int(0.3 * n_real):n_real] = True
+        for v in host.values():
+            v[n_real:] = 0.0
+        s_host[n_real:] = 0
+        cols = {k: torch.from_numpy(v).to(dev) for k, v in host.items()
+                if k in gb.plan.columns}
+        slots = torch.from_numpy(s_host.astype(np.uint16)).to(dev)
+        base = gb._where(cols, (ROWS,)) & torch.from_numpy(mask).to(dev)
+        V, M = gb._spec_values(cols, ROWS)
+        M = M & base
+        st = gb.init_state()
+        # rows already in the scratch pane (another edge bucket's)
+        kernels.fold_masked_scalar_plain(st, base.roll(7), V.roll(7, 1),
+                                         M.roll(7, 1), slots, pane,
+                                         gb._colmap)
+        ref, got = clone_state(st), clone_state(st)
+        kernels.fold_masked_scalar_plain(ref, base, V, M, slots, pane,
+                                         gb._colmap)
+        kernels.groupby_fold_masked_scalar(got, base, V, M, slots, pane,
+                                           gb._colmap)
+        if len(gb._widemap):
+            kernels.fold_masked_wide_plain(ref, base, V, M, slots, pane,
+                                           gb._widemap)
+            kernels.groupby_fold_masked_wide(got, base, V, M, slots, pane,
+                                             gb._widemap)
+        torch.cuda.synchronize()
+        err = state_err({k: v[pane] for k, v in got.items()},
+                        {k: v[pane] for k, v in ref.items()}, exact=EXACT)
+        for k, v in got.items():
+            check(torch.equal(v[:pane], ref[k][:pane])
+                  and torch.equal(v[pane + 1:], ref[k][pane + 1:]),
+                  f"#2 {tag} {k}: a pane other than {pane} changed")
+        m_rows = int(base.sum().item())
+        used = gb._colmap if tag == "scalar" else gb._widemap
+        S = len(set(used[:, 2].tolist()))
+        # the mask of every row; the slot, V and M of each of the S specs
+        # the kernel reads, of the masked rows only (a row off the mask is
+        # skipped before anything else is read)
+        io = ROWS + m_rows * (slots.element_size() + 5 * S)
+        if tag == "scalar":
+            name, kernel = "groupby_fold_masked_scalar", \
+                "fold_masked_scalar_kernel"
+            fn = functools.partial(kernels.groupby_fold_masked_scalar, got,
+                                   base, V, M, slots, pane, gb._colmap)
+            plain = functools.partial(kernels.fold_masked_scalar_plain, ref,
+                                      base, V, M, slots, pane, gb._colmap)
+            lib = functools.partial(library_fold, torch, ref, base, V, M,
+                                    slots, pane, gb._colmap, kernels)
+            touched = len(np.unique(s_host[base.cpu().numpy()]))
+            width = sum(a.shape[2] for k, a in st.items() if k != "act") + 1
+            nbytes = io + touched * width * 8
+            n_upd = m_rows * (len(gb._colmap) + 1)
+        else:
+            name, kernel = "groupby_fold_masked_wide", \
+                "fold_masked_wide_kernel"
+            fn = functools.partial(kernels.groupby_fold_masked_wide, got,
+                                   base, V, M, slots, pane, gb._widemap)
+            plain = functools.partial(kernels.fold_masked_wide_plain, ref,
+                                      base, V, M, slots, pane, gb._widemap)
+            upd = wide_updates(torch, gb, V, M, slots, pane, sketches)
+            lib = functools.partial(library_fold_wide, torch, ref, upd)
+            touched = sum(len(torch.unique(idx)) for _, idx, _, _ in upd)
+            n_upd = sum(len(idx) for _, idx, _, _ in upd)
+            nbytes = io + touched * 8
+        t_k = time_ms(torch, fn, REPS)
+        split = launch_split(torch, fn, kernel, REPS)
+        t_p = time_ms(torch, plain, REPS)
+        t_l = time_ms(torch, lib, REPS)
+        b_ms, b_by = bound(nbytes, n_upd)
+        print(f"kernel {name} {tag} P={P} pane={pane} R={ROWS} "
+              f"real={n_real} S={S} bound_bytes={nbytes} "
+              f"masked={m_rows} C={SLOTS} slots=uint16 updates={n_upd}: "
+              f"max_abs_err={err[0]:.3g} max_rel_err={err[1]:.3g} "
+              f"kernel_ms={t_k:.4f} {split_text(split)} plain_ms={t_p:.4f} "
+              f"library_ms={t_l:.4f} bound_ms={b_ms:.5f} ({b_by})")
+        row = dict(max_abs_err=err[0], max_rel_err=err[1], ms=t_k, **split,
+                   plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=t_l)
+        rows[name if tag in ("scalar", "hh") else f"{name}/{tag}"] = row
+        del st, ref, got, gb
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ----------------------------------------------- phase 2, the rule group
@@ -2928,6 +3373,8 @@ def main() -> int:
                                    plan_fused_rule, dev))
     rows.update(group_kernel_checks(torch, args.seed, kernels,
                                     plan_rule_group, dev))
+    rows.update(masked_kernel_checks(torch, args.seed, kernels, sketches,
+                                     plan_fused_rule, TorchGroupBy, dev))
     print(f"phase 2 kernels vs plain: ok (wall {time.perf_counter() - t_run:.0f} s)")
 
     mods = (plan_fused_rule, ColumnBatch, Trigger)
@@ -3028,6 +3475,22 @@ def main() -> int:
           f"families rule_rows/s={sum(r['rule_rows_per_s'] for r in e2):.0f} "
           f"(wall {time.perf_counter() - t_run:.0f} s)")
 
+    # phase F: the sliding refold path, mock clock, full size
+    f = run_phase_f(torch, args.seed, kernels, mods)
+    print(f"phase F: {F_BATCHES} batches of 65536 rows, 62.5 ms each, "
+          f"{N_KEYS} keys, {SLOTS} slots, a trigger row in every "
+          f"{TRIGGER_EVERY}th batch; every emitted window checked against "
+          "its numpy twin")
+    for tag in ("f1", "f2", "f3", "f4"):
+        print(phase_f_line(tag, f[tag]))
+    print(f"phase F checks: F1 {f['f1']['checked_rows']} top lists equal "
+          f"to the twin; F2 max_abs_err {f['f2']['max_abs_err']:.3g}, "
+          f"against D2's DABA windows max avg diff {f['f2']['vs_daba']:.3g};"
+          f" F3 {f['f3']['edge']} estimates off by one, refold routes "
+          f"{f['f3']['routes']}; F4 max_abs_err {f['f4']['max_abs_err']:.3g}"
+          f", refold routes {f['f4']['routes']} "
+          f"(wall {time.perf_counter() - t_run:.0f} s)")
+
     # phase 5: every kernel launched on each path that uses it
     paths = {"tumbling": counts_t, "hopping": counts_h, "hh": counts_hh,
              "pct": b["pct"]["launches"], "hll": b["hll"]["launches"],
@@ -3035,14 +3498,16 @@ def main() -> int:
              **{tag: d[tag]["launches"] for tag in d},
              # E2's four family nodes share one run and its counts
              "e1": e["e1"]["launches"], "e2": e["e2_fa"]["launches"],
-             "e3": e["e3"]["launches"]}
+             "e3": e["e3"]["launches"],
+             **{tag: f[tag]["launches"] for tag in f}}
     for name, used_by in PATHS.items():
         for path in used_by:
             check(paths[path][name] > 0,
                   f"{name} was not launched on the {path} path")
+    sliding = {**d, **f}
     for name, used_by in ROW_PANE_PATHS.items():
         for path in used_by:
-            check(d[path]["row_pane"][name] > 0,
+            check(sliding[path]["row_pane"][name] > 0,
                   f"{name} took no per-row pane vector on the {path} path")
     print("phase 5 kernels: " + " ".join(
         f"{n}=" + "+".join(f"{paths[p][n]}({p})" for p in PATHS[n])
@@ -3054,13 +3519,17 @@ def main() -> int:
                 "groupby_absorb": "groupby_absorb/tumbling",
                 "ring_advance": "ring_advance/pct",
                 "ring_flip": "ring_flip/pct",
-                "ring_query": "ring_query/pct"}
+                "ring_query": "ring_query/pct",
+                "groupby_fold_masked_scalar": "groupby_fold_masked_scalar",
+                "groupby_fold_masked_wide": "groupby_fold_masked_wide"}
     main_path = {"groupby_fold_wide": "hh", "groupby_finalize_wide": "pct",
                  "groupby_hh_finalize": "hh", "groupby_components": "c1",
                  "groupby_absorb": "c1_host", "ring_advance": "d1",
                  "ring_flip": "d1", "ring_query": "d1",
                  "multirule_fold": "e1", "multirule_finalize": "e1",
-                 "multirule_reset_pane": "e1"}
+                 "multirule_reset_pane": "e1",
+                 "groupby_fold_masked_scalar": "f2",
+                 "groupby_fold_masked_wide": "f1"}
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name],
@@ -3079,14 +3548,16 @@ def main() -> int:
     for i, name in ((0, "groupby_fold_scalar"), (3, "groupby_fold_wide")):
         table["kernels"][i]["pane_vec"] = dict(
             rows[f"{name}/pane_vec"], launches_by_path={
-                p: d[p]["row_pane"][name] for p in ROW_PANE_PATHS[name]})
+                p: sliding[p]["row_pane"][name]
+                for p in ROW_PANE_PATHS[name]})
     for i, name in ((8, "ring_advance"), (9, "ring_flip"),
                     (10, "ring_query")):
         table["kernels"][i]["scalar_rule"] = rows[f"{name}/scalar"]
         table["kernels"][i]["hll_rule"] = rows[f"{name}/hll"]
     table["kernels"][12]["hopping_subset"] = rows[
         "multirule_finalize/hopping_subset"]
-    check(len(table["kernels"]) == 14, "kernel table")
+    table["kernels"][15]["hll_rule"] = rows["groupby_fold_masked_wide/hll"]
+    check(len(table["kernels"]) == 16, "kernel table")
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,9 @@
 //
 // groupby_fold_scalar    replaces DeviceGroupBy._fold_impl/_fold_core
 //                        (ekuiper_tpu/ops/groupby.py:348-441)
+// groupby_fold_masked_scalar replaces _fold_masked_impl (354): the same
+//                        fold under an explicit (mb,) row mask, into one
+//                        pane (the sliding refold's edge folds)
 // groupby_finalize_scalar replaces _finalize_impl/_finalize_dyn_impl ->
 //                        _finalize_body/_merged/_final_value (444-520)
 // groupby_reset_pane     replaces _reset_pane_impl (763), for every
@@ -30,36 +33,58 @@
 // atomics at L2) is what chip_smoke.py's body_ms / kernel_ms split
 // reports. The design keeps every call to one launch, no scratch, no
 // second pass, and parameters passed by value, so no host-to-device
-// copy precedes a launch.
+// copy precedes a launch. The masked fold reads the mask of every row of
+// the padded batch, and the slot, values and spec masks only of the rows
+// the mask keeps (an edge refold keeps a time cut of one bucket), whose
+// atomics it issues; like the fold, it takes far longer than its byte
+// bound, its atomics at L2 being the likely limit.
 
 #include "groupby_common.cuh"
+#include "slot_type.cuh"
 
 // One thread per row, grid-stride. `base` is the row mask after WHERE;
 // M[s] is spec s's mask (base AND column validity AND not-NaN AND its
 // FILTER), V[s] its float32 argument. A masked row writes nothing: the
 // reference adds/mins/maxes the identity for it, which leaves the same
-// state. A slot outside [0, C) is dropped, as XLA drops an out-of-range
-// scatter update. The destination pane is `pane`, or pane_vec[r] when
-// pane_vec is given (per-row panes: a sliding batch that crosses a bucket
-// edge, the reference's uint8 pane vector); a pane outside [0, P) is
-// dropped likewise.
+// state. The destination pane is `pane`, or pane_vec[r] when pane_vec is
+// given (per-row panes: a sliding batch that crosses a bucket edge, the
+// reference's uint8 pane vector). fold_scalar_row (csrc/groupby_common.cuh)
+// drops a slot outside [0, C) or a pane outside [0, P).
+template <typename SlotT>
 __global__ void fold_scalar_kernel(const uint8_t* __restrict__ base,
                                    const float* __restrict__ V,
                                    const uint8_t* __restrict__ M,
-                                   const int32_t* __restrict__ slots, int R,
+                                   const SlotT* __restrict__ slots, int R,
                                    int pane, const uint8_t* __restrict__ pane_vec,
                                    int P, int C, ColMap cm, Comps cp,
                                    float* __restrict__ act) {
   for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < R;
        r += gridDim.x * blockDim.x) {
     if (!base[r]) continue;
-    const int slot = slots[r];
-    if (slot < 0 || slot >= C) continue;
     const int p = pane_vec != nullptr ? (int)pane_vec[r] : pane;
-    if (p >= P) continue;
-    const int64_t pc = (int64_t)p * C + slot;
-    atomicAdd(act + pc, 1.0f);
-    fold_row_columns(cm, cp, V, M, R, r, pc);
+    fold_scalar_row(cm, cp, V, M, slots, R, r, p, P, C, act);
+  }
+}
+
+// The masked fold (#2): one thread per row of a cached, padded batch,
+// grid-stride. mask[r] is the refold's row mask after WHERE (the rows of
+// one bucket inside the window's time cut; padding rows are 0); M[s] is
+// already ANDed with it. Every row goes to the one pane `pane` (the
+// sliding refold's scratch pane). A row with mask 0 writes nothing, so
+// the padding past the batch's real rows (slot 0) changes no act, no
+// min/max identity, no counter.
+template <typename SlotT>
+__global__ void fold_masked_scalar_kernel(const uint8_t* __restrict__ mask,
+                                          const float* __restrict__ V,
+                                          const uint8_t* __restrict__ M,
+                                          const SlotT* __restrict__ slots,
+                                          int R, int pane, int P, int C,
+                                          ColMap cm, Comps cp,
+                                          float* __restrict__ act) {
+  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < R;
+       r += gridDim.x * blockDim.x) {
+    if (!mask[r]) continue;
+    fold_scalar_row(cm, cp, V, M, slots, R, r, pane, P, C, act);
   }
 }
 
@@ -94,9 +119,10 @@ extern "C" {
 
 // colmap: host int32 (ncols, 3) = (comp, k, spec). comp_ptrs / comp_k:
 // host arrays of N_COMPS device pointers (null = absent) and widths.
-// pane_vec: device uint8 (R,) per-row panes, or null for the scalar pane.
+// slots: device (R,) of uint16 if slot_u16, else int32. pane_vec: device
+// uint8 (R,) per-row panes, or null for the scalar pane.
 int groupby_fold_scalar(const uint8_t* base, const float* V, const uint8_t* M,
-                        const int32_t* slots, int R, int pane,
+                        const void* slots, int slot_u16, int R, int pane,
                         const uint8_t* pane_vec, int P, int C,
                         const int32_t* colmap, int ncols,
                         float* const* comp_ptrs, const int32_t* comp_k,
@@ -106,11 +132,36 @@ int groupby_fold_scalar(const uint8_t* base, const float* V, const uint8_t* M,
     return (int)cudaErrorInvalidValue;
   if (R == 0) return (int)cudaSuccess;
   const int threads = 256;
-  fold_scalar_kernel<<<grid_for(R, threads), threads, 0,
-                       (cudaStream_t)stream>>>(base, V, M, slots, R, pane,
-                                               pane_vec, P, C, cm,
-                                               make_comps(comp_ptrs, comp_k),
-                                               act);
+  const Comps cp = make_comps(comp_ptrs, comp_k);
+  cudaStream_t st = (cudaStream_t)stream;
+  with_slot_type(slots, slot_u16, [&](auto s) {
+    fold_scalar_kernel<<<grid_for(R, threads), threads, 0, st>>>(
+        base, V, M, s, R, pane, pane_vec, P, C, cm, cp, act);
+  });
+  return (int)cudaGetLastError();
+}
+
+// The masked fold (#2). mask: device uint8 (R,), the row mask after WHERE;
+// V / M: device (S, R); slots: device (R,) of uint16 if slot_u16, else
+// int32; pane: the destination pane, inside [0, P). colmap, comp_ptrs,
+// comp_k: as groupby_fold_scalar.
+int groupby_fold_masked_scalar(const uint8_t* mask, const float* V,
+                               const uint8_t* M, const void* slots,
+                               int slot_u16, int R, int pane, int P, int C,
+                               const int32_t* colmap, int ncols,
+                               float* const* comp_ptrs, const int32_t* comp_k,
+                               float* act, void* stream) {
+  ColMap cm;
+  if (!make_colmap(colmap, ncols, &cm) || R < 0 || pane < 0 || pane >= P)
+    return (int)cudaErrorInvalidValue;
+  if (R == 0) return (int)cudaSuccess;
+  const int threads = 256;
+  const Comps cp = make_comps(comp_ptrs, comp_k);
+  cudaStream_t st = (cudaStream_t)stream;
+  with_slot_type(slots, slot_u16, [&](auto s) {
+    fold_masked_scalar_kernel<<<grid_for(R, threads), threads, 0, st>>>(
+        mask, V, M, s, R, pane, P, C, cm, cp, act);
+  });
   return (int)cudaGetLastError();
 }
 

@@ -17,6 +17,10 @@
 //                       sketches.hll_parts / hist_bin / hh_update_parts.
 //                       One launch per batch, after groupby_fold_scalar
 //                       (which adds act and the scalar components).
+// groupby_fold_masked_wide replaces the same branches of
+//                       _fold_masked_impl (groupby.py:354): the wide fold
+//                       under an explicit (mb,) row mask into one pane,
+//                       after groupby_fold_masked_scalar (csrc/groupby.cu).
 // groupby_finalize_wide replaces the hll and percentile_approx final
 //                       values of _final_value (groupby.py:510-519) with
 //                       sketches.hll_estimate / hist_quantile, and their
@@ -41,6 +45,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "slot_type.cuh"
 
 #define N_WIDE 3  // hll, hist, hh (ekuiper_tpu_torch/ops/kernels.py WIDE_IDS)
 #define MAX_COLS 64
@@ -128,55 +134,88 @@ __device__ __forceinline__ int hist_bin(float v, const HistConsts& hc) {
   return v > 0.0f ? HIST_HALF + 1 + idx : HIST_HALF - 1 - idx;
 }
 
+// One row of the wide fold into pane p: per wide column whose spec mask
+// M[s] is set, the hll register max, the histogram bin add or the
+// heavy-hitters cell adds of V[s] (the hll encoding, the value, or the
+// heavy-hitters dictionary code). A masked column writes nothing (the
+// reference max-es 0 or adds 0 for it); a slot outside [0, C) or a pane
+// outside [0, P) is dropped. SlotT: uint16 or int32, as the scalar fold's
+// (csrc/groupby_common.cuh fold_scalar_row).
+template <typename SlotT>
+__device__ __forceinline__ void fold_wide_row(const float* __restrict__ V,
+                                              const uint8_t* __restrict__ M,
+                                              const SlotT* __restrict__ slots,
+                                              int R, int r, int p, int P,
+                                              int C, const WideCols& wc,
+                                              const Wide& w,
+                                              const HistConsts& hc) {
+  const int slot = (int)slots[r];
+  if (slot < 0 || slot >= C || p < 0 || p >= P) return;
+  for (int j = 0; j < wc.n; ++j) {
+    const int64_t at = (int64_t)wc.spec[j] * R + r;
+    if (!M[at]) continue;
+    const int comp = wc.comp[j];
+    const int W = kWideW[comp];
+    float* dst =
+        w.p[comp] + (((int64_t)p * C + slot) * w.k[comp] + wc.k[j]) * W;
+    const float v = V[at];
+    if (comp == W_HLL) {
+      const uint32_t h1 = hash_f32(v, 1u);
+      const uint32_t h2 = hash_f32(v, 2u);
+      // rho = 33 - (highest set bit of float32(max(h2, 1))), from the
+      // rounded float's exponent: 33 - (e - 126)
+      const float hv = __uint2float_rn(h2 > 1u ? h2 : 1u);
+      const int rho = 159 - (int)((__float_as_uint(hv) >> 23) & 0xff);
+      if (rho > 0)
+        atomicMax(reinterpret_cast<int*>(dst + (h1 & (HLL_M - 1))),
+                  __float_as_int((float)rho));
+    } else if (comp == W_HIST) {
+      atomicAdd(dst + hist_bin(v, hc), 1.0f);
+    } else {
+      const uint32_t code = (uint32_t)(long long)v;
+      for (int d = 0; d < HH_DEPTH; ++d) {
+        float* cell = dst + (d * HH_WIDTH + hh_slot(code, d)) * HH_CELL;
+        atomicAdd(cell, 1.0f);
+        for (int b = 0; b < HH_BITS; ++b)
+          if ((code >> b) & 1u) atomicAdd(cell + 1 + b, 1.0f);
+      }
+    }
+  }
+}
+
 // One thread per row, grid-stride. M[s] is spec s's mask (the row mask
-// after WHERE AND column validity AND not-NaN AND its FILTER), V[s] its
-// float32 argument: the hll encoding, the value, or the heavy-hitters
-// dictionary code. A masked row writes nothing (the reference max-es 0 or
-// adds 0 for it); a slot outside [0, C) is dropped. The pane is `pane`, or
-// pane_vec[r] when pane_vec is given (per-row panes, as
-// groupby_fold_scalar); a pane outside [0, P) is dropped.
+// after WHERE AND column validity AND not-NaN AND its FILTER). The pane is
+// `pane`, or pane_vec[r] when pane_vec is given (per-row panes, as
+// groupby_fold_scalar).
+template <typename SlotT>
 __global__ void fold_wide_kernel(const float* __restrict__ V,
                                  const uint8_t* __restrict__ M,
-                                 const int32_t* __restrict__ slots, int R,
+                                 const SlotT* __restrict__ slots, int R,
                                  int pane, const uint8_t* __restrict__ pane_vec,
                                  int P, int C, WideCols wc, Wide w,
                                  HistConsts hc) {
   for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < R;
        r += gridDim.x * blockDim.x) {
-    const int slot = slots[r];
-    if (slot < 0 || slot >= C) continue;
     const int p = pane_vec != nullptr ? (int)pane_vec[r] : pane;
-    if (p >= P) continue;
-    for (int j = 0; j < wc.n; ++j) {
-      const int64_t at = (int64_t)wc.spec[j] * R + r;
-      if (!M[at]) continue;
-      const int comp = wc.comp[j];
-      const int W = kWideW[comp];
-      float* dst =
-          w.p[comp] + (((int64_t)p * C + slot) * w.k[comp] + wc.k[j]) * W;
-      const float v = V[at];
-      if (comp == W_HLL) {
-        const uint32_t h1 = hash_f32(v, 1u);
-        const uint32_t h2 = hash_f32(v, 2u);
-        // rho = 33 - (highest set bit of float32(max(h2, 1))), from the
-        // rounded float's exponent: 33 - (e - 126)
-        const float hv = __uint2float_rn(h2 > 1u ? h2 : 1u);
-        const int rho = 159 - (int)((__float_as_uint(hv) >> 23) & 0xff);
-        if (rho > 0)
-          atomicMax(reinterpret_cast<int*>(dst + (h1 & (HLL_M - 1))),
-                    __float_as_int((float)rho));
-      } else if (comp == W_HIST) {
-        atomicAdd(dst + hist_bin(v, hc), 1.0f);
-      } else {
-        const uint32_t code = (uint32_t)(long long)v;
-        for (int d = 0; d < HH_DEPTH; ++d) {
-          float* cell = dst + (d * HH_WIDTH + hh_slot(code, d)) * HH_CELL;
-          atomicAdd(cell, 1.0f);
-          for (int b = 0; b < HH_BITS; ++b)
-            if ((code >> b) & 1u) atomicAdd(cell + 1 + b, 1.0f);
-        }
-      }
-    }
+    fold_wide_row(V, M, slots, R, r, p, P, C, wc, w, hc);
+  }
+}
+
+// The masked wide fold (#2): one thread per row of a cached, padded batch,
+// grid-stride, into the one pane `pane`. mask[r] is the refold's row mask
+// after WHERE (0 on padding rows), M[s] already ANDed with it; a row with
+// mask 0 is skipped before its spec masks are read.
+template <typename SlotT>
+__global__ void fold_masked_wide_kernel(const uint8_t* __restrict__ mask,
+                                        const float* __restrict__ V,
+                                        const uint8_t* __restrict__ M,
+                                        const SlotT* __restrict__ slots, int R,
+                                        int pane, int P, int C, WideCols wc,
+                                        Wide w, HistConsts hc) {
+  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < R;
+       r += gridDim.x * blockDim.x) {
+    if (!mask[r]) continue;
+    fold_wide_row(V, M, slots, R, r, pane, P, C, wc, w, hc);
   }
 }
 
@@ -364,6 +403,19 @@ static Wide make_wide(float* const* ptrs, const int32_t* ks) {
   return w;
 }
 
+// colmap: host int32 (ncols, 3) = (wide comp, k, spec). False if it is
+// too long.
+static bool make_widecols(const int32_t* colmap, int ncols, WideCols* wc) {
+  if (ncols < 0 || ncols > MAX_COLS) return false;
+  wc->n = ncols;
+  for (int j = 0; j < ncols; ++j) {
+    wc->comp[j] = colmap[3 * j];
+    wc->k[j] = colmap[3 * j + 1];
+    wc->spec[j] = colmap[3 * j + 2];
+  }
+  return true;
+}
+
 static HistConsts make_hc(const float* hist_consts) {
   HistConsts hc;
   hc.lo = hist_consts[0];
@@ -380,25 +432,49 @@ extern "C" {
 // colmap: host int32 (ncols, 3) = (wide comp, k, spec). wide_ptrs /
 // wide_k: host arrays of N_WIDE device pointers (null = absent) and K.
 // hist_consts: host float32 (lo, hi, 1/lo, 1/log_gamma, log_gamma,
-// center_scale). pane_vec: device uint8 (R,) per-row panes, or null.
-int groupby_fold_wide(const float* V, const uint8_t* M, const int32_t* slots,
-                      int R, int pane, const uint8_t* pane_vec, int P, int C,
-                      const int32_t* colmap, int ncols,
+// center_scale). slots: device (R,) of uint16 if slot_u16, else int32.
+// pane_vec: device uint8 (R,) per-row panes, or null.
+int groupby_fold_wide(const float* V, const uint8_t* M, const void* slots,
+                      int slot_u16, int R, int pane, const uint8_t* pane_vec,
+                      int P, int C, const int32_t* colmap, int ncols,
                       float* const* wide_ptrs, const int32_t* wide_k,
                       const float* hist_consts, void* stream) {
-  if (ncols > MAX_COLS || R < 0) return (int)cudaErrorInvalidValue;
-  if (R == 0 || ncols == 0) return (int)cudaSuccess;
   WideCols wc;
-  wc.n = ncols;
-  for (int j = 0; j < ncols; ++j) {
-    wc.comp[j] = colmap[3 * j];
-    wc.k[j] = colmap[3 * j + 1];
-    wc.spec[j] = colmap[3 * j + 2];
-  }
+  if (!make_widecols(colmap, ncols, &wc) || R < 0)
+    return (int)cudaErrorInvalidValue;
+  if (R == 0 || ncols == 0) return (int)cudaSuccess;
   const int threads = 256;
-  fold_wide_kernel<<<grid_for(R, threads), threads, 0, (cudaStream_t)stream>>>(
-      V, M, slots, R, pane, pane_vec, P, C, wc, make_wide(wide_ptrs, wide_k),
-      make_hc(hist_consts));
+  const Wide w = make_wide(wide_ptrs, wide_k);
+  const HistConsts hc = make_hc(hist_consts);
+  cudaStream_t st = (cudaStream_t)stream;
+  with_slot_type(slots, slot_u16, [&](auto s) {
+    fold_wide_kernel<<<grid_for(R, threads), threads, 0, st>>>(
+        V, M, s, R, pane, pane_vec, P, C, wc, w, hc);
+  });
+  return (int)cudaGetLastError();
+}
+
+// The masked wide fold (#2). mask: device uint8 (R,), the row mask after
+// WHERE; pane: the destination pane, inside [0, P); the rest as
+// groupby_fold_wide.
+int groupby_fold_masked_wide(const uint8_t* mask, const float* V,
+                             const uint8_t* M, const void* slots, int slot_u16,
+                             int R, int pane, int P, int C,
+                             const int32_t* colmap, int ncols,
+                             float* const* wide_ptrs, const int32_t* wide_k,
+                             const float* hist_consts, void* stream) {
+  WideCols wc;
+  if (!make_widecols(colmap, ncols, &wc) || R < 0 || pane < 0 || pane >= P)
+    return (int)cudaErrorInvalidValue;
+  if (R == 0 || ncols == 0) return (int)cudaSuccess;
+  const int threads = 256;
+  const Wide w = make_wide(wide_ptrs, wide_k);
+  const HistConsts hc = make_hc(hist_consts);
+  cudaStream_t st = (cudaStream_t)stream;
+  with_slot_type(slots, slot_u16, [&](auto s) {
+    fold_masked_wide_kernel<<<grid_for(R, threads), threads, 0, st>>>(
+        mask, V, M, s, R, pane, P, C, wc, w, hc);
+  });
   return (int)cudaGetLastError();
 }
 

@@ -8,6 +8,10 @@ and (n_panes, capacity, k, W) for the sketch components:
 - TUMBLING windows: 1 pane, reset after emit.
 - HOPPING windows: P = length/interval panes; emit merges the live panes,
   expiry resets one pane.
+- SLIDING windows: one pane per time bucket plus a scratch pane, into
+  which the refold path refolds a trigger's edge buckets (`fold_masked`,
+  over batches kept on the device) before finalizing an arbitrary pane
+  mask (`finalize_begin`).
 
 State components per spec: n (count), s1 (sum), s2 (sum of squares), mn
 (min), mx (max), the wide hll (HyperLogLog registers, W 256), hist
@@ -40,6 +44,20 @@ from .prefinalize import (DeferredFetch, FetchPool, PendingFinalize,
                           merge_components)
 
 _INIT = kernels.INIT
+
+
+def col_np_dtype(plan: KernelPlan, name: str):
+    """Upload dtype of one kernel column (the reference's): float32 unless
+    the plan declares otherwise; every column the port plans is float32."""
+    return np.dtype(getattr(plan, "col_dtypes", {}).get(name, "float32"))
+
+
+def slot_dtype(capacity: int):
+    """Slot-vector dtype for a key capacity (the reference's): uint16 while
+    every slot id (0..capacity-1) fits, int32 past 65,535. A cached sliding
+    batch keeps the dtype it was uploaded with: after a doubling past the
+    boundary its uint16 slots still index the same dense slots."""
+    return np.uint16 if capacity <= 65535 else np.int32
 
 
 def apply_int_semantics(specs, host: List[np.ndarray]) -> List[np.ndarray]:
@@ -88,6 +106,9 @@ class TorchGroupBy:
 
     #: the latency-hiding emit pipeline (ops/prefinalize.py) works here
     supports_prefinalize = True
+    #: fold() takes pre-padded device tensors (the sliding refold's cached
+    #: uploads)
+    accepts_device_inputs = True
 
     def __init__(self, plan: KernelPlan, capacity: int = 16384,
                  n_panes: int = 1, micro_batch: int = 4096,
@@ -174,7 +195,7 @@ class TorchGroupBy:
         return out
 
     # ------------------------------------------------------------------- fold
-    def _upload(self, arr: np.ndarray, dtype) -> torch.Tensor:
+    def upload(self, arr: np.ndarray, dtype) -> torch.Tensor:
         """Host column → tensor on the device: through a pinned staging
         buffer and a non-blocking copy on a CUDA device (the caching host
         allocator keeps the buffer alive until the copy has run)."""
@@ -236,7 +257,15 @@ class TorchGroupBy:
         sliding batch that crosses a bucket edge routes each row to its
         bucket's pane; shipped as uint8, as the reference ships it).
         Rows are folded in chunks of at most `micro_batch`.
+
+        Pre-uploaded device inputs (the reference's shared-upload branch):
+        cols, valid and slots as tensors on the state's device, padded to
+        `micro_batch`, slots uint16 or int32, with `n_rows` real rows. They
+        fold as one chunk, with no second upload.
         """
+        if isinstance(slots, torch.Tensor):
+            return self._fold_device(state, cols, slots, valid or {},
+                                     pane_idx, n_rows)
         n = n_rows if n_rows is not None else len(slots)
         pane_vec = None
         if isinstance(pane_idx, np.ndarray):
@@ -261,16 +290,73 @@ class TorchGroupBy:
             cnt = end - start
             dev_cols: Dict[str, torch.Tensor] = {}
             for name in self.plan.columns:
-                dev_cols[name] = self._upload(
+                dev_cols[name] = self.upload(
                     cols[name][start:end], np.float32)
                 vm = valid.get(name)
                 if vm is not None:
-                    dev_cols["__valid_" + name] = self._upload(
+                    dev_cols["__valid_" + name] = self.upload(
                         vm[start:end], np.bool_)
-            s_dev = self._upload(slots[start:end], np.int32)
+            s_dev = self.upload(slots[start:end], np.int32)
             p_dev = (None if pane_vec is None
-                     else self._upload(pane_vec[start:end], np.uint8))
+                     else self.upload(pane_vec[start:end], np.uint8))
             self._fold_chunk(state, dev_cols, cnt, s_dev, pane, p_dev)
+        return state
+
+    def _fold_device(self, state: Dict[str, torch.Tensor],
+                     cols: Dict[str, torch.Tensor], slots: torch.Tensor,
+                     valid: Dict[str, torch.Tensor], pane_idx,
+                     n_rows: Optional[int]) -> Dict[str, torch.Tensor]:
+        """fold() of pre-padded device inputs: their first n_rows rows
+        (views, so no copy) as one chunk."""
+        n = int(n_rows) if n_rows is not None else len(slots)
+        if n > self.micro_batch or n > len(slots):
+            raise ValueError(f"pre-uploaded inputs hold one chunk of at most "
+                             f"{self.micro_batch} rows, got {n}")
+        pane, p_dev = 0, None
+        if isinstance(pane_idx, np.ndarray):
+            pv = np.asarray(pane_idx)[:n]
+            if n and (pv.min() < 0 or pv.max() >= self.n_panes):
+                raise ValueError(f"pane outside [0, {self.n_panes})")
+            p_dev = self.upload(pv, np.uint8)
+        else:
+            pane = int(pane_idx)
+            if not 0 <= pane < self.n_panes:
+                raise ValueError(f"pane {pane} outside [0, {self.n_panes})")
+        if n == 0:
+            return state
+        dev_cols = {name: cols[name][:n] for name in self.plan.columns}
+        for name, vm in valid.items():
+            if vm is not None:
+                dev_cols["__valid_" + name] = vm[:n]
+        self._fold_chunk(state, dev_cols, n, slots[:n], pane, p_dev)
+        return state
+
+    def fold_masked(self, state: Dict[str, torch.Tensor],
+                    dev_cols: Dict[str, Optional[torch.Tensor]],
+                    slots_dev: torch.Tensor, mask: np.ndarray,
+                    pane_idx: int) -> Dict[str, torch.Tensor]:
+        """Refold a cached pre-padded device batch into pane `pane_idx`
+        under a host (micro_batch,) bool row mask, in place (the
+        reference's fold_masked; rows outside the mask, the padding among
+        them, contribute nothing). dev_cols: each plan column and its
+        `__valid_<col>` mask (None where absent), as cached. Only the mask
+        crosses to the card; the row mask after WHERE goes to the masked
+        fold kernels (#2) with each spec's mask ANDed with it."""
+        cols = {k: v for k, v in dev_cols.items() if v is not None}
+        R = len(slots_dev)
+        if len(mask) != R:
+            raise ValueError(f"row mask of {len(mask)} for a batch of {R}")
+        pane = int(pane_idx)
+        if not 0 <= pane < self.n_panes:
+            raise ValueError(f"pane {pane} outside [0, {self.n_panes})")
+        base = self._where(cols, (R,)) & self.upload(mask, np.bool_)
+        V, M = self._spec_values(cols, R)
+        M = M & base
+        kernels.groupby_fold_masked_scalar(state, base, V, M, slots_dev, pane,
+                                           self._colmap)
+        if len(self._widemap):
+            kernels.groupby_fold_masked_wide(state, base, V, M, slots_dev,
+                                             pane, self._widemap)
         return state
 
     def _fold_chunk(self, state: Dict[str, torch.Tensor],
@@ -346,12 +432,19 @@ class TorchGroupBy:
             self._fetch = FetchPool(self.device)
         return self._fetch
 
-    def finalize_begin(self, state: Dict[str, torch.Tensor]
+    def finalize_begin(self, state: Dict[str, torch.Tensor],
+                       pane_mask: Optional[np.ndarray] = None
                        ) -> PendingFinalize:
-        """Launch the finalize over every pane and start its copy to the
-        host; the async emit reads it with host_tail (the reference's
-        _finalize / _hh_fin dispatch + copy_to_host_async)."""
-        out = self._finalize(state, self._pane_mask(None))
+        """Launch the finalize over every pane, or over the (P,) bool
+        `pane_mask` (the sliding refold's window: its full panes and the
+        scratch pane), and start its copy to the host; the async emit reads
+        it with host_tail (the reference's _finalize / _finalize_dyn /
+        _hh_fin dispatch + copy_to_host_async). The result is a fresh
+        tensor whose copy waits for an event recorded right after the
+        launch, so a pane reset or fold launched next cannot reach it."""
+        pm = (self._pane_mask(None) if pane_mask is None
+              else self._mask_tensor(pane_mask))
+        out = self._finalize(state, pm)
         return begin_pending(out, None, self._fetch_pool())
 
     def finalize_later(self, state: Dict[str, torch.Tensor]) -> DeferredFetch:
@@ -457,7 +550,7 @@ class TorchGroupBy:
         place: a checkpoint in a host-only window tail flushes the tail's
         rows to the card so the snapshot is complete. The shadow arrays go
         up through pinned, non-blocking copies."""
-        sh = {k: self._upload(v, np.float32) for k, v in shadow_data.items()
+        sh = {k: self.upload(v, np.float32) for k, v in shadow_data.items()
               if k in state}
         kernels.groupby_absorb(state, sh, int(pane_idx))
         return state

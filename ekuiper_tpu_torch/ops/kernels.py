@@ -2,10 +2,10 @@
 wrappers that launch them, their plain PyTorch versions and their launch
 counts.
 
-Fourteen kernels, written by hand in CUDA C++ for Hopper, each replacing
+Sixteen kernels, written by hand in CUDA C++ for Hopper, each replacing
 one device program of the reference (ekuiper_tpu/ops/groupby.py,
 ekuiper_tpu/ops/slidingring.py and ekuiper_tpu/parallel/multirule.py).
-Three in
+Four in
 ekuiper_tpu_torch/csrc/groupby.cu:
 
 - `groupby_fold_scalar` replaces `DeviceGroupBy._fold_impl` → `_fold_core`
@@ -22,7 +22,13 @@ ekuiper_tpu_torch/csrc/groupby.cu:
   tensors first, so the kernel itself does no expression work. Rows go
   to one pane, or each to its own pane (`pane_vec`, the reference's
   uint8 per-row pane vector, groupby.py:334-338: a sliding batch that
-  crosses a bucket edge).
+  crosses a bucket edge). Slots come as int32 (the host fold's upload) or
+  uint16 (a cached sliding batch, the reference's slot_dtype).
+- `groupby_fold_masked_scalar` replaces `_fold_masked_impl` (groupby.py:354):
+  the same fold of a cached, padded batch under an explicit (mb,) row mask
+  (mask ∧ WHERE), into one pane: the sliding refold's edge folds. Bound
+  as the fold's; one thread per row, a row with mask 0 (a hole, or the
+  padding past the batch's real rows) writes nothing.
 - `groupby_finalize_scalar` replaces `_finalize_impl`/`_finalize_dyn_impl`
   → `_finalize_body`/`_merged`/`_final_value` (groupby.py:444-520): pane
   merge under a (P,) mask tensor, the per-spec final value, and the
@@ -38,7 +44,7 @@ ekuiper_tpu_torch/csrc/groupby.cu:
   Design: one launch covers every component; each pane of a component is
   one contiguous run, stored grid-stride and coalesced.
 
-And three in ekuiper_tpu_torch/csrc/sketches.cu, for the sketch
+And four in ekuiper_tpu_torch/csrc/sketches.cu, for the sketch
 aggregates (hll, percentile_approx, heavy_hitters), whose state
 components are wide: (P, C, K, W) with W = 256 / 1,024 / 2,688:
 
@@ -50,6 +56,10 @@ components are wide: (P, C, K, W) with W = 256 / 1,024 / 2,688:
   columns), with the same per-row panes (the hh branch indexes
   (pane_vec[r], slot, k, idx), groupby.py:432-434). Likely bound: its
   atomics at L2 (at most 42 a row for hh).
+- `groupby_fold_masked_wide` replaces the same branches of
+  `_fold_masked_impl` (groupby.py:354): the wide fold under the refold's
+  row mask into one pane, beside groupby_fold_masked_scalar, sharing the
+  per-row code of groupby_fold_wide.
 - `groupby_finalize_wide` replaces the `hll` and `percentile_approx`
   kinds of `_final_value` (groupby.py:510-519) and their pane merge: one
   block per slot; it writes those specs' rows of the same output that
@@ -142,7 +152,8 @@ SOURCES = {"groupby": _PKG / "csrc" / "groupby.cu",
            "slidingring": _PKG / "csrc" / "slidingring.cu",
            "multirule": _PKG / "csrc" / "multirule.cu"}
 #: headers the sources include (part of every library's build tag)
-HEADERS = (_PKG / "csrc" / "groupby_common.cuh",)
+HEADERS = (_PKG / "csrc" / "groupby_common.cuh",
+           _PKG / "csrc" / "slot_type.cuh")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -187,6 +198,8 @@ HLL_NUM = float(np.float32(0.7213 / (1.0 + 1.079 / sketches.HLL_M)
 
 #: launches of each kernel since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0,
+                            "groupby_fold_masked_scalar": 0,
+                            "groupby_fold_masked_wide": 0,
                             "groupby_finalize_scalar": 0,
                             "groupby_reset_pane": 0,
                             "groupby_fold_wide": 0,
@@ -289,14 +302,18 @@ def _load():
             paths = build_library()
             P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             gb = ctypes.CDLL(str(paths["groupby"]))
-            gb.groupby_fold_scalar.argtypes = [P, P, P, P, I, I, P, I, I,
-                                               P, I, P, P, P, P]
+            gb.groupby_fold_scalar.argtypes = [P, P, P, P, I, I, I, P, I,
+                                               I, P, I, P, P, P, P]
+            gb.groupby_fold_masked_scalar.argtypes = [P, P, P, P, I, I, I,
+                                                      I, I, P, I, P, P, P, P]
             gb.groupby_finalize_scalar.argtypes = [P, P, P, P, I, I, P, I,
                                                    I, P, P]
             gb.groupby_reset_pane.argtypes = [P, P, P, I, I, P]
             sk = ctypes.CDLL(str(paths["sketches"]))
-            sk.groupby_fold_wide.argtypes = [P, P, P, I, I, P, I, I, P, I,
-                                             P, P, P, P]
+            sk.groupby_fold_wide.argtypes = [P, P, P, I, I, I, P, I, I, P,
+                                             I, P, P, P, P]
+            sk.groupby_fold_masked_wide.argtypes = [P, P, P, P, I, I, I, I,
+                                                    I, P, I, P, P, P, P]
             sk.groupby_finalize_wide.argtypes = [P, P, P, I, I, P, P, I, P,
                                                  L, P, P]
             sk.groupby_hh_finalize.argtypes = [P, I, P, I, I, P, I, P, P]
@@ -315,9 +332,11 @@ def _load():
                                               I, P, P]
             mr.multirule_reset_pane.argtypes = [P, P, P, I, I, I, I, P]
             for lib, fns in ((gb, ("groupby_fold_scalar",
+                                   "groupby_fold_masked_scalar",
                                    "groupby_finalize_scalar",
                                    "groupby_reset_pane")),
                              (sk, ("groupby_fold_wide",
+                                   "groupby_fold_masked_wide",
                                    "groupby_finalize_wide",
                                    "groupby_hh_finalize")),
                              (pf, ("groupby_components", "groupby_absorb")),
@@ -419,7 +438,7 @@ def groupby_fold_scalar(state: Dict[str, torch.Tensor], base: torch.Tensor,
 
     base: bool (R,) row mask after WHERE. V: float32 (S, R) spec values;
     M: bool (S, R) spec masks (each already ANDed with base). slots: int32
-    (R,). colmap: int32 (ncols, 3) of (COMP_IDS[comp], k, spec).
+    or uint16 (R,). colmap: int32 (ncols, 3) of (COMP_IDS[comp], k, spec).
     pane_vec: optional uint8 (R,) per-row panes, which replace `pane`; the
     caller checks their range on the host (a pane outside [0, P) is
     dropped, as an out-of-range slot is).
@@ -438,9 +457,9 @@ def groupby_fold_scalar(state: Dict[str, torch.Tensor], base: torch.Tensor,
     lib = _load()
     with torch.cuda.device(dev):
         rc = lib.groupby.groupby_fold_scalar(
-            _ptr(base), _ptr(V), _ptr(M), _ptr(slots), R, int(pane),
-            _opt_ptr(pane_vec), P, C, _ptr(colmap), len(colmap), _ptr(ptrs),
-            _ptr(ks), _ptr(act), _stream(dev))
+            _ptr(base), _ptr(V), _ptr(M), _ptr(slots), _u16(slots), R,
+            int(pane), _opt_ptr(pane_vec), P, C, _ptr(colmap), len(colmap),
+            _ptr(ptrs), _ptr(ks), _ptr(act), _stream(dev))
         LAUNCHES[name] += 1
         if pane_vec is not None:
             ROW_PANE_LAUNCHES[name] += 1
@@ -451,13 +470,23 @@ def _opt_ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
+def _u16(slots: torch.Tensor) -> int:
+    return int(slots.dtype == torch.uint16)
+
+
 def _check_batch(name, V, M, slots, pane, P, colmap, dev,
-                 pane_vec=None) -> np.ndarray:
-    """Checks shared by the folds; returns the contiguous column map."""
+                 pane_vec=None, slot_dtypes=(torch.int32, torch.uint16)
+                 ) -> np.ndarray:
+    """Checks shared by the folds; returns the contiguous column map. The
+    slots are int32, or uint16 where `slot_dtypes` takes it (the single
+    rule's folds and masked folds: a cached sliding batch's slots)."""
     S, R = V.shape
     _check(name, V, torch.float32, (S, R), dev)
     _check(name, M, torch.bool, (S, R), dev)
-    _check(name, slots, torch.int32, (R,), dev)
+    if slots.dtype not in slot_dtypes:
+        raise TypeError(f"{name}: slots of {slots.dtype}, expected one of "
+                        f"{list(slot_dtypes)}")
+    _check(name, slots, slots.dtype, (R,), dev)
     if pane_vec is not None:
         _check(name, pane_vec, torch.uint8, (R,), dev)
     colmap = np.ascontiguousarray(colmap, dtype=np.int32).reshape(-1, 3)
@@ -551,9 +580,9 @@ def groupby_fold_wide(state: Dict[str, torch.Tensor], V: torch.Tensor,
     lib = _load()
     with torch.cuda.device(dev):
         rc = lib.sketches.groupby_fold_wide(
-            _ptr(V), _ptr(M), _ptr(slots), R, int(pane), _opt_ptr(pane_vec),
-            P, C, _ptr(widemap), len(widemap), _ptr(ptrs), _ptr(ks),
-            _ptr(HIST_CONSTS), _stream(dev))
+            _ptr(V), _ptr(M), _ptr(slots), _u16(slots), R, int(pane),
+            _opt_ptr(pane_vec), P, C, _ptr(widemap), len(widemap), _ptr(ptrs),
+            _ptr(ks), _ptr(HIST_CONSTS), _stream(dev))
         LAUNCHES[name] += 1
         if pane_vec is not None:
             ROW_PANE_LAUNCHES[name] += 1
@@ -586,6 +615,84 @@ def fold_wide_plain(state, V, M, slots, pane, widemap,
             idx, wts = sketches.hh_update_parts(v, m.to(arr.dtype))
             flat.index_put_(((row[:, None] + idx).reshape(-1),),
                             wts.reshape(-1), accumulate=True)
+
+
+# ----------------------------------------------------------- masked fold
+def groupby_fold_masked_scalar(state: Dict[str, torch.Tensor],
+                               mask: torch.Tensor, V: torch.Tensor,
+                               M: torch.Tensor, slots: torch.Tensor,
+                               pane: int, colmap: np.ndarray) -> None:
+    """The masked fold (#2): fold a cached, padded batch into pane `pane`
+    of `state` in place, act and the scalar components, under the row mask
+    `mask` (bool (R,): the refold's rows ∧ WHERE; 0 on padding rows).
+
+    V: float32 (S, R); M: bool (S, R), each spec's mask already ANDed with
+    `mask`. slots: uint16 or int32 (R,). colmap: as groupby_fold_scalar's.
+    """
+    name = "groupby_fold_masked_scalar"
+    if not _on_cuda(name, state):
+        fold_masked_scalar_plain(state, mask, V, M, slots, pane, colmap)
+        return
+    act = state["act"]
+    P, C = act.shape
+    S, R = V.shape
+    dev = act.device
+    _check(name, mask, torch.bool, (R,), dev)
+    colmap = _check_batch(name, V, M, slots, pane, P, colmap, dev)
+    ptrs, ks = _comp_table(name, state)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.groupby.groupby_fold_masked_scalar(
+            _ptr(mask), _ptr(V), _ptr(M), _ptr(slots), _u16(slots), R,
+            int(pane), P, C, _ptr(colmap), len(colmap), _ptr(ptrs), _ptr(ks),
+            _ptr(act), _stream(dev))
+        LAUNCHES[name] += 1
+    _raise_on(lib, name, rc)
+
+
+def fold_masked_scalar_plain(state, mask, V, M, slots, pane,
+                             colmap) -> None:
+    """Plain PyTorch version of groupby_fold_masked_scalar (the reference's
+    _fold_core under base = mask): the fold's, into one pane."""
+    fold_scalar_plain(state, mask, V, M, slots, pane, colmap)
+
+
+def groupby_fold_masked_wide(state: Dict[str, torch.Tensor],
+                             mask: torch.Tensor, V: torch.Tensor,
+                             M: torch.Tensor, slots: torch.Tensor, pane: int,
+                             widemap: np.ndarray) -> None:
+    """The masked fold (#2) of the wide sketch components, in place: mask,
+    V, M, slots and pane as groupby_fold_masked_scalar's; widemap as
+    groupby_fold_wide's."""
+    name = "groupby_fold_masked_wide"
+    if not _on_cuda(name, state):
+        fold_masked_wide_plain(state, mask, V, M, slots, pane, widemap)
+        return
+    act = state["act"]
+    P, C = act.shape
+    S, R = V.shape
+    dev = act.device
+    _check(name, mask, torch.bool, (R,), dev)
+    widemap = _check_batch(name, V, M, slots, pane, P, widemap, dev)
+    ptrs, ks = _wide_table(name, state)
+    for comp_id, k, _ in widemap.tolist():
+        if not 0 <= k < ks[comp_id]:
+            raise ValueError(f"{name}: column {k} outside component "
+                             f"{_WIDE_NAMES[comp_id]}")
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.sketches.groupby_fold_masked_wide(
+            _ptr(mask), _ptr(V), _ptr(M), _ptr(slots), _u16(slots), R,
+            int(pane), P, C, _ptr(widemap), len(widemap), _ptr(ptrs),
+            _ptr(ks), _ptr(HIST_CONSTS), _stream(dev))
+        LAUNCHES[name] += 1
+    _raise_on(lib, name, rc)
+
+
+def fold_masked_wide_plain(state, mask, V, M, slots, pane, widemap) -> None:
+    """Plain PyTorch version of groupby_fold_masked_wide: fold_wide_plain
+    with the row mask ANDed into every spec mask."""
+    fold_wide_plain(state, V, M & mask, slots, pane, widemap)
 
 
 # -------------------------------------------------------------- finalize
@@ -1221,7 +1328,8 @@ def multirule_fold(state: Dict[str, torch.Tensor], base: torch.Tensor,
     dev = act.device
     S, n = V.shape
     _check(name, base, torch.bool, (NR, n), dev)
-    colmap = _check_batch(name, V, M, slots, pane, P, colmap, dev)
+    colmap = _check_batch(name, V, M, slots, pane, P, colmap, dev,
+                          slot_dtypes=(torch.int32,))
     for comp_id, k, _ in colmap.tolist():
         if not 0 <= k < ks[comp_id]:
             raise ValueError(f"{name}: column {k} outside component "

@@ -37,14 +37,17 @@ def plan_fused_rule(sql: str, key_slots: int = 16384,
     `on_open()` has armed them on the engine clock (utils/timex.py), or
     at each `on_trigger` its caller makes. A sliding rule emits one
     window per trigger row (rows matching `cond`, by their timestamps),
-    through its emit worker (`node._drain_async_emits()` waits for it);
+    through its emit worker (`node._drain_async_emits()` waits for it;
+    a heavy_hitters rule's refold path emits synchronously);
     a delayed sliding window fires on the engine clock. `options` takes
     the rule options `prefinalizeLeadMs` (ms before a boundary at which
     its components fetch is pre-issued; 0 finalizes each boundary
     synchronously), `tailMode` ("device" or "host"), `slidingDevRingMb`
-    (the sliding ring's budget, which coarsens its buckets) and
-    `slidingImpl` ("daba"), with the reference's defaults (250, "device",
-    256, "daba").
+    (the sliding ring's budget, which coarsens its buckets, and the refold
+    path's device batch cache's) and `slidingImpl` ("daba", or "refold":
+    the reference's refold path, which a heavy_hitters rule or a ring over
+    its budget also takes; the node's `sliding_impl` says which runs),
+    with the reference's defaults (250, "device", 256, "daba").
 
     Raises PlanError for a statement that is not a windowed aggregate or
     an option value it cannot take, NotImplementedError for a shape or an

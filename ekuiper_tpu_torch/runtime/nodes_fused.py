@@ -40,19 +40,31 @@ the raw column) and heavy_hitters(col, k) reads `__hhc__col` (dense codes
 from a per-column ValueDict, decoded back to the original values at
 emit).
 
-SLIDING windows (`SLIDINGWINDOW(unit, L[, delay]) OVER (WHEN cond)`) run
-on the reference's DABA ring (ops/slidingring.py): rows fold into time
-panes of `bucket_ms` by row timestamp (a batch that crosses a bucket edge
-folds with a per-row pane vector), each closed bucket advances the ring's
-running partials, and a trigger row t emits the window (t - L, t + delay]
-as one ring query (the body) plus the two partial edge buckets folded on
-the host from a retained row ring into a HostShadow; the emit worker
-merges the two (`"ring"` deliveries, source `"device-ring"`). Off the
-in-order discipline (a gap, late rows, a recycled pane, a delayed
-emission) a trigger rebuilds the ring with one flip or merges the
-window's live panes with the components kernel. The reference's refold
-path (`slidingImpl: "refold"`, the heavy_hitters and over-budget
-fallbacks) is not ported: those raise NotImplementedError.
+SLIDING windows (`SLIDINGWINDOW(unit, L[, delay]) OVER (WHEN cond)`) fold
+rows into time panes of `bucket_ms` by row timestamp (a batch that crosses
+a bucket edge folds with a per-row pane vector) and keep the rows in a
+host row ring. A trigger row t emits the window (t - L, t + delay] by one
+of the reference's two implementations:
+
+- the DABA ring (ops/slidingring.py), the default: each closed bucket
+  advances the ring's running partials, and a trigger is one ring query
+  (the body) plus the two partial edge buckets folded on the host into a
+  HostShadow; the emit worker merges the two (`"ring"` deliveries, source
+  `"device-ring"`). Off the in-order discipline (a gap, late rows, a
+  recycled pane, a delayed emission) a trigger rebuilds the ring with one
+  flip or merges the window's live panes with the components kernel.
+- the refold path (`slidingImpl: "refold"`, and where the ring cannot
+  serve: a heavy_hitters plan, a ring over its `slidingDevRingMb` budget,
+  a plan the ring rejects; `sliding_fallback` names the reason): each
+  batch is uploaded once, padded to the micro-batch, and kept on the card
+  (`_dev_ring`, capped by the same budget, oldest entries evicted first).
+  A trigger refolds its two edge buckets into the scratch pane, from the
+  cached batches under a row mask (`fold_masked`, the masked fold
+  kernels) or from the host rows of evicted ones, then finalizes the full
+  panes and the scratch pane under one pane mask: heavy_hitters
+  synchronously (source `"sync"`), the others on the emit worker
+  (`"refold"` deliveries, source `"device-async"`), and resets the scratch
+  pane. A window whose pane was recycled refolds whole from the rows.
 
 Not ported yet, and refused at construction: session, count and state
 windows, event time, tiered key state and the mesh.
@@ -73,7 +85,7 @@ from ..data.batch import ColumnBatch
 from ..data.rows import GroupedTuples, GroupedTuplesSet, Tuple, WindowRange
 from ..ops.aggspec import (HH_COL_PREFIX, HLL_COL_PREFIX, KernelPlan,
                            ValueDict, _call_key, encode_hll_column)
-from ..ops.groupby import TorchGroupBy
+from ..ops.groupby import TorchGroupBy, col_np_dtype, slot_dtype
 from ..ops.keytable import KeyTable
 from ..ops.prefinalize import HostShadow, IdentityFinalize
 from ..ops.slidingring import QUERY_ADJ, SlidingRing, ring_layout_for
@@ -132,7 +144,7 @@ class FusedWindowAggNode(Node):
         prefinalize_backstop: bool = True,  # host backstop: boundaries never block
         tail_mode: str = "device",  # window-tail rows: "device" | "host"
         dev_ring_budget_mb: int = 256,  # sliding ring state cap (MB)
-        sliding_impl: str = "daba",  # only "daba" is ported
+        sliding_impl: str = "daba",  # "daba" rings | "refold"
         ring_layout=None,  # ops.slidingring.RingLayout chosen at plan time
     ) -> None:
         super().__init__(name)
@@ -605,7 +617,9 @@ class FusedWindowAggNode(Node):
                     finally:  # the rules' columns may view the pinned buffer
                         payload.release()
                     continue
-                try:  # "hh": the compact finalize, assembled here
+                # "hh" (the compact finalize) and "refold" (a sliding
+                # trigger's pane-mask finalize): assembled here
+                try:
                     outs, act = self.gb.host_tail(payload.get(), n_keys)
                     self.last_emit_info = {
                         "source": "device-async",
@@ -853,10 +867,27 @@ class FusedWindowAggNode(Node):
         self.bucket_ms = ring_layout.bucket_ms
         self.n_ring_panes = ring_layout.n_ring_panes
         self.n_panes = ring_layout.n_panes
+        self._scratch_pane = ring_layout.scratch_pane
         if sliding_impl not in ("daba", "refold"):
             raise ValueError(f"slidingImpl must be 'daba' or 'refold', "
                              f"got {sliding_impl!r}")
+        # the budget of the DABA ring's partials, or of the refold path's
+        # device batch cache
         self.dev_ring_budget_bytes = int(dev_ring_budget_mb) << 20
+        # refold path: bucket -> [(dev_all, slots, bucket row mask, ts) or
+        # None], aligned 1:1 with the _ring lists (None: no device copy, an
+        # evicted entry or one from before a restore), its bytes and its
+        # entries in age order (bucket, index, bytes)
+        self._dev_ring: Dict[int, list] = {}
+        self._dev_ring_bytes = 0
+        self._dev_ring_fifo: collections.deque = collections.deque()
+        # refold path: edge refolds by route ("cached" from the device
+        # cache, "host" from the row ring), whole-window "stale" refolds,
+        # "evicted" cache entries
+        self.refold_counts: collections.Counter = collections.Counter()
+        # why a sliding rule that asked for the ring runs the refold path
+        # ("heavy_hitters", "ring_rejected", "ring_budget"), else None
+        self.sliding_fallback: Optional[str] = None
         self._pane_bucket: Dict[int, int] = {}  # pane -> bucket it holds
         self._ring: Dict[int, list] = {}  # bucket -> [(cols, valid, slots, ts)]
         self._bucket_max_ts: Dict[int, int] = {}
@@ -877,29 +908,38 @@ class FusedWindowAggNode(Node):
                              "OVER (WHEN ...) trigger condition")
 
     def _choose_sliding_impl(self, requested: str) -> str:
-        """The DABA ring, or NotImplementedError where the reference would
-        take its refold path (not ported): a requested refold, a
-        heavy_hitters plan, a ring over the slidingDevRingMb budget."""
+        """The DABA ring, or the refold path where the reference takes it:
+        a requested refold, a heavy_hitters plan (its finalize is
+        assembled on the host), a plan the ring rejects, a ring over the
+        slidingDevRingMb budget. A fallback is logged and named in
+        `sliding_fallback` (the reference records a flight event)."""
         if requested != "daba":
-            raise NotImplementedError(
-                "slidingImpl 'refold' is not ported yet (only the DABA ring)")
+            return "refold"
         if self.gb._host_finalize_only:
-            raise NotImplementedError(
-                "heavy_hitters sliding rules take the reference's refold "
-                "path, which is not ported yet")
-        ring = SlidingRing(self.gb, self._ring_layout)
+            return self._sliding_fallback(
+                "heavy_hitters", "the ring has no heavy_hitters finalize")
+        try:
+            ring = SlidingRing(self.gb, self._ring_layout)
+        except ValueError as exc:
+            return self._sliding_fallback("ring_rejected", str(exc))
         est = ring.estimate_bytes(self.gb.capacity)
         if est > self.dev_ring_budget_bytes:
-            raise NotImplementedError(
-                f"sliding ring needs {est / 2**20:.1f} MB > slidingDevRingMb "
-                f"{self.dev_ring_budget_bytes / 2**20:.0f} MB; the refold "
-                "path the reference takes then is not ported yet")
+            return self._sliding_fallback(
+                "ring_budget",
+                f"the ring needs {est / 2**20:.1f} MB > slidingDevRingMb "
+                f"{self.dev_ring_budget_bytes / 2**20:.0f} MB")
         self.ring = ring
         self._ring_reset_tracking()
         # the running total keeps one spare bucket beyond the window span:
         # an evicted pane is subtracted before bucket b + R can recycle it
         self._span_tot = self._ring_layout.span_buckets + 1
         return "daba"
+
+    def _sliding_fallback(self, reason: str, why: str) -> str:
+        self.sliding_fallback = reason
+        logger.warning("%s: sliding ring unavailable (%s: %s); using the "
+                       "refold path", self.name, reason, why)
+        return "refold"
 
     def _ring_reset_tracking(self) -> None:
         """Host-side ring bookkeeping to a cold (dirty) state: the next
@@ -1031,18 +1071,34 @@ class FusedWindowAggNode(Node):
         # the row ring outlives the panes by a margin, so a trigger whose
         # pane was recycled can still fold the bucket's rows on the host
         floor_b = self._ring_max_bucket - R - 8
-        for b in [b for b in self._ring if b < floor_b]:
+        expired = [b for b in self._ring if b < floor_b]
+        for b in expired:
             del self._ring[b]
             self._bucket_max_ts.pop(b, None)
+            dropped = self._dev_ring.pop(b, None)
+            if dropped:
+                self._dev_ring_bytes -= sum(self._dev_entry_nbytes(e)
+                                            for e in dropped)
+        if expired:
+            # the evict loop drains the FIFO only over budget: purge the
+            # expired buckets' entries, or it grows for the stream's life
+            self._dev_ring_fifo = collections.deque(
+                e for e in self._dev_ring_fifo if e[0] >= floor_b)
+        daba = self.sliding_impl == "daba"
         cols, valid, slots = self._build_kernel_inputs(sub)
-        pane_vec = (buckets % R).astype(np.uint8)
-        if len(ubs) == 1:
-            # single-bucket batch: the scalar pane (the common case)
-            self.state = self.gb.fold(self.state, cols, slots, valid,
-                                      int(pane_vec[0]))
+        # the refold path uploads the batch once, padded, and keeps it on
+        # the card for its trigger-time edge refolds; the fold reads it
+        dev = None if daba else self._upload_sliding_inputs(cols, valid,
+                                                            slots)
+        if dev is None:
+            f_cols, f_valid, f_slots, n_rows = cols, valid, slots, None
         else:
-            self.state = self.gb.fold(self.state, cols, slots, valid,
-                                      pane_vec)
+            (f_cols, f_valid, f_slots, _), n_rows = dev, sub.n
+        pane_vec = (buckets % R).astype(np.uint8)
+        # a single-bucket batch (the common case) folds into a scalar pane
+        self.state = self.gb.fold(
+            self.state, f_cols, f_slots, f_valid,
+            int(pane_vec[0]) if len(ubs) == 1 else pane_vec, n_rows=n_rows)
         for b in ubs:
             m = buckets == b
             sel = np.nonzero(m)[0]
@@ -1050,10 +1106,16 @@ class FusedWindowAggNode(Node):
                 {k: v[sel] for k, v in cols.items()},
                 {k: v[sel] for k, v in valid.items()}, slots[sel], ts[sel]))
             self._ring.setdefault(int(b), []).append(seg)
+            if not daba:
+                # the aligned device entry: the whole batch's tensors and
+                # this bucket's rows (a refold ANDs the time cut into them)
+                self._cache_entry(int(b), None if dev is None
+                                  else (dev[3], dev[2], m, ts))
             bmax = int(ts[sel].max())
             if bmax > self._bucket_max_ts.get(int(b), -1):
                 self._bucket_max_ts[int(b)] = bmax
-        self._ring_advance_buckets(buckets)
+        if daba:
+            self._ring_advance_buckets(buckets)
         # trigger rows: OVER (WHEN ...) on the raw batch columns
         trig = _host_mask(self._trigger_host, sub.columns, sub.n)
         for i in np.nonzero(trig)[0].tolist():
@@ -1063,6 +1125,82 @@ class FusedWindowAggNode(Node):
             else:
                 self._emit_sliding(t)
         return sub.n
+
+    def _upload_sliding_inputs(self, cols, valid, slots):
+        """The refold path's upload of one batch (the reference's): each
+        plan column, its validity mask and the slots, padded to the
+        micro-batch, on the card, so the fold reads them and the device
+        cache keeps them for the edge refolds. Returns (dev_cols,
+        dev_valid, slots, dev_all), dev_all every column and its
+        `__valid_<col>` (None where absent), or None for a batch over one
+        micro-batch or under a quarter of one (a padded copy of a small
+        batch would pin bytes out of proportion; its refolds take the host
+        rows). Slots go up as slot_dtype(capacity): after the capacity
+        doubles past 65,535, new entries are int32 while older uint16
+        ones stay valid."""
+        mb = self.gb.micro_batch
+        n = len(slots)
+        if n > mb or n < mb // 4:
+            return None
+        pad = mb - n
+        dev_cols, dev_valid, dev_all = {}, {}, {}
+        for name in self.plan.columns:
+            arr = np.asarray(cols[name], dtype=col_np_dtype(self.plan, name))
+            d = self.gb.upload(np.pad(arr, (0, pad)) if pad else arr,
+                               arr.dtype)
+            dev_cols[name] = dev_all[name] = d
+            vm = valid.get(name)
+            if vm is not None:
+                vm = dev_valid[name] = self.gb.upload(
+                    np.pad(vm, (0, pad)) if pad else vm, np.bool_)
+            dev_all["__valid_" + name] = vm
+        s = np.pad(slots, (0, pad)) if pad else slots
+        s_dev = self.gb.upload(s, slot_dtype(self.gb.capacity))
+        return dev_cols, dev_valid, s_dev, dev_all
+
+    @staticmethod
+    def _dev_entry_nbytes(entry) -> int:
+        """Device bytes of one cache entry: its columns, validity masks
+        and slots (the reference's count). A batch that crosses bucket
+        edges has one entry per bucket over the same tensors, so this
+        counts it once per entry: the budget errs toward evicting early."""
+        if entry is None:
+            return 0
+        dev_all, s_dev = entry[0], entry[1]
+        return sum(t.numel() * t.element_size()
+                   for t in [*dev_all.values(), s_dev] if t is not None)
+
+    def _cache_entry(self, b: int, entry) -> None:
+        """Append bucket b's device entry (None: no device copy) beside its
+        row segment, then evict down to the budget."""
+        lst = self._dev_ring.setdefault(b, [])
+        lst.append(entry)
+        if entry is not None:
+            nb = self._dev_entry_nbytes(entry)
+            self._dev_ring_bytes += nb
+            self._dev_ring_fifo.append((b, len(lst) - 1, nb))
+            self._dev_ring_evict()
+
+    def _dev_ring_evict(self) -> None:
+        """Drop the oldest cached entries until the cache fits the budget;
+        their refolds take the exact host rows (the aligned row ring keeps
+        every segment)."""
+        freed = evicted = 0
+        while (self._dev_ring_bytes > self.dev_ring_budget_bytes
+               and self._dev_ring_fifo):
+            b, idx, nbytes = self._dev_ring_fifo.popleft()
+            lst = self._dev_ring.get(b)
+            if lst is None or idx >= len(lst) or lst[idx] is None:
+                continue  # already gone (its bucket expired)
+            lst[idx] = None
+            self._dev_ring_bytes -= nbytes
+            freed += nbytes
+            evicted += 1
+        if evicted:
+            self.refold_counts["evicted"] += evicted
+            logger.debug("%s: %d sliding cache entries (%d bytes) evicted; "
+                         "%d bytes cached", self.name, evicted, freed,
+                         self._dev_ring_bytes)
 
     def _schedule_sliding(self, t: int, fire_at: int) -> None:
         """Arm a delayed sliding emission; tracked in _pending_slides so a
@@ -1074,9 +1212,116 @@ class FusedWindowAggNode(Node):
                 Trigger(ts=t0, tag=("sliding", t0))))
 
     def _emit_sliding(self, t: int) -> None:
-        """Emit the window (t - L, t + delay] for trigger time t: the body
-        as one ring query, the partial edge buckets folded on the host
-        into the trigger's shadow; the emit worker merges and delivers."""
+        """Emit the window (t - L, t + delay] for trigger time t."""
+        if self.sliding_impl == "daba":
+            self._emit_sliding_ring(t)
+        else:
+            self._emit_sliding_refold(t)
+
+    def _emit_sliding_refold(self, t: int) -> None:
+        """The refold path's trigger: the panes fully inside the window,
+        plus the partial edge buckets refolded into the scratch pane (from
+        the device cache under a row mask, or from the host rows), merged
+        by one finalize over their pane mask. When a pane inside the
+        window was recycled while its rows are retained, the whole window
+        refolds from the rows (exact, slower)."""
+        n_keys = self.kt.n_keys
+        if n_keys == 0:
+            return
+        lo = t - self.length_ms  # exclusive
+        hi = t + self.delay_ms  # inclusive
+        B, R = self.bucket_ms, self.n_ring_panes
+        b_lo, b_hi = lo // B, hi // B
+        full, stale = [], False
+        for b in range(b_lo + 1, b_hi):
+            if self._pane_bucket.get(b % R) == b:
+                full.append(b)
+            elif b in self._ring:
+                stale = True  # pane recycled, rows still retained
+        if stale:
+            full = []
+            edges = [(b, lo, hi) for b in range(b_lo, b_hi + 1)]
+            self.refold_counts["stale"] += 1
+        elif b_lo == b_hi:
+            edges = [(b_lo, lo, hi)]
+        else:
+            edges = [(b_lo, lo, None)]
+            # the high edge straight from its pane when it holds exactly
+            # (b_hi * B, hi]: no received row of it exceeds hi, and its
+            # span clears the window's low cut
+            if (self._pane_bucket.get(b_hi % R) == b_hi and b_hi * B > lo
+                    and self._bucket_max_ts.get(b_hi, hi + 1) <= hi):
+                full.append(b_hi)
+            else:
+                edges.append((b_hi, None, hi))
+        used_scratch = False
+        for b, lo_excl, hi_incl in edges:
+            used_scratch |= self._refold_bucket(b, lo_excl, hi_incl)
+        panes = sorted({b % R for b in full})
+        if used_scratch:
+            panes.append(self._scratch_pane)
+        wr = WindowRange(lo, hi)
+        if panes and self.gb._host_finalize_only:
+            # heavy_hitters: the synchronous finalize (recovery kernel and
+            # the host dedupe), as the reference keeps it
+            outs, act = self.gb.finalize(self.state, n_keys, panes=panes)
+            self.last_emit_info = {"source": "sync", "fetch_ms": 0.0,
+                                   "ages_ms": []}
+            self._deliver(outs, act, wr)
+        elif panes:
+            # launched here, in order after the scratch folds and before
+            # the scratch reset below, into a fresh result whose copy waits
+            # for an event after the launch; the emit worker delivers it
+            pane_mask = np.zeros(self.gb.n_panes, dtype=np.bool_)
+            pane_mask[panes] = True
+            self._enqueue("refold",
+                          self.gb.finalize_begin(self.state, pane_mask), wr)
+        if used_scratch:
+            self.state = self.gb.reset_pane(self.state, self._scratch_pane)
+
+    def _refold_bucket(self, b: int, lo_excl: Optional[int],
+                       hi_incl: Optional[int]) -> bool:
+        """Refold bucket b's rows inside (lo_excl, hi_incl] into the
+        scratch pane: a cached segment through fold_masked (only its
+        (mb,) row mask crosses to the card), an evicted or uncached one
+        from its host rows. True if any row folded."""
+        used = False
+        devs = self._dev_ring.get(b, [])
+        for i, (cols, valid, slots, ts) in enumerate(self._ring.get(b, [])):
+            dev = devs[i] if i < len(devs) else None
+            if dev is not None:
+                # the whole batch's tensors, this bucket's rows, and the
+                # whole batch's timestamps
+                dev_all, s_dev, bmask, ts = dev
+                m = bmask.copy()
+            else:
+                m = np.ones(len(ts), dtype=np.bool_)
+            if lo_excl is not None:
+                m &= ts > lo_excl
+            if hi_incl is not None:
+                m &= ts <= hi_incl
+            if not m.any():
+                continue
+            used = True
+            if dev is not None:
+                mb = self.gb.micro_batch
+                self.state = self.gb.fold_masked(
+                    self.state, dev_all, s_dev, np.pad(m, (0, mb - len(m))),
+                    self._scratch_pane)
+                self.refold_counts["cached"] += 1
+            else:
+                sel = np.nonzero(m)[0]
+                self.state = self.gb.fold(
+                    self.state, {k: v[sel] for k, v in cols.items()},
+                    slots[sel], {k: v[sel] for k, v in valid.items()},
+                    self._scratch_pane)
+                self.refold_counts["host"] += 1
+        return used
+
+    def _emit_sliding_ring(self, t: int) -> None:
+        """The DABA trigger: the body as one ring query, the partial edge
+        buckets folded on the host into the trigger's shadow; the emit
+        worker merges and delivers."""
         n_keys = self.kt.n_keys
         if n_keys == 0:
             return
@@ -1305,12 +1550,22 @@ class FusedWindowAggNode(Node):
                       _dec_arr(seg["slots"]), _dec_arr(seg["ts"]))
                      for seg in segs]
             for b, segs in state.get("ring", {}).items()}
-        # the ring partials are caches of the panes, never checkpointed:
-        # the first trigger after a restore rebuilds them with one flip
-        self._ring_dev = None
-        self._ring_reset_tracking()
-        self._rg_head = self._ring_max_bucket
-        self._rg_closed = self._rg_head - 1 if self._rg_head >= 0 else -1
+        # the device batch cache is not checkpointed: refolds take the host
+        # rows until new batches are cached (None placeholders keep later
+        # entries aligned with their row segments)
+        self._dev_ring = {b: [None] * len(segs)
+                          for b, segs in self._ring.items()}
+        self._dev_ring_bytes = 0
+        self._dev_ring_fifo.clear()
+        if self.sliding_impl == "daba":
+            # the ring partials are caches of the panes, never
+            # checkpointed: the first trigger after a restore rebuilds
+            # them with one flip
+            self._ring_dev = None
+            self._ring_reset_tracking()
+            self._rg_head = self._ring_max_bucket
+            self._rg_closed = (self._rg_head - 1 if self._rg_head >= 0
+                               else -1)
         # re-arm the delayed emissions pending at the checkpoint (past-due
         # ones fire at the next clock move)
         self._pending_slides = {}

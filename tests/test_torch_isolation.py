@@ -61,6 +61,10 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
     assert {"ekuiper_tpu_torch.parallel.multirule",
             "ekuiper_tpu_torch.runtime.nodes_multirule",
             "ekuiper_tpu_torch.planner.rulegroup"} <= set(mods)
+    # the sliding refold path's modules
+    assert {"ekuiper_tpu_torch.runtime.nodes_fused",
+            "ekuiper_tpu_torch.ops.groupby", "ekuiper_tpu_torch.ops.kernels",
+            "ekuiper_tpu_torch.ops.slidingring"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -454,5 +458,92 @@ def test_group_wrappers_never_take_the_plain_versions(monkeypatch):
             kernels.multirule_finalize(state, mask, spectab, C + 1)
         with pytest.raises(ValueError):
             kernels.multirule_reset_pane(state, P)
+    assert taken == []
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
+
+
+REFOLD_SQL = ("SELECT deviceId, heavy_hitters(code, 3) AS top, count(*) AS c "
+              "FROM demo GROUP BY deviceId, SLIDINGWINDOW(ss, 10) "
+              "OVER (WHEN t > 44.5)")
+
+
+@pytest.mark.parametrize("options", [{}, {"slidingImpl": "refold"},
+                                     {"slidingDevRingMb": 0}],
+                         ids=["heavy_hitters", "requested", "budget"])
+def test_refold_rule_needs_cuda_unless_cpu_is_asked(options, monkeypatch):
+    """The sliding refold path (its device batch cache included) is as
+    strict about the device as the others, whichever case plans it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sql = REFOLD_SQL if not options else SLIDING_SQL
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fused.plan_fused_rule(sql, key_slots=64, options=options, **kw)
+    node = fused.plan_fused_rule(sql, key_slots=64, micro_batch=64,
+                                 device="cpu", options=options)
+    assert node.sliding_impl == "refold"
+    cols = {name: np.zeros(64, dtype=np.float32) for name in node.plan.columns}
+    dev = node._upload_sliding_inputs(cols, {}, np.zeros(64, np.int32))
+    assert {t.device.type for t in dev[3].values() if t is not None} \
+        == {"cpu"}
+    assert dev[2].dtype == torch.uint16 and dev[2].device.type == "cpu"
+
+
+@pytest.mark.parametrize("slot_dtype", [torch.uint16, torch.int32])
+def test_masked_fold_wrappers_never_take_the_plain_versions(slot_dtype,
+                                                            monkeypatch):
+    """The masked fold's two wrappers (#2), and the fold (#1) on uint16
+    slots, given CUDA tensors: the launch path fails loudly without a card
+    or nvcc, and no plain version runs; slots of another dtype, a row mask
+    of another shape or dtype and a pane outside the state are refused
+    before any build."""
+    _needs_no_card()
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    taken = []
+    for name in ("fold_masked_scalar_plain", "fold_masked_wide_plain",
+                 "fold_scalar_plain", "fold_wide_plain"):
+        monkeypatch.setattr(kernels, name,
+                            lambda *a, _n=name, **k: taken.append(_n))
+    kernels.reset_launches()
+    P, C = 3, 8
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        state = {"n": torch.zeros((P, C, 1), device="cuda"),
+                 "hh": torch.zeros((P, C, 1, kernels.WIDE_W["hh"]),
+                                   device="cuda"),
+                 "act": torch.zeros((P, C), device="cuda")}
+        mask = torch.ones(4, dtype=torch.bool, device="cuda")
+        V = torch.ones((1, 4), device="cuda")
+        M = torch.ones((1, 4), dtype=torch.bool, device="cuda")
+        slots = torch.zeros(4, dtype=slot_dtype, device="cuda")
+        wrong = {"slots": torch.zeros(4, dtype=torch.int64, device="cuda"),
+                 "mask": torch.ones(3, dtype=torch.bool, device="cuda"),
+                 "mask_dtype": torch.ones(4, dtype=torch.uint8,
+                                          device="cuda")}
+    colmap = kernels.column_map({"n": [0]})
+    widemap = kernels.wide_column_map({"hh": [0]})
+    calls = [
+        lambda: kernels.groupby_fold_masked_scalar(state, mask, V, M, slots,
+                                                   P - 1, colmap),
+        lambda: kernels.groupby_fold_masked_wide(state, mask, V, M, slots,
+                                                 P - 1, widemap),
+        lambda: kernels.groupby_fold_scalar(state, mask, V, M, slots, 0,
+                                            colmap),
+        lambda: kernels.groupby_fold_wide(state, V, M, slots, 0, widemap),
+    ]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # fake data_ptr()
+        for call in calls:
+            with pytest.raises((RuntimeError, AssertionError)):
+                call()
+        for fn, cmap in ((kernels.groupby_fold_masked_scalar, colmap),
+                         (kernels.groupby_fold_masked_wide, widemap)):
+            with pytest.raises(TypeError):
+                fn(state, mask, V, M, wrong["slots"], 0, cmap)
+            with pytest.raises(ValueError):
+                fn(state, wrong["mask"], V, M, slots, 0, cmap)
+            with pytest.raises(TypeError):
+                fn(state, wrong["mask_dtype"], V, M, slots, 0, cmap)
+            with pytest.raises(ValueError):
+                fn(state, mask, V, M, slots, P, cmap)
     assert taken == []
     assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)

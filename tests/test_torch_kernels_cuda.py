@@ -605,3 +605,119 @@ def test_group_fetch_holds_no_later_fold_or_reset(mnode):
     outs, act = gb.host_tail(got, 300)
     assert act.shape == (6, 300) and outs[0].dtype == np.int64
     pending.release()
+
+
+# ------------------------------------------------------ the masked fold
+def _masked_inputs(gb, seed, slot_dtype, rows=4096, n=3000, keys=300):
+    """A padded batch of `rows` rows of which the first `n` are real (the
+    rest zeros, slot 0), a row mask with holes (0 on the padding), and
+    the masked fold's (mask ∧ WHERE, V, M ∧ it) on the card."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(20, 5, rows).astype(np.float32)
+    v[rng.random(rows) < 0.05] = np.nan
+    v[:6] = [0.0, -0.0, -3.5, 1e-12, 3e12, -2e20]
+    w = rng.normal(0, 1, rows).astype(np.float32)
+    p = rng.random(rows)
+    code = np.where(p < 0.35, 7, np.where(p < 0.55, 13, rng.integers(
+        100, 2100, rows))).astype(np.float32)
+    slots = rng.integers(0, keys, rows)
+    mask = rng.random(rows) < 0.7
+    v[n:], w[n:], code[n:], slots[n:], mask[n:] = 0, 0, 0, 0, False
+    dev = gb.device
+    cols = {"v": torch.from_numpy(v).to(dev),
+            "w": torch.from_numpy(w).to(dev),
+            "__valid_w": torch.from_numpy(rng.random(rows) > 0.1).to(dev),
+            "__hll__v": torch.from_numpy(encode_hll_column(v, rows)).to(dev),
+            "__hhc__code": torch.from_numpy(code).to(dev)}
+    base = gb._where(cols, (rows,)) & torch.from_numpy(mask).to(dev)
+    V, M = gb._spec_values(cols, rows)
+    return (base, V, M & base,
+            torch.from_numpy(slots.astype(slot_dtype)).to(dev), n)
+
+
+@pytest.mark.parametrize("slot_dtype", [np.uint16, np.int32])
+@pytest.mark.parametrize("which", ["scalar", "wide", "hh"])
+def test_fold_masked_matches_plain(gb, sgb, which, slot_dtype):
+    """#2 against its plain version: the kernel over the padded batch,
+    the plain version over its real rows only, so the padding (slot 0,
+    mask 0) must change nothing; uint16 and int32 slots."""
+    g = gb if which == "scalar" else sgb
+    wide = g._widemap
+    if which != "scalar":
+        keep = (wide[:, 0] == kernels.WIDE_IDS["hh"]) == (which == "hh")
+        wide = wide[keep]
+    kernels.reset_launches()
+    got, ref = g.init_state(), g.init_state()
+    pane = g.n_panes - 1
+    for seed in range(3):
+        base, V, M, slots, n = _masked_inputs(g, 80 + seed, slot_dtype)
+        kernels.groupby_fold_masked_scalar(got, base, V, M, slots, pane,
+                                           g._colmap)
+        kernels.fold_masked_scalar_plain(ref, base[:n], V[:, :n], M[:, :n],
+                                         slots[:n], pane, g._colmap)
+        if len(wide):
+            kernels.groupby_fold_masked_wide(got, base, V, M, slots, pane,
+                                             wide)
+            kernels.fold_masked_wide_plain(ref, base[:n], V[:, :n],
+                                           M[:, :n], slots[:n], pane, wide)
+    torch.cuda.synchronize()
+    _same(got, ref, 1e-5)
+    assert kernels.LAUNCHES["groupby_fold_masked_scalar"] == 3
+    assert kernels.LAUNCHES["groupby_fold_masked_wide"] == (
+        3 if len(wide) else 0)
+    assert float(got["act"].sum()) > 0
+    if which == "hh":
+        assert float(got["hh"].sum()) > 0 and float(got["hll"].sum()) == 0
+    if which == "wide":
+        assert float(got["hll"].max()) > 0 and float(got["hh"].sum()) == 0
+
+
+@pytest.mark.parametrize("which", ["scalar", "sketch"])
+def test_fold_takes_uint16_slots(gb, sgb, which):
+    """#1 on uint16 slots (a cached sliding batch) folds as on the same
+    slots in int32."""
+    g = gb if which == "scalar" else sgb
+    kernels.reset_launches()
+    got, ref = g.init_state(), g.init_state()
+    base, V, M, slots, _ = _masked_inputs(g, 90, np.uint16)
+    for st, s in ((got, slots), (ref, slots.to(torch.int32))):
+        kernels.groupby_fold_scalar(st, base, V, M, s, 0, g._colmap)
+        if len(g._widemap):
+            kernels.groupby_fold_wide(st, V, M, s, 0, g._widemap)
+    torch.cuda.synchronize()
+    _same(got, ref, 1e-5)
+    assert kernels.LAUNCHES["groupby_fold_scalar"] == 2
+
+
+def test_refold_fetch_holds_no_later_reset_or_fold():
+    """Snapshot against the in-place reset: a refold's pane-mask finalize
+    (finalize_begin over the full panes and the scratch pane) launched
+    right before the scratch pane's reset and further folds (no
+    synchronize between) fetches the window as it stood at its launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    node = plan_fused_rule(RING_SQL, key_slots=512, micro_batch=4096,
+                           options={"slidingImpl": "refold"})
+    assert node.sliding_impl == "refold"
+    gb = node.gb
+    st = gb.init_state()
+    rng = np.random.default_rng(75)
+    for pane in (3, 4, node._scratch_pane):
+        gb.fold(st, {"v": rng.normal(20, 5, 4096).astype(np.float32)},
+                rng.integers(0, 300, 4096).astype(np.int32), pane_idx=pane)
+    pm = np.zeros(gb.n_panes, dtype=bool)
+    pm[[3, 4, node._scratch_pane]] = True
+    torch.cuda.synchronize()
+    want = gb._finalize({k: v.clone() for k, v in st.items()},
+                        gb._mask_tensor(pm)).cpu().numpy()
+    pending = gb.finalize_begin(st, pm)
+    gb.reset_pane(st, node._scratch_pane)
+    gb.fold(st, {"v": np.full(65_536, 7.0, np.float32)},
+            np.zeros(65_536, np.int32), pane_idx=4)
+    assert pending._buf.is_pinned()
+    got = pending.get()
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got, want)
+    now = gb._finalize(st, gb._mask_tensor(pm)).cpu().numpy()
+    assert not np.array_equal(now, got)
+    pending.release()

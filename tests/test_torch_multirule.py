@@ -31,6 +31,7 @@ from ekuiper_tpu.runtime.events import Trigger as JaxTrigger
 from ekuiper_tpu.runtime.nodes_multirule import \
     MultiRuleFusedNode as JaxGroupNode
 from ekuiper_tpu.sql.parser import parse_select as jax_parse
+from ekuiper_tpu.utils import timex as jax_timex
 from ekuiper_tpu_torch.data.batch import ColumnBatch
 from ekuiper_tpu_torch.ops import kernels
 from ekuiper_tpu_torch.ops.aggspec import extract_kernel_plan
@@ -351,9 +352,12 @@ class _Groups:
         self.jnode._drain_async_emits()
 
     def close(self):
-        """Stop both nodes' timers and emit workers."""
+        """Stop both nodes' timers and emit workers, then move the test's
+        JAX mock clock past the stopped timers: it would keep them, and
+        the JAX node with them, as long as the clock lives."""
         self.tnode.on_close()
         self.jnode.on_close()
+        jax_timex.get_mock_clock().advance(2 * self.interval)
 
 
 @pytest.fixture
@@ -369,6 +373,10 @@ def groups():
     yield make
     for g in made:
         g.close()
+    # the last test holds this fixture's value past the module's
+    # collection: empty it, so the JAX groups die in that collection and
+    # not later, inside another module's devwatch lock
+    made.clear()
 
 
 def _assert_rule_windows(got, ref):

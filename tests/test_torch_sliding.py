@@ -377,40 +377,9 @@ def test_checkpoint_crosses_packages(direction):
 
 
 # ------------------------------------------------------------- refusals
-def _node(sql, **kw):
-    stmt = parse_select(sql)
-    plan = extract_kernel_plan(stmt)
-    return FusedWindowAggNode(
-        "port", stmt.window, plan, [d.expr for d in stmt.dimensions],
-        capacity=2048, micro_batch=MB,
-        direct_emit=build_direct_emit(stmt, plan, ["deviceId"]),
-        emit_columnar=True, device="cpu", **kw)
-
-
 WIDE = ("SELECT deviceId, distinct_count_approx(temp) AS dc, "
         "percentile_approx(temp, 0.9) AS p, count(*) AS c FROM s "
         "GROUP BY deviceId, SLIDINGWINDOW(ss, 30) OVER (WHEN temp > 90)")
-
-
-@pytest.mark.parametrize("case", ["refold", "heavy_hitters", "budget"])
-def test_refold_cases_raise(case):
-    """Where the reference quietly takes its refold path, the port
-    raises: the refold path is not ported."""
-    if case == "refold":
-        sql, kw, opts = SQL_INV, {"sliding_impl": "refold"}, \
-            {"slidingImpl": "refold"}
-    elif case == "heavy_hitters":
-        sql = ("SELECT deviceId, heavy_hitters(code, 3) AS top FROM s "
-               "GROUP BY deviceId, SLIDINGWINDOW(ss, 2) OVER (WHEN code > 9)")
-        kw, opts = {}, {}
-    else:
-        sql, kw, opts = WIDE, {"dev_ring_budget_mb": 0}, \
-            {"slidingDevRingMb": 0}
-    with pytest.raises(NotImplementedError):
-        _node(sql, **kw)
-    with pytest.raises(NotImplementedError):
-        plan_fused_rule(sql, key_slots=2048, micro_batch=MB, device="cpu",
-                        options=opts)
 
 
 @pytest.mark.parametrize("sql", [

@@ -11,8 +11,8 @@ no result):
 
 1. the card (nvidia-smi name and power limit) and the kernels' build time
    (csrc/groupby.cu, csrc/sketches.cu, csrc/prefinalize.cu,
-   csrc/slidingring.cu and csrc/multirule.cu, one nvcc each for sm_90a,
-   run together);
+   csrc/slidingring.cu, csrc/multirule.cu and csrc/tierstore.cu, one nvcc
+   each for sm_90a, run together);
 2. each kernel against its plain PyTorch version on the card, at the main
    path's shapes (65,536 rows, 16,384 slots; the sketch kernels at the
    sketch rules' state, up to 2 panes x 16,384 x 2,688 floats; the
@@ -23,7 +23,11 @@ no result):
    and reset at E1's 256 rules x 16,384 slots, the finalize also at E3's
    two panes; the masked fold at phase F's batches, a 65,536-row padded
    batch with uint16 slots under a refold's row mask, into each rule's
-   scratch pane at its own pane count, F1's 53 x 16,384 x 2,688 floats):
+   scratch pane at its own pane count, F1's 53 x 16,384 x 2,688 floats;
+   the tier demote and promote at G1's state (1 pane, a 4-float packed
+   row, 1,048,576 slots), G2's (10 panes, 60 floats, 262,144 slots), phase
+   B's hll hopping state and the percentile hist, a block of 2,000 real
+   slots and 48 pad rows; the fold's touch column at G1's state):
    error, kernel time (CUDA
    events), the kernel body's own device time (profiler trace) and the
    host time of one wrapper call, plain time, a library yardstick and the
@@ -70,15 +74,15 @@ D. SLIDINGWINDOW rules on the DABA ring, each opened on the mock clock
    99 at a random row) in every 20th batch. D1 BASELINE config #3
    (bench.py:268-282), `percentile_approx(temperature, 0.99)` +
    `count(*)` over `SLIDINGWINDOW(ss, 10) OVER (WHEN temperature > 44.5)`,
-   720 batches (45 s: a re-anchor of the running totals falls in it);
-   D2 avg/min/max/count of temperature on the same window, 720 batches
-   with one 12 s gap; D2 delay, the same rule on SLIDINGWINDOW(ss, 10, 1)
-   (the timer route); D3 `hll(humidity)` on the coarsened ring, 400
-   batches. Every emitted window is held against a numpy reference over
-   exactly the rows in (t - L, t + delay] the node had received: the
-   float64 group-by (D2), the percentile twin's bin (D1), hll within ±1
-   (D3). Per rule: rows/s, the trigger's stall on the fold thread, the
-   delivery, triggers by route and flips;
+   720 batches (45 s, so that the ring's periodic re-anchor, which needs
+   ~655, falls in it; checked); D2 avg/min/max/count of temperature on
+   the same window, 480 batches with one 12 s gap; D2 delay, the same
+   rule on SLIDINGWINDOW(ss, 10, 1) (the timer route); D3 `hll(humidity)`
+   on the coarsened ring, 240 batches. Every emitted window is held
+   against a numpy reference over exactly the rows in (t - L, t + delay]
+   the node had received: the float64 group-by (D2), the percentile
+   twin's bin (D1), hll within ±1 (D3). Per rule: rows/s, the trigger's
+   stall on the fold thread, the delivery, triggers by route and flips;
 E. rule groups (BASELINE config #5), each group one node opened on the
    mock clock with its default boundary. E1, bench.py:197-246: 256 rules
    `SELECT deviceId, avg(temperature) AS a, count(*) AS c FROM demo
@@ -119,12 +123,42 @@ F. the sliding refold path (slidingImpl "refold" and the cases that fall
    (t - 10 s, t + 1 s]. Per run: rows/s, stall and delivery,
    refold routes (cached, host, stale, evicted), the masked fold's
    launches;
+G. tiered key state (the tier's budget from tierHotMb), each run with
+   every emitted window (the device groups and the spilled keys' share)
+   held against a numpy float64 group-by over integer key ids: keys,
+   counts and min exact, sums within the float32 bound. G1, the
+   reference's key-cardinality bench (bench.py:690-858): first its
+   sub-budget parity segment (the tier at 0.01 MB against the untiered
+   rule, 4,096 slots, 1,000 keys, 8,192-row batches, 3 windows: keys and
+   counts byte-identical, the sums within the bound, their differing bits
+   counted, since float atomics fix no order between two runs); then
+   `SELECT deviceId, sum(v) AS s, count(*) AS c FROM demo GROUP BY
+   deviceId, TUMBLINGWINDOW(ss, 1)` at tierHotMb 64, 1<<20 key slots,
+   tierScanMs 1, the synchronous boundary: 65,536-row batches of 63,488
+   rows over 262,144 hot keys and 2,048 fresh keys, v ~ N(50, 10), a
+   boundary every 4 batches, to 3,000,000 distinct keys (the bench's 1M
+   and 3M checkpoints; its 10M one is cut for time), the device slots held
+   at the layout's hot capacity (2,097,152, one growth from 1,048,576).
+   G2, the reference's tier tests' rule `SELECT deviceId, sum(v) AS s,
+   count(*) AS c, min(v) AS mn FROM demo GROUP BY deviceId,
+   HOPPINGWINDOW(ss, 10, 1)` at tierHotMb 64 (a hot target of 137,518
+   slots): 240 batches of 57,344 rows over 65,536 hot keys, 2,048 new keys
+   and 6,144 rows over the keys first seen 4-9 slides earlier, 4 batches
+   a 1 s slide; G2a on the synchronous boundary, G2b on the default one
+   on the mock clock, whose keys back in a window's tail after its
+   pre-issue carry their tail rows only in that window (the reference's
+   rule, ROADMAP Queue 3), counted, and otherwise equal G2a's windows.
+   Per run: rows/s, host encode time, emit or stall and delivery, device
+   slots, demoted / promoted / recycled keys, cold rows and host-store
+   MB, the tier kernels' launches;
 5. each kernel's launch count on the paths that use it (each must be
-   > 0), then the JSON kernel table and the one-line result.
+   > 0; the fold's touch branch on the G paths), then the JSON kernel
+   table and the one-line result.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import functools
 import json
 import statistics
@@ -162,7 +196,7 @@ HLL_RULE = (
 )
 #: emitted windows per end-to-end phase, 65,536-row batches per trigger
 #: interval, timed runs per kernel
-WINDOWS, BATCHES, REPS = 8, 16, 30
+WINDOWS, BATCHES, REPS = 6, 16, 30
 #: phases A and B: hop boundaries / windows, and batches per interval
 #: (bench.py's heavy-hitters rule: one boundary per 16 batches)
 SKETCH_WINDOWS, SKETCH_BATCHES = 9, 16
@@ -171,6 +205,8 @@ SKETCH_WINDOWS, SKETCH_BATCHES = 9, 16
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
 EPS32 = float(np.finfo(np.float32).eps)
+#: elements of a state component state_err compares at a time
+STATE_ERR_CHUNK = 1 << 27
 #: the synchronous boundary (prefinalizeLeadMs 0): phases 3, 4, A and B
 #: measure the finalize route as they did before phase C existed
 SYNC = {"prefinalizeLeadMs": 0}
@@ -187,7 +223,7 @@ D2_DELAY_RULE = D2_RULE.replace("SLIDINGWINDOW(ss, 10)",
 D3_RULE = ("SELECT deviceId, hll(humidity) AS u FROM demo GROUP BY deviceId, "
            "SLIDINGWINDOW(ss, 10) " + TRIGGER)
 #: batches per run, the trigger every 20th batch, the gap in D2
-D_BATCHES = {"d1": 720, "d2": 720, "d2_delay": 240, "d3": 400}
+D_BATCHES = {"d1": 720, "d2": 480, "d2_delay": 240, "d3": 240}
 #: phase F: the sliding refold path on phase D's stream. F1: the
 #: heavy_hitters sliding rule (the refold fallback); F2: D2's rule under
 #: slidingImpl "refold", with the 12 s gap half-way; F3: D3's hll rule
@@ -264,6 +300,33 @@ E_TWIN = {
 }
 #: windows per phase E run (E1 tumbling, E2 tumbling, E3 hop slides)
 E_WINDOWS = {"e1": 4, "e2": 2, "e3": 4}
+#: phase G: tiered key state. G1 is the reference's key-cardinality bench
+#: (bench.py:690-858): a tumbling 1 s sum/count GROUP BY under a fixed
+#: 64 MB budget (the bench's default), 1<<20 key slots, a 1 ms scan, the
+#: synchronous boundary; its parity segment first (the tier at 0.01 MB on
+#: 4,096 slots against the untiered rule, 1,000 keys, 8,192-row batches,
+#: 3 windows). G2 is the reference's tier tests' rule
+#: (tests/test_tierstore.py:21-22, tools/probe_tiering.py:34-35) on ten
+#: panes, so keys demoted a few boundaries after their last row still hold
+#: live panes: G2a on the synchronous boundary, G2b on the default one
+G1_RULE = ("SELECT deviceId, sum(v) AS s, count(*) AS c FROM demo "
+           "GROUP BY deviceId, TUMBLINGWINDOW(ss, 1)")
+G2_RULE = ("SELECT deviceId, sum(v) AS s, count(*) AS c, min(v) AS mn "
+           "FROM demo GROUP BY deviceId, HOPPINGWINDOW(ss, 10, 1)")
+G_SLOTS, G_HOT_MB, G_PER_WINDOW = 1 << 20, 64, 4
+G1_OPTS = {"tierHotMb": G_HOT_MB, "tierScanMs": 1, "prefinalizeLeadMs": 0}
+#: G1's hot keys and fresh keys a batch; its distinct-key checkpoints (the
+#: bench's 1M and 3M; its 10M is cut for the run's time limit)
+G1_HOT, G1_FRESH, G1_TARGETS = 1 << 18, 2048, (1_000_000, 3_000_000)
+G1_PAR_KEYS, G1_PAR_ROWS, G1_PAR_WINDOWS = 1000, 8192, 3
+G1_PAR_SLOTS, G1_PAR_MB = 4096, 0.01
+#: G2's batch: rows over the hot keys, new keys, rows over the keys first
+#: seen G2_BACK slides earlier; batches a run
+G2_HOT, G2_HOT_ROWS, G2_NEW, G2_BACK_ROWS = 65_536, 57_344, 2048, 6144
+G2_BACK, G2_BATCHES = (4, 9), 240
+#: batch times in each 1 s slide: two before the 2x-lead pre-trigger (at
+#: 500 ms), one between it and the 1x-lead one (750), one after
+G2B_OFFSETS = (100, 350, 600, 850)
 SOURCE = {
     "groupby_fold_scalar": "ekuiper_tpu_torch/csrc/groupby.cu",
     "groupby_finalize_scalar": "ekuiper_tpu_torch/csrc/groupby.cu",
@@ -281,6 +344,8 @@ SOURCE = {
     "multirule_reset_pane": "ekuiper_tpu_torch/csrc/multirule.cu",
     "groupby_fold_masked_scalar": "ekuiper_tpu_torch/csrc/groupby.cu",
     "groupby_fold_masked_wide": "ekuiper_tpu_torch/csrc/sketches.cu",
+    "tier_demote": "ekuiper_tpu_torch/csrc/tierstore.cu",
+    "tier_promote": "ekuiper_tpu_torch/csrc/tierstore.cu",
 }
 REPLACES = {
     "groupby_fold_scalar": "ekuiper_tpu/ops/groupby.py:348",
@@ -299,20 +364,24 @@ REPLACES = {
     "multirule_reset_pane": "ekuiper_tpu/parallel/multirule.py:256",
     "groupby_fold_masked_scalar": "ekuiper_tpu/ops/groupby.py:354",
     "groupby_fold_masked_wide": "ekuiper_tpu/ops/groupby.py:354",
+    "tier_demote": "ekuiper_tpu/ops/tierstore.py:263",
+    "tier_promote": "ekuiper_tpu/ops/tierstore.py:278",
 }
 #: which end-to-end paths launch each kernel (phase 5 checks each > 0)
 PATHS = {
     "groupby_fold_scalar": ("tumbling", "hopping", "hh", "pct", "hll", "d1",
-                            "d2", "d2_delay", "d3", "f1", "f2", "f3", "f4"),
+                            "d2", "d2_delay", "d3", "f1", "f2", "f3", "f4",
+                            "g1", "g2a", "g2b"),
     "groupby_finalize_scalar": ("tumbling", "hopping", "hh", "pct", "hll",
-                                "f1", "f2", "f3", "f4"),
+                                "f1", "f2", "f3", "f4", "g1", "g2a"),
     "groupby_reset_pane": ("tumbling", "hopping", "hh", "pct", "hll", "d1",
-                           "d2", "d3", "f1", "f2", "f3", "f4"),
+                           "d2", "d3", "f1", "f2", "f3", "f4", "g1", "g2a",
+                           "g2b"),
     "groupby_fold_wide": ("hh", "pct", "hll", "d1", "d3", "f1", "f3"),
     "groupby_finalize_wide": ("pct", "hll", "f3"),
     "groupby_hh_finalize": ("hh", "f1"),
     "groupby_components": ("c1", "c1_nobackstop", "c1_host", "c2", "c3_pct",
-                           "c3_hll", "d2", "d2_delay"),
+                           "c3_hll", "d2", "d2_delay", "g2b"),
     "groupby_absorb": ("c1_host",),
     "ring_advance": ("d1", "d2", "d2_delay", "d3"),
     "ring_flip": ("d1", "d2", "d3"),
@@ -322,7 +391,11 @@ PATHS = {
     "multirule_reset_pane": ("e1", "e2", "e3"),
     "groupby_fold_masked_scalar": ("f1", "f2", "f3", "f4"),
     "groupby_fold_masked_wide": ("f1", "f3"),
+    "tier_demote": ("g1", "g2a", "g2b"),
+    "tier_promote": ("g2a", "g2b"),
 }
+#: the folds that must bump the touch column on each tiered path
+TOUCH_PATHS = {"groupby_fold_scalar": ("g1", "g2a", "g2b")}
 #: the folds that must take a per-row pane vector on each sliding path (a
 #: batch that crosses a bucket edge; on the F paths from the cached upload)
 ROW_PANE_PATHS = {"groupby_fold_scalar": ("d1", "d2", "d2_delay", "d3",
@@ -434,21 +507,38 @@ def worst_errs(worst, d, r):
 def state_err(got, ref, exact=("n", "act", "mn", "mx"), rtol=1e-5):
     """(max abs, max rel) |got - ref| over every component; exact
     components must be bit-equal, summed ones (float32 atomics in another
-    order than the plain version's index_put_) within rtol."""
-    worst = (0.0, 0.0)
+    order than the plain version's index_put_) within rtol. Compared where
+    the tensors lie, a chunk at a time (a state can hold billions of
+    floats); integer components (uint32 touch counters) as int64."""
+    worst_abs = worst_rel = 0.0
     for comp in ref:
-        g, r = got[comp].cpu().numpy(), ref[comp].cpu().numpy()
-        fin = np.isfinite(r)
-        check((np.isfinite(g) == fin).all(), f"{comp}: non-finite mismatch")
-        check((g[~fin] == r[~fin]).all(), f"{comp}: identity mismatch")
-        d = np.abs(g[fin].astype(np.float64) - r[fin])
-        worst = worst_errs(worst, d, r[fin])
-        if comp in exact:
-            check((d == 0).all(), f"{comp}: differs (max {d.max(initial=0.0)})")
-        else:
-            check((d <= rtol * np.abs(r[fin])).all(),
-                  f"{comp}: beyond rtol {rtol} (max {d.max(initial=0.0)})")
-    return worst
+        g_all, r_all = got[comp].reshape(-1), ref[comp].reshape(-1)
+        check(g_all.shape == r_all.shape, f"{comp}: shapes differ")
+        comp_max, bad = 0.0, False
+        for lo in range(0, r_all.numel(), STATE_ERR_CHUNK):
+            g = g_all[lo:lo + STATE_ERR_CHUNK]
+            r = r_all[lo:lo + STATE_ERR_CHUNK]
+            if not r.is_floating_point():
+                g, r = g.long(), r.long()
+            fin = r.isfinite()
+            check(bool((g.isfinite() == fin).all()),
+                  f"{comp}: non-finite mismatch")
+            check(bool((g[~fin] == r[~fin]).all()), f"{comp}: identity mismatch")
+            r = r[fin]
+            rd = r.double()
+            d = (g[fin].double() - rd).abs()
+            if not d.numel():
+                continue
+            comp_max = max(comp_max, float(d.max()))
+            nz = rd != 0
+            if bool(nz.any()):
+                worst_rel = max(worst_rel, float((d[nz] / rd[nz].abs()).max()))
+            bad |= not bool(((d == 0) if comp in exact
+                             else (d <= rtol * r.abs())).all())
+        worst_abs = max(worst_abs, comp_max)
+        check(not bad, f"{comp}: differs (max {comp_max})" if comp in exact
+              else f"{comp}: beyond rtol {rtol} (max {comp_max})")
+    return worst_abs, worst_rel
 
 
 def kernel_checks(torch, seed, kernels, plan_fused_rule, dev):
@@ -1095,11 +1185,14 @@ class HHTwin:
 
     def close_window(self, w, idx, code):
         cur = w % 2
-        for b in range(len(idx)):
-            twin_hh_fold(self.panes[cur], idx[b], self.codes.encode(code[b]))
-            self.counts[cur] += np.bincount(idx[b], minlength=N_KEYS)
-            self.sevens[cur] += np.bincount(idx[b][code[b] == 7],
-                                            minlength=N_KEYS)
+        # the codes are assigned batch by batch, as the node assigns them;
+        # the sketch is linear, so the batches fold in one pass
+        codes = np.concatenate([self.codes.encode(c) for c in code])
+        keys = np.concatenate(list(idx))
+        twin_hh_fold(self.panes[cur], keys, codes)
+        self.counts[cur] += np.bincount(keys, minlength=N_KEYS)
+        self.sevens[cur] += np.bincount(
+            keys[np.concatenate(list(code)) == 7], minlength=N_KEYS)
         merged = (self.panes[0] + self.panes[1]).reshape(N_KEYS, HH_SIZE)
         out = (twin_hh_top(merged, 3), self.counts[0] + self.counts[1],
                self.sevens[0] + self.sevens[1])
@@ -1239,11 +1332,8 @@ def twin_hll(values):
 
 def twin_registers(flat, rho):
     """(N_KEYS, HLL_M) registers: the largest rho at each flat index."""
-    u = np.unique(flat * 64 + rho)  # sorted by index, then by rho
-    idx, r = u // 64, u % 64
-    last = np.append(np.nonzero(np.diff(idx))[0], len(u) - 1)
     regs = np.zeros(N_KEYS * HLL_M, dtype=np.int64)
-    regs[idx[last]] = r[last]
+    np.maximum.at(regs, flat, rho)
     return regs.reshape(N_KEYS, HLL_M)
 
 
@@ -1315,7 +1405,7 @@ def check_wide_windows(tag, emitted, spans, span, what):
         vs = np.concatenate([s[1] for s in spans[max(0, w - span + 1):
                                                  w + 1]])
         keys = key_ids(cb.columns["deviceId"])
-        live = np.unique(ks)
+        live = np.nonzero(np.bincount(ks, minlength=N_KEYS))[0]
         check(cb.n == len(live) and (np.sort(keys) == live).all(),
               f"{what} window {w}: emitted keys differ")
         if tag == "pct":
@@ -1341,8 +1431,9 @@ def check_wide_windows(tag, emitted, spans, span, what):
             check((np.abs(u - est[keys]) <= 1).all(),
                   f"{what} window {w}: estimate beyond ±1 "
                   f"(max {np.abs(u - est[keys]).max()})")
-            exact = np.bincount(np.unique(ks * 1000 + np.rint(
-                vs * 10).astype(np.int64)) // 1000, minlength=N_KEYS)
+            exact = (np.bincount(ks * 1000 + np.rint(vs * 10).astype(
+                np.int64), minlength=N_KEYS * 1000).reshape(N_KEYS, 1000)
+                > 0).sum(axis=1)
             errs.append(float(np.mean(np.abs(u - exact[keys])
                                       / exact[keys])))
         n_rows += cb.n
@@ -2224,28 +2315,64 @@ class ScalarTwin:
         return merge_aggs([mid] + ends)
 
 
-def check_pct_window(cb, stream, a, b, what):
+class PctTwin:
+    """D1's percentile twin over the sliding row range [a, b): per-key
+    histogram cells, counts and rows within D_EDGE of a bin edge, kept by
+    adding the rows that enter the range and taking away those that leave
+    it (a trigger's range only moves forward)."""
+
+    def __init__(self, stream):
+        ks = stream.idx.reshape(-1).astype(np.int64)
+        vs = stream.temp.reshape(-1)
+        self.ks = ks
+        self.cell = np.empty(len(ks), dtype=np.int64)
+        self.near = np.empty(len(ks), dtype=np.bool_)
+        step = 16 * ROWS
+        for lo in range(0, len(ks), step):
+            bins, near = twin_bins(vs[lo:lo + step], D_EDGE)
+            self.cell[lo:lo + step] = ks[lo:lo + step] * HIST_BINS + bins
+            self.near[lo:lo + step] = near
+        self.a = self.b = 0
+        self.hist = np.zeros(N_KEYS * HIST_BINS, dtype=np.int64)
+        self.cnt = np.zeros(N_KEYS, dtype=np.int64)
+        self.n_near = np.zeros(N_KEYS, dtype=np.int64)
+
+    def _add(self, lo, hi, sign):
+        if hi <= lo:
+            return
+        self.hist += sign * np.bincount(self.cell[lo:hi],
+                                        minlength=N_KEYS * HIST_BINS)
+        ks = self.ks[lo:hi]
+        self.cnt += sign * np.bincount(ks, minlength=N_KEYS)
+        self.n_near += sign * np.bincount(ks[self.near[lo:hi]],
+                                          minlength=N_KEYS)
+
+    def window(self, a, b):
+        if a < self.a or b < self.b or a >= self.b:
+            for arr in (self.hist, self.cnt, self.n_near):
+                arr[:] = 0
+            self._add(a, b, 1)
+        else:
+            self._add(self.a, a, -1)
+            self._add(self.b, b, 1)
+        self.a, self.b = a, b
+
+
+def check_pct_window(cb, twin, a, b, what):
     """D1: count(*) exact and p99 in the twin's bin (one over only for a
-    key holding a value within 1e-5 of a bin edge). Returns rows one bin
+    key holding a value within D_EDGE of a bin edge). Returns rows one bin
     over."""
-    ks = stream.idx.reshape(-1)[a:b]
-    vs = stream.temp.reshape(-1)[a:b]
+    twin.window(a, b)
     keys = key_ids(cb.columns["deviceId"])
-    cnt = np.bincount(ks, minlength=N_KEYS)
-    live = np.nonzero(cnt)[0]
+    live = np.nonzero(twin.cnt)[0]
     check(cb.n == len(live) and (np.sort(keys) == live).all(),
           f"{what}: emitted keys differ")
-    check((np.asarray(cb.columns["c"]) == cnt[keys]).all(), f"{what}: count")
-    bins, near = twin_bins(vs, D_EDGE)
-    hist = np.bincount(ks.astype(np.int64) * HIST_BINS + bins,
-                       minlength=N_KEYS * HIST_BINS).reshape(N_KEYS,
-                                                             HIST_BINS)
-    qb, _ = twin_quantile_bin(hist, 0.99)
-    edge = np.zeros(N_KEYS, dtype=bool)
-    edge[ks[near]] = True
+    check((np.asarray(cb.columns["c"]) == twin.cnt[keys]).all(),
+          f"{what}: count")
+    qb, _ = twin_quantile_bin(twin.hist.reshape(N_KEYS, HIST_BINS), 0.99)
     got = value_bin(np.asarray(cb.columns["p99"], dtype=np.float32))
     d = np.abs(got - qb[keys])
-    check(((d == 0) | ((d == 1) & edge[keys])).all(),
+    check(((d == 0) | ((d == 1) & (twin.n_near[keys] > 0))).all(),
           f"{what}: percentile bin differs at {int((d != 0).sum())} keys")
     return int((d == 1).sum())
 
@@ -2257,17 +2384,21 @@ class HllTwin:
     def __init__(self):
         vals = (np.arange(1000) / 10).astype(np.float32)
         self.reg, self.rho = twin_hll(vals)
+        # the values grouped by register: one maximum.reduceat a window
+        self.order = np.argsort(self.reg, kind="stable")
+        self.cols, self.starts = np.unique(self.reg[self.order],
+                                           return_index=True)
 
     def check(self, cb, stream, a, b, what):
         ks = stream.idx.reshape(-1)[a:b].astype(np.int64)
         hv = stream.hum.reshape(-1)[a:b].astype(np.int64)
         present = np.bincount(ks * 1000 + hv, minlength=N_KEYS * 1000
                               ).reshape(N_KEYS, 1000) > 0
+        ranks = np.where(present[:, self.order],
+                         self.rho[self.order].astype(np.int8)[None, :],
+                         np.int8(0))
         regs = np.zeros((N_KEYS, HLL_M), dtype=np.int64)
-        for v in range(1000):
-            col = self.reg[v]
-            regs[:, col] = np.maximum(regs[:, col],
-                                      np.where(present[:, v], self.rho[v], 0))
+        regs[:, self.cols] = np.maximum.reduceat(ranks, self.starts, axis=1)
         keys = key_ids(cb.columns["deviceId"])
         live = np.nonzero(present.any(axis=1))[0]
         check(cb.n == len(live) and (np.sort(keys) == live).all(),
@@ -2358,19 +2489,25 @@ def run_phase_d(torch, seed, kernels, mods):
         want_trig = int((stream.temp > 44.5).sum())
         check(len(em) == want_trig,
               f"{tag}: {len(em)} triggers, {want_trig} trigger rows")
-        twin = ScalarTwin(stream) if tag.startswith("d2") else None
+        twin = (ScalarTwin(stream) if tag.startswith("d2") else
+                PctTwin(stream) if tag == "d1" else None)
         worst, edge = 0.0, 0
         t_check = time.perf_counter()
         for i, (t, received, _, _, cb, _) in enumerate(em):
             a, b = stream.rows(t - node.length_ms, t + delay, received)
             what = f"{tag} trigger {i} (t={t})"
             if tag == "d1":
-                edge += check_pct_window(cb, stream, a, b, what)
+                edge += check_pct_window(cb, twin, a, b, what)
             elif tag == "d3":
                 edge += hll_twin.check(cb, stream, a, b, what)
             else:
                 worst = max(worst, check_window(cb, twin.window(a, b), False,
                                                 what))
+        if tag == "d1":
+            # the periodic re-anchor of the ring's running totals (its
+            # forced rebuild) falls inside D1's 720 batches
+            check(node.ring_counts.get("reanchor", 0) > 0,
+                  f"d1: no re-anchor in {D_BATCHES['d1']} batches")
         res[tag] = dict(
             rows_per_s=rps, triggers=len(em),
             stall=[st * 1e3 for _, _, st, _, _, _ in em],
@@ -2410,12 +2547,14 @@ class HHWindowTwin:
     exact per-(key, code) counts of its rows: the sketch is linear in
     them (one occurrence of a code adds 1 to its cell's total and to each
     of its set bits' counters, at each depth), so the window's counters
-    are one float32 product per depth, exact below 2^24. The codes are
-    the node's dictionary codes, assigned batch by batch (TwinCodes)."""
+    are one float64 product per depth on `dev` (integers, exact in any
+    order of summation). The codes are the node's dictionary codes,
+    assigned batch by batch (TwinCodes)."""
 
-    def __init__(self, stream):
+    def __init__(self, stream, torch, dev):
         codes = TwinCodes()
         self.s = stream
+        self.torch, self.dev = torch, dev
         self.cid = np.stack([codes.encode(stream.code[b])
                              for b in range(stream.n)])
         self.values = codes.values
@@ -2428,7 +2567,8 @@ class HHWindowTwin:
             g[np.arange(nc), slot, 0] = 1.0
             for b in range(HH_BITS):
                 g[np.arange(nc), slot, 1 + b] = (c >> U32(b)) & U32(1)
-            self.g.append(g.reshape(nc, -1))
+            self.g.append(torch.from_numpy(g.reshape(nc, -1)).to(
+                dev, torch.float64))
 
     def window(self, a, b):
         """(top-3 lists of every key, row count of every key) over the
@@ -2436,11 +2576,12 @@ class HHWindowTwin:
         nc = len(self.values)
         keys = self.s.idx.reshape(-1)[a:b].astype(np.int64)
         cid = self.cid.reshape(-1)[a:b].astype(np.int64)
-        C = np.bincount(keys * nc + cid, minlength=N_KEYS * nc).reshape(
-            N_KEYS, nc).astype(np.float32)
-        merged = np.stack([C @ g for g in self.g], axis=1).reshape(
-            N_KEYS, HH_SIZE)
-        return (twin_hh_top(merged.astype(np.float64), 3),
+        C = self.torch.from_numpy(np.bincount(
+            keys * nc + cid, minlength=N_KEYS * nc).reshape(N_KEYS, nc)
+            .astype(np.float64)).to(self.dev)
+        merged = self.torch.stack([C @ g for g in self.g], dim=1).reshape(
+            N_KEYS, HH_SIZE).cpu().numpy()
+        return (twin_hh_top(merged, 3),
                 np.bincount(keys, minlength=N_KEYS))
 
 
@@ -2523,7 +2664,7 @@ def run_phase_f(torch, seed, kernels, mods):
     check(node.gb.capacity == SLOTS, f"f1: state at {node.gb.capacity} "
           f"slots, want {SLOTS}")
     t_check = time.perf_counter()
-    twin = HHWindowTwin(stream)
+    twin = HHWindowTwin(stream, torch, torch.device("cuda"))
     n_rows = 0
     for i, (t, received, _, _, cb, _) in enumerate(em):
         a, b = stream.rows(t - node.length_ms, t, received)
@@ -3329,6 +3470,822 @@ def run_phase_e(torch, seed, kernels, plan_rule_group, ColumnBatch):
     return res
 
 
+# ----------------------------------------------- phase 2, the tier store
+def tier_state(torch, seed, node, dev):
+    """A tiered node's state at its full capacity with rows in every pane
+    (65,536-row batches over the whole slot range, v ~ N(50, 10), the
+    sketch rules' temperature and humidity), touch counts included."""
+    gb = node.gb
+    st = gb.init_state()
+    r = np.random.default_rng(seed)
+    per_pane = 4 if gb.n_panes == 1 else 1
+    for pane in range(gb.n_panes):
+        for _ in range(per_pane):
+            cols = {"v": r.normal(50, 10, ROWS).astype(np.float32),
+                    "temperature": r.normal(20, 5, ROWS).astype(np.float32),
+                    "humidity": (r.integers(0, 1000, ROWS) / 10).astype(
+                        np.float32)}
+            gb.fold(st, cols, r.integers(0, gb.capacity, ROWS).astype(
+                np.int32), pane_idx=pane)
+    torch.cuda.synchronize()
+    return st
+
+
+def library_demote(torch, state, idx, n, comps, kernels):
+    """Yardstick, never called by the port: #18 as PyTorch's own calls
+    (index_select per block, cat, index_fill_ of the real slots)."""
+    D = len(idx)
+    packed = torch.cat([state[c].index_select(1, idx).movedim(1, 0)
+                        .reshape(D, -1) for c in comps], dim=1)
+    for c in comps:
+        state[c].index_fill_(1, idx[:n], kernels.INIT[c])
+    return packed
+
+
+def body_sum(torch, fn, names, reps):
+    """The summed bodies of the kernels `names` one call of `fn` launches
+    (None when the trace holds none of them)."""
+    parts = [body_ms(torch, fn, n, reps) for n in names]
+    return None if all(p is None for p in parts) else sum(
+        p for p in parts if p is not None)
+
+
+def tier_kernel_checks(torch, seed, kernels, plan_fused_rule, dev):
+    """#18 and #19 against their plain versions at G1's state (1 pane, Wp
+    4, 1,048,576 slots), G2's (10 panes, Wp 60, 262,144 slots) and the wide
+    plans' (phase B's hll hopping state, PCT_RULE's percentile hist, each
+    tiered at 16,384 slots): a block of 2,000 real slots and 48 pad rows
+    repeating the first, bit-equal; and the fold's touch column (#1's touch
+    branch) at G1's state against the plain fold, exact."""
+    rows = {}
+    cases = (("g1", G1_RULE, G1_OPTS, G_SLOTS),
+             ("g2", G2_RULE, {"tierHotMb": G_HOT_MB}, G_SLOTS),
+             ("hll", HLL_RULE, {"tierHotMb": 64}, SLOTS),
+             ("pct", PCT_RULE, {"tierHotMb": 128}, SLOTS))
+    for i, (tag, sql, opts, slots_cap) in enumerate(cases):
+        node = plan_fused_rule(sql, key_slots=slots_cap, micro_batch=ROWS,
+                               device=dev, options=opts)
+        check(node.tier is not None, f"{tag}: the tier did not engage")
+        gb, ts = node.gb, node.tier.ts
+        st = tier_state(torch, seed + 700 + i, node, dev)
+        r = np.random.default_rng(seed + 710 + i)
+        D, Wp = ts.demote_batch, ts.packed_w
+        n = D - 48
+        s, real = ts._slots(r.choice(gb.capacity, n, replace=False))
+        s_dev = torch.from_numpy(s).to(dev)
+        got, ref = clone_state(st), clone_state(st)
+        packed = kernels.tier_demote(got, s_dev, real, ts.comps)
+        want = kernels.tier_demote_plain(ref, s_dev, real, ts.comps)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(packed, want)), f"{tag}: tier_demote block")
+        err = state_err(got, ref, exact=tuple(ref))
+        demote = functools.partial(kernels.tier_demote, got, s_dev, real,
+                                   ts.comps)
+        t_k = time_ms(torch, demote, REPS)
+        split = {"body_ms": body_sum(torch, demote, (
+            "tier_gather_kernel", "tier_reset_kernel"), REPS),
+            "host_ms": host_ms(torch, demote, REPS)}
+        t_p = time_ms(torch, lambda: kernels.tier_demote_plain(
+            ref, s_dev, real, ts.comps), REPS)
+        idx = s_dev.long()
+        t_l = time_ms(torch, lambda: library_demote(
+            torch, ref, idx, real, ts.comps, kernels), REPS)
+        # the block's D rows gathered and written, n rows reset, the slots
+        # and the n touch counters
+        nbytes = 2 * D * Wp * 4 + real * Wp * 4 + D * 4 + real * 4
+        b_ms, b_by = bound(nbytes, 0)
+        print(f"kernel tier_demote {tag} P={gb.n_panes} C={gb.capacity} "
+              f"Wp={Wp} D={D} n={real}: max_abs_err={err[0]:.3g} "
+              f"kernel_ms={t_k:.4f} {split_text(split)} plain_ms={t_p:.4f} "
+              f"library_ms={t_l:.4f} bound_ms={b_ms:.5f} ({b_by})")
+        rows[f"tier_demote/{tag}"] = dict(
+            max_abs_err=err[0], max_rel_err=err[1], ms=t_k, **split,
+            plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+
+        # promote: the demoted rows back into other slots holding data,
+        # identity pad rows on the repeated pad slot
+        block = np.tile(ts.init_row(), (D, 1))
+        block[:real] = want.cpu().numpy()[:real][::-1]
+        d, _ = ts._slots(r.choice(gb.capacity, n, replace=False))
+        d_dev = torch.from_numpy(d).to(dev)
+        pk = torch.from_numpy(block).to(dev)
+        got, ref = clone_state(st), clone_state(st)
+        kernels.tier_promote(got, pk, d_dev, ts.comps)
+        kernels.tier_promote_plain(ref, pk, d_dev, ts.comps)
+        torch.cuda.synchronize()
+        err = state_err(got, ref, exact=tuple(ref))
+        promote = functools.partial(kernels.tier_promote, got, pk, d_dev,
+                                    ts.comps)
+        t_k = time_ms(torch, promote, REPS)
+        split = launch_split(torch, promote, "tier_promote_kernel", REPS)
+        # the plain version is the library yardstick itself: index_add_
+        # and scatter_reduce_ (amin / amax) along the slot axis, per block
+        t_p = t_l = time_ms(torch, lambda: kernels.tier_promote_plain(
+            ref, pk, d_dev, ts.comps), REPS)
+        # the block and the slots read, n rows of state read and written
+        nbytes = D * Wp * 4 + D * 4 + 2 * real * Wp * 4
+        b_ms, b_by = bound(nbytes, real * Wp)
+        print(f"kernel tier_promote {tag} P={gb.n_panes} C={gb.capacity} "
+              f"Wp={Wp} D={D} n={real}: max_abs_err={err[0]:.3g} "
+              f"kernel_ms={t_k:.4f} {split_text(split)} plain_ms={t_p:.4f} "
+              f"library_ms={t_l:.4f} bound_ms={b_ms:.5f} ({b_by})")
+        rows[f"tier_promote/{tag}"] = dict(
+            max_abs_err=err[0], max_rel_err=err[1], ms=t_k, **split,
+            plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+        if tag == "g1":
+            rows["groupby_fold_scalar/touch"] = touch_fold_check(
+                torch, seed, kernels, gb, st, dev)
+    return rows
+
+
+def touch_fold_check(torch, seed, kernels, gb, st, dev):
+    """#1's touch branch at G1's state: a 65,536-row batch folded by the
+    kernel and by the plain fold, touch exact (uint32), the rest as the
+    fold's check; timed with the touch column and without it."""
+    r = np.random.default_rng(seed + 720)
+    v = torch.from_numpy(r.normal(50, 10, ROWS).astype(np.float32)).to(dev)
+    base, V, M = gb.spec_inputs({"v": v}, ROWS)
+    slots = r.integers(0, gb.capacity, ROWS).astype(np.int32)
+    s_dev = torch.from_numpy(slots).to(dev)
+    got, ref = clone_state(st), clone_state(st)
+    kernels.groupby_fold_scalar(got, base, V, M, s_dev, 0, gb._colmap)
+    kernels.fold_scalar_plain(ref, base, V, M, s_dev, 0, gb._colmap)
+    torch.cuda.synchronize()
+    err = state_err(got, ref)
+    check(np.array_equal(got["touch"].cpu().numpy(),
+                         ref["touch"].cpu().numpy()), "touch column")
+    fold = functools.partial(kernels.groupby_fold_scalar, got, base, V, M,
+                             s_dev, 0, gb._colmap)
+    untracked = {k: v for k, v in got.items() if k != "touch"}
+    t_k = time_ms(torch, fold, REPS)
+    t_u = time_ms(torch, lambda: kernels.groupby_fold_scalar(
+        untracked, base, V, M, s_dev, 0, gb._colmap), REPS)
+    split = launch_split(torch, fold, "fold_scalar_kernel", REPS)
+    t_p = time_ms(torch, lambda: kernels.fold_scalar_plain(
+        ref, base, V, M, s_dev, 0, gb._colmap), REPS)
+    t32 = torch.zeros(gb.capacity, dtype=torch.int32, device=dev)
+    ones = base.int()
+    idx = s_dev.long()
+
+    def library():
+        library_fold(torch, ref, base, V, M, s_dev, 0, gb._colmap, kernels)
+        t32.index_add_(0, idx, ones)
+
+    t_l = time_ms(torch, library, REPS)
+    S, R = V.shape
+    touched = len(np.unique(slots))
+    width = sum(a.shape[2] for k, a in st.items()
+                if k not in ("act", "touch")) + 1
+    # the fold's bytes (fold_scalar's count) and each touched counter read
+    # and written
+    nbytes = (V.numel() * 4 + M.numel() + R * 4 + R
+              + touched * width * 8 + touched * 8)
+    b_ms, b_by = bound(nbytes, R * (len(gb._colmap) + 2))
+    print(f"kernel groupby_fold_scalar/touch R={R} C={gb.capacity} "
+          f"cols={len(gb._colmap)}: max_abs_err={err[0]:.3g} touch exact "
+          f"kernel_ms={t_k:.4f} (without touch {t_u:.4f}) {split_text(split)} "
+          f"plain_ms={t_p:.4f} library_ms={t_l:.4f} bound_ms={b_ms:.5f} "
+          f"({b_by})")
+    return dict(max_abs_err=err[0], max_rel_err=err[1], ms=t_k,
+                ms_without_touch=t_u, **split, plain_ms=t_p, bound_ms=b_ms,
+                bound_by=b_by, library_ms=t_l)
+
+
+# ------------------------------------------------------------ phase G
+def window_cbs(emitted):
+    """Emitted ColumnBatches by window end (device groups and the spilled
+    keys' extras, in any order)."""
+    by_end = {}
+    for cb in emitted:
+        if cb.n:
+            by_end.setdefault(int(cb.timestamps[0]), []).append(cb)
+    return by_end
+
+
+def object_addresses(arr):
+    """The element pointers of an object array, read from its buffer:
+    no string object is touched (each touch, in the random memory order
+    of an emitted key column, costs a cache miss)."""
+    arr = np.ascontiguousarray(arr, dtype=np.object_)
+    if not len(arr):
+        return np.zeros(0, dtype=np.uintp)
+    buf = (ctypes.c_size_t * len(arr)).from_address(arr.ctypes.data)
+    return np.ctypeslib.as_array(buf).astype(np.uintp)
+
+
+class NameIds:
+    """Key names -> the stream's integer key ids, for phase G's twins.
+    The names the stream made are registered as tables of their string
+    objects' addresses, the objects held alive here, so that an address
+    names one object: an emitted name that is one of them (the key table
+    keeps the objects it was given) is found by its address, with no
+    hashing; any other name is parsed by `by_value` (every name carries
+    its id)."""
+
+    def __init__(self, by_value):
+        self.by_value = by_value
+        self.tables = {}
+
+    def register(self, tag, names, ids):
+        names = np.asarray(names, dtype=np.object_)
+        addr = object_addresses(names)
+        order = np.argsort(addr)
+        self.tables[tag] = (addr[order], np.asarray(ids, np.int64)[order],
+                            names)
+
+    def __call__(self, names):
+        names = np.asarray(names, dtype=np.object_)
+        addr = object_addresses(names)
+        order = np.argsort(addr)
+        q = addr[order]
+        out = np.full(len(names), -1, dtype=np.int64)
+        for known, ids, _held in self.tables.values():
+            if len(known):
+                at = np.minimum(np.searchsorted(known, q), len(known) - 1)
+                hit = known[at] == q
+                out[order[hit]] = ids[at[hit]]
+        for j in np.nonzero(out < 0)[0].tolist():
+            out[j] = self.by_value(names[j])
+        return out
+
+
+def window_columns(cbs, to_ids):
+    """One window's rows: key ids (through to_ids) and the value columns,
+    every part of the window concatenated."""
+    ids = to_ids(np.concatenate([cb.columns["deviceId"] for cb in cbs]))
+    cols = {c: np.concatenate([np.asarray(cb.columns[c], dtype=np.float64)
+                               for cb in cbs])
+            for c in cbs[0].columns if c != "deviceId"}
+    return ids, cols
+
+
+class GTwin:
+    """A window's numpy float64 group-by over integer key ids: count, sum,
+    sum of |v| (the float32 bound) and, for a rule with min, min."""
+
+    def __init__(self, n_keys, with_min=True):
+        self.n = n_keys
+        self.with_min = with_min
+
+    def agg(self, ids, v):
+        v = v.astype(np.float64)
+        out = {"c": np.bincount(ids, minlength=self.n),
+               "s": np.bincount(ids, weights=v, minlength=self.n),
+               "abs": np.bincount(ids, weights=np.abs(v), minlength=self.n)}
+        if self.with_min:
+            out["mn"] = np.full(self.n, np.inf)
+            np.minimum.at(out["mn"], ids, v)
+        return out
+
+    @staticmethod
+    def merge(parts):
+        out = {k: sum(p[k] for p in parts) for k in ("c", "s", "abs")}
+        if "mn" in parts[0]:
+            out["mn"] = np.minimum.reduce([p["mn"] for p in parts])
+        return out
+
+
+def value_errs(got, ref, ids):
+    """Per row of a window: count and min exact, sum within the float32
+    bound of its terms ((n - 1)·ε·Σ|v|, exact for one term). Returns (ok
+    mask, abs error of the sums)."""
+    n = ref["c"][ids]
+    d = np.abs(got["s"] - ref["s"][ids])
+    ok = (got["c"] == n) & (d <= EPS32 * np.maximum(n - 1, 1)
+                            * ref["abs"][ids])
+    if "mn" in got:
+        ok &= got["mn"] == ref["mn"][ids]
+    return ok, d
+
+
+def check_g_window(ids, cols, ref, what, alt=None):
+    """Every row of one window (window_columns: the device groups and
+    the spilled keys' share) against the twin: the keys are the twin's
+    live keys; counts and min exact, sums within the float32 bound. `alt`
+    (key id -> twin) gives a tail-returned key's other allowed value (the
+    reference's rule, ROADMAP Queue 3). Returns (max abs sum error, rows
+    on alt)."""
+    live = np.nonzero(ref["c"] > 0)[0]
+    srt = np.sort(ids)
+    check(bool(np.all(srt[1:] != srt[:-1])), f"{what}: a key emitted twice")
+    check(np.array_equal(srt, live),
+          f"{what}: {len(ids)} keys emitted, want {len(live)}")
+    ok, d = value_errs(cols, ref, ids)
+    on_alt = 0
+    if alt:
+        for j in np.nonzero(~ok)[0].tolist():
+            a = alt.get(int(ids[j]))
+            if a is None:
+                continue
+            row = {k: cols[k][j:j + 1] for k in cols}
+            a_ok, _ = value_errs(row, a, ids[j:j + 1])
+            if a_ok[0]:
+                ok[j] = True
+                d[j] = 0.0
+                on_alt += 1
+    bad = np.nonzero(~ok)[0]
+    check(len(bad) == 0, f"{what}: {len(bad)} rows off the twin (first key "
+          f"id {ids[bad[0]] if len(bad) else None})")
+    return float(d.max(initial=0.0)), on_alt
+
+
+def tier_counters(node):
+    t = node.tier
+    return dict(demoted=t.demoted_total, promoted=t.promoted_total,
+                recycled=t.recycled_total, resident=len(t.store),
+                host_mb=t.store.nbytes() / 2 ** 20,
+                slots=node.gb.capacity)
+
+
+def g1_parity(torch, seed, mods):
+    """The bench's sub-budget parity segment (bench.py:730-771): the tier
+    engaged at 0.01 MB (hot target under its 1,024-slot floor, 1,000
+    keys) against the untiered rule, 4,096 slots, 8,192-row batches, 3
+    windows. Keys and counts must be byte-identical; the sums are float32
+    atomics, whose order a card does not fix between two runs, so they
+    are held to the float32 bound and their differing bits counted."""
+    plan_fused_rule, ColumnBatch, Trigger = mods
+    from ekuiper_tpu_torch.runtime.nodes_fused import FusedWindowAggNode
+
+    plain = plan_fused_rule(G1_RULE, key_slots=G1_PAR_SLOTS,
+                            micro_batch=G1_PAR_ROWS, options=SYNC)
+    tiered = FusedWindowAggNode(
+        plain.name, plain.window, plain.plan, plain.dims,
+        capacity=G1_PAR_SLOTS, micro_batch=G1_PAR_ROWS,
+        direct_emit=plain.direct_emit, emit_columnar=True,
+        device=plain.gb.device, prefinalize_lead_ms=0,
+        tier_budget_mb=G1_PAR_MB, tier_scan_ms=1)
+    check(tiered.tier is not None and plain.tier is None,
+          "G1 parity: the tier did not engage")
+    out = {"t": [], "p": []}
+    tiered.broadcast = out["t"].append
+    plain.broadcast = out["p"].append
+    rng = np.random.default_rng(seed + 13)
+    par_ids = np.array([f"p{i}" for i in range(G1_PAR_KEYS)],
+                       dtype=np.object_)
+    for w in range(G1_PAR_WINDOWS):
+        idx = rng.integers(0, G1_PAR_KEYS, G1_PAR_ROWS)
+        vals = rng.normal(50, 10, G1_PAR_ROWS)
+        for node in (tiered, plain):
+            node.process(ColumnBatch(
+                n=G1_PAR_ROWS, columns={"deviceId": par_ids[idx].copy(),
+                                        "v": vals.copy()},
+                timestamps=np.zeros(G1_PAR_ROWS, dtype=np.int64),
+                emitter="demo"))
+            node.on_trigger(Trigger(ts=(w + 1) * 1000))
+    torch.cuda.synchronize()
+    check(len(out["t"]) == len(out["p"]) == G1_PAR_WINDOWS,
+          "G1 parity: windows")
+    sum_bits = 0
+    for a, b in zip(out["t"], out["p"]):
+        check(a.columns["deviceId"].tolist() == b.columns["deviceId"]
+              .tolist(), "G1 parity: keys differ")
+        check(np.asarray(a.columns["c"]).tobytes()
+              == np.asarray(b.columns["c"]).tobytes(),
+              "G1 parity: counts differ")
+        sa, sb = (np.asarray(x.columns["s"], np.float64) for x in (a, b))
+        check(bool(np.all(np.abs(sa - sb) <= 2 * EPS32 * np.asarray(
+            a.columns["c"]) * 50 * 3)), "G1 parity: sums differ")
+        sum_bits += int((np.asarray(a.columns["s"]).view(np.uint32)
+                         != np.asarray(b.columns["s"]).view(np.uint32)).sum())
+    return dict(windows=len(out["t"]), rows=sum(cb.n for cb in out["t"]),
+                sum_bits_differ=sum_bits,
+                demoted=tiered.tier.demoted_total,
+                slots=tiered.gb.capacity)
+
+
+def run_g1(torch, seed, kernels, mods):
+    """The key-cardinality sweep: 262,144 hot keys and 2,048 fresh ones a
+    batch, a tumbling 1 s window every 4 batches (the engine clock moved to
+    each boundary, so the 1 ms scan runs at each), to 3,000,000 distinct
+    keys; every window against the numpy twin, the device slots held at
+    the layout's hot capacity."""
+    plan_fused_rule, ColumnBatch, Trigger = mods
+    from ekuiper_tpu_torch.utils import timex
+
+    node = plan_fused_rule(G1_RULE, key_slots=G_SLOTS, micro_batch=ROWS,
+                           options=G1_OPTS)
+    check(node.gb.device.type == "cuda", "G1 is not on the card")
+    layout = node.tier.layout
+    check((layout.hot_slots, layout.hot_capacity(), node.gb.capacity)
+          == (1_677_721, 2_097_152, 1 << 20),
+          f"G1 layout {layout} at {node.gb.capacity} slots")
+    emitted = []
+    node.broadcast = emitted.append
+    stages = {"encode": 0.0}
+    node._build_kernel_inputs = timed(node._build_kernel_inputs, stages,
+                                      "encode")
+    clock = timex.set_mock_clock(0)
+    rng = np.random.default_rng(seed + 690)
+    hot_names = np.array([f"hot_{i}" for i in range(G1_HOT)],
+                         dtype=np.object_)
+    # hot_<i> is key i, fresh k<n> is key G1_HOT + n
+    to_ids = NameIds(lambda name: int(name[4:]) if name.startswith("hot_")
+                     else G1_HOT + int(name[1:]))
+    to_ids.register("hot", hot_names, np.arange(G1_HOT))
+    n_batches = -(-(G1_TARGETS[-1] - G1_HOT) // G1_FRESH)
+    n_batches += -n_batches % G_PER_WINDOW
+    n_total = G1_HOT + n_batches * G1_FRESH
+    twin = GTwin(n_total, with_min=False)
+    kernels.reset_launches()
+    node_s, emit_ms, worst, caps = 0.0, [], 0.0, []
+    encode_before, batches_before = None, 0
+    win_ids, win_v, win_fresh, checkpoints = [], [], [], []
+    seg = {"t": 0.0, "rows": 0}
+    for b in range(n_batches):
+        idx = rng.integers(0, G1_HOT, ROWS - G1_FRESH)
+        start = G1_HOT + b * G1_FRESH
+        fresh = np.array([f"k{b * G1_FRESH + i}" for i in range(G1_FRESH)],
+                         dtype=np.object_)
+        win_fresh.append(fresh)
+        names = np.concatenate([hot_names[idx], fresh])
+        v = rng.normal(50, 10, ROWS)
+        win_ids.append(np.concatenate([idx, np.arange(start, start
+                                                      + G1_FRESH)]))
+        win_v.append(v.astype(np.float32))
+        batch = ColumnBatch(n=ROWS, columns={"deviceId": names, "v": v},
+                            timestamps=np.zeros(ROWS, dtype=np.int64),
+                            emitter="demo")
+        t = time.perf_counter()
+        node.process(batch)
+        dt = time.perf_counter() - t
+        if (b + 1) % G_PER_WINDOW:
+            node_s += dt
+            seg["t"] += dt
+            seg["rows"] += ROWS
+            continue
+        wn = (b + 1) // G_PER_WINDOW
+        clock.set(wn * 1000)
+        te = time.perf_counter()
+        node.on_trigger(Trigger(ts=wn * 1000))
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        emit_ms.append((t_end - te) * 1e3)
+        node_s += dt + (t_end - te)
+        seg["t"] += dt + (t_end - te)
+        seg["rows"] += ROWS
+        caps.append(node.gb.capacity)
+        check(node.gb.capacity <= layout.hot_capacity(),
+              f"G1: {node.gb.capacity} slots past the hot capacity")
+        if encode_before is None and node.tier.demoted_total:
+            encode_before, batches_before = stages["encode"], b + 1
+        # a synchronous boundary (lead 0): the window was emitted before
+        # on_trigger returned; the tier's harvests and scans go on on the
+        # emit worker
+        check(node._deliveries_queued == node._deliveries_done,
+              f"G1 window {wn}: a delivery was deferred")
+        cbs = window_cbs(emitted).get(wn * 1000, [])
+        emitted.clear()
+        ref = twin.agg(np.concatenate(win_ids), np.concatenate(win_v))
+        # a tumbling window's keys: hot ones and its own fresh ones
+        fresh = np.concatenate(win_fresh)
+        to_ids.register("fresh", fresh, np.arange(
+            start + G1_FRESH - len(fresh), start + G1_FRESH))
+        win_ids, win_v, win_fresh = [], [], []
+        check(bool(cbs), f"G1 window {wn}: nothing emitted")
+        err, _ = check_g_window(*window_columns(cbs, to_ids), ref,
+                                f"G1 window {wn}")
+        worst = max(worst, err)
+        distinct = G1_HOT + (b + 1) * G1_FRESH
+        for target in G1_TARGETS:
+            if distinct >= target and len(checkpoints) < \
+                    G1_TARGETS.index(target) + 1:
+                checkpoints.append(dict(
+                    distinct=distinct, rows_per_s=seg["rows"] / seg["t"],
+                    emit_p99_ms=pct(emit_ms, 99), **tier_counters(node),
+                    demote_launches=kernels.LAUNCHES["tier_demote"],
+                    promote_launches=kernels.LAUNCHES["tier_promote"]))
+                seg = {"t": 0.0, "rows": 0}
+    node._drain_async_emits()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    touch = dict(kernels.TOUCH_LAUNCHES)
+    grows = sum(1 for a, b in zip(caps, caps[1:]) if b != a) + (
+        caps[0] != 1 << 20)
+    check(grows <= 1 and max(caps) <= layout.hot_capacity(),
+          f"G1 capacity path {sorted(set(caps))}")
+    check(node.tier.demoted_total > 0 and launches["tier_demote"] > 0,
+          "G1 demoted nothing")
+    n_rows = n_batches * ROWS
+    after = stages["encode"] - (encode_before or 0.0)
+    return dict(
+        batches=n_batches, windows=n_batches // G_PER_WINDOW,
+        distinct=n_total, rows_per_s=n_rows / node_s,
+        encode_ms=stages["encode"] / n_batches * 1e3,
+        encode_ms_before=(encode_before / batches_before * 1e3
+                          if encode_before else None),
+        encode_ms_after=(after / (n_batches - batches_before) * 1e3
+                         if encode_before else None),
+        emit_p50=pct(emit_ms, 50), emit_p99=pct(emit_ms, 99),
+        max_abs_err=worst, capacities=sorted(set(caps)),
+        checkpoints=checkpoints, layout=layout, launches=launches,
+        touch_launches=touch, **tier_counters(node))
+
+
+class G2Stream:
+    """G2's rows, made in bulk from the seed: per 65,536-row batch (4 to a
+    1 s slide) 57,344 rows uniform over 65,536 hot keys, 2,048 new keys,
+    and 6,144 rows uniform over the keys first seen 4-9 slides earlier
+    (hot keys before there are any); v ~ N(50, 10)."""
+
+    def __init__(self, seed):
+        rng = np.random.default_rng(seed + 22)
+        n_new = G2_BATCHES * G2_NEW
+        self.n_keys = G2_HOT + n_new
+        self.names = np.array([f"hot_{i}" for i in range(G2_HOT)]
+                              + [f"n{j}" for j in range(n_new)],
+                              dtype=np.object_)
+        # hot_<i> is key i, n<j> is key G2_HOT + j
+        self.to_ids = NameIds(
+            lambda name: int(name[4:]) if name.startswith("hot_")
+            else G2_HOT + int(name[1:]))
+        self.to_ids.register("all", self.names, np.arange(self.n_keys))
+        per_slide = G_PER_WINDOW * G2_NEW
+        self.ids, self.v = [], []
+        for b in range(G2_BATCHES):
+            s = b // G_PER_WINDOW
+            lo, hi = s - G2_BACK[1], s - G2_BACK[0] + 1
+            if hi > 0:
+                back = rng.integers(G2_HOT + max(lo, 0) * per_slide,
+                                    G2_HOT + hi * per_slide, G2_BACK_ROWS)
+            else:
+                back = rng.integers(0, G2_HOT, G2_BACK_ROWS)
+            ids = np.concatenate([
+                rng.integers(0, G2_HOT, G2_HOT_ROWS),
+                G2_HOT + b * G2_NEW + np.arange(G2_NEW), back])
+            self.ids.append(ids)
+            self.v.append(rng.normal(50, 10, ROWS))
+
+    def batch(self, ColumnBatch, b):
+        return ColumnBatch(n=ROWS, columns={"deviceId": self.names[
+            self.ids[b]], "v": self.v[b]},
+            timestamps=np.zeros(ROWS, dtype=np.int64), emitter="demo")
+
+
+def g2_node(plan_fused_rule, lead):
+    node = plan_fused_rule(G2_RULE, key_slots=G_SLOTS, micro_batch=ROWS,
+                           options={"tierHotMb": G_HOT_MB,
+                                    "prefinalizeLeadMs": lead})
+    layout = node.tier.layout
+    check((layout.hot_slots, node.gb.capacity) == (137_518, 262_144),
+          f"G2 layout {layout} at {node.gb.capacity} slots")
+    return node
+
+
+def run_g2a(torch, stream, kernels, mods):
+    """G2a: the synchronous boundary (prefinalizeLeadMs 0), on_trigger by
+    hand at each 1 s slide, the engine clock moved to it."""
+    plan_fused_rule, ColumnBatch, Trigger = mods
+    from ekuiper_tpu_torch.utils import timex
+
+    node = g2_node(plan_fused_rule, 0)
+    emitted = []
+    node.broadcast = emitted.append
+    stages = {"encode": 0.0}
+    node._build_kernel_inputs = timed(node._build_kernel_inputs, stages,
+                                      "encode")
+    clock = timex.set_mock_clock(0)
+    batches = [stream.batch(ColumnBatch, b) for b in range(G2_BATCHES)]
+    kernels.reset_launches()
+    emit_ms = []
+    t0 = time.perf_counter()
+    for b, batch in enumerate(batches):
+        clock.set(b // G_PER_WINDOW * 1000
+                  + G2B_OFFSETS[b % G_PER_WINDOW])
+        node.process(batch)
+        if (b + 1) % G_PER_WINDOW == 0:
+            end = (b + 1) // G_PER_WINDOW * 1000
+            clock.set(end)
+            te = time.perf_counter()
+            node.on_trigger(Trigger(ts=end))
+            torch.cuda.synchronize()
+            emit_ms.append((time.perf_counter() - te) * 1e3)
+    node._drain_async_emits()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    timex.use_real_clock()
+    return dict(rows_per_s=G2_BATCHES * ROWS / wall,
+                encode_ms=stages["encode"] / G2_BATCHES * 1e3,
+                emit_p50=pct(emit_ms, 50), emit_p99=pct(emit_ms, 99),
+                launches=dict(kernels.LAUNCHES),
+                touch_launches=dict(kernels.TOUCH_LAUNCHES),
+                windows=window_cbs(emitted), **tier_counters(node))
+
+
+def run_g2b(torch, stream, kernels, mods):
+    """G2b: the default boundary (prefinalizeLeadMs 250, tailMode device),
+    opened on the mock clock: batches at 100, 350, 600 and 850 ms of each
+    slide, the pre-triggers at 500 and 750, the boundary at 1,000. Records
+    each boundary's stall, each window's delivery (its last part) and the
+    keys each batch's admission promoted."""
+    plan_fused_rule, ColumnBatch, Trigger = mods
+    from ekuiper_tpu_torch.utils import timex
+
+    node = g2_node(plan_fused_rule, 250)
+    deliveries, stall_ms, t_trig = [], [], {}
+    node.broadcast = lambda item: deliveries.append(
+        (time.perf_counter(), item))
+    on_trigger = node.on_trigger
+
+    def timed_trigger(trig):
+        t = time.perf_counter()
+        t_trig[int(trig.ts)] = t
+        on_trigger(trig)
+        stall_ms.append((time.perf_counter() - t) * 1e3)
+
+    node.on_trigger = timed_trigger
+    stages = {"encode": 0.0}
+    node._build_kernel_inputs = timed(node._build_kernel_inputs, stages,
+                                      "encode")
+    # the keys admit promotes: each promote block's slots, decoded while
+    # the fresh slots still hold the returning keys
+    promoted, batch_promoted = [], []
+    ts_promote = node.tier.ts.promote
+
+    def recorded_promote(state, packed, slots):
+        batch_promoted.extend(node.kt.decode(int(s)) for s in slots)
+        return ts_promote(state, packed, slots)
+
+    node.tier.ts.promote = recorded_promote
+    batches = [stream.batch(ColumnBatch, b) for b in range(G2_BATCHES)]
+    clock = timex.set_mock_clock(0)
+    kernels.reset_launches()
+    node.on_open()
+    t0 = time.perf_counter()
+    for b, batch in enumerate(batches):
+        clock.set(b // G_PER_WINDOW * 1000 + G2B_OFFSETS[b % G_PER_WINDOW])
+        node.process(batch)
+        promoted.append(batch_promoted[:])
+        batch_promoted.clear()
+        if (b + 1) % G_PER_WINDOW == 0:
+            clock.set((b + 1) // G_PER_WINDOW * 1000)
+    node._drain_async_emits()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    touch = dict(kernels.TOUCH_LAUNCHES)
+    node.on_close()
+    timex.use_real_clock()
+    check(not node.recoveries, f"G2b recovery routes: "
+          f"{dict(node.recoveries)}")
+    last = {}
+    for t, cb in deliveries:
+        if cb.n:
+            end = int(cb.timestamps[0])
+            last[end] = max(last.get(end, 0.0), t)
+    delivery = [(last[e] - t_trig[e]) * 1e3 for e in last if e in t_trig]
+    return dict(rows_per_s=G2_BATCHES * ROWS / wall,
+                encode_ms=stages["encode"] / G2_BATCHES * 1e3,
+                stall_p50=pct(stall_ms, 50), stall_p99=pct(stall_ms, 99),
+                delivery_p50=pct(delivery, 50),
+                delivery_p99=pct(delivery, 99), launches=launches,
+                touch_launches=touch, promoted_by_batch=promoted,
+                windows=window_cbs([cb for _, cb in deliveries]),
+                **tier_counters(node))
+
+
+def check_g2(stream, a, b):
+    """Every G2a and G2b window against the twin over its ten slides' rows,
+    and G2b against G2a. A key G2b promoted after the 500 ms pre-issue of
+    the window's last slide may instead carry only its rows from that
+    batch on (the reference's rule for a return in a window's tail:
+    ROADMAP Queue 3, tests/test_torch_tierstore.py)."""
+    twin = GTwin(stream.n_keys)
+    slides = G2_BATCHES // G_PER_WINDOW
+    per_slide, worst, on_alt, compared = [], 0.0, 0, 0
+    for s in range(slides):
+        bs = range(s * G_PER_WINDOW, (s + 1) * G_PER_WINDOW)
+        per_slide.append(twin.agg(
+            np.concatenate([stream.ids[b] for b in bs]),
+            np.concatenate([stream.v[b].astype(np.float32) for b in bs])))
+        ref = GTwin.merge(per_slide[-10:])
+        end = (s + 1) * 1000
+        rows = {}
+        for tag, run in (("G2a", a), ("G2b", b)):
+            cbs = run["windows"].get(end)
+            check(bool(cbs), f"{tag} window {end}: nothing emitted")
+            rows[tag] = window_columns(cbs, stream.to_ids)
+            alt = None
+            if tag == "G2b":
+                alt = {}
+                # the last slide's tail batches: a key promoted in the
+                # batch at 600 ms may carry that batch and the next, one
+                # promoted at 850 ms that batch only
+                tail = [twin.agg(stream.ids[bt], stream.v[bt].astype(
+                    np.float32)) for bt in bs[2:]]
+                tail = [GTwin.merge(tail[j:]) for j in range(len(tail))]
+                for j, bt in enumerate(bs[2:]):
+                    keys = b["promoted_by_batch"][bt]
+                    if keys:
+                        alt.update(dict.fromkeys(stream.to_ids(np.array(
+                            keys, dtype=np.object_)).tolist(), tail[j]))
+            err, n_alt = check_g_window(*rows[tag], ref,
+                                        f"{tag} window {end}", alt)
+            worst = max(worst, err)
+            on_alt += n_alt
+        # G2b against G2a: the same keys, counts and min but the keys on
+        # the reference's rule, sums within the bound of either's terms
+        (ia, ca), (ib, cb_) = rows["G2a"], rows["G2b"]
+        check(np.array_equal(np.sort(ia), np.sort(ib)),
+              f"G2b window {end}: keys differ from G2a's")
+        oa, ob = np.argsort(ia), np.argsort(ib)
+        same = (ca["c"][oa] == cb_["c"][ob]) & (ca["mn"][oa] == cb_["mn"][ob])
+        compared += len(ia)
+        check(int((~same).sum()) <= len(b["promoted_by_batch"][bs[2]])
+              + len(b["promoted_by_batch"][bs[3]]),
+              f"G2b window {end}: {int((~same).sum())} rows differ from "
+              "G2a's beyond the tail returns")
+    return dict(max_abs_err=worst, tail_returns=on_alt, rows=compared)
+
+
+def run_phase_g(torch, seed, kernels, mods):
+    """Phase G: G1 (the parity segment, then the sweep), G2a, G2b."""
+    t0 = time.perf_counter()
+    walls = {}
+    par = g1_parity(torch, seed, mods)
+    g1 = run_g1(torch, seed, kernels, mods)
+    walls["g1"] = time.perf_counter() - t0
+    stream = G2Stream(seed)
+    g2a = run_g2a(torch, stream, kernels, mods)
+    walls["g2a"] = time.perf_counter() - t0 - sum(walls.values())
+    g2b = run_g2b(torch, stream, kernels, mods)
+    walls["g2b"] = time.perf_counter() - t0 - sum(walls.values())
+    g2 = check_g2(stream, g2a, g2b)
+    walls["check_g2"] = time.perf_counter() - t0 - sum(walls.values())
+    for tag, r in (("G2a", g2a), ("G2b", g2b)):
+        check(r["promoted"] > 0 and r["resident"] > 0
+              and r["launches"]["tier_promote"] > 0,
+              f"{tag}: promoted {r['promoted']}, resident {r['resident']}, "
+              f"tier_promote launches {r['launches']['tier_promote']}")
+        r["windows"] = len(r.pop("windows"))
+    g2b.pop("promoted_by_batch")
+    return dict(parity=par, g1=g1, g2a=g2a, g2b=g2b, g2=g2, walls=walls)
+
+
+def phase_g_lines(g):
+    par, g1 = g["parity"], g["g1"]
+    lay = g1["layout"]
+    yield (f"phase G1 parity: tier {G1_PAR_MB} MB vs untiered, "
+           f"{G1_PAR_SLOTS} slots ({par['slots']} tiered), {G1_PAR_KEYS} "
+           f"keys, {G1_PAR_ROWS}-row batches, {par['windows']} windows, "
+           f"{par['rows']} rows: keys and counts byte-identical, "
+           f"{par['sum_bits_differ']} sums differing in bits (float32 "
+           f"atomics' order), within the bound; demoted {par['demoted']}")
+    yield (f"phase G1 layout: hot_slots={lay.hot_slots} "
+           f"hot_capacity={lay.hot_capacity()} demote_batch="
+           f"{lay.demote_batch} scan_ms={lay.scan_interval_ms} "
+           f"min_idle_scans={lay.min_idle_scans}; device slots "
+           f"{g1['capacities']}")
+    for c in g1["checkpoints"]:
+        yield (f"phase G1 checkpoint {c['distinct']} distinct keys: "
+               f"rows/s={c['rows_per_s']:.0f} emit_p99_ms="
+               f"{c['emit_p99_ms']:.3f} device_slots={c['slots']} "
+               f"demoted={c['demoted']} promoted={c['promoted']} "
+               f"recycled={c['recycled']} resident_cold={c['resident']} "
+               f"host_store_mb={c['host_mb']:.1f} tier_demote="
+               f"{c['demote_launches']} tier_promote="
+               f"{c['promote_launches']}")
+    enc = g1["encode_ms_before"]
+    enc_after = g1["encode_ms_after"]
+    yield (f"phase G1 sweep: {g1['batches']} batches x {ROWS} rows, "
+           f"{g1['windows']} windows, {g1['distinct']} distinct keys: "
+           f"rows/s={g1['rows_per_s']:.0f} (node time) host encode "
+           f"ms/batch={g1['encode_ms']:.3f} (before recycling "
+           f"{'n/a' if enc is None else f'{enc:.3f}'}, after "
+           f"{'n/a' if enc_after is None else f'{enc_after:.3f}'}) "
+           f"emit_p50_ms={g1['emit_p50']:.3f} emit_p99_ms="
+           f"{g1['emit_p99']:.3f} device_slots={g1['slots']} demoted="
+           f"{g1['demoted']} promoted={g1['promoted']} recycled="
+           f"{g1['recycled']} resident_cold={g1['resident']} "
+           f"host_store_mb={g1['host_mb']:.1f} tier_demote="
+           f"{g1['launches']['tier_demote']} tier_promote="
+           f"{g1['launches']['tier_promote']} max_abs_err="
+           f"{g1['max_abs_err']:.3g} (the bench's 10M checkpoint cut for "
+           "time)")
+    for tag in ("g2a", "g2b"):
+        r = g[tag]
+        lat = (f"emit_p50_ms={r['emit_p50']:.3f} emit_p99_ms="
+               f"{r['emit_p99']:.3f}" if tag == "g2a" else
+               f"stall_p50_ms={r['stall_p50']:.3f} stall_p99_ms="
+               f"{r['stall_p99']:.3f} delivery_p50_ms="
+               f"{r['delivery_p50']:.3f} delivery_p99_ms="
+               f"{r['delivery_p99']:.3f}")
+        yield (f"phase G {tag.upper()}: {G2_BATCHES} batches, {r['windows']} "
+               f"windows: rows/s={r['rows_per_s']:.0f} host encode "
+               f"ms/batch={r['encode_ms']:.3f} {lat} device_slots="
+               f"{r['slots']} demoted={r['demoted']} promoted="
+               f"{r['promoted']} recycled={r['recycled']} resident_cold="
+               f"{r['resident']} host_store_mb={r['host_mb']:.1f} "
+               f"tier_demote={r['launches']['tier_demote']} tier_promote="
+               f"{r['launches']['tier_promote']}")
+    yield (f"phase G checks: G1 max_abs_err {g1['max_abs_err']:.3g}; G2 "
+           f"max_abs_err {g['g2']['max_abs_err']:.3g}, {g['g2']['rows']} "
+           f"rows G2b vs G2a; {g['g2']['tail_returns']} G2b rows of keys "
+           "back in a window's tail after its pre-issue carried their tail "
+           "rows only (the reference's rule, ROADMAP Queue 3); wall s "
+           + " ".join(f"{k}={v:.1f}" for k, v in g["walls"].items()))
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3375,6 +4332,8 @@ def main() -> int:
                                     plan_rule_group, dev))
     rows.update(masked_kernel_checks(torch, args.seed, kernels, sketches,
                                      plan_fused_rule, TorchGroupBy, dev))
+    rows.update(tier_kernel_checks(torch, args.seed, kernels,
+                                   plan_fused_rule, dev))
     print(f"phase 2 kernels vs plain: ok (wall {time.perf_counter() - t_run:.0f} s)")
 
     mods = (plan_fused_rule, ColumnBatch, Trigger)
@@ -3425,7 +4384,8 @@ def main() -> int:
     print(f"phase B hll: {b['hll']['rows']} rows within ±1 of the twin; "
           f"mean rel err vs exact distinct {b['hll']['sketch_err']:.4f}; "
           f"emit_p50_ms={pct(b['hll']['emit_ms'], 50):.3f} "
-          f"launches={b['hll']['launches']}")
+          f"launches={b['hll']['launches']} "
+          f"(wall {time.perf_counter() - t_run:.0f} s)")
 
     # phase C: the reference's default boundary on the mock clock
     c = run_phase_c(torch, args.seed, kernels, prefinalize, mods)
@@ -3491,6 +4451,13 @@ def main() -> int:
           f", refold routes {f['f4']['routes']} "
           f"(wall {time.perf_counter() - t_run:.0f} s)")
 
+    # phase G: tiered key state (G1 the key-cardinality bench, G2 spills
+    # and promotions), full size
+    g = run_phase_g(torch, args.seed, kernels, mods)
+    for line in phase_g_lines(g):
+        print(line)
+    print(f"phase G: wall {time.perf_counter() - t_run:.0f} s")
+
     # phase 5: every kernel launched on each path that uses it
     paths = {"tumbling": counts_t, "hopping": counts_h, "hh": counts_hh,
              "pct": b["pct"]["launches"], "hll": b["hll"]["launches"],
@@ -3499,7 +4466,8 @@ def main() -> int:
              # E2's four family nodes share one run and its counts
              "e1": e["e1"]["launches"], "e2": e["e2_fa"]["launches"],
              "e3": e["e3"]["launches"],
-             **{tag: f[tag]["launches"] for tag in f}}
+             **{tag: f[tag]["launches"] for tag in f},
+             **{tag: g[tag]["launches"] for tag in ("g1", "g2a", "g2b")}}
     for name, used_by in PATHS.items():
         for path in used_by:
             check(paths[path][name] > 0,
@@ -3509,6 +4477,11 @@ def main() -> int:
         for path in used_by:
             check(sliding[path]["row_pane"][name] > 0,
                   f"{name} took no per-row pane vector on the {path} path")
+    touch = {tag: g[tag]["touch_launches"] for tag in ("g1", "g2a", "g2b")}
+    for name, used_by in TOUCH_PATHS.items():
+        for path in used_by:
+            check(touch[path][name] > 0,
+                  f"{name} bumped no touch column on the {path} path")
     print("phase 5 kernels: " + " ".join(
         f"{n}=" + "+".join(f"{paths[p][n]}({p})" for p in PATHS[n])
         for n in PATHS))
@@ -3521,7 +4494,9 @@ def main() -> int:
                 "ring_flip": "ring_flip/pct",
                 "ring_query": "ring_query/pct",
                 "groupby_fold_masked_scalar": "groupby_fold_masked_scalar",
-                "groupby_fold_masked_wide": "groupby_fold_masked_wide"}
+                "groupby_fold_masked_wide": "groupby_fold_masked_wide",
+                "tier_demote": "tier_demote/g1",
+                "tier_promote": "tier_promote/g2"}
     main_path = {"groupby_fold_wide": "hh", "groupby_finalize_wide": "pct",
                  "groupby_hh_finalize": "hh", "groupby_components": "c1",
                  "groupby_absorb": "c1_host", "ring_advance": "d1",
@@ -3529,7 +4504,8 @@ def main() -> int:
                  "multirule_fold": "e1", "multirule_finalize": "e1",
                  "multirule_reset_pane": "e1",
                  "groupby_fold_masked_scalar": "f2",
-                 "groupby_fold_masked_wide": "f1"}
+                 "groupby_fold_masked_wide": "f1",
+                 "tier_demote": "g1", "tier_promote": "g2a"}
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name],
@@ -3557,7 +4533,16 @@ def main() -> int:
     table["kernels"][12]["hopping_subset"] = rows[
         "multirule_finalize/hopping_subset"]
     table["kernels"][15]["hll_rule"] = rows["groupby_fold_masked_wide/hll"]
-    check(len(table["kernels"]) == 16, "kernel table")
+    # #1's touch branch (tiered key state), launched on the G paths
+    table["kernels"][0]["touch"] = dict(
+        rows["groupby_fold_scalar/touch"], launches_by_path={
+            p: touch[p]["groupby_fold_scalar"]
+            for p in TOUCH_PATHS["groupby_fold_scalar"]})
+    for i, name in ((16, "tier_demote"), (17, "tier_promote")):
+        for tag in ("g1", "g2", "hll", "pct"):
+            if f"{name}/{tag}" != main_row[name]:
+                table["kernels"][i][f"{tag}_state"] = rows[f"{name}/{tag}"]
+    check(len(table["kernels"]) == 18, "kernel table")
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,8 @@
 // csrc/groupby_common.cuh.
 //
 // groupby_fold_scalar    replaces DeviceGroupBy._fold_impl/_fold_core
-//                        (ekuiper_tpu/ops/groupby.py:348-441)
+//                        (ekuiper_tpu/ops/groupby.py:348-441), the
+//                        touch column's bump (379-385) included
 // groupby_fold_masked_scalar replaces _fold_masked_impl (354): the same
 //                        fold under an explicit (mb,) row mask, into one
 //                        pane (the sliding refold's edge folds)
@@ -49,7 +50,9 @@
 // state. The destination pane is `pane`, or pane_vec[r] when pane_vec is
 // given (per-row panes: a sliding batch that crosses a bucket edge, the
 // reference's uint8 pane vector). fold_scalar_row (csrc/groupby_common.cuh)
-// drops a slot outside [0, C) or a pane outside [0, P).
+// drops a slot outside [0, C) or a pane outside [0, P). With a touch
+// column (tiered key state) each row past `base` also adds one to its
+// slot's uint32 touch counter.
 template <typename SlotT>
 __global__ void fold_scalar_kernel(const uint8_t* __restrict__ base,
                                    const float* __restrict__ V,
@@ -57,12 +60,13 @@ __global__ void fold_scalar_kernel(const uint8_t* __restrict__ base,
                                    const SlotT* __restrict__ slots, int R,
                                    int pane, const uint8_t* __restrict__ pane_vec,
                                    int P, int C, ColMap cm, Comps cp,
-                                   float* __restrict__ act) {
+                                   float* __restrict__ act,
+                                   unsigned int* __restrict__ touch) {
   for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < R;
        r += gridDim.x * blockDim.x) {
     if (!base[r]) continue;
     const int p = pane_vec != nullptr ? (int)pane_vec[r] : pane;
-    fold_scalar_row(cm, cp, V, M, slots, R, r, p, P, C, act);
+    fold_scalar_row(cm, cp, V, M, slots, R, r, p, P, C, act, touch);
   }
 }
 
@@ -72,7 +76,9 @@ __global__ void fold_scalar_kernel(const uint8_t* __restrict__ base,
 // already ANDed with it. Every row goes to the one pane `pane` (the
 // sliding refold's scratch pane). A row with mask 0 writes nothing, so
 // the padding past the batch's real rows (slot 0) changes no act, no
-// min/max identity, no counter.
+// min/max identity, no counter. It bumps no touch column: the reference's
+// masked fold does, but its only callers are sliding refolds, and the port
+// refuses tiered sliding rules.
 template <typename SlotT>
 __global__ void fold_masked_scalar_kernel(const uint8_t* __restrict__ mask,
                                           const float* __restrict__ V,
@@ -84,7 +90,7 @@ __global__ void fold_masked_scalar_kernel(const uint8_t* __restrict__ mask,
   for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < R;
        r += gridDim.x * blockDim.x) {
     if (!mask[r]) continue;
-    fold_scalar_row(cm, cp, V, M, slots, R, r, pane, P, C, act);
+    fold_scalar_row(cm, cp, V, M, slots, R, r, pane, P, C, act, nullptr);
   }
 }
 
@@ -120,13 +126,14 @@ extern "C" {
 // colmap: host int32 (ncols, 3) = (comp, k, spec). comp_ptrs / comp_k:
 // host arrays of N_COMPS device pointers (null = absent) and widths.
 // slots: device (R,) of uint16 if slot_u16, else int32. pane_vec: device
-// uint8 (R,) per-row panes, or null for the scalar pane.
+// uint8 (R,) per-row panes, or null for the scalar pane. touch: device
+// uint32 (C,), or null for a state without a touch column.
 int groupby_fold_scalar(const uint8_t* base, const float* V, const uint8_t* M,
                         const void* slots, int slot_u16, int R, int pane,
                         const uint8_t* pane_vec, int P, int C,
                         const int32_t* colmap, int ncols,
                         float* const* comp_ptrs, const int32_t* comp_k,
-                        float* act, void* stream) {
+                        float* act, unsigned int* touch, void* stream) {
   ColMap cm;
   if (!make_colmap(colmap, ncols, &cm) || R < 0)
     return (int)cudaErrorInvalidValue;
@@ -136,7 +143,7 @@ int groupby_fold_scalar(const uint8_t* base, const float* V, const uint8_t* M,
   cudaStream_t st = (cudaStream_t)stream;
   with_slot_type(slots, slot_u16, [&](auto s) {
     fold_scalar_kernel<<<grid_for(R, threads), threads, 0, st>>>(
-        base, V, M, s, R, pane, pane_vec, P, C, cm, cp, act);
+        base, V, M, s, R, pane, pane_vec, P, C, cm, cp, act, touch);
   });
   return (int)cudaGetLastError();
 }

@@ -16,7 +16,10 @@ and (n_panes, capacity, k, W) for the sketch components:
 State components per spec: n (count), s1 (sum), s2 (sum of squares), mn
 (min), mx (max), the wide hll (HyperLogLog registers, W 256), hist
 (log-histogram, W 1,024) and hh (heavy-hitters counters, W 2,688), plus
-`act` (rows per key per pane after WHERE). Keys,
+`act` (rows per key per pane after WHERE) and, for tiered key state
+(`track_touch`, ops/tierstore.py), `touch`: a uint32 (capacity,) count of
+each slot's rows after WHERE, bumped by the fold, kept across pane resets,
+the placement policy's recency signal. Keys,
 shapes, dtypes and identities are the reference's, so a `state_to_host`
 snapshot of either package restores in the other.
 
@@ -112,12 +115,15 @@ class TorchGroupBy:
 
     def __init__(self, plan: KernelPlan, capacity: int = 16384,
                  n_panes: int = 1, micro_batch: int = 4096,
-                 device: Device = None) -> None:
+                 device: Device = None, track_touch: bool = False) -> None:
         self.plan = plan
         self.capacity = int(capacity)
         self.n_panes = int(n_panes)
         self.micro_batch = int(micro_batch)
         self.device = resolve_device(device)
+        # tiered key state: a per-slot uint32 touch column rides the state
+        # and is bumped by the fold kernel (no host sync)
+        self.track_touch = bool(track_touch)
         # component -> ordered spec indices holding a column in that array
         self.comp_specs: Dict[str, List[int]] = {}
         for i, spec in enumerate(plan.specs):
@@ -177,6 +183,10 @@ class TorchGroupBy:
         # activity: rows per key per pane (post-WHERE), for group existence
         state["act"] = torch.zeros(lead, dtype=torch.float32,
                                    device=self.device)
+        if self.track_touch:
+            state["touch"] = torch.zeros((self.capacity,),
+                                         dtype=torch.uint32,
+                                         device=self.device)
         return state
 
     def grow(self, state: Dict[str, torch.Tensor],
@@ -187,6 +197,12 @@ class TorchGroupBy:
         out: Dict[str, torch.Tensor] = {}
         for comp, arr in state.items():
             pad_shape = list(arr.shape)
+            if comp == "touch":  # (capacity,): the key axis is axis 0
+                # (a slice copy: torch has few uint32 kernels on CUDA)
+                out[comp] = torch.zeros(new_capacity, dtype=arr.dtype,
+                                        device=arr.device)
+                out[comp][:len(arr)].copy_(arr)
+                continue
             pad_shape[axis] = new_capacity - arr.shape[axis]
             pad = torch.full(pad_shape, _INIT[comp], dtype=arr.dtype,
                              device=arr.device)
@@ -578,22 +594,32 @@ class TorchGroupBy:
 
     def state_from_host(self, host: Dict[str, np.ndarray]
                         ) -> Dict[str, torch.Tensor]:
-        """State tensors from a snapshot of either package. A reference
-        snapshot's `touch` column (tiered key state) is dropped: the port
-        keeps no tiered state."""
+        """State tensors from a snapshot of either package (a `touch`
+        column as uint32, every other component float32), reconciled with
+        this kernel's track_touch by host_from_partials."""
         want = set(self.comp_specs) | {"act"}
         got = set(host) - {"touch"}
         if got != want:
             raise ValueError(f"snapshot components {sorted(got)} do not "
                              f"match this plan's {sorted(want)}")
-        return {k: torch.tensor(np.asarray(v), dtype=torch.float32,
-                                device=self.device)
-                for k, v in host.items() if k != "touch"}
+        return {k: torch.tensor(np.asarray(v), dtype=(
+                    torch.uint32 if k == "touch" else torch.float32),
+                    device=self.device)
+                for k, v in host.items()}
 
     def host_from_partials(self, partials: Dict[str, object]
                            ) -> Tuple[Dict[str, np.ndarray], int]:
-        """Checkpoint partials -> (float32 host arrays, capacity: act's
-        last axis)."""
-        host = {k: np.asarray(v, dtype=np.float32)
-                for k, v in partials.items() if k != "touch"}
-        return host, host["act"].shape[-1]
+        """Checkpoint partials -> (typed host arrays, capacity: act's last
+        axis): float32, but the uint32 touch column, which is kept when this
+        kernel tracks touch (zero-filled for a pre-tier checkpoint) and
+        dropped when it does not (the reference's reconciliation)."""
+        host = {k: np.asarray(v, dtype=(np.uint32 if k == "touch"
+                                        else np.float32))
+                for k, v in partials.items()}
+        cap = host["act"].shape[-1]
+        if self.track_touch:
+            if "touch" not in host:
+                host["touch"] = np.zeros(cap, dtype=np.uint32)
+        else:
+            host.pop("touch", None)
+        return host, cap

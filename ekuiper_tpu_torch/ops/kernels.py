@@ -2,15 +2,17 @@
 wrappers that launch them, their plain PyTorch versions and their launch
 counts.
 
-Sixteen kernels, written by hand in CUDA C++ for Hopper, each replacing
+Eighteen kernels, written by hand in CUDA C++ for Hopper, each replacing
 one device program of the reference (ekuiper_tpu/ops/groupby.py,
-ekuiper_tpu/ops/slidingring.py and ekuiper_tpu/parallel/multirule.py).
-Four in
+ekuiper_tpu/ops/slidingring.py, ekuiper_tpu/parallel/multirule.py and
+ekuiper_tpu/ops/tierstore.py). Four in
 ekuiper_tpu_torch/csrc/groupby.cu:
 
 - `groupby_fold_scalar` replaces `DeviceGroupBy._fold_impl` → `_fold_core`
   (groupby.py:348-441): scatter-add of act/n/s1/s2 and scatter-min/max of
-  mn/mx at [pane, slot, k] for one micro-batch. Bound on an H100: a
+  mn/mx at [pane, slot, k] for one micro-batch, and, for a state with a
+  touch column (tiered key state), the uint32 touch[slot] += 1 of each
+  row past the WHERE (groupby.py:379-385). Bound on an H100: a
   65,536-row batch moves ~2 MB (the spec values and masks, slots, the
   touched state lines), 0.7 µs at 3.35 TB/s; each row also issues one
   atomic per state column, so the atomics' throughput at L2 may bound it
@@ -121,6 +123,18 @@ of the single-rule kernels (csrc/groupby_common.cuh):
 - `multirule_reset_pane` replaces `_batched_reset_impl` (multirule.py:256):
   pane p of every rule and component to its identity.
 
+And two in ekuiper_tpu_torch/csrc/tierstore.cu, for the tiered key state
+(ops/tierstore.py), over a packed row layout: each component's per-pane
+block of one slot flattened in C order, the components sorted, act last:
+
+- `tier_demote` replaces `TierStore._demote_impl` (tierstore.py:263): D
+  slots' rows gathered into a fresh (D, Wp) block, then the n real slots
+  (and their touch counters) reset to the identity; pad rows repeat a
+  real slot. Two launches in order, so no reset races a pad's gather.
+- `tier_promote` replaces `_promote_impl` (tierstore.py:278): a block's
+  rows merged into their slots by atomic add / min / max (identity pad
+  rows on a repeated slot change nothing).
+
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and
 only there; for a CUDA tensor it launches the kernel or raises. A wrapper
 adds one to `LAUNCHES[name]` where it launches its kernel and nowhere else.
@@ -150,7 +164,8 @@ SOURCES = {"groupby": _PKG / "csrc" / "groupby.cu",
            "sketches": _PKG / "csrc" / "sketches.cu",
            "prefinalize": _PKG / "csrc" / "prefinalize.cu",
            "slidingring": _PKG / "csrc" / "slidingring.cu",
-           "multirule": _PKG / "csrc" / "multirule.cu"}
+           "multirule": _PKG / "csrc" / "multirule.cu",
+           "tierstore": _PKG / "csrc" / "tierstore.cu"}
 #: headers the sources include (part of every library's build tag)
 HEADERS = (_PKG / "csrc" / "groupby_common.cuh",
            _PKG / "csrc" / "slot_type.cuh")
@@ -212,14 +227,18 @@ LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0,
                             "ring_query": 0,
                             "multirule_fold": 0,
                             "multirule_finalize": 0,
-                            "multirule_reset_pane": 0}
+                            "multirule_reset_pane": 0,
+                            "tier_demote": 0,
+                            "tier_promote": 0}
 #: of LAUNCHES' folds, those that took a per-row pane vector
 ROW_PANE_LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0,
                                      "groupby_fold_wide": 0}
+#: of LAUNCHES' folds, those that bumped a touch column (tiered key state)
+TOUCH_LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0}
 
 #: the loaded libraries (SimpleNamespace(groupby=..., sketches=...,
-#: prefinalize=..., slidingring=..., multirule=...)), None until the
-#: first launch
+#: prefinalize=..., slidingring=..., multirule=..., tierstore=...)), None
+#: until the first launch
 _lib = None
 _lib_lock = threading.Lock()
 #: seconds the last build took (0.0 when cached libraries were loaded)
@@ -227,7 +246,7 @@ build_seconds = 0.0
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ROW_PANE_LAUNCHES):
+    for counts in (LAUNCHES, ROW_PANE_LAUNCHES, TOUCH_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -303,7 +322,7 @@ def _load():
             P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             gb = ctypes.CDLL(str(paths["groupby"]))
             gb.groupby_fold_scalar.argtypes = [P, P, P, P, I, I, I, P, I,
-                                               I, P, I, P, P, P, P]
+                                               I, P, I, P, P, P, P, P]
             gb.groupby_fold_masked_scalar.argtypes = [P, P, P, P, I, I, I,
                                                       I, I, P, I, P, P, P, P]
             gb.groupby_finalize_scalar.argtypes = [P, P, P, P, I, I, P, I,
@@ -331,6 +350,9 @@ def _load():
             mr.multirule_finalize.argtypes = [P, P, P, P, I, I, I, I, P, I,
                                               I, P, P]
             mr.multirule_reset_pane.argtypes = [P, P, P, I, I, I, I, P]
+            ts = ctypes.CDLL(str(paths["tierstore"]))
+            ts.tier_demote.argtypes = [P, P, P, P, I, I, I, P, I, I, P, P, P]
+            ts.tier_promote.argtypes = [P, P, P, P, I, I, I, P, I, P, P]
             for lib, fns in ((gb, ("groupby_fold_scalar",
                                    "groupby_fold_masked_scalar",
                                    "groupby_finalize_scalar",
@@ -343,13 +365,14 @@ def _load():
                              (sr, ("ring_advance", "ring_flip",
                                    "ring_query")),
                              (mr, ("multirule_fold", "multirule_finalize",
-                                   "multirule_reset_pane"))):
+                                   "multirule_reset_pane")),
+                             (ts, ("tier_demote", "tier_promote"))):
                 for fn in fns:
                     getattr(lib, fn).restype = I
             gb.groupby_error_string.argtypes = [I]
             gb.groupby_error_string.restype = ctypes.c_char_p
             _lib = SimpleNamespace(groupby=gb, sketches=sk, prefinalize=pf,
-                                   slidingring=sr, multirule=mr)
+                                   slidingring=sr, multirule=mr, tierstore=ts)
         return _lib
 
 
@@ -441,7 +464,9 @@ def groupby_fold_scalar(state: Dict[str, torch.Tensor], base: torch.Tensor,
     or uint16 (R,). colmap: int32 (ncols, 3) of (COMP_IDS[comp], k, spec).
     pane_vec: optional uint8 (R,) per-row panes, which replace `pane`; the
     caller checks their range on the host (a pane outside [0, P) is
-    dropped, as an out-of-range slot is).
+    dropped, as an out-of-range slot is). A state holding a `touch`
+    column (uint32 (C,), tiered key state) also counts each row past
+    `base` into touch[slot].
     """
     name = "groupby_fold_scalar"
     if not _on_cuda(name, state):
@@ -454,15 +479,20 @@ def groupby_fold_scalar(state: Dict[str, torch.Tensor], base: torch.Tensor,
     _check(name, base, torch.bool, (R,), dev)
     colmap = _check_batch(name, V, M, slots, pane, P, colmap, dev, pane_vec)
     ptrs, ks = _comp_table(name, state)
+    touch = state.get("touch")
+    if touch is not None:
+        _check(name, touch, torch.uint32, (C,), dev)
     lib = _load()
     with torch.cuda.device(dev):
         rc = lib.groupby.groupby_fold_scalar(
             _ptr(base), _ptr(V), _ptr(M), _ptr(slots), _u16(slots), R,
             int(pane), _opt_ptr(pane_vec), P, C, _ptr(colmap), len(colmap),
-            _ptr(ptrs), _ptr(ks), _ptr(act), _stream(dev))
+            _ptr(ptrs), _ptr(ks), _ptr(act), _opt_ptr(touch), _stream(dev))
         LAUNCHES[name] += 1
         if pane_vec is not None:
             ROW_PANE_LAUNCHES[name] += 1
+        if touch is not None:
+            TOUCH_LAUNCHES[name] += 1
     _raise_on(lib, name, rc)
 
 
@@ -522,6 +552,15 @@ def fold_scalar_plain(state, base, V, M, slots, pane, colmap,
     P, C = state["act"].shape
     pc, ok = _pane_rows(pane, pane_vec, slots, P, C)
     _fold_columns_plain(state, pc, base & ok, V, M & ok, colmap)
+    touch = state.get("touch")
+    if touch is not None:
+        # torch has no uint32 scatter-add: count in int64, wrap back (the
+        # counters wrap modulo 2**32, as the kernel's atomicAdd does)
+        s = slots.long()
+        keep = base & (s >= 0) & (s < C)
+        t = touch.long()
+        t.index_add_(0, s[keep], torch.ones_like(s[keep]))
+        touch.copy_((t & 0xFFFFFFFF).to(torch.uint32))
 
 
 def _fold_columns_plain(state, pc, rows, V, M, colmap) -> None:
@@ -653,8 +692,12 @@ def groupby_fold_masked_scalar(state: Dict[str, torch.Tensor],
 def fold_masked_scalar_plain(state, mask, V, M, slots, pane,
                              colmap) -> None:
     """Plain PyTorch version of groupby_fold_masked_scalar (the reference's
-    _fold_core under base = mask): the fold's, into one pane."""
-    fold_scalar_plain(state, mask, V, M, slots, pane, colmap)
+    _fold_core under base = mask): the fold's, into one pane, without the
+    touch column (the kernel bumps none: only sliding refolds call it, and
+    tiered sliding rules are refused)."""
+    P, C = state["act"].shape
+    pc, ok = _pane_rows(pane, None, slots, P, C)
+    _fold_columns_plain(state, pc, mask & ok, V, M & ok, colmap)
 
 
 def groupby_fold_masked_wide(state: Dict[str, torch.Tensor],
@@ -925,8 +968,15 @@ def hh_finalize_plain(state, pane_mask, hhtab, out) -> None:
 
 
 # ----------------------------------------------------------------- reset
+def _paned(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The pane-scoped components (every one but the touch column, whose
+    per-slot recency survives pane expiry, as in the reference)."""
+    return {k: v for k, v in state.items() if k != "touch"}
+
+
 def groupby_reset_pane(state: Dict[str, torch.Tensor], pane: int) -> None:
-    """Write the identity into pane `pane` of every component and act."""
+    """Write the identity into pane `pane` of every component and act
+    (a touch column is left alone)."""
     name = "groupby_reset_pane"
     if not _on_cuda(name, state):
         reset_pane_plain(state, pane)
@@ -935,13 +985,14 @@ def groupby_reset_pane(state: Dict[str, torch.Tensor], pane: int) -> None:
     P, C = act.shape
     if not 0 <= pane < P:
         raise ValueError(f"{name}: pane {pane} outside [0, {P})")
-    if len(state) > MAX_RESET:
-        raise ValueError(f"{name}: {len(state)} components "
+    comps = _paned(state)
+    if len(comps) > MAX_RESET:
+        raise ValueError(f"{name}: {len(comps)} components "
                          f"(max {MAX_RESET})")
-    ptrs = np.zeros(len(state), dtype=np.uint64)
-    lens = np.zeros(len(state), dtype=np.int64)
-    inits = np.zeros(len(state), dtype=np.float32)
-    for j, (comp, arr) in enumerate(state.items()):
+    ptrs = np.zeros(len(comps), dtype=np.uint64)
+    lens = np.zeros(len(comps), dtype=np.int64)
+    inits = np.zeros(len(comps), dtype=np.float32)
+    for j, (comp, arr) in enumerate(comps.items()):
         _check(name, arr, torch.float32, (P, C, *arr.shape[2:]), act.device)
         ptrs[j] = arr.data_ptr()
         lens[j] = arr[0].numel()
@@ -950,7 +1001,7 @@ def groupby_reset_pane(state: Dict[str, torch.Tensor], pane: int) -> None:
     dev = act.device
     with torch.cuda.device(dev):
         rc = lib.groupby.groupby_reset_pane(_ptr(ptrs), _ptr(lens),
-                                            _ptr(inits), len(state),
+                                            _ptr(inits), len(comps),
                                             int(pane), _stream(dev))
         LAUNCHES[name] += 1
     _raise_on(lib, name, rc)
@@ -958,7 +1009,7 @@ def groupby_reset_pane(state: Dict[str, torch.Tensor], pane: int) -> None:
 
 def reset_pane_plain(state, pane: int) -> None:
     """Plain PyTorch version of groupby_reset_pane."""
-    for comp, arr in state.items():
+    for comp, arr in _paned(state).items():
         arr[pane].fill_(INIT[comp])
 
 
@@ -1436,6 +1487,125 @@ def multirule_reset_pane_plain(state, pane: int) -> None:
     """Plain PyTorch version of multirule_reset_pane."""
     for comp, arr in state.items():
         arr[:, pane].fill_(INIT[comp])
+
+
+# ------------------------------------------------------------ tier store
+def _tier_table(name: str, state: Dict[str, torch.Tensor],
+                comps: Sequence[str]):
+    """(pointers, floats per slot and pane, identities, merge ops, P, C,
+    Wp) of the packed row's blocks `comps` (in packed order), checked."""
+    act = state["act"]
+    P, C = act.shape
+    if not 0 < len(comps) <= MAX_PARTS:
+        raise ValueError(f"{name}: {len(comps)} blocks (max {MAX_PARTS})")
+    ptrs = np.zeros(len(comps), dtype=np.uint64)
+    ws = np.zeros(len(comps), dtype=np.int64)
+    inits = np.zeros(len(comps), dtype=np.float32)
+    ops = np.zeros(len(comps), dtype=np.int32)
+    for t, comp in enumerate(comps):
+        arr = state[comp]
+        _check(name, arr, torch.float32, (P, C, *arr.shape[2:]), act.device)
+        ptrs[t], ws[t] = arr.data_ptr(), _slot_width(arr)
+        inits[t], ops[t] = INIT[comp], MERGE_OPS.get(comp, 0)
+    return ptrs, ws, inits, ops, P, C, int(P * ws.sum())
+
+
+def _check_tier_slots(name: str, slots: torch.Tensor, dev) -> int:
+    if slots.dtype != torch.int32 or slots.dim() != 1:
+        raise TypeError(f"{name}: slots must be int32 (D,), got "
+                        f"{slots.dtype} {tuple(slots.shape)}")
+    _check(name, slots, torch.int32, slots.shape, dev)
+    return len(slots)
+
+
+def tier_demote(state: Dict[str, torch.Tensor], slots: torch.Tensor, n: int,
+                comps: Sequence[str]) -> torch.Tensor:
+    """Gather the rows of `slots` (int32 (D,) on the state's device) into a
+    fresh float32 (D, Wp) block, the blocks `comps` (sorted components,
+    then "act") side by side, each slot's (P, w) run flattened in C order;
+    then reset slots[:n] of those components, and of a `touch` column, to
+    the identity, in place. Rows [n, D) must repeat a slot of the first n
+    (the reference's pads): they are gathered, never reset twice."""
+    name = "tier_demote"
+    if not _on_cuda(name, state):
+        return tier_demote_plain(state, slots, n, comps)
+    dev = state["act"].device
+    D = _check_tier_slots(name, slots, dev)
+    if not 0 <= n <= D:
+        raise ValueError(f"{name}: {n} real rows of {D}")
+    ptrs, ws, inits, ops, P, C, Wp = _tier_table(name, state, comps)
+    touch = state.get("touch")
+    if touch is not None:
+        _check(name, touch, torch.uint32, (C,), dev)
+    packed = torch.empty((D, Wp), dtype=torch.float32, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.tierstore.tier_demote(
+            _ptr(ptrs), _ptr(ws), _ptr(inits), _ptr(ops), len(comps), P, C,
+            _ptr(slots), D, int(n), _ptr(packed), _opt_ptr(touch),
+            _stream(dev))
+        LAUNCHES[name] += 1
+    _raise_on(lib, name, rc)
+    return packed
+
+
+def tier_demote_plain(state, slots, n: int, comps) -> torch.Tensor:
+    """Plain PyTorch version of tier_demote (the reference's gather, then
+    the identity set over every slot of `slots`)."""
+    idx = slots.long()
+    D = len(idx)
+    parts = [state[c][:, idx].movedim(1, 0).reshape(D, -1) for c in comps]
+    packed = torch.cat(parts, dim=1)
+    for c in comps:
+        state[c][:, idx] = INIT[c]
+    touch = state.get("touch")
+    if touch is not None:  # no uint32 index_put_ in torch: via int64
+        t = touch.long()
+        t[idx] = 0
+        touch.copy_(t.to(torch.uint32))
+    return packed
+
+
+def tier_promote(state: Dict[str, torch.Tensor], packed: torch.Tensor,
+                 slots: torch.Tensor, comps: Sequence[str]) -> None:
+    """Merge the rows of `packed` (float32 (D, Wp), tier_demote's layout)
+    into `slots` (int32 (D,)) in place: min for mn, max for mx and hll,
+    add otherwise. Pad rows hold the identity (TierStore.init_row)."""
+    name = "tier_promote"
+    if not _on_cuda(name, state):
+        tier_promote_plain(state, packed, slots, comps)
+        return
+    dev = state["act"].device
+    D = _check_tier_slots(name, slots, dev)
+    ptrs, ws, inits, ops, P, C, Wp = _tier_table(name, state, comps)
+    _check(name, packed, torch.float32, (D, Wp), dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.tierstore.tier_promote(
+            _ptr(ptrs), _ptr(ws), _ptr(inits), _ptr(ops), len(comps), P, C,
+            _ptr(slots), D, _ptr(packed), _stream(dev))
+        LAUNCHES[name] += 1
+    _raise_on(lib, name, rc)
+
+
+def tier_promote_plain(state, packed, slots, comps) -> None:
+    """Plain PyTorch version of tier_promote (the reference's scatter-add /
+    -min / -max along the slot axis)."""
+    idx = slots.long()
+    D = len(idx)
+    col = 0
+    for c in comps:
+        arr = state[c]
+        P, tail = arr.shape[0], tuple(arr.shape[2:])
+        w = P * int(np.prod(tail, dtype=np.int64))
+        seg = packed[:, col:col + w].reshape(D, P, *tail).movedim(0, 1)
+        col += w
+        if c in ("mn", "mx", "hll"):
+            at = idx.view(1, D, *([1] * len(tail))).expand_as(seg)
+            arr.scatter_reduce_(1, at, seg, "amin" if c == "mn" else "amax",
+                                include_self=True)
+        else:
+            arr.index_add_(1, idx, seg)
 
 
 # ------------------------------------------------------------ host tables

@@ -8,6 +8,11 @@ sort-based np.unique path for numeric/unicode and unhashable keys, and a
 reverse list for decoding emitted slots back to key values. Slot ids are
 assigned in first-seen order, exactly as the reference assigns them, so a
 checkpoint's key list indexes the same partials in both packages.
+
+Tiered key state (ops/tierstore.py) retires demoted keys: their slots join
+a free list and recycle to later new keys (capacity growth stays the last
+resort), and `track_new` turns on the log of (key, slot) assignments the
+tier manager drains at each fold's admission point.
 """
 from __future__ import annotations
 
@@ -21,6 +26,11 @@ class KeyTable:
         self.capacity = initial_capacity
         self._ids: Dict[Any, int] = {}
         self._keys: List[Any] = []
+        # tiered key state: retired slots recycle through this free list;
+        # `track_new` turns on the new-key log (key, slot)
+        self._free: List[int] = []
+        self.track_new = False
+        self._new_log: List[Tuple[Any, int]] = []
 
     def __len__(self) -> int:
         return len(self._keys)
@@ -67,12 +77,16 @@ class KeyTable:
         # Keys needing normalization (None -> "" nil-key rule, tuples with
         # None) are rare and fall to the per-key loop; plain strings — the
         # overwhelmingly common GROUP BY key shape — never do.
+        # Recycled slots (a non-empty free list) take the per-key loop too.
         keys = self._keys
         missing = dict.fromkeys(k for k in lst if k not in ids)
-        if all(type(k) is str for k in missing):
+        if all(type(k) is str for k in missing) and not self._free:
             start = len(keys)
             ids.update(zip(missing, range(start, start + len(missing))))
             keys.extend(missing)
+            if self.track_new:
+                self._new_log.extend(
+                    zip(missing, range(start, start + len(missing))))
         else:
             for k in missing:
                 if k in ids:
@@ -99,11 +113,40 @@ class KeyTable:
         return k
 
     def _assign_slot(self, k: Any) -> int:
-        """Assign the next dense slot to a NEW key."""
-        slot = len(self._keys)
-        self._keys.append(k)
+        """Assign a dense slot to a NEW key: a recycled free slot when one
+        exists (tiered demotion freed it), else the next append."""
+        if self._free:
+            slot = self._free.pop()
+            self._keys[slot] = k
+        else:
+            slot = len(self._keys)
+            self._keys.append(k)
         self._ids[k] = slot
+        if self.track_new:
+            self._new_log.append((k, slot))
         return slot
+
+    # --------------------------------------------------- tiered key state
+    def retire(self, slots: Sequence[int], keys: Sequence[Any]) -> None:
+        """Demote keys out of the table: their slots join the free list and
+        recycle to later new keys. A slot no longer holding its key (a
+        re-encode raced the demotion) stays live."""
+        for slot, key in zip(slots, keys):
+            if self._keys[slot] != key:
+                continue
+            self._ids.pop(key, None)
+            self._keys[slot] = None
+            self._free.append(slot)
+
+    def drain_new_keys(self) -> List[Tuple[Any, int]]:
+        """(key, slot) pairs assigned since the last drain: the tier
+        manager's admission signal (only a new key can be a returning
+        demoted one)."""
+        out, self._new_log = self._new_log, []
+        return out
+
+    def free_slots(self) -> List[int]:
+        return list(self._free)
 
     def _encode_sorted(self, col: np.ndarray) -> Tuple[np.ndarray, bool]:
         """Sort-based encode for numeric/unicode columns and object columns
@@ -196,16 +239,20 @@ class KeyTable:
     def clear(self) -> None:
         self._ids.clear()
         self._keys.clear()
+        self._free.clear()
+        self._new_log.clear()
 
     def restore(self, keys: List[Any]) -> None:
         """Rebuild in the exact slot order of a checkpoint (slot ids index
         the saved device partials, so order must be preserved). A None
-        entry is a hole a tiered reference table left (None is never a live
-        key: nil keys normalize to ""); it keeps its slot and maps no key."""
+        entry is a retired (tiered-demotion) hole: the slot rejoins the
+        free list; None is never a live key (nil keys normalize to "")."""
         self.clear()
         for i, k in enumerate(keys):
             self._keys.append(k)
-            if k is not None:
+            if k is None:
+                self._free.append(i)
+            else:
                 self._ids[k] = i
         while len(self._keys) > self.capacity:
             self.capacity *= 2

@@ -9,6 +9,7 @@ from typing import Mapping, Optional
 from ..ops.aggspec import extract_kernel_plan
 from ..ops.emit import build_direct_emit
 from ..ops.slidingring import ring_layout_for
+from ..ops.tierstore import env_hbm_budget_mb
 from ..runtime.nodes_fused import FusedWindowAggNode
 from ..sql import ast
 from ..sql.compiler import try_compile
@@ -18,10 +19,11 @@ from ..utils.infra import PlanError
 
 
 #: the rule options the port takes (the reference's names,
-#: ekuiper_tpu/planner/planner.py:172-173, 178-179) and their defaults
-#: (ekuiper_tpu/utils/config.py:68, 72, 97, 101)
+#: ekuiper_tpu/planner/planner.py:172-173, 178-179, 183-185) and their
+#: defaults (ekuiper_tpu/utils/config.py:68, 72, 88-93, 97, 101)
 RULE_OPTIONS = {"prefinalizeLeadMs": 250, "tailMode": "device",
-                "slidingDevRingMb": 256, "slidingImpl": "daba"}
+                "slidingDevRingMb": 256, "slidingImpl": "daba",
+                "tierStore": "auto", "tierHotMb": 0, "tierScanMs": 0}
 
 
 def plan_fused_rule(sql: str, key_slots: int = 16384,
@@ -44,10 +46,16 @@ def plan_fused_rule(sql: str, key_slots: int = 16384,
     its components fetch is pre-issued; 0 finalizes each boundary
     synchronously), `tailMode` ("device" or "host"), `slidingDevRingMb`
     (the sliding ring's budget, which coarsens its buckets, and the refold
-    path's device batch cache's) and `slidingImpl` ("daba", or "refold":
+    path's device batch cache's), `slidingImpl` ("daba", or "refold":
     the reference's refold path, which a heavy_hitters rule or a ring over
     its budget also takes; the node's `sliding_impl` says which runs),
-    with the reference's defaults (250, "device", 256, "daba").
+    and the tiered key state's `tierStore` ("auto", "on" or "off"),
+    `tierHotMb` (the hot tier's budget in MB; 0 takes KUIPER_HBM_BUDGET_MB)
+    and `tierScanMs` (the placement policy's cadence; 0 derives it from
+    the window), with the reference's defaults (250, "device", 256,
+    "daba", "auto", 0, 0). The tier engages where the budget is under four
+    times `key_slots`' state (the node's `tier` is then its TierManager);
+    a tiered sliding rule raises NotImplementedError.
 
     Raises PlanError for a statement that is not a windowed aggregate or
     an option value it cannot take, NotImplementedError for a shape or an
@@ -85,13 +93,38 @@ def plan_fused_rule(sql: str, key_slots: int = 16384,
         raise NotImplementedError(
             "rule's output tail does not vectorize; the row-path emit is "
             "not ported yet")
+    # tiered key state: the budget resolved at plan time, gated off where
+    # ORDER BY / LIMIT would order across the device and spilled groups
+    # (the reference's planner.py:991-999; the node gates the window kind
+    # and heavy_hitters)
+    tier_budget_mb = resolve_tier_budget_mb(opts)
+    if tier_budget_mb and (stmt.sorts or stmt.limit is not None):
+        tier_budget_mb = 0.0
     return FusedWindowAggNode(
         "window_agg", stmt.window, plan, dims, capacity=key_slots,
         micro_batch=micro_batch, direct_emit=direct, emit_columnar=True,
         device=dev, prefinalize_lead_ms=opts["prefinalizeLeadMs"],
         tail_mode=opts["tailMode"],
         dev_ring_budget_mb=opts["slidingDevRingMb"],
-        sliding_impl=opts["slidingImpl"], ring_layout=ring_layout)
+        sliding_impl=opts["slidingImpl"], ring_layout=ring_layout,
+        tier_budget_mb=tier_budget_mb, tier_scan_ms=opts["tierScanMs"])
+
+
+def resolve_tier_budget_mb(opts: Mapping[str, object]) -> float:
+    """The budget (MB) of a rule's tiered key state (the reference's
+    planner.py:75-95): `tierHotMb` when set, else KUIPER_HBM_BUDGET_MB; 0
+    disables, and tierStore "off" always does. "on" without a budget is a
+    PlanError: a forced tier with no budget has no hot target."""
+    mode = opts["tierStore"]
+    if mode == "off":
+        return 0.0
+    budget = float(opts["tierHotMb"])
+    if budget <= 0:
+        budget = env_hbm_budget_mb()
+    if mode == "on" and budget <= 0:
+        raise PlanError("tierStore=on needs a budget: set tierHotMb or "
+                        "KUIPER_HBM_BUDGET_MB")
+    return max(budget, 0.0)
 
 
 def rule_options(options: Optional[Mapping[str, object]]) -> dict:
@@ -118,4 +151,15 @@ def rule_options(options: Optional[Mapping[str, object]]) -> dict:
     if opts["slidingImpl"] not in ("daba", "refold"):
         raise PlanError(f"slidingImpl must be 'daba' or 'refold', got "
                         f"{opts['slidingImpl']!r}")
+    mode = opts["tierStore"]
+    if not isinstance(mode, str) or mode.lower() not in ("auto", "on",
+                                                          "off"):
+        raise PlanError(f"tierStore must be 'auto', 'on' or 'off', got "
+                        f"{mode!r}")
+    opts["tierStore"] = mode.lower()
+    for key, unit in (("tierHotMb", "MB"), ("tierScanMs", "ms")):
+        v = opts[key]
+        if isinstance(v, bool) or not isinstance(v, int) or v < 0:
+            raise PlanError(f"{key} must be a non-negative int of {unit}, "
+                            f"got {v!r}")
     return opts

@@ -66,8 +66,20 @@ of the reference's two implementations:
   (`"refold"` deliveries, source `"device-async"`), and resets the scratch
   pane. A window whose pane was recycled refolds whole from the rows.
 
+Tiered key state (ops/tierstore.py; `tier_budget_mb`, the planner's
+tierStore / tierHotMb options) on tumbling and hopping rules: the state is
+built at the layout's hot capacity, each batch's new keys are admitted
+(returning demoted keys promoted into their fresh slots) before it folds,
+and each boundary emits the device groups, then the spilled keys' share
+of the window, resets the expired pane (bumping its epoch), and applies the
+policy's demote plan and starts the next touch scan; the harvests and
+scans run on the emit worker (`"tier"` tasks). Slots recycle between a
+deferred delivery's dispatch and its emit, so each delivery carries the
+slot→key list of its dispatch.
+
 Not ported yet, and refused at construction: session, count and state
-windows, event time, tiered key state and the mesh.
+windows, event time, tiered sliding rules (the reference demotes their
+quiescent keys only) and the mesh.
 """
 from __future__ import annotations
 
@@ -89,6 +101,7 @@ from ..ops.groupby import TorchGroupBy, col_np_dtype, slot_dtype
 from ..ops.keytable import KeyTable
 from ..ops.prefinalize import HostShadow, IdentityFinalize
 from ..ops.slidingring import QUERY_ADJ, SlidingRing, ring_layout_for
+from ..ops.tierstore import TierManager, plan_tier_layout
 from ..sql import ast
 from ..sql.compiler import try_compile
 from ..utils import timex
@@ -146,6 +159,8 @@ class FusedWindowAggNode(Node):
         dev_ring_budget_mb: int = 256,  # sliding ring state cap (MB)
         sliding_impl: str = "daba",  # "daba" rings | "refold"
         ring_layout=None,  # ops.slidingring.RingLayout chosen at plan time
+        tier_budget_mb: float = 0.0,  # tiered key state's budget (0 = off)
+        tier_scan_ms: int = 0,  # tier policy cadence (0 = from the window)
     ) -> None:
         super().__init__(name)
         self.window = window
@@ -180,12 +195,36 @@ class FusedWindowAggNode(Node):
         self._hh_overflow_warned: set = set()
         if self._hh_cols and capacity > 2048:
             capacity = 2048
+        # tiered key state (ops/tierstore.py): the geometry from the budget
+        # and the pane count, as the reference chooses it; heavy_hitters
+        # plans stay untiered. The state is built at the hot capacity:
+        # growth past it stays possible, the recycler works to avoid it.
+        self.tier: Optional[TierManager] = None
+        self._tier_layout = None
+        if tier_budget_mb and not self._hh_cols:
+            self._tier_layout = plan_tier_layout(
+                plan, int(self.n_panes), capacity, float(tier_budget_mb),
+                scan_interval_ms=int(tier_scan_ms),
+                window_ms=self.interval_ms or self.length_ms)
+            if self._tier_layout is not None:
+                if self.wt == ast.WindowType.SLIDING_WINDOW:
+                    raise NotImplementedError(
+                        "tiered sliding rules (the reference's quiescent-"
+                        "only demotion, with the masked fold's touch "
+                        "column) are not ported yet")
+                capacity = min(capacity, self._tier_layout.hot_capacity())
         self.gb = self._make_gb(plan, capacity, micro_batch, device)
         self.ring: Optional[SlidingRing] = None
         self._ring_dev: Optional[Dict[str, torch.Tensor]] = None
         if self.wt == ast.WindowType.SLIDING_WINDOW:
             self.sliding_impl = self._choose_sliding_impl(sliding_impl)
         self.kt = KeyTable(self.gb.capacity)
+        if self._tier_layout is not None and \
+                getattr(self.gb, "track_touch", False):
+            self.tier = TierManager(self.gb, self.kt, self._tier_layout,
+                                    submit=self._tier_submit)
+        else:
+            self._tier_layout = None  # a group-by without a touch column
         self.state: Optional[Dict[str, torch.Tensor]] = None
         self.cur_pane = 0
         self._rows_in_window = 0  # count windows: kept for the snapshot format
@@ -245,6 +284,12 @@ class FusedWindowAggNode(Node):
         self._async_mr = False
         self._emit_q: Optional[queue.Queue] = None
         self._emit_worker: Optional[threading.Thread] = None
+        # deliveries queued (fold thread) and done (emit worker): each is
+        # written by one thread, the difference is the deliveries a
+        # boundary must wait for (the tier's tasks on the same worker are
+        # not deliveries)
+        self._deliveries_queued = 0
+        self._deliveries_done = 0
         # per-boundary record: {"source": "device" | "backstop" | "sync" |
         # "device-async" | "device-async-late", "fetch_ms": issue→landed
         # engine ms of the chosen fetch, "ages_ms": [age of each real
@@ -262,7 +307,8 @@ class FusedWindowAggNode(Node):
         a BatchedGroupBy (with the already-computed self.n_panes)."""
         return TorchGroupBy(plan, capacity=capacity,
                             n_panes=int(self.n_panes),
-                            micro_batch=micro_batch, device=device)
+                            micro_batch=micro_batch, device=device,
+                            track_touch=self._tier_layout is not None)
 
     # ------------------------------------------------------------------- data
     def process(self, item: Any) -> None:
@@ -367,6 +413,11 @@ class FusedWindowAggNode(Node):
                 # deferred grow: keys first seen in a frozen span, or a
                 # restore that left the key table wider
                 self.state = self.gb.grow(self.state, self.kt.capacity)
+            if self.tier is not None:
+                # the admission point: returning demoted keys (this
+                # batch's new-key log) get their spilled partials merged
+                # into their fresh slots before the fold
+                self.state = self.tier.admit(self.state)
             self.state = self.gb.fold(self.state, cols, slots, valid,
                                       pane_arg)
         # every live shadow mirrors the fold (a frozen span's retries and
@@ -465,12 +516,16 @@ class FusedWindowAggNode(Node):
             self._emit_mr_async(wr)
         else:
             self._boundary_emit(wr)
+        # spilled keys with live panes add their share of this window on
+        # the host, before the pane expiry marks their slices stale
+        self._emit_tier_extras(wr)
         if self.wt == ast.WindowType.TUMBLING_WINDOW:
-            self.state = self.gb.reset_pane(self.state, 0)
+            self._reset_pane_tiered(0)
         else:
             # advance to the next pane; expire it (it held the oldest slice)
             self.cur_pane = (self.cur_pane + 1) % self.n_panes
-            self.state = self.gb.reset_pane(self.state, self.cur_pane)
+            self._reset_pane_tiered(self.cur_pane)
+        self._tier_boundary()
         self.begin_window_backstop()
         if self._opened:
             self._schedule_next_tick()
@@ -502,9 +557,11 @@ class FusedWindowAggNode(Node):
         if self.wt == ast.WindowType.SLIDING_WINDOW:
             self.broadcast(eof)
             return
-        self._emit(WindowRange(now - self.length_ms, now))
+        wr = WindowRange(now - self.length_ms, now)
+        self._emit(wr)
+        self._emit_tier_extras(wr)
         if self.wt == ast.WindowType.TUMBLING_WINDOW:
-            self.state = self.gb.reset_pane(self.state, 0)
+            self._reset_pane_tiered(0)
         self.broadcast(eof)
 
     # ------------------------------------------------------------------- emit
@@ -524,11 +581,11 @@ class FusedWindowAggNode(Node):
         which has landed, hand the wait to the emit worker and keep
         folding (the fetches are already ordered before the reset). A
         worker backlog also defers, so windows deliver in order."""
+        backlog = self._deliveries_queued > self._deliveries_done
         if not (self._emit_late_async and self._pipeline):
-            self._drain_async_emits()  # deliveries before this one first
+            if backlog:
+                self._drain_async_emits()  # deliveries before this one first
             return self._emit(wr)
-        q = self._emit_q
-        backlog = q is not None and q.unfinished_tasks > 0
         ready_any = any(p.ready() for p, _ in self._pipeline)
         if not backlog and (ready_any or not self.kt.n_keys):
             return self._emit(wr)
@@ -550,12 +607,19 @@ class FusedWindowAggNode(Node):
 
     def _enqueue(self, kind: str, payload, wr: WindowRange) -> None:
         """Queue a delivery for the worker, stamped with the issue-time key
-        count: the key table is append-only (no tiered slot recycling, for
-        which the reference also stamps a slot→key copy), so the slots
-        below that count decode to the same keys when the worker emits."""
+        count and slot→key list (_keys_snapshot)."""
         self._ensure_emit_worker()
+        self._deliveries_queued += 1
         self._emit_q.put((kind, payload, self.kt.n_keys, wr,
-                          time.perf_counter()))
+                          time.perf_counter(), self._keys_snapshot()))
+
+    def _keys_snapshot(self) -> Optional[list]:
+        """The slot→key list of a deferred delivery's dispatch: a tiered
+        boundary retires and recycles slots before the worker emits, so
+        decoding the live table could give a window to a slot's next key.
+        An untiered table is append-only: the live one decodes the same
+        (None)."""
+        return None if self.tier is None else self.kt.decode_all()
 
     def _ensure_emit_worker(self) -> None:
         if self._emit_q is None:
@@ -577,8 +641,13 @@ class FusedWindowAggNode(Node):
             if item is None:
                 self._emit_q.task_done()
                 break
-            kind, payload, n_keys, wr, t_issue = item
+            kind, payload, n_keys, wr, t_issue, keys = item
             try:
+                if kind == "tier":
+                    # tiered-state upkeep (ops/tierstore.py): harvest a
+                    # landed demote block, or run the placement scan
+                    self.tier.worker_task(payload)
+                    continue
                 if kind == "ring":
                     # a sliding trigger: the ring query (or components)
                     # fetch merged with the host edge shadow
@@ -592,7 +661,7 @@ class FusedWindowAggNode(Node):
                                          if hasattr(pending, "fetch_ms")
                                          else 0.0),
                             "ages_ms": []}
-                        self._deliver(outs, act, wr)
+                        self._deliver(outs, act, wr, keys)
                     finally:
                         pending.release()
                     continue
@@ -600,7 +669,7 @@ class FusedWindowAggNode(Node):
                     pipeline, backup = payload
                     try:
                         self._deliver_pf(pipeline, backup, n_keys, wr,
-                                         t_issue)
+                                         t_issue, keys)
                     finally:
                         self._release(pipeline)
                     continue
@@ -625,7 +694,7 @@ class FusedWindowAggNode(Node):
                         "source": "device-async",
                         "fetch_ms": (time.perf_counter() - t_issue) * 1e3,
                         "ages_ms": []}
-                    self._deliver(outs, act, wr)
+                    self._deliver(outs, act, wr, keys)
                 finally:  # outs / act may view the pinned buffer
                     payload.release()
             except Exception as exc:
@@ -633,6 +702,8 @@ class FusedWindowAggNode(Node):
                              self.name, exc)
                 self.recoveries["failed"] += 1
             finally:
+                if kind != "tier":
+                    self._deliveries_done += 1
                 self._emit_q.task_done()
 
     # bounded drain deadline (seconds)
@@ -665,7 +736,7 @@ class FusedWindowAggNode(Node):
                 q.all_tasks_done.wait(remaining)
 
     def _deliver_pf(self, pipeline, backup, n_keys: int, wr: WindowRange,
-                    t_issue: float) -> None:
+                    t_issue: float, keys: Optional[list] = None) -> None:
         """Worker delivery of a deferred boundary: wait for the best
         pre-issue to land, merge, emit. Touches only the fetches and the
         closed window's shadow, never self.state; a failed merge emits the
@@ -688,7 +759,7 @@ class FusedWindowAggNode(Node):
             "fetch_ms": (pending.fetch_ms() if hasattr(pending, "fetch_ms")
                          else (time.perf_counter() - t_issue) * 1000.0),
             "ages_ms": []}
-        self._deliver(outs, act, wr)
+        self._deliver(outs, act, wr, keys)
 
     def _emit(self, wr: WindowRange) -> None:
         pipeline, self._pipeline = self._pipeline, []
@@ -739,14 +810,17 @@ class FusedWindowAggNode(Node):
             self.last_emit_info["source"] = "sync"
         self._deliver(outs, act, wr)
 
-    def _deliver(self, outs, act: np.ndarray, wr: WindowRange) -> None:
+    def _deliver(self, outs, act: np.ndarray, wr: WindowRange,
+                 keys: Optional[list] = None) -> None:
+        """Emit the groups with act > 0; slot i's key is keys[i] (the
+        live key table's when None)."""
         active = np.nonzero(act > 0)[0]
         if len(active) == 0:
             return
         if self.direct_emit is not None:
-            self._emit_direct(outs, active, wr)
+            self._emit_direct(outs, active, wr, keys)
             return
-        self._emit_grouped(outs, active, wr)
+        self._emit_grouped(outs, active, wr, keys)
 
     def _decode_hh(self, outs):
         """Map heavy_hitters (code, count) pairs back to original values."""
@@ -765,9 +839,11 @@ class FusedWindowAggNode(Node):
             outs[i] = dec
         return outs
 
-    def _emit_grouped(self, outs, active: np.ndarray, wr: WindowRange) -> None:
+    def _emit_grouped(self, outs, active: np.ndarray, wr: WindowRange,
+                      keys: Optional[list] = None) -> None:
         """Row-path emit tail: build GroupedTuplesSet for downstream
         HAVING/ORDER/PROJECT nodes."""
+        decode = self.kt.decode if keys is None else keys.__getitem__
         outs = self._decode_hh(outs)
         active_list = active.tolist()
         out_lists = []
@@ -782,7 +858,7 @@ class FusedWindowAggNode(Node):
         spec_keys = self._spec_keys
         ts = wr.window_end
         for j, slot in enumerate(active_list):
-            key = self.kt.decode(slot)
+            key = decode(slot)
             if single_dim is not None:
                 msg = {single_dim: key}
             elif dim_names:
@@ -800,14 +876,16 @@ class FusedWindowAggNode(Node):
             )
         self.emit(GroupedTuplesSet(groups=groups, window_range=wr))
 
-    def _emit_direct(self, outs, active: np.ndarray, wr: WindowRange) -> None:
+    def _emit_direct(self, outs, active: np.ndarray, wr: WindowRange,
+                     keys: Optional[list] = None) -> None:
         """Vectorized tail: HAVING/ORDER/LIMIT/projection computed over the
         finalize arrays; emits the final output messages directly."""
         outs = self._decode_hh(outs)
         dim_names = [d.name for d in self.dims]
         dim_cols: Dict[str, np.ndarray] = {}
         if dim_names:
-            keys = self.kt.decode_all()
+            if keys is None:
+                keys = self.kt.decode_all()
             if len(dim_names) == 1:
                 col = np.empty(len(active), dtype=np.object_)
                 col[:] = [keys[s] for s in active.tolist()]
@@ -830,6 +908,39 @@ class FusedWindowAggNode(Node):
         if msgs:
             # always a list of message dicts, never a bare dict
             self.emit(msgs, count=len(msgs))
+
+    # ----------------------------------------------------------- tiered state
+    def _tier_submit(self, payload: tuple) -> None:
+        """Hand a tier task (a demote harvest, a policy scan) to the emit
+        worker: neither runs on the fold thread."""
+        self._ensure_emit_worker()
+        self._emit_q.put(("tier", payload, 0, None, time.perf_counter(),
+                          None))
+
+    def _reset_pane_tiered(self, pane: int) -> None:
+        """reset_pane and the tier's epoch bump: spilled rows remember the
+        pane epochs they were packed under, so the reset marks their slice
+        of that pane stale."""
+        self.state = self.gb.reset_pane(self.state, pane)
+        if self.tier is not None:
+            self.tier.note_pane_reset(pane)
+
+    def _tier_boundary(self) -> None:
+        """Pane-boundary tier hook (fold thread): apply the demote plan and
+        start the next touch scan."""
+        if self.tier is not None:
+            self.state = self.tier.on_boundary(self.state)
+
+    def _emit_tier_extras(self, wr: WindowRange) -> None:
+        """Emit the spilled keys' share of a closing window: their still
+        valid per-pane partials, final values on the host, through the same
+        emit tail as the device groups, as a second message of the window."""
+        if self.tier is None:
+            return
+        res = self.tier.window_groups(self.plan)
+        if res is not None:
+            keys, outs, act = res
+            self._deliver(outs, act, wr, keys)
 
     def _flush_shadow(self, shadow) -> None:
         """Fold a frozen span's (host-only) rows back into the device state
@@ -1503,6 +1614,10 @@ class FusedWindowAggNode(Node):
             snap["hh_dicts"] = {
                 c: vd.snapshot() for c, vd in self._hh_dicts.items()
             }
+        if self.tier is not None:
+            # the cold tier (the hot one is the partials above, retired
+            # slots as None holes in the key list)
+            snap["tier"] = self.tier.snapshot()
         if self.wt == ast.WindowType.SLIDING_WINDOW:
             snap["pane_bucket"] = dict(self._pane_bucket)
             snap["ring_max_bucket"] = self._ring_max_bucket
@@ -1530,6 +1645,8 @@ class FusedWindowAggNode(Node):
             self.gb.capacity = cap
             self.state = self.gb.state_from_host(host)
             self.kt.capacity = max(self.kt.capacity, self.gb.capacity)
+        if self.tier is not None and state.get("tier"):
+            self.tier.restore(state["tier"])
         self.cur_pane = state.get("cur_pane", 0)
         self._rows_in_window = state.get("rows_in_window", 0)
         for c, values in state.get("hh_dicts", {}).items():

@@ -1,8 +1,9 @@
-"""The port stands alone: no module of ekuiper_tpu_torch, and not
-chip_smoke.py, imports jax or anything of the JAX package; importing the
-whole port leaves both out of sys.modules; its entry point needs a card
-unless the caller asks for the CPU; and a CUDA tensor handed to a kernel
-wrapper launches the kernel or raises, never taking the plain version.
+"""The port stands alone: no module of ekuiper_tpu_torch, and neither
+chip_smoke.py nor ab_tumbling.py, imports jax or anything of the JAX
+package; importing the whole port leaves both out of sys.modules; its
+entry point needs a card unless the caller asks for the CPU; and a CUDA
+tensor handed to a kernel wrapper launches the kernel or raises, never
+taking the plain version.
 """
 import ast
 import pkgutil
@@ -27,7 +28,8 @@ SQL = ("SELECT deviceId, avg(temperature) AS avg_t FROM demo "
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "ab_tumbling.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -547,3 +549,76 @@ def test_masked_fold_wrappers_never_take_the_plain_versions(slot_dtype,
                 fn(state, mask, V, M, slots, P, cmap)
     assert taken == []
     assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
+
+
+def test_tiered_rule_needs_cuda_unless_cpu_is_asked(monkeypatch):
+    """The tiered key state (its touch column, demote and promote) is as
+    strict about the device as the other paths."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    opts = {"tierHotMb": 1, "tierStore": "on"}
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fused.plan_fused_rule(SQL, key_slots=65536, options=opts, **kw)
+    node = fused.plan_fused_rule(SQL, key_slots=65536, device="cpu",
+                                 options=opts)
+    assert node.tier is not None
+    state = node.gb.init_state()
+    assert state["touch"].device.type == "cpu"
+
+
+def test_tier_wrappers_never_take_the_plain_versions(monkeypatch):
+    """tier_demote and tier_promote (and the fold with a touch column)
+    given CUDA tensors: the launch path fails loudly without a card or
+    nvcc, and no plain version runs; slots of another dtype, a packed
+    block of another shape, a touch column of another dtype and a real
+    row count past the block are refused before any build."""
+    _needs_no_card()
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    taken = []
+    for name in ("tier_demote_plain", "tier_promote_plain",
+                 "fold_scalar_plain"):
+        monkeypatch.setattr(kernels, name,
+                            lambda *a, _n=name, **k: taken.append(_n))
+    kernels.reset_launches()
+    P, C, D = 2, 8, 4
+    comps = ["n", "act"]
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        state = {"n": torch.zeros((P, C, 1), device="cuda"),
+                 "act": torch.zeros((P, C), device="cuda"),
+                 "touch": torch.zeros(C, dtype=torch.uint32, device="cuda")}
+        slots = torch.zeros(D, dtype=torch.int32, device="cuda")
+        packed = torch.zeros((D, 2 * P), device="cuda")
+        V = torch.ones((1, D), device="cuda")
+        M = torch.ones((1, D), dtype=torch.bool, device="cuda")
+        base = torch.ones(D, dtype=torch.bool, device="cuda")
+        wrong = {"slots": torch.zeros(D, dtype=torch.int64, device="cuda"),
+                 "packed": torch.zeros((D, 3), device="cuda"),
+                 "touch": torch.zeros(C, dtype=torch.int32, device="cuda")}
+    colmap = kernels.column_map({"n": [0]})
+    calls = [
+        lambda: kernels.tier_demote(state, slots, 2, comps),
+        lambda: kernels.tier_promote(state, packed, slots, comps),
+        lambda: kernels.groupby_fold_scalar(state, base, V, M, slots, 0,
+                                            colmap),
+    ]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # fake data_ptr()
+        for call in calls:
+            with pytest.raises((RuntimeError, AssertionError)):
+                call()
+        with pytest.raises(TypeError):
+            kernels.tier_demote(state, wrong["slots"], 2, comps)
+        with pytest.raises(ValueError):
+            kernels.tier_demote(state, slots, D + 1, comps)
+        with pytest.raises(ValueError):
+            kernels.tier_promote(state, wrong["packed"], slots, comps)
+        with pytest.raises(TypeError):
+            kernels.tier_demote({**state, "touch": wrong["touch"]}, slots,
+                                2, comps)
+        with pytest.raises(TypeError):
+            kernels.groupby_fold_scalar({**state, "touch": wrong["touch"]},
+                                        base, V, M, slots, 0, colmap)
+    assert taken == []
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
+    assert kernels._lib is None

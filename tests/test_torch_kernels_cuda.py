@@ -721,3 +721,168 @@ def test_refold_fetch_holds_no_later_reset_or_fold():
     now = gb._finalize(st, gb._mask_tensor(pm)).cpu().numpy()
     assert not np.array_equal(now, got)
     pending.release()
+
+
+# ------------------------------------------------------------ tier store
+TIER_SQL = {
+    # G2's rule (ten panes), min and max added for the min/max merges
+    "scalar": ("SELECT k, sum(v) AS s, count(*) AS c, min(v) AS mn, "
+               "max(v) AS mx FROM s GROUP BY k, HOPPINGWINDOW(ss, 10, 1)"),
+    # the wide components: hll registers (max) and hist bins (add)
+    "wide": ("SELECT k, hll(v) AS u, percentile_approx(v, 0.5) AS p FROM s "
+             "GROUP BY k, HOPPINGWINDOW(ss, 10, 5)"),
+}
+
+
+@pytest.fixture(params=sorted(TIER_SQL))
+def tnode(request):
+    """A tiered node on the card (tierHotMb 1: the scalar rule at 2,048
+    slots, the wide one at the 1,024-slot floor) with rows in every pane
+    and touch counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    node = plan_fused_rule(TIER_SQL[request.param], key_slots=4096,
+                           micro_batch=4096,
+                           options={"tierHotMb": 1, "prefinalizeLeadMs": 0})
+    assert node.tier is not None
+    gb = node.gb
+    st = gb.init_state()
+    rng = np.random.default_rng(91)
+    for pane in range(gb.n_panes):
+        v = rng.normal(20, 5, 4096).astype(np.float32)
+        v[:4] = [0.0, -0.0, -2.5, 1e30]
+        cols = {"v": v, "__hll__v": encode_hll_column(v, 4096)}
+        gb.fold(st, {c: cols[c] for c in gb.plan.columns},
+                rng.integers(0, 700, 4096).astype(np.int32), pane_idx=pane)
+    node.state = st
+    return node
+
+
+def _clone(st):
+    return {k: v.clone() for k, v in st.items()}
+
+
+def _same_exact(got, ref):
+    assert got.keys() == ref.keys()
+    for comp in ref:
+        np.testing.assert_array_equal(got[comp].cpu().numpy(),
+                                      ref[comp].cpu().numpy(), err_msg=comp)
+
+
+@pytest.mark.parametrize("n", [1, 37, 2048])
+def test_tier_demote_matches_plain(tnode, n):
+    """#18 against its plain version: the packed block (pad rows, which
+    repeat slots[0], included) and the reset state (touch included)
+    bit-equal, for a partial, a small and a full block."""
+    ts = tnode.tier.ts
+    gb = tnode.gb
+    rng = np.random.default_rng(n)
+    slots = rng.choice(gb.capacity, size=min(n, gb.capacity),
+                       replace=False).astype(np.int32)
+    s, real = ts._slots(slots)
+    s_dev = torch.from_numpy(s).to(gb.device)
+    got, ref = _clone(tnode.state), _clone(tnode.state)
+    kernels.reset_launches()
+    packed = kernels.tier_demote(got, s_dev, real, ts.comps)
+    want = kernels.tier_demote_plain(ref, s_dev, real, ts.comps)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["tier_demote"] == 1
+    assert packed.shape == (ts.demote_batch, ts.packed_w)
+    np.testing.assert_array_equal(packed.cpu().numpy(), want.cpu().numpy())
+    _same_exact(got, ref)
+    assert float(got["act"][:, torch.from_numpy(s[:real]).long()].abs()
+                 .sum()) == 0
+    touch = got["touch"].cpu().numpy()  # torch indexes no uint32 on CUDA
+    assert int(touch[s[:real]].sum()) == 0
+
+
+@pytest.mark.parametrize("n", [1, 37, 2048])
+def test_tier_promote_matches_plain(tnode, n):
+    """#19 against its plain version, bit-equal: a demoted block merged
+    back into other slots holding data (add, min, max per component);
+    identity pad rows on the repeated pad slot."""
+    ts = tnode.tier.ts
+    gb = tnode.gb
+    rng = np.random.default_rng(100 + n)
+    k = min(n, gb.capacity)
+    src = rng.choice(gb.capacity, size=k, replace=False).astype(np.int32)
+    st = _clone(tnode.state)
+    s, real = ts._slots(src)
+    block = kernels.tier_demote_plain(
+        st, torch.from_numpy(s).to(gb.device), real, ts.comps)
+    rows = block.cpu().numpy()[:real][::-1].copy()
+    dst = rng.choice(gb.capacity, size=k, replace=False).astype(np.int32)
+    d, _ = ts._slots(dst)
+    full = np.tile(ts.init_row(), (ts.demote_batch, 1))
+    full[:real] = rows
+    packed = torch.from_numpy(full).to(gb.device)
+    d_dev = torch.from_numpy(d).to(gb.device)
+    got, ref = _clone(st), _clone(st)
+    kernels.reset_launches()
+    kernels.tier_promote(got, packed, d_dev, ts.comps)
+    kernels.tier_promote_plain(ref, packed, d_dev, ts.comps)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["tier_promote"] == 1
+    _same_exact(got, ref)
+
+
+def test_fold_touch_column_matches_plain(tnode):
+    """#1's touch branch: the fold kernel's uint32 touch[slot] += 1 per row
+    past WHERE equals the plain fold's, exactly; the pane reset keeps it."""
+    gb = tnode.gb
+    rng = np.random.default_rng(92)
+    got, ref = _clone(tnode.state), _clone(tnode.state)
+    for seed in range(3):
+        v = rng.normal(20, 5, 4096).astype(np.float32)
+        cols = {"v": torch.from_numpy(v).to(gb.device),
+                "__hll__v": torch.from_numpy(
+                    encode_hll_column(v, 4096)).to(gb.device)}
+        cols = {c: cols[c] for c in gb.plan.columns}
+        base, V, M = gb.spec_inputs(cols, 4096)
+        base[::7] = False  # rows a WHERE would drop
+        M &= base
+        slots = torch.from_numpy(
+            rng.integers(0, 700, 4096).astype(np.int32)).to(gb.device)
+        kernels.groupby_fold_scalar(got, base, V, M, slots, seed % 2,
+                                    gb._colmap)
+        kernels.fold_scalar_plain(ref, base, V, M, slots, seed % 2,
+                                  gb._colmap)
+    kernels.groupby_reset_pane(got, 0)
+    kernels.reset_pane_plain(ref, 0)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got["touch"].cpu().numpy(),
+                                  ref["touch"].cpu().numpy())
+    np.testing.assert_array_equal(got["act"].cpu().numpy(),
+                                  ref["act"].cpu().numpy())
+    assert int(got["touch"].to(torch.int64).sum()) == int(
+        tnode.state["touch"].to(torch.int64).sum()) + 3 * (4096 - 586)
+
+
+def test_tier_fetches_hold_no_later_fold(tnode):
+    """Snapshot against the in-place folds: the touch scan's clone and a
+    demote block, each launched right before a fold (no synchronize
+    between), are fetched as they stood at their launch."""
+    tier = tnode.tier
+    gb = tnode.gb
+    held = []
+    tier._submit = held.append
+    st = tnode.state
+    touch_then = st["touch"].cpu().numpy().copy()
+    tier._last_scan_ms = -10 ** 9
+    tier._plan = [3, 5]
+    tnode.kt.encode_column(np.array([f"k{i}" for i in range(8)],
+                                    dtype=np.object_))
+    want_rows = tier.ts.demote(_clone(st), np.array([3, 5]))[1][:2] \
+        .cpu().numpy()
+    st = tier.on_boundary(st)
+    gb.fold(st, {c: np.full(65_536, 7.0, np.float32)
+                 for c in gb.plan.columns},
+            np.full(65_536, 3, np.int32), pane_idx=0)
+    (harvest,) = [p for p in held if p[0] == "harvest"]
+    (scan,) = [p for p in held if p[0] == "scan"]
+    assert harvest[1]._buf.is_pinned() and scan[1]._buf.is_pinned()
+    np.testing.assert_array_equal(harvest[1].get()[:2], want_rows)
+    np.testing.assert_array_equal(scan[1].get(), touch_then * (
+        np.arange(len(touch_then)) != 3) * (np.arange(len(touch_then)) != 5))
+    torch.cuda.synchronize()
+    assert int(st["touch"].cpu().numpy()[3]) == 65_536

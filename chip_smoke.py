@@ -27,7 +27,12 @@ no result):
    the tier demote and promote at G1's state (1 pane, a 4-float packed
    row, 1,048,576 slots), G2's (10 panes, 60 floats, 262,144 slots), phase
    B's hll hopping state and the percentile hist, a block of 2,000 real
-   slots and 48 pad rows; the fold's touch column at G1's state):
+   slots and 48 pad rows; the fold's touch column at G1's state; the
+   sketch group's wide fold, wide finalize and pane reset at H5's two
+   63-rule families, 16,384 slots: hll on two hopping panes, 2.1 GB of
+   registers, and the percentile on one tumbling pane, 4.2 GB of bins;
+   the wide fold bit-equal to its plain version, the wide finalize's hll
+   bit-equal and its percentile within 4 ulp):
    error, kernel time (CUDA
    events), the kernel body's own device time (profiler trace) and the
    host time of one wrapper call, plain time, a library yardstick and the
@@ -151,6 +156,33 @@ G. tiered key state (the tier's budget from tierHotMb), each run with
    Per run: rows/s, host encode time, emit or stall and delivery, device
    slots, demoted / promoted / recycled keys, cold rows and host-store
    MB, the tier kernels' launches;
+H. the non-time windows and the sketch rule groups, each run from its
+   own launch counts. H1, BASELINE config #4 (bench.py:540-600):
+   `SELECT deviceId, hll(uid) AS uniq FROM demo GROUP BY deviceId,
+   COUNTWINDOW(2097152)` at 1<<20 slots on the default boundary (the
+   count window's finalize delivered by the emit worker): 32 distinct
+   65,536-row batches of ids drawn from 1M (uid in [0, 5M), ~878k
+   distinct keys), cycled for 3 windows, every key's estimate within ±1 of
+   a numpy register twin (a sort and maximum.reduceat); rows/s, host
+   encode ms a batch, delivery p50/p99 and distinct keys. H2, E2's count
+   rule (bench.py:1628-1629) on 50,000-row batches (window edges inside
+   batches), 10,000 keys, then EOF: counts and max exact. H3, the
+   reference's session rule `SESSIONWINDOW(ss, 10, 2)` (count, avg) on
+   the mock clock: bursts ended by gaps and one past the 10 s cap, each
+   session against the float64 twin over exactly its batches. H4,
+   `STATEWINDOW(st = 1, st = 0)` with st toggling at random rows (windows
+   inside a batch and across batches, both required). H5, E2's two solo
+   sketch rules (bench.py:1622-1627) as 63-rule families with E2's
+   WHERE-step pattern: hll(humidity) WHERE temperature > {14.0 + 0.05 r}
+   on HOPPINGWINDOW(ss, 10, 5), and stddev + percentile_approx(
+   temperature, 0.9) WHERE humidity > {30.0 + 0.1 r} on
+   TUMBLINGWINDOW(ss, 10); 10,000 keys, 16,384 slots, 16 batches a window,
+   3 windows each, every rule's every window against per-rule twins (hll
+   ±1, the percentile in the twin's bin or one over within D_EDGE, stddev
+   within the float32 bound); rows/s, rule-rows/s, the fold kernels' ms a
+   batch, stall and delivery. H6, H3's rule as a 63-rule session group
+   (WHERE v > {10.0 + 0.25 r}) on H3's stream, every rule's every
+   session against the float64 twin;
 5. each kernel's launch count on the paths that use it (each must be
    > 0; the fold's touch branch on the G paths), then the JSON kernel
    table and the one-line result.
@@ -297,6 +329,11 @@ E_TWIN = {
                              "sd": ("stddev", "humidity")}),
     "fd": ("temperature", "<", {"c": ("count", None),
                                 "ap": ("avg", "pressure")}),
+    # phase H: the sketch families (their sketches are checked apart) and
+    # the session group
+    "h5_hll": ("temperature", ">", {}),
+    "h5_pct": ("humidity", ">", {"sd": ("stddev", "temperature")}),
+    "h6": ("v", ">", {"c": ("count", None), "a": ("avg", "v")}),
 }
 #: windows per phase E run (E1 tumbling, E2 tumbling, E3 hop slides)
 E_WINDOWS = {"e1": 4, "e2": 2, "e3": 4}
@@ -327,6 +364,52 @@ G2_BACK, G2_BATCHES = (4, 9), 240
 #: batch times in each 1 s slide: two before the 2x-lead pre-trigger (at
 #: 500 ms), one between it and the 1x-lead one (750), one after
 G2B_OFFSETS = (100, 350, 600, 850)
+#: phase H: the non-time windows (count, session, state) on the fused
+#: node, and the sketch rule groups. H1 is BASELINE config #4
+#: (bench.py:540-600): hll over COUNTWINDOW(2097152) at 1<<20 slots, one
+#: count window of 32 distinct 65,536-row batches of ids drawn from 1M
+#: (uid in [0, 5M)), cycled for 3 windows, on the default boundary (the
+#: async count emit)
+H1_RULE = ("SELECT deviceId, hll(uid) AS uniq FROM demo GROUP BY deviceId, "
+           "COUNTWINDOW(2097152)")
+H1_SLOTS, H1_KEY_SPACE, H1_UIDS, H1_BATCHES, H1_WINDOWS = (
+    1 << 20, 1_000_000, 5_000_000, 32, 3)
+#: H2: E2's solo count rule (bench.py:1628-1629) on 50,000-row batches,
+#: so that window edges fall inside batches, 10,000 keys
+H2_RULE = ("SELECT deviceId, max(temperature) AS m, count(*) AS c FROM demo "
+           "GROUP BY deviceId, COUNTWINDOW(262144)")
+H2_COUNT, H2_ROWS, H2_BATCHES = 262_144, 50_000, 16
+#: H3: the reference's session rule (tests/test_session_device.py:17-18),
+#: cap 10 s, gap 2 s, on the mock clock: a burst ended by a gap, a burst
+#: past the cap, a last burst ended by a gap (batch times in ms)
+H3_RULE = ("SELECT deviceId, count(*) AS c, avg(v) AS a FROM demo "
+           "GROUP BY deviceId, SESSIONWINDOW(ss, 10, 2)")
+H3_GAP_MS, H3_CAP_MS = 2_000, 10_000
+H3_TIMES = ([250 * i for i in range(8)] + [5_000 + 400 * i for i in range(30)]
+            + [22_000 + 500 * i for i in range(6)])
+H3_END_MS = 30_000
+#: H4: the reference's state rule (tests/test_state_device.py:19), st at 1
+#: or 0 on random rows (each with this probability), 2 elsewhere
+H4_RULE = ("SELECT deviceId, count(*) AS c, avg(v) AS a FROM demo "
+           "GROUP BY deviceId, STATEWINDOW(st = 1, st = 0)")
+H4_BATCHES, H4_TOGGLE_P = 24, 2e-5
+#: H5: E2's two solo sketch rules (bench.py:1622-1627) as 63-rule families
+#: with E2's WHERE-step pattern (SQL, first threshold, step), 16 batches a
+#: window (the hll family: a 5 s slide), 3 windows each
+H5_FAMILIES = {
+    "hll": ("SELECT deviceId, hll(humidity) AS u FROM demo WHERE "
+            "temperature > {x} GROUP BY deviceId, HOPPINGWINDOW(ss, 10, 5)",
+            14.0, 0.05),
+    "pct": ("SELECT deviceId, stddev(temperature) AS sd, percentile_approx"
+            "(temperature, 0.9) AS p90 FROM demo WHERE humidity > {x} "
+            "GROUP BY deviceId, TUMBLINGWINDOW(ss, 10)", 30.0, 0.1),
+}
+H5_RULES, H5_WINDOWS = 63, 3
+#: H6: H3's rule as a 63-rule session group, a WHERE literal per rule, on
+#: H3's stream
+H6_SQL = ("SELECT deviceId, count(*) AS c, avg(v) AS a FROM demo WHERE "
+          "v > {x} GROUP BY deviceId, SESSIONWINDOW(ss, 10, 2)")
+H6_RULES, H6_BASE, H6_STEP = 63, 10.0, 0.25
 SOURCE = {
     "groupby_fold_scalar": "ekuiper_tpu_torch/csrc/groupby.cu",
     "groupby_finalize_scalar": "ekuiper_tpu_torch/csrc/groupby.cu",
@@ -346,6 +429,8 @@ SOURCE = {
     "groupby_fold_masked_wide": "ekuiper_tpu_torch/csrc/sketches.cu",
     "tier_demote": "ekuiper_tpu_torch/csrc/tierstore.cu",
     "tier_promote": "ekuiper_tpu_torch/csrc/tierstore.cu",
+    "multirule_fold_wide": "ekuiper_tpu_torch/csrc/multirule.cu",
+    "multirule_finalize_wide": "ekuiper_tpu_torch/csrc/multirule.cu",
 }
 REPLACES = {
     "groupby_fold_scalar": "ekuiper_tpu/ops/groupby.py:348",
@@ -366,19 +451,22 @@ REPLACES = {
     "groupby_fold_masked_wide": "ekuiper_tpu/ops/groupby.py:354",
     "tier_demote": "ekuiper_tpu/ops/tierstore.py:263",
     "tier_promote": "ekuiper_tpu/ops/tierstore.py:278",
+    "multirule_fold_wide": "ekuiper_tpu/parallel/multirule.py:196",
+    "multirule_finalize_wide": "ekuiper_tpu/parallel/multirule.py:210",
 }
 #: which end-to-end paths launch each kernel (phase 5 checks each > 0)
 PATHS = {
     "groupby_fold_scalar": ("tumbling", "hopping", "hh", "pct", "hll", "d1",
                             "d2", "d2_delay", "d3", "f1", "f2", "f3", "f4",
-                            "g1", "g2a", "g2b"),
+                            "g1", "g2a", "g2b", "h1", "h2", "h3", "h4"),
     "groupby_finalize_scalar": ("tumbling", "hopping", "hh", "pct", "hll",
-                                "f1", "f2", "f3", "f4", "g1", "g2a"),
+                                "f1", "f2", "f3", "f4", "g1", "g2a", "h1",
+                                "h2", "h3", "h4"),
     "groupby_reset_pane": ("tumbling", "hopping", "hh", "pct", "hll", "d1",
                            "d2", "d3", "f1", "f2", "f3", "f4", "g1", "g2a",
-                           "g2b"),
-    "groupby_fold_wide": ("hh", "pct", "hll", "d1", "d3", "f1", "f3"),
-    "groupby_finalize_wide": ("pct", "hll", "f3"),
+                           "g2b", "h1", "h2", "h3", "h4"),
+    "groupby_fold_wide": ("hh", "pct", "hll", "d1", "d3", "f1", "f3", "h1"),
+    "groupby_finalize_wide": ("pct", "hll", "f3", "h1"),
     "groupby_hh_finalize": ("hh", "f1"),
     "groupby_components": ("c1", "c1_nobackstop", "c1_host", "c2", "c3_pct",
                            "c3_hll", "d2", "d2_delay", "g2b"),
@@ -386,13 +474,15 @@ PATHS = {
     "ring_advance": ("d1", "d2", "d2_delay", "d3"),
     "ring_flip": ("d1", "d2", "d3"),
     "ring_query": ("d1", "d2", "d3"),
-    "multirule_fold": ("e1", "e2", "e3"),
-    "multirule_finalize": ("e1", "e2", "e3"),
-    "multirule_reset_pane": ("e1", "e2", "e3"),
+    "multirule_fold": ("e1", "e2", "e3", "h5_hll", "h5_pct", "h6"),
+    "multirule_finalize": ("e1", "e2", "e3", "h5_hll", "h5_pct", "h6"),
+    "multirule_reset_pane": ("e1", "e2", "e3", "h5_hll", "h5_pct", "h6"),
     "groupby_fold_masked_scalar": ("f1", "f2", "f3", "f4"),
     "groupby_fold_masked_wide": ("f1", "f3"),
     "tier_demote": ("g1", "g2a", "g2b"),
     "tier_promote": ("g2a", "g2b"),
+    "multirule_fold_wide": ("h5_hll", "h5_pct"),
+    "multirule_finalize_wide": ("h5_hll", "h5_pct"),
 }
 #: the folds that must bump the touch column on each tiered path
 TOUCH_PATHS = {"groupby_fold_scalar": ("g1", "g2a", "g2b")}
@@ -3104,6 +3194,192 @@ def group_kernel_checks(torch, seed, kernels, plan_rule_group, dev):
     return rows
 
 
+# ----------------------------------------- phase 2, the sketch rule group
+def h5_sqls(family):
+    """H5's 63 statements of one sketch family (E2's WHERE-step pattern)."""
+    sql, base, step = H5_FAMILIES[family]
+    return [sql.format(x=base + step * r) for r in range(H5_RULES)]
+
+
+def h5_columns(rng, shape):
+    """H5's columns: temperature N(20, 5) and humidity N(50, 15), rounded
+    to 2 decimals as bench.py's E2 draws them."""
+    return {"temperature": rng.normal(20, 5, shape).round(2),
+            "humidity": rng.normal(50, 15, shape).round(2)}
+
+
+def library_group_fold_wide(torch, state, idx, val, comp):
+    """Yardstick, never called by the port: the sketch group fold as one
+    PyTorch scatter over precomputed rule-offset flat indices
+    (r, pane, slot, k, register): scatter_reduce_ amax for hll, index_add_
+    of ones for hist."""
+    flat = state[comp].view(-1)
+    if comp == "hll":
+        flat.scatter_reduce_(0, idx, val, "amax", include_self=True)
+    else:
+        flat.index_add_(0, idx, val)
+
+
+def group_wide_updates(torch, gb, base, V, M, slots, pane, sketches):
+    """The flat (rule, pane, slot, 0, register) index and value of every
+    update the group's one sketch column makes (what the library yardstick
+    scatters), and the number of updates."""
+    comp_id, k, s = gb._widemap[0].tolist()
+    comp = "hll" if comp_id == 0 else "hist"
+    NR, P, C = gb.n_rules, gb.n_panes, gb.capacity
+    W = 256 if comp == "hll" else 1024
+    rule = torch.arange(NR, device=slots.device)[:, None]
+    rp = (rule * P + pane) * C + slots.long()[None, :]
+    if comp == "hll":
+        reg, val = sketches.hll_parts(V[s])
+        idx = rp * W + reg[None, :]
+        val = val.expand(NR, -1)
+    else:
+        idx = rp * W + sketches.hist_bin(V[s])[None, :]
+        val = torch.ones(idx.shape, dtype=torch.float32, device=idx.device)
+    keep = base & M[s][None, :]
+    return comp, idx[keep], val[keep], int(keep.sum().item())
+
+
+def wide_group_kernel_checks(torch, seed, kernels, sketches, plan_rule_group,
+                             dev):
+    """The batched wide fold (#15's hll / hist branches), the batched wide
+    finalize (#16's hll / percentile final values) and the pane reset over
+    wide state against their plain versions at H5's shapes: 63 rules,
+    65,536 rows, 16,384 slots; the hll family on two hopping panes
+    (2.1 GB of registers), the percentile family on one tumbling pane
+    (4.2 GB of bins)."""
+    rows = {}
+    r = np.random.default_rng(seed + 70)
+    cols = h5_columns(r, ROWS)
+    s_dev = torch.from_numpy(
+        r.integers(0, N_KEYS, ROWS).astype(np.int32)).to(dev)
+    for fam in ("hll", "pct"):
+        node = plan_rule_group(rule_ids(f"h5{fam}_", H5_RULES), h5_sqls(fam),
+                               key_slots=SLOTS, micro_batch=ROWS, device=dev)
+        gb = node.gb
+        dcols = {c: torch.from_numpy(v.astype(np.float32)).to(dev)
+                 for c, v in cols.items()}
+        dcols["__hll__humidity"] = dcols["humidity"]
+        base, V, M = gb.rule_inputs(dcols, ROWS)
+        st = gb.init_state()
+        comp = "hll" if fam == "hll" else "hist"
+        state_bytes = sum(a.numel() * 4 for a in st.values())
+        # the fold: every pane of the family's state, then the timed launch
+        ref, got = clone_state(st), st
+        for pane in range(gb.n_panes):
+            kernels.multirule_fold_wide_plain(ref, base, V, M, s_dev, pane,
+                                              gb._widemap)
+            kernels.multirule_fold_wide(got, base, V, M, s_dev, pane,
+                                        gb._widemap)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(got[comp], ref[comp])),
+              f"multirule_fold_wide {fam}: differs from its plain version")
+        pane = gb.n_panes - 1
+        fold = functools.partial(kernels.multirule_fold_wide, got, base, V,
+                                 M, s_dev, pane, gb._widemap)
+        t_k = time_ms(torch, fold, REPS)
+        split = launch_split(torch, fold, "multirule_fold_wide_kernel", REPS)
+        t_p = time_ms(torch, lambda: kernels.multirule_fold_wide_plain(
+            ref, base, V, M, s_dev, pane, gb._widemap), REPS)
+        _, idx, val, n_upd = group_wide_updates(torch, gb, base, V, M, s_dev,
+                                                pane, sketches)
+        t_l = time_ms(torch, lambda: library_group_fold_wide(
+            torch, ref, idx, val, comp), REPS)
+        s = int(gb._widemap[0, 2])
+        in_bytes = base.numel() + V[s].numel() * 4 + M[s].numel() + ROWS * 4
+        b_ms, b_by = bound(in_bytes, n_upd)
+        print(f"kernel multirule_fold_wide {fam} R={H5_RULES} rows={ROWS} "
+              f"P={gb.n_panes} C={SLOTS}: bit-equal kernel_ms={t_k:.4f} "
+              f"{split_text(split)} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
+              f"bound_ms={b_ms:.5f} ({b_by}; inputs {in_bytes / 1e6:.2f} MB,"
+              f" {n_upd} updates) updates_per_s={n_upd / (t_k / 1e3):.4g} "
+              f"state_MB={state_bytes / 1e6:.1f}")
+        rows[f"multirule_fold_wide/{fam}"] = dict(
+            max_abs_err=0.0, max_rel_err=0.0, ms=t_k, **split, plain_ms=t_p,
+            bound_ms=b_ms, bound_by=b_by, library_ms=t_l,
+            input_bytes=in_bytes, updates=n_upd,
+            updates_per_s=n_upd / (t_k / 1e3), state_bytes=state_bytes)
+        del ref, idx, val
+
+        # the wide finalize into the scalar finalize's result, the key cut
+        # of 10,000 keys (K = 16,384), every pane
+        K = gb._slice_keys(N_KEYS)
+        pm = gb._pane_mask(None)
+        out_k = kernels.multirule_finalize(got, pm, gb._spectab, K, gb._rows)
+        out_p = out_k.clone()
+        kernels.multirule_finalize_wide(got, pm, gb._widetab, gb._fracs,
+                                        out_k)
+        kernels.multirule_finalize_wide_plain(got, pm, gb._widetab,
+                                              gb._fracs, out_p)
+        g, p = rows_first(out_k).cpu().numpy(), rows_first(out_p).cpu().numpy()
+        worst = 0.0
+        for kind, _, row in gb._widetab.tolist():
+            nan = np.isnan(p[row])
+            check((np.isnan(g[row]) == nan).all(),
+                  f"multirule_finalize_wide {fam}: NaN mismatch")
+            d = np.abs(g[row][~nan].astype(np.float64) - p[row][~nan])
+            worst = max(worst, float(d.max(initial=0.0)))
+            if kind == kernels.WIDE_KIND_IDS["hll"]:
+                check((d == 0).all(), f"multirule_finalize_wide hll: "
+                      f"{int((d > 0).sum())} estimates differ")
+            else:
+                check((d <= 4 * 2.0 ** -23 * np.abs(p[row][~nan])).all(),
+                      "multirule_finalize_wide percentile beyond 4 ulp "
+                      f"(max {d.max(initial=0.0)})")
+        others = np.setdiff1d(np.arange(len(g)), gb._widetab[:, 2])
+        check(np.array_equal(g[others], p[others], equal_nan=True),
+              "multirule_finalize_wide wrote another row")
+        fin = functools.partial(kernels.multirule_finalize_wide, got, pm,
+                                gb._widetab, gb._fracs, out_k)
+        t_k = time_ms(torch, fin, REPS)
+        split = launch_split(torch, fin, "multirule_finalize_wide_kernel",
+                             REPS)
+        t_p = time_ms(torch, lambda: kernels.multirule_finalize_wide_plain(
+            got, pm, gb._widetab, gb._fracs, out_p), REPS)
+        W = got[comp].shape[-1]
+        rd = H5_RULES * gb.n_panes * K * W * 4
+        wr = H5_RULES * K * 4 * len(gb._widetab)
+        b_ms, b_by = bound(rd + wr, H5_RULES * K * W * (gb.n_panes + 2))
+        print(f"kernel multirule_finalize_wide {fam} R={H5_RULES} "
+              f"P={gb.n_panes} K={K} W={W}: max_abs_err={worst:.3g} "
+              f"(hll bit-equal, percentile within 4 ulp) kernel_ms={t_k:.4f}"
+              f" {split_text(split)} plain_ms={t_p:.4f} library_ms=null "
+              f"bound_ms={b_ms:.5f} ({b_by}; reads {rd / 1e9:.3f} GB)")
+        rows[f"multirule_finalize_wide/{fam}"] = dict(
+            max_abs_err=worst, max_rel_err=0.0, ms=t_k, **split,
+            plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            read_bytes=rd)
+        del out_k, out_p
+
+        # the pane reset over the wide state: every rule's last pane
+        a = clone_state(got)
+        kernels.multirule_reset_pane(a, pane)
+        kernels.multirule_reset_pane_plain(got, pane)
+        torch.cuda.synchronize()
+        check(all(bool(torch.equal(a[c], got[c])) for c in got),
+              f"multirule_reset_pane {fam}: differs over wide state")
+        reset = functools.partial(kernels.multirule_reset_pane, a, pane)
+        t_k = time_ms(torch, reset, REPS)
+        split = launch_split(torch, reset, "multirule_reset_kernel", REPS)
+        # the plain version is the library yardstick itself: one fill_ per
+        # component over every rule's pane
+        t_p = t_l = time_ms(
+            torch, lambda: kernels.multirule_reset_pane_plain(got, pane), REPS)
+        b_ms, b_by = bound(state_bytes // gb.n_panes, 0)
+        print(f"kernel multirule_reset_pane {fam} wide R={H5_RULES} "
+              f"P={gb.n_panes} C={SLOTS}: bit-equal kernel_ms={t_k:.4f} "
+              f"{split_text(split)} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
+              f"bound_ms={b_ms:.5f} ({b_by}; a pane of "
+              f"{state_bytes / gb.n_panes / 1e9:.3f} GB)")
+        rows[f"multirule_reset_pane/{fam}"] = dict(
+            max_abs_err=0.0, max_rel_err=0.0, ms=t_k, **split, plain_ms=t_p,
+            bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+        del node, gb, st, got, a
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ------------------------------------------------------------ phase E
 class GroupProbe:
     """What phase E reads off one group node: each boundary's stall on the
@@ -3189,13 +3465,14 @@ class GroupProbe:
 
 
 class FoldTimer:
-    """The group fold kernel's device time per launch: CUDA events around
-    each multirule_fold call (they bracket the one launch on the stream;
-    nothing synchronizes until the run ends)."""
+    """A group fold kernel's device time per launch: CUDA events around
+    each call of its wrapper (`name`; they bracket the one launch on the
+    stream; nothing synchronizes until the run ends)."""
 
-    def __init__(self, torch, kernels):
+    def __init__(self, torch, kernels, name="multirule_fold"):
         self.torch, self.kernels, self.events = torch, kernels, []
-        self._orig = kernels.multirule_fold
+        self.name = name
+        self._orig = getattr(kernels, name)
 
     def __enter__(self):
         def timed(*a, **k):
@@ -3206,11 +3483,11 @@ class FoldTimer:
             end.record()
             self.events.append((start, end))
 
-        self.kernels.multirule_fold = timed
+        setattr(self.kernels, self.name, timed)
         return self
 
     def __exit__(self, *exc):
-        self.kernels.multirule_fold = self._orig
+        setattr(self.kernels, self.name, self._orig)
         return False
 
     def ms(self):
@@ -4286,6 +4563,536 @@ def phase_g_lines(g):
            + " ".join(f"{k}={v:.1f}" for k, v in g["walls"].items()))
 
 
+# ------------------------------------------------------------ phase H
+def sparse_hll_estimates(keys, vals, n_keys):
+    """Each key's hll estimate from its rows (key index, float32 value)
+    through a sort and maximum.reduceat over (key, register): the
+    registers of a million keys stay sparse. float32 arithmetic of
+    twin_hll_estimate, keys with no rows 0."""
+    reg, rho = twin_hll(vals)
+    flat = keys.astype(np.int64) * HLL_M + reg
+    order = np.argsort(flat, kind="stable")
+    fs = flat[order]
+    starts = np.flatnonzero(np.r_[True, fs[1:] != fs[:-1]])
+    rmax = np.maximum.reduceat(rho[order], starts)
+    ukey = fs[starts] // HLL_M
+    nz = rmax > 0
+    nnz = np.bincount(ukey[nz], minlength=n_keys)
+    zsum = np.bincount(ukey[nz], weights=np.exp2(-rmax[nz].astype(
+        np.float64)), minlength=n_keys)
+    m = np.float32(HLL_M)
+    z = ((HLL_M - nnz) + zsum).astype(np.float32)
+    zeros = (HLL_M - nnz).astype(np.float32)
+    raw = np.float32(0.7213 / (1.0 + 1.079 / HLL_M) * HLL_M * HLL_M) / z
+    small = m * np.log(m / np.maximum(zeros, np.float32(1)))
+    return np.rint(np.where((raw < 2.5 * HLL_M) & (zeros > 0), small, raw))
+
+
+def run_h1(torch, seed, kernels, mods):
+    """H1, BASELINE config #4: hll(uid) over COUNTWINDOW(2097152) at 1<<20
+    slots, the default boundary (the count window's finalize launched on
+    the fold thread, delivered by the emit worker). One window of 32
+    distinct batches, cycled: every window holds the same rows, so one
+    sparse register twin checks all three."""
+    plan_fused_rule, ColumnBatch, _ = mods
+    rng = np.random.default_rng(seed + 80)
+    ids = np.array([f"dev_{i}" for i in range(H1_KEY_SPACE)], dtype=np.object_)
+    idx = rng.integers(0, H1_KEY_SPACE, (H1_BATCHES, ROWS))
+    uid = rng.integers(0, H1_UIDS, (H1_BATCHES, ROWS))
+    batches = [ColumnBatch(n=ROWS, columns={"deviceId": ids[idx[b]],
+                                            "uid": uid[b]}, emitter="demo")
+               for b in range(H1_BATCHES)]
+    node = plan_fused_rule(H1_RULE, key_slots=H1_SLOTS, micro_batch=ROWS)
+    check(node.gb.device.type == "cuda", "H1 is not on the card")
+    check(node._async_count, "H1: the count window's emit is not async")
+    emitted, t_got, t_disp = [], [], []
+    node.broadcast = lambda cb: (emitted.append(cb),
+                                 t_got.append(time.perf_counter()))
+    dispatch = node._emit_count_async
+
+    def timed_dispatch(wr):
+        t_disp.append(time.perf_counter())
+        dispatch(wr)
+
+    node._emit_count_async = timed_dispatch
+    stages = {"encode": 0.0}
+    node._build_kernel_inputs = timed(node._build_kernel_inputs, stages,
+                                      "encode")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for b in range(H1_BATCHES * H1_WINDOWS):
+        node.process(batches[b % H1_BATCHES])
+    node._drain_async_emits()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    check(not node.recoveries, "H1: recovery routes taken")
+    check(len(emitted) == H1_WINDOWS,
+          f"H1: {len(emitted)} windows, want {H1_WINDOWS}")
+    n_keys = node.kt.n_keys
+    t_c = time.perf_counter()
+    est = sparse_hll_estimates(idx.ravel(), uid.ravel().astype(np.float32),
+                               H1_KEY_SPACE)
+    live = np.nonzero(np.bincount(idx.ravel(), minlength=H1_KEY_SPACE))[0]
+    check(n_keys == len(live), f"H1: {n_keys} keys, want {len(live)}")
+    worst = 0
+    for w, cb in enumerate(emitted):
+        keys = key_ids(cb.columns["deviceId"])
+        order = np.argsort(keys)
+        check(cb.n == len(live) and (keys[order] == live).all(),
+              f"H1 window {w}: emitted keys differ")
+        d = np.abs(np.asarray(cb.columns["uniq"], dtype=np.float64)[order]
+                   - est[live])
+        check((d <= 1).all(), f"H1 window {w}: estimate beyond ±1 "
+              f"(max {d.max()})")
+        worst = max(worst, int(d.max()))
+    delivery = [(g - d) * 1e3 for g, d in zip(t_got, t_disp)]
+    return dict(rows_per_s=H1_BATCHES * H1_WINDOWS * ROWS / wall,
+                encode_ms=stages["encode"] / (H1_BATCHES * H1_WINDOWS) * 1e3,
+                delivery_p50=pct(delivery, 50), delivery_p99=pct(delivery, 99),
+                keys=n_keys, windows=len(emitted), max_abs_err=worst,
+                off_by_one=None, launches=launches,
+                check_s=time.perf_counter() - t_c,
+                source=(node.last_emit_info or {}).get("source"))
+
+
+def run_h2(torch, seed, kernels, mods):
+    """H2: E2's count rule fed 50,000-row batches (edges inside batches),
+    the default boundary, then EOF (the open window flushed): counts and
+    max exact against numpy over exactly each window's rows."""
+    plan_fused_rule, ColumnBatch, _ = mods
+    from ekuiper_tpu_torch.runtime.events import EOF
+
+    rng = np.random.default_rng(seed + 81)
+    ids = np.array([f"dev_{i}" for i in range(N_KEYS)], dtype=np.object_)
+    idx = rng.integers(0, N_KEYS, H2_BATCHES * H2_ROWS)
+    temp = rng.normal(20, 5, H2_BATCHES * H2_ROWS).astype(np.float32)
+    node = plan_fused_rule(H2_RULE, key_slots=SLOTS, micro_batch=ROWS)
+    check(node._async_count, "H2: the count window's emit is not async")
+    emitted = []
+    node.broadcast = emitted.append
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for b in range(H2_BATCHES):
+        sl = slice(b * H2_ROWS, (b + 1) * H2_ROWS)
+        node.process(ColumnBatch(n=H2_ROWS, columns={
+            "deviceId": ids[idx[sl]], "temperature": temp[sl]},
+            emitter="demo"))
+    node._drain_async_emits()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    source = (node.last_emit_info or {}).get("source")
+    node.on_eof(EOF())
+    cbs = [cb for cb in emitted if hasattr(cb, "columns")]
+    n = len(idx)
+    edges = list(range(0, n, H2_COUNT)) + [n]
+    check(len(cbs) == len(edges) - 1,
+          f"H2: {len(cbs)} windows, want {len(edges) - 1}")
+    inside = sum(e % H2_ROWS != 0 for e in edges[1:-1])
+    for w, cb in enumerate(cbs):
+        k = idx[edges[w]:edges[w + 1]]
+        t = temp[edges[w]:edges[w + 1]]
+        cnt = np.bincount(k, minlength=N_KEYS)
+        mx = np.full(N_KEYS, -np.inf, dtype=np.float32)
+        np.maximum.at(mx, k, t)
+        live = np.nonzero(cnt)[0]
+        keys = key_ids(cb.columns["deviceId"])
+        order = np.argsort(keys)
+        check(cb.n == len(live) and (keys[order] == live).all(),
+              f"H2 window {w}: emitted keys differ")
+        check((np.asarray(cb.columns["c"])[order] == cnt[live]).all(),
+              f"H2 window {w}: count")
+        check((np.asarray(cb.columns["m"], dtype=np.float32)[order]
+               == mx[live]).all(), f"H2 window {w}: max")
+    return dict(rows_per_s=n / wall, windows=len(cbs), edges_inside=inside,
+                launches=launches, source=source)
+
+
+def session_stream(rng, ColumnBatch):
+    """H3's batches (deviceId, v ~ N(20, 5)) and the twin's sessions: the
+    gap closes a session at its last batch + gap, the cap at its start +
+    cap, whichever the next batch (or the end) reaches first."""
+    ids = np.array([f"dev_{i}" for i in range(N_KEYS)], dtype=np.object_)
+    n_b = len(H3_TIMES)
+    idx = rng.integers(0, N_KEYS, (n_b, ROWS))
+    v = rng.normal(20, 5, (n_b, ROWS)).astype(np.float32)
+    batches = [ColumnBatch(n=ROWS, columns={"deviceId": ids[idx[b]],
+                                            "v": v[b]}, emitter="demo")
+               for b in range(n_b)]
+    sessions, cur = [], None
+    for b, t in enumerate(H3_TIMES + [H3_END_MS]):
+        if cur is not None:
+            end = min(cur["last"] + H3_GAP_MS, cur["start"] + H3_CAP_MS)
+            if t >= end:
+                cur["end"] = end
+                sessions.append(cur)
+                cur = None
+        if b == n_b:
+            break
+        if cur is None:
+            cur = {"start": t, "batches": []}
+        cur["batches"].append(b)
+        cur["last"] = t
+    check(cur is None, "H3's stream ends inside a session")
+    return batches, idx, v, sessions
+
+
+def drive_times(torch, node, batches, times, end_ms):
+    """Open `node` on a fresh mock clock, feed batches[i] at times[i], move
+    to end_ms; returns the wall seconds (deliveries drained, card
+    synchronized)."""
+    from ekuiper_tpu_torch.utils import timex
+
+    clock = timex.set_mock_clock(0)
+    node.on_open()
+    t0 = time.perf_counter()
+    for t, batch in zip(times, batches):
+        clock.set(t)
+        node.process(batch)
+    clock.set(end_ms)
+    node._drain_async_emits()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    node.on_close()
+    timex.use_real_clock()
+    return wall
+
+
+def check_avg_windows(tag, cbs, spans, idx, v):
+    """Each emitted window against a float64 group-by of exactly its rows
+    (spans[w]: its flat row indices): keys and counts exact, avg within
+    ε·(Σ|x| + |mean|). Returns the max abs error of avg."""
+    check(len(cbs) == len(spans),
+          f"{tag}: {len(cbs)} windows, want {len(spans)}")
+    worst = 0.0
+    for w, (cb, rows) in enumerate(zip(cbs, spans)):
+        k = idx[rows]
+        x = v[rows].astype(np.float64)
+        cnt = np.bincount(k, minlength=N_KEYS)
+        tot = np.bincount(k, x, minlength=N_KEYS)
+        sab = np.bincount(k, np.abs(x), minlength=N_KEYS)
+        live = np.nonzero(cnt)[0]
+        keys = key_ids(cb.columns["deviceId"])
+        order = np.argsort(keys)
+        check(cb.n == len(live) and (keys[order] == live).all(),
+              f"{tag} window {w}: emitted keys differ")
+        check((np.asarray(cb.columns["c"])[order] == cnt[live]).all(),
+              f"{tag} window {w}: count")
+        mean = tot[live] / cnt[live]
+        d = np.abs(np.asarray(cb.columns["a"], dtype=np.float64)[order]
+                   - mean)
+        check((d <= EPS32 * (sab[live] + np.abs(mean))).all(),
+              f"{tag} window {w}: avg beyond bound (max {d.max()})")
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def run_h3(torch, seed, kernels, mods):
+    """H3: the session rule on the mock clock; every session against the
+    float64 twin over exactly its batches, ending where the twin ends it."""
+    plan_fused_rule, ColumnBatch, _ = mods
+    rng = np.random.default_rng(seed + 82)
+    batches, idx, v, sessions = session_stream(rng, ColumnBatch)
+    node = plan_fused_rule(H3_RULE, key_slots=SLOTS, micro_batch=ROWS)
+    emitted = []
+    node.broadcast = emitted.append
+    kernels.reset_launches()
+    wall = drive_times(torch, node, batches, H3_TIMES, H3_END_MS)
+    launches = dict(kernels.LAUNCHES)
+    ends = [int(cb.timestamps[0]) for cb in emitted]
+    check(ends == [s["end"] for s in sessions],
+          f"H3: sessions end at {ends}, want "
+          f"{[s['end'] for s in sessions]}")
+    spans = [(np.asarray(s["batches"])[:, None] * ROWS
+              + np.arange(ROWS)[None, :]).ravel() for s in sessions]
+    worst = check_avg_windows("H3", emitted, spans, idx.ravel(), v.ravel())
+    caps = sum(s["end"] == s["start"] + H3_CAP_MS for s in sessions)
+    return dict(rows_per_s=len(batches) * ROWS / wall, windows=len(emitted),
+                by_cap=caps, by_gap=len(sessions) - caps, max_abs_err=worst,
+                launches=launches, ends=ends, sessions=sessions,
+                batches=batches, idx=idx, v=v)
+
+
+def run_h4(torch, seed, kernels, mods):
+    """H4: the state rule, st at 1 or 0 on random rows; the twin walks the
+    toggles (a begin row opens, the next emit row after it closes,
+    inclusive) and checks every window over exactly its rows."""
+    plan_fused_rule, ColumnBatch, _ = mods
+    rng = np.random.default_rng(seed + 83)
+    ids = np.array([f"dev_{i}" for i in range(N_KEYS)], dtype=np.object_)
+    n = H4_BATCHES * ROWS
+    idx = rng.integers(0, N_KEYS, n)
+    v = rng.normal(20, 5, n).astype(np.float32)
+    p = rng.random(n)
+    st = np.where(p < H4_TOGGLE_P, 1, np.where(p < 2 * H4_TOGGLE_P, 0, 2))
+    node = plan_fused_rule(H4_RULE, key_slots=SLOTS, micro_batch=ROWS)
+    emitted = []
+    node.broadcast = emitted.append
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for b in range(H4_BATCHES):
+        sl = slice(b * ROWS, (b + 1) * ROWS)
+        node.process(ColumnBatch(n=ROWS, columns={
+            "deviceId": ids[idx[sl]], "v": v[sl], "st": st[sl]},
+            emitter="demo"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    spans, open_at = [], None
+    for i in np.flatnonzero(st != 2).tolist():
+        if open_at is None:
+            if st[i] == 1:
+                open_at = i
+        elif st[i] == 0:
+            spans.append(np.arange(open_at, i + 1))
+            open_at = None
+    worst = check_avg_windows("H4", emitted, spans, idx, v)
+    within = sum(s[0] // ROWS == s[-1] // ROWS for s in spans)
+    check(within > 0 and within < len(spans),
+          f"H4: {within} of {len(spans)} windows inside one batch; the run "
+          "needs both kinds")
+    return dict(rows_per_s=n / wall, windows=len(spans), within=within,
+                spanning=len(spans) - within, open_at_end=open_at is not None,
+                max_abs_err=worst, launches=launches)
+
+
+def check_group_sketch(tag, thresholds, emitted, rows, slot_keys, what):
+    """The sketch outputs of one H5 family's window, every rule, against
+    numpy twins over exactly the rows passing the rule's WHERE (float32
+    column against float32 threshold): hll within ±1 of the registers'
+    estimate; the percentile in the twin's bin, or one over where one of
+    the key's values lies within D_EDGE of a bin edge. Rules are visited
+    in nesting order, each adding only its delta rows to the cumulative
+    registers or histograms. Returns (rows checked, values one off)."""
+    col, op, _ = E_TWIN[tag]
+    check(op == ">", f"{tag}: nesting order")
+    x = rows[col]
+    order = np.argsort(x, kind="stable")
+    bounds = np.searchsorted(x[order], np.asarray(thresholds,
+                                                  dtype=np.float32),
+                             side="right")
+    visit = np.argsort(-bounds, kind="stable")
+    cnt = np.zeros(N_KEYS)
+    if tag == "h5_hll":
+        reg, rho = twin_hll(rows["humidity"])
+        regs = np.zeros(N_KEYS * HLL_M, dtype=np.int64)
+    else:
+        b, near = twin_bins(rows["temperature"], D_EDGE)
+        hist = np.zeros((N_KEYS, HIST_BINS), dtype=np.int32)
+        edge = np.zeros(N_KEYS, dtype=bool)
+    prev, n_rows, off = len(x), 0, 0
+    for i in visit.tolist():
+        delta = order[bounds[i]:prev]
+        prev = bounds[i]
+        k = rows["idx"][delta]
+        cnt += np.bincount(k, minlength=N_KEYS)
+        if tag == "h5_hll":
+            np.maximum.at(regs, k * HLL_M + reg[delta], rho[delta])
+        else:
+            np.add.at(hist, (k, b[delta]), 1)
+            edge[k[near[delta]]] = True
+        live = np.nonzero(cnt[slot_keys] > 0)[0]
+        if not len(live):
+            continue
+        keys = slot_keys[live]  # the emitted order (twin_check_family's)
+        cb = emitted[i]
+        if tag == "h5_hll":
+            est = twin_hll_estimate(regs.reshape(N_KEYS, HLL_M)[keys])
+            d = np.abs(np.asarray(cb.columns["u"], dtype=np.float64) - est)
+            check((d <= 1).all(), f"{what} rule {i}: hll beyond ±1 "
+                  f"(max {d.max()})")
+        else:
+            qb = twin_quantile_bin(hist, 0.9)[0][keys]
+            vals, inv = np.unique(np.asarray(cb.columns["p90"],
+                                             dtype=np.float32),
+                                  return_inverse=True)
+            d = np.abs(value_bin(vals)[inv] - qb)
+            check(((d == 0) | ((d == 1) & edge[keys])).all(),
+                  f"{what} rule {i}: percentile bin differs")
+        off += int((d == 1).sum())
+        n_rows += cb.n
+    return n_rows, off
+
+
+def run_h5(torch, seed, kernels, plan_rule_group, ColumnBatch):
+    """H5: the two 63-rule sketch families, each one group node opened on
+    the mock clock with its default boundary (the percentile family's
+    tumbling boundaries on the emit worker, the hll family's hopping ones
+    synchronously); every rule's every window against its twins."""
+    res = {}
+    names = np.array([f"dev_{i}" for i in range(N_KEYS)], dtype=np.object_)
+    for fam, interval, span in (("hll", 5_000, 2), ("pct", 10_000, 1)):
+        tag = f"h5_{fam}"
+        rng = np.random.default_rng(seed + (84 if fam == "hll" else 85))
+        idx = rng.integers(0, N_KEYS, (H5_WINDOWS, BATCHES, ROWS))
+        cols = h5_columns(rng, idx.shape)
+        batches = [[ColumnBatch(n=ROWS, columns={
+            "deviceId": names[idx[w, b]],
+            **{c: v[w, b] for c, v in cols.items()}}, emitter="demo")
+            for b in range(BATCHES)] for w in range(H5_WINDOWS)]
+        spans = [{"idx": idx[w].ravel(), **{
+            c: v[w].ravel().astype(np.float32) for c, v in cols.items()}}
+            for w in range(H5_WINDOWS)]
+        node = group_node(plan_rule_group, rule_ids(f"{tag}_", H5_RULES),
+                          h5_sqls(fam), SLOTS, ROWS)
+        check(node._async_mr == (fam == "pct"), f"{tag}: boundary route")
+        ends = [(w + 1) * interval for w in range(H5_WINDOWS)]
+        probe = GroupProbe(node, ends)
+        kernels.reset_launches()
+        with FoldTimer(torch, kernels) as t_s, \
+                FoldTimer(torch, kernels, "multirule_fold_wide") as t_w:
+            wall = drive_on_clock(torch, node, batches, interval)
+        launches = dict(kernels.LAUNCHES)
+        check(not node.recoveries, f"{tag}: recovery routes taken")
+        n_win = H5_WINDOWS
+        check(launches["multirule_fold_wide"] == n_win * BATCHES
+              and launches["multirule_finalize_wide"] == n_win
+              and launches["multirule_reset_pane"] == n_win,
+              f"{tag}: launches {launches}")
+        base, step = H5_FAMILIES[fam][1:]
+        thresholds = [base + step * r for r in range(H5_RULES)]
+        slot_keys = np.array([int(k[4:]) for k in node.kt.decode_all()])
+        t_c = time.perf_counter()
+        rows_checked, worst, off = 0, 0.0, 0
+        for w in range(n_win):
+            part = spans[max(0, w - span + 1):w + 1]
+            rows = {k: np.concatenate([p[k] for p in part]) for k in part[0]}
+            emitted = [next((cb for cb in probe.got[rid]
+                             if int(cb.timestamps[0]) == ends[w]), None)
+                       for rid in node.gb.rule_ids]
+            n, d = twin_check_family(tag, thresholds, emitted, rows, names,
+                                     slot_keys, f"{tag} window {w}")
+            _, o = check_group_sketch(tag, thresholds, emitted, rows,
+                                      slot_keys, f"{tag} window {w}")
+            rows_checked += n
+            worst = max(worst, d)
+            off += o
+        for rid, got in probe.got.items():
+            check(len(got) == n_win, f"{tag} {rid}: {len(got)} windows")
+        fold = [a + b for a, b in zip(t_s.ms(), t_w.ms())]
+        out = group_result(tag, probe, node, wall, n_win * BATCHES * ROWS,
+                           fold, launches, n_win, (rows_checked, worst))
+        out.update(wide_fold_p50=pct(t_w.ms(), 50), off_by_one=off,
+                   check_s=time.perf_counter() - t_c)
+        res[tag] = out
+        del node, probe, batches
+        torch.cuda.empty_cache()
+    return res
+
+
+def run_h6(torch, kernels, plan_rule_group, h3):
+    """H6: H3's rule as a 63-rule session group (a WHERE literal per rule)
+    on H3's stream: the group's sessions end where H3's do, and every
+    rule's every session equals the float64 twin of its rows past its
+    WHERE."""
+    names = np.array([f"dev_{i}" for i in range(N_KEYS)], dtype=np.object_)
+    sqls = [H6_SQL.format(x=H6_BASE + H6_STEP * r) for r in range(H6_RULES)]
+    node = group_node(plan_rule_group, rule_ids("h6_", H6_RULES), sqls,
+                      SLOTS, ROWS)
+    got = {rid: [] for rid in node.gb.rule_ids}
+    from ekuiper_tpu_torch.runtime.node import Node
+
+    class Sink(Node):
+        def process(self, item):
+            got[self.name].append(item)
+
+    for rid in node.gb.rule_ids:
+        node.add_rule_output(rid, Sink(rid))
+    kernels.reset_launches()
+    wall = drive_times(torch, node, h3["batches"], H3_TIMES, H3_END_MS)
+    launches = dict(kernels.LAUNCHES)
+    slot_keys = np.array([int(k[4:]) for k in node.kt.decode_all()])
+    thresholds = [H6_BASE + H6_STEP * r for r in range(H6_RULES)]
+    rows_checked, worst = 0, 0.0
+    for w, sess in enumerate(h3["sessions"]):
+        b = np.asarray(sess["batches"])
+        rows = {"idx": h3["idx"][b].ravel(), "v": h3["v"][b].ravel()}
+        emitted = [next((cb for cb in got[rid]
+                         if int(cb.timestamps[0]) == sess["end"]), None)
+                   for rid in node.gb.rule_ids]
+        n, d = twin_check_family("h6", thresholds, emitted, rows, names,
+                                 slot_keys, f"h6 session {w}")
+        rows_checked += n
+        worst = max(worst, d)
+    for rid, windows in got.items():
+        ends = [int(cb.timestamps[0]) for cb in windows]
+        check(set(ends) <= set(h3["ends"]) and len(set(ends)) == len(ends),
+              f"h6 {rid}: sessions ending at {ends}")
+    n_rows = len(H3_TIMES) * ROWS
+    return dict(rules=H6_RULES, rows_per_s=n_rows / wall,
+                rule_rows_per_s=n_rows * H6_RULES / wall,
+                windows=len(h3["sessions"]), rows_checked=rows_checked,
+                max_abs_err=worst, launches=launches,
+                source=(node.last_emit_info or {}).get("source"))
+
+
+def run_phase_h(torch, seed, kernels, mods, plan_rule_group):
+    out = {}
+    for tag, run in (("h1", run_h1), ("h2", run_h2), ("h3", run_h3),
+                     ("h4", run_h4)):
+        t = time.perf_counter()
+        out[tag] = run(torch, seed, kernels, mods)
+        out[tag]["run_s"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["h6"] = run_h6(torch, kernels, plan_rule_group, out["h3"])
+    out["h6"]["run_s"] = time.perf_counter() - t
+    for k in ("sessions", "batches", "idx", "v"):
+        del out["h3"][k]
+    t = time.perf_counter()
+    out.update(run_h5(torch, seed, kernels, plan_rule_group, mods[1]))
+    out["h5_run_s"] = time.perf_counter() - t
+    return out
+
+
+def phase_h_lines(h):
+    f = lambda x, d=3: "n/a" if x is None else f"{x:.{d}f}"  # noqa: E731
+    mr = lambda launches: {k: v for k, v in launches.items()  # noqa: E731
+                           if v}
+    a = h["h1"]
+    yield (f"phase H H1 (config #4, hll over COUNTWINDOW({H1_BATCHES * ROWS})"
+           f", {H1_SLOTS} slots): {a['windows']} windows, distinct keys "
+           f"{a['keys']}, rows/s={a['rows_per_s']:.0f} host encode ms a "
+           f"batch={a['encode_ms']:.3f} delivery_p50_ms="
+           f"{a['delivery_p50']:.3f} delivery_p99_ms={a['delivery_p99']:.3f}"
+           f" source={a['source']} every estimate within ±1 of the register "
+           f"twin (max {a['max_abs_err']}) check_s={a['check_s']:.1f} "
+           f"run_s={a['run_s']:.1f} launches={mr(a['launches'])}")
+    a = h["h2"]
+    yield (f"phase H H2 (COUNTWINDOW({H2_COUNT}), {H2_ROWS}-row batches): "
+           f"{a['windows']} windows (the last the EOF flush), "
+           f"{a['edges_inside']} edges inside a batch, counts and max exact, "
+           f"rows/s={a['rows_per_s']:.0f} source={a['source']} "
+           f"run_s={a['run_s']:.1f} launches={mr(a['launches'])}")
+    a = h["h3"]
+    yield (f"phase H H3 (SESSIONWINDOW(ss, 10, 2), {len(H3_TIMES)} batches):"
+           f" {a['windows']} sessions ({a['by_gap']} by the gap, "
+           f"{a['by_cap']} by the cap) ending at {a['ends']}, each equal to "
+           f"the float64 twin (avg max_abs_err {a['max_abs_err']:.3g}), "
+           f"rows/s={a['rows_per_s']:.0f} run_s={a['run_s']:.1f} "
+           f"launches={mr(a['launches'])}")
+    a = h["h4"]
+    yield (f"phase H H4 (STATEWINDOW(st = 1, st = 0), {H4_BATCHES} batches):"
+           f" {a['windows']} windows ({a['within']} inside one batch, "
+           f"{a['spanning']} across batches), each equal to the float64 twin"
+           f" (avg max_abs_err {a['max_abs_err']:.3g}), rows/s="
+           f"{a['rows_per_s']:.0f} run_s={a['run_s']:.1f} "
+           f"launches={mr(a['launches'])}")
+    for tag in ("h5_hll", "h5_pct"):
+        r = h[tag]
+        yield (group_line(tag, r).replace("phase E", "phase H")
+               + f" wide_fold_kernel_ms_per_batch p50={r['wide_fold_p50']:.4f}"
+               f" one_off={r['off_by_one']} check_s={r['check_s']:.1f}")
+    a = h["h6"]
+    yield (f"phase H H6 (H3's rule as a {a['rules']}-rule session group): "
+           f"{a['windows']} sessions, rows/s={a['rows_per_s']:.0f} "
+           f"rule_rows/s={a['rule_rows_per_s']:.0f} rows_checked="
+           f"{a['rows_checked']} max_abs_err={a['max_abs_err']:.3g} "
+           f"source={a['source']} run_s={a['run_s']:.1f} "
+           f"launches={mr(a['launches'])} (H5 run_s {f(h['h5_run_s'], 1)})")
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4330,6 +5137,8 @@ def main() -> int:
                                    plan_fused_rule, dev))
     rows.update(group_kernel_checks(torch, args.seed, kernels,
                                     plan_rule_group, dev))
+    rows.update(wide_group_kernel_checks(torch, args.seed, kernels, sketches,
+                                         plan_rule_group, dev))
     rows.update(masked_kernel_checks(torch, args.seed, kernels, sketches,
                                      plan_fused_rule, TorchGroupBy, dev))
     rows.update(tier_kernel_checks(torch, args.seed, kernels,
@@ -4458,6 +5267,13 @@ def main() -> int:
         print(line)
     print(f"phase G: wall {time.perf_counter() - t_run:.0f} s")
 
+    # phase H: the count, session and state windows (H1 BASELINE config
+    # #4) and the sketch rule groups, full size
+    h = run_phase_h(torch, args.seed, kernels, mods, plan_rule_group)
+    for line in phase_h_lines(h):
+        print(line)
+    print(f"phase H: wall {time.perf_counter() - t_run:.0f} s")
+
     # phase 5: every kernel launched on each path that uses it
     paths = {"tumbling": counts_t, "hopping": counts_h, "hh": counts_hh,
              "pct": b["pct"]["launches"], "hll": b["hll"]["launches"],
@@ -4467,7 +5283,10 @@ def main() -> int:
              "e1": e["e1"]["launches"], "e2": e["e2_fa"]["launches"],
              "e3": e["e3"]["launches"],
              **{tag: f[tag]["launches"] for tag in f},
-             **{tag: g[tag]["launches"] for tag in ("g1", "g2a", "g2b")}}
+             **{tag: g[tag]["launches"] for tag in ("g1", "g2a", "g2b")},
+             **{tag: h[tag]["launches"] for tag in ("h1", "h2", "h3", "h4",
+                                                    "h5_hll", "h5_pct",
+                                                    "h6")}}
     for name, used_by in PATHS.items():
         for path in used_by:
             check(paths[path][name] > 0,
@@ -4496,7 +5315,9 @@ def main() -> int:
                 "groupby_fold_masked_scalar": "groupby_fold_masked_scalar",
                 "groupby_fold_masked_wide": "groupby_fold_masked_wide",
                 "tier_demote": "tier_demote/g1",
-                "tier_promote": "tier_promote/g2"}
+                "tier_promote": "tier_promote/g2",
+                "multirule_fold_wide": "multirule_fold_wide/hll",
+                "multirule_finalize_wide": "multirule_finalize_wide/hll"}
     main_path = {"groupby_fold_wide": "hh", "groupby_finalize_wide": "pct",
                  "groupby_hh_finalize": "hh", "groupby_components": "c1",
                  "groupby_absorb": "c1_host", "ring_advance": "d1",
@@ -4505,7 +5326,9 @@ def main() -> int:
                  "multirule_reset_pane": "e1",
                  "groupby_fold_masked_scalar": "f2",
                  "groupby_fold_masked_wide": "f1",
-                 "tier_demote": "g1", "tier_promote": "g2a"}
+                 "tier_demote": "g1", "tier_promote": "g2a",
+                 "multirule_fold_wide": "h5_hll",
+                 "multirule_finalize_wide": "h5_hll"}
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name],
@@ -4542,7 +5365,14 @@ def main() -> int:
         for tag in ("g1", "g2", "hll", "pct"):
             if f"{name}/{tag}" != main_row[name]:
                 table["kernels"][i][f"{tag}_state"] = rows[f"{name}/{tag}"]
-    check(len(table["kernels"]) == 18, "kernel table")
+    # the sketch groups: the percentile family's runs, and the pane reset
+    # over wide state
+    for i, name in ((18, "multirule_fold_wide"),
+                    (19, "multirule_finalize_wide")):
+        table["kernels"][i]["pct_family"] = rows[f"{name}/pct"]
+    table["kernels"][13]["hll_family"] = rows["multirule_reset_pane/hll"]
+    table["kernels"][13]["pct_family"] = rows["multirule_reset_pane/pct"]
+    check(len(table["kernels"]) == 20, "kernel table")
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

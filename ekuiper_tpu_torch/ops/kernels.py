@@ -2,7 +2,7 @@
 wrappers that launch them, their plain PyTorch versions and their launch
 counts.
 
-Eighteen kernels, written by hand in CUDA C++ for Hopper, each replacing
+Twenty kernels, written by hand in CUDA C++ for Hopper, each replacing
 one device program of the reference (ekuiper_tpu/ops/groupby.py,
 ekuiper_tpu/ops/slidingring.py, ekuiper_tpu/parallel/multirule.py and
 ekuiper_tpu/ops/tierstore.py). Four in
@@ -106,10 +106,11 @@ every component:
   pre-issue. Bound: reading the partials and the slices and writing the
   result (0.12 ms for the percentile rule).
 
-And three in ekuiper_tpu_torch/csrc/multirule.cu, for a rule group (N
+And five in ekuiper_tpu_torch/csrc/multirule.cu, for a rule group (N
 homogeneous rules on a leading rule axis, parallel/multirule.py), each
 ONE launch for every rule of the group, with the per-row and per-slot code
-of the single-rule kernels (csrc/groupby_common.cuh):
+of the single-rule kernels (csrc/groupby_common.cuh,
+csrc/sketch_common.cuh):
 
 - `multirule_fold` replaces `BatchedGroupBy._batched_fold_impl`
   (multirule.py:196), the vmap of #1 with each rule's WHERE parameters
@@ -117,11 +118,23 @@ of the single-rule kernels (csrc/groupby_common.cuh):
   (R, P, C, k). Bound: 17.6 MB of inputs at the 256-rule group (5.3 µs),
   but ~33M scattered atomics a batch into 67 MB of state, which set its
   time.
+- `multirule_fold_wide` replaces the hll / hist branches of the same vmap
+  (groupby.py:421-432): each row's register and rho, or its bin, computed
+  once and applied to every rule whose row mask keeps the row, into
+  (R, P, C, k, W). Bit-equal to its plain version (max is order-free,
+  counts stay below 2^24). Bound: its inputs once, then one scattered
+  atomic per (rule, passing row, sketch column) into GBs of state.
 - `multirule_finalize` replaces `_batched_finalize_impl` (multirule.py:210)
   and the key cut of `finalize_begin`: every rule's pane merge and final
   values into a fresh (R, S+1, K) result, K the columns the host takes.
+- `multirule_finalize_wide` replaces that vmap's hll and percentile_approx
+  final values (groupby.py:510-519): one block per (rule, key) writes
+  their rows of multirule_finalize's result. Bound: reading each live
+  (rule, pane, key) register or bin run once.
 - `multirule_reset_pane` replaces `_batched_reset_impl` (multirule.py:256):
-  pane p of every rule and component to its identity.
+  pane p of every rule and component to its identity, the wide ones too
+  (64-bit lengths: a hopping percentile group of 63 rules holds 2.1e9
+  floats).
 
 And two in ekuiper_tpu_torch/csrc/tierstore.cu, for the tiered key state
 (ops/tierstore.py), over a packed row layout: each component's per-pane
@@ -168,6 +181,7 @@ SOURCES = {"groupby": _PKG / "csrc" / "groupby.cu",
            "tierstore": _PKG / "csrc" / "tierstore.cu"}
 #: headers the sources include (part of every library's build tag)
 HEADERS = (_PKG / "csrc" / "groupby_common.cuh",
+           _PKG / "csrc" / "sketch_common.cuh",
            _PKG / "csrc" / "slot_type.cuh")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -226,7 +240,9 @@ LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0,
                             "ring_flip": 0,
                             "ring_query": 0,
                             "multirule_fold": 0,
+                            "multirule_fold_wide": 0,
                             "multirule_finalize": 0,
+                            "multirule_finalize_wide": 0,
                             "multirule_reset_pane": 0,
                             "tier_demote": 0,
                             "tier_promote": 0}
@@ -349,6 +365,10 @@ def _load():
                                           P, P, P, P]
             mr.multirule_finalize.argtypes = [P, P, P, P, I, I, I, I, P, I,
                                               I, P, P]
+            mr.multirule_fold_wide.argtypes = [P, P, P, P, I, I, I, I, I, P,
+                                               I, P, P, P, P]
+            mr.multirule_finalize_wide.argtypes = [P, P, P, I, I, I, I, P, P,
+                                                   I, P, L, I, P, P]
             mr.multirule_reset_pane.argtypes = [P, P, P, I, I, I, I, P]
             ts = ctypes.CDLL(str(paths["tierstore"]))
             ts.tier_demote.argtypes = [P, P, P, P, I, I, I, P, I, I, P, P, P]
@@ -364,7 +384,9 @@ def _load():
                              (pf, ("groupby_components", "groupby_absorb")),
                              (sr, ("ring_advance", "ring_flip",
                                    "ring_query")),
-                             (mr, ("multirule_fold", "multirule_finalize",
+                             (mr, ("multirule_fold", "multirule_fold_wide",
+                                   "multirule_finalize",
+                                   "multirule_finalize_wide",
                                    "multirule_reset_pane")),
                              (ts, ("tier_demote", "tier_promote"))):
                 for fn in fns:
@@ -1330,8 +1352,10 @@ def ring_query_plain(ring, state, comps, body_on, f_on, f_idx, adj_slots,
 # ------------------------------------------------------------- rule group
 def _rule_table(name: str, state: Dict[str, torch.Tensor]):
     """(rules, panes, slots, pointer array, width array) of a rule group's
-    state (act (R, P, C), each scalar component (R, P, C, K)), checked;
-    the pointers are rule 0's, the kernels add each rule's offset."""
+    scalar components (act (R, P, C), each scalar component (R, P, C, K)),
+    the whole state checked (hll and hist (R, P, C, K, W) too; heavy
+    hitters and touch have no batched kernel); the pointers are rule 0's,
+    the kernels add each rule's offset."""
     act = state["act"]
     if act.dim() != 3:
         raise ValueError(f"{name}: act of shape {tuple(act.shape)}, want "
@@ -1340,10 +1364,16 @@ def _rule_table(name: str, state: Dict[str, torch.Tensor]):
     _check(name, act, torch.float32, (NR, P, C), act.device)
     if NR > MAX_RULES:
         raise ValueError(f"{name}: {NR} rules (max {MAX_RULES})")
-    other = sorted(set(state) - set(COMP_IDS) - {"act"})
+    other = sorted(set(state) - set(COMP_IDS) - set(RULE_WIDE) - {"act"})
     if other:
         raise ValueError(f"{name}: components {other} have no batched "
                          "kernel")
+    for comp in RULE_WIDE:
+        arr = state.get(comp)
+        if arr is not None:
+            _check(name, arr, torch.float32,
+                   (NR, P, C, arr.shape[3] if arr.dim() == 5 else -1,
+                    WIDE_W[comp]), act.device)
     ptrs = np.zeros(len(COMP_IDS), dtype=np.uint64)
     ks = np.zeros(len(COMP_IDS), dtype=np.int32)
     for comp, j in COMP_IDS.items():
@@ -1358,6 +1388,24 @@ def _rule_table(name: str, state: Dict[str, torch.Tensor]):
     return NR, P, C, ptrs, ks
 
 
+#: the wide components a rule group batches (the reference refuses
+#: heavy_hitters groups, parallel/multirule.py:117)
+RULE_WIDE = ("hll", "hist")
+
+
+def _rule_wide_table(state: Dict[str, torch.Tensor]):
+    """(pointer array, K array) of a rule group's wide components, rule
+    0's blocks, already checked by _rule_table."""
+    ptrs = np.zeros(len(WIDE_IDS), dtype=np.uint64)
+    ks = np.zeros(len(WIDE_IDS), dtype=np.int32)
+    for comp in RULE_WIDE:
+        arr = state.get(comp)
+        if arr is not None:
+            ptrs[WIDE_IDS[comp]] = arr.data_ptr()
+            ks[WIDE_IDS[comp]] = arr.shape[3]
+    return ptrs, ks
+
+
 def multirule_fold(state: Dict[str, torch.Tensor], base: torch.Tensor,
                    V: torch.Tensor, M: torch.Tensor, slots: torch.Tensor,
                    pane: int, colmap: np.ndarray) -> None:
@@ -1368,7 +1416,8 @@ def multirule_fold(state: Dict[str, torch.Tensor], base: torch.Tensor,
     base: bool (R, n), each rule's row mask after its WHERE. V: float32
     (S, n) spec values and M: bool (S, n) spec masks (validity, not-NaN,
     FILTER: the same for every rule, without the row mask). slots: int32
-    (n,). colmap: int32 (ncols, 3) of (COMP_IDS[comp], k, spec).
+    (n,). colmap: int32 (ncols, 3) of (COMP_IDS[comp], k, spec). The wide
+    components are multirule_fold_wide's.
     """
     name = "multirule_fold"
     if not _on_cuda(name, state):
@@ -1409,6 +1458,69 @@ def multirule_fold_plain(state, base, V, M, slots, pane, colmap) -> None:
                         (M[:, None, :] & rows[None]).reshape(S, -1), colmap)
 
 
+def multirule_fold_wide(state: Dict[str, torch.Tensor], base: torch.Tensor,
+                        V: torch.Tensor, M: torch.Tensor, slots: torch.Tensor,
+                        pane: int, widemap: np.ndarray) -> None:
+    """Fold one micro-batch into every rule's hll and hist components, in
+    place, in one launch: rule r takes the rows of base[r]. base, V, M,
+    slots, pane: as multirule_fold. widemap: int32 (ncols, 3) of
+    (WIDE_IDS[comp], k, spec), hll and hist columns only."""
+    name = "multirule_fold_wide"
+    widemap = np.ascontiguousarray(widemap, dtype=np.int32).reshape(-1, 3)
+    if (widemap[:, 0] == WIDE_IDS["hh"]).any():
+        raise ValueError(f"{name}: heavy_hitters does not batch")
+    if not _on_cuda(name, state):
+        multirule_fold_wide_plain(state, base, V, M, slots, pane, widemap)
+        return
+    NR, P, C, _, _ = _rule_table(name, state)
+    ptrs, ks = _rule_wide_table(state)
+    dev = state["act"].device
+    S, n = V.shape
+    _check(name, base, torch.bool, (NR, n), dev)
+    widemap = _check_batch(name, V, M, slots, pane, P, widemap, dev,
+                           slot_dtypes=(torch.int32,))
+    for comp_id, k, _ in widemap.tolist():
+        if not 0 <= k < ks[comp_id]:
+            raise ValueError(f"{name}: column {k} outside component "
+                             f"{_WIDE_NAMES[comp_id]}")
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.multirule.multirule_fold_wide(
+            _ptr(base), _ptr(V), _ptr(M), _ptr(slots), n, NR, int(pane), P,
+            C, _ptr(widemap), len(widemap), _ptr(ptrs), _ptr(ks),
+            _ptr(HIST_CONSTS), _stream(dev))
+        LAUNCHES[name] += 1
+    _raise_on(lib, name, rc)
+
+
+def multirule_fold_wide_plain(state, base, V, M, slots, pane,
+                              widemap) -> None:
+    """Plain PyTorch version of multirule_fold_wide: each row's register
+    and rho (or bin) once, scattered over a rule-offset flat index
+    (r, pane, slot, k, register) for the rules that keep the row."""
+    NR, P, C = state["act"].shape
+    slots = slots.long()
+    ok = (slots >= 0) & (slots < C)
+    rule = torch.arange(NR, device=slots.device)[:, None]
+    rp = (rule * P + pane) * C + slots.clamp(0, C - 1)[None, :]  # (NR, n)
+    for comp_id, k, s in np.asarray(widemap).reshape(-1, 3).tolist():
+        comp = _WIDE_NAMES[comp_id]
+        arr = state[comp]
+        K, W = arr.shape[3], arr.shape[4]
+        keep = base & (M[s] & ok)[None, :]
+        flat = arr.view(-1)
+        if comp == "hll":
+            reg, rho = sketches.hll_parts(V[s])
+            idx = (rp * K + k) * W + reg[None, :]
+            flat.scatter_reduce_(0, idx[keep], rho.expand(NR, -1)[keep],
+                                 "amax", include_self=True)
+        else:
+            idx = (rp * K + k) * W + sketches.hist_bin(V[s])[None, :]
+            flat.index_put_((idx[keep],),
+                            torch.ones_like(idx[keep], dtype=arr.dtype),
+                            accumulate=True)
+
+
 def multirule_finalize(state: Dict[str, torch.Tensor],
                        pane_mask: torch.Tensor, spectab: np.ndarray,
                        n_cols: int, rows: Optional[int] = None
@@ -1417,7 +1529,8 @@ def multirule_finalize(state: Dict[str, torch.Tensor],
     by `pane_mask` (bool (P,)) and compute each scalar spec's final value
     (spectab as groupby_finalize_scalar's) for slots [0, n_cols). Returns
     a fresh float32 (R, rows, n_cols) on the state's device (rows defaults
-    to S + 1), each rule's act in its last row."""
+    to S + 1), each rule's act in its last row; the rows of the hll and
+    percentile_approx specs are multirule_finalize_wide's to write."""
     name = "multirule_finalize"
     spectab = np.ascontiguousarray(spectab, dtype=np.int32).reshape(
         -1, 2 + len(COMP_IDS))
@@ -1434,8 +1547,8 @@ def multirule_finalize(state: Dict[str, torch.Tensor],
         raise ValueError(f"{name}: {n_cols} columns of {C} slots")
     if S > MAX_SPECS:
         raise ValueError(f"{name}: {S} specs (max {MAX_SPECS})")
-    if len(spectab) and spectab[:, 0].max() > SCALAR_KINDS_MAX:
-        raise ValueError(f"{name}: sketch kinds have no batched final value")
+    if (spectab[:, 0] == KIND_IDS["heavy_hitters"]).any():
+        raise ValueError(f"{name}: heavy_hitters has no batched final value")
     _check_spectab(name, spectab, rows, ks)
     out = torch.empty((NR, rows, n_cols), dtype=torch.float32, device=dev)
     lib = _load()
@@ -1454,6 +1567,65 @@ def multirule_finalize_plain(state, pane_mask, spectab, n_cols,
     finalize behind the rule axis, on slots [0, n_cols)."""
     cut = {comp: arr[:, :, :n_cols] for comp, arr in state.items()}
     return _finalize_plain(cut, pane_mask, spectab, rows, 1)
+
+
+def multirule_finalize_wide(state: Dict[str, torch.Tensor],
+                            pane_mask: torch.Tensor, widetab: np.ndarray,
+                            fracs: np.ndarray, out: torch.Tensor) -> None:
+    """Every rule's hll and percentile_approx final values in one launch:
+    pane-merge the hll / hist components under `pane_mask` and write the
+    specs' rows of `out` (float32 (R, rows, n_cols), from
+    multirule_finalize) for slots [0, n_cols). widetab, fracs: as
+    groupby_finalize_wide's."""
+    name = "multirule_finalize_wide"
+    widetab = np.ascontiguousarray(widetab, dtype=np.int32).reshape(-1, 3)
+    fracs = np.ascontiguousarray(fracs, dtype=np.float32).reshape(-1)
+    if not _on_cuda(name, state):
+        multirule_finalize_wide_plain(state, pane_mask, widetab, fracs, out)
+        return
+    NR, P, C, _, _ = _rule_table(name, state)
+    ptrs, ks = _rule_wide_table(state)
+    dev = state["act"].device
+    _check(name, pane_mask, torch.bool, (P,), dev)
+    rows, n_cols = out.shape[1], out.shape[2]
+    _check(name, out, torch.float32, (NR, rows, n_cols), dev)
+    if not 0 <= n_cols <= C:
+        raise ValueError(f"{name}: {n_cols} columns of {C} slots")
+    n = len(widetab)
+    if n > MAX_SPECS or len(fracs) != n:
+        raise ValueError(f"{name}: {n} specs, {len(fracs)} fractions "
+                         f"(max {MAX_SPECS})")
+    comp_of = {WIDE_KIND_IDS["hll"]: WIDE_IDS["hll"],
+               WIDE_KIND_IDS["percentile_approx"]: WIDE_IDS["hist"]}
+    for kind, k, row in widetab.tolist():
+        if kind not in comp_of or not 0 <= k < ks[comp_of[kind]]:
+            raise ValueError(f"{name}: spec ({kind}, {k}) has no column")
+        if not 0 <= row < rows - 1:
+            raise ValueError(f"{name}: output row {row} outside the result")
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.multirule.multirule_finalize_wide(
+            _ptr(ptrs), _ptr(ks), _ptr(pane_mask), NR, P, C, int(n_cols),
+            _ptr(widetab), _ptr(fracs), n, _ptr(HIST_CONSTS), HLL_NUM, rows,
+            _ptr(out), _stream(dev))
+        LAUNCHES[name] += 1
+    _raise_on(lib, name, rc)
+
+
+def multirule_finalize_wide_plain(state, pane_mask, widetab, fracs,
+                                  out) -> None:
+    """Plain PyTorch version of multirule_finalize_wide: the single-rule
+    plain final values behind the rule axis, on slots [0, n_cols)."""
+    kinds = {v: k for k, v in WIDE_KIND_IDS.items()}
+    n_cols = out.shape[2]
+    for (kind, k, row), frac in zip(np.asarray(widetab).reshape(-1, 3)
+                                    .tolist(), np.asarray(fracs).tolist()):
+        kind = kinds[kind]
+        comp = "hll" if kind == "hll" else "hist"
+        merged = _merged_plain(state[comp][:, :, :n_cols, k], comp,
+                               pane_mask, 1)
+        out[:, row] = final_value_plain(kind, {comp: merged},
+                                        float(np.float32(frac)))
 
 
 def multirule_reset_pane(state: Dict[str, torch.Tensor], pane: int) -> None:

@@ -5,11 +5,12 @@ The upstream fan-out deployment runs 300 rules over one shared stream,
 each rule a pipeline applying its own filter. Rules that differ only in
 the numeric literals of their WHERE canonicalize to one kernel plan whose
 literals become per-rule parameters, and the group-by state gains a
-leading rule axis: {comp: (R, n_panes, capacity, k)}. One key encode, one
-upload and ONE fold launch per batch serve every rule
-(`kernels.multirule_fold`); one finalize launch and one copy per window
-boundary (`kernels.multirule_finalize`); one pane reset
-(`kernels.multirule_reset_pane`).
+leading rule axis: {comp: (R, n_panes, capacity, k[, W])}. One key encode,
+one upload and ONE fold launch per batch serve every rule
+(`kernels.multirule_fold`, and `kernels.multirule_fold_wide` for the
+sketch components hll and hist); one finalize launch (two with sketches:
+`kernels.multirule_finalize`, `kernels.multirule_finalize_wide`) and one
+copy per window boundary; one pane reset (`kernels.multirule_reset_pane`).
 
 Homogeneity contract (`build_rule_batch` validates, as the reference's
 does): identical SELECT fields, window, GROUP BY dims, source, HAVING and
@@ -24,10 +25,8 @@ the rules' values (the reference binds each rule's scalar under vmap; a
 parameter has no validity mask, as the reference's
 `c["__valid_" + name] = None`).
 
-Not batched in the port yet (the planner refuses them with
-NotImplementedError): the wide sketch components (hll,
-percentile_approx), and windows other than processing-time tumbling and
-hopping. heavy_hitters is refused with the reference's message.
+heavy_hitters is refused with the reference's message; per-row panes
+(event-time groups) are not batched in the port yet.
 """
 from __future__ import annotations
 
@@ -143,8 +142,10 @@ def build_rule_batch(
 # ------------------------------------------------------------ batched state
 class BatchedGroupBy(TorchGroupBy):
     """TorchGroupBy with a leading rule axis: state
-    {comp: (R, n_panes, capacity, k)}, act (R, n_panes, capacity), and one
-    launch per fold, finalize and pane reset for all R rules. The key
+    {comp: (R, n_panes, capacity, k)} (hll and hist (R, n_panes, capacity,
+    k, W)), act (R, n_panes, capacity), and one launch per fold, finalize
+    and pane reset for all R rules (a second fold and finalize launch for
+    the sketch components). The key
     table, the batch upload and the spec closures are shared; only the
     WHERE parameters differ along the axis. The fold and the reset work in
     place, as TorchGroupBy's do; a finalize writes a fresh tensor."""
@@ -160,11 +161,6 @@ class BatchedGroupBy(TorchGroupBy):
         self.rule_ids = spec.rule_ids
         super().__init__(spec.plan, capacity=capacity, n_panes=n_panes,
                          micro_batch=micro_batch, device=device)
-        if len(self._widemap) or self._host_finalize_only:
-            raise NotImplementedError(
-                "a rule group with sketch aggregates (hll, "
-                "percentile_approx) needs the batched wide fold and "
-                "finalize, which are not ported yet")
         params = torch.as_tensor(spec.params, dtype=torch.float32,
                                  device=self.device)
         #: each WHERE parameter as an (R, 1) column, bound at every fold
@@ -193,6 +189,9 @@ class BatchedGroupBy(TorchGroupBy):
                 "batched in a rule group")
         base, V, M = self.rule_inputs(cols, n)
         kernels.multirule_fold(state, base, V, M, slots, pane, self._colmap)
+        if len(self._widemap):
+            kernels.multirule_fold_wide(state, base, V, M, slots, pane,
+                                        self._widemap)
 
     # --------------------------------------------------------------- finalize
     def _slice_keys(self, n_keys: int) -> int:
@@ -209,10 +208,16 @@ class BatchedGroupBy(TorchGroupBy):
     def _finalize_rules(self, state: Dict[str, torch.Tensor], n_keys: int,
                         panes: Optional[List[int]] = None) -> torch.Tensor:
         """Launch the stacked finalize: a fresh (R, S+1, K) tensor on the
-        device, K = the rounded key count."""
-        return kernels.multirule_finalize(state, self._pane_mask(panes),
-                                          self._spectab,
-                                          self._slice_keys(n_keys))
+        device, K = the rounded key count; the sketch specs' rows by the
+        wide finalize, into the same tensor."""
+        pm = self._pane_mask(panes)
+        out = kernels.multirule_finalize(state, pm, self._spectab,
+                                         self._slice_keys(n_keys),
+                                         self._rows)
+        if len(self._widetab):
+            kernels.multirule_finalize_wide(state, pm, self._widetab,
+                                            self._fracs, out)
+        return out
 
     def finalize_begin(self, state: Dict[str, torch.Tensor], n_keys: int,
                        panes: Optional[List[int]] = None) -> PendingFinalize:

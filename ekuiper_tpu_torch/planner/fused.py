@@ -31,8 +31,9 @@ def plan_fused_rule(sql: str, key_slots: int = 16384,
                     options: Optional[Mapping[str, object]] = None
                     ) -> FusedWindowAggNode:
     """Plan a `SELECT dims, aggs FROM s GROUP BY dims, TUMBLINGWINDOW(...)`
-    (or HOPPINGWINDOW, or SLIDINGWINDOW(...) OVER (WHEN cond)) rule onto a
-    fused node on `device`.
+    (or HOPPINGWINDOW, SLIDINGWINDOW(...) OVER (WHEN cond), COUNTWINDOW(n),
+    SESSIONWINDOW(unit, length, gap) or STATEWINDOW(begin, emit)) rule
+    onto a fused node on `device`.
 
     The node folds ColumnBatches given to `process` and emits one
     ColumnBatch per window at each boundary: on its own timers once
@@ -41,7 +42,11 @@ def plan_fused_rule(sql: str, key_slots: int = 16384,
     window per trigger row (rows matching `cond`, by their timestamps),
     through its emit worker (`node._drain_async_emits()` waits for it;
     a heavy_hitters rule's refold path emits synchronously);
-    a delayed sliding window fires on the engine clock. `options` takes
+    a delayed sliding window fires on the engine clock. A count window
+    emits at its n-th row (on the emit worker under the default boundary,
+    synchronously with `prefinalizeLeadMs` 0), a state window at its emit
+    row, a session on its gap or length timer (both synchronously).
+    `options` takes
     the rule options `prefinalizeLeadMs` (ms before a boundary at which
     its components fetch is pre-issued; 0 finalizes each boundary
     synchronously), `tailMode` ("device" or "host"), `slidingDevRingMb`
@@ -72,6 +77,7 @@ def plan_fused_rule(sql: str, key_slots: int = 16384,
         raise NotImplementedError(
             "rule does not fold on the device; the host path is not "
             "ported yet")
+    row_window_gate(stmt)
     sliding = stmt.window.window_type == ast.WindowType.SLIDING_WINDOW
     ring_layout = None
     if sliding:
@@ -108,6 +114,38 @@ def plan_fused_rule(sql: str, key_slots: int = 16384,
         dev_ring_budget_mb=opts["slidingDevRingMb"],
         sliding_impl=opts["slidingImpl"], ring_layout=ring_layout,
         tier_budget_mb=tier_budget_mb, tier_scan_ms=opts["tierScanMs"])
+
+
+def row_window_gate(stmt: ast.SelectStatement) -> None:
+    """The reference's device eligibility of the count and state windows
+    (planner.py:297-312, 348-355); a processing-time session window is
+    always eligible. Raises NotImplementedError for the shapes that take
+    the reference's host window path, which is not ported: a count window
+    with an interval (overlapping windows) or a WHERE (its length counts
+    rows past the WHERE there), a state window with a WHERE (a filtered
+    row must not toggle it) or a begin / emit condition that does not
+    compile on the host."""
+    w = stmt.window
+    if w.window_type == ast.WindowType.COUNT_WINDOW:
+        if w.interval:
+            raise NotImplementedError(
+                "COUNTWINDOW with an interval (overlapping count windows) "
+                "runs on the host path, which is not ported yet")
+        if stmt.condition is not None:
+            raise NotImplementedError(
+                "COUNTWINDOW with WHERE counts rows past the WHERE on the "
+                "host path, which is not ported yet")
+    elif w.window_type == ast.WindowType.STATE_WINDOW:
+        if stmt.condition is not None:
+            raise NotImplementedError(
+                "STATEWINDOW with WHERE runs on the host path (a filtered "
+                "row must not toggle the window), which is not ported yet")
+        if try_compile(w.begin_condition) is None or \
+                try_compile(w.emit_condition) is None:
+            raise NotImplementedError(
+                "STATEWINDOW whose begin or emit condition does not compile "
+                "on the host runs on the host path, which is not ported "
+                "yet")
 
 
 def resolve_tier_budget_mb(opts: Mapping[str, object]) -> float:

@@ -6,7 +6,6 @@ from __future__ import annotations
 
 from typing import Mapping, Optional, Sequence
 
-from ..ops.aggspec import WIDE_COMPONENTS
 from ..ops.emit import build_direct_emit
 from ..parallel.multirule import build_rule_batch
 from ..runtime.nodes_multirule import MultiRuleFusedNode
@@ -31,17 +30,25 @@ def plan_rule_group(rule_ids: Sequence[str], sqls: Sequence[str],
     `node.add_rule_output(rule_id, entry)`; a rule's windows (one
     ColumnBatch each, its keys that had rows passing its WHERE) go to its
     entry only. A tumbling group emits on its emit worker
-    (`node._drain_async_emits()` waits for it), a hopping group
-    synchronously at each boundary. `options` is checked as
+    (`node._drain_async_emits()` waits for it); a hopping group at each
+    boundary, and a count, state or session group at its window's edge
+    (as plan_fused_rule's node finds them), synchronously. The group's
+    sketch aggregates (hll, percentile_approx) fold and finalize in one
+    launch each for every rule, as its scalar ones do. `options` is
+    checked as
     plan_fused_rule checks it; a group's boundary takes no pre-issue (the
     reference's), so `prefinalizeLeadMs` and `tailMode` do not change it.
+
+    The reference's group planner applies none of the single-rule
+    window gates (plan_fused_rule's row_window_gate): a count window with
+    a WHERE counts the rows before the WHERE, and a state window's
+    conditions toggle on them, as the reference's group does.
 
     Raises PlanError where the reference's planner does (an empty group,
     more than one source, statements that are not homogeneous or not
     device-eligible, heavy_hitters, a tail that does not vectorize) and
-    NotImplementedError for a group the port does not run yet: sketch
-    aggregates with wide state (hll, percentile_approx) and windows other
-    than processing-time tumbling and hopping.
+    NotImplementedError for a group the port does not run yet: a sliding
+    window.
     """
     dev = resolve_device(device)
     rule_options(options)
@@ -59,17 +66,12 @@ def plan_rule_group(rule_ids: Sequence[str], sqls: Sequence[str],
     except ValueError as exc:
         raise PlanError(str(exc))
     stmt = spec.stmt
-    if stmt.window is None or stmt.window.window_type not in (
-            ast.WindowType.TUMBLING_WINDOW, ast.WindowType.HOPPING_WINDOW):
+    if stmt.window is None or \
+            stmt.window.window_type == ast.WindowType.SLIDING_WINDOW:
         raise NotImplementedError(
-            "a rule group needs a processing-time TUMBLINGWINDOW or "
-            "HOPPINGWINDOW; other windows are not ported for groups yet")
-    wide = sorted({c for s in spec.plan.specs for c in s.components
-                   if c in WIDE_COMPONENTS})
-    if wide:
-        raise NotImplementedError(
-            f"a rule group with wide sketch state ({', '.join(wide)}) needs "
-            "the batched wide fold and finalize, which are not ported yet")
+            "a rule group needs a processing-time TUMBLINGWINDOW, "
+            "HOPPINGWINDOW, COUNTWINDOW, SESSIONWINDOW or STATEWINDOW; "
+            "sliding groups are not ported")
     dims = [d.expr for d in stmt.dimensions]
     direct = build_direct_emit(stmt, spec.plan, [d.name for d in dims])
     if direct is None:

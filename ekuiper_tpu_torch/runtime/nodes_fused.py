@@ -1,6 +1,6 @@
 """Fused window→GROUP BY→aggregate node (counterpart of
 ekuiper_tpu/runtime/nodes_fused.py `FusedWindowAggNode`, processing-time
-TUMBLING, HOPPING and SLIDING windows).
+TUMBLING, HOPPING, SLIDING, COUNT, SESSION and STATE windows).
 
 Per micro-batch: encode GROUP BY keys to slots (host dictionary), upload
 the kernel's columns and fold them into the device partials
@@ -30,8 +30,8 @@ node is opened on the engine clock (`on_open` arms the timers):
 
 A boundary with no pre-issue (lead 0, or a node driven by hand without
 pre-triggers) finalizes synchronously on the device, after any deferred
-delivery before it: the reference hands that case to its worker as a
-"count" delivery, a kind that waits for the count-window slice.
+delivery before it (the reference hands that case to its worker as a
+"count" delivery; the port's "count" deliveries are the count window's).
 `last_emit_info["source"]` says which route served each boundary.
 
 The sketch aggregates fold through derived columns built here per batch:
@@ -77,9 +77,30 @@ scans run on the emit worker (`"tier"` tasks). Slots recycle between a
 deferred delivery's dispatch and its emit, so each delivery carries the
 slot→key list of its dispatch.
 
-Not ported yet, and refused at construction: session, count and state
-windows, event time, tiered sliding rules (the reference demotes their
-quiescent keys only) and the mesh.
+COUNT, STATE and SESSION windows fold into one pane and emit on their
+own edges, not on the clock's boundaries, as the reference's do:
+
+- `COUNTWINDOW(n)`: a batch is folded up to the window's n-th row, the
+  window emits and its pane resets, and the rest of the batch folds into
+  the next window. Under the default boundary (`prefinalize_lead_ms` >
+  0) the finalize is launched on the state as it stands and the emit
+  worker delivers it (`"count"` deliveries, source `"device-async"`)
+  while the fold thread resets the pane and goes on; with lead 0 the
+  window emits synchronously.
+- `STATEWINDOW(begin, emit)`: both conditions are evaluated on the host
+  over the batch's columns (a batch without a column they read gives
+  all-false); a begin row opens the window, the rows up to and including
+  the next emit row fold into it (the opening row cannot close it), and
+  the window emits synchronously and resets.
+- `SESSIONWINDOW(unit, length, gap)`: every batch extends the session
+  (one per stream, as the reference's); one gap timer re-arms itself
+  against the last batch's time and the length timer caps the session.
+  Each trigger carries its session's id (and the gap check its arm
+  generation), so a trigger of a closed session or a superseded gap
+  check does nothing.
+
+Not ported yet, and refused at construction: event time, tiered sliding
+rules (the reference demotes their quiescent keys only) and the mesh.
 """
 from __future__ import annotations
 
@@ -180,8 +201,10 @@ class FusedWindowAggNode(Node):
             self._init_sliding(window, plan, capacity, dev_ring_budget_mb,
                                sliding_impl, ring_layout)
         else:
-            raise NotImplementedError(
-                f"{self.wt.name} windows are not ported yet")
+            # count, state and session windows: one pane, reset at each
+            # emission (their edges are rows and timers, not buckets)
+            self.n_panes = 1
+            self._init_row_windows(window)
         # heavy_hitters: per-column reversible dictionaries (codes -> values)
         # + the spec index -> raw column map for emit-time decoding. The hh
         # component is wide (sketches.HH_SIZE floats/key), so start small and
@@ -201,7 +224,9 @@ class FusedWindowAggNode(Node):
         # growth past it stays possible, the recycler works to avoid it.
         self.tier: Optional[TierManager] = None
         self._tier_layout = None
-        if tier_budget_mb and not self._hh_cols:
+        if tier_budget_mb and not self._hh_cols and self.wt in (
+                ast.WindowType.TUMBLING_WINDOW, ast.WindowType.HOPPING_WINDOW,
+                ast.WindowType.SLIDING_WINDOW):
             self._tier_layout = plan_tier_layout(
                 plan, int(self.n_panes), capacity, float(tier_budget_mb),
                 scan_interval_ms=int(tier_scan_ms),
@@ -227,7 +252,9 @@ class FusedWindowAggNode(Node):
             self._tier_layout = None  # a group-by without a touch column
         self.state: Optional[Dict[str, torch.Tensor]] = None
         self.cur_pane = 0
-        self._rows_in_window = 0  # count windows: kept for the snapshot format
+        # count window: its length in rows, and the rows of the open window
+        self.count_len = window.length or 0
+        self._rows_in_window = 0
         self._spec_keys = [_call_key(s.call) for s in plan.specs]
         self._dtypes_seen = False
         # timers, armed by on_open: the boundary and its pre-triggers
@@ -239,7 +266,8 @@ class FusedWindowAggNode(Node):
         self._pipeline: list = []
         self.prefinalize_lead_ms = int(prefinalize_lead_ms)
         self._prefinalize_ok = (
-            self.wt != ast.WindowType.SLIDING_WINDOW  # no boundary timers
+            self.wt in (ast.WindowType.TUMBLING_WINDOW,  # boundary timers
+                        ast.WindowType.HOPPING_WINDOW)
             and self.prefinalize_lead_ms > 0
             and self.gb.supports_prefinalize
             and plan.host_foldable
@@ -279,6 +307,13 @@ class FusedWindowAggNode(Node):
         # to the worker instead of stalling the folds
         self._emit_late_async = (self.gb.supports_prefinalize
                                  and not self._hh_cols)
+        # a count window's emission: the finalize is launched on the state
+        # as it stands and the worker delivers it (`"count"`), while the
+        # fold thread resets the pane and folds the rest of the batch
+        self._async_count = (self.wt == ast.WindowType.COUNT_WINDOW
+                             and self.gb.supports_prefinalize
+                             and not self._hh_cols
+                             and self.prefinalize_lead_ms > 0)
         # a rule group's tumbling boundaries emit on the worker (set by
         # runtime/nodes_multirule.py MultiRuleFusedNode)
         self._async_mr = False
@@ -321,14 +356,27 @@ class FusedWindowAggNode(Node):
         if item.n == 0:
             return
         with self._lock:
-            self._fold(item)
+            if self.wt == ast.WindowType.COUNT_WINDOW:
+                self._fold_count_window(item)
+            elif self.wt == ast.WindowType.STATE_WINDOW:
+                self._fold_state_window(item)
+            else:
+                self._fold(item)
+                if self.wt == ast.WindowType.SESSION_WINDOW:
+                    self._touch_session()
 
-    def _fold(self, batch: ColumnBatch) -> int:
-        """Fold the batch into the current pane (a sliding window: into
-        its rows' time panes); returns rows folded."""
+    def _fold(self, batch: ColumnBatch, start: int = 0,
+              end: Optional[int] = None) -> int:
+        """Fold rows [start, end) of the batch into the current pane (a
+        sliding window: into its rows' time panes); returns rows folded."""
+        end = batch.n if end is None else end
+        if end <= start:
+            return 0
+        sub = (batch if start == 0 and end == batch.n
+               else batch.take(np.arange(start, end)))
         if self.wt == ast.WindowType.SLIDING_WINDOW:
-            return self._fold_sliding(batch)
-        return self._fold_rows(batch, self.cur_pane)
+            return self._fold_sliding(sub)
+        return self._fold_rows(sub, self.cur_pane)
 
     def _build_kernel_inputs(self, sub: ColumnBatch, frozen: bool = False):
         """Encode group keys + materialize the kernel's numeric columns and
@@ -437,14 +485,17 @@ class FusedWindowAggNode(Node):
             if self.state is None:  # keep checkpoint-restored partials
                 self.state = self.gb.init_state()
             self._opened = True
-            if self.wt != ast.WindowType.SLIDING_WINDOW:
+            if self.wt in (ast.WindowType.TUMBLING_WINDOW,
+                           ast.WindowType.HOPPING_WINDOW):
                 self._schedule_next_tick()
 
     def on_close(self) -> None:
         with self._lock:
             self._opened = False
             for t in [self._timer, *self._pre_timers,
-                      *getattr(self, "_slide_timers", {}).values()]:
+                      *getattr(self, "_slide_timers", {}).values(),
+                      getattr(self, "_gap_timer", None),
+                      getattr(self, "_cap_timer", None)]:
                 if t is not None:
                     t.stop()
         self._drain_async_emits()
@@ -508,6 +559,11 @@ class FusedWindowAggNode(Node):
                 self._slide_timers.pop(trig.tag[1], None)
                 self._emit_sliding(trig.tag[1])
             return
+        if self.wt == ast.WindowType.SESSION_WINDOW:
+            if isinstance(trig.tag, tuple) and trig.tag[0] in (
+                    "session_gap", "session_cap"):
+                self._on_session_trigger(trig)
+            return
         end = trig.ts
         wr = WindowRange(end - self.length_ms, end)
         if self._async_hh:
@@ -550,11 +606,16 @@ class FusedWindowAggNode(Node):
 
     def on_eof(self, eof: EOF) -> None:
         """Flush the open window (through its pre-issues, if any) and
-        forward the EOF. A sliding window emits only on trigger rows: its
-        deliveries in flight land first."""
+        forward the EOF, after the deliveries in flight. A sliding window
+        emits only on trigger rows; an open session closes now."""
         now = timex.now_ms()
         self._drain_async_emits()
         if self.wt == ast.WindowType.SLIDING_WINDOW:
+            self.broadcast(eof)
+            return
+        if self.wt == ast.WindowType.SESSION_WINDOW:
+            if self._session_open:
+                self._close_session(now)
             self.broadcast(eof)
             return
         wr = WindowRange(now - self.length_ms, now)
@@ -686,8 +747,9 @@ class FusedWindowAggNode(Node):
                     finally:  # the rules' columns may view the pinned buffer
                         payload.release()
                     continue
-                # "hh" (the compact finalize) and "refold" (a sliding
-                # trigger's pane-mask finalize): assembled here
+                # "hh" (the compact finalize), "refold" (a sliding
+                # trigger's pane-mask finalize) and "count" (a count
+                # window's finalize): assembled here
                 try:
                     outs, act = self.gb.host_tail(payload.get(), n_keys)
                     self.last_emit_info = {
@@ -908,6 +970,160 @@ class FusedWindowAggNode(Node):
         if msgs:
             # always a list of message dicts, never a bare dict
             self.emit(msgs, count=len(msgs))
+
+    # ------------------------------------------------- count, state, session
+    def _init_row_windows(self, window: ast.Window) -> None:
+        """The state window's host conditions and the session's timers and
+        bookkeeping (the reference's constructor, nodes_fused.py:221-259)."""
+        if self.wt == ast.WindowType.STATE_WINDOW:
+            self._begin_host = try_compile(window.begin_condition)
+            self._emitc_host = try_compile(window.emit_condition)
+            if self._begin_host is None or self._emitc_host is None:
+                raise ValueError(
+                    "state device path needs vectorizable begin/emit "
+                    "conditions (the host path handles the rest)")
+            self._state_open = False
+        if self.wt == ast.WindowType.SESSION_WINDOW:
+            self.gap_ms = self.interval_ms or self.length_ms
+            self._session_open = False
+            self._session_start = 0
+            self._last_row_ms = 0
+            # gap and cap triggers carry the session id they were armed
+            # for; a trigger of a session that has closed does nothing
+            self._session_id = 0
+            self._gap_timer = None
+            self._gap_gen = 0  # arm generation: one live gap check at a time
+            self._cap_timer = None
+
+    def _fold_count_window(self, batch: ColumnBatch) -> None:
+        """Fold the batch up to the window's last row, emit and reset at
+        the edge, go on with the rest in the next window."""
+        pos = 0
+        while pos < batch.n:
+            take = min(self.count_len - self._rows_in_window, batch.n - pos)
+            self._fold(batch, pos, pos + take)
+            self._rows_in_window += take
+            pos += take
+            if self._rows_in_window >= self.count_len:
+                wr = WindowRange(0, timex.now_ms())
+                if self._async_count:
+                    self._emit_count_async(wr)
+                else:
+                    self._emit(wr)
+                self.state = self.gb.reset_pane(self.state, 0)
+                self._rows_in_window = 0
+
+    def _emit_count_async(self, wr: WindowRange) -> None:
+        """Launch the finalize on the state as it stands, start its copy,
+        and hand the delivery to the worker; the caller resets the pane
+        right after (the result is a fresh tensor, copied after an event,
+        so the reset cannot reach it)."""
+        if self.kt.n_keys == 0:
+            self.last_emit_info = None
+            return
+        self._enqueue("count", self.gb.finalize_begin(self.state), wr)
+
+    def _fold_state_window(self, batch: ColumnBatch) -> None:
+        """Walk the batch's begin and emit rows (both masks in one
+        vectorized pass over the host columns); fold only the open spans,
+        emit and reset at each emit row. The emit row is inclusive, and
+        the row that opens the window cannot close it (the reference's
+        host row path)."""
+        begin_m = _host_mask(self._begin_host, batch.columns, batch.n)
+        emit_m = _host_mask(self._emitc_host, batch.columns, batch.n)
+        pos = 0
+        while pos < batch.n:
+            scan_from = pos
+            if not self._state_open:
+                opens = np.nonzero(begin_m[pos:])[0]
+                if not len(opens):
+                    return  # closed, and no begin row in the rest
+                pos += int(opens[0])
+                self._state_open = True
+                scan_from = pos + 1
+            closes = np.nonzero(emit_m[scan_from:])[0]
+            if not len(closes):
+                self._fold(batch, pos, batch.n)
+                return  # the window stays open across batches
+            end = scan_from + int(closes[0]) + 1
+            self._fold(batch, pos, end)
+            self._emit(WindowRange(0, timex.now_ms()))
+            self.state = self.gb.reset_pane(self.state, 0)
+            self._state_open = False
+            pos = end
+
+    def _touch_session(self) -> None:
+        """A batch arrived: open the session if closed (arming the length
+        cap) and note the last row's time. ONE gap check per session,
+        re-armed against that time, not a timer per batch."""
+        now = timex.now_ms()
+        if not self._session_open:
+            self._session_open = True
+            self._session_start = now
+            self._session_id += 1
+            if self.length_ms > 0:
+                sid = self._session_id
+                self._cap_timer = timex.after(
+                    self.length_ms,
+                    lambda ts, _s=sid: self.put_control(
+                        Trigger(ts=ts, tag=("session_cap", _s))))
+        self._last_row_ms = now
+        if (self._gap_timer is None or self._gap_timer.fired
+                or self._gap_timer.stopped):
+            self._arm_gap_check(self.gap_ms)
+
+    def _arm_gap_check(self, delay_ms: int) -> None:
+        """Arm the session's gap check; the generation tag turns a check
+        armed before this one into a no-op."""
+        if self._gap_timer is not None:
+            self._gap_timer.stop()
+        self._gap_gen += 1
+        sid, gen = self._session_id, self._gap_gen
+        self._gap_timer = timex.after(
+            max(delay_ms, 1),
+            lambda ts, _s=sid, _g=gen: self.put_control(
+                Trigger(ts=ts, tag=("session_gap", _s, _g))))
+
+    def _on_session_trigger(self, trig: Trigger) -> None:
+        kind, sid = trig.tag[0], trig.tag[1]
+        if not self._session_open or sid != self._session_id:
+            return  # a trigger of a session that has closed
+        if kind == "session_cap":
+            self._close_session(trig.ts)
+            return
+        if trig.tag[2] != self._gap_gen:
+            return  # a superseded gap check: a newer one is armed
+        # close only after a full gap of quiet; else re-arm for the rest
+        idle = timex.now_ms() - self._last_row_ms
+        if idle >= self.gap_ms:
+            self._close_session(self._last_row_ms + self.gap_ms)
+        else:
+            self._arm_gap_check(self.gap_ms - idle)
+
+    def _touch_session_timers_only(self) -> None:
+        """Arm the gap and the rest of the cap for a session open at a
+        checkpoint (restore): a new session id, so triggers armed before
+        the checkpoint do nothing."""
+        now = timex.now_ms()
+        self._last_row_ms = now
+        self._session_id += 1
+        if self.length_ms > 0:
+            remaining = max(self._session_start + self.length_ms - now, 1)
+            sid = self._session_id
+            self._cap_timer = timex.after(
+                remaining,
+                lambda ts, _s=sid: self.put_control(
+                    Trigger(ts=ts, tag=("session_cap", _s))))
+        self._arm_gap_check(self.gap_ms)
+
+    def _close_session(self, end_ts: int) -> None:
+        self._emit(WindowRange(self._session_start, end_ts))
+        self.state = self.gb.reset_pane(self.state, 0)
+        self._session_open = False
+        for t in (self._gap_timer, self._cap_timer):
+            if t is not None:
+                t.stop()
+        self._gap_timer = self._cap_timer = None
 
     # ----------------------------------------------------------- tiered state
     def _tier_submit(self, payload: tuple) -> None:
@@ -1591,7 +1807,8 @@ class FusedWindowAggNode(Node):
     # ------------------------------------------------------------------ state
     def snapshot_state(self) -> Optional[dict]:
         """The reference's snapshot format (keys, partials, cur_pane,
-        rows_in_window), so a checkpoint crosses between the packages.
+        rows_in_window; an open state window or session), so a checkpoint
+        crosses between the packages.
         Deferred deliveries drain first, and a frozen span's shadow is
         flushed into the state."""
         with self._lock:
@@ -1618,6 +1835,11 @@ class FusedWindowAggNode(Node):
             # the cold tier (the hot one is the partials above, retired
             # slots as None holes in the key list)
             snap["tier"] = self.tier.snapshot()
+        if self.wt == ast.WindowType.SESSION_WINDOW:
+            snap["session_open"] = self._session_open
+            snap["session_start"] = self._session_start
+        if self.wt == ast.WindowType.STATE_WINDOW:
+            snap["state_open"] = self._state_open
         if self.wt == ast.WindowType.SLIDING_WINDOW:
             snap["pane_bucket"] = dict(self._pane_bucket)
             snap["ring_max_bucket"] = self._ring_max_bucket
@@ -1653,6 +1875,15 @@ class FusedWindowAggNode(Node):
             vd = ValueDict()
             vd.restore(values)
             self._hh_dicts[c] = vd
+        if self.wt == ast.WindowType.STATE_WINDOW:
+            self._state_open = bool(state.get("state_open", False))
+        if self.wt == ast.WindowType.SESSION_WINDOW and \
+                state.get("session_open"):
+            # re-open with fresh timers: the restored rows count, and the
+            # gap restarts from the restore
+            self._session_open = True
+            self._session_start = int(state.get("session_start", 0))
+            self._touch_session_timers_only()
         if self.wt == ast.WindowType.SLIDING_WINDOW:
             self._restore_sliding(state)
 

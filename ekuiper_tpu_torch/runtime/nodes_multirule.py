@@ -13,10 +13,14 @@ emit worker (`"mr"` deliveries), so the fold thread resets the pane and
 goes on at once; the finalize writes a fresh tensor and its copy follows
 the side-stream protocol of ops/prefinalize.py, so the reset launched
 next cannot reach it. A hopping group emits synchronously through
-`_emit` (the reference's split: BatchedGroupBy has no pre-issue). A
-checkpoint keeps the reference's format, partials (R, panes, cap, k),
-so it crosses between the packages; the fused node's restore reads the
-capacity through BatchedGroupBy.host_from_partials.
+`_emit` (the reference's split: BatchedGroupBy has no pre-issue), and so
+do count, state and session groups, whose windows the fused node's paths
+cut (a count group counts the stream's rows, before any rule's WHERE, as
+the reference's group does). A checkpoint keeps the reference's format,
+partials (R, panes, cap, k[, W]), so it crosses between the packages;
+the fused node's restore reads the capacity through
+BatchedGroupBy.host_from_partials, and also restores an open state
+window or session (the reference's group restore drops both).
 """
 from __future__ import annotations
 
@@ -42,11 +46,9 @@ class MultiRuleFusedNode(FusedWindowAggNode):
         micro_batch: int = 4096,
         **kw,
     ) -> None:
-        if window.window_type not in (ast.WindowType.TUMBLING_WINDOW,
-                                      ast.WindowType.HOPPING_WINDOW):
+        if window.window_type == ast.WindowType.SLIDING_WINDOW:
             raise NotImplementedError(
-                f"a rule group on a {window.window_type.name} is not "
-                "ported yet (only processing-time tumbling and hopping)")
+                "a rule group on a SLIDING_WINDOW is not ported")
         self.spec = spec  # before super().__init__: _make_gb reads it
         super().__init__(name, window, spec.plan, dims, capacity=capacity,
                          micro_batch=micro_batch, **kw)

@@ -47,6 +47,10 @@ class Timer:
     def stop(self) -> None:
         self.stopped = True
 
+    @property
+    def fired(self) -> bool:
+        return self.fired_at is not None
+
 
 class Clock:
     """Interface. now_ms() is the engine-wide notion of processing time."""

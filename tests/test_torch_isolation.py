@@ -464,6 +464,66 @@ def test_group_wrappers_never_take_the_plain_versions(monkeypatch):
     assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
 
 
+def test_group_wide_wrappers_never_take_the_plain_versions(monkeypatch):
+    """The sketch group's wide fold and finalize wrappers, given CUDA
+    tensors: the launch path fails loudly without a card or nvcc, and no
+    plain version runs; a heavy-hitters column, a pane outside the state,
+    a row mask of another shape and a result of another rule count are
+    refused before any build."""
+    _needs_no_card()
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    taken = []
+    for name in ("multirule_fold_wide_plain",
+                 "multirule_finalize_wide_plain"):
+        monkeypatch.setattr(kernels, name,
+                            lambda *a, _n=name, **k: taken.append(_n))
+    kernels.reset_launches()
+    NR, P, C = 3, 2, 8
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        state = {"hll": torch.zeros((NR, P, C, 1, 256), device="cuda"),
+                 "hist": torch.zeros((NR, P, C, 1, 1024), device="cuda"),
+                 "act": torch.zeros((NR, P, C), device="cuda")}
+        base = torch.ones((NR, 4), dtype=torch.bool, device="cuda")
+        short = torch.ones((NR - 1, 4), dtype=torch.bool, device="cuda")
+        V = torch.ones((2, 4), device="cuda")
+        M = torch.ones((2, 4), dtype=torch.bool, device="cuda")
+        slots = torch.zeros(4, dtype=torch.int32, device="cuda")
+        mask = torch.ones(P, dtype=torch.bool, device="cuda")
+        out = torch.zeros((NR, 3, C), device="cuda")
+        out_short = torch.zeros((NR - 1, 3, C), device="cuda")
+    widemap = kernels.wide_column_map({"hll": [0], "hist": [1]})
+    widetab = np.array([[kernels.WIDE_KIND_IDS["hll"], 0, 0],
+                        [kernels.WIDE_KIND_IDS["percentile_approx"], 0, 1]],
+                       dtype=np.int32)
+    fracs = np.array([0.0, 0.5], dtype=np.float32)
+    calls = [
+        lambda: kernels.multirule_fold_wide(state, base, V, M, slots, 1,
+                                            widemap),
+        lambda: kernels.multirule_finalize_wide(state, mask, widetab, fracs,
+                                                out),
+    ]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # fake data_ptr()
+        for call in calls:
+            with pytest.raises((RuntimeError, AssertionError)):
+                call()
+        with pytest.raises(ValueError):
+            kernels.multirule_fold_wide(
+                state, base, V, M, slots, 0,
+                kernels.wide_column_map({"hh": [0]}))
+        with pytest.raises(ValueError):
+            kernels.multirule_fold_wide(state, base, V, M, slots, P, widemap)
+        with pytest.raises(ValueError):
+            kernels.multirule_fold_wide(state, short, V, M, slots, 0,
+                                        widemap)
+        with pytest.raises(ValueError):
+            kernels.multirule_finalize_wide(state, mask, widetab, fracs,
+                                            out_short)
+    assert taken == []
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
+
+
 REFOLD_SQL = ("SELECT deviceId, heavy_hitters(code, 3) AS top, count(*) AS c "
               "FROM demo GROUP BY deviceId, SLIDINGWINDOW(ss, 10) "
               "OVER (WHEN t > 44.5)")

@@ -24,7 +24,12 @@ order, torch.sum in its own); the folds with a per-row pane vector as
 the folds; a ring query's fetch holds no fold, advance, flip or pane
 reset launched after it. Rule group: the batched fold, finalize (on the
 key cut) and pane reset with the single-rule tolerances; a group
-boundary's fetch holds no fold or pane reset launched after it.
+boundary's fetch holds no fold or pane reset launched after it. Sketch
+groups: the batched wide fold bit-equal to its plain version (max is
+order-free, counts stay below 2^24) and to the single-rule wide fold of
+each rule; the batched wide finalize with the single-rule finalize's
+bounds (hll within ±1, percentile within 4 ulp); the pane reset over
+the wide state bit-equal.
 """
 import numpy as np
 import pytest
@@ -605,6 +610,128 @@ def test_group_fetch_holds_no_later_fold_or_reset(mnode):
     outs, act = gb.host_tail(got, 300)
     assert act.shape == (6, 300) and outs[0].dtype == np.int64
     pending.release()
+
+
+# ------------------------------------------------------ sketch rule group
+WIDE_GROUP_SQL = (
+    "SELECT k, hll(v) AS u, percentile_approx(v, 0.9) AS p, "
+    "stddev(v) AS sd, count(*) AS c FROM s WHERE v > {lo} OR w < {hi} "
+    "GROUP BY k, HOPPINGWINDOW(ss, 10, 5)")
+
+
+@pytest.fixture
+def wnode():
+    """A 40-rule hopping sketch group on the card (two blocks of rules in
+    the wide fold's grid), 2,048 slots."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ekuiper_tpu_torch.planner.rulegroup import plan_rule_group
+
+    sqls = [WIDE_GROUP_SQL.format(lo=10 + 0.5 * i, hi=-1 + 0.05 * i)
+            for i in range(40)]
+    return plan_rule_group([f"r{i}" for i in range(40)], sqls,
+                           key_slots=2048, micro_batch=4096)
+
+
+def _wide_group_inputs(gb, seed, rows=4096, keys=300):
+    """(base (R, rows), V, M, slots) of a sketch group's batch: v with
+    NaNs, zeros and extremes, and hll's distinct-preserving encoding of
+    it."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(20, 5, rows).astype(np.float32)
+    v[rng.random(rows) < 0.05] = np.nan
+    v[:8] = [0.0, -0.0, -1.5, 3.0e38, 1.0e30, 1e-30, -1e-30, 2.0]
+    dev = gb.device
+    cols = {"v": torch.from_numpy(v).to(dev),
+            "__hll__v": torch.from_numpy(encode_hll_column(v, rows)).to(dev),
+            "w": torch.from_numpy(
+                rng.normal(0, 1, rows).astype(np.float32)).to(dev),
+            "__valid_w": torch.from_numpy(rng.random(rows) > 0.1).to(dev)}
+    base, V, M = gb.rule_inputs(cols, rows)
+    slots = torch.from_numpy(
+        rng.integers(0, keys, rows).astype(np.int32)).to(dev)
+    return base, V, M, slots
+
+
+def _wide_group_state(gb):
+    st = gb.init_state()
+    for pane in (0, 1):
+        base, V, M, slots = _wide_group_inputs(gb, 110 + pane)
+        kernels.multirule_fold_plain(st, base, V, M, slots, pane, gb._colmap)
+        kernels.multirule_fold_wide_plain(st, base, V, M, slots, pane,
+                                          gb._widemap)
+    return st
+
+
+@pytest.mark.parametrize("pane", [0, 1])
+def test_multirule_fold_wide_matches_plain(wnode, pane):
+    """One launch per batch folds every rule's registers and bins,
+    bit-equal to the plain version and to each rule's single-rule wide
+    fold."""
+    gb = wnode.gb
+    kernels.reset_launches()
+    got, ref = gb.init_state(), gb.init_state()
+    for seed in range(3):
+        base, V, M, slots = _wide_group_inputs(gb, 120 + seed)
+        kernels.multirule_fold_wide(got, base, V, M, slots, pane,
+                                    gb._widemap)
+        kernels.multirule_fold_wide_plain(ref, base, V, M, slots, pane,
+                                          gb._widemap)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["multirule_fold_wide"] == 3
+    for comp in ("hll", "hist"):
+        np.testing.assert_array_equal(got[comp].cpu().numpy(),
+                                      ref[comp].cpu().numpy(), err_msg=comp)
+    h = got["hist"].cpu().numpy()
+    assert h.sum() > 0 and (h[0] != h[-1]).any()
+    # rule 7 alone, through the single-rule wide fold
+    one = {c: torch.zeros_like(got[c][7]) for c in ("hll", "hist")}
+    one["act"] = torch.zeros_like(got["act"][7])
+    for seed in range(3):
+        base, V, M, slots = _wide_group_inputs(gb, 120 + seed)
+        kernels.groupby_fold_wide(one, V, M & base[7], slots, pane,
+                                  gb._widemap)
+    torch.cuda.synchronize()
+    for comp in ("hll", "hist"):
+        np.testing.assert_array_equal(got[comp][7].cpu().numpy(),
+                                      one[comp].cpu().numpy(), err_msg=comp)
+
+
+@pytest.mark.parametrize("panes", [None, [0], [1]])
+def test_multirule_finalize_wide_matches_plain(wnode, panes):
+    """Every rule's hll and percentile values in one launch into the
+    scalar finalize's (R, S+1, K) result, on the key cut."""
+    gb = wnode.gb
+    st = _wide_group_state(gb)
+    pm = gb._pane_mask(panes)
+    K = gb._slice_keys(300)
+    kernels.reset_launches()
+    got = kernels.multirule_finalize(st, pm, gb._spectab, K, gb._rows)
+    kernels.multirule_finalize_wide(st, pm, gb._widetab, gb._fracs, got)
+    ref = kernels.multirule_finalize_plain(st, pm, gb._spectab, K, gb._rows)
+    kernels.multirule_finalize_wide_plain(st, pm, gb._widetab, gb._fracs,
+                                          ref)
+    assert kernels.LAUNCHES["multirule_finalize_wide"] == 1
+    g, r = got.cpu().numpy(), ref.cpu().numpy()
+    kinds = [s.kind for s in gb.plan.specs]
+    hll, pct = kinds.index("hll"), kinds.index("percentile_approx")
+    assert np.abs(g[:, hll] - r[:, hll]).max() <= 1
+    assert (np.isnan(g[:, pct]) == np.isnan(r[:, pct])).all()
+    np.testing.assert_allclose(g[:, pct], r[:, pct], rtol=4 * 2.0 ** -23)
+    rest = [i for i in range(g.shape[1]) if i not in (hll, pct)]
+    np.testing.assert_allclose(g[:, rest], r[:, rest], rtol=1e-6, atol=0,
+                               equal_nan=True)
+
+
+def test_multirule_reset_wide_matches_plain(wnode):
+    gb = wnode.gb
+    st = _wide_group_state(gb)
+    got = {k: v.clone() for k, v in st.items()}
+    kernels.multirule_reset_pane(got, 0)
+    kernels.multirule_reset_pane_plain(st, 0)
+    torch.cuda.synchronize()
+    _same(got, st, 0)
+    assert not got["hist"][:, 0].any() and got["hist"][:, 1].any()
 
 
 # ------------------------------------------------------ the masked fold

@@ -15,7 +15,13 @@ parameters. Tolerances, each against the reference:
   torch);
 - stddev: rtol 1e-4 plus the absolute floor the cancellation in
   s2/n - mean² leaves where the variance is ~0 (test_torch_groupby.py's:
-  16·ε32·mean² in the variance, its square root in the deviation).
+  16·ε32·mean² in the variance, its square root in the deviation);
+- the sketch groups (hll on a hopping window, percentile_approx and
+  stddev on a tumbling one, 4 rules at capacity 64): hist counters
+  exact; hll registers exact outside the cells a jnp.log2 miss of the
+  reference reaches (test_torch_groupby.py's rule: the port reads rho
+  from the float exponent); hll estimates within ±1; percentiles the
+  same bin centre within 4 ulp (ROADMAP Queue 3 "Numerical bounds").
 """
 import gc
 
@@ -46,6 +52,8 @@ from ekuiper_tpu_torch.utils import timex
 from ekuiper_tpu_torch.utils.infra import PlanError
 
 R, CAP, MB, KEYS = 6, 256, 128, 200
+#: the sketch groups: rules, capacity, keys
+WR, WCAP, WKEYS = 4, 64, 50
 EPS32 = float(np.finfo(np.float32).eps)
 
 #: every scalar kind the group carries, under a two-parameter WHERE
@@ -53,6 +61,13 @@ SQL = ("SELECT k, avg(v) AS avg_v, count(*) AS c, sum(w) AS sum_w, "
        "min(v) AS mn, max(v) AS mx, stddev(v) AS sd_v FROM s "
        "WHERE v > {lo} AND w < {hi} GROUP BY k, {window}")
 TUMBLING, HOPPING = "TUMBLINGWINDOW(ss, 10)", "HOPPINGWINDOW(ss, 10, 5)"
+#: the sketch groups (bench.py's E2 solo sketch rules as families)
+HLL_SQL = ("SELECT k, hll(v) AS u, count(*) AS c FROM s WHERE v > {lo} "
+           "GROUP BY k, {window}")
+PCT_SQL = ("SELECT k, avg(v) AS avg_v, stddev(v) AS sd_v, "
+           "percentile_approx(v, 0.9) AS p FROM s WHERE w < {hi} "
+           "GROUP BY k, {window}")
+WIDE = {"hll-hopping": (HLL_SQL, HOPPING), "pct-tumbling": (PCT_SQL, TUMBLING)}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -310,20 +325,21 @@ class _Groups:
     """The port's group node and the JAX package's, each rule routed to its
     own sink; both get the same batches and the same triggers by hand."""
 
-    def __init__(self, window, keys=40):
-        sqls = _sqls(window)
-        self.tnode = plan_rule_group(_ids(), sqls, key_slots=CAP,
+    def __init__(self, window, keys=40, sqls=None, cap=CAP):
+        sqls = _sqls(window) if sqls is None else sqls
+        self.rule_ids = _ids(len(sqls))
+        self.tnode = plan_rule_group(self.rule_ids, sqls, key_slots=cap,
                                      micro_batch=MB, device="cpu")
         _, jspec = _specs(sqls)
         stmt = jax_parse(sqls[0])
         self.jnode = JaxGroupNode(
             "ref", stmt.window, jspec, [d.expr for d in stmt.dimensions],
-            capacity=CAP, micro_batch=MB,
+            capacity=cap, micro_batch=MB,
             direct_emit=jax_direct_emit(jspec.stmt, jspec.plan, ["k"]),
             emit_columnar=True)
-        self.tsinks = {rid: _Sink(rid) for rid in _ids()}
-        self.jsinks = {rid: _JaxSink() for rid in _ids()}
-        for rid in _ids():
+        self.tsinks = {rid: _Sink(rid) for rid in self.rule_ids}
+        self.jsinks = {rid: _JaxSink() for rid in self.rule_ids}
+        for rid in self.rule_ids:
             self.tnode.add_rule_output(rid, self.tsinks[rid])
             self.jnode.add_rule_output(rid, self.jsinks[rid])
         # the JAX node's state exists once it is opened (its timers sit on
@@ -337,6 +353,10 @@ class _Groups:
         for _ in range(n_batches):
             cols, slots = _batch(self.rng, keys=len(self.ids))
             cols["k"] = self.ids[slots]
+            if self.tnode.wt.name == "STATE_WINDOW":
+                # the state windows' toggle column (about 5 rows a batch)
+                cols["st"] = (self.rng.random(len(slots)) < 0.01).astype(
+                    np.int64)
             self.tnode.process(ColumnBatch(n=len(slots), columns=dict(cols),
                                            emitter="s"))
             self.jnode.process(JaxBatch(n=len(slots), columns=dict(cols),
@@ -357,7 +377,7 @@ class _Groups:
         the JAX node with them, as long as the clock lives."""
         self.tnode.on_close()
         self.jnode.on_close()
-        jax_timex.get_mock_clock().advance(2 * self.interval)
+        jax_timex.get_mock_clock().advance(60_000)
 
 
 @pytest.fixture
@@ -366,8 +386,8 @@ def groups():
     worker thread outlives its test."""
     made = []
 
-    def make(window):
-        made.append(_Groups(window))
+    def make(window, **kw):
+        made.append(_Groups(window, **kw))
         return made[-1]
 
     yield make
@@ -392,6 +412,11 @@ def _assert_rule_windows(got, ref):
             assert gv.shape == rv.shape, name
             if name in ("k", "c", "mn", "mx"):
                 np.testing.assert_array_equal(gv, rv, err_msg=name)
+            elif name == "u":  # hll: within ±1
+                assert (np.abs(gv - rv) <= 1).all(), name
+            elif name == "p":  # percentile: the same bin centre
+                np.testing.assert_allclose(gv, rv, rtol=4 * 2.0 ** -23,
+                                           err_msg=name)
             elif name == "sd_v":
                 floor = np.sqrt(16 * EPS32) * np.abs(col["avg_v"])
                 assert (np.abs(gv - rv) <= 1e-4 * np.abs(rv) + floor).all()
@@ -469,10 +494,10 @@ PLAN_CASES = {
                        for x in (1, 2)], PlanError),
     "hll": (["SELECT k, hll(v) AS u FROM s WHERE v > "
              f"{x} GROUP BY k, TUMBLINGWINDOW(ss, 10)" for x in (1, 2)],
-            NotImplementedError),
+            None),
     "percentile": (["SELECT k, percentile_approx(v, 0.5) AS p FROM s WHERE "
                     f"v > {x} GROUP BY k, HOPPINGWINDOW(ss, 10, 5)"
-                    for x in (1, 2)], NotImplementedError),
+                    for x in (1, 2)], None),
     "sliding": (["SELECT k, avg(v) AS a FROM s WHERE v > "
                  f"{x} GROUP BY k, SLIDINGWINDOW(ss, 10) OVER (WHEN v > 90)"
                  for x in (1, 2)], NotImplementedError),
@@ -483,9 +508,16 @@ PLAN_CASES = {
 @pytest.mark.parametrize("case", list(PLAN_CASES))
 def test_plan_rule_group_refusals(case):
     """The reference's refusals raise PlanError; a group the port does not
-    run yet raises NotImplementedError (each is a ROADMAP line)."""
+    run yet raises NotImplementedError (each is a ROADMAP line). The
+    sketch groups (hll, percentile_approx) were refused until the batched
+    wide fold and finalize were ported: they now plan (exc None)."""
     sqls, exc = PLAN_CASES[case]
     opts = {"tailMode": "sideways"} if case == "option" else None
+    if exc is None:
+        node = plan_rule_group(_ids(len(sqls)), sqls, key_slots=64,
+                               micro_batch=64, device="cpu", options=opts)
+        assert node.gb.n_rules == len(sqls) and len(node.gb._widemap)
+        return
     with pytest.raises(exc):
         plan_rule_group(_ids(len(sqls)), sqls, key_slots=64, micro_batch=64,
                         device="cpu", options=opts)
@@ -502,3 +534,255 @@ def test_group_kernels_count_one_launch_each(groups):
     g.drain()
     assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
     assert sum(cb.n for s in g.tsinks.values() for cb in s.got) > 0
+
+
+# ------------------------------------------------------- (d) sketch groups
+def _wide_groupbys(name):
+    sql, window = WIDE[name]
+    sqls = _sqls(window, n=WR, sql=sql)
+    spec, jspec = _specs(sqls)
+    n_panes = 2 if window == HOPPING else 1
+    tgb = BatchedGroupBy(spec, capacity=WCAP, n_panes=n_panes,
+                         micro_batch=MB, device="cpu")
+    jgb = JaxBatched(jspec, capacity=WCAP, n_panes=n_panes, micro_batch=MB)
+    return tgb, jgb
+
+
+def _wide_miss_cells(tgb, cols, slots, pane):
+    """(pane, slot, k, register) cells a value reaches whose rho the
+    reference's jnp.log2 misses (test_torch_groupby.py's rule), for every
+    rule of the group."""
+    from test_torch_groupby import _hll_miss_cells
+
+    return _hll_miss_cells(tgb, cols, slots, pane)
+
+
+def _assert_wide_state(got, ref, miss):
+    assert set(got) == set(ref)
+    for comp in ref:
+        g, r = got[comp], np.asarray(ref[comp])
+        assert g.shape == r.shape and g.dtype == r.dtype, comp
+        if comp in ("s1", "s2"):
+            np.testing.assert_allclose(g, r, rtol=1e-5, err_msg=comp)
+            continue
+        if comp == "hll":
+            g, r = g.copy(), r.copy()
+            for pane, slot, k, reg in miss:
+                g[:, pane, slot, k, reg] = r[:, pane, slot, k, reg] = 0.0
+        np.testing.assert_array_equal(g, r, err_msg=comp)
+
+
+def _assert_wide_outs(specs, got, ref):
+    """Every spec's (R, n_keys) output: the sketch kinds within their
+    bounds, the scalar ones as _assert_outs holds them."""
+    scalar = [i for i, s in enumerate(specs)
+              if s.kind not in ("hll", "percentile_approx")]
+    _assert_outs([specs[i] for i in scalar], [got[i] for i in scalar],
+                 [ref[i] for i in scalar])
+    for spec, g, r in zip(specs, got, ref):
+        g, r = np.asarray(g), np.asarray(r)
+        assert g.shape == r.shape and g.dtype == r.dtype, spec.kind
+        if spec.kind == "hll":
+            assert np.abs(g - r).max() <= 1
+        elif spec.kind == "percentile_approx":
+            assert (np.isnan(g) == np.isnan(r)).all()
+            np.testing.assert_allclose(g, r, rtol=4 * 2.0 ** -23)
+
+
+@pytest.mark.parametrize("name", list(WIDE))
+def test_batched_wide_matches_reference(name):
+    """The plain multirule_fold_wide and multirule_finalize_wide (with the
+    scalar fold and finalize beside them) against the JAX BatchedGroupBy's
+    _batched_fold_impl / _batched_finalize_impl: hll registers and hist
+    counters equal, every rule's final values within the module's
+    bounds, under the full and a subset pane mask; then a grow and a
+    pane reset over the wide state."""
+    rng = np.random.default_rng(7)
+    tgb, jgb = _wide_groupbys(name)
+    ts, js, miss = tgb.init_state(), jgb.init_state(), set()
+    for pane in ([0, 1, 1] if tgb.n_panes == 2 else [0, 0]):
+        cols, slots = _batch(rng, keys=WKEYS)
+        ts = tgb.fold(ts, cols, slots, pane_idx=pane)
+        js = jgb.fold(js, cols, slots, pane_idx=pane)
+        miss |= _wide_miss_cells(tgb, cols, slots, pane)
+    wide = "hll" if name.startswith("hll") else "hist"
+    assert ts[wide].shape[:3] == (WR, tgb.n_panes, WCAP)
+    _assert_wide_state(tgb.state_to_host(ts), jgb.state_to_host(js), miss)
+    for mask in [None] + ([[1]] if tgb.n_panes == 2 else []):
+        got, got_act = tgb.finalize(ts, WKEYS, mask)
+        ref, ref_act = jgb.finalize(js, WKEYS, mask)
+        np.testing.assert_array_equal(got_act, ref_act)
+        _assert_wide_outs(tgb.plan.specs, got, ref)
+    assert (got_act[0] != got_act[-1]).any()  # the rules differ
+    ts, js = tgb.grow(ts, 2 * WCAP), jgb.grow(js, 2 * WCAP)
+    last = tgb.n_panes - 1
+    ts, js = tgb.reset_pane(ts, last), jgb.reset_pane(js, last)
+    _assert_wide_state(tgb.state_to_host(ts), jgb.state_to_host(js), miss)
+
+
+@pytest.mark.parametrize("name", list(WIDE))
+def test_batched_wide_matches_single_rules(name):
+    """Each rule of a sketch group equals its own single-rule TorchGroupBy
+    (groupby_fold_wide, groupby_finalize_wide) fed the same rows: the
+    batched registers, bins and final values bit for bit."""
+    sql, window = WIDE[name]
+    sqls = _sqls(window, n=WR, sql=sql)
+    spec, _ = _specs(sqls)
+    n_panes = 2 if window == HOPPING else 1
+    tgb = BatchedGroupBy(spec, capacity=WCAP, n_panes=n_panes,
+                         micro_batch=MB, device="cpu")
+    singles = [TorchGroupBy(extract_kernel_plan(parse_select(q)),
+                            capacity=WCAP, n_panes=n_panes, micro_batch=MB,
+                            device="cpu") for q in sqls]
+    rng = np.random.default_rng(8)
+    ts = tgb.init_state()
+    ss = [g.init_state() for g in singles]
+    for pane in range(n_panes):
+        cols, slots = _batch(rng, keys=WKEYS)
+        ts = tgb.fold(ts, cols, slots, pane_idx=pane)
+        ss = [g.fold(s, cols, slots, pane_idx=pane)
+              for g, s in zip(singles, ss)]
+    got, got_act = tgb.finalize(ts, WKEYS)
+    for r, (g, s) in enumerate(zip(singles, ss)):
+        for comp in ("hll", "hist"):
+            if comp in s:
+                np.testing.assert_array_equal(ts[comp][r].numpy(),
+                                              s[comp].numpy())
+        ref, ref_act = g.finalize(s, WKEYS)
+        np.testing.assert_array_equal(got_act[r], ref_act)
+        for i, spec in enumerate(tgb.plan.specs):
+            if spec.kind in ("hll", "percentile_approx"):
+                np.testing.assert_array_equal(got[i][r], ref[i])
+
+
+@pytest.mark.parametrize("name", list(WIDE))
+def test_wide_group_node_matches_reference(groups, name):
+    """A 4-rule sketch group at capacity 64 (the tumbling one delivering
+    on the emit worker, the hopping one synchronously), three boundaries
+    and EOF: every rule's sink receives the reference's windows."""
+    sql, window = WIDE[name]
+    g = groups(window, sqls=_sqls(window, n=WR, sql=sql), cap=WCAP)
+    for w in range(3):
+        g.feed()
+        g.trigger(w)
+    g.drain()
+    g.feed()
+    g.tnode.on_eof(EOF())
+    g.jnode.on_eof(JaxEOF())
+    g.drain()
+    for rid in g.rule_ids:
+        got, ref = g.tsinks[rid].got, g.jsinks[rid].got
+        assert len(got) == 5 and isinstance(got[-1], EOF)
+        _assert_rule_windows(got[:-1], ref[:-1])
+
+
+@pytest.mark.parametrize("direction", ["port-to-jax", "jax-to-port"])
+def test_wide_group_checkpoint_crosses_packages(groups, direction):
+    """A hopping hll group's snapshot in the middle of a window, taken by
+    one package, restores into a fresh node of each package (registers
+    (R, panes, cap, 1, 256)): both then emit what the uninterrupted nodes
+    emit."""
+    sql, window = WIDE["hll-hopping"]
+    sqls = _sqls(window, n=WR, sql=sql)
+    g = groups(window, sqls=sqls, cap=WCAP)
+    g.feed()
+    g.trigger(0)
+    g.feed()
+    snap = (g.tnode if direction == "port-to-jax" else g.jnode
+            ).snapshot_state()
+    assert np.asarray(snap["partials"]["hll"]).shape == (WR, 2, WCAP, 1, 256)
+    fresh = groups(window, sqls=sqls, cap=WCAP)
+    fresh.tnode.restore_state(snap)
+    fresh.jnode.restore_state(snap)
+    for pair in (g, fresh):
+        pair.rng = np.random.default_rng(5)
+        pair.feed()
+        pair.trigger(1)
+        pair.feed()
+        pair.trigger(2)
+        pair.drain()
+    for rid in g.rule_ids:
+        _assert_rule_windows(fresh.tsinks[rid].got, g.tsinks[rid].got[-2:])
+        _assert_rule_windows(fresh.jsinks[rid].got, g.jsinks[rid].got[-2:])
+        _assert_rule_windows(fresh.tsinks[rid].got, fresh.jsinks[rid].got)
+
+
+# ----------------------------------------- (e) groups on the row windows
+ROW_GROUPS = {
+    # the count is of the stream's rows, before each rule's WHERE (the
+    # reference's group applies no single-rule window gate)
+    "count": "COUNTWINDOW(300)",
+    "session": "SESSIONWINDOW(ss, 10, 2)",
+    "state": "STATEWINDOW(st = 1, st = 0)",
+}
+
+
+@pytest.mark.parametrize("case", list(ROW_GROUPS))
+def test_row_window_group_matches_reference(groups, case):
+    """A group of the module's rules (a WHERE literal per rule) on a count,
+    session or state window, against the JAX group node, which runs these
+    shapes through the fused node's paths it inherits: every rule's
+    windows equal, emitted synchronously at the window's edge."""
+    window = ROW_GROUPS[case]
+    g = groups(window)
+    clock = timex.get_mock_clock()
+    jclock = jax_timex.get_mock_clock()
+    for b in range(6):
+        t = 700 * (b + 1) if b < 4 else 9000 + 500 * b
+        jclock.set(t)
+        _pump(g.jnode)
+        clock.set(t)
+        g.feed(1)
+    g.tnode.on_eof(EOF())
+    g.jnode.on_eof(JaxEOF())
+    for rid in _ids():
+        got, ref = g.tsinks[rid].got, g.jsinks[rid].got
+        assert isinstance(got[-1], EOF) and isinstance(ref[-1], JaxEOF)
+        _assert_rule_windows(got[:-1], ref[:-1])
+    assert g.tnode.last_emit_info["source"] == "sync"
+    if case == "count":
+        # 3,000 rows of the stream, 300 a window: ten windows, each rule's
+        # keys from fewer rows past its own WHERE
+        assert all(len(g.tsinks[rid].got) == 11 for rid in _ids())
+        assert all(0 < int(cb.columns["c"].sum()) < 300
+                   for cb in g.tsinks["r0"].got[:-1])
+    if case == "session":
+        # the gap closed the first session at 2.8 s + 2 s, EOF the second
+        assert [int(w.timestamps[0]) for w in g.tsinks["r0"].got[:-1]] == \
+            [4800, 11_500]
+
+
+def _pump(jnode):
+    """Hand the JAX node's queued control events (its timers') to its
+    dispatch, as its worker thread would."""
+    import queue
+
+    while True:
+        try:
+            item = jnode.inq.get_nowait()
+        except queue.Empty:
+            return
+        jnode._dispatch(item)
+        jnode.inq.task_done()
+
+
+def test_state_group_restore_keeps_the_open_window(groups):
+    """A state group's snapshot inside an open window: the port's group
+    restores the open window (the fused node's restore), the JAX group's
+    restore (MultiRuleFusedNode.restore_state) drops it, a fault of the
+    reference the port does not copy (ROADMAP Queue 3). Both keep the
+    partials."""
+    g = groups(ROW_GROUPS["state"])
+    g.feed(4)
+    while not g.tnode._state_open:
+        g.feed(1)
+    assert g.jnode._state_open
+    snap = g.tnode.snapshot_state()
+    assert snap["state_open"] is True
+    fresh = groups(ROW_GROUPS["state"])
+    fresh.tnode.restore_state(snap)
+    fresh.jnode.restore_state(snap)
+    assert fresh.tnode._state_open and not fresh.jnode._state_open
+    np.testing.assert_array_equal(
+        fresh.tnode.gb.state_to_host(fresh.tnode.state)["act"],
+        np.asarray(fresh.jnode.gb.state_to_host(fresh.jnode.state)["act"]))

@@ -213,9 +213,11 @@ def test_reference_checkpoint_restores_into_port(sql):
 
 
 def test_port_rejects_shapes_it_does_not_run():
+    # an overlapping count window runs on the reference's host path (a
+    # plain COUNTWINDOW plans: tests/test_torch_windows.py)
     with pytest.raises(NotImplementedError):
         plan_fused_rule("SELECT d, hll(v) AS h FROM s "
-                        "GROUP BY d, COUNTWINDOW(100)", device="cpu")
+                        "GROUP BY d, COUNTWINDOW(100, 50)", device="cpu")
     with pytest.raises(NotImplementedError):
         plan_fused_rule("SELECT d, avg(v) AS a FROM s "
                         "GROUP BY d, SLIDINGWINDOW(ss, 10)", device="cpu")

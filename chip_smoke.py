@@ -32,7 +32,11 @@ no result):
    63-rule families, 16,384 slots: hll on two hopping panes, 2.1 GB of
    registers, and the percentile on one tumbling pane, 4.2 GB of bins;
    the wide fold bit-equal to its plain version, the wide finalize's hll
-   bit-equal and its percentile within 4 ulp):
+   bit-equal and its percentile within 4 ulp; the group folds with a
+   per-row pane vector, a batch across a bucket edge, at I5's shape (E1's
+   256 rules on 4 event-time panes) and I6's (the hll family on 5 panes,
+   5.3 GB of registers): n, act, min, max and the registers bit-equal, s1
+   and s2 within rtol 1e-5, a constant vector equal to the scalar pane):
    error, kernel time (CUDA
    events), the kernel body's own device time (profiler trace) and the
    host time of one wrapper call, plain time, a library yardstick and the
@@ -183,8 +187,32 @@ H. the non-time windows and the sketch rule groups, each run from its
    batch, stall and delivery. H6, H3's rule as a 63-rule session group
    (WHERE v > {10.0 + 0.25 r}) on H3's stream, every rule's every
    session against the float64 twin;
+I. event time, each rule fed through the port's WatermarkNode entry
+   (plan_fused_rule with isEventTime, lateTolerance 1000 ms; a group built
+   at the node behind its WatermarkNode): 65,536-row batches over 10,000
+   keys, 16,384 slots, batch i stamped 5 s + i s, each row plus U(-1200,
+   300) ms and 1 % of rows a further 3 s late. I1 bench.py:2889-2944's
+   bench_event_time: the flagship rule, every row of batch i at i s
+   (single-bucket batches, the scalar pane); I2 the flagship rule on the
+   disordered stream (the watermark node drops the late rows; batches
+   across a 10 s edge take the pane vector); I3 the flagship rule on
+   HOPPINGWINDOW(ss, 10, 2) (8 panes); I4 the reference's event-time
+   session rule SESSIONWINDOW(ss, 30, 5) with an 8 s gap every 20 batches
+   (sessions closed by watermarks, the rest at EOF); I5 E1's 256 rules as
+   an event-time group; I6 H5's 63-rule hll family as an event-time group
+   on HOPPINGWINDOW(ss, 10, 5); I7 G2's tiered rule (tierHotMb 64),
+   stamped by slide, with demotions and promotions. Every window against
+   an independent numpy float64 twin of event-time semantics: the
+   watermark node's drop, a window emitted with the batch whose watermark
+   first passes its end (or at EOF), its rows those kept with a time in
+   it (groups: past each rule's WHERE; hll within ±1; I7: the device and
+   spilled keys together). Per run: rows/s (and rule-rows/s), the
+   watermark node's host ms a batch, emit p50/p99 of a watermark-driven
+   window, rows dropped by the watermark node and by the fold, pane-vector
+   against scalar-pane folds, launches;
 5. each kernel's launch count on the paths that use it (each must be
-   > 0; the fold's touch branch on the G paths), then the JSON kernel
+   > 0; the fold's touch branch on the G paths and I7; the per-row pane
+   vector on the sliding paths and I2, I3, I5, I6), then the JSON kernel
    table and the one-line result.
 """
 from __future__ import annotations
@@ -410,6 +438,29 @@ H5_RULES, H5_WINDOWS = 63, 3
 H6_SQL = ("SELECT deviceId, count(*) AS c, avg(v) AS a FROM demo WHERE "
           "v > {x} GROUP BY deviceId, SESSIONWINDOW(ss, 10, 2)")
 H6_RULES, H6_BASE, H6_STEP = 63, 10.0, 0.25
+#: phase I: event time. Each run feeds 65,536-row batches over 10,000 keys
+#: to the port's WatermarkNode entry (isEventTime, lateTolerance 1000 ms):
+#: batch i stamped I_T0 + i s, each row plus U(-1200, 300) ms and 1 % of
+#: them a further 3 s late (I1, bench.py:2889-2944: every row of batch i
+#: at i s). I3: the flagship rule on 2 s buckets; I4: the reference's
+#: event-time session rule (tests/test_event_fused.py:136-137) with an 8 s
+#: gap every 20 batches; I5: E1's 256 rules as an event-time group; I6:
+#: H5's hll family; I7: G2's tiered rule, stamped by slide. Batches a run
+#: (cut from the ~100 the windows would fill to keep the phase in its
+#: time; no route lost)
+I_TOL, I_STEP_MS, I_T0 = 1000, 1000, 5000
+I_JITTER, I_LATE_P, I_LATE_MS = (-1200, 300), 0.01, 3000
+I_OPTS = {"isEventTime": True, "lateTolerance": I_TOL}
+I3_RULE = TUMBLING.replace("TUMBLINGWINDOW(ss, 10)",
+                           "HOPPINGWINDOW(ss, 10, 2)")
+I4_RULE = ("SELECT deviceId, count(*) AS c, avg(temperature) AS a FROM demo "
+           "GROUP BY deviceId, SESSIONWINDOW(ss, 30, 5)")
+I4_GAP_EVERY, I4_GAP_MS, I4_SESSION_GAP_MS = 20, 8000, 5000
+I_BATCHES = {"i1": 40, "i2": 40, "i3": 40, "i4": 60, "i5": 40, "i6": 40,
+             "i7": 80}
+#: the event-time panes of I5's tumbling and I6's hopping group (the
+#: window's buckets, the tolerance's, two of slack; at least four)
+I5_PANES, I6_PANES = 4, 5
 SOURCE = {
     "groupby_fold_scalar": "ekuiper_tpu_torch/csrc/groupby.cu",
     "groupby_finalize_scalar": "ekuiper_tpu_torch/csrc/groupby.cu",
@@ -458,13 +509,16 @@ REPLACES = {
 PATHS = {
     "groupby_fold_scalar": ("tumbling", "hopping", "hh", "pct", "hll", "d1",
                             "d2", "d2_delay", "d3", "f1", "f2", "f3", "f4",
-                            "g1", "g2a", "g2b", "h1", "h2", "h3", "h4"),
+                            "g1", "g2a", "g2b", "h1", "h2", "h3", "h4",
+                            "i1", "i2", "i3", "i4", "i7"),
     "groupby_finalize_scalar": ("tumbling", "hopping", "hh", "pct", "hll",
                                 "f1", "f2", "f3", "f4", "g1", "g2a", "h1",
-                                "h2", "h3", "h4"),
+                                "h2", "h3", "h4", "i1", "i2", "i3", "i4",
+                                "i7"),
     "groupby_reset_pane": ("tumbling", "hopping", "hh", "pct", "hll", "d1",
                            "d2", "d3", "f1", "f2", "f3", "f4", "g1", "g2a",
-                           "g2b", "h1", "h2", "h3", "h4"),
+                           "g2b", "h1", "h2", "h3", "h4", "i1", "i2", "i3",
+                           "i4", "i7"),
     "groupby_fold_wide": ("hh", "pct", "hll", "d1", "d3", "f1", "f3", "h1"),
     "groupby_finalize_wide": ("pct", "hll", "f3", "h1"),
     "groupby_hh_finalize": ("hh", "f1"),
@@ -474,23 +528,30 @@ PATHS = {
     "ring_advance": ("d1", "d2", "d2_delay", "d3"),
     "ring_flip": ("d1", "d2", "d3"),
     "ring_query": ("d1", "d2", "d3"),
-    "multirule_fold": ("e1", "e2", "e3", "h5_hll", "h5_pct", "h6"),
-    "multirule_finalize": ("e1", "e2", "e3", "h5_hll", "h5_pct", "h6"),
-    "multirule_reset_pane": ("e1", "e2", "e3", "h5_hll", "h5_pct", "h6"),
+    "multirule_fold": ("e1", "e2", "e3", "h5_hll", "h5_pct", "h6", "i5",
+                       "i6"),
+    "multirule_finalize": ("e1", "e2", "e3", "h5_hll", "h5_pct", "h6", "i5",
+                           "i6"),
+    "multirule_reset_pane": ("e1", "e2", "e3", "h5_hll", "h5_pct", "h6",
+                             "i5", "i6"),
     "groupby_fold_masked_scalar": ("f1", "f2", "f3", "f4"),
     "groupby_fold_masked_wide": ("f1", "f3"),
-    "tier_demote": ("g1", "g2a", "g2b"),
-    "tier_promote": ("g2a", "g2b"),
-    "multirule_fold_wide": ("h5_hll", "h5_pct"),
-    "multirule_finalize_wide": ("h5_hll", "h5_pct"),
+    "tier_demote": ("g1", "g2a", "g2b", "i7"),
+    "tier_promote": ("g2a", "g2b", "i7"),
+    "multirule_fold_wide": ("h5_hll", "h5_pct", "i6"),
+    "multirule_finalize_wide": ("h5_hll", "h5_pct", "i6"),
 }
 #: the folds that must bump the touch column on each tiered path
-TOUCH_PATHS = {"groupby_fold_scalar": ("g1", "g2a", "g2b")}
-#: the folds that must take a per-row pane vector on each sliding path (a
-#: batch that crosses a bucket edge; on the F paths from the cached upload)
+TOUCH_PATHS = {"groupby_fold_scalar": ("g1", "g2a", "g2b", "i7")}
+#: the folds that must take a per-row pane vector on each sliding and
+#: event-time path (a batch that crosses a bucket edge; on the F paths
+#: from the cached upload)
 ROW_PANE_PATHS = {"groupby_fold_scalar": ("d1", "d2", "d2_delay", "d3",
-                                          "f1", "f2", "f3", "f4"),
-                  "groupby_fold_wide": ("d1", "d3", "f1", "f3")}
+                                          "f1", "f2", "f3", "f4", "i2",
+                                          "i3"),
+                  "groupby_fold_wide": ("d1", "d3", "f1", "f3"),
+                  "multirule_fold": ("i5", "i6"),
+                  "multirule_fold_wide": ("i6",)}
 
 
 class SmokeFailure(Exception):
@@ -5093,6 +5154,655 @@ def phase_h_lines(h):
            f"launches={mr(a['launches'])} (H5 run_s {f(h['h5_run_s'], 1)})")
 
 
+# ------------------------------------------- phase 2, the group's pane vector
+def pane_split(rng, n, P, lo):
+    """A batch across one bucket edge, ordered by time as the watermark
+    node orders it: its first rows in pane lo, the rest in lo + 1 (the
+    edge at a random row in the middle half)."""
+    cut = int(rng.integers(n // 4, 3 * n // 4))
+    pv = np.full(n, lo, dtype=np.uint8)
+    pv[cut:] = (lo + 1) % P
+    return pv
+
+
+def event_group_kernel_checks(torch, seed, kernels, sketches, dev):
+    """#15's per-row pane vector against the plain versions at I5's shapes
+    (E1's 256 rules, 65,536 rows, 16,384 slots, the event-time tumbling
+    window's I5_PANES panes) and I6's (the 63-rule hll family on its
+    I6_PANES panes, 5.3 GB of registers), a batch across a bucket edge:
+    bit-equal on n, act, mn, mx and the registers, s1 / s2 within rtol
+    1e-5, and a constant vector equal to the scalar pane. Timed: the
+    wrapper's device time (its range check, a reduction and a read back of
+    the vector's max, included), the kernel body, the plain version, the
+    library scatters over the (rule, row pane, slot) flat index."""
+    from ekuiper_tpu_torch.parallel.multirule import (BatchedGroupBy,
+                                                      build_rule_batch)
+    from ekuiper_tpu_torch.sql.parser import parse_select
+
+    rows = {}
+    r = np.random.default_rng(seed + 95)
+    s_dev = torch.from_numpy(
+        r.integers(0, N_KEYS, ROWS).astype(np.int32)).to(dev)
+    pv_np = pane_split(r, ROWS, I5_PANES, 1)
+    pv = torch.from_numpy(pv_np).to(dev)
+
+    # the scalar fold: I5's group
+    spec = build_rule_batch(rule_ids("i5_", E1_RULES),
+                            [parse_select(q) for q in e1_sqls()])
+    gb = BatchedGroupBy(spec, capacity=SLOTS, n_panes=I5_PANES,
+                        micro_batch=ROWS, device=dev)
+    temp = r.normal(20, 5, ROWS).astype(np.float32)
+    base, V, M = gb.rule_inputs(
+        {"temperature": torch.from_numpy(temp).to(dev)}, ROWS)
+    colmap = gb._colmap
+    st = gb.init_state()
+    state_bytes = sum(a.numel() * 4 for a in st.values())
+    ref, got = clone_state(st), st
+    kernels.multirule_fold_plain(ref, base, V, M, s_dev, 0, colmap, pv)
+    kernels.multirule_fold(got, base, V, M, s_dev, 0, colmap, pv)
+    torch.cuda.synchronize()
+    err = state_err(got, ref)
+    check(bool(got["act"][:, 1].any()) and bool(got["act"][:, 2].any())
+          and not bool(got["act"][:, 0].any()),
+          "multirule_fold pane vector: rows not in their panes")
+    a, b = gb.init_state(), gb.init_state()
+    kernels.multirule_fold(a, base, V, M, s_dev, 0, colmap,
+                           torch.full_like(pv, 2))
+    kernels.multirule_fold(b, base, V, M, s_dev, 2, colmap)
+    torch.cuda.synchronize()
+    state_err(a, b)
+    del a, b, ref
+    fold = functools.partial(kernels.multirule_fold, got, base, V, M, s_dev,
+                             0, colmap, pv)
+    t_k = time_ms(torch, fold, REPS)
+    split = launch_split(torch, fold, "multirule_fold_kernel", REPS)
+    t_s = time_ms(torch, functools.partial(
+        kernels.multirule_fold, got, base, V, M, s_dev, 1, colmap), REPS)
+    t_p = time_ms(torch, lambda: kernels.multirule_fold_plain(
+        got, base, V, M, s_dev, 0, colmap, pv), REPS)
+    t_l = time_ms(torch, lambda: library_group_fold(
+        torch, got, base, V, M, s_dev, pv.long()[None, :], colmap, kernels),
+        REPS)
+    S, n = V.shape
+    in_bytes = V.numel() * 4 + M.numel() + base.numel() + n * 4 + n
+    passing = int(base.sum().item())
+    atomics = passing + sum(int((M[s][None, :] & base).sum().item())
+                            for s in colmap[:, 2].tolist())
+    b_ms, b_by = bound(in_bytes, atomics)
+    print(f"kernel multirule_fold pane_vec R={E1_RULES} rows={n} "
+          f"P={I5_PANES} C={SLOTS} panes 1|2 at row {int((pv_np == 1).sum())}"
+          f": max_abs_err={err[0]:.3g} max_rel_err={err[1]:.3g} (constant "
+          f"vector = scalar pane) kernel_ms={t_k:.4f} {split_text(split)} "
+          f"scalar_pane_kernel_ms={t_s:.4f} plain_ms={t_p:.4f} "
+          f"library_ms={t_l:.4f} bound_ms={b_ms:.5f} ({b_by}; inputs "
+          f"{in_bytes / 1e6:.2f} MB) atomics={atomics} "
+          f"state_MB={state_bytes / 1e6:.1f}")
+    rows["multirule_fold/pane_vec"] = dict(
+        max_abs_err=err[0], max_rel_err=err[1], ms=t_k, **split,
+        scalar_pane_ms=t_s, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+        library_ms=t_l, input_bytes=in_bytes, atomics=atomics,
+        state_bytes=state_bytes)
+    del gb, st, got, base, V, M
+    torch.cuda.empty_cache()
+
+    # the wide fold: I6's hll family
+    pv_np = pane_split(r, ROWS, I6_PANES, 2)
+    pv = torch.from_numpy(pv_np).to(dev)
+    spec = build_rule_batch(rule_ids("i6_", H5_RULES),
+                            [parse_select(q) for q in h5_sqls("hll")])
+    gb = BatchedGroupBy(spec, capacity=SLOTS, n_panes=I6_PANES,
+                        micro_batch=ROWS, device=dev)
+    cols = h5_columns(r, ROWS)
+    dcols = {c: torch.from_numpy(v.astype(np.float32)).to(dev)
+             for c, v in cols.items()}
+    dcols["__hll__humidity"] = dcols["humidity"]
+    base, V, M = gb.rule_inputs(dcols, ROWS)
+    st = gb.init_state()
+    state_bytes = sum(a.numel() * 4 for a in st.values())
+    ref, got = clone_state(st), st
+    kernels.multirule_fold_wide_plain(ref, base, V, M, s_dev, 0, gb._widemap,
+                                      pv)
+    kernels.multirule_fold_wide(got, base, V, M, s_dev, 0, gb._widemap, pv)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(got["hll"], ref["hll"])),
+          "multirule_fold_wide pane vector: differs from its plain version")
+    check(bool(got["hll"][:, 2].any()) and bool(got["hll"][:, 3].any())
+          and not bool(got["hll"][:, 1].any()),
+          "multirule_fold_wide pane vector: rows not in their panes")
+    del ref
+    a = gb.init_state()
+    kernels.multirule_fold_wide(a, base, V, M, s_dev, 0, gb._widemap,
+                                torch.full_like(pv, 4))
+    kernels.multirule_fold_wide(got, base, V, M, s_dev, 4, gb._widemap)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(a["hll"][:, 4], got["hll"][:, 4])),
+          "multirule_fold_wide: a constant vector differs from its pane")
+    del a
+    fold = functools.partial(kernels.multirule_fold_wide, got, base, V, M,
+                             s_dev, 0, gb._widemap, pv)
+    t_k = time_ms(torch, fold, REPS)
+    split = launch_split(torch, fold, "multirule_fold_wide_kernel", REPS)
+    t_s = time_ms(torch, functools.partial(
+        kernels.multirule_fold_wide, got, base, V, M, s_dev, 2, gb._widemap),
+        REPS)
+    t_p = time_ms(torch, lambda: kernels.multirule_fold_wide_plain(
+        got, base, V, M, s_dev, 0, gb._widemap, pv), REPS)
+    _, idx, val, n_upd = group_wide_updates(
+        torch, gb, base, V, M, s_dev, pv.long()[None, :], sketches)
+    t_l = time_ms(torch, lambda: library_group_fold_wide(
+        torch, got, idx, val, "hll"), REPS)
+    s = int(gb._widemap[0, 2])
+    in_bytes = (base.numel() + V[s].numel() * 4 + M[s].numel() + ROWS * 4
+                + ROWS)
+    b_ms, b_by = bound(in_bytes, n_upd)
+    print(f"kernel multirule_fold_wide pane_vec hll R={H5_RULES} "
+          f"rows={ROWS} P={I6_PANES} C={SLOTS} panes 2|3: bit-equal "
+          f"(constant vector = scalar pane) kernel_ms={t_k:.4f} "
+          f"{split_text(split)} scalar_pane_kernel_ms={t_s:.4f} "
+          f"plain_ms={t_p:.4f} library_ms={t_l:.4f} bound_ms={b_ms:.5f} "
+          f"({b_by}; inputs {in_bytes / 1e6:.2f} MB, {n_upd} updates) "
+          f"state_MB={state_bytes / 1e6:.1f}")
+    rows["multirule_fold_wide/pane_vec"] = dict(
+        max_abs_err=0.0, max_rel_err=0.0, ms=t_k, **split,
+        scalar_pane_ms=t_s, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+        library_ms=t_l, input_bytes=in_bytes, updates=n_upd,
+        state_bytes=state_bytes)
+    del gb, st, got, idx, val
+    torch.cuda.empty_cache()
+    return rows
+
+
+# -------------------------------------------------------------- phase I
+class EventStream:
+    """One phase I stream, made in bulk from the seed: per 65,536-row batch
+    the key indices, temperature ~ N(20, 5) (float32) and, for the hll
+    family, humidity ~ N(50, 15) rounded to 2 decimals; batch i stamped
+    I_T0 + i · I_STEP_MS, each row plus U(I_JITTER) ms and I_LATE_P of
+    them I_LATE_MS earlier still (I1: no jitter, no late rows, batch i at
+    i · 1000 ms); with `gap_every`, an I4_GAP_MS gap between the last row
+    before and the first row after every gap_every-th batch. Then the
+    watermark node's twin: the rows each batch keeps (ts >= the newest
+    timestamp before it - lateTolerance) and the watermark after it."""
+
+    def __init__(self, seed, n, jitter=True, gap_every=0, humidity=False):
+        rng = np.random.default_rng(seed)
+        self.n = n
+        self.idx = rng.integers(0, N_KEYS, (n, ROWS))
+        self.temp = rng.normal(20, 5, (n, ROWS)).astype(np.float32)
+        self.hum = (rng.normal(50, 15, (n, ROWS)).round(2) if humidity
+                    else None)
+        if jitter:
+            ts = (I_T0 + np.arange(n)[:, None] * I_STEP_MS
+                  + rng.integers(I_JITTER[0], I_JITTER[1], (n, ROWS)))
+            ts -= np.where(rng.random((n, ROWS)) < I_LATE_P, I_LATE_MS, 0)
+        else:
+            ts = np.repeat(np.arange(n)[:, None] * I_STEP_MS, ROWS, axis=1)
+        if gap_every:
+            for b in range(gap_every, n, gap_every):
+                shift = int(ts[:b].max()) + I4_GAP_MS - int(ts[b].min())
+                ts[b:] += max(shift, 0)
+        self.ts = ts.astype(np.int64)
+        self.keep = np.zeros((n, ROWS), dtype=bool)
+        self.wm = np.zeros(n, dtype=np.int64)
+        max_ts = 0
+        for b in range(n):
+            keep = self.ts[b] >= max_ts - I_TOL
+            self.keep[b] = keep
+            if keep.any():
+                max_ts = max(max_ts, int(self.ts[b][keep].max()))
+            self.wm[b] = max_ts - I_TOL
+        self.dropped = int((~self.keep).sum())
+
+    def batches(self, ColumnBatch):
+        names = np.array([f"dev_{i}" for i in range(N_KEYS)],
+                         dtype=np.object_)
+        out = []
+        for b in range(self.n):
+            cols = {"deviceId": names[self.idx[b]],
+                    "temperature": self.temp[b]}
+            if self.hum is not None:
+                cols["humidity"] = self.hum[b]
+            out.append(ColumnBatch(n=ROWS, columns=cols,
+                                   timestamps=self.ts[b], emitter="demo"))
+        return out
+
+    def arrival(self, close_ms):
+        """The batch whose watermark first reaches close_ms (n: the EOF)."""
+        hit = np.nonzero(self.wm >= close_ms)[0]
+        return int(hit[0]) if len(hit) else self.n
+
+    def kept_rows(self):
+        """Flat indices of the kept rows, their timestamps."""
+        flat = np.nonzero(self.keep.ravel())[0]
+        return flat, self.ts.ravel()[flat]
+
+    def windows(self, length, bucket):
+        """The twin's tumbling / hopping windows, in emission order: (end
+        ms, flat row indices, arrival batch) of each window ending at a
+        bucket edge from the first batch's first bucket (the emission
+        cursor's start) that holds a kept row; and the kept rows the fold
+        drops (a bucket before that start)."""
+        flat, ts = self.kept_rows()
+        bk = ts // bucket
+        b0 = int((self.ts[0][self.keep[0]] // bucket).min())
+        order = np.argsort(bk, kind="stable")
+        bs = bk[order]
+        W = length // bucket
+        out = []
+        for b in range(b0, int(bs[-1]) + W):
+            lo = np.searchsorted(bs, max(b - W + 1, b0), "left")
+            hi = np.searchsorted(bs, b, "right")
+            if hi > lo:
+                end = (b + 1) * bucket
+                out.append((end, flat[order[lo:hi]], self.arrival(end)))
+        return out, int((bk < b0).sum())
+
+    def sessions(self, gap):
+        """The twin's sessions: the kept rows sorted by time, split where
+        neighbours are more than `gap` apart; (rows, close ms, arrival
+        batch) each, and those a watermark does not close emitted at the
+        EOF as one window."""
+        flat, ts = self.kept_rows()
+        order = np.argsort(ts, kind="stable")
+        tss = ts[order]
+        cuts = [0, *(np.nonzero(np.diff(tss) > gap)[0] + 1).tolist(),
+                len(tss)]
+        out = []
+        for lo, hi in zip(cuts[:-1], cuts[1:]):
+            close = int(tss[hi - 1]) + gap
+            out.append((flat[order[lo:hi]], close, self.arrival(close)))
+        closed = [s for s in out if s[2] < self.n]
+        rest = [s for s in out if s[2] == self.n]
+        if rest:
+            closed.append((np.concatenate([s[0] for s in rest]), None,
+                           self.n))
+        return closed
+
+
+class EventProbe:
+    """What phase I reads off one event-time chain (a watermark node ahead
+    of a fused or group node): each window with the batch it came in
+    (len(batches): the EOF), the watermark node's own host time (its
+    process less the downstream's), and each watermark-driven window's
+    emit time (finalize, host tail, delivery, ending in a synchronize)."""
+
+    def __init__(self, torch, node, group=False):
+        from ekuiper_tpu_torch.runtime.node import Node
+
+        self.torch, self.node = torch, node
+        self.batch = 0
+        self.down_s = 0.0
+        self.emit_ms = []
+        probe = self
+        if group:
+            self.got = {rid: [] for rid in node.gb.rule_ids}
+
+            class Sink(Node):
+                def process(self, item):
+                    probe.got[self.name].append((item, probe.batch))
+
+            for rid in node.gb.rule_ids:
+                node.add_rule_output(rid, Sink(rid))
+        else:
+            self.got = []
+            node.broadcast = lambda item: self.got.append((item, self.batch))
+        for name in ("process", "on_watermark"):
+            setattr(node, name, self._timed_down(getattr(node, name)))
+        emit = ("_emit" if node.wt.name == "SESSION_WINDOW"
+                else "_emit_panes")
+        setattr(node, emit, self._timed_emit(getattr(node, emit)))
+
+    def _timed_down(self, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.down_s += time.perf_counter() - t
+        return run
+
+    def _timed_emit(self, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            fn(*a, **k)
+            self.torch.cuda.synchronize()
+            self.emit_ms.append((time.perf_counter() - t) * 1e3)
+        return run
+
+    def windows(self, items):
+        return [(it, b) for it, b in items if hasattr(it, "columns")]
+
+    def drive(self, kernels, batches, clock_at=None):
+        """Feed every batch to the watermark entry, then EOF; returns the
+        run's numbers (rows/s over the wall, host ms a batch, launches)."""
+        from ekuiper_tpu_torch.runtime.events import EOF
+
+        wm = self.node.watermark
+        kernels.reset_launches()
+        self.torch.cuda.synchronize()
+        t_wm = 0.0
+        t0 = time.perf_counter()
+        for b, batch in enumerate(batches):
+            self.batch = b
+            if clock_at is not None:
+                clock_at(b)
+            t = time.perf_counter()
+            wm.process(batch)
+            t_wm += time.perf_counter() - t
+        self.batch = len(batches)
+        wm.put_control(EOF())
+        self.node._drain_async_emits()
+        self.torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = self.node.event_counts
+        return dict(wall=wall, rows_per_s=len(batches) * ROWS / wall,
+                    wm_host_ms=(t_wm - self.down_s) / len(batches) * 1e3,
+                    emit_p50=pct(self.emit_ms, 50) if self.emit_ms else None,
+                    emit_p99=pct(self.emit_ms, 99) if self.emit_ms else None,
+                    wm_dropped=wm.dropped, fold_dropped=n["dropped"],
+                    vector_folds=n["vector_folds"],
+                    scalar_folds=n["scalar_folds"],
+                    launches=dict(kernels.LAUNCHES),
+                    row_pane=dict(kernels.ROW_PANE_LAUNCHES),
+                    touch_launches=dict(kernels.TOUCH_LAUNCHES))
+
+
+def check_event_arrivals(tag, got, want):
+    """The emitted windows' ends and the batch each came in (the first
+    whose watermark passed it, or the EOF) against the twin's."""
+    have = [b for _, b in got]
+    check(have == [w[2] for w in want],
+          f"{tag}: windows came in batches {have}, want "
+          f"{[w[2] for w in want]}")
+
+
+def event_rule(mods, sql, opts=None, key_slots=None):
+    plan_fused_rule = mods[0]
+    node = plan_fused_rule(sql, key_slots=key_slots or SLOTS,
+                           micro_batch=ROWS,
+                           options={**I_OPTS, **(opts or {})})
+    check(node.gb.device.type == "cuda" and node.watermark is not None,
+          "event-time rule is not on the card behind its watermark node")
+    return node
+
+
+def run_i_flagship(torch, tag, stream, sql, length, bucket, kernels, mods):
+    """I1-I3: the flagship rule's windows against the float64 twin over
+    exactly their rows, each arriving with the batch whose watermark
+    passed its end."""
+    node = event_rule(mods, sql)
+    probe = EventProbe(torch, node)
+    out = probe.drive(kernels, stream.batches(mods[1]))
+    want, fold_drop = stream.windows(length, bucket)
+    got = probe.windows(probe.got)
+    check(len(got) == len(want), f"{tag}: {len(got)} windows, want "
+          f"{len(want)}")
+    check_event_arrivals(tag, got, want)
+    idx, temp = stream.idx.ravel(), stream.temp.ravel()
+    worst = 0.0
+    for (cb, _), (end, rows, _) in zip(got, want):
+        check(int(cb.timestamps[0]) == end, f"{tag}: window end "
+              f"{int(cb.timestamps[0])}, want {end}")
+        worst = max(worst, check_window(
+            cb, reference_aggs(idx[rows], temp[rows], N_KEYS), False,
+            f"{tag} window {end}"))
+    check(out["wm_dropped"] == stream.dropped and
+          out["fold_dropped"] == fold_drop,
+          f"{tag}: dropped {out['wm_dropped']} / {out['fold_dropped']}, the "
+          f"twin {stream.dropped} / {fold_drop}")
+    out.update(windows=len(got), max_abs_err=worst,
+               by_eof=sum(w[2] == stream.n for w in want),
+               n_panes=node.n_panes)
+    node.on_close()
+    return out
+
+
+def run_i4(torch, stream, kernels, mods):
+    """I4: event-time sessions; each against the float64 twin over exactly
+    its rows, closed by the first watermark past its last row + gap, and
+    the rest at the EOF as one window."""
+    node = event_rule(mods, I4_RULE)
+    probe = EventProbe(torch, node)
+    out = probe.drive(kernels, stream.batches(mods[1]))
+    want = stream.sessions(I4_SESSION_GAP_MS)
+    got = probe.windows(probe.got)
+    check_event_arrivals("I4", got, want)
+    for (cb, _), (_, close, _) in zip(got, want):
+        check(close is None or int(cb.timestamps[0]) == close,
+              f"I4: session ends at {int(cb.timestamps[0])}, want {close}")
+    worst = check_avg_windows("I4", [cb for cb, _ in got],
+                              [w[0] for w in want], stream.idx.ravel(),
+                              stream.temp.ravel())
+    check(sum(w[1] is not None for w in want) >= 2 and want[-1][1] is None,
+          "I4: want sessions closed by watermarks and one at the EOF")
+    check(out["wm_dropped"] == stream.dropped, "I4: watermark drops")
+    out.update(windows=len(got), max_abs_err=worst,
+               by_watermark=sum(w[1] is not None for w in want),
+               sessions=node.event_counts["sessions"])
+    node.on_close()
+    return out
+
+
+def event_group(ids, sqls):
+    """An event-time rule group at the node (plan_rule_group refuses
+    isEventTime): MultiRuleFusedNode(is_event_time=True) behind its
+    WatermarkNode."""
+    from ekuiper_tpu_torch.ops.emit import build_direct_emit
+    from ekuiper_tpu_torch.parallel.multirule import build_rule_batch
+    from ekuiper_tpu_torch.runtime.nodes_multirule import MultiRuleFusedNode
+    from ekuiper_tpu_torch.runtime.nodes_window import WatermarkNode
+    from ekuiper_tpu_torch.sql.parser import parse_select
+
+    spec = build_rule_batch(ids, [parse_select(q) for q in sqls])
+    dims = [d.expr for d in spec.stmt.dimensions]
+    node = MultiRuleFusedNode(
+        "group_agg", spec.stmt.window, spec, dims, capacity=SLOTS,
+        micro_batch=ROWS,
+        direct_emit=build_direct_emit(spec.stmt, spec.plan,
+                                      [d.name for d in dims]),
+        emit_columnar=True, is_event_time=True, late_tolerance_ms=I_TOL)
+    node.watermark = WatermarkNode("watermark", late_tolerance_ms=I_TOL)
+    node.watermark.connect(node)
+    check(node.gb.device.type == "cuda" and not node._async_mr,
+          "event-time group is not on the card, synchronous")
+    return node
+
+
+def run_i_group(torch, tag, stream, sqls, thresholds, length, bucket,
+                kernels, mods):
+    """I5 / I6: an event-time group; every rule's every window against the
+    twin over the window's rows past that rule's WHERE (I6: and its hll
+    registers), each arriving with the batch whose watermark passed it."""
+    node = event_group(rule_ids(f"{tag}_", len(sqls)), sqls)
+    probe = EventProbe(torch, node, group=True)
+    out = probe.drive(kernels, stream.batches(mods[1]))
+    want, fold_drop = stream.windows(length, bucket)
+    names = np.array([f"dev_{i}" for i in range(N_KEYS)], dtype=np.object_)
+    slot_keys = np.array([int(k[4:]) for k in node.kt.decode_all()])
+    by_rule = {}
+    for rid, items in probe.got.items():
+        got = probe.windows(items)
+        ends = {int(cb.timestamps[0]): (cb, b) for cb, b in got}
+        check(len(ends) == len(got), f"{tag} {rid}: a window twice")
+        by_rule[rid] = ends
+    cols = {"idx": stream.idx.ravel(), "temperature": stream.temp.ravel()}
+    if stream.hum is not None:
+        cols["humidity"] = stream.hum.ravel().astype(np.float32)
+    twin_tag = "e1" if tag == "i5" else "h5_hll"
+    rows_checked, worst, off = 0, 0.0, 0
+    for end, rows, arrival in want:
+        emitted = []
+        for rid in node.gb.rule_ids:
+            cb, b = by_rule[rid].pop(end, (None, arrival))
+            check(b == arrival, f"{tag} {rid}: window {end} came in batch "
+                  f"{b}, want {arrival}")
+            emitted.append(cb)
+        part = {k: v[rows] for k, v in cols.items()}
+        n, d = twin_check_family(twin_tag, thresholds, emitted, part, names,
+                                 slot_keys, f"{tag} window {end}")
+        if tag == "i6":
+            _, o = check_group_sketch(twin_tag, thresholds, emitted, part,
+                                      slot_keys, f"{tag} window {end}")
+            off += o
+        rows_checked += n
+        worst = max(worst, d)
+    check(not any(by_rule.values()), f"{tag}: windows the twin lacks")
+    check(out["wm_dropped"] == stream.dropped and
+          out["fold_dropped"] == fold_drop, f"{tag}: dropped rows")
+    out.update(rules=len(sqls), windows=len(want),
+               rule_rows_per_s=out["rows_per_s"] * len(sqls),
+               rows_checked=rows_checked, max_abs_err=worst, off_by_one=off,
+               n_panes=node.n_panes)
+    node.on_close()
+    return out
+
+
+def run_i7(torch, seed, kernels, mods):
+    """I7: G2's tiered rule on event time, stamped by slide (4 batches a
+    1 s slide, rows of a batch at one time, the engine clock moved with
+    it): every window, the device groups and the spilled keys' share
+    together, against the float64 twin over the window's ten slides."""
+    from ekuiper_tpu_torch.utils import timex
+
+    stream = G2Stream(seed)
+    node = event_rule(mods, G2_RULE, {"tierHotMb": G_HOT_MB}, G_SLOTS)
+    check(node.tier is not None, "I7: the rule is not tiered")
+    probe = EventProbe(torch, node)
+    n = I_BATCHES["i7"]
+    stamp = [I_T0 + b // G_PER_WINDOW * 1000 + G2B_OFFSETS[b % G_PER_WINDOW]
+             for b in range(n)]
+    batches = []
+    for b in range(n):
+        cb = stream.batch(mods[1], b)
+        cb.timestamps = np.full(ROWS, stamp[b], dtype=np.int64)
+        batches.append(cb)
+    clock = timex.set_mock_clock(0)
+    out = probe.drive(kernels, batches,
+                      clock_at=lambda b: clock.set(stamp[b]))
+    timex.use_real_clock()
+    by_end = {}
+    for cb, _ in probe.windows(probe.got):
+        if cb.n:
+            by_end.setdefault(int(cb.timestamps[0]), []).append(cb)
+    twin = GTwin(stream.n_keys)
+    slides = n // G_PER_WINDOW
+    per_slide = [twin.agg(np.concatenate(stream.ids[s * G_PER_WINDOW:
+                                                    (s + 1) * G_PER_WINDOW]),
+                          np.concatenate([stream.v[b].astype(np.float32)
+                                          for b in range(s * G_PER_WINDOW,
+                                                         (s + 1)
+                                                         * G_PER_WINDOW)]))
+                 for s in range(slides)]
+    worst = 0.0
+    ends = sorted(by_end)
+    want = [I_T0 + (s + 1) * 1000 for s in range(slides + 9)]
+    check(ends == want, f"I7: windows end at {ends[:3]}..{ends[-3:]}, want "
+          f"{want[:3]}..{want[-3:]}")
+    for k, end in enumerate(want):
+        ref = GTwin.merge(per_slide[max(0, k - 9):k + 1])
+        err, _ = check_g_window(*window_columns(by_end[end], stream.to_ids),
+                                ref, f"I7 window {end}")
+        worst = max(worst, err)
+    t = node.tier
+    check(t.demoted_total > 0 and t.promoted_total > 0,
+          f"I7: demoted {t.demoted_total}, promoted {t.promoted_total}")
+    out.update(windows=len(want), max_abs_err=worst, n_panes=node.n_panes,
+               **tier_counters(node))
+    node.on_close()
+    return out
+
+
+def run_phase_i(torch, seed, kernels, mods):
+    """Phase I: event time, I1-I7."""
+    out, walls = {}, {}
+    t0 = time.perf_counter()
+    s1 = EventStream(seed + 100, I_BATCHES["i1"], jitter=False)
+    out["i1"] = run_i_flagship(torch, "I1", s1, TUMBLING, 10_000, 10_000,
+                               kernels, mods)
+    walls["i1"] = time.perf_counter() - t0
+    s2 = EventStream(seed + 101, I_BATCHES["i2"])
+    out["i2"] = run_i_flagship(torch, "I2", s2, TUMBLING, 10_000, 10_000,
+                               kernels, mods)
+    walls["i2"] = time.perf_counter() - t0 - sum(walls.values())
+    out["i3"] = run_i_flagship(torch, "I3", s2, I3_RULE, 10_000, 2_000,
+                               kernels, mods)
+    walls["i3"] = time.perf_counter() - t0 - sum(walls.values())
+    s4 = EventStream(seed + 104, I_BATCHES["i4"], gap_every=I4_GAP_EVERY)
+    out["i4"] = run_i4(torch, s4, kernels, mods)
+    walls["i4"] = time.perf_counter() - t0 - sum(walls.values())
+    del s1, s4
+    out["i5"] = run_i_group(
+        torch, "i5", s2, e1_sqls(), [E1_BASE + E1_STEP * r
+                                     for r in range(E1_RULES)],
+        10_000, 10_000, kernels, mods)
+    walls["i5"] = time.perf_counter() - t0 - sum(walls.values())
+    torch.cuda.empty_cache()
+    s6 = EventStream(seed + 106, I_BATCHES["i6"], humidity=True)
+    base, step = H5_FAMILIES["hll"][1:]
+    out["i6"] = run_i_group(
+        torch, "i6", s6, h5_sqls("hll"), [base + step * r
+                                          for r in range(H5_RULES)],
+        10_000, 5_000, kernels, mods)
+    walls["i6"] = time.perf_counter() - t0 - sum(walls.values())
+    del s6
+    torch.cuda.empty_cache()
+    out["i7"] = run_i7(torch, seed, kernels, mods)
+    walls["i7"] = time.perf_counter() - t0 - sum(walls.values())
+    torch.cuda.empty_cache()
+    for tag in ("i2", "i3", "i5", "i6"):
+        check(out[tag]["vector_folds"] > 0, f"{tag}: no pane-vector fold")
+    check(out["i1"]["vector_folds"] == 0, "I1: a pane-vector fold")
+    check(out["i2"]["wm_dropped"] > 0, "I2: no row dropped as late")
+    check(out["i4"]["by_watermark"] >= 2, "I4: sessions by watermark")
+    check((out["i5"]["n_panes"], out["i6"]["n_panes"])
+          == (I5_PANES, I6_PANES), "I5 / I6: pane counts of phase 2's rows")
+    out["walls"] = walls
+    return out
+
+
+def phase_i_lines(i):
+    f = lambda x, d=3: "n/a" if x is None else f"{x:.{d}f}"  # noqa: E731
+    nz = lambda d: {k: v for k, v in d.items() if v}  # noqa: E731
+    what = {"i1": "I1 bench_event_time (flagship, batch i at i s)",
+            "i2": "I2 flagship, disordered + late rows",
+            "i3": "I3 flagship on HOPPINGWINDOW(ss, 10, 2)",
+            "i4": "I4 SESSIONWINDOW(ss, 30, 5), 8 s gaps",
+            "i5": f"I5 E1's {E1_RULES} rules as an event-time group",
+            "i6": f"I6 H5's {H5_RULES}-rule hll family on event time",
+            "i7": "I7 G2's tiered rule on event time, by slide"}
+    for tag in ("i1", "i2", "i3", "i4", "i5", "i6", "i7"):
+        r = i[tag]
+        line = (f"phase I {what[tag]}: batches={I_BATCHES[tag]} "
+                f"rows/s={r['rows_per_s']:.0f} ")
+        if "rules" in r:
+            line += f"rule_rows/s={r['rule_rows_per_s']:.0f} "
+        line += (f"watermark_node_host_ms_per_batch={r['wm_host_ms']:.3f} "
+                 f"emit_p50_ms={f(r['emit_p50'])} "
+                 f"emit_p99_ms={f(r['emit_p99'])} "
+                 f"dropped_by_watermark={r['wm_dropped']} "
+                 f"dropped_by_fold={r['fold_dropped']} "
+                 f"vector_folds={r['vector_folds']} "
+                 f"scalar_folds={r['scalar_folds']} windows={r['windows']} "
+                 f"max_abs_err={r['max_abs_err']:.3g} ")
+        if tag in ("i1", "i2", "i3"):
+            line += f"flushed_at_eof={r['by_eof']} "
+        if tag == "i4":
+            line += (f"sessions_by_watermark={r['by_watermark']} "
+                     "(the rest one EOF window) ")
+        if tag in ("i5", "i6"):
+            line += f"rows_checked={r['rows_checked']} "
+        if tag == "i6":
+            line += f"hll_one_off={r['off_by_one']} "
+        if tag == "i7":
+            line += (f"demoted={r['demoted']} promoted={r['promoted']} "
+                     f"recycled={r['recycled']} resident={r['resident']} "
+                     f"slots={r['slots']} ")
+        line += (f"panes={r.get('n_panes', 1)} run_s={i['walls'][tag]:.1f} "
+                 f"launches={nz(r['launches'])} "
+                 f"pane_vec_launches={nz(r['row_pane'])}")
+        yield line
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5143,6 +5853,8 @@ def main() -> int:
                                      plan_fused_rule, TorchGroupBy, dev))
     rows.update(tier_kernel_checks(torch, args.seed, kernels,
                                    plan_fused_rule, dev))
+    rows.update(event_group_kernel_checks(torch, args.seed, kernels,
+                                          sketches, dev))
     print(f"phase 2 kernels vs plain: ok (wall {time.perf_counter() - t_run:.0f} s)")
 
     mods = (plan_fused_rule, ColumnBatch, Trigger)
@@ -5274,6 +5986,13 @@ def main() -> int:
         print(line)
     print(f"phase H: wall {time.perf_counter() - t_run:.0f} s")
 
+    # phase I: event time (watermarks, late drop, bucket-routed panes,
+    # sessions, groups with the per-row pane vector, tiering), full size
+    i = run_phase_i(torch, args.seed, kernels, mods)
+    for line in phase_i_lines(i):
+        print(line)
+    print(f"phase I: wall {time.perf_counter() - t_run:.0f} s")
+
     # phase 5: every kernel launched on each path that uses it
     paths = {"tumbling": counts_t, "hopping": counts_h, "hh": counts_hh,
              "pct": b["pct"]["launches"], "hll": b["hll"]["launches"],
@@ -5286,17 +6005,21 @@ def main() -> int:
              **{tag: g[tag]["launches"] for tag in ("g1", "g2a", "g2b")},
              **{tag: h[tag]["launches"] for tag in ("h1", "h2", "h3", "h4",
                                                     "h5_hll", "h5_pct",
-                                                    "h6")}}
+                                                    "h6")},
+             **{tag: i[tag]["launches"] for tag in ("i1", "i2", "i3", "i4",
+                                                    "i5", "i6", "i7")}}
     for name, used_by in PATHS.items():
         for path in used_by:
             check(paths[path][name] > 0,
                   f"{name} was not launched on the {path} path")
-    sliding = {**d, **f}
+    sliding = {**d, **f, **{tag: i[tag] for tag in ("i2", "i3", "i5",
+                                                    "i6")}}
     for name, used_by in ROW_PANE_PATHS.items():
         for path in used_by:
             check(sliding[path]["row_pane"][name] > 0,
                   f"{name} took no per-row pane vector on the {path} path")
     touch = {tag: g[tag]["touch_launches"] for tag in ("g1", "g2a", "g2b")}
+    touch["i7"] = i["i7"]["touch_launches"]
     for name, used_by in TOUCH_PATHS.items():
         for path in used_by:
             check(touch[path][name] > 0,
@@ -5344,15 +6067,17 @@ def main() -> int:
     table["kernels"][6]["hll_hopping"] = rows["groupby_components/hll/full"]
     table["kernels"][7]["percentile"] = rows["groupby_absorb/pct"]
     # the folds with a per-row pane vector (the sliding paths)
-    for i, name in ((0, "groupby_fold_scalar"), (3, "groupby_fold_wide")):
-        table["kernels"][i]["pane_vec"] = dict(
+    # (and #15's per-row pane vector, the event-time groups)
+    for k, name in ((0, "groupby_fold_scalar"), (3, "groupby_fold_wide"),
+                    (11, "multirule_fold"), (18, "multirule_fold_wide")):
+        table["kernels"][k]["pane_vec"] = dict(
             rows[f"{name}/pane_vec"], launches_by_path={
                 p: sliding[p]["row_pane"][name]
                 for p in ROW_PANE_PATHS[name]})
-    for i, name in ((8, "ring_advance"), (9, "ring_flip"),
+    for k, name in ((8, "ring_advance"), (9, "ring_flip"),
                     (10, "ring_query")):
-        table["kernels"][i]["scalar_rule"] = rows[f"{name}/scalar"]
-        table["kernels"][i]["hll_rule"] = rows[f"{name}/hll"]
+        table["kernels"][k]["scalar_rule"] = rows[f"{name}/scalar"]
+        table["kernels"][k]["hll_rule"] = rows[f"{name}/hll"]
     table["kernels"][12]["hopping_subset"] = rows[
         "multirule_finalize/hopping_subset"]
     table["kernels"][15]["hll_rule"] = rows["groupby_fold_masked_wide/hll"]
@@ -5361,15 +6086,15 @@ def main() -> int:
         rows["groupby_fold_scalar/touch"], launches_by_path={
             p: touch[p]["groupby_fold_scalar"]
             for p in TOUCH_PATHS["groupby_fold_scalar"]})
-    for i, name in ((16, "tier_demote"), (17, "tier_promote")):
+    for k, name in ((16, "tier_demote"), (17, "tier_promote")):
         for tag in ("g1", "g2", "hll", "pct"):
             if f"{name}/{tag}" != main_row[name]:
-                table["kernels"][i][f"{tag}_state"] = rows[f"{name}/{tag}"]
+                table["kernels"][k][f"{tag}_state"] = rows[f"{name}/{tag}"]
     # the sketch groups: the percentile family's runs, and the pane reset
     # over wide state
-    for i, name in ((18, "multirule_fold_wide"),
+    for k, name in ((18, "multirule_fold_wide"),
                     (19, "multirule_finalize_wide")):
-        table["kernels"][i]["pct_family"] = rows[f"{name}/pct"]
+        table["kernels"][k]["pct_family"] = rows[f"{name}/pct"]
     table["kernels"][13]["hll_family"] = rows["multirule_reset_pane/hll"]
     table["kernels"][13]["pct_family"] = rows["multirule_reset_pane/pct"]
     check(len(table["kernels"]) == 20, "kernel table")

@@ -15,7 +15,10 @@
 // multirule_fold       replaces BatchedGroupBy._batched_fold_impl
 //                      (ekuiper_tpu/parallel/multirule.py:196), the vmap of
 //                      _fold_impl over the rule axis with each rule's WHERE
-//                      parameters bound: act and the scalar components
+//                      parameters bound: act and the scalar components,
+//                      into one pane or each row into its own (the uint8
+//                      pane vector the vmap shares across rules,
+//                      ekuiper_tpu/ops/groupby.py:334-338)
 // multirule_fold_wide  replaces the same vmap's hll / hist branches
 //                      (ekuiper_tpu/ops/groupby.py:421-432): the wide
 //                      components, after multirule_fold
@@ -81,14 +84,17 @@ __device__ __forceinline__ Comps rule_comps(const Comps& cp, int rule,
 // row mask after its WHERE; M[s] is spec s's mask (column validity AND
 // not-NaN AND its FILTER, the same for every rule: only WHERE carries the
 // rules' parameters), V[s] its float32 argument. A row folds into pane
-// `pane` of its rule as fold_scalar_kernel folds it; a slot outside [0, C)
-// is dropped.
+// `pane` of its rule, or into pane_vec[r] when pane_vec is given (an
+// event-time batch across bucket edges: the row's own bucket pane, the
+// same for every rule), as fold_scalar_kernel folds it; a slot outside
+// [0, C) or a pane outside [0, P) is dropped.
 __global__ void multirule_fold_kernel(const uint8_t* __restrict__ base,
                                       const float* __restrict__ V,
                                       const uint8_t* __restrict__ M,
                                       const int32_t* __restrict__ slots,
-                                      int n_rows, int pane, int P, int C,
-                                      ColMap cm, Comps cp,
+                                      int n_rows, int pane,
+                                      const uint8_t* __restrict__ pane_vec,
+                                      int P, int C, ColMap cm, Comps cp,
                                       float* __restrict__ act) {
   const int rule = blockIdx.y;
   const int64_t pcs = (int64_t)P * C;
@@ -100,7 +106,9 @@ __global__ void multirule_fold_kernel(const uint8_t* __restrict__ base,
     if (!rb[r]) continue;
     const int slot = slots[r];
     if (slot < 0 || slot >= C) continue;
-    const int64_t pc = (int64_t)pane * C + slot;
+    const int p = pane_vec != nullptr ? (int)pane_vec[r] : pane;
+    if (p >= P) continue;
+    const int64_t pc = (int64_t)p * C + slot;
     atomicAdd(ract + pc, 1.0f);
     fold_row_columns(cm, rc, V, M, n_rows, r, pc);
   }
@@ -131,13 +139,16 @@ __global__ void multirule_finalize_kernel(Comps cp,
 // rho, or the histogram bin, once, and applies it to the state of every
 // rule whose bit is set: an atomic max of rho, or an add of 1. max is
 // order-free and the counts stay below 2^24, so the result does not depend
-// on the order of the atomics. Only hll and hist columns (the entry point
-// refuses hh); a slot outside [0, C) is dropped.
+// on the order of the atomics. The row's pane is `pane`, or pane_vec[r]
+// when pane_vec is given (multirule_fold_kernel's), read once with its
+// slot. Only hll and hist columns (the entry point refuses hh); a slot
+// outside [0, C) or a pane outside [0, P) is dropped.
 __global__ void multirule_fold_wide_kernel(const uint8_t* __restrict__ base,
                                            const float* __restrict__ V,
                                            const uint8_t* __restrict__ M,
                                            const int32_t* __restrict__ slots,
                                            int n_rows, int n_rules, int pane,
+                                           const uint8_t* __restrict__ pane_vec,
                                            int P, int C, WideCols wc, Wide w,
                                            HistConsts hc) {
   const int rule0 = blockIdx.y * RULES_PER_BLOCK;
@@ -147,6 +158,8 @@ __global__ void multirule_fold_wide_kernel(const uint8_t* __restrict__ base,
        r += gridDim.x * blockDim.x) {
     const int slot = slots[r];
     if (slot < 0 || slot >= C) continue;
+    const int p = pane_vec != nullptr ? (int)pane_vec[r] : pane;
+    if (p >= P) continue;
     uint32_t bits = 0;
     for (int i = 0; i < nr; ++i)
       bits |= (uint32_t)(rb[(int64_t)i * n_rows + r] != 0) << i;
@@ -167,7 +180,7 @@ __global__ void multirule_fold_wide_kernel(const uint8_t* __restrict__ base,
         idx = hist_bin(v, hc);
       }
       float* dst = w.p[comp] + rule0 * rule_len +
-                   (((int64_t)pane * C + slot) * K + wc.k[j]) * W + idx;
+                   (((int64_t)p * C + slot) * K + wc.k[j]) * W + idx;
       for (uint32_t b = bits; b != 0; b &= b - 1) {
         float* d = dst + (int64_t)(__ffs(b) - 1) * rule_len;
         if (comp == W_HLL)
@@ -222,15 +235,16 @@ __global__ void multirule_reset_kernel(ResetTab rt, int P, int pane) {
 extern "C" {
 
 // base: device uint8 (n_rules, n_rows); V: float32 (S, n_rows); M: uint8
-// (S, n_rows); slots: int32 (n_rows,). colmap: host int32 (ncols, 3) =
-// (comp, k, spec). comp_ptrs / comp_k: host arrays of N_COMPS device
+// (S, n_rows); slots: int32 (n_rows,). pane_vec: device uint8 (n_rows,)
+// per-row panes that replace `pane`, or null. colmap: host int32 (ncols,
+// 3) = (comp, k, spec). comp_ptrs / comp_k: host arrays of N_COMPS device
 // pointers to rule 0's block (null = absent) and widths; act: float32
 // (n_rules, P, C).
 int multirule_fold(const uint8_t* base, const float* V, const uint8_t* M,
                    const int32_t* slots, int n_rows, int n_rules, int pane,
-                   int P, int C, const int32_t* colmap, int ncols,
-                   float* const* comp_ptrs, const int32_t* comp_k, float* act,
-                   void* stream) {
+                   const uint8_t* pane_vec, int P, int C,
+                   const int32_t* colmap, int ncols, float* const* comp_ptrs,
+                   const int32_t* comp_k, float* act, void* stream) {
   ColMap cm;
   if (!make_colmap(colmap, ncols, &cm) || n_rows < 0 || n_rules < 0 ||
       n_rules > MAX_RULES || pane < 0 || pane >= P)
@@ -239,7 +253,7 @@ int multirule_fold(const uint8_t* base, const float* V, const uint8_t* M,
   const int threads = 256;
   const dim3 grid(grid_for(n_rows, threads), n_rules);
   multirule_fold_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      base, V, M, slots, n_rows, pane, P, C, cm,
+      base, V, M, slots, n_rows, pane, pane_vec, P, C, cm,
       make_comps(comp_ptrs, comp_k), act);
   return (int)cudaGetLastError();
 }
@@ -264,16 +278,16 @@ int multirule_finalize(float* const* comp_ptrs, const int32_t* comp_k,
   return (int)cudaGetLastError();
 }
 
-// base, V, M, slots, pane: as multirule_fold. colmap: host int32 (ncols,
-// 3) = (wide comp W_HLL or W_HIST, k, spec). wide_ptrs / wide_k: host
-// arrays of N_WIDE device pointers to rule 0's block (null = absent) and
-// widths; hist_consts: as csrc/sketches.cu groupby_fold_wide's.
+// base, V, M, slots, pane, pane_vec: as multirule_fold. colmap: host
+// int32 (ncols, 3) = (wide comp W_HLL or W_HIST, k, spec). wide_ptrs /
+// wide_k: host arrays of N_WIDE device pointers to rule 0's block (null =
+// absent) and widths; hist_consts: as csrc/sketches.cu groupby_fold_wide's.
 int multirule_fold_wide(const uint8_t* base, const float* V, const uint8_t* M,
                         const int32_t* slots, int n_rows, int n_rules,
-                        int pane, int P, int C, const int32_t* colmap,
-                        int ncols, float* const* wide_ptrs,
-                        const int32_t* wide_k, const float* hist_consts,
-                        void* stream) {
+                        int pane, const uint8_t* pane_vec, int P, int C,
+                        const int32_t* colmap, int ncols,
+                        float* const* wide_ptrs, const int32_t* wide_k,
+                        const float* hist_consts, void* stream) {
   WideCols wc;
   if (!make_widecols(colmap, ncols, &wc) || n_rows < 0 || n_rules < 0 ||
       n_rules > MAX_RULES || pane < 0 || pane >= P)
@@ -286,7 +300,7 @@ int multirule_fold_wide(const uint8_t* base, const float* V, const uint8_t* M,
   const dim3 grid(grid_for(n_rows, threads),
                   (n_rules + RULES_PER_BLOCK - 1) / RULES_PER_BLOCK);
   multirule_fold_wide_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      base, V, M, slots, n_rows, n_rules, pane, P, C, wc,
+      base, V, M, slots, n_rows, n_rules, pane, pane_vec, P, C, wc,
       make_wide(wide_ptrs, wide_k), make_hc(hist_consts));
   return (int)cudaGetLastError();
 }

@@ -115,14 +115,16 @@ csrc/sketch_common.cuh):
 - `multirule_fold` replaces `BatchedGroupBy._batched_fold_impl`
   (multirule.py:196), the vmap of #1 with each rule's WHERE parameters
   bound: the shared spec values and masks, each rule's row mask, into
-  (R, P, C, k). Bound: 17.6 MB of inputs at the 256-rule group (5.3 µs),
-  but ~33M scattered atomics a batch into 67 MB of state, which set its
-  time.
+  (R, P, C, k), one pane or each row into its own (`pane_vec`, the uint8
+  per-row pane vector the vmap shares across rules, groupby.py:334-338:
+  an event-time batch across bucket edges). Bound: 17.6 MB of inputs at
+  the 256-rule group (5.3 µs), but ~33M scattered atomics a batch into
+  67 MB of state, which set its time.
 - `multirule_fold_wide` replaces the hll / hist branches of the same vmap
   (groupby.py:421-432): each row's register and rho, or its bin, computed
   once and applied to every rule whose row mask keeps the row, into
-  (R, P, C, k, W). Bit-equal to its plain version (max is order-free,
-  counts stay below 2^24). Bound: its inputs once, then one scattered
+  (R, P, C, k, W), with the same per-row panes. Bit-equal to its plain
+  version (max is order-free, counts stay below 2^24). Bound: its inputs once, then one scattered
   atomic per (rule, passing row, sketch column) into GBs of state.
 - `multirule_finalize` replaces `_batched_finalize_impl` (multirule.py:210)
   and the key cut of `finalize_begin`: every rule's pane merge and final
@@ -248,7 +250,9 @@ LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0,
                             "tier_promote": 0}
 #: of LAUNCHES' folds, those that took a per-row pane vector
 ROW_PANE_LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0,
-                                     "groupby_fold_wide": 0}
+                                     "groupby_fold_wide": 0,
+                                     "multirule_fold": 0,
+                                     "multirule_fold_wide": 0}
 #: of LAUNCHES' folds, those that bumped a touch column (tiered key state)
 TOUCH_LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0}
 
@@ -361,12 +365,12 @@ def _load():
             sr.ring_query.argtypes = [P, P, P, P, P, P, I, I, I, I, I, P, P,
                                       P, P, P]
             mr = ctypes.CDLL(str(paths["multirule"]))
-            mr.multirule_fold.argtypes = [P, P, P, P, I, I, I, I, I, P, I,
-                                          P, P, P, P]
+            mr.multirule_fold.argtypes = [P, P, P, P, I, I, I, P, I, I, P,
+                                          I, P, P, P, P]
             mr.multirule_finalize.argtypes = [P, P, P, P, I, I, I, I, P, I,
                                               I, P, P]
-            mr.multirule_fold_wide.argtypes = [P, P, P, P, I, I, I, I, I, P,
-                                               I, P, P, P, P]
+            mr.multirule_fold_wide.argtypes = [P, P, P, P, I, I, I, P, I, I,
+                                               P, I, P, P, P, P]
             mr.multirule_finalize_wide.argtypes = [P, P, P, I, I, I, I, P, P,
                                                    I, P, L, I, P, P]
             mr.multirule_reset_pane.argtypes = [P, P, P, I, I, I, I, P]
@@ -1406,9 +1410,26 @@ def _rule_wide_table(state: Dict[str, torch.Tensor]):
     return ptrs, ks
 
 
+def _check_rule_panes(name: str, state: Dict[str, torch.Tensor],
+                      pane_vec: Optional[torch.Tensor], n: int) -> None:
+    """A rule group's per-row pane vector: uint8 (n,) on the state's
+    device, every pane below P. The range check reads the vector's max
+    back (a wait on the card's stream): a pane at or above P is an error,
+    not a row silently dropped."""
+    if pane_vec is None:
+        return
+    act = state["act"]
+    _check(name, pane_vec, torch.uint8, (n,), act.device)
+    P = act.shape[1]
+    if n and int(pane_vec.max()) >= P:
+        raise ValueError(f"{name}: pane {int(pane_vec.max())} outside "
+                         f"[0, {P})")
+
+
 def multirule_fold(state: Dict[str, torch.Tensor], base: torch.Tensor,
                    V: torch.Tensor, M: torch.Tensor, slots: torch.Tensor,
-                   pane: int, colmap: np.ndarray) -> None:
+                   pane: int, colmap: np.ndarray,
+                   pane_vec: Optional[torch.Tensor] = None) -> None:
     """Fold one micro-batch into every rule of a group's state, in place,
     in one launch: act and the scalar components of rule r take the rows
     of base[r].
@@ -1416,12 +1437,16 @@ def multirule_fold(state: Dict[str, torch.Tensor], base: torch.Tensor,
     base: bool (R, n), each rule's row mask after its WHERE. V: float32
     (S, n) spec values and M: bool (S, n) spec masks (validity, not-NaN,
     FILTER: the same for every rule, without the row mask). slots: int32
-    (n,). colmap: int32 (ncols, 3) of (COMP_IDS[comp], k, spec). The wide
-    components are multirule_fold_wide's.
+    (n,). colmap: int32 (ncols, 3) of (COMP_IDS[comp], k, spec). pane_vec:
+    optional uint8 (n,) per-row panes, shared by every rule, which replace
+    `pane` (an event-time batch across bucket edges); each must be below
+    P. The wide components are multirule_fold_wide's.
     """
     name = "multirule_fold"
+    _check_rule_panes(name, state, pane_vec, V.shape[1])
     if not _on_cuda(name, state):
-        multirule_fold_plain(state, base, V, M, slots, pane, colmap)
+        multirule_fold_plain(state, base, V, M, slots, pane, colmap,
+                             pane_vec)
         return
     NR, P, C, ptrs, ks = _rule_table(name, state)
     act = state["act"]
@@ -1437,22 +1462,31 @@ def multirule_fold(state: Dict[str, torch.Tensor], base: torch.Tensor,
     lib = _load()
     with torch.cuda.device(dev):
         rc = lib.multirule.multirule_fold(
-            _ptr(base), _ptr(V), _ptr(M), _ptr(slots), n, NR, int(pane), P,
-            C, _ptr(colmap), len(colmap), _ptr(ptrs), _ptr(ks), _ptr(act),
-            _stream(dev))
+            _ptr(base), _ptr(V), _ptr(M), _ptr(slots), n, NR, int(pane),
+            _opt_ptr(pane_vec), P, C, _ptr(colmap), len(colmap), _ptr(ptrs),
+            _ptr(ks), _ptr(act), _stream(dev))
         LAUNCHES[name] += 1
+        if pane_vec is not None:
+            ROW_PANE_LAUNCHES[name] += 1
     _raise_on(lib, name, rc)
 
 
-def multirule_fold_plain(state, base, V, M, slots, pane, colmap) -> None:
+def _rule_rows_plain(NR: int, P: int, C: int, pane, pane_vec, slots):
+    """(NR, n) flat (rule, pane, slot) index of each rule's rows and the
+    (n,) in-range mask: _pane_rows' index, offset by each rule's state."""
+    pc, ok = _pane_rows(pane, pane_vec, slots, P, C)
+    rule = torch.arange(NR, device=pc.device)[:, None]
+    return rule * (P * C) + pc[None, :], ok
+
+
+def multirule_fold_plain(state, base, V, M, slots, pane, colmap,
+                         pane_vec=None) -> None:
     """Plain PyTorch version of multirule_fold: the single-rule plain fold's
     scatters over a rule-offset flat index, (r, pane, slot)."""
     NR, P, C = state["act"].shape
     S, n = V.shape
-    slots = slots.long()
-    ok = (slots >= 0) & (slots < C)
-    rule = torch.arange(NR, device=slots.device)[:, None]
-    pc = ((rule * P + pane) * C + slots.clamp(0, C - 1)[None, :]).reshape(-1)
+    pc, ok = _rule_rows_plain(NR, P, C, pane, pane_vec, slots)
+    pc = pc.reshape(-1)
     rows = base & ok
     _fold_columns_plain(state, pc, rows.reshape(-1), V.repeat(1, NR),
                         (M[:, None, :] & rows[None]).reshape(S, -1), colmap)
@@ -1460,17 +1494,20 @@ def multirule_fold_plain(state, base, V, M, slots, pane, colmap) -> None:
 
 def multirule_fold_wide(state: Dict[str, torch.Tensor], base: torch.Tensor,
                         V: torch.Tensor, M: torch.Tensor, slots: torch.Tensor,
-                        pane: int, widemap: np.ndarray) -> None:
+                        pane: int, widemap: np.ndarray,
+                        pane_vec: Optional[torch.Tensor] = None) -> None:
     """Fold one micro-batch into every rule's hll and hist components, in
     place, in one launch: rule r takes the rows of base[r]. base, V, M,
-    slots, pane: as multirule_fold. widemap: int32 (ncols, 3) of
+    slots, pane, pane_vec: as multirule_fold. widemap: int32 (ncols, 3) of
     (WIDE_IDS[comp], k, spec), hll and hist columns only."""
     name = "multirule_fold_wide"
     widemap = np.ascontiguousarray(widemap, dtype=np.int32).reshape(-1, 3)
     if (widemap[:, 0] == WIDE_IDS["hh"]).any():
         raise ValueError(f"{name}: heavy_hitters does not batch")
+    _check_rule_panes(name, state, pane_vec, V.shape[1])
     if not _on_cuda(name, state):
-        multirule_fold_wide_plain(state, base, V, M, slots, pane, widemap)
+        multirule_fold_wide_plain(state, base, V, M, slots, pane, widemap,
+                                  pane_vec)
         return
     NR, P, C, _, _ = _rule_table(name, state)
     ptrs, ks = _rule_wide_table(state)
@@ -1486,23 +1523,22 @@ def multirule_fold_wide(state: Dict[str, torch.Tensor], base: torch.Tensor,
     lib = _load()
     with torch.cuda.device(dev):
         rc = lib.multirule.multirule_fold_wide(
-            _ptr(base), _ptr(V), _ptr(M), _ptr(slots), n, NR, int(pane), P,
-            C, _ptr(widemap), len(widemap), _ptr(ptrs), _ptr(ks),
-            _ptr(HIST_CONSTS), _stream(dev))
+            _ptr(base), _ptr(V), _ptr(M), _ptr(slots), n, NR, int(pane),
+            _opt_ptr(pane_vec), P, C, _ptr(widemap), len(widemap),
+            _ptr(ptrs), _ptr(ks), _ptr(HIST_CONSTS), _stream(dev))
         LAUNCHES[name] += 1
+        if pane_vec is not None:
+            ROW_PANE_LAUNCHES[name] += 1
     _raise_on(lib, name, rc)
 
 
-def multirule_fold_wide_plain(state, base, V, M, slots, pane,
-                              widemap) -> None:
+def multirule_fold_wide_plain(state, base, V, M, slots, pane, widemap,
+                              pane_vec=None) -> None:
     """Plain PyTorch version of multirule_fold_wide: each row's register
     and rho (or bin) once, scattered over a rule-offset flat index
     (r, pane, slot, k, register) for the rules that keep the row."""
     NR, P, C = state["act"].shape
-    slots = slots.long()
-    ok = (slots >= 0) & (slots < C)
-    rule = torch.arange(NR, device=slots.device)[:, None]
-    rp = (rule * P + pane) * C + slots.clamp(0, C - 1)[None, :]  # (NR, n)
+    rp, ok = _rule_rows_plain(NR, P, C, pane, pane_vec, slots)  # (NR, n)
     for comp_id, k, s in np.asarray(widemap).reshape(-1, 3).tolist():
         comp = _WIDE_NAMES[comp_id]
         arr = state[comp]

@@ -25,8 +25,10 @@ the rules' values (the reference binds each rule's scalar under vmap; a
 parameter has no validity mask, as the reference's
 `c["__valid_" + name] = None`).
 
-heavy_hitters is refused with the reference's message; per-row panes
-(event-time groups) are not batched in the port yet.
+A batch of an event-time group that crosses bucket edges folds each row
+into its bucket's pane: the uint8 per-row pane vector goes to both
+batched folds, the same vector for every rule. heavy_hitters is refused
+with the reference's message.
 """
 from __future__ import annotations
 
@@ -183,15 +185,15 @@ class BatchedGroupBy(TorchGroupBy):
         return base, V, M
 
     def _fold_chunk(self, state, cols, n, slots, pane, pane_vec) -> None:
-        if pane_vec is not None:
-            raise NotImplementedError(
-                "per-row panes (sliding or event-time windows) are not "
-                "batched in a rule group")
+        """One chunk into every rule: into pane `pane`, or each row into
+        pane_vec's (an event-time batch across bucket edges; the vector is
+        the same for every rule, as the reference's vmap shares it)."""
         base, V, M = self.rule_inputs(cols, n)
-        kernels.multirule_fold(state, base, V, M, slots, pane, self._colmap)
+        kernels.multirule_fold(state, base, V, M, slots, pane, self._colmap,
+                               pane_vec)
         if len(self._widemap):
             kernels.multirule_fold_wide(state, base, V, M, slots, pane,
-                                        self._widemap)
+                                        self._widemap, pane_vec)
 
     # --------------------------------------------------------------- finalize
     def _slice_keys(self, n_keys: int) -> int:

@@ -10,20 +10,25 @@ from ..ops.aggspec import extract_kernel_plan
 from ..ops.emit import build_direct_emit
 from ..ops.slidingring import ring_layout_for
 from ..ops.tierstore import env_hbm_budget_mb
-from ..runtime.nodes_fused import FusedWindowAggNode
+from ..runtime.nodes_fused import (MAX_EVENT_PANES, FusedWindowAggNode,
+                                   event_time_panes)
+from ..runtime.nodes_window import WatermarkNode
 from ..sql import ast
 from ..sql.compiler import try_compile
 from ..sql.parser import parse_select
+from ..utils.cron import parse_duration_ms
 from ..utils.device import Device, resolve_device
 from ..utils.infra import PlanError
 
 
 #: the rule options the port takes (the reference's names,
-#: ekuiper_tpu/planner/planner.py:172-173, 178-179, 183-185) and their
-#: defaults (ekuiper_tpu/utils/config.py:68, 72, 88-93, 97, 101)
+#: ekuiper_tpu/planner/planner.py:163-164, 172-173, 178-179, 183-185) and
+#: their defaults (ekuiper_tpu/utils/config.py:26-27, 68, 72, 88-93, 97,
+#: 101)
 RULE_OPTIONS = {"prefinalizeLeadMs": 250, "tailMode": "device",
                 "slidingDevRingMb": 256, "slidingImpl": "daba",
-                "tierStore": "auto", "tierHotMb": 0, "tierScanMs": 0}
+                "tierStore": "auto", "tierHotMb": 0, "tierScanMs": 0,
+                "isEventTime": False, "lateTolerance": 1000}
 
 
 def plan_fused_rule(sql: str, key_slots: int = 16384,
@@ -62,6 +67,22 @@ def plan_fused_rule(sql: str, key_slots: int = 16384,
     times `key_slots`' state (the node's `tier` is then its TierManager);
     a tiered sliding rule raises NotImplementedError.
 
+    Event time (`isEventTime` true; `lateTolerance`, an int of ms or a
+    Go-style duration such as "1s", default 1000): the returned fused
+    node has its WatermarkNode connected ahead of it, as
+    `node.watermark`. Feed the batches to `node.watermark.process(batch)`
+    (rows need `timestamps`, int64 ms): it drops the rows later than the
+    tolerance behind the newest timestamp (`node.watermark.dropped`),
+    orders the batch by time, passes it on, and then sends the watermark
+    that makes the fused node emit every window it has passed (a session
+    window: every session it has closed), synchronously. EOF given to
+    `node.watermark.put_control(EOF())` flushes the rest. An event-time
+    sliding window, a shape needing more than 255 panes (the window's
+    buckets and the tolerance's) and a hopping interval that does not
+    divide the length raise NotImplementedError (the reference runs them
+    on its host window path). A processing-time rule has no watermark
+    node (`node.watermark` is None).
+
     Raises PlanError for a statement that is not a windowed aggregate or
     an option value it cannot take, NotImplementedError for a shape or an
     option the port does not run yet (the reference's host fallback paths
@@ -78,6 +99,8 @@ def plan_fused_rule(sql: str, key_slots: int = 16384,
             "rule does not fold on the device; the host path is not "
             "ported yet")
     row_window_gate(stmt)
+    if opts["isEventTime"]:
+        event_time_gate(stmt.window, opts["lateTolerance"])
     sliding = stmt.window.window_type == ast.WindowType.SLIDING_WINDOW
     ring_layout = None
     if sliding:
@@ -106,14 +129,52 @@ def plan_fused_rule(sql: str, key_slots: int = 16384,
     tier_budget_mb = resolve_tier_budget_mb(opts)
     if tier_budget_mb and (stmt.sorts or stmt.limit is not None):
         tier_budget_mb = 0.0
-    return FusedWindowAggNode(
+    node = FusedWindowAggNode(
         "window_agg", stmt.window, plan, dims, capacity=key_slots,
         micro_batch=micro_batch, direct_emit=direct, emit_columnar=True,
         device=dev, prefinalize_lead_ms=opts["prefinalizeLeadMs"],
         tail_mode=opts["tailMode"],
         dev_ring_budget_mb=opts["slidingDevRingMb"],
         sliding_impl=opts["slidingImpl"], ring_layout=ring_layout,
-        tier_budget_mb=tier_budget_mb, tier_scan_ms=opts["tierScanMs"])
+        tier_budget_mb=tier_budget_mb, tier_scan_ms=opts["tierScanMs"],
+        is_event_time=opts["isEventTime"],
+        late_tolerance_ms=opts["lateTolerance"])
+    # the reference's chain (planner.py:1037-1045): source → watermark →
+    # fused node; the port has no topology, so the node carries its entry
+    if opts["isEventTime"]:
+        node.watermark = WatermarkNode(
+            "watermark", late_tolerance_ms=opts["lateTolerance"])
+        node.watermark.connect(node)
+    return node
+
+
+def event_time_gate(window: ast.Window, late_tolerance_ms: int) -> None:
+    """The reference's event-time device eligibility (planner.py:324-325,
+    336-360). Raises NotImplementedError for the shapes its host window
+    path runs, which is not ported: a sliding window, a tumbling or
+    hopping window whose live buckets (the window's span, the tolerance's
+    buckets and two of slack) need more than 255 panes, a hopping interval
+    that does not divide the length."""
+    wt = window.window_type
+    if wt == ast.WindowType.SLIDING_WINDOW:
+        raise NotImplementedError(
+            "an event-time sliding window runs on the host window path, "
+            "which is not ported yet")
+    if wt not in (ast.WindowType.TUMBLING_WINDOW,
+                  ast.WindowType.HOPPING_WINDOW):
+        return
+    length, interval = window.length_ms(), window.interval_ms()
+    if wt == ast.WindowType.HOPPING_WINDOW and (
+            interval <= 0 or interval > length or length % interval):
+        raise NotImplementedError(
+            "a hopping window whose interval does not divide its length "
+            "runs on the host window path, which is not ported yet")
+    n_panes = event_time_panes(window, late_tolerance_ms)[2]
+    if n_panes > MAX_EVENT_PANES:
+        raise NotImplementedError(
+            f"an event-time window needing {n_panes} panes (max "
+            f"{MAX_EVENT_PANES}) runs on the host window path, which is "
+            "not ported yet")
 
 
 def row_window_gate(stmt: ast.SelectStatement) -> None:
@@ -200,4 +261,23 @@ def rule_options(options: Optional[Mapping[str, object]]) -> dict:
         if isinstance(v, bool) or not isinstance(v, int) or v < 0:
             raise PlanError(f"{key} must be a non-negative int of {unit}, "
                             f"got {v!r}")
+    v = opts["isEventTime"]
+    if isinstance(v, str):  # the reference's reading of a boolean option
+        if v.strip().lower() not in ("true", "1", "false", "0"):
+            raise PlanError(f"isEventTime must be a boolean, got {v!r}")
+        v = v.strip().lower() in ("true", "1")
+    opts["isEventTime"] = bool(v)
+    v = opts["lateTolerance"]
+    try:
+        # int ms or a Go-style duration; '' and bools would read as a
+        # degenerate 0 or 1 ms
+        if isinstance(v, bool) or (isinstance(v, str) and not v.strip()):
+            raise ValueError("not a duration")
+        ms = parse_duration_ms(v)
+    except Exception as exc:
+        raise PlanError(f"lateTolerance must be an int of ms or a duration, "
+                        f"got {v!r}") from exc
+    if ms < 0:
+        raise PlanError(f"lateTolerance must not be negative, got {v!r}")
+    opts["lateTolerance"] = ms
     return opts

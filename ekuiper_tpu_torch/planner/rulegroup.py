@@ -48,10 +48,21 @@ def plan_rule_group(rule_ids: Sequence[str], sqls: Sequence[str],
     more than one source, statements that are not homogeneous or not
     device-eligible, heavy_hitters, a tail that does not vectorize) and
     NotImplementedError for a group the port does not run yet: a sliding
-    window.
+    window; and for `isEventTime`, which the reference's group planner
+    drops (it would run the group on processing time). An event-time
+    group is built at the node: `MultiRuleFusedNode(...,
+    is_event_time=True, late_tolerance_ms=...)` with a
+    runtime/nodes_window.py WatermarkNode connected ahead of it, as the
+    reference's is.
     """
     dev = resolve_device(device)
-    rule_options(options)
+    if rule_options(options)["isEventTime"]:
+        raise NotImplementedError(
+            "isEventTime on a rule group: the reference's group planner "
+            "drops it and runs the group on processing time; build the "
+            "event-time group at the node instead, MultiRuleFusedNode(..., "
+            "is_event_time=True, late_tolerance_ms=...) behind a "
+            "runtime.nodes_window.WatermarkNode")
     if not sqls:
         raise PlanError("empty rule group")
     if len(rule_ids) != len(sqls):

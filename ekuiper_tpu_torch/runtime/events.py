@@ -15,6 +15,15 @@ class EOF:
 
 
 @dataclass
+class Watermark:
+    """Event-time watermark: no further rows with a timestamp below `ts`
+    are expected (the WatermarkNode's broadcast, runtime/nodes_window.py).
+    A node receives it in `on_watermark`, under its lock."""
+
+    ts: int
+
+
+@dataclass
 class Trigger:
     """Window trigger tick (processing time): `ts` is the window end. A
     delayed sliding emission carries tag ("sliding", t), t its trigger

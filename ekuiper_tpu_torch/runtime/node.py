@@ -2,12 +2,16 @@
 
 Its caller calls `process` with each data item, in order, on one thread;
 output goes to the connected downstream nodes through `emit` /
-`broadcast`, or to one of them through `send_to`. Control events (window triggers, pre-triggers, EOF) arrive
-through `put_control`, which the clock's timers call once the node is
-opened (`on_open`); a caller that never opens the node calls `on_trigger`
-itself. The port has no input queue or worker thread yet: `put_control`
-runs the handler inline, under the node's lock, which `process` holds
-too, so a timer thread of the real clock cannot interleave with a fold.
+`broadcast`, or to one of them through `send_to`. Control events (window
+triggers, pre-triggers, EOF, watermarks) arrive through `put_control`,
+which the clock's timers call once the node is opened (`on_open`); a
+caller that never opens the node calls `on_trigger` itself. A watermark
+sent downstream (`send_to`) reaches the next node's `on_watermark`
+through its `put_control`, never its `process`: data and watermarks
+leave a node in the order it emitted them. The port has no input queue
+or worker thread yet: `put_control` runs the handler inline, under the
+node's lock, which `process` holds too, so a timer thread of the real
+clock cannot interleave with a fold.
 
 An exception in a handler (a failed kernel launch among them) propagates
 to the caller; nothing is caught and skipped. `snapshot_state` /
@@ -18,7 +22,7 @@ from __future__ import annotations
 import threading
 from typing import Any, List, Optional
 
-from .events import EOF, PreTrigger, Trigger
+from .events import EOF, PreTrigger, Trigger, Watermark
 
 
 class Node:
@@ -41,6 +45,8 @@ class Node:
                 self.on_pre_trigger(item)
             elif isinstance(item, EOF):
                 self.on_eof(item)
+            elif isinstance(item, Watermark):
+                self.on_watermark(item)
             else:
                 raise TypeError(f"not a control event: {item!r}")
 
@@ -60,6 +66,9 @@ class Node:
     def on_pre_trigger(self, pre: PreTrigger) -> None:
         pass
 
+    def on_watermark(self, wm: Watermark) -> None:
+        self.broadcast(wm)
+
     def on_eof(self, eof: EOF) -> None:
         self.broadcast(eof)
 
@@ -73,8 +82,12 @@ class Node:
 
     def send_to(self, out: "Node", item: Any) -> None:
         """Hand `item` to one downstream node (a rule group routes each
-        rule's window to that rule's own node through it)."""
-        out.process(item)
+        rule's window to that rule's own node through it); a watermark
+        goes to its `on_watermark`, under its lock."""
+        if isinstance(item, Watermark):
+            out.put_control(item)
+        else:
+            out.process(item)
 
     # ------------------------------------------------------------------- state
     def snapshot_state(self) -> Optional[dict]:

@@ -1,6 +1,7 @@
 """Fused window→GROUP BY→aggregate node (counterpart of
-ekuiper_tpu/runtime/nodes_fused.py `FusedWindowAggNode`, processing-time
-TUMBLING, HOPPING, SLIDING, COUNT, SESSION and STATE windows).
+ekuiper_tpu/runtime/nodes_fused.py `FusedWindowAggNode`: TUMBLING,
+HOPPING, SLIDING, COUNT, SESSION and STATE windows on processing time,
+and all but SLIDING on event time).
 
 Per micro-batch: encode GROUP BY keys to slots (host dictionary), upload
 the kernel's columns and fold them into the device partials
@@ -99,8 +100,29 @@ own edges, not on the clock's boundaries, as the reference's do:
   generation), so a trigger of a closed session or a superseded gap
   check does nothing.
 
-Not ported yet, and refused at construction: event time, tiered sliding
-rules (the reference demotes their quiescent keys only) and the mesh.
+Event time (`is_event_time`, behind a runtime/nodes_window.py
+WatermarkNode that drops late rows and orders the batch): no boundary
+timers; the watermarks, delivered to `on_watermark`, close the windows.
+
+- TUMBLING / HOPPING: each row folds into the pane of its time bucket
+  (bucket = ts // the hop or the length, pane = bucket % n_panes; n_panes
+  covers the window's span, the late tolerance and two of slack). A batch
+  of one bucket folds with a scalar pane, one across buckets with a uint8
+  per-row pane vector (a rule group too: the batched folds take it). A
+  watermark emits each window whose buckets lie wholly below it,
+  synchronously (a group: every rule's window to its own node), and
+  resets the pane that expires. A row of a bucket already emitted is
+  dropped, counted (`event_counts["dropped"]`); a batch spanning more
+  buckets than the panes hold emits its oldest windows early.
+- SESSION: batches are buffered as they come; a watermark sorts the
+  buffered rows, splits them at gaps and folds, emits and resets each
+  session whose last row + gap it has passed. EOF emits the rest as one
+  window.
+- COUNT and STATE fold as on processing time.
+
+Not ported yet, and refused at construction: event-time sliding windows,
+tiered sliding rules (the reference demotes their quiescent keys only)
+and the mesh.
 """
 from __future__ import annotations
 
@@ -127,10 +149,28 @@ from ..sql import ast
 from ..sql.compiler import try_compile
 from ..utils import timex
 from ..utils.device import Device
-from .events import EOF, PreTrigger, Trigger
+from .events import EOF, PreTrigger, Trigger, Watermark
 from .node import Node
 
 logger = logging.getLogger(__name__)
+
+#: the most panes an event-time window may need: pane ids ship as uint8
+MAX_EVENT_PANES = 255
+
+
+def event_time_panes(window: ast.Window, late_tolerance_ms: int):
+    """(bucket ms, window span in buckets, panes) of an event-time
+    tumbling or hopping window (the reference's nodes_fused.py 121-137 and
+    planner.py 336-347): the bucket is the hop, or the length; the panes
+    hold every bucket that can be live at once, the window's span, the
+    late tolerance's buckets and two of slack, at least four."""
+    length = window.length_ms()
+    bucket = (window.interval_ms()
+              if window.window_type == ast.WindowType.HOPPING_WINDOW
+              and window.interval_ms() else length)
+    span = max(length // max(bucket, 1), 1)
+    slack = -(-max(late_tolerance_ms, 0) // max(bucket, 1))
+    return bucket, span, max(span + slack + 2, 4)
 
 
 def _host_mask(ce, columns: Dict[str, np.ndarray], n: int) -> np.ndarray:
@@ -182,6 +222,8 @@ class FusedWindowAggNode(Node):
         ring_layout=None,  # ops.slidingring.RingLayout chosen at plan time
         tier_budget_mb: float = 0.0,  # tiered key state's budget (0 = off)
         tier_scan_ms: int = 0,  # tier policy cadence (0 = from the window)
+        is_event_time: bool = False,  # watermark-driven windows (see above)
+        late_tolerance_ms: int = 0,  # the watermark's lag behind max ts
     ) -> None:
         super().__init__(name)
         self.window = window
@@ -192,7 +234,13 @@ class FusedWindowAggNode(Node):
         self.wt = window.window_type
         self.length_ms = window.length_ms()
         self.interval_ms = window.interval_ms()
-        if self.wt == ast.WindowType.HOPPING_WINDOW:
+        self.is_event_time = bool(is_event_time)
+        #: the WatermarkNode the planner connects ahead of an event-time
+        #: node (its entry; planner/fused.py), else None
+        self.watermark = None
+        if self.is_event_time:
+            self._init_event_time(window, int(late_tolerance_ms))
+        elif self.wt == ast.WindowType.HOPPING_WINDOW:
             iv = max(self.interval_ms, 1)
             self.n_panes = max((self.length_ms + iv - 1) // iv, 1)
         elif self.wt == ast.WindowType.TUMBLING_WINDOW:
@@ -268,6 +316,9 @@ class FusedWindowAggNode(Node):
         self._prefinalize_ok = (
             self.wt in (ast.WindowType.TUMBLING_WINDOW,  # boundary timers
                         ast.WindowType.HOPPING_WINDOW)
+            # watermark boundaries are not known ahead: they emit
+            # synchronously
+            and not self.is_event_time
             and self.prefinalize_lead_ms > 0
             and self.gb.supports_prefinalize
             and plan.host_foldable
@@ -301,11 +352,13 @@ class FusedWindowAggNode(Node):
         # is launched on the pre-reset state, the dedupe runs off the fold
         # thread
         self._async_hh = (bool(self._hh_cols)
+                          and not self.is_event_time
                           and self.gb.supports_prefinalize
                           and self.prefinalize_lead_ms > 0)
         # a boundary whose pre-issued fetch has not landed moves its wait
         # to the worker instead of stalling the folds
         self._emit_late_async = (self.gb.supports_prefinalize
+                                 and not self.is_event_time
                                  and not self._hh_cols)
         # a count window's emission: the finalize is launched on the state
         # as it stands and the worker delivers it (`"count"`), while the
@@ -360,6 +413,11 @@ class FusedWindowAggNode(Node):
                 self._fold_count_window(item)
             elif self.wt == ast.WindowType.STATE_WINDOW:
                 self._fold_state_window(item)
+            elif self.is_event_time and \
+                    self.wt == ast.WindowType.SESSION_WINDOW:
+                # the sessions resolve at each watermark: buffer the batch
+                # as it came (no device work until a session is complete)
+                self._evs_batches.append(item)
             else:
                 self._fold(item)
                 if self.wt == ast.WindowType.SESSION_WINDOW:
@@ -374,6 +432,11 @@ class FusedWindowAggNode(Node):
             return 0
         sub = (batch if start == 0 and end == batch.n
                else batch.take(np.arange(start, end)))
+        if self.is_event_time and self.wt in (
+                ast.WindowType.TUMBLING_WINDOW, ast.WindowType.HOPPING_WINDOW):
+            # event-time count and state windows fold as processing time
+            # does (the watermark node has dropped and ordered the rows)
+            return self._fold_event(sub)
         if self.wt == ast.WindowType.SLIDING_WINDOW:
             return self._fold_sliding(sub)
         return self._fold_rows(sub, self.cur_pane)
@@ -486,7 +549,8 @@ class FusedWindowAggNode(Node):
                 self.state = self.gb.init_state()
             self._opened = True
             if self.wt in (ast.WindowType.TUMBLING_WINDOW,
-                           ast.WindowType.HOPPING_WINDOW):
+                           ast.WindowType.HOPPING_WINDOW) and \
+                    not self.is_event_time:
                 self._schedule_next_tick()
 
     def on_close(self) -> None:
@@ -564,6 +628,8 @@ class FusedWindowAggNode(Node):
                     "session_gap", "session_cap"):
                 self._on_session_trigger(trig)
             return
+        if self.is_event_time:
+            return  # its windows close on watermarks only
         end = trig.ts
         wr = WindowRange(end - self.length_ms, end)
         if self._async_hh:
@@ -610,6 +676,22 @@ class FusedWindowAggNode(Node):
         emits only on trigger rows; an open session closes now."""
         now = timex.now_ms()
         self._drain_async_emits()
+        if self.is_event_time and self.wt == ast.WindowType.SESSION_WINDOW:
+            self._evs_flush()
+            self.broadcast(eof)
+            return
+        if self.is_event_time and self.wt in (
+                ast.WindowType.TUMBLING_WINDOW, ast.WindowType.HOPPING_WINDOW):
+            # every window that can still hold data, walking the dirty
+            # buckets, never bucket by bucket across a gap
+            while self._dirty:
+                first = min(self._dirty)
+                nxt = self._next_emit_bucket
+                self._next_emit_bucket = (first if nxt is None
+                                          else max(nxt, first))
+                self._emit_event_bucket(self._next_emit_bucket)
+            self.broadcast(eof)
+            return
         if self.wt == ast.WindowType.SLIDING_WINDOW:
             self.broadcast(eof)
             return
@@ -994,6 +1076,8 @@ class FusedWindowAggNode(Node):
             self._gap_timer = None
             self._gap_gen = 0  # arm generation: one live gap check at a time
             self._cap_timer = None
+            # event time: the batches of the sessions not yet complete
+            self._evs_batches: List[ColumnBatch] = []
 
     def _fold_count_window(self, batch: ColumnBatch) -> None:
         """Fold the batch up to the window's last row, emit and reset at
@@ -1125,6 +1209,215 @@ class FusedWindowAggNode(Node):
                 t.stop()
         self._gap_timer = self._cap_timer = None
 
+    # ------------------------------------------------------------ event time
+    def _init_event_time(self, window: ast.Window,
+                         late_tolerance_ms: int) -> None:
+        """Event-time geometry (the reference's constructor, nodes_fused.py
+        103-149). Tumbling and hopping windows route each row to the pane
+        of its time bucket (bucket = ts // bucket_ms, pane = bucket %
+        n_panes; event_time_panes). Count, state and session windows keep
+        one pane."""
+        self._next_emit_bucket: Optional[int] = None
+        self._max_bucket: Optional[int] = None
+        # buckets holding data not yet expired: a window without any skips
+        # its finalize, and a gap in time is jumped in O(1)
+        self._dirty: set = set()
+        #: rows the fold dropped (their bucket had been emitted), folds by
+        #: pane argument, and windows emitted early to free a pane
+        self.event_counts: collections.Counter = collections.Counter()
+        if self.wt == ast.WindowType.SLIDING_WINDOW:
+            raise NotImplementedError(
+                "event-time sliding windows run on the reference's host "
+                "window path, which is not ported yet")
+        if self.wt not in (ast.WindowType.TUMBLING_WINDOW,
+                           ast.WindowType.HOPPING_WINDOW):
+            self.n_panes = 1
+            self._init_row_windows(window)
+            return
+        self.bucket_ms, span, self.n_panes = event_time_panes(
+            window, late_tolerance_ms)
+        if self.length_ms % max(self.bucket_ms, 1) != 0:
+            # flooring the span would aggregate less than the declared
+            # window: the reference's planner sends such shapes to its host
+            # path, its node raises
+            raise ValueError(
+                f"event-time window length {self.length_ms}ms is not a "
+                f"multiple of the pane bucket {self.bucket_ms}ms")
+        if self.n_panes > MAX_EVENT_PANES:
+            # pane ids ship as uint8
+            raise ValueError(
+                f"event-time window needs {self.n_panes} panes (max "
+                f"{MAX_EVENT_PANES}): widen the hop interval or reduce "
+                "lateTolerance")
+        self.window_span = span
+
+    def _fold_event(self, sub: ColumnBatch) -> int:
+        """Fold an event-time batch into its rows' bucket panes (the
+        reference's _fold_event). Rows of a bucket already emitted are
+        dropped and counted: its pane may have been recycled. A batch of one
+        bucket folds with a scalar pane, one across buckets with the uint8
+        per-row pane vector. A batch spanning more buckets than the panes
+        hold folds in order: what fits, then the oldest pending window is
+        emitted to free its pane, and so on, so a recycled pane is always
+        emitted and reset before new rows land in it."""
+        ts = sub.timestamps
+        if ts is None:
+            ts = np.zeros(sub.n, dtype=np.int64)
+        buckets = ts // self.bucket_ms
+        if self._next_emit_bucket is None:
+            self._next_emit_bucket = int(buckets.min())
+        late = buckets < self._next_emit_bucket
+        if late.any():
+            self.event_counts["dropped"] += int(late.sum())
+            keep = np.nonzero(~late)[0]
+            if len(keep) == 0:
+                return 0
+            sub = sub.take(keep)
+            buckets = buckets[keep]
+        self._max_bucket = max(int(buckets.max()),
+                               -1 if self._max_bucket is None
+                               else self._max_bucket)
+        total = 0
+        while sub.n:
+            # pane reuse: bucket b may fold once bucket b - P has expired,
+            # i.e. b <= next_emit + P - W
+            limit = self._next_emit_bucket + self.n_panes - self.window_span
+            mask = buckets <= limit
+            idx = np.nonzero(mask)[0]
+            if len(idx):
+                seg = buckets[idx]
+                ub = np.unique(seg)
+                if len(ub) == 1:
+                    pane_arg = int(ub[0]) % self.n_panes
+                    self.event_counts["scalar_folds"] += 1
+                else:
+                    pane_arg = (seg % self.n_panes).astype(np.uint8)
+                    self.event_counts["vector_folds"] += 1
+                total += self._fold_rows(
+                    sub if mask.all() else sub.take(idx), pane_arg)
+                self._dirty.update(int(b) for b in ub)
+            if mask.all():
+                break
+            # make room for the rest: emit the next window, or jump an
+            # empty stretch without a finalize. Rows within the tolerance
+            # that arrive after such a forced emission drop, counted: the
+            # panes are bounded where the host path buffers without bound
+            rest = np.nonzero(~mask)[0]
+            sub = sub.take(rest)
+            buckets = buckets[rest]
+            self._advance_one(int(buckets.min()))
+        return total
+
+    def _advance_one(self, needed_bucket: int) -> None:
+        """Move the emission cursor toward making `needed_bucket` foldable:
+        emit the next window if it can hold data, else jump the empty
+        stretch in one step."""
+        nxt = self._next_emit_bucket
+        if not self._dirty:
+            self._next_emit_bucket = max(
+                nxt + 1, needed_bucket - (self.n_panes - self.window_span))
+            return
+        first = min(self._dirty)
+        if nxt < first:
+            self._next_emit_bucket = first  # no window before it has data
+            return
+        self.event_counts["forced"] += 1
+        self._emit_event_bucket(nxt)
+
+    def _emit_event_bucket(self, b: int) -> None:
+        """Emit the window ending at bucket b's end (tumbling: bucket b;
+        hopping: buckets b - W + 1 .. b) over those buckets' panes, then
+        expire the window's oldest pane. A window without a dirty bucket
+        skips the finalize."""
+        W = self.window_span
+        window_buckets = range(b - W + 1, b + 1)
+        end_ms = (b + 1) * self.bucket_ms
+        wr = WindowRange(end_ms - self.length_ms, end_ms)
+        panes = sorted({x % self.n_panes for x in window_buckets})
+        if self.kt.n_keys and any(x in self._dirty for x in window_buckets):
+            self._emit_panes(wr, panes)
+        # spilled keys with data in this window's panes (their pane epochs
+        # tell which partials are still valid)
+        self._emit_tier_extras(wr, panes=panes)
+        expiring = b - W + 1
+        if expiring in self._dirty:
+            self._dirty.discard(expiring)
+            self._reset_pane_tiered(expiring % self.n_panes)
+        self._tier_boundary()
+        self._next_emit_bucket = b + 1
+
+    def _emit_panes(self, wr: WindowRange, panes: List[int]) -> None:
+        """Finalize the panes of one window synchronously and emit it
+        (a rule group: every rule's window to its own node)."""
+        outs, act = self.gb.finalize(self.state, self.kt.n_keys, panes=panes)
+        self.last_emit_info = {"source": "sync", "fetch_ms": 0.0,
+                               "ages_ms": []}
+        self._deliver(outs, act, wr)
+
+    def on_watermark(self, wm: Watermark) -> None:
+        """Emit every window the watermark has passed (buckets wholly below
+        it), or each complete session; then forward the watermark."""
+        if self.is_event_time and self.wt == ast.WindowType.SESSION_WINDOW:
+            self._evs_watermark(wm.ts)
+        elif self.is_event_time and self._next_emit_bucket is not None:
+            floor_b = wm.ts // self.bucket_ms - 1
+            while self._next_emit_bucket <= floor_b:
+                if not self._dirty:
+                    self._next_emit_bucket = floor_b + 1
+                    break
+                first = min(self._dirty)
+                if self._next_emit_bucket < first:
+                    # no window before the first dirty bucket has data
+                    self._next_emit_bucket = min(first, floor_b + 1)
+                    continue
+                self._emit_event_bucket(self._next_emit_bucket)
+        self.broadcast(wm)
+
+    def _evs_watermark(self, wm_ts: int) -> None:
+        """Emit every complete leading session below the watermark (the
+        reference's _evs_watermark): the buffered rows sorted by time,
+        split where the gap between neighbours exceeds the session gap,
+        and a session emitted once its last row + gap <= the watermark,
+        folded into pane 0, finalized and the pane reset."""
+        if not self._evs_batches:
+            return
+        gap = self.gap_ms
+        big = ColumnBatch.concat(self._evs_batches)
+        ts = big.timestamps
+        if ts is None:
+            ts = np.zeros(big.n, dtype=np.int64)
+        order = np.argsort(ts, kind="stable")
+        ts_sorted = ts[order]
+        ends = (np.nonzero(np.diff(ts_sorted) > gap)[0] + 1).tolist()
+        start = 0
+        for end in [*ends, len(ts_sorted)]:
+            last = int(ts_sorted[end - 1])
+            if last + gap > wm_ts:
+                break  # the first incomplete session, and all after it
+            self._fold_rows(big.take(order[start:end]), 0)
+            self._emit(WindowRange(int(ts_sorted[start]), last + gap))
+            self.state = self.gb.reset_pane(self.state, 0)
+            self.event_counts["sessions"] += 1
+            start = end
+        if start == 0:
+            self._evs_batches = [big]  # compacted, nothing emitted
+        elif start >= len(ts_sorted):
+            self._evs_batches = []
+        else:
+            self._evs_batches = [big.take(np.sort(order[start:]))]
+
+    def _evs_flush(self) -> None:
+        """EOF: every buffered row as ONE window [now - L, now), as the
+        reference's host path and fused node flush."""
+        if not self._evs_batches:
+            return
+        big = ColumnBatch.concat(self._evs_batches)
+        self._evs_batches = []
+        now = timex.now_ms()
+        self._fold_rows(big, 0)
+        self._emit(WindowRange(now - self.length_ms, now))
+        self.state = self.gb.reset_pane(self.state, 0)
+
     # ----------------------------------------------------------- tiered state
     def _tier_submit(self, payload: tuple) -> None:
         """Hand a tier task (a demote harvest, a policy scan) to the emit
@@ -1147,13 +1440,15 @@ class FusedWindowAggNode(Node):
         if self.tier is not None:
             self.state = self.tier.on_boundary(self.state)
 
-    def _emit_tier_extras(self, wr: WindowRange) -> None:
+    def _emit_tier_extras(self, wr: WindowRange,
+                          panes: Optional[List[int]] = None) -> None:
         """Emit the spilled keys' share of a closing window: their still
-        valid per-pane partials, final values on the host, through the same
-        emit tail as the device groups, as a second message of the window."""
+        valid per-pane partials (of `panes`, default all), final values on
+        the host, through the same emit tail as the device groups, as a
+        second message of the window."""
         if self.tier is None:
             return
-        res = self.tier.window_groups(self.plan)
+        res = self.tier.window_groups(self.plan, panes)
         if res is not None:
             keys, outs, act = res
             self._deliver(outs, act, wr, keys)
@@ -1840,6 +2135,21 @@ class FusedWindowAggNode(Node):
             snap["session_start"] = self._session_start
         if self.wt == ast.WindowType.STATE_WINDOW:
             snap["state_open"] = self._state_open
+        if self.is_event_time:
+            snap["next_emit_bucket"] = self._next_emit_bucket
+            snap["max_bucket"] = self._max_bucket
+            snap["dirty_buckets"] = sorted(self._dirty)
+            if self.wt == ast.WindowType.SESSION_WINDOW and \
+                    self._evs_batches:
+                # the buffered sessions' rows, as lists (the reference's
+                # encoding)
+                snap["evs"] = [
+                    {"cols": {k: v.tolist() for k, v in b.columns.items()},
+                     "valid": {k: v.tolist() for k, v in b.valid.items()},
+                     "ts": (b.timestamps.tolist()
+                            if b.timestamps is not None else None),
+                     "emitter": b.emitter, "n": b.n}
+                    for b in self._evs_batches]
         if self.wt == ast.WindowType.SLIDING_WINDOW:
             snap["pane_bucket"] = dict(self._pane_bucket)
             snap["ring_max_bucket"] = self._ring_max_bucket
@@ -1884,8 +2194,32 @@ class FusedWindowAggNode(Node):
             self._session_open = True
             self._session_start = int(state.get("session_start", 0))
             self._touch_session_timers_only()
+        if self.is_event_time:
+            self._restore_event_time(state)
         if self.wt == ast.WindowType.SLIDING_WINDOW:
             self._restore_sliding(state)
+
+    def _restore_event_time(self, state: dict) -> None:
+        self._next_emit_bucket = state.get("next_emit_bucket")
+        self._max_bucket = state.get("max_bucket")
+        self._dirty = set(state.get("dirty_buckets", []))
+        if self.wt != ast.WindowType.SESSION_WINDOW:
+            return
+        self._evs_batches = []
+        for d in state.get("evs", []):
+            cols = {}
+            for k, v in d["cols"].items():
+                arr = np.asarray(v)
+                if arr.dtype.kind in ("U", "O"):  # strings stay objects
+                    arr = np.array(v, dtype=np.object_)
+                cols[k] = arr
+            self._evs_batches.append(ColumnBatch(
+                n=int(d["n"]), columns=cols,
+                valid={k: np.asarray(v, dtype=np.bool_)
+                       for k, v in d.get("valid", {}).items()},
+                timestamps=(np.asarray(d["ts"], dtype=np.int64)
+                            if d.get("ts") is not None else None),
+                emitter=d.get("emitter", "")))
 
     def _restore_sliding(self, state: dict) -> None:
         self._pane_bucket = {int(k): v for k, v in

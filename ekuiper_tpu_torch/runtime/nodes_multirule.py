@@ -21,6 +21,16 @@ partials (R, panes, cap, k[, W]), so it crosses between the packages;
 the fused node's restore reads the capacity through
 BatchedGroupBy.host_from_partials, and also restores an open state
 window or session (the reference's group restore drops both).
+
+Event time: `MultiRuleFusedNode(..., is_event_time=True,
+late_tolerance_ms=...)` with a runtime/nodes_window.py WatermarkNode
+connected ahead of it (the reference's entry is the same direct
+construction; planner/rulegroup.py refuses `isEventTime`). The fused
+node's bucket routing folds a batch across bucket edges with the uint8
+per-row pane vector in the two batched folds, and each watermark-closed
+window is one stacked finalize over its panes, every rule's window to its
+own node (`_emit_panes`; the reference's group sends its finalize through
+the single-rule emit instead, ROADMAP Queue 3).
 """
 from __future__ import annotations
 
@@ -54,8 +64,9 @@ class MultiRuleFusedNode(FusedWindowAggNode):
                          micro_batch=micro_batch, **kw)
         # boundary emits go through the async worker: one stacked
         # (R, S+1, K) copy per group is tens of MB and must not stall the
-        # folds
-        self._async_mr = self.wt == ast.WindowType.TUMBLING_WINDOW
+        # folds (event-time windows close on watermarks, synchronously)
+        self._async_mr = (self.wt == ast.WindowType.TUMBLING_WINDOW
+                          and not self.is_event_time)
         #: rule_id -> downstream entry node (per-rule sink chain); also
         #: connect()-ed so control events (EOF) broadcast to all
         self.rule_outputs: Dict[str, Node] = {}
@@ -78,6 +89,17 @@ class MultiRuleFusedNode(FusedWindowAggNode):
             self.last_emit_info = None
             return
         outs, act = self.gb.finalize(self.state, n_keys)  # (R, K) each
+        self.last_emit_info = {"source": "sync", "fetch_ms": 0.0,
+                               "ages_ms": []}
+        self._emit_rules(outs, act, n_keys, wr)
+
+    def _emit_panes(self, wr: WindowRange, panes: List[int]) -> None:
+        """An event-time window (its bucket panes): one stacked finalize
+        for every rule, each rule's window to its own node. The
+        reference's group node inherits the single-rule emit here and
+        sends rule indices as keys to every output (ROADMAP Queue 3)."""
+        n_keys = self.kt.n_keys
+        outs, act = self.gb.finalize(self.state, n_keys, panes)
         self.last_emit_info = {"source": "sync", "fetch_ms": 0.0,
                                "ages_ms": []}
         self._emit_rules(outs, act, n_keys, wr)

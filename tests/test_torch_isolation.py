@@ -63,6 +63,9 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
     assert {"ekuiper_tpu_torch.parallel.multirule",
             "ekuiper_tpu_torch.runtime.nodes_multirule",
             "ekuiper_tpu_torch.planner.rulegroup"} <= set(mods)
+    # event time's modules
+    assert {"ekuiper_tpu_torch.runtime.nodes_window",
+            "ekuiper_tpu_torch.utils.cron"} <= set(mods)
     # the sliding refold path's modules
     assert {"ekuiper_tpu_torch.runtime.nodes_fused",
             "ekuiper_tpu_torch.ops.groupby", "ekuiper_tpu_torch.ops.kernels",
@@ -462,6 +465,75 @@ def test_group_wrappers_never_take_the_plain_versions(monkeypatch):
             kernels.multirule_reset_pane(state, P)
     assert taken == []
     assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
+
+
+def test_event_time_rule_needs_cuda_unless_cpu_is_asked(monkeypatch):
+    """An event-time rule (its watermark node and fused node), and an
+    event-time group built at the node, are as strict about the device as
+    the processing-time entry points."""
+    from ekuiper_tpu_torch.parallel.multirule import build_rule_batch
+    from ekuiper_tpu_torch.runtime.nodes_multirule import MultiRuleFusedNode
+    from ekuiper_tpu_torch.sql.parser import parse_select
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    opts = {"isEventTime": True, "lateTolerance": "1s"}
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fused.plan_fused_rule(SQL, options=opts, **kw)
+    node = fused.plan_fused_rule(SQL, key_slots=64, micro_batch=64,
+                                 device="cpu", options=opts)
+    assert node.gb.device.type == "cpu" and node.watermark.outputs == [node]
+    sqls = [GROUP_SQL.format(x=x) for x in (1, 2, 3)]
+    spec = build_rule_batch(["a", "b", "c"], [parse_select(q) for q in sqls])
+    stmt = parse_select(sqls[0])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MultiRuleFusedNode("g", stmt.window, spec,
+                           [d.expr for d in stmt.dimensions], capacity=64,
+                           is_event_time=True)
+
+
+def test_group_pane_vector_wrappers_never_take_the_plain_versions(
+        monkeypatch):
+    """The group folds given a per-row pane vector on CUDA tensors: no
+    plain version runs and nothing is launched (the vector's range check
+    reads it back from the card, which fails without one); a vector of
+    another type or length is refused first."""
+    _needs_no_card()
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    taken = []
+    for name in ("multirule_fold_plain", "multirule_fold_wide_plain"):
+        monkeypatch.setattr(kernels, name,
+                            lambda *a, _n=name, **k: taken.append(_n))
+    kernels.reset_launches()
+    NR, P, C = 3, 4, 8
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        state = {"n": torch.zeros((NR, P, C, 1), device="cuda"),
+                 "hll": torch.zeros((NR, P, C, 1, 256), device="cuda"),
+                 "act": torch.zeros((NR, P, C), device="cuda")}
+        base = torch.ones((NR, 4), dtype=torch.bool, device="cuda")
+        V = torch.ones((1, 4), device="cuda")
+        M = torch.ones((1, 4), dtype=torch.bool, device="cuda")
+        slots = torch.zeros(4, dtype=torch.int32, device="cuda")
+        pv = torch.zeros(4, dtype=torch.uint8, device="cuda")
+        pv_i32 = torch.zeros(4, dtype=torch.int32, device="cuda")
+        pv_short = torch.zeros(3, dtype=torch.uint8, device="cuda")
+    colmap = kernels.column_map({"n": [0]})
+    widemap = kernels.wide_column_map({"hll": [0]})
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # fake data_ptr()
+        for fn, cmap in ((kernels.multirule_fold, colmap),
+                         (kernels.multirule_fold_wide, widemap)):
+            with pytest.raises(RuntimeError):
+                fn(state, base, V, M, slots, 0, cmap, pv)
+            with pytest.raises(TypeError):
+                fn(state, base, V, M, slots, 0, cmap, pv_i32)
+            with pytest.raises(ValueError):
+                fn(state, base, V, M, slots, 0, cmap, pv_short)
+    assert taken == []
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
+    assert kernels.ROW_PANE_LAUNCHES == dict.fromkeys(
+        kernels.ROW_PANE_LAUNCHES, 0)
 
 
 def test_group_wide_wrappers_never_take_the_plain_versions(monkeypatch):

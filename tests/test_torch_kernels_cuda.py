@@ -29,7 +29,9 @@ groups: the batched wide fold bit-equal to its plain version (max is
 order-free, counts stay below 2^24) and to the single-rule wide fold of
 each rule; the batched wide finalize with the single-rule finalize's
 bounds (hll within ±1, percentile within 4 ulp); the pane reset over
-the wide state bit-equal.
+the wide state bit-equal. The group folds with a per-row pane vector
+(event-time groups) as the folds; the touch column under a pane vector
+exact.
 """
 import numpy as np
 import pytest
@@ -549,6 +551,37 @@ def test_multirule_fold_matches_plain(mnode, pane):
     assert (act[0] != act[-1]).any()
 
 
+def test_multirule_fold_pane_vector_matches_plain(mnode):
+    """The per-row pane vector (an event-time batch across bucket edges),
+    shared by every rule: as the plain version; a constant vector as the
+    scalar pane; counted as a pane-vector launch."""
+    gb = mnode.gb
+    kernels.reset_launches()
+    got, ref = gb.init_state(), gb.init_state()
+    rng = np.random.default_rng(85)
+    for seed in range(3):
+        base, V, M, slots = _group_inputs(gb, 85 + seed)
+        pv = torch.from_numpy(rng.integers(0, 2, 4096).astype(
+            np.uint8)).to(gb.device)
+        kernels.multirule_fold(got, base, V, M, slots, 0, gb._colmap, pv)
+        kernels.multirule_fold_plain(ref, base, V, M, slots, 0, gb._colmap,
+                                     pv)
+    torch.cuda.synchronize()
+    _same(got, ref, 1e-5)
+    assert kernels.LAUNCHES["multirule_fold"] == 3
+    assert kernels.ROW_PANE_LAUNCHES["multirule_fold"] == 3
+    assert got["act"][:, 0].any() and got["act"][:, 1].any()
+    a, b = gb.init_state(), gb.init_state()
+    base, V, M, slots = _group_inputs(gb, 89)
+    ones = torch.ones(4096, dtype=torch.uint8, device=gb.device)
+    kernels.multirule_fold(a, base, V, M, slots, 0, gb._colmap, ones)
+    kernels.multirule_fold(b, base, V, M, slots, 1, gb._colmap)
+    torch.cuda.synchronize()
+    _same(a, b, 1e-5)
+    with pytest.raises(ValueError):
+        kernels.multirule_fold(a, base, V, M, slots, 0, gb._colmap, ones * 2)
+
+
 def _group_state(gb):
     st = gb.init_state()
     for pane in (0, 1):
@@ -695,6 +728,37 @@ def test_multirule_fold_wide_matches_plain(wnode, pane):
     for comp in ("hll", "hist"):
         np.testing.assert_array_equal(got[comp][7].cpu().numpy(),
                                       one[comp].cpu().numpy(), err_msg=comp)
+
+
+def test_multirule_fold_wide_pane_vector_matches_plain(wnode):
+    """The wide fold with a per-row pane vector: bit-equal to its plain
+    version, and a constant vector to the scalar pane."""
+    gb = wnode.gb
+    kernels.reset_launches()
+    got, ref = gb.init_state(), gb.init_state()
+    rng = np.random.default_rng(125)
+    for seed in range(3):
+        base, V, M, slots = _wide_group_inputs(gb, 125 + seed)
+        pv = torch.from_numpy(rng.integers(0, 2, 4096).astype(
+            np.uint8)).to(gb.device)
+        kernels.multirule_fold_wide(got, base, V, M, slots, 0, gb._widemap,
+                                    pv)
+        kernels.multirule_fold_wide_plain(ref, base, V, M, slots, 0,
+                                          gb._widemap, pv)
+    torch.cuda.synchronize()
+    assert kernels.ROW_PANE_LAUNCHES["multirule_fold_wide"] == 3
+    for comp in ("hll", "hist"):
+        np.testing.assert_array_equal(got[comp].cpu().numpy(),
+                                      ref[comp].cpu().numpy(), err_msg=comp)
+        assert got[comp][:, 0].any() and got[comp][:, 1].any()
+    a, b = gb.init_state(), gb.init_state()
+    base, V, M, slots = _wide_group_inputs(gb, 129)
+    zeros = torch.zeros(4096, dtype=torch.uint8, device=gb.device)
+    kernels.multirule_fold_wide(a, base, V, M, slots, 0, gb._widemap, zeros)
+    kernels.multirule_fold_wide(b, base, V, M, slots, 0, gb._widemap)
+    torch.cuda.synchronize()
+    for comp in ("hll", "hist"):
+        assert torch.equal(a[comp], b[comp]), comp
 
 
 @pytest.mark.parametrize("panes", [None, [0], [1]])
@@ -983,6 +1047,36 @@ def test_fold_touch_column_matches_plain(tnode):
                                   ref["act"].cpu().numpy())
     assert int(got["touch"].to(torch.int64).sum()) == int(
         tnode.state["touch"].to(torch.int64).sum()) + 3 * (4096 - 586)
+
+
+def test_fold_touch_column_with_pane_vector(tnode):
+    """The touch branch under a per-row pane vector (an event-time tiered
+    batch across bucket edges): touch, act and the state as the plain
+    version."""
+    gb = tnode.gb
+    rng = np.random.default_rng(93)
+    got, ref = _clone(tnode.state), _clone(tnode.state)
+    P = gb.n_panes
+    for seed in range(3):
+        v = rng.normal(20, 5, 4096).astype(np.float32)
+        cols = {"v": torch.from_numpy(v).to(gb.device),
+                "__hll__v": torch.from_numpy(
+                    encode_hll_column(v, 4096)).to(gb.device)}
+        cols = {c: cols[c] for c in gb.plan.columns}
+        base, V, M = gb.spec_inputs(cols, 4096)
+        base[::5] = False
+        M &= base
+        slots = torch.from_numpy(
+            rng.integers(0, 700, 4096).astype(np.int32)).to(gb.device)
+        pv = torch.from_numpy(
+            rng.integers(0, P, 4096).astype(np.uint8)).to(gb.device)
+        kernels.groupby_fold_scalar(got, base, V, M, slots, 0, gb._colmap,
+                                    pv)
+        kernels.fold_scalar_plain(ref, base, V, M, slots, 0, gb._colmap, pv)
+    torch.cuda.synchronize()
+    _same_exact({k: got[k] for k in ("touch", "act")},
+                {k: ref[k] for k in ("touch", "act")})
+    _same(got, ref, 1e-5)
 
 
 def test_tier_fetches_hold_no_later_fold(tnode):

@@ -546,7 +546,11 @@ def test_rule_options_plan_the_reference_defaults():
                            device="cpu", options={"tailMode": "host"})
     assert host._tail_host_only
     with pytest.raises(NotImplementedError):
-        plan_fused_rule(SCALAR_T, device="cpu", options={"isEventTime": 1})
+        plan_fused_rule(SCALAR_T, device="cpu", options={"decodePoolSize": 1})
+    # isEventTime is ported: 1 reads as true, as the reference reads it
+    ev = plan_fused_rule(SCALAR_T, key_slots=CAP, micro_batch=MB,
+                         device="cpu", options={"isEventTime": 1})
+    assert ev.is_event_time and not (ev._prefinalize_ok or ev._backstop)
     for bad in ({"tailMode": "disk"}, {"prefinalizeLeadMs": -1},
                 {"prefinalizeLeadMs": True}):
         with pytest.raises(Exception, match="tailMode|prefinalizeLeadMs"):

@@ -11,8 +11,8 @@ no result):
 
 1. the card (nvidia-smi name and power limit) and the kernels' build time
    (csrc/groupby.cu, csrc/sketches.cu, csrc/prefinalize.cu,
-   csrc/slidingring.cu, csrc/multirule.cu and csrc/tierstore.cu, one nvcc
-   each for sm_90a, run together);
+   csrc/slidingring.cu, csrc/multirule.cu, csrc/tierstore.cu and
+   csrc/relational.cu, one nvcc each for sm_90a, run together);
 2. each kernel against its plain PyTorch version on the card, at the main
    path's shapes (65,536 rows, 16,384 slots; the sketch kernels at the
    sketch rules' state, up to 2 panes x 16,384 x 2,688 floats; the
@@ -36,7 +36,12 @@ no result):
    per-row pane vector, a batch across a bucket edge, at I5's shape (E1's
    256 rules on 4 event-time panes) and I6's (the hll family on 5 panes,
    5.3 GB of registers): n, act, min, max and the registers bit-equal, s1
-   and s2 within rtol 1e-5, a constant vector equal to the scalar pane):
+   and s2 within rtol 1e-5, a constant vector equal to the scalar pane;
+   the relational tier's join match at 2,048 and 16,384 rows a side (J1's
+   and J3's windows, bit-equal), segmented shift at 8,192 and 131,072
+   rows over 10,000 slots and at 131,072 rows in one slot (row numbers,
+   lag, flags and the carry exact, running sums rtol 1e-5) and segmented
+   sort at 65,536 rows over 10,000 segments and in one (all exact)):
    error, kernel time (CUDA
    events), the kernel body's own device time (profiler trace) and the
    host time of one wrapper call, plain time, a library yardstick and the
@@ -210,6 +215,24 @@ I. event time, each rule fed through the port's WatermarkNode entry
    watermark node's host ms a batch, emit p50/p99 of a watermark-driven
    window, rows dropped by the watermark node and by the fold, pane-vector
    against scalar-pane folds, launches;
+J. interval joins (bench.py:2500-2598 bench_join_heavy: 512 keys, times
+   uniform on [0, 60,000) ms, band ±5,000 ms, residual l.v > r.w): J1 the
+   match leg, 40 JoinRing.match calls cycling 4 windows of 2,048 rows a
+   side, every mask against an independent numpy twin; J2 the rule
+   `SELECT l.v, r.w FROM l {INNER|LEFT|FULL} JOIN r ON ...
+   GROUP BY TUMBLINGWINDOW(ss, 10)` through plan_host_rule, 40 windows of
+   256 rows a side on the mock clock, every window's rows against a
+   Python nested loop in the reference's emission order; J3 J1's rule at
+   16,384 rows a side (a 268 MB mask), its kernel time beside its bound;
+   0 fallback windows everywhere. Per run: match rows/s and pairs a
+   window, window p50/p99, match ms;
+K. analytics over the flagship stream (10,000 devices): K1 `lag(
+   temperature) OVER (PARTITION BY deviceId)`, 16 batches of 8,192 rows,
+   every prev against the previous value per device across batches; K2
+   rank / dense_rank / lead of temperature on TUMBLINGWINDOW(ss, 10)
+   windows of 65,536 rows (values in halves, float32-exact), every value
+   against scipy.stats.rankdata (min / dense) within devices and the next
+   row's value. Per run: rows/s and continued partitions, window ms;
 5. each kernel's launch count on the paths that use it (each must be
    > 0; the fold's touch branch on the G paths and I7; the per-row pane
    vector on the sliding paths and I2, I3, I5, I6), then the JSON kernel
@@ -461,6 +484,38 @@ I_BATCHES = {"i1": 40, "i2": 40, "i3": 40, "i4": 60, "i5": 40, "i6": 40,
 #: the event-time panes of I5's tumbling and I6's hopping group (the
 #: window's buckets, the tolerance's, two of slack; at least four)
 I5_PANES, I6_PANES = 4, 5
+#: phase J: interval joins (bench.py:2500-2598 bench_join_heavy): 512 keys,
+#: times uniform on [0, 60,000) ms, a ±5,000 ms band and l.v > r.w. J1 the
+#: match leg (2,048 rows a side, 4 windows cycled), J2 the full rule through
+#: plan_host_rule (40 windows of 256 rows a side, the bench's emission leg,
+#: INNER / LEFT / FULL), J3 J1's rule at 16,384 rows a side
+J_RULE = ("SELECT l.v, r.w FROM l {jt} JOIN r ON l.k = r.k "
+          "AND l.ts - r.ts >= -5000 AND l.ts - r.ts <= 5000 AND l.v > r.w "
+          "GROUP BY TUMBLINGWINDOW(ss, 10)")
+J_KEYS, J_TS, J_BAND, J_WINDOW_MS = 512, 60_000, 5_000, 10_000
+J_KEY_NAMES = np.array([f"k{i}" for i in range(J_KEYS)], dtype=object)
+J1_ROWS, J1_CALLS = 2_048, 40
+J2_ROWS, J2_WINDOWS, J2_TYPES = 256, 40, ("INNER", "LEFT", "FULL")
+J3_ROWS, J3_WINDOWS = 16_384, 2
+#: phase K: analytics over the flagship stream (10,000 devices). K1 lag,
+#: 16 batches of 8,192 rows; K2 rank / dense_rank / lead on 10 s tumbling
+#: windows of 65,536 rows (values in halves: float32-exact, with ties)
+K1_RULE = ("SELECT deviceId, temperature, lag(temperature) OVER "
+           "(PARTITION BY deviceId) AS prev FROM demo")
+K2_RULE = ("SELECT deviceId, temperature, "
+           "rank(temperature) OVER (PARTITION BY deviceId) AS rk, "
+           "dense_rank(temperature) OVER (PARTITION BY deviceId) AS dr, "
+           "lead(temperature) OVER (PARTITION BY deviceId) AS nx "
+           "FROM demo GROUP BY TUMBLINGWINDOW(ss, 10)")
+K_SHIFT_SMALL, K_SHIFT_ROWS, K_WINDOW_ROWS = 8_192, 131_072, 65_536
+K1_BATCHES, K2_WINDOWS, K_WINDOW_MS = 16, 3, 10_000
+DEVICE_NAMES = np.array([f"d{i}" for i in range(10_000)], dtype=object)
+#: the kernels one segscan_shift / segscan_sort call launches
+SHIFT_KERNELS = ("arrival_keys_kernel", "bitonic_shared_kernel",
+                 "bitonic_global_kernel", "shift_walk_kernel")
+SORT_KERNELS = ("arrival_keys_kernel", "bitonic_shared_kernel",
+                "bitonic_global_kernel", "arrival_walk_kernel",
+                "value_keys_kernel", "value_walk_kernel")
 SOURCE = {
     "groupby_fold_scalar": "ekuiper_tpu_torch/csrc/groupby.cu",
     "groupby_finalize_scalar": "ekuiper_tpu_torch/csrc/groupby.cu",
@@ -482,6 +537,9 @@ SOURCE = {
     "tier_promote": "ekuiper_tpu_torch/csrc/tierstore.cu",
     "multirule_fold_wide": "ekuiper_tpu_torch/csrc/multirule.cu",
     "multirule_finalize_wide": "ekuiper_tpu_torch/csrc/multirule.cu",
+    "join_match": "ekuiper_tpu_torch/csrc/relational.cu",
+    "segscan_shift": "ekuiper_tpu_torch/csrc/relational.cu",
+    "segscan_sort": "ekuiper_tpu_torch/csrc/relational.cu",
 }
 REPLACES = {
     "groupby_fold_scalar": "ekuiper_tpu/ops/groupby.py:348",
@@ -504,6 +562,9 @@ REPLACES = {
     "tier_promote": "ekuiper_tpu/ops/tierstore.py:278",
     "multirule_fold_wide": "ekuiper_tpu/parallel/multirule.py:196",
     "multirule_finalize_wide": "ekuiper_tpu/parallel/multirule.py:210",
+    "join_match": "ekuiper_tpu/ops/joinring.py:186",
+    "segscan_shift": "ekuiper_tpu/ops/segscan.py:124",
+    "segscan_sort": "ekuiper_tpu/ops/segscan.py:165",
 }
 #: which end-to-end paths launch each kernel (phase 5 checks each > 0)
 PATHS = {
@@ -540,6 +601,9 @@ PATHS = {
     "tier_promote": ("g2a", "g2b", "i7"),
     "multirule_fold_wide": ("h5_hll", "h5_pct", "i6"),
     "multirule_finalize_wide": ("h5_hll", "h5_pct", "i6"),
+    "join_match": ("j1", "j2_inner", "j2_left", "j2_full", "j3"),
+    "segscan_shift": ("k1",),
+    "segscan_sort": ("k2",),
 }
 #: the folds that must bump the touch column on each tiered path
 TOUCH_PATHS = {"groupby_fold_scalar": ("g1", "g2a", "g2b", "i7")}
@@ -585,14 +649,18 @@ def time_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def body_ms(torch, fn, kernel: str, reps: int):
-    """Median device time of the CUDA kernel `kernel` inside `fn`, from
-    the profiler's CUPTI trace: the kernel body alone, without the launch
-    and the timing events around it; over the last `reps` launches the
-    trace holds (a trace can also hold a launch of an earlier session, or
-    miss one). None when the trace holds no such kernel."""
+def body_ms(torch, fn, kernel, reps: int, per_call: bool = False):
+    """Device time of the CUDA kernel `kernel` (a name, or a tuple of
+    names any of which matches) inside `fn`, from the profiler's CUPTI
+    trace: the kernel bodies alone, without the launch and the timing
+    events around them. By default the median of the last `reps` launches
+    the trace holds (a trace can also hold a launch of an earlier session,
+    or miss one); with `per_call`, every matching launch of the `reps`
+    calls summed and divided by `reps`, for a call that launches several
+    kernels. None when the trace holds no such kernel."""
     from torch.profiler import ProfilerActivity, profile
 
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -602,9 +670,12 @@ def body_ms(torch, fn, kernel: str, reps: int):
     cuda = torch.autograd.DeviceType.CUDA
     ev = sorted((e.time_range.start, e.time_range.elapsed_us())
                 for e in prof.events()
-                if kernel in e.name and e.device_type == cuda)
-    us = [d for _, d in ev[-reps:]]
-    return statistics.median(us) / 1e3 if us else None
+                if e.device_type == cuda and any(n in e.name for n in names))
+    if not ev:
+        return None
+    if per_call:
+        return sum(d for _, d in ev) / reps / 1e3
+    return statistics.median(d for _, d in ev[-reps:]) / 1e3
 
 
 def host_ms(torch, fn, reps: int) -> float:
@@ -5803,6 +5874,553 @@ def phase_i_lines(i):
         yield line
 
 
+# ------------------------------------------ phase 2, the relational tier
+def join_bytes(n, residual_cols=1):
+    """#20's bytes at n rows a side: each side's slot, time (int32),
+    validity (bool) and float32 residual columns read once, the (n, n)
+    bool mask written once."""
+    return 2 * n * (9 + 4 * residual_cols) + n * n
+
+
+def join_inputs(torch, rng, n, dev):
+    """One padded join side at J1's shape (512 keys, times uniform on [0,
+    60,000) ms, so rebased int32 without a NULL), its residual column
+    uniform on [0, 100) as float32, all rows valid."""
+    return ([torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, J_KEYS, n).astype(np.int32),
+        rng.integers(0, J_TS, n).astype(np.int32), np.ones(n, dtype=bool))],
+        torch.from_numpy(rng.uniform(0, 100, n).astype(np.float32)).to(dev))
+
+
+def relational_kernel_checks(torch, seed, kernels, dev):
+    """#20 at 2,048 and 16,384 rows a side (J1's and J3's windows, the ON
+    residual l.v > r.w as the expression IR gives it, a (PL, PR) bool),
+    #21 at 8,192 and 131,072 rows over 10,000 slots and at 131,072 rows in
+    one slot (one thread walks the whole segment), #22 at 65,536 rows and
+    10,000 segments and in one segment: each against its plain version
+    (#20 bit-equal; #21 row numbers, lag, flags and the carry's counts and
+    last values exact, running sums rtol 1e-5; #22 all six outputs
+    exact)."""
+    rows = {}
+    rng = np.random.default_rng(seed + 2000)
+    for n in (J1_ROWS, J3_ROWS):
+        (left, v), (right, w) = (join_inputs(torch, rng, n, dev),
+                                 join_inputs(torch, rng, n, dev))
+        resid = v[:, None] > w[None, :]
+        lo, hi = -J_BAND, J_BAND
+        got = kernels.join_match(*left, *right, lo, hi, resid)
+        want = kernels.join_match_plain(*left, *right, lo, hi, resid)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(got, want)), f"join_match {n}: differs")
+        pairs = int(got.sum())
+        del got, want
+        call = functools.partial(kernels.join_match, *left, *right, lo, hi,
+                                 resid)
+        t_k = time_ms(torch, call, REPS)
+        split = launch_split(torch, call, "join_match_kernel", REPS)
+        # the plain version is the library yardstick itself: torch's
+        # broadcast compares and ANDs
+        t_p = t_l = time_ms(torch, lambda: kernels.join_match_plain(
+            *left, *right, lo, hi, resid), REPS)
+        # the residual's torch pass that writes the (PL, PR) bool the
+        # kernel reads: part of #20's work, outside the kernel's time
+        t_r = time_ms(torch, lambda: v[:, None] > w[None, :], REPS)
+        b_ms, b_by = bound(join_bytes(n), 0)
+        print(f"kernel join_match PL=PR={n} pairs={pairs}: max_abs_err=0 "
+              f"kernel_ms={t_k:.4f} residual_ms={t_r:.4f} "
+              f"{split_text(split)} plain_ms={t_p:.4f} "
+              f"library_ms={t_l:.4f} bound_ms={b_ms:.5f} ({b_by})")
+        rows[f"join_match/{n}"] = dict(
+            max_abs_err=0.0, ms=t_k, residual_ms=t_r, **split, plain_ms=t_p,
+            bound_ms=b_ms, bound_by=b_by, library_ms=t_l, pairs=pairs)
+        del resid
+        torch.cuda.empty_cache()
+    for tag, B, slots in (("8192", K_SHIFT_SMALL, N_KEYS),
+                          ("131072", K_SHIFT_ROWS, N_KEYS),
+                          ("one_segment", K_SHIFT_ROWS, 1)):
+        rows[f"segscan_shift/{tag}"] = shift_check(
+            torch, rng, kernels, dev, tag, B, slots)
+    for tag, slots in (("65536", N_KEYS), ("one_segment", 1)):
+        rows[f"segscan_sort/{tag}"] = sort_check(
+            torch, rng, kernels, dev, tag, K_WINDOW_ROWS, slots)
+    return rows
+
+
+def seg_inputs(torch, rng, B, slots, dev):
+    """B rows over `slots` slots, temperature N(20, 5) as float32 with 1 %
+    NULL (NaN), all valid."""
+    vals = rng.normal(20, 5, B).astype(np.float32)
+    vals[rng.random(B) < 0.01] = np.nan
+    return [torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, slots, B).astype(np.int32), vals,
+        np.ones(B, dtype=bool))]
+
+
+def seg_equal(got, want, exact, rtol_idx, what):
+    """Outputs `exact` equal (NaN where NaN), `rtol_idx` within 1e-5;
+    returns the largest absolute difference."""
+    worst = 0.0
+    for i in exact:
+        g, w = got[i], want[i]
+        if g.is_floating_point():
+            check(bool(torch_equal_nan(g, w)), f"{what}: output {i} differs")
+        else:
+            check(bool((g == w).all()), f"{what}: output {i} differs")
+    for i in rtol_idx:
+        d = (got[i].double() - want[i].double()).abs()
+        check(bool((d <= 1e-5 * want[i].double().abs()).all()),
+              f"{what}: output {i} beyond rtol 1e-5")
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def torch_equal_nan(a, b):
+    return ((a == b) | (a.isnan() & b.isnan())).all()
+
+
+def shift_check(torch, rng, kernels, dev, tag, B, slots):
+    C = SLOTS
+    x = seg_inputs(torch, rng, B, slots, dev)
+    carry_k = (torch.zeros(C, dtype=torch.int32, device=dev),
+               torch.zeros(C, device=dev),
+               torch.zeros(C, dtype=torch.bool, device=dev),
+               torch.zeros(C, device=dev))
+    carry_p = tuple(t.clone() for t in carry_k)
+    err = 0.0
+    for _ in range(2):  # the second batch continues the first's carry
+        got = kernels.segscan_shift(carry_k, *x)
+        want = kernels.segscan_shift_plain(carry_p, *x)
+        torch.cuda.synchronize()
+        err = max(err, seg_equal(got, want, (0, 1, 2, 4), (3,),
+                                 f"segscan_shift {tag}"),
+                  seg_equal(carry_k, carry_p, (0, 1, 2), (3,),
+                            f"segscan_shift {tag} carry"))
+    call = functools.partial(kernels.segscan_shift, carry_k, *x)
+    t_k = time_ms(torch, call, REPS)
+    split = {"body_ms": body_ms(torch, call, SHIFT_KERNELS, REPS,
+                                     per_call=True),
+             "host_ms": host_ms(torch, call, REPS)}
+    t_p = time_ms(torch, lambda: kernels.segscan_shift_plain(carry_p, *x),
+                  REPS)
+    t_l = time_ms(torch, lambda: library_shift(torch, *x), REPS)
+    touched = min(slots, B)
+    # the batch read once (slot, value, validity), four outputs written,
+    # the touched carry slots read and written (13 bytes each way)
+    nbytes = B * 9 + B * 13 + 2 * touched * 13
+    b_ms, b_by = bound(nbytes, B)
+    print(f"kernel segscan_shift {tag} B={B} slots={slots} C={C}: "
+          f"max_abs_err={err:.3g} kernel_ms={t_k:.4f} {split_text(split)} "
+          f"plain_ms={t_p:.4f} library_ms={t_l:.4f} bound_ms={b_ms:.5f} "
+          f"({b_by})")
+    return dict(max_abs_err=err, ms=t_k, **split, plain_ms=t_p,
+                bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+
+
+def library_shift(torch, slots, vals, valid):
+    """Yardstick, never called by the port: #21's sort and scan as
+    PyTorch's own calls (a stable sort, a gather, a cumsum, a scatter
+    back)."""
+    ss, order = torch.sort(torch.where(valid, slots, 1 << 30), stable=True)
+    cum = torch.cumsum(torch.nan_to_num(vals[order]), 0)
+    out = torch.empty_like(cum)
+    out[order] = cum
+    return ss, out
+
+
+def sort_check(torch, rng, kernels, dev, tag, B, slots):
+    x = seg_inputs(torch, rng, B, slots, dev)
+    x[1] = torch.round(x[1] * 2) / 2  # float32-exact, many ties
+    got = kernels.segscan_sort(*x)
+    want = kernels.segscan_sort_plain(*x)
+    torch.cuda.synchronize()
+    seg_equal(got, want, range(6), (), f"segscan_sort {tag}")
+    call = functools.partial(kernels.segscan_sort, *x)
+    t_k = time_ms(torch, call, REPS)
+    split = {"body_ms": body_ms(torch, call, SORT_KERNELS, REPS,
+                                     per_call=True),
+             "host_ms": host_ms(torch, call, REPS)}
+    t_p = time_ms(torch, lambda: kernels.segscan_sort_plain(*x), REPS)
+    t_l = time_ms(torch, lambda: library_sort(torch, *x), REPS)
+    # the collection read once, six outputs written once (14 bytes)
+    nbytes = B * 9 + B * 14
+    b_ms, b_by = bound(nbytes, B)
+    print(f"kernel segscan_sort {tag} B={B} segments={slots}: "
+          f"max_abs_err=0 kernel_ms={t_k:.4f} {split_text(split)} "
+          f"plain_ms={t_p:.4f} library_ms={t_l:.4f} bound_ms={b_ms:.5f} "
+          f"({b_by})")
+    return dict(max_abs_err=0.0, ms=t_k, **split, plain_ms=t_p,
+                bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+
+
+def library_sort(torch, seg, vals, valid):
+    """Yardstick: #22's two orders as PyTorch's own calls (stable sorts by
+    segment, and by value then segment, a cumsum, scatters back)."""
+    s = torch.where(valid, seg, 1 << 30)
+    o1 = torch.sort(s, stable=True).indices
+    ov = torch.sort(torch.nan_to_num(vals, nan=float("inf")),
+                    stable=True).indices
+    o2 = ov[torch.sort(s[ov], stable=True).indices]
+    cs = torch.cumsum(torch.ones_like(s), 0)
+    a, b = torch.empty_like(cs), torch.empty_like(cs)
+    a[o1] = cs
+    b[o2] = cs
+    return a, b
+
+
+# ------------------------------------------------------------ phase J
+def j_side(rng, n):
+    """One join side of bench_join_heavy's shape (bench.py:2522-2556): key
+    ids of k0..k511 and the keys, times uniform on [0, 60,000) ms, values
+    uniform on [0, 100) (float32, the residual's type)."""
+    ids = rng.integers(0, J_KEYS, n)
+    ts = rng.integers(0, J_TS, n).astype(np.int64)
+    vals = rng.uniform(0.0, 100.0, n).astype(np.float32)
+    return ids, J_KEY_NAMES[ids], ts, vals
+
+
+def j_twin_mask(ls, rs):
+    """Independent numpy twin of one window's pairing: key equality (on
+    the key ids), the ±5,000 ms band, l.v > r.w in float32."""
+    (li, _, lt, lv), (ri, _, rt, rv) = ls, rs
+    dt = lt.astype(np.int32)[:, None] - rt.astype(np.int32)[None, :]
+    return ((li[:, None] == ri[None, :]) & (dt >= -J_BAND) & (dt <= J_BAND)
+            & (lv[:, None] > rv[None, :]))
+
+
+def j_batches(ls, rs):
+    """The two sides as the join ring's SideBatches."""
+    from ekuiper_tpu_torch.ops.joinring import SideBatch
+
+    return [SideBatch(n=len(k), key_cols=[k.tolist()], band=t.tolist(),
+                      cols={col: v.tolist()})
+            for (_, k, t, v), col in ((ls, "__jl_v"), (rs, "__jr_w"))]
+
+
+def run_j1(torch, seed, kernels, ring_of):
+    """J1: bench_join_heavy's match leg, 2,048 rows a side, 4 windows
+    cycled through JoinRing.match; every mask against the twin."""
+    rng = np.random.default_rng(seed + 3000)
+    ring = ring_of(J_RULE.format(jt="INNER"))
+    wins, twins = [], []
+    for _ in range(4):
+        ls, rs = j_side(rng, J1_ROWS), j_side(rng, J1_ROWS)
+        wins.append(j_batches(ls, rs))
+        twins.append(j_twin_mask(ls, rs))
+    ring.match(*wins[0])  # warm
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    masks = [ring.match(*wins[i % 4]) for i in range(J1_CALLS)]
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    for i, m in enumerate(masks):
+        check(np.array_equal(m, twins[i % 4]), f"J1 window {i}: mask "
+              "differs from the twin")
+    check(ring.fallback_windows_total == 0, "J1: a fallback window")
+    return dict(rows_per_s=J1_CALLS * 2 * J1_ROWS / wall,
+                pairs=[int(t.sum()) for t in twins], launches=launches,
+                fallback=ring.fallback_windows_total, calls=J1_CALLS)
+
+
+def j2_twin(lrows, rrows, jt):
+    """Python nested loop over one window's messages, in the reference's
+    emission order (per left row its matches in right order, an unmatched
+    left row at its place for LEFT / FULL, then the unmatched right rows
+    for FULL)."""
+    out, hit_r = [], set()
+    for lm in lrows:
+        hit = False
+        for j, rm in enumerate(rrows):
+            if (lm["k"] == rm["k"] and abs(lm["ts"] - rm["ts"]) <= J_BAND
+                    and lm["v"] > rm["w"]):
+                out.append({"v": lm["v"], "w": rm["w"]})
+                hit = True
+                hit_r.add(j)
+        if not hit and jt in ("LEFT", "FULL"):
+            out.append({"v": lm["v"], "w": None})
+    if jt == "FULL":
+        out += [{"v": None, "w": rm["w"]} for j, rm in enumerate(rrows)
+                if j not in hit_r]
+    return out
+
+
+def run_j2(torch, seed, kernels, plan_host_rule, ColumnBatch, Node):
+    """J2: the full rule through plan_host_rule, INNER / LEFT / FULL, 40
+    windows of 256 rows a side on the port's mock clock; every window's
+    rows against the nested-loop twin."""
+    from ekuiper_tpu_torch.utils import timex
+
+    out = {}
+    for jt in J2_TYPES:
+        rng = np.random.default_rng(seed + 3100 + len(jt))
+        clock = timex.set_mock_clock(0)
+        try:
+            rule = plan_host_rule(J_RULE.format(jt=jt))
+            join = rule.nodes["join"]
+            check(type(join).__name__ == "DeviceJoinNode" and
+                  join.ring.device.type == "cuda", f"J2 {jt}: join not on "
+                  "the card")
+            sink = collector(Node)
+            rule.tail.connect(sink)
+            rule.on_open()
+            lat, n_out = [], 0
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            for w in range(J2_WINDOWS):
+                feeds = {}
+                for name, col in (("l", "v"), ("r", "w")):
+                    _, k, t, v = j_side(rng, J2_ROWS)
+                    feeds[name] = [{"k": a, "ts": int(b), col: float(c)}
+                                   for a, b, c in zip(k, t, v)]
+                    rule.entries[name].process(ColumnBatch(
+                        n=J2_ROWS, columns={"k": k, "ts": t, col: v}))
+                sink.got.clear()
+                te = time.perf_counter()
+                clock.advance(J_WINDOW_MS)
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - te) * 1e3)
+                got = [t.message for x in sink.got
+                       for t in (x if isinstance(x, list) else [x])]
+                want = j2_twin(feeds["l"], feeds["r"], jt)
+                check(got == want, f"J2 {jt} window {w}: {len(got)} rows, "
+                      f"the twin {len(want)}, or their order differs")
+                n_out += len(got)
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            check(join.ring.fallback_windows_total == 0,
+                  f"J2 {jt}: a fallback window")
+            rule.on_close()
+        finally:
+            timex.use_real_clock()
+        out[jt] = dict(p50=pct(lat, 50), p99=pct(lat, 99), rows_out=n_out,
+                       rows_per_s=J2_WINDOWS * 2 * J2_ROWS / wall,
+                       launches=launches,
+                       fallback=join.ring.fallback_windows_total)
+    return out
+
+
+def run_j3(torch, seed, kernels, ring_of):
+    """J3: J1's rule on windows of 16,384 rows a side (a 268 MB mask on the
+    card), through JoinRing.match; each mask against the twin, the
+    kernel's body time from a profiler trace against its bound."""
+    rng = np.random.default_rng(seed + 3200)
+    ring = ring_of(J_RULE.format(jt="INNER"))
+    kernels.reset_launches()
+    walls, pairs = [], []
+    for _ in range(J3_WINDOWS):
+        ls, rs = j_side(rng, J3_ROWS), j_side(rng, J3_ROWS)
+        lb, rb = j_batches(ls, rs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mask = ring.match(lb, rb)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        twin = j_twin_mask(ls, rs)
+        check(np.array_equal(mask, twin), "J3: mask differs from the twin")
+        pairs.append(int(twin.sum()))
+        del mask, twin
+    launches = dict(kernels.LAUNCHES)
+    check(ring.fallback_windows_total == 0, "J3: a fallback window")
+    # the kernel's device time inside three more match calls of the last
+    # window (their launches counted apart from the checked windows); the
+    # residual's torch pass at this shape is phase 2's residual_ms
+    body = body_ms(torch, lambda: ring.match(lb, rb), "join_match_kernel",
+                   3, per_call=True)
+    b_ms, b_by = bound(join_bytes(J3_ROWS), 0)
+    return dict(match_ms=walls, body_ms=body, bound_ms=b_ms,
+                bound_by=b_by, pairs=pairs, launches=launches,
+                fallback=ring.fallback_windows_total)
+
+
+def collector(Node):
+    """A sink node: keeps what reaches its `process` in `got`."""
+
+    class Sink(Node):
+        def __init__(self):
+            super().__init__("sink")
+            self.got = []
+
+        def process(self, item):
+            self.got.append(item)
+
+    return Sink()
+
+
+def run_phase_j(torch, seed, kernels, plan_host_rule, ColumnBatch, Node):
+    """Phase J: interval joins, J1-J3."""
+    from ekuiper_tpu_torch.planner import relational
+    from ekuiper_tpu_torch.sql.parser import parse_select
+
+    def ring_of(sql):
+        stmt = parse_select(sql)
+        ring = relational.lower_join(stmt, stmt.joins).build_ring()
+        check(ring.device.type == "cuda", "join ring not on the card")
+        return ring
+
+    t0 = time.perf_counter()
+    out = {"j1": run_j1(torch, seed, kernels, ring_of)}
+    out["j2"] = run_j2(torch, seed, kernels, plan_host_rule, ColumnBatch,
+                       Node)
+    out["j3"] = run_j3(torch, seed, kernels, ring_of)
+    torch.cuda.empty_cache()
+    out["wall"] = time.perf_counter() - t0
+    return out
+
+
+def phase_j_lines(j):
+    j1 = j["j1"]
+    yield (f"phase J J1 bench_join_heavy match leg: {J1_CALLS} windows of "
+           f"{J1_ROWS} rows a side ({J_KEYS} keys, band ±{J_BAND} ms, l.v > "
+           f"r.w): match rows/s={j1['rows_per_s']:.0f} pairs/window="
+           f"{j1['pairs']} fallback_windows={j1['fallback']} every mask "
+           f"equal to the twin launches={nz_dict(j1['launches'])}")
+    for jt, r in j["j2"].items():
+        yield (f"phase J J2 {jt} JOIN through plan_host_rule: {J2_WINDOWS} "
+               f"windows of {J2_ROWS} rows a side: window_p50_ms="
+               f"{r['p50']:.3f} window_p99_ms={r['p99']:.3f} rows/s="
+               f"{r['rows_per_s']:.0f} rows_out={r['rows_out']} "
+               f"fallback_windows={r['fallback']} every window equal to "
+               f"the nested-loop twin launches={nz_dict(r['launches'])}")
+    j3 = j["j3"]
+    yield (f"phase J J3 {J3_WINDOWS} windows of {J3_ROWS} rows a side: "
+           f"match_ms={[round(x, 3) for x in j3['match_ms']]} kernel "
+           f"body_ms={j3['body_ms']} "
+           f"bound_ms={j3['bound_ms']:.5f} ({j3['bound_by']}) pairs="
+           f"{j3['pairs']} fallback_windows={j3['fallback']} "
+           f"launches={nz_dict(j3['launches'])} (phase J wall "
+           f"{j['wall']:.1f} s)")
+
+
+def nz_dict(d):
+    return {k: v for k, v in d.items() if v}
+
+
+# ------------------------------------------------------------ phase K
+def run_k1(torch, seed, kernels, plan_host_rule, ColumnBatch, Node):
+    """K1: lag over the flagship stream (10,000 devices, 16 batches of
+    8,192 rows); every prev against the twin's previous value per device
+    across batches."""
+    rng = np.random.default_rng(seed + 4000)
+    rule = plan_host_rule(K1_RULE)
+    an = rule.nodes["analytic"]
+    check(type(an).__name__ == "DeviceAnalyticNode", "K1: not the device "
+          "analytic node")
+    sink = collector(Node)
+    rule.tail.connect(sink)
+    batches = []
+    for _ in range(K1_BATCHES):
+        idx = rng.integers(0, N_KEYS, K_SHIFT_SMALL)
+        temp = rng.normal(20, 5, K_SHIFT_SMALL).astype(np.float32)
+        batches.append((idx, temp, ColumnBatch(n=len(idx), columns={
+            "deviceId": DEVICE_NAMES[idx], "temperature": temp})))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for _, _, b in batches:
+        rule.entries["demo"].process(b)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    check(not an._migrated and an._seg.device.type == "cuda",
+          "K1: the lag carry left the card")
+    got = [t.message["prev"] for t in sink.got]
+    last = np.full(N_KEYS, np.nan, dtype=np.float32)
+    seen = np.zeros(N_KEYS, dtype=bool)
+    want = []
+    for idx, temp, _ in batches:
+        for i, t in zip(idx, temp):
+            want.append(float(last[i]) if seen[i] else None)
+            last[i], seen[i] = t, True
+    check(got == want, "K1: a prev differs from the twin")
+    return dict(rows_per_s=K1_BATCHES * K_SHIFT_SMALL / wall,
+                continued=an._seg.spills_total, launches=launches,
+                rows=len(got))
+
+
+def run_k2(torch, seed, kernels, plan_host_rule, ColumnBatch, Node):
+    """K2: rank, dense_rank and lead of temperature over windows of 65,536
+    rows (10,000 devices, values in halves so float32-exact with ties);
+    every value against scipy.stats.rankdata (min / dense) within devices
+    and the next row's value."""
+    from scipy.stats import rankdata
+
+    from ekuiper_tpu_torch.utils import timex
+
+    rng = np.random.default_rng(seed + 4100)
+    clock = timex.set_mock_clock(0)
+    try:
+        rule = plan_host_rule(K2_RULE)
+        wf = rule.nodes["window_func"]
+        check(type(wf).__name__ == "VectorWindowFuncNode" and wf.use_device,
+              "K2: ranks not planned for the card")
+        sink = collector(Node)
+        rule.tail.connect(sink)
+        rule.on_open()
+        kernels.reset_launches()
+        lat = []
+        for w in range(K2_WINDOWS):
+            idx = rng.integers(0, N_KEYS, K_WINDOW_ROWS)
+            temp = (np.round(rng.normal(20, 5, K_WINDOW_ROWS) * 2)
+                    / 2).astype(np.float32)
+            rule.entries["demo"].process(ColumnBatch(
+                n=len(idx), columns={"deviceId": DEVICE_NAMES[idx],
+                                     "temperature": temp}))
+            sink.got.clear()
+            te = time.perf_counter()
+            clock.advance(K_WINDOW_MS)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - te) * 1e3)
+            got = [t.message for x in sink.got
+                   for t in (x if isinstance(x, list) else [x])]
+            check(len(got) == K_WINDOW_ROWS, f"K2 window {w}: {len(got)} "
+                  "rows")
+            order = np.argsort(idx, kind="stable")
+            bounds = np.flatnonzero(np.diff(idx[order])) + 1
+            rk = np.empty(len(idx), np.int64)
+            dr = np.empty(len(idx), np.int64)
+            nx = np.full(len(idx), np.nan)
+            for sel in np.split(order, bounds):
+                rk[sel] = rankdata(temp[sel], method="min")
+                dr[sel] = rankdata(temp[sel], method="dense")
+                nx[sel[:-1]] = temp[sel[1:]]
+            check([m["rk"] for m in got] == rk.tolist(),
+                  f"K2 window {w}: rank differs")
+            check([m["dr"] for m in got] == dr.tolist(),
+                  f"K2 window {w}: dense_rank differs")
+            check([m["nx"] for m in got] ==
+                  [None if np.isnan(v) else float(v) for v in nx],
+                  f"K2 window {w}: lead differs")
+        launches = dict(kernels.LAUNCHES)
+        rule.on_close()
+    finally:
+        timex.use_real_clock()
+    return dict(p50=pct(lat, 50), max_ms=max(lat), window_ms=lat,
+                launches=launches, rank_paths=dict(wf.rank_paths))
+
+
+def run_phase_k(torch, seed, kernels, plan_host_rule, ColumnBatch, Node):
+    t0 = time.perf_counter()
+    out = {"k1": run_k1(torch, seed, kernels, plan_host_rule, ColumnBatch,
+                        Node),
+           "k2": run_k2(torch, seed, kernels, plan_host_rule, ColumnBatch,
+                        Node)}
+    out["wall"] = time.perf_counter() - t0
+    return out
+
+
+def phase_k_lines(k):
+    k1, k2 = k["k1"], k["k2"]
+    yield (f"phase K K1 lag over {N_KEYS} devices, {K1_BATCHES} batches of "
+           f"{K_SHIFT_SMALL} rows: rows/s={k1['rows_per_s']:.0f} "
+           f"continued_partitions={k1['continued']} rows={k1['rows']} "
+           f"every prev equal to the twin launches="
+           f"{nz_dict(k1['launches'])}")
+    yield (f"phase K K2 rank / dense_rank / lead over {K2_WINDOWS} "
+           f"TUMBLINGWINDOW(ss, 10) windows of {K_WINDOW_ROWS} rows: "
+           f"window_ms={[round(x, 1) for x in k2['window_ms']]} every value "
+           f"equal to scipy rankdata and the next row's rank_paths="
+           f"{k2['rank_paths']} launches={nz_dict(k2['launches'])} "
+           f"(phase K wall {k['wall']:.1f} s)")
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5821,8 +6439,10 @@ def main() -> int:
     from ekuiper_tpu_torch.ops import kernels, prefinalize, sketches
     from ekuiper_tpu_torch.ops.groupby import TorchGroupBy
     from ekuiper_tpu_torch.planner.fused import plan_fused_rule
+    from ekuiper_tpu_torch.planner.planner import plan_host_rule
     from ekuiper_tpu_torch.planner.rulegroup import plan_rule_group
     from ekuiper_tpu_torch.runtime.events import Trigger
+    from ekuiper_tpu_torch.runtime.node import Node
 
     # phase 1: the card and the build
     smi = subprocess.run(
@@ -5855,6 +6475,7 @@ def main() -> int:
                                    plan_fused_rule, dev))
     rows.update(event_group_kernel_checks(torch, args.seed, kernels,
                                           sketches, dev))
+    rows.update(relational_kernel_checks(torch, args.seed, kernels, dev))
     print(f"phase 2 kernels vs plain: ok (wall {time.perf_counter() - t_run:.0f} s)")
 
     mods = (plan_fused_rule, ColumnBatch, Trigger)
@@ -5993,6 +6614,19 @@ def main() -> int:
         print(line)
     print(f"phase I: wall {time.perf_counter() - t_run:.0f} s")
 
+    # phase J: interval joins (J1 the match leg, J2 the full rule through
+    # plan_host_rule, J3 16,384 rows a side)
+    j = run_phase_j(torch, args.seed, kernels, plan_host_rule, ColumnBatch,
+                    Node)
+    for line in phase_j_lines(j):
+        print(line)
+    # phase K: lag (K1) and rank / dense_rank / lead (K2)
+    k = run_phase_k(torch, args.seed, kernels, plan_host_rule, ColumnBatch,
+                    Node)
+    for line in phase_k_lines(k):
+        print(line)
+    print(f"phase J, K: wall {time.perf_counter() - t_run:.0f} s")
+
     # phase 5: every kernel launched on each path that uses it
     paths = {"tumbling": counts_t, "hopping": counts_h, "hh": counts_hh,
              "pct": b["pct"]["launches"], "hll": b["hll"]["launches"],
@@ -6007,7 +6641,11 @@ def main() -> int:
                                                     "h5_hll", "h5_pct",
                                                     "h6")},
              **{tag: i[tag]["launches"] for tag in ("i1", "i2", "i3", "i4",
-                                                    "i5", "i6", "i7")}}
+                                                    "i5", "i6", "i7")},
+             "j1": j["j1"]["launches"], "j3": j["j3"]["launches"],
+             **{f"j2_{jt.lower()}": j["j2"][jt]["launches"]
+                for jt in J2_TYPES},
+             "k1": k["k1"]["launches"], "k2": k["k2"]["launches"]}
     for name, used_by in PATHS.items():
         for path in used_by:
             check(paths[path][name] > 0,
@@ -6040,7 +6678,10 @@ def main() -> int:
                 "tier_demote": "tier_demote/g1",
                 "tier_promote": "tier_promote/g2",
                 "multirule_fold_wide": "multirule_fold_wide/hll",
-                "multirule_finalize_wide": "multirule_finalize_wide/hll"}
+                "multirule_finalize_wide": "multirule_finalize_wide/hll",
+                "join_match": "join_match/2048",
+                "segscan_shift": "segscan_shift/8192",
+                "segscan_sort": "segscan_sort/65536"}
     main_path = {"groupby_fold_wide": "hh", "groupby_finalize_wide": "pct",
                  "groupby_hh_finalize": "hh", "groupby_components": "c1",
                  "groupby_absorb": "c1_host", "ring_advance": "d1",
@@ -6051,7 +6692,9 @@ def main() -> int:
                  "groupby_fold_masked_wide": "f1",
                  "tier_demote": "g1", "tier_promote": "g2a",
                  "multirule_fold_wide": "h5_hll",
-                 "multirule_finalize_wide": "h5_hll"}
+                 "multirule_finalize_wide": "h5_hll",
+                 "join_match": "j2_inner", "segscan_shift": "k1",
+                 "segscan_sort": "k2"}
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name],
@@ -6097,7 +6740,13 @@ def main() -> int:
         table["kernels"][k]["pct_family"] = rows[f"{name}/pct"]
     table["kernels"][13]["hll_family"] = rows["multirule_reset_pane/hll"]
     table["kernels"][13]["pct_family"] = rows["multirule_reset_pane/pct"]
-    check(len(table["kernels"]) == 20, "kernel table")
+    # the relational tier: #20 at J3's shape, #21 at 131,072 rows and both
+    # sorts with one segment walked by one thread
+    table["kernels"][20]["at_16384"] = rows["join_match/16384"]
+    table["kernels"][21]["at_131072"] = rows["segscan_shift/131072"]
+    table["kernels"][21]["one_segment"] = rows["segscan_shift/one_segment"]
+    table["kernels"][22]["one_segment"] = rows["segscan_sort/one_segment"]
+    check(len(table["kernels"]) == 23, "kernel table")
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
 """Row & collection data model (subset of ekuiper_tpu/data/rows.py) —
 analogue of eKuiper's internal/xsql row model: Tuple (map row + metadata +
-alias overlay, internal/xsql/row.go:319) and the GroupedTuples collections
-(internal/xsql/collection.go:40-109) the fused node's row-path emit builds.
+alias overlay, internal/xsql/row.go:319), JoinTuple (row.go:355), and the
+WindowTuples / GroupedTuples collections (internal/xsql/collection.go:40-109)
+that the host operator chain (runtime/nodes_window.py, nodes_ops.py,
+nodes_join.py) and the fused node's row-path emit build.
 """
 from __future__ import annotations
 
@@ -67,6 +69,51 @@ class Tuple(Row):
 
 
 @dataclass
+class JoinTuple(Row):
+    """Merged row from a join: ordered (emitter, Tuple) pairs
+    (analogue of internal/xsql/row.go:355)."""
+
+    tuples: List[Tuple] = field(default_factory=list)
+    cal_cols: Dict[str, Any] = field(default_factory=dict)
+
+    @property
+    def timestamp(self) -> int:
+        return max((t.timestamp for t in self.tuples), default=0)
+
+    def add(self, t: Tuple) -> None:
+        self.tuples.append(t)
+
+    def value(self, key: str, table: str = "") -> PyTuple[Any, bool]:
+        if key in self.cal_cols:
+            return self.cal_cols[key], True
+        if table:
+            for t in self.tuples:
+                if t.emitter == table:
+                    return t.value(key)
+            return None, False
+        for t in self.tuples:
+            v, ok = t.value(key)
+            if ok:
+                return v, True
+        return None, False
+
+    def all_values(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {}
+        for t in reversed(self.tuples):
+            out.update(t.all_values())
+        out.update(self.cal_cols)
+        return out
+
+    def set_cal_col(self, key: str, value: Any) -> None:
+        self.cal_cols[key] = value
+
+    def clone(self) -> "JoinTuple":
+        return JoinTuple(
+            tuples=[t.clone() for t in self.tuples], cal_cols=copy.copy(self.cal_cols)
+        )
+
+
+@dataclass
 class WindowRange:
     """Window bounds attached to emitted collections; feeds window_start()/
     window_end() SQL functions (reference: internal/xsql window range)."""
@@ -86,6 +133,27 @@ class Collection:
 
     def __iter__(self) -> Iterator[Row]:
         return iter(self.rows())
+
+
+@dataclass
+class WindowTuples(Collection):
+    """All rows of one triggered window (analogue collection.go:70)."""
+
+    content: List[Row] = field(default_factory=list)
+    window_range: Optional[WindowRange] = None
+
+    def rows(self) -> List[Row]:
+        return self.content
+
+    # acts as the aggregate context for ungrouped agg queries: non-agg
+    # columns read from the first row (reference semantics)
+    def value(self, key: str, table: str = "") -> PyTuple[Any, bool]:
+        if self.content:
+            return self.content[0].value(key, table)
+        return None, False
+
+    def all_values(self) -> Dict[str, Any]:
+        return self.content[0].all_values() if self.content else {}
 
 
 @dataclass

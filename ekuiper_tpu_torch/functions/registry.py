@@ -1,12 +1,18 @@
 """Built-in function table (subset of ekuiper_tpu/functions/registry.py).
 
-The port's slice compiles expressions, it never executes functions row by
-row, so this table holds only what the SQL front end and the expression
+Most of the port compiles expressions and never executes a function row by
+row, so this table holds mainly what the SQL front end and the expression
 compilers ask of a function: its kind. Every aggregate name of the full
 engine is listed, so `is_aggregate` answers exactly as the reference does
 and an aggregate the port cannot fold is recognised (and refused) rather
 than mistaken for a scalar; the scalars are the device-math and temporal
-functions the expression IR lowers itself.
+functions the expression IR lowers itself. The analytic and window
+functions are listed likewise (`is_analytic`, WINDOW_FUNC), and the host
+row evaluator (sql/eval.py) runs the `exec` of the few that have one:
+`lag` (funcs_analytic.py), `row_number` (funcs_window.py) and `isnull`
+(funcs_misc.py); rank,
+dense_rank and lead are computed by the window-function node and their
+exec only refuses a direct call.
 """
 from __future__ import annotations
 
@@ -15,6 +21,8 @@ from typing import Callable, Optional
 
 SCALAR = "scalar"
 AGGREGATE = "aggregate"
+ANALYTIC = "analytic"
+WINDOW_FUNC = "window"
 
 _AGGREGATES = (
     "avg", "collect", "count", "deduplicate", "distinct_count_approx",
@@ -49,14 +57,51 @@ class FunctionDef:
     #: parse-time argument validator; the reference's validators belong to
     #: functions the port does not run, so none is set
     val: Optional[Callable] = None
+    #: row-path implementation (sql/eval.py); None where the port has none
+    exec: Optional[Callable] = None
 
+
+#: the reference's analytic functions (funcs_analytic.py); only lag runs
+_ANALYTICS = ("lag", "latest", "changed_col", "had_changed")
 
 _registry = {n: FunctionDef(n, AGGREGATE) for n in _AGGREGATES}
 _registry.update({n: FunctionDef(n, SCALAR) for n in _SCALARS})
+_registry.update({n: FunctionDef(n, ANALYTIC, stateful=True)
+                  for n in _ANALYTICS})
+
+
+def register(name: str, ftype: str = SCALAR, stateful: bool = False
+             ) -> Callable[[Callable], Callable]:
+    """Give a function its row-path implementation."""
+
+    def wrap(fn: Callable) -> Callable:
+        _registry[name.lower()] = FunctionDef(name.lower(), ftype,
+                                              stateful=stateful, exec=fn)
+        return fn
+
+    return wrap
 
 
 def lookup(name: str) -> Optional[FunctionDef]:
+    _ensure_loaded()
     return _registry.get(name.lower())
+
+
+def is_analytic(name: str) -> bool:
+    fd = lookup(name)
+    return fd is not None and fd.ftype == ANALYTIC
+
+
+_loaded = False
+
+
+def _ensure_loaded() -> None:
+    """Import the function modules on first lookup (they self-register)."""
+    global _loaded
+    if _loaded:
+        return
+    _loaded = True
+    from . import funcs_analytic, funcs_misc, funcs_window  # noqa: F401
 
 
 def is_aggregate(name: str) -> bool:

@@ -1,11 +1,11 @@
-"""The group-by kernels of the fused window aggregate: their CUDA build, the
-wrappers that launch them, their plain PyTorch versions and their launch
-counts.
+"""The port's CUDA kernels: their build, the wrappers that launch them, their
+plain PyTorch versions and their launch counts.
 
-Twenty kernels, written by hand in CUDA C++ for Hopper, each replacing
-one device program of the reference (ekuiper_tpu/ops/groupby.py,
-ekuiper_tpu/ops/slidingring.py, ekuiper_tpu/parallel/multirule.py and
-ekuiper_tpu/ops/tierstore.py). Four in
+Twenty-three kernels, written by hand in CUDA C++ for Hopper, each
+replacing one device program of the reference (ekuiper_tpu/ops/groupby.py,
+ekuiper_tpu/ops/slidingring.py, ekuiper_tpu/parallel/multirule.py,
+ekuiper_tpu/ops/tierstore.py, ekuiper_tpu/ops/joinring.py and
+ekuiper_tpu/ops/segscan.py). Four in
 ekuiper_tpu_torch/csrc/groupby.cu:
 
 - `groupby_fold_scalar` replaces `DeviceGroupBy._fold_impl` → `_fold_core`
@@ -150,6 +150,24 @@ block of one slot flattened in C order, the components sorted, act last:
   rows merged into their slots by atomic add / min / max (identity pad
   rows on a repeated slot change nothing).
 
+And three in ekuiper_tpu_torch/csrc/relational.cu, for the relational
+tier (ops/joinring.py, ops/segscan.py):
+
+- `join_match` replaces `JoinRing._match_impl` (joinring.py:186): the
+  interval join's (PL, PR) pairing mask, slot equality ∧ the int32 band
+  ∧ validity ∧ the ON residual (a bool tensor the expression IR computed,
+  read through its broadcast strides). One thread per (i, j). Bound:
+  writing PL·PR bytes (0.080 ms at 16,384 a side).
+- `segscan_shift` replaces `SegScan._shift_impl` (segscan.py:124): a
+  bitonic sort by (slot, arrival), then one thread per segment walks it:
+  row numbers from the carry's count, lag(1), running sums; the tail
+  writes the carry back in place.
+- `segscan_sort` replaces `SegScan._sort_impl` (segscan.py:165): the same
+  sort by (segment, arrival) for row_number and lead(1), then by
+  (segment, value, arrival) for rank and dense_rank. Bound, both: the
+  batch read once and the outputs written once; the sort's passes set
+  the time.
+
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and
 only there; for a CUDA tensor it launches the kernel or raises. A wrapper
 adds one to `LAUNCHES[name]` where it launches its kernel and nowhere else.
@@ -180,7 +198,8 @@ SOURCES = {"groupby": _PKG / "csrc" / "groupby.cu",
            "prefinalize": _PKG / "csrc" / "prefinalize.cu",
            "slidingring": _PKG / "csrc" / "slidingring.cu",
            "multirule": _PKG / "csrc" / "multirule.cu",
-           "tierstore": _PKG / "csrc" / "tierstore.cu"}
+           "tierstore": _PKG / "csrc" / "tierstore.cu",
+           "relational": _PKG / "csrc" / "relational.cu"}
 #: headers the sources include (part of every library's build tag)
 HEADERS = (_PKG / "csrc" / "groupby_common.cuh",
            _PKG / "csrc" / "sketch_common.cuh",
@@ -247,7 +266,10 @@ LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0,
                             "multirule_finalize_wide": 0,
                             "multirule_reset_pane": 0,
                             "tier_demote": 0,
-                            "tier_promote": 0}
+                            "tier_promote": 0,
+                            "join_match": 0,
+                            "segscan_shift": 0,
+                            "segscan_sort": 0}
 #: of LAUNCHES' folds, those that took a per-row pane vector
 ROW_PANE_LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0,
                                      "groupby_fold_wide": 0,
@@ -257,8 +279,8 @@ ROW_PANE_LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0,
 TOUCH_LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0}
 
 #: the loaded libraries (SimpleNamespace(groupby=..., sketches=...,
-#: prefinalize=..., slidingring=..., multirule=..., tierstore=...)), None
-#: until the first launch
+#: prefinalize=..., slidingring=..., multirule=..., tierstore=...,
+#: relational=...)), None until the first launch
 _lib = None
 _lib_lock = threading.Lock()
 #: seconds the last build took (0.0 when cached libraries were loaded)
@@ -377,6 +399,14 @@ def _load():
             ts = ctypes.CDLL(str(paths["tierstore"]))
             ts.tier_demote.argtypes = [P, P, P, P, I, I, I, P, I, I, P, P, P]
             ts.tier_promote.argtypes = [P, P, P, P, I, I, I, P, I, P, P]
+            LL = ctypes.c_longlong
+            rl = ctypes.CDLL(str(paths["relational"]))
+            rl.join_match.argtypes = [P, P, P, I, P, P, P, I, I, I, P, LL,
+                                      LL, P, P]
+            rl.segscan_shift.argtypes = [P, P, P, I, P, P, P, P, I, P, P, P,
+                                         P, P, P, P, P]
+            rl.segscan_sort.argtypes = [P, P, P, I, P, P, P, P, P, P, P, P,
+                                        P]
             for lib, fns in ((gb, ("groupby_fold_scalar",
                                    "groupby_fold_masked_scalar",
                                    "groupby_finalize_scalar",
@@ -392,13 +422,16 @@ def _load():
                                    "multirule_finalize",
                                    "multirule_finalize_wide",
                                    "multirule_reset_pane")),
-                             (ts, ("tier_demote", "tier_promote"))):
+                             (ts, ("tier_demote", "tier_promote")),
+                             (rl, ("join_match", "segscan_shift",
+                                   "segscan_sort"))):
                 for fn in fns:
                     getattr(lib, fn).restype = I
             gb.groupby_error_string.argtypes = [I]
             gb.groupby_error_string.restype = ctypes.c_char_p
             _lib = SimpleNamespace(groupby=gb, sketches=sk, prefinalize=pf,
-                                   slidingring=sr, multirule=mr, tierstore=ts)
+                                   slidingring=sr, multirule=mr, tierstore=ts,
+                                   relational=rl)
         return _lib
 
 
@@ -1814,6 +1847,288 @@ def tier_promote_plain(state, packed, slots, comps) -> None:
                                 include_self=True)
         else:
             arr.index_add_(1, idx, seg)
+
+
+# ------------------------------------------------------- relational tier
+#: csrc/relational.cu SEG_PAD (ekuiper_tpu/ops/segscan.py _SEG_PAD): the
+#: segment of pad rows, after every real slot
+SEG_PAD = 1 << 30
+_I32 = (-(1 << 31), (1 << 31) - 1)
+
+
+def _device_of(name: str, t: torch.Tensor) -> Optional[torch.device]:
+    """The CUDA device to launch on, None for the plain version (CPU
+    tensors); raises for any other device."""
+    if t.device.type == "cpu":
+        return None
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device
+
+
+def _pow2_len(name: str, t: torch.Tensor) -> int:
+    if t.dim() != 1 or t.shape[0] < 1 or t.shape[0] & (t.shape[0] - 1):
+        raise ValueError(f"{name}: expected a 1-d tensor of a power-of-two "
+                         f"length, got shape {tuple(t.shape)}")
+    return int(t.shape[0])
+
+
+def _residual_view(name: str, residual: Optional[torch.Tensor], PL: int,
+                   PR: int, dev) -> Tuple[Optional[torch.Tensor], int, int]:
+    """The residual mask as (tensor, stride along i, stride along j): a bool
+    tensor broadcastable to (PL, PR) ((PL, PR), (PL, 1), (1, PR) or
+    (1, 1)), read in place through its broadcast strides."""
+    if residual is None:
+        return None, 0, 0
+    if residual.dtype != torch.bool:
+        raise TypeError(f"{name}: residual must be bool, got "
+                        f"{residual.dtype}")
+    if residual.device != dev:
+        raise ValueError(f"{name}: residual on {residual.device}, "
+                         f"sides on {dev}")
+    if residual.dim() != 2 or residual.shape[0] not in (1, PL) \
+            or residual.shape[1] not in (1, PR):
+        raise ValueError(f"{name}: residual of shape "
+                         f"{tuple(residual.shape)} does not broadcast to "
+                         f"({PL}, {PR})")
+    view = residual.expand(PL, PR)
+    return residual, view.stride(0), view.stride(1)
+
+
+def join_match(slot_l: torch.Tensor, ts_l: torch.Tensor, vl: torch.Tensor,
+               slot_r: torch.Tensor, ts_r: torch.Tensor, vr: torch.Tensor,
+               lo: int, hi: int,
+               residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The interval join's pairing mask over a padded candidate block: a
+    fresh bool (PL, PR) with mask[i, j] = slot_l[i] == slot_r[j] ∧ lo ≤
+    ts_l[i] − ts_r[j] ≤ hi ∧ vl[i] ∧ vr[j] ∧ residual[i, j].
+
+    slot_*, ts_*: int32 (PL,) / (PR,), PL and PR powers of two (the event
+    times rebased so that every difference fits int32, ops/joinring.py);
+    v*: bool row validity; lo, hi: int32 bounds; residual: None or a bool
+    tensor broadcastable to (PL, PR) (the ON residual's IR result)."""
+    name = "join_match"
+    dev = _device_of(name, slot_l)
+    if dev is None:
+        return join_match_plain(slot_l, ts_l, vl, slot_r, ts_r, vr, lo, hi,
+                                residual)
+    PL, PR = _pow2_len(name, slot_l), _pow2_len(name, slot_r)
+    for t, dtype, n in ((slot_l, torch.int32, PL), (ts_l, torch.int32, PL),
+                        (vl, torch.bool, PL), (slot_r, torch.int32, PR),
+                        (ts_r, torch.int32, PR), (vr, torch.bool, PR)):
+        _check(name, t, dtype, (n,), dev)
+    for b in (lo, hi):
+        if not _I32[0] <= int(b) <= _I32[1]:
+            raise ValueError(f"{name}: band bound {b} outside int32")
+    res, rs_i, rs_j = _residual_view(name, residual, PL, PR, dev)
+    mask = torch.empty((PL, PR), dtype=torch.bool, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.relational.join_match(
+            _ptr(slot_l), _ptr(ts_l), _ptr(vl), PL, _ptr(slot_r),
+            _ptr(ts_r), _ptr(vr), PR, int(lo), int(hi), _opt_ptr(res),
+            rs_i, rs_j, _ptr(mask), _stream(dev))
+        LAUNCHES[name] += 1
+    _raise_on(lib, name, rc)
+    return mask
+
+
+def join_match_plain(slot_l, ts_l, vl, slot_r, ts_r, vr, lo: int, hi: int,
+                     residual=None) -> torch.Tensor:
+    """Plain PyTorch version of join_match (the reference's broadcast
+    compares, int32 differences)."""
+    dt = ts_l[:, None] - ts_r[None, :]
+    mask = ((slot_l[:, None] == slot_r[None, :]) & (dt >= lo) & (dt <= hi)
+            & vl[:, None] & vr[None, :])
+    if residual is not None:
+        mask = mask & residual
+    return mask
+
+
+def _seg_keys_checked(name: str, seg, vals, valid, dev) -> int:
+    B = _pow2_len(name, seg)
+    _check(name, seg, torch.int32, (B,), dev)
+    _check(name, vals, torch.float32, (B,), dev)
+    _check(name, valid, torch.bool, (B,), dev)
+    return B
+
+
+def _sort_scratch(B: int, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+    return (torch.empty(B, dtype=torch.int64, device=dev),
+            torch.empty(B, dtype=torch.int32, device=dev))
+
+
+def segscan_shift(carry: Sequence[torch.Tensor], slots: torch.Tensor,
+                  vals: torch.Tensor, valid: torch.Tensor
+                  ) -> Tuple[torch.Tensor, ...]:
+    """lag / row_number / running sum of one padded micro-batch, continuing
+    the per-slot carry (cnt int32, last float32, has bool, acc float32, each
+    (C,)), which it updates in place.
+
+    slots: int32 (B,), B a power of two, each valid row's in [0, C) (a row
+    outside counts no carry and writes none); vals: float32 (B,), NaN for
+    NULL; valid: bool (B,). Returns fresh (row_number int32, lag float32,
+    lag_has bool, run_sum float32) in arrival order (pad rows: 0, NaN,
+    False, 0) and the continued partitions as an int32 (1,) tensor."""
+    name = "segscan_shift"
+    dev = _device_of(name, slots)
+    if dev is None:
+        return segscan_shift_plain(carry, slots, vals, valid)
+    B = _seg_keys_checked(name, slots, vals, valid, dev)
+    cnt, last, has, acc = carry
+    C = cnt.shape[0]
+    for t, dtype in ((cnt, torch.int32), (last, torch.float32),
+                     (has, torch.bool), (acc, torch.float32)):
+        _check(name, t, dtype, (C,), dev)
+    keys, order = _sort_scratch(B, dev)
+    rn = torch.empty(B, dtype=torch.int32, device=dev)
+    lag = torch.empty(B, dtype=torch.float32, device=dev)
+    lhas = torch.empty(B, dtype=torch.bool, device=dev)
+    run = torch.empty(B, dtype=torch.float32, device=dev)
+    cont = torch.empty(1, dtype=torch.int32, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.relational.segscan_shift(
+            _ptr(slots), _ptr(vals), _ptr(valid), B, _ptr(cnt), _ptr(last),
+            _ptr(has), _ptr(acc), C, _ptr(keys), _ptr(order), _ptr(rn),
+            _ptr(lag), _ptr(lhas), _ptr(run), _ptr(cont), _stream(dev))
+        LAUNCHES[name] += 1
+    _raise_on(lib, name, rc)
+    return rn, lag, lhas, run, cont
+
+
+def _seg_starts(ss: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(head flags, index of each position's segment head) of a sorted
+    segment-id vector."""
+    B = ss.shape[0]
+    head = torch.ones(B, dtype=torch.bool, device=ss.device)
+    head[1:] = ss[1:] != ss[:-1]
+    idx = torch.arange(B, device=ss.device)
+    start = torch.cummax(torch.where(head, idx, 0), 0).values
+    return head, start
+
+
+def _unsort(order: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    out = torch.empty_like(x)
+    out[order] = x
+    return out
+
+
+def segscan_shift_plain(carry, slots, vals, valid):
+    """Plain PyTorch version of segscan_shift (the reference's stable sort,
+    segmented positions and sums; the sums in float64, rounded once)."""
+    cnt, last, has, acc = carry
+    B, C = slots.shape[0], cnt.shape[0]
+    dev = slots.device
+    s = torch.where(valid, slots, torch.full_like(slots, SEG_PAD))
+    ss, order = torch.sort(s, stable=True)
+    vv = vals[order]
+    real = ss != SEG_PAD
+    inr = real & (ss >= 0) & (ss < C)
+    sc = torch.where(inr, ss, 0).long()
+    head, start = _seg_starts(ss)
+    tail = torch.ones(B, dtype=torch.bool, device=dev)
+    tail[:-1] = ss[:-1] != ss[1:]
+    idx = torch.arange(B, device=dev)
+    pos = (idx - start + 1).to(torch.int32)
+    c0 = torch.where(inr, cnt[sc], 0)
+    h0 = inr & has[sc]
+    l0 = last[sc]
+    a0 = torch.where(inr, acc[sc], 0.0)
+    nan = torch.tensor(float("nan"), device=dev)
+    pv = torch.cat([vv[:1], vv[:-1]])
+    lag = torch.where(head, torch.where(h0, l0, nan), pv)
+    lhas = torch.where(head, h0, torch.ones_like(h0))
+    cs = torch.cumsum(torch.nan_to_num(vv.double(), nan=0.0), 0)
+    base = cs[start] - torch.nan_to_num(vv.double(), nan=0.0)[start]
+    cum = (cs - base).float()
+    run = a0 + cum
+    rn = c0 + pos
+    cont = (head & h0).sum().to(torch.int32).reshape(1)
+    w = tail & inr
+    ws = ss[w].long()
+    cnt[ws] = rn[w]
+    last[ws] = vv[w]
+    has[ws] = True
+    acc[ws] = run[w]
+    rn = torch.where(real, rn, 0)
+    lag = torch.where(real, lag, nan)
+    lhas = lhas & real
+    run = torch.where(real, run, 0.0)
+    return (_unsort(order, rn), _unsort(order, lag), _unsort(order, lhas),
+            _unsort(order, run), cont)
+
+
+def segscan_sort(seg: torch.Tensor, vals: torch.Tensor, valid: torch.Tensor
+                 ) -> Tuple[torch.Tensor, ...]:
+    """Whole-collection window functions of one padded collection: fresh
+    (row_number int32, lead float32, lead_has bool, rank int32,
+    dense_rank int32, rank_has bool) in arrival order; row_number and
+    lead(1) in arrival order within a segment, rank / dense_rank in value
+    order within it (NaN = NULL sorts last and ranks as NULL).
+
+    seg: int32 (B,), B a power of two, each valid row's in [0, 2^30);
+    vals: float32 (B,); valid: bool (B,). Pad rows: 0, NaN, False, 0, 0,
+    False."""
+    name = "segscan_sort"
+    dev = _device_of(name, seg)
+    if dev is None:
+        return segscan_sort_plain(seg, vals, valid)
+    B = _seg_keys_checked(name, seg, vals, valid, dev)
+    keys, order = _sort_scratch(B, dev)
+    rn = torch.empty(B, dtype=torch.int32, device=dev)
+    lead = torch.empty(B, dtype=torch.float32, device=dev)
+    lead_has = torch.empty(B, dtype=torch.bool, device=dev)
+    rank = torch.empty(B, dtype=torch.int32, device=dev)
+    dense = torch.empty(B, dtype=torch.int32, device=dev)
+    rank_has = torch.empty(B, dtype=torch.bool, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.relational.segscan_sort(
+            _ptr(seg), _ptr(vals), _ptr(valid), B, _ptr(keys), _ptr(order),
+            _ptr(rn), _ptr(lead), _ptr(lead_has), _ptr(rank), _ptr(dense),
+            _ptr(rank_has), _stream(dev))
+        LAUNCHES[name] += 1
+    _raise_on(lib, name, rc)
+    return rn, lead, lead_has, rank, dense, rank_has
+
+
+def segscan_sort_plain(seg, vals, valid):
+    """Plain PyTorch version of segscan_sort (the reference's two stable
+    orders, segmented positions, and propagated value-group heads)."""
+    B = seg.shape[0]
+    dev = seg.device
+    s = torch.where(valid, seg, torch.full_like(seg, SEG_PAD))
+    idx = torch.arange(B, device=dev)
+    nan = torch.tensor(float("nan"), device=dev)
+    # arrival order within a segment: row_number, lead(1)
+    s1, o1 = torch.sort(s, stable=True)
+    real1 = s1 != SEG_PAD
+    _, start1 = _seg_starts(s1)
+    rn = torch.where(real1, (idx - start1 + 1).to(torch.int32), 0)
+    same = torch.zeros(B, dtype=torch.bool, device=dev)
+    same[:-1] = s1[:-1] == s1[1:]
+    same &= real1
+    v1 = vals[o1]
+    nxt = torch.where(same, torch.cat([v1[1:], v1[:1]]), nan)
+    # value order within a segment (NaN keyed as +inf, arrival breaking
+    # ties): two stable sorts, the value's first
+    vkey = torch.where(torch.isnan(vals), float("inf"), vals)
+    ov = torch.sort(vkey, stable=True).indices
+    o2 = ov[torch.sort(s[ov], stable=True).indices]
+    s2, k2 = s[o2], vkey[o2]
+    head2, start2 = _seg_starts(s2)
+    newv = head2.clone()
+    newv[1:] |= k2[1:] != k2[:-1]
+    pos2 = idx - start2 + 1
+    last_new = torch.cummax(torch.where(newv, idx, 0), 0).values
+    cs = torch.cumsum(newv.to(torch.int64), 0)
+    dense = cs - cs[start2] + 1
+    vval = ~torch.isnan(vals[o2]) & (s2 != SEG_PAD)
+    rank = torch.where(vval, pos2[last_new], 0).to(torch.int32)
+    dense = torch.where(vval, dense, 0).to(torch.int32)
+    return (_unsort(o1, rn), _unsort(o1, nxt), _unsort(o1, same),
+            _unsort(o2, rank), _unsort(o2, dense), _unsort(o2, vval))
 
 
 # ------------------------------------------------------------ host tables

@@ -22,13 +22,15 @@ from ..utils.infra import PlanError
 
 
 #: the rule options the port takes (the reference's names,
-#: ekuiper_tpu/planner/planner.py:163-164, 172-173, 178-179, 183-185) and
-#: their defaults (ekuiper_tpu/utils/config.py:26-27, 68, 72, 88-93, 97,
-#: 101)
+#: ekuiper_tpu/planner/planner.py:163-164, 172-173, 178-185) and their
+#: defaults (ekuiper_tpu/utils/config.py:26-27, 68, 72, 76, 80, 88-93, 97,
+#: 101); joinImpl and analyticImpl choose the relational nodes of a host
+#: chain (planner/planner.py)
 RULE_OPTIONS = {"prefinalizeLeadMs": 250, "tailMode": "device",
                 "slidingDevRingMb": 256, "slidingImpl": "daba",
                 "tierStore": "auto", "tierHotMb": 0, "tierScanMs": 0,
-                "isEventTime": False, "lateTolerance": 1000}
+                "isEventTime": False, "lateTolerance": 1000,
+                "joinImpl": "device", "analyticImpl": "device"}
 
 
 def plan_fused_rule(sql: str, key_slots: int = 16384,
@@ -250,6 +252,10 @@ def rule_options(options: Optional[Mapping[str, object]]) -> dict:
     if opts["slidingImpl"] not in ("daba", "refold"):
         raise PlanError(f"slidingImpl must be 'daba' or 'refold', got "
                         f"{opts['slidingImpl']!r}")
+    for key in ("joinImpl", "analyticImpl"):
+        if opts[key] not in ("device", "host"):
+            raise PlanError(f"{key} must be 'device' or 'host', got "
+                            f"{opts[key]!r}")
     mode = opts["tierStore"]
     if not isinstance(mode, str) or mode.lower() not in ("auto", "on",
                                                           "off"):

@@ -12,6 +12,8 @@ port's planner then refuses the rule (the row interpreter is not ported).
 """
 from __future__ import annotations
 
+import threading
+from collections import Counter
 from typing import Any, Callable, Dict, Optional, Set
 
 import numpy as np
@@ -21,6 +23,29 @@ from . import ast
 from .expr_ir import NotVectorizable  # shared exception (structured reason)
 
 Cols = Dict[str, Any]
+
+# host-path choices by reason slug (the reference's
+# kuiper_expr_host_fallback_total counter, sql/compiler.py): a relational
+# rule that stays on a host node, a join window that ran the nested loop, an
+# analytic node that moved to host state
+_fallback_lock = threading.Lock()
+_host_fallbacks: Counter = Counter()
+
+
+def record_host_fallback(reason: str) -> None:
+    with _fallback_lock:
+        _host_fallbacks[reason or "other"] += 1
+
+
+def host_fallback_counts() -> Dict[str, int]:
+    with _fallback_lock:
+        return dict(_host_fallbacks)
+
+
+def reset_host_fallbacks() -> None:
+    """Test hook."""
+    with _fallback_lock:
+        _host_fallbacks.clear()
 
 
 # device-safe function table: name -> builder(xp, *arg_closures) -> closure

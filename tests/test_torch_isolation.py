@@ -754,3 +754,104 @@ def test_tier_wrappers_never_take_the_plain_versions(monkeypatch):
     assert taken == []
     assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
     assert kernels._lib is None
+
+
+JOIN_SQL = ("SELECT l.v, r.w FROM l INNER JOIN r ON l.k = r.k "
+            "AND l.ts - r.ts >= -5 AND l.ts - r.ts <= 5 AND l.v > r.w "
+            "GROUP BY TUMBLINGWINDOW(ss, 10)")
+LAG_SQL = ("SELECT deviceId, lag(t) OVER (PARTITION BY deviceId) AS p "
+           "FROM demo")
+RANK_SQL = ("SELECT deviceId, rank(t) OVER (PARTITION BY deviceId) AS rk "
+            "FROM demo GROUP BY TUMBLINGWINDOW(ss, 10)")
+
+
+@pytest.mark.parametrize("sql", [JOIN_SQL, LAG_SQL, RANK_SQL])
+def test_host_rule_needs_cuda_unless_cpu_is_asked(sql, monkeypatch):
+    """plan_host_rule, and the join ring and segscan built directly, are as
+    strict about the device as the other entry points; on the CPU the
+    relational nodes take the device classes with CPU tensors."""
+    from ekuiper_tpu_torch.ops.joinring import JoinRing
+    from ekuiper_tpu_torch.ops.segscan import SegScan
+    from ekuiper_tpu_torch.planner.planner import plan_host_rule
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            plan_host_rule(sql, **kw)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            JoinRing(**kw)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            SegScan(**kw)
+    rule = plan_host_rule(sql, device="cpu")
+    names = {type(n).__name__ for n in rule.nodes.values()}
+    assert names & {"DeviceJoinNode", "DeviceAnalyticNode",
+                    "VectorWindowFuncNode"}
+    join = rule.nodes.get("join")
+    if join is not None:
+        assert join.ring.device.type == "cpu"
+    assert SegScan(device="cpu")._carry[0].device.type == "cpu"
+
+
+def test_relational_wrappers_never_take_the_plain_versions(monkeypatch):
+    """join_match, segscan_shift and segscan_sort given CUDA tensors: the
+    launch path fails loudly without a card or nvcc, and no plain version
+    runs; a length that is not a power of two, a side or a carry of
+    another dtype and a residual that does not broadcast are refused
+    before any build."""
+    _needs_no_card()
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    taken = []
+    for name in ("join_match_plain", "segscan_shift_plain",
+                 "segscan_sort_plain"):
+        monkeypatch.setattr(kernels, name,
+                            lambda *a, _n=name, **k: taken.append(_n))
+    kernels.reset_launches()
+    PL, PR, B, C = 8, 4, 8, 16
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        def side(n):
+            return (torch.zeros(n, dtype=torch.int32, device="cuda"),
+                    torch.zeros(n, dtype=torch.int32, device="cuda"),
+                    torch.ones(n, dtype=torch.bool, device="cuda"))
+
+        left, right = side(PL), side(PR)
+        resid = torch.ones((PL, 1), dtype=torch.bool, device="cuda")
+        bad_resid = torch.ones((PL, 3), dtype=torch.bool, device="cuda")
+        carry = (torch.zeros(C, dtype=torch.int32, device="cuda"),
+                 torch.zeros(C, device="cuda"),
+                 torch.zeros(C, dtype=torch.bool, device="cuda"),
+                 torch.zeros(C, device="cuda"))
+        seg = torch.zeros(B, dtype=torch.int32, device="cuda")
+        vals = torch.zeros(B, device="cuda")
+        valid = torch.ones(B, dtype=torch.bool, device="cuda")
+        odd = torch.zeros(6, dtype=torch.int32, device="cuda")
+        odd_vals = torch.zeros(6, device="cuda")
+        odd_valid = torch.ones(6, dtype=torch.bool, device="cuda")
+        seg64 = torch.zeros(B, dtype=torch.int64, device="cuda")
+        cnt64 = torch.zeros(C, dtype=torch.int64, device="cuda")
+    calls = [
+        lambda: kernels.join_match(*left, *right, -5, 5),
+        lambda: kernels.join_match(*left, *right, -5, 5, resid),
+        lambda: kernels.segscan_shift(carry, seg, vals, valid),
+        lambda: kernels.segscan_sort(seg, vals, valid),
+    ]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # fake data_ptr()
+        for call in calls:
+            with pytest.raises((RuntimeError, AssertionError)):
+                call()
+        with pytest.raises(ValueError):
+            kernels.join_match(odd, *left[1:], *right, -5, 5)
+        with pytest.raises(ValueError):
+            kernels.join_match(*left, *right, -5, 5, bad_resid)
+        with pytest.raises(ValueError):
+            kernels.join_match(*left, *right, -5, 1 << 31)
+        with pytest.raises(TypeError):
+            kernels.segscan_sort(seg64, vals, valid)
+        with pytest.raises(ValueError):
+            kernels.segscan_sort(odd, odd_vals, odd_valid)
+        with pytest.raises(TypeError):
+            kernels.segscan_shift((cnt64, *carry[1:]), seg, vals, valid)
+    assert taken == []
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
+    assert kernels._lib is None

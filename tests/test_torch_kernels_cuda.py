@@ -1107,3 +1107,105 @@ def test_tier_fetches_hold_no_later_fold(tnode):
         np.arange(len(touch_then)) != 3) * (np.arange(len(touch_then)) != 5))
     torch.cuda.synchronize()
     assert int(st["touch"].cpu().numpy()[3]) == 65_536
+
+
+# ------------------------------------------------------ relational tier
+@pytest.fixture
+def cuda_dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _join_sides(rng, n, keys, dev, null_ts):
+    """One padded join side: slots, rebased int32 times (some at the side's
+    NULL sentinel), validity (the pad tail invalid)."""
+    slot = rng.integers(0, keys, n).astype(np.int32)
+    ts = rng.integers(0, 1 << 12, n).astype(np.int32)
+    ts[rng.random(n) < 0.05] = null_ts
+    valid = np.arange(n) < n - n // 8
+    return [torch.from_numpy(a).to(dev) for a in (slot, ts, valid)]
+
+
+@pytest.mark.parametrize("shape", ["none", "full", "left", "right", "const"])
+def test_join_match_matches_plain(cuda_dev, shape):
+    """#20 bit-equal to its plain version, the band's edges inclusive, with
+    each residual shape the expression IR can give."""
+    rng = np.random.default_rng(20)
+    PL, PR = 512, 1024
+    left = _join_sides(rng, PL, 40, cuda_dev, -(1 << 30))
+    right = _join_sides(rng, PR, 40, cuda_dev, 1 << 30)
+    resid = {"none": None,
+             "full": torch.from_numpy(rng.random((PL, PR)) < 0.5),
+             "left": torch.from_numpy(rng.random((PL, 1)) < 0.5),
+             "right": torch.from_numpy(rng.random((1, PR)) < 0.5),
+             "const": torch.zeros((1, 1), dtype=torch.bool)}[shape]
+    if resid is not None:
+        resid = resid.to(cuda_dev)
+    for lo, hi in ((-300, 300), (-(1 << 28), 0), (-(1 << 30), 1 << 30)):
+        got = kernels.join_match(*left, *right, lo, hi, resid)
+        want = kernels.join_match_plain(*left, *right, lo, hi, resid)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert shape == "const" or bool(got.any())
+
+
+def _seg_batch(rng, B, n, slots, dev):
+    seg = rng.integers(0, slots, B).astype(np.int32)
+    vals = rng.choice(np.array([1.5, 2.5, 7.0, -0.0, 0.0, np.inf, np.nan],
+                               dtype=np.float32), B)
+    valid = np.arange(B) < n
+    return [torch.from_numpy(a).to(dev) for a in (seg, vals, valid)]
+
+
+def _same_seg(got, want, exact_idx, rtol_idx=()):
+    """Outputs `exact_idx` equal (NaN where NaN), `rtol_idx` within 1e-5."""
+    for i in exact_idx:
+        g, w = got[i], want[i]
+        if g.is_floating_point():
+            assert torch.equal(g.isnan(), w.isnan()), i
+            m = ~g.isnan()
+            assert torch.equal(g[m], w[m]), i
+        else:
+            assert torch.equal(g, w), i
+    for i in rtol_idx:
+        torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("B,slots", [(256, 40), (8192, 1000),
+                                     (8192, 1)])
+def test_segscan_shift_matches_plain(cuda_dev, B, slots):
+    """#21 against its plain version over three batches (the carry in
+    place): row numbers, lag, flags, counts and last values exact, running
+    sums rtol 1e-5 (arrival order against float64 rounded once); one slot
+    walks a whole 8,192-row segment."""
+    rng = np.random.default_rng(21)
+    C = 1024 if slots <= 1024 else 2 * slots
+    carry_k = (torch.zeros(C, dtype=torch.int32, device=cuda_dev),
+               torch.zeros(C, device=cuda_dev),
+               torch.zeros(C, dtype=torch.bool, device=cuda_dev),
+               torch.zeros(C, device=cuda_dev))
+    carry_p = tuple(t.clone() for t in carry_k)
+    for _ in range(3):
+        x = _seg_batch(rng, B, B - B // 5, slots, cuda_dev)
+        x[1] = torch.where(x[1].isinf(), 3.0, x[1])
+        got = kernels.segscan_shift(carry_k, *x)
+        want = kernels.segscan_shift_plain(carry_p, *x)
+        torch.cuda.synchronize()
+        _same_seg(got, want, (0, 1, 2, 4), (3,))
+        _same_seg(carry_k, carry_p, (0, 1, 2), (3,))
+
+
+@pytest.mark.parametrize("B,segs", [(256, 5), (4096, 300), (65536, 2000),
+                                    (65536, 1)])
+def test_segscan_sort_matches_plain(cuda_dev, B, segs):
+    """#22 bit-equal to its plain version: row numbers, lead and its flag,
+    rank, dense rank and the rank flag, with ties, signed zeros, +inf and
+    NULL (NaN) values; past one shared-memory chunk (2,048 keys) and one
+    segment of 65,536 rows."""
+    rng = np.random.default_rng(22)
+    x = _seg_batch(rng, B, B - B // 7, segs, cuda_dev)
+    got = kernels.segscan_sort(*x)
+    want = kernels.segscan_sort_plain(*x)
+    torch.cuda.synchronize()
+    _same_seg(got, want, range(6))

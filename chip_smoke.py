@@ -11,8 +11,9 @@ no result):
 
 1. the card (nvidia-smi name and power limit) and the kernels' build time
    (csrc/groupby.cu, csrc/sketches.cu, csrc/prefinalize.cu,
-   csrc/slidingring.cu, csrc/multirule.cu, csrc/tierstore.cu and
-   csrc/relational.cu, one nvcc each for sm_90a, run together);
+   csrc/slidingring.cu, csrc/multirule.cu, csrc/tierstore.cu,
+   csrc/relational.cu and csrc/countmin.cu, one nvcc each for sm_90a, run
+   together);
 2. each kernel against its plain PyTorch version on the card, at the main
    path's shapes (65,536 rows, 16,384 slots; the sketch kernels at the
    sketch rules' state, up to 2 panes x 16,384 x 2,688 floats; the
@@ -41,7 +42,12 @@ no result):
    and J3's windows, bit-equal), segmented shift at 8,192 and 131,072
    rows over 10,000 slots and at 131,072 rows in one slot (row numbers,
    lag, flags and the carry exact, running sums rtol 1e-5) and segmented
-   sort at 65,536 rows over 10,000 segments and in one (all exact)):
+   sort at 65,536 rows over 10,000 segments and in one (all exact); the
+   masked fold's touch branch at D2's refold plan with a touch column,
+   16,384 slots, a 65,536-row cached batch under one bucket's time cut
+   (touch, counts, act, min and max bit-equal, s1 within rtol 1e-5); the
+   count-min update at 65,536 values into (4, 8192) counts and its query
+   at 4,096 and 8,192 candidates (bit-equal)):
    error, kernel time (CUDA
    events), the kernel body's own device time (profiler trace) and the
    host time of one wrapper call, plain time, a library yardstick and the
@@ -233,10 +239,36 @@ K. analytics over the flagship stream (10,000 devices): K1 `lag(
    windows of 65,536 rows (values in halves, float32-exact), every value
    against scipy.stats.rankdata (min / dense) within devices and the next
    row's value. Per run: rows/s and continued partitions, window ms;
+L. tiered sliding rules: D2's rule at 262,144 key slots under tierHotMb
+   350 (a hot target of 82,956 slots, the state at its hot capacity of
+   131,072) and tierScanMs 500, fed a churning fleet on the mock clock:
+   640 batches of 65,536 rows, 62.5 ms each, 49,152 rows over 10,000
+   steady keys and 16,384 over the current cohort of 8,192 new keys (a new
+   cohort every 2 s, silent for good after it; 173,840 distinct keys).
+   L1 on the DABA ring, L2 on the refold path (its edge refolds bump the
+   touch column through the masked fold). Every window against the
+   float64 twin over exactly (t - 10 s, t] (L1's sums also within the
+   bound of the ring's running totals, which add and subtract pane sums
+   since their last rebuild: a key whose window has thinned out reads the
+   residue of its earlier rows, ROADMAP Queue 3), the two paths' windows
+   of each trigger with equal keys, counts, min and max; the state never
+   grows past the
+   hot capacity; keys are demoted (pure slot recycles: demoted = recycled
+   + promoted + requeued), at least 10 triggers after the first
+   demotion, no recovery route. Per run: rows/s, stall, delivery, tier
+   counters, routes, launches;
+M. the count-min sketch, `CountMinSketch(depth=4, width=8192,
+   max_candidates=4096)` on the card: 64 updates of 65,536 values of
+   phase A's mix with the tail widened to [100, 20,100) (the candidate
+   map saturates), heavy_hitters(3) after every 16th; counts bit-equal to
+   a numpy twin (the same hash, np.add.at), the candidate map and the
+   hitters equal to the twin's host logic on its counts, top 3 {7, 13,
+   99}, no estimate under its true count. Update values/s and
+   heavy_hitters ms;
 5. each kernel's launch count on the paths that use it (each must be
-   > 0; the fold's touch branch on the G paths and I7; the per-row pane
-   vector on the sliding paths and I2, I3, I5, I6), then the JSON kernel
-   table and the one-line result.
+   > 0; the fold's touch branch on the G paths, I7, L1 and L2; the masked
+   fold's on L2; the per-row pane vector on the sliding paths and I2, I3,
+   I5, I6), then the JSON kernel table and the one-line result.
 """
 from __future__ import annotations
 
@@ -489,6 +521,24 @@ I5_PANES, I6_PANES = 4, 5
 #: match leg (2,048 rows a side, 4 windows cycled), J2 the full rule through
 #: plan_host_rule (40 windows of 256 rows a side, the bench's emission leg,
 #: INNER / LEFT / FULL), J3 J1's rule at 16,384 rows a side
+#: phase L: tiered sliding rules. D2's rule at L_SLOTS key slots (its
+#: ring coarsens to 156 ms buckets, 68 ring panes) under tierHotMb
+#: L_HOT_MB, a hot target of 82,956 slots (hot capacity 131,072), with a
+#: 500 ms scan; the churning fleet, 640 batches (40 s of stream) of
+#: D2's shape, each 49,152 rows over the 10,000 steady keys and 16,384
+#: over the current cohort of 8,192 new keys (a new cohort every 32
+#: batches, silent for good after it): 173,840 distinct keys, ~59,000
+#: live in the policy's idle span, (68 + 10) x 156 = 12,168 ms. L1 on the
+#: DABA ring, L2 on the refold path (the masked fold's touch branch)
+L_SLOTS, L_HOT_MB, L_SCAN_MS = 1 << 18, 350, 500
+L_OPTS = {"tierHotMb": L_HOT_MB, "tierScanMs": L_SCAN_MS}
+L_BATCHES = {"l1": 640, "l2": 640}
+L_COHORT, L_COHORT_ROWS, L_COHORT_EVERY = 8192, 16_384, 32
+#: phase M: CountMinSketch(depth=4, width=8192, max_candidates=4096), 64
+#: updates of 65,536 values of phase A's mix with the tail widened to
+#: [100, 20,100) (~20,000 distinct values: the candidate map saturates),
+#: heavy_hitters(3) after every 16th update
+M_DEPTH, M_WIDTH, M_CAND, M_UPDATES, M_HH_EVERY = 4, 8192, 4096, 64, 16
 J_RULE = ("SELECT l.v, r.w FROM l {jt} JOIN r ON l.k = r.k "
           "AND l.ts - r.ts >= -5000 AND l.ts - r.ts <= 5000 AND l.v > r.w "
           "GROUP BY TUMBLINGWINDOW(ss, 10)")
@@ -540,6 +590,8 @@ SOURCE = {
     "join_match": "ekuiper_tpu_torch/csrc/relational.cu",
     "segscan_shift": "ekuiper_tpu_torch/csrc/relational.cu",
     "segscan_sort": "ekuiper_tpu_torch/csrc/relational.cu",
+    "cms_update": "ekuiper_tpu_torch/csrc/countmin.cu",
+    "cms_query": "ekuiper_tpu_torch/csrc/countmin.cu",
 }
 REPLACES = {
     "groupby_fold_scalar": "ekuiper_tpu/ops/groupby.py:348",
@@ -565,54 +617,61 @@ REPLACES = {
     "join_match": "ekuiper_tpu/ops/joinring.py:186",
     "segscan_shift": "ekuiper_tpu/ops/segscan.py:124",
     "segscan_sort": "ekuiper_tpu/ops/segscan.py:165",
+    "cms_update": "ekuiper_tpu/ops/sketches.py:282",
+    "cms_query": "ekuiper_tpu/ops/sketches.py:288",
 }
 #: which end-to-end paths launch each kernel (phase 5 checks each > 0)
 PATHS = {
     "groupby_fold_scalar": ("tumbling", "hopping", "hh", "pct", "hll", "d1",
                             "d2", "d2_delay", "d3", "f1", "f2", "f3", "f4",
                             "g1", "g2a", "g2b", "h1", "h2", "h3", "h4",
-                            "i1", "i2", "i3", "i4", "i7"),
+                            "i1", "i2", "i3", "i4", "i7", "l1", "l2"),
     "groupby_finalize_scalar": ("tumbling", "hopping", "hh", "pct", "hll",
                                 "f1", "f2", "f3", "f4", "g1", "g2a", "h1",
                                 "h2", "h3", "h4", "i1", "i2", "i3", "i4",
-                                "i7"),
+                                "i7", "l2"),
     "groupby_reset_pane": ("tumbling", "hopping", "hh", "pct", "hll", "d1",
                            "d2", "d3", "f1", "f2", "f3", "f4", "g1", "g2a",
                            "g2b", "h1", "h2", "h3", "h4", "i1", "i2", "i3",
-                           "i4", "i7"),
+                           "i4", "i7", "l1", "l2"),
     "groupby_fold_wide": ("hh", "pct", "hll", "d1", "d3", "f1", "f3", "h1"),
     "groupby_finalize_wide": ("pct", "hll", "f3", "h1"),
     "groupby_hh_finalize": ("hh", "f1"),
     "groupby_components": ("c1", "c1_nobackstop", "c1_host", "c2", "c3_pct",
                            "c3_hll", "d2", "d2_delay", "g2b"),
     "groupby_absorb": ("c1_host",),
-    "ring_advance": ("d1", "d2", "d2_delay", "d3"),
-    "ring_flip": ("d1", "d2", "d3"),
-    "ring_query": ("d1", "d2", "d3"),
+    "ring_advance": ("d1", "d2", "d2_delay", "d3", "l1"),
+    "ring_flip": ("d1", "d2", "d3", "l1"),
+    "ring_query": ("d1", "d2", "d3", "l1"),
     "multirule_fold": ("e1", "e2", "e3", "h5_hll", "h5_pct", "h6", "i5",
                        "i6"),
     "multirule_finalize": ("e1", "e2", "e3", "h5_hll", "h5_pct", "h6", "i5",
                            "i6"),
     "multirule_reset_pane": ("e1", "e2", "e3", "h5_hll", "h5_pct", "h6",
                              "i5", "i6"),
-    "groupby_fold_masked_scalar": ("f1", "f2", "f3", "f4"),
+    "groupby_fold_masked_scalar": ("f1", "f2", "f3", "f4", "l2"),
     "groupby_fold_masked_wide": ("f1", "f3"),
-    "tier_demote": ("g1", "g2a", "g2b", "i7"),
+    "tier_demote": ("g1", "g2a", "g2b", "i7", "l1", "l2"),
     "tier_promote": ("g2a", "g2b", "i7"),
     "multirule_fold_wide": ("h5_hll", "h5_pct", "i6"),
     "multirule_finalize_wide": ("h5_hll", "h5_pct", "i6"),
     "join_match": ("j1", "j2_inner", "j2_left", "j2_full", "j3"),
     "segscan_shift": ("k1",),
     "segscan_sort": ("k2",),
+    "cms_update": ("m",),
+    "cms_query": ("m",),
 }
-#: the folds that must bump the touch column on each tiered path
-TOUCH_PATHS = {"groupby_fold_scalar": ("g1", "g2a", "g2b", "i7")}
+#: the folds that must bump the touch column on each tiered path (the
+#: masked fold: on the refold path's edge refolds)
+TOUCH_PATHS = {"groupby_fold_scalar": ("g1", "g2a", "g2b", "i7", "l1",
+                                       "l2"),
+               "groupby_fold_masked_scalar": ("l2",)}
 #: the folds that must take a per-row pane vector on each sliding and
 #: event-time path (a batch that crosses a bucket edge; on the F paths
 #: from the cached upload)
 ROW_PANE_PATHS = {"groupby_fold_scalar": ("d1", "d2", "d2_delay", "d3",
                                           "f1", "f2", "f3", "f4", "i2",
-                                          "i3"),
+                                          "i3", "l1", "l2"),
                   "groupby_fold_wide": ("d1", "d3", "f1", "f3"),
                   "multirule_fold": ("i5", "i6"),
                   "multirule_fold_wide": ("i6",)}
@@ -1189,13 +1248,15 @@ def merge_aggs(parts):
     return out
 
 
-def check_window(cb, ref, with_sd: bool, what: str) -> float:
+def check_window(cb, ref, with_sd: bool, what: str, ring=None) -> float:
     """Every emitted row against the float64 reference. Tolerances are the
     float32 rounding bounds of the device arithmetic: keys and counts
     exact; min/max exact (they pick an input); avg within
     ε·(Σ|x| + |mean|) — a float32 sum of n terms in any order is within
     (n-1)·ε·Σ|x| of the exact sum; stddev within the same bound carried
-    through s2/n - mean²."""
+    through s2/n - mean². `ring` (per key id, run_l): a further bound on
+    the sum from a DABA ring's running totals, which add and subtract pane
+    sums outside the window."""
     live = np.nonzero(ref["cnt"] > 0)[0]
     check(cb is not None and cb.n == len(live),
           f"{what}: {0 if cb is None else cb.n} rows, want {len(live)}")
@@ -1214,6 +1275,8 @@ def check_window(cb, ref, with_sd: bool, what: str) -> float:
     sumabs = ref["sumabs"][keys]
     d_avg = np.abs(col["avg_t"].astype(np.float64) - mean)
     tol_avg = EPS32 * (sumabs + np.abs(mean))
+    if ring is not None:
+        tol_avg = tol_avg + ring[keys] / n
     check((d_avg <= tol_avg).all(),
           f"{what}: avg beyond bound (max {d_avg.max()})")
     worst = float(d_avg.max())
@@ -2453,6 +2516,7 @@ class SlidingStream:
     def __init__(self, rng, n_batches, humidity=False, gap_at=None,
                  codes=False):
         self.n = n_batches
+        self.n_keys = N_KEYS
         self.idx = rng.integers(0, N_KEYS, (n_batches, ROWS)).astype(
             np.int32)
         self.temp = rng.normal(20, 5, (n_batches, ROWS)).astype(np.float32)
@@ -2470,7 +2534,8 @@ class SlidingStream:
             n_batches, ROWS) if codes else None)
 
     def batches(self, ColumnBatch):
-        ids = np.array([f"dev_{i}" for i in range(N_KEYS)], dtype=np.object_)
+        ids = np.array([f"dev_{i}" for i in range(self.n_keys)],
+                       dtype=np.object_)
         out = []
         for b in range(self.n):
             cols = {"deviceId": ids[self.idx[b]], "temperature": self.temp[b]}
@@ -2491,15 +2556,16 @@ class SlidingStream:
         return a, max(a, b)
 
 
-def batch_aggs(idx, t):
+def batch_aggs(idx, t, n_keys=N_KEYS):
     """float64 count, sum, sum of squares, sum of |x|, min, max per key of
-    one span of rows (bincount, and a sort for min/max)."""
+    one span of rows over key ids [0, n_keys) (bincount, and a sort for
+    min/max)."""
     t = t.astype(np.float64)
-    out = {"cnt": np.bincount(idx, minlength=N_KEYS).astype(np.float64),
-           "sum": np.bincount(idx, weights=t, minlength=N_KEYS),
-           "sumsq": np.bincount(idx, weights=t * t, minlength=N_KEYS),
-           "sumabs": np.bincount(idx, weights=np.abs(t), minlength=N_KEYS),
-           "min": np.full(N_KEYS, np.inf), "max": np.full(N_KEYS, -np.inf)}
+    out = {"cnt": np.bincount(idx, minlength=n_keys).astype(np.float64),
+           "sum": np.bincount(idx, weights=t, minlength=n_keys),
+           "sumsq": np.bincount(idx, weights=t * t, minlength=n_keys),
+           "sumabs": np.bincount(idx, weights=np.abs(t), minlength=n_keys),
+           "min": np.full(n_keys, np.inf), "max": np.full(n_keys, -np.inf)}
     if len(idx):
         order = np.argsort(idx, kind="stable")
         k, v = idx[order], t[order]
@@ -2633,9 +2699,11 @@ class HllTwin:
 
 
 def run_sliding(torch, kernels, mods, sql, stream, what, options=None,
-                impl="daba", sources=("device-ring",), hook=None, hold=()):
-    """Open the rule's node (rule `options`, sliding implementation `impl`,
-    `hook(node)` before its first batch) on a fresh mock clock and feed it
+                impl="daba", sources=("device-ring",), hook=None, hold=(),
+                key_slots=SLOTS):
+    """Open the rule's node (rule `options`, `key_slots`, sliding
+    implementation `impl`, `hook(node)` before its first batch) on a fresh
+    mock clock and feed it
     the stream, each batch after the clock moves to its last row's time,
     except the batches in `hold` (a backlog: they are folded while the
     engine clock, and so every timer, stands still); every trigger must be
@@ -2646,7 +2714,7 @@ def run_sliding(torch, kernels, mods, sql, stream, what, options=None,
 
     plan_fused_rule, ColumnBatch, _ = mods
     batches = stream.batches(ColumnBatch)
-    node = plan_fused_rule(sql, key_slots=SLOTS, micro_batch=ROWS,
+    node = plan_fused_rule(sql, key_slots=key_slots, micro_batch=ROWS,
                            options=options)
     check(node.gb.device.type == "cuda", f"{what}: rule is not on the card")
     check(node.sliding_impl == impl, f"{what}: not on the {impl} path "
@@ -2820,11 +2888,9 @@ def check_hh_window(cb, want, values, what):
     return cb.n
 
 
-def check_same_window(cb, other, ref, what):
-    """F2: the refold window against the DABA one of the same trigger:
-    keys, counts, min and max equal; avg within twice the float32 bound
-    each keeps to the float64 reference. Returns the largest avg
-    difference."""
+def same_rows(cb, other, what):
+    """Two windows of one trigger (the refold path's and the DABA ring's):
+    keys, counts, min and max equal. Returns (keys, columns) of each."""
     def rows(x):
         keys = key_ids(x.columns["deviceId"])
         o = np.argsort(keys)
@@ -2836,6 +2902,15 @@ def check_same_window(cb, other, ref, what):
     for col in ("cnt", "min_t", "max_t"):
         check(np.array_equal(a[col], b[col]), f"{what}: {col} differs "
               "from DABA's")
+    return ka, a, b
+
+
+def check_same_window(cb, other, ref, what):
+    """F2: the refold window against the DABA one of the same trigger:
+    keys, counts, min and max equal; avg within twice the float32 bound
+    each keeps to the float64 reference. Returns the largest avg
+    difference."""
+    ka, a, b = same_rows(cb, other, what)
     n = ref["cnt"][ka]
     mean = ref["sum"][ka] / n
     d = np.abs(a["avg_t"].astype(np.float64) - b["avg_t"])
@@ -6421,6 +6496,505 @@ def phase_k_lines(k):
            f"(phase K wall {k['wall']:.1f} s)")
 
 
+# ----------------------------------- phase 2, the masked touch, count-min
+def masked_touch_check(torch, seed, kernels, plan_fused_rule, TorchGroupBy,
+                       dev):
+    """#2's touch branch (a tiered sliding rule's edge refolds) at D2's
+    refold plan, 16,384 slots with a touch column: one 65,536-row cached
+    batch (61,440 real rows, the padding on slot 0 under mask 0) with
+    uint16 slots, its mask the rows of one bucket past a time cut, into
+    the scratch pane over rows already folded there. Touch and the exact
+    components bit-equal to the plain version, s1 within rtol 1e-5."""
+    node = plan_fused_rule(D2_RULE, key_slots=SLOTS, micro_batch=ROWS,
+                           device=dev, options=REFOLD)
+    check(node.sliding_impl == "refold", "#2 touch: not on refold")
+    plan, P, pane, B = (node.plan, node.n_panes, node._scratch_pane,
+                        node.bucket_ms)
+    del node
+    gb = TorchGroupBy(plan, capacity=SLOTS, n_panes=P, micro_batch=ROWS,
+                      device=dev, track_touch=True)
+    r = np.random.default_rng(seed + 110)
+    n_real = ROWS * 15 // 16
+    temp = r.normal(20, 5, ROWS).astype(np.float32)
+    s_host = r.integers(0, N_KEYS, ROWS)
+    ts = T0_MS + np.arange(ROWS) * BATCH_MS_NUM // (BATCH_MS_DEN * ROWS)
+    bucket = ts // B
+    mask = (bucket == bucket[0]) & (ts > ts[ROWS // 4])
+    temp[n_real:], s_host[n_real:], mask[n_real:] = 0.0, 0, False
+    cols = {"temperature": torch.from_numpy(temp).to(dev)}
+    slots = torch.from_numpy(s_host.astype(np.uint16)).to(dev)
+    base = gb._where(cols, (ROWS,)) & torch.from_numpy(mask).to(dev)
+    V, M = gb._spec_values(cols, ROWS)
+    M = M & base
+    st = gb.init_state()
+    kernels.fold_masked_scalar_plain(st, base.roll(7), V.roll(7, 1),
+                                     M.roll(7, 1), slots, pane, gb._colmap)
+    ref, got = clone_state(st), clone_state(st)
+    kernels.reset_launches()
+    kernels.groupby_fold_masked_scalar(got, base, V, M, slots, pane,
+                                       gb._colmap)
+    kernels.fold_masked_scalar_plain(ref, base, V, M, slots, pane,
+                                     gb._colmap)
+    torch.cuda.synchronize()
+    check(kernels.TOUCH_LAUNCHES["groupby_fold_masked_scalar"] == 1,
+          "#2 touch: the launch bumped no touch column")
+    err = state_err(got, ref, exact=("n", "act", "mn", "mx", "touch"))
+    m_rows = int(base.sum().item())
+    check(int(got["touch"].long().sum()) - int(st["touch"].long().sum())
+          == m_rows, "#2 touch: one count per masked row")
+    fn = functools.partial(kernels.groupby_fold_masked_scalar, got, base, V,
+                           M, slots, pane, gb._colmap)
+    untracked = {k: v for k, v in got.items() if k != "touch"}
+    t_k = time_ms(torch, fn, REPS)
+    t_u = time_ms(torch, lambda: kernels.groupby_fold_masked_scalar(
+        untracked, base, V, M, slots, pane, gb._colmap), REPS)
+    split = launch_split(torch, fn, "fold_masked_scalar_kernel", REPS)
+    t_p = time_ms(torch, functools.partial(
+        kernels.fold_masked_scalar_plain, ref, base, V, M, slots, pane,
+        gb._colmap), REPS)
+    t32 = torch.zeros(SLOTS, dtype=torch.int32, device=dev)
+    idx = slots.long()[base]
+    ones = torch.ones_like(idx, dtype=torch.int32)
+
+    def library():
+        library_fold(torch, ref, base, V, M, slots, pane, gb._colmap,
+                     kernels)
+        t32.index_add_(0, idx, ones)
+
+    t_l = time_ms(torch, library, REPS)
+    S = len(set(gb._colmap[:, 2].tolist()))
+    touched = len(np.unique(s_host[mask]))
+    width = sum(a.shape[2] for k, a in st.items()
+                if k not in ("act", "touch")) + 1
+    # the mask of every row; the slot, V and M of each spec of the masked
+    # rows; each touched slot's state line and touch counter read and
+    # written
+    nbytes = (ROWS + m_rows * (slots.element_size() + 5 * S)
+              + touched * width * 8 + touched * 8)
+    b_ms, b_by = bound(nbytes, m_rows * (len(gb._colmap) + 2))
+    print(f"kernel groupby_fold_masked_scalar/touch P={P} pane={pane} "
+          f"R={ROWS} real={n_real} masked={m_rows} C={SLOTS} slots=uint16 "
+          f"bound_bytes={nbytes}: max_abs_err={err[0]:.3g} touch exact "
+          f"kernel_ms={t_k:.4f} (without touch {t_u:.4f}) "
+          f"{split_text(split)} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
+          f"bound_ms={b_ms:.5f} ({b_by})")
+    row = dict(max_abs_err=err[0], max_rel_err=err[1], ms=t_k,
+               ms_without_touch=t_u, **split, plain_ms=t_p, bound_ms=b_ms,
+               bound_by=b_by, library_ms=t_l)
+    del st, ref, got, untracked, gb
+    torch.cuda.empty_cache()
+    return {"groupby_fold_masked_scalar/touch": row}
+
+
+def m_values(rng, n):
+    """Phase M's values: phase A's mix (7 at 35 %, 13 at 20 %, 99 at 15 %)
+    with the uniform tail over [100, 20,100)."""
+    p = rng.random(n)
+    return np.where(p < 0.35, 7, np.where(p < 0.55, 13, np.where(
+        p < 0.70, 99, rng.integers(100, 20_100, n)))).astype(np.float32)
+
+
+def np_cms_cells(v, depth, width):
+    """(depth, n) cells of float32 values: the splitmix hash of the float's
+    bits salted by row (sketches.hash_f32 with salt d + 2), modulo width."""
+    bits = np.asarray(v, dtype=np.float32).view(U32)
+    return np.stack([
+        np_splitmix32(bits ^ U32((0x9E3779B9 * (d + 3)) & 0xFFFFFFFF))
+        % U32(width) for d in range(depth)]).astype(np.int64)
+
+
+def countmin_kernel_checks(torch, seed, kernels, dev):
+    """#10 and #11 against their plain versions at phase M's shapes:
+    65,536 values into (4, 8192) counts, point queries of 4,096 and 8,192
+    candidates; counts and estimates bit-equal (integer counts below
+    2^24 add alike in any order)."""
+    rows = {}
+    rng = np.random.default_rng(seed + 120)
+    vals = torch.from_numpy(m_values(rng, ROWS)).to(dev)
+    got = torch.zeros((M_DEPTH, M_WIDTH), device=dev)
+    ref = got.clone()
+    kernels.cms_update(got, vals)
+    kernels.cms_update_plain(ref, vals)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), "cms_update: counts differ")
+    cells = torch.from_numpy(
+        np_cms_cells(vals.cpu().numpy(), M_DEPTH, M_WIDTH)
+        + np.arange(M_DEPTH)[:, None] * M_WIDTH).to(dev)
+    check(torch.equal(kernels._cms_cells_plain(vals, M_DEPTH, M_WIDTH),
+                      cells), "cms_update: the plain cells differ from the "
+          "numpy twin's")
+    flat = cells.reshape(-1)
+    ones = torch.ones(flat.shape, device=dev)
+    t_k = time_ms(torch, lambda: kernels.cms_update(got, vals), REPS)
+    split = launch_split(torch, lambda: kernels.cms_update(got, vals),
+                         "cms_update_kernel", REPS)
+    t_p = time_ms(torch, lambda: kernels.cms_update_plain(ref, vals), REPS)
+    t_l = time_ms(torch, lambda: ref.view(-1).index_add_(0, flat, ones),
+                  REPS)
+    # the values read once, the counts read and written once; one atomic
+    # add per (value, row)
+    nbytes = ROWS * 4 + 2 * M_DEPTH * M_WIDTH * 4
+    b_ms, b_by = bound(nbytes, ROWS * M_DEPTH)
+    print(f"kernel cms_update n={ROWS} d={M_DEPTH} w={M_WIDTH} "
+          f"bound_bytes={nbytes} updates={ROWS * M_DEPTH}: max_abs_err=0 "
+          f"kernel_ms={t_k:.4f} {split_text(split)} plain_ms={t_p:.4f} "
+          f"library_ms={t_l:.4f} bound_ms={b_ms:.5f} ({b_by})")
+    rows["cms_update"] = dict(max_abs_err=0.0, ms=t_k, **split,
+                              plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                              library_ms=t_l)
+    counts = got.clone()
+    for n in (4096, 8192):
+        q = torch.from_numpy(np.unique(m_values(rng, 4 * n))[:n]).to(dev)
+        est = kernels.cms_query(counts, q)
+        want = kernels.cms_query_plain(counts, q)
+        torch.cuda.synchronize()
+        check(torch.equal(est, want), f"cms_query {n}: estimates differ")
+        qc = torch.from_numpy(
+            np_cms_cells(q.cpu().numpy(), M_DEPTH, M_WIDTH)
+            + np.arange(M_DEPTH)[:, None] * M_WIDTH).to(dev)
+        t_k = time_ms(torch, lambda: kernels.cms_query(counts, q), REPS)
+        split = launch_split(torch, lambda: kernels.cms_query(counts, q),
+                             "cms_query_kernel", REPS)
+        t_p = time_ms(torch, lambda: kernels.cms_query_plain(counts, q),
+                      REPS)
+        t_l = time_ms(torch, lambda: counts.view(-1)[qc].amin(0), REPS)
+        # the values, the d cells of each, the estimates
+        nbytes = n * 4 + n * M_DEPTH * 4 + n * 4
+        b_ms, b_by = bound(nbytes, n * M_DEPTH)
+        print(f"kernel cms_query n={n} d={M_DEPTH} w={M_WIDTH} "
+              f"bound_bytes={nbytes}: max_abs_err=0 kernel_ms={t_k:.4f} "
+              f"{split_text(split)} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
+              f"bound_ms={b_ms:.5f} ({b_by})")
+        rows[f"cms_query/{n}"] = dict(max_abs_err=0.0, ms=t_k, **split,
+                                      plain_ms=t_p, bound_ms=b_ms,
+                                      bound_by=b_by, library_ms=t_l)
+    return rows
+
+
+# -------------------------------------------------------------- phase L
+class LStream(SlidingStream):
+    """Phase L's churning fleet, in SlidingStream's layout: per batch
+    49,152 rows over the steady keys 0..9,999 and 16,384 over the current
+    cohort's 8,192 keys (ids 10,000 + c·8,192 + k, cohort c = batch // 32),
+    the rows shuffled; temperature, trigger rows and timestamps as phase
+    D's (no gap)."""
+
+    def __init__(self, rng, n_batches):
+        self.n = n_batches
+        n_cohorts = -(-n_batches // L_COHORT_EVERY)
+        self.n_keys = N_KEYS + L_COHORT * n_cohorts
+        steady = rng.integers(0, N_KEYS, (n_batches, ROWS - L_COHORT_ROWS))
+        cohort = (N_KEYS + (np.arange(n_batches) // L_COHORT_EVERY)[:, None]
+                  * L_COHORT + rng.integers(0, L_COHORT,
+                                            (n_batches, L_COHORT_ROWS)))
+        self.idx = rng.permuted(np.concatenate([steady, cohort], axis=1),
+                                axis=1).astype(np.int32)
+        self.temp = rng.normal(20, 5, (n_batches, ROWS)).astype(np.float32)
+        for b in range(TRIGGER_EVERY - 1, n_batches, TRIGGER_EVERY):
+            self.temp[b, rng.integers(0, ROWS)] = 99.0
+        self.hum = self.code = None
+        g = np.arange(n_batches * ROWS, dtype=np.int64)
+        self.ts = (T0_MS + g * BATCH_MS_NUM // (BATCH_MS_DEN * ROWS)).reshape(
+            n_batches, ROWS)
+
+
+class LTwin:
+    """The float64 group-by of any row range of an LStream: per batch the
+    steady keys' and the batch's cohort's partials (dense over 10,000 and
+    8,192 keys), summed or min/max-ed over a range's whole batches, the two
+    partial batches at its ends from their rows."""
+
+    SUMS = ("cnt", "sum", "sumabs")
+
+    def __init__(self, stream):
+        self.s = stream
+        n = stream.n
+        self.st = {k: np.zeros((n, N_KEYS)) for k in self.SUMS}
+        self.co = {k: np.zeros((n, L_COHORT)) for k in self.SUMS}
+        for part, w in ((self.st, N_KEYS), (self.co, L_COHORT)):
+            part["min"] = np.full((n, w), np.inf)
+            part["max"] = np.full((n, w), -np.inf)
+        for b in range(n):
+            idx, t = stream.idx[b], stream.temp[b]
+            steady = idx < N_KEYS
+            base = N_KEYS + b // L_COHORT_EVERY * L_COHORT
+            for part, keep, off, w in ((self.st, steady, 0, N_KEYS),
+                                       (self.co, ~steady, base, L_COHORT)):
+                agg = batch_aggs(idx[keep] - off, t[keep], w)
+                for k in part:
+                    part[k][b] = agg[k]
+
+    def window(self, a, b):
+        s = self.s
+        idx, temp = s.idx.reshape(-1), s.temp.reshape(-1)
+        ba, bb = -(-a // ROWS), b // ROWS
+        if ba >= bb:
+            return batch_aggs(idx[a:b], temp[a:b], s.n_keys)
+        mid = {k: np.zeros(s.n_keys) for k in self.SUMS}
+        mid["sumsq"] = 0.0  # no stddev in D2's rule
+        mid["min"] = np.full(s.n_keys, np.inf)
+        mid["max"] = np.full(s.n_keys, -np.inf)
+        spans = [(slice(0, N_KEYS), self.st, ba, bb)]
+        for c in range(ba // L_COHORT_EVERY, (bb - 1) // L_COHORT_EVERY + 1):
+            lo = N_KEYS + c * L_COHORT
+            spans.append((slice(lo, lo + L_COHORT), self.co,
+                          max(ba, c * L_COHORT_EVERY),
+                          min(bb, (c + 1) * L_COHORT_EVERY)))
+        for keys, part, lo, hi in spans:
+            for k in self.SUMS:
+                mid[k][keys] += part[k][lo:hi].sum(axis=0)
+            mid["min"][keys] = part["min"][lo:hi].min(axis=0)
+            mid["max"][keys] = part["max"][lo:hi].max(axis=0)
+        ends = [batch_aggs(idx[a:ba * ROWS], temp[a:ba * ROWS], s.n_keys),
+                batch_aggs(idx[bb * ROWS:b], temp[bb * ROWS:b], s.n_keys)]
+        return merge_aggs([mid] + ends)
+
+
+def run_l(torch, kernels, mods, tag, stream, twin):
+    """One phase L run: D2's rule tiered (L_OPTS) on the DABA ring (l1) or
+    the refold path (l2), fed the churning fleet on the mock clock; every
+    window against the float64 twin over exactly (t - 10 s, t]; the state
+    held at the hot capacity, keys demoted as slot recycles, at least 10
+    triggers after the first demotion."""
+    from ekuiper_tpu_torch.utils import timex
+
+    impl = "daba" if tag == "l1" else "refold"
+    first, flips = {}, []
+
+    def hook(node):
+        tier = node.tier
+        check(tier is not None and tier.quiescent_only,
+              f"{tag}: the rule is not tiered in quiescent-only mode")
+        check(65_536 <= tier.layout.hot_slots <= 98_304,
+              f"{tag}: hot target {tier.layout.hot_slots}")
+        check(node.gb.capacity == tier.layout.hot_capacity(),
+              f"{tag}: state built at {node.gb.capacity} slots")
+        check(tier.min_idle_ms == (node.n_ring_panes + 10) * node.bucket_ms,
+              f"{tag}: min_idle_ms {tier.min_idle_ms}")
+        inner = tier._on_tier_event
+
+        def event(kind, n=0):
+            if kind == "demote":
+                first.setdefault("ms", timex.now_ms())
+            inner(kind, n=n)
+
+        tier._on_tier_event = event
+        if impl == "daba":
+            flip = node._ring_flip
+
+            def timed_flip(j, e):
+                done = node.ring_counts["flip"]
+                flip(j, e)
+                if node.ring_counts["flip"] > done:
+                    flips.append(timex.now_ms())
+
+            node._ring_flip = timed_flip
+
+    opts = dict(L_OPTS, **(REFOLD if impl == "refold" else {}))
+    t_run = time.perf_counter()
+    node, em, rps, launches, row_pane = run_sliding(
+        torch, kernels, mods, D2_RULE, stream, tag, options=opts, impl=impl,
+        sources=("device-ring",) if impl == "daba" else ("device-async",),
+        hook=hook, key_slots=L_SLOTS)
+    touch = dict(kernels.TOUCH_LAUNCHES)
+    tier = node.tier
+    hot_cap = tier.layout.hot_capacity()
+    check(node.gb.capacity == hot_cap and node.kt.capacity <= hot_cap,
+          f"{tag}: state grew past the hot capacity ({node.gb.capacity}, "
+          f"key table {node.kt.capacity}, hot {hot_cap})")
+    check(tier.demoted_total > 0 and "ms" in first, f"{tag}: no demotion")
+    check(tier.demoted_total == tier.recycled_total + tier.promoted_total
+          + len(tier._requeue), f"{tag}: demoted keys unaccounted for")
+    want_trig = int((stream.temp > 44.5).sum())
+    check(len(em) == want_trig,
+          f"{tag}: {len(em)} triggers, {want_trig} trigger rows")
+    after = sum(1 for t, *_ in em if t > first["ms"])
+    check(after >= 10, f"{tag}: {after} triggers after the first demotion")
+    t_check = time.perf_counter()
+    worst = 0.0
+    R, B = node.n_ring_panes, node.bucket_ms
+    for i, (t, received, _, _, cb, _) in enumerate(em):
+        a, b = stream.rows(t - node.length_ms, t, received)
+        ring = None
+        if impl == "daba":
+            # the ring's running totals: since their last rebuild (a flip
+            # in this trigger or an earlier one, triggers being 1.25 s
+            # apart) each key's total took at most `ops` float32 adds and
+            # subtracts (the flip's R panes, two a bucket advance, the
+            # query's slices and edge), each rounding by at most half an
+            # ulp of a value no larger than the key's Σ|x| over the rows
+            # since the rebuild's oldest pane
+            f = max((x for x in flips if x <= t + 1000),
+                    default=int(stream.ts[0, 0]))
+            ops = R + 2 * ((t - f) // B + 2) + 5
+            lo, _ = stream.rows(f - (R + 1) * B, t, received)
+            ring = EPS32 / 2 * ops * twin.window(lo, b)["sumabs"]
+        worst = max(worst, check_window(cb, twin.window(a, b), False,
+                                        f"{tag} trigger {i} (t={t})",
+                                        ring=ring))
+    counts = (dict(node.ring_counts) if impl == "daba"
+              else {k: node.refold_counts.get(k, 0)
+                    for k in ("cached", "host", "stale", "evicted")})
+    res = dict(rows_per_s=rps, triggers=len(em), after_demote=after,
+               first_demote_s=(first["ms"] - int(stream.ts[0, 0])) / 1e3,
+               stall=[st * 1e3 for _, _, st, _, _, _ in em],
+               delivery=[dl * 1e3 for _, _, _, dl, _, _ in em],
+               counts=counts, launches=launches, row_pane=row_pane,
+               touch_launches=touch, max_abs_err=worst,
+               hot_slots=tier.layout.hot_slots, capacity=node.gb.capacity,
+               keys=node.kt.n_keys, live=node.kt.n_keys
+               - len(node.kt.free_slots()),
+               demoted=tier.demoted_total, recycled=tier.recycled_total,
+               promoted=tier.promoted_total, requeued=len(tier._requeue),
+               bucket_ms=node.bucket_ms, ring_panes=node.n_ring_panes,
+               flips=len(flips), windows=[e[4] for e in em],
+               check_s=time.perf_counter() - t_check,
+               wall_s=time.perf_counter() - t_run)
+    del node, em
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_phase_l(torch, seed, kernels, mods):
+    """Phase L: L1 (DABA) and L2 (refold) on one churning fleet."""
+    t0 = time.perf_counter()
+    stream = LStream(np.random.default_rng(seed + 130), L_BATCHES["l1"])
+    twin = LTwin(stream)
+    twin_s = time.perf_counter() - t0
+    res = {tag: run_l(torch, kernels, mods, tag, stream, twin)
+           for tag in ("l1", "l2")}
+    # the two paths' windows of each trigger: keys, counts, min, max equal
+    for i, (x, y) in enumerate(zip(res["l2"].pop("windows"),
+                                   res["l1"].pop("windows"))):
+        same_rows(x, y, f"l2 trigger {i} against l1")
+    res["l1"]["twin_s"] = twin_s
+    return res
+
+
+def phase_l_line(tag, r):
+    return (f"phase L {tag}: {'DABA ring' if tag == 'l1' else 'refold'} "
+            f"bucket_ms={r['bucket_ms']} ring_panes={r['ring_panes']} "
+            f"hot_slots={r['hot_slots']} capacity={r['capacity']} "
+            f"keys_in_table={r['keys']} live={r['live']} "
+            f"rows/s={r['rows_per_s']:.0f} triggers={r['triggers']} "
+            f"(after the first demotion at {r['first_demote_s']:.3f} s of "
+            f"stream: {r['after_demote']}) "
+            f"stall_p50_ms={pct(r['stall'], 50):.3f} "
+            f"stall_p99_ms={pct(r['stall'], 99):.3f} "
+            f"delivery_p50_ms={pct(r['delivery'], 50):.3f} "
+            f"delivery_p99_ms={pct(r['delivery'], 99):.3f} "
+            f"demoted={r['demoted']} recycled={r['recycled']} "
+            f"promoted={r['promoted']} requeued_pending={r['requeued']} "
+            f"max_abs_err={r['max_abs_err']:.3g} routes={r['counts']} "
+            f"ring_rebuilds_seen={r['flips']} "
+            f"touch_launches={nz_dict(r['touch_launches'])} "
+            f"pane_vec_folds={nz_dict(r['row_pane'])} "
+            f"launches={nz_dict(r['launches'])} check_s={r['check_s']:.1f} "
+            f"wall_s={r['wall_s']:.1f}")
+
+
+# -------------------------------------------------------------- phase M
+class CmsTwin:
+    """The count-min sketch in numpy: counts by np.add.at at the twin's
+    cells, and the reference's host candidate logic over its own point
+    queries."""
+
+    def __init__(self):
+        self.counts = np.zeros((M_DEPTH, M_WIDTH), dtype=np.float32)
+        self.candidates = {}
+
+    def query(self, cand):
+        cells = np_cms_cells(cand, M_DEPTH, M_WIDTH)
+        return self.counts[np.arange(M_DEPTH)[:, None], cells].min(axis=0)
+
+    def update(self, arr):
+        cells = np_cms_cells(arr, M_DEPTH, M_WIDTH)
+        for d in range(M_DEPTH):
+            np.add.at(self.counts[d], cells[d], np.float32(1.0))
+        new = [float(x) for x in np.unique(arr)
+               if float(x) not in self.candidates]
+        if not new:
+            return
+        if len(self.candidates) + len(new) <= M_CAND:
+            for x in new:
+                self.candidates[x] = True
+            return
+        cand = np.concatenate([
+            np.fromiter(self.candidates.keys(), dtype=np.float32,
+                        count=len(self.candidates)),
+            np.asarray(new, dtype=np.float32)])
+        keep = np.argsort(-self.query(cand))[:M_CAND]
+        self.candidates = {float(cand[i]): True for i in keep}
+
+    def heavy_hitters(self, k):
+        cand = np.fromiter(self.candidates.keys(), dtype=np.float32)
+        ests = self.query(cand)
+        order = np.argsort(-ests)[:k]
+        return [(float(cand[i]), float(ests[i])) for i in order]
+
+
+def run_phase_m(torch, seed, kernels, CountMinSketch):
+    """Phase M: the count-min sketch on the card against its numpy twin:
+    counts bit-equal, the candidate map (saturated) and every heavy-hitter
+    list equal, top 3 {7, 13, 99}, no estimate under its true count."""
+    rng = np.random.default_rng(seed + 140)
+    sk = CountMinSketch(depth=M_DEPTH, width=M_WIDTH, max_candidates=M_CAND)
+    check(sk.counts.device.type == "cuda", "m: sketch is not on the card")
+    twin = CmsTwin()
+    true = {}
+    upd_s, query_ms, hitters = 0.0, [], []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for u in range(M_UPDATES):
+        v = m_values(rng, ROWS)
+        t = time.perf_counter()
+        sk.update(v)
+        torch.cuda.synchronize()
+        upd_s += time.perf_counter() - t
+        twin.update(v)
+        vals, cnt = np.unique(v, return_counts=True)
+        for x, c in zip(vals.tolist(), cnt.tolist()):
+            true[x] = true.get(x, 0) + c
+        if (u + 1) % M_HH_EVERY == 0:
+            t = time.perf_counter()
+            hh = sk.heavy_hitters(3)
+            query_ms.append((time.perf_counter() - t) * 1e3)
+            check(np.array_equal(sk.counts.cpu().numpy(), twin.counts),
+                  f"m update {u}: counts differ from the twin's")
+            check(list(sk.candidates) == list(twin.candidates),
+                  f"m update {u}: candidates differ from the twin's")
+            check(hh == twin.heavy_hitters(3),
+                  f"m update {u}: heavy hitters {hh}")
+            check({x for x, _ in hh} == {7.0, 13.0, 99.0},
+                  f"m update {u}: top 3 {hh}")
+            # the twin's estimates (its counts are the sketch's, bit for
+            # bit), so that the check launches no kernel
+            cand = np.fromiter(sk.candidates.keys(), dtype=np.float32)
+            ests = twin.query(cand)
+            check(all(e >= true[float(x)] for x, e in zip(cand, ests)),
+                  f"m update {u}: an estimate under its true count")
+            hitters.append(hh)
+    launches = dict(kernels.LAUNCHES)
+    check(len(sk.candidates) == M_CAND and len(true) > M_CAND,
+          f"m: the candidate map did not saturate ({len(sk.candidates)} of "
+          f"{len(true)} values)")
+    return dict(values_per_s=M_UPDATES * ROWS / upd_s, query_ms=query_ms,
+                distinct=len(true), hitters=hitters[-1],
+                true_top={x: true[x] for x, _ in hitters[-1]},
+                launches=launches)
+
+
+def phase_m_line(r):
+    return (f"phase M count-min d={M_DEPTH} w={M_WIDTH} max_candidates="
+            f"{M_CAND}: {M_UPDATES} updates x {ROWS} values, "
+            f"{r['distinct']} distinct (saturated), update values/s="
+            f"{r['values_per_s']:.0f} heavy_hitters_ms="
+            + " ".join(f"{x:.3f}" for x in r["query_ms"])
+            + f" top3={r['hitters']} true={r['true_top']} counts and "
+            f"candidates equal to the twin at every check "
+            f"launches={nz_dict(r['launches'])}")
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -6438,6 +7012,7 @@ def main() -> int:
     from ekuiper_tpu_torch.data.batch import ColumnBatch
     from ekuiper_tpu_torch.ops import kernels, prefinalize, sketches
     from ekuiper_tpu_torch.ops.groupby import TorchGroupBy
+    from ekuiper_tpu_torch.ops.sketches import CountMinSketch
     from ekuiper_tpu_torch.planner.fused import plan_fused_rule
     from ekuiper_tpu_torch.planner.planner import plan_host_rule
     from ekuiper_tpu_torch.planner.rulegroup import plan_rule_group
@@ -6476,6 +7051,9 @@ def main() -> int:
     rows.update(event_group_kernel_checks(torch, args.seed, kernels,
                                           sketches, dev))
     rows.update(relational_kernel_checks(torch, args.seed, kernels, dev))
+    rows.update(masked_touch_check(torch, args.seed, kernels,
+                                   plan_fused_rule, TorchGroupBy, dev))
+    rows.update(countmin_kernel_checks(torch, args.seed, kernels, dev))
     print(f"phase 2 kernels vs plain: ok (wall {time.perf_counter() - t_run:.0f} s)")
 
     mods = (plan_fused_rule, ColumnBatch, Trigger)
@@ -6627,6 +7205,24 @@ def main() -> int:
         print(line)
     print(f"phase J, K: wall {time.perf_counter() - t_run:.0f} s")
 
+    # phase L: tiered sliding rules (L1 the DABA ring, L2 the refold path)
+    # on a churning fleet, full size
+    t_l = time.perf_counter()
+    el = run_phase_l(torch, args.seed, kernels, mods)
+    for tag in ("l1", "l2"):
+        print(phase_l_line(tag, el[tag]))
+    print(f"phase L checks: every window against the float64 twin, max "
+          f"abs err {max(el[t]['max_abs_err'] for t in el):.3g}; the "
+          f"twin's build {el['l1']['twin_s']:.1f} s; phase L "
+          f"{time.perf_counter() - t_l:.1f} s "
+          f"(wall {time.perf_counter() - t_run:.0f} s)")
+    # phase M: the count-min sketch, full size
+    t_m = time.perf_counter()
+    m = run_phase_m(torch, args.seed, kernels, CountMinSketch)
+    print(phase_m_line(m))
+    print(f"phase M: {time.perf_counter() - t_m:.1f} s "
+          f"(wall {time.perf_counter() - t_run:.0f} s)")
+
     # phase 5: every kernel launched on each path that uses it
     paths = {"tumbling": counts_t, "hopping": counts_h, "hh": counts_hh,
              "pct": b["pct"]["launches"], "hll": b["hll"]["launches"],
@@ -6645,19 +7241,22 @@ def main() -> int:
              "j1": j["j1"]["launches"], "j3": j["j3"]["launches"],
              **{f"j2_{jt.lower()}": j["j2"][jt]["launches"]
                 for jt in J2_TYPES},
-             "k1": k["k1"]["launches"], "k2": k["k2"]["launches"]}
+             "k1": k["k1"]["launches"], "k2": k["k2"]["launches"],
+             "l1": el["l1"]["launches"], "l2": el["l2"]["launches"],
+             "m": m["launches"]}
     for name, used_by in PATHS.items():
         for path in used_by:
             check(paths[path][name] > 0,
                   f"{name} was not launched on the {path} path")
     sliding = {**d, **f, **{tag: i[tag] for tag in ("i2", "i3", "i5",
-                                                    "i6")}}
+                                                    "i6")}, **el}
     for name, used_by in ROW_PANE_PATHS.items():
         for path in used_by:
             check(sliding[path]["row_pane"][name] > 0,
                   f"{name} took no per-row pane vector on the {path} path")
     touch = {tag: g[tag]["touch_launches"] for tag in ("g1", "g2a", "g2b")}
     touch["i7"] = i["i7"]["touch_launches"]
+    touch.update({tag: el[tag]["touch_launches"] for tag in el})
     for name, used_by in TOUCH_PATHS.items():
         for path in used_by:
             check(touch[path][name] > 0,
@@ -6681,7 +7280,8 @@ def main() -> int:
                 "multirule_finalize_wide": "multirule_finalize_wide/hll",
                 "join_match": "join_match/2048",
                 "segscan_shift": "segscan_shift/8192",
-                "segscan_sort": "segscan_sort/65536"}
+                "segscan_sort": "segscan_sort/65536",
+                "cms_query": "cms_query/4096"}
     main_path = {"groupby_fold_wide": "hh", "groupby_finalize_wide": "pct",
                  "groupby_hh_finalize": "hh", "groupby_components": "c1",
                  "groupby_absorb": "c1_host", "ring_advance": "d1",
@@ -6694,7 +7294,7 @@ def main() -> int:
                  "multirule_fold_wide": "h5_hll",
                  "multirule_finalize_wide": "h5_hll",
                  "join_match": "j2_inner", "segscan_shift": "k1",
-                 "segscan_sort": "k2"}
+                 "segscan_sort": "k2", "cms_update": "m", "cms_query": "m"}
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name],
@@ -6746,7 +7346,15 @@ def main() -> int:
     table["kernels"][21]["at_131072"] = rows["segscan_shift/131072"]
     table["kernels"][21]["one_segment"] = rows["segscan_shift/one_segment"]
     table["kernels"][22]["one_segment"] = rows["segscan_sort/one_segment"]
-    check(len(table["kernels"]) == 23, "kernel table")
+    # #2's touch branch (tiered sliding rules), launched on the refold path
+    table["kernels"][14]["touch"] = dict(
+        rows["groupby_fold_masked_scalar/touch"], launches_by_path={
+            p: touch[p]["groupby_fold_masked_scalar"]
+            for p in TOUCH_PATHS["groupby_fold_masked_scalar"]})
+    table["kernels"][24]["at_8192"] = rows["cms_query/8192"]
+    check([k["name"] for k in table["kernels"][23:]]
+          == ["cms_update", "cms_query"], "kernel table order")
+    check(len(table["kernels"]) == 25, "kernel table")
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,8 @@
 //                        touch column's bump (379-385) included
 // groupby_fold_masked_scalar replaces _fold_masked_impl (354): the same
 //                        fold under an explicit (mb,) row mask, into one
-//                        pane (the sliding refold's edge folds)
+//                        pane (the sliding refold's edge folds), the
+//                        touch column's bump included
 // groupby_finalize_scalar replaces _finalize_impl/_finalize_dyn_impl ->
 //                        _finalize_body/_merged/_final_value (444-520)
 // groupby_reset_pane     replaces _reset_pane_impl (763), for every
@@ -76,9 +77,10 @@ __global__ void fold_scalar_kernel(const uint8_t* __restrict__ base,
 // already ANDed with it. Every row goes to the one pane `pane` (the
 // sliding refold's scratch pane). A row with mask 0 writes nothing, so
 // the padding past the batch's real rows (slot 0) changes no act, no
-// min/max identity, no counter. It bumps no touch column: the reference's
-// masked fold does, but its only callers are sliding refolds, and the port
-// refuses tiered sliding rules.
+// min/max identity, no counter. With a touch column (a tiered sliding
+// rule) each row past the mask adds one to its slot's uint32 counter, as
+// the reference's _fold_core does for its masked fold (groupby.py:379-385):
+// the edge refolds count as touches of the rule's scratch-pane state.
 template <typename SlotT>
 __global__ void fold_masked_scalar_kernel(const uint8_t* __restrict__ mask,
                                           const float* __restrict__ V,
@@ -86,11 +88,12 @@ __global__ void fold_masked_scalar_kernel(const uint8_t* __restrict__ mask,
                                           const SlotT* __restrict__ slots,
                                           int R, int pane, int P, int C,
                                           ColMap cm, Comps cp,
-                                          float* __restrict__ act) {
+                                          float* __restrict__ act,
+                                          unsigned int* __restrict__ touch) {
   for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < R;
        r += gridDim.x * blockDim.x) {
     if (!mask[r]) continue;
-    fold_scalar_row(cm, cp, V, M, slots, R, r, pane, P, C, act, nullptr);
+    fold_scalar_row(cm, cp, V, M, slots, R, r, pane, P, C, act, touch);
   }
 }
 
@@ -151,13 +154,14 @@ int groupby_fold_scalar(const uint8_t* base, const float* V, const uint8_t* M,
 // The masked fold (#2). mask: device uint8 (R,), the row mask after WHERE;
 // V / M: device (S, R); slots: device (R,) of uint16 if slot_u16, else
 // int32; pane: the destination pane, inside [0, P). colmap, comp_ptrs,
-// comp_k: as groupby_fold_scalar.
+// comp_k, touch: as groupby_fold_scalar.
 int groupby_fold_masked_scalar(const uint8_t* mask, const float* V,
                                const uint8_t* M, const void* slots,
                                int slot_u16, int R, int pane, int P, int C,
                                const int32_t* colmap, int ncols,
                                float* const* comp_ptrs, const int32_t* comp_k,
-                               float* act, void* stream) {
+                               float* act, unsigned int* touch,
+                               void* stream) {
   ColMap cm;
   if (!make_colmap(colmap, ncols, &cm) || R < 0 || pane < 0 || pane >= P)
     return (int)cudaErrorInvalidValue;
@@ -167,7 +171,7 @@ int groupby_fold_masked_scalar(const uint8_t* mask, const float* V,
   cudaStream_t st = (cudaStream_t)stream;
   with_slot_type(slots, slot_u16, [&](auto s) {
     fold_masked_scalar_kernel<<<grid_for(R, threads), threads, 0, st>>>(
-        mask, V, M, s, R, pane, P, C, cm, cp, act);
+        mask, V, M, s, R, pane, P, C, cm, cp, act, touch);
   });
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,11 @@
 """The port's CUDA kernels: their build, the wrappers that launch them, their
 plain PyTorch versions and their launch counts.
 
-Twenty-three kernels, written by hand in CUDA C++ for Hopper, each
+Twenty-five kernels, written by hand in CUDA C++ for Hopper, each
 replacing one device program of the reference (ekuiper_tpu/ops/groupby.py,
 ekuiper_tpu/ops/slidingring.py, ekuiper_tpu/parallel/multirule.py,
-ekuiper_tpu/ops/tierstore.py, ekuiper_tpu/ops/joinring.py and
-ekuiper_tpu/ops/segscan.py). Four in
+ekuiper_tpu/ops/tierstore.py, ekuiper_tpu/ops/joinring.py,
+ekuiper_tpu/ops/segscan.py and ekuiper_tpu/ops/sketches.py). Four in
 ekuiper_tpu_torch/csrc/groupby.cu:
 
 - `groupby_fold_scalar` replaces `DeviceGroupBy._fold_impl` → `_fold_core`
@@ -28,9 +28,10 @@ ekuiper_tpu_torch/csrc/groupby.cu:
   uint16 (a cached sliding batch, the reference's slot_dtype).
 - `groupby_fold_masked_scalar` replaces `_fold_masked_impl` (groupby.py:354):
   the same fold of a cached, padded batch under an explicit (mb,) row mask
-  (mask ∧ WHERE), into one pane: the sliding refold's edge folds. Bound
-  as the fold's; one thread per row, a row with mask 0 (a hole, or the
-  padding past the batch's real rows) writes nothing.
+  (mask ∧ WHERE), into one pane: the sliding refold's edge folds, with
+  the touch column's bump of a tiered sliding rule. Bound as the fold's;
+  one thread per row, a row with mask 0 (a hole, or the padding past the
+  batch's real rows) writes nothing.
 - `groupby_finalize_scalar` replaces `_finalize_impl`/`_finalize_dyn_impl`
   → `_finalize_body`/`_merged`/`_final_value` (groupby.py:444-520): pane
   merge under a (P,) mask tensor, the per-spec final value, and the
@@ -168,6 +169,17 @@ tier (ops/joinring.py, ops/segscan.py):
   batch read once and the outputs written once; the sort's passes set
   the time.
 
+And two in ekuiper_tpu_torch/csrc/countmin.cu, for `CountMinSketch`
+(ops/sketches.py), over (d, w) float32 counts:
+
+- `cms_update` replaces `CountMinSketch._update_impl` (sketches.py:282):
+  each value adds one into cell hash_f32(v, d + 2) % w of each row d.
+  One thread per value, d atomics. Bound: the values read once and the
+  counts read and written once (0.5 MB at 65,536 values into (4, 8192)),
+  but its n·d atomics at L2 are the likely limit.
+- `cms_query` replaces `_query_impl` (sketches.py:288): each value's min
+  over its d cells. Bound: the values, the n·d cells, the (n,) result.
+
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and
 only there; for a CUDA tensor it launches the kernel or raises. A wrapper
 adds one to `LAUNCHES[name]` where it launches its kernel and nowhere else.
@@ -199,7 +211,8 @@ SOURCES = {"groupby": _PKG / "csrc" / "groupby.cu",
            "slidingring": _PKG / "csrc" / "slidingring.cu",
            "multirule": _PKG / "csrc" / "multirule.cu",
            "tierstore": _PKG / "csrc" / "tierstore.cu",
-           "relational": _PKG / "csrc" / "relational.cu"}
+           "relational": _PKG / "csrc" / "relational.cu",
+           "countmin": _PKG / "csrc" / "countmin.cu"}
 #: headers the sources include (part of every library's build tag)
 HEADERS = (_PKG / "csrc" / "groupby_common.cuh",
            _PKG / "csrc" / "sketch_common.cuh",
@@ -269,18 +282,21 @@ LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0,
                             "tier_promote": 0,
                             "join_match": 0,
                             "segscan_shift": 0,
-                            "segscan_sort": 0}
+                            "segscan_sort": 0,
+                            "cms_update": 0,
+                            "cms_query": 0}
 #: of LAUNCHES' folds, those that took a per-row pane vector
 ROW_PANE_LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0,
                                      "groupby_fold_wide": 0,
                                      "multirule_fold": 0,
                                      "multirule_fold_wide": 0}
 #: of LAUNCHES' folds, those that bumped a touch column (tiered key state)
-TOUCH_LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0}
+TOUCH_LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0,
+                                 "groupby_fold_masked_scalar": 0}
 
 #: the loaded libraries (SimpleNamespace(groupby=..., sketches=...,
 #: prefinalize=..., slidingring=..., multirule=..., tierstore=...,
-#: relational=...)), None until the first launch
+#: relational=..., countmin=...)), None until the first launch
 _lib = None
 _lib_lock = threading.Lock()
 #: seconds the last build took (0.0 when cached libraries were loaded)
@@ -366,7 +382,8 @@ def _load():
             gb.groupby_fold_scalar.argtypes = [P, P, P, P, I, I, I, P, I,
                                                I, P, I, P, P, P, P, P]
             gb.groupby_fold_masked_scalar.argtypes = [P, P, P, P, I, I, I,
-                                                      I, I, P, I, P, P, P, P]
+                                                      I, I, P, I, P, P, P, P,
+                                                      P]
             gb.groupby_finalize_scalar.argtypes = [P, P, P, P, I, I, P, I,
                                                    I, P, P]
             gb.groupby_reset_pane.argtypes = [P, P, P, I, I, P]
@@ -407,6 +424,9 @@ def _load():
                                          P, P, P, P, P]
             rl.segscan_sort.argtypes = [P, P, P, I, P, P, P, P, P, P, P, P,
                                         P]
+            cm = ctypes.CDLL(str(paths["countmin"]))
+            cm.cms_update.argtypes = [P, I, I, P, I, P]
+            cm.cms_query.argtypes = [P, I, I, P, I, P, P]
             for lib, fns in ((gb, ("groupby_fold_scalar",
                                    "groupby_fold_masked_scalar",
                                    "groupby_finalize_scalar",
@@ -424,14 +444,15 @@ def _load():
                                    "multirule_reset_pane")),
                              (ts, ("tier_demote", "tier_promote")),
                              (rl, ("join_match", "segscan_shift",
-                                   "segscan_sort"))):
+                                   "segscan_sort")),
+                             (cm, ("cms_update", "cms_query"))):
                 for fn in fns:
                     getattr(lib, fn).restype = I
             gb.groupby_error_string.argtypes = [I]
             gb.groupby_error_string.restype = ctypes.c_char_p
             _lib = SimpleNamespace(groupby=gb, sketches=sk, prefinalize=pf,
                                    slidingring=sr, multirule=mr, tierstore=ts,
-                                   relational=rl)
+                                   relational=rl, countmin=cm)
         return _lib
 
 
@@ -611,15 +632,22 @@ def fold_scalar_plain(state, base, V, M, slots, pane, colmap,
     P, C = state["act"].shape
     pc, ok = _pane_rows(pane, pane_vec, slots, P, C)
     _fold_columns_plain(state, pc, base & ok, V, M & ok, colmap)
+    _touch_plain(state, base, slots)
+
+
+def _touch_plain(state, rows, slots) -> None:
+    """touch[slot] += 1 for each row set in `rows` whose slot is inside the
+    state, where the state has a touch column. torch has no uint32
+    scatter-add: count in int64, wrap back (the counters wrap modulo
+    2**32, as the kernel's atomicAdd does)."""
     touch = state.get("touch")
-    if touch is not None:
-        # torch has no uint32 scatter-add: count in int64, wrap back (the
-        # counters wrap modulo 2**32, as the kernel's atomicAdd does)
-        s = slots.long()
-        keep = base & (s >= 0) & (s < C)
-        t = touch.long()
-        t.index_add_(0, s[keep], torch.ones_like(s[keep]))
-        touch.copy_((t & 0xFFFFFFFF).to(torch.uint32))
+    if touch is None:
+        return
+    s = slots.long()
+    keep = rows & (s >= 0) & (s < touch.shape[0])
+    t = touch.long()
+    t.index_add_(0, s[keep], torch.ones_like(s[keep]))
+    touch.copy_((t & 0xFFFFFFFF).to(torch.uint32))
 
 
 def _fold_columns_plain(state, pc, rows, V, M, colmap) -> None:
@@ -726,6 +754,8 @@ def groupby_fold_masked_scalar(state: Dict[str, torch.Tensor],
 
     V: float32 (S, R); M: bool (S, R), each spec's mask already ANDed with
     `mask`. slots: uint16 or int32 (R,). colmap: as groupby_fold_scalar's.
+    A state holding a `touch` column (a tiered sliding rule) also counts
+    each row past `mask` into touch[slot].
     """
     name = "groupby_fold_masked_scalar"
     if not _on_cuda(name, state):
@@ -738,25 +768,30 @@ def groupby_fold_masked_scalar(state: Dict[str, torch.Tensor],
     _check(name, mask, torch.bool, (R,), dev)
     colmap = _check_batch(name, V, M, slots, pane, P, colmap, dev)
     ptrs, ks = _comp_table(name, state)
+    touch = state.get("touch")
+    if touch is not None:
+        _check(name, touch, torch.uint32, (C,), dev)
     lib = _load()
     with torch.cuda.device(dev):
         rc = lib.groupby.groupby_fold_masked_scalar(
             _ptr(mask), _ptr(V), _ptr(M), _ptr(slots), _u16(slots), R,
             int(pane), P, C, _ptr(colmap), len(colmap), _ptr(ptrs), _ptr(ks),
-            _ptr(act), _stream(dev))
+            _ptr(act), _opt_ptr(touch), _stream(dev))
         LAUNCHES[name] += 1
+        if touch is not None:
+            TOUCH_LAUNCHES[name] += 1
     _raise_on(lib, name, rc)
 
 
 def fold_masked_scalar_plain(state, mask, V, M, slots, pane,
                              colmap) -> None:
     """Plain PyTorch version of groupby_fold_masked_scalar (the reference's
-    _fold_core under base = mask): the fold's, into one pane, without the
-    touch column (the kernel bumps none: only sliding refolds call it, and
-    tiered sliding rules are refused)."""
+    _fold_core under base = mask): the fold's, into one pane, the touch
+    column included."""
     P, C = state["act"].shape
     pc, ok = _pane_rows(pane, None, slots, P, C)
     _fold_columns_plain(state, pc, mask & ok, V, M & ok, colmap)
+    _touch_plain(state, mask, slots)
 
 
 def groupby_fold_masked_wide(state: Dict[str, torch.Tensor],
@@ -2129,6 +2164,85 @@ def segscan_sort_plain(seg, vals, valid):
     dense = torch.where(vval, dense, 0).to(torch.int32)
     return (_unsort(o1, rn), _unsort(o1, nxt), _unsort(o1, same),
             _unsort(o2, rank), _unsort(o2, dense), _unsort(o2, vval))
+
+
+# ------------------------------------------------------------- count-min
+def _check_cms(name: str, counts: torch.Tensor, values: torch.Tensor,
+               dev) -> Tuple[int, int, int]:
+    """(depth, width, n), checked: float32 contiguous (d, w) counts and
+    (n,) values on one device, sizes the kernels' int arguments take."""
+    if counts.dim() != 2 or min(counts.shape) < 1:
+        raise ValueError(f"{name}: counts must be (depth, width), got "
+                         f"{tuple(counts.shape)}")
+    d, w = (int(x) for x in counts.shape)
+    _check(name, counts, torch.float32, (d, w), dev)
+    if values.dim() != 1:
+        raise ValueError(f"{name}: values must be 1-d, got "
+                         f"{tuple(values.shape)}")
+    n = int(values.shape[0])
+    _check(name, values, torch.float32, (n,), dev)
+    if d * w >= 1 << 31 or n >= 1 << 31:
+        raise ValueError(f"{name}: sizes past int32")
+    return d, w, n
+
+
+def _cms_cells_plain(values: torch.Tensor, depth: int,
+                     width: int) -> torch.Tensor:
+    """(d, n) int64 flat cells d·w + hash_f32(v, d + 2) % w (the hash in
+    int64 over the float's bits, so -0.0 and +0.0 hash apart)."""
+    return torch.stack([d * width + sketches.hash_f32(values, salt=d + 2)
+                        % width for d in range(depth)])
+
+
+def cms_update(counts: torch.Tensor, values: torch.Tensor) -> None:
+    """Count-min update (#10), in place: counts[d, h_d(v)] += 1 for each
+    value and row. counts: float32 (d, w); values: float32 (n,)."""
+    name = "cms_update"
+    dev = _device_of(name, counts)
+    if dev is None:
+        cms_update_plain(counts, values)
+        return
+    d, w, n = _check_cms(name, counts, values, dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.countmin.cms_update(_ptr(counts), d, w, _ptr(values), n,
+                                     _stream(dev))
+        LAUNCHES[name] += 1
+    _raise_on(lib, name, rc)
+
+
+def cms_update_plain(counts, values) -> None:
+    """Plain PyTorch version of cms_update (the reference's d scatter-adds;
+    the counts stay integers below 2^24, so any order gives its bits)."""
+    d, w = counts.shape
+    cells = _cms_cells_plain(values, d, w).reshape(-1)
+    counts.view(-1).index_add_(0, cells, torch.ones(
+        cells.shape, dtype=counts.dtype, device=counts.device))
+
+
+def cms_query(counts: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """Count-min point query (#11): a fresh float32 (n,) of each value's min
+    over its d cells. counts, values: as cms_update."""
+    name = "cms_query"
+    dev = _device_of(name, counts)
+    if dev is None:
+        return cms_query_plain(counts, values)
+    d, w, n = _check_cms(name, counts, values, dev)
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.countmin.cms_query(_ptr(counts), d, w, _ptr(values), n,
+                                    _ptr(out), _stream(dev))
+        LAUNCHES[name] += 1
+    _raise_on(lib, name, rc)
+    return out
+
+
+def cms_query_plain(counts, values) -> torch.Tensor:
+    """Plain PyTorch version of cms_query (the reference's d gathers and
+    their min)."""
+    d, w = counts.shape
+    return counts.view(-1)[_cms_cells_plain(values, d, w)].amin(0)
 
 
 # ------------------------------------------------------------ host tables

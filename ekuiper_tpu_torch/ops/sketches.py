@@ -1,9 +1,9 @@
 """Sketch primitives of the fused group-by (counterpart of
-ekuiper_tpu/ops/sketches.py, without CountMinSketch): HyperLogLog
-registers, the signed log-histogram for percentiles, and the linear
-heavy-hitters sketch. Constants and layouts are the reference's, so the
-wide state components `hll` (.., HLL_M), `hist` (.., HIST_BINS) and `hh`
-(.., HH_SIZE) cross between the packages.
+ekuiper_tpu/ops/sketches.py): HyperLogLog registers, the signed
+log-histogram for percentiles, the linear heavy-hitters sketch, and the
+window-level `CountMinSketch`. Constants and layouts are the reference's,
+so the wide state components `hll` (.., HLL_M), `hist` (.., HIST_BINS) and
+`hh` (.., HH_SIZE) cross between the packages.
 
 These are the plain PyTorch versions of what the CUDA kernels compute
 (csrc/sketches.cu). Torch on the CPU has no `>>` or `%` on uint32, so every
@@ -28,6 +28,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..utils.device import Device, resolve_device
 
 HLL_M = 256  # registers per key (power of two)
 HIST_BINS = 1024
@@ -209,3 +211,71 @@ def hh_candidates(hh: torch.Tensor, k2: int) -> tuple:
     top = order[:, :k2]
     return (torch.gather(flat, 1, top).to(torch.float32),
             torch.gather(est, 1, top))
+
+
+# ----------------------------------------------------------------- count-min
+class CountMinSketch:
+    """Window-level count-min sketch with host candidate tracking for heavy
+    hitters (top-k most frequent values); the reference's class.
+
+    Device: (d, w) float32 counts, updated and queried by the cms_update /
+    cms_query kernels (csrc/countmin.cu). Host: the bounded candidate set of
+    distinct values seen, whose estimates are read from the sketch. The
+    reference pads each batch to a pow-2 ladder to close its compile cache;
+    the kernels take any length, so nothing is padded here.
+    """
+
+    def __init__(self, depth: int = 4, width: int = 8192,
+                 max_candidates: int = 4096, device: Device = None) -> None:
+        self.device = resolve_device(device)
+        self.depth = depth
+        self.width = width
+        self.max_candidates = max_candidates
+        self.counts = torch.zeros((depth, width), dtype=torch.float32,
+                                  device=self.device)
+        self.candidates: dict = {}
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _query(self, cand: np.ndarray) -> np.ndarray:
+        from . import kernels
+
+        return kernels.cms_query(self.counts, self._upload(cand)).cpu().numpy()
+
+    def update(self, values) -> None:
+        from . import kernels
+
+        arr = np.asarray(values, dtype=np.float32)
+        kernels.cms_update(self.counts, self._upload(arr))
+        new = [
+            float(x) for x in np.unique(arr) if float(x) not in self.candidates
+        ]
+        if not new:
+            return
+        if len(self.candidates) + len(new) <= self.max_candidates:
+            for x in new:
+                self.candidates[x] = True
+            return
+        # saturated: keep the max_candidates values of highest estimate, so a
+        # late frequent value can displace a rare incumbent
+        cand = np.concatenate([
+            np.fromiter(self.candidates.keys(), dtype=np.float32,
+                        count=len(self.candidates)),
+            np.asarray(new, dtype=np.float32),
+        ])
+        ests = self._query(cand)
+        keep = np.argsort(-ests)[: self.max_candidates]
+        self.candidates = {float(cand[i]): True for i in keep}
+
+    def heavy_hitters(self, k: int):
+        if not self.candidates:
+            return []
+        cand = np.fromiter(self.candidates.keys(), dtype=np.float32)
+        ests = self._query(cand)
+        order = np.argsort(-ests)[:k]
+        return [(float(cand[i]), float(ests[i])) for i in order]
+
+    def reset(self) -> None:
+        self.counts.zero_()
+        self.candidates.clear()

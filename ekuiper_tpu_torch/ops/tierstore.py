@@ -28,9 +28,14 @@ identity at promote and emit time instead of leaking a closed window's rows
 into a newer one. Spilled keys with live panes still reach each window's
 emission: `window_groups` computes their final values on the host.
 
+A sliding rule tiers in quiescent-only mode: the policy demotes only keys
+idle past the rule's whole retention (`min_idle_ms`), so a demotion is a
+pure slot recycle, and a live row that a racy touch still spilled is
+requeued and promoted again at the next admission instead of parking in a
+store the sliding emission never reads.
+
 Left out of the port for now (ROADMAP.md): the ingest prefetch
-(`TierManager.prefetch`), the quiescent-only mode of tiered sliding rules
-(the fused node refuses them), and the telemetry registry.
+(`TierManager.prefetch`) and the telemetry registry.
 """
 from __future__ import annotations
 
@@ -300,13 +305,20 @@ class TierManager:
     is only ever touched from the fold thread."""
 
     def __init__(self, gb, kt, layout: TierLayout, *,
-                 submit: Optional[Callable[[tuple], None]] = None) -> None:
+                 submit: Optional[Callable[[tuple], None]] = None,
+                 quiescent_only: bool = False,
+                 min_idle_ms: int = 0,
+                 on_tier_event: Optional[Callable[..., None]] = None
+                 ) -> None:
         self.gb = gb
         self.kt = kt
         self.layout = layout
         self.ts = TierStore(gb, layout)
         self.store = HostTierStore(self.ts.packed_w, self.ts.n_panes)
         self._submit = submit
+        self.quiescent_only = bool(quiescent_only)
+        self.min_idle_ms = int(min_idle_ms)
+        self._on_tier_event = on_tier_event
         self._mu = threading.Lock()
         self._pane_epoch = np.zeros(self.ts.n_panes, dtype=np.int64)
         self._mirror = np.zeros(0, dtype=np.int64)
@@ -316,6 +328,9 @@ class TierManager:
         # fetch, row, epochs); a key returning meanwhile is read straight
         # off the pending block
         self._inflight: Dict[Any, Tuple[Any, int, np.ndarray]] = {}
+        # live rows a quiescent-only demote spilled: (key, row, epochs),
+        # promoted again at the next admit
+        self._requeue: List[Tuple[Any, np.ndarray, np.ndarray]] = []
         self._last_scan_ms = 0
         self.demoted_total = 0
         self.promoted_total = 0
@@ -332,9 +347,14 @@ class TierManager:
         """Promotion at the admission point: drain the key table's new-key
         log; a returning key (in the cold tier, or in a block in flight)
         gets its spilled partials merged into its fresh slot before the
-        batch folds."""
+        batch folds. Requeued live spills re-enter the key table here and
+        go straight back to the card."""
         new = self.kt.drain_new_keys()
-        if not new:
+        requeued: List[Tuple[Any, np.ndarray, np.ndarray]] = []
+        if self._requeue:
+            with self._mu:
+                requeued, self._requeue = self._requeue, []
+        if not new and not requeued:
             return state
         with self._mu:
             epoch = self._pane_epoch.copy()
@@ -349,6 +369,14 @@ class TierManager:
                     fetch, idx, row_epochs = entry
                     rows[k] = (fetch.get()[idx].copy(), row_epochs.copy())
                     hits.append((k, s))
+        for key, row, row_epochs in requeued:
+            slots, _ = self.kt.encode_column(np.array([key], dtype=np.object_))
+            hits.append((key, int(slots[0])))
+            rows[key] = (row, row_epochs)
+        if requeued and self.gb.capacity < self.kt.capacity:
+            # the re-encode ran after the caller's grow check: a slot past
+            # the state would be refused by the promote
+            state = self.gb.grow(state, self.kt.capacity)
         keys: List[Any] = []
         slots: List[int] = []
         block: List[np.ndarray] = []
@@ -368,6 +396,8 @@ class TierManager:
             state = self.ts.promote(state, np.stack(block[start:start + D]),
                                     np.asarray(slots[start:start + D]))
         self.promoted_total += len(keys)
+        if keys and self._on_tier_event is not None:
+            self._on_tier_event("promote", n=len(keys))
         return state
 
     def on_boundary(self, state):
@@ -407,6 +437,8 @@ class TierManager:
                     for i, key in enumerate(ck):
                         self._inflight[key] = (fetch, i, epochs)
                 self._dispatch(("harvest", fetch, ck, epochs))
+            if keys and self._on_tier_event is not None:
+                self._on_tier_event("demote", n=len(keys))
         now = timex.now_ms()
         if now - self._last_scan_ms >= self.layout.scan_interval_ms \
                 and "touch" in (state or {}):
@@ -462,6 +494,11 @@ class TierManager:
                 if self.ts.row_is_idle(row):
                     self.recycled_total += 1  # a pure slot recycle
                     continue
+                if self.quiescent_only:
+                    # a touch between the scan and the demote spilled live
+                    # data: promote it again at the next admit
+                    self._requeue.append((key, row.copy(), epochs.copy()))
+                    continue
                 self.store.put(key, row, epochs)
             # every key of the block is settled (put copies the row): the
             # pinned buffer goes back to the pool
@@ -486,7 +523,11 @@ class TierManager:
             overflow = n_slots - len(free) - self.layout.hot_slots
             plan: List[int] = []
             if overflow > 0:
-                cand = np.nonzero(idle >= self.layout.min_idle_scans)[0]
+                min_idle = self.layout.min_idle_scans
+                if self.min_idle_ms:
+                    min_idle = max(min_idle, -(-self.min_idle_ms // max(
+                        self.layout.scan_interval_ms, 1)))
+                cand = np.nonzero(idle >= min_idle)[0]
                 if len(cand):
                     free_set = set(free)
                     order = np.argsort(-idle[cand], kind="stable")
@@ -526,6 +567,10 @@ class TierManager:
             row = fetch.get()[idx]
             if self.ts.row_is_idle(row):
                 self.recycled_total += 1
+                continue
+            if self.quiescent_only:
+                # as in _harvest: the sliding emission never reads the store
+                self._requeue.append((key, row.copy(), epochs.copy()))
                 continue
             self.store.put(key, row, epochs)
 
@@ -575,7 +620,8 @@ class TierManager:
     # ------------------------------------------------------- checkpoint
     def snapshot(self) -> Dict[str, Any]:
         """The cold tier in the reference's format: base64 rows and epochs,
-        the pane epochs, the (always empty here) requeue, the counters."""
+        the pane epochs, the requeued live spills ([key, b64 float32 row,
+        b64 int64 epochs]), the counters."""
         with self._mu:
             self._settle_inflight_locked()
             keys, rows, epochs = self.store.items_arrays()
@@ -590,18 +636,17 @@ class TierManager:
                 "epochs": base64.b64encode(np.ascontiguousarray(
                     epochs).tobytes()).decode("ascii"),
                 "pane_epoch": self._pane_epoch.tolist(),
-                "requeue": [],
+                "requeue": [
+                    [list(k) if isinstance(k, tuple) else k,
+                     base64.b64encode(r.tobytes()).decode("ascii"),
+                     base64.b64encode(e.tobytes()).decode("ascii")]
+                    for (k, r, e) in self._requeue],
                 "counters": {"demoted": self.demoted_total,
                              "promoted": self.promoted_total,
                              "recycled": self.recycled_total},
             }
 
     def restore(self, snap: Dict[str, Any]) -> None:
-        if snap.get("requeue"):
-            raise NotImplementedError(
-                "a checkpoint holding requeued rows comes from a tiered "
-                "sliding rule (quiescent-only tiering), which is not "
-                "ported yet")
         keys = [tuple(k) if isinstance(k, list) else k
                 for k in snap.get("keys", [])]
         rows = np.frombuffer(base64.b64decode(snap.get("rows", "")),
@@ -618,4 +663,9 @@ class TierManager:
             self.recycled_total = int(counters.get("recycled", 0))
             for i, key in enumerate(keys):
                 self.store.put(key, rows[i], epochs[i])
+            self._requeue = [
+                (tuple(k) if isinstance(k, list) else k,
+                 np.frombuffer(base64.b64decode(r), dtype=np.float32).copy(),
+                 np.frombuffer(base64.b64decode(e), dtype=np.int64).copy())
+                for (k, r, e) in snap.get("requeue", [])]
 

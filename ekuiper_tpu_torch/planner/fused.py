@@ -67,7 +67,10 @@ def plan_fused_rule(sql: str, key_slots: int = 16384,
     the window), with the reference's defaults (250, "device", 256,
     "daba", "auto", 0, 0). The tier engages where the budget is under four
     times `key_slots`' state (the node's `tier` is then its TierManager);
-    a tiered sliding rule raises NotImplementedError.
+    a sliding rule tiers in quiescent-only mode (a key leaves the card
+    only once idle past the ring's whole retention), on the DABA ring and
+    the refold path, which it chooses at the tier-capped capacity. A
+    heavy_hitters rule stays untiered.
 
     Event time (`isEventTime` true; `lateTolerance`, an int of ms or a
     Go-style duration such as "1s", default 1000): the returned fused

@@ -268,8 +268,10 @@ class FusedWindowAggNode(Node):
             capacity = 2048
         # tiered key state (ops/tierstore.py): the geometry from the budget
         # and the pane count, as the reference chooses it; heavy_hitters
-        # plans stay untiered. The state is built at the hot capacity:
-        # growth past it stays possible, the recycler works to avoid it.
+        # plans stay untiered. The state (and a sliding rule's ring, so a
+        # wide rule can keep DABA inside slidingDevRingMb) is built at the
+        # hot capacity: growth past it stays possible, the recycler works
+        # to avoid it.
         self.tier: Optional[TierManager] = None
         self._tier_layout = None
         if tier_budget_mb and not self._hh_cols and self.wt in (
@@ -280,11 +282,6 @@ class FusedWindowAggNode(Node):
                 scan_interval_ms=int(tier_scan_ms),
                 window_ms=self.interval_ms or self.length_ms)
             if self._tier_layout is not None:
-                if self.wt == ast.WindowType.SLIDING_WINDOW:
-                    raise NotImplementedError(
-                        "tiered sliding rules (the reference's quiescent-"
-                        "only demotion, with the masked fold's touch "
-                        "column) are not ported yet")
                 capacity = min(capacity, self._tier_layout.hot_capacity())
         self.gb = self._make_gb(plan, capacity, micro_batch, device)
         self.ring: Optional[SlidingRing] = None
@@ -294,8 +291,16 @@ class FusedWindowAggNode(Node):
         self.kt = KeyTable(self.gb.capacity)
         if self._tier_layout is not None and \
                 getattr(self.gb, "track_touch", False):
-            self.tier = TierManager(self.gb, self.kt, self._tier_layout,
-                                    submit=self._tier_submit)
+            sliding = self.wt == ast.WindowType.SLIDING_WINDOW
+            self.tier = TierManager(
+                self.gb, self.kt, self._tier_layout, submit=self._tier_submit,
+                # a sliding rule demotes only keys idle past the whole pane
+                # and row retention, so no pane, ring partial or retained
+                # row still names the recycled slot
+                quiescent_only=sliding,
+                min_idle_ms=((self.n_ring_panes + 10) * self.bucket_ms
+                             if sliding else 0),
+                on_tier_event=self._on_tier_event)
         else:
             self._tier_layout = None  # a group-by without a touch column
         self.state: Optional[Dict[str, torch.Tensor]] = None
@@ -761,8 +766,11 @@ class FusedWindowAggNode(Node):
         boundary retires and recycles slots before the worker emits, so
         decoding the live table could give a window to a slot's next key.
         An untiered table is append-only: the live one decodes the same
-        (None)."""
-        return None if self.tier is None else self.kt.decode_all()
+        (None). So does a tiered sliding rule's: it demotes only quiescent
+        keys, never in a delivery's active set."""
+        if self.tier is None or self.wt == ast.WindowType.SLIDING_WINDOW:
+            return None
+        return self.kt.decode_all()
 
     def _ensure_emit_worker(self) -> None:
         if self._emit_q is None:
@@ -1426,6 +1434,14 @@ class FusedWindowAggNode(Node):
         self._emit_q.put(("tier", payload, 0, None, time.perf_counter(),
                           None))
 
+    def _on_tier_event(self, kind: str, n: int = 0) -> None:
+        """A demotion or promotion changed slots under the DABA ring's
+        running partials: the panes stay the truth, the next trigger
+        rebuilds the partials with one flip."""
+        if self.wt == ast.WindowType.SLIDING_WINDOW and \
+                self.sliding_impl == "daba":
+            self._rg_dirty = True
+
     def _reset_pane_tiered(self, pane: int) -> None:
         """reset_pane and the tier's epoch bump: spilled rows remember the
         pane epochs they were packed under, so the reset marks their slice
@@ -1687,7 +1703,7 @@ class FusedWindowAggNode(Node):
             pane = int(b) % R
             held = self._pane_bucket.get(pane)
             if held is not None and held != int(b):
-                self.state = self.gb.reset_pane(self.state, pane)
+                self._reset_pane_tiered(pane)
             self._pane_bucket[pane] = int(b)
         self._ring_max_bucket = max(self._ring_max_bucket, int(ubs[-1]))
         # the row ring outlives the panes by a margin, so a trigger whose
@@ -1708,6 +1724,8 @@ class FusedWindowAggNode(Node):
                 e for e in self._dev_ring_fifo if e[0] >= floor_b)
         daba = self.sliding_impl == "daba"
         cols, valid, slots = self._build_kernel_inputs(sub)
+        if self.tier is not None:
+            self.state = self.tier.admit(self.state)
         # the refold path uploads the batch once, padded, and keeps it on
         # the card for its trigger-time edge refolds; the fold reads it
         dev = None if daba else self._upload_sliding_inputs(cols, valid,
@@ -1738,6 +1756,9 @@ class FusedWindowAggNode(Node):
                 self._bucket_max_ts[int(b)] = bmax
         if daba:
             self._ring_advance_buckets(buckets)
+        # the tier's upkeep at bucket granularity (sliding's pane boundary),
+        # throttled by the scan cadence inside
+        self._tier_boundary()
         # trigger rows: OVER (WHEN ...) on the raw batch columns
         trig = _host_mask(self._trigger_host, sub.columns, sub.n)
         for i in np.nonzero(trig)[0].tolist():
@@ -1899,7 +1920,7 @@ class FusedWindowAggNode(Node):
             self._enqueue("refold",
                           self.gb.finalize_begin(self.state, pane_mask), wr)
         if used_scratch:
-            self.state = self.gb.reset_pane(self.state, self._scratch_pane)
+            self._reset_pane_tiered(self._scratch_pane)
 
     def _refold_bucket(self, b: int, lo_excl: Optional[int],
                        hi_incl: Optional[int]) -> bool:

@@ -709,7 +709,7 @@ def test_tier_wrappers_never_take_the_plain_versions(monkeypatch):
 
     taken = []
     for name in ("tier_demote_plain", "tier_promote_plain",
-                 "fold_scalar_plain"):
+                 "fold_scalar_plain", "fold_masked_scalar_plain"):
         monkeypatch.setattr(kernels, name,
                             lambda *a, _n=name, **k: taken.append(_n))
     kernels.reset_launches()
@@ -733,12 +733,18 @@ def test_tier_wrappers_never_take_the_plain_versions(monkeypatch):
         lambda: kernels.tier_promote(state, packed, slots, comps),
         lambda: kernels.groupby_fold_scalar(state, base, V, M, slots, 0,
                                             colmap),
+        lambda: kernels.groupby_fold_masked_scalar(state, base, V, M, slots,
+                                                   1, colmap),
     ]
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)  # fake data_ptr()
         for call in calls:
             with pytest.raises((RuntimeError, AssertionError)):
                 call()
+        with pytest.raises(TypeError):
+            kernels.groupby_fold_masked_scalar(
+                {**state, "touch": wrong["touch"]}, base, V, M, slots, 0,
+                colmap)
         with pytest.raises(TypeError):
             kernels.tier_demote(state, wrong["slots"], 2, comps)
         with pytest.raises(ValueError):
@@ -754,6 +760,53 @@ def test_tier_wrappers_never_take_the_plain_versions(monkeypatch):
     assert taken == []
     assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
     assert kernels._lib is None
+
+
+def test_count_min_sketch_needs_cuda_unless_cpu_is_asked(monkeypatch):
+    from ekuiper_tpu_torch.ops.sketches import CountMinSketch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            CountMinSketch(**kw)
+    assert CountMinSketch(device="cpu").counts.device.type == "cpu"
+
+
+def test_countmin_wrappers_never_take_the_plain_versions(monkeypatch):
+    """cms_update and cms_query given CUDA tensors: the launch path fails
+    loudly without a card or nvcc, and no plain version runs; values of
+    another dtype or shape, counts of another rank and a side on another
+    device are refused before any build."""
+    _needs_no_card()
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    taken = []
+    for name in ("cms_update_plain", "cms_query_plain"):
+        monkeypatch.setattr(kernels, name,
+                            lambda *a, _n=name, **k: taken.append(_n))
+    kernels.reset_launches()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        counts = torch.zeros((4, 1000), device="cuda")
+        values = torch.zeros(16, device="cuda")
+        wrong = {"dtype": torch.zeros(16, dtype=torch.float64,
+                                      device="cuda"),
+                 "shape": torch.zeros((4, 4), device="cuda"),
+                 "rank": torch.zeros(4000, device="cuda")}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # fake data_ptr()
+        for fn in (kernels.cms_update, kernels.cms_query):
+            with pytest.raises((RuntimeError, AssertionError)):
+                fn(counts, values)
+            with pytest.raises(TypeError):
+                fn(counts, wrong["dtype"])
+            with pytest.raises(ValueError):
+                fn(counts, wrong["shape"])
+            with pytest.raises(ValueError):
+                fn(wrong["rank"], values)
+            with pytest.raises(ValueError):
+                fn(counts, torch.zeros(16))
+    assert taken == []
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
 
 
 JOIN_SQL = ("SELECT l.v, r.w FROM l INNER JOIN r ON l.k = r.k "

@@ -31,7 +31,8 @@ each rule; the batched wide finalize with the single-rule finalize's
 bounds (hll within ±1, percentile within 4 ulp); the pane reset over
 the wide state bit-equal. The group folds with a per-row pane vector
 (event-time groups) as the folds; the touch column under a pane vector
-exact.
+exact, and under the masked fold's row mask. Count-min: the update's
+counts and the query's estimates bit-equal (integer counts under 2^24).
 """
 import numpy as np
 import pytest
@@ -1049,6 +1050,45 @@ def test_fold_touch_column_matches_plain(tnode):
         tnode.state["touch"].to(torch.int64).sum()) + 3 * (4096 - 586)
 
 
+@pytest.mark.parametrize("slot_dtype", [np.uint16, np.int32])
+def test_fold_masked_touch_column_matches_plain(tnode, slot_dtype):
+    """#2's touch branch (a tiered sliding rule's edge refolds): the masked
+    fold over a padded batch bumps touch[slot] once per row past its mask,
+    as the plain version over the real rows does, exactly; the padding
+    (slot 0, mask 0) touches nothing."""
+    gb = tnode.gb
+    rng = np.random.default_rng(94)
+    got, ref = _clone(tnode.state), _clone(tnode.state)
+    rows, n = 4096, 3000
+    kernels.reset_launches()
+    for seed in range(3):
+        v = rng.normal(20, 5, rows).astype(np.float32)
+        slots = rng.integers(0, 700, rows)
+        mask = rng.random(rows) < 0.7
+        v[n:], slots[n:], mask[n:] = 0, 0, False
+        cols = {"v": torch.from_numpy(v).to(gb.device),
+                "__hll__v": torch.from_numpy(
+                    encode_hll_column(v, rows)).to(gb.device)}
+        cols = {c: cols[c] for c in gb.plan.columns}
+        base, V, M = gb.spec_inputs(cols, rows)
+        base &= torch.from_numpy(mask).to(gb.device)
+        M &= base
+        s = torch.from_numpy(slots.astype(slot_dtype)).to(gb.device)
+        kernels.groupby_fold_masked_scalar(got, base, V, M, s,
+                                           gb.n_panes - 1, gb._colmap)
+        kernels.fold_masked_scalar_plain(ref, base[:n], V[:, :n], M[:, :n],
+                                         s[:n], gb.n_panes - 1, gb._colmap)
+    torch.cuda.synchronize()
+    assert kernels.TOUCH_LAUNCHES["groupby_fold_masked_scalar"] == 3
+    np.testing.assert_array_equal(got["touch"].cpu().numpy(),
+                                  ref["touch"].cpu().numpy())
+    _same({k: v for k, v in got.items() if k in kernels.COMP_IDS
+           or k == "act"}, {k: v for k, v in ref.items()
+                            if k in kernels.COMP_IDS or k == "act"}, 1e-5)
+    assert int(got["touch"].to(torch.int64).sum()) > int(
+        tnode.state["touch"].to(torch.int64).sum())
+
+
 def test_fold_touch_column_with_pane_vector(tnode):
     """The touch branch under a per-row pane vector (an event-time tiered
     batch across bucket edges): touch, act and the state as the plain
@@ -1209,3 +1249,34 @@ def test_segscan_sort_matches_plain(cuda_dev, B, segs):
     want = kernels.segscan_sort_plain(*x)
     torch.cuda.synchronize()
     _same_seg(got, want, range(6))
+
+
+# ------------------------------------------------------------- count-min
+@pytest.mark.parametrize("depth,width,n", [(4, 8192, 65536), (3, 1000, 4099),
+                                           (2, 64, 1)])
+def test_cms_update_and_query_match_plain(cuda_dev, depth, width, n):
+    """#10 and #11 bit-equal to their plain versions (integer counts under
+    2^24 add alike in any order), over a skewed mix with signed zeros and
+    NaN, a width that is not a power of two and a single value."""
+    rng = np.random.default_rng(depth * width + n)
+    u = rng.random(n)
+    v = np.where(u < 0.35, 7, np.where(u < 0.55, 13, np.where(
+        u < 0.7, 99, rng.integers(100, 20_100, n)))).astype(np.float32)
+    v[:min(n, 3)] = [-0.0, 0.0, np.nan][:min(n, 3)]
+    vals = torch.from_numpy(v).to(cuda_dev)
+    got = torch.zeros((depth, width), device=cuda_dev)
+    ref = got.clone()
+    kernels.reset_launches()
+    for _ in range(2):
+        kernels.cms_update(got, vals)
+        kernels.cms_update_plain(ref, vals)
+    q = torch.from_numpy(np.concatenate([v[:4096], [7.0, 12345.0]]).astype(
+        np.float32)).to(cuda_dev)
+    est = kernels.cms_query(got, q)
+    want = kernels.cms_query_plain(ref, q)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["cms_update"] == 2
+    assert kernels.LAUNCHES["cms_query"] == 1
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+    np.testing.assert_array_equal(est.cpu().numpy(), want.cpu().numpy())
+    assert float(got.sum()) == 2 * depth * n

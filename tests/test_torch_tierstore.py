@@ -780,7 +780,8 @@ def test_tier_options(monkeypatch):
     tierStore "auto" engages with a budget (tierHotMb or
     KUIPER_HBM_BUDGET_MB), "on" needs one, "off" never engages; LIMIT
     gates the tier off (ORDER BY does not plan on the port yet);
-    heavy_hitters stays untiered; a tiered sliding rule raises."""
+    heavy_hitters stays untiered; a sliding rule tiers in quiescent-only
+    mode."""
     monkeypatch.delenv("KUIPER_HBM_BUDGET_MB", raising=False)
     wide = WIDE_SQL
 
@@ -805,10 +806,13 @@ def test_tier_options(monkeypatch):
     assert plan({}, sql=wide + " LIMIT 5").tier is None
     assert plan({}, sql="SELECT deviceId, heavy_hitters(v, 3) AS h FROM "
                 "demo GROUP BY deviceId, TUMBLINGWINDOW(ss, 2)").tier is None
-    with pytest.raises(NotImplementedError):
-        plan({}, sql="SELECT deviceId, distinct_count_approx(v) AS u FROM "
-             "demo GROUP BY deviceId, SLIDINGWINDOW(ss, 4) OVER (WHEN v > "
-             "3)")
+    sliding = plan({}, sql="SELECT deviceId, distinct_count_approx(v) AS u "
+                   "FROM demo GROUP BY deviceId, SLIDINGWINDOW(ss, 4) OVER "
+                   "(WHEN v > 3)")
+    assert sliding.tier is not None and sliding.tier.quiescent_only
+    assert plan({}, sql="SELECT deviceId, heavy_hitters(v, 3) AS h FROM "
+                "demo GROUP BY deviceId, SLIDINGWINDOW(ss, 4) OVER (WHEN v > "
+                "3)").tier is None
     monkeypatch.delenv("KUIPER_HBM_BUDGET_MB")
     for bad in ({"tierStore": "maybe"}, {"tierStore": 1},
                 {"tierHotMb": -1}, {"tierHotMb": True},

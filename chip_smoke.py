@@ -12,8 +12,8 @@ no result):
 1. the card (nvidia-smi name and power limit) and the kernels' build time
    (csrc/groupby.cu, csrc/sketches.cu, csrc/prefinalize.cu,
    csrc/slidingring.cu, csrc/multirule.cu, csrc/tierstore.cu,
-   csrc/relational.cu and csrc/countmin.cu, one nvcc each for sm_90a, run
-   together);
+   csrc/relational.cu, csrc/countmin.cu and csrc/sharded.cu, one nvcc
+   each for sm_90a, run together);
 2. each kernel against its plain PyTorch version on the card, at the main
    path's shapes (65,536 rows, 16,384 slots; the sketch kernels at the
    sketch rules' state, up to 2 panes x 16,384 x 2,688 floats; the
@@ -265,10 +265,35 @@ M. the count-min sketch, `CountMinSketch(depth=4, width=8192,
    hitters equal to the twin's host logic on its counts, top 3 {7, 13,
    99}, no estimate under its true count. Update values/s and
    heavy_hitters ms;
+N. the device mesh (#23, #24) on a 2x4 mesh whose eight devices are the
+   card (`device=["cuda"] * 8`, planOptimizeStrategy.mesh): first its
+   kernels at the main path's shapes, sharded_fold_scalar (the flagship
+   rule with a touch column; I3's rule on its 8-pane vector),
+   sharded_fold_wide (phase B's percentile and hll rules) and shard_merge
+   of each, against their plain versions (the fold's sums rtol 1e-5,
+   everything else and the merge of the same partials bit-equal) and the
+   fold + merge against #1's single-chip fold of the same batch, timed as
+   phase 2 times its kernels (the merge's partials restored before each
+   run, outside the interval); N1 the flagship tumbling rule on 2x4 and,
+   beside it, single-chip, on phase 3's shape (6 windows of 16 batches),
+   every window against the float64 twin and the two legs against each
+   other, rows/s and emit p50/p99 of each leg, the mesh leg's 96 sharded
+   folds and merges and no #1 fold, shard_stats; N2 N1's batches, windows
+   1-3 on 2x4, a snapshot restored single-chip for window 4, its snapshot
+   restored on shards 8 (1x8) for windows 5-6, every window against the
+   twin and N1's; N3 phase B's rules on 2x4 (3 windows each, cut for
+   time) against their twins; N4 I3 on 2x4 through the watermark entry
+   (the sharded pane vector must fold), every window against its twin;
+   N5 D2's sliding rule on 2x4 (160 batches, cut for time): the refold
+   path with sliding_fallback "sharded_kernel", edge refolds from host
+   rows (no masked fold), every window against D2's twin; then a rule
+   planned with shards "auto" on the default device list (single-chip on
+   one card, with its reason);
 5. each kernel's launch count on the paths that use it (each must be
    > 0; the fold's touch branch on the G paths, I7, L1 and L2; the masked
    fold's on L2; the per-row pane vector on the sliding paths and I2, I3,
-   I5, I6), then the JSON kernel table and the one-line result.
+   I5, I6, and the sharded one on N4), then the JSON kernel table
+   (twenty-eight kernels) and the one-line result.
 """
 from __future__ import annotations
 
@@ -539,6 +564,15 @@ L_COHORT, L_COHORT_ROWS, L_COHORT_EVERY = 8192, 16_384, 32
 #: [100, 20,100) (~20,000 distinct values: the candidate map saturates),
 #: heavy_hitters(3) after every 16th update
 M_DEPTH, M_WIDTH, M_CAND, M_UPDATES, M_HH_EVERY = 4, 8192, 4096, 64, 16
+#: phase N: the device mesh, on a 2x4 mesh whose eight devices are the one
+#: card (the counterpart of the reference's 8-device virtual mesh,
+#: MULTICHIP_r05.json): N1 the flagship tumbling rule beside a single-chip
+#: leg of the same batches, N2 its windows across snapshots (2x4 ->
+#: single-chip -> shards 8), N3 phase B's sketch rules (3 windows each,
+#: cut for time), N4 I3 (event-time hopping, the pane vector), N5 D2's
+#: sliding rule on the refold path (160 batches, cut for time)
+N_MESH, N_DEVICES = {"rows": 2, "keys": 4}, 8
+N3_WINDOWS, N5_BATCHES = 3, 160
 J_RULE = ("SELECT l.v, r.w FROM l {jt} JOIN r ON l.k = r.k "
           "AND l.ts - r.ts >= -5000 AND l.ts - r.ts <= 5000 AND l.v > r.w "
           "GROUP BY TUMBLINGWINDOW(ss, 10)")
@@ -592,6 +626,9 @@ SOURCE = {
     "segscan_sort": "ekuiper_tpu_torch/csrc/relational.cu",
     "cms_update": "ekuiper_tpu_torch/csrc/countmin.cu",
     "cms_query": "ekuiper_tpu_torch/csrc/countmin.cu",
+    "sharded_fold_scalar": "ekuiper_tpu_torch/csrc/sharded.cu",
+    "sharded_fold_wide": "ekuiper_tpu_torch/csrc/sharded.cu",
+    "shard_merge": "ekuiper_tpu_torch/csrc/sharded.cu",
 }
 REPLACES = {
     "groupby_fold_scalar": "ekuiper_tpu/ops/groupby.py:348",
@@ -619,6 +656,9 @@ REPLACES = {
     "segscan_sort": "ekuiper_tpu/ops/segscan.py:165",
     "cms_update": "ekuiper_tpu/ops/sketches.py:282",
     "cms_query": "ekuiper_tpu/ops/sketches.py:288",
+    "sharded_fold_scalar": "ekuiper_tpu/parallel/sharded.py:208",
+    "sharded_fold_wide": "ekuiper_tpu/parallel/sharded.py:208",
+    "shard_merge": "ekuiper_tpu/parallel/sharded.py:208",
 }
 #: which end-to-end paths launch each kernel (phase 5 checks each > 0)
 PATHS = {
@@ -629,11 +669,11 @@ PATHS = {
     "groupby_finalize_scalar": ("tumbling", "hopping", "hh", "pct", "hll",
                                 "f1", "f2", "f3", "f4", "g1", "g2a", "h1",
                                 "h2", "h3", "h4", "i1", "i2", "i3", "i4",
-                                "i7", "l2"),
+                                "i7", "l2", "n1"),
     "groupby_reset_pane": ("tumbling", "hopping", "hh", "pct", "hll", "d1",
                            "d2", "d3", "f1", "f2", "f3", "f4", "g1", "g2a",
                            "g2b", "h1", "h2", "h3", "h4", "i1", "i2", "i3",
-                           "i4", "i7", "l1", "l2"),
+                           "i4", "i7", "l1", "l2", "n1"),
     "groupby_fold_wide": ("hh", "pct", "hll", "d1", "d3", "f1", "f3", "h1"),
     "groupby_finalize_wide": ("pct", "hll", "f3", "h1"),
     "groupby_hh_finalize": ("hh", "f1"),
@@ -660,6 +700,9 @@ PATHS = {
     "segscan_sort": ("k2",),
     "cms_update": ("m",),
     "cms_query": ("m",),
+    "sharded_fold_scalar": ("n1", "n2", "n3_pct", "n3_hll", "n4", "n5"),
+    "sharded_fold_wide": ("n3_pct", "n3_hll"),
+    "shard_merge": ("n1", "n2", "n3_pct", "n3_hll", "n4", "n5"),
 }
 #: the folds that must bump the touch column on each tiered path (the
 #: masked fold: on the refold path's edge refolds)
@@ -674,7 +717,8 @@ ROW_PANE_PATHS = {"groupby_fold_scalar": ("d1", "d2", "d2_delay", "d3",
                                           "i3", "l1", "l2"),
                   "groupby_fold_wide": ("d1", "d3", "f1", "f3"),
                   "multirule_fold": ("i5", "i6"),
-                  "multirule_fold_wide": ("i6",)}
+                  "multirule_fold_wide": ("i6",),
+                  "sharded_fold_scalar": ("n4",)}
 
 
 class SmokeFailure(Exception):
@@ -687,12 +731,16 @@ def check(cond: bool, what: str) -> None:
 
 
 # ------------------------------------------------------------------ timing
-def time_ms(torch, fn, reps: int) -> float:
+def time_ms(torch, fn, reps: int, prep=None) -> float:
     """Median device time of `fn` over `reps` runs, by CUDA events. Each run
     is queued behind a device-side sleep, so the host has enqueued the whole
     of `fn` before the start event executes: the interval is device time,
-    not host enqueue time."""
+    not host enqueue time. `prep`, where given, is enqueued before each
+    run's start event (outside the interval): it restores what `fn`
+    consumes."""
     for _ in range(3):
+        if prep is not None:
+            prep()
         fn()
     torch.cuda.synchronize()
     times = []
@@ -700,6 +748,8 @@ def time_ms(torch, fn, reps: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(2_000_000)
+        if prep is not None:
+            prep()
         start.record()
         fn()
         end.record()
@@ -708,7 +758,8 @@ def time_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def body_ms(torch, fn, kernel, reps: int, per_call: bool = False):
+def body_ms(torch, fn, kernel, reps: int, per_call: bool = False,
+            prep=None):
     """Device time of the CUDA kernel `kernel` (a name, or a tuple of
     names any of which matches) inside `fn`, from the profiler's CUPTI
     trace: the kernel bodies alone, without the launch and the timing
@@ -716,14 +767,19 @@ def body_ms(torch, fn, kernel, reps: int, per_call: bool = False):
     the trace holds (a trace can also hold a launch of an earlier session,
     or miss one); with `per_call`, every matching launch of the `reps`
     calls summed and divided by `reps`, for a call that launches several
-    kernels. None when the trace holds no such kernel."""
+    kernels. None when the trace holds no such kernel. `prep`: as
+    time_ms's (its kernels are not `kernel`)."""
     from torch.profiler import ProfilerActivity, profile
 
     names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
+    if prep is not None:
+        prep()
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if prep is not None:
+                prep()
             fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
@@ -753,9 +809,9 @@ def host_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def launch_split(torch, fn, kernel: str, reps: int) -> dict:
+def launch_split(torch, fn, kernel: str, reps: int, prep=None) -> dict:
     """The kernel's body time and the host time of one wrapper call."""
-    return {"body_ms": body_ms(torch, fn, kernel, reps),
+    return {"body_ms": body_ms(torch, fn, kernel, reps, prep=prep),
             "host_ms": host_ms(torch, fn, reps)}
 
 
@@ -1725,10 +1781,11 @@ def check_wide_windows(tag, emitted, spans, span, what):
     return n_rows, edge_rows, float(np.mean(errs))
 
 
-def run_wide_rules(torch, seed, kernels, mods):
+def run_wide_rules(torch, seed, kernels, mods, windows=SKETCH_WINDOWS):
     """Phase B: the percentile tumbling rule and the hll hopping rule on
-    the card against the twins; prints the sketches' error against exact
-    quantiles and distinct counts (not gated)."""
+    the card against the twins, `windows` windows (hop boundaries) each;
+    prints the sketches' error against exact quantiles and distinct counts
+    (not gated)."""
     plan_fused_rule, ColumnBatch, Trigger = mods
     rng = np.random.default_rng(seed + 8)
     ids = np.array([f"dev_{i}" for i in range(N_KEYS)], dtype=np.object_)
@@ -1744,7 +1801,7 @@ def run_wide_rules(torch, seed, kernels, mods):
         kernels.reset_launches()
         emit_ms = []
         col = "temperature" if tag == "pct" else "humidity"
-        for w in range(SKETCH_WINDOWS):
+        for w in range(windows):
             idx, vals = wide_data(rng, tag)
             for b in range(SKETCH_BATCHES):
                 node.process(ColumnBatch(n=ROWS, columns={
@@ -2888,9 +2945,10 @@ def check_hh_window(cb, want, values, what):
     return cb.n
 
 
-def same_rows(cb, other, what):
-    """Two windows of one trigger (the refold path's and the DABA ring's):
-    keys, counts, min and max equal. Returns (keys, columns) of each."""
+def same_rows(cb, other, what, other_name="DABA"):
+    """Two windows of one trigger (the refold path's and the DABA ring's,
+    or `other_name`'s): keys, counts, min and max equal. Returns (keys,
+    columns) of each."""
     def rows(x):
         keys = key_ids(x.columns["deviceId"])
         o = np.argsort(keys)
@@ -2898,24 +2956,26 @@ def same_rows(cb, other, what):
 
     ka, a = rows(cb)
     kb, b = rows(other)
-    check(np.array_equal(ka, kb), f"{what}: keys differ from DABA's")
+    check(np.array_equal(ka, kb), f"{what}: keys differ from "
+          f"{other_name}'s")
     for col in ("cnt", "min_t", "max_t"):
         check(np.array_equal(a[col], b[col]), f"{what}: {col} differs "
-              "from DABA's")
+              f"from {other_name}'s")
     return ka, a, b
 
 
-def check_same_window(cb, other, ref, what):
-    """F2: the refold window against the DABA one of the same trigger:
-    keys, counts, min and max equal; avg within twice the float32 bound
-    each keeps to the float64 reference. Returns the largest avg
-    difference."""
-    ka, a, b = same_rows(cb, other, what)
+def check_same_window(cb, other, ref, what, other_name="DABA"):
+    """F2: the refold window against the DABA one of the same trigger (or
+    two windows of `other_name`): keys, counts, min and max equal; avg
+    within twice the float32 bound each keeps to the float64 reference.
+    Returns the largest avg difference."""
+    ka, a, b = same_rows(cb, other, what, other_name)
     n = ref["cnt"][ka]
     mean = ref["sum"][ka] / n
     d = np.abs(a["avg_t"].astype(np.float64) - b["avg_t"])
     check((d <= 2 * EPS32 * (ref["sumabs"][ka] + np.abs(mean))).all(),
-          f"{what}: avg differs from DABA's beyond the bound ({d.max()})")
+          f"{what}: avg differs from {other_name}'s beyond the bound "
+          f"({d.max()})")
     return float(d.max(initial=0.0))
 
 
@@ -6996,6 +7056,475 @@ def phase_m_line(r):
 
 
 # -------------------------------------------------------------------- main
+# ------------------------------------------------------------ phase N
+def on_mesh(plan_fused_rule, dev, strategy):
+    """plan_fused_rule planning every rule with planOptimizeStrategy
+    `strategy` over a device list naming `dev` N_DEVICES times (the mesh
+    of one card)."""
+    def plan(sql, options=None, **kw):
+        return plan_fused_rule(
+            sql, device=[dev] * N_DEVICES,
+            options={**(options or {}), "planOptimizeStrategy": strategy},
+            **kw)
+    return plan
+
+
+def library_merge(torch, state, parts, pane, R, kernels):
+    """Yardstick, never called by the port: the merge over the rows axis
+    as PyTorch's own calls: sum / amin / amax over the R partials, add_ /
+    minimum / maximum into the pane (every pane for a pane-vector
+    partial), fill_ back to the identity; the touch counts in int64."""
+    for comp, part in parts.items():
+        if comp == "touch":
+            t = state["touch"].long() + part.long().sum(0)
+            state["touch"].copy_((t & 0xFFFFFFFF).to(torch.uint32))
+            part.zero_()
+            continue
+        blocks = part.view(R, -1, *part.shape[1:])
+        op = kernels.SHARD_OPS.get(comp, 0)
+        dst = (state[comp][pane:pane + 1] if blocks.shape[1] == 1
+               else state[comp])
+        if op == 0:
+            dst.add_(blocks.sum(0))
+        elif op == 1:
+            torch.minimum(dst, blocks.amin(0), out=dst)
+        else:
+            torch.maximum(dst, blocks.amax(0), out=dst)
+        part.fill_(kernels.INIT[comp])
+
+
+def shard_fold_bytes(V, M, slots, pane_vec, parts, rows_shard, P, R):
+    """Bytes the sharded scalar fold must move: V, M, the row mask, the
+    slots (and the pane vector) read once, each touched partial line (act
+    and the scalar columns; the touch count) read and written once."""
+    N = slots.shape[0]
+    r = np.arange(N) // rows_shard
+    p = np.zeros(N, np.int64) if pane_vec is None else pane_vec.astype(
+        np.int64)
+    C = parts["act"].shape[1]
+    touched = len(np.unique(((r * P + p) * C) + slots))
+    width = sum(a.shape[2] for k, a in parts.items()
+                if k in ("n", "s1", "s2", "mn", "mx")) + 1
+    nbytes = V.numel() * 4 + M.numel() + N + N * 4 + touched * width * 8
+    if pane_vec is not None:
+        nbytes += N
+    if "touch" in parts:
+        nbytes += len(np.unique(r * C + slots)) * 8
+    return nbytes
+
+
+def shard_merge_bytes(state, parts, R, kernels):
+    """Bytes the merge must move: the R partials read once, the merged
+    panes of the state read and written once, and each partial element
+    that left its identity written back to it."""
+    nbytes = 0
+    for comp, part in parts.items():
+        ident = kernels.INIT.get(comp, 0.0)
+        Pp = part.shape[0] // R if comp != "touch" else 1
+        per_pane = state[comp][0].numel() if comp != "touch" else \
+            state[comp].numel()
+        nbytes += part.numel() * 4 + 2 * Pp * per_pane * 4
+        nbytes += int((part.double() != ident).sum()) * 4
+    return nbytes
+
+
+def sharded_kernel_checks(torch, seed, kernels, sketches, plan_fused_rule,
+                          TorchGroupBy, dev):
+    """#23 / #24 on the card: sharded_fold_scalar (the flagship rule with a
+    touch column; I3's event-time hopping rule on its 8-pane vector),
+    sharded_fold_wide (phase B's percentile and hll rules), and
+    shard_merge of each, on a 2x4 mesh of the card at the main path's
+    shapes (65,536 rows, 16,384 slots): each against its plain version
+    (counts, min / max, hll, hist and touch bit-equal, the fold's sums
+    rtol 1e-5; the merge of the same partials bit-equal), and the fold +
+    merge against #1's single-chip fold of the same batch."""
+    from ekuiper_tpu_torch.parallel.mesh import make_mesh
+    from ekuiper_tpu_torch.parallel.sharded import ShardedGroupBy
+
+    rows = {}
+    R, K = N_MESH["rows"], N_MESH["keys"]
+    mesh = make_mesh(R, K, [dev] * N_DEVICES)
+    cases = (("flagship", TUMBLING, None, True, False),
+             ("pane_vec", I3_RULE, I_OPTS, False, True),
+             ("pct", PCT_RULE, None, False, False),
+             ("hll", HLL_RULE, None, False, False))
+    for i, (tag, sql, opts, touch, vec) in enumerate(cases):
+        node = plan_fused_rule(sql, key_slots=SLOTS, micro_batch=ROWS,
+                               device=dev, options=opts)
+        P = node.n_panes
+        gb = ShardedGroupBy(node.plan, mesh, capacity=SLOTS, n_panes=P,
+                            micro_batch=ROWS, track_touch=touch)
+        single = TorchGroupBy(node.plan, capacity=SLOTS, n_panes=P,
+                              micro_batch=ROWS, device=dev,
+                              track_touch=touch)
+        node.on_close()
+        r = np.random.default_rng(seed + 130 + i)
+        if tag in ("pct", "hll"):
+            base, V, M, s_dev, s_host = sketch_inputs(torch, gb,
+                                                      seed + 130 + i, dev)
+        else:
+            temp = r.normal(20, 5, ROWS).astype(np.float32)
+            s_host = r.integers(0, N_KEYS, ROWS).astype(np.int32)
+            base, V, M = gb.spec_inputs(
+                {"temperature": torch.from_numpy(temp).to(dev)}, ROWS)
+            s_dev = torch.from_numpy(s_host).to(dev)
+        pv_host = r.integers(0, P, ROWS).astype(np.uint8) if vec else None
+        pv = None if pv_host is None else torch.from_numpy(pv_host).to(dev)
+        pane, m = P - 1, gb.rows_per_shard
+        Pp = P if vec else 1
+        wide = len(gb._widemap) > 0
+        parts = gb._partials(Pp)
+        ref = clone_state(parts)
+
+        def fold_k(dst, _pv=pv):
+            kernels.sharded_fold_scalar(dst, base, V, M, s_dev, m, R, K,
+                                        gb._colmap, _pv)
+
+        def fold_p(dst, _pv=pv):
+            kernels.sharded_fold_scalar_plain(dst, base, V, M, s_dev, m, R,
+                                              K, gb._colmap, _pv)
+
+        fold_k(parts)
+        fold_p(ref)
+        if wide:
+            kernels.sharded_fold_wide(parts, V, M, s_dev, m, R, gb._widemap,
+                                      pv)
+            kernels.sharded_fold_wide_plain(ref, V, M, s_dev, m, R,
+                                            gb._widemap, pv)
+        torch.cuda.synchronize()
+        err = state_err(parts, ref, exact=EXACT + ("touch",))
+        saved = clone_state(parts)
+        # the fold's row: the scalar fold (flagship, pane vector), the wide
+        # one (pct, hll), timed into copies of the partials
+        pidx = ((torch.arange(ROWS, device=dev) // m) * Pp
+                + (0 if pv is None else pv.long()))
+        if not wide:
+            name = "sharded_fold_scalar"
+            fn = functools.partial(fold_k, clone_state(saved))
+            plain = functools.partial(fold_p, clone_state(saved))
+            lib_state = clone_state(saved)
+            lib = functools.partial(library_fold, torch, lib_state, base, V,
+                                    M, s_dev, pidx, gb._colmap, kernels)
+            nbytes = shard_fold_bytes(V, M, s_host, pv_host, saved, m, Pp, R)
+            ops = ROWS * (len(gb._colmap) + 1)
+            extra = f"cols={len(gb._colmap)} touch={touch}"
+        else:
+            name = "sharded_fold_wide"
+            dst_k, dst_p, lib_state = (clone_state(saved) for _ in range(3))
+            fn = functools.partial(kernels.sharded_fold_wide, dst_k, V, M,
+                                   s_dev, m, R, gb._widemap, pv)
+            plain = functools.partial(kernels.sharded_fold_wide_plain,
+                                      dst_p, V, M, s_dev, m, R, gb._widemap,
+                                      pv)
+            upd = wide_updates(torch, gb, V, M, s_dev, pidx, sketches)
+            lib = functools.partial(library_fold_wide, torch, lib_state, upd)
+            touched = sum(len(torch.unique(idx)) for _, idx, _, _ in upd)
+            ops = sum(len(idx) for _, idx, _, _ in upd)
+            nbytes = V.numel() * 4 + M.numel() + ROWS * 4 + touched * 8
+            extra = f"cols={len(gb._widemap)} updates={ops}"
+        t_k = time_ms(torch, fn, REPS)
+        split = launch_split(torch, fn, name + "_kernel", REPS)
+        t_p = time_ms(torch, plain, REPS)
+        t_l = time_ms(torch, lib, REPS)
+        b_ms, b_by = bound(nbytes, ops)
+        key = name if tag == "flagship" else f"{name}/{tag}"
+        print(f"kernel {key} mesh={R}x{K} P={P} pane_vec={vec} R={ROWS} "
+              f"C={SLOTS} {extra}: max_abs_err={err[0]:.3g} "
+              f"max_rel_err={err[1]:.3g} kernel_ms={t_k:.4f} "
+              f"{split_text(split)} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
+              f"bound_ms={b_ms:.5f} ({b_by})")
+        rows[key] = dict(max_abs_err=err[0], max_rel_err=err[1], ms=t_k,
+                         **split, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=t_l)
+
+        # the merge: the same partials through the kernel and the plain
+        # version, bit-equal; then the fold + merge against #1's fold
+        st_k, st_p = gb.init_state(), gb.init_state()
+        plain_in = clone_state(saved)
+        kernels.shard_merge(st_k, parts, pane, R)
+        kernels.shard_merge_plain(st_p, plain_in, pane, R)
+        torch.cuda.synchronize()
+        merr = state_err(st_k, st_p, exact=tuple(st_k))
+        state_err(parts, plain_in, exact=tuple(parts))  # back at identity
+        st_1 = single.init_state()
+        kernels.groupby_fold_scalar(st_1, base, V, M, s_dev, pane,
+                                    single._colmap, pv)
+        if wide:
+            kernels.groupby_fold_wide(st_1, V, M, s_dev, pane,
+                                      single._widemap, pv)
+        torch.cuda.synchronize()
+        err1 = state_err(st_k, st_1, exact=EXACT + ("touch",))
+        nbytes = shard_merge_bytes(st_k, saved, R, kernels)
+
+        def restore(dst):
+            for k, t in dst.items():
+                t.copy_(saved[k])
+
+        lib_parts = clone_state(saved)
+        lib_state = gb.init_state()
+        fn = functools.partial(kernels.shard_merge, st_k, parts, pane, R)
+        prep = functools.partial(restore, parts)
+        t_k = time_ms(torch, fn, REPS, prep=prep)
+        split = launch_split(torch, fn, "shard_merge_kernel", REPS,
+                             prep=prep)
+        t_p = time_ms(torch, functools.partial(
+            kernels.shard_merge_plain, st_p, plain_in, pane, R), REPS,
+            prep=functools.partial(restore, plain_in))
+        t_l = time_ms(torch, functools.partial(
+            library_merge, torch, lib_state, lib_parts, pane, R, kernels),
+            REPS, prep=functools.partial(restore, lib_parts))
+        b_ms, b_by = bound(nbytes, 0)
+        mkey = "shard_merge" if tag == "flagship" else f"shard_merge/{tag}"
+        print(f"kernel {mkey} mesh={R}x{K} P={P} merged_panes={Pp} "
+              f"C={SLOTS}: max_abs_err={merr[0]:.3g} "
+              f"vs_single_chip_fold max_abs_err={err1[0]:.3g} "
+              f"max_rel_err={err1[1]:.3g} kernel_ms={t_k:.4f} "
+              f"{split_text(split)} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
+              f"bound_ms={b_ms:.5f} ({b_by})")
+        rows[mkey] = dict(max_abs_err=merr[0], vs_single_chip=err1[0],
+                          ms=t_k, **split, plain_ms=t_p, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=t_l)
+        del parts, ref, saved, st_k, st_p, st_1, plain_in, lib_parts
+        del lib_state, gb, single
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_n1(torch, seed, kernels, mods, dev):
+    """N1: the flagship tumbling rule on a 2x4 mesh of the card and,
+    beside it, single-chip, on the same batches: every window against the
+    float64 twin, the two legs' windows against each other (keys, counts,
+    min, max equal; avg within twice the float32 bound); rows/s and emit
+    p50/p99 of each leg; the mesh leg's launches and shard_stats."""
+    plan_fused_rule, ColumnBatch, Trigger = mods
+    rng = np.random.default_rng(seed + 140)
+    n_int, per = WINDOWS, BATCHES
+    batches, idx, temp = make_batches(rng, ColumnBatch, n_int * per)
+    refs = [reference_aggs(idx[w * per:(w + 1) * per],
+                           temp[w * per:(w + 1) * per], N_KEYS)
+            for w in range(n_int)]
+    legs = {}
+    for leg, plan in (("single", plan_fused_rule),
+                      ("mesh", on_mesh(plan_fused_rule, dev,
+                                       {"mesh": N_MESH}))):
+        warm = plan(TUMBLING, key_slots=SLOTS, micro_batch=ROWS,
+                    options=SYNC)
+        warm.broadcast = lambda item: None
+        warm.process(batches[0])
+        warm.on_trigger(Trigger(ts=10_000))
+        node = plan(TUMBLING, key_slots=SLOTS, micro_batch=ROWS,
+                    options=SYNC)
+        check(node.gb.device.type == "cuda", f"n1 {leg}: not on the card")
+        emitted, emit_ms = [], []
+        node.broadcast = emitted.append
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        for w in range(n_int):
+            for b in batches[w * per:(w + 1) * per]:
+                node.process(b)
+            te = time.perf_counter()
+            node.on_trigger(Trigger(ts=(w + 1) * 10_000))
+            torch.cuda.synchronize()
+            emit_ms.append((time.perf_counter() - te) * 1e3)
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        check(len(emitted) == n_int,
+              f"n1 {leg}: {len(emitted)} windows, want {n_int}")
+        worst = max(check_window(cb, refs[w], False, f"n1 {leg} window {w}")
+                    for w, cb in enumerate(emitted))
+        legs[leg] = dict(rows_per_s=n_int * per * ROWS / wall,
+                         emit_ms=emit_ms, launches=launches,
+                         max_abs_err=worst, windows=emitted, node=node)
+    mesh = legs["mesh"]
+    gb = mesh["node"].gb
+    check(gb.mesh_tag == "2x4" and mesh["node"].shard_info["mode"]
+          == "sharded", "n1: the rule is not on the 2x4 mesh")
+    n_b = n_int * per
+    c = mesh["launches"]
+    check(c["sharded_fold_scalar"] == n_b and c["shard_merge"] == n_b
+          and c["groupby_fold_scalar"] == 0,
+          f"n1: launches {c['sharded_fold_scalar']} sharded folds, "
+          f"{c['shard_merge']} merges, {c['groupby_fold_scalar']} #1 folds "
+          f"(want {n_b}, {n_b}, 0)")
+    check(legs["single"]["launches"]["sharded_fold_scalar"] == 0,
+          "n1: the single-chip leg launched a sharded fold")
+    vs = max(check_same_window(a, b, refs[w], f"n1 window {w}",
+                               "the single-chip leg's")
+             for w, (a, b) in enumerate(zip(mesh["windows"],
+                                            legs["single"]["windows"])))
+    stats = gb.shard_stats(mesh["node"].state)
+    check(sum(x["rows"] for x in stats) == n_b * ROWS,
+          "n1: shard_stats rows do not add up to the rows folded")
+    for leg in legs.values():
+        leg["node"].on_close()
+        del leg["node"]
+    return dict(legs=legs, vs_single=vs, stats=stats,
+                batches=(batches, idx, temp, refs))
+
+
+def run_n2(torch, kernels, mods, dev, n1):
+    """N2: N1's rule and batches, windows 1-3 on 2x4, a snapshot restored
+    on a single-chip node for window 4, its snapshot restored on a rule
+    planned with shards 8 (1x8) for windows 5 and 6: every window against
+    the twin and against N1's mesh window."""
+    plan_fused_rule, ColumnBatch, Trigger = mods
+    batches, _, _, refs = n1["batches"]
+    per = BATCHES
+    plans = (on_mesh(plan_fused_rule, dev, {"mesh": N_MESH}),
+             plan_fused_rule, on_mesh(plan_fused_rule, dev, {"shards": 8}))
+    spans = ((0, 3), (3, 4), (4, 6))
+    got, node, tags = [], None, []
+    kernels.reset_launches()
+    for plan, (lo, hi) in zip(plans, spans):
+        nxt = plan(TUMBLING, key_slots=SLOTS, micro_batch=ROWS, options=SYNC)
+        if node is not None:
+            nxt.restore_state(node.snapshot_state())
+            check(nxt.kt.n_keys == node.kt.n_keys, "n2: keys lost")
+            node.on_close()
+        node = nxt
+        tags.append(getattr(node.gb, "mesh_tag", "single"))
+        node.broadcast = got.append
+        for w in range(lo, hi):
+            for b in batches[w * per:(w + 1) * per]:
+                node.process(b)
+            node.on_trigger(Trigger(ts=(w + 1) * 10_000))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    node.on_close()
+    check(tags == ["2x4", "single", "1x8"], f"n2: legs {tags}")
+    check(len(got) == 6, f"n2: {len(got)} windows, want 6")
+    worst = vs = 0.0
+    for w, cb in enumerate(got):
+        worst = max(worst, check_window(cb, refs[w], False,
+                                        f"n2 window {w}"))
+        vs = max(vs, check_same_window(cb, n1["legs"]["mesh"]["windows"][w],
+                                       refs[w], f"n2 window {w}",
+                                       "N1's mesh window"))
+    return dict(max_abs_err=worst, vs_n1=vs, legs=tags, launches=launches)
+
+
+def run_phase_n(torch, seed, kernels, sketches, mods, TorchGroupBy, dev):
+    """Phase N: the device mesh (#23, #24) on one card."""
+    t0 = time.perf_counter()
+    plan_fused_rule = mods[0]
+    out = {"rows": sharded_kernel_checks(torch, seed, kernels, sketches,
+                                         plan_fused_rule, TorchGroupBy, dev)}
+    out["kernel_s"] = time.perf_counter() - t0
+    mesh_mods = (on_mesh(plan_fused_rule, dev, {"mesh": N_MESH}),
+                 *mods[1:])
+    n1 = run_n1(torch, seed, kernels, mods, dev)
+    out["n1"] = n1
+    out["n2"] = run_n2(torch, kernels, mods, dev, n1)
+    del n1["batches"]
+    # N3: phase B's sketch rules on 2x4, 3 windows (hop boundaries) each
+    out["n3"] = run_wide_rules(torch, seed, kernels, mesh_mods,
+                               windows=N3_WINDOWS)
+    for tag in ("pct", "hll"):
+        c = out["n3"][tag]["launches"]
+        check(c["sharded_fold_wide"] > 0 and c["groupby_fold_wide"] == 0
+              and c["groupby_fold_scalar"] == 0,
+              f"n3 {tag}: not folded through the sharded kernels ({c})")
+    # N4: I3, the event-time hopping rule (2 s buckets), on 2x4
+    s4 = EventStream(seed + 141, I_BATCHES["i3"])
+    out["n4"] = run_i_flagship(torch, "N4", s4, I3_RULE, 10_000, 2_000,
+                               kernels, mesh_mods)
+    del s4
+    check(out["n4"]["row_pane"]["sharded_fold_scalar"] > 0
+          and out["n4"]["launches"]["groupby_fold_scalar"] == 0,
+          "n4: no sharded pane-vector fold (#24)")
+    # N5: D2's sliding rule on 2x4: the refold path, host-row edge refolds
+    rng = np.random.default_rng(seed + 142)
+    stream = SlidingStream(rng, N5_BATCHES)
+
+    def fallback(node):
+        check(node.sliding_fallback == "sharded_kernel",
+              f"n5: fallback {node.sliding_fallback}")
+
+    node, em, rps, launches, row_pane = run_sliding(
+        torch, kernels, mesh_mods, D2_RULE, stream, "n5", impl="refold",
+        sources=("device-async",), hook=fallback)
+    t_check = time.perf_counter()
+    twin = ScalarTwin(stream)
+    worst = 0.0
+    for i, (t, received, _, _, cb, _) in enumerate(em):
+        a, b = stream.rows(t - node.length_ms, t, received)
+        worst = max(worst, check_window(cb, twin.window(a, b), False,
+                                        f"n5 trigger {i} (t={t})"))
+    res = refold_result(node, em, rps, launches, row_pane, stream, t_check)
+    check(res["triggers"] == res["want_triggers"],
+          f"n5: {res['triggers']} triggers, {res['want_triggers']} rows")
+    check(launches["groupby_fold_masked_scalar"] == 0
+          and launches["groupby_fold_scalar"] == 0
+          and launches["sharded_fold_scalar"] > 0
+          and res["routes"]["cached"] == 0 and res["routes"]["host"] > 0,
+          f"n5: refolds not from host rows through the sharded fold "
+          f"({res['routes']}, {launches})")
+    res.update(max_abs_err=worst)
+    out["n5"] = res
+    del node, em, twin, stream
+    torch.cuda.empty_cache()
+    # shards "auto" over the default device list (every visible card)
+    auto = plan_fused_rule(TUMBLING, key_slots=SLOTS, micro_batch=ROWS,
+                           options={"planOptimizeStrategy": {"shards":
+                                                             "auto"}})
+    out["auto"] = auto.shard_info
+    check(auto.shard_info["mode"] == ("sharded" if torch.cuda.device_count()
+                                      > 1 else "single-chip"),
+          f"shards auto: {auto.shard_info}")
+    auto.on_close()
+    out["wall"] = time.perf_counter() - t0
+    return out
+
+
+def phase_n_lines(n):
+    legs = n["n1"]["legs"]
+    lines = [
+        f"phase N kernel rows: {n['kernel_s']:.1f} s",
+        *(f"phase N1 {leg}: {WINDOWS} windows x {BATCHES} batches x "
+          f"{ROWS} rows, {N_KEYS} keys: rows/s={r['rows_per_s']:.0f} "
+          f"emit_p50_ms={pct(r['emit_ms'], 50):.3f} "
+          f"emit_p99_ms={pct(r['emit_ms'], 99):.3f} "
+          f"max_abs_err={r['max_abs_err']:.3g} launches={r['launches']}"
+          for leg, r in legs.items()),
+        f"phase N1 mesh vs single-chip: max avg diff {n['n1']['vs_single']:.3g}"
+        f"; shard_stats " + " ".join(
+            f"k{x['shard']}:rows={x['rows']},keys={x['keys']}"
+            for x in n["n1"]["stats"]),
+        f"phase N2 2x4 -> single-chip -> 1x8 ({n['n2']['legs']}): 6 windows "
+        f"max_abs_err={n['n2']['max_abs_err']:.3g} vs N1 max avg diff "
+        f"{n['n2']['vs_n1']:.3g} launches={n['n2']['launches']}",
+    ]
+    for tag in ("pct", "hll"):
+        r = n["n3"][tag]
+        lines.append(f"phase N3 {tag} on 2x4: {r['rows']} rows against the "
+                     f"twin ({r['edge_rows']} one bin over at an edge) "
+                     f"emit_p50_ms={pct(r['emit_ms'], 50):.3f} "
+                     f"launches={r['launches']}")
+    r = n["n4"]
+    lines.append(f"phase N4 I3 on 2x4: rows/s={r['rows_per_s']:.0f} "
+                 f"windows={r['windows']} panes={r['n_panes']} "
+                 f"vector_folds={r['vector_folds']} "
+                 f"scalar_folds={r['scalar_folds']} "
+                 f"emit_p50_ms={r['emit_p50']:.3f} "
+                 f"emit_p99_ms={r['emit_p99']:.3f} "
+                 f"max_abs_err={r['max_abs_err']:.3g} "
+                 f"pane_vec_folds={r['row_pane']} launches={r['launches']}")
+    r = n["n5"]
+    lines.append(f"phase N5 D2 on 2x4: fallback={r['fallback']} "
+                 f"rows/s={r['rows_per_s']:.0f} triggers={r['triggers']} "
+                 f"stall_p50_ms={pct(r['stall'], 50):.3f} "
+                 f"stall_p99_ms={pct(r['stall'], 99):.3f} "
+                 f"delivery_p50_ms={pct(r['delivery'], 50):.3f} "
+                 f"delivery_p99_ms={pct(r['delivery'], 99):.3f} "
+                 f"routes={r['routes']} max_abs_err={r['max_abs_err']:.3g} "
+                 f"pane_vec_folds={r['row_pane']} launches={r['launches']}")
+    lines.append(f"phase N shards auto on the default device list: "
+                 f"{json.dumps(n['auto'])}")
+    lines.append(f"phase N: {n['wall']:.1f} s")
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -7222,6 +7751,14 @@ def main() -> int:
     print(phase_m_line(m))
     print(f"phase M: {time.perf_counter() - t_m:.1f} s "
           f"(wall {time.perf_counter() - t_run:.0f} s)")
+    # phase N: the device mesh (#23, #24) on a 2x4 mesh of the card: the
+    # kernel rows, N1-N5, shards auto
+    n = run_phase_n(torch, args.seed, kernels, sketches, mods, TorchGroupBy,
+                    dev)
+    rows.update(n["rows"])
+    for line in phase_n_lines(n):
+        print(line)
+    print(f"phase N: wall {time.perf_counter() - t_run:.0f} s")
 
     # phase 5: every kernel launched on each path that uses it
     paths = {"tumbling": counts_t, "hopping": counts_h, "hh": counts_hh,
@@ -7243,13 +7780,19 @@ def main() -> int:
                 for jt in J2_TYPES},
              "k1": k["k1"]["launches"], "k2": k["k2"]["launches"],
              "l1": el["l1"]["launches"], "l2": el["l2"]["launches"],
-             "m": m["launches"]}
+             "m": m["launches"],
+             "n1": n["n1"]["legs"]["mesh"]["launches"],
+             "n2": n["n2"]["launches"],
+             "n3_pct": n["n3"]["pct"]["launches"],
+             "n3_hll": n["n3"]["hll"]["launches"],
+             "n4": n["n4"]["launches"], "n5": n["n5"]["launches"]}
     for name, used_by in PATHS.items():
         for path in used_by:
             check(paths[path][name] > 0,
                   f"{name} was not launched on the {path} path")
     sliding = {**d, **f, **{tag: i[tag] for tag in ("i2", "i3", "i5",
-                                                    "i6")}, **el}
+                                                    "i6")}, **el,
+               "n4": n["n4"]}
     for name, used_by in ROW_PANE_PATHS.items():
         for path in used_by:
             check(sliding[path]["row_pane"][name] > 0,
@@ -7281,7 +7824,8 @@ def main() -> int:
                 "join_match": "join_match/2048",
                 "segscan_shift": "segscan_shift/8192",
                 "segscan_sort": "segscan_sort/65536",
-                "cms_query": "cms_query/4096"}
+                "cms_query": "cms_query/4096",
+                "sharded_fold_wide": "sharded_fold_wide/pct"}
     main_path = {"groupby_fold_wide": "hh", "groupby_finalize_wide": "pct",
                  "groupby_hh_finalize": "hh", "groupby_components": "c1",
                  "groupby_absorb": "c1_host", "ring_advance": "d1",
@@ -7294,7 +7838,9 @@ def main() -> int:
                  "multirule_fold_wide": "h5_hll",
                  "multirule_finalize_wide": "h5_hll",
                  "join_match": "j2_inner", "segscan_shift": "k1",
-                 "segscan_sort": "k2", "cms_update": "m", "cms_query": "m"}
+                 "segscan_sort": "k2", "cms_update": "m", "cms_query": "m",
+                 "sharded_fold_scalar": "n1", "sharded_fold_wide": "n3_pct",
+                 "shard_merge": "n1"}
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name],
@@ -7352,9 +7898,20 @@ def main() -> int:
             p: touch[p]["groupby_fold_masked_scalar"]
             for p in TOUCH_PATHS["groupby_fold_masked_scalar"]})
     table["kernels"][24]["at_8192"] = rows["cms_query/8192"]
+    # the mesh (#23, #24): the pane vector's fold and merge (N4), the hll
+    # rule's wide fold and merge
+    table["kernels"][25]["pane_vec"] = dict(
+        rows["sharded_fold_scalar/pane_vec"], launches_by_path={
+            p: sliding[p]["row_pane"]["sharded_fold_scalar"]
+            for p in ROW_PANE_PATHS["sharded_fold_scalar"]})
+    table["kernels"][26]["hll_rule"] = rows["sharded_fold_wide/hll"]
+    for tag in ("pane_vec", "pct", "hll"):
+        table["kernels"][27][f"{tag}_rule" if tag != "pane_vec"
+                             else tag] = rows[f"shard_merge/{tag}"]
     check([k["name"] for k in table["kernels"][23:]]
-          == ["cms_update", "cms_query"], "kernel table order")
-    check(len(table["kernels"]) == 25, "kernel table")
+          == ["cms_update", "cms_query", "sharded_fold_scalar",
+              "sharded_fold_wide", "shard_merge"], "kernel table order")
+    check(len(table["kernels"]) == 28, "kernel table")
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

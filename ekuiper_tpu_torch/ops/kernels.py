@@ -1,11 +1,12 @@
 """The port's CUDA kernels: their build, the wrappers that launch them, their
 plain PyTorch versions and their launch counts.
 
-Twenty-five kernels, written by hand in CUDA C++ for Hopper, each
+Twenty-eight kernels, written by hand in CUDA C++ for Hopper, each
 replacing one device program of the reference (ekuiper_tpu/ops/groupby.py,
 ekuiper_tpu/ops/slidingring.py, ekuiper_tpu/parallel/multirule.py,
 ekuiper_tpu/ops/tierstore.py, ekuiper_tpu/ops/joinring.py,
-ekuiper_tpu/ops/segscan.py and ekuiper_tpu/ops/sketches.py). Four in
+ekuiper_tpu/ops/segscan.py, ekuiper_tpu/ops/sketches.py and
+ekuiper_tpu/parallel/sharded.py). Four in
 ekuiper_tpu_torch/csrc/groupby.cu:
 
 - `groupby_fold_scalar` replaces `DeviceGroupBy._fold_impl` → `_fold_core`
@@ -180,6 +181,26 @@ And two in ekuiper_tpu_torch/csrc/countmin.cu, for `CountMinSketch`
 - `cms_query` replaces `_query_impl` (sketches.py:288): each value's min
   over its d cells. Bound: the values, the n·d cells, the (n,) result.
 
+And three in ekuiper_tpu_torch/csrc/sharded.cu, for a rule on a (rows,
+keys) device mesh whose devices are one card (parallel/sharded.py), over
+partials of R row shards, (R·P', C, k[, W]), row shard r's block at r·P'
+(key shard k's range is its slice [k·c, (k+1)·c) of the slot axis):
+
+- `sharded_fold_scalar` replaces `ShardedGroupBy._build_fold` →
+  `local_fold` (sharded.py:208, 221-296): every (row shard, key shard)
+  folds its rows into its identity partial, act, n, s1, s2, mn, mx and
+  the uint32 touch count, in one launch; with a per-row pane vector
+  (P' = P), `_build_fold_vec` (353, 371-435). Bound: the fold's bytes
+  (~3 MB at the flagship shape with a touch column, 0.9 µs at 3.35
+  TB/s).
+- `sharded_fold_wide` replaces the hll / hist branches of both local
+  folds (299-314, 436-451), into the wide partials.
+- `shard_merge` replaces their psum / pmin / pmax over "rows" and the add
+  / min / max into the state (313-323, 403-407, 452-460): one thread per
+  element, the R partials reduced in r order, combined into the pane (or
+  every pane), the partials written back to identity. Bound: the R
+  partials read once and one pane (P' panes) of state read and written.
+
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and
 only there; for a CUDA tensor it launches the kernel or raises. A wrapper
 adds one to `LAUNCHES[name]` where it launches its kernel and nowhere else.
@@ -212,7 +233,8 @@ SOURCES = {"groupby": _PKG / "csrc" / "groupby.cu",
            "multirule": _PKG / "csrc" / "multirule.cu",
            "tierstore": _PKG / "csrc" / "tierstore.cu",
            "relational": _PKG / "csrc" / "relational.cu",
-           "countmin": _PKG / "csrc" / "countmin.cu"}
+           "countmin": _PKG / "csrc" / "countmin.cu",
+           "sharded": _PKG / "csrc" / "sharded.cu"}
 #: headers the sources include (part of every library's build tag)
 HEADERS = (_PKG / "csrc" / "groupby_common.cuh",
            _PKG / "csrc" / "sketch_common.cuh",
@@ -284,19 +306,25 @@ LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0,
                             "segscan_shift": 0,
                             "segscan_sort": 0,
                             "cms_update": 0,
-                            "cms_query": 0}
+                            "cms_query": 0,
+                            "sharded_fold_scalar": 0,
+                            "sharded_fold_wide": 0,
+                            "shard_merge": 0}
 #: of LAUNCHES' folds, those that took a per-row pane vector
 ROW_PANE_LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0,
                                      "groupby_fold_wide": 0,
                                      "multirule_fold": 0,
-                                     "multirule_fold_wide": 0}
+                                     "multirule_fold_wide": 0,
+                                     "sharded_fold_scalar": 0,
+                                     "sharded_fold_wide": 0}
 #: of LAUNCHES' folds, those that bumped a touch column (tiered key state)
 TOUCH_LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0,
-                                 "groupby_fold_masked_scalar": 0}
+                                 "groupby_fold_masked_scalar": 0,
+                                 "sharded_fold_scalar": 0}
 
 #: the loaded libraries (SimpleNamespace(groupby=..., sketches=...,
 #: prefinalize=..., slidingring=..., multirule=..., tierstore=...,
-#: relational=..., countmin=...)), None until the first launch
+#: relational=..., countmin=..., sharded=...)), None until the first launch
 _lib = None
 _lib_lock = threading.Lock()
 #: seconds the last build took (0.0 when cached libraries were loaded)
@@ -427,6 +455,12 @@ def _load():
             cm = ctypes.CDLL(str(paths["countmin"]))
             cm.cms_update.argtypes = [P, I, I, P, I, P]
             cm.cms_query.argtypes = [P, I, I, P, I, P, P]
+            sh = ctypes.CDLL(str(paths["sharded"]))
+            sh.sharded_fold_scalar.argtypes = [P, P, P, P, I, I, I, I, P, I,
+                                               I, I, P, I, P, P, P, P, P]
+            sh.sharded_fold_wide.argtypes = [P, P, P, I, I, I, I, P, I, I, P,
+                                             I, P, P, P, P]
+            sh.shard_merge.argtypes = [P, P, P, P, P, I, I, I, I, P, P, I, P]
             for lib, fns in ((gb, ("groupby_fold_scalar",
                                    "groupby_fold_masked_scalar",
                                    "groupby_finalize_scalar",
@@ -445,14 +479,16 @@ def _load():
                              (ts, ("tier_demote", "tier_promote")),
                              (rl, ("join_match", "segscan_shift",
                                    "segscan_sort")),
-                             (cm, ("cms_update", "cms_query"))):
+                             (cm, ("cms_update", "cms_query")),
+                             (sh, ("sharded_fold_scalar",
+                                   "sharded_fold_wide", "shard_merge"))):
                 for fn in fns:
                     getattr(lib, fn).restype = I
             gb.groupby_error_string.argtypes = [I]
             gb.groupby_error_string.restype = ctypes.c_char_p
             _lib = SimpleNamespace(groupby=gb, sketches=sk, prefinalize=pf,
                                    slidingring=sr, multirule=mr, tierstore=ts,
-                                   relational=rl, countmin=cm)
+                                   relational=rl, countmin=cm, sharded=sh)
         return _lib
 
 
@@ -2243,6 +2279,239 @@ def cms_query_plain(counts, values) -> torch.Tensor:
     their min)."""
     d, w = counts.shape
     return counts.view(-1)[_cms_cells_plain(values, d, w)].amin(0)
+
+
+# ------------------------------------------------------------ mesh shards
+def _check_shards(name: str, parts: Dict[str, torch.Tensor], R: int,
+                  m: int, N: int) -> Tuple[int, int]:
+    """(P', C) of a partials dict of R row shards, checked: act (R·P', C),
+    a touch partial uint32 (R, C); N rows cover at most R shards of m."""
+    act = parts["act"]
+    RP, C = act.shape
+    if R < 1 or RP % R or m < 1 or N > R * m:
+        raise ValueError(f"{name}: {N} rows in {R} row shards of {m}, "
+                         f"partials of {RP} panes")
+    touch = parts.get("touch")
+    if touch is not None:
+        _check(name, touch, torch.uint32, (R, C), act.device)
+    return RP // R, C
+
+
+def _shard_panes_plain(N: int, m: int, R: int, P: int, pane_vec, dev):
+    """(N,) int64 partial pane of each row (row shard r's block r·P' plus
+    its pane, csrc/sharded.cu part_pane), and the rows kept: a pane outside
+    [0, P') in no block."""
+    r = torch.arange(N, device=dev) // m
+    p = (torch.zeros(N, dtype=torch.long, device=dev) if pane_vec is None
+         else pane_vec.long())
+    ok = (r < R) & (p < P)
+    return torch.where(ok, r * P + p.clamp(max=P - 1), 0), ok
+
+
+def sharded_fold_scalar(parts: Dict[str, torch.Tensor], base: torch.Tensor,
+                        V: torch.Tensor, M: torch.Tensor,
+                        slots: torch.Tensor, rows_per_shard: int,
+                        row_shards: int, key_shards: int,
+                        colmap: np.ndarray,
+                        pane_vec: Optional[torch.Tensor] = None) -> None:
+    """The sharded fold (#23; #24 with `pane_vec`): every (row shard, key
+    shard) of a mesh on one device folds its rows into its identity
+    partial, in place, in one launch.
+
+    parts: the partials, comp (R·P', C, k), act (R·P', C) and, for a state
+    with a touch column, touch uint32 (R, C); row shard r's block of P'
+    panes at r·P'. Row i of the chunk belongs to row shard i //
+    rows_per_shard; its key shard is slot // (C / key_shards), and its
+    partial slot is its global slot (a key shard's range is its slice of
+    the block). base, V, M, slots, colmap: as groupby_fold_scalar's.
+    pane_vec: optional uint8 (N,) per-row panes inside each block (P' the
+    state's panes), else pane 0 of each block (P' = 1); a pane outside
+    [0, P') is dropped.
+    """
+    name = "sharded_fold_scalar"
+    R, K, m = int(row_shards), int(key_shards), int(rows_per_shard)
+    S, N = V.shape
+    P, C = _check_shards(name, parts, R, m, N)
+    if K < 1 or C % K:
+        raise ValueError(f"{name}: {C} slots in {K} key shards")
+    if not _on_cuda(name, parts):
+        sharded_fold_scalar_plain(parts, base, V, M, slots, m, R, K, colmap,
+                                  pane_vec)
+        return
+    act = parts["act"]
+    dev = act.device
+    _check(name, base, torch.bool, (N,), dev)
+    colmap = _check_batch(name, V, M, slots, 0, R * P, colmap, dev, pane_vec)
+    ptrs, ks = _comp_table(name, parts)
+    touch = parts.get("touch")
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.sharded.sharded_fold_scalar(
+            _ptr(base), _ptr(V), _ptr(M), _ptr(slots), _u16(slots), N, m, R,
+            _opt_ptr(pane_vec), P, C // K, K, _ptr(colmap), len(colmap),
+            _ptr(ptrs), _ptr(ks), _ptr(act), _opt_ptr(touch), _stream(dev))
+        LAUNCHES[name] += 1
+        if pane_vec is not None:
+            ROW_PANE_LAUNCHES[name] += 1
+        if touch is not None:
+            TOUCH_LAUNCHES[name] += 1
+    _raise_on(lib, name, rc)
+
+
+def sharded_fold_scalar_plain(parts, base, V, M, slots, rows_per_shard,
+                              row_shards, key_shards, colmap,
+                              pane_vec=None) -> None:
+    """Plain PyTorch version of sharded_fold_scalar: the reference's
+    local_fold scatters of every shard at once, over the row shards'
+    partial panes (the key shards are slices of the slot axis)."""
+    R, m = int(row_shards), int(rows_per_shard)
+    RP, C = parts["act"].shape
+    N = V.shape[1]
+    pp, ok = _shard_panes_plain(N, m, R, RP // R, pane_vec, V.device)
+    pc, in_slots = _pane_rows(0, pp, slots, RP, C)
+    _fold_columns_plain(parts, pc, base & ok & in_slots,
+                        V, M & ok & in_slots, colmap)
+    touch = parts.get("touch")
+    if touch is not None:  # per row shard, pane-independent (as _touch_plain)
+        s = slots.long()
+        r = torch.arange(N, device=V.device) // m
+        keep = base & (s >= 0) & (s < C) & (r < R)
+        flat = r * C + s
+        t = touch.long().view(-1)
+        t.index_add_(0, flat[keep], torch.ones_like(flat[keep]))
+        touch.copy_((t.view(R, C) & 0xFFFFFFFF).to(torch.uint32))
+
+
+def sharded_fold_wide(parts: Dict[str, torch.Tensor], V: torch.Tensor,
+                      M: torch.Tensor, slots: torch.Tensor,
+                      rows_per_shard: int, row_shards: int,
+                      widemap: np.ndarray,
+                      pane_vec: Optional[torch.Tensor] = None) -> None:
+    """The wide branches of the sharded fold (#23, #24): each row's hll
+    register max and hist bin add into its row shard's wide partials
+    (R·P', C, k, W), in place, in one launch. V, M (M holding the row
+    mask), slots, widemap: as groupby_fold_wide's; rows_per_shard,
+    row_shards, pane_vec: as sharded_fold_scalar's. heavy_hitters never
+    reaches a mesh (the planner refuses it)."""
+    name = "sharded_fold_wide"
+    R, m = int(row_shards), int(rows_per_shard)
+    S, N = V.shape
+    P, C = _check_shards(name, parts, R, m, N)
+    if "hh" in parts:
+        raise ValueError(f"{name}: heavy_hitters state on a mesh")
+    if not _on_cuda(name, parts):
+        sharded_fold_wide_plain(parts, V, M, slots, m, R, widemap, pane_vec)
+        return
+    dev = parts["act"].device
+    widemap = _check_batch(name, V, M, slots, 0, R * P, widemap, dev,
+                           pane_vec)
+    ptrs, ks = _wide_table(name, parts)
+    for comp_id, k, _ in widemap.tolist():
+        if not 0 <= k < ks[comp_id]:
+            raise ValueError(f"{name}: column {k} outside component "
+                             f"{_WIDE_NAMES[comp_id]}")
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.sharded.sharded_fold_wide(
+            _ptr(V), _ptr(M), _ptr(slots), _u16(slots), N, m, R,
+            _opt_ptr(pane_vec), P, C, _ptr(widemap), len(widemap),
+            _ptr(ptrs), _ptr(ks), _ptr(HIST_CONSTS), _stream(dev))
+        LAUNCHES[name] += 1
+        if pane_vec is not None:
+            ROW_PANE_LAUNCHES[name] += 1
+    _raise_on(lib, name, rc)
+
+
+def sharded_fold_wide_plain(parts, V, M, slots, rows_per_shard, row_shards,
+                            widemap, pane_vec=None) -> None:
+    """Plain PyTorch version of sharded_fold_wide (fold_wide_plain over the
+    row shards' partial panes)."""
+    R, m = int(row_shards), int(rows_per_shard)
+    RP = parts["act"].shape[0]
+    pp, ok = _shard_panes_plain(V.shape[1], m, R, RP // R, pane_vec,
+                                V.device)
+    fold_wide_plain(parts, V, M & ok, slots, 0, widemap, pp)
+
+
+#: the merge's op of a component (csrc/sharded.cu OP_ADD / OP_MIN / OP_MAX)
+SHARD_OPS = {"mn": 1, "mx": 2, "hll": 2}  # every other component: 0, a sum
+_SHARD_FNS = {0: torch.add, 1: torch.minimum, 2: torch.maximum}
+
+
+def shard_merge(state: Dict[str, torch.Tensor],
+                parts: Dict[str, torch.Tensor], pane: int,
+                row_shards: int) -> None:
+    """The merge over the rows axis (the reference's psum / pmin / pmax of
+    #23 and #24): every component's R row-shard partials reduced in r
+    order by its op (sum; min for mn; max for mx and hll), then added /
+    min-ed / max-ed into the state, in place, in one launch; the partials
+    written back to their identity. P' = 1 partials merge into pane
+    `pane`; P' = P (a pane-vector fold's) into every pane. A touch
+    partial's counts add into the state's touch column."""
+    name = "shard_merge"
+    R = int(row_shards)
+    act = state["act"]
+    P, C = act.shape
+    Pp, Cp = _check_shards(name, parts, R, 1, 0)
+    if Cp != C or Pp not in (1, P) or not 0 <= int(pane) < P:
+        raise ValueError(f"{name}: partials of {Pp} panes x {Cp} slots "
+                         f"for a state of {P} x {C}, pane {pane}")
+    if set(parts) != set(state):
+        raise ValueError(f"{name}: partials {sorted(parts)} for state "
+                         f"{sorted(state)}")
+    if not _on_cuda(name, state):
+        shard_merge_plain(state, parts, pane, R)
+        return
+    dev = act.device
+    comps = [c for c in state if c != "touch"]
+    if len(comps) > MAX_RESET:
+        raise ValueError(f"{name}: {len(comps)} components")
+    sp = np.zeros(len(comps), dtype=np.uint64)
+    pp = np.zeros(len(comps), dtype=np.uint64)
+    lens = np.zeros(len(comps), dtype=np.int64)
+    ops = np.zeros(len(comps), dtype=np.int32)
+    idents = np.zeros(len(comps), dtype=np.float32)
+    for j, comp in enumerate(comps):
+        s, p = state[comp], parts[comp]
+        _check(name, s, torch.float32, s.shape, dev)
+        _check(name, p, torch.float32, (R * Pp, *s.shape[1:]), dev)
+        sp[j], pp[j] = s.data_ptr(), p.data_ptr()
+        lens[j] = s[0].numel()
+        ops[j] = SHARD_OPS.get(comp, 0)
+        idents[j] = INIT[comp]
+    touch, t_part = state.get("touch"), parts.get("touch")
+    if touch is not None:
+        _check(name, touch, torch.uint32, (C,), dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.sharded.shard_merge(
+            _ptr(sp), _ptr(pp), _ptr(lens), _ptr(ops), _ptr(idents),
+            len(comps), R, Pp, int(pane), _opt_ptr(touch), _opt_ptr(t_part),
+            C, _stream(dev))
+        LAUNCHES[name] += 1
+    _raise_on(lib, name, rc)
+
+
+def shard_merge_plain(state, parts, pane: int, row_shards: int) -> None:
+    """Plain PyTorch version of shard_merge: per component, the R partials
+    reduced in r order, combined into the state, reset to the identity."""
+    R = int(row_shards)
+    Pp = parts["act"].shape[0] // R
+    for comp, part in parts.items():
+        if comp == "touch":
+            add = part.long().sum(0)  # integers: any order
+            t = (state["touch"].long() + add) & 0xFFFFFFFF
+            state["touch"].copy_(t.to(torch.uint32))
+            part.copy_(torch.zeros_like(part))
+            continue
+        fn = _SHARD_FNS[SHARD_OPS.get(comp, 0)]
+        blocks = part.view(R, Pp, *part.shape[1:])
+        acc = blocks[0]
+        for r in range(1, R):
+            acc = fn(acc, blocks[r])
+        dst = state[comp][pane:pane + 1] if Pp == 1 else state[comp]
+        dst.copy_(fn(dst, acc))
+        part.fill_(INIT[comp])
 
 
 # ------------------------------------------------------------ host tables

@@ -4,12 +4,15 @@ in ekuiper_tpu/planner/planner.py `_build_device_chain`).
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional
+import logging
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 from ..ops.aggspec import extract_kernel_plan
 from ..ops.emit import build_direct_emit
 from ..ops.slidingring import ring_layout_for
 from ..ops.tierstore import env_hbm_budget_mb
+from ..parallel.mesh import (Mesh, mesh_cfg_from_env, mesh_from_options,
+                             resolve_auto_cfg)
 from ..runtime.nodes_fused import (MAX_EVENT_PANES, FusedWindowAggNode,
                                    event_time_panes)
 from ..runtime.nodes_window import WatermarkNode
@@ -20,17 +23,21 @@ from ..utils.cron import parse_duration_ms
 from ..utils.device import Device, resolve_device
 from ..utils.infra import PlanError
 
+logger = logging.getLogger(__name__)
+
 
 #: the rule options the port takes (the reference's names,
 #: ekuiper_tpu/planner/planner.py:163-164, 172-173, 178-185) and their
 #: defaults (ekuiper_tpu/utils/config.py:26-27, 68, 72, 76, 80, 88-93, 97,
-#: 101); joinImpl and analyticImpl choose the relational nodes of a host
-#: chain (planner/planner.py)
+#: 101, 114-117); joinImpl and analyticImpl choose the relational nodes of
+#: a host chain (planner/planner.py); planOptimizeStrategy takes the
+#: reference's mesh keys, "mesh" and "shards" (planner.py:96-156)
 RULE_OPTIONS = {"prefinalizeLeadMs": 250, "tailMode": "device",
                 "slidingDevRingMb": 256, "slidingImpl": "daba",
                 "tierStore": "auto", "tierHotMb": 0, "tierScanMs": 0,
                 "isEventTime": False, "lateTolerance": 1000,
-                "joinImpl": "device", "analyticImpl": "device"}
+                "joinImpl": "device", "analyticImpl": "device",
+                "planOptimizeStrategy": {}}
 
 
 def plan_fused_rule(sql: str, key_slots: int = 16384,
@@ -88,6 +95,25 @@ def plan_fused_rule(sql: str, key_slots: int = 16384,
     on its host window path). A processing-time rule has no watermark
     node (`node.watermark` is None).
 
+    Sharding (`planOptimizeStrategy`, the reference's resolution order):
+    `{"mesh": {"rows": R, "keys": K}}` places the state on an R x K mesh
+    (a ShardedGroupBy; a PlanError when the device list holds fewer than
+    R·K devices); else `{"shards": "auto" | K | "off"}` (auto: KUIPER_MESH
+    when set, else every device on the keys axis; K: K key shards; off:
+    single-chip); else the KUIPER_MESH env ("RxK", "K" or "auto"). An
+    auto, shards or env mesh that cannot be built, or a heavy_hitters
+    rule under one, plans single-chip with its reason; a heavy_hitters
+    rule under an explicit mesh raises NotImplementedError (the
+    reference runs it on its host path). `node.shard_info` records the
+    decision. `device` may be a list of devices, the mesh's pool (the
+    reference's jax.devices()): None gives every visible card, and one
+    device may repeat, ["cpu"] * 8 or ["cuda:0"] * 8 being the
+    counterpart of the reference's 8-device virtual mesh; the state
+    lives on the first. A list of two different cards raises
+    NotImplementedError (a mesh across cards is not ported yet). A
+    sharded rule's boundaries are synchronous, its state is never
+    tiered, and a sliding one takes the refold path.
+
     Raises PlanError for a statement that is not a windowed aggregate or
     an option value it cannot take, NotImplementedError for a shape or an
     option the port does not run yet (the reference's host fallback paths
@@ -127,12 +153,14 @@ def plan_fused_rule(sql: str, key_slots: int = 16384,
         raise NotImplementedError(
             "rule's output tail does not vectorize; the row-path emit is "
             "not ported yet")
+    mesh, shard_info = build_mesh(opts, plan, device)
     # tiered key state: the budget resolved at plan time, gated off where
     # ORDER BY / LIMIT would order across the device and spilled groups
-    # (the reference's planner.py:991-999; the node gates the window kind
-    # and heavy_hitters)
+    # and for a sharded state (the reference's planner.py:991-999; the
+    # node gates the window kind and heavy_hitters)
     tier_budget_mb = resolve_tier_budget_mb(opts)
-    if tier_budget_mb and (stmt.sorts or stmt.limit is not None):
+    if tier_budget_mb and (stmt.sorts or stmt.limit is not None
+                           or mesh is not None):
         tier_budget_mb = 0.0
     node = FusedWindowAggNode(
         "window_agg", stmt.window, plan, dims, capacity=key_slots,
@@ -143,7 +171,8 @@ def plan_fused_rule(sql: str, key_slots: int = 16384,
         sliding_impl=opts["slidingImpl"], ring_layout=ring_layout,
         tier_budget_mb=tier_budget_mb, tier_scan_ms=opts["tierScanMs"],
         is_event_time=opts["isEventTime"],
-        late_tolerance_ms=opts["lateTolerance"])
+        late_tolerance_ms=opts["lateTolerance"], mesh=mesh)
+    node.shard_info = shard_info
     # the reference's chain (planner.py:1037-1045): source → watermark →
     # fused node; the port has no topology, so the node carries its entry
     if opts["isEventTime"]:
@@ -151,6 +180,95 @@ def plan_fused_rule(sql: str, key_slots: int = 16384,
             "watermark", late_tolerance_ms=opts["lateTolerance"])
         node.watermark.connect(node)
     return node
+
+
+def mesh_request(opts: Mapping[str, object], plan=None) -> Dict[str, Any]:
+    """The sharding decision for one rule, without building a mesh (the
+    reference's planner.py:96-156): an explicit planOptimizeStrategy.mesh
+    first, then planOptimizeStrategy.shards, then KUIPER_MESH. Returns
+    {"mode": "sharded" | "single-chip", "cfg": dict | None, "source",
+    "reason"}; a shards / env choice for a heavy_hitters plan is
+    single-chip (its value dictionary is node-local)."""
+    strategy = opts.get("planOptimizeStrategy") or {}
+    explicit = strategy.get("mesh")
+    if explicit:
+        return {"mode": "sharded", "cfg": dict(explicit),
+                "source": "planOptimizeStrategy.mesh",
+                "reason": "explicit mesh geometry"}
+    shards = strategy.get("shards")
+    cfg, source = None, None
+    if shards is not None:
+        s = str(shards).strip().lower()
+        if s in ("0", "off", "none", "false", "1"):
+            return {"mode": "single-chip", "cfg": None,
+                    "source": f"shards={shards}",
+                    "reason": "sharding disabled by rule option"}
+        if s == "auto":
+            cfg = mesh_cfg_from_env() or {"auto": True}
+            source = "shards=auto"
+        else:
+            try:
+                k = int(s)
+            except ValueError:
+                raise PlanError(
+                    f"invalid shards option {shards!r}: use 'auto', "
+                    "'off', or a shard count")
+            cfg = {"rows": 1, "keys": k}
+            source = f"shards={k}"
+    else:
+        cfg = mesh_cfg_from_env()
+        if cfg is not None:
+            source = "KUIPER_MESH"
+    if cfg is None:
+        return {"mode": "single-chip", "cfg": None, "source": None,
+                "reason": "no mesh requested"}
+    if plan is not None and any(
+            s.kind == "heavy_hitters" for s in plan.specs):
+        return {"mode": "single-chip", "cfg": None, "source": source,
+                "reason": "heavy_hitters state is node-local (value "
+                          "dictionary) — single-chip kernel"}
+    return {"mode": "sharded", "cfg": cfg, "source": source,
+            "reason": "key-range-partitioned GROUP BY state across the "
+                      "device mesh"}
+
+
+def build_mesh(opts: Mapping[str, object], plan, devices: Device
+               ) -> Tuple[Optional[Mesh], Dict[str, Any]]:
+    """(mesh or None, shard_info) of a rule (the reference's
+    planner.py:951-977), over the device list `devices`. An explicit mesh
+    that cannot be built raises PlanError, and one over a heavy_hitters
+    plan NotImplementedError (the reference's eligibility sends it to the
+    host path, planner.py:411); an auto, shards or env mesh that cannot be
+    built plans single-chip, the reason recorded."""
+    req = mesh_request(opts, plan)
+    info: Dict[str, Any] = {k: req.get(k) for k in ("mode", "source",
+                                                    "reason")}
+    if req["mode"] != "sharded":
+        return None, info
+    explicit = req["source"] == "planOptimizeStrategy.mesh"
+    if explicit and any(s.kind == "heavy_hitters" for s in plan.specs):
+        raise NotImplementedError(
+            "a heavy_hitters rule under an explicit mesh runs on the host "
+            "path, which is not ported yet")
+    cfg = req["cfg"]
+    try:
+        resolved = resolve_auto_cfg(cfg, devices)
+        if resolved is None:
+            raise ValueError("fewer than 2 devices visible")
+        mesh = mesh_from_options(resolved, devices)
+    except NotImplementedError:  # a list of different cards: never skipped
+        raise
+    except (ValueError, RuntimeError, TypeError) as exc:
+        if explicit:
+            raise PlanError(f"cannot build device mesh {cfg}: {exc}") from exc
+        info = {"mode": "single-chip", "source": req["source"],
+                "reason": f"mesh unavailable ({exc}) — single-chip "
+                          "fallback"}
+        logger.info("%s", info["reason"])
+        return None, info
+    info["mesh"] = dict(resolved)
+    info["shards"] = int(resolved["keys"])
+    return mesh, info
 
 
 def event_time_gate(window: ast.Window, late_tolerance_ms: int) -> None:
@@ -289,4 +407,16 @@ def rule_options(options: Optional[Mapping[str, object]]) -> dict:
     if ms < 0:
         raise PlanError(f"lateTolerance must not be negative, got {v!r}")
     opts["lateTolerance"] = ms
+    strategy = opts["planOptimizeStrategy"]
+    if not isinstance(strategy, Mapping):
+        raise PlanError(f"planOptimizeStrategy must be an object, got "
+                        f"{strategy!r}")
+    for key in strategy:
+        if key not in ("mesh", "shards"):
+            raise NotImplementedError(
+                f"planOptimizeStrategy.{key} is not ported yet")
+    mesh = strategy.get("mesh")
+    if mesh and not isinstance(mesh, Mapping):
+        raise PlanError(f"planOptimizeStrategy.mesh must be an object of "
+                        f"rows and keys, got {mesh!r}")
     return opts

@@ -120,9 +120,14 @@ timers; the watermarks, delivered to `on_watermark`, close the windows.
   window.
 - COUNT and STATE fold as on processing time.
 
-Not ported yet, and refused at construction: event-time sliding windows,
-tiered sliding rules (the reference demotes their quiescent keys only)
-and the mesh.
+Tiered sliding rules demote only quiescent keys (the DABA ring and the
+refold path alike). On a mesh (`mesh`, a parallel/mesh.py Mesh of one
+device) the state is a parallel/sharded.py ShardedGroupBy: each batch
+folds per (row shard, key shard) into partials merged into the state;
+boundaries stay synchronous, the state untiered, and a sliding rule
+takes the refold path with host-row edge refolds (`sliding_fallback`
+"sharded_kernel"), as the reference's. Not ported yet, and refused at
+construction: event-time sliding windows.
 """
 from __future__ import annotations
 
@@ -145,6 +150,7 @@ from ..ops.keytable import KeyTable
 from ..ops.prefinalize import HostShadow, IdentityFinalize
 from ..ops.slidingring import QUERY_ADJ, SlidingRing, ring_layout_for
 from ..ops.tierstore import TierManager, plan_tier_layout
+from ..parallel.sharded import ShardedGroupBy
 from ..sql import ast
 from ..sql.compiler import try_compile
 from ..utils import timex
@@ -224,8 +230,10 @@ class FusedWindowAggNode(Node):
         tier_scan_ms: int = 0,  # tier policy cadence (0 = from the window)
         is_event_time: bool = False,  # watermark-driven windows (see above)
         late_tolerance_ms: int = 0,  # the watermark's lag behind max ts
+        mesh=None,  # parallel.mesh.Mesh: the state sharded (parallel/)
     ) -> None:
         super().__init__(name)
+        self.mesh = mesh
         self.window = window
         self.plan = plan
         self.dims = dims
@@ -274,9 +282,11 @@ class FusedWindowAggNode(Node):
         # to avoid it.
         self.tier: Optional[TierManager] = None
         self._tier_layout = None
-        if tier_budget_mb and not self._hh_cols and self.wt in (
-                ast.WindowType.TUMBLING_WINDOW, ast.WindowType.HOPPING_WINDOW,
-                ast.WindowType.SLIDING_WINDOW):
+        # a sharded kernel keeps the untiered path (the reference's gate)
+        if tier_budget_mb and mesh is None and not self._hh_cols and \
+                self.wt in (ast.WindowType.TUMBLING_WINDOW,
+                            ast.WindowType.HOPPING_WINDOW,
+                            ast.WindowType.SLIDING_WINDOW):
             self._tier_layout = plan_tier_layout(
                 plan, int(self.n_panes), capacity, float(tier_budget_mb),
                 scan_interval_ms=int(tier_scan_ms),
@@ -396,8 +406,14 @@ class FusedWindowAggNode(Node):
 
     def _make_gb(self, plan: KernelPlan, capacity: int, micro_batch: int,
                  device: Device) -> TorchGroupBy:
-        """Build the group-by state and kernels; MultiRuleFusedNode builds
-        a BatchedGroupBy (with the already-computed self.n_panes)."""
+        """Build the group-by state and kernels: a ShardedGroupBy on the
+        node's mesh (capacity and micro_batch rounded up to its shards);
+        MultiRuleFusedNode builds a BatchedGroupBy (with the
+        already-computed self.n_panes)."""
+        if self.mesh is not None:
+            return ShardedGroupBy(plan, self.mesh, capacity=capacity,
+                                  n_panes=int(self.n_panes),
+                                  micro_batch=micro_batch)
         return TorchGroupBy(plan, capacity=capacity,
                             n_panes=int(self.n_panes),
                             micro_batch=micro_batch, device=device,
@@ -536,6 +552,8 @@ class FusedWindowAggNode(Node):
                 self.state = self.tier.admit(self.state)
             self.state = self.gb.fold(self.state, cols, slots, valid,
                                       pane_arg)
+            if self.mesh is not None:  # shard_stats' key occupancy
+                self.gb.n_keys_hint = self.kt.n_keys
         # every live shadow mirrors the fold (a frozen span's retries and
         # the backstop may share shadow objects)
         seen = set()
@@ -1553,6 +1571,9 @@ class FusedWindowAggNode(Node):
         `sliding_fallback` (the reference records a flight event)."""
         if requested != "daba":
             return "refold"
+        if self.mesh is not None:
+            return self._sliding_fallback(
+                "sharded_kernel", "the ring reads a single-chip state")
         if self.gb._host_finalize_only:
             return self._sliding_fallback(
                 "heavy_hitters", "the ring has no heavy_hitters finalize")
@@ -1783,7 +1804,9 @@ class FusedWindowAggNode(Node):
         ones stay valid."""
         mb = self.gb.micro_batch
         n = len(slots)
-        if n > mb or n < mb // 4:
+        if n > mb or n < mb // 4 or self.mesh is not None:
+            # a sharded rule's edge refolds take the host rows (the
+            # reference's): the masked fold reads a single-chip state
             return None
         pad = mb - n
         dev_cols, dev_valid, dev_all = {}, {}, {}
@@ -2196,6 +2219,9 @@ class FusedWindowAggNode(Node):
         if partials:
             host, cap = self.gb.host_from_partials(partials)
             self.gb.capacity = cap
+            # a sharded kernel rounds the restored capacity up to its key
+            # shards (a snapshot of another mesh size, or single-chip):
+            # state_from_host decides, the key table follows
             self.state = self.gb.state_from_host(host)
             self.kt.capacity = max(self.kt.capacity, self.gb.capacity)
         if self.tier is not None and state.get("tier"):

@@ -1280,3 +1280,114 @@ def test_cms_update_and_query_match_plain(cuda_dev, depth, width, n):
     np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
     np.testing.assert_array_equal(est.cpu().numpy(), want.cpu().numpy())
     assert float(got.sum()) == 2 * depth * n
+
+
+# ------------------------------------------------------------ mesh shards
+SHARD_SQL = ("SELECT k, count(*) AS c, sum(v) AS s, min(v) AS mn, "
+             "max(v) AS mx, stddev(v) AS sd, hll(v) AS u, "
+             "percentile_approx(v, 0.9) AS p FROM s "
+             "GROUP BY k, HOPPINGWINDOW(ss, 30, 10)")
+
+
+@pytest.mark.parametrize("vec", [False, True], ids=["pane", "pane_vec"])
+@pytest.mark.parametrize("mesh", [(2, 4), (1, 8), (4, 2)],
+                         ids=lambda m: f"{m[0]}x{m[1]}")
+def test_sharded_kernels_match_plain(cuda_dev, mesh, vec):
+    """#23 / #24 on one card: the sharded folds' partials against their
+    plain versions (counts, act, min, max, touch, hll registers and hist
+    bins bit-equal, sums rtol 1e-5), then the merge of the same partials
+    bit-equal (the R partials in r order, one add / min / max into the
+    state) with the partials back at their identity."""
+    from ekuiper_tpu_torch.parallel.mesh import make_mesh
+    from ekuiper_tpu_torch.parallel.sharded import ShardedGroupBy
+
+    R, K = mesh
+    node = plan_fused_rule(SHARD_SQL, key_slots=512, micro_batch=4096,
+                           device=cuda_dev)
+    gb = ShardedGroupBy(node.plan, make_mesh(R, K, [cuda_dev] * (R * K)),
+                        capacity=512, n_panes=3, micro_batch=4096,
+                        track_touch=True)
+    rng = np.random.default_rng(23 + R)
+    n = 4000
+    v = rng.normal(20, 5, n).astype(np.float32)
+    v[rng.random(n) < 0.05] = np.nan
+    cols = {"v": torch.from_numpy(v).to(cuda_dev),
+            "__hll__v": torch.from_numpy(encode_hll_column(v, n)).to(
+                cuda_dev)}
+    base, V, M = gb.spec_inputs(cols, n)
+    slots = torch.from_numpy(
+        rng.integers(0, 300, n).astype(np.int32)).to(cuda_dev)
+    pv = (torch.from_numpy(rng.integers(0, 4, n).astype(np.uint8)).to(
+        cuda_dev) if vec else None)  # pane 3: outside the state, dropped
+    got = gb._partials(3 if vec else 1)
+    ref = {k: t.clone() for k, t in got.items()}
+    m = gb.rows_per_shard
+    kernels.reset_launches()
+    kernels.sharded_fold_scalar(got, base, V, M, slots, m, R, K, gb._colmap,
+                                pv)
+    kernels.sharded_fold_wide(got, V, M, slots, m, R, gb._widemap, pv)
+    kernels.sharded_fold_scalar_plain(ref, base, V, M, slots, m, R, K,
+                                      gb._colmap, pv)
+    kernels.sharded_fold_wide_plain(ref, V, M, slots, m, R, gb._widemap, pv)
+    torch.cuda.synchronize()
+    _same(got, ref, 1e-5)
+    assert float(got["act"].sum()) > 0
+    st_k = gb.init_state()
+    kernels.fold_scalar_plain(st_k, base, V, M, slots, 0, gb._colmap)
+    st_p = {k: t.clone() for k, t in st_k.items()}
+    parts_k = {k: t.clone() for k, t in ref.items()}
+    kernels.shard_merge(st_k, parts_k, 1, R)
+    kernels.shard_merge_plain(st_p, ref, 1, R)
+    torch.cuda.synchronize()
+    _same(st_k, st_p, 0.0)
+    _same(parts_k, ref, 0.0)
+    assert kernels.LAUNCHES["sharded_fold_scalar"] == 1
+    assert kernels.LAUNCHES["sharded_fold_wide"] == 1
+    assert kernels.LAUNCHES["shard_merge"] == 1
+    assert kernels.ROW_PANE_LAUNCHES["sharded_fold_scalar"] == int(vec)
+    assert kernels.TOUCH_LAUNCHES["sharded_fold_scalar"] == 1
+
+
+def test_sharded_rule_matches_single_chip(cuda_dev):
+    """A tumbling rule planned on a 2x4 mesh of one card against the same
+    rule single-chip: every window's keys, counts, min and max equal, the
+    averages within rtol 1e-5; the sharded path launches the sharded folds
+    and merges, never #1."""
+    from ekuiper_tpu_torch.data.batch import ColumnBatch
+    from ekuiper_tpu_torch.runtime.events import Trigger
+
+    sql = ("SELECT k, count(*) AS c, avg(v) AS a, min(v) AS mn, "
+           "max(v) AS mx FROM s GROUP BY k, TUMBLINGWINDOW(ss, 10)")
+    mesh = {"planOptimizeStrategy": {"mesh": {"rows": 2, "keys": 4}},
+            "prefinalizeLeadMs": 0}
+    sharded = plan_fused_rule(sql, key_slots=512, micro_batch=4096,
+                              device=[cuda_dev] * 8, options=mesh)
+    single = plan_fused_rule(sql, key_slots=512, micro_batch=4096,
+                             device=cuda_dev, options={"prefinalizeLeadMs": 0})
+    outs = ([], [])
+    sharded.broadcast, single.broadcast = outs[0].append, outs[1].append
+    for w in range(3):
+        counts = []
+        for node in (sharded, single):
+            kernels.reset_launches()
+            rng_w = np.random.default_rng(100 + w)
+            for _ in range(3):
+                ids = rng_w.integers(0, 700, 5000)
+                node.process(ColumnBatch(n=5000, columns={
+                    "k": np.array([f"k{i}" for i in ids], dtype=object),
+                    "v": rng_w.normal(20, 5, 5000).astype(np.float32)}))
+            node.on_trigger(Trigger(ts=(w + 1) * 10_000))
+            torch.cuda.synchronize()
+            counts.append(dict(kernels.LAUNCHES))
+        assert counts[0]["sharded_fold_scalar"] == 6  # two chunks a batch
+        assert counts[0]["shard_merge"] == 6
+        assert counts[0]["groupby_fold_scalar"] == 0
+        assert counts[1]["groupby_fold_scalar"] == 6
+    assert len(outs[0]) == len(outs[1]) == 3
+    for a, b in zip(*outs):
+        for name in b.columns:
+            x, y = np.asarray(a.columns[name]), np.asarray(b.columns[name])
+            if name == "a":
+                np.testing.assert_allclose(x, y, rtol=1e-5)
+            else:
+                np.testing.assert_array_equal(x, y, err_msg=name)

@@ -594,12 +594,12 @@ K2_RULE = ("SELECT deviceId, temperature, "
 K_SHIFT_SMALL, K_SHIFT_ROWS, K_WINDOW_ROWS = 8_192, 131_072, 65_536
 K1_BATCHES, K2_WINDOWS, K_WINDOW_MS = 16, 3, 10_000
 DEVICE_NAMES = np.array([f"d{i}" for i in range(10_000)], dtype=object)
-#: the kernels one segscan_shift / segscan_sort call launches
-SHIFT_KERNELS = ("arrival_keys_kernel", "bitonic_shared_kernel",
-                 "bitonic_global_kernel", "shift_walk_kernel")
-SORT_KERNELS = ("arrival_keys_kernel", "bitonic_shared_kernel",
-                "bitonic_global_kernel", "arrival_walk_kernel",
-                "value_keys_kernel", "value_walk_kernel")
+#: the kernels (and the scratch's memset) one segscan_shift /
+#: segscan_sort call launches
+SHIFT_KERNELS = ("Memset", "radix_hist_kernel", "radix_pass_kernel",
+                 "seg_scan_kernel", "carry_apply_kernel")
+SORT_KERNELS = ("Memset", "radix_hist_kernel", "radix_pass_kernel",
+                "seg_scan_kernel")
 SOURCE = {
     "groupby_fold_scalar": "ekuiper_tpu_torch/csrc/groupby.cu",
     "groupby_finalize_scalar": "ekuiper_tpu_torch/csrc/groupby.cu",
@@ -6030,12 +6030,13 @@ def join_inputs(torch, rng, n, dev):
 def relational_kernel_checks(torch, seed, kernels, dev):
     """#20 at 2,048 and 16,384 rows a side (J1's and J3's windows, the ON
     residual l.v > r.w as the expression IR gives it, a (PL, PR) bool),
-    #21 at 8,192 and 131,072 rows over 10,000 slots and at 131,072 rows in
-    one slot (one thread walks the whole segment), #22 at 65,536 rows and
-    10,000 segments and in one segment: each against its plain version
-    (#20 bit-equal; #21 row numbers, lag, flags and the carry's counts and
-    last values exact, running sums rtol 1e-5; #22 all six outputs
-    exact)."""
+    #21 at 8,192 and 131,072 rows over 10,000 slots, at 131,072 rows over
+    10,000 Zipf-skewed slots and at 131,072 rows in one slot (one segment
+    over many blocks), #22 at 65,536 rows and 10,000 segments and in one
+    segment: each against its plain version (#20 bit-equal; #21 row
+    numbers, lag, flags and the carry's counts and last values exact,
+    running sums rtol 1e-5 and their NaN / ±inf exactly; #22 all six
+    outputs exact)."""
     rows = {}
     rng = np.random.default_rng(seed + 2000)
     for n in (J1_ROWS, J3_ROWS):
@@ -6072,6 +6073,7 @@ def relational_kernel_checks(torch, seed, kernels, dev):
         torch.cuda.empty_cache()
     for tag, B, slots in (("8192", K_SHIFT_SMALL, N_KEYS),
                           ("131072", K_SHIFT_ROWS, N_KEYS),
+                          ("zipf", K_SHIFT_ROWS, N_KEYS),
                           ("one_segment", K_SHIFT_ROWS, 1)):
         rows[f"segscan_shift/{tag}"] = shift_check(
             torch, rng, kernels, dev, tag, B, slots)
@@ -6081,19 +6083,25 @@ def relational_kernel_checks(torch, seed, kernels, dev):
     return rows
 
 
-def seg_inputs(torch, rng, B, slots, dev):
-    """B rows over `slots` slots, temperature N(20, 5) as float32 with 1 %
-    NULL (NaN), all valid."""
+def seg_inputs(torch, rng, B, slots, dev, zipf=False):
+    """B rows over `slots` slots (uniform, or Zipf-skewed sizes, s = 1.2),
+    temperature N(20, 5) as float32 with 1 % NULL (NaN) and, in the last
+    B/64 rows, an eighth ±inf (so the sums before them stay finite), all
+    valid."""
     vals = rng.normal(20, 5, B).astype(np.float32)
     vals[rng.random(B) < 0.01] = np.nan
+    hit = (np.arange(B) >= B - B // 64) & (rng.random(B) < 0.125)
+    vals[hit] = np.where(rng.random(B) < 0.5, np.inf, -np.inf)[hit]
+    seg = ((rng.zipf(1.2, B) - 1) % slots if zipf
+           else rng.integers(0, slots, B))
     return [torch.from_numpy(a).to(dev) for a in (
-        rng.integers(0, slots, B).astype(np.int32), vals,
-        np.ones(B, dtype=bool))]
+        seg.astype(np.int32), vals, np.ones(B, dtype=bool))]
 
 
 def seg_equal(got, want, exact, rtol_idx, what):
-    """Outputs `exact` equal (NaN where NaN), `rtol_idx` within 1e-5;
-    returns the largest absolute difference."""
+    """Outputs `exact` equal (NaN where NaN), `rtol_idx` NaN and ±inf
+    where the other is and the finite values within 1e-5; returns the
+    largest absolute difference."""
     worst = 0.0
     for i in exact:
         g, w = got[i], want[i]
@@ -6102,10 +6110,14 @@ def seg_equal(got, want, exact, rtol_idx, what):
         else:
             check(bool((g == w).all()), f"{what}: output {i} differs")
     for i in rtol_idx:
-        d = (got[i].double() - want[i].double()).abs()
-        check(bool((d <= 1e-5 * want[i].double().abs()).all()),
+        g, w = got[i].double(), want[i].double()
+        fin = w.isfinite()
+        check(bool(torch_equal_nan(g[~fin], w[~fin])),
+              f"{what}: output {i} differs where not finite")
+        d = (g[fin] - w[fin]).abs()
+        check(bool((d <= 1e-5 * w[fin].abs()).all()),
               f"{what}: output {i} beyond rtol 1e-5")
-        worst = max(worst, float(d.max()))
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
     return worst
 
 
@@ -6115,7 +6127,7 @@ def torch_equal_nan(a, b):
 
 def shift_check(torch, rng, kernels, dev, tag, B, slots):
     C = SLOTS
-    x = seg_inputs(torch, rng, B, slots, dev)
+    x = seg_inputs(torch, rng, B, slots, dev, zipf=tag == "zipf")
     carry_k = (torch.zeros(C, dtype=torch.int32, device=dev),
                torch.zeros(C, device=dev),
                torch.zeros(C, dtype=torch.bool, device=dev),
@@ -6138,7 +6150,7 @@ def shift_check(torch, rng, kernels, dev, tag, B, slots):
     t_p = time_ms(torch, lambda: kernels.segscan_shift_plain(carry_p, *x),
                   REPS)
     t_l = time_ms(torch, lambda: library_shift(torch, *x), REPS)
-    touched = min(slots, B)
+    touched = int(x[0].unique().numel())
     # the batch read once (slot, value, validity), four outputs written,
     # the touched carry slots read and written (13 bytes each way)
     nbytes = B * 9 + B * 13 + 2 * touched * 13
@@ -7886,10 +7898,11 @@ def main() -> int:
         table["kernels"][k]["pct_family"] = rows[f"{name}/pct"]
     table["kernels"][13]["hll_family"] = rows["multirule_reset_pane/hll"]
     table["kernels"][13]["pct_family"] = rows["multirule_reset_pane/pct"]
-    # the relational tier: #20 at J3's shape, #21 at 131,072 rows and both
-    # sorts with one segment walked by one thread
+    # the relational tier: #20 at J3's shape, #21 at 131,072 rows (uniform
+    # and Zipf-skewed slots) and both with one segment
     table["kernels"][20]["at_16384"] = rows["join_match/16384"]
     table["kernels"][21]["at_131072"] = rows["segscan_shift/131072"]
+    table["kernels"][21]["zipf"] = rows["segscan_shift/zipf"]
     table["kernels"][21]["one_segment"] = rows["segscan_shift/one_segment"]
     table["kernels"][22]["one_segment"] = rows["segscan_sort/one_segment"]
     # #2's touch branch (tiered sliding rules), launched on the refold path

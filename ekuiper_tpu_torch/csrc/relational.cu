@@ -4,8 +4,9 @@
 // Built by ekuiper_tpu_torch/ops/kernels.py into a shared library with a
 // plain C interface (nvcc -shared, loaded with ctypes), like
 // csrc/groupby.cu. Every entry point launches on the caller's stream,
-// allocates nothing (the wrapper passes the sort's scratch), does not
-// synchronise, and returns cudaGetLastError() of its launches.
+// allocates nothing (the wrapper passes the sort's scratch, sized by
+// segscan_scratch_bytes), does not synchronise, and returns
+// cudaGetLastError() of its launches.
 //
 // join_match replaces JoinRing._match_impl (ekuiper_tpu/ops/joinring.py:186):
 //   mask[i, j] = slot_l[i] == slot_r[j] AND lo <= ts_l[i] - ts_r[j] <= hi
@@ -28,43 +29,88 @@
 //   grid.y walks the left rows (a grid-stride loop past 65,535).
 //
 // segscan_shift replaces SegScan._shift_impl (ekuiper_tpu/ops/segscan.py:124):
-//   a stable sort of one micro-batch by (slot, arrival), then per row its
-//   row number continuing the carry's count, lag(1) (the carry's last
-//   value at a segment head, else the previous row's), the running sum
-//   (NULL = NaN rows add 0) from the carry's sum; each segment's tail
-//   writes the carry back (count, last value, has, sum) and each segment
-//   whose slot had a carry counts one continued partition. Bound: reading
-//   the batch and writing four outputs (13 bytes a row in, 13 out), plus
-//   the carry's touched slots: 3.4 MB at 131,072 rows, ~1 us; the sort's
-//   passes over the keys (log2(B) (log2(B)+1) / 2 compare steps) are the
-//   real cost.
+//   a stable sort of one micro-batch by slot (arrival order within a slot),
+//   then per row its row number continuing the carry's count, lag(1) (the
+//   carry's last value at a segment head, else the previous row's), the
+//   running sum (NULL = NaN rows add 0) from the carry's sum; each
+//   segment's tail writes the carry back (count, last value, has, sum) and
+//   each segment whose slot had a carry counts one continued partition.
 //
 // segscan_sort replaces SegScan._sort_impl (ekuiper_tpu/ops/segscan.py:165):
 //   per collection, row_number and lead(1) in arrival order within a
-//   segment (sort by (seg, arrival)), then rank and dense_rank in value
-//   order within a segment (sort by (seg, value, arrival), NaN keyed as
-//   +inf, as segscan.py:180-181 does; NULL ranks as NULL). Bound as the
-//   shift's: the collection read once, six outputs written once.
+//   segment, then rank and dense_rank in value order within a segment (NaN
+//   keyed as +inf, as segscan.py:180-181 does; NULL ranks as NULL).
 //
-// Design of both sorts: a bitonic sort of packed 64-bit keys (segment in
-// the high word, the arrival index or the value's order-preserving bits in
-// the low word) with the arrival index as a 32-bit payload, compared as the
-// pair (key, payload), so the order is the reference's lexsort order
-// exactly. Chunks of SORT_CHUNK keys sort in shared memory in one launch;
-// each larger merge stage runs its long strides as global passes and its
-// short ones in shared memory. Then one thread per segment head walks its
-// segment in order and writes every row's outputs at its arrival index (a
-// permutation, so no two threads write one row); pad rows (segment id
-// 2^30) write the defaults. A segment of many rows walked by one thread is
-// slow but right; speed is later work.
+// Bound of both: the batch read once (9 bytes a row), the outputs written
+// once (13 and 14 bytes a row), the shift's touched carry slots read and
+// written: ~3 MB at 131,072 rows, about 1 us at 3.35 TB/s. What sets the
+// time at these sizes is the chain of dependent launches and, inside each,
+// a few round trips to L2.
+//
+// Design. A stable LSD radix sort of 8-bit digits over a packed 64-bit key
+// (the segment in the high word; for the value order the value's
+// order-preserving bits in the low word, NaN as +inf and -0 as +0, else 0)
+// with the arrival index as the payload, so the order is the reference's
+// lexsort order; then one segmented scan over the sorted order.
+//  - radix_hist_kernel writes the keys and counts every digit place in one
+//    read (as Onesweep does, Adinets & Merrill 2022). Its last block marks
+//    the places whose real keys fall in more than one bin; a pass whose
+//    place is unmarked returns at once on the card (no read-back to the
+//    host). Pad rows (valid false) have no key: a flag in the payload's
+//    top bit sends them to a 257th bin after every real key in each pass
+//    that runs, so they make no place vary. Where no place varies but a
+//    pad precedes a real row, one pass runs to move the pads behind.
+//  - radix_pass_kernel: one stable scatter a place. A block of 256 threads
+//    ranks a tile of 1,024 keys, warp-striped so that the ranks follow the
+//    tile's order: per step, nine ballots find the lanes that share a bin,
+//    and per-warp bin counts in shared memory carry the rank across steps.
+//    The tile's offset in each bin comes from the tiles before it by
+//    decoupled look-back (a flag | count word per tile and bin, 16 words
+//    read at once; tiles numbered by an atomic ticket, so a tile waits only
+//    on tiles that have started). The tile is put in bin order in shared
+//    memory and written out from there, so that neighbouring threads write
+//    neighbouring positions.
+//  - seg_scan_kernel: each thread takes 4 consecutive sorted rows, warps
+//    scan by __shfl_up_sync, warp totals go through shared memory, and
+//    tiles of 1,024 rows chain by single-pass decoupled look-back (Merrill
+//    & Garland 2016). The monoid is that of the reference's _seg_cumsum /
+//    _seg_propagate over (flag, value) pairs reset at a segment head: the
+//    last segment head, the last value group's head, and a segmented sum
+//    (the shift's running sum in double, rounded once a row as the plain
+//    version; the value order's count of new values). Each output is
+//    written at the row's arrival index.
+//  - carry_apply_kernel (shift only): each segment's tail writes the carry
+//    back from the outputs in a launch after the scan, so no row of the
+//    scan can read a carry slot that is being written.
+// A spin on a look-back word gives up after SPIN_LIMIT polls (a fault then
+// shows as a wrong output, never as a hung card). Launches: 8 for the shift
+// (a memset of the scratch's counters, the histogram, four passes, the
+// scan, the carry) and 16 for the sort (a memset, the histogram, four
+// passes and the arrival scan, eight passes and the value scan). The tile
+// sizes were chosen on the H100 among 1,024, 2,048 and 4,096 rows (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#define SORT_CHUNK 2048         // keys a block sorts in shared memory
-#define SORT_THREADS 1024
-#define SEG_PAD 0x40000000u     // ekuiper_tpu/ops/segscan.py _SEG_PAD
+#define SEG_THREADS 256
+#define SEG_WARPS (SEG_THREADS / 32)
+#define RADIX_ITEMS 4
+#define RADIX_TILE (SEG_THREADS * RADIX_ITEMS)  // keys a pass's block ranks
+#define SCAN_ITEMS 4
+#define SCAN_TILE (SEG_THREADS * SCAN_ITEMS)    // rows a scan's block takes
+#define DIGITS 256
+#define BINS (DIGITS + 1)       // the digits' bins, then the pad rows'
+#define NO_BIN BINS             // a lane past the batch's end
+#define PLACES 8                // 8-bit digit places of the 64-bit key
+#define PAD_BIT 0x80000000u     // payload flag of a pad row
+#define LB_AGG 0x40000000u      // look-back word: this tile's own count
+#define LB_INCL 0x80000000u     // ... the count of it and every tile before
+#define LB_COUNT 0x3fffffffu
+#define LB_BATCH 16             // look-back words read at once
+#define SPIN_LIMIT (1 << 22)
+#define MAX_B (1 << 29)         // counts and positions stay below 2^30
+#define FULL_MASK 0xffffffffu
 
 __device__ __forceinline__ float qnan() { return __int_as_float(0x7fc00000); }
 
@@ -92,110 +138,63 @@ __global__ void join_match_kernel(const int32_t* __restrict__ slot_l,
   }
 }
 
-// ------------------------------------------------------- bitonic sort
-__device__ __forceinline__ bool kv_greater(unsigned long long ka, uint32_t va,
-                                           unsigned long long kb,
-                                           uint32_t vb) {
-  return ka > kb || (ka == kb && va > vb);
-}
+// ------------------------------------------------------------- the sort
+// Written by radix_hist_kernel (zeroed before it), read by later launches.
+struct SortPlan {
+  uint32_t plan[2];      // places each sort runs (bit d = place d): the
+                         // arrival order's, the value order's
+  uint32_t n_real;       // rows that are not pads
+  uint32_t npad;
+  uint32_t max_real1;    // the last real row's arrival index + 1
+  uint32_t done;         // histogram blocks finished
+  uint32_t ticket[12];   // the passes' tile tickets, by status slot
+  uint32_t scan_ticket[2];
+  uint32_t hist[PLACES][DIGITS];
+};
 
-// One compare-exchange step of the network in shared memory: pair t's lower
-// element i, partner i + j, ascending where the global index has bit k clear.
-__device__ __forceinline__ void shared_step(unsigned long long* sk,
-                                            uint32_t* sv, int C, long long base,
-                                            long long k, int j) {
-  for (int t = threadIdx.x; t < C / 2; t += blockDim.x) {
-    const int i = 2 * t - (t & (j - 1));
-    const int l = i + j;
-    const bool asc = ((base + i) & k) == 0;
-    const bool gt = kv_greater(sk[i], sv[i], sk[l], sv[l]);
-    if (gt == asc) {
-      const unsigned long long tk = sk[i];
-      sk[i] = sk[l];
-      sk[l] = tk;
-      const uint32_t tv = sv[i];
-      sv[i] = sv[l];
-      sv[l] = tv;
-    }
-  }
-  __syncthreads();
-}
+struct SortBufs {
+  const unsigned long long* k0;  // keys in arrival order
+  const uint32_t* p0;            // arrival index | PAD_BIT
+  unsigned long long* k[2];      // the passes' ping-pong buffers
+  uint32_t* p[2];
+};
 
-// Every stage k <= C of the network inside each chunk of C keys (k_only 0),
-// or, for one stage k > C, its strides j < C (k_only = k).
-__global__ void bitonic_shared_kernel(unsigned long long* __restrict__ keys,
-                                      uint32_t* __restrict__ vals, int C,
-                                      long long k_only) {
-  __shared__ unsigned long long sk[SORT_CHUNK];
-  __shared__ uint32_t sv[SORT_CHUNK];
-  const long long base = (long long)blockIdx.x * C;
-  for (int t = threadIdx.x; t < C; t += blockDim.x) {
-    sk[t] = keys[base + t];
-    sv[t] = vals[base + t];
-  }
-  __syncthreads();
-  if (k_only == 0) {
-    for (int k = 2; k <= C; k <<= 1)
-      for (int j = k >> 1; j > 0; j >>= 1) shared_step(sk, sv, C, base, k, j);
+// Where a sort leaves its keys after `passes` passes (pass k reads here
+// with passes = k and writes k[k & 1], p[k & 1]).
+__device__ __forceinline__ void sorted_by(const SortBufs& sb, int passes,
+                                          const unsigned long long** k,
+                                          const uint32_t** p) {
+  if (passes == 0) {
+    *k = sb.k0;
+    *p = sb.p0;
   } else {
-    for (int j = C >> 1; j > 0; j >>= 1)
-      shared_step(sk, sv, C, base, k_only, j);
-  }
-  for (int t = threadIdx.x; t < C; t += blockDim.x) {
-    keys[base + t] = sk[t];
-    vals[base + t] = sv[t];
+    *k = sb.k[(passes - 1) & 1];
+    *p = sb.p[(passes - 1) & 1];
   }
 }
 
-// One step (k, j >= C) of the network over all B keys, one thread a pair.
-__global__ void bitonic_global_kernel(unsigned long long* __restrict__ keys,
-                                      uint32_t* __restrict__ vals, int B,
-                                      long long k, int j) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= B / 2) return;
-  const int i = 2 * t - (t & (j - 1));
-  const int l = i + j;
-  const bool asc = (i & k) == 0;
-  const unsigned long long ki = keys[i], kl = keys[l];
-  const uint32_t vi = vals[i], vl = vals[l];
-  if (kv_greater(ki, vi, kl, vl) == asc) {
-    keys[i] = kl;
-    keys[l] = ki;
-    vals[i] = vl;
-    vals[l] = vi;
-  }
+// Look-back words, written once per state. A pass's word holds its count,
+// so a volatile store is enough; a scan record's flag is published after a
+// fence, behind the fields it announces.
+__device__ __forceinline__ void store_word(uint32_t* p, uint32_t v) {
+  *(volatile uint32_t*)p = v;
 }
 
-// Ascending sort of B (a power of two) (key, payload) pairs.
-static void bitonic_sort(unsigned long long* keys, uint32_t* vals, int B,
-                         cudaStream_t st) {
-  const int C = B < SORT_CHUNK ? B : SORT_CHUNK;
-  const int half = C / 2 < 1 ? 1 : C / 2;
-  const int threads = half < SORT_THREADS ? half : SORT_THREADS;
-  bitonic_shared_kernel<<<B / C, threads, 0, st>>>(keys, vals, C, 0);
-  for (long long k = 2LL * C; k <= B; k <<= 1) {
-    for (long long j = k >> 1; j >= C; j >>= 1)
-      bitonic_global_kernel<<<(B / 2 + 255) / 256, 256, 0, st>>>(
-          keys, vals, B, k, (int)j);
-    bitonic_shared_kernel<<<B / C, threads, 0, st>>>(keys, vals, C, k);
-  }
+__device__ __forceinline__ void publish_word(uint32_t* p, uint32_t v) {
+  __threadfence();
+  store_word(p, v);
 }
 
-// ------------------------------------------------------------ key builds
-__device__ __forceinline__ uint32_t seg_id(const int32_t* seg,
-                                           const uint8_t* valid, int i) {
-  return valid[i] ? (uint32_t)seg[i] : SEG_PAD;
+__device__ __forceinline__ uint32_t read_word(const uint32_t* p) {
+  return *(const volatile uint32_t*)p;
 }
 
-// (segment, arrival): the arrival index is the low word and the payload.
-__global__ void arrival_keys_kernel(const int32_t* __restrict__ seg,
-                                    const uint8_t* __restrict__ valid, int B,
-                                    unsigned long long* __restrict__ keys,
-                                    uint32_t* __restrict__ order) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  keys[i] = ((unsigned long long)seg_id(seg, valid, i) << 32) | (uint32_t)i;
-  order[i] = (uint32_t)i;
+// After a look-back read found a tile not yet published: false once the
+// spins reach SPIN_LIMIT (a fault, never a hang).
+__device__ __forceinline__ bool wait_more(int* spins) {
+  if (++*spins > SPIN_LIMIT) return false;
+  if (*spins > 64) __nanosleep(128);
+  return true;
 }
 
 // A float's bits, mapped so that unsigned order is numeric order.
@@ -204,159 +203,654 @@ __device__ __forceinline__ uint32_t ordered_bits(float f) {
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
-// (segment, value, arrival): NaN keyed as +inf; arrival is the payload.
-__global__ void value_keys_kernel(const int32_t* __restrict__ seg,
-                                  const float* __restrict__ vals,
-                                  const uint8_t* __restrict__ valid, int B,
-                                  unsigned long long* __restrict__ keys,
-                                  uint32_t* __restrict__ order) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  const float v = vals[i];
-  const float k = isnan(v) ? INFINITY : v;
-  keys[i] = ((unsigned long long)seg_id(seg, valid, i) << 32) |
-            ordered_bits(k);
-  order[i] = (uint32_t)i;
+// The value order's key: NaN (NULL) as +inf and -0 as +0, so that equal
+// keys are the reference's equal values and ties keep arrival order.
+__device__ __forceinline__ uint32_t value_bits(float v) {
+  return ordered_bits(isnan(v) ? INFINITY : (v == 0.f ? 0.f : v));
 }
 
-__device__ __forceinline__ uint32_t seg_of(const unsigned long long* keys,
-                                           int p) {
-  return (uint32_t)(keys[p] >> 32);
-}
-
-// ------------------------------------------------------------------ #21
-__global__ void shift_walk_kernel(const unsigned long long* __restrict__ keys,
-                                  const uint32_t* __restrict__ order, int B,
-                                  const float* __restrict__ vals,
-                                  int32_t* __restrict__ cnt,
-                                  float* __restrict__ last,
-                                  uint8_t* __restrict__ has,
-                                  float* __restrict__ acc, int C,
-                                  int32_t* __restrict__ rn,
-                                  float* __restrict__ lag,
-                                  uint8_t* __restrict__ lhas,
-                                  float* __restrict__ run,
-                                  int32_t* __restrict__ continued) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= B) return;
-  const uint32_t s = seg_of(keys, p);
-  if (s == SEG_PAD) {  // pad rows: the defaults, each its own
-    const uint32_t o = order[p];
-    rn[o] = 0;
-    lag[o] = qnan();
-    lhas[o] = 0;
-    run[o] = 0.f;
-    return;
+// Exclusive sum over the block of one value a thread (SEG_THREADS
+// threads); *total gets the block's sum.
+__device__ __forceinline__ uint32_t block_exclusive_sum(uint32_t v,
+                                                        uint32_t* s_warp,
+                                                        uint32_t* total) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  uint32_t x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t y = __shfl_up_sync(FULL_MASK, x, o);
+    if (lane >= o) x += y;
   }
-  if (p > 0 && seg_of(keys, p - 1) == s) return;  // not a segment head
-  const bool in = s < (uint32_t)C;
-  const int32_t c0 = in ? cnt[s] : 0;
-  const bool h0 = in && has[s] != 0;
-  const float l0 = in ? last[s] : 0.f;
-  const float a0 = in ? acc[s] : 0.f;
-  if (h0) atomicAdd(continued, 1);
-  // The running sum accumulates in double and rounds once per row, as the
-  // plain version's float64 cumsum does: a float accumulator walked down a
-  // segment of 2^17 rows drifts far past the reference's tree scan.
-  int32_t pos = 0;
-  double cum = 0.0;
-  float prev = 0.f;
-  for (int q = p; q < B && seg_of(keys, q) == s; ++q) {
-    const uint32_t o = order[q];
-    const float v = vals[o];
-    ++pos;
-    rn[o] = c0 + pos;
-    if (pos == 1) {
-      lag[o] = h0 ? l0 : qnan();
-      lhas[o] = h0 ? 1 : 0;
+  if (lane == 31) s_warp[w] = x;
+  __syncthreads();
+  uint32_t before = 0, sum = 0;
+#pragma unroll
+  for (int i = 0; i < SEG_WARPS; ++i) {
+    const uint32_t t = s_warp[i];
+    if (i < w) before += t;
+    sum += t;
+  }
+  __syncthreads();
+  *total = sum;
+  return before + x - v;
+}
+
+// Keys, payloads and the digit counts of every place (VALUE: the value's
+// four places and the segment's, else the segment's), over a grid-stride
+// loop; the last block to finish writes the plan.
+template <bool VALUE>
+__global__ void __launch_bounds__(SEG_THREADS)
+    radix_hist_kernel(const int32_t* __restrict__ seg,
+                      const float* __restrict__ vals,
+                      const uint8_t* __restrict__ valid, int B,
+                      unsigned long long* __restrict__ k0,
+                      uint32_t* __restrict__ p0, SortPlan* __restrict__ sp,
+                      int32_t* __restrict__ continued) {
+  __shared__ uint32_t s_hist[PLACES][DIGITS];
+  __shared__ uint32_t s_npad, s_max1;
+  __shared__ int s_last;
+  const int tid = threadIdx.x, lane = tid & 31;
+  for (int i = tid; i < PLACES * DIGITS; i += SEG_THREADS)
+    s_hist[i / DIGITS][i % DIGITS] = 0;
+  if (tid == 0) {
+    s_npad = 0;
+    s_max1 = 0;
+    if (continued != nullptr && blockIdx.x == 0) *continued = 0;
+  }
+  __syncthreads();
+  const long long stride = (long long)gridDim.x * SEG_THREADS;
+  for (long long base = (long long)blockIdx.x * SEG_THREADS; base < B;
+       base += stride) {
+    const long long i = base + tid;
+    const bool in = i < B;
+    bool pad = false;
+    uint32_t s = 0, vb = 0;
+    if (in) {
+      pad = valid[i] == 0;
+      s = (uint32_t)seg[i];
+      if (VALUE) vb = value_bits(vals[i]);
+      k0[i] = ((unsigned long long)s << 32) | vb;
+      p0[i] = (uint32_t)i | (pad ? PAD_BIT : 0u);
+    }
+    const bool real = in && !pad;
+    const uint32_t pads = __ballot_sync(FULL_MASK, in && pad);
+    const uint32_t m = __reduce_max_sync(FULL_MASK,
+                                         real ? (uint32_t)i + 1u : 0u);
+    if (lane == 0) {
+      if (pads) atomicAdd(&s_npad, (uint32_t)__popc(pads));
+      if (m) atomicMax(&s_max1, m);
+    }
+#pragma unroll
+    for (int d = VALUE ? 0 : 4; d < PLACES; ++d) {
+      const uint32_t bin = real ? ((d < 4 ? vb : s) >> (8 * (d & 3))) & 0xffu
+                                : NO_BIN;
+      // a warp whose rows share the bin (one segment) adds once
+      const uint32_t b0 = __shfl_sync(FULL_MASK, bin, 0);
+      if (__all_sync(FULL_MASK, bin == b0)) {
+        if (lane == 0 && b0 != NO_BIN) atomicAdd(&s_hist[d][b0], 32u);
+      } else if (bin != NO_BIN) {
+        atomicAdd(&s_hist[d][bin], 1u);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < PLACES * DIGITS; i += SEG_THREADS) {
+    const uint32_t c = s_hist[i / DIGITS][i % DIGITS];
+    if (c) atomicAdd(&sp->hist[i / DIGITS][i % DIGITS], c);
+  }
+  if (tid == 0) {
+    if (s_npad) atomicAdd(&sp->npad, s_npad);
+    if (s_max1) atomicMax(&sp->max_real1, s_max1);
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(&sp->done, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  uint32_t c[PLACES], need = 0;
+#pragma unroll
+  for (int d = 0; d < PLACES; ++d) c[d] = __ldcg(&sp->hist[d][tid]);
+#pragma unroll
+  for (int d = 0; d < PLACES; ++d)
+    if (__syncthreads_count(c[d] != 0) > 1) need |= 1u << d;
+  if (tid == 0) {
+    const uint32_t n_real = (uint32_t)B - __ldcg(&sp->npad);
+    const bool misplaced = __ldcg(&sp->max_real1) > n_real;
+    uint32_t pa = need & 0xf0u, pv = need;
+    if (pa == 0 && misplaced) pa = 0x10u;
+    if (pv == 0 && misplaced) pv = 0x01u;
+    sp->n_real = n_real;
+    sp->plan[0] = pa;
+    sp->plan[1] = pv;
+  }
+}
+
+// One stable scatter by digit place `place` of sort `sort`, if its plan
+// runs it. status: (tiles, BINS) look-back words of this pass, zeroed.
+__global__ void __launch_bounds__(SEG_THREADS)
+    radix_pass_kernel(const SortBufs sb, int B,
+                      const SortPlan* __restrict__ sp, int sort, int place,
+                      uint32_t* __restrict__ status,
+                      uint32_t* __restrict__ ticket) {
+  const uint32_t plan = sp->plan[sort];
+  if (!((plan >> place) & 1u)) return;
+  const int k = __popc(plan & ((1u << place) - 1u));
+  const unsigned long long* ik;
+  const uint32_t* ip;
+  sorted_by(sb, k, &ik, &ip);
+  unsigned long long* ok = sb.k[k & 1];
+  uint32_t* op = sb.p[k & 1];
+  __shared__ uint32_t s_cnt[SEG_WARPS][BINS + 1];
+  __shared__ uint32_t s_pre[BINS];  // each bin's first position, global
+  __shared__ uint32_t s_loc[BINS];  // ... in the tile
+  __shared__ uint32_t s_warp[SEG_WARPS];
+  __shared__ unsigned long long s_key[RADIX_TILE];
+  __shared__ uint32_t s_pay[RADIX_TILE];
+  __shared__ int s_tile;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  if (tid == 0) s_tile = (int)atomicAdd(ticket, 1u);
+  for (int i = tid; i < SEG_WARPS * (BINS + 1); i += SEG_THREADS)
+    s_cnt[i / (BINS + 1)][i % (BINS + 1)] = 0;
+  // each digit's first position: the place's counts scanned; pads after
+  // every real key
+  uint32_t total;
+  s_pre[tid] = block_exclusive_sum(sp->hist[place][tid], s_warp, &total);
+  if (tid == 0) s_pre[DIGITS] = sp->n_real;
+  const int tile = s_tile;
+  const long long base =
+      (long long)tile * RADIX_TILE + (long long)w * (32 * RADIX_ITEMS) + lane;
+  const uint32_t lower = (1u << lane) - 1u;
+  unsigned long long key[RADIX_ITEMS];
+  uint32_t pay[RADIX_ITEMS], bin[RADIX_ITEMS], rank[RADIX_ITEMS];
+#pragma unroll
+  for (int j = 0; j < RADIX_ITEMS; ++j) {
+    const long long e = base + 32 * j;
+    bin[j] = NO_BIN;
+    if (e < B) {
+      key[j] = ik[e];
+      pay[j] = ip[e];
+      bin[j] = (pay[j] & PAD_BIT) ? DIGITS
+                                  : (uint32_t)(key[j] >> (8 * place)) & 0xffu;
+    }
+    // rank among the warp's rows so far: the earlier steps' count of the
+    // bin, then the lower lanes of this step that share it (found by one
+    // ballot per bit of the 9-bit bin)
+    uint32_t peers = FULL_MASK;
+#pragma unroll
+    for (int bit = 0; bit < 9; ++bit) {
+      const bool on = (bin[j] >> bit) & 1u;
+      const uint32_t set = __ballot_sync(FULL_MASK, on);
+      peers &= on ? set : ~set;
+    }
+    const uint32_t before = s_cnt[w][bin[j]];
+    __syncwarp();
+    if (lane == __ffs(peers) - 1) s_cnt[w][bin[j]] = before + __popc(peers);
+    __syncwarp();
+    rank[j] = before + __popc(peers & lower);
+  }
+  __syncthreads();
+  uint32_t digit_count = 0;  // the tile's count of digit tid
+  for (int b = tid; b < BINS; b += SEG_THREADS) {
+    uint32_t sum = 0;
+    for (int i = 0; i < SEG_WARPS; ++i) {
+      const uint32_t c = s_cnt[i][b];
+      s_cnt[i][b] = sum;
+      sum += c;
+    }
+    if (b < DIGITS) digit_count = sum;
+    uint32_t* mine = status + (size_t)tile * BINS + b;
+    uint32_t prefix = 0;
+    if (tile == 0) {
+      store_word(mine, LB_INCL | sum);
     } else {
-      lag[o] = prev;
-      lhas[o] = 1;
+      store_word(mine, LB_AGG | sum);
+      // the words of LB_BATCH tiles before at once, nearest first, down to
+      // an inclusive one
+      int spins = 0;
+      for (int q = tile - 1; q >= 0;) {
+        uint32_t word[LB_BATCH];
+#pragma unroll
+        for (int i = 0; i < LB_BATCH; ++i)
+          word[i] = q - i >= 0 ? read_word(status + (size_t)(q - i) * BINS + b)
+                               : 0u;
+        int used = 0;
+        bool done = false, stall = false;
+#pragma unroll
+        for (int i = 0; i < LB_BATCH; ++i) {
+          if (done || stall || q - i < 0) continue;
+          if (word[i] == 0) {
+            stall = true;
+            continue;
+          }
+          prefix += word[i] & LB_COUNT;
+          ++used;
+          done = (word[i] & LB_INCL) != 0;
+        }
+        if (done || (stall && !wait_more(&spins))) break;
+        q -= used;
+      }
+      store_word(mine, LB_INCL | (prefix + sum));
     }
-    cum += isnan(v) ? 0.0 : (double)v;
-    run[o] = a0 + (float)cum;
-    prev = v;
+    s_pre[b] += prefix;
   }
-  if (in) {  // the segment's tail writes the carry back
-    cnt[s] = c0 + pos;
-    last[s] = prev;
-    has[s] = 1;
-    acc[s] = a0 + (float)cum;
+  // the tile's rows in bin order through shared memory, then written out
+  // in that order: neighbouring threads write neighbouring positions of a
+  // bin
+  s_loc[tid] = block_exclusive_sum(digit_count, s_warp, &total);
+  if (tid == 0) s_loc[DIGITS] = total;
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < RADIX_ITEMS; ++j) {
+    if (bin[j] == NO_BIN) continue;
+    const uint32_t at = s_loc[bin[j]] + s_cnt[w][bin[j]] + rank[j];
+    s_key[at] = key[j];
+    s_pay[at] = pay[j];
   }
-}
-
-// ------------------------------------------------------------------ #22
-// Arrival order: row number, lead(1) and its flag.
-__global__ void arrival_walk_kernel(const unsigned long long* __restrict__ keys,
-                                    const uint32_t* __restrict__ order, int B,
-                                    const float* __restrict__ vals,
-                                    int32_t* __restrict__ rn,
-                                    float* __restrict__ lead,
-                                    uint8_t* __restrict__ lead_has) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= B) return;
-  const uint32_t s = seg_of(keys, p);
-  if (s == SEG_PAD) {
-    const uint32_t o = order[p];
-    rn[o] = 0;
-    lead[o] = qnan();
-    lead_has[o] = 0;
-    return;
-  }
-  if (p > 0 && seg_of(keys, p - 1) == s) return;
-  int32_t pos = 0;
-  for (int q = p; q < B && seg_of(keys, q) == s; ++q) {
-    const uint32_t o = order[q];
-    rn[o] = ++pos;
-    const bool next = q + 1 < B && seg_of(keys, q + 1) == s;
-    lead[o] = next ? vals[order[q + 1]] : qnan();
-    lead_has[o] = next ? 1 : 0;
+  __syncthreads();
+  const long long rows = B - (long long)tile * RADIX_TILE;
+  const int n = rows < RADIX_TILE ? (int)rows : RADIX_TILE;
+  for (int at = tid; at < n; at += SEG_THREADS) {
+    const unsigned long long kk = s_key[at];
+    const uint32_t pp = s_pay[at];
+    const uint32_t bb = (pp & PAD_BIT) ? DIGITS
+                                       : (uint32_t)(kk >> (8 * place)) & 0xffu;
+    const uint32_t dst = s_pre[bb] + (at - s_loc[bb]);
+    ok[dst] = kk;
+    op[dst] = pp;
   }
 }
 
-// Value order: rank (the position of the value's first row), dense_rank
-// (distinct values so far), NULL (NaN) ranked as NULL.
-__global__ void value_walk_kernel(const unsigned long long* __restrict__ keys,
-                                  const uint32_t* __restrict__ order, int B,
-                                  const float* __restrict__ vals,
-                                  int32_t* __restrict__ rank,
-                                  int32_t* __restrict__ dense,
-                                  uint8_t* __restrict__ rank_has) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= B) return;
-  const uint32_t s = seg_of(keys, p);
-  if (s == SEG_PAD) {
-    const uint32_t o = order[p];
-    rank[o] = 0;
-    dense[o] = 0;
-    rank_has[o] = 0;
-    return;
-  }
-  if (p > 0 && seg_of(keys, p - 1) == s) return;
-  int32_t pos = 0, r = 0, d = 0;
-  float prev = 0.f;
-  for (int q = p; q < B && seg_of(keys, q) == s; ++q) {
-    const uint32_t o = order[q];
-    const float v = vals[o];
-    const float k = isnan(v) ? INFINITY : v;
-    ++pos;
-    if (q == p || k != prev) {  // a new value (-0 equals +0, as in jnp)
-      r = pos;
-      ++d;
+// ------------------------------------------------------------- the scan
+enum { SHIFT = 0, ARRIVAL = 1, VALUE = 2 };
+
+// The segmented scan's element: `hf` a segment head in the span, `start`
+// the last segment head's position, `vstart` the last value group's head
+// (value order), `sum` the sum since the last segment head.
+struct Agg {
+  double sum;
+  int start;
+  int vstart;
+  bool hf;
+};
+
+__device__ __forceinline__ Agg ident() {
+  Agg a;
+  a.sum = 0.0;
+  a.start = -1;
+  a.vstart = -1;
+  a.hf = false;
+  return a;
+}
+
+// a, then b
+__device__ __forceinline__ Agg combine(const Agg& a, const Agg& b) {
+  Agg r;
+  r.hf = a.hf || b.hf;
+  r.sum = b.hf ? b.sum : a.sum + b.sum;
+  r.start = a.start > b.start ? a.start : b.start;
+  r.vstart = a.vstart > b.vstart ? a.vstart : b.vstart;
+  return r;
+}
+
+__device__ __forceinline__ Agg shfl_up(const Agg& a, int o) {
+  Agg r;
+  r.sum = __shfl_up_sync(FULL_MASK, a.sum, o);
+  r.start = __shfl_up_sync(FULL_MASK, a.start, o);
+  r.vstart = __shfl_up_sync(FULL_MASK, a.vstart, o);
+  r.hf = __shfl_up_sync(FULL_MASK, (int)a.hf, o) != 0;
+  return r;
+}
+
+template <int MODE>
+__device__ __forceinline__ Agg element(long long p, bool head, bool newv,
+                                       float v) {
+  Agg e;
+  e.hf = head;
+  e.start = head ? (int)p : -1;
+  e.vstart = newv ? (int)p : -1;
+  e.sum = MODE == SHIFT ? (isnan(v) ? 0.0 : (double)v)
+                        : (MODE == VALUE && newv ? 1.0 : 0.0);
+  return e;
+}
+
+// A tile's look-back record: `flag` set after the rest is written.
+struct ScanRec {
+  double sum;
+  int start;
+  int vstart;
+  uint32_t hf;
+  uint32_t flag;
+};
+
+__device__ __forceinline__ void publish_rec(ScanRec* r, const Agg& a) {
+  r->sum = a.sum;
+  r->start = a.start;
+  r->vstart = a.vstart;
+  r->hf = a.hf ? 1u : 0u;
+  publish_word(&r->flag, 1u);
+}
+
+__device__ __forceinline__ Agg read_rec(const ScanRec* r) {
+  Agg a;
+  a.sum = __ldcg(&r->sum);
+  a.start = __ldcg(&r->start);
+  a.vstart = __ldcg(&r->vstart);
+  a.hf = __ldcg(&r->hf) != 0;
+  return a;
+}
+
+// The combined records of the tiles before `tile` back to the nearest that
+// holds a segment head or has its inclusive record; the flags of LB_BATCH
+// tiles are read at once, nearest first.
+__device__ Agg look_back(const ScanRec* recs, int tile) {
+  Agg pre = ident();
+  int spins = 0;
+  for (int q = tile - 1; q >= 0;) {
+    uint32_t fi[LB_BATCH], fa[LB_BATCH];
+#pragma unroll
+    for (int i = 0; i < LB_BATCH; ++i) {
+      fi[i] = fa[i] = 0u;
+      if (q - i >= 0) {
+        const ScanRec* r = recs + 2 * (long long)(q - i);
+        fi[i] = read_word(&r[1].flag);
+        fa[i] = read_word(&r[0].flag);
+      }
     }
-    prev = k;
-    const bool real = !isnan(v);
-    rank[o] = real ? r : 0;
-    dense[o] = real ? d : 0;
-    rank_has[o] = real ? 1 : 0;
+    __threadfence();
+    int used = 0;
+    bool done = false, stall = false;
+#pragma unroll
+    for (int i = 0; i < LB_BATCH; ++i) {
+      if (done || stall || q - i < 0) continue;
+      if (fi[i] == 0 && fa[i] == 0) {
+        stall = true;
+        continue;
+      }
+      const Agg g = read_rec(recs + 2 * (long long)(q - i) + (fi[i] ? 1 : 0));
+      pre = combine(g, pre);
+      ++used;
+      done = fi[i] != 0 || g.hf;
+    }
+    if (done || (stall && !wait_more(&spins))) break;
+    q -= used;
+  }
+  return pre;
+}
+
+struct ScanArgs {
+  SortBufs sb;
+  int B;
+  const SortPlan* sp;
+  int sort;              // whose plan: 0 arrival order, 1 value order
+  ScanRec* recs;         // (tiles, 2): aggregate, inclusive; zeroed
+  uint32_t* ticket;
+  const float* vals;
+  const int32_t* cnt;    // the shift's carry, read only here
+  const float* last;
+  const uint8_t* has;
+  const float* acc;
+  int C;
+  int32_t* continued;
+  int32_t* rn;           // row number (shift, arrival order)
+  float* f1;             // lag (shift) / lead (arrival order)
+  uint8_t* b1;           // its flag
+  float* run;            // running sum (shift)
+  int32_t* rank;         // value order
+  int32_t* dense;
+  uint8_t* rank_has;
+};
+
+template <int MODE>
+__global__ void __launch_bounds__(SEG_THREADS)
+    seg_scan_kernel(const ScanArgs a) {
+  __shared__ Agg s_warp[SEG_WARPS];
+  __shared__ Agg s_pre;
+  __shared__ int s_tile, s_cont;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const uint32_t plan = a.sp->plan[a.sort];
+  const long long n_real = a.sp->n_real;
+  if (tid == 0) {
+    s_tile = (int)atomicAdd(a.ticket, 1u);
+    s_cont = 0;
+  }
+  __syncthreads();
+  const int tile = s_tile;
+  const unsigned long long* keys;
+  const uint32_t* pays;
+  sorted_by(a.sb, __popc(plan), &keys, &pays);
+  const long long p0 =
+      (long long)tile * SCAN_TILE + (long long)tid * SCAN_ITEMS;
+  unsigned long long key[SCAN_ITEMS];
+  uint32_t ord[SCAN_ITEMS];
+  float v[SCAN_ITEMS];
+  uint32_t heads = 0, newvs = 0;
+  Agg t = ident();
+  unsigned long long pk = 0ull;
+  float pv = 0.f;  // the row before p0's value (the shift's lag)
+  if (p0 > 0 && p0 < n_real) {
+    pk = keys[p0 - 1];
+    if (MODE == SHIFT) pv = a.vals[pays[p0 - 1] & ~PAD_BIT];
+  }
+#pragma unroll
+  for (int i = 0; i < SCAN_ITEMS; ++i) {
+    const long long p = p0 + i;
+    key[i] = 0ull;
+    ord[i] = 0u;
+    v[i] = 0.f;
+    if (p < n_real) {
+      key[i] = keys[p];
+      ord[i] = pays[p] & ~PAD_BIT;
+      v[i] = a.vals[ord[i]];
+      const bool h = p == 0 || (pk >> 32) != (key[i] >> 32);
+      const bool nv = p == 0 || pk != key[i];
+      heads |= (uint32_t)h << i;
+      newvs |= (uint32_t)nv << i;
+      t = combine(t, element<MODE>(p, h, nv, v[i]));
+      pk = key[i];
+    } else if (p < a.B) {
+      ord[i] = pays[p] & ~PAD_BIT;
+    }
+  }
+  Agg x = t;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const Agg y = shfl_up(x, o);
+    if (lane >= o) x = combine(y, x);
+  }
+  Agg ex = shfl_up(x, 1);
+  if (lane == 0) ex = ident();
+  if (lane == 31) s_warp[w] = x;
+  __syncthreads();
+  if (tid == 0) {
+    Agg tot = ident();
+    for (int i = 0; i < SEG_WARPS; ++i) {
+      const Agg wt = s_warp[i];
+      s_warp[i] = tot;
+      tot = combine(tot, wt);
+    }
+    ScanRec* rec = a.recs + 2 * (long long)tile;
+    Agg pre = ident();
+    if (tile == 0) {
+      publish_rec(rec + 1, tot);
+    } else {
+      publish_rec(rec, tot);
+      pre = look_back(a.recs, tile);
+      publish_rec(rec + 1, combine(pre, tot));
+    }
+    s_pre = pre;
+  }
+  __syncthreads();
+  Agg run = combine(combine(s_pre, s_warp[w]), ex);
+  int cont = 0;
+#pragma unroll
+  for (int i = 0; i < SCAN_ITEMS; ++i) {
+    const long long p = p0 + i;
+    if (p >= a.B) break;
+    const uint32_t o = ord[i];
+    if (p >= n_real) {  // pad rows: the defaults
+      if (MODE == SHIFT) {
+        a.rn[o] = 0;
+        a.f1[o] = qnan();
+        a.b1[o] = 0;
+        a.run[o] = 0.f;
+      } else if (MODE == ARRIVAL) {
+        a.rn[o] = 0;
+        a.f1[o] = qnan();
+        a.b1[o] = 0;
+      } else {
+        a.rank[o] = 0;
+        a.dense[o] = 0;
+        a.rank_has[o] = 0;
+      }
+      continue;
+    }
+    const bool h = (heads >> i) & 1u;
+    const bool nv = (newvs >> i) & 1u;
+    run = combine(run, element<MODE>(p, h, nv, v[i]));
+    const int pos = (int)(p - run.start) + 1;
+    if (MODE == SHIFT) {
+      const uint32_t s = (uint32_t)(key[i] >> 32);
+      const bool in = s < (uint32_t)a.C;
+      const int32_t c0 = in ? a.cnt[s] : 0;
+      const float a0 = in ? a.acc[s] : 0.f;
+      a.rn[o] = c0 + pos;
+      if (h) {
+        const bool h0 = in && a.has[s] != 0;
+        a.f1[o] = h0 ? a.last[s] : qnan();
+        a.b1[o] = h0 ? 1 : 0;
+        cont += h0 ? 1 : 0;
+      } else {
+        a.f1[o] = i > 0 ? v[i - 1] : pv;
+        a.b1[o] = 1;
+      }
+      a.run[o] = a0 + (float)run.sum;
+    } else if (MODE == ARRIVAL) {
+      a.rn[o] = pos;
+      bool same = false;
+      float nxt = 0.f;
+      if (p + 1 < n_real) {
+        unsigned long long nk;
+        if (i + 1 < SCAN_ITEMS) {
+          nk = key[i + 1];
+          nxt = v[i + 1];
+        } else {
+          nk = keys[p + 1];
+          nxt = a.vals[pays[p + 1] & ~PAD_BIT];
+        }
+        same = (nk >> 32) == (key[i] >> 32);
+      }
+      a.f1[o] = same ? nxt : qnan();
+      a.b1[o] = same ? 1 : 0;
+    } else {
+      const bool real = !isnan(v[i]);
+      a.rank[o] = real ? run.vstart - run.start + 1 : 0;
+      a.dense[o] = real ? (int32_t)run.sum : 0;
+      a.rank_has[o] = real ? 1 : 0;
+    }
+  }
+  if (MODE == SHIFT) {
+    if (cont) atomicAdd(&s_cont, cont);
+    __syncthreads();
+    if (tid == 0 && s_cont) atomicAdd(a.continued, s_cont);
   }
 }
 
+// The shift's segment tails write the carry back: count, last value, has,
+// running sum, from the row's outputs.
+__global__ void carry_apply_kernel(const SortBufs sb, int B,
+                                   const SortPlan* __restrict__ sp,
+                                   const float* __restrict__ vals,
+                                   const int32_t* __restrict__ rn,
+                                   const float* __restrict__ run,
+                                   int32_t* __restrict__ cnt,
+                                   float* __restrict__ last,
+                                   uint8_t* __restrict__ has,
+                                   float* __restrict__ acc, int C) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long n_real = sp->n_real;
+  if (p >= n_real) return;
+  const unsigned long long* keys;
+  const uint32_t* pays;
+  sorted_by(sb, __popc(sp->plan[0]), &keys, &pays);
+  const uint32_t s = (uint32_t)(keys[p] >> 32);
+  if (s >= (uint32_t)C) return;
+  if (p + 1 < n_real && (uint32_t)(keys[p + 1] >> 32) == s) return;
+  const uint32_t o = pays[p] & ~PAD_BIT;
+  cnt[s] = rn[o];
+  last[s] = vals[o];
+  has[s] = 1;
+  acc[s] = run[o];
+}
+
+// ------------------------------------------------------------------ host
 static inline int blocks_of(long long n, int threads) {
   return (int)((n + threads - 1) / threads);
 }
 
 static inline bool pow2(int b) { return b > 0 && (b & (b - 1)) == 0; }
+
+static inline size_t up16(size_t x) { return (x + 15) & ~(size_t)15; }
+
+// The scratch of a call over B rows with `sorts` sorts (1: the shift, 2:
+// segscan_sort): three key and payload buffers, then the zeroed part (the
+// plan, the passes' look-back words, the scans' records).
+struct Layout {
+  size_t k[3], p[3], plan, status, recs, zero, zero_bytes, total;
+  int rtiles, stiles, slots;  // a pass's tiles, a scan's tiles
+};
+
+static Layout layout(int B, int sorts) {
+  Layout L;
+  L.rtiles = blocks_of(B, RADIX_TILE);
+  L.stiles = blocks_of(B, SCAN_TILE);
+  L.slots = sorts == 1 ? 4 : 12;
+  size_t off = 0;
+  for (int i = 0; i < 3; ++i) {
+    L.k[i] = off;
+    off += (size_t)B * sizeof(unsigned long long);
+  }
+  for (int i = 0; i < 3; ++i) {
+    L.p[i] = off;
+    off += (size_t)B * sizeof(uint32_t);
+  }
+  L.zero = L.plan = up16(off);
+  L.status = up16(L.plan + sizeof(SortPlan));
+  L.recs = up16(L.status +
+                (size_t)L.slots * L.rtiles * BINS * sizeof(uint32_t));
+  L.total = up16(L.recs + (size_t)sorts * L.stiles * 2 * sizeof(ScanRec));
+  L.zero_bytes = L.total - L.zero;
+  return L;
+}
+
+static SortBufs bufs_of(char* s, const Layout& L) {
+  SortBufs sb;
+  sb.k0 = (const unsigned long long*)(s + L.k[0]);
+  sb.p0 = (const uint32_t*)(s + L.p[0]);
+  for (int i = 0; i < 2; ++i) {
+    sb.k[i] = (unsigned long long*)(s + L.k[i + 1]);
+    sb.p[i] = (uint32_t*)(s + L.p[i + 1]);
+  }
+  return sb;
+}
+
+static inline int hist_blocks(int B) {
+  const int b = blocks_of(B, 1024);
+  return b > 128 ? 128 : b;
+}
+
+// The passes of one sort over places [first, PLACES), status slots from
+// slot0 on.
+static void radix_passes(const SortBufs& sb, int B, SortPlan* sp,
+                         uint32_t* status, int tiles, int sort, int first,
+                         int slot0, cudaStream_t st) {
+  for (int d = first; d < PLACES; ++d) {
+    const int slot = slot0 + d - first;
+    radix_pass_kernel<<<tiles, SEG_THREADS, 0, st>>>(
+        sb, B, sp, sort, d, status + (size_t)slot * tiles * BINS,
+        &sp->ticket[slot]);
+  }
+}
 
 extern "C" {
 
@@ -376,49 +870,102 @@ int join_match(const int32_t* slot_l, const int32_t* ts_l, const uint8_t* vl,
   return (int)cudaGetLastError();
 }
 
+// Bytes of scratch segscan_shift (sorts 1) or segscan_sort (sorts 2) takes
+// over B rows; -1 for a B they refuse.
+long long segscan_scratch_bytes(int B, int sorts) {
+  if (!pow2(B) || B > MAX_B || sorts < 1 || sorts > 2) return -1;
+  return (long long)layout(B, sorts).total;
+}
+
 // slots / vals / valid: device (B,) int32 / float32 / bool, B a power of
 // two; cnt / last / has / acc: the carry, device (C,), updated in place;
-// keys / order: scratch (B,) uint64 / uint32; rn / lag / lhas / run:
-// outputs (B,); continued: one device int32, zeroed here.
+// scratch: segscan_scratch_bytes(B, 1) device bytes; rn / lag / lhas /
+// run: outputs (B,); continued: one device int32.
 int segscan_shift(const int32_t* slots, const float* vals,
                   const uint8_t* valid, int B, int32_t* cnt, float* last,
-                  uint8_t* has, float* acc, int C, unsigned long long* keys,
-                  uint32_t* order, int32_t* rn, float* lag, uint8_t* lhas,
-                  float* run, int32_t* continued, void* stream) {
-  if (!pow2(B) || C < 0) return (int)cudaErrorInvalidValue;
+                  uint8_t* has, float* acc, int C, void* scratch, int32_t* rn,
+                  float* lag, uint8_t* lhas, float* run, int32_t* continued,
+                  void* stream) {
+  if (!pow2(B) || B > MAX_B || C < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(continued, 0, sizeof(int32_t), st);
+  const Layout L = layout(B, 1);
+  char* s = (char*)scratch;
+  cudaError_t err = cudaMemsetAsync(s + L.zero, 0, L.zero_bytes, st);
   if (err != cudaSuccess) return (int)err;
-  const int threads = 256;
-  arrival_keys_kernel<<<blocks_of(B, threads), threads, 0, st>>>(
-      slots, valid, B, keys, order);
-  bitonic_sort(keys, order, B, st);
-  shift_walk_kernel<<<blocks_of(B, threads), threads, 0, st>>>(
-      keys, order, B, vals, cnt, last, has, acc, C, rn, lag, lhas, run,
-      continued);
+  const SortBufs sb = bufs_of(s, L);
+  SortPlan* sp = (SortPlan*)(s + L.plan);
+  radix_hist_kernel<false><<<hist_blocks(B), SEG_THREADS, 0, st>>>(
+      slots, vals, valid, B, (unsigned long long*)(s + L.k[0]),
+      (uint32_t*)(s + L.p[0]), sp, continued);
+  radix_passes(sb, B, sp, (uint32_t*)(s + L.status), L.rtiles, 0, 4, 0, st);
+  ScanArgs a = {};
+  a.sb = sb;
+  a.B = B;
+  a.sp = sp;
+  a.sort = 0;
+  a.recs = (ScanRec*)(s + L.recs);
+  a.ticket = &sp->scan_ticket[0];
+  a.vals = vals;
+  a.cnt = cnt;
+  a.last = last;
+  a.has = has;
+  a.acc = acc;
+  a.C = C;
+  a.continued = continued;
+  a.rn = rn;
+  a.f1 = lag;
+  a.b1 = lhas;
+  a.run = run;
+  seg_scan_kernel<SHIFT><<<L.stiles, SEG_THREADS, 0, st>>>(a);
+  carry_apply_kernel<<<blocks_of(B, 256), 256, 0, st>>>(
+      sb, B, sp, vals, rn, run, cnt, last, has, acc, C);
   return (int)cudaGetLastError();
 }
 
 // seg / vals / valid: device (B,) int32 / float32 / bool, B a power of
-// two; keys / order: scratch (B,); outputs (B,): rn int32, lead float32,
-// lead_has bool, rank int32, dense int32, rank_has bool.
+// two; scratch: segscan_scratch_bytes(B, 2) device bytes; outputs (B,):
+// rn int32, lead float32, lead_has bool, rank int32, dense int32,
+// rank_has bool.
 int segscan_sort(const int32_t* seg, const float* vals, const uint8_t* valid,
-                 int B, unsigned long long* keys, uint32_t* order, int32_t* rn,
-                 float* lead, uint8_t* lead_has, int32_t* rank, int32_t* dense,
+                 int B, void* scratch, int32_t* rn, float* lead,
+                 uint8_t* lead_has, int32_t* rank, int32_t* dense,
                  uint8_t* rank_has, void* stream) {
-  if (!pow2(B)) return (int)cudaErrorInvalidValue;
+  if (!pow2(B) || B > MAX_B) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int threads = 256;
-  arrival_keys_kernel<<<blocks_of(B, threads), threads, 0, st>>>(
-      seg, valid, B, keys, order);
-  bitonic_sort(keys, order, B, st);
-  arrival_walk_kernel<<<blocks_of(B, threads), threads, 0, st>>>(
-      keys, order, B, vals, rn, lead, lead_has);
-  value_keys_kernel<<<blocks_of(B, threads), threads, 0, st>>>(
-      seg, vals, valid, B, keys, order);
-  bitonic_sort(keys, order, B, st);
-  value_walk_kernel<<<blocks_of(B, threads), threads, 0, st>>>(
-      keys, order, B, vals, rank, dense, rank_has);
+  const Layout L = layout(B, 2);
+  char* s = (char*)scratch;
+  cudaError_t err = cudaMemsetAsync(s + L.zero, 0, L.zero_bytes, st);
+  if (err != cudaSuccess) return (int)err;
+  const SortBufs sb = bufs_of(s, L);
+  SortPlan* sp = (SortPlan*)(s + L.plan);
+  uint32_t* status = (uint32_t*)(s + L.status);
+  ScanRec* recs = (ScanRec*)(s + L.recs);
+  radix_hist_kernel<true><<<hist_blocks(B), SEG_THREADS, 0, st>>>(
+      seg, vals, valid, B, (unsigned long long*)(s + L.k[0]),
+      (uint32_t*)(s + L.p[0]), sp, nullptr);
+  // arrival order: the segment's places only
+  radix_passes(sb, B, sp, status, L.rtiles, 0, 4, 0, st);
+  ScanArgs a = {};
+  a.sb = sb;
+  a.B = B;
+  a.sp = sp;
+  a.sort = 0;
+  a.recs = recs;
+  a.ticket = &sp->scan_ticket[0];
+  a.vals = vals;
+  a.rn = rn;
+  a.f1 = lead;
+  a.b1 = lead_has;
+  seg_scan_kernel<ARRIVAL><<<L.stiles, SEG_THREADS, 0, st>>>(a);
+  // value order: the value's places, then the segment's
+  radix_passes(sb, B, sp, status, L.rtiles, 1, 0, 4, st);
+  a.sort = 1;
+  a.recs = recs + 2 * (size_t)L.stiles;
+  a.ticket = &sp->scan_ticket[1];
+  a.rank = rank;
+  a.dense = dense;
+  a.rank_has = rank_has;
+  seg_scan_kernel<VALUE><<<L.stiles, SEG_THREADS, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -161,14 +161,18 @@ tier (ops/joinring.py, ops/segscan.py):
   read through its broadcast strides). One thread per (i, j). Bound:
   writing PL·PR bytes (0.080 ms at 16,384 a side).
 - `segscan_shift` replaces `SegScan._shift_impl` (segscan.py:124): a
-  bitonic sort by (slot, arrival), then one thread per segment walks it:
-  row numbers from the carry's count, lag(1), running sums; the tail
-  writes the carry back in place.
+  stable LSD radix sort by slot (8-bit digits; one histogram launch
+  counts every place, a place whose keys share one bin costs no pass,
+  pad rows ride a bin of their own; each pass a stable scatter with
+  decoupled look-back between tiles), then one segmented scan with
+  look-back carries between blocks: row numbers from the carry's count,
+  lag(1), running sums in float64 rounded once a row; a last launch
+  writes the segment tails' carry back in place.
 - `segscan_sort` replaces `SegScan._sort_impl` (segscan.py:165): the same
-  sort by (segment, arrival) for row_number and lead(1), then by
-  (segment, value, arrival) for rank and dense_rank. Bound, both: the
-  batch read once and the outputs written once; the sort's passes set
-  the time.
+  sort by segment for row_number and lead(1), then by (segment, value)
+  for rank and dense_rank, each followed by its segmented scan. Bound,
+  both: the batch read once and the outputs written once (~1 µs); the
+  chain of 8 (shift) or 16 (sort) launches sets the time.
 
 And two in ekuiper_tpu_torch/csrc/countmin.cu, for `CountMinSketch`
 (ops/sketches.py), over (d, w) float32 counts:
@@ -449,9 +453,10 @@ def _load():
             rl.join_match.argtypes = [P, P, P, I, P, P, P, I, I, I, P, LL,
                                       LL, P, P]
             rl.segscan_shift.argtypes = [P, P, P, I, P, P, P, P, I, P, P, P,
-                                         P, P, P, P, P]
-            rl.segscan_sort.argtypes = [P, P, P, I, P, P, P, P, P, P, P, P,
-                                        P]
+                                         P, P, P, P]
+            rl.segscan_sort.argtypes = [P, P, P, I, P, P, P, P, P, P, P, P]
+            rl.segscan_scratch_bytes.argtypes = [I, I]
+            rl.segscan_scratch_bytes.restype = LL
             cm = ctypes.CDLL(str(paths["countmin"]))
             cm.cms_update.argtypes = [P, I, I, P, I, P]
             cm.cms_query.argtypes = [P, I, I, P, I, P, P]
@@ -1921,8 +1926,8 @@ def tier_promote_plain(state, packed, slots, comps) -> None:
 
 
 # ------------------------------------------------------- relational tier
-#: csrc/relational.cu SEG_PAD (ekuiper_tpu/ops/segscan.py _SEG_PAD): the
-#: segment of pad rows, after every real slot
+#: the plain versions' segment of pad rows, after every real slot
+#: (ekuiper_tpu/ops/segscan.py _SEG_PAD; the kernels flag pad rows instead)
 SEG_PAD = 1 << 30
 _I32 = (-(1 << 31), (1 << 31) - 1)
 
@@ -2024,9 +2029,14 @@ def _seg_keys_checked(name: str, seg, vals, valid, dev) -> int:
     return B
 
 
-def _sort_scratch(B: int, dev) -> Tuple[torch.Tensor, torch.Tensor]:
-    return (torch.empty(B, dtype=torch.int64, device=dev),
-            torch.empty(B, dtype=torch.int32, device=dev))
+def _seg_scratch(lib, B: int, sorts: int, dev) -> torch.Tensor:
+    """The sort's key buffers and look-back counters, as one byte tensor of
+    the size csrc/relational.cu lays out (sorts 1: the shift, 2: the
+    window functions)."""
+    n = lib.relational.segscan_scratch_bytes(B, sorts)
+    if n < 0:
+        raise ValueError(f"segscan: {B} rows refused (at most 2^29)")
+    return torch.empty(n, dtype=torch.uint8, device=dev)
 
 
 def segscan_shift(carry: Sequence[torch.Tensor], slots: torch.Tensor,
@@ -2051,18 +2061,18 @@ def segscan_shift(carry: Sequence[torch.Tensor], slots: torch.Tensor,
     for t, dtype in ((cnt, torch.int32), (last, torch.float32),
                      (has, torch.bool), (acc, torch.float32)):
         _check(name, t, dtype, (C,), dev)
-    keys, order = _sort_scratch(B, dev)
+    lib = _load()
+    scratch = _seg_scratch(lib, B, 1, dev)
     rn = torch.empty(B, dtype=torch.int32, device=dev)
     lag = torch.empty(B, dtype=torch.float32, device=dev)
     lhas = torch.empty(B, dtype=torch.bool, device=dev)
     run = torch.empty(B, dtype=torch.float32, device=dev)
     cont = torch.empty(1, dtype=torch.int32, device=dev)
-    lib = _load()
     with torch.cuda.device(dev):
         rc = lib.relational.segscan_shift(
             _ptr(slots), _ptr(vals), _ptr(valid), B, _ptr(cnt), _ptr(last),
-            _ptr(has), _ptr(acc), C, _ptr(keys), _ptr(order), _ptr(rn),
-            _ptr(lag), _ptr(lhas), _ptr(run), _ptr(cont), _stream(dev))
+            _ptr(has), _ptr(acc), C, _ptr(scratch), _ptr(rn), _ptr(lag),
+            _ptr(lhas), _ptr(run), _ptr(cont), _stream(dev))
         LAUNCHES[name] += 1
     _raise_on(lib, name, rc)
     return rn, lag, lhas, run, cont
@@ -2085,9 +2095,23 @@ def _unsort(order: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _seg_cumsum(head: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Inclusive segmented sum, reset at every True of `head` (the
+    reference's `_seg_cumsum`, a Hillis-Steele scan of (flag, value)
+    pairs): no value, ±inf or NaN-making sum crosses a segment head."""
+    f, v = head.clone(), x.clone()
+    d = 1
+    while d < x.shape[0]:
+        v[d:] = torch.where(f[d:], v[d:], v[:-d] + v[d:])
+        f[d:] = f[d:] | f[:-d]
+        d <<= 1
+    return v
+
+
 def segscan_shift_plain(carry, slots, vals, valid):
     """Plain PyTorch version of segscan_shift (the reference's stable sort,
-    segmented positions and sums; the sums in float64, rounded once)."""
+    segmented positions and sums; the sums a segmented scan in float64,
+    rounded once)."""
     cnt, last, has, acc = carry
     B, C = slots.shape[0], cnt.shape[0]
     dev = slots.device
@@ -2110,10 +2134,8 @@ def segscan_shift_plain(carry, slots, vals, valid):
     pv = torch.cat([vv[:1], vv[:-1]])
     lag = torch.where(head, torch.where(h0, l0, nan), pv)
     lhas = torch.where(head, h0, torch.ones_like(h0))
-    cs = torch.cumsum(torch.nan_to_num(vv.double(), nan=0.0), 0)
-    base = cs[start] - torch.nan_to_num(vv.double(), nan=0.0)[start]
-    cum = (cs - base).float()
-    run = a0 + cum
+    vz = torch.where(torch.isnan(vv), 0.0, vv).double()
+    run = a0 + _seg_cumsum(head, vz).float()
     rn = c0 + pos
     cont = (head & h0).sum().to(torch.int32).reshape(1)
     w = tail & inr
@@ -2146,18 +2168,18 @@ def segscan_sort(seg: torch.Tensor, vals: torch.Tensor, valid: torch.Tensor
     if dev is None:
         return segscan_sort_plain(seg, vals, valid)
     B = _seg_keys_checked(name, seg, vals, valid, dev)
-    keys, order = _sort_scratch(B, dev)
+    lib = _load()
+    scratch = _seg_scratch(lib, B, 2, dev)
     rn = torch.empty(B, dtype=torch.int32, device=dev)
     lead = torch.empty(B, dtype=torch.float32, device=dev)
     lead_has = torch.empty(B, dtype=torch.bool, device=dev)
     rank = torch.empty(B, dtype=torch.int32, device=dev)
     dense = torch.empty(B, dtype=torch.int32, device=dev)
     rank_has = torch.empty(B, dtype=torch.bool, device=dev)
-    lib = _load()
     with torch.cuda.device(dev):
         rc = lib.relational.segscan_sort(
-            _ptr(seg), _ptr(vals), _ptr(valid), B, _ptr(keys), _ptr(order),
-            _ptr(rn), _ptr(lead), _ptr(lead_has), _ptr(rank), _ptr(dense),
+            _ptr(seg), _ptr(vals), _ptr(valid), B, _ptr(scratch), _ptr(rn),
+            _ptr(lead), _ptr(lead_has), _ptr(rank), _ptr(dense),
             _ptr(rank_has), _stream(dev))
         LAUNCHES[name] += 1
     _raise_on(lib, name, rc)

@@ -5,8 +5,8 @@ The reference key-sorts a micro-batch inside its XLA programs (jnp.lexsort,
 stable, arrival index as tiebreak) and turns every function into a
 segmented `associative_scan` over the sorted order. The port's two kernels
 (ops/kernels.py `segscan_shift`, `segscan_sort`; csrc/relational.cu) sort
-the padded batch by hand (a bitonic sort of packed keys) and walk each
-segment in order, one thread a segment:
+the padded batch by hand (a stable radix sort of packed keys) and run one
+segmented scan over the sorted order, its carries passed between blocks:
 
   * `shift` (the reference's `segscan.shift` site, segscan.py:124): the
     stateful per-partition ROW_NUMBER, LAG(1) and running sum of one
@@ -38,9 +38,6 @@ from . import kernels
 
 #: pow-2 pad floor per micro-batch — doublings cover the rest
 SEG_PAD_FLOOR = 256
-
-#: pad-row segment id: sorts after every real slot
-_SEG_PAD = kernels.SEG_PAD
 
 
 def _pad_pow2(n: int) -> int:

@@ -1190,16 +1190,48 @@ def test_join_match_matches_plain(cuda_dev, shape):
         assert shape == "const" or bool(got.any())
 
 
-def _seg_batch(rng, B, n, slots, dev):
-    seg = rng.integers(0, slots, B).astype(np.int32)
-    vals = rng.choice(np.array([1.5, 2.5, 7.0, -0.0, 0.0, np.inf, np.nan],
-                               dtype=np.float32), B)
+def _seg_ids(rng, B, slots, kind):
+    """Segment ids: uniform over `slots`, Zipf-skewed sizes over `slots`,
+    or spread over [0, 2^30) so that every digit place of the sort varies."""
+    if kind == "zipf":
+        return ((rng.zipf(1.2, B) - 1) % slots).astype(np.int32)
+    if kind == "wide":
+        ids = rng.integers(0, 1 << 30, max(slots, 1))
+        ids[:2] = [0, (1 << 30) - 1]
+        return rng.choice(ids, B).astype(np.int32)
+    return rng.integers(0, slots, B).astype(np.int32)
+
+
+def _seg_batch(rng, B, n, slots, dev, kind="uniform"):
+    """The window functions' collection: ties, signed zeros, ±inf and NULL
+    (NaN) values; the pad tail invalid."""
+    seg = _seg_ids(rng, B, slots, kind)
+    vals = rng.choice(np.array([1.5, 2.5, 7.0, -0.0, 0.0, np.inf, -np.inf,
+                                np.nan], dtype=np.float32), B)
+    valid = np.arange(B) < n
+    return [torch.from_numpy(a).to(dev) for a in (seg, vals, valid)]
+
+
+def _shift_batch(rng, B, n, slots, dev, kind, infs):
+    """One micro-batch of the shift: N(20, 5) values with 2 % NULL and some
+    signed zeros; with `infs`, ±inf in a quarter of the last n/16 rows
+    (so the batches before it check the finite sums across block edges,
+    and this one the non-finite sums and carries exactly)."""
+    seg = _seg_ids(rng, B, slots, kind)
+    vals = rng.normal(20, 5, B).astype(np.float32)
+    vals[rng.random(B) < 0.02] = np.nan
+    vals[rng.random(B) < 0.01] = -0.0
+    if infs:
+        tail = (np.arange(B) >= n - n // 16) & (np.arange(B) < n)
+        hit = tail & (rng.random(B) < 0.25)
+        vals[hit] = np.where(rng.random(B) < 0.5, np.inf, -np.inf)[hit]
     valid = np.arange(B) < n
     return [torch.from_numpy(a).to(dev) for a in (seg, vals, valid)]
 
 
 def _same_seg(got, want, exact_idx, rtol_idx=()):
-    """Outputs `exact_idx` equal (NaN where NaN), `rtol_idx` within 1e-5."""
+    """Outputs `exact_idx` equal (NaN where NaN); `rtol_idx` NaN and ±inf
+    where the other is, the finite values within rtol 1e-5."""
     for i in exact_idx:
         g, w = got[i], want[i]
         if g.is_floating_point():
@@ -1209,42 +1241,62 @@ def _same_seg(got, want, exact_idx, rtol_idx=()):
         else:
             assert torch.equal(g, w), i
     for i in rtol_idx:
-        torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=0)
+        g, w = got[i], want[i]
+        assert torch.equal(g.isnan(), w.isnan()), i
+        assert torch.equal(g.isinf(), w.isinf()), i
+        assert torch.equal(g[g.isinf()], w[g.isinf()]), i
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=0, equal_nan=True)
 
 
-@pytest.mark.parametrize("B,slots", [(256, 40), (8192, 1000),
-                                     (8192, 1)])
-def test_segscan_shift_matches_plain(cuda_dev, B, slots):
+@pytest.mark.parametrize("B,slots,C,kind", [
+    pytest.param(256, 40, 1024, "uniform", id="256-40"),
+    pytest.param(8192, 1000, 1024, "uniform", id="8192-1000"),
+    pytest.param(8192, 1, 1024, "uniform", id="8192-1"),
+    pytest.param(8192, 1000, 512, "uniform", id="slots_past_C"),
+    pytest.param(131072, 1, 1024, "uniform", id="one_segment-131072"),
+    pytest.param(1 << 20, 1, 1024, "uniform", id="one_segment-1048576"),
+    pytest.param(131072, 10000, 20000, "zipf", id="zipf-131072"),
+    pytest.param(65536, 20000, 4096, "wide", id="wide_ids")])
+def test_segscan_shift_matches_plain(cuda_dev, B, slots, C, kind):
     """#21 against its plain version over three batches (the carry in
     place): row numbers, lag, flags, counts and last values exact, running
-    sums rtol 1e-5 (arrival order against float64 rounded once); one slot
-    walks a whole 8,192-row segment."""
+    sums rtol 1e-5 (both in float64 rounded once a row, summed in another
+    order), their NaN and ±inf exactly; the third batch holds ±inf. One
+    slot of 2^17 and 2^20 rows spans many blocks; Zipf-skewed slots; slot
+    ids up to 2^30 - 1 (each digit place varies) and slots past C (no
+    carry); B = 256 with pads."""
     rng = np.random.default_rng(21)
-    C = 1024 if slots <= 1024 else 2 * slots
     carry_k = (torch.zeros(C, dtype=torch.int32, device=cuda_dev),
                torch.zeros(C, device=cuda_dev),
                torch.zeros(C, dtype=torch.bool, device=cuda_dev),
                torch.zeros(C, device=cuda_dev))
     carry_p = tuple(t.clone() for t in carry_k)
-    for _ in range(3):
-        x = _seg_batch(rng, B, B - B // 5, slots, cuda_dev)
-        x[1] = torch.where(x[1].isinf(), 3.0, x[1])
+    for b in range(3):
+        x = _shift_batch(rng, B, B - B // 5, slots, cuda_dev, kind, b == 2)
         got = kernels.segscan_shift(carry_k, *x)
         want = kernels.segscan_shift_plain(carry_p, *x)
         torch.cuda.synchronize()
         _same_seg(got, want, (0, 1, 2, 4), (3,))
         _same_seg(carry_k, carry_p, (0, 1, 2), (3,))
+    assert not bool(want[3].isfinite().all())
 
 
-@pytest.mark.parametrize("B,segs", [(256, 5), (4096, 300), (65536, 2000),
-                                    (65536, 1)])
-def test_segscan_sort_matches_plain(cuda_dev, B, segs):
+@pytest.mark.parametrize("B,segs,kind", [
+    pytest.param(256, 5, "uniform", id="256-5"),
+    pytest.param(4096, 300, "uniform", id="4096-300"),
+    pytest.param(65536, 2000, "uniform", id="65536-2000"),
+    pytest.param(65536, 1, "uniform", id="65536-1"),
+    pytest.param(131072, 1, "uniform", id="one_segment-131072"),
+    pytest.param(1 << 20, 1, "uniform", id="one_segment-1048576"),
+    pytest.param(65536, 10000, "zipf", id="zipf-65536"),
+    pytest.param(65536, 20000, "wide", id="wide_ids")])
+def test_segscan_sort_matches_plain(cuda_dev, B, segs, kind):
     """#22 bit-equal to its plain version: row numbers, lead and its flag,
-    rank, dense rank and the rank flag, with ties, signed zeros, +inf and
-    NULL (NaN) values; past one shared-memory chunk (2,048 keys) and one
-    segment of 65,536 rows."""
+    rank, dense rank and the rank flag, with ties, signed zeros, ±inf and
+    NULL (NaN) values; one segment of up to 2^20 rows over many blocks,
+    Zipf-skewed segments, segment ids up to 2^30 - 1, and pads."""
     rng = np.random.default_rng(22)
-    x = _seg_batch(rng, B, B - B // 7, segs, cuda_dev)
+    x = _seg_batch(rng, B, B - B // 7, segs, cuda_dev, kind)
     got = kernels.segscan_sort(*x)
     want = kernels.segscan_sort_plain(*x)
     torch.cuda.synchronize()

@@ -171,6 +171,51 @@ def test_snapshot_crosses_packages(direction):
         json.loads(json.dumps(jax.snapshot()))["cnt"]
 
 
+def _inf_batch(rng, n, first):
+    """Slots 0-5 with +inf in slot 1, -inf in slot 2, both in slot 3 (the
+    first batch's head rows set them), NaN and finite values elsewhere;
+    slot 4 sees +inf only in the second batch."""
+    slots = np.array([rng.randrange(6) for _ in range(n)], dtype=np.int32)
+    vals = np.array([rng.choice([1.5, 2.5, 7.0, -0.0, np.nan])
+                     for _ in range(n)], dtype=np.float32)
+    if first:
+        slots[:5] = [1, 2, 3, 3, 0]
+        vals[:5] = [np.inf, -np.inf, np.inf, -np.inf, 2.0]
+    else:
+        slots[:3] = [4, 1, 2]
+        vals[:3] = [np.inf, np.nan, 1.0]
+        slots[-2:] = [5, 5]
+        vals[-2:] = [-np.inf, 3.0]
+    return slots, vals
+
+
+@pytest.mark.parametrize("direction", ["none", "jax_to_port",
+                                       "port_to_jax"])
+def test_shift_infinities_stay_in_their_segment(direction):
+    """Running sums over ±inf and NULL: +inf and -inf in earlier and later
+    slots, both in one slot (NaN from there on), across two batches, with
+    the carry crossing the packages between them; sums and the carry's
+    acc equal the JAX package's (inf and NaN positions exactly)."""
+    rng = random.Random({"none": 7, "jax_to_port": 8, "port_to_jax": 9}[
+        direction])
+    port, jax = SegScan(capacity=8, device="cpu"), JSegScan(capacity=8)
+    slots, vals = _inf_batch(rng, 40, True)
+    got = port.shift(slots, vals, 40)
+    _shift_equal(got, jax.shift(slots, vals, 40))
+    assert np.isinf(got["run_sum"]).any() and np.isnan(got["run_sum"]).any()
+    assert np.isfinite(got["run_sum"][slots == 0]).all()
+    _carry_equal(port, jax)
+    if direction != "none":
+        src, dst = (jax, port) if direction == "jax_to_port" else (port, jax)
+        dst.restore(json.loads(json.dumps(src.snapshot())))
+    slots, vals = _inf_batch(rng, 40, False)
+    _shift_equal(port.shift(slots, vals, 40), jax.shift(slots, vals, 40))
+    _carry_equal(port, jax)
+    acc = port.peek_carry()["acc"]
+    assert np.isposinf(acc[[1, 4]]).all() and np.isneginf(acc[5])
+    assert np.isnan(acc[3]) and np.isfinite(acc[0])
+
+
 def test_ranks_match_jax_and_twin():
     """tests/test_segscan.py::test_randomized_ranks_match_host held to the
     JAX package: collections up to 600 rows (past one pad of 256)."""

@@ -50,7 +50,8 @@ no result):
    at 4,096 and 8,192 candidates (bit-equal)):
    error, kernel time (CUDA
    events), the kernel body's own device time (profiler trace) and the
-   host time of one wrapper call, plain time, a library yardstick and the
+   host time of one wrapper call, plain time, a library yardstick (for
+   the wide folds also with its index build, library_idx_ms) and the
    bytes/operations bound;
 3. end to end, tumbling: the flagship rule
    `SELECT deviceId, avg(temperature), count(*), min(temperature),
@@ -809,9 +810,12 @@ def host_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def launch_split(torch, fn, kernel: str, reps: int, prep=None) -> dict:
-    """The kernel's body time and the host time of one wrapper call."""
-    return {"body_ms": body_ms(torch, fn, kernel, reps, prep=prep),
+def launch_split(torch, fn, kernel, reps: int, prep=None,
+                 per_call: bool = False) -> dict:
+    """The kernel's body time (body_ms's `kernel` and `per_call`) and the
+    host time of one wrapper call."""
+    return {"body_ms": body_ms(torch, fn, kernel, reps, per_call=per_call,
+                               prep=prep),
             "host_ms": host_ms(torch, fn, reps)}
 
 
@@ -1041,6 +1045,19 @@ def finalize_err(out_k, out_p, spectab, kernels):
 
 # ------------------------------------------------- phase 2, the sketches
 WIDE = ("hll", "hist", "hh")
+#: the kernels of one #1 / #2 wide fold: the hll / hist columns' kernel
+#: and the hh columns' (csrc/sketches.cu fold_hh_kernel), each launched
+#: where the widemap has such columns
+FOLD_WIDE_KERNELS = ("fold_wide_kernel", "fold_hh_kernel")
+FOLD_MASKED_WIDE_KERNELS = ("fold_masked_wide_kernel", "fold_hh_kernel")
+
+
+def wide_split(torch, fn, names, widemap, kernels, reps):
+    """launch_split of a wide fold: both kernels' bodies summed per call
+    where the widemap launches two, else the one kernel's median."""
+    hh = widemap[:, 0] == kernels.WIDE_IDS["hh"]
+    return launch_split(torch, fn, names, reps,
+                        per_call=bool(hh.any() and not hh.all()))
 
 
 def skewed_codes(rng, n):
@@ -1108,6 +1125,16 @@ def library_fold_wide(torch, state, updates):
             flat.scatter_reduce_(0, idx, val, "amax", include_self=True)
 
 
+def library_idx_ms(torch, gb, state, V, M, slots, pane, sketches):
+    """Device time of the yardstick with its index build: wide_updates
+    (the hashes, the indices, the zero updates dropped) and then
+    library_fold_wide, which PyTorch takes for the same function from the
+    batch as the kernels get it. The boolean indexing waits for the card,
+    so the time holds those waits too."""
+    return time_ms(torch, lambda: library_fold_wide(torch, state, wide_updates(
+        torch, gb, V, M, slots, pane, sketches)), REPS)
+
+
 EXACT = ("n", "act", "mn", "mx") + WIDE
 
 
@@ -1138,12 +1165,14 @@ def sketch_kernel_checks(torch, seed, kernels, sketches, plan_fused_rule,
         fold = functools.partial(kernels.groupby_fold_wide, got, V, M, s_dev,
                                  pane, gb._widemap)
         t_k = time_ms(torch, fold, REPS)
-        split = launch_split(torch, fold, "fold_wide_kernel", REPS)
+        split = wide_split(torch, fold, FOLD_WIDE_KERNELS, gb._widemap,
+                           kernels, REPS)
         t_p = time_ms(torch, lambda: kernels.fold_wide_plain(
             ref, V, M, s_dev, pane, gb._widemap), REPS)
         upd = wide_updates(torch, gb, V, M, s_dev, pane, sketches)
         t_l = time_ms(torch, lambda: library_fold_wide(torch, ref, upd),
                       REPS)
+        t_li = library_idx_ms(torch, gb, ref, V, M, s_dev, pane, sketches)
         # bytes: V, M and slots read once, each touched state float read
         # and written once; operations: one atomic per nonzero update
         touched = sum(len(torch.unique(idx)) for _, idx, _, _ in upd)
@@ -1154,10 +1183,10 @@ def sketch_kernel_checks(torch, seed, kernels, sketches, plan_fused_rule,
               f"cols={len(gb._widemap)} updates={n_upd}: "
               f"max_abs_err={err[0]:.3g} kernel_ms={t_k:.4f} "
               f"{split_text(split)} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
-              f"bound_ms={b_ms:.5f} ({b_by})")
+              f"library_idx_ms={t_li:.4f} bound_ms={b_ms:.5f} ({b_by})")
         rows[f"groupby_fold_wide/{tag}"] = dict(
             max_abs_err=err[0], ms=t_k, **split, plain_ms=t_p, bound_ms=b_ms,
-            bound_by=b_by, library_ms=t_l)
+            bound_by=b_by, library_ms=t_l, library_idx_ms=t_li)
 
         for panes in [None] + ([[1]] if P == 2 else []):
             pm = gb._pane_mask(panes)
@@ -3250,7 +3279,7 @@ def masked_kernel_checks(torch, seed, kernels, sketches, plan_fused_rule,
             n_upd = m_rows * (len(gb._colmap) + 1)
         else:
             name, kernel = "groupby_fold_masked_wide", \
-                "fold_masked_wide_kernel"
+                FOLD_MASKED_WIDE_KERNELS
             fn = functools.partial(kernels.groupby_fold_masked_wide, got,
                                    base, V, M, slots, pane, gb._widemap)
             plain = functools.partial(kernels.fold_masked_wide_plain, ref,
@@ -3261,19 +3290,25 @@ def masked_kernel_checks(torch, seed, kernels, sketches, plan_fused_rule,
             n_upd = sum(len(idx) for _, idx, _, _ in upd)
             nbytes = io + touched * 8
         t_k = time_ms(torch, fn, REPS)
-        split = launch_split(torch, fn, kernel, REPS)
+        split = (launch_split(torch, fn, kernel, REPS) if tag == "scalar"
+                 else wide_split(torch, fn, kernel, gb._widemap, kernels,
+                                 REPS))
         t_p = time_ms(torch, plain, REPS)
         t_l = time_ms(torch, lib, REPS)
+        t_li = None if tag == "scalar" else library_idx_ms(
+            torch, gb, ref, V, M, slots, pane, sketches)
         b_ms, b_by = bound(nbytes, n_upd)
         print(f"kernel {name} {tag} P={P} pane={pane} R={ROWS} "
               f"real={n_real} S={S} bound_bytes={nbytes} "
               f"masked={m_rows} C={SLOTS} slots=uint16 updates={n_upd}: "
               f"max_abs_err={err[0]:.3g} max_rel_err={err[1]:.3g} "
               f"kernel_ms={t_k:.4f} {split_text(split)} plain_ms={t_p:.4f} "
-              f"library_ms={t_l:.4f} bound_ms={b_ms:.5f} ({b_by})")
+              f"library_ms={t_l:.4f} library_idx_ms="
+              f"{'null' if t_li is None else f'{t_li:.4f}'} "
+              f"bound_ms={b_ms:.5f} ({b_by})")
         row = dict(max_abs_err=err[0], max_rel_err=err[1], ms=t_k, **split,
                    plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
-                   library_ms=t_l)
+                   library_ms=t_l, library_idx_ms=t_li)
         rows[name if tag in ("scalar", "hh") else f"{name}/{tag}"] = row
         del st, ref, got, gb
         torch.cuda.empty_cache()

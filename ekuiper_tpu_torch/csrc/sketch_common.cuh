@@ -98,13 +98,15 @@ __device__ __forceinline__ int hist_bin(float v, const HistConsts& hc) {
   return v > 0.0f ? HIST_HALF + 1 + idx : HIST_HALF - 1 - idx;
 }
 
-// One row of the wide fold into pane p: per wide column whose spec mask
-// M[s] is set, the hll register max, the histogram bin add or the
-// heavy-hitters cell adds of V[s] (the hll encoding, the value, or the
-// heavy-hitters dictionary code). A masked column writes nothing (the
+// One row of the wide fold into pane p: per hll or hist column whose spec
+// mask M[s] is set, the hll register max or the histogram bin add of V[s]
+// (the hll encoding, or the value). A masked column writes nothing (the
 // reference max-es 0 or adds 0 for it); a slot outside [0, C) or a pane
 // outside [0, P) is dropped. SlotT: uint16 or int32, as the scalar fold's
-// (csrc/groupby_common.cuh fold_scalar_row).
+// (csrc/groupby_common.cuh fold_scalar_row). Heavy-hitters columns are
+// not folded here: csrc/sketches.cu folds them in a kernel of their own
+// (fold_hh_kernel), and the mesh (csrc/sharded.cu) refuses
+// heavy_hitters at plan time.
 template <typename SlotT>
 __device__ __forceinline__ void fold_wide_row(const float* __restrict__ V,
                                               const uint8_t* __restrict__ M,
@@ -129,14 +131,6 @@ __device__ __forceinline__ void fold_wide_row(const float* __restrict__ V,
       if (rho > 0.0f) atomic_max_f32(dst + reg, rho);
     } else if (comp == W_HIST) {
       atomicAdd(dst + hist_bin(v, hc), 1.0f);
-    } else {
-      const uint32_t code = (uint32_t)(long long)v;
-      for (int d = 0; d < HH_DEPTH; ++d) {
-        float* cell = dst + (d * HH_WIDTH + hh_slot(code, d)) * HH_CELL;
-        atomicAdd(cell, 1.0f);
-        for (int b = 0; b < HH_BITS; ++b)
-          if ((code >> b) & 1u) atomicAdd(cell + 1 + b, 1.0f);
-      }
     }
   }
 }

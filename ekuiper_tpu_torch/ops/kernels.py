@@ -55,15 +55,18 @@ components are wide: (P, C, K, W) with W = 256 / 1,024 / 2,688:
 - `groupby_fold_wide` replaces the hll/hist/hh branches of `_fold_core`
   (groupby.py:419-439): per valid row an atomic max of rho into register
   h1 & 255, an atomic add into the value's log bin, or, per depth,
-  atomic adds into the code's cell total and its set bits. One launch per
-  batch beside groupby_fold_scalar (which adds act and the scalar
-  columns), with the same per-row panes (the hh branch indexes
-  (pane_vec[r], slot, k, idx), groupby.py:432-434). Likely bound: its
-  atomics at L2 (at most 42 a row for hh).
+  atomic adds into the code's cell total and its set bits. Beside
+  groupby_fold_scalar (which adds act and the scalar columns), with the
+  same per-row panes (the hh branch indexes (pane_vec[r], slot, k, idx),
+  groupby.py:432-434). One launch for the hll / hist columns (one thread
+  a row) and one for the hh columns, each where the batch has such
+  columns: one thread per (row, depth) adds its cell's set counters four
+  at a time with float4 atomics (the hh state 16-byte aligned), counting
+  a code's low 20 bits. Likely bound: its atomics at L2.
 - `groupby_fold_masked_wide` replaces the same branches of
   `_fold_masked_impl` (groupby.py:354): the wide fold under the refold's
-  row mask into one pane, beside groupby_fold_masked_scalar, sharing the
-  per-row code of groupby_fold_wide.
+  row mask into one pane, beside groupby_fold_masked_scalar, with the
+  same kernels as groupby_fold_wide.
 - `groupby_finalize_wide` replaces the `hll` and `percentile_approx`
   kinds of `_final_value` (groupby.py:510-519) and their pane merge: one
   block per slot; it writes those specs' rows of the same output that
@@ -207,7 +210,10 @@ partials of R row shards, (R·P', C, k[, W]), row shard r's block at r·P'
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and
 only there; for a CUDA tensor it launches the kernel or raises. A wrapper
-adds one to `LAUNCHES[name]` where it launches its kernel and nowhere else.
+adds one to `LAUNCHES[name]` where it launches its kernel and nowhere else:
+`LAUNCHES` counts wrapper calls, and a call of `groupby_fold_wide` or
+`groupby_fold_masked_wide` whose widemap mixes hh with hll or hist columns
+launches two kernels for its one count.
 """
 from __future__ import annotations
 

@@ -42,6 +42,8 @@ from ekuiper_tpu_torch.ops import kernels
 from ekuiper_tpu_torch.ops.aggspec import encode_hll_column
 from ekuiper_tpu_torch.planner.fused import plan_fused_rule
 
+import torch_hh_batches as hb
+
 pytestmark = pytest.mark.cuda
 
 SQL = (
@@ -169,17 +171,102 @@ def _fold_sketches(gb, st, seed, pane, kernel: bool):
         kernels.fold_wide_plain(st, V, M, slots, pane, gb._widemap)
 
 
-@pytest.mark.parametrize("pane", [0, 1])
-def test_fold_wide_matches_plain(sgb, pane):
+HH_CAP, HH_ROWS = 512, 4096
+
+
+def _hh_gb(plan):
+    """The group-by of tests/torch_hh_batches.py's plan `plan` on the
+    card (2 panes)."""
+    return plan_fused_rule(hb.PLANS[plan], key_slots=HH_CAP,
+                           micro_batch=HH_ROWS).gb
+
+
+def _hh_inputs(gb, seed, slot_dtype, masked=False, edge_codes=hb.EDGE_CODES):
+    """An edge-case batch of tests/torch_hh_batches.py on the card:
+    (base, V, M, slots, pane_vec). Under `masked`, base is the masked
+    fold's row mask (the batch's mask ∧ WHERE), and M is ANDed with it."""
+    b = hb.hh_batch(seed, HH_ROWS, gb.capacity, gb.n_panes, slot_dtype,
+                    edge_codes=edge_codes)
+    dev = gb.device
+    cols = {k: torch.from_numpy(v).to(dev) for k, v in hb.plan_columns(
+        gb.plan.columns, b["cols"], encode_hll_column).items()}
+    if masked:
+        base = gb._where(cols, (HH_ROWS,)) & torch.from_numpy(
+            b["mask"]).to(dev)
+        V, M = gb._spec_values(cols, HH_ROWS)
+        M = M & base
+    else:
+        base, V, M = gb.spec_inputs(cols, HH_ROWS)
+    return (base, V, M, torch.from_numpy(b["slots"]).to(dev),
+            torch.from_numpy(b["pane_vec"]).to(dev))
+
+
+WIDE_CASES = [("sketch", 0, np.int32), ("sketch", 1, np.int32)] + [
+    (plan, pane, dt) for plan in hb.PLANS for pane in (0, 1, "vec")
+    for dt in (np.uint16, np.int32)]
+
+
+@pytest.mark.parametrize("plan,pane,slot_dtype", WIDE_CASES)
+def test_fold_wide_matches_plain(sgb, plan, pane, slot_dtype):
+    """#1's wide fold against its plain version: the sketch rule's
+    batches, and tests/torch_hh_batches.py's heavy-hitters edge cases
+    (two hh columns, one under a FILTER; with hll and hist beside them,
+    the two-launch path) into one pane or by a per-row pane vector, on
+    uint16 and int32 slots. hll, hist and hh bit-equal."""
     kernels.reset_launches()
-    got, ref = sgb.init_state(), sgb.init_state()
+    if plan == "sketch":
+        got, ref = sgb.init_state(), sgb.init_state()
+        for seed in range(3):
+            _fold_sketches(sgb, got, seed, pane, kernel=True)
+            _fold_sketches(sgb, ref, seed, pane, kernel=False)
+        torch.cuda.synchronize()
+        _same(got, ref, 1e-5)
+        assert kernels.LAUNCHES["groupby_fold_wide"] == 3
+        assert float(got["hh"].sum()) > 0 and float(got["hll"].max()) > 0
+        return
+    g = _hh_gb(plan)
+    got, ref = g.init_state(), g.init_state()
     for seed in range(3):
-        _fold_sketches(sgb, got, seed, pane, kernel=True)
-        _fold_sketches(sgb, ref, seed, pane, kernel=False)
+        _, V, M, slots, pv = _hh_inputs(g, seed, slot_dtype)
+        p, pv = (0, pv) if pane == "vec" else (pane, None)
+        kernels.groupby_fold_wide(got, V, M, slots, p, g._widemap, pv)
+        kernels.fold_wide_plain(ref, V, M, slots, p, g._widemap, pv)
     torch.cuda.synchronize()
-    _same(got, ref, 1e-5)
+    _same(got, ref, 0)
     assert kernels.LAUNCHES["groupby_fold_wide"] == 3
-    assert float(got["hh"].sum()) > 0 and float(got["hll"].max()) > 0
+    assert kernels.ROW_PANE_LAUNCHES["groupby_fold_wide"] == (
+        3 if pane == "vec" else 0)
+    assert float(got["hh"][:, :, 1].sum()) > 0  # the FILTERed column
+    if plan == "mixed":
+        assert float(got["hll"].max()) > 0 and float(got["hist"].sum()) > 0
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_fold_hh_codes_past_20_bits(masked):
+    """Codes at 2^20 and above and negative codes, which the dictionary
+    never makes, through #1 (by a pane vector) and #2: the kernel counts
+    their low 20 bits only, as the plain versions do, and adds nothing
+    outside the code's two cells. hh bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    g = _hh_gb("hh2")
+    kernels.reset_launches()
+    got, ref = g.init_state(), g.init_state()
+    for seed in range(3):
+        base, V, M, slots, pv = _hh_inputs(g, 70 + seed, np.int32, masked,
+                                           edge_codes=hb.PAST_CODES)
+        if masked:
+            kernels.groupby_fold_masked_wide(got, base, V, M, slots, 1,
+                                             g._widemap)
+            kernels.fold_masked_wide_plain(ref, base, V, M, slots, 1,
+                                           g._widemap)
+        else:
+            kernels.groupby_fold_wide(got, V, M, slots, 0, g._widemap, pv)
+            kernels.fold_wide_plain(ref, V, M, slots, 0, g._widemap, pv)
+    torch.cuda.synchronize()
+    _same(got, ref, 0)
+    name = "groupby_fold_masked_wide" if masked else "groupby_fold_wide"
+    assert kernels.LAUNCHES[name] == 3
 
 
 def _folded_sketch_state(gb):
@@ -828,11 +915,31 @@ def _masked_inputs(gb, seed, slot_dtype, rows=4096, n=3000, keys=300):
 
 
 @pytest.mark.parametrize("slot_dtype", [np.uint16, np.int32])
-@pytest.mark.parametrize("which", ["scalar", "wide", "hh"])
+@pytest.mark.parametrize("which", ["scalar", "wide", "hh", "hh2", "mixed"])
 def test_fold_masked_matches_plain(gb, sgb, which, slot_dtype):
     """#2 against its plain version: the kernel over the padded batch,
     the plain version over its real rows only, so the padding (slot 0,
-    mask 0) must change nothing; uint16 and int32 slots."""
+    mask 0) must change nothing; uint16 and int32 slots. hh2 / mixed:
+    tests/torch_hh_batches.py's heavy-hitters edge cases under their row
+    mask, hll, hist and hh bit-equal."""
+    if which in hb.PLANS:
+        g = _hh_gb(which)
+        pane = g.n_panes - 1
+        kernels.reset_launches()
+        got, ref = g.init_state(), g.init_state()
+        for seed in range(3):
+            base, V, M, slots, _ = _hh_inputs(g, 90 + seed, slot_dtype,
+                                              masked=True)
+            kernels.groupby_fold_masked_wide(got, base, V, M, slots, pane,
+                                             g._widemap)
+            kernels.fold_masked_wide_plain(ref, base, V, M, slots, pane,
+                                           g._widemap)
+        torch.cuda.synchronize()
+        _same(got, ref, 0)
+        assert kernels.LAUNCHES["groupby_fold_masked_wide"] == 3
+        assert float(got["hh"][pane, :, 1].sum()) > 0
+        assert float(got["hh"][:pane].abs().sum()) == 0
+        return
     g = gb if which == "scalar" else sgb
     wide = g._widemap
     if which != "scalar":

@@ -21,9 +21,12 @@ no result):
    16,384 x 1,028 floats; the sliding ring's advance, flip and query and
    the folds with a per-row pane vector at the phase D rules' state, up
    to 53 panes x 16,384 x 1,026 floats; the rule group's fold, finalize
-   and reset at E1's 256 rules x 16,384 slots, the finalize also at E3's
-   two panes; the masked fold at phase F's batches, a 65,536-row padded
-   batch with uint16 slots under a refold's row mask, into each rule's
+   and reset at E1's 256 rules x 16,384 slots, the fold also on
+   Zipf-skewed slots and on one slot taking every row and timed as the
+   node calls it (its row order built in the call) and alone on a given
+   order, the row order against its plain version (rows and offsets
+   equal), the finalize also at E3's two panes; the masked fold at
+   phase F's batches, a 65,536-row padded batch with uint16 slots under a refold's row mask, into each rule's
    scratch pane at its own pane count, F1's 53 x 16,384 x 2,688 floats;
    the tier demote and promote at G1's state (1 pane, a 4-float packed
    row, 1,048,576 slots), G2's (10 panes, 60 floats, 262,144 slots), phase
@@ -37,7 +40,9 @@ no result):
    per-row pane vector, a batch across a bucket edge, at I5's shape (E1's
    256 rules on 4 event-time panes) and I6's (the hll family on 5 panes,
    5.3 GB of registers): n, act, min, max and the registers bit-equal, s1
-   and s2 within rtol 1e-5, a constant vector equal to the scalar pane;
+   and s2 within rtol 1e-5, a constant vector equal to the scalar pane,
+   timed with the vector's bound from the host (as the node calls them)
+   and without it (the read-back, readback_ms), beside the scalar pane;
    the relational tier's join match at 2,048 and 16,384 rows a side (J1's
    and J3's windows, bit-equal), segmented shift at 8,192 and 131,072
    rows over 10,000 slots and at 131,072 rows in one slot (row numbers,
@@ -52,7 +57,9 @@ no result):
    events), the kernel body's own device time (profiler trace) and the
    host time of one wrapper call, plain time, a library yardstick (for
    the wide folds also with its index build, library_idx_ms) and the
-   bytes/operations bound;
+   bytes/operations bound (#15's over its inputs and the touched state
+   sectors, counted from the batch, beside the inputs-only one,
+   bound_inputs_ms);
 3. end to end, tumbling: the flagship rule
    `SELECT deviceId, avg(temperature), count(*), min(temperature),
    max(temperature) FROM demo GROUP BY deviceId, TUMBLINGWINDOW(ss, 10)`
@@ -294,7 +301,8 @@ N. the device mesh (#23, #24) on a 2x4 mesh whose eight devices are the
    > 0; the fold's touch branch on the G paths, I7, L1 and L2; the masked
    fold's on L2; the per-row pane vector on the sliding paths and I2, I3,
    I5, I6, and the sharded one on N4), then the JSON kernel table
-   (twenty-eight kernels) and the one-line result.
+   (twenty-nine kernels: the 28 that replace the reference's programs and
+   the rule group's row order) and the one-line result.
 """
 from __future__ import annotations
 
@@ -614,6 +622,7 @@ SOURCE = {
     "ring_flip": "ekuiper_tpu_torch/csrc/slidingring.cu",
     "ring_query": "ekuiper_tpu_torch/csrc/slidingring.cu",
     "multirule_fold": "ekuiper_tpu_torch/csrc/multirule.cu",
+    "multirule_fold_order": "ekuiper_tpu_torch/csrc/multirule.cu",
     "multirule_finalize": "ekuiper_tpu_torch/csrc/multirule.cu",
     "multirule_reset_pane": "ekuiper_tpu_torch/csrc/multirule.cu",
     "groupby_fold_masked_scalar": "ekuiper_tpu_torch/csrc/groupby.cu",
@@ -644,6 +653,9 @@ REPLACES = {
     "ring_flip": "ekuiper_tpu/ops/slidingring.py:303",
     "ring_query": "ekuiper_tpu/ops/slidingring.py:332",
     "multirule_fold": "ekuiper_tpu/parallel/multirule.py:196",
+    # a helper kernel of the port: the row order of #15's folds (the
+    # reference's scatters need none)
+    "multirule_fold_order": "ekuiper_tpu/parallel/multirule.py:196",
     "multirule_finalize": "ekuiper_tpu/parallel/multirule.py:210",
     "multirule_reset_pane": "ekuiper_tpu/parallel/multirule.py:256",
     "groupby_fold_masked_scalar": "ekuiper_tpu/ops/groupby.py:354",
@@ -704,6 +716,8 @@ PATHS = {
     "sharded_fold_scalar": ("n1", "n2", "n3_pct", "n3_hll", "n4", "n5"),
     "sharded_fold_wide": ("n3_pct", "n3_hll"),
     "shard_merge": ("n1", "n2", "n3_pct", "n3_hll", "n4", "n5"),
+    "multirule_fold_order": ("e1", "e2", "e3", "h5_hll", "h5_pct", "h6",
+                             "i5", "i6"),
 }
 #: the folds that must bump the touch column on each tiered path (the
 #: masked fold: on the refold path's edge refolds)
@@ -717,6 +731,7 @@ ROW_PANE_PATHS = {"groupby_fold_scalar": ("d1", "d2", "d2_delay", "d3",
                                           "f1", "f2", "f3", "f4", "i2",
                                           "i3", "l1", "l2"),
                   "groupby_fold_wide": ("d1", "d3", "f1", "f3"),
+                  "multirule_fold_order": ("i5", "i6"),
                   "multirule_fold": ("i5", "i6"),
                   "multirule_fold_wide": ("i6",),
                   "sharded_fold_scalar": ("n4",)}
@@ -757,6 +772,17 @@ def time_ms(torch, fn, reps: int, prep=None) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def alternating_ms(torch, fns, reps: int, rounds: int = 5):
+    """time_ms of each of `fns`, taken in turn for `rounds` rounds, so that
+    a drift of the card's clock falls on each alike: each fn's list of
+    round times."""
+    out = [[] for _ in fns]
+    for _ in range(rounds):
+        for times, fn in zip(out, fns):
+            times.append(time_ms(torch, fn, reps))
+    return out
 
 
 def body_ms(torch, fn, kernel, reps: int, per_call: bool = False,
@@ -3362,10 +3388,163 @@ def rows_first(out):
     return out.permute(1, 0, 2).reshape(out.shape[1], -1)
 
 
+#: the kernels of one rule-group fold call: the row order (built inside
+#: where the caller gives none: its scratch's memset, the radix passes),
+#: the WHERE bits' pack (in the order where it is given the WHERE masks,
+#: else in the fold), the gather of the packed words, values and masks
+#: into the order, then the fold
+ORDER_KERNELS = ("Memset", "radix_hist_kernel", "radix_pass_kernel",
+                 "fold_order_finish_kernel")
+FOLD_KERNELS = ("pack_rule_bits_kernel", "fold_gather_kernel",
+                "multirule_fold_keys_kernel", "multirule_fold_pieces_kernel")
+WIDE_FOLD_KERNELS = ("pack_rule_bits_kernel", "multirule_fold_wide_kernel")
+#: Zipf exponent of phase 2's skewed group batch (a few keys hold most
+#: rows, thousands hold one)
+ZIPF_A = 1.3
+
+
+def sector_bytes(torch, flat):
+    """Bytes of the 32-byte float32 state sectors the flat element indices
+    touch, read once and written once."""
+    return 2 * 32 * int(torch.unique(flat // 8).numel())
+
+
+def group_touched_bytes(torch, kernels, state, base, M, slots, pane,
+                        pane_vec, colmap):
+    """What a group fold must read and write of the state, counted from
+    the batch: the sectors of act and of each component that a (rule,
+    row) past the rule's WHERE (and, for a column, its spec mask) folds
+    into, once each way."""
+    act = state["act"]
+    NR, P, C = act.shape
+    s = slots.long()
+    p = (pane_vec.long() if pane_vec is not None
+         else torch.full_like(s, pane))
+    ok = (s >= 0) & (s < C) & (p < P)
+    key = p.clamp(max=P - 1) * C + s.clamp(0, C - 1)
+    elem = torch.arange(NR, device=act.device)[:, None] * (P * C) + key
+    keep = base & ok[None, :]
+    total = sector_bytes(torch, elem[keep])
+    names = {j: c for c, j in kernels.COMP_IDS.items()}
+    cols = {}
+    for comp_id, k, spec in colmap.tolist():
+        K = state[names[comp_id]].shape[3]
+        cols.setdefault(comp_id, []).append(
+            elem[keep & M[spec][None, :]] * K + k)
+    for idx in cols.values():
+        total += sector_bytes(torch, torch.cat(idx))
+    return total
+
+
+def group_fold_row(torch, kernels, st, base, V, M, slots, pane, colmap, tag,
+                   pane_vec=None):
+    """#15's scalar fold of one batch into a copy of `st`, against the plain
+    version (n, act, mn, mx bit-equal, s1 / s2 within rtol 1e-5). Timed as
+    the node calls it (the row order built inside the call, a pane
+    vector's bound from the host), the fold alone on a given order, the
+    bodies of every kernel of the call, the host time of one call, the
+    plain version, the library scatters; with a pane vector also without
+    the host bound (the wrapper reads the vector's max back). Bound: the
+    inputs once, and the inputs plus the touched state sectors once each
+    way (counted from the batch)."""
+    ref, got = clone_state(st), clone_state(st)
+    NR, P, C = st["act"].shape
+    hi = None if pane_vec is None else int(pane_vec.max().item())
+    kernels.multirule_fold_plain(ref, base, V, M, slots, pane, colmap,
+                                 pane_vec)
+    kernels.multirule_fold(got, base, V, M, slots, pane, colmap, pane_vec,
+                           hi)
+    torch.cuda.synchronize()
+    err = state_err(got, ref)
+    del ref
+    fold = functools.partial(kernels.multirule_fold, got, base, V, M, slots,
+                             pane, colmap, pane_vec, hi)
+    order = kernels.multirule_fold_order(slots, pane, P, C, pane_vec)
+    t_k = time_ms(torch, fold, REPS)
+    t_f = time_ms(torch, functools.partial(
+        kernels.multirule_fold, got, base, V, M, slots, pane, colmap,
+        pane_vec, hi, order), REPS)
+    split = launch_split(torch, fold, ORDER_KERNELS + FOLD_KERNELS, REPS,
+                         per_call=True)
+    t_rb = None if pane_vec is None else time_ms(torch, functools.partial(
+        kernels.multirule_fold, got, base, V, M, slots, pane, colmap,
+        pane_vec), REPS)
+    t_p = time_ms(torch, lambda: kernels.multirule_fold_plain(
+        got, base, V, M, slots, pane, colmap, pane_vec), REPS)
+    lib_pane = pane if pane_vec is None else pane_vec.long()[None, :]
+    t_l = time_ms(torch, lambda: library_group_fold(
+        torch, got, base, V, M, slots, lib_pane, colmap, kernels), REPS)
+    S, n = V.shape
+    in_bytes = (V.numel() * 4 + M.numel() + base.numel() + n * 4
+                + (0 if pane_vec is None else n))
+    touched = group_touched_bytes(torch, kernels, st, base, M, slots, pane,
+                                  pane_vec, colmap)
+    # one add / min / max per (rule, row) past the WHERE for act and per
+    # state column whose spec mask holds (the parent kernel's atomics)
+    passing = int(base.sum().item())
+    updates = passing + sum(int((M[s][None, :] & base).sum().item())
+                            for s in colmap[:, 2].tolist())
+    b_in, _ = bound(in_bytes, updates)
+    b_ms, b_by = bound(in_bytes + touched, updates)
+    print(f"kernel multirule_fold {tag} R={NR} rows={n} P={P} C={C} "
+          f"cols={len(colmap)}: max_abs_err={err[0]:.3g} "
+          f"max_rel_err={err[1]:.3g} kernel_ms={t_k:.4f} "
+          f"fold_only_ms={t_f:.4f} {split_text(split)} "
+          + ("" if t_rb is None else f"readback_ms={t_rb:.4f} ")
+          + f"plain_ms={t_p:.4f} library_ms={t_l:.4f} bound_ms={b_ms:.5f} "
+          f"({b_by}; inputs {in_bytes / 1e6:.2f} MB + touched state "
+          f"{touched / 1e6:.2f} MB) bound_inputs_ms={b_in:.5f} "
+          f"updates={updates} ({passing} rule-rows past WHERE)")
+    return dict(max_abs_err=err[0], max_rel_err=err[1], ms=t_k,
+                fold_only_ms=t_f, **split, readback_ms=t_rb, plain_ms=t_p,
+                bound_ms=b_ms, bound_by=b_by, bound_inputs_ms=b_in,
+                library_ms=t_l, input_bytes=in_bytes,
+                touched_state_bytes=touched, updates=updates,
+                rule_rows=passing)
+
+
+def fold_order_row(torch, kernels, slots, pane, P, C, tag, base,
+                   pane_vec=None):
+    """The rule-group folds' row order (a helper kernel of the port) against
+    its plain version (rows and offsets equal, and with the chunk's WHERE
+    masks `base` their packed words too), timed without the masks (the
+    sort alone); the library yardstick is torch's stable argsort of the
+    precomputed keys (the offsets not included)."""
+    got = kernels.multirule_fold_order(slots, pane, P, C, pane_vec, base)
+    want = kernels.multirule_fold_order_plain(slots, pane, P, C, pane_vec,
+                                              base)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(got.rows, want.rows))
+          and bool(torch.equal(got.offsets, want.offsets))
+          and bool(torch.equal(got.bits, want.bits)),
+          f"multirule_fold_order {tag}: differs from its plain version")
+    fn = functools.partial(kernels.multirule_fold_order, slots, pane, P, C,
+                           pane_vec)
+    t_k = time_ms(torch, fn, REPS)
+    split = launch_split(torch, fn, ORDER_KERNELS, REPS, per_call=True)
+    t_p = time_ms(torch, lambda: kernels.multirule_fold_order_plain(
+        slots, pane, P, C, pane_vec), REPS)
+    s = slots.long()
+    p = pane_vec.long() if pane_vec is not None else torch.full_like(s, pane)
+    key = torch.where((s >= 0) & (s < C) & (p < P), p * C + s, P * C)
+    t_l = time_ms(torch, lambda: torch.argsort(key, stable=True), REPS)
+    n = slots.shape[0]
+    nbytes = n * 4 + (0 if pane_vec is None else n) + n * 4 + (P * C + 1) * 4
+    b_ms, b_by = bound(nbytes, 0)
+    print(f"kernel multirule_fold_order {tag} rows={n} P={P} C={C}: "
+          f"rows and offsets equal kernel_ms={t_k:.4f} {split_text(split)} "
+          f"plain_ms={t_p:.4f} library_ms={t_l:.4f} (argsort stable) "
+          f"bound_ms={b_ms:.5f} ({b_by})")
+    return dict(max_abs_err=0.0, max_rel_err=0.0, ms=t_k, **split,
+                plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+
+
 def group_kernel_checks(torch, seed, kernels, plan_rule_group, dev):
-    """The three rule-group kernels against their plain versions at E1's
-    shapes (256 rules, 65,536 rows, 16,384 slots, 67 MB of state), the
-    finalize also at E3's two panes under a subset mask."""
+    """The rule-group kernels against their plain versions at E1's shapes
+    (256 rules, 65,536 rows, 16,384 slots, 67 MB of state): the fold (also
+    on Zipf-skewed slots and on one slot taking every row) and its row
+    order, the finalize (also at E3's two panes under a subset mask) and
+    the reset."""
     rows = {}
     node = plan_rule_group(rule_ids("e1_", E1_RULES), e1_sqls(),
                            key_slots=SLOTS, micro_batch=ROWS, device=dev)
@@ -3379,41 +3558,18 @@ def group_kernel_checks(torch, seed, kernels, plan_rule_group, dev):
     colmap = gb._colmap
     st = gb.init_state()
     state_bytes = sum(a.numel() * 4 for a in st.values())
-    ref, got = clone_state(st), clone_state(st)
-    kernels.multirule_fold_plain(ref, base, V, M, s_dev, 0, colmap)
-    kernels.multirule_fold(got, base, V, M, s_dev, 0, colmap)
-    torch.cuda.synchronize()
-    err = state_err(got, ref)
-    fold = functools.partial(kernels.multirule_fold, got, base, V, M, s_dev,
-                             0, colmap)
-    t_k = time_ms(torch, fold, REPS)
-    split = launch_split(torch, fold, "multirule_fold_kernel", REPS)
-    t_p = time_ms(torch, lambda: kernels.multirule_fold_plain(
-        ref, base, V, M, s_dev, 0, colmap), REPS)
-    t_l = time_ms(torch, lambda: library_group_fold(
-        torch, ref, base, V, M, s_dev, 0, colmap, kernels), REPS)
-    S, n = V.shape
-    in_bytes = V.numel() * 4 + M.numel() + base.numel() + n * 4
-    # one atomic per (rule, row) past the rule's WHERE for act, and one per
-    # state column whose spec mask holds: what this batch's data needs
-    passing = int(base.sum().item())
-    col_atomics = sum(int((M[s][None, :] & base).sum().item())
-                      for s in colmap[:, 2].tolist())
-    atomics = passing + col_atomics
-    b_ms, b_by = bound(in_bytes, atomics)
-    print(f"kernel multirule_fold R={E1_RULES} rows={n} C={SLOTS} "
-          f"cols={len(colmap)}: max_abs_err={err[0]:.3g} "
-          f"max_rel_err={err[1]:.3g} kernel_ms={t_k:.4f} "
-          f"{split_text(split)} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
-          f"bound_ms={b_ms:.5f} ({b_by}; inputs {in_bytes / 1e6:.2f} MB) "
-          f"atomics={atomics} ({passing} rule-rows past WHERE) "
-          f"atomics_per_s={atomics / (t_k / 1e3):.4g} "
-          f"state_MB={state_bytes / 1e6:.1f}")
-    rows["multirule_fold"] = dict(
-        max_abs_err=err[0], max_rel_err=err[1], ms=t_k, **split,
-        plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l,
-        input_bytes=in_bytes, atomics=atomics, rule_rows=passing,
-        atomics_per_s=atomics / (t_k / 1e3), state_bytes=state_bytes)
+    rows["multirule_fold"] = group_fold_row(
+        torch, kernels, st, base, V, M, s_dev, 0, colmap, "uniform")
+    rows["multirule_fold_order"] = fold_order_row(torch, kernels, s_dev, 0,
+                                                  1, SLOTS, "e1", base)
+    # the skewed batches: Zipf-skewed slots, one slot taking every row
+    zipf = np.minimum(r.zipf(ZIPF_A, ROWS) - 1, N_KEYS - 1).astype(np.int32)
+    for tag, sl in (("zipf", zipf), ("one_slot", np.full(ROWS, 7, np.int32))):
+        rows[f"multirule_fold/{tag}"] = group_fold_row(
+            torch, kernels, st, base, V, M, torch.from_numpy(sl).to(dev), 0,
+            colmap, tag)
+    got = clone_state(st)
+    kernels.multirule_fold_plain(got, base, V, M, s_dev, 0, colmap)
 
     # finalize: every rule, the key cut of 10,000 keys (K = 16,384)
     K = gb._slice_keys(N_KEYS)
@@ -3448,21 +3604,25 @@ def group_kernel_checks(torch, seed, kernels, plan_rule_group, dev):
     torch.cuda.synchronize()
     err = state_err(a, b, exact=tuple(a))
     reset = functools.partial(kernels.multirule_reset_pane, a, 0)
-    t_k = time_ms(torch, reset, REPS)
-    split = launch_split(torch, reset, "multirule_reset_kernel", REPS)
     # the plain version is the library yardstick itself: one fill_ per
-    # component over every rule's pane
-    t_p = t_l = time_ms(
-        torch, lambda: kernels.multirule_reset_pane_plain(b, 0), REPS)
+    # component over every rule's pane; the two timed in turn
+    k_ms, f_ms = alternating_ms(torch, (reset, functools.partial(
+        kernels.multirule_reset_pane_plain, b, 0)), REPS)
+    t_k, t_p = statistics.median(k_ms), statistics.median(f_ms)
+    t_l = t_p
+    split = launch_split(torch, reset, "multirule_reset_kernel", REPS)
     b_ms, b_by = bound(state_bytes, 0)
     print(f"kernel multirule_reset_pane R={E1_RULES} P=1 C={SLOTS}: "
           f"max_abs_err={err[0]:.3g} max_rel_err={err[1]:.3g} "
           f"kernel_ms={t_k:.4f} {split_text(split)} plain_ms={t_p:.4f} "
-          f"library_ms={t_l:.4f} bound_ms={b_ms:.5f} ({b_by})")
+          f"library_ms={t_l:.4f} bound_ms={b_ms:.5f} ({b_by}) "
+          f"rounds kernel {' '.join(f'{t:.4f}' for t in k_ms)} fill_ "
+          f"{' '.join(f'{t:.4f}' for t in f_ms)}")
     rows["multirule_reset_pane"] = dict(
         max_abs_err=err[0], max_rel_err=err[1], ms=t_k, **split,
-        plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
-    del node, gb, st, ref, got, a, b
+        plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l,
+        kernel_rounds_ms=k_ms, library_rounds_ms=f_ms)
+    del node, gb, st, got, a, b
 
     # E3's shape: two panes, the finalize under the subset mask [1]
     node = plan_rule_group(rule_ids("e3_", E1_RULES), e1_sqls(E_HOPPING),
@@ -3543,6 +3703,59 @@ def group_wide_updates(torch, gb, base, V, M, slots, pane, sketches):
     return comp, idx[keep], val[keep], int(keep.sum().item())
 
 
+def group_wide_row(torch, kernels, sketches, gb, got, ref, base, V, M, slots,
+                   pane, tag, comp, state_bytes, pane_vec=None):
+    """#15's wide fold of one batch timed as the node calls it (the row
+    order and the packed WHERE bits built once for both folds and given; a
+    pane vector's bound from the host), with a pane vector also without the host bound; the bodies
+    of its kernels, the host time of one call, the plain version, the
+    library scatter on precomputed indices and with their build
+    (library_idx_ms). Bound: the inputs once, and the inputs plus the
+    touched state sectors once each way (counted from the batch)."""
+    P, C = gb.n_panes, gb.capacity
+    hi = None if pane_vec is None else int(pane_vec.max().item())
+    order = kernels.multirule_fold_order(slots, pane, P, C, pane_vec, base)
+    fold = functools.partial(kernels.multirule_fold_wide, got, base, V, M,
+                             slots, pane, gb._widemap, pane_vec, hi, order)
+    t_k = time_ms(torch, fold, REPS)
+    split = launch_split(torch, fold, WIDE_FOLD_KERNELS, REPS,
+                         per_call=True)
+    t_rb = None if pane_vec is None else time_ms(torch, functools.partial(
+        kernels.multirule_fold_wide, got, base, V, M, slots, pane,
+        gb._widemap, pane_vec, None, order), REPS)
+    t_p = time_ms(torch, lambda: kernels.multirule_fold_wide_plain(
+        ref, base, V, M, slots, pane, gb._widemap, pane_vec), REPS)
+    lib_pane = pane if pane_vec is None else pane_vec.long()[None, :]
+    _, idx, val, n_upd = group_wide_updates(torch, gb, base, V, M, slots,
+                                            lib_pane, sketches)
+    t_l = time_ms(torch, lambda: library_group_fold_wide(
+        torch, ref, idx, val, comp), REPS)
+    t_li = time_ms(torch, lambda: library_group_fold_wide(
+        torch, ref, *group_wide_updates(torch, gb, base, V, M, slots,
+                                        lib_pane, sketches)[1:3], comp),
+        REPS)
+    touched = sector_bytes(torch, idx)
+    s = int(gb._widemap[0, 2])
+    in_bytes = (base.numel() + V[s].numel() * 4 + M[s].numel()
+                + slots.numel() * 4 + (0 if pane_vec is None else ROWS))
+    b_in, _ = bound(in_bytes, n_upd)
+    b_ms, b_by = bound(in_bytes + touched, n_upd)
+    print(f"kernel multirule_fold_wide {tag} R={gb.n_rules} "
+          f"rows={slots.numel()} P={P} C={C}: bit-equal kernel_ms={t_k:.4f} "
+          f"{split_text(split)} "
+          + ("" if t_rb is None else f"readback_ms={t_rb:.4f} ")
+          + f"plain_ms={t_p:.4f} library_ms={t_l:.4f} "
+          f"library_idx_ms={t_li:.4f} bound_ms={b_ms:.5f} ({b_by}; inputs "
+          f"{in_bytes / 1e6:.2f} MB + touched state {touched / 1e6:.2f} MB, "
+          f"{n_upd} updates) bound_inputs_ms={b_in:.5f} "
+          f"state_MB={state_bytes / 1e6:.1f}")
+    return dict(max_abs_err=0.0, max_rel_err=0.0, ms=t_k, **split,
+                readback_ms=t_rb, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                bound_inputs_ms=b_in, library_ms=t_l, library_idx_ms=t_li,
+                input_bytes=in_bytes, touched_state_bytes=touched,
+                updates=n_upd, state_bytes=state_bytes)
+
+
 def wide_group_kernel_checks(torch, seed, kernels, sketches, plan_rule_group,
                              dev):
     """The batched wide fold (#15's hll / hist branches), the batched wide
@@ -3578,31 +3791,10 @@ def wide_group_kernel_checks(torch, seed, kernels, sketches, plan_rule_group,
         check(bool(torch.equal(got[comp], ref[comp])),
               f"multirule_fold_wide {fam}: differs from its plain version")
         pane = gb.n_panes - 1
-        fold = functools.partial(kernels.multirule_fold_wide, got, base, V,
-                                 M, s_dev, pane, gb._widemap)
-        t_k = time_ms(torch, fold, REPS)
-        split = launch_split(torch, fold, "multirule_fold_wide_kernel", REPS)
-        t_p = time_ms(torch, lambda: kernels.multirule_fold_wide_plain(
-            ref, base, V, M, s_dev, pane, gb._widemap), REPS)
-        _, idx, val, n_upd = group_wide_updates(torch, gb, base, V, M, s_dev,
-                                                pane, sketches)
-        t_l = time_ms(torch, lambda: library_group_fold_wide(
-            torch, ref, idx, val, comp), REPS)
-        s = int(gb._widemap[0, 2])
-        in_bytes = base.numel() + V[s].numel() * 4 + M[s].numel() + ROWS * 4
-        b_ms, b_by = bound(in_bytes, n_upd)
-        print(f"kernel multirule_fold_wide {fam} R={H5_RULES} rows={ROWS} "
-              f"P={gb.n_panes} C={SLOTS}: bit-equal kernel_ms={t_k:.4f} "
-              f"{split_text(split)} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
-              f"bound_ms={b_ms:.5f} ({b_by}; inputs {in_bytes / 1e6:.2f} MB,"
-              f" {n_upd} updates) updates_per_s={n_upd / (t_k / 1e3):.4g} "
-              f"state_MB={state_bytes / 1e6:.1f}")
-        rows[f"multirule_fold_wide/{fam}"] = dict(
-            max_abs_err=0.0, max_rel_err=0.0, ms=t_k, **split, plain_ms=t_p,
-            bound_ms=b_ms, bound_by=b_by, library_ms=t_l,
-            input_bytes=in_bytes, updates=n_upd,
-            updates_per_s=n_upd / (t_k / 1e3), state_bytes=state_bytes)
-        del ref, idx, val
+        rows[f"multirule_fold_wide/{fam}"] = group_wide_row(
+            torch, kernels, sketches, gb, got, ref, base, V, M, s_dev, pane,
+            fam, comp, state_bytes)
+        del ref
 
         # the wide finalize into the scalar finalize's result, the key cut
         # of 10,000 keys (K = 16,384), every pane
@@ -3662,21 +3854,25 @@ def wide_group_kernel_checks(torch, seed, kernels, sketches, plan_rule_group,
         check(all(bool(torch.equal(a[c], got[c])) for c in got),
               f"multirule_reset_pane {fam}: differs over wide state")
         reset = functools.partial(kernels.multirule_reset_pane, a, pane)
-        t_k = time_ms(torch, reset, REPS)
-        split = launch_split(torch, reset, "multirule_reset_kernel", REPS)
         # the plain version is the library yardstick itself: one fill_ per
-        # component over every rule's pane
-        t_p = t_l = time_ms(
-            torch, lambda: kernels.multirule_reset_pane_plain(got, pane), REPS)
+        # component over every rule's pane; the two timed in turn
+        k_ms, f_ms = alternating_ms(torch, (reset, functools.partial(
+            kernels.multirule_reset_pane_plain, got, pane)), REPS)
+        t_k, t_p = statistics.median(k_ms), statistics.median(f_ms)
+        t_l = t_p
+        split = launch_split(torch, reset, "multirule_reset_kernel", REPS)
         b_ms, b_by = bound(state_bytes // gb.n_panes, 0)
         print(f"kernel multirule_reset_pane {fam} wide R={H5_RULES} "
               f"P={gb.n_panes} C={SLOTS}: bit-equal kernel_ms={t_k:.4f} "
               f"{split_text(split)} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
               f"bound_ms={b_ms:.5f} ({b_by}; a pane of "
-              f"{state_bytes / gb.n_panes / 1e9:.3f} GB)")
+              f"{state_bytes / gb.n_panes / 1e9:.3f} GB) rounds kernel "
+              f"{' '.join(f'{t:.4f}' for t in k_ms)} fill_ "
+              f"{' '.join(f'{t:.4f}' for t in f_ms)}")
         rows[f"multirule_reset_pane/{fam}"] = dict(
             max_abs_err=0.0, max_rel_err=0.0, ms=t_k, **split, plain_ms=t_p,
-            bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+            bound_ms=b_ms, bound_by=b_by, library_ms=t_l,
+            kernel_rounds_ms=k_ms, library_rounds_ms=f_ms)
         del node, gb, st, got, a
         torch.cuda.empty_cache()
     return rows
@@ -4000,8 +4196,10 @@ def run_phase_e(torch, seed, kernels, plan_rule_group, ColumnBatch):
         res[tag] = group_result(tag, probe, node, wall,
                                 n_win * BATCHES * ROWS, fold_ms, launches,
                                 n_win, out)
-        check(launches["multirule_fold"] == n_win * BATCHES,
-              f"{tag}: {launches['multirule_fold']} fold launches")
+        check(launches["multirule_fold"] == n_win * BATCHES
+              and launches["multirule_fold_order"] == n_win * BATCHES,
+              f"{tag}: {launches['multirule_fold']} fold launches, "
+              f"{launches['multirule_fold_order']} row orders")
         check(launches["multirule_finalize"] == n_win
               and launches["multirule_reset_pane"] == n_win,
               f"{tag}: one finalize and one reset per boundary: {launches}")
@@ -4043,6 +4241,7 @@ def run_phase_e(torch, seed, kernels, plan_rule_group, ColumnBatch):
     # each node folds each batch in one launch (a batch is one chunk) and
     # finalizes once a window: the shared counts are four nodes' worth
     check(launches["multirule_fold"] == 4 * n_win * BATCHES
+          and launches["multirule_fold_order"] == 4 * n_win * BATCHES
           and launches["multirule_finalize"] == 4 * n_win
           and launches["multirule_reset_pane"] == 4 * n_win,
           f"e2: launches {launches}")
@@ -5248,7 +5447,9 @@ def run_h5(torch, seed, kernels, plan_rule_group, ColumnBatch):
         launches = dict(kernels.LAUNCHES)
         check(not node.recoveries, f"{tag}: recovery routes taken")
         n_win = H5_WINDOWS
+        # the row order built once a batch and read by both folds
         check(launches["multirule_fold_wide"] == n_win * BATCHES
+              and launches["multirule_fold_order"] == n_win * BATCHES
               and launches["multirule_finalize_wide"] == n_win
               and launches["multirule_reset_pane"] == n_win,
               f"{tag}: launches {launches}")
@@ -5412,10 +5613,13 @@ def event_group_kernel_checks(torch, seed, kernels, sketches, dev):
     window's I5_PANES panes) and I6's (the 63-rule hll family on its
     I6_PANES panes, 5.3 GB of registers), a batch across a bucket edge:
     bit-equal on n, act, mn, mx and the registers, s1 / s2 within rtol
-    1e-5, and a constant vector equal to the scalar pane. Timed: the
-    wrapper's device time (its range check, a reduction and a read back of
-    the vector's max, included), the kernel body, the plain version, the
-    library scatters over the (rule, row pane, slot) flat index."""
+    1e-5, and a constant vector equal to the scalar pane. Timed as the
+    node calls them (the vector's largest pane from the host, no read
+    back; the row order built once a chunk), and once without the host
+    bound (the wrapper reads the vector's max back: readback_ms), beside
+    the same folds into one scalar pane; the kernel bodies, the plain
+    version, the library scatters over the (rule, row pane, slot) flat
+    index; and the row order with the pane vector."""
     from ekuiper_tpu_torch.parallel.multirule import (BatchedGroupBy,
                                                       build_rule_batch)
     from ekuiper_tpu_torch.sql.parser import parse_select
@@ -5442,7 +5646,7 @@ def event_group_kernel_checks(torch, seed, kernels, sketches, dev):
     kernels.multirule_fold_plain(ref, base, V, M, s_dev, 0, colmap, pv)
     kernels.multirule_fold(got, base, V, M, s_dev, 0, colmap, pv)
     torch.cuda.synchronize()
-    err = state_err(got, ref)
+    state_err(got, ref)
     check(bool(got["act"][:, 1].any()) and bool(got["act"][:, 2].any())
           and not bool(got["act"][:, 0].any()),
           "multirule_fold pane vector: rows not in their panes")
@@ -5453,36 +5657,16 @@ def event_group_kernel_checks(torch, seed, kernels, sketches, dev):
     torch.cuda.synchronize()
     state_err(a, b)
     del a, b, ref
-    fold = functools.partial(kernels.multirule_fold, got, base, V, M, s_dev,
-                             0, colmap, pv)
-    t_k = time_ms(torch, fold, REPS)
-    split = launch_split(torch, fold, "multirule_fold_kernel", REPS)
-    t_s = time_ms(torch, functools.partial(
+    edge = int((pv_np == 1).sum())
+    row = group_fold_row(torch, kernels, st, base, V, M, s_dev, 0, colmap,
+                         f"pane_vec panes 1|2 at row {edge}", pv)
+    row["scalar_pane_ms"] = t_s = time_ms(torch, functools.partial(
         kernels.multirule_fold, got, base, V, M, s_dev, 1, colmap), REPS)
-    t_p = time_ms(torch, lambda: kernels.multirule_fold_plain(
-        got, base, V, M, s_dev, 0, colmap, pv), REPS)
-    t_l = time_ms(torch, lambda: library_group_fold(
-        torch, got, base, V, M, s_dev, pv.long()[None, :], colmap, kernels),
-        REPS)
-    S, n = V.shape
-    in_bytes = V.numel() * 4 + M.numel() + base.numel() + n * 4 + n
-    passing = int(base.sum().item())
-    atomics = passing + sum(int((M[s][None, :] & base).sum().item())
-                            for s in colmap[:, 2].tolist())
-    b_ms, b_by = bound(in_bytes, atomics)
-    print(f"kernel multirule_fold pane_vec R={E1_RULES} rows={n} "
-          f"P={I5_PANES} C={SLOTS} panes 1|2 at row {int((pv_np == 1).sum())}"
-          f": max_abs_err={err[0]:.3g} max_rel_err={err[1]:.3g} (constant "
-          f"vector = scalar pane) kernel_ms={t_k:.4f} {split_text(split)} "
-          f"scalar_pane_kernel_ms={t_s:.4f} plain_ms={t_p:.4f} "
-          f"library_ms={t_l:.4f} bound_ms={b_ms:.5f} ({b_by}; inputs "
-          f"{in_bytes / 1e6:.2f} MB) atomics={atomics} "
+    print(f"kernel multirule_fold pane_vec: scalar_pane_kernel_ms={t_s:.4f} "
           f"state_MB={state_bytes / 1e6:.1f}")
-    rows["multirule_fold/pane_vec"] = dict(
-        max_abs_err=err[0], max_rel_err=err[1], ms=t_k, **split,
-        scalar_pane_ms=t_s, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
-        library_ms=t_l, input_bytes=in_bytes, atomics=atomics,
-        state_bytes=state_bytes)
+    rows["multirule_fold/pane_vec"] = row
+    rows["multirule_fold_order/pane_vec"] = fold_order_row(
+        torch, kernels, s_dev, 0, I5_PANES, SLOTS, "pane_vec", base, pv)
     del gb, st, got, base, V, M
     torch.cuda.empty_cache()
 
@@ -5519,36 +5703,19 @@ def event_group_kernel_checks(torch, seed, kernels, sketches, dev):
     check(bool(torch.equal(a["hll"][:, 4], got["hll"][:, 4])),
           "multirule_fold_wide: a constant vector differs from its pane")
     del a
-    fold = functools.partial(kernels.multirule_fold_wide, got, base, V, M,
-                             s_dev, 0, gb._widemap, pv)
-    t_k = time_ms(torch, fold, REPS)
-    split = launch_split(torch, fold, "multirule_fold_wide_kernel", REPS)
-    t_s = time_ms(torch, functools.partial(
-        kernels.multirule_fold_wide, got, base, V, M, s_dev, 2, gb._widemap),
-        REPS)
-    t_p = time_ms(torch, lambda: kernels.multirule_fold_wide_plain(
-        got, base, V, M, s_dev, 0, gb._widemap, pv), REPS)
-    _, idx, val, n_upd = group_wide_updates(
-        torch, gb, base, V, M, s_dev, pv.long()[None, :], sketches)
-    t_l = time_ms(torch, lambda: library_group_fold_wide(
-        torch, got, idx, val, "hll"), REPS)
-    s = int(gb._widemap[0, 2])
-    in_bytes = (base.numel() + V[s].numel() * 4 + M[s].numel() + ROWS * 4
-                + ROWS)
-    b_ms, b_by = bound(in_bytes, n_upd)
-    print(f"kernel multirule_fold_wide pane_vec hll R={H5_RULES} "
-          f"rows={ROWS} P={I6_PANES} C={SLOTS} panes 2|3: bit-equal "
-          f"(constant vector = scalar pane) kernel_ms={t_k:.4f} "
-          f"{split_text(split)} scalar_pane_kernel_ms={t_s:.4f} "
-          f"plain_ms={t_p:.4f} library_ms={t_l:.4f} bound_ms={b_ms:.5f} "
-          f"({b_by}; inputs {in_bytes / 1e6:.2f} MB, {n_upd} updates) "
-          f"state_MB={state_bytes / 1e6:.1f}")
-    rows["multirule_fold_wide/pane_vec"] = dict(
-        max_abs_err=0.0, max_rel_err=0.0, ms=t_k, **split,
-        scalar_pane_ms=t_s, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
-        library_ms=t_l, input_bytes=in_bytes, updates=n_upd,
-        state_bytes=state_bytes)
-    del gb, st, got, idx, val
+    ref = clone_state(got)
+    row = group_wide_row(torch, kernels, sketches, gb, got, ref, base, V, M,
+                         s_dev, 0, "pane_vec hll panes 2|3", "hll",
+                         state_bytes, pv)
+    del ref
+    o2 = kernels.multirule_fold_order(s_dev, 2, I6_PANES, SLOTS, None, base)
+    row["scalar_pane_ms"] = t_s = time_ms(torch, functools.partial(
+        kernels.multirule_fold_wide, got, base, V, M, s_dev, 2, gb._widemap,
+        None, None, o2), REPS)
+    print(f"kernel multirule_fold_wide pane_vec: scalar_pane_kernel_ms="
+          f"{t_s:.4f}")
+    rows["multirule_fold_wide/pane_vec"] = row
+    del gb, st, got
     torch.cuda.empty_cache()
     return rows
 
@@ -7877,7 +8044,8 @@ def main() -> int:
                  "groupby_hh_finalize": "hh", "groupby_components": "c1",
                  "groupby_absorb": "c1_host", "ring_advance": "d1",
                  "ring_flip": "d1", "ring_query": "d1",
-                 "multirule_fold": "e1", "multirule_finalize": "e1",
+                 "multirule_fold": "e1", "multirule_fold_order": "e1",
+                 "multirule_finalize": "e1",
                  "multirule_reset_pane": "e1",
                  "groupby_fold_masked_scalar": "f2",
                  "groupby_fold_masked_wide": "f1",
@@ -7905,7 +8073,8 @@ def main() -> int:
     # the folds with a per-row pane vector (the sliding paths)
     # (and #15's per-row pane vector, the event-time groups)
     for k, name in ((0, "groupby_fold_scalar"), (3, "groupby_fold_wide"),
-                    (11, "multirule_fold"), (18, "multirule_fold_wide")):
+                    (11, "multirule_fold"), (18, "multirule_fold_wide"),
+                    (28, "multirule_fold_order")):
         table["kernels"][k]["pane_vec"] = dict(
             rows[f"{name}/pane_vec"], launches_by_path={
                 p: sliding[p]["row_pane"][name]
@@ -7914,6 +8083,9 @@ def main() -> int:
                     (10, "ring_query")):
         table["kernels"][k]["scalar_rule"] = rows[f"{name}/scalar"]
         table["kernels"][k]["hll_rule"] = rows[f"{name}/hll"]
+    # #15 on skewed slots: Zipf-skewed, one slot taking every row
+    for tag in ("zipf", "one_slot"):
+        table["kernels"][11][tag] = rows[f"multirule_fold/{tag}"]
     table["kernels"][12]["hopping_subset"] = rows[
         "multirule_finalize/hopping_subset"]
     table["kernels"][15]["hll_rule"] = rows["groupby_fold_masked_wide/hll"]
@@ -7958,8 +8130,11 @@ def main() -> int:
                              else tag] = rows[f"shard_merge/{tag}"]
     check([k["name"] for k in table["kernels"][23:]]
           == ["cms_update", "cms_query", "sharded_fold_scalar",
-              "sharded_fold_wide", "shard_merge"], "kernel table order")
-    check(len(table["kernels"]) == 28, "kernel table")
+              "sharded_fold_wide", "shard_merge", "multirule_fold_order"],
+          "kernel table order")
+    check([k["name"] for k in table["kernels"]][11] == "multirule_fold",
+          "kernel table order")
+    check(len(table["kernels"]) == 29, "kernel table")
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -89,28 +89,12 @@
 // passes and the arrival scan, eight passes and the value scan). The tile
 // sizes were chosen on the H100 among 1,024, 2,048 and 4,096 rows (PERF.md).
 
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
-#define SEG_THREADS 256
-#define SEG_WARPS (SEG_THREADS / 32)
-#define RADIX_ITEMS 4
-#define RADIX_TILE (SEG_THREADS * RADIX_ITEMS)  // keys a pass's block ranks
+#include "radix_sort.cuh"
+
 #define SCAN_ITEMS 4
 #define SCAN_TILE (SEG_THREADS * SCAN_ITEMS)    // rows a scan's block takes
-#define DIGITS 256
-#define BINS (DIGITS + 1)       // the digits' bins, then the pad rows'
-#define NO_BIN BINS             // a lane past the batch's end
-#define PLACES 8                // 8-bit digit places of the 64-bit key
-#define PAD_BIT 0x80000000u     // payload flag of a pad row
-#define LB_AGG 0x40000000u      // look-back word: this tile's own count
-#define LB_INCL 0x80000000u     // ... the count of it and every tile before
-#define LB_COUNT 0x3fffffffu
-#define LB_BATCH 16             // look-back words read at once
-#define SPIN_LIMIT (1 << 22)
-#define MAX_B (1 << 29)         // counts and positions stay below 2^30
-#define FULL_MASK 0xffffffffu
 
 __device__ __forceinline__ float qnan() { return __int_as_float(0x7fc00000); }
 
@@ -138,64 +122,6 @@ __global__ void join_match_kernel(const int32_t* __restrict__ slot_l,
   }
 }
 
-// ------------------------------------------------------------- the sort
-// Written by radix_hist_kernel (zeroed before it), read by later launches.
-struct SortPlan {
-  uint32_t plan[2];      // places each sort runs (bit d = place d): the
-                         // arrival order's, the value order's
-  uint32_t n_real;       // rows that are not pads
-  uint32_t npad;
-  uint32_t max_real1;    // the last real row's arrival index + 1
-  uint32_t done;         // histogram blocks finished
-  uint32_t ticket[12];   // the passes' tile tickets, by status slot
-  uint32_t scan_ticket[2];
-  uint32_t hist[PLACES][DIGITS];
-};
-
-struct SortBufs {
-  const unsigned long long* k0;  // keys in arrival order
-  const uint32_t* p0;            // arrival index | PAD_BIT
-  unsigned long long* k[2];      // the passes' ping-pong buffers
-  uint32_t* p[2];
-};
-
-// Where a sort leaves its keys after `passes` passes (pass k reads here
-// with passes = k and writes k[k & 1], p[k & 1]).
-__device__ __forceinline__ void sorted_by(const SortBufs& sb, int passes,
-                                          const unsigned long long** k,
-                                          const uint32_t** p) {
-  if (passes == 0) {
-    *k = sb.k0;
-    *p = sb.p0;
-  } else {
-    *k = sb.k[(passes - 1) & 1];
-    *p = sb.p[(passes - 1) & 1];
-  }
-}
-
-// Look-back words, written once per state. A pass's word holds its count,
-// so a volatile store is enough; a scan record's flag is published after a
-// fence, behind the fields it announces.
-__device__ __forceinline__ void store_word(uint32_t* p, uint32_t v) {
-  *(volatile uint32_t*)p = v;
-}
-
-__device__ __forceinline__ void publish_word(uint32_t* p, uint32_t v) {
-  __threadfence();
-  store_word(p, v);
-}
-
-__device__ __forceinline__ uint32_t read_word(const uint32_t* p) {
-  return *(const volatile uint32_t*)p;
-}
-
-// After a look-back read found a tile not yet published: false once the
-// spins reach SPIN_LIMIT (a fault, never a hang).
-__device__ __forceinline__ bool wait_more(int* spins) {
-  if (++*spins > SPIN_LIMIT) return false;
-  if (*spins > 64) __nanosleep(128);
-  return true;
-}
 
 // A float's bits, mapped so that unsigned order is numeric order.
 __device__ __forceinline__ uint32_t ordered_bits(float f) {
@@ -209,257 +135,23 @@ __device__ __forceinline__ uint32_t value_bits(float v) {
   return ordered_bits(isnan(v) ? INFINITY : (v == 0.f ? 0.f : v));
 }
 
-// Exclusive sum over the block of one value a thread (SEG_THREADS
-// threads); *total gets the block's sum.
-__device__ __forceinline__ uint32_t block_exclusive_sum(uint32_t v,
-                                                        uint32_t* s_warp,
-                                                        uint32_t* total) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  uint32_t x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const uint32_t y = __shfl_up_sync(FULL_MASK, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) s_warp[w] = x;
-  __syncthreads();
-  uint32_t before = 0, sum = 0;
-#pragma unroll
-  for (int i = 0; i < SEG_WARPS; ++i) {
-    const uint32_t t = s_warp[i];
-    if (i < w) before += t;
-    sum += t;
-  }
-  __syncthreads();
-  *total = sum;
-  return before + x - v;
-}
-
-// Keys, payloads and the digit counts of every place (VALUE: the value's
-// four places and the segment's, else the segment's), over a grid-stride
-// loop; the last block to finish writes the plan.
+// The sort's rows: a segment id, a pad flag (valid false) and, for the
+// value order, the value's bits.
 template <bool VALUE>
-__global__ void __launch_bounds__(SEG_THREADS)
-    radix_hist_kernel(const int32_t* __restrict__ seg,
-                      const float* __restrict__ vals,
-                      const uint8_t* __restrict__ valid, int B,
-                      unsigned long long* __restrict__ k0,
-                      uint32_t* __restrict__ p0, SortPlan* __restrict__ sp,
-                      int32_t* __restrict__ continued) {
-  __shared__ uint32_t s_hist[PLACES][DIGITS];
-  __shared__ uint32_t s_npad, s_max1;
-  __shared__ int s_last;
-  const int tid = threadIdx.x, lane = tid & 31;
-  for (int i = tid; i < PLACES * DIGITS; i += SEG_THREADS)
-    s_hist[i / DIGITS][i % DIGITS] = 0;
-  if (tid == 0) {
-    s_npad = 0;
-    s_max1 = 0;
-    if (continued != nullptr && blockIdx.x == 0) *continued = 0;
+struct SegSrc {
+  const int32_t* seg;
+  const float* vals;
+  const uint8_t* valid;
+  __device__ __forceinline__ void row(long long i, bool* pad, uint32_t* s,
+                                      uint32_t* vb) const {
+    *pad = valid[i] == 0;
+    *s = (uint32_t)seg[i];
+    if (VALUE) *vb = value_bits(vals[i]);
   }
-  __syncthreads();
-  const long long stride = (long long)gridDim.x * SEG_THREADS;
-  for (long long base = (long long)blockIdx.x * SEG_THREADS; base < B;
-       base += stride) {
-    const long long i = base + tid;
-    const bool in = i < B;
-    bool pad = false;
-    uint32_t s = 0, vb = 0;
-    if (in) {
-      pad = valid[i] == 0;
-      s = (uint32_t)seg[i];
-      if (VALUE) vb = value_bits(vals[i]);
-      k0[i] = ((unsigned long long)s << 32) | vb;
-      p0[i] = (uint32_t)i | (pad ? PAD_BIT : 0u);
-    }
-    const bool real = in && !pad;
-    const uint32_t pads = __ballot_sync(FULL_MASK, in && pad);
-    const uint32_t m = __reduce_max_sync(FULL_MASK,
-                                         real ? (uint32_t)i + 1u : 0u);
-    if (lane == 0) {
-      if (pads) atomicAdd(&s_npad, (uint32_t)__popc(pads));
-      if (m) atomicMax(&s_max1, m);
-    }
-#pragma unroll
-    for (int d = VALUE ? 0 : 4; d < PLACES; ++d) {
-      const uint32_t bin = real ? ((d < 4 ? vb : s) >> (8 * (d & 3))) & 0xffu
-                                : NO_BIN;
-      // a warp whose rows share the bin (one segment) adds once
-      const uint32_t b0 = __shfl_sync(FULL_MASK, bin, 0);
-      if (__all_sync(FULL_MASK, bin == b0)) {
-        if (lane == 0 && b0 != NO_BIN) atomicAdd(&s_hist[d][b0], 32u);
-      } else if (bin != NO_BIN) {
-        atomicAdd(&s_hist[d][bin], 1u);
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < PLACES * DIGITS; i += SEG_THREADS) {
-    const uint32_t c = s_hist[i / DIGITS][i % DIGITS];
-    if (c) atomicAdd(&sp->hist[i / DIGITS][i % DIGITS], c);
-  }
-  if (tid == 0) {
-    if (s_npad) atomicAdd(&sp->npad, s_npad);
-    if (s_max1) atomicMax(&sp->max_real1, s_max1);
-  }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) s_last = atomicAdd(&sp->done, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  uint32_t c[PLACES], need = 0;
-#pragma unroll
-  for (int d = 0; d < PLACES; ++d) c[d] = __ldcg(&sp->hist[d][tid]);
-#pragma unroll
-  for (int d = 0; d < PLACES; ++d)
-    if (__syncthreads_count(c[d] != 0) > 1) need |= 1u << d;
-  if (tid == 0) {
-    const uint32_t n_real = (uint32_t)B - __ldcg(&sp->npad);
-    const bool misplaced = __ldcg(&sp->max_real1) > n_real;
-    uint32_t pa = need & 0xf0u, pv = need;
-    if (pa == 0 && misplaced) pa = 0x10u;
-    if (pv == 0 && misplaced) pv = 0x01u;
-    sp->n_real = n_real;
-    sp->plan[0] = pa;
-    sp->plan[1] = pv;
-  }
-}
+};
 
-// One stable scatter by digit place `place` of sort `sort`, if its plan
-// runs it. status: (tiles, BINS) look-back words of this pass, zeroed.
-__global__ void __launch_bounds__(SEG_THREADS)
-    radix_pass_kernel(const SortBufs sb, int B,
-                      const SortPlan* __restrict__ sp, int sort, int place,
-                      uint32_t* __restrict__ status,
-                      uint32_t* __restrict__ ticket) {
-  const uint32_t plan = sp->plan[sort];
-  if (!((plan >> place) & 1u)) return;
-  const int k = __popc(plan & ((1u << place) - 1u));
-  const unsigned long long* ik;
-  const uint32_t* ip;
-  sorted_by(sb, k, &ik, &ip);
-  unsigned long long* ok = sb.k[k & 1];
-  uint32_t* op = sb.p[k & 1];
-  __shared__ uint32_t s_cnt[SEG_WARPS][BINS + 1];
-  __shared__ uint32_t s_pre[BINS];  // each bin's first position, global
-  __shared__ uint32_t s_loc[BINS];  // ... in the tile
-  __shared__ uint32_t s_warp[SEG_WARPS];
-  __shared__ unsigned long long s_key[RADIX_TILE];
-  __shared__ uint32_t s_pay[RADIX_TILE];
-  __shared__ int s_tile;
-  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  if (tid == 0) s_tile = (int)atomicAdd(ticket, 1u);
-  for (int i = tid; i < SEG_WARPS * (BINS + 1); i += SEG_THREADS)
-    s_cnt[i / (BINS + 1)][i % (BINS + 1)] = 0;
-  // each digit's first position: the place's counts scanned; pads after
-  // every real key
-  uint32_t total;
-  s_pre[tid] = block_exclusive_sum(sp->hist[place][tid], s_warp, &total);
-  if (tid == 0) s_pre[DIGITS] = sp->n_real;
-  const int tile = s_tile;
-  const long long base =
-      (long long)tile * RADIX_TILE + (long long)w * (32 * RADIX_ITEMS) + lane;
-  const uint32_t lower = (1u << lane) - 1u;
-  unsigned long long key[RADIX_ITEMS];
-  uint32_t pay[RADIX_ITEMS], bin[RADIX_ITEMS], rank[RADIX_ITEMS];
-#pragma unroll
-  for (int j = 0; j < RADIX_ITEMS; ++j) {
-    const long long e = base + 32 * j;
-    bin[j] = NO_BIN;
-    if (e < B) {
-      key[j] = ik[e];
-      pay[j] = ip[e];
-      bin[j] = (pay[j] & PAD_BIT) ? DIGITS
-                                  : (uint32_t)(key[j] >> (8 * place)) & 0xffu;
-    }
-    // rank among the warp's rows so far: the earlier steps' count of the
-    // bin, then the lower lanes of this step that share it (found by one
-    // ballot per bit of the 9-bit bin)
-    uint32_t peers = FULL_MASK;
-#pragma unroll
-    for (int bit = 0; bit < 9; ++bit) {
-      const bool on = (bin[j] >> bit) & 1u;
-      const uint32_t set = __ballot_sync(FULL_MASK, on);
-      peers &= on ? set : ~set;
-    }
-    const uint32_t before = s_cnt[w][bin[j]];
-    __syncwarp();
-    if (lane == __ffs(peers) - 1) s_cnt[w][bin[j]] = before + __popc(peers);
-    __syncwarp();
-    rank[j] = before + __popc(peers & lower);
-  }
-  __syncthreads();
-  uint32_t digit_count = 0;  // the tile's count of digit tid
-  for (int b = tid; b < BINS; b += SEG_THREADS) {
-    uint32_t sum = 0;
-    for (int i = 0; i < SEG_WARPS; ++i) {
-      const uint32_t c = s_cnt[i][b];
-      s_cnt[i][b] = sum;
-      sum += c;
-    }
-    if (b < DIGITS) digit_count = sum;
-    uint32_t* mine = status + (size_t)tile * BINS + b;
-    uint32_t prefix = 0;
-    if (tile == 0) {
-      store_word(mine, LB_INCL | sum);
-    } else {
-      store_word(mine, LB_AGG | sum);
-      // the words of LB_BATCH tiles before at once, nearest first, down to
-      // an inclusive one
-      int spins = 0;
-      for (int q = tile - 1; q >= 0;) {
-        uint32_t word[LB_BATCH];
-#pragma unroll
-        for (int i = 0; i < LB_BATCH; ++i)
-          word[i] = q - i >= 0 ? read_word(status + (size_t)(q - i) * BINS + b)
-                               : 0u;
-        int used = 0;
-        bool done = false, stall = false;
-#pragma unroll
-        for (int i = 0; i < LB_BATCH; ++i) {
-          if (done || stall || q - i < 0) continue;
-          if (word[i] == 0) {
-            stall = true;
-            continue;
-          }
-          prefix += word[i] & LB_COUNT;
-          ++used;
-          done = (word[i] & LB_INCL) != 0;
-        }
-        if (done || (stall && !wait_more(&spins))) break;
-        q -= used;
-      }
-      store_word(mine, LB_INCL | (prefix + sum));
-    }
-    s_pre[b] += prefix;
-  }
-  // the tile's rows in bin order through shared memory, then written out
-  // in that order: neighbouring threads write neighbouring positions of a
-  // bin
-  s_loc[tid] = block_exclusive_sum(digit_count, s_warp, &total);
-  if (tid == 0) s_loc[DIGITS] = total;
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < RADIX_ITEMS; ++j) {
-    if (bin[j] == NO_BIN) continue;
-    const uint32_t at = s_loc[bin[j]] + s_cnt[w][bin[j]] + rank[j];
-    s_key[at] = key[j];
-    s_pay[at] = pay[j];
-  }
-  __syncthreads();
-  const long long rows = B - (long long)tile * RADIX_TILE;
-  const int n = rows < RADIX_TILE ? (int)rows : RADIX_TILE;
-  for (int at = tid; at < n; at += SEG_THREADS) {
-    const unsigned long long kk = s_key[at];
-    const uint32_t pp = s_pay[at];
-    const uint32_t bb = (pp & PAD_BIT) ? DIGITS
-                                       : (uint32_t)(kk >> (8 * place)) & 0xffu;
-    const uint32_t dst = s_pre[bb] + (at - s_loc[bb]);
-    ok[dst] = kk;
-    op[dst] = pp;
-  }
-}
+
+
 
 // ------------------------------------------------------------- the scan
 enum { SHIFT = 0, ARRIVAL = 1, VALUE = 2 };
@@ -784,9 +476,6 @@ __global__ void carry_apply_kernel(const SortBufs sb, int B,
 }
 
 // ------------------------------------------------------------------ host
-static inline int blocks_of(long long n, int threads) {
-  return (int)((n + threads - 1) / threads);
-}
 
 static inline bool pow2(int b) { return b > 0 && (b & (b - 1)) == 0; }
 
@@ -834,23 +523,6 @@ static SortBufs bufs_of(char* s, const Layout& L) {
   return sb;
 }
 
-static inline int hist_blocks(int B) {
-  const int b = blocks_of(B, 1024);
-  return b > 128 ? 128 : b;
-}
-
-// The passes of one sort over places [first, PLACES), status slots from
-// slot0 on.
-static void radix_passes(const SortBufs& sb, int B, SortPlan* sp,
-                         uint32_t* status, int tiles, int sort, int first,
-                         int slot0, cudaStream_t st) {
-  for (int d = first; d < PLACES; ++d) {
-    const int slot = slot0 + d - first;
-    radix_pass_kernel<<<tiles, SEG_THREADS, 0, st>>>(
-        sb, B, sp, sort, d, status + (size_t)slot * tiles * BINS,
-        &sp->ticket[slot]);
-  }
-}
 
 extern "C" {
 
@@ -895,9 +567,11 @@ int segscan_shift(const int32_t* slots, const float* vals,
   const SortBufs sb = bufs_of(s, L);
   SortPlan* sp = (SortPlan*)(s + L.plan);
   radix_hist_kernel<false><<<hist_blocks(B), SEG_THREADS, 0, st>>>(
-      slots, vals, valid, B, (unsigned long long*)(s + L.k[0]),
-      (uint32_t*)(s + L.p[0]), sp, continued);
-  radix_passes(sb, B, sp, (uint32_t*)(s + L.status), L.rtiles, 0, 4, 0, st);
+      SegSrc<false>{slots, vals, valid}, B,
+      (unsigned long long*)(s + L.k[0]), (uint32_t*)(s + L.p[0]), sp,
+      continued);
+  radix_passes(sb, B, sp, (uint32_t*)(s + L.status), L.rtiles, 0, 4,
+               PLACES, 0, st);
   ScanArgs a = {};
   a.sb = sb;
   a.B = B;
@@ -941,10 +615,10 @@ int segscan_sort(const int32_t* seg, const float* vals, const uint8_t* valid,
   uint32_t* status = (uint32_t*)(s + L.status);
   ScanRec* recs = (ScanRec*)(s + L.recs);
   radix_hist_kernel<true><<<hist_blocks(B), SEG_THREADS, 0, st>>>(
-      seg, vals, valid, B, (unsigned long long*)(s + L.k[0]),
+      SegSrc<true>{seg, vals, valid}, B, (unsigned long long*)(s + L.k[0]),
       (uint32_t*)(s + L.p[0]), sp, nullptr);
   // arrival order: the segment's places only
-  radix_passes(sb, B, sp, status, L.rtiles, 0, 4, 0, st);
+  radix_passes(sb, B, sp, status, L.rtiles, 0, 4, PLACES, 0, st);
   ScanArgs a = {};
   a.sb = sb;
   a.B = B;
@@ -958,7 +632,7 @@ int segscan_sort(const int32_t* seg, const float* vals, const uint8_t* valid,
   a.b1 = lead_has;
   seg_scan_kernel<ARRIVAL><<<L.stiles, SEG_THREADS, 0, st>>>(a);
   // value order: the value's places, then the segment's
-  radix_passes(sb, B, sp, status, L.rtiles, 1, 0, 4, st);
+  radix_passes(sb, B, sp, status, L.rtiles, 1, 0, PLACES, 4, st);
   a.sort = 1;
   a.recs = recs + 2 * (size_t)L.stiles;
   a.ticket = &sp->scan_ticket[1];

@@ -283,12 +283,14 @@ class TorchGroupBy:
             return self._fold_device(state, cols, slots, valid or {},
                                      pane_idx, n_rows)
         n = n_rows if n_rows is not None else len(slots)
-        pane_vec = None
+        pane_vec = pane_hi = None
         if isinstance(pane_idx, np.ndarray):
             pane_vec = np.asarray(pane_idx)[:n]
             pane = 0
-            if n and (pane_vec.min() < 0 or pane_vec.max() >= self.n_panes):
-                raise ValueError(f"pane outside [0, {self.n_panes})")
+            if n:
+                pane_hi = int(pane_vec.max())
+                if pane_vec.min() < 0 or pane_hi >= self.n_panes:
+                    raise ValueError(f"pane outside [0, {self.n_panes})")
             pane_vec = pane_vec.astype(np.uint8)
         else:
             pane = int(pane_idx)
@@ -315,7 +317,8 @@ class TorchGroupBy:
             s_dev = self.upload(slots[start:end], np.int32)
             p_dev = (None if pane_vec is None
                      else self.upload(pane_vec[start:end], np.uint8))
-            self._fold_chunk(state, dev_cols, cnt, s_dev, pane, p_dev)
+            self._fold_chunk(state, dev_cols, cnt, s_dev, pane, p_dev,
+                             pane_hi)
         return state
 
     def _fold_device(self, state: Dict[str, torch.Tensor],
@@ -328,11 +331,13 @@ class TorchGroupBy:
         if n > self.micro_batch or n > len(slots):
             raise ValueError(f"pre-uploaded inputs hold one chunk of at most "
                              f"{self.micro_batch} rows, got {n}")
-        pane, p_dev = 0, None
+        pane, p_dev, pane_hi = 0, None, None
         if isinstance(pane_idx, np.ndarray):
             pv = np.asarray(pane_idx)[:n]
-            if n and (pv.min() < 0 or pv.max() >= self.n_panes):
-                raise ValueError(f"pane outside [0, {self.n_panes})")
+            if n:
+                pane_hi = int(pv.max())
+                if pv.min() < 0 or pane_hi >= self.n_panes:
+                    raise ValueError(f"pane outside [0, {self.n_panes})")
             p_dev = self.upload(pv, np.uint8)
         else:
             pane = int(pane_idx)
@@ -344,7 +349,7 @@ class TorchGroupBy:
         for name, vm in valid.items():
             if vm is not None:
                 dev_cols["__valid_" + name] = vm[:n]
-        self._fold_chunk(state, dev_cols, n, slots[:n], pane, p_dev)
+        self._fold_chunk(state, dev_cols, n, slots[:n], pane, p_dev, pane_hi)
         return state
 
     def fold_masked(self, state: Dict[str, torch.Tensor],
@@ -378,9 +383,12 @@ class TorchGroupBy:
     def _fold_chunk(self, state: Dict[str, torch.Tensor],
                     cols: Dict[str, torch.Tensor], n: int,
                     slots: torch.Tensor, pane: int,
-                    pane_vec: Optional[torch.Tensor]) -> None:
+                    pane_vec: Optional[torch.Tensor],
+                    pane_hi: Optional[int] = None) -> None:
         """The launches of one uploaded chunk of `n` rows: the closures,
-        then the scalar fold and, with sketch components, the wide one."""
+        then the scalar fold and, with sketch components, the wide one.
+        pane_hi: pane_vec's largest pane, checked on the host (the single
+        rule's folds take the caller's check as it is)."""
         base, V, M = self.spec_inputs(cols, n)
         kernels.groupby_fold_scalar(state, base, V, M, slots, pane,
                                     self._colmap, pane_vec)

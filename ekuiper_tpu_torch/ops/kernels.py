@@ -2,7 +2,8 @@
 plain PyTorch versions and their launch counts.
 
 Twenty-eight kernels, written by hand in CUDA C++ for Hopper, each
-replacing one device program of the reference (ekuiper_tpu/ops/groupby.py,
+replacing one device program of the reference, and one helper kernel
+that replaces none (the rule group's row order) (ekuiper_tpu/ops/groupby.py,
 ekuiper_tpu/ops/slidingring.py, ekuiper_tpu/parallel/multirule.py,
 ekuiper_tpu/ops/tierstore.py, ekuiper_tpu/ops/joinring.py,
 ekuiper_tpu/ops/segscan.py, ekuiper_tpu/ops/sketches.py and
@@ -113,24 +114,37 @@ every component:
 
 And five in ekuiper_tpu_torch/csrc/multirule.cu, for a rule group (N
 homogeneous rules on a leading rule axis, parallel/multirule.py), each
-ONE launch for every rule of the group, with the per-row and per-slot code
-of the single-rule kernels (csrc/groupby_common.cuh,
-csrc/sketch_common.cuh):
+ONE wrapper call for every rule of the group, with the per-row and
+per-slot code of the single-rule kernels (csrc/groupby_common.cuh,
+csrc/sketch_common.cuh), and the folds' row order:
 
+- `multirule_fold_order` (a helper, replacing no program of the
+  reference): a chunk's rows stably sorted by pane * C + slot (the
+  relational tier's radix sort, csrc/radix_sort.cuh, over the key's
+  bytes only) and each key's segment of the order; the rows outside the
+  state last. Built once a chunk and read by both folds. Bound: the
+  slots read and the order written once (~0.6 MB at 65,536 rows).
 - `multirule_fold` replaces `BatchedGroupBy._batched_fold_impl`
   (multirule.py:196), the vmap of #1 with each rule's WHERE parameters
   bound: the shared spec values and masks, each rule's row mask, into
   (R, P, C, k), one pane or each row into its own (`pane_vec`, the uint8
   per-row pane vector the vmap shares across rules, groupby.py:334-338:
-  an event-time batch across bucket edges). Bound: 17.6 MB of inputs at
-  the 256-rule group (5.3 µs), but ~33M scattered atomics a batch into
-  67 MB of state, which set its time.
+  an event-time batch across bucket edges). Bound: 17.7 MB of inputs at
+  the 256-rule group and the touched (rule, pane, slot) state read and
+  written once. Design: each rule's WHERE bits packed 32 to a word and,
+  with the spec values and masks, gathered into the order, so a key's
+  rows are contiguous; one thread per (key, block of 32 rules) sums a
+  short segment in registers and writes each touched (rule, pane, slot)
+  once; a warp per piece of a longer segment, the pieces of a key holding
+  more than one piece added by atomics.
 - `multirule_fold_wide` replaces the hll / hist branches of the same vmap
   (groupby.py:421-432): each row's register and rho, or its bin, computed
-  once and applied to every rule whose row mask keeps the row, into
-  (R, P, C, k, W), with the same per-row panes. Bit-equal to its plain
-  version (max is order-free, counts stay below 2^24). Bound: its inputs once, then one scattered
-  atomic per (rule, passing row, sketch column) into GBs of state.
+  once and applied to every rule whose WHERE bit keeps the row, rows in
+  the order, into (R, P, C, k, W), with the same per-row panes.
+  Bit-equal to its plain version (max is order-free, counts stay below
+  2^24). Bound: its inputs once and the touched register / bin sectors
+  read and written once; it issues one atomic per (rule, passing row,
+  sketch column) into GBs of state.
 - `multirule_finalize` replaces `_batched_finalize_impl` (multirule.py:210)
   and the key cut of `finalize_begin`: every rule's pane merge and final
   values into a fresh (R, S+1, K) result, K the columns the host takes.
@@ -141,7 +155,9 @@ csrc/sketch_common.cuh):
 - `multirule_reset_pane` replaces `_batched_reset_impl` (multirule.py:256):
   pane p of every rule and component to its identity, the wide ones too
   (64-bit lengths: a hopping percentile group of 63 rules holds 2.1e9
-  floats).
+  floats). One grid sized to the card over every (component, rule) pane
+  run, 16-byte stores with a scalar head and tail where a run is not
+  16-byte aligned.
 
 And two in ekuiper_tpu_torch/csrc/tierstore.cu, for the tiered key state
 (ops/tierstore.py), over a packed row layout: each component's per-pane
@@ -164,13 +180,13 @@ tier (ops/joinring.py, ops/segscan.py):
   read through its broadcast strides). One thread per (i, j). Bound:
   writing PL·PR bytes (0.080 ms at 16,384 a side).
 - `segscan_shift` replaces `SegScan._shift_impl` (segscan.py:124): a
-  stable LSD radix sort by slot (8-bit digits; one histogram launch
-  counts every place, a place whose keys share one bin costs no pass,
-  pad rows ride a bin of their own; each pass a stable scatter with
-  decoupled look-back between tiles), then one segmented scan with
-  look-back carries between blocks: row numbers from the carry's count,
-  lag(1), running sums in float64 rounded once a row; a last launch
-  writes the segment tails' carry back in place.
+  stable LSD radix sort by slot (csrc/radix_sort.cuh; 8-bit digits;
+  one histogram launch counts every place, a place whose keys share one
+  bin costs no pass, pad rows ride a bin of their own; each pass a
+  stable scatter with decoupled look-back between tiles), then one
+  segmented scan with look-back carries between blocks: row numbers
+  from the carry's count, lag(1), running sums in float64 rounded once
+  a row; a last launch writes the segment tails' carry back in place.
 - `segscan_sort` replaces `SegScan._sort_impl` (segscan.py:165): the same
   sort by segment for row_number and lead(1), then by (segment, value)
   for rank and dense_rank, each followed by its segmented scan. Bound,
@@ -213,7 +229,9 @@ only there; for a CUDA tensor it launches the kernel or raises. A wrapper
 adds one to `LAUNCHES[name]` where it launches its kernel and nowhere else:
 `LAUNCHES` counts wrapper calls, and a call of `groupby_fold_wide` or
 `groupby_fold_masked_wide` whose widemap mixes hh with hll or hist columns
-launches two kernels for its one count.
+launches two kernels for its one count; a rule-group fold's one count
+covers its pack and fold launches (and, called without an order, the
+order's call, counted under `multirule_fold_order`).
 """
 from __future__ import annotations
 
@@ -227,7 +245,7 @@ import threading
 import time
 from pathlib import Path
 from types import SimpleNamespace
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -248,7 +266,8 @@ SOURCES = {"groupby": _PKG / "csrc" / "groupby.cu",
 #: headers the sources include (part of every library's build tag)
 HEADERS = (_PKG / "csrc" / "groupby_common.cuh",
            _PKG / "csrc" / "sketch_common.cuh",
-           _PKG / "csrc" / "slot_type.cuh")
+           _PKG / "csrc" / "slot_type.cuh",
+           _PKG / "csrc" / "radix_sort.cuh")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -305,6 +324,7 @@ LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0,
                             "ring_advance": 0,
                             "ring_flip": 0,
                             "ring_query": 0,
+                            "multirule_fold_order": 0,
                             "multirule_fold": 0,
                             "multirule_fold_wide": 0,
                             "multirule_finalize": 0,
@@ -323,6 +343,7 @@ LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0,
 #: of LAUNCHES' folds, those that took a per-row pane vector
 ROW_PANE_LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0,
                                      "groupby_fold_wide": 0,
+                                     "multirule_fold_order": 0,
                                      "multirule_fold": 0,
                                      "multirule_fold_wide": 0,
                                      "sharded_fold_scalar": 0,
@@ -442,12 +463,17 @@ def _load():
             sr.ring_query.argtypes = [P, P, P, P, P, P, I, I, I, I, I, P, P,
                                       P, P, P]
             mr = ctypes.CDLL(str(paths["multirule"]))
+            mr.multirule_fold_order.argtypes = [P, I, I, P, I, I, P, I, P,
+                                                P, P, P, P]
+            mr.multirule_order_scratch_bytes.argtypes = [I]
+            mr.multirule_order_scratch_bytes.restype = ctypes.c_longlong
             mr.multirule_fold.argtypes = [P, P, P, P, I, I, I, P, I, I, P,
-                                          I, P, P, P, P]
+                                          I, P, P, P, P, P, I, P, P, P, P,
+                                          P]
             mr.multirule_finalize.argtypes = [P, P, P, P, I, I, I, I, P, I,
                                               I, P, P]
             mr.multirule_fold_wide.argtypes = [P, P, P, P, I, I, I, P, I, I,
-                                               P, I, P, P, P, P]
+                                               P, I, P, P, P, P, P, P, P]
             mr.multirule_finalize_wide.argtypes = [P, P, P, I, I, I, I, P, P,
                                                    I, P, L, I, P, P]
             mr.multirule_reset_pane.argtypes = [P, P, P, I, I, I, I, P]
@@ -483,7 +509,8 @@ def _load():
                              (pf, ("groupby_components", "groupby_absorb")),
                              (sr, ("ring_advance", "ring_flip",
                                    "ring_query")),
-                             (mr, ("multirule_fold", "multirule_fold_wide",
+                             (mr, ("multirule_fold_order", "multirule_fold",
+                                   "multirule_fold_wide",
                                    "multirule_finalize",
                                    "multirule_finalize_wide",
                                    "multirule_reset_pane")),
@@ -1526,28 +1553,140 @@ def _rule_wide_table(state: Dict[str, torch.Tensor]):
 
 
 def _check_rule_panes(name: str, state: Dict[str, torch.Tensor],
-                      pane_vec: Optional[torch.Tensor], n: int) -> None:
+                      pane_vec: Optional[torch.Tensor], n: int,
+                      pane_hi: Optional[int] = None) -> None:
     """A rule group's per-row pane vector: uint8 (n,) on the state's
-    device, every pane below P. The range check reads the vector's max
-    back (a wait on the card's stream): a pane at or above P is an error,
-    not a row silently dropped."""
+    device, every pane below P: a pane at or above P is an error, not a
+    row silently dropped. `pane_hi`, the vector's largest pane as the
+    caller computed it on the host (it built the vector there), is checked
+    against P with no wait; without it the check reads the vector's max
+    back (a reduction and a wait on the card's stream)."""
     if pane_vec is None:
         return
     act = state["act"]
     _check(name, pane_vec, torch.uint8, (n,), act.device)
-    P = act.shape[1]
-    if n and int(pane_vec.max()) >= P:
-        raise ValueError(f"{name}: pane {int(pane_vec.max())} outside "
-                         f"[0, {P})")
+    if not n:
+        return
+    hi = int(pane_vec.max()) if pane_hi is None else int(pane_hi)
+    if hi >= act.shape[1]:
+        raise ValueError(f"{name}: pane {hi} outside [0, {act.shape[1]})")
+
+
+class FoldOrder(NamedTuple):
+    """A chunk's rows in the rule-group folds' order (multirule_fold_order):
+    `rows` int32 (n,) the row indices stably ordered by their flat key
+    pane * C + slot, the dropped rows (slot outside [0, C), pane outside
+    [0, P)) last; `offsets` int32 (P * C + 1,), key k's rows at
+    rows[offsets[k]:offsets[k + 1]], offsets[P * C] the rows kept; `bits`,
+    where the order was built with the chunk's `base`, that mask's WHERE
+    bits packed as int32 (n, ceil(R / 32)) words (bit q of word w: rule
+    32 w + q keeps the row), which both folds then read instead of packing
+    their own."""
+
+    rows: torch.Tensor
+    offsets: torch.Tensor
+    bits: Optional[torch.Tensor] = None
+
+
+def multirule_fold_order(slots: torch.Tensor, pane: int, P: int, C: int,
+                         pane_vec: Optional[torch.Tensor] = None,
+                         base: Optional[torch.Tensor] = None) -> FoldOrder:
+    """The order both rule-group folds read a chunk's rows in, in one call:
+    a stable sort of the rows by pane * C + slot (pane: `pane`, or each
+    row's pane_vec entry), and each key's segment. A helper kernel of the
+    port: it replaces no program of the reference (whose scatters need no
+    order). slots: int32 (n,); pane_vec: optional uint8 (n,); base:
+    optional bool (R, n), the chunk's WHERE masks, packed into the
+    order's `bits` in the same call (one pack a chunk for both folds)."""
+    name = "multirule_fold_order"
+    dev = _device_of(name, slots)
+    if dev is None:
+        return multirule_fold_order_plain(slots, pane, P, C, pane_vec, base)
+    n = slots.shape[0]
+    _check(name, slots, torch.int32, (n,), dev)
+    if pane_vec is not None:
+        _check(name, pane_vec, torch.uint8, (n,), dev)
+    NR, bits = 0, None
+    if base is not None:
+        NR = base.shape[0]
+        _check(name, base, torch.bool, (NR, n), dev)
+        bits = _rule_bits(NR, n, dev)
+    if not 0 <= pane < P or P * C >= 2 ** 31 - 1:
+        raise ValueError(f"{name}: pane {pane} of {P} panes x {C} slots")
+    lib = _load()
+    size = lib.multirule.multirule_order_scratch_bytes(n)
+    if size < 0:
+        raise ValueError(f"{name}: {n} rows refused (at most 2^29)")
+    scratch = torch.empty(size, dtype=torch.uint8, device=dev)
+    rows = torch.empty(n, dtype=torch.int32, device=dev)
+    offsets = torch.empty(P * C + 1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.multirule.multirule_fold_order(
+            _ptr(slots), n, int(pane), _opt_ptr(pane_vec), P, C,
+            _opt_ptr(base), NR, _opt_ptr(bits), _ptr(scratch), _ptr(rows),
+            _ptr(offsets), _stream(dev))
+        LAUNCHES[name] += 1
+        if pane_vec is not None:
+            ROW_PANE_LAUNCHES[name] += 1
+    _raise_on(lib, name, rc)
+    return FoldOrder(rows, offsets, bits)
+
+
+def multirule_fold_order_plain(slots, pane, P, C, pane_vec=None, base=None
+                               ) -> FoldOrder:
+    """Plain PyTorch version of multirule_fold_order: a stable argsort of
+    the flat key (dropped rows keyed past every real one), the keys'
+    counts summed into offsets, and base's bits shifted into words."""
+    K = P * C
+    pc, ok = _pane_rows(pane, pane_vec, slots, P, C)
+    key = torch.where(ok, pc, K)
+    rows = torch.argsort(key, stable=True).to(torch.int32)
+    offsets = torch.zeros(K + 1, dtype=torch.int32, device=slots.device)
+    offsets[1:] = torch.cumsum(torch.bincount(key, minlength=K + 1)[:K], 0)
+    bits = None
+    if base is not None:
+        NR, n = base.shape
+        nw = (NR + 31) // 32
+        b = torch.zeros((nw * 32, n), dtype=torch.int64, device=base.device)
+        b[:NR] = base
+        shift = torch.arange(32, device=base.device)[None, :, None]
+        words = (b.view(nw, 32, n) << shift).sum(1).T
+        bits = torch.where(words >= 2 ** 31, words - 2 ** 32,
+                           words).to(torch.int32).contiguous()
+    return FoldOrder(rows, offsets, bits)
+
+
+def _rule_bits(NR: int, n: int, dev) -> torch.Tensor:
+    """The folds' packed WHERE bits, (n, ceil(NR / 32)) words."""
+    return torch.empty((n, (NR + 31) // 32), dtype=torch.int32, device=dev)
+
+
+def _rule_order(name: str, order: Optional[FoldOrder], base, slots, pane,
+                pane_vec, P: int, C: int, dev
+                ) -> Tuple[FoldOrder, Optional[torch.Tensor], torch.Tensor]:
+    """The fold's row order (the caller's, checked, or one built here with
+    base's packed bits), the base to pack in the fold (None where the
+    order holds its words) and the words' tensor."""
+    if order is None:
+        order = multirule_fold_order(slots, pane, P, C, pane_vec, base)
+    n = slots.shape[0]
+    _check(name, order.rows, torch.int32, (n,), dev)
+    _check(name, order.offsets, torch.int32, (P * C + 1,), dev)
+    if order.bits is None:
+        return order, base, _rule_bits(base.shape[0], n, dev)
+    _check(name, order.bits, torch.int32, (n, (base.shape[0] + 31) // 32),
+           dev)
+    return order, None, order.bits
 
 
 def multirule_fold(state: Dict[str, torch.Tensor], base: torch.Tensor,
                    V: torch.Tensor, M: torch.Tensor, slots: torch.Tensor,
                    pane: int, colmap: np.ndarray,
-                   pane_vec: Optional[torch.Tensor] = None) -> None:
-    """Fold one micro-batch into every rule of a group's state, in place,
-    in one launch: act and the scalar components of rule r take the rows
-    of base[r].
+                   pane_vec: Optional[torch.Tensor] = None,
+                   pane_hi: Optional[int] = None,
+                   order: Optional[FoldOrder] = None) -> None:
+    """Fold one micro-batch into every rule of a group's state, in place:
+    act and the scalar components of rule r take the rows of base[r].
 
     base: bool (R, n), each rule's row mask after its WHERE. V: float32
     (S, n) spec values and M: bool (S, n) spec masks (validity, not-NaN,
@@ -1555,10 +1694,15 @@ def multirule_fold(state: Dict[str, torch.Tensor], base: torch.Tensor,
     (n,). colmap: int32 (ncols, 3) of (COMP_IDS[comp], k, spec). pane_vec:
     optional uint8 (n,) per-row panes, shared by every rule, which replace
     `pane` (an event-time batch across bucket edges); each must be below
-    P. The wide components are multirule_fold_wide's.
+    P. pane_hi: optional host bound of pane_vec's entries (its max, which
+    the caller computed where it built the vector): checked against P
+    with no read-back. order: optional multirule_fold_order of these
+    slots and panes (shared with multirule_fold_wide); built here when
+    absent (the plain version needs none). The wide components are
+    multirule_fold_wide's.
     """
     name = "multirule_fold"
-    _check_rule_panes(name, state, pane_vec, V.shape[1])
+    _check_rule_panes(name, state, pane_vec, V.shape[1], pane_hi)
     if not _on_cuda(name, state):
         multirule_fold_plain(state, base, V, M, slots, pane, colmap,
                              pane_vec)
@@ -1574,12 +1718,18 @@ def multirule_fold(state: Dict[str, torch.Tensor], base: torch.Tensor,
         if not 0 <= k < ks[comp_id]:
             raise ValueError(f"{name}: column {k} outside component "
                              f"{_COMP_NAMES[comp_id]}")
+    order, pack, bits = _rule_order(name, order, base, slots, pane, pane_vec,
+                                    P, C, dev)
+    # the packed bits, values and masks in the order
+    bits_s = torch.empty((bits.shape[1], n), dtype=bits.dtype, device=dev)
+    Vs, Ms = torch.empty_like(V), torch.empty_like(M)
     lib = _load()
     with torch.cuda.device(dev):
         rc = lib.multirule.multirule_fold(
-            _ptr(base), _ptr(V), _ptr(M), _ptr(slots), n, NR, int(pane),
+            _opt_ptr(pack), _ptr(V), _ptr(M), _ptr(slots), n, NR, int(pane),
             _opt_ptr(pane_vec), P, C, _ptr(colmap), len(colmap), _ptr(ptrs),
-            _ptr(ks), _ptr(act), _stream(dev))
+            _ptr(ks), _ptr(act), _ptr(order.rows), _ptr(order.offsets), S,
+            _ptr(bits), _ptr(bits_s), _ptr(Vs), _ptr(Ms), _stream(dev))
         LAUNCHES[name] += 1
         if pane_vec is not None:
             ROW_PANE_LAUNCHES[name] += 1
@@ -1610,16 +1760,18 @@ def multirule_fold_plain(state, base, V, M, slots, pane, colmap,
 def multirule_fold_wide(state: Dict[str, torch.Tensor], base: torch.Tensor,
                         V: torch.Tensor, M: torch.Tensor, slots: torch.Tensor,
                         pane: int, widemap: np.ndarray,
-                        pane_vec: Optional[torch.Tensor] = None) -> None:
+                        pane_vec: Optional[torch.Tensor] = None,
+                        pane_hi: Optional[int] = None,
+                        order: Optional[FoldOrder] = None) -> None:
     """Fold one micro-batch into every rule's hll and hist components, in
-    place, in one launch: rule r takes the rows of base[r]. base, V, M,
-    slots, pane, pane_vec: as multirule_fold. widemap: int32 (ncols, 3) of
-    (WIDE_IDS[comp], k, spec), hll and hist columns only."""
+    place: rule r takes the rows of base[r]. base, V, M, slots, pane,
+    pane_vec, pane_hi, order: as multirule_fold. widemap: int32 (ncols, 3)
+    of (WIDE_IDS[comp], k, spec), hll and hist columns only."""
     name = "multirule_fold_wide"
     widemap = np.ascontiguousarray(widemap, dtype=np.int32).reshape(-1, 3)
     if (widemap[:, 0] == WIDE_IDS["hh"]).any():
         raise ValueError(f"{name}: heavy_hitters does not batch")
-    _check_rule_panes(name, state, pane_vec, V.shape[1])
+    _check_rule_panes(name, state, pane_vec, V.shape[1], pane_hi)
     if not _on_cuda(name, state):
         multirule_fold_wide_plain(state, base, V, M, slots, pane, widemap,
                                   pane_vec)
@@ -1635,12 +1787,15 @@ def multirule_fold_wide(state: Dict[str, torch.Tensor], base: torch.Tensor,
         if not 0 <= k < ks[comp_id]:
             raise ValueError(f"{name}: column {k} outside component "
                              f"{_WIDE_NAMES[comp_id]}")
+    order, pack, bits = _rule_order(name, order, base, slots, pane, pane_vec,
+                                    P, C, dev)
     lib = _load()
     with torch.cuda.device(dev):
         rc = lib.multirule.multirule_fold_wide(
-            _ptr(base), _ptr(V), _ptr(M), _ptr(slots), n, NR, int(pane),
+            _opt_ptr(pack), _ptr(V), _ptr(M), _ptr(slots), n, NR, int(pane),
             _opt_ptr(pane_vec), P, C, _ptr(widemap), len(widemap),
-            _ptr(ptrs), _ptr(ks), _ptr(HIST_CONSTS), _stream(dev))
+            _ptr(ptrs), _ptr(ks), _ptr(HIST_CONSTS), _ptr(order.rows),
+            _ptr(order.offsets), _ptr(bits), _stream(dev))
         LAUNCHES[name] += 1
         if pane_vec is not None:
             ROW_PANE_LAUNCHES[name] += 1

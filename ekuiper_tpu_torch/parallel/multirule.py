@@ -8,9 +8,11 @@ literals become per-rule parameters, and the group-by state gains a
 leading rule axis: {comp: (R, n_panes, capacity, k[, W])}. One key encode,
 one upload and ONE fold launch per batch serve every rule
 (`kernels.multirule_fold`, and `kernels.multirule_fold_wide` for the
-sketch components hll and hist); one finalize launch (two with sketches:
-`kernels.multirule_finalize`, `kernels.multirule_finalize_wide`) and one
-copy per window boundary; one pane reset (`kernels.multirule_reset_pane`).
+sketch components hll and hist, both reading the rows in the order
+`kernels.multirule_fold_order` builds once a chunk); one finalize launch
+(two with sketches: `kernels.multirule_finalize`,
+`kernels.multirule_finalize_wide`) and one copy per window boundary; one
+pane reset (`kernels.multirule_reset_pane`).
 
 Homogeneity contract (`build_rule_batch` validates, as the reference's
 does): identical SELECT fields, window, GROUP BY dims, source, HAVING and
@@ -184,16 +186,25 @@ class BatchedGroupBy(TorchGroupBy):
         V, M = self._spec_values(cols, n)
         return base, V, M
 
-    def _fold_chunk(self, state, cols, n, slots, pane, pane_vec) -> None:
+    def _fold_chunk(self, state, cols, n, slots, pane, pane_vec,
+                    pane_hi=None) -> None:
         """One chunk into every rule: into pane `pane`, or each row into
         pane_vec's (an event-time batch across bucket edges; the vector is
-        the same for every rule, as the reference's vmap shares it)."""
+        the same for every rule, as the reference's vmap shares it, and
+        pane_hi its largest pane, from the host). On the card the rows'
+        order and the packed WHERE bits are built once and read by both
+        folds (the plain folds need neither)."""
         base, V, M = self.rule_inputs(cols, n)
+        order = None
+        if state["act"].is_cuda:
+            order = kernels.multirule_fold_order(
+                slots, pane, self.n_panes, self.capacity, pane_vec, base)
         kernels.multirule_fold(state, base, V, M, slots, pane, self._colmap,
-                               pane_vec)
+                               pane_vec, pane_hi, order)
         if len(self._widemap):
             kernels.multirule_fold_wide(state, base, V, M, slots, pane,
-                                        self._widemap, pane_vec)
+                                        self._widemap, pane_vec, pane_hi,
+                                        order)
 
     # --------------------------------------------------------------- finalize
     def _slice_keys(self, n_keys: int) -> int:

@@ -163,7 +163,8 @@ class ShardedGroupBy(TorchGroupBy):
     def _fold_chunk(self, state: Dict[str, torch.Tensor],
                     cols: Dict[str, torch.Tensor], n: int,
                     slots: torch.Tensor, pane: int,
-                    pane_vec: Optional[torch.Tensor]) -> None:
+                    pane_vec: Optional[torch.Tensor],
+                    pane_hi: Optional[int] = None) -> None:
         """One chunk: the closures, the sharded folds of every (row shard,
         key shard) into the partials, then the merge into the state (pane
         `pane`, or every pane under a pane vector)."""

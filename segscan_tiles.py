@@ -4,7 +4,9 @@
 scan) tile size a copy of the source with its RADIX_ITEMS / SCAN_ITEMS
 changed is built, checked against the plain versions on chip_smoke.py's
 phase-2 inputs, and timed at phase 2's shapes (CUDA events around one
-call, and the summed kernel bodies of a profiler trace).
+call, and the summed kernel bodies of a profiler trace). RADIX_ITEMS is
+csrc/radix_sort.cuh's, so each variant is a directory holding a copy of
+that header beside its copy of the source.
 
 Run from the repository root on a machine with a card:
 
@@ -36,12 +38,10 @@ SHAPES = (("shift", "8192", cs.K_SHIFT_SMALL, cs.N_KEYS, False),
           ("sort", "one_segment", cs.K_WINDOW_ROWS, 1, False))
 
 
-def variant(src: str, radix: int, scan: int) -> str:
-    for name, items in (("RADIX_ITEMS", radix), ("SCAN_ITEMS", scan)):
-        line = next(ln for ln in src.splitlines()
-                    if ln.startswith(f"#define {name} "))
-        src = src.replace(line, f"#define {name} {items}")
-    return src
+def with_define(text: str, name: str, value: int) -> str:
+    line = next(ln for ln in text.splitlines()
+                if ln.startswith(f"#define {name} "))
+    return text.replace(line, f"#define {name} {value}")
 
 
 def main() -> int:
@@ -69,12 +69,17 @@ def main() -> int:
         inputs[tag, kind] = x
     src_path = kernels.SOURCES["relational"]
     src = src_path.read_text()
-    out_dir = kernels.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
+    header = (src_path.parent / "radix_sort.cuh").read_text()
     rows = []
     for radix, scan in TILES:
-        path = out_dir / f"relational_r{radix}_s{scan}.cu"
-        path.write_text(variant(src, radix, scan))
+        out_dir = kernels.BUILD_DIR / "variants" / f"r{radix}_s{scan}"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / "radix_sort.cuh").write_text(
+            with_define(header, "RADIX_ITEMS", radix))
+        path = out_dir / "relational.cu"
+        # the build tag hashes the source, not this header: name both
+        path.write_text(f"// RADIX_ITEMS {radix}, SCAN_ITEMS {scan}\n"
+                        + with_define(src, "SCAN_ITEMS", scan))
         kernels.SOURCES["relational"] = path
         kernels._lib = None
         for kind, tag, B, slots, _ in SHAPES:

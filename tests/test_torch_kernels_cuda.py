@@ -33,6 +33,11 @@ the wide state bit-equal. The group folds with a per-row pane vector
 (event-time groups) as the folds; the touch column under a pane vector
 exact, and under the masked fold's row mask. Count-min: the update's
 counts and the query's estimates bit-equal (integer counts under 2^24).
+The rule group's row order (`multirule_fold_order`): rows and segment
+offsets equal to the plain stable argsort's; both group folds on
+tests/torch_group_batches.py's edge batches, with the host pane bound
+and the shared order and without them, as the folds above; the reset on
+pane runs that start off a 16-byte boundary bit-equal.
 """
 import numpy as np
 import pytest
@@ -42,6 +47,7 @@ from ekuiper_tpu_torch.ops import kernels
 from ekuiper_tpu_torch.ops.aggspec import encode_hll_column
 from ekuiper_tpu_torch.planner.fused import plan_fused_rule
 
+import torch_group_batches as gbt
 import torch_hh_batches as hb
 
 pytestmark = pytest.mark.cuda
@@ -884,6 +890,134 @@ def test_multirule_reset_wide_matches_plain(wnode):
     torch.cuda.synchronize()
     _same(got, st, 0)
     assert not got["hist"][:, 0].any() and got["hist"][:, 1].any()
+
+
+# ------------------------------- rule group: edge batches, order, bound
+EDGE_ROWS, EDGE_CAP, EDGE_PANES = 4096, 512, 2
+
+
+def _edge_group(plan, n_rules, cap=EDGE_CAP):
+    """A BatchedGroupBy on the card over tests/torch_group_batches.py's
+    statements."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ekuiper_tpu_torch.parallel.multirule import (BatchedGroupBy,
+                                                      build_rule_batch)
+    from ekuiper_tpu_torch.sql.parser import parse_select
+
+    sqls = gbt.group_sqls(plan, n_rules)
+    spec = build_rule_batch([f"r{i}" for i in range(n_rules)],
+                            [parse_select(q) for q in sqls])
+    return BatchedGroupBy(spec, capacity=cap, n_panes=EDGE_PANES,
+                          micro_batch=EDGE_ROWS, device="cuda")
+
+
+def _edge_inputs(gb, seed, kind, cap=EDGE_CAP):
+    """(base, V, M, slots, pane_vec) of one edge batch on the card."""
+    b = gbt.group_batch(seed, EDGE_ROWS, cap, EDGE_PANES, kind)
+    cols = {k: torch.from_numpy(v).cuda() for k, v in b["cols"].items()}
+    if "__hll__v" in gb.plan.columns:
+        cols["__hll__v"] = torch.from_numpy(
+            encode_hll_column(b["cols"]["v"], EDGE_ROWS)).cuda()
+    base, V, M = gb.rule_inputs(cols, EDGE_ROWS)
+    return (base, V, M, torch.from_numpy(b["slots"]).cuda(),
+            torch.from_numpy(b["pane_vec"]).cuda())
+
+
+@pytest.mark.parametrize("mode", ["pane", "vec"])
+@pytest.mark.parametrize("kind", gbt.SLOT_KINDS)
+def test_multirule_fold_order_matches_plain(kind, mode):
+    """The radix order of a chunk's rows by pane * C + slot: rows and
+    segment offsets equal to the plain stable argsort's (dropped rows
+    last), the 63 rules' WHERE bits packed as the plain version packs
+    them, one launch count."""
+    gb = _edge_group("scalar", 63)
+    base, _, _, slots, pv = _edge_inputs(gb, 140, kind)
+    pane, pv = (0, pv) if mode == "vec" else (1, None)
+    kernels.reset_launches()
+    got = kernels.multirule_fold_order(slots, pane, EDGE_PANES, EDGE_CAP, pv,
+                                       base)
+    want = kernels.multirule_fold_order_plain(slots, pane, EDGE_PANES,
+                                              EDGE_CAP, pv, base)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["multirule_fold_order"] == 1
+    assert torch.equal(got.rows, want.rows)
+    assert torch.equal(got.offsets, want.offsets)
+    assert torch.equal(got.bits, want.bits)
+
+
+@pytest.mark.parametrize("bound", ["host", "read_back"])
+@pytest.mark.parametrize("mode", ["pane", "vec"])
+@pytest.mark.parametrize("kind", gbt.SLOT_KINDS)
+@pytest.mark.parametrize("n_rules", gbt.RULE_COUNTS)
+@pytest.mark.parametrize("plan", sorted(gbt.PLANS))
+def test_multirule_fold_edges_match_plain(plan, n_rules, kind, mode, bound):
+    """Both folds on the edge batches (a slot holding every row: pieces
+    added by atomics; Zipf-skewed slots; slots past C; NaN and ±inf), as
+    their plain versions: "host" with the host pane bound and the order
+    built once for both, the vector's panes past P dropped; "read_back"
+    without either (the wrappers read the vector's max and build their
+    own order), the vector clipped below P. s1 / s2 rtol 1e-5, the rest
+    bit-equal; the rule that passes no row stays at the identity. The
+    order given carries the WHERE bits packed once for both folds, as
+    BatchedGroupBy builds it."""
+    gb = _edge_group(plan, n_rules)
+    got, ref = gb.init_state(), gb.init_state()
+    kernels.reset_launches()
+    for seed in range(2):
+        base, V, M, slots, pv = _edge_inputs(gb, 150 + seed, kind)
+        if mode == "pane":
+            pane, pv, hi = 1, None, None
+        else:
+            pane = 0
+            hi = EDGE_PANES - 1 if bound == "host" else None
+            if bound == "read_back":
+                pv = pv.clamp(max=EDGE_PANES - 1)
+        order = (kernels.multirule_fold_order(slots, pane, EDGE_PANES,
+                                              EDGE_CAP, pv, base)
+                 if bound == "host" else None)
+        kernels.multirule_fold(got, base, V, M, slots, pane, gb._colmap, pv,
+                               hi, order)
+        kernels.multirule_fold_plain(ref, base, V, M, slots, pane,
+                                     gb._colmap, pv)
+        if len(gb._widemap):
+            kernels.multirule_fold_wide(got, base, V, M, slots, pane,
+                                        gb._widemap, pv, hi, order)
+            kernels.multirule_fold_wide_plain(ref, base, V, M, slots, pane,
+                                              gb._widemap, pv)
+    torch.cuda.synchronize()
+    _same(got, ref, 1e-5)
+    assert kernels.LAUNCHES["multirule_fold"] == 2
+    assert kernels.LAUNCHES["multirule_fold_order"] == 2 * (
+        1 if bound == "host" or not len(gb._widemap) else 2)
+    act = got["act"].cpu().numpy()
+    assert act.sum() > 0
+    if n_rules > 1:
+        assert act[-1].sum() == 0
+
+
+@pytest.mark.parametrize("cap", [37, EDGE_CAP])
+def test_multirule_reset_edges_match_plain(cap):
+    """The reset over a 63-rule sketch group's state, each pane: at 37
+    slots every other rule's scalar pane runs start off a 16-byte boundary
+    and end mid-float4 (scalar head and tail), the wide runs stay
+    aligned; bit-equal to the plain version, the other pane untouched."""
+    gb = _edge_group("wide", 63, cap)
+    st = gb.init_state()
+    for pane in range(EDGE_PANES):
+        base, V, M, slots, _ = _edge_inputs(gb, 160 + pane, "uniform", cap)
+        kernels.multirule_fold_plain(st, base, V, M, slots, pane, gb._colmap)
+        kernels.multirule_fold_wide_plain(st, base, V, M, slots, pane,
+                                          gb._widemap)
+    for pane in range(EDGE_PANES):
+        got = {k: v.clone() for k, v in st.items()}
+        ref = {k: v.clone() for k, v in st.items()}
+        kernels.multirule_reset_pane(got, pane)
+        kernels.multirule_reset_pane_plain(ref, pane)
+        torch.cuda.synchronize()
+        _same(got, ref, 0)
+        other = 1 - pane
+        assert got["act"][:, other].any() and not got["act"][:, pane].any()
 
 
 # ------------------------------------------------------ the masked fold

@@ -11,6 +11,23 @@ work. `--phase` picks the rows:
   in a tree that has it the folds' row order), and beside them each
   tree's #15 wrapper on E1's batch with Zipf-skewed slots and with one
   slot taking every row, timed by the same code.
+- `fold`: #1, #23 and #24 at phase 2's shapes, by code both trees run:
+  each rule's fold chunk as the group-by calls it (`_fold_chunk`: the
+  closures, then the fold's launches; on the mesh also the merge), the
+  fold's wrapper calls alone on the same inputs (the tree's own: one
+  `groupby_fold` / `sharded_fold`, or the parent's scalar and wide
+  wrappers), the fold kernels' bodies a chunk from a profiler trace, and
+  their launches a chunk. Rules: tumbling and hopping (#1's scalar fold),
+  the percentile, hll and heavy-hitters rules, the D1 percentile and D2
+  scalar plans on a pane vector, G1's touch column at 1,048,576 slots,
+  and on a 2x4 mesh of the card the tumbling rule with touch (#23), the
+  percentile rule and I3's rule on its 8-pane vector (#24).
+- `host`: the tumbling rule's fold stage (`TorchGroupBy.fold`: the
+  closures, the upload and the fold's launch) on the host at phase 3's
+  shapes, median ms a call after an idle card (`fold_idle_ms`) and a
+  mean back to back (`fold_b2b_ms`), and `process` ms a 65,536-row batch
+  (`process_ms`): the host time behind phase 3's rows/s, each a median
+  or mean of many calls in one process.
 
 Run from the repository root on a machine with a card, the parent
 checkout unpacked into a directory that .gitignore lists:
@@ -18,6 +35,8 @@ checkout unpacked into a directory that .gitignore lists:
     git archive HEAD~1 | (mkdir -p _archive/parent && tar -x -C _archive/parent)
     python3 ab_tumbling.py _archive/parent . --windows 6
     python3 ab_tumbling.py _archive/parent . --phase multirule --out DIR
+    python3 ab_tumbling.py _archive/parent . --phase fold --out DIR
+    python3 ab_tumbling.py _archive/parent . --phase host
 
 With --out, each run's result is written to DIR/ab_<phase>_<tag><i>.json.
 The last line of the output is one JSON object {"a": [...], "b": [...]},
@@ -98,9 +117,153 @@ for tag, sl in (("zipf", zipf), ("one_slot", np.full(cs.ROWS, 7))):
 print(json.dumps(rows))
 """
 
-PHASES = {"tumbling": (TUMBLING, 600), "multirule": (MULTIRULE, 1500)}
-#: the numbers of a multirule row the summary keeps
-KEYS = ("ms", "fold_only_ms", "readback_ms", "scalar_pane_ms", "body_ms",
+FOLD = r"""
+from ekuiper_tpu_torch.ops.groupby import TorchGroupBy
+from ekuiper_tpu_torch.parallel.mesh import make_mesh
+from ekuiper_tpu_torch.parallel.sharded import ShardedGroupBy
+from ekuiper_tpu_torch.planner.fused import plan_fused_rule
+
+dev = torch.device("cuda")
+#: every fold kernel either tree launches (the parent's per-branch
+#: kernels, the change's one kernel)
+NAMES = ("groupby_fold_kernel", "sharded_fold_kernel", "fold_scalar_kernel",
+         "fold_wide_kernel", "fold_hh_kernel", "sharded_fold_scalar_kernel",
+         "sharded_fold_wide_kernel")
+one_launch = hasattr(kernels, "groupby_fold")
+mesh = make_mesh(2, 4, [dev] * 8)
+D_OPTS = {"slidingImpl": "daba"}
+CASES = (  # tag, SQL, options, slots, pane vector, touch, mesh
+    ("tumbling", cs.TUMBLING, None, cs.SLOTS, False, False, False),
+    ("hopping", cs.HOPPING, None, cs.SLOTS, False, False, False),
+    ("pct", cs.PCT_RULE, None, cs.SLOTS, False, False, False),
+    ("hll", cs.HLL_RULE, None, cs.SLOTS, False, False, False),
+    ("hh", cs.HH_RULE, None, cs.SLOTS, False, False, False),
+    ("d1_pane_vec", cs.D1_RULE, D_OPTS, cs.SLOTS, True, False, False),
+    ("d2_pane_vec", cs.D2_RULE, D_OPTS, cs.SLOTS, True, False, False),
+    ("g1_touch", cs.TUMBLING, None, 1 << 20, False, True, False),
+    ("n1_mesh", cs.TUMBLING, None, cs.SLOTS, False, True, True),
+    ("n3_pct_mesh", cs.PCT_RULE, None, cs.SLOTS, False, False, True),
+    ("n4_pane_vec_mesh", cs.I3_RULE, cs.I_OPTS, cs.SLOTS, True, False,
+     True))
+rows = {}
+for i, (tag, sql, opts, C, vec, touch, on_mesh) in enumerate(CASES):
+    node = plan_fused_rule(sql, key_slots=cs.SLOTS, micro_batch=cs.ROWS,
+                           device=dev, options=opts)
+    P = node.n_panes
+    if on_mesh:
+        gb = ShardedGroupBy(node.plan, mesh, capacity=C, n_panes=P,
+                            micro_batch=cs.ROWS, track_touch=touch)
+    else:
+        gb = TorchGroupBy(node.plan, capacity=C, n_panes=P,
+                          micro_batch=cs.ROWS, device=dev, track_touch=touch)
+    node.on_close()
+    r = np.random.default_rng(200 + i)
+    host = {"__hhc__code": cs.skewed_codes(r, cs.ROWS).astype(np.float32),
+            "temperature": r.normal(20, 5, cs.ROWS).astype(np.float32),
+            "__hll__humidity": (r.integers(0, 1000, cs.ROWS) / 10).astype(
+                np.float32)}
+    cols = {k: torch.from_numpy(v).to(dev) for k, v in host.items()
+            if k in gb.plan.columns}
+    keys = cs.N_KEYS if C == cs.SLOTS else C
+    slots = torch.from_numpy(r.integers(0, keys, cs.ROWS).astype(
+        np.int32)).to(dev)
+    pv = (torch.from_numpy(np.where(np.arange(cs.ROWS) < 0.4 * cs.ROWS,
+                                    P - 2, P - 1).astype(np.uint8)).to(dev)
+          if vec else None)
+    pane = 0 if vec else P - 1
+    state = gb.init_state()
+    chunk = functools.partial(gb._fold_chunk, state, cols, cs.ROWS, slots,
+                              pane, pv)
+    base, V, M = gb.spec_inputs(cols, cs.ROWS)
+    if on_mesh:
+        parts = gb._partials(P if vec else 1)
+        R, K, m = gb.n_row_shards, gb.n_keys_shards, gb.rows_per_shard
+        if one_launch:
+            fold = functools.partial(kernels.sharded_fold, parts, base, V,
+                                     M, slots, m, R, K, gb._colmap,
+                                     gb._widemap, pv)
+        else:
+            def fold():
+                kernels.sharded_fold_scalar(parts, base, V, M, slots, m, R,
+                                            K, gb._colmap, pv)
+                if len(gb._widemap):
+                    kernels.sharded_fold_wide(parts, V, M, slots, m, R,
+                                              gb._widemap, pv)
+    elif one_launch:
+        fold = functools.partial(kernels.groupby_fold, state, base, V, M,
+                                 slots, pane, gb._colmap, gb._widemap, pv)
+    else:
+        def fold():
+            kernels.groupby_fold_scalar(state, base, V, M, slots, pane,
+                                        gb._colmap, pv)
+            if len(gb._widemap):
+                kernels.groupby_fold_wide(state, V, M, slots, pane,
+                                          gb._widemap, pv)
+    from torch.profiler import ProfilerActivity, profile
+    chunk()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(cs.REPS):
+            chunk()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    n_fold = sum(1 for e in prof.events()
+                 if e.device_type == cuda and any(n in e.name for n in NAMES))
+    rows[tag] = dict(
+        chunk_ms=cs.time_ms(torch, chunk, cs.REPS),
+        ms=cs.time_ms(torch, fold, cs.REPS),
+        body_ms=cs.body_ms(torch, fold, NAMES, cs.REPS, per_call=True),
+        host_ms=cs.host_ms(torch, fold, cs.REPS),
+        launches_a_chunk=n_fold / cs.REPS)
+    print("ab_fold", tag, rows[tag], flush=True)
+    del state, gb
+    torch.cuda.empty_cache()
+print(json.dumps(rows))
+"""
+
+HOST = r"""
+import statistics
+from ekuiper_tpu_torch.data.batch import ColumnBatch
+from ekuiper_tpu_torch.planner.fused import plan_fused_rule
+
+batches, _, _ = cs.make_batches(np.random.default_rng(0), ColumnBatch, 16)
+node = plan_fused_rule(cs.TUMBLING, key_slots=cs.SLOTS, micro_batch=cs.ROWS,
+                       options=cs.SYNC)
+node.broadcast = lambda item: None
+calls, fold = [], node.gb.fold
+node.gb.fold = lambda *a, **k: (calls.append((a, k)), fold(*a, **k))[1]
+for b in batches:
+    node.process(b)
+torch.cuda.synchronize()
+a, k = calls[-1]
+idle = []
+for _ in range(300):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fold(*a, **k)
+    idle.append((time.perf_counter() - t) * 1e3)
+torch.cuda.synchronize()
+t = time.perf_counter()
+for _ in range(300):
+    fold(*a, **k)
+torch.cuda.synchronize()
+b2b = (time.perf_counter() - t) / 300 * 1e3
+proc = []
+for _ in range(3):
+    t = time.perf_counter()
+    for b in batches:
+        node.process(b)
+    torch.cuda.synchronize()
+    proc.append((time.perf_counter() - t) / len(batches) * 1e3)
+print(json.dumps(dict(fold_idle_ms=statistics.median(idle), fold_b2b_ms=b2b,
+                      process_ms=statistics.median(proc))))
+"""
+
+PHASES = {"tumbling": (TUMBLING, 600), "multirule": (MULTIRULE, 1500),
+          "fold": (FOLD, 600), "host": (HOST, 600)}
+#: the numbers of a multirule or fold row the summary keeps
+KEYS = ("chunk_ms", "ms", "fold_only_ms", "readback_ms", "scalar_pane_ms",
+        "body_ms", "launches_a_chunk",
         "host_ms", "plain_ms", "library_ms", "library_idx_ms", "bound_ms",
         "bound_inputs_ms", "kernel_rounds_ms", "library_rounds_ms")
 
@@ -117,6 +280,10 @@ def summary(phase: str, label: str, res: dict) -> dict:
               f"encode_ms={res['encode_ms']:.3f} fold_ms={res['fold_ms']:.3f}"
               f" emit_p50_ms={res['emit_p50_ms']:.3f} emit_p99_ms="
               f"{res['emit_p99_ms']:.3f}", flush=True)
+        return res
+    if phase == "host":
+        print(f"{label}: " + " ".join(f"{k}={v:.4f}" for k, v in res.items()),
+              flush=True)
         return res
     head = {name: {k: row[k] for k in KEYS if row.get(k) is not None}
             for name, row in res.items()}

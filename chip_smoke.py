@@ -15,7 +15,11 @@ no result):
    csrc/relational.cu, csrc/countmin.cu and csrc/sharded.cu, one nvcc
    each for sm_90a, run together);
 2. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes (65,536 rows, 16,384 slots; the sketch kernels at the
+   path's shapes (65,536 rows, 16,384 slots; the one-launch fold #1 as the
+   node calls it on each rule (tumbling, hopping, the sketch rules, a rule
+   with hh, hll and hist columns together), each of its branches on its
+   own, and a profiler trace that shows one kernel launch a chunk for
+   every mix of columns, on one chip and on the mesh; the sketch kernels at the
    sketch rules' state, up to 2 panes x 16,384 x 2,688 floats; the
    components merge and the absorb at the phase C rules' state, up to
    16,384 x 1,028 floats; the sliding ring's advance, flip and query and
@@ -275,10 +279,10 @@ M. the count-min sketch, `CountMinSketch(depth=4, width=8192,
    heavy_hitters ms;
 N. the device mesh (#23, #24) on a 2x4 mesh whose eight devices are the
    card (`device=["cuda"] * 8`, planOptimizeStrategy.mesh): first its
-   kernels at the main path's shapes, sharded_fold_scalar (the flagship
-   rule with a touch column; I3's rule on its 8-pane vector),
-   sharded_fold_wide (phase B's percentile and hll rules) and shard_merge
-   of each, against their plain versions (the fold's sums rtol 1e-5,
+   kernels at the main path's shapes, sharded_fold (the flagship rule with
+   a touch column; I3's rule on its 8-pane vector; phase B's percentile
+   and hll rules, each branch also on its own) and shard_merge of each,
+   against their plain versions (the fold's sums rtol 1e-5,
    everything else and the merge of the same partials bit-equal) and the
    fold + merge against #1's single-chip fold of the same batch, timed as
    phase 2 times its kernels (the merge's partials restored before each
@@ -301,7 +305,7 @@ N. the device mesh (#23, #24) on a 2x4 mesh whose eight devices are the
    > 0; the fold's touch branch on the G paths, I7, L1 and L2; the masked
    fold's on L2; the per-row pane vector on the sliding paths and I2, I3,
    I5, I6, and the sharded one on N4), then the JSON kernel table
-   (twenty-nine kernels: the 28 that replace the reference's programs and
+   (twenty-seven kernels: the 26 that replace the reference's programs and
    the rule group's row order) and the one-line result.
 """
 from __future__ import annotations
@@ -310,6 +314,7 @@ import argparse
 import ctypes
 import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -610,10 +615,9 @@ SHIFT_KERNELS = ("Memset", "radix_hist_kernel", "radix_pass_kernel",
 SORT_KERNELS = ("Memset", "radix_hist_kernel", "radix_pass_kernel",
                 "seg_scan_kernel")
 SOURCE = {
-    "groupby_fold_scalar": "ekuiper_tpu_torch/csrc/groupby.cu",
+    "groupby_fold": "ekuiper_tpu_torch/csrc/groupby.cu",
     "groupby_finalize_scalar": "ekuiper_tpu_torch/csrc/groupby.cu",
     "groupby_reset_pane": "ekuiper_tpu_torch/csrc/groupby.cu",
-    "groupby_fold_wide": "ekuiper_tpu_torch/csrc/sketches.cu",
     "groupby_finalize_wide": "ekuiper_tpu_torch/csrc/sketches.cu",
     "groupby_hh_finalize": "ekuiper_tpu_torch/csrc/sketches.cu",
     "groupby_components": "ekuiper_tpu_torch/csrc/prefinalize.cu",
@@ -636,15 +640,13 @@ SOURCE = {
     "segscan_sort": "ekuiper_tpu_torch/csrc/relational.cu",
     "cms_update": "ekuiper_tpu_torch/csrc/countmin.cu",
     "cms_query": "ekuiper_tpu_torch/csrc/countmin.cu",
-    "sharded_fold_scalar": "ekuiper_tpu_torch/csrc/sharded.cu",
-    "sharded_fold_wide": "ekuiper_tpu_torch/csrc/sharded.cu",
+    "sharded_fold": "ekuiper_tpu_torch/csrc/sharded.cu",
     "shard_merge": "ekuiper_tpu_torch/csrc/sharded.cu",
 }
 REPLACES = {
-    "groupby_fold_scalar": "ekuiper_tpu/ops/groupby.py:348",
+    "groupby_fold": "ekuiper_tpu/ops/groupby.py:348",
     "groupby_finalize_scalar": "ekuiper_tpu/ops/groupby.py:459",
     "groupby_reset_pane": "ekuiper_tpu/ops/groupby.py:763",
-    "groupby_fold_wide": "ekuiper_tpu/ops/groupby.py:419",
     "groupby_finalize_wide": "ekuiper_tpu/ops/groupby.py:510",
     "groupby_hh_finalize": "ekuiper_tpu/ops/groupby.py:628",
     "groupby_components": "ekuiper_tpu/ops/groupby.py:541",
@@ -669,13 +671,12 @@ REPLACES = {
     "segscan_sort": "ekuiper_tpu/ops/segscan.py:165",
     "cms_update": "ekuiper_tpu/ops/sketches.py:282",
     "cms_query": "ekuiper_tpu/ops/sketches.py:288",
-    "sharded_fold_scalar": "ekuiper_tpu/parallel/sharded.py:208",
-    "sharded_fold_wide": "ekuiper_tpu/parallel/sharded.py:208",
+    "sharded_fold": "ekuiper_tpu/parallel/sharded.py:208",
     "shard_merge": "ekuiper_tpu/parallel/sharded.py:208",
 }
 #: which end-to-end paths launch each kernel (phase 5 checks each > 0)
 PATHS = {
-    "groupby_fold_scalar": ("tumbling", "hopping", "hh", "pct", "hll", "d1",
+    "groupby_fold": ("tumbling", "hopping", "hh", "pct", "hll", "d1",
                             "d2", "d2_delay", "d3", "f1", "f2", "f3", "f4",
                             "g1", "g2a", "g2b", "h1", "h2", "h3", "h4",
                             "i1", "i2", "i3", "i4", "i7", "l1", "l2"),
@@ -687,7 +688,6 @@ PATHS = {
                            "d2", "d3", "f1", "f2", "f3", "f4", "g1", "g2a",
                            "g2b", "h1", "h2", "h3", "h4", "i1", "i2", "i3",
                            "i4", "i7", "l1", "l2", "n1"),
-    "groupby_fold_wide": ("hh", "pct", "hll", "d1", "d3", "f1", "f3", "h1"),
     "groupby_finalize_wide": ("pct", "hll", "f3", "h1"),
     "groupby_hh_finalize": ("hh", "f1"),
     "groupby_components": ("c1", "c1_nobackstop", "c1_host", "c2", "c3_pct",
@@ -713,28 +713,24 @@ PATHS = {
     "segscan_sort": ("k2",),
     "cms_update": ("m",),
     "cms_query": ("m",),
-    "sharded_fold_scalar": ("n1", "n2", "n3_pct", "n3_hll", "n4", "n5"),
-    "sharded_fold_wide": ("n3_pct", "n3_hll"),
+    "sharded_fold": ("n1", "n2", "n3_pct", "n3_hll", "n4", "n5"),
     "shard_merge": ("n1", "n2", "n3_pct", "n3_hll", "n4", "n5"),
     "multirule_fold_order": ("e1", "e2", "e3", "h5_hll", "h5_pct", "h6",
                              "i5", "i6"),
 }
 #: the folds that must bump the touch column on each tiered path (the
 #: masked fold: on the refold path's edge refolds)
-TOUCH_PATHS = {"groupby_fold_scalar": ("g1", "g2a", "g2b", "i7", "l1",
-                                       "l2"),
+TOUCH_PATHS = {"groupby_fold": ("g1", "g2a", "g2b", "i7", "l1", "l2"),
                "groupby_fold_masked_scalar": ("l2",)}
 #: the folds that must take a per-row pane vector on each sliding and
 #: event-time path (a batch that crosses a bucket edge; on the F paths
 #: from the cached upload)
-ROW_PANE_PATHS = {"groupby_fold_scalar": ("d1", "d2", "d2_delay", "d3",
-                                          "f1", "f2", "f3", "f4", "i2",
-                                          "i3", "l1", "l2"),
-                  "groupby_fold_wide": ("d1", "d3", "f1", "f3"),
+ROW_PANE_PATHS = {"groupby_fold": ("d1", "d2", "d2_delay", "d3", "f1", "f2",
+                                   "f3", "f4", "i2", "i3", "l1", "l2"),
                   "multirule_fold_order": ("i5", "i6"),
                   "multirule_fold": ("i5", "i6"),
                   "multirule_fold_wide": ("i6",),
-                  "sharded_fold_scalar": ("n4",)}
+                  "sharded_fold": ("n4",)}
 
 
 class SmokeFailure(Exception):
@@ -926,39 +922,40 @@ def kernel_checks(torch, seed, kernels, plan_fused_rule, dev):
         node = plan_fused_rule(sql, key_slots=SLOTS, micro_batch=ROWS,
                                device=dev)
         gb, base, V, M, s_dev, s_host = path_inputs(node, P)
-        colmap = gb._colmap
+        colmap, widemap = gb._colmap, gb._widemap
         pane = P - 1
         st = gb.init_state()
         if P == 2:  # both panes hold data, the fold lands in pane 1
-            kernels.fold_scalar_plain(st, base, V, M, s_dev, 0, colmap)
+            kernels.fold_plain(st, base, V, M, s_dev, 0, colmap, widemap)
         ref = clone_state(st)
         got = clone_state(st)
-        kernels.fold_scalar_plain(ref, base, V, M, s_dev, pane, colmap)
-        kernels.groupby_fold_scalar(got, base, V, M, s_dev, pane, colmap)
+        kernels.fold_plain(ref, base, V, M, s_dev, pane, colmap, widemap)
+        kernels.groupby_fold(got, base, V, M, s_dev, pane, colmap, widemap)
         torch.cuda.synchronize()
         err = state_err(got, ref)
-        fold = functools.partial(kernels.groupby_fold_scalar, got, base, V,
-                                 M, s_dev, pane, colmap)
+        fold = functools.partial(kernels.groupby_fold, got, base, V, M,
+                                 s_dev, pane, colmap, widemap)
         t_k = time_ms(torch, fold, REPS)
-        split = launch_split(torch, fold, "fold_scalar_kernel", REPS)
-        t_p = time_ms(torch, lambda: kernels.fold_scalar_plain(
-            ref, base, V, M, s_dev, pane, colmap), REPS)
-        t_l = time_ms(torch, lambda: library_fold(
-            torch, ref, base, V, M, s_dev, pane, colmap, kernels), REPS)
+        split = launch_split(torch, fold, FOLD_KERNEL, REPS)
+        t_p = time_ms(torch, lambda: kernels.fold_plain(
+            ref, base, V, M, s_dev, pane, colmap, widemap), REPS)
+        upd = fold_updates(torch, ref, base, V, M, s_dev, pane, colmap,
+                           kernels)
+        t_l = time_ms(torch, lambda: library_fold(torch, ref, upd), REPS)
         S, R = V.shape
         touched = len(np.unique(s_host))
         width = sum(a.shape[2] for k, a in st.items() if k != "act") + 1
         nbytes = V.numel() * 4 + M.numel() + R * 4 + R + touched * width * 8
         b_ms, b_by = bound(nbytes, R * (len(colmap) + 1))
-        print(f"kernel groupby_fold_scalar P={P} R={R} C={SLOTS} "
+        tag = "tumbling" if P == 1 else "hopping"
+        print(f"kernel groupby_fold {tag} P={P} R={R} C={SLOTS} "
               f"cols={len(colmap)}: max_abs_err={err[0]:.3g} "
               f"max_rel_err={err[1]:.3g} "
               f"kernel_ms={t_k:.4f} {split_text(split)} plain_ms={t_p:.4f} "
               f"library_ms={t_l:.4f} bound_ms={b_ms:.5f} ({b_by})")
-        if P == 1:
-            rows["groupby_fold_scalar"] = dict(
-                max_abs_err=err[0], max_rel_err=err[1], ms=t_k, **split,
-                plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+        rows["groupby_fold" if P == 1 else "groupby_fold/hopping"] = dict(
+            max_abs_err=err[0], max_rel_err=err[1], ms=t_k, **split,
+            plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
         fold_errs.append(err)
 
         # finalize: full mask, and (P=2) a subset mask, on the folded state
@@ -1014,37 +1011,116 @@ def kernel_checks(torch, seed, kernels, plan_fused_rule, dev):
             rows["groupby_reset_pane"] = dict(
                 max_abs_err=err[0], max_rel_err=err[1], ms=t_k, **split,
                 plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
-    rows["groupby_fold_scalar"]["max_abs_err"] = max(e[0] for e in fold_errs)
-    rows["groupby_fold_scalar"]["max_rel_err"] = max(e[1] for e in fold_errs)
+    rows["groupby_fold"]["max_abs_err"] = max(e[0] for e in fold_errs)
+    rows["groupby_fold"]["max_rel_err"] = max(e[1] for e in fold_errs)
     return rows
 
 
-def library_fold(torch, state, base, V, M, slots, pane, colmap, kernels):
-    """Yardstick, never called by the port: the fold as PyTorch's own
-    scatter calls (index_add_ for the sums, scatter_reduce_ for min/max);
+#: the port's fold kernels a trace can hold (#1, #23 / #24; #2's own)
+FOLD_KERNEL_NAMES = re.compile(
+    r"\b(groupby_fold_kernel|sharded_fold_kernel|fold_\w*_kernel)\b")
+
+
+def fold_launch_trace(torch, seed, kernels, plan_fused_rule, dev):
+    """One kernel launch a fold chunk, for every mix of columns: a
+    profiler trace of the group-by's `_fold_chunk` (the closures, then
+    the fold) on the tumbling, hopping, percentile, hll, heavy-hitters and
+    mixed (hh + hll + hist + scalar) rules at the main path's shapes, on
+    one chip and, for the rules a mesh takes, on the 2x4 mesh (whose
+    chunk also launches shard_merge, a kernel of its own): the port's fold
+    kernels in the trace, by name, three chunks each. Each chunk must
+    launch exactly one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ekuiper_tpu_torch.parallel.mesh import make_mesh
+    from ekuiper_tpu_torch.parallel.sharded import ShardedGroupBy
+
+    out = {"groupby_fold": {}, "sharded_fold": {}}
+    mesh = make_mesh(N_MESH["rows"], N_MESH["keys"], [dev] * N_DEVICES)
+    cuda = torch.autograd.DeviceType.CUDA
+    for i, (tag, sql) in enumerate((
+            ("tumbling", TUMBLING), ("hopping", HOPPING), ("pct", PCT_RULE),
+            ("hll", HLL_RULE), ("hh", HH_RULE), ("mixed", MIXED_RULE))):
+        node = plan_fused_rule(sql, key_slots=SLOTS, micro_batch=ROWS,
+                               device=dev)
+        gbs = [("groupby_fold", node.gb)]
+        if "hh" not in node.gb.comp_specs:  # the mesh refuses heavy_hitters
+            gbs.append(("sharded_fold", ShardedGroupBy(
+                node.plan, mesh, capacity=SLOTS, n_panes=node.n_panes,
+                micro_batch=ROWS)))
+        node.on_close()
+        r = np.random.default_rng(seed + 160 + i)
+        host = {"__hhc__code": skewed_codes(r, ROWS).astype(np.float32),
+                "temperature": r.normal(20, 5, ROWS).astype(np.float32),
+                "__hll__humidity": (r.integers(0, 1000, ROWS) / 10).astype(
+                    np.float32)}
+        for name, gb in gbs:
+            cols = {k: torch.from_numpy(v).to(dev) for k, v in host.items()
+                    if k in gb.plan.columns}
+            slots = torch.from_numpy(r.integers(
+                0, min(N_KEYS, gb.capacity), ROWS).astype(np.int32)).to(dev)
+            state = gb.init_state()
+            chunk = functools.partial(gb._fold_chunk, state, cols, ROWS,
+                                      slots, gb.n_panes - 1, None)
+            chunk()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    chunk()
+                torch.cuda.synchronize()
+            found = [m.group(1) for e in prof.events()
+                     if e.device_type == cuda
+                     for m in [FOLD_KERNEL_NAMES.search(e.name)] if m]
+            kernel = FOLD_KERNEL if name == "groupby_fold" else \
+                SHARDED_FOLD_KERNEL
+            check(found == [kernel] * 3,
+                  f"{name} {tag}: a chunk launched {found} (three chunks), "
+                  f"want one {kernel} each")
+            out[name][tag] = len(found) / 3
+            del state
+        torch.cuda.empty_cache()
+    print("phase 2 fold launches a chunk (profiler trace): " + " ".join(
+        f"{name}/{tag}={n:g}" for name, v in out.items()
+        for tag, n in v.items()))
+    return out
+
+
+def fold_updates(torch, state, base, V, M, slots, pane, colmap, kernels):
+    """Act's and each scalar column's (state key, flat index, value, reduce
+    op) of their updates, built ahead of the timed region as wide_updates'
+    are, so that the library yardstick times PyTorch's scatters alone;
     `pane` an int or a per-row int64 tensor."""
-    act = state["act"]
-    C = act.shape[1]
+    C = state["act"].shape[1]
     pc = pane * C + slots.long()
-    act.view(-1).index_add_(0, pc, base.float())
+    b = base.bool()
+    out = [("act", pc[b], torch.ones(int(b.sum()), device=pc.device),
+            "sum")]
     names = {j: c for c, j in kernels.COMP_IDS.items()}
     for comp_id, k, s in colmap.tolist():
         comp = names[comp_id]
-        arr = state[comp]
-        idx = pc * arr.shape[2] + k
-        m, v = M[s], V[s]
-        flat = arr.view(-1)
+        m = M[s]
+        idx = (pc * state[comp].shape[2] + k)[m]
+        v = V[s][m]
         if comp == "n":
-            flat.index_add_(0, idx, m.float())
-        elif comp == "s1":
-            flat.index_add_(0, idx, torch.where(m, v, 0.0))
-        elif comp == "s2":
-            flat.index_add_(0, idx, torch.where(m, v * v, 0.0))
+            out.append((comp, idx, torch.ones_like(v), "sum"))
+        elif comp in ("s1", "s2"):
+            out.append((comp, idx, v if comp == "s1" else v * v, "sum"))
         else:
-            ident = float("inf") if comp == "mn" else float("-inf")
-            flat.scatter_reduce_(0, idx, torch.where(m, v, ident),
-                                 "amin" if comp == "mn" else "amax",
-                                 include_self=True)
+            out.append((comp, idx, v, "amin" if comp == "mn" else "amax"))
+    return out
+
+
+def library_fold(torch, state, updates):
+    """Yardstick, never called by the port: the fold as PyTorch's own
+    scatter calls on precomputed updates (fold_updates, wide_updates):
+    index_add_ for the counters and sums, scatter_reduce_ amin / amax for
+    min, max and the hll registers."""
+    for comp, idx, val, op in updates:
+        flat = state[comp].view(-1)
+        if op == "sum":
+            flat.index_add_(0, idx, val)
+        else:
+            flat.scatter_reduce_(0, idx, val, op, include_self=True)
 
 
 def finalize_err(out_k, out_p, spectab, kernels):
@@ -1071,11 +1147,24 @@ def finalize_err(out_k, out_p, spectab, kernels):
 
 # ------------------------------------------------- phase 2, the sketches
 WIDE = ("hll", "hist", "hh")
-#: the kernels of one #1 / #2 wide fold: the hll / hist columns' kernel
-#: and the hh columns' (csrc/sketches.cu fold_hh_kernel), each launched
-#: where the widemap has such columns
-FOLD_WIDE_KERNELS = ("fold_wide_kernel", "fold_hh_kernel")
+#: the one kernel of a #1 fold (csrc/groupby.cu, csrc/fold.cuh) and of a
+#: #23 / #24 one (csrc/sharded.cu)
+FOLD_KERNEL = "groupby_fold_kernel"
+SHARDED_FOLD_KERNEL = "sharded_fold_kernel"
+#: the kernels of one #2 wide fold: the hll / hist columns' kernel and the
+#: hh columns' (csrc/sketches.cu fold_hh_kernel), each launched where the
+#: widemap has such columns
 FOLD_MASKED_WIDE_KERNELS = ("fold_masked_wide_kernel", "fold_hh_kernel")
+#: a rule with hh, hll and hist columns beside scalar ones: the fold's
+#: three roles in one launch
+MIXED_RULE = (
+    "SELECT deviceId, count(*) AS c, avg(temperature) AS a, "
+    "hll(humidity) AS u, percentile_approx(temperature, 0.5) AS p, "
+    "heavy_hitters(code, 3) AS top FROM demo "
+    "GROUP BY deviceId, HOPPINGWINDOW(ss, 10, 5)"
+)
+#: the empty column maps of a branch timed on its own
+NO_COLS = np.zeros((0, 3), dtype=np.int32)
 
 
 def wide_split(torch, fn, names, widemap, kernels, reps):
@@ -1139,25 +1228,13 @@ def wide_updates(torch, gb, V, M, slots, pane, sketches):
     return out
 
 
-def library_fold_wide(torch, state, updates):
-    """Yardstick, never called by the port: the wide fold's scatters as
-    PyTorch's own calls on precomputed indices (index_add_ for the
-    counters, scatter_reduce_ amax for the hll registers)."""
-    for comp, idx, val, op in updates:
-        flat = state[comp].view(-1)
-        if op == "sum":
-            flat.index_add_(0, idx, val)
-        else:
-            flat.scatter_reduce_(0, idx, val, "amax", include_self=True)
-
-
 def library_idx_ms(torch, gb, state, V, M, slots, pane, sketches):
     """Device time of the yardstick with its index build: wide_updates
     (the hashes, the indices, the zero updates dropped) and then
-    library_fold_wide, which PyTorch takes for the same function from the
+    library_fold, which PyTorch takes for the same function from the
     batch as the kernels get it. The boolean indexing waits for the card,
     so the time holds those waits too."""
-    return time_ms(torch, lambda: library_fold_wide(torch, state, wide_updates(
+    return time_ms(torch, lambda: library_fold(torch, state, wide_updates(
         torch, gb, V, M, slots, pane, sketches)), REPS)
 
 
@@ -1166,53 +1243,84 @@ EXACT = ("n", "act", "mn", "mx") + WIDE
 
 def sketch_kernel_checks(torch, seed, kernels, sketches, plan_fused_rule,
                          TorchGroupBy, dev):
-    """The three sketch kernels (and the pane reset over wide state)
-    against their plain versions at the sketch rules' full state."""
+    """The one-launch fold (#1) on the sketch rules and on a rule with hh,
+    hll and hist columns together, as the node calls it and each branch
+    on its own; the two sketch finalizes and the pane reset over wide
+    state; each against its plain version at the sketch rules' full
+    state."""
     rows = {}
-    for tag, sql in (("hh", HH_RULE), ("pct", PCT_RULE), ("hll", HLL_RULE)):
+    for tag, sql in (("hh", HH_RULE), ("pct", PCT_RULE), ("hll", HLL_RULE),
+                     ("mixed", MIXED_RULE)):
         node = plan_fused_rule(sql, key_slots=SLOTS, micro_batch=ROWS,
                                device=dev)
         gb = TorchGroupBy(node.plan, capacity=SLOTS, n_panes=node.n_panes,
                           micro_batch=ROWS, device=dev)
         P = gb.n_panes
         pane = P - 1
+        cmap, wmap = gb._colmap, gb._widemap
         st = gb.init_state()
         if P == 2:  # both panes hold data, the fold lands in pane 1
             base, V, M, s_dev, _ = sketch_inputs(torch, gb, seed + 40, dev)
-            kernels.fold_scalar_plain(st, base, V, M, s_dev, 0, gb._colmap)
-            kernels.fold_wide_plain(st, V, M, s_dev, 0, gb._widemap)
+            kernels.fold_plain(st, base, V, M, s_dev, 0, cmap, wmap)
         base, V, M, s_dev, s_host = sketch_inputs(torch, gb, seed + 41, dev)
-        kernels.fold_scalar_plain(st, base, V, M, s_dev, pane, gb._colmap)
         ref, got = clone_state(st), clone_state(st)
-        kernels.fold_wide_plain(ref, V, M, s_dev, pane, gb._widemap)
-        kernels.groupby_fold_wide(got, V, M, s_dev, pane, gb._widemap)
+        kernels.fold_plain(ref, base, V, M, s_dev, pane, cmap, wmap)
+        kernels.groupby_fold(got, base, V, M, s_dev, pane, cmap, wmap)
         torch.cuda.synchronize()
         err = state_err(got, ref, exact=EXACT)
-        fold = functools.partial(kernels.groupby_fold_wide, got, V, M, s_dev,
-                                 pane, gb._widemap)
+        # as the node calls it: every column in one launch
+        fold = functools.partial(kernels.groupby_fold, got, base, V, M,
+                                 s_dev, pane, cmap, wmap)
         t_k = time_ms(torch, fold, REPS)
-        split = wide_split(torch, fold, FOLD_WIDE_KERNELS, gb._widemap,
-                           kernels, REPS)
-        t_p = time_ms(torch, lambda: kernels.fold_wide_plain(
-            ref, V, M, s_dev, pane, gb._widemap), REPS)
+        split = launch_split(torch, fold, FOLD_KERNEL, REPS)
+        t_p = time_ms(torch, lambda: kernels.fold_plain(
+            ref, base, V, M, s_dev, pane, cmap, wmap), REPS)
         upd = wide_updates(torch, gb, V, M, s_dev, pane, sketches)
-        t_l = time_ms(torch, lambda: library_fold_wide(torch, ref, upd),
-                      REPS)
+        u_act, *u_sc = fold_updates(torch, ref, base, V, M, s_dev, pane,
+                                    cmap, kernels)
+        t_l = time_ms(torch, lambda: library_fold(
+            torch, ref, [u_act] + u_sc + upd), REPS)
         t_li = library_idx_ms(torch, gb, ref, V, M, s_dev, pane, sketches)
-        # bytes: V, M and slots read once, each touched state float read
-        # and written once; operations: one atomic per nonzero update
+        # each branch on its own: act and the scalar columns, and the
+        # sketch columns (with act, which every launch adds), each beside
+        # its library call
+        branches = {}
+        for branch, cm, wm, lib_upd in (
+                ("scalar", cmap, NO_COLS, [u_act] + u_sc),
+                ("sketch", NO_COLS, wmap, [u_act] + upd)):
+            fn = functools.partial(kernels.groupby_fold, got, base, V, M,
+                                   s_dev, pane, cm, wm)
+            lib = functools.partial(library_fold, torch, ref, lib_upd)
+            branches[branch] = dict(ms=time_ms(torch, fn, REPS),
+                                    **launch_split(torch, fn, FOLD_KERNEL,
+                                                   REPS),
+                                    library_ms=time_ms(torch, lib, REPS))
+        # bytes: V, M, base and slots read once, each touched state float
+        # read and written once; operations: one atomic per nonzero update
         touched = sum(len(torch.unique(idx)) for _, idx, _, _ in upd)
         n_upd = sum(len(idx) for _, idx, _, _ in upd)
-        nbytes = V.numel() * 4 + M.numel() + ROWS * 4 + touched * 8
+        width = 1 + sum(a.shape[2] for k, a in st.items()
+                        if k in kernels.COMP_IDS)
+        touched += len(np.unique(s_host)) * width
+        n_upd += ROWS * (len(cmap) + 1)
+        nbytes = V.numel() * 4 + M.numel() + ROWS * 5 + touched * 8
         b_ms, b_by = bound(nbytes, n_upd)
-        print(f"kernel groupby_fold_wide {tag} P={P} R={ROWS} C={SLOTS} "
-              f"cols={len(gb._widemap)} updates={n_upd}: "
+        print(f"kernel groupby_fold {tag} P={P} R={ROWS} C={SLOTS} "
+              f"cols={len(cmap)}+{len(wmap)} updates={n_upd}: "
               f"max_abs_err={err[0]:.3g} kernel_ms={t_k:.4f} "
               f"{split_text(split)} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
-              f"library_idx_ms={t_li:.4f} bound_ms={b_ms:.5f} ({b_by})")
-        rows[f"groupby_fold_wide/{tag}"] = dict(
+              f"library_idx_ms={t_li:.4f} bound_ms={b_ms:.5f} ({b_by}) "
+              + " ".join(f"{k}_only: kernel_ms={v['ms']:.4f} "
+                         f"{split_text(v)} library_ms={v['library_ms']:.4f}"
+                         for k, v in branches.items()))
+        rows[f"groupby_fold/{tag}"] = dict(
             max_abs_err=err[0], ms=t_k, **split, plain_ms=t_p, bound_ms=b_ms,
-            bound_by=b_by, library_ms=t_l, library_idx_ms=t_li)
+            bound_by=b_by, library_ms=t_l, library_idx_ms=t_li,
+            branches=branches)
+        if tag == "mixed":  # a fold check: its finalizes are the others'
+            del st, ref, got
+            torch.cuda.empty_cache()
+            continue
 
         for panes in [None] + ([[1]] if P == 2 else []):
             pm = gb._pane_mask(panes)
@@ -2561,9 +2669,10 @@ def ring_kernel_checks(torch, seed, kernels, plan_fused_rule, dev):
 
 
 def row_pane_fold_check(torch, seed, kernels, gb, tag, dev):
-    """The scalar (D2 plan) or wide (D1 plan) fold with a per-row pane
-    vector against its plain version: a 65,536-row batch whose first 40 %
-    of rows land in pane 7 and the rest in pane 8 (a bucket edge)."""
+    """The fold (#1) with a per-row pane vector on the scalar (D2) or
+    percentile (D1) plan, against its plain version: a 65,536-row batch
+    whose first 40 % of rows land in pane 7 and the rest in pane 8 (a
+    bucket edge)."""
     from ekuiper_tpu_torch.ops import sketches
 
     r = np.random.default_rng(seed + 95)
@@ -2576,44 +2685,35 @@ def row_pane_fold_check(torch, seed, kernels, gb, tag, dev):
         np.uint8)
     pv = torch.from_numpy(pv_host).to(dev)
     got, ref = gb.init_state(), gb.init_state()
-    if tag == "scalar":
-        name, kernel = "groupby_fold_scalar", "fold_scalar_kernel"
-        fn = functools.partial(kernels.groupby_fold_scalar, got, base, V, M,
-                               slots, 0, gb._colmap, pv)
-        plain = functools.partial(kernels.fold_scalar_plain, ref, base, V, M,
-                                  slots, 0, gb._colmap, pv)
-        width = sum(a.shape[2] for k, a in got.items() if k != "act") + 1
-    else:
-        name, kernel = "groupby_fold_wide", "fold_wide_kernel"
-        fn = functools.partial(kernels.groupby_fold_wide, got, V, M, slots,
-                               0, gb._widemap, pv)
-        plain = functools.partial(kernels.fold_wide_plain, ref, V, M, slots,
-                                  0, gb._widemap, pv)
-        width = 1  # one bin per row
+    cmap, wmap = gb._colmap, gb._widemap
+    fn = functools.partial(kernels.groupby_fold, got, base, V, M, slots, 0,
+                           cmap, wmap, pv)
+    plain = functools.partial(kernels.fold_plain, ref, base, V, M, slots, 0,
+                              cmap, wmap, pv)
+    width = sum(a.shape[2] for k, a in got.items() if k in kernels.COMP_IDS)
     fn()
     plain()
     torch.cuda.synchronize()
     err = state_err(got, ref, exact=EXACT)
     t_k = time_ms(torch, fn, REPS)
-    split = launch_split(torch, fn, kernel, REPS)
+    split = launch_split(torch, fn, FOLD_KERNEL, REPS)
     t_p = time_ms(torch, plain, REPS)
-    if tag == "scalar":
-        t_l = time_ms(torch, lambda: library_fold(
-            torch, ref, base, V, M, slots, pv.long(), gb._colmap, kernels),
-            REPS)
-    else:
-        upd = wide_updates(torch, gb, V, M, slots, pv.long(), sketches)
-        t_l = time_ms(torch, lambda: library_fold_wide(torch, ref, upd),
-                      REPS)
+    upd = wide_updates(torch, gb, V, M, slots, pv.long(), sketches)
+    every = fold_updates(torch, ref, base, V, M, slots, pv.long(), cmap,
+                         kernels) + upd
+    t_l = time_ms(torch, lambda: library_fold(torch, ref, every), REPS)
     touched = len(np.unique(pv_host.astype(np.int64) * SLOTS + s_host))
-    nbytes = V.numel() * 4 + M.numel() + ROWS * 5 + ROWS + touched * width * 8
-    n_upd = ROWS * (len(gb._colmap) + 1 if tag == "scalar" else 1)
+    n_wide = sum(len(idx) for _, idx, _, _ in upd)  # one bin or register
+    nbytes = (V.numel() * 4 + M.numel() + ROWS * 5 + ROWS
+              + touched * (width + 1) * 8 + n_wide * 8)
+    n_upd = ROWS * (len(cmap) + 1) + n_wide
     b_ms, b_by = bound(nbytes, n_upd)
+    name = "groupby_fold"
     print(f"kernel {name} pane_vec {tag} P={gb.n_panes} R={ROWS} C={SLOTS}: "
           f"max_abs_err={err[0]:.3g} kernel_ms={t_k:.4f} {split_text(split)} "
           f"plain_ms={t_p:.4f} library_ms={t_l:.4f} bound_ms={b_ms:.5f} "
           f"({b_by})")
-    return {f"{name}/pane_vec": dict(
+    return {f"{name}/pane_vec" + ("" if tag == "scalar" else f"_{tag}"): dict(
         max_abs_err=err[0], ms=t_k, **split, plain_ms=t_p, bound_ms=b_ms,
         bound_by=b_by, library_ms=t_l)}
 
@@ -3297,8 +3397,8 @@ def masked_kernel_checks(torch, seed, kernels, sketches, plan_fused_rule,
                                    base, V, M, slots, pane, gb._colmap)
             plain = functools.partial(kernels.fold_masked_scalar_plain, ref,
                                       base, V, M, slots, pane, gb._colmap)
-            lib = functools.partial(library_fold, torch, ref, base, V, M,
-                                    slots, pane, gb._colmap, kernels)
+            lib = functools.partial(library_fold, torch, ref, fold_updates(
+                torch, ref, base, V, M, slots, pane, gb._colmap, kernels))
             touched = len(np.unique(s_host[base.cpu().numpy()]))
             width = sum(a.shape[2] for k, a in st.items() if k != "act") + 1
             nbytes = io + touched * width * 8
@@ -3311,7 +3411,7 @@ def masked_kernel_checks(torch, seed, kernels, sketches, plan_fused_rule,
             plain = functools.partial(kernels.fold_masked_wide_plain, ref,
                                       base, V, M, slots, pane, gb._widemap)
             upd = wide_updates(torch, gb, V, M, slots, pane, sketches)
-            lib = functools.partial(library_fold_wide, torch, ref, upd)
+            lib = functools.partial(library_fold, torch, ref, upd)
             touched = sum(len(torch.unique(idx)) for _, idx, _, _ in upd)
             n_upd = sum(len(idx) for _, idx, _, _ in upd)
             nbytes = io + touched * 8
@@ -4371,42 +4471,47 @@ def tier_kernel_checks(torch, seed, kernels, plan_fused_rule, dev):
             max_abs_err=err[0], max_rel_err=err[1], ms=t_k, **split,
             plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
         if tag == "g1":
-            rows["groupby_fold_scalar/touch"] = touch_fold_check(
+            rows["groupby_fold/touch"] = touch_fold_check(
                 torch, seed, kernels, gb, st, dev)
     return rows
 
 
 def touch_fold_check(torch, seed, kernels, gb, st, dev):
-    """#1's touch branch at G1's state: a 65,536-row batch folded by the
-    kernel and by the plain fold, touch exact (uint32), the rest as the
-    fold's check; timed with the touch column and without it."""
+    """#1's touch branch at G1's state (1,048,576 slots): a 65,536-row
+    batch folded by the kernel and by the plain fold, touch exact
+    (uint32), the rest as the fold's check; timed with the touch column
+    and without it."""
     r = np.random.default_rng(seed + 720)
     v = torch.from_numpy(r.normal(50, 10, ROWS).astype(np.float32)).to(dev)
     base, V, M = gb.spec_inputs({"v": v}, ROWS)
     slots = r.integers(0, gb.capacity, ROWS).astype(np.int32)
     s_dev = torch.from_numpy(slots).to(dev)
     got, ref = clone_state(st), clone_state(st)
-    kernels.groupby_fold_scalar(got, base, V, M, s_dev, 0, gb._colmap)
-    kernels.fold_scalar_plain(ref, base, V, M, s_dev, 0, gb._colmap)
+    cmap, wmap = gb._colmap, gb._widemap
+    kernels.groupby_fold(got, base, V, M, s_dev, 0, cmap, wmap)
+    kernels.fold_plain(ref, base, V, M, s_dev, 0, cmap, wmap)
     torch.cuda.synchronize()
     err = state_err(got, ref)
     check(np.array_equal(got["touch"].cpu().numpy(),
                          ref["touch"].cpu().numpy()), "touch column")
-    fold = functools.partial(kernels.groupby_fold_scalar, got, base, V, M,
-                             s_dev, 0, gb._colmap)
+    fold = functools.partial(kernels.groupby_fold, got, base, V, M, s_dev, 0,
+                             cmap, wmap)
     untracked = {k: v for k, v in got.items() if k != "touch"}
     t_k = time_ms(torch, fold, REPS)
-    t_u = time_ms(torch, lambda: kernels.groupby_fold_scalar(
-        untracked, base, V, M, s_dev, 0, gb._colmap), REPS)
-    split = launch_split(torch, fold, "fold_scalar_kernel", REPS)
-    t_p = time_ms(torch, lambda: kernels.fold_scalar_plain(
-        ref, base, V, M, s_dev, 0, gb._colmap), REPS)
+    t_u = time_ms(torch, lambda: kernels.groupby_fold(
+        untracked, base, V, M, s_dev, 0, cmap, wmap), REPS)
+    split = launch_split(torch, fold, FOLD_KERNEL, REPS)
+    t_p = time_ms(torch, lambda: kernels.fold_plain(
+        ref, base, V, M, s_dev, 0, cmap, wmap), REPS)
     t32 = torch.zeros(gb.capacity, dtype=torch.int32, device=dev)
     ones = base.int()
     idx = s_dev.long()
 
+    upd = fold_updates(torch, ref, base, V, M, s_dev, 0, gb._colmap,
+                       kernels)
+
     def library():
-        library_fold(torch, ref, base, V, M, s_dev, 0, gb._colmap, kernels)
+        library_fold(torch, ref, upd)
         t32.index_add_(0, idx, ones)
 
     t_l = time_ms(torch, library, REPS)
@@ -4419,7 +4524,7 @@ def touch_fold_check(torch, seed, kernels, gb, st, dev):
     nbytes = (V.numel() * 4 + M.numel() + R * 4 + R
               + touched * width * 8 + touched * 8)
     b_ms, b_by = bound(nbytes, R * (len(gb._colmap) + 2))
-    print(f"kernel groupby_fold_scalar/touch R={R} C={gb.capacity} "
+    print(f"kernel groupby_fold/touch R={R} C={gb.capacity} "
           f"cols={len(gb._colmap)}: max_abs_err={err[0]:.3g} touch exact "
           f"kernel_ms={t_k:.4f} (without touch {t_u:.4f}) {split_text(split)} "
           f"plain_ms={t_p:.4f} library_ms={t_l:.4f} bound_ms={b_ms:.5f} "
@@ -6830,9 +6935,11 @@ def masked_touch_check(torch, seed, kernels, plan_fused_rule, TorchGroupBy,
     idx = slots.long()[base]
     ones = torch.ones_like(idx, dtype=torch.int32)
 
+    upd = fold_updates(torch, ref, base, V, M, slots, pane, gb._colmap,
+                       kernels)
+
     def library():
-        library_fold(torch, ref, base, V, M, slots, pane, gb._colmap,
-                     kernels)
+        library_fold(torch, ref, upd)
         t32.index_add_(0, idx, ones)
 
     t_l = time_ms(torch, library, REPS)
@@ -7344,9 +7451,9 @@ def shard_merge_bytes(state, parts, R, kernels):
 
 def sharded_kernel_checks(torch, seed, kernels, sketches, plan_fused_rule,
                           TorchGroupBy, dev):
-    """#23 / #24 on the card: sharded_fold_scalar (the flagship rule with a
-    touch column; I3's event-time hopping rule on its 8-pane vector),
-    sharded_fold_wide (phase B's percentile and hll rules), and
+    """#23 / #24 on the card: sharded_fold (the flagship rule with a touch
+    column; I3's event-time hopping rule on its 8-pane vector; phase B's
+    percentile and hll rules, each branch also on its own) and
     shard_merge of each, on a 2x4 mesh of the card at the main path's
     shapes (65,536 rows, 16,384 slots): each against its plain version
     (counts, min / max, hll, hist and touch bit-equal, the fold's sums
@@ -7390,66 +7497,74 @@ def sharded_kernel_checks(torch, seed, kernels, sketches, plan_fused_rule,
         parts = gb._partials(Pp)
         ref = clone_state(parts)
 
-        def fold_k(dst, _pv=pv):
-            kernels.sharded_fold_scalar(dst, base, V, M, s_dev, m, R, K,
-                                        gb._colmap, _pv)
+        cmap, wmap = gb._colmap, gb._widemap
+
+        def fold_k(dst, _pv=pv, cm=cmap, wm=wmap):
+            kernels.sharded_fold(dst, base, V, M, s_dev, m, R, K, cm, wm,
+                                 _pv)
 
         def fold_p(dst, _pv=pv):
-            kernels.sharded_fold_scalar_plain(dst, base, V, M, s_dev, m, R,
-                                              K, gb._colmap, _pv)
+            kernels.sharded_fold_plain(dst, base, V, M, s_dev, m, R, K, cmap,
+                                       wmap, _pv)
 
         fold_k(parts)
         fold_p(ref)
-        if wide:
-            kernels.sharded_fold_wide(parts, V, M, s_dev, m, R, gb._widemap,
-                                      pv)
-            kernels.sharded_fold_wide_plain(ref, V, M, s_dev, m, R,
-                                            gb._widemap, pv)
         torch.cuda.synchronize()
         err = state_err(parts, ref, exact=EXACT + ("touch",))
         saved = clone_state(parts)
-        # the fold's row: the scalar fold (flagship, pane vector), the wide
-        # one (pct, hll), timed into copies of the partials
+        # the fold's row, as the node calls it (every column in one
+        # launch), timed into copies of the partials
         pidx = ((torch.arange(ROWS, device=dev) // m) * Pp
                 + (0 if pv is None else pv.long()))
-        if not wide:
-            name = "sharded_fold_scalar"
-            fn = functools.partial(fold_k, clone_state(saved))
-            plain = functools.partial(fold_p, clone_state(saved))
-            lib_state = clone_state(saved)
-            lib = functools.partial(library_fold, torch, lib_state, base, V,
-                                    M, s_dev, pidx, gb._colmap, kernels)
-            nbytes = shard_fold_bytes(V, M, s_host, pv_host, saved, m, Pp, R)
-            ops = ROWS * (len(gb._colmap) + 1)
-            extra = f"cols={len(gb._colmap)} touch={touch}"
-        else:
-            name = "sharded_fold_wide"
-            dst_k, dst_p, lib_state = (clone_state(saved) for _ in range(3))
-            fn = functools.partial(kernels.sharded_fold_wide, dst_k, V, M,
-                                   s_dev, m, R, gb._widemap, pv)
-            plain = functools.partial(kernels.sharded_fold_wide_plain,
-                                      dst_p, V, M, s_dev, m, R, gb._widemap,
-                                      pv)
-            upd = wide_updates(torch, gb, V, M, s_dev, pidx, sketches)
-            lib = functools.partial(library_fold_wide, torch, lib_state, upd)
-            touched = sum(len(torch.unique(idx)) for _, idx, _, _ in upd)
-            ops = sum(len(idx) for _, idx, _, _ in upd)
-            nbytes = V.numel() * 4 + M.numel() + ROWS * 4 + touched * 8
-            extra = f"cols={len(gb._widemap)} updates={ops}"
+        upd = wide_updates(torch, gb, V, M, s_dev, pidx, sketches)
+        lib_state = clone_state(saved)
+
+        u_act, *u_sc = fold_updates(torch, lib_state, base, V, M, s_dev,
+                                    pidx, cmap, kernels)
+        lib_scalar = functools.partial(library_fold, torch, lib_state,
+                                       [u_act] + u_sc)
+        # act (every launch adds it) and the sketches
+        lib_sketch = functools.partial(library_fold, torch, lib_state,
+                                       [u_act] + upd)
+        lib_all = functools.partial(library_fold, torch, lib_state,
+                                    [u_act] + u_sc + upd)
+
+        fn = functools.partial(fold_k, clone_state(saved))
+        plain = functools.partial(fold_p, clone_state(saved))
+        n_wide = sum(len(idx) for _, idx, _, _ in upd)
+        nbytes = shard_fold_bytes(V, M, s_host, pv_host, saved, m, Pp, R)
+        nbytes += sum(len(torch.unique(idx)) for _, idx, _, _ in upd) * 8
+        ops = ROWS * (len(cmap) + 1) + n_wide
         t_k = time_ms(torch, fn, REPS)
-        split = launch_split(torch, fn, name + "_kernel", REPS)
+        split = launch_split(torch, fn, SHARDED_FOLD_KERNEL, REPS)
         t_p = time_ms(torch, plain, REPS)
-        t_l = time_ms(torch, lib, REPS)
+        t_l = time_ms(torch, lib_all, REPS)
         b_ms, b_by = bound(nbytes, ops)
+        extra = f"cols={len(cmap)}+{len(wmap)} touch={touch}"
+        branches = {}
+        if wide:  # each branch on its own, beside its library call
+            for branch, cm, wm, lib in (("scalar", cmap, NO_COLS, lib_scalar),
+                                        ("sketch", NO_COLS, wmap, lib_sketch)):
+                bfn = functools.partial(fold_k, clone_state(saved), cm=cm,
+                                        wm=wm)
+                branches[branch] = dict(
+                    ms=time_ms(torch, bfn, REPS),
+                    **launch_split(torch, bfn, SHARDED_FOLD_KERNEL, REPS),
+                    library_ms=time_ms(torch, lib, REPS))
+        name = "sharded_fold"
         key = name if tag == "flagship" else f"{name}/{tag}"
         print(f"kernel {key} mesh={R}x{K} P={P} pane_vec={vec} R={ROWS} "
               f"C={SLOTS} {extra}: max_abs_err={err[0]:.3g} "
               f"max_rel_err={err[1]:.3g} kernel_ms={t_k:.4f} "
               f"{split_text(split)} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
-              f"bound_ms={b_ms:.5f} ({b_by})")
+              f"bound_ms={b_ms:.5f} ({b_by}) "
+              + " ".join(f"{k}_only: kernel_ms={v['ms']:.4f} "
+                         f"{split_text(v)} library_ms={v['library_ms']:.4f}"
+                         for k, v in branches.items()))
         rows[key] = dict(max_abs_err=err[0], max_rel_err=err[1], ms=t_k,
                          **split, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=t_l)
+                         library_ms=t_l, **({"branches": branches}
+                                            if branches else {}))
 
         # the merge: the same partials through the kernel and the plain
         # version, bit-equal; then the fold + merge against #1's fold
@@ -7461,11 +7576,8 @@ def sharded_kernel_checks(torch, seed, kernels, sketches, plan_fused_rule,
         merr = state_err(st_k, st_p, exact=tuple(st_k))
         state_err(parts, plain_in, exact=tuple(parts))  # back at identity
         st_1 = single.init_state()
-        kernels.groupby_fold_scalar(st_1, base, V, M, s_dev, pane,
-                                    single._colmap, pv)
-        if wide:
-            kernels.groupby_fold_wide(st_1, V, M, s_dev, pane,
-                                      single._widemap, pv)
+        kernels.groupby_fold(st_1, base, V, M, s_dev, pane, single._colmap,
+                             single._widemap, pv)
         torch.cuda.synchronize()
         err1 = state_err(st_k, st_1, exact=EXACT + ("touch",))
         nbytes = shard_merge_bytes(st_k, saved, R, kernels)
@@ -7556,12 +7668,12 @@ def run_n1(torch, seed, kernels, mods, dev):
           == "sharded", "n1: the rule is not on the 2x4 mesh")
     n_b = n_int * per
     c = mesh["launches"]
-    check(c["sharded_fold_scalar"] == n_b and c["shard_merge"] == n_b
-          and c["groupby_fold_scalar"] == 0,
-          f"n1: launches {c['sharded_fold_scalar']} sharded folds, "
-          f"{c['shard_merge']} merges, {c['groupby_fold_scalar']} #1 folds "
+    check(c["sharded_fold"] == n_b and c["shard_merge"] == n_b
+          and c["groupby_fold"] == 0,
+          f"n1: launches {c['sharded_fold']} sharded folds, "
+          f"{c['shard_merge']} merges, {c['groupby_fold']} #1 folds "
           f"(want {n_b}, {n_b}, 0)")
-    check(legs["single"]["launches"]["sharded_fold_scalar"] == 0,
+    check(legs["single"]["launches"]["sharded_fold"] == 0,
           "n1: the single-chip leg launched a sharded fold")
     vs = max(check_same_window(a, b, refs[w], f"n1 window {w}",
                                "the single-chip leg's")
@@ -7636,16 +7748,15 @@ def run_phase_n(torch, seed, kernels, sketches, mods, TorchGroupBy, dev):
                                windows=N3_WINDOWS)
     for tag in ("pct", "hll"):
         c = out["n3"][tag]["launches"]
-        check(c["sharded_fold_wide"] > 0 and c["groupby_fold_wide"] == 0
-              and c["groupby_fold_scalar"] == 0,
+        check(c["sharded_fold"] > 0 and c["groupby_fold"] == 0,
               f"n3 {tag}: not folded through the sharded kernels ({c})")
     # N4: I3, the event-time hopping rule (2 s buckets), on 2x4
     s4 = EventStream(seed + 141, I_BATCHES["i3"])
     out["n4"] = run_i_flagship(torch, "N4", s4, I3_RULE, 10_000, 2_000,
                                kernels, mesh_mods)
     del s4
-    check(out["n4"]["row_pane"]["sharded_fold_scalar"] > 0
-          and out["n4"]["launches"]["groupby_fold_scalar"] == 0,
+    check(out["n4"]["row_pane"]["sharded_fold"] > 0
+          and out["n4"]["launches"]["groupby_fold"] == 0,
           "n4: no sharded pane-vector fold (#24)")
     # N5: D2's sliding rule on 2x4: the refold path, host-row edge refolds
     rng = np.random.default_rng(seed + 142)
@@ -7669,8 +7780,8 @@ def run_phase_n(torch, seed, kernels, sketches, mods, TorchGroupBy, dev):
     check(res["triggers"] == res["want_triggers"],
           f"n5: {res['triggers']} triggers, {res['want_triggers']} rows")
     check(launches["groupby_fold_masked_scalar"] == 0
-          and launches["groupby_fold_scalar"] == 0
-          and launches["sharded_fold_scalar"] > 0
+          and launches["groupby_fold"] == 0
+          and launches["sharded_fold"] > 0
           and res["routes"]["cached"] == 0 and res["routes"]["host"] > 0,
           f"n5: refolds not from host rows through the sharded fold "
           f"({res['routes']}, {launches})")
@@ -7777,6 +7888,8 @@ def main() -> int:
     # phase 2: each kernel against its plain version
     dev = torch.device("cuda")
     rows = kernel_checks(torch, args.seed, kernels, plan_fused_rule, dev)
+    fold_trace = fold_launch_trace(torch, args.seed, kernels,
+                                   plan_fused_rule, dev)
     rows.update(sketch_kernel_checks(torch, args.seed, kernels, sketches,
                                      plan_fused_rule, TorchGroupBy, dev))
     rows.update(prefinalize_kernel_checks(torch, args.seed, kernels,
@@ -8021,8 +8134,7 @@ def main() -> int:
     print("phase 5 kernels: " + " ".join(
         f"{n}=" + "+".join(f"{paths[p][n]}({p})" for p in PATHS[n])
         for n in PATHS))
-    main_row = {"groupby_fold_wide": "groupby_fold_wide/hh",
-                "groupby_finalize_wide": "groupby_finalize_wide/pct/full",
+    main_row = {"groupby_finalize_wide": "groupby_finalize_wide/pct/full",
                 "groupby_hh_finalize": "groupby_hh_finalize/full",
                 "groupby_components": "groupby_components/tumbling/full",
                 "groupby_absorb": "groupby_absorb/tumbling",
@@ -8038,9 +8150,8 @@ def main() -> int:
                 "join_match": "join_match/2048",
                 "segscan_shift": "segscan_shift/8192",
                 "segscan_sort": "segscan_sort/65536",
-                "cms_query": "cms_query/4096",
-                "sharded_fold_wide": "sharded_fold_wide/pct"}
-    main_path = {"groupby_fold_wide": "hh", "groupby_finalize_wide": "pct",
+                "cms_query": "cms_query/4096"}
+    main_path = {"groupby_finalize_wide": "pct",
                  "groupby_hh_finalize": "hh", "groupby_components": "c1",
                  "groupby_absorb": "c1_host", "ring_advance": "d1",
                  "ring_flip": "d1", "ring_query": "d1",
@@ -8054,8 +8165,7 @@ def main() -> int:
                  "multirule_finalize_wide": "h5_hll",
                  "join_match": "j2_inner", "segscan_shift": "k1",
                  "segscan_sort": "k2", "cms_update": "m", "cms_query": "m",
-                 "sharded_fold_scalar": "n1", "sharded_fold_wide": "n3_pct",
-                 "shard_merge": "n1"}
+                 "sharded_fold": "n1", "shard_merge": "n1"}
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name],
@@ -8063,78 +8173,83 @@ def main() -> int:
          "launches_by_path": {p: paths[p][name] for p in PATHS[name]},
          **rows[main_row.get(name, name)]}
         for name in PATHS]}
-    table["kernels"][2]["wide_state"] = rows["groupby_reset_pane/hh"]
-    table["kernels"][4]["hll_hopping"] = rows["groupby_finalize_wide/hll/full"]
-    table["kernels"][6]["hopping_subset"] = rows[
+    entry = {k["name"]: k for k in table["kernels"]}
+    # #1 as the node calls it on each rule, besides the tumbling one
+    for tag in ("hopping", "hh", "pct", "hll", "mixed"):
+        entry["groupby_fold"][f"{tag}_rule"] = rows[f"groupby_fold/{tag}"]
+    entry["groupby_reset_pane"]["wide_state"] = rows["groupby_reset_pane/hh"]
+    entry["groupby_finalize_wide"]["hll_hopping"] = rows[
+        "groupby_finalize_wide/hll/full"]
+    entry["groupby_components"]["hopping_subset"] = rows[
         "groupby_components/hopping/subset[1]"]
-    table["kernels"][6]["percentile"] = rows["groupby_components/pct/full"]
-    table["kernels"][6]["hll_hopping"] = rows["groupby_components/hll/full"]
-    table["kernels"][7]["percentile"] = rows["groupby_absorb/pct"]
+    entry["groupby_components"]["percentile"] = rows[
+        "groupby_components/pct/full"]
+    entry["groupby_components"]["hll_hopping"] = rows[
+        "groupby_components/hll/full"]
+    entry["groupby_absorb"]["percentile"] = rows["groupby_absorb/pct"]
     # the folds with a per-row pane vector (the sliding paths)
     # (and #15's per-row pane vector, the event-time groups)
-    for k, name in ((0, "groupby_fold_scalar"), (3, "groupby_fold_wide"),
-                    (11, "multirule_fold"), (18, "multirule_fold_wide"),
-                    (28, "multirule_fold_order")):
-        table["kernels"][k]["pane_vec"] = dict(
+    for name in ("groupby_fold", "multirule_fold", "multirule_fold_wide",
+                 "multirule_fold_order"):
+        entry[name]["pane_vec"] = dict(
             rows[f"{name}/pane_vec"], launches_by_path={
                 p: sliding[p]["row_pane"][name]
                 for p in ROW_PANE_PATHS[name]})
-    for k, name in ((8, "ring_advance"), (9, "ring_flip"),
-                    (10, "ring_query")):
-        table["kernels"][k]["scalar_rule"] = rows[f"{name}/scalar"]
-        table["kernels"][k]["hll_rule"] = rows[f"{name}/hll"]
+    entry["groupby_fold"]["pane_vec_pct"] = rows["groupby_fold/pane_vec_pct"]
+    for name in ("ring_advance", "ring_flip", "ring_query"):
+        entry[name]["scalar_rule"] = rows[f"{name}/scalar"]
+        entry[name]["hll_rule"] = rows[f"{name}/hll"]
     # #15 on skewed slots: Zipf-skewed, one slot taking every row
     for tag in ("zipf", "one_slot"):
-        table["kernels"][11][tag] = rows[f"multirule_fold/{tag}"]
-    table["kernels"][12]["hopping_subset"] = rows[
+        entry["multirule_fold"][tag] = rows[f"multirule_fold/{tag}"]
+    entry["multirule_finalize"]["hopping_subset"] = rows[
         "multirule_finalize/hopping_subset"]
-    table["kernels"][15]["hll_rule"] = rows["groupby_fold_masked_wide/hll"]
+    entry["groupby_fold_masked_wide"]["hll_rule"] = rows[
+        "groupby_fold_masked_wide/hll"]
     # #1's touch branch (tiered key state), launched on the G paths
-    table["kernels"][0]["touch"] = dict(
-        rows["groupby_fold_scalar/touch"], launches_by_path={
-            p: touch[p]["groupby_fold_scalar"]
-            for p in TOUCH_PATHS["groupby_fold_scalar"]})
-    for k, name in ((16, "tier_demote"), (17, "tier_promote")):
+    entry["groupby_fold"]["touch"] = dict(
+        rows["groupby_fold/touch"], launches_by_path={
+            p: touch[p]["groupby_fold"] for p in TOUCH_PATHS["groupby_fold"]})
+    for name in ("tier_demote", "tier_promote"):
         for tag in ("g1", "g2", "hll", "pct"):
             if f"{name}/{tag}" != main_row[name]:
-                table["kernels"][k][f"{tag}_state"] = rows[f"{name}/{tag}"]
+                entry[name][f"{tag}_state"] = rows[f"{name}/{tag}"]
     # the sketch groups: the percentile family's runs, and the pane reset
     # over wide state
-    for k, name in ((18, "multirule_fold_wide"),
-                    (19, "multirule_finalize_wide")):
-        table["kernels"][k]["pct_family"] = rows[f"{name}/pct"]
-    table["kernels"][13]["hll_family"] = rows["multirule_reset_pane/hll"]
-    table["kernels"][13]["pct_family"] = rows["multirule_reset_pane/pct"]
+    for name in ("multirule_fold_wide", "multirule_finalize_wide"):
+        entry[name]["pct_family"] = rows[f"{name}/pct"]
+    entry["multirule_reset_pane"]["hll_family"] = rows[
+        "multirule_reset_pane/hll"]
+    entry["multirule_reset_pane"]["pct_family"] = rows[
+        "multirule_reset_pane/pct"]
     # the relational tier: #20 at J3's shape, #21 at 131,072 rows (uniform
     # and Zipf-skewed slots) and both with one segment
-    table["kernels"][20]["at_16384"] = rows["join_match/16384"]
-    table["kernels"][21]["at_131072"] = rows["segscan_shift/131072"]
-    table["kernels"][21]["zipf"] = rows["segscan_shift/zipf"]
-    table["kernels"][21]["one_segment"] = rows["segscan_shift/one_segment"]
-    table["kernels"][22]["one_segment"] = rows["segscan_sort/one_segment"]
+    entry["join_match"]["at_16384"] = rows["join_match/16384"]
+    entry["segscan_shift"]["at_131072"] = rows["segscan_shift/131072"]
+    entry["segscan_shift"]["zipf"] = rows["segscan_shift/zipf"]
+    entry["segscan_shift"]["one_segment"] = rows["segscan_shift/one_segment"]
+    entry["segscan_sort"]["one_segment"] = rows["segscan_sort/one_segment"]
     # #2's touch branch (tiered sliding rules), launched on the refold path
-    table["kernels"][14]["touch"] = dict(
+    entry["groupby_fold_masked_scalar"]["touch"] = dict(
         rows["groupby_fold_masked_scalar/touch"], launches_by_path={
             p: touch[p]["groupby_fold_masked_scalar"]
             for p in TOUCH_PATHS["groupby_fold_masked_scalar"]})
-    table["kernels"][24]["at_8192"] = rows["cms_query/8192"]
-    # the mesh (#23, #24): the pane vector's fold and merge (N4), the hll
-    # rule's wide fold and merge
-    table["kernels"][25]["pane_vec"] = dict(
-        rows["sharded_fold_scalar/pane_vec"], launches_by_path={
-            p: sliding[p]["row_pane"]["sharded_fold_scalar"]
-            for p in ROW_PANE_PATHS["sharded_fold_scalar"]})
-    table["kernels"][26]["hll_rule"] = rows["sharded_fold_wide/hll"]
+    entry["cms_query"]["at_8192"] = rows["cms_query/8192"]
+    # the mesh (#23, #24): the pane vector's fold and merge (N4), the
+    # sketch rules' folds and merges
+    entry["sharded_fold"]["pane_vec"] = dict(
+        rows["sharded_fold/pane_vec"], launches_by_path={
+            p: sliding[p]["row_pane"]["sharded_fold"]
+            for p in ROW_PANE_PATHS["sharded_fold"]})
+    for tag in ("pct", "hll"):
+        entry["sharded_fold"][f"{tag}_rule"] = rows[f"sharded_fold/{tag}"]
     for tag in ("pane_vec", "pct", "hll"):
-        table["kernels"][27][f"{tag}_rule" if tag != "pane_vec"
+        entry["shard_merge"][f"{tag}_rule" if tag != "pane_vec"
                              else tag] = rows[f"shard_merge/{tag}"]
-    check([k["name"] for k in table["kernels"][23:]]
-          == ["cms_update", "cms_query", "sharded_fold_scalar",
-              "sharded_fold_wide", "shard_merge", "multirule_fold_order"],
-          "kernel table order")
-    check([k["name"] for k in table["kernels"]][11] == "multirule_fold",
-          "kernel table order")
-    check(len(table["kernels"]) == 29, "kernel table")
+    # one kernel launch a fold chunk, for every mix of columns (the trace)
+    entry["groupby_fold"]["launches_a_chunk"] = fold_trace["groupby_fold"]
+    entry["sharded_fold"]["launches_a_chunk"] = fold_trace["sharded_fold"]
+    check(len(table["kernels"]) == 27 and len(entry) == 27, "kernel table")
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,9 +9,12 @@
 // with csrc/multirule.cu (the rule group's batched kernels): see
 // csrc/groupby_common.cuh.
 //
-// groupby_fold_scalar    replaces DeviceGroupBy._fold_impl/_fold_core
-//                        (ekuiper_tpu/ops/groupby.py:348-441), the
-//                        touch column's bump (379-385) included
+// groupby_fold           replaces DeviceGroupBy._fold_impl/_fold_core
+//                        (ekuiper_tpu/ops/groupby.py:348-441) in ONE
+//                        launch a chunk: act, the scalar columns, the touch
+//                        column's bump (379-385), the per-row pane vector
+//                        (334-338) and the hll / hist / hh branches
+//                        (419-439); csrc/fold.cuh
 // groupby_fold_masked_scalar replaces _fold_masked_impl (354): the same
 //                        fold under an explicit (mb,) row mask, into one
 //                        pane (the sliding refold's edge folds), the
@@ -31,44 +34,27 @@
 // (rows in, the touched state lines, or one pane of state), which is
 // well under a microsecond at 3.35 TB/s. At the main path's sizes
 // (65,536 rows, 16,384 slots) each takes longer than that; how much of
-// it is launch overhead and how much the body (for the fold, its
+// it is launch overhead and how much the body (for the folds, their
 // atomics at L2) is what chip_smoke.py's body_ms / kernel_ms split
-// reports. The design keeps every call to one launch, no scratch, no
-// second pass, and parameters passed by value, so no host-to-device
-// copy precedes a launch. The masked fold reads the mask of every row of
-// the padded batch, and the slot, values and spec masks only of the rows
-// the mask keeps (an edge refold keeps a time cut of one bucket), whose
-// atomics it issues; like the fold, it takes far longer than its byte
-// bound, its atomics at L2 being the likely limit.
+// reports. The fold is one launch a chunk for every mix of columns
+// (csrc/fold.cuh); the other entry points are one launch each, with no scratch and no second pass. The
+// masked fold reads the mask of every row of the padded batch, and the
+// slot, values and spec masks only of the rows the mask keeps (an edge
+// refold keeps a time cut of one bucket), whose atomics it issues; like
+// the fold, it takes far longer than its byte bound, its atomics at L2
+// being the likely limit.
 
+#include <type_traits>
+
+#include "fold.cuh"
 #include "groupby_common.cuh"
 #include "slot_type.cuh"
 
-// One thread per row, grid-stride. `base` is the row mask after WHERE;
-// M[s] is spec s's mask (base AND column validity AND not-NaN AND its
-// FILTER), V[s] its float32 argument. A masked row writes nothing: the
-// reference adds/mins/maxes the identity for it, which leaves the same
-// state. The destination pane is `pane`, or pane_vec[r] when pane_vec is
-// given (per-row panes: a sliding batch that crosses a bucket edge, the
-// reference's uint8 pane vector). fold_scalar_row (csrc/groupby_common.cuh)
-// drops a slot outside [0, C) or a pane outside [0, P). With a touch
-// column (tiered key state) each row past `base` also adds one to its
-// slot's uint32 touch counter.
+// The one-launch fold (#1): csrc/fold.cuh fold_body, by role.
 template <typename SlotT>
-__global__ void fold_scalar_kernel(const uint8_t* __restrict__ base,
-                                   const float* __restrict__ V,
-                                   const uint8_t* __restrict__ M,
-                                   const SlotT* __restrict__ slots, int R,
-                                   int pane, const uint8_t* __restrict__ pane_vec,
-                                   int P, int C, ColMap cm, Comps cp,
-                                   float* __restrict__ act,
-                                   unsigned int* __restrict__ touch) {
-  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < R;
-       r += gridDim.x * blockDim.x) {
-    if (!base[r]) continue;
-    const int p = pane_vec != nullptr ? (int)pane_vec[r] : pane;
-    fold_scalar_row(cm, cp, V, M, slots, R, r, p, P, C, act, touch);
-  }
+__global__ void __launch_bounds__(FOLD_THREADS)
+    groupby_fold_kernel(const __grid_constant__ FoldChunk a) {
+  fold_body<SlotT>(a);
 }
 
 // The masked fold (#2): one thread per row of a cached, padded batch,
@@ -126,35 +112,64 @@ __global__ void reset_pane_kernel(ResetTab rt, int pane) {
 
 extern "C" {
 
-// colmap: host int32 (ncols, 3) = (comp, k, spec). comp_ptrs / comp_k:
-// host arrays of N_COMPS device pointers (null = absent) and widths.
-// slots: device (R,) of uint16 if slot_u16, else int32. pane_vec: device
-// uint8 (R,) per-row panes, or null for the scalar pane. touch: device
-// uint32 (C,), or null for a state without a touch column.
-int groupby_fold_scalar(const uint8_t* base, const float* V, const uint8_t* M,
-                        const void* slots, int slot_u16, int R, int pane,
-                        const uint8_t* pane_vec, int P, int C,
-                        const int32_t* colmap, int ncols,
-                        float* const* comp_ptrs, const int32_t* comp_k,
-                        float* act, unsigned int* touch, void* stream) {
-  ColMap cm;
-  if (!make_colmap(colmap, ncols, &cm) || R < 0)
+// The one-launch fold (#1) of R rows into pane `pane`, or each row into
+// pane_vec[r] (device uint8 (R,), or null). base: device uint8 (R,), the
+// row mask after WHERE; V / M: device (S, R); slots: device (R,) of uint16
+// if slot_u16, else int32. colmap: host int32 (ncols, 3) = (comp, k,
+// spec) of the scalar columns; widemap: host int32 (nwide, 3) = (WIDE_IDS
+// comp, k, spec) of the hll / hist / hh columns. comp_ptrs / comp_k,
+// wide_ptrs / wide_k: host arrays of N_COMPS and N_WIDE device pointers
+// (null = absent) and widths. touch: device uint32 (C,), or null. hist_consts: host float32 (lo, hi, 1/lo, 1/log_gamma,
+// log_gamma, center_scale). An hh state must be 16-byte aligned.
+int groupby_fold(const uint8_t* base, const float* V, const uint8_t* M,
+                 const void* slots, int slot_u16, int R, int pane,
+                 const uint8_t* pane_vec, int P, int C,
+                 const int32_t* colmap, int ncols, const int32_t* widemap,
+                 int nwide, float* const* comp_ptrs, const int32_t* comp_k,
+                 float* act, unsigned int* touch, float* const* wide_ptrs,
+                 const int32_t* wide_k, const float* hist_consts,
+                 void* stream) {
+  FoldChunk a{};
+  if (!fold_cols(colmap, ncols, widemap, nwide, comp_k[C_N], &a) || R < 0 ||
+      P < 1 ||
+      C < 0 || (long long)R * 2 > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
+  const bool hh = a.hh.n > 0;
+  if (hh && wide_ptrs[W_HH] == nullptr) return (int)cudaErrorInvalidValue;
+  if (hh && (reinterpret_cast<uintptr_t>(wide_ptrs[W_HH]) & 15u))
+    return (int)cudaErrorMisalignedAddress;
   if (R == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const Comps cp = make_comps(comp_ptrs, comp_k);
+  a.base = base;
+  a.V = V;
+  a.M = M;
+  a.slots = slots;
+  a.pane_vec = pane_vec;
+  a.N = R;
+  a.m = R;
+  a.R_sh = 1;
+  a.pane = pane;
+  a.Pp = P;
+  a.C = C;
+  a.cp = make_comps(comp_ptrs, comp_k);
+  a.act = act;
+  a.touch = touch;
+  a.w = make_wide(wide_ptrs, wide_k);
+  a.hc = make_hc(hist_consts);
   cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaSuccess;
   with_slot_type(slots, slot_u16, [&](auto s) {
-    fold_scalar_kernel<<<grid_for(R, threads), threads, 0, st>>>(
-        base, V, M, s, R, pane, pane_vec, P, C, cm, cp, act, touch);
+    using SlotT = std::remove_const_t<std::remove_pointer_t<decltype(s)>>;
+    err = launch_fold(groupby_fold_kernel<SlotT>, a, st);
   });
-  return (int)cudaGetLastError();
+  return (int)err;
 }
 
 // The masked fold (#2). mask: device uint8 (R,), the row mask after WHERE;
 // V / M: device (S, R); slots: device (R,) of uint16 if slot_u16, else
-// int32; pane: the destination pane, inside [0, P). colmap, comp_ptrs,
-// comp_k, touch: as groupby_fold_scalar.
+// int32; pane: the destination pane, inside [0, P). colmap: host int32
+// (ncols, 3) = (comp, k, spec). comp_ptrs / comp_k: host arrays of
+// N_COMPS device pointers (null = absent) and widths. touch: device
+// uint32 (C,), or null.
 int groupby_fold_masked_scalar(const uint8_t* mask, const float* V,
                                const uint8_t* M, const void* slots,
                                int slot_u16, int R, int pane, int P, int C,

@@ -793,7 +793,7 @@ int multirule_finalize(float* const* comp_ptrs, const int32_t* comp_k,
 // multirule_fold. colmap: host int32 (ncols, 3) = (wide comp W_HLL or
 // W_HIST, k, spec). wide_ptrs / wide_k: host arrays of N_WIDE device
 // pointers to rule 0's block (null = absent) and widths; hist_consts: as
-// csrc/sketches.cu groupby_fold_wide's.
+// csrc/groupby.cu groupby_fold's.
 int multirule_fold_wide(const uint8_t* base, const float* V, const uint8_t* M,
                         const int32_t* slots, int n_rows, int n_rules,
                         int pane, const uint8_t* pane_vec, int P, int C,

@@ -9,17 +9,16 @@
 // They replace the reference's two shard_map fold programs
 // (ekuiper_tpu/parallel/sharded.py):
 //
-// sharded_fold_scalar replaces the scalar part of _build_fold ->
-//                     local_fold (208, 221-296 and 254-267): row shard r
-//                     (rows [r·m, (r+1)·m) of the micro-batch, m =
-//                     micro_batch / R) folds its rows whose slot lies in
-//                     key shard k's range [k·c, (k+1)·c) into a fresh
-//                     identity partial: act, n, s1, s2, mn, mx and the
-//                     touch column's uint32 count; with a per-row pane
-//                     vector, _build_fold_vec -> local_fold (353, 371-435)
-// sharded_fold_wide   the hll (rho max into register h1 & 255) and hist
-//                     (log-bin add) branches of the same local folds
-//                     (299-314, 436-451)
+// sharded_fold        replaces _build_fold -> local_fold (208, 221-331):
+//                     row shard r (rows [r·m, (r+1)·m) of the micro-batch,
+//                     m = micro_batch / R) folds its rows whose slot lies
+//                     in key shard k's range [k·c, (k+1)·c) into a fresh
+//                     identity partial: act, n, s1, s2, mn, mx, the touch
+//                     column's uint32 count and the hll (rho max into
+//                     register h1 & 255) and hist (log-bin add) branches
+//                     (299-314), every shard and column in ONE launch
+//                     (csrc/fold.cuh); with a per-row pane vector,
+//                     _build_fold_vec -> local_fold (353, 371-474)
 // shard_merge         the psum / pmin / pmax of every component over the
 //                     "rows" axis and its add / min / max into the state
 //                     (313-323, 403-407, 452-460)
@@ -43,11 +42,14 @@
 // 65,536 rows, four scalar columns and a touch column) the fold moves
 // ~3 MB (each row's values, masks and slot, the touched partial lines),
 // ~0.9 us at 3.35 TB/s; each row also makes one atomic update per state
-// column, as the single-chip fold does. The merge reads the R partials once and reads and writes one pane
-// of the state (all P panes for the pane vector): (R + 2)·P'·C·width
-// floats, plus the partials it writes back to the identity (only the
-// touched elements).
+// column, as the single-chip fold does (csrc/fold.cuh). The merge reads the
+// R partials once and reads and writes one pane of the state (all P panes
+// for the pane vector): (R + 2)·P'·C·width floats, plus the partials it
+// writes back to the identity (only the touched elements).
 
+#include <type_traits>
+
+#include "fold.cuh"
 #include "groupby_common.cuh"
 #include "sketch_common.cuh"
 #include "slot_type.cuh"
@@ -64,61 +66,15 @@ struct MergeTab {  // every component: state, partials, one pane's floats
   float ident[MAX_MERGE];
 };
 
-// The partial pane of row i of a micro-batch: row shard r = i / m owns
-// block r·P' of the partials, inside which the row's own pane (pane_vec)
-// or 0; a pane outside [0, P') maps past every block, so the per-row
-// helpers drop the row as XLA drops an out-of-range scatter update (the
-// touch count, which is pane-independent, still counts it).
-__device__ __forceinline__ int part_pane(int i, int m, int R,
-                                         const uint8_t* __restrict__ pane_vec,
-                                         int P) {
-  const int r = i / m;
-  const int p = pane_vec != nullptr ? (int)pane_vec[i] : 0;
-  return (r < R && p < P) ? r * P + p : R * P;
-}
-
-// One thread per row, grid-stride. `base` is the row mask after WHERE
-// (the padding rows past the batch's real ones are not passed); M[s] is
-// spec s's mask already ANDed with it, V[s] its float32 argument. The key
-// shard of a row is slot / c: a slot outside the mesh's K·c slots is in
-// no shard and is dropped (the reference's in_range mask). fold_scalar_row
-// (csrc/groupby_common.cuh) adds act, the scalar columns and, with a
-// touch partial, one to the row shard's uint32 touch count of the slot.
+// The one-launch sharded fold (#23, #24): csrc/fold.cuh fold_body over
+// the partials, row i in row shard i / m, its partial pane r·P' + its pane
+// (pane_vec[i], or 0), its partial slot its global slot; a slot outside
+// the mesh's K·c slots is in no key shard and is dropped (the reference's
+// in_range mask); touch counts per row shard, pane-independent.
 template <typename SlotT>
-__global__ void sharded_fold_scalar_kernel(
-    const uint8_t* __restrict__ base, const float* __restrict__ V,
-    const uint8_t* __restrict__ M, const SlotT* __restrict__ slots, int N,
-    int m, int R, const uint8_t* __restrict__ pane_vec, int P, int c, int K,
-    ColMap cm, Comps cp, float* __restrict__ act,
-    unsigned int* __restrict__ touch) {
-  const int C = c * K;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < N;
-       i += gridDim.x * blockDim.x) {
-    if (!base[i]) continue;
-    const int r = i / m;
-    if (r >= R || (int)slots[i] / c >= K) continue;
-    fold_scalar_row(cm, cp, V, M, slots, N, i, part_pane(i, m, R, pane_vec, P),
-                    R * P, C, act,
-                    touch != nullptr ? touch + (int64_t)r * C : nullptr);
-  }
-}
-
-// The wide branches, one thread per row: fold_wide_row (csrc/
-// sketch_common.cuh) max-es each hll column's rho into register h1 & 255
-// and adds one into each hist column's log bin, of the row shard's
-// partial.
-template <typename SlotT>
-__global__ void sharded_fold_wide_kernel(
-    const float* __restrict__ V, const uint8_t* __restrict__ M,
-    const SlotT* __restrict__ slots, int N, int m, int R,
-    const uint8_t* __restrict__ pane_vec, int P, int C, WideCols wc, Wide w,
-    HistConsts hc) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < N;
-       i += gridDim.x * blockDim.x) {
-    if (i / m >= R) continue;
-    fold_wide_row(V, M, slots, N, i, part_pane(i, m, R, pane_vec, P), R * P,
-                  C, wc, w, hc);
-  }
+__global__ void __launch_bounds__(FOLD_THREADS)
+    sharded_fold_kernel(const __grid_constant__ FoldChunk a) {
+  fold_body<SlotT>(a);
 }
 
 __device__ __forceinline__ float merge_op(int op, float a, float b) {
@@ -178,53 +134,49 @@ extern "C" {
 // uint16 if slot_u16, else int32; m: rows a row shard holds; R: row
 // shards; pane_vec: device uint8 (N,) per-row panes, or null for pane 0 of
 // each row shard's block; P: panes a block holds (P'); c: slots a key
-// shard holds; K: key shards. colmap, comp_ptrs, comp_k: as
-// groupby_fold_scalar's, over the partials (R·P', K·c, k). act: the
-// partials' act (R·P', K·c); touch: the touch partial (R, K·c), or null.
-int sharded_fold_scalar(const uint8_t* base, const float* V, const uint8_t* M,
-                        const void* slots, int slot_u16, int N, int m, int R,
-                        const uint8_t* pane_vec, int P, int c, int K,
-                        const int32_t* colmap, int ncols,
-                        float* const* comp_ptrs, const int32_t* comp_k,
-                        float* act, unsigned int* touch, void* stream) {
-  ColMap cm;
-  if (!make_colmap(colmap, ncols, &cm) || N < 0 || m < 1 || R < 1 ||
-      P < 1 || c < 1 || K < 1)
+// shard holds; K: key shards. colmap, widemap: as groupby_fold's (no hh
+// columns: the mesh refuses heavy_hitters), over the partials
+// (R·P', K·c, k[, W]); comp_ptrs / comp_k, wide_ptrs / wide_k: the
+// partials' components; act: the partials' act (R·P', K·c); touch: the
+// touch partial (R, K·c), or null.
+int sharded_fold(const uint8_t* base, const float* V, const uint8_t* M,
+                 const void* slots, int slot_u16, int N, int m, int R,
+                 const uint8_t* pane_vec, int P, int c, int K,
+                 const int32_t* colmap, int ncols, const int32_t* widemap,
+                 int nwide, float* const* comp_ptrs, const int32_t* comp_k,
+                 float* act, unsigned int* touch, float* const* wide_ptrs,
+                 const int32_t* wide_k, const float* hist_consts,
+                 void* stream) {
+  FoldChunk a{};
+  if (!fold_cols(colmap, ncols, widemap, nwide, comp_k[C_N], &a) ||
+      a.hh.n > 0 || N < 0 ||
+      m < 1 || R < 1 || P < 1 || c < 1 || K < 1 ||
+      (long long)c * K * R > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (N == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const Comps cp = make_comps(comp_ptrs, comp_k);
+  a.base = base;
+  a.V = V;
+  a.M = M;
+  a.slots = slots;
+  a.pane_vec = pane_vec;
+  a.N = N;
+  a.m = m;
+  a.R_sh = R;
+  a.pane = 0;
+  a.Pp = P;
+  a.C = c * K;
+  a.cp = make_comps(comp_ptrs, comp_k);
+  a.act = act;
+  a.touch = touch;
+  a.w = make_wide(wide_ptrs, wide_k);
+  a.hc = make_hc(hist_consts);
   cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaSuccess;
   with_slot_type(slots, slot_u16, [&](auto s) {
-    sharded_fold_scalar_kernel<<<grid_for(N, threads), threads, 0, st>>>(
-        base, V, M, s, N, m, R, pane_vec, P, c, K, cm, cp, act, touch);
+    using SlotT = std::remove_const_t<std::remove_pointer_t<decltype(s)>>;
+    err = launch_fold(sharded_fold_kernel<SlotT>, a, st);
   });
-  return (int)cudaGetLastError();
-}
-
-// V / M / slots / m / R / pane_vec / P: as sharded_fold_scalar's; C: the
-// partials' slots (K·c). colmap, wide_ptrs, wide_k, hist_consts: as
-// groupby_fold_wide's, over the wide partials (R·P', C, k, W).
-int sharded_fold_wide(const float* V, const uint8_t* M, const void* slots,
-                      int slot_u16, int N, int m, int R,
-                      const uint8_t* pane_vec, int P, int C,
-                      const int32_t* colmap, int ncols,
-                      float* const* wide_ptrs, const int32_t* wide_k,
-                      const float* hist_consts, void* stream) {
-  WideCols wc;
-  if (!make_widecols(colmap, ncols, &wc) || N < 0 || m < 1 || R < 1 ||
-      P < 1 || C < 0)
-    return (int)cudaErrorInvalidValue;
-  if (N == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const Wide w = make_wide(wide_ptrs, wide_k);
-  const HistConsts hc = make_hc(hist_consts);
-  cudaStream_t st = (cudaStream_t)stream;
-  with_slot_type(slots, slot_u16, [&](auto s) {
-    sharded_fold_wide_kernel<<<grid_for(N, threads), threads, 0, st>>>(
-        V, M, s, N, m, R, pane_vec, P, C, wc, w, hc);
-  });
-  return (int)cudaGetLastError();
+  return (int)err;
 }
 
 // state_ptrs / part_ptrs / lens / ops / idents: host arrays of n

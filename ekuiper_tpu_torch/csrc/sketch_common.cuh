@@ -98,15 +98,39 @@ __device__ __forceinline__ int hist_bin(float v, const HistConsts& hc) {
   return v > 0.0f ? HIST_HALF + 1 + idx : HIST_HALF - 1 - idx;
 }
 
-// One row of the wide fold into pane p: per hll or hist column whose spec
-// mask M[s] is set, the hll register max or the histogram bin add of V[s]
-// (the hll encoding, or the value). A masked column writes nothing (the
-// reference max-es 0 or adds 0 for it); a slot outside [0, C) or a pane
-// outside [0, P) is dropped. SlotT: uint16 or int32, as the scalar fold's
-// (csrc/groupby_common.cuh fold_scalar_row). Heavy-hitters columns are
-// not folded here: csrc/sketches.cu folds them in a kernel of their own
-// (fold_hh_kernel), and the mesh (csrc/sharded.cu) refuses
-// heavy_hitters at plan time.
+// The hll / hist columns of one row at flat (pane, slot) index pc: per
+// column whose spec mask M[s] is set, the hll register max or the
+// histogram bin add of V[s] (the hll encoding, or the value). A masked
+// column writes nothing (the reference max-es 0 or adds 0 for it).
+// Heavy-hitters columns are not folded here: fold_hh_cell below folds
+// them.
+__device__ __forceinline__ void fold_wide_columns(const float* __restrict__ V,
+                                                  const uint8_t* __restrict__ M,
+                                                  int R, int r, int64_t pc,
+                                                  const WideCols& wc,
+                                                  const Wide& w,
+                                                  const HistConsts& hc) {
+  for (int j = 0; j < wc.n; ++j) {
+    const int64_t at = (int64_t)wc.spec[j] * R + r;
+    if (!M[at]) continue;
+    const int comp = wc.comp[j];
+    const int W = kWideW[comp];
+    float* dst = w.p[comp] + (pc * w.k[comp] + wc.k[j]) * W;
+    const float v = V[at];
+    if (comp == W_HLL) {
+      float rho;
+      const int reg = hll_reg_rho(v, &rho);
+      if (rho > 0.0f) atomic_max_f32(dst + reg, rho);
+    } else if (comp == W_HIST) {
+      atomicAdd(dst + hist_bin(v, hc), 1.0f);
+    }
+  }
+}
+
+// One row of the wide fold into pane p (fold_wide_columns), dropping a
+// slot outside [0, C) or a pane outside [0, P). SlotT: uint16 or int32, as
+// the scalar fold's (csrc/groupby_common.cuh fold_scalar_row). The mesh
+// (csrc/sharded.cu) refuses heavy_hitters at plan time.
 template <typename SlotT>
 __device__ __forceinline__ void fold_wide_row(const float* __restrict__ V,
                                               const uint8_t* __restrict__ M,
@@ -117,21 +141,42 @@ __device__ __forceinline__ void fold_wide_row(const float* __restrict__ V,
                                               const HistConsts& hc) {
   const int slot = (int)slots[r];
   if (slot < 0 || slot >= C || p < 0 || p >= P) return;
-  for (int j = 0; j < wc.n; ++j) {
-    const int64_t at = (int64_t)wc.spec[j] * R + r;
-    if (!M[at]) continue;
-    const int comp = wc.comp[j];
-    const int W = kWideW[comp];
-    float* dst =
-        w.p[comp] + (((int64_t)p * C + slot) * w.k[comp] + wc.k[j]) * W;
-    const float v = V[at];
-    if (comp == W_HLL) {
-      float rho;
-      const int reg = hll_reg_rho(v, &rho);
-      if (rho > 0.0f) atomic_max_f32(dst + reg, rho);
-    } else if (comp == W_HIST) {
-      atomicAdd(dst + hist_bin(v, hc), 1.0f);
-    }
+  fold_wide_columns(V, M, R, r, (int64_t)p * C + slot, wc, w, hc);
+}
+
+// The heavy-hitters update of one (row, depth) (sketches.hh_update_parts
+// scattered by _fold_core, groupby.py:433-439): 1.0 added to the total
+// (counter 0) and to counter 1 + b of each set bit b < HH_BITS of `code`,
+// in the cell (d, hh_slot(code, d)) of column k of key block `key` (pane
+// * C + slot) of the hh state (., C, K, HH_SIZE). Every add is +1.0 to a
+// count below 2^24, so the counters come out bit-equal to the plain
+// version's in any order of the adds.
+//
+// The cell's counters go in as float4 atomics (sm_90), one per aligned
+// 4-float group holding a set counter, 0.0 in the group's other lanes (x +
+// 0.0 keeps x's bits for the counters, never -0.0; a group past the cell's
+// ends stays in the key block, whose 10,752 bytes are a multiple of 16).
+// Needs the hh state 16-byte aligned. On an H100 at phase 2's shapes this
+// took 0.0052 ms, against 0.0067 for a warp laying its rows' adds out 32
+// at a time and 0.0155 for one thread per (row, depth, counter):
+// PERF.md's findings.
+__device__ __forceinline__ void fold_hh_cell(float* __restrict__ hh,
+                                             long long key, int K, int k,
+                                             int d, uint32_t code) {
+  float* cell = hh + (key * K + k) * HH_SIZE +
+                (d * HH_WIDTH + hh_slot(code, d)) * HH_CELL;
+  // the cell starts a floats past a 16-byte boundary (the key block is
+  // 10,752 bytes, a multiple of 16); counter c is bit a + c of the run of
+  // 4-float groups from that boundary, at most 24 bits
+  const int a = (int)((reinterpret_cast<uintptr_t>(cell) >> 2) & 3u);
+  float4* g = reinterpret_cast<float4*>(cell - a);
+  const uint32_t bits = (((code & ((1u << HH_BITS) - 1u)) << 1) | 1u) << a;
+  for (int q = 0; q < 6; ++q) {
+    const uint32_t m4 = (bits >> (4 * q)) & 0xfu;
+    if (m4)
+      atomicAdd(g + q, make_float4((float)(m4 & 1u), (float)((m4 >> 1) & 1u),
+                                   (float)((m4 >> 2) & 1u),
+                                   (float)(m4 >> 3)));
   }
 }
 

@@ -12,18 +12,19 @@
 //   wide[c] : float32 (P, C, K_c, W_c) for c in hll (W 256), hist (W 1024),
 //             hh (W 2688); identity 0 (absent component: null)
 //
-// groupby_fold_wide     replaces the hll/hist/hh branches of
-//                       DeviceGroupBy._fold_core (groupby.py:419-439) with
-//                       sketches.hll_parts / hist_bin / hh_update_parts.
-//                       After groupby_fold_scalar (which adds act and the
-//                       scalar components): one launch for the hll / hist
+// The fold of #1 (the hll / hist / hh branches of DeviceGroupBy._fold_core,
+// groupby.py:419-439) is csrc/groupby.cu's groupby_fold, which launches
+// one kernel for act, the scalar and the sketch columns; the device code
+// of its sketch roles is csrc/sketch_common.cuh's.
+//
+// groupby_fold_masked_wide replaces the hll / hist / hh branches of
+//                       _fold_masked_impl (groupby.py:354) with
+//                       sketches.hll_parts / hist_bin / hh_update_parts:
+//                       the wide fold under an explicit (mb,) row mask
+//                       into one pane, after groupby_fold_masked_scalar
+//                       (csrc/groupby.cu): one launch for the hll / hist
 //                       columns and one for the hh columns, each only where
-//                       the batch has such columns (the hh rule: one).
-// groupby_fold_masked_wide replaces the same branches of
-//                       _fold_masked_impl (groupby.py:354): the wide fold
-//                       under an explicit (mb,) row mask into one pane,
-//                       after groupby_fold_masked_scalar (csrc/groupby.cu),
-//                       with the same one or two launches.
+//                       the batch has such columns.
 // groupby_finalize_wide replaces the hll and percentile_approx final
 //                       values of _final_value (groupby.py:510-519) with
 //                       sketches.hll_estimate / hist_quantile, and their
@@ -33,7 +34,7 @@
 //
 // What bounds them on an H100 at the main path's sizes (65,536 rows,
 // 16,384 slots):
-// - the fold moves the rows in (~0.6 MB) and the touched register lines;
+// - the masked fold moves the rows in (~0.6 MB) and the touched register lines;
 //   each row issues 1 atomic (hll, hist) or 2·(1 + popcount(code)), at
 //   most 42, atomics (hh), so atomics at L2 rather than bytes are its
 //   likely limit. hll / hist: one thread per row, native float atomicAdd,
@@ -44,7 +45,7 @@
 //   10,752-byte block, so one thread per (row, depth) adds its cell's
 //   counters four at a time with sm_90's float4 atomics: at most 6
 //   atomics a cell instead of 1 + popcount(code), up to 21
-//   (fold_hh_kernel below).
+//   (fold_hh_kernel below, csrc/sketch_common.cuh fold_hh_cell).
 // - both finalizes read every live pane of their component once: 352 MB
 //   for the heavy-hitters hopping state (2 panes x 16,384 x 2,688 floats),
 //   0.105 ms at 3.35 TB/s; so they are bytes-bound. One block per slot
@@ -66,24 +67,6 @@ struct HHSpecs {  // heavy_hitters specs: k in the hh component, 2·topk, row
   int row[MAX_SPECS];  // first of the 2·k2 rows (k2 codes, then k2 est)
 };
 
-// One thread per row, grid-stride. M[s] is spec s's mask (the row mask
-// after WHERE AND column validity AND not-NaN AND its FILTER). The pane is
-// `pane`, or pane_vec[r] when pane_vec is given (per-row panes, as
-// groupby_fold_scalar).
-template <typename SlotT>
-__global__ void fold_wide_kernel(const float* __restrict__ V,
-                                 const uint8_t* __restrict__ M,
-                                 const SlotT* __restrict__ slots, int R,
-                                 int pane, const uint8_t* __restrict__ pane_vec,
-                                 int P, int C, WideCols wc, Wide w,
-                                 HistConsts hc) {
-  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < R;
-       r += gridDim.x * blockDim.x) {
-    const int p = pane_vec != nullptr ? (int)pane_vec[r] : pane;
-    fold_wide_row(V, M, slots, R, r, p, P, C, wc, w, hc);
-  }
-}
-
 // The masked wide fold (#2): one thread per row of a cached, padded batch,
 // grid-stride, into the one pane `pane`. mask[r] is the refold's row mask
 // after WHERE (0 on padding rows), M[s] already ANDed with it; a row with
@@ -104,25 +87,12 @@ __global__ void fold_masked_wide_kernel(const uint8_t* __restrict__ mask,
 }
 
 // ------------------------------------------------ the heavy-hitters fold
-// The hh branch of #1 and #2 (sketches.hh_update_parts scattered by
-// _fold_core, groupby.py:433-439): for each hh column j whose spec mask
-// M[spec_j, r] is set, row r adds 1.0 to the total (counter 0) and to
-// counter 1 + b of each set bit b < HH_BITS of its code, in the cell
-// (d, hh_slot(code, d)) of each depth d of its key block (pane, slot, k_j).
-// mask: #2's row mask, read before anything else of the row, or null
-// (#1); pane_vec: #1's per-row panes, or null. Rows whose slot is outside
-// [0, C) or whose pane is outside [0, P) add nothing. Every add is +1.0 to
-// a count below 2^24, so the counters come out bit-equal to the plain
-// version's in any order of the adds.
-//
-// One thread per (row, depth) adds its cell's counters as float4 atomics
-// (sm_90), one per aligned 4-float group holding a set counter, 0.0 in
-// the group's other lanes (x + 0.0 keeps x's bits for the counters, never
-// -0.0; a group past the cell's ends stays in the key block, whose 10,752
-// bytes are a multiple of 16). Needs the hh state 16-byte aligned. On an
-// H100 at phase 2's shapes its body took 0.0052 ms, against 0.0067 for a
-// warp laying its rows' adds out 32 at a time and 0.0155 for one thread
-// per (row, depth, counter): PERF.md's findings.
+// The hh branch of #2 (and the hh role of csrc/groupby.cu's one-launch
+// fold): for each hh column j whose spec mask M[spec_j, r] is set, row r
+// adds its code into column k_j of its key block (pane, slot) by
+// fold_hh_cell (csrc/sketch_common.cuh), one thread per (row, depth).
+// mask: #2's row mask, read before anything else of the row. Rows whose
+// slot is outside [0, C) add nothing.
 struct HHCols {  // the hh columns of a wide column map: k in hh, spec
   int n;
   int k[MAX_COLS];
@@ -135,38 +105,19 @@ template <typename SlotT>
 __global__ void __launch_bounds__(HH_FOLD_THREADS) fold_hh_kernel(
     const uint8_t* __restrict__ mask, const float* __restrict__ V,
     const uint8_t* __restrict__ M, const SlotT* __restrict__ slots, int R,
-    int pane, const uint8_t* __restrict__ pane_vec, int P, int C, HHCols hc,
-    float* __restrict__ hh, int K) {
+    int pane, int C, HHCols hc, float* __restrict__ hh, int K) {
   const unsigned n = 2u * (unsigned)R;
   for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += gridDim.x * blockDim.x) {
     const int r = (int)(i >> 1), d = (int)(i & 1u);
-    if (mask != nullptr && !mask[r]) continue;
+    if (!mask[r]) continue;
     const int slot = (int)slots[r];
-    const int p = pane_vec != nullptr ? (int)pane_vec[r] : pane;
-    if (slot < 0 || slot >= C || p < 0 || p >= P) continue;
-    const long long key = (long long)p * C + slot;
+    if (slot < 0 || slot >= C) continue;
+    const long long key = (long long)pane * C + slot;
     for (int j = 0; j < hc.n; ++j) {
       const int64_t at = (int64_t)hc.spec[j] * R + r;
       if (!M[at]) continue;
-      const uint32_t code = (uint32_t)(long long)V[at];
-      float* cell = hh + (key * K + hc.k[j]) * HH_SIZE +
-                    (d * HH_WIDTH + hh_slot(code, d)) * HH_CELL;
-      // the cell starts a floats past a 16-byte boundary (the key block
-      // is 10,752 bytes, a multiple of 16); counter c is bit a + c of the
-      // run of 4-float groups from that boundary, at most 24 bits
-      const int a = (int)((reinterpret_cast<uintptr_t>(cell) >> 2) & 3u);
-      float4* g = reinterpret_cast<float4*>(cell - a);
-      const uint32_t bits =
-          (((code & ((1u << HH_BITS) - 1u)) << 1) | 1u) << a;
-      for (int q = 0; q < 6; ++q) {
-        const uint32_t m4 = (bits >> (4 * q)) & 0xfu;
-        if (m4)
-          atomicAdd(g + q, make_float4((float)(m4 & 1u),
-                                       (float)((m4 >> 1) & 1u),
-                                       (float)((m4 >> 2) & 1u),
-                                       (float)(m4 >> 3)));
-      }
+      fold_hh_cell(hh, key, K, hc.k[j], d, (uint32_t)(long long)V[at]);
     }
   }
 }
@@ -267,43 +218,12 @@ hh_finalize_kernel(const float* __restrict__ hh, int K,
 
 extern "C" {
 
-// colmap: host int32 (ncols, 3) = (wide comp, k, spec). wide_ptrs /
-// wide_k: host arrays of N_WIDE device pointers (null = absent) and K.
-// hist_consts: host float32 (lo, hi, 1/lo, 1/log_gamma, log_gamma,
-// center_scale). slots: device (R,) of uint16 if slot_u16, else int32.
-// pane_vec: device uint8 (R,) per-row panes, or null.
-int groupby_fold_wide(const float* V, const uint8_t* M, const void* slots,
-                      int slot_u16, int R, int pane, const uint8_t* pane_vec,
-                      int P, int C, const int32_t* colmap, int ncols,
-                      float* const* wide_ptrs, const int32_t* wide_k,
-                      const float* hist_consts, void* stream) {
-  WideCols wc;
-  HHCols hh;
-  const Wide w = make_wide(wide_ptrs, wide_k);
-  if (!make_widecols(colmap, ncols, &wc) || R < 0)
-    return (int)cudaErrorInvalidValue;
-  const cudaError_t bad = split_hh_cols(&wc, &hh, w, R);
-  if (bad != cudaSuccess) return (int)bad;
-  if (R == 0 || ncols == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const HistConsts hc = make_hc(hist_consts);
-  cudaStream_t st = (cudaStream_t)stream;
-  with_slot_type(slots, slot_u16, [&](auto s) {
-    if (wc.n)
-      fold_wide_kernel<<<grid_for(R, threads), threads, 0, st>>>(
-          V, M, s, R, pane, pane_vec, P, C, wc, w, hc);
-    if (hh.n)
-      fold_hh_kernel<<<grid_for(2LL * R, HH_FOLD_THREADS), HH_FOLD_THREADS,
-                       0, st>>>(static_cast<const uint8_t*>(nullptr), V, M, s,
-                                R, pane, pane_vec, P, C, hh, w.p[W_HH],
-                                w.k[W_HH]);
-  });
-  return (int)cudaGetLastError();
-}
-
 // The masked wide fold (#2). mask: device uint8 (R,), the row mask after
-// WHERE; pane: the destination pane, inside [0, P); the rest as
-// groupby_fold_wide.
+// WHERE; V / M: device (S, R); slots: device (R,) of uint16 if slot_u16,
+// else int32; pane: the destination pane, inside [0, P). colmap: host
+// int32 (ncols, 3) = (wide comp, k, spec). wide_ptrs / wide_k: host
+// arrays of N_WIDE device pointers (null = absent) and K. hist_consts:
+// host float32 (lo, hi, 1/lo, 1/log_gamma, log_gamma, center_scale).
 int groupby_fold_masked_wide(const uint8_t* mask, const float* V,
                              const uint8_t* M, const void* slots, int slot_u16,
                              int R, int pane, int P, int C,
@@ -327,9 +247,8 @@ int groupby_fold_masked_wide(const uint8_t* mask, const float* V,
           mask, V, M, s, R, pane, P, C, wc, w, hc);
     if (hh.n)
       fold_hh_kernel<<<grid_for(2LL * R, HH_FOLD_THREADS), HH_FOLD_THREADS,
-                       0, st>>>(mask, V, M, s, R, pane,
-                                static_cast<const uint8_t*>(nullptr), P, C,
-                                hh, w.p[W_HH], w.k[W_HH]);
+                       0, st>>>(mask, V, M, s, R, pane, C, hh, w.p[W_HH],
+                                w.k[W_HH]);
   });
   return (int)cudaGetLastError();
 }

@@ -386,15 +386,12 @@ class TorchGroupBy:
                     pane_vec: Optional[torch.Tensor],
                     pane_hi: Optional[int] = None) -> None:
         """The launches of one uploaded chunk of `n` rows: the closures,
-        then the scalar fold and, with sketch components, the wide one.
-        pane_hi: pane_vec's largest pane, checked on the host (the single
-        rule's folds take the caller's check as it is)."""
+        then the fold, one kernel for act, the scalar, touch and sketch
+        columns. pane_hi: pane_vec's largest pane, checked on the host (the
+        single rule's fold takes the caller's check as it is)."""
         base, V, M = self.spec_inputs(cols, n)
-        kernels.groupby_fold_scalar(state, base, V, M, slots, pane,
-                                    self._colmap, pane_vec)
-        if len(self._widemap):
-            kernels.groupby_fold_wide(state, V, M, slots, pane,
-                                      self._widemap, pane_vec)
+        kernels.groupby_fold(state, base, V, M, slots, pane, self._colmap,
+                             self._widemap, pane_vec)
 
     # --------------------------------------------------------------- finalize
     def _pane_mask(self, panes: Optional[List[int]]) -> torch.Tensor:

@@ -1,33 +1,41 @@
 """The port's CUDA kernels: their build, the wrappers that launch them, their
 plain PyTorch versions and their launch counts.
 
-Twenty-eight kernels, written by hand in CUDA C++ for Hopper, each
+Twenty-six kernels, written by hand in CUDA C++ for Hopper, each
 replacing one device program of the reference, and one helper kernel
 that replaces none (the rule group's row order) (ekuiper_tpu/ops/groupby.py,
 ekuiper_tpu/ops/slidingring.py, ekuiper_tpu/parallel/multirule.py,
 ekuiper_tpu/ops/tierstore.py, ekuiper_tpu/ops/joinring.py,
 ekuiper_tpu/ops/segscan.py, ekuiper_tpu/ops/sketches.py and
 ekuiper_tpu/parallel/sharded.py). Four in
-ekuiper_tpu_torch/csrc/groupby.cu:
+ekuiper_tpu_torch/csrc/groupby.cu (the fold's body in csrc/fold.cuh):
 
-- `groupby_fold_scalar` replaces `DeviceGroupBy._fold_impl` → `_fold_core`
-  (groupby.py:348-441): scatter-add of act/n/s1/s2 and scatter-min/max of
-  mn/mx at [pane, slot, k] for one micro-batch, and, for a state with a
-  touch column (tiered key state), the uint32 touch[slot] += 1 of each
-  row past the WHERE (groupby.py:379-385). Bound on an H100: a
+- `groupby_fold` replaces `DeviceGroupBy._fold_impl` → `_fold_core`
+  (groupby.py:348-441) in ONE launch a chunk: scatter-add of act/n/s1/s2
+  and scatter-min/max of mn/mx at [pane, slot, k], the uint32 touch[slot]
+  += 1 of each row past the WHERE for a state with a touch column (tiered
+  key state, groupby.py:379-385), and the hll / hist / hh branches
+  (419-439): per valid row an atomic max of rho into register h1 & 255,
+  an atomic add into the value's log bin, or, per depth, its code's cell
+  counters as float4 atomics (the hh state 16-byte aligned; a code's low
+  20 bits). Rows go to one pane, or each to its own (`pane_vec`, the
+  reference's uint8 per-row pane vector, groupby.py:334-338, 432-434: a
+  sliding batch that crosses a bucket edge). Slots come as int32 (the
+  host fold's upload) or uint16 (a cached sliding batch). The expression
+  closures are evaluated by torch into dense (S, R) value/mask tensors
+  first, so the kernel does no expression work. Bound on an H100: a
   65,536-row batch moves ~2 MB (the spec values and masks, slots, the
   touched state lines), 0.7 µs at 3.35 TB/s; each row also issues one
-  atomic per state column, so the atomics' throughput at L2 may bound it
-  instead (which of the two does is not measured; chip_smoke.py reports
-  the kernel body's device time beside the bound). Design: one thread
-  per row, one launch per batch, native float atomicAdd and a sign-split
-  integer atomic for min/max (no compare-and-swap loop), and the
-  expression closures evaluated by torch into dense (S, R) value/mask
-  tensors first, so the kernel itself does no expression work. Rows go
-  to one pane, or each to its own pane (`pane_vec`, the reference's
-  uint8 per-row pane vector, groupby.py:334-338: a sliding batch that
-  crosses a bucket edge). Slots come as int32 (the host fold's upload) or
-  uint16 (a cached sliding batch, the reference's slot_dtype).
+  atomic per state column, so the atomics' throughput at L2 bounds it
+  instead. Design (csrc/fold.cuh): the launch's blocks take roles by index
+  range (scalar, hll / hist, hh), its parameters carry the column maps by
+  value; the scalar role takes a thread a row and issues one native
+  float atomic a column (a sign-split integer atomic for min/max, no
+  compare-and-swap loop), the count columns of a slot as float4 / float2
+  atomics over their run (8 atomics a row become 5 on the tumbling rule). Owner routes (CTAs or thread-block clusters
+  owning slot ranges in shared memory, no global atomic) took 4-25
+  times as long at the main path's shape and are not kept
+  (fold_routes.py, PERF.md).
 - `groupby_fold_masked_scalar` replaces `_fold_masked_impl` (groupby.py:354):
   the same fold of a cached, padded batch under an explicit (mb,) row mask
   (mask ∧ WHERE), into one pane: the sliding refold's edge folds, with
@@ -49,25 +57,15 @@ ekuiper_tpu_torch/csrc/groupby.cu:
   Design: one launch covers every component; each pane of a component is
   one contiguous run, stored grid-stride and coalesced.
 
-And four in ekuiper_tpu_torch/csrc/sketches.cu, for the sketch
+And three in ekuiper_tpu_torch/csrc/sketches.cu, for the sketch
 aggregates (hll, percentile_approx, heavy_hitters), whose state
 components are wide: (P, C, K, W) with W = 256 / 1,024 / 2,688:
 
-- `groupby_fold_wide` replaces the hll/hist/hh branches of `_fold_core`
-  (groupby.py:419-439): per valid row an atomic max of rho into register
-  h1 & 255, an atomic add into the value's log bin, or, per depth,
-  atomic adds into the code's cell total and its set bits. Beside
-  groupby_fold_scalar (which adds act and the scalar columns), with the
-  same per-row panes (the hh branch indexes (pane_vec[r], slot, k, idx),
-  groupby.py:432-434). One launch for the hll / hist columns (one thread
-  a row) and one for the hh columns, each where the batch has such
-  columns: one thread per (row, depth) adds its cell's set counters four
-  at a time with float4 atomics (the hh state 16-byte aligned), counting
-  a code's low 20 bits. Likely bound: its atomics at L2.
-- `groupby_fold_masked_wide` replaces the same branches of
+- `groupby_fold_masked_wide` replaces the hll/hist/hh branches of
   `_fold_masked_impl` (groupby.py:354): the wide fold under the refold's
-  row mask into one pane, beside groupby_fold_masked_scalar, with the
-  same kernels as groupby_fold_wide.
+  row mask into one pane, beside groupby_fold_masked_scalar: one thread a
+  row for hll / hist, one a (row, depth) for hh (the hh cell adds of
+  groupby_fold's hh role).
 - `groupby_finalize_wide` replaces the `hll` and `percentile_approx`
   kinds of `_final_value` (groupby.py:510-519) and their pane merge: one
   block per slot; it writes those specs' rows of the same output that
@@ -204,20 +202,18 @@ And two in ekuiper_tpu_torch/csrc/countmin.cu, for `CountMinSketch`
 - `cms_query` replaces `_query_impl` (sketches.py:288): each value's min
   over its d cells. Bound: the values, the n·d cells, the (n,) result.
 
-And three in ekuiper_tpu_torch/csrc/sharded.cu, for a rule on a (rows,
+And two in ekuiper_tpu_torch/csrc/sharded.cu, for a rule on a (rows,
 keys) device mesh whose devices are one card (parallel/sharded.py), over
 partials of R row shards, (R·P', C, k[, W]), row shard r's block at r·P'
 (key shard k's range is its slice [k·c, (k+1)·c) of the slot axis):
 
-- `sharded_fold_scalar` replaces `ShardedGroupBy._build_fold` →
-  `local_fold` (sharded.py:208, 221-296): every (row shard, key shard)
-  folds its rows into its identity partial, act, n, s1, s2, mn, mx and
-  the uint32 touch count, in one launch; with a per-row pane vector
-  (P' = P), `_build_fold_vec` (353, 371-435). Bound: the fold's bytes
-  (~3 MB at the flagship shape with a touch column, 0.9 µs at 3.35
-  TB/s).
-- `sharded_fold_wide` replaces the hll / hist branches of both local
-  folds (299-314, 436-451), into the wide partials.
+- `sharded_fold` replaces `ShardedGroupBy._build_fold` → `local_fold`
+  (sharded.py:208, 221-331): every (row shard, key shard) folds its rows
+  into its identity partial, act, n, s1, s2, mn, mx, the uint32 touch
+  count and the hll / hist branches (299-314), in ONE launch (groupby_fold's
+  kernel body, csrc/fold.cuh, over the partials); with a per-row pane vector
+  (P' = P), `_build_fold_vec` (353, 371-474). Bound: the fold's bytes
+  (~3 MB at the flagship shape with a touch column, 0.9 µs at 3.35 TB/s).
 - `shard_merge` replaces their psum / pmin / pmax over "rows" and the add
   / min / max into the state (313-323, 403-407, 452-460): one thread per
   element, the R partials reduced in r order, combined into the pane (or
@@ -227,11 +223,12 @@ partials of R row shards, (R·P', C, k[, W]), row shard r's block at r·P'
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and
 only there; for a CUDA tensor it launches the kernel or raises. A wrapper
 adds one to `LAUNCHES[name]` where it launches its kernel and nowhere else:
-`LAUNCHES` counts wrapper calls, and a call of `groupby_fold_wide` or
-`groupby_fold_masked_wide` whose widemap mixes hh with hll or hist columns
-launches two kernels for its one count; a rule-group fold's one count
-covers its pack and fold launches (and, called without an order, the
-order's call, counted under `multirule_fold_order`).
+`LAUNCHES` counts wrapper calls, and a call of `groupby_fold_masked_wide`
+whose widemap mixes hh with hll or hist columns launches two kernels for
+its one count; a rule-group fold's one count covers its pack and fold
+launches (and, called without an order, the order's call, counted under
+`multirule_fold_order`). `groupby_fold` and `sharded_fold` launch one
+kernel a call, whatever their columns.
 """
 from __future__ import annotations
 
@@ -264,7 +261,8 @@ SOURCES = {"groupby": _PKG / "csrc" / "groupby.cu",
            "countmin": _PKG / "csrc" / "countmin.cu",
            "sharded": _PKG / "csrc" / "sharded.cu"}
 #: headers the sources include (part of every library's build tag)
-HEADERS = (_PKG / "csrc" / "groupby_common.cuh",
+HEADERS = (_PKG / "csrc" / "fold.cuh",
+           _PKG / "csrc" / "groupby_common.cuh",
            _PKG / "csrc" / "sketch_common.cuh",
            _PKG / "csrc" / "slot_type.cuh",
            _PKG / "csrc" / "radix_sort.cuh")
@@ -311,12 +309,11 @@ HLL_NUM = float(np.float32(0.7213 / (1.0 + 1.079 / sketches.HLL_M)
                            * sketches.HLL_M * sketches.HLL_M))
 
 #: launches of each kernel since the last reset_launches()
-LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0,
+LAUNCHES: Dict[str, int] = {"groupby_fold": 0,
                             "groupby_fold_masked_scalar": 0,
                             "groupby_fold_masked_wide": 0,
                             "groupby_finalize_scalar": 0,
                             "groupby_reset_pane": 0,
-                            "groupby_fold_wide": 0,
                             "groupby_finalize_wide": 0,
                             "groupby_hh_finalize": 0,
                             "groupby_components": 0,
@@ -337,21 +334,18 @@ LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0,
                             "segscan_sort": 0,
                             "cms_update": 0,
                             "cms_query": 0,
-                            "sharded_fold_scalar": 0,
-                            "sharded_fold_wide": 0,
+                            "sharded_fold": 0,
                             "shard_merge": 0}
 #: of LAUNCHES' folds, those that took a per-row pane vector
-ROW_PANE_LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0,
-                                     "groupby_fold_wide": 0,
+ROW_PANE_LAUNCHES: Dict[str, int] = {"groupby_fold": 0,
                                      "multirule_fold_order": 0,
                                      "multirule_fold": 0,
                                      "multirule_fold_wide": 0,
-                                     "sharded_fold_scalar": 0,
-                                     "sharded_fold_wide": 0}
+                                     "sharded_fold": 0}
 #: of LAUNCHES' folds, those that bumped a touch column (tiered key state)
-TOUCH_LAUNCHES: Dict[str, int] = {"groupby_fold_scalar": 0,
+TOUCH_LAUNCHES: Dict[str, int] = {"groupby_fold": 0,
                                  "groupby_fold_masked_scalar": 0,
-                                 "sharded_fold_scalar": 0}
+                                 "sharded_fold": 0}
 
 #: the loaded libraries (SimpleNamespace(groupby=..., sketches=...,
 #: prefinalize=..., slidingring=..., multirule=..., tierstore=...,
@@ -438,8 +432,8 @@ def _load():
             paths = build_library()
             P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             gb = ctypes.CDLL(str(paths["groupby"]))
-            gb.groupby_fold_scalar.argtypes = [P, P, P, P, I, I, I, P, I,
-                                               I, P, I, P, P, P, P, P]
+            gb.groupby_fold.argtypes = [P, P, P, P, I, I, I, P, I, I, P, I,
+                                        P, I, P, P, P, P, P, P, P, P]
             gb.groupby_fold_masked_scalar.argtypes = [P, P, P, P, I, I, I,
                                                       I, I, P, I, P, P, P, P,
                                                       P]
@@ -447,8 +441,6 @@ def _load():
                                                    I, P, P]
             gb.groupby_reset_pane.argtypes = [P, P, P, I, I, P]
             sk = ctypes.CDLL(str(paths["sketches"]))
-            sk.groupby_fold_wide.argtypes = [P, P, P, I, I, I, P, I, I, P,
-                                             I, P, P, P, P]
             sk.groupby_fold_masked_wide.argtypes = [P, P, P, P, I, I, I, I,
                                                     I, P, I, P, P, P, P]
             sk.groupby_finalize_wide.argtypes = [P, P, P, I, I, P, P, I, P,
@@ -493,17 +485,14 @@ def _load():
             cm.cms_update.argtypes = [P, I, I, P, I, P]
             cm.cms_query.argtypes = [P, I, I, P, I, P, P]
             sh = ctypes.CDLL(str(paths["sharded"]))
-            sh.sharded_fold_scalar.argtypes = [P, P, P, P, I, I, I, I, P, I,
-                                               I, I, P, I, P, P, P, P, P]
-            sh.sharded_fold_wide.argtypes = [P, P, P, I, I, I, I, P, I, I, P,
-                                             I, P, P, P, P]
+            sh.sharded_fold.argtypes = [P, P, P, P, I, I, I, I, P, I, I, I,
+                                        P, I, P, I, P, P, P, P, P, P, P, P]
             sh.shard_merge.argtypes = [P, P, P, P, P, I, I, I, I, P, P, I, P]
-            for lib, fns in ((gb, ("groupby_fold_scalar",
+            for lib, fns in ((gb, ("groupby_fold",
                                    "groupby_fold_masked_scalar",
                                    "groupby_finalize_scalar",
                                    "groupby_reset_pane")),
-                             (sk, ("groupby_fold_wide",
-                                   "groupby_fold_masked_wide",
+                             (sk, ("groupby_fold_masked_wide",
                                    "groupby_finalize_wide",
                                    "groupby_hh_finalize")),
                              (pf, ("groupby_components", "groupby_absorb")),
@@ -518,8 +507,7 @@ def _load():
                              (rl, ("join_match", "segscan_shift",
                                    "segscan_sort")),
                              (cm, ("cms_update", "cms_query")),
-                             (sh, ("sharded_fold_scalar",
-                                   "sharded_fold_wide", "shard_merge"))):
+                             (sh, ("sharded_fold", "shard_merge"))):
                 for fn in fns:
                     getattr(lib, fn).restype = I
             gb.groupby_error_string.argtypes = [I]
@@ -605,26 +593,26 @@ def _ptr(a) -> ctypes.c_void_p:
 
 
 # ------------------------------------------------------------------ fold
-def groupby_fold_scalar(state: Dict[str, torch.Tensor], base: torch.Tensor,
-                        V: torch.Tensor, M: torch.Tensor,
-                        slots: torch.Tensor, pane: int,
-                        colmap: np.ndarray,
-                        pane_vec: Optional[torch.Tensor] = None) -> None:
-    """Fold one micro-batch into `state` in place: act and the scalar
-    components.
+def groupby_fold(state: Dict[str, torch.Tensor], base: torch.Tensor,
+                 V: torch.Tensor, M: torch.Tensor, slots: torch.Tensor,
+                 pane: int, colmap: np.ndarray, widemap: np.ndarray,
+                 pane_vec: Optional[torch.Tensor] = None) -> None:
+    """Fold one micro-batch chunk into `state` in place, in ONE kernel
+    launch: act, the scalar components, the touch column and the wide
+    sketch components (#1).
 
     base: bool (R,) row mask after WHERE. V: float32 (S, R) spec values;
     M: bool (S, R) spec masks (each already ANDed with base). slots: int32
-    or uint16 (R,). colmap: int32 (ncols, 3) of (COMP_IDS[comp], k, spec).
-    pane_vec: optional uint8 (R,) per-row panes, which replace `pane`; the
-    caller checks their range on the host (a pane outside [0, P) is
-    dropped, as an out-of-range slot is). A state holding a `touch`
-    column (uint32 (C,), tiered key state) also counts each row past
-    `base` into touch[slot].
+    or uint16 (R,). colmap: int32 (ncols, 3) of (COMP_IDS[comp], k, spec);
+    widemap: int32 (ncols, 3) of (WIDE_IDS[comp], k, spec). pane_vec:
+    optional uint8 (R,) per-row panes, which replace `pane`; the caller
+    checks their range on the host (a pane outside [0, P) is dropped, as an
+    out-of-range slot is). A state holding a `touch` column (uint32 (C,),
+    tiered key state) also counts each row past `base` into touch[slot].
     """
-    name = "groupby_fold_scalar"
+    name = "groupby_fold"
     if not _on_cuda(name, state):
-        fold_scalar_plain(state, base, V, M, slots, pane, colmap, pane_vec)
+        fold_plain(state, base, V, M, slots, pane, colmap, widemap, pane_vec)
         return
     act = state["act"]
     P, C = act.shape
@@ -632,22 +620,43 @@ def groupby_fold_scalar(state: Dict[str, torch.Tensor], base: torch.Tensor,
     dev = act.device
     _check(name, base, torch.bool, (R,), dev)
     colmap = _check_batch(name, V, M, slots, pane, P, colmap, dev, pane_vec)
+    widemap = _col_map(name, widemap, S)
     ptrs, ks = _comp_table(name, state)
+    wptrs, wks = _wide_table(name, state)
+    _check_wide_cols(name, widemap, wks)
     touch = state.get("touch")
     if touch is not None:
         _check(name, touch, torch.uint32, (C,), dev)
     lib = _load()
     with torch.cuda.device(dev):
-        rc = lib.groupby.groupby_fold_scalar(
+        rc = lib.groupby.groupby_fold(
             _ptr(base), _ptr(V), _ptr(M), _ptr(slots), _u16(slots), R,
             int(pane), _opt_ptr(pane_vec), P, C, _ptr(colmap), len(colmap),
-            _ptr(ptrs), _ptr(ks), _ptr(act), _opt_ptr(touch), _stream(dev))
+            _ptr(widemap), len(widemap), _ptr(ptrs), _ptr(ks), _ptr(act),
+            _opt_ptr(touch), _ptr(wptrs), _ptr(wks), _ptr(HIST_CONSTS),
+            _stream(dev))
         LAUNCHES[name] += 1
         if pane_vec is not None:
             ROW_PANE_LAUNCHES[name] += 1
         if touch is not None:
             TOUCH_LAUNCHES[name] += 1
     _raise_on(lib, name, rc)
+
+
+def _check_wide_cols(name: str, widemap: np.ndarray, ks: np.ndarray) -> None:
+    for comp_id, k, _ in widemap.tolist():
+        if comp_id not in _WIDE_NAMES or not 0 <= k < ks[comp_id]:
+            raise ValueError(f"{name}: column {k} outside component "
+                             f"{_WIDE_NAMES.get(comp_id, comp_id)}")
+
+
+def fold_plain(state, base, V, M, slots, pane, colmap, widemap,
+               pane_vec=None) -> None:
+    """Plain PyTorch version of groupby_fold (same contract): the scalar
+    fold, then the wide one."""
+    fold_scalar_plain(state, base, V, M, slots, pane, colmap, pane_vec)
+    if len(np.asarray(widemap).reshape(-1, 3)):
+        fold_wide_plain(state, V, M, slots, pane, widemap, pane_vec)
 
 
 def _opt_ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
@@ -673,14 +682,20 @@ def _check_batch(name, V, M, slots, pane, P, colmap, dev,
     _check(name, slots, slots.dtype, (R,), dev)
     if pane_vec is not None:
         _check(name, pane_vec, torch.uint8, (R,), dev)
+    if not 0 <= pane < P:
+        raise ValueError(f"{name}: pane {pane} outside [0, {P})")
+    return _col_map(name, colmap, S)
+
+
+def _col_map(name: str, colmap, S: int) -> np.ndarray:
+    """A column map as a contiguous int32 (ncols, 3), checked: at most
+    MAX_COLS columns, each naming a spec of V / M."""
     colmap = np.ascontiguousarray(colmap, dtype=np.int32).reshape(-1, 3)
     if len(colmap) > MAX_COLS:
         raise ValueError(f"{name}: {len(colmap)} state columns "
                          f"(max {MAX_COLS})")
     if len(colmap) and (colmap[:, 2].max() >= S or colmap[:, 2].min() < 0):
         raise ValueError(f"{name}: column map names a spec outside V/M")
-    if not 0 <= pane < P:
-        raise ValueError(f"{name}: pane {pane} outside [0, {P})")
     return colmap
 
 
@@ -702,7 +717,8 @@ def _pane_rows(pane, pane_vec, slots, P: int, C: int):
 
 def fold_scalar_plain(state, base, V, M, slots, pane, colmap,
                       pane_vec=None) -> None:
-    """Plain PyTorch version of groupby_fold_scalar (same contract)."""
+    """The plain fold's act, scalar columns and touch column (groupby_fold's
+    scalar part)."""
     P, C = state["act"].shape
     pc, ok = _pane_rows(pane, pane_vec, slots, P, C)
     _fold_columns_plain(state, pc, base & ok, V, M & ok, colmap)
@@ -753,47 +769,11 @@ def _fold_columns_plain(state, pc, rows, V, M, colmap) -> None:
                                  "amax", include_self=True)
 
 
-def groupby_fold_wide(state: Dict[str, torch.Tensor], V: torch.Tensor,
-                      M: torch.Tensor, slots: torch.Tensor, pane: int,
-                      widemap: np.ndarray,
-                      pane_vec: Optional[torch.Tensor] = None) -> None:
-    """Fold one micro-batch into the wide sketch components, in place.
-
-    V, M, slots, pane, pane_vec: as groupby_fold_scalar (M already holds
-    the row mask). widemap: int32 (ncols, 3) of (WIDE_IDS[comp], k, spec).
-    """
-    name = "groupby_fold_wide"
-    if not _on_cuda(name, state):
-        fold_wide_plain(state, V, M, slots, pane, widemap, pane_vec)
-        return
-    act = state["act"]
-    P, C = act.shape
-    S, R = V.shape
-    dev = act.device
-    widemap = _check_batch(name, V, M, slots, pane, P, widemap, dev,
-                           pane_vec)
-    ptrs, ks = _wide_table(name, state)
-    for comp_id, k, _ in widemap.tolist():
-        if not 0 <= k < ks[comp_id]:
-            raise ValueError(f"{name}: column {k} outside component "
-                             f"{_WIDE_NAMES[comp_id]}")
-    lib = _load()
-    with torch.cuda.device(dev):
-        rc = lib.sketches.groupby_fold_wide(
-            _ptr(V), _ptr(M), _ptr(slots), _u16(slots), R, int(pane),
-            _opt_ptr(pane_vec), P, C, _ptr(widemap), len(widemap), _ptr(ptrs),
-            _ptr(ks), _ptr(HIST_CONSTS), _stream(dev))
-        LAUNCHES[name] += 1
-        if pane_vec is not None:
-            ROW_PANE_LAUNCHES[name] += 1
-    _raise_on(lib, name, rc)
-
-
 def fold_wide_plain(state, V, M, slots, pane, widemap,
                     pane_vec=None) -> None:
-    """Plain PyTorch version of groupby_fold_wide (the reference's
-    scatter-max / scatter-add of sketches.hll_parts / hist_bin /
-    hh_update_parts)."""
+    """The plain fold's wide sketch columns (groupby_fold's hll / hist /
+    hh part: the reference's scatter-max / scatter-add of
+    sketches.hll_parts / hist_bin / hh_update_parts)."""
     P, C = state["act"].shape
     pc, ok = _pane_rows(pane, pane_vec, slots, P, C)
     for comp_id, k, s in np.asarray(widemap).reshape(-1, 3).tolist():
@@ -827,7 +807,7 @@ def groupby_fold_masked_scalar(state: Dict[str, torch.Tensor],
     `mask` (bool (R,): the refold's rows ∧ WHERE; 0 on padding rows).
 
     V: float32 (S, R); M: bool (S, R), each spec's mask already ANDed with
-    `mask`. slots: uint16 or int32 (R,). colmap: as groupby_fold_scalar's.
+    `mask`. slots: uint16 or int32 (R,). colmap: as groupby_fold's.
     A state holding a `touch` column (a tiered sliding rule) also counts
     each row past `mask` into touch[slot].
     """
@@ -874,7 +854,7 @@ def groupby_fold_masked_wide(state: Dict[str, torch.Tensor],
                              widemap: np.ndarray) -> None:
     """The masked fold (#2) of the wide sketch components, in place: mask,
     V, M, slots and pane as groupby_fold_masked_scalar's; widemap as
-    groupby_fold_wide's."""
+    groupby_fold's."""
     name = "groupby_fold_masked_wide"
     if not _on_cuda(name, state):
         fold_masked_wide_plain(state, mask, V, M, slots, pane, widemap)
@@ -886,10 +866,7 @@ def groupby_fold_masked_wide(state: Dict[str, torch.Tensor],
     _check(name, mask, torch.bool, (R,), dev)
     widemap = _check_batch(name, V, M, slots, pane, P, widemap, dev)
     ptrs, ks = _wide_table(name, state)
-    for comp_id, k, _ in widemap.tolist():
-        if not 0 <= k < ks[comp_id]:
-            raise ValueError(f"{name}: column {k} outside component "
-                             f"{_WIDE_NAMES[comp_id]}")
+    _check_wide_cols(name, widemap, ks)
     lib = _load()
     with torch.cuda.device(dev):
         rc = lib.sketches.groupby_fold_masked_wide(
@@ -2491,48 +2468,56 @@ def _shard_panes_plain(N: int, m: int, R: int, P: int, pane_vec, dev):
     return torch.where(ok, r * P + p.clamp(max=P - 1), 0), ok
 
 
-def sharded_fold_scalar(parts: Dict[str, torch.Tensor], base: torch.Tensor,
-                        V: torch.Tensor, M: torch.Tensor,
-                        slots: torch.Tensor, rows_per_shard: int,
-                        row_shards: int, key_shards: int,
-                        colmap: np.ndarray,
-                        pane_vec: Optional[torch.Tensor] = None) -> None:
+def sharded_fold(parts: Dict[str, torch.Tensor], base: torch.Tensor,
+                 V: torch.Tensor, M: torch.Tensor, slots: torch.Tensor,
+                 rows_per_shard: int, row_shards: int, key_shards: int,
+                 colmap: np.ndarray, widemap: np.ndarray,
+                 pane_vec: Optional[torch.Tensor] = None) -> None:
     """The sharded fold (#23; #24 with `pane_vec`): every (row shard, key
     shard) of a mesh on one device folds its rows into its identity
-    partial, in place, in one launch.
+    partial, in place, act, the scalar and touch columns and the hll /
+    hist columns, in ONE launch.
 
-    parts: the partials, comp (R·P', C, k), act (R·P', C) and, for a state
-    with a touch column, touch uint32 (R, C); row shard r's block of P'
-    panes at r·P'. Row i of the chunk belongs to row shard i //
+    parts: the partials, comp (R·P', C, k[, W]), act (R·P', C) and, for a
+    state with a touch column, touch uint32 (R, C); row shard r's block of
+    P' panes at r·P'. Row i of the chunk belongs to row shard i //
     rows_per_shard; its key shard is slot // (C / key_shards), and its
     partial slot is its global slot (a key shard's range is its slice of
-    the block). base, V, M, slots, colmap: as groupby_fold_scalar's.
+    the block). base, V, M, slots, colmap, widemap: as groupby_fold's.
     pane_vec: optional uint8 (N,) per-row panes inside each block (P' the
     state's panes), else pane 0 of each block (P' = 1); a pane outside
-    [0, P') is dropped.
+    [0, P') is dropped. heavy_hitters never reaches a mesh (the planner
+    refuses it).
     """
-    name = "sharded_fold_scalar"
+    name = "sharded_fold"
     R, K, m = int(row_shards), int(key_shards), int(rows_per_shard)
     S, N = V.shape
     P, C = _check_shards(name, parts, R, m, N)
     if K < 1 or C % K:
         raise ValueError(f"{name}: {C} slots in {K} key shards")
+    if "hh" in parts:
+        raise ValueError(f"{name}: heavy_hitters state on a mesh")
     if not _on_cuda(name, parts):
-        sharded_fold_scalar_plain(parts, base, V, M, slots, m, R, K, colmap,
-                                  pane_vec)
+        sharded_fold_plain(parts, base, V, M, slots, m, R, K, colmap,
+                           widemap, pane_vec)
         return
     act = parts["act"]
     dev = act.device
     _check(name, base, torch.bool, (N,), dev)
     colmap = _check_batch(name, V, M, slots, 0, R * P, colmap, dev, pane_vec)
+    widemap = _col_map(name, widemap, S)
     ptrs, ks = _comp_table(name, parts)
+    wptrs, wks = _wide_table(name, parts)
+    _check_wide_cols(name, widemap, wks)
     touch = parts.get("touch")
     lib = _load()
     with torch.cuda.device(dev):
-        rc = lib.sharded.sharded_fold_scalar(
+        rc = lib.sharded.sharded_fold(
             _ptr(base), _ptr(V), _ptr(M), _ptr(slots), _u16(slots), N, m, R,
             _opt_ptr(pane_vec), P, C // K, K, _ptr(colmap), len(colmap),
-            _ptr(ptrs), _ptr(ks), _ptr(act), _opt_ptr(touch), _stream(dev))
+            _ptr(widemap), len(widemap), _ptr(ptrs), _ptr(ks), _ptr(act),
+            _opt_ptr(touch), _ptr(wptrs), _ptr(wks), _ptr(HIST_CONSTS),
+            _stream(dev))
         LAUNCHES[name] += 1
         if pane_vec is not None:
             ROW_PANE_LAUNCHES[name] += 1
@@ -2541,12 +2526,11 @@ def sharded_fold_scalar(parts: Dict[str, torch.Tensor], base: torch.Tensor,
     _raise_on(lib, name, rc)
 
 
-def sharded_fold_scalar_plain(parts, base, V, M, slots, rows_per_shard,
-                              row_shards, key_shards, colmap,
-                              pane_vec=None) -> None:
-    """Plain PyTorch version of sharded_fold_scalar: the reference's
-    local_fold scatters of every shard at once, over the row shards'
-    partial panes (the key shards are slices of the slot axis)."""
+def sharded_fold_plain(parts, base, V, M, slots, rows_per_shard, row_shards,
+                       key_shards, colmap, widemap, pane_vec=None) -> None:
+    """Plain PyTorch version of sharded_fold: the reference's local_fold
+    scatters of every shard at once, over the row shards' partial panes
+    (the key shards are slices of the slot axis)."""
     R, m = int(row_shards), int(rows_per_shard)
     RP, C = parts["act"].shape
     N = V.shape[1]
@@ -2563,57 +2547,8 @@ def sharded_fold_scalar_plain(parts, base, V, M, slots, rows_per_shard,
         t = touch.long().view(-1)
         t.index_add_(0, flat[keep], torch.ones_like(flat[keep]))
         touch.copy_((t.view(R, C) & 0xFFFFFFFF).to(torch.uint32))
-
-
-def sharded_fold_wide(parts: Dict[str, torch.Tensor], V: torch.Tensor,
-                      M: torch.Tensor, slots: torch.Tensor,
-                      rows_per_shard: int, row_shards: int,
-                      widemap: np.ndarray,
-                      pane_vec: Optional[torch.Tensor] = None) -> None:
-    """The wide branches of the sharded fold (#23, #24): each row's hll
-    register max and hist bin add into its row shard's wide partials
-    (R·P', C, k, W), in place, in one launch. V, M (M holding the row
-    mask), slots, widemap: as groupby_fold_wide's; rows_per_shard,
-    row_shards, pane_vec: as sharded_fold_scalar's. heavy_hitters never
-    reaches a mesh (the planner refuses it)."""
-    name = "sharded_fold_wide"
-    R, m = int(row_shards), int(rows_per_shard)
-    S, N = V.shape
-    P, C = _check_shards(name, parts, R, m, N)
-    if "hh" in parts:
-        raise ValueError(f"{name}: heavy_hitters state on a mesh")
-    if not _on_cuda(name, parts):
-        sharded_fold_wide_plain(parts, V, M, slots, m, R, widemap, pane_vec)
-        return
-    dev = parts["act"].device
-    widemap = _check_batch(name, V, M, slots, 0, R * P, widemap, dev,
-                           pane_vec)
-    ptrs, ks = _wide_table(name, parts)
-    for comp_id, k, _ in widemap.tolist():
-        if not 0 <= k < ks[comp_id]:
-            raise ValueError(f"{name}: column {k} outside component "
-                             f"{_WIDE_NAMES[comp_id]}")
-    lib = _load()
-    with torch.cuda.device(dev):
-        rc = lib.sharded.sharded_fold_wide(
-            _ptr(V), _ptr(M), _ptr(slots), _u16(slots), N, m, R,
-            _opt_ptr(pane_vec), P, C, _ptr(widemap), len(widemap),
-            _ptr(ptrs), _ptr(ks), _ptr(HIST_CONSTS), _stream(dev))
-        LAUNCHES[name] += 1
-        if pane_vec is not None:
-            ROW_PANE_LAUNCHES[name] += 1
-    _raise_on(lib, name, rc)
-
-
-def sharded_fold_wide_plain(parts, V, M, slots, rows_per_shard, row_shards,
-                            widemap, pane_vec=None) -> None:
-    """Plain PyTorch version of sharded_fold_wide (fold_wide_plain over the
-    row shards' partial panes)."""
-    R, m = int(row_shards), int(rows_per_shard)
-    RP = parts["act"].shape[0]
-    pp, ok = _shard_panes_plain(V.shape[1], m, R, RP // R, pane_vec,
-                                V.device)
-    fold_wide_plain(parts, V, M & ok, slots, 0, widemap, pp)
+    if len(np.asarray(widemap).reshape(-1, 3)):
+        fold_wide_plain(parts, V, M & ok, slots, 0, widemap, pp)
 
 
 #: the merge's op of a component (csrc/sharded.cu OP_ADD / OP_MIN / OP_MAX)

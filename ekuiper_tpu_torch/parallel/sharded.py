@@ -19,9 +19,9 @@ The port's mesh is one device (parallel/mesh.py): the state is ONE tensor
 per component in the single-chip layout {comp: (P, capacity, k[, W])},
 key shard k its contiguous slice, not replicated R times (replication
 over "rows" is a placement that changes no result). The partials hold one
-block per row shard, and every shard of a chunk folds in one launch
-(`sharded_fold_scalar`, `sharded_fold_wide`), merged by one more
-(`shard_merge`), csrc/sharded.cu. A snapshot is byte-compatible with both
+block per row shard, and every shard and column of a chunk folds in one
+launch (`sharded_fold`), merged by one more (`shard_merge`),
+csrc/sharded.cu. A snapshot is byte-compatible with both
 packages and with any mesh size. Not ported: the shard registry and its
 metrics (`render_prometheus`, `diagnostics`), which wait for the port's
 observability (ROADMAP Queue 1 item 8).
@@ -165,18 +165,15 @@ class ShardedGroupBy(TorchGroupBy):
                     slots: torch.Tensor, pane: int,
                     pane_vec: Optional[torch.Tensor],
                     pane_hi: Optional[int] = None) -> None:
-        """One chunk: the closures, the sharded folds of every (row shard,
-        key shard) into the partials, then the merge into the state (pane
-        `pane`, or every pane under a pane vector)."""
+        """One chunk: the closures, the sharded fold of every (row shard,
+        key shard) into the partials (one launch), then the merge into the
+        state (pane `pane`, or every pane under a pane vector)."""
         base, V, M = self.spec_inputs(cols, n)
         parts = self._partials(1 if pane_vec is None else self.n_panes)
         R, m = self.n_row_shards, self.rows_per_shard
-        kernels.sharded_fold_scalar(parts, base, V, M, slots, m, R,
-                                    self.n_keys_shards, self._colmap,
-                                    pane_vec)
-        if len(self._widemap):
-            kernels.sharded_fold_wide(parts, V, M, slots, m, R,
-                                      self._widemap, pane_vec)
+        kernels.sharded_fold(parts, base, V, M, slots, m, R,
+                             self.n_keys_shards, self._colmap, self._widemap,
+                             pane_vec)
         kernels.shard_merge(state, parts, pane, R)
 
     # ---------------------------------------------------------- observability

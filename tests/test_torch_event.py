@@ -752,11 +752,12 @@ def test_touch_fold_takes_pane_vector():
                 "touch": torch.zeros(C, dtype=torch.uint32)}
 
     a, b = state(), state()
-    kernels.groupby_fold_scalar(a, base, V, M, slots, 0, colmap, pv)
+    no_wide = np.zeros((0, 3), dtype=np.int32)
+    kernels.groupby_fold(a, base, V, M, slots, 0, colmap, no_wide, pv)
     for p in range(P):
         rows = pv == p
-        kernels.groupby_fold_scalar(b, base & rows, V, M & rows, slots, p,
-                                    colmap)
+        kernels.groupby_fold(b, base & rows, V, M & rows, slots, p, colmap,
+                             no_wide)
     assert torch.equal(a["touch"], b["touch"])
     assert torch.equal(a["act"], b["act"])
     torch.testing.assert_close(a["s1"], b["s1"], rtol=1e-5, atol=1e-6)

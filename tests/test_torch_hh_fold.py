@@ -1,4 +1,4 @@
-"""Parity of the heavy-hitters fold (the hh branch of #1 `groupby_fold_wide`
+"""Parity of the heavy-hitters fold (the hh role of #1 `groupby_fold`
 and #2 `groupby_fold_masked_wide`, through their plain PyTorch versions on
 CPU tensors) against the JAX package's DeviceGroupBy fold and masked fold
 on the CPU.
@@ -89,10 +89,8 @@ def _fold_both(plan, mode, slot_dtype, seeds=(0, 1)):
                        j_pane)
         tc = {k: v for k, v in tcols.items() if v is not None}
         base, V, M = tgb.spec_inputs(tc, ROWS)
-        kernels.groupby_fold_scalar(ts, base, V, M, t_slots, t_pane,
-                                    tgb._colmap, pv)
-        kernels.groupby_fold_wide(ts, V, M, t_slots, t_pane, tgb._widemap,
-                                  pv)
+        kernels.groupby_fold(ts, base, V, M, t_slots, t_pane, tgb._colmap,
+                             tgb._widemap, pv)
     return jgb.state_to_host(js), tgb.state_to_host(ts)
 
 

@@ -1,6 +1,6 @@
-"""The port stands alone: no module of ekuiper_tpu_torch, and neither
-chip_smoke.py nor ab_tumbling.py, imports jax or anything of the JAX
-package; importing the whole port leaves both out of sys.modules; its
+"""The port stands alone: no module of ekuiper_tpu_torch, and none of
+its harnesses (chip_smoke.py, ab_tumbling.py, fold_routes.py), imports jax
+or anything of the JAX package; importing the whole port leaves both out of sys.modules; its
 entry point needs a card unless the caller asks for the CPU; and a CUDA
 tensor handed to a kernel wrapper launches the kernel or raises, never
 taking the plain version.
@@ -29,7 +29,8 @@ SQL = ("SELECT deviceId, avg(temperature) AS avg_t FROM demo "
 
 def _sources():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "ab_tumbling.py"]
+                                          ROOT / "ab_tumbling.py",
+                                          ROOT / "fold_routes.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -178,6 +179,10 @@ def _fake_cuda_inputs(bad: str = ""):
     return state, x
 
 
+#: the widemap of a rule without sketch columns
+NO_WIDE = np.zeros((0, 3), dtype=np.int32)
+
+
 def _needs_no_card():
     if torch.cuda.is_available():
         pytest.skip("needs a machine without a card: fake CUDA tensors "
@@ -196,8 +201,8 @@ def test_cuda_tensors_never_take_the_plain_versions(monkeypatch):
     colmap = kernels.column_map({"n": [0]})
     spectab = kernels.spec_table(["count"], {"n": [0]})
     calls = [
-        lambda: kernels.groupby_fold_scalar(state, x["base"], x["V"],
-                                            x["M"], x["slots"], 0, colmap),
+        lambda: kernels.groupby_fold(state, x["base"], x["V"], x["M"],
+                                     x["slots"], 0, colmap, NO_WIDE),
         lambda: kernels.groupby_finalize_scalar(state, x["mask"], spectab),
         lambda: kernels.groupby_reset_pane(state, 0),
     ]
@@ -219,9 +224,9 @@ def test_wrapper_checks_inputs(bad):
     _needs_no_card()
     state, x = _fake_cuda_inputs(bad)
     with pytest.raises((TypeError, ValueError)):
-        kernels.groupby_fold_scalar(state, x["base"], x["V"], x["M"],
-                                    x["slots"], x["pane"],
-                                    kernels.column_map({"n": [0]}))
+        kernels.groupby_fold(state, x["base"], x["V"], x["M"],
+                             x["slots"], x["pane"],
+                             kernels.column_map({"n": [0]}), NO_WIDE)
     assert kernels._lib is None
 
 
@@ -244,12 +249,14 @@ def test_sketch_wrappers_never_take_the_plain_versions(monkeypatch):
         state["act"] = torch.zeros((1, 8), device="cuda")
         V = torch.ones((3, 4), device="cuda")
         M = torch.ones((3, 4), dtype=torch.bool, device="cuda")
+        base = torch.ones(4, dtype=torch.bool, device="cuda")
         slots = torch.zeros(4, dtype=torch.int32, device="cuda")
         mask = torch.ones(1, dtype=torch.bool, device="cuda")
         out = torch.zeros((9, 8), device="cuda")
     widemap = np.array([[0, 0, 0], [1, 0, 1], [2, 0, 2]], dtype=np.int32)
     calls = [
-        lambda: kernels.groupby_fold_wide(state, V, M, slots, 0, widemap),
+        lambda: kernels.groupby_fold(state, base, V, M, slots, 0,
+                                     kernels.column_map({}), widemap),
         lambda: kernels.groupby_finalize_wide(
             state, mask, np.array([[0, 0, 0], [1, 0, 1]]),
             np.array([0.0, 0.5]), out),
@@ -364,12 +371,9 @@ def test_ring_wrappers_never_take_the_plain_versions(monkeypatch):
                                   np.ones(R, dtype=bool)),
         lambda: kernels.ring_query(ring, state, ["hist", "mn", "n", "act"],
                                    True, True, 0, *adj),
-        lambda: kernels.groupby_fold_scalar(
+        lambda: kernels.groupby_fold(
             state, base, V, M, slots, 0, kernels.column_map({"n": [0]}),
-            pane_vec),
-        lambda: kernels.groupby_fold_wide(
-            state, V, M, slots, 0, kernels.wide_column_map({"hist": [0]}),
-            pane_vec),
+            kernels.wide_column_map({"hist": [0]}), pane_vec),
     ]
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)  # fake data_ptr()
@@ -384,9 +388,9 @@ def test_ring_wrappers_never_take_the_plain_versions(monkeypatch):
             kernels.ring_query(ring, state, ["hist", "mn", "n", "act"],
                                True, True, R, *adj)
         with pytest.raises(TypeError):
-            kernels.groupby_fold_scalar(
+            kernels.groupby_fold(
                 state, base, V, M, slots, 0, kernels.column_map({"n": [0]}),
-                pane_vec.to(torch.int32))
+                NO_WIDE, pane_vec.to(torch.int32))
     assert taken == []
     assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
 
@@ -660,9 +664,10 @@ def test_masked_fold_wrappers_never_take_the_plain_versions(slot_dtype,
                                                    P - 1, colmap),
         lambda: kernels.groupby_fold_masked_wide(state, mask, V, M, slots,
                                                  P - 1, widemap),
-        lambda: kernels.groupby_fold_scalar(state, mask, V, M, slots, 0,
-                                            colmap),
-        lambda: kernels.groupby_fold_wide(state, V, M, slots, 0, widemap),
+        lambda: kernels.groupby_fold(state, mask, V, M, slots, 0, colmap,
+                                     widemap),
+        lambda: kernels.groupby_fold(state, mask, V, M, slots, P - 1,
+                                     colmap, widemap),
     ]
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)  # fake data_ptr()
@@ -731,8 +736,8 @@ def test_tier_wrappers_never_take_the_plain_versions(monkeypatch):
     calls = [
         lambda: kernels.tier_demote(state, slots, 2, comps),
         lambda: kernels.tier_promote(state, packed, slots, comps),
-        lambda: kernels.groupby_fold_scalar(state, base, V, M, slots, 0,
-                                            colmap),
+        lambda: kernels.groupby_fold(state, base, V, M, slots, 0, colmap,
+                                     NO_WIDE),
         lambda: kernels.groupby_fold_masked_scalar(state, base, V, M, slots,
                                                    1, colmap),
     ]
@@ -755,8 +760,8 @@ def test_tier_wrappers_never_take_the_plain_versions(monkeypatch):
             kernels.tier_demote({**state, "touch": wrong["touch"]}, slots,
                                 2, comps)
         with pytest.raises(TypeError):
-            kernels.groupby_fold_scalar({**state, "touch": wrong["touch"]},
-                                        base, V, M, slots, 0, colmap)
+            kernels.groupby_fold({**state, "touch": wrong["touch"]}, base, V,
+                                 M, slots, 0, colmap, NO_WIDE)
     assert taken == []
     assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
     assert kernels._lib is None

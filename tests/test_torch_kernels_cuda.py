@@ -47,10 +47,14 @@ from ekuiper_tpu_torch.ops import kernels
 from ekuiper_tpu_torch.ops.aggspec import encode_hll_column
 from ekuiper_tpu_torch.planner.fused import plan_fused_rule
 
+import torch_fold_batches as fb
 import torch_group_batches as gbt
 import torch_hh_batches as hb
 
 pytestmark = pytest.mark.cuda
+
+#: the empty column map of a fold that takes only the other branch
+NO_COLS = np.zeros((0, 3), dtype=np.int32)
 
 SQL = (
     "SELECT k, count(*) AS c, sum(v) AS s, avg(v) AS a, min(v) AS mn, "
@@ -103,11 +107,13 @@ def test_fold_matches_plain(gb, pane):
     got, ref = gb.init_state(), gb.init_state()
     for seed in range(3):
         base, V, M, slots = _inputs(gb, seed)
-        kernels.groupby_fold_scalar(got, base, V, M, slots, pane, gb._colmap)
-        kernels.fold_scalar_plain(ref, base, V, M, slots, pane, gb._colmap)
+        kernels.groupby_fold(got, base, V, M, slots, pane, gb._colmap,
+                             gb._widemap)
+        kernels.fold_plain(ref, base, V, M, slots, pane, gb._colmap,
+                           gb._widemap)
     torch.cuda.synchronize()
     _same(got, ref, 1e-5)
-    assert kernels.LAUNCHES["groupby_fold_scalar"] == 3
+    assert kernels.LAUNCHES["groupby_fold"] == 3
 
 
 @pytest.mark.parametrize("panes", [None, [0], [1]])
@@ -169,12 +175,8 @@ def _sketch_inputs(gb, seed, rows=4096, keys=300):
 
 def _fold_sketches(gb, st, seed, pane, kernel: bool):
     base, V, M, slots = _sketch_inputs(gb, seed)
-    if kernel:
-        kernels.groupby_fold_scalar(st, base, V, M, slots, pane, gb._colmap)
-        kernels.groupby_fold_wide(st, V, M, slots, pane, gb._widemap)
-    else:
-        kernels.fold_scalar_plain(st, base, V, M, slots, pane, gb._colmap)
-        kernels.fold_wide_plain(st, V, M, slots, pane, gb._widemap)
+    fold = kernels.groupby_fold if kernel else kernels.fold_plain
+    fold(st, base, V, M, slots, pane, gb._colmap, gb._widemap)
 
 
 HH_CAP, HH_ROWS = 512, 4096
@@ -214,11 +216,11 @@ WIDE_CASES = [("sketch", 0, np.int32), ("sketch", 1, np.int32)] + [
 
 @pytest.mark.parametrize("plan,pane,slot_dtype", WIDE_CASES)
 def test_fold_wide_matches_plain(sgb, plan, pane, slot_dtype):
-    """#1's wide fold against its plain version: the sketch rule's
-    batches, and tests/torch_hh_batches.py's heavy-hitters edge cases
-    (two hh columns, one under a FILTER; with hll and hist beside them,
-    the two-launch path) into one pane or by a per-row pane vector, on
-    uint16 and int32 slots. hll, hist and hh bit-equal."""
+    """#1's fold of sketch columns against its plain version: the sketch
+    rule's batches, and tests/torch_hh_batches.py's heavy-hitters edge
+    cases (two hh columns, one under a FILTER; with hll and hist beside
+    them, the three roles of one launch) into one pane or by a per-row
+    pane vector, on uint16 and int32 slots. hll, hist and hh bit-equal."""
     kernels.reset_launches()
     if plan == "sketch":
         got, ref = sgb.init_state(), sgb.init_state()
@@ -227,20 +229,22 @@ def test_fold_wide_matches_plain(sgb, plan, pane, slot_dtype):
             _fold_sketches(sgb, ref, seed, pane, kernel=False)
         torch.cuda.synchronize()
         _same(got, ref, 1e-5)
-        assert kernels.LAUNCHES["groupby_fold_wide"] == 3
+        assert kernels.LAUNCHES["groupby_fold"] == 3
         assert float(got["hh"].sum()) > 0 and float(got["hll"].max()) > 0
         return
     g = _hh_gb(plan)
     got, ref = g.init_state(), g.init_state()
     for seed in range(3):
-        _, V, M, slots, pv = _hh_inputs(g, seed, slot_dtype)
+        base, V, M, slots, pv = _hh_inputs(g, seed, slot_dtype)
         p, pv = (0, pv) if pane == "vec" else (pane, None)
-        kernels.groupby_fold_wide(got, V, M, slots, p, g._widemap, pv)
-        kernels.fold_wide_plain(ref, V, M, slots, p, g._widemap, pv)
+        kernels.groupby_fold(got, base, V, M, slots, p, g._colmap,
+                             g._widemap, pv)
+        kernels.fold_plain(ref, base, V, M, slots, p, g._colmap, g._widemap,
+                           pv)
     torch.cuda.synchronize()
-    _same(got, ref, 0)
-    assert kernels.LAUNCHES["groupby_fold_wide"] == 3
-    assert kernels.ROW_PANE_LAUNCHES["groupby_fold_wide"] == (
+    _same(got, ref, 1e-5)
+    assert kernels.LAUNCHES["groupby_fold"] == 3
+    assert kernels.ROW_PANE_LAUNCHES["groupby_fold"] == (
         3 if pane == "vec" else 0)
     assert float(got["hh"][:, :, 1].sum()) > 0  # the FILTERed column
     if plan == "mixed":
@@ -267,11 +271,13 @@ def test_fold_hh_codes_past_20_bits(masked):
             kernels.fold_masked_wide_plain(ref, base, V, M, slots, 1,
                                            g._widemap)
         else:
-            kernels.groupby_fold_wide(got, V, M, slots, 0, g._widemap, pv)
-            kernels.fold_wide_plain(ref, V, M, slots, 0, g._widemap, pv)
+            kernels.groupby_fold(got, base, V, M, slots, 0, g._colmap,
+                                 g._widemap, pv)
+            kernels.fold_plain(ref, base, V, M, slots, 0, g._colmap,
+                               g._widemap, pv)
     torch.cuda.synchronize()
-    _same(got, ref, 0)
-    name = "groupby_fold_masked_wide" if masked else "groupby_fold_wide"
+    _same(got, ref, 1e-5)
+    name = "groupby_fold_masked_wide" if masked else "groupby_fold"
     assert kernels.LAUNCHES[name] == 3
 
 
@@ -404,12 +410,13 @@ def test_fetch_is_pinned_and_holds_no_later_fold(gb):
     does not reach it."""
     st = gb.init_state()
     base, V, M, slots = _inputs(gb, 60)
-    kernels.groupby_fold_scalar(st, base, V, M, slots, 0, gb._colmap)
+    kernels.groupby_fold(st, base, V, M, slots, 0, gb._colmap, gb._widemap)
     head = kernels.components_plain(st, gb._pane_mask(None), gb._comp_order)
     pending = gb.prefinalize_begin(st)
     for seed in range(61, 64):
         base, V, M, slots = _inputs(gb, seed)
-        kernels.groupby_fold_scalar(st, base, V, M, slots, 0, gb._colmap)
+        kernels.groupby_fold(st, base, V, M, slots, 0, gb._colmap,
+                             gb._widemap)
     assert pending._buf.is_pinned()
     comps = pending.get()
     assert pending.ready() and pending.copy_ms() is not None
@@ -540,14 +547,12 @@ def test_fold_with_pane_vector_matches_plain(rnode, which):
                           ).to(dev)
     got, ref = gb.init_state(), gb.init_state()
     kernels.reset_launches()
-    if which == "scalar":
-        kernels.groupby_fold_scalar(got, base, V, M, slots, 0, gb._colmap, pv)
-        kernels.fold_scalar_plain(ref, base, V, M, slots, 0, gb._colmap, pv)
-    else:
-        kernels.groupby_fold_wide(got, V, M, slots, 0, gb._widemap, pv)
-        kernels.fold_wide_plain(ref, V, M, slots, 0, gb._widemap, pv)
+    cmap, wmap = ((gb._colmap, NO_COLS) if which == "scalar"
+                  else (NO_COLS, gb._widemap))
+    kernels.groupby_fold(got, base, V, M, slots, 0, cmap, wmap, pv)
+    kernels.fold_plain(ref, base, V, M, slots, 0, cmap, wmap, pv)
     torch.cuda.synchronize()
-    name = f"groupby_fold_{which}"
+    name = "groupby_fold"
     assert kernels.LAUNCHES[name] == kernels.ROW_PANE_LAUNCHES[name] == 1
     _same(got, ref, 1e-5)
 
@@ -816,8 +821,8 @@ def test_multirule_fold_wide_matches_plain(wnode, pane):
     one["act"] = torch.zeros_like(got["act"][7])
     for seed in range(3):
         base, V, M, slots = _wide_group_inputs(gb, 120 + seed)
-        kernels.groupby_fold_wide(one, V, M & base[7], slots, pane,
-                                  gb._widemap)
+        kernels.groupby_fold(one, base[7], V, M & base[7], slots, pane,
+                             NO_COLS, gb._widemap)
     torch.cuda.synchronize()
     for comp in ("hll", "hist"):
         np.testing.assert_array_equal(got[comp][7].cpu().numpy(),
@@ -1114,12 +1119,10 @@ def test_fold_takes_uint16_slots(gb, sgb, which):
     got, ref = g.init_state(), g.init_state()
     base, V, M, slots, _ = _masked_inputs(g, 90, np.uint16)
     for st, s in ((got, slots), (ref, slots.to(torch.int32))):
-        kernels.groupby_fold_scalar(st, base, V, M, s, 0, g._colmap)
-        if len(g._widemap):
-            kernels.groupby_fold_wide(st, V, M, s, 0, g._widemap)
+        kernels.groupby_fold(st, base, V, M, s, 0, g._colmap, g._widemap)
     torch.cuda.synchronize()
     _same(got, ref, 1e-5)
-    assert kernels.LAUNCHES["groupby_fold_scalar"] == 2
+    assert kernels.LAUNCHES["groupby_fold"] == 2
 
 
 def test_refold_fetch_holds_no_later_reset_or_fold():
@@ -1276,10 +1279,10 @@ def test_fold_touch_column_matches_plain(tnode):
         M &= base
         slots = torch.from_numpy(
             rng.integers(0, 700, 4096).astype(np.int32)).to(gb.device)
-        kernels.groupby_fold_scalar(got, base, V, M, slots, seed % 2,
-                                    gb._colmap)
-        kernels.fold_scalar_plain(ref, base, V, M, slots, seed % 2,
-                                  gb._colmap)
+        kernels.groupby_fold(got, base, V, M, slots, seed % 2, gb._colmap,
+                             gb._widemap)
+        kernels.fold_plain(ref, base, V, M, slots, seed % 2, gb._colmap,
+                           gb._widemap)
     kernels.groupby_reset_pane(got, 0)
     kernels.reset_pane_plain(ref, 0)
     torch.cuda.synchronize()
@@ -1351,9 +1354,10 @@ def test_fold_touch_column_with_pane_vector(tnode):
             rng.integers(0, 700, 4096).astype(np.int32)).to(gb.device)
         pv = torch.from_numpy(
             rng.integers(0, P, 4096).astype(np.uint8)).to(gb.device)
-        kernels.groupby_fold_scalar(got, base, V, M, slots, 0, gb._colmap,
-                                    pv)
-        kernels.fold_scalar_plain(ref, base, V, M, slots, 0, gb._colmap, pv)
+        kernels.groupby_fold(got, base, V, M, slots, 0, gb._colmap,
+                             gb._widemap, pv)
+        kernels.fold_plain(ref, base, V, M, slots, 0, gb._colmap,
+                           gb._widemap, pv)
     torch.cuda.synchronize()
     _same_exact({k: got[k] for k in ("touch", "act")},
                 {k: ref[k] for k in ("touch", "act")})
@@ -1586,8 +1590,8 @@ SHARD_SQL = ("SELECT k, count(*) AS c, sum(v) AS s, min(v) AS mn, "
 @pytest.mark.parametrize("mesh", [(2, 4), (1, 8), (4, 2)],
                          ids=lambda m: f"{m[0]}x{m[1]}")
 def test_sharded_kernels_match_plain(cuda_dev, mesh, vec):
-    """#23 / #24 on one card: the sharded folds' partials against their
-    plain versions (counts, act, min, max, touch, hll registers and hist
+    """#23 / #24 on one card: the sharded fold's partials (one launch)
+    against its plain version (counts, act, min, max, touch, hll registers and hist
     bins bit-equal, sums rtol 1e-5), then the merge of the same partials
     bit-equal (the R partials in r order, one add / min / max into the
     state) with the partials back at their identity."""
@@ -1616,12 +1620,10 @@ def test_sharded_kernels_match_plain(cuda_dev, mesh, vec):
     ref = {k: t.clone() for k, t in got.items()}
     m = gb.rows_per_shard
     kernels.reset_launches()
-    kernels.sharded_fold_scalar(got, base, V, M, slots, m, R, K, gb._colmap,
-                                pv)
-    kernels.sharded_fold_wide(got, V, M, slots, m, R, gb._widemap, pv)
-    kernels.sharded_fold_scalar_plain(ref, base, V, M, slots, m, R, K,
-                                      gb._colmap, pv)
-    kernels.sharded_fold_wide_plain(ref, V, M, slots, m, R, gb._widemap, pv)
+    kernels.sharded_fold(got, base, V, M, slots, m, R, K, gb._colmap,
+                         gb._widemap, pv)
+    kernels.sharded_fold_plain(ref, base, V, M, slots, m, R, K, gb._colmap,
+                               gb._widemap, pv)
     torch.cuda.synchronize()
     _same(got, ref, 1e-5)
     assert float(got["act"].sum()) > 0
@@ -1634,11 +1636,10 @@ def test_sharded_kernels_match_plain(cuda_dev, mesh, vec):
     torch.cuda.synchronize()
     _same(st_k, st_p, 0.0)
     _same(parts_k, ref, 0.0)
-    assert kernels.LAUNCHES["sharded_fold_scalar"] == 1
-    assert kernels.LAUNCHES["sharded_fold_wide"] == 1
+    assert kernels.LAUNCHES["sharded_fold"] == 1
     assert kernels.LAUNCHES["shard_merge"] == 1
-    assert kernels.ROW_PANE_LAUNCHES["sharded_fold_scalar"] == int(vec)
-    assert kernels.TOUCH_LAUNCHES["sharded_fold_scalar"] == 1
+    assert kernels.ROW_PANE_LAUNCHES["sharded_fold"] == int(vec)
+    assert kernels.TOUCH_LAUNCHES["sharded_fold"] == 1
 
 
 def test_sharded_rule_matches_single_chip(cuda_dev):
@@ -1672,10 +1673,10 @@ def test_sharded_rule_matches_single_chip(cuda_dev):
             node.on_trigger(Trigger(ts=(w + 1) * 10_000))
             torch.cuda.synchronize()
             counts.append(dict(kernels.LAUNCHES))
-        assert counts[0]["sharded_fold_scalar"] == 6  # two chunks a batch
+        assert counts[0]["sharded_fold"] == 6  # two chunks a batch
         assert counts[0]["shard_merge"] == 6
-        assert counts[0]["groupby_fold_scalar"] == 0
-        assert counts[1]["groupby_fold_scalar"] == 6
+        assert counts[0]["groupby_fold"] == 0
+        assert counts[1]["groupby_fold"] == 6
     assert len(outs[0]) == len(outs[1]) == 3
     for a, b in zip(*outs):
         for name in b.columns:
@@ -1684,3 +1685,153 @@ def test_sharded_rule_matches_single_chip(cuda_dev):
                 np.testing.assert_allclose(x, y, rtol=1e-5)
             else:
                 np.testing.assert_array_equal(x, y, err_msg=name)
+
+
+# -------------------------------------------- the one-launch fold (#1, #23)
+FOLD_CAP, FOLD_ROWS = 64, 1000
+#: each mode: (panes, a per-row pane vector, touch, rows, negative slots)
+FOLD_MODES = {"pane": (2, False, False, FOLD_ROWS, False),
+              "vec": (2, True, False, FOLD_ROWS, False),
+              "vec255": (255, True, False, FOLD_ROWS, False),
+              "touch": (2, False, True, FOLD_ROWS, False),
+              "negative": (2, False, True, FOLD_ROWS, True),
+              "empty": (2, False, True, 0, False)}
+#: touch counters a few rows below 2^32
+TOUCH_NEAR_WRAP = 2 ** 32 - 5
+
+
+def _fold_gb(plan, P, touch, dev, cls=None, **kw):
+    from ekuiper_tpu_torch.ops.aggspec import extract_kernel_plan
+    from ekuiper_tpu_torch.ops.groupby import TorchGroupBy
+    from ekuiper_tpu_torch.sql.parser import parse_select
+
+    kplan = extract_kernel_plan(parse_select(fb.PLANS[plan]))
+    if cls is None:
+        return TorchGroupBy(kplan, capacity=FOLD_CAP, n_panes=P,
+                            micro_batch=max(FOLD_ROWS, 1), device=dev,
+                            track_touch=touch)
+    return cls(kplan, capacity=FOLD_CAP, n_panes=P, track_touch=touch, **kw)
+
+
+def _fold_batch_inputs(g, b, rows, dev):
+    cols = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in fb.plan_columns(g.plan.columns, b["cols"],
+                                        encode_hll_column).items()}
+    base, V, M = g.spec_inputs(cols, rows)
+    return (base, V, M, torch.from_numpy(b["slots"]).to(dev),
+            torch.from_numpy(b["pane_vec"]).to(dev))
+
+
+def _same_fold(got, ref):
+    """The fold's tolerances: s1 / s2 rtol 1e-5, every other component
+    exact (min / max by value: the kernel orders -0 below +0, torch's
+    scatter_reduce_ as its atomics land; test_fold_orders_signed_zeros
+    holds the kernel's order)."""
+    for comp in ref:
+        g, r = got[comp].cpu(), ref[comp].cpu()
+        if not r.is_floating_point():
+            assert torch.equal(g, r), comp
+        elif comp in ("s1", "s2"):
+            torch.testing.assert_close(g, r, rtol=1e-5, atol=0,
+                                       equal_nan=True, msg=comp)
+        else:
+            np.testing.assert_array_equal(g.numpy(), r.numpy(),
+                                          err_msg=comp)
+
+
+FOLD_CASES = [(plan, kind, dt, mode) for plan in sorted(fb.PLANS)
+              for kind in fb.SLOT_KINDS for dt in ("uint16", "int32")
+              for mode in FOLD_MODES if not (mode == "negative"
+                                             and dt == "uint16")]
+
+
+@pytest.mark.parametrize("plan,kind,slot_dtype,mode", FOLD_CASES,
+                         ids=["-".join(c) for c in FOLD_CASES])
+def test_fold_edge_batches_match_plain(cuda_dev, plan, kind, slot_dtype,
+                                       mode):
+    """groupby_fold against its plain version on tests/torch_fold_batches.py's
+    edge batches: every plan (an empty colmap, an empty widemap, hh + hll
+    + hist in one rule), slot kind and slot type, a scalar pane or a
+    per-row pane vector (2 or 255 panes, panes past the last dropped), a
+    touch column near 2^32 (it wraps), negative int32 slots (dropped),
+    zero rows; one launch a call."""
+    P, vec, touch, rows, negative = FOLD_MODES[mode]
+    g = _fold_gb(plan, P, touch, cuda_dev)
+    got, ref = g.init_state(), g.init_state()
+    if touch:
+        for st in (got, ref):
+            st["touch"].copy_(torch.full(
+                (FOLD_CAP,), TOUCH_NEAR_WRAP, dtype=torch.int64).to(
+                torch.uint32))
+    kernels.reset_launches()
+    for seed in range(2):
+        b = fb.fold_batch(seed, rows, FOLD_CAP, P, kind,
+                          getattr(np, slot_dtype))
+        if negative:
+            b["slots"][::9] = -3
+        base, V, M, slots, pv = _fold_batch_inputs(g, b, rows, cuda_dev)
+        pane, pv = (0, pv) if vec else (1, None)
+        kernels.groupby_fold(got, base, V, M, slots, pane, g._colmap,
+                             g._widemap, pv)
+        kernels.fold_plain(ref, base, V, M, slots, pane, g._colmap,
+                           g._widemap, pv)
+    torch.cuda.synchronize()
+    _same_fold(got, ref)
+    assert kernels.LAUNCHES["groupby_fold"] == 2
+    if rows:
+        assert float(got["act"].sum()) > 0
+
+
+def test_fold_orders_signed_zeros(cuda_dev):
+    """min / max of -0 and +0 in one (pane, slot): the kernel's sign-split
+    atomics order -0 below +0 whatever the order of the rows (min -0, max
+    +0), on both slot types."""
+    g = _fold_gb("scalar", 2, False, cuda_dev)
+    for order in ([0.0, -0.0, 0.0], [-0.0, 0.0, -0.0]):
+        for dt in (np.int32, np.uint16):
+            n = len(order)
+            b = {"cols": {"v": np.array(order, dtype=np.float32),
+                          "w": np.zeros(n, dtype=np.float32),
+                          "code": np.zeros(n, dtype=np.float32)},
+                 "slots": np.full(n, 5, dtype=dt),
+                 "pane_vec": np.zeros(n, dtype=np.uint8)}
+            st = g.init_state()
+            base, V, M, slots, _ = _fold_batch_inputs(g, b, n, cuda_dev)
+            kernels.groupby_fold(st, base, V, M, slots, 1, g._colmap,
+                                 g._widemap)
+            mn, mx = (float(st[c][1, 5, 0]) for c in ("mn", "mx"))
+            assert mn == 0.0 and np.signbit(mn), order
+            assert mx == 0.0 and not np.signbit(mx), order
+
+
+@pytest.mark.parametrize("vec", [False, True], ids=["pane", "pane_vec"])
+@pytest.mark.parametrize("kind", fb.SLOT_KINDS)
+@pytest.mark.parametrize("plan", fb.MESH_PLANS)
+def test_sharded_fold_edge_batches_match_plain(cuda_dev, plan, kind, vec):
+    """sharded_fold against its plain version on the edge batches, on a
+    2x4 mesh of the card with a touch partial: slots past the mesh's slots
+    and panes past the block dropped, one launch a call."""
+    from ekuiper_tpu_torch.parallel.mesh import make_mesh
+    from ekuiper_tpu_torch.parallel.sharded import ShardedGroupBy
+
+    R, K, P = 2, 4, 3
+    g = _fold_gb(plan, P, True, cuda_dev, cls=ShardedGroupBy,
+                 mesh=make_mesh(R, K, [cuda_dev] * (R * K)),
+                 micro_batch=FOLD_ROWS)
+    m = g.rows_per_shard
+    got = g._partials(P if vec else 1)
+    ref = {k: t.clone() for k, t in got.items()}
+    kernels.reset_launches()
+    for seed in range(2):
+        b = fb.fold_batch(40 + seed, FOLD_ROWS, FOLD_CAP, P, kind)
+        base, V, M, slots, pv = _fold_batch_inputs(g, b, FOLD_ROWS,
+                                                   cuda_dev)
+        pv = pv if vec else None
+        kernels.sharded_fold(got, base, V, M, slots, m, R, K, g._colmap,
+                             g._widemap, pv)
+        kernels.sharded_fold_plain(ref, base, V, M, slots, m, R, K,
+                                   g._colmap, g._widemap, pv)
+    torch.cuda.synchronize()
+    _same_fold(got, ref)
+    assert kernels.LAUNCHES["sharded_fold"] == 2
+    assert float(got["act"].sum()) > 0

@@ -623,7 +623,7 @@ def test_batched_wide_matches_reference(name):
 @pytest.mark.parametrize("name", list(WIDE))
 def test_batched_wide_matches_single_rules(name):
     """Each rule of a sketch group equals its own single-rule TorchGroupBy
-    (groupby_fold_wide, groupby_finalize_wide) fed the same rows: the
+    (groupby_fold, groupby_finalize_wide) fed the same rows: the
     batched registers, bins and final values bit for bit."""
     sql, window = WIDE[name]
     sqls = _sqls(window, n=WR, sql=sql)

@@ -245,7 +245,7 @@ def test_connected_node_emits_each_window_downstream():
     tnode.on_trigger(Trigger(ts=10_000))
     assert len(sink.got) == 1 and sink.got[0].n == N_DEV
     assert int(sink.got[0].columns["cnt"].sum()) == 2 * ROWS
-    assert kernels.LAUNCHES["groupby_fold_scalar"] == 0  # CPU: plain only
+    assert kernels.LAUNCHES["groupby_fold"] == 0  # CPU: plain only
 
 
 @pytest.mark.parametrize("stage", ["fold_scalar_plain",

@@ -445,7 +445,7 @@ def test_checkpoint_8_to_1_to_8_rounds_odd_capacity(nodes):
 
 # ---------------------------------------------- (d) plain vs a numpy twin
 def _twin_fold(parts, base, V, M, slots, m, R, colmap, pane_vec, P):
-    """numpy twin of sharded_fold_scalar: per row shard, np.add.at /
+    """numpy twin of sharded_fold's scalar branch: per row shard, np.add.at /
     minimum.at / maximum.at into block r·P + pane."""
     out = {k: v.numpy().copy() for k, v in parts.items()}
     base, V, M = base.numpy(), V.numpy(), M.numpy()
@@ -482,8 +482,8 @@ def _twin_fold(parts, base, V, M, slots, m, R, colmap, pane_vec, P):
 
 @pytest.mark.parametrize("vec", [False, True], ids=["pane", "pane_vec"])
 def test_plain_kernels_match_numpy_twin(vec):
-    """sharded_fold_scalar_plain, sharded_fold_wide_plain and
-    shard_merge_plain against numpy twins: the partials (routing by row
+    """sharded_fold_plain (through the sharded_fold wrapper on CPU
+    tensors) and shard_merge_plain against numpy twins: the partials (routing by row
     shard, key range and pane), then the merge in r order into the state
     and the partials back at their identity."""
     R, K, m, P, C, N = 2, 4, 50, 3, 32, 97
@@ -502,9 +502,8 @@ def test_plain_kernels_match_numpy_twin(vec):
     parts = sgb._partials(P if vec else 1)
     want = _twin_fold(parts, base, V, M, s, m, R, sgb._colmap, pv,
                       P if vec else 1)
-    kernels.sharded_fold_scalar(parts, base, V, M, s, m, R, K, sgb._colmap,
-                                pv)
-    kernels.sharded_fold_wide(parts, V, M, s, m, R, sgb._widemap, pv)
+    kernels.sharded_fold(parts, base, V, M, s, m, R, K, sgb._colmap,
+                         sgb._widemap, pv)
     for comp, w in want.items():
         g = parts[comp].numpy()
         if comp in ("s1", "s2"):
@@ -564,7 +563,7 @@ def test_plain_kernels_match_numpy_twin(vec):
 
 
 def test_sharded_wrappers_never_take_the_plain_versions(monkeypatch):
-    """Given CUDA tensors, the three sharded wrappers launch or raise (no
+    """Given CUDA tensors, the two sharded wrappers launch or raise (no
     card, no nvcc here: they fail loudly) and never run a plain version;
     inputs the kernels do not take are refused before any build."""
     if torch.cuda.is_available():
@@ -575,8 +574,8 @@ def test_sharded_wrappers_never_take_the_plain_versions(monkeypatch):
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     taken = []
-    for name in ("sharded_fold_scalar_plain", "sharded_fold_wide_plain",
-                 "shard_merge_plain"):
+    for name in ("sharded_fold_plain", "fold_scalar_plain",
+                 "fold_wide_plain", "shard_merge_plain"):
         monkeypatch.setattr(kernels, name,
                             lambda *a, _n=name, **k: taken.append(_n))
     kernels.reset_launches()
@@ -594,10 +593,8 @@ def test_sharded_wrappers_never_take_the_plain_versions(monkeypatch):
     colmap = kernels.column_map({"n": [0]})
     widemap = kernels.wide_column_map({"hist": [0]})
     calls = [
-        lambda: kernels.sharded_fold_scalar(parts, base, V, M, slots, 2, 2,
-                                            4, colmap),
-        lambda: kernels.sharded_fold_wide(parts, V, M, slots, 2, 2,
-                                          widemap),
+        lambda: kernels.sharded_fold(parts, base, V, M, slots, 2, 2, 4,
+                                     colmap, widemap),
         lambda: kernels.shard_merge(state, parts, 0, 2),
     ]
     with warnings.catch_warnings():
@@ -606,11 +603,11 @@ def test_sharded_wrappers_never_take_the_plain_versions(monkeypatch):
             with pytest.raises((RuntimeError, AssertionError)):
                 call()
         with pytest.raises(ValueError):  # 8 slots in 3 key shards
-            kernels.sharded_fold_scalar(parts, base, V, M, slots, 2, 2, 3,
-                                        colmap)
+            kernels.sharded_fold(parts, base, V, M, slots, 2, 2, 3, colmap,
+                                 widemap)
         with pytest.raises(ValueError):  # 4 rows past 2 shards of 1
-            kernels.sharded_fold_scalar(parts, base, V, M, slots, 1, 2, 4,
-                                        colmap)
+            kernels.sharded_fold(parts, base, V, M, slots, 1, 2, 4, colmap,
+                                 widemap)
         with pytest.raises(ValueError):  # a pane outside the state
             kernels.shard_merge(state, parts, 1, 2)
     assert taken == []

@@ -22,6 +22,16 @@ work. `--phase` picks the rows:
   scalar plans on a pane vector, G1's touch column at 1,048,576 slots,
   and on a 2x4 mesh of the card the tumbling rule with touch (#23), the
   percentile rule and I3's rule on its 8-pane vector (#24).
+- `tier`: the tier store's kernel rows of phase 2 (#18's demote and #19's
+  promote at G1's, G2's, the hll and the percentile plans' state).
+- `sketch`: the sketch kernel rows of phase 2 (the sketch folds, #3's
+  wide finalize on the pct and hll rules and #4's hll subset mask, the
+  heavy-hitters finalize, the pane reset over hh state).
+- `trace`: #16's wide finalize at H5's shapes (hll and pct families)
+  timed by CUDA events alone, then on the same launches inside one
+  profiler session by events and by the trace (after an idle sleep and
+  back to back: chip_smoke.py `same_launch_ms` of checkout B), with the
+  card's clocks after each: what a trace costs each tree's launches.
 - `host`: the tumbling rule's fold stage (`TorchGroupBy.fold`: the
   closures, the upload and the fold's launch) on the host at phase 3's
   shapes, median ms a call after an idle card (`fold_idle_ms`) and a
@@ -37,11 +47,15 @@ checkout unpacked into a directory that .gitignore lists:
     python3 ab_tumbling.py _archive/parent . --phase multirule --out DIR
     python3 ab_tumbling.py _archive/parent . --phase fold --out DIR
     python3 ab_tumbling.py _archive/parent . --phase host
+    python3 ab_tumbling.py _archive/parent . --phase tier --out DIR
+    python3 ab_tumbling.py _archive/parent . --phase sketch --out DIR
+    python3 ab_tumbling.py _archive/parent . --phase trace --out DIR
 
 With --out, each run's result is written to DIR/ab_<phase>_<tag><i>.json.
 The last line of the output is one JSON object {"a": [...], "b": [...]},
-one entry per run (for `multirule`, each row's headline numbers: ms,
-body_ms, host_ms, plain_ms, library_ms, bound_ms and the like).
+one entry per run (for `multirule`, `fold`, `tier` and `sketch`, each
+row's headline numbers: ms, body_ms, host_ms, plain_ms, library_ms,
+bound_ms and the like).
 """
 from __future__ import annotations
 
@@ -221,6 +235,79 @@ for i, (tag, sql, opts, C, vec, touch, on_mesh) in enumerate(CASES):
 print(json.dumps(rows))
 """
 
+TIER = r"""
+from ekuiper_tpu_torch.planner.fused import plan_fused_rule
+
+rows = cs.tier_kernel_checks(torch, 0, kernels, plan_fused_rule,
+                             torch.device("cuda"))
+print(json.dumps(rows))
+"""
+
+SKETCH = r"""
+from ekuiper_tpu_torch.ops import sketches
+from ekuiper_tpu_torch.ops.groupby import TorchGroupBy
+from ekuiper_tpu_torch.planner.fused import plan_fused_rule
+
+rows = cs.sketch_kernel_checks(torch, 0, kernels, sketches, plan_fused_rule,
+                               TorchGroupBy, torch.device("cuda"))
+print(json.dumps(rows))
+"""
+
+TRACE = r"""
+import importlib.util, os, subprocess
+from ekuiper_tpu_torch.planner.rulegroup import plan_rule_group
+
+spec = importlib.util.spec_from_file_location(
+    "cs_b", os.path.join(sys.argv[2], "chip_smoke.py"))
+cs_b = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs_b)
+dev = torch.device("cuda")
+NAME = "multirule_finalize_wide_kernel"
+
+
+def clocks():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip()
+
+
+r = np.random.default_rng(70)
+cols = cs.h5_columns(r, cs.ROWS)
+slots = torch.from_numpy(
+    r.integers(0, cs.N_KEYS, cs.ROWS).astype(np.int32)).to(dev)
+rows = {}
+for fam in ("hll", "pct"):
+    node = plan_rule_group(cs.rule_ids(f"h5{fam}_", cs.H5_RULES),
+                           cs.h5_sqls(fam), key_slots=cs.SLOTS,
+                           micro_batch=cs.ROWS, device=dev)
+    gb = node.gb
+    dcols = {c: torch.from_numpy(v.astype(np.float32)).to(dev)
+             for c, v in cols.items()}
+    dcols["__hll__humidity"] = dcols["humidity"]
+    base, V, M = gb.rule_inputs(dcols, cs.ROWS)
+    st = gb.init_state()
+    for pane in range(gb.n_panes):
+        kernels.multirule_fold_wide(st, base, V, M, slots, pane, gb._widemap)
+    K = gb._slice_keys(cs.N_KEYS)
+    pm = gb._pane_mask(None)
+    out = kernels.multirule_finalize(st, pm, gb._spectab, K, gb._rows)
+    fin = functools.partial(kernels.multirule_finalize_wide, st, pm,
+                            gb._widetab, gb._fracs, out)
+    ms = cs.time_ms(torch, fin, cs.REPS)
+    after = clocks()
+    same = cs_b.same_launch_ms(torch, fin, NAME, cs.REPS)
+    rows["trace/" + fam] = dict(
+        ms=ms, idle_ms=same["idle"][0], idle_body_ms=same["idle"][1],
+        b2b_ms=same["b2b"][0], b2b_body_ms=same["b2b"][1],
+        ms_again=cs.time_ms(torch, fin, cs.REPS), clocks_after_ms=after,
+        clocks_after_trace=clocks())
+    print("ab_trace", fam, rows["trace/" + fam], flush=True)
+    del st, out, node, gb
+    torch.cuda.empty_cache()
+print(json.dumps(rows))
+"""
+
 HOST = r"""
 import statistics
 from ekuiper_tpu_torch.data.batch import ColumnBatch
@@ -260,12 +347,14 @@ print(json.dumps(dict(fold_idle_ms=statistics.median(idle), fold_b2b_ms=b2b,
 """
 
 PHASES = {"tumbling": (TUMBLING, 600), "multirule": (MULTIRULE, 1500),
-          "fold": (FOLD, 600), "host": (HOST, 600)}
+          "fold": (FOLD, 600), "host": (HOST, 600), "tier": (TIER, 900),
+          "sketch": (SKETCH, 900), "trace": (TRACE, 900)}
 #: the numbers of a multirule or fold row the summary keeps
 KEYS = ("chunk_ms", "ms", "fold_only_ms", "readback_ms", "scalar_pane_ms",
-        "body_ms", "launches_a_chunk",
+        "body_ms", "launches_a_chunk", "kernels_a_call", "one_row_ms",
         "host_ms", "plain_ms", "library_ms", "library_idx_ms", "bound_ms",
-        "bound_inputs_ms", "kernel_rounds_ms", "library_rounds_ms")
+        "bound_inputs_ms", "kernel_rounds_ms", "library_rounds_ms",
+        "idle_ms", "idle_body_ms", "b2b_ms", "b2b_body_ms", "ms_again")
 
 
 def _fmt(v) -> str:
@@ -311,7 +400,8 @@ def main() -> int:
     for i, tag in enumerate(("a", "b", "b", "a")):
         root = os.path.abspath(getattr(args, tag))
         res = subprocess.run(
-            [sys.executable, "-c", PRELUDE + code, str(args.windows)],
+            [sys.executable, "-c", PRELUDE + code, str(args.windows),
+             os.path.abspath(args.b)],
             cwd=root, capture_output=True, text=True, timeout=limit)
         if res.returncode:
             print(res.stdout[-8000:] + res.stderr[-8000:], file=sys.stderr)

@@ -816,6 +816,64 @@ def body_ms(torch, fn, kernel, reps: int, per_call: bool = False,
     return statistics.median(d for _, d in ev[-reps:]) / 1e3
 
 
+def same_launch_ms(torch, fn, kernel, reps: int) -> dict:
+    """CUDA-event and trace times of the SAME launches: `reps` calls of
+    `fn` inside one profiler session, each between two CUDA events,
+    queued behind a device-side sleep as time_ms's calls are (`idle`) and
+    back to back (`b2b`). Per mode (median event ms, median body ms of
+    the kernels named `kernel`, None when the trace holds none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {}
+    for mode in ("idle", "b2b"):
+        marks = []
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                if mode == "idle":
+                    torch.cuda._sleep(2_000_000)
+                start.record()
+                fn()
+                end.record()
+                marks.append((start, end))
+            torch.cuda.synchronize()
+        bodies = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                  if e.device_type == cuda and kernel in e.name]
+        out[mode] = (statistics.median(a.elapsed_time(b) for a, b in marks),
+                     statistics.median(bodies) if bodies else None)
+    return out
+
+
+def same_launch_text(same: dict) -> str:
+    return " ".join(
+        f"{mode}: kernel_ms={k:.4f} body_ms="
+        f"{'not measured' if b is None else f'{b:.4f}'}"
+        for mode, (k, b) in same.items())
+
+
+def one_kernel_a_call(torch, fn, kernel, what: str, calls: int = 3) -> float:
+    """Fail unless each of `calls` calls of `fn` launches one CUDA kernel,
+    named `kernel`, and nothing else on the card (a profiler trace);
+    the kernels a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    names = [e.name for e in prof.events() if e.device_type == cuda]
+    check(len(names) == calls and all(kernel in n for n in names),
+          f"{what}: {calls} calls launched {names}, want one {kernel} each")
+    return len(names) / calls
+
+
 def host_ms(torch, fn, reps: int) -> float:
     """Median host wall time of one call of `fn` (the wrapper's checks,
     the ctypes call and the enqueue), each queued behind a device-side
@@ -1338,6 +1396,8 @@ def sketch_kernel_checks(torch, seed, kernels, sketches, plan_fused_rule,
                                         pm, gb._widetab, gb._fracs, out_k)
                 t_k = time_ms(torch, fin, REPS)
                 split = launch_split(torch, fin, "finalize_wide_kernel", REPS)
+                a_call = one_kernel_a_call(torch, fin, "finalize_wide_kernel",
+                                           f"groupby_finalize_wide {tag}")
                 t_p = time_ms(torch, lambda: kernels.finalize_wide_plain(
                     got, pm, gb._widetab, gb._fracs, out_p), REPS)
                 nbytes = sum(live * got[c][0].numel() * 4
@@ -1346,10 +1406,12 @@ def sketch_kernel_checks(torch, seed, kernels, sketches, plan_fused_rule,
                 b_ms, b_by = bound(nbytes, 0)
                 print(f"kernel groupby_finalize_wide {tag} P={P} mask={mtag} "
                       f"C={SLOTS}: max_abs_err={err:.3g} kernel_ms={t_k:.4f} "
-                      f"{split_text(split)} plain_ms={t_p:.4f} "
+                      f"{split_text(split)} kernels_a_call={a_call:g} "
+                      f"plain_ms={t_p:.4f} "
                       f"library_ms=null bound_ms={b_ms:.5f} ({b_by})")
                 key = f"groupby_finalize_wide/{tag}/{mtag}"
                 rows[key] = dict(max_abs_err=err, ms=t_k, **split,
+                                 kernels_a_call=a_call,
                                  plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
                                  library_ms=None)
             if len(gb._hhtab):
@@ -3929,6 +3991,11 @@ def wide_group_kernel_checks(torch, seed, kernels, sketches, plan_rule_group,
         t_k = time_ms(torch, fin, REPS)
         split = launch_split(torch, fin, "multirule_finalize_wide_kernel",
                              REPS)
+        same = same_launch_ms(torch, fin, "multirule_finalize_wide_kernel",
+                              REPS)
+        a_call = one_kernel_a_call(torch, fin,
+                                   "multirule_finalize_wide_kernel",
+                                   f"multirule_finalize_wide {fam}")
         t_p = time_ms(torch, lambda: kernels.multirule_finalize_wide_plain(
             got, pm, gb._widetab, gb._fracs, out_p), REPS)
         W = got[comp].shape[-1]
@@ -3938,10 +4005,12 @@ def wide_group_kernel_checks(torch, seed, kernels, sketches, plan_rule_group,
         print(f"kernel multirule_finalize_wide {fam} R={H5_RULES} "
               f"P={gb.n_panes} K={K} W={W}: max_abs_err={worst:.3g} "
               f"(hll bit-equal, percentile within 4 ulp) kernel_ms={t_k:.4f}"
-              f" {split_text(split)} plain_ms={t_p:.4f} library_ms=null "
+              f" {split_text(split)} kernels_a_call={a_call:g} same launches "
+              f"{same_launch_text(same)} plain_ms={t_p:.4f} library_ms=null "
               f"bound_ms={b_ms:.5f} ({b_by}; reads {rd / 1e9:.3f} GB)")
         rows[f"multirule_finalize_wide/{fam}"] = dict(
             max_abs_err=worst, max_rel_err=0.0, ms=t_k, **split,
+            kernels_a_call=a_call, same_launch=same,
             plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
             read_bytes=rd)
         del out_k, out_p
@@ -4380,14 +4449,6 @@ def library_demote(torch, state, idx, n, comps, kernels):
     return packed
 
 
-def body_sum(torch, fn, names, reps):
-    """The summed bodies of the kernels `names` one call of `fn` launches
-    (None when the trace holds none of them)."""
-    parts = [body_ms(torch, fn, n, reps) for n in names]
-    return None if all(p is None for p in parts) else sum(
-        p for p in parts if p is not None)
-
-
 def tier_kernel_checks(torch, seed, kernels, plan_fused_rule, dev):
     """#18 and #19 against their plain versions at G1's state (1 pane, Wp
     4, 1,048,576 slots), G2's (10 panes, Wp 60, 262,144 slots) and the wide
@@ -4420,25 +4481,33 @@ def tier_kernel_checks(torch, seed, kernels, plan_fused_rule, dev):
         demote = functools.partial(kernels.tier_demote, got, s_dev, real,
                                    ts.comps)
         t_k = time_ms(torch, demote, REPS)
-        split = {"body_ms": body_sum(torch, demote, (
-            "tier_gather_kernel", "tier_reset_kernel"), REPS),
-            "host_ms": host_ms(torch, demote, REPS)}
+        split = launch_split(torch, demote, "tier_demote_kernel", REPS)
+        a_call = one_kernel_a_call(torch, demote, "tier_demote_kernel",
+                                   f"tier_demote {tag}")
         t_p = time_ms(torch, lambda: kernels.tier_demote_plain(
             ref, s_dev, real, ts.comps), REPS)
+        # one real row and D - 1 pads (a boundary that demotes one key)
+        s1, _ = ts._slots(s[:1])
+        s1_dev = torch.from_numpy(s1).to(dev)
+        t_one = time_ms(torch, functools.partial(
+            kernels.tier_demote, got, s1_dev, 1, ts.comps), REPS)
         idx = s_dev.long()
         t_l = time_ms(torch, lambda: library_demote(
             torch, ref, idx, real, ts.comps, kernels), REPS)
-        # the block's D rows gathered and written, n rows reset, the slots
-        # and the n touch counters
-        nbytes = 2 * D * Wp * 4 + real * Wp * 4 + D * 4 + real * 4
+        # the n real rows read once (the pads copy row 0) and reset, the
+        # block's D rows written, the slots and the n touch counters
+        nbytes = 2 * real * Wp * 4 + D * Wp * 4 + D * 4 + real * 4
         b_ms, b_by = bound(nbytes, 0)
         print(f"kernel tier_demote {tag} P={gb.n_panes} C={gb.capacity} "
               f"Wp={Wp} D={D} n={real}: max_abs_err={err[0]:.3g} "
-              f"kernel_ms={t_k:.4f} {split_text(split)} plain_ms={t_p:.4f} "
+              f"kernel_ms={t_k:.4f} {split_text(split)} "
+              f"kernels_a_call={a_call:g} one_row_ms={t_one:.4f} "
+              f"plain_ms={t_p:.4f} "
               f"library_ms={t_l:.4f} bound_ms={b_ms:.5f} ({b_by})")
         rows[f"tier_demote/{tag}"] = dict(
             max_abs_err=err[0], max_rel_err=err[1], ms=t_k, **split,
-            plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+            kernels_a_call=a_call, one_row_ms=t_one, plain_ms=t_p,
+            bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
 
         # promote: the demoted rows back into other slots holding data,
         # identity pad rows on the repeated pad slot

@@ -78,7 +78,9 @@
 // The finalize reads the state (67 MB) and writes the (NR, S+1, K) result
 // (50 MB), 0.035 ms; rule in blockIdx.y, slots in x. The wide finalize is
 // bytes-bound: it reads each live (rule, pane, key) register or bin run
-// once; one block of 256 threads per (rule, key).
+// once; a warp per (rule, key) on a persistent grid, float4 loads, warp
+// shuffles and no barrier (csrc/sketch_common.cuh finalize_wide_warps,
+// which #3's single-rule kernel runs too).
 //
 // The reset writes one pane of the state (67 MB at the 256-rule group,
 // 0.020 ms; 1.06 / 4.2 GB a sketch pane): one launch over every
@@ -551,29 +553,17 @@ __global__ void multirule_finalize_kernel(Comps cp,
     finalize_slot(rc, ract, pm, P, C, st, rows, c, rout, K);
 }
 
-// Keys [0, K) in x (grid-stride), the rule in y: one block of FIN_THREADS
-// threads per (rule, key) computes the key's hll and percentile_approx
-// final values from the rule's panes under the mask pm
-// (csrc/sketch_common.cuh finalize_wide_slot) into their rows of
-// out[rule] (rows, K).
+// Every rule's keys [0, K): a warp a (rule, key) on a persistent grid
+// computes the key's hll and percentile_approx final values from the
+// rule's panes under the mask pm (csrc/sketch_common.cuh
+// finalize_wide_warps) into their rows of out[rule] (rows, K).
 __global__ void __launch_bounds__(FIN_THREADS)
 multirule_finalize_wide_kernel(Wide w, const uint8_t* __restrict__ pm, int P,
-                               int C, int K, WideSpecs ws, HistConsts hc,
-                               float hll_num, int rows,
+                               int C, int K, int n_rules, WideSpecs ws,
+                               HistConsts hc, float hll_num, int rows,
                                float* __restrict__ out) {
-  __shared__ float shf[FIN_THREADS / 32];
-  __shared__ int shi[FIN_THREADS / 32];
-  const int rule = blockIdx.y;
-  Wide rw;
-  for (int j = 0; j < N_WIDE; ++j) {
-    rw.k[j] = w.k[j];
-    rw.p[j] = w.p[j] != nullptr
-                  ? w.p[j] + rule * ((int64_t)P * C * w.k[j] * kWideW[j])
-                  : nullptr;
-  }
-  float* rout = out + (int64_t)rule * rows * K;
-  for (int c = blockIdx.x; c < K; c += gridDim.x)
-    finalize_wide_slot(rw, pm, P, C, ws, hc, hll_num, c, rout, K, shf, shi);
+  finalize_wide_warps(w, pm, P, C, K, n_rules, ws, hc, hll_num,
+                      (long long)rows * K, out);
 }
 
 // Pane `pane` of every rule and every component back to its identity:
@@ -824,7 +814,8 @@ int multirule_fold_wide(const uint8_t* base, const float* V, const uint8_t* M,
 // wide_ptrs / wide_k: as multirule_fold_wide's; spectab: host int32
 // (nspecs, 3) = (kind WK_*, k, output row); fracs: host float32 (nspecs,);
 // hll_num: float32(alpha·m·m); out: device float32 (n_rules, rows, K), from
-// multirule_finalize, of which this kernel writes the specs' rows.
+// multirule_finalize, of which this kernel writes the specs' rows. The
+// spec's state must be 16-byte aligned, P at most FIN_MAX_PANES.
 int multirule_finalize_wide(float* const* wide_ptrs, const int32_t* wide_k,
                             const uint8_t* pane_mask, int n_rules, int P,
                             int C, int K, const int32_t* spectab,
@@ -838,12 +829,18 @@ int multirule_finalize_wide(float* const* wide_ptrs, const int32_t* wide_k,
   for (int s = 0; s < nspecs; ++s)
     if (ws.row[s] < 0 || ws.row[s] >= rows - 1)
       return (int)cudaErrorInvalidValue;
-  if (K == 0 || n_rules == 0 || nspecs == 0) return (int)cudaSuccess;
-  const dim3 grid(K < 65535 ? K : 65535, n_rules);
-  multirule_finalize_wide_kernel<<<grid, FIN_THREADS, 0,
+  const Wide w = make_wide(wide_ptrs, wide_k);
+  const long long items = (long long)n_rules * K;
+  const cudaError_t bad = fin_check(w, ws, P, items);
+  if (bad != cudaSuccess) return (int)bad;
+  if (items == 0 || nspecs == 0) return (int)cudaSuccess;
+  const int blocks =
+      fin_blocks((const void*)multirule_finalize_wide_kernel, items);
+  if (blocks < 0) return (int)cudaGetLastError();
+  multirule_finalize_wide_kernel<<<blocks, FIN_THREADS, 0,
                                    (cudaStream_t)stream>>>(
-      make_wide(wide_ptrs, wide_k), pane_mask, P, C, K, ws,
-      make_hc(hist_consts), hll_num, rows, out);
+      w, pane_mask, P, C, K, n_rules, ws, make_hc(hist_consts), hll_num,
+      rows, out);
   return (int)cudaGetLastError();
 }
 

@@ -180,115 +180,289 @@ __device__ __forceinline__ void fold_hh_cell(float* __restrict__ hh,
   }
 }
 
-// Block-wide sum over FIN_THREADS threads (8 warps); every thread gets it.
+// ------------------------------------------------------ the wide finalize
+// Every (rule, key)'s hll and percentile_approx final values: #16 wide
+// (multirule_finalize_wide, csrc/multirule.cu) and #3 wide
+// (groupby_finalize_wide, csrc/sketches.cu, a group of one rule with
+// K = C) both run finalize_wide_warps, so the two give the same bits.
+//
+// Bound on an H100: reading each live (rule, pane, key) register or bin
+// run once (H5: 2.11 GB of hll registers over two panes, 4.23 GB of bins
+// in one pane), so bytes. Design: a persistent grid (as many blocks of
+// FIN_THREADS as the card holds at once) whose warps walk the (rule, key)
+// items grid-stride, a warp an item, the specs one after another. Lane l
+// holds float4 i = run[4·(l + 32·i) .. +3] of a key's run, so each of
+// the warp's loads is 512 contiguous bytes: two a live pane for hll, eight
+// for a histogram. The pane mask is read once a warp into ballot words
+// (word j in lane j); dead panes are never loaded. The next item's first
+// live pane is loaded before the current item's other panes and its
+// arithmetic (a register double buffer), so loads stay in flight through
+// the reductions, which are warp shuffles only: no shared memory, no
+// barrier, one lane writes.
+//
+// The numbers: the pane merge is fmaxf from -inf (hll) or __fadd_rn from
+// 0 (hist) over the live panes in order, as the plain version's amax /
+// sum. A key's bin counts are integers below 2^24 and its 2^-r terms
+// span fewer than 24 bits of exponent, so every sum below is exact and
+// its order does not change a bit; the _rn intrinsics keep nvcc from
+// contracting a·b + c into an FMA, so every other step rounds as the plain
+// version's torch op does.
 #define FIN_THREADS 256
-__device__ __forceinline__ float block_sum(float x, float* sh) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) sh[warp] = x;
-  __syncthreads();
-  float t = 0.0f;
-  for (int i = 0; i < FIN_THREADS / 32; ++i) t += sh[i];
-  return t;
-}
+#define FIN_MAX_PANES 1024  // 32 ballot words, one a lane
+#ifndef FULL_MASK
+#define FULL_MASK 0xffffffffu
+#endif
 
-// Block-wide exclusive prefix sum of x (counts, exact in float32 below
-// 2^24, so the order of the adds does not matter).
-__device__ __forceinline__ float block_exclusive_scan(float x, float* sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float inc = x;
-  for (int o = 1; o < 32; o <<= 1) {
-    const float y = __shfl_up_sync(0xffffffffu, inc, o);
-    if (lane >= o) inc += y;
+// The live panes of pm as ballot words: word j (panes 32·j .. 32·j + 31)
+// in lane j, 0 in the other lanes.
+__device__ __forceinline__ uint32_t fin_pane_words(
+    const uint8_t* __restrict__ pm, int P, int lane) {
+  uint32_t mine = 0u;
+  for (int j = 0; 32 * j < P; ++j) {
+    const int p = 32 * j + lane;
+    const uint32_t b = __ballot_sync(FULL_MASK, p < P && pm[p] != 0);
+    if (lane == j) mine = b;
   }
-  __syncthreads();
-  if (lane == 31) sh[warp] = inc;
-  __syncthreads();
-  float before = 0.0f;
-  for (int i = 0; i < warp; ++i) before += sh[i];
-  return before + inc - x;
+  return mine;
 }
 
-__device__ __forceinline__ int block_min_int(int x, int* sh) {
-  for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(0xffffffffu, x, o));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) sh[warp] = x;
-  __syncthreads();
-  int t = sh[0];
-  for (int i = 1; i < FIN_THREADS / 32; ++i) t = min(t, sh[i]);
-  return t;
+// The first live pane after pane `after` (-1: the first), or -1.
+__device__ __forceinline__ int fin_next_pane(uint32_t words, int P,
+                                             int after) {
+  for (int j = (after + 1) >> 5; 32 * j < P; ++j) {
+    uint32_t m = __shfl_sync(FULL_MASK, words, j);
+    const int seen = after + 1 - 32 * j;  // bits below it are done
+    if (seen > 0) m &= ~0u << seen;
+    if (m) return 32 * j + __ffs((int)m) - 1;
+  }
+  return -1;
 }
 
-// Slot c's hll and percentile_approx final values, by one block of
-// FIN_THREADS threads, into out[row * stride + c] (thread 0 writes). hll:
-// one register per thread, max-merged over the live panes (-inf where no
-// pane is live, then clamped to 0), then Σ 2^-r and the zero count, then
-// the raw or linear-counting estimate, rounded half to even. percentile:
-// four adjacent bins per thread, sum-merged, an exclusive scan for the
-// cumulative counts, the first bin whose count reaches
-// max(frac·total, 1e-9), its centre and sign; NaN for an empty histogram.
-// The _rn intrinsics keep nvcc from contracting a·b + c into an FMA, so
-// every step rounds as the plain version's torch op does. shf / shi:
-// FIN_THREADS / 32 floats and ints of shared memory.
-__device__ __forceinline__ void finalize_wide_slot(
-    const Wide& w, const uint8_t* __restrict__ pm, int P, int C,
-    const WideSpecs& ws, const HistConsts& hc, float hll_num, int c,
-    float* __restrict__ out, int64_t stride, float* shf, int* shi) {
-  const int t = threadIdx.x;
-  for (int s = 0; s < ws.n; ++s) {
-    float val;
-    if (ws.kind[s] == WK_HLL) {
-      const int K = w.k[W_HLL];
-      float r = -f32_inf();
-      for (int p = 0; p < P; ++p)
-        if (pm[p])
-          r = fmaxf(r, w.p[W_HLL][(((int64_t)p * C + c) * K + ws.k[s]) *
-                                      HLL_M + t]);
-      r = r < 0.0f ? 0.0f : r;
-      const float z = block_sum(exp2f(-r), shf);
-      const float zeros = block_sum(r == 0.0f ? 1.0f : 0.0f, shf);
-      const float raw = __fdiv_rn(hll_num, z);
-      const float small =
-          __fmul_rn((float)HLL_M,
-                    logf(__fdiv_rn((float)HLL_M, fmaxf(zeros, 1.0f))));
-      val = rintf((raw < 2.5f * HLL_M && zeros > 0.0f) ? small : raw);
+template <int NV>
+__device__ __forceinline__ void fin_load(const float* __restrict__ run,
+                                         int lane, float4 (&v)[NV]) {
+  const float4* r = reinterpret_cast<const float4*>(run) + lane;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) v[i] = __ldcs(r + 32 * i);
+}
+
+// hll (NV 2): max; hist (NV 8): add
+template <int NV>
+__device__ __forceinline__ void fin_merge(float4 (&a)[NV],
+                                          const float4 (&v)[NV]) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    if constexpr (NV == 2) {
+      a[i] = make_float4(fmaxf(a[i].x, v[i].x), fmaxf(a[i].y, v[i].y),
+                         fmaxf(a[i].z, v[i].z), fmaxf(a[i].w, v[i].w));
     } else {
-      const int K = w.k[W_HIST];
-      float h[4];
-      float local = 0.0f;
-      for (int i = 0; i < 4; ++i) {
-        float m = 0.0f;
-        for (int p = 0; p < P; ++p)
-          if (pm[p])
-            m = __fadd_rn(m, w.p[W_HIST][(((int64_t)p * C + c) * K +
-                                          ws.k[s]) * HIST_BINS + 4 * t + i]);
-        h[i] = m;
-        local += m;
-      }
-      float cum = block_exclusive_scan(local, shf);
-      const float total = block_sum(local, shf);
-      const float target = fmaxf(__fmul_rn(ws.frac[s], total), 1e-9f);
-      int first = HIST_BINS;
-      for (int i = 0; i < 4; ++i) {
-        cum += h[i];
-        if (cum >= target) {
-          first = 4 * t + i;
-          break;
-        }
-      }
-      int idx = block_min_int(first, shi);
-      if (idx == HIST_BINS) idx = 0;  // argmax of all-False
-      const int mag = idx > HIST_HALF ? idx - HIST_HALF - 1 : HIST_HALF - 1 - idx;
-      const float center =
-          __fmul_rn(expf(__fmul_rn((float)mag, hc.log_gamma)), hc.center_scale);
-      val = idx == HIST_HALF ? 0.0f : (idx > HIST_HALF ? center : -center);
-      if (!(total > 0.0f)) val = f32_nan();
+      a[i] = make_float4(__fadd_rn(a[i].x, v[i].x), __fadd_rn(a[i].y, v[i].y),
+                         __fadd_rn(a[i].z, v[i].z), __fadd_rn(a[i].w, v[i].w));
     }
-    if (t == 0) out[(int64_t)ws.row[s] * stride + c] = val;
-    __syncthreads();
   }
+}
+
+// sketches.hll_estimate of the merged registers (8 a lane), rounded half
+// to even: the raw or the linear-counting estimate. Every lane gets it.
+__device__ __forceinline__ float fin_hll_value(const float4 (&a)[2],
+                                               float hll_num) {
+  float z = 0.0f, zeros = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float r4[4] = {a[i].x, a[i].y, a[i].z, a[i].w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float r = r4[q] < 0.0f ? 0.0f : r4[q];  // -inf: no live pane
+      z = __fadd_rn(z, exp2f(-r));
+      zeros = __fadd_rn(zeros, r == 0.0f ? 1.0f : 0.0f);
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    z = __fadd_rn(z, __shfl_xor_sync(FULL_MASK, z, o));
+    zeros = __fadd_rn(zeros, __shfl_xor_sync(FULL_MASK, zeros, o));
+  }
+  const float raw = __fdiv_rn(hll_num, z);
+  const float small = __fmul_rn(
+      (float)HLL_M, logf(__fdiv_rn((float)HLL_M, fmaxf(zeros, 1.0f))));
+  return rintf((raw < 2.5f * HLL_M && zeros > 0.0f) ? small : raw);
+}
+
+// sketches.hist_quantile of the merged bins: lane l holds bins 128·j +
+// 4·l .. +3 in h[j]. A scan across the lanes of each 128-bin chunk j's
+// lane sums; the first chunk whose running total reaches
+// target = max(frac·total, 1e-9), the first lane in it (a ballot), the
+// first bin in that lane; its centre and sign, NaN for an empty
+// histogram. Every lane gets it.
+__device__ __forceinline__ float fin_pct_value(const float4 (&h)[8],
+                                               int lane, float frac,
+                                               const HistConsts& hc) {
+  float a[8], inc[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    a[j] = __fadd_rn(__fadd_rn(h[j].x, h[j].y), __fadd_rn(h[j].z, h[j].w));
+    inc[j] = a[j];
+  }
+  for (int o = 1; o < 32; o <<= 1) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float y = __shfl_up_sync(FULL_MASK, inc[j], o);
+      if (lane >= o) inc[j] = __fadd_rn(inc[j], y);
+    }
+  }
+  float before[9];
+  before[0] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    before[j + 1] = __fadd_rn(before[j], __shfl_sync(FULL_MASK, inc[j], 31));
+  const float total = before[8];
+  const float target = fmaxf(__fmul_rn(frac, total), 1e-9f);
+  int J = -1;  // the same in every lane
+  float b = 0.0f, cum = 0.0f, ex = 0.0f;
+  float4 hj = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (J < 0 && before[j + 1] >= target) {
+      J = j;
+      b = before[j];
+      cum = inc[j];
+      ex = __fadd_rn(inc[j], -a[j]);
+      hj = h[j];
+    }
+  }
+  int idx = 0;  // argmax of all-False
+  if (J >= 0) {
+    const uint32_t hit =
+        __ballot_sync(FULL_MASK, __fadd_rn(b, cum) >= target);
+    const int L = __ffs((int)hit) - 1;
+    const float c0 = __fadd_rn(__fadd_rn(b, ex), hj.x);
+    const float c1 = __fadd_rn(c0, hj.y);
+    const float c2 = __fadd_rn(c1, hj.z);
+    const int first = c0 >= target ? 0 : (c1 >= target ? 1 : (c2 >= target ? 2 : 3));
+    idx = 128 * J + 4 * L + __shfl_sync(FULL_MASK, first, L);
+  }
+  const int mag = idx > HIST_HALF ? idx - HIST_HALF - 1 : HIST_HALF - 1 - idx;
+  const float center =
+      __fmul_rn(expf(__fmul_rn((float)mag, hc.log_gamma)), hc.center_scale);
+  const float val = idx == HIST_HALF ? 0.0f : (idx > HIST_HALF ? center : -center);
+  return total > 0.0f ? val : f32_nan();
+}
+
+// One spec's sweep: the warp's items (rule, key) = (item / K, item % K)
+// of component `comp` (NV 2: hll registers (.., K_hll, 256); NV 8: hist
+// bins (.., K_hist, 1,024)), column k, into out[rule · out_rule + row · K
+// + key].
+template <int NV>
+__device__ __forceinline__ void fin_sweep(
+    const float* __restrict__ comp, long long rule_len, int kk, int k, int P,
+    int C, int K, int n_items, uint32_t words, int p0, float frac,
+    const HistConsts& hc, float hll_num, long long out_rule, int row,
+    float* __restrict__ out) {
+  constexpr int W = 128 * NV;
+  const int lane = threadIdx.x & 31;
+  const int n_warps = (int)((gridDim.x * blockDim.x) >> 5);
+  auto run = [&](int item, int p) {
+    const int rule = item / K;
+    const int c = item - rule * K;
+    return comp + rule * rule_len + (((long long)p * C + c) * kk + k) * W;
+  };
+  int item = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+  float4 nxt[NV];
+  if (p0 >= 0 && item < n_items) fin_load<NV>(run(item, p0), lane, nxt);
+  for (; item < n_items; item += n_warps) {
+    float4 acc[NV];
+    const float id = NV == 2 ? -f32_inf() : 0.0f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) acc[i] = make_float4(id, id, id, id);
+    if (p0 >= 0) {
+      fin_merge<NV>(acc, nxt);
+      if (item + n_warps < n_items)
+        fin_load<NV>(run(item + n_warps, p0), lane, nxt);
+      for (int p = fin_next_pane(words, P, p0); p >= 0;
+           p = fin_next_pane(words, P, p)) {
+        float4 v[NV];
+        fin_load<NV>(run(item, p), lane, v);
+        fin_merge<NV>(acc, v);
+      }
+    }
+    float val;
+    if constexpr (NV == 2)
+      val = fin_hll_value(acc, hll_num);
+    else
+      val = fin_pct_value(acc, lane, frac, hc);
+    if (lane == 0) {
+      const int rule = item / K;
+      out[rule * out_rule + (long long)row * K + (item - rule * K)] = val;
+    }
+  }
+}
+
+// The body of both wide finalize kernels: the hll and percentile_approx
+// specs of ws for keys [0, K) of n_rules rules whose state lies rule
+// after rule (P, C, K_c, W_c) in w, panes under the mask pm, into
+// out[rule · out_rule + row · K + key]. Launched on a grid of
+// fin_blocks() blocks of FIN_THREADS.
+__device__ __forceinline__ void finalize_wide_warps(
+    const Wide& w, const uint8_t* __restrict__ pm, int P, int C, int K,
+    int n_rules, const WideSpecs& ws, const HistConsts& hc, float hll_num,
+    long long out_rule, float* __restrict__ out) {
+  const uint32_t words = fin_pane_words(pm, P, threadIdx.x & 31);
+  const int p0 = fin_next_pane(words, P, -1);
+  const int n_items = n_rules * K;
+  for (int s = 0; s < ws.n; ++s) {
+    if (ws.kind[s] == WK_HLL) {
+      const int kk = w.k[W_HLL];
+      fin_sweep<2>(w.p[W_HLL], (long long)P * C * kk * HLL_M, kk, ws.k[s],
+                   P, C, K, n_items, words, p0, ws.frac[s], hc, hll_num,
+                   out_rule, ws.row[s], out);
+    } else {
+      const int kk = w.k[W_HIST];
+      fin_sweep<8>(w.p[W_HIST], (long long)P * C * kk * HIST_BINS, kk,
+                   ws.k[s], P, C, K, n_items, words, p0, ws.frac[s], hc,
+                   hll_num, out_rule, ws.row[s], out);
+    }
+  }
+}
+
+// The checks of the wide finalizes' entry points: P panes under the
+// ballot words' limit, n_rules · K items in 32 bits, and each spec's
+// component present and 16-byte aligned (its float4 loads).
+static inline cudaError_t fin_check(const Wide& w, const WideSpecs& ws,
+                                    int P, long long items) {
+  if (P < 1 || P > FIN_MAX_PANES || items < 0 || items > (1LL << 30))
+    return cudaErrorInvalidValue;
+  for (int s = 0; s < ws.n; ++s) {
+    const int comp = ws.kind[s] == WK_HLL ? W_HLL : W_HIST;
+    if (ws.kind[s] != WK_HLL && ws.kind[s] != WK_PCT)
+      return cudaErrorInvalidValue;
+    if (w.p[comp] == nullptr) return cudaErrorInvalidValue;
+    if (reinterpret_cast<uintptr_t>(w.p[comp]) & 15u)
+      return cudaErrorMisalignedAddress;
+  }
+  return cudaSuccess;
+}
+
+// Blocks of a persistent finalize grid of `kernel`: as many blocks of
+// FIN_THREADS as the current card holds at once (from its SM count and
+// the kernel's occupancy, cached a device), and no more than `items`
+// warps need; -1 on an error of the runtime.
+static inline int fin_blocks(const void* kernel, long long items) {
+  static int cached[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+  int most = dev >= 0 && dev < 64 ? cached[dev] : 0;
+  if (most == 0) {
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      FIN_THREADS, 0) !=
+            cudaSuccess)
+      return -1;
+    most = sms * (per_sm > 0 ? per_sm : 1);
+    if (dev >= 0 && dev < 64) cached[dev] = most;
+  }
+  const long long need = (items * 32 + FIN_THREADS - 1) / FIN_THREADS;
+  return (int)(need < most ? (need > 0 ? need : 1) : most);
 }
 
 static inline Wide make_wide(float* const* ptrs, const int32_t* ks) {

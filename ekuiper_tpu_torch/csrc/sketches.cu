@@ -48,10 +48,12 @@
 //   (fold_hh_kernel below, csrc/sketch_common.cuh fold_hh_cell).
 // - both finalizes read every live pane of their component once: 352 MB
 //   for the heavy-hitters hopping state (2 panes x 16,384 x 2,688 floats),
-//   0.105 ms at 3.35 TB/s; so they are bytes-bound. One block per slot
-//   reads the slot's contiguous registers coalesced; every per-slot step
-//   after the merge (the register sums, the 1,024-bin scan, the 128-cell
-//   bit recovery and top-k) runs in registers and shared memory.
+//   0.105 ms at 3.35 TB/s; so they are bytes-bound. The hll / percentile
+//   finalize is the rule group's (csrc/sketch_common.cuh
+//   finalize_wide_warps: a warp a slot, float4 loads, warp shuffles, a
+//   persistent grid); the heavy-hitters one runs a block per slot, which
+//   reads the slot's contiguous counters coalesced, then recovers the
+//   128 cells' codes and their top-k in shared memory.
 //
 // The hashes, the hll register and rho, the histogram bin, the row fold
 // and the hll / percentile final values are csrc/sketch_common.cuh's,
@@ -148,17 +150,15 @@ static cudaError_t split_hh_cols(WideCols* wc, HHCols* hc, const Wide& w,
   return cudaSuccess;
 }
 
-// One block of FIN_THREADS threads per slot (grid-stride): the slot's
-// hll and percentile_approx final values (csrc/sketch_common.cuh
-// finalize_wide_slot) into their rows of out (rows, C).
+// The wide finalize of one rule (csrc/sketch_common.cuh
+// finalize_wide_warps, #16's body as a group of one rule with K = C):
+// a warp a slot, on a persistent grid; the hll and percentile_approx
+// final values into their rows of out (rows, C).
 __global__ void __launch_bounds__(FIN_THREADS)
 finalize_wide_kernel(Wide w, const uint8_t* __restrict__ pm, int P, int C,
                      WideSpecs ws, HistConsts hc, float hll_num,
                      float* __restrict__ out) {
-  __shared__ float shf[FIN_THREADS / 32];
-  __shared__ int shi[FIN_THREADS / 32];
-  for (int c = blockIdx.x; c < C; c += gridDim.x)
-    finalize_wide_slot(w, pm, P, C, ws, hc, hll_num, c, out, C, shf, shi);
+  finalize_wide_warps(w, pm, P, C, C, 1, ws, hc, hll_num, 0, out);
 }
 
 // One block of 128 threads per slot (grid-stride), one thread per
@@ -264,11 +264,14 @@ int groupby_finalize_wide(float* const* wide_ptrs, const int32_t* wide_k,
   WideSpecs ws;
   if (!make_widespecs(spectab, fracs, nspecs, &ws) || C < 0)
     return (int)cudaErrorInvalidValue;
+  const Wide w = make_wide(wide_ptrs, wide_k);
+  const cudaError_t bad = fin_check(w, ws, P, C);
+  if (bad != cudaSuccess) return (int)bad;
   if (C == 0 || nspecs == 0) return (int)cudaSuccess;
-  finalize_wide_kernel<<<C < 65535 ? C : 65535, FIN_THREADS, 0,
-                         (cudaStream_t)stream>>>(
-      make_wide(wide_ptrs, wide_k), pane_mask, P, C, ws, make_hc(hist_consts),
-      hll_num, out);
+  const int blocks = fin_blocks((const void*)finalize_wide_kernel, C);
+  if (blocks < 0) return (int)cudaGetLastError();
+  finalize_wide_kernel<<<blocks, FIN_THREADS, 0, (cudaStream_t)stream>>>(
+      w, pane_mask, P, C, ws, make_hc(hist_consts), hll_num, out);
   return (int)cudaGetLastError();
 }
 

@@ -17,18 +17,30 @@
 //
 // tier_demote replaces TierStore._demote_impl
 //   (ekuiper_tpu/ops/tierstore.py:263): gather D slots' rows into a fresh
-//   (D, Wp) float32 block, then reset those slots of every component (and
-//   their touch counters) to the fold identity. The reference reads the
-//   old state for every gathered row before any reset, and its pad rows
-//   repeat a real slot (slots[0]); so a reset must never race a pad's
-//   gather. Design: two launches in order on one stream, a gather over all
-//   D rows, then a reset over the n real rows only (a pad's slot is a real
-//   row's, reset once). One thread per (row, packed column), neighbouring
-//   threads on neighbouring columns, so each pane's run of w floats is one
-//   coalesced read or write. Bound on an H100: reading D·Wp floats of
-//   state, writing the block and n·Wp floats of state, a few KB to a few
-//   MB (2,048 slots of a 10-pane scalar rule: 0.5 MB each way), well under
-//   a microsecond of memory time, so launch-bound at these shapes.
+//   (D, Wp) float32 block, then reset the n real slots of every component
+//   (and their touch counters) to the fold identity. The reference reads
+//   the old state for every gathered row before any reset, and its pad
+//   rows [n, D) repeat slots[0] (ops/tierstore.py _slots). Bound on an
+//   H100: reading n·Wp floats of state, writing the block and n·Wp floats
+//   of identity, a few KB to a few MB (2,048 rows of G1's 4 floats: 32 KB
+//   of block; of the percentile plan's 1,026: 8.4 MB), under a microsecond
+//   to a few of memory time, so launch-bound at the narrow shapes.
+//   Design: one launch, no thread waiting on another. Its blocks fall in
+//   classes (tier_demote_plan), found from the block index by a scan of
+//   at most 32 class starts: per component, the runs of w floats a (row,
+//   pane) of rows [1, n) (rows [0, n) without pads), a group of 1-32
+//   lanes a run (about a float4 a lane), each element read once, written
+//   to its packed column and set to the identity by the same thread,
+//   float4 where the state run and the packed run share a 16-byte phase
+//   (a scalar head and tail, as multirule_reset_pane's), four loads in
+//   flight a thread otherwise; and, where pads exist, row 0's runs in
+//   pieces of up to 32 floats, a block a piece: every thread reads the
+//   piece's element it copies, writes it to a share of the pad rows (row
+//   0 by the first group), and only after the block's barrier does the
+//   first group write the identity, so no pad reads a reset value and
+//   2,047 pads of one real row spread over the card. The thread that owns
+//   column 0 of a row (component 0, pane 0, element 0) clears its touch
+//   counter.
 //
 // tier_promote replaces TierStore._promote_impl (tierstore.py:278): the
 //   rows of a (D, Wp) block merged into their slots, add for n, s1, s2,
@@ -68,41 +80,132 @@ __device__ __forceinline__ float* tier_elem(const TierTab& t, long long j,
   return t.p[k] + (p * C + slot) * t.w[k] + e;
 }
 
-// One thread per (row, column) of the block, grid-stride. A slot outside
-// [0, C) gathers the identity (never reached: ops/tierstore.py checks).
-__global__ void tier_gather_kernel(TierTab t, const int32_t* __restrict__ slots,
-                                   long long total, long long Wp, int C,
-                                   float* __restrict__ packed) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    const long long d = i / Wp;
-    const long long j = i - d * Wp;
-    const int slot = slots[d];
-    int b;
-    if (slot < 0 || slot >= C) {
-      tier_elem(t, j, 0, C, &b);
-      packed[i] = t.init[b];
-      continue;
+#define DEMOTE_THREADS 256
+#define DEMOTE_CLASSES (2 * MAX_TIER_COMPS)
+enum { DEMOTE_RUNS = 0, DEMOTE_PADS = 1 };
+
+// The demote's blocks in classes: class k holds blocks [first[k],
+// first[k + 1]) of component comp[k] in role role[k]. DEMOTE_RUNS: 1 <<
+// lg[k] lanes a (row, pane) run of rows [row0, n); DEMOTE_PADS: row 0's
+// runs cut in `pieces` pieces of 1 << lg[k] floats, a block a piece.
+// 32-bit: the entry point refuses a plan past 2^31 threads.
+struct DemotePlan {
+  int ncls;
+  int row0;  // 1 where pad rows exist (row 0 is then the pad blocks'), else 0
+  int P;
+  int first[DEMOTE_CLASSES + 1];
+  int comp[DEMOTE_CLASSES];
+  int role[DEMOTE_CLASSES];
+  int lg[DEMOTE_CLASSES];
+  int pieces[DEMOTE_CLASSES];
+};
+
+// One (row, pane) run of w floats by lane g of a group of G: read from
+// the state run src, written to the packed run dst, src set to init.
+// float4 over the part where src and dst share a 16-byte phase, scalars
+// for the head and tail around it (everything where the phases differ);
+// a lane issues four loads before their stores.
+__device__ __forceinline__ void demote_run(float* __restrict__ src,
+                                           float* __restrict__ dst, int w,
+                                           float init, int g, int G) {
+  int head = 0, body = 0;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  if (((a ^ reinterpret_cast<uintptr_t>(dst)) & 15u) == 0) {
+    head = (int)((4u - ((a >> 2) & 3u)) & 3u);
+    head = head < w ? head : w;
+    body = (w - head) >> 2;
+  }
+  const float4 i4 = make_float4(init, init, init, init);
+  float4* s4 = reinterpret_cast<float4*>(src + head);
+  float4* d4 = reinterpret_cast<float4*>(dst + head);
+  for (int e = g; e < body; e += 4 * G) {
+    float4 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (e + u * G < body) v[u] = s4[e + u * G];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (e + u * G < body) {
+        d4[e + u * G] = v[u];
+        s4[e + u * G] = i4;
+      }
+  }
+  const int tail = head + 4 * body;
+  const int ns = head + (w - tail);  // the scalars: [0, head), [tail, w)
+  for (int x = g; x < ns; x += 4 * G) {
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int y = x + u * G;
+      if (y < ns) v[u] = src[y < head ? y : tail + (y - head)];
     }
-    packed[i] = *tier_elem(t, j, slot, C, &b);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int y = x + u * G;
+      if (y < ns) {
+        const int e = y < head ? y : tail + (y - head);
+        dst[e] = v[u];
+        src[e] = init;
+      }
+    }
   }
 }
 
-// The n real rows' slots back to the identity; their touch counters to 0.
-__global__ void tier_reset_kernel(TierTab t, const int32_t* __restrict__ slots,
-                                  long long total, long long Wp, int C,
-                                  unsigned int* __restrict__ touch) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    const long long d = i / Wp;
-    const long long j = i - d * Wp;
-    const int slot = slots[d];
-    if (slot < 0 || slot >= C) continue;
-    int b;
-    float* dst = tier_elem(t, j, slot, C, &b);
-    *dst = t.init[b];
-    if (j == 0 && touch != nullptr) touch[slot] = 0u;
+// The demote in one launch (the classes of DemotePlan). A slot outside
+// [0, C) gathers the identity and resets nothing (never reached:
+// ops/tierstore.py checks).
+__global__ void __launch_bounds__(DEMOTE_THREADS)
+tier_demote_kernel(TierTab t, DemotePlan dp,
+                   const int32_t* __restrict__ slots, int D, int n, int C,
+                   int Wp, float* __restrict__ packed,
+                   unsigned int* __restrict__ touch) {
+  const int blk = (int)blockIdx.x;
+  int k = 0;
+  while (k + 1 < dp.ncls && blk >= dp.first[k + 1]) ++k;
+  const int b = dp.comp[k];
+  const int w = (int)t.w[b];
+  const float init = t.init[b];
+  const int local = blk - dp.first[k];
+  if (dp.role[k] == DEMOTE_PADS) {
+    const int p = local / dp.pieces[k];
+    const int e = (local - p * dp.pieces[k]) * (1 << dp.lg[k]) +
+                  (int)(threadIdx.x & ((1u << dp.lg[k]) - 1u));
+    const int j = (int)(threadIdx.x >> dp.lg[k]);
+    const int groups = DEMOTE_THREADS >> dp.lg[k];
+    const int slot = slots[0];
+    const bool ok = slot >= 0 && slot < C;
+    const bool in = e < w;
+    float* src = t.p[b] + ((long long)p * C + (ok ? slot : 0)) * w + e;
+    const float v = in && ok ? *src : init;
+    const long long col = t.off[b] + (long long)p * w + e;
+    if (in) {
+      if (j == 0) packed[col] = v;
+      for (int r = n + j; r < D; r += groups)
+        packed[(long long)r * Wp + col] = v;
+    }
+    __syncthreads();  // every read of the piece before its reset
+    if (in && ok && j == 0) {
+      *src = init;
+      if (b == 0 && p == 0 && e == 0 && touch != nullptr) touch[slot] = 0u;
+    }
+    return;
   }
+  const int G = 1 << dp.lg[k];
+  const int tid = local * DEMOTE_THREADS + (int)threadIdx.x;
+  const int u = tid >> dp.lg[k];
+  const int g = tid & (G - 1);
+  const int dr = u / dp.P;
+  const int d = dp.row0 + dr;
+  if (d >= n) return;
+  const int p = u - dr * dp.P;
+  const int slot = slots[d];
+  float* dst = packed + (long long)d * Wp + t.off[b] + (long long)p * w;
+  if (slot < 0 || slot >= C) {
+    for (int e = g; e < w; e += G) dst[e] = init;
+    return;
+  }
+  demote_run(t.p[b] + ((long long)p * C + slot) * w, dst, w, init, g, G);
+  if (b == 0 && p == 0 && g == 0 && touch != nullptr) touch[slot] = 0u;
 }
 
 // One thread per (row, column) of the block, pads included: an atomic
@@ -155,11 +258,54 @@ static inline int blocks_for(long long total, int threads) {
   return b < 1 ? 1 : (b > 65535 ? 65535 : (int)b);
 }
 
+static inline int log2_up(long long x) {
+  int lg = 0;
+  while ((1LL << lg) < x) ++lg;
+  return lg;
+}
+
+// The classes of tier_demote_kernel's blocks for n real rows of D (n >=
+// 1): where pads exist, row 0's pieces first (a class a component), then
+// a class a component for the runs of the other real rows. False where
+// the grid passes 32 bits.
+static bool tier_demote_plan(const TierTab& t, int P, int D, int n,
+                             DemotePlan* dp) {
+  dp->ncls = 0;
+  dp->row0 = D > n ? 1 : 0;
+  dp->P = P;
+  long long blocks = 0;
+  for (int role = dp->row0 ? DEMOTE_PADS : DEMOTE_RUNS; role >= DEMOTE_RUNS;
+       --role) {
+    for (int b = 0; b < t.n; ++b) {
+      const int k = dp->ncls++;
+      dp->first[k] = (int)blocks;
+      dp->comp[k] = b;
+      dp->role[k] = role;
+      if (role == DEMOTE_PADS) {  // pieces of up to 32 floats
+        dp->lg[k] = log2_up(t.w[b] < 32 ? t.w[b] : 32);
+        dp->pieces[k] = (int)((t.w[b] + (1LL << dp->lg[k]) - 1) >> dp->lg[k]);
+        blocks += (long long)P * dp->pieces[k];
+      } else {  // about a float4 a lane, up to a warp a run
+        const long long f4 = (t.w[b] + 3) / 4;
+        dp->lg[k] = log2_up(f4 < 32 ? f4 : 32);
+        dp->pieces[k] = 0;
+        const long long threads =
+            ((long long)(n - dp->row0) * P) << dp->lg[k];
+        if (threads > 0x7fffffffLL) return false;
+        blocks += (threads + DEMOTE_THREADS - 1) / DEMOTE_THREADS;
+      }
+      if (blocks > 0x7fffffffLL) return false;
+    }
+  }
+  dp->first[dp->ncls] = (int)blocks;
+  return true;
+}
+
 extern "C" {
 
-// slots: device int32 (D,), rows [n, D) repeating a real row's slot;
-// packed: device float32 (D, Wp), written whole; touch: device uint32
-// (C,) or null.
+// slots: device int32 (D,), rows [n, D) repeating slots[0] (the pads; n
+// >= 1 where D > 0); packed: device float32 (D, Wp), written whole;
+// touch: device uint32 (C,) or null.
 int tier_demote(float* const* ptrs, const long long* ws, const float* inits,
                 const int32_t* ops, int ncomps, int P, int C,
                 const int32_t* slots, int D, int n, float* packed,
@@ -167,19 +313,14 @@ int tier_demote(float* const* ptrs, const long long* ws, const float* inits,
   TierTab t;
   long long Wp = 0;
   if (!make_tiertab(ptrs, ws, inits, ops, ncomps, P, &t, &Wp) || D < 0 ||
-      n < 0 || n > D || C < 0)
+      n < 0 || n > D || (D > 0 && n == 0) || C < 0 || Wp > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (D == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  cudaStream_t st = (cudaStream_t)stream;
-  const long long gathered = (long long)D * Wp;
-  tier_gather_kernel<<<blocks_for(gathered, threads), threads, 0, st>>>(
-      t, slots, gathered, Wp, C, packed);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n == 0) return (int)err;
-  const long long reset = (long long)n * Wp;
-  tier_reset_kernel<<<blocks_for(reset, threads), threads, 0, st>>>(
-      t, slots, reset, Wp, C, touch);
+  DemotePlan dp;  // a block at least: n >= 1
+  if (!tier_demote_plan(t, P, D, n, &dp)) return (int)cudaErrorInvalidValue;
+  tier_demote_kernel<<<dp.first[dp.ncls], DEMOTE_THREADS, 0,
+                       (cudaStream_t)stream>>>(t, dp, slots, D, n, C,
+                                               (int)Wp, packed, touch);
   return (int)cudaGetLastError();
 }
 

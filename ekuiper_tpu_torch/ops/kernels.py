@@ -67,8 +67,9 @@ components are wide: (P, C, K, W) with W = 256 / 1,024 / 2,688:
   row for hll / hist, one a (row, depth) for hh (the hh cell adds of
   groupby_fold's hh role).
 - `groupby_finalize_wide` replaces the `hll` and `percentile_approx`
-  kinds of `_final_value` (groupby.py:510-519) and their pane merge: one
-  block per slot; it writes those specs' rows of the same output that
+  kinds of `_final_value` (groupby.py:510-519) and their pane merge:
+  multirule_finalize_wide's body as a group of one rule (a warp per slot);
+  it writes those specs' rows of the same output that
   groupby_finalize_scalar fills. Bound: reading the live panes of the
   wide components once.
 - `groupby_hh_finalize` replaces `_hh_finalize_impl` (groupby.py:628-656)
@@ -147,7 +148,9 @@ csrc/sketch_common.cuh), and the folds' row order:
   and the key cut of `finalize_begin`: every rule's pane merge and final
   values into a fresh (R, S+1, K) result, K the columns the host takes.
 - `multirule_finalize_wide` replaces that vmap's hll and percentile_approx
-  final values (groupby.py:510-519): one block per (rule, key) writes
+  final values (groupby.py:510-519): a warp per (rule, key) on a
+  persistent grid (float4 loads of each live pane, the next key's loaded
+  before the current key's arithmetic, warp-shuffle reductions) writes
   their rows of multirule_finalize's result. Bound: reading each live
   (rule, pane, key) register or bin run once.
 - `multirule_reset_pane` replaces `_batched_reset_impl` (multirule.py:256):
@@ -163,8 +166,10 @@ block of one slot flattened in C order, the components sorted, act last:
 
 - `tier_demote` replaces `TierStore._demote_impl` (tierstore.py:263): D
   slots' rows gathered into a fresh (D, Wp) block, then the n real slots
-  (and their touch counters) reset to the identity; pad rows repeat a
-  real slot. Two launches in order, so no reset races a pad's gather.
+  (and their touch counters) reset to the identity; pad rows repeat
+  slots[0]. One launch: each element read, packed and reset by one
+  thread; row 0's pieces copied to the pads by the block that resets them,
+  after its barrier.
 - `tier_promote` replaces `_promote_impl` (tierstore.py:278): a block's
   rows merged into their slots by atomic add / min / max (identity pad
   rows on a repeated slot change nothing).
@@ -1979,14 +1984,15 @@ def tier_demote(state: Dict[str, torch.Tensor], slots: torch.Tensor, n: int,
     fresh float32 (D, Wp) block, the blocks `comps` (sorted components,
     then "act") side by side, each slot's (P, w) run flattened in C order;
     then reset slots[:n] of those components, and of a `touch` column, to
-    the identity, in place. Rows [n, D) must repeat a slot of the first n
-    (the reference's pads): they are gathered, never reset twice."""
+    the identity, in place. Rows [n, D) must repeat slots[0] (the
+    reference's pads, TierStore._slots): they are row 0's copies, never
+    reset twice; n >= 1 where D > 0."""
     name = "tier_demote"
     if not _on_cuda(name, state):
         return tier_demote_plain(state, slots, n, comps)
     dev = state["act"].device
     D = _check_tier_slots(name, slots, dev)
-    if not 0 <= n <= D:
+    if not min(D, 1) <= n <= D:
         raise ValueError(f"{name}: {n} real rows of {D}")
     ptrs, ws, inits, ops, P, C, Wp = _tier_table(name, state, comps)
     touch = state.get("touch")

@@ -47,6 +47,7 @@ from ekuiper_tpu_torch.ops import kernels
 from ekuiper_tpu_torch.ops.aggspec import encode_hll_column
 from ekuiper_tpu_torch.planner.fused import plan_fused_rule
 
+import torch_finalize_cases as fc
 import torch_fold_batches as fb
 import torch_group_batches as gbt
 import torch_hh_batches as hb
@@ -886,6 +887,83 @@ def test_multirule_finalize_wide_matches_plain(wnode, panes):
                                equal_nan=True)
 
 
+@pytest.fixture(scope="module")
+def fin_edges():
+    """tests/torch_finalize_cases.py's 3-rule sketch group on the card, its
+    edge state loaded."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ekuiper_tpu_torch.parallel.multirule import (BatchedGroupBy,
+                                                      build_rule_batch)
+    from ekuiper_tpu_torch.sql.parser import parse_select
+    sqls = fc.fin_sqls()
+    spec = build_rule_batch([f"r{i}" for i in range(len(sqls))],
+                            [parse_select(q) for q in sqls])
+    gb = BatchedGroupBy(spec, capacity=fc.FIN_CAP, n_panes=fc.FIN_PANES,
+                        micro_batch=128)
+    host = fc.fin_state({c: tuple(a.shape)
+                         for c, a in gb.init_state().items()}, seed=3)
+    return gb, {c: torch.from_numpy(a).to(gb.device)
+                for c, a in host.items()}
+
+
+def _wide_rows_hold(got, ref, widetab):
+    """hll rows bit-equal, percentile rows NaN alike and within 4 ulp, the
+    other rows untouched (-1)."""
+    for kind, _, row in widetab.tolist():
+        g, r = got[..., row, :], ref[..., row, :]
+        if kind == kernels.WIDE_KIND_IDS["hll"]:
+            np.testing.assert_array_equal(g, r)
+        else:
+            assert (np.isnan(g) == np.isnan(r)).all()
+            np.testing.assert_allclose(g, r, rtol=4 * 2.0 ** -23)
+    others = np.setdiff1d(np.arange(got.shape[-2]), widetab[:, 2])
+    assert (got[..., others, :] == -1.0).all()
+
+
+@pytest.mark.parametrize("n_cols", [fc.FIN_COLS, fc.FIN_CAP])
+@pytest.mark.parametrize("mask", list(fc.FIN_MASKS))
+def test_multirule_finalize_wide_edge_states(fin_edges, mask, n_cols):
+    """#16's warp kernel against its plain version on the edge states
+    (boundary targets, fractions 0 and 1, empty histograms, zero and
+    near-2.5·M registers, K = 2 / 3 columns), every pane mask, on 45 and
+    all 64 keys, in one launch."""
+    gb, st = fin_edges
+    pm = torch.tensor(fc.FIN_MASKS[mask], device=gb.device)
+    got = torch.full((fc.FIN_RULES, gb._rows, n_cols), -1.0,
+                     device=gb.device)
+    ref = got.clone()
+    kernels.reset_launches()
+    kernels.multirule_finalize_wide(st, pm, gb._widetab, gb._fracs, got)
+    kernels.multirule_finalize_wide_plain(st, pm, gb._widetab, gb._fracs,
+                                          ref)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["multirule_finalize_wide"] == 1
+    _wide_rows_hold(got.cpu().numpy(), ref.cpu().numpy(), gb._widetab)
+
+
+@pytest.mark.parametrize("mask", list(fc.FIN_MASKS))
+def test_finalize_wide_edge_states_one_rule(fin_edges, mask):
+    """#3 runs #16's body as a group of one rule: on each rule's own state
+    it holds to the plain version as #16 does, and gives the group
+    kernel's bits for that rule."""
+    gb, st = fin_edges
+    pm = torch.tensor(fc.FIN_MASKS[mask], device=gb.device)
+    group = torch.full((fc.FIN_RULES, gb._rows, fc.FIN_CAP), -1.0,
+                       device=gb.device)
+    kernels.multirule_finalize_wide(st, pm, gb._widetab, gb._fracs, group)
+    for r in range(fc.FIN_RULES):
+        one = {c: a[r].contiguous() for c, a in st.items()}
+        got = torch.full((gb._rows, fc.FIN_CAP), -1.0, device=gb.device)
+        ref = got.clone()
+        kernels.groupby_finalize_wide(one, pm, gb._widetab, gb._fracs, got)
+        kernels.finalize_wide_plain(one, pm, gb._widetab, gb._fracs, ref)
+        torch.cuda.synchronize()
+        _wide_rows_hold(got.cpu().numpy(), ref.cpu().numpy(), gb._widetab)
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      group[r].cpu().numpy())
+
+
 def test_multirule_reset_wide_matches_plain(wnode):
     gb = wnode.gb
     st = _wide_group_state(gb)
@@ -1230,6 +1308,41 @@ def test_tier_demote_matches_plain(tnode, n):
                  .sum()) == 0
     touch = got["touch"].cpu().numpy()  # torch indexes no uint32 on CUDA
     assert int(touch[s[:real]].sum()) == 0
+
+
+@pytest.mark.parametrize("case", list(fc.TIER_CASES))
+def test_tier_demote_edge_states(case):
+    """#18's one launch against its plain version on
+    tests/torch_finalize_cases.py's blocks: one real row and 2,047 pads,
+    half or all of the block real, rows of 18, 774 and 1,027 floats,
+    scalar, hll and percentile state, with and without the touch column;
+    the packed block and the state bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ekuiper_tpu_torch.ops import tierstore as tts
+    from ekuiper_tpu_torch.ops.aggspec import extract_kernel_plan
+    from ekuiper_tpu_torch.ops.groupby import TorchGroupBy
+    from ekuiper_tpu_torch.sql.parser import parse_select
+    plan_tag, n, touch = fc.TIER_CASES[case]
+    sql, n_panes = fc.TIER_SQL[plan_tag]
+    gb = TorchGroupBy(extract_kernel_plan(parse_select(sql)),
+                      capacity=fc.TIER_CAP, n_panes=n_panes, micro_batch=64,
+                      track_touch=touch)
+    ts = tts.TierStore(gb, tts.TierLayout(
+        hot_slots=fc.TIER_CAP, demote_batch=fc.TIER_D,
+        scan_interval_ms=100, min_idle_scans=1))
+    st = gb.state_from_host(fc.tier_fill(gb.state_to_host(gb.init_state()),
+                                         seed=5))
+    s, real = ts._slots(fc.tier_slots(n, seed=6))
+    s_dev = torch.from_numpy(s).to(gb.device)
+    got, ref = _clone(st), _clone(st)
+    kernels.reset_launches()
+    packed = kernels.tier_demote(got, s_dev, real, ts.comps)
+    want = kernels.tier_demote_plain(ref, s_dev, real, ts.comps)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["tier_demote"] == 1
+    np.testing.assert_array_equal(packed.cpu().numpy(), want.cpu().numpy())
+    _same_exact(got, ref)
 
 
 @pytest.mark.parametrize("n", [1, 37, 2048])

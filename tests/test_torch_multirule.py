@@ -27,6 +27,7 @@ import gc
 
 import numpy as np
 import pytest
+import torch
 
 from ekuiper_tpu.data.batch import ColumnBatch as JaxBatch
 from ekuiper_tpu.ops.emit import build_direct_emit as jax_direct_emit
@@ -50,6 +51,8 @@ from ekuiper_tpu_torch.runtime.node import Node
 from ekuiper_tpu_torch.sql.parser import parse_select
 from ekuiper_tpu_torch.utils import timex
 from ekuiper_tpu_torch.utils.infra import PlanError
+
+import torch_finalize_cases as fc
 
 R, CAP, MB, KEYS = 6, 256, 128, 200
 #: the sketch groups: rules, capacity, keys
@@ -618,6 +621,50 @@ def test_batched_wide_matches_reference(name):
     last = tgb.n_panes - 1
     ts, js = tgb.reset_pane(ts, last), jgb.reset_pane(js, last)
     _assert_wide_state(tgb.state_to_host(ts), jgb.state_to_host(js), miss)
+
+
+@pytest.mark.parametrize("mask", list(fc.FIN_MASKS))
+def test_wide_finalize_edge_states_match_reference(mask):
+    """multirule_finalize_wide's plain version against the JAX
+    BatchedGroupBy's _batched_finalize_impl on tests/torch_finalize_cases.py's
+    edge states (a quantile target on a lane or chunk boundary, fractions 0
+    and 1, an empty histogram, all-zero registers, raw estimates either
+    side of 2.5·M, two hll and three percentile specs), under both panes,
+    the second alone and no live pane, on 45 of 64 keys: hll estimates
+    equal (register sums exact), percentiles NaN alike and within 4 ulp."""
+    sqls = fc.fin_sqls()
+    spec, jspec = _specs(sqls)
+    tgb = BatchedGroupBy(spec, capacity=fc.FIN_CAP, n_panes=fc.FIN_PANES,
+                         micro_batch=MB, device="cpu")
+    jgb = JaxBatched(jspec, capacity=fc.FIN_CAP, n_panes=fc.FIN_PANES,
+                     micro_batch=MB)
+    host = fc.fin_state({c: tuple(a.shape)
+                         for c, a in tgb.init_state().items()}, seed=3)
+    assert set(host) == set(jgb.init_state())
+    pm = fc.FIN_MASKS[mask]
+    got = torch.full((fc.FIN_RULES, tgb._rows, fc.FIN_COLS), -1.0)
+    kernels.multirule_finalize_wide_plain(
+        {c: torch.from_numpy(a) for c, a in host.items()}, torch.tensor(pm),
+        tgb._widetab, tgb._fracs, got)
+    ref = np.asarray(jgb._finalize(jgb.state_from_host(host), tuple(pm)))
+    got, ref = got.numpy(), ref[:, :, :fc.FIN_COLS]
+    kinds = {v: k for k, v in kernels.WIDE_KIND_IDS.items()}
+    assert sorted(kinds[k] for k in tgb._widetab[:, 0]) == [
+        "hll", "hll", "percentile_approx", "percentile_approx",
+        "percentile_approx"]
+    for kind, _, row in tgb._widetab.tolist():
+        g, r = got[:, row], ref[:, row]
+        if kinds[kind] == "hll":
+            np.testing.assert_array_equal(g, r)
+        else:
+            assert (np.isnan(g) == np.isnan(r)).all()
+            np.testing.assert_allclose(g, r, rtol=4 * 2.0 ** -23)
+    others = np.setdiff1d(np.arange(tgb._rows), tgb._widetab[:, 2])
+    assert (got[:, others] == -1.0).all()
+    if mask == "none":
+        assert np.isnan(ref[:, tgb._widetab[2:, 2]]).all()
+    elif mask == "all":  # every edge key but the empty one has a value
+        assert not np.isnan(ref[:, tgb._widetab[2:, 2], 1:9]).any()
 
 
 @pytest.mark.parametrize("name", list(WIDE))

@@ -47,6 +47,8 @@ from ekuiper_tpu_torch.runtime.events import Trigger
 from ekuiper_tpu_torch.runtime.nodes_fused import FusedWindowAggNode
 from ekuiper_tpu_torch.sql.parser import parse_select
 from ekuiper_tpu_torch.utils import timex
+
+import torch_finalize_cases as fc
 from ekuiper_tpu_torch.utils.infra import PlanError
 
 #: the reference tier tests' rule (tests/test_tierstore.py:21-22)
@@ -308,6 +310,42 @@ def test_demote_promote_plain_match_reference(sql, n_panes, n):
         np.testing.assert_array_equal(
             tstore.mask_stale_panes(row.copy(), stale),
             jstore.mask_stale_panes(row.copy(), stale))
+
+
+@pytest.mark.parametrize("case", list(fc.TIER_CASES))
+def test_demote_edge_states_match_reference(case):
+    """tier_demote's plain version, through the port's TierStore, against
+    the reference's TierStore.demote on tests/torch_finalize_cases.py's
+    blocks of 2,048 rows: one real row and 2,047 pads, half or all of the
+    block real, rows of 18, 774 and 1,027 floats (none a multiple of 4),
+    scalar, hll and percentile state, with and without the touch column:
+    the packed block and the state after, bit for bit."""
+    plan_tag, n, touch = fc.TIER_CASES[case]
+    sql, n_panes = fc.TIER_SQL[plan_tag]
+    jplan, tplan = _plans(sql)
+    jgb = DeviceGroupBy(jplan, capacity=fc.TIER_CAP, n_panes=n_panes,
+                        micro_batch=64, track_touch=touch)
+    tgb = TorchGroupBy(tplan, capacity=fc.TIER_CAP, n_panes=n_panes,
+                       micro_batch=64, device="cpu", track_touch=touch)
+    host = fc.tier_fill(jgb.state_to_host(jgb.init_state()), seed=5)
+    assert ("touch" in host) == touch
+    js, ts = jgb.state_from_host(host), tgb.state_from_host(host)
+    args = dict(hot_slots=fc.TIER_CAP, demote_batch=fc.TIER_D,
+                scan_interval_ms=100, min_idle_scans=1)
+    jstore = jts.TierStore(jgb, jts.TierLayout(**args))
+    tstore = tts.TierStore(tgb, tts.TierLayout(**args))
+    assert tstore.packed_w == jstore.packed_w and tstore.packed_w % 4
+    slots = fc.tier_slots(n, seed=6)
+    kernels.reset_launches()
+    js, jpacked = jstore.demote(js, slots)
+    ts, tpacked = tstore.demote(ts, slots)
+    assert kernels.LAUNCHES["tier_demote"] == 0  # CPU: the plain version
+    jpacked = np.asarray(jpacked)
+    assert tpacked.shape == jpacked.shape == (fc.TIER_D, jstore.packed_w)
+    np.testing.assert_array_equal(tpacked.numpy(), jpacked)
+    np.testing.assert_array_equal(jpacked[n:], np.broadcast_to(
+        jpacked[0], (fc.TIER_D - n, jstore.packed_w)))
+    _assert_state_equal(ts, js)
 
 
 def test_tier_store_refuses_what_the_kernels_do_not_take():

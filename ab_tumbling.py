@@ -27,6 +27,19 @@ work. `--phase` picks the rows:
 - `sketch`: the sketch kernel rows of phase 2 (the sketch folds, #3's
   wide finalize on the pct and hll rules and #4's hll subset mask, the
   heavy-hitters finalize, the pane reset over hh state).
+- `refold`: #2, the masked fold: its kernel rows of phase 2 (F2's scalar,
+  F1's heavy-hitters and F3's hll plans, the touch branch at L2's plan,
+  and in a tree that has it a stale refold's segment group), then F4 (D2's
+  delayed rule through phase F's backlog, which forces a stale
+  whole-window refold) with the node's masked-fold calls instrumented:
+  per call the host time of its stages (the WHERE and spec closures,
+  the row masks' packing, upload and unpacking, the segments' column
+  concatenation,
+  the kernel wrappers) and its device span by CUDA events, summed per
+  trigger, beside each trigger's stall.
+- `countmin`: #10 and #11's kernel rows of phase 2 (in a tree that has
+  it, #10 on a uniform stream beside phase M's), then phase M's update
+  values/s.
 - `trace`: #16's wide finalize at H5's shapes (hll and pct families)
   timed by CUDA events alone, then on the same launches inside one
   profiler session by events and by the trace (after an idle sleep and
@@ -50,6 +63,8 @@ checkout unpacked into a directory that .gitignore lists:
     python3 ab_tumbling.py _archive/parent . --phase tier --out DIR
     python3 ab_tumbling.py _archive/parent . --phase sketch --out DIR
     python3 ab_tumbling.py _archive/parent . --phase trace --out DIR
+    python3 ab_tumbling.py _archive/parent . --phase refold --out DIR
+    python3 ab_tumbling.py _archive/parent . --phase countmin --out DIR
 
 With --out, each run's result is written to DIR/ab_<phase>_<tag><i>.json.
 The last line of the output is one JSON object {"a": [...], "b": [...]},
@@ -308,6 +323,135 @@ for fam in ("hll", "pct"):
 print(json.dumps(rows))
 """
 
+REFOLD = r"""
+import statistics
+from ekuiper_tpu_torch.data.batch import ColumnBatch
+from ekuiper_tpu_torch.ops import sketches
+from ekuiper_tpu_torch.ops.groupby import TorchGroupBy
+from ekuiper_tpu_torch.planner.fused import plan_fused_rule
+from ekuiper_tpu_torch.runtime.events import Trigger
+
+dev = torch.device("cuda")
+rows = cs.masked_kernel_checks(torch, 0, kernels, sketches, plan_fused_rule,
+                               TorchGroupBy, dev)
+rows.update(cs.masked_touch_check(torch, 0, kernels, plan_fused_rule,
+                                  TorchGroupBy, dev))
+torch.cuda.empty_cache()
+#: host stages of a masked-fold call, by the function that runs each (a
+#: tree has the ones it has): the closures, the masks' upload, the
+#: segments' concatenation, the kernel wrappers
+STAGES = {"closures": ("_where", "_spec_values"),
+          "mask_upload": ("upload", "_upload_masks", "_unpack_rows"),
+          "concat": ("_concat_columns",)}
+WRAPPERS = ("groupby_fold_masked_scalar", "groupby_fold_masked_wide",
+            "groupby_fold_masked")  # the parent's two, this tree's one
+calls = []  # per call: segments, host ms by stage, total ms, device span
+inside = [None]
+
+
+def timed(fn, stage):
+    def run(*a, **k):
+        if inside[0] is None:
+            return fn(*a, **k)
+        t = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            inside[0][stage] = inside[0].get(stage, 0.0) + (
+                time.perf_counter() - t) * 1e3
+    return run
+
+
+def hook(node):
+    gb = node.gb
+    for stage, names in STAGES.items():
+        for name in names:
+            if hasattr(gb, name):
+                setattr(gb, name, timed(getattr(gb, name), stage))
+    for name in WRAPPERS:
+        if hasattr(kernels, name):
+            setattr(kernels, name, timed(getattr(kernels, name), "wrapper"))
+    entry = "fold_masked_many" if hasattr(gb, "fold_masked_many") else         "fold_masked"
+    call = getattr(gb, entry)
+
+    def masked(state, *a, **k):
+        segs = len(a[0]) if entry == "fold_masked_many" else 1
+        inside[0] = {}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t = time.perf_counter()
+        out = call(state, *a, **k)
+        total = (time.perf_counter() - t) * 1e3
+        end.record()
+        calls.append((segs, inside[0], total, start, end))
+        inside[0] = None
+        return out
+
+    setattr(gb, entry, masked)
+    # the trigger's walk over its buckets (the masks' numpy, the host-row
+    # folds, and in a tree that folds there, its masked-fold calls)
+    walk = node._refold_bucket
+
+    def bucket(*a, **k):
+        t = time.perf_counter()
+        try:
+            return walk(*a, **k)
+        finally:
+            buckets_ms[0] += (time.perf_counter() - t) * 1e3
+
+    node._refold_bucket = bucket
+
+
+buckets_ms = [0.0]
+rng = np.random.default_rng(63)
+stream = cs.SlidingStream(rng, cs.F_BATCHES)
+mods = (plan_fused_rule, ColumnBatch, Trigger)
+node, em, rps, launches, _ = cs.run_sliding(
+    torch, kernels, mods, cs.D2_DELAY_RULE, stream, "f4",
+    options=cs.REFOLD, impl="refold", sources=("device-async",),
+    hold=cs.F4_HOLD, hook=hook)
+torch.cuda.synchronize()
+stalls = [st * 1e3 for _, _, st, _, _, _ in em]
+segs = sum(c[0] for c in calls)
+host = {}
+for _, st, _, _, _ in calls:
+    for k, v in st.items():
+        host[k] = host.get(k, 0.0) + v
+total = sum(c[2] for c in calls)
+span = [c[3].elapsed_time(c[4]) for c in calls]
+big = max(range(len(calls)), key=lambda i: calls[i][0]) if calls else None
+masked = {k: v for k, v in launches.items() if "masked" in k}
+rows["f4"] = dict(
+    stall_p50_ms=cs.pct(stalls, 50), stall_p99_ms=cs.pct(stalls, 99),
+    stall_max_ms=max(stalls), triggers=len(stalls), rows_per_s=rps,
+    routes=dict(node.refold_counts), masked_calls=len(calls),
+    masked_segments=segs, masked_launches=masked,
+    call_host_ms=total / max(len(calls), 1),
+    segment_host_ms=total / max(segs, 1),
+    stage_ms_a_segment={k: v / max(segs, 1) for k, v in host.items()},
+    other_ms_a_segment=(total - sum(host.values())) / max(segs, 1),
+    device_span_ms=sum(span), refold_bucket_ms=buckets_ms[0],
+    biggest_call=None if big is None else dict(
+        segments=calls[big][0], host_ms=calls[big][2],
+        stages_ms=calls[big][1], device_span_ms=span[big]))
+print("ab_refold f4", rows["f4"], flush=True)
+print(json.dumps(rows))
+"""
+
+COUNTMIN = r"""
+import statistics
+from ekuiper_tpu_torch.ops.sketches import CountMinSketch
+
+dev = torch.device("cuda")
+rows = cs.countmin_kernel_checks(torch, 0, kernels, dev)
+m = cs.run_phase_m(torch, 0, kernels, CountMinSketch)
+rows["m"] = dict(values_per_s=m["values_per_s"],
+                 query_ms=statistics.median(m["query_ms"]),
+                 launches={k: v for k, v in m["launches"].items() if v})
+print(json.dumps(rows))
+"""
+
 HOST = r"""
 import statistics
 from ekuiper_tpu_torch.data.batch import ColumnBatch
@@ -348,13 +492,18 @@ print(json.dumps(dict(fold_idle_ms=statistics.median(idle), fold_b2b_ms=b2b,
 
 PHASES = {"tumbling": (TUMBLING, 600), "multirule": (MULTIRULE, 1500),
           "fold": (FOLD, 600), "host": (HOST, 600), "tier": (TIER, 900),
-          "sketch": (SKETCH, 900), "trace": (TRACE, 900)}
+          "sketch": (SKETCH, 900), "trace": (TRACE, 900),
+          "refold": (REFOLD, 900), "countmin": (COUNTMIN, 600)}
 #: the numbers of a multirule or fold row the summary keeps
 KEYS = ("chunk_ms", "ms", "fold_only_ms", "readback_ms", "scalar_pane_ms",
         "body_ms", "launches_a_chunk", "kernels_a_call", "one_row_ms",
         "host_ms", "plain_ms", "library_ms", "library_idx_ms", "bound_ms",
         "bound_inputs_ms", "kernel_rounds_ms", "library_rounds_ms",
-        "idle_ms", "idle_body_ms", "b2b_ms", "b2b_body_ms", "ms_again")
+        "idle_ms", "idle_body_ms", "b2b_ms", "b2b_body_ms", "ms_again",
+        "segments", "stall_p50_ms", "stall_p99_ms",
+        "stall_max_ms", "masked_calls", "masked_segments", "call_host_ms",
+        "segment_host_ms", "device_span_ms", "refold_bucket_ms",
+        "values_per_s", "query_ms")
 
 
 def _fmt(v) -> str:

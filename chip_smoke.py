@@ -30,8 +30,11 @@ no result):
    node calls it (its row order built in the call) and alone on a given
    order, the row order against its plain version (rows and offsets
    equal), the finalize also at E3's two panes; the masked fold at
-   phase F's batches, a 65,536-row padded batch with uint16 slots under a refold's row mask, into each rule's
-   scratch pane at its own pane count, F1's 53 x 16,384 x 2,688 floats;
+   phase F's batches, a 65,536-row padded batch with uint16 slots under
+   a refold's row mask, into each rule's scratch pane at its own pane
+   count, F1's 53 x 16,384 x 2,688 floats, one kernel a call with act,
+   the scalar and the wide columns, and at F2's plan a stale refold's
+   group of 21 such segments in one launch;
    the tier demote and promote at G1's state (1 pane, a 4-float packed
    row, 1,048,576 slots), G2's (10 panes, 60 floats, 262,144 slots), phase
    B's hll hopping state and the percentile hist, a block of 2,000 real
@@ -55,8 +58,9 @@ no result):
    masked fold's touch branch at D2's refold plan with a touch column,
    16,384 slots, a 65,536-row cached batch under one bucket's time cut
    (touch, counts, act, min and max bit-equal, s1 within rtol 1e-5); the
-   count-min update at 65,536 values into (4, 8192) counts and its query
-   at 4,096 and 8,192 candidates (bit-equal)):
+   count-min update at 65,536 values into (4, 8192) counts, on phase M's
+   stream and on a uniform one, and its query at
+   4,096 and 8,192 candidates (bit-equal)):
    error, kernel time (CUDA
    events), the kernel body's own device time (profiler trace) and the
    host time of one wrapper call, plain time, a library yardstick (for
@@ -154,7 +158,8 @@ F. the sliding refold path (slidingImpl "refold" and the cases that fall
    stale route must run), every window against the float64 twin over
    (t - 10 s, t + 1 s]. Per run: rows/s, stall and delivery,
    refold routes (cached, host, stale, evicted), the masked fold's
-   launches;
+   launches, its calls, their segments and segment groups, each call one
+   launch a group (F4's stale refold more segments than launches);
 G. tiered key state (the tier's budget from tierHotMb), each run with
    every emitted window (the device groups and the spilled keys' share)
    held against a numpy float64 group-by over integer key ids: keys,
@@ -168,8 +173,8 @@ G. tiered key state (the tier's budget from tierHotMb), each run with
    deviceId, TUMBLINGWINDOW(ss, 1)` at tierHotMb 64, 1<<20 key slots,
    tierScanMs 1, the synchronous boundary: 65,536-row batches of 63,488
    rows over 262,144 hot keys and 2,048 fresh keys, v ~ N(50, 10), a
-   boundary every 4 batches, to 3,000,000 distinct keys (the bench's 1M
-   and 3M checkpoints; its 10M one is cut for time), the device slots held
+   boundary every 4 batches, to 2,000,000 distinct keys (the bench's 1M
+   checkpoint; its 3M and 10M ones cut to 2M for time), the device slots held
    at the layout's hot capacity (2,097,152, one growth from 1,048,576).
    G2, the reference's tier tests' rule `SELECT deviceId, sum(v) AS s,
    count(*) AS c, min(v) AS mn FROM demo GROUP BY deviceId,
@@ -305,7 +310,7 @@ N. the device mesh (#23, #24) on a 2x4 mesh whose eight devices are the
    > 0; the fold's touch branch on the G paths, I7, L1 and L2; the masked
    fold's on L2; the per-row pane vector on the sliding paths and I2, I3,
    I5, I6, and the sharded one on N4), then the JSON kernel table
-   (twenty-seven kernels: the 26 that replace the reference's programs and
+   (twenty-six kernels: the 25 that replace the reference's programs and
    the rule group's row order) and the one-line result.
 """
 from __future__ import annotations
@@ -475,8 +480,9 @@ G2_RULE = ("SELECT deviceId, sum(v) AS s, count(*) AS c, min(v) AS mn "
 G_SLOTS, G_HOT_MB, G_PER_WINDOW = 1 << 20, 64, 4
 G1_OPTS = {"tierHotMb": G_HOT_MB, "tierScanMs": 1, "prefinalizeLeadMs": 0}
 #: G1's hot keys and fresh keys a batch; its distinct-key checkpoints (the
-#: bench's 1M and 3M; its 10M is cut for the run's time limit)
-G1_HOT, G1_FRESH, G1_TARGETS = 1 << 18, 2048, (1_000_000, 3_000_000)
+#: bench's 1M, and 2M where the bench has 3M and 10M: cut for the run's
+#: time limit; past the 1,677,721 hot slots, so the tier still demotes)
+G1_HOT, G1_FRESH, G1_TARGETS = 1 << 18, 2048, (1_000_000, 2_000_000)
 G1_PAR_KEYS, G1_PAR_ROWS, G1_PAR_WINDOWS = 1000, 8192, 3
 G1_PAR_SLOTS, G1_PAR_MB = 4096, 0.01
 #: G2's batch: rows over the hot keys, new keys, rows over the keys first
@@ -629,8 +635,7 @@ SOURCE = {
     "multirule_fold_order": "ekuiper_tpu_torch/csrc/multirule.cu",
     "multirule_finalize": "ekuiper_tpu_torch/csrc/multirule.cu",
     "multirule_reset_pane": "ekuiper_tpu_torch/csrc/multirule.cu",
-    "groupby_fold_masked_scalar": "ekuiper_tpu_torch/csrc/groupby.cu",
-    "groupby_fold_masked_wide": "ekuiper_tpu_torch/csrc/sketches.cu",
+    "groupby_fold_masked": "ekuiper_tpu_torch/csrc/groupby.cu",
     "tier_demote": "ekuiper_tpu_torch/csrc/tierstore.cu",
     "tier_promote": "ekuiper_tpu_torch/csrc/tierstore.cu",
     "multirule_fold_wide": "ekuiper_tpu_torch/csrc/multirule.cu",
@@ -660,8 +665,7 @@ REPLACES = {
     "multirule_fold_order": "ekuiper_tpu/parallel/multirule.py:196",
     "multirule_finalize": "ekuiper_tpu/parallel/multirule.py:210",
     "multirule_reset_pane": "ekuiper_tpu/parallel/multirule.py:256",
-    "groupby_fold_masked_scalar": "ekuiper_tpu/ops/groupby.py:354",
-    "groupby_fold_masked_wide": "ekuiper_tpu/ops/groupby.py:354",
+    "groupby_fold_masked": "ekuiper_tpu/ops/groupby.py:353",
     "tier_demote": "ekuiper_tpu/ops/tierstore.py:263",
     "tier_promote": "ekuiper_tpu/ops/tierstore.py:278",
     "multirule_fold_wide": "ekuiper_tpu/parallel/multirule.py:196",
@@ -702,8 +706,7 @@ PATHS = {
                            "i6"),
     "multirule_reset_pane": ("e1", "e2", "e3", "h5_hll", "h5_pct", "h6",
                              "i5", "i6"),
-    "groupby_fold_masked_scalar": ("f1", "f2", "f3", "f4", "l2"),
-    "groupby_fold_masked_wide": ("f1", "f3"),
+    "groupby_fold_masked": ("f1", "f2", "f3", "f4", "l2"),
     "tier_demote": ("g1", "g2a", "g2b", "i7", "l1", "l2"),
     "tier_promote": ("g2a", "g2b", "i7"),
     "multirule_fold_wide": ("h5_hll", "h5_pct", "i6"),
@@ -721,7 +724,7 @@ PATHS = {
 #: the folds that must bump the touch column on each tiered path (the
 #: masked fold: on the refold path's edge refolds)
 TOUCH_PATHS = {"groupby_fold": ("g1", "g2a", "g2b", "i7", "l1", "l2"),
-               "groupby_fold_masked_scalar": ("l2",)}
+               "groupby_fold_masked": ("l2",)}
 #: the folds that must take a per-row pane vector on each sliding and
 #: event-time path (a batch that crosses a bucket edge; on the F paths
 #: from the cached upload)
@@ -858,17 +861,22 @@ def same_launch_text(same: dict) -> str:
 def one_kernel_a_call(torch, fn, kernel, what: str, calls: int = 3) -> float:
     """Fail unless each of `calls` calls of `fn` launches one CUDA kernel,
     named `kernel`, and nothing else on the card (a profiler trace);
-    the kernels a call."""
+    the kernels a call. A trace that holds no device event at all (the
+    CUPTI trace now and then records none) is taken again, up to three
+    times; three empty traces fail as a wrong count does."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    names = [e.name for e in prof.events() if e.device_type == cuda]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == cuda]
+        if names:
+            break
     check(len(names) == calls and all(kernel in n for n in names),
           f"{what}: {calls} calls launched {names}, want one {kernel} each")
     return len(names) / calls
@@ -1209,10 +1217,6 @@ WIDE = ("hll", "hist", "hh")
 #: #23 / #24 one (csrc/sharded.cu)
 FOLD_KERNEL = "groupby_fold_kernel"
 SHARDED_FOLD_KERNEL = "sharded_fold_kernel"
-#: the kernels of one #2 wide fold: the hll / hist columns' kernel and the
-#: hh columns' (csrc/sketches.cu fold_hh_kernel), each launched where the
-#: widemap has such columns
-FOLD_MASKED_WIDE_KERNELS = ("fold_masked_wide_kernel", "fold_hh_kernel")
 #: a rule with hh, hll and hist columns beside scalar ones: the fold's
 #: three roles in one launch
 MIXED_RULE = (
@@ -3212,6 +3216,43 @@ def refold_result(node, em, rps, launches, row_pane, stream, t_check):
         check_s=time.perf_counter() - t_check)
 
 
+def masked_spy(kernels, calls, hook=None):
+    """A run_sliding hook (after `hook`): the node's fold_masked_many
+    wrapped to record, a call, (its cached segments, the groups
+    fold_masked_many forms of them, the #2 launches the call made)."""
+    def spy_hook(node):
+        if hook is not None:
+            hook(node)
+        gb = node.gb
+        many = gb.fold_masked_many
+
+        def spy(state, segments, pane):
+            segs = list(segments)
+            groups = len(list(gb._masked_groups(
+                [(None, s) for _, s, _ in segs])))
+            before = kernels.LAUNCHES["groupby_fold_masked"]
+            out = many(state, segs, pane)
+            calls.append((len(segs), groups,
+                          kernels.LAUNCHES["groupby_fold_masked"] - before))
+            return out
+
+        gb.fold_masked_many = spy
+    return spy_hook
+
+
+def masked_summary(what, calls):
+    """Fail unless every refold made one #2 launch a segment group; the
+    calls' counts, and those of the call with the most segments."""
+    for segs, groups, launches in calls:
+        check(launches == groups, f"{what}: a refold of {segs} cached "
+              f"segments made {launches} #2 launches for {groups} groups")
+    most = max(calls, default=(0, 0, 0))
+    return dict(masked_calls=len(calls),
+                masked_segments=sum(c[0] for c in calls),
+                masked_groups=sum(c[1] for c in calls),
+                most_segments=most[0], most_groups=most[1])
+
+
 def run_phase_f(torch, seed, kernels, mods):
     """Phase F: the sliding refold path at full size on the mock clock,
     every window against its numpy twin (and F2's against the DABA
@@ -3232,9 +3273,10 @@ def run_phase_f(torch, seed, kernels, mods):
         node.gb.finalize = timed(node.gb.finalize, stages, "finalize")
         node.gb.hh_assemble = timed(node.gb.hh_assemble, stages, "assemble")
 
+    calls = []
     node, em, rps, launches, row_pane = run_sliding(
         torch, kernels, mods, F1_RULE, stream, "f1", impl="refold",
-        sources=("sync",), hook=hh_hook)
+        sources=("sync",), hook=masked_spy(kernels, calls, hh_hook))
     check(node.gb.capacity == SLOTS, f"f1: state at {node.gb.capacity} "
           f"slots, want {SLOTS}")
     t_check = time.perf_counter()
@@ -3246,6 +3288,7 @@ def run_phase_f(torch, seed, kernels, mods):
                                   f"f1 trigger {i} (t={t})")
     res["f1"] = refold_result(node, em, rps, launches, row_pane, stream,
                               t_check)
+    res["f1"].update(masked_summary("f1", calls))
     res["f1"].update(checked_rows=n_rows, finalize_ms=stages["finalize"]
                      * 1e3 / max(len(em), 1),
                      assemble_ms=stages["assemble"] * 1e3 / max(len(em), 1))
@@ -3256,9 +3299,11 @@ def run_phase_f(torch, seed, kernels, mods):
     # of the same stream
     rng = np.random.default_rng(seed + 61)
     stream = SlidingStream(rng, F_BATCHES, gap_at=F_GAP_AT)
+    calls = []
     node, em, rps, launches, row_pane = run_sliding(
         torch, kernels, mods, D2_RULE, stream, "f2", options=REFOLD,
-        impl="refold", sources=("device-async",))
+        impl="refold", sources=("device-async",),
+        hook=masked_spy(kernels, calls))
     check(node.sliding_fallback is None, "f2: a fallback on request")
     dnode, dem, drps, dlaunches, _ = run_sliding(
         torch, kernels, mods, D2_RULE, stream, "f2_daba")
@@ -3278,7 +3323,7 @@ def run_phase_f(torch, seed, kernels, mods):
     res["f2"] = refold_result(node, em, rps, launches, row_pane, stream,
                               t_check)
     res["f2"].update(max_abs_err=worst, vs_daba=worst_daba,
-                     daba_rows_per_s=drps)
+                     daba_rows_per_s=drps, **masked_summary("f2", calls))
     del node, dnode, em, dem, twin, stream
     torch.cuda.empty_cache()
 
@@ -3294,10 +3339,12 @@ def run_phase_f(torch, seed, kernels, mods):
         est["ring"] = SlidingRing(node.gb, node._ring_layout).estimate_bytes(
             SLOTS)
 
+    calls = []
     node, em, rps, launches, row_pane = run_sliding(
         torch, kernels, mods, D3_RULE, stream, "f3",
         options={"slidingDevRingMb": F3_RING_MB}, impl="refold",
-        sources=("device-async",), hook=budget_hook)
+        sources=("device-async",), hook=masked_spy(kernels, calls,
+                                                    budget_hook))
     t_check = time.perf_counter()
     hll_twin = HllTwin()
     edge = 0
@@ -3309,7 +3356,8 @@ def run_phase_f(torch, seed, kernels, mods):
           f"f3: both refold routes must run ({dict(c)})")
     res["f3"] = refold_result(node, em, rps, launches, row_pane, stream,
                               t_check)
-    res["f3"].update(edge=edge, ring_estimate_mb=est["ring"] / 2**20)
+    res["f3"].update(edge=edge, ring_estimate_mb=est["ring"] / 2**20,
+                     **masked_summary("f3", calls))
     del node, em, stream
     torch.cuda.empty_cache()
 
@@ -3320,9 +3368,11 @@ def run_phase_f(torch, seed, kernels, mods):
     # whole from the cached batches (the stale route)
     rng = np.random.default_rng(seed + 63)
     stream = SlidingStream(rng, F_BATCHES)
+    calls = []
     node, em, rps, launches, row_pane = run_sliding(
         torch, kernels, mods, D2_DELAY_RULE, stream, "f4", options=REFOLD,
-        impl="refold", sources=("device-async",), hold=F4_HOLD)
+        impl="refold", sources=("device-async",), hold=F4_HOLD,
+        hook=masked_spy(kernels, calls))
     t_check = time.perf_counter()
     twin = ScalarTwin(stream)
     worst = 0.0
@@ -3335,7 +3385,10 @@ def run_phase_f(torch, seed, kernels, mods):
           f"f4: no whole-window refold from the cache ({dict(c)})")
     res["f4"] = refold_result(node, em, rps, launches, row_pane, stream,
                               t_check)
-    res["f4"].update(max_abs_err=worst)
+    res["f4"].update(max_abs_err=worst, **masked_summary("f4", calls))
+    check(res["f4"]["most_segments"] > res["f4"]["most_groups"],
+          f"f4: the stale refold's {res['f4']['most_segments']} segments "
+          f"took {res['f4']['most_groups']} launches")
     del node, em, twin, stream
     torch.cuda.empty_cache()
     for tag in ("f1", "f2", "f3", "f4"):
@@ -3348,9 +3401,7 @@ def run_phase_f(torch, seed, kernels, mods):
 
 
 def phase_f_line(tag, r):
-    masked = {k.replace("groupby_fold_masked_", ""): r["launches"][k]
-              for k in ("groupby_fold_masked_scalar",
-                        "groupby_fold_masked_wide")}
+    masked = r["launches"]["groupby_fold_masked"]
     extra = ""
     if tag == "f1":
         extra = (f" top_lists={r['checked_rows']} finalize_ms_per_trigger="
@@ -3375,29 +3426,90 @@ def phase_f_line(tag, r):
             f"delivery_p50_ms={pct(r['delivery'], 50):.3f} "
             f"delivery_p99_ms={pct(r['delivery'], 99):.3f} "
             f"routes={r['routes']} cache_MB={r['cache_mb']:.1f} "
-            f"masked_fold_launches={masked} "
+            f"masked_fold_launches={masked} masked_calls="
+            f"{r['masked_calls']} segments={r['masked_segments']} "
+            f"groups={r['masked_groups']} most_segments_a_call="
+            f"{r['most_segments']} in {r['most_groups']} launches "
             f"pane_vec_folds={r['row_pane']} launches={r['launches']} "
             f"check_s={r['check_s']:.1f}{extra}")
+
+
+def masked_segment(torch, gb, r, dev, mask_lo=0.3):
+    """One cached segment as phase F's refolds fold it: a 65,536-row batch
+    (61,440 real rows, the rest padding with slot 0 and mask 0) with
+    uint16 slots, its row mask a refold's low-edge time cut (rows
+    [mask_lo · 61,440, 61,440)). Returns (cols, slots, host mask, host
+    slots)."""
+    n_real = ROWS * 15 // 16
+    host = {"temperature": r.normal(20, 5, ROWS).astype(np.float32),
+            "__hhc__code": skewed_codes(r, ROWS).astype(np.float32),
+            "__hll__humidity": (r.integers(0, 1000, ROWS) / 10).astype(
+                np.float32)}
+    s_host = r.integers(0, N_KEYS, ROWS)
+    mask = np.zeros(ROWS, dtype=bool)
+    mask[int(mask_lo * n_real):n_real] = True
+    for v in host.values():
+        v[n_real:] = 0.0
+    s_host[n_real:] = 0
+    cols = {k: torch.from_numpy(v).to(dev) for k, v in host.items()
+            if k in gb.plan.columns}
+    return (cols, torch.from_numpy(s_host.astype(np.uint16)).to(dev), mask,
+            s_host)
+
+
+def masked_inputs(torch, gb, segs, dev):
+    """The masked fold's (base, V, M, slots) over segments, as
+    fold_masked_many builds them for one group."""
+    from ekuiper_tpu_torch.ops.groupby import concat_slots
+
+    cols = (segs[0][0] if len(segs) == 1 else
+            gb._concat_columns([(c, s) for c, s, _, _ in segs]))
+    n = sum(len(s) for _, s, _, _ in segs)
+    base = gb._where(cols, (n,)) & torch.from_numpy(
+        np.concatenate([m for _, _, m, _ in segs])).to(dev)
+    V, M = gb._spec_values(cols, n)
+    return base, V, M & base, concat_slots([s for _, s, _, _ in segs])
+
+
+def masked_bound(st, slots, s_hosts, masks, S, wide_upd, ops):
+    """(bytes, bound_ms, bound_by) of a masked fold: summed over its
+    segments, the mask of every row and the slot, V and M of each of the
+    S specs the launch reads, of the masked rows only (a row off the mask
+    is skipped before anything else is read); once for the launch, each
+    slot a masked row touches, its scalar line and act read and written,
+    and each touched wide entry read and written."""
+    width = sum(a.shape[2] for k, a in st.items()
+                if k in ("n", "s1", "s2", "mn", "mx")) + 1
+    nbytes = sum(len(m) + int(m.sum()) * (slots.element_size() + 5 * S)
+                 for m in masks)
+    touched = np.unique(np.concatenate([s[m] for s, m in zip(s_hosts,
+                                                             masks)]))
+    nbytes += len(touched) * width * 8
+    nbytes += sum(len(np.unique(idx.cpu().numpy())) * 8
+                  for _, idx, _, _ in wide_upd)
+    return (nbytes, *bound(nbytes, ops))
 
 
 def masked_kernel_checks(torch, seed, kernels, sketches, plan_fused_rule,
                          TorchGroupBy, dev):
     """The masked fold (#2) against its plain version at phase F's
-    shapes: a 65,536-row batch (61,440 real rows, the rest padding with
-    slot 0 and mask 0) with uint16 slots over 16,384 slots, the mask a
-    refold's low-edge time cut (rows [18,432, 61,440)), into the node's
-    own scratch pane over rows already folded there, with the node's own
-    pane count. F2's scalar rule (the scalar kernel), F1's heavy_hitters
-    and F3's hll rules (the wide kernel). F1's state is 53 panes of
-    176 MB, so its scratch pane starts past 2^31 floats and the check
-    holds the kernel's 64-bit addressing at the main path's offset. The
-    written pane is compared with the plain version's; every other pane
-    must be bit-equal on the card."""
+    shapes: one cached segment (masked_segment) into the node's own
+    scratch pane over rows already folded there, with the node's own pane
+    count, for F2's scalar rule, F1's heavy_hitters and F3's hll rules
+    (act, the scalar and the wide columns in ONE launch, a profiler trace
+    holding one kernel a call); and at F2's plan a stale refold's group,
+    as many segments as fold_masked_many puts in one launch (one batch's
+    columns and slots under a different time cut each), in ONE launch.
+    F1's state is 53 panes of 176 MB, so its scratch pane starts
+    past 2^31 floats and the check holds the kernel's 64-bit addressing at
+    the main path's offset. The written pane is compared with the plain
+    version's; every other pane must be bit-equal on the card."""
     rows = {}
-    n_real = ROWS * 15 // 16
+    kernel = "groupby_fold_kernel"
     for tag, sql, opts in (("scalar", D2_RULE, REFOLD), ("hh", F1_RULE, {}),
                            ("hll", D3_RULE,
-                            {"slidingDevRingMb": F3_RING_MB})):
+                            {"slidingDevRingMb": F3_RING_MB}),
+                           ("segments", D2_RULE, REFOLD)):
         node = plan_fused_rule(sql, key_slots=SLOTS, micro_batch=ROWS,
                                device=dev, options=opts)
         check(node.sliding_impl == "refold", f"#2 {tag}: not on refold")
@@ -3407,88 +3519,68 @@ def masked_kernel_checks(torch, seed, kernels, sketches, plan_fused_rule,
         gb = TorchGroupBy(plan, capacity=SLOTS, n_panes=P,
                           micro_batch=ROWS, device=dev)
         r = np.random.default_rng(seed + 100)
-        host = {"temperature": r.normal(20, 5, ROWS).astype(np.float32),
-                "__hhc__code": skewed_codes(r, ROWS).astype(np.float32),
-                "__hll__humidity": (r.integers(0, 1000, ROWS) / 10).astype(
-                    np.float32)}
-        s_host = r.integers(0, N_KEYS, ROWS)
-        mask = np.zeros(ROWS, dtype=bool)
-        mask[int(0.3 * n_real):n_real] = True
-        for v in host.values():
-            v[n_real:] = 0.0
-        s_host[n_real:] = 0
-        cols = {k: torch.from_numpy(v).to(dev) for k, v in host.items()
-                if k in gb.plan.columns}
-        slots = torch.from_numpy(s_host.astype(np.uint16)).to(dev)
-        base = gb._where(cols, (ROWS,)) & torch.from_numpy(mask).to(dev)
-        V, M = gb._spec_values(cols, ROWS)
-        M = M & base
+        segs = [masked_segment(torch, gb, r, dev)]
+        if tag == "segments":
+            # a group as fold_masked_many forms it: as many segments as its
+            # byte bound lets one launch take
+            most = len(next(gb._masked_groups(
+                [(None, segs[0][1])] * 1000)))
+            cols, s_dev, _, s_host = segs[0]
+            n_real = ROWS * 15 // 16
+            for j in range(1, most):
+                m = np.zeros(ROWS, dtype=bool)
+                m[int(n_real * (j % 10) / 40):n_real] = True
+                segs.append((cols, s_dev, m, s_host))
+        base, V, M, slots = masked_inputs(torch, gb, segs, dev)
         st = gb.init_state()
         # rows already in the scratch pane (another edge bucket's)
-        kernels.fold_masked_scalar_plain(st, base.roll(7), V.roll(7, 1),
-                                         M.roll(7, 1), slots, pane,
-                                         gb._colmap)
+        kernels.fold_plain(st, base.roll(7), V.roll(7, 1), M.roll(7, 1),
+                           slots, pane, gb._colmap, gb._widemap)
         ref, got = clone_state(st), clone_state(st)
-        kernels.fold_masked_scalar_plain(ref, base, V, M, slots, pane,
-                                         gb._colmap)
-        kernels.groupby_fold_masked_scalar(got, base, V, M, slots, pane,
-                                           gb._colmap)
-        if len(gb._widemap):
-            kernels.fold_masked_wide_plain(ref, base, V, M, slots, pane,
-                                           gb._widemap)
-            kernels.groupby_fold_masked_wide(got, base, V, M, slots, pane,
-                                             gb._widemap)
+        kernels.reset_launches()
+        kernels.fold_plain(ref, base, V, M, slots, pane, gb._colmap,
+                           gb._widemap)
+        kernels.groupby_fold_masked(got, base, V, M, slots, pane,
+                                    gb._colmap, gb._widemap)
         torch.cuda.synchronize()
+        check(kernels.LAUNCHES["groupby_fold_masked"] == 1,
+              f"#2 {tag}: {kernels.LAUNCHES['groupby_fold_masked']} "
+              f"launches for {len(segs)} segments")
         err = state_err({k: v[pane] for k, v in got.items()},
                         {k: v[pane] for k, v in ref.items()}, exact=EXACT)
         for k, v in got.items():
             check(torch.equal(v[:pane], ref[k][:pane])
                   and torch.equal(v[pane + 1:], ref[k][pane + 1:]),
                   f"#2 {tag} {k}: a pane other than {pane} changed")
-        m_rows = int(base.sum().item())
-        used = gb._colmap if tag == "scalar" else gb._widemap
+        fn = functools.partial(kernels.groupby_fold_masked, got, base, V, M,
+                               slots, pane, gb._colmap, gb._widemap)
+        plain = functools.partial(kernels.fold_plain, ref, base, V, M,
+                                  slots, pane, gb._colmap, gb._widemap)
+        cat = slots.long()
+        upd = fold_updates(torch, ref, base, V, M, cat, pane, gb._colmap,
+                           kernels)
+        wupd = wide_updates(torch, gb, V, M, cat, pane, sketches)
+        lib = functools.partial(library_fold, torch, ref, upd + wupd)
+        used = np.concatenate([gb._colmap, gb._widemap])
         S = len(set(used[:, 2].tolist()))
-        # the mask of every row; the slot, V and M of each of the S specs
-        # the kernel reads, of the masked rows only (a row off the mask is
-        # skipped before anything else is read)
-        io = ROWS + m_rows * (slots.element_size() + 5 * S)
-        if tag == "scalar":
-            name, kernel = "groupby_fold_masked_scalar", \
-                "fold_masked_scalar_kernel"
-            fn = functools.partial(kernels.groupby_fold_masked_scalar, got,
-                                   base, V, M, slots, pane, gb._colmap)
-            plain = functools.partial(kernels.fold_masked_scalar_plain, ref,
-                                      base, V, M, slots, pane, gb._colmap)
-            lib = functools.partial(library_fold, torch, ref, fold_updates(
-                torch, ref, base, V, M, slots, pane, gb._colmap, kernels))
-            touched = len(np.unique(s_host[base.cpu().numpy()]))
-            width = sum(a.shape[2] for k, a in st.items() if k != "act") + 1
-            nbytes = io + touched * width * 8
-            n_upd = m_rows * (len(gb._colmap) + 1)
-        else:
-            name, kernel = "groupby_fold_masked_wide", \
-                FOLD_MASKED_WIDE_KERNELS
-            fn = functools.partial(kernels.groupby_fold_masked_wide, got,
-                                   base, V, M, slots, pane, gb._widemap)
-            plain = functools.partial(kernels.fold_masked_wide_plain, ref,
-                                      base, V, M, slots, pane, gb._widemap)
-            upd = wide_updates(torch, gb, V, M, slots, pane, sketches)
-            lib = functools.partial(library_fold, torch, ref, upd)
-            touched = sum(len(torch.unique(idx)) for _, idx, _, _ in upd)
-            n_upd = sum(len(idx) for _, idx, _, _ in upd)
-            nbytes = io + touched * 8
+        m_rows = int(base.sum().item())
+        n_upd = m_rows * (len(gb._colmap) + 1) + sum(
+            len(idx) for _, idx, _, _ in wupd)
+        nbytes, b_ms, b_by = masked_bound(
+            st, slots, [sg[3] for sg in segs], [sg[2] for sg in segs], S,
+            wupd, n_upd)
+        calls = one_kernel_a_call(torch, fn, kernel, f"#2 {tag}")
         t_k = time_ms(torch, fn, REPS)
-        split = (launch_split(torch, fn, kernel, REPS) if tag == "scalar"
-                 else wide_split(torch, fn, kernel, gb._widemap, kernels,
-                                 REPS))
+        split = launch_split(torch, fn, kernel, REPS)
         t_p = time_ms(torch, plain, REPS)
         t_l = time_ms(torch, lib, REPS)
-        t_li = None if tag == "scalar" else library_idx_ms(
-            torch, gb, ref, V, M, slots, pane, sketches)
-        b_ms, b_by = bound(nbytes, n_upd)
-        print(f"kernel {name} {tag} P={P} pane={pane} R={ROWS} "
-              f"real={n_real} S={S} bound_bytes={nbytes} "
-              f"masked={m_rows} C={SLOTS} slots=uint16 updates={n_upd}: "
+        t_li = None if not len(gb._widemap) else library_idx_ms(
+            torch, gb, ref, V, M, cat, pane, sketches)
+        print(f"kernel groupby_fold_masked {tag} P={P} pane={pane} "
+              f"segments={len(segs)} R={len(base)} S={S} "
+              f"bound_bytes={nbytes} masked={m_rows} C={SLOTS} "
+              f"slots=uint16 updates={n_upd} kernels_a_call="
+              f"{calls:g}: "
               f"max_abs_err={err[0]:.3g} max_rel_err={err[1]:.3g} "
               f"kernel_ms={t_k:.4f} {split_text(split)} plain_ms={t_p:.4f} "
               f"library_ms={t_l:.4f} library_idx_ms="
@@ -3496,9 +3588,11 @@ def masked_kernel_checks(torch, seed, kernels, sketches, plan_fused_rule,
               f"bound_ms={b_ms:.5f} ({b_by})")
         row = dict(max_abs_err=err[0], max_rel_err=err[1], ms=t_k, **split,
                    plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
-                   library_ms=t_l, library_idx_ms=t_li)
-        rows[name if tag in ("scalar", "hh") else f"{name}/{tag}"] = row
-        del st, ref, got, gb
+                   library_ms=t_l, library_idx_ms=t_li, segments=len(segs),
+                   kernels_a_call=calls)
+        name = "groupby_fold_masked"
+        rows[name if tag == "scalar" else f"{name}/{tag}"] = row
+        del st, ref, got, gb, segs, base, V, M, slots, upd, wupd
         torch.cuda.empty_cache()
     return rows
 
@@ -4809,7 +4903,7 @@ def g1_parity(torch, seed, mods):
 def run_g1(torch, seed, kernels, mods):
     """The key-cardinality sweep: 262,144 hot keys and 2,048 fresh ones a
     batch, a tumbling 1 s window every 4 batches (the engine clock moved to
-    each boundary, so the 1 ms scan runs at each), to 3,000,000 distinct
+    each boundary, so the 1 ms scan runs at each), to 2,000,000 distinct
     keys; every window against the numpy twin, the device slots held at
     the layout's hot capacity."""
     plan_fused_rule, ColumnBatch, Trigger = mods
@@ -6975,31 +7069,31 @@ def masked_touch_check(torch, seed, kernels, plan_fused_rule, TorchGroupBy,
     V, M = gb._spec_values(cols, ROWS)
     M = M & base
     st = gb.init_state()
-    kernels.fold_masked_scalar_plain(st, base.roll(7), V.roll(7, 1),
-                                     M.roll(7, 1), slots, pane, gb._colmap)
+    NW = gb._widemap
+    kernels.fold_plain(st, base.roll(7), V.roll(7, 1), M.roll(7, 1), slots,
+                       pane, gb._colmap, NW)
     ref, got = clone_state(st), clone_state(st)
     kernels.reset_launches()
-    kernels.groupby_fold_masked_scalar(got, base, V, M, slots, pane,
-                                       gb._colmap)
-    kernels.fold_masked_scalar_plain(ref, base, V, M, slots, pane,
-                                     gb._colmap)
+    kernels.groupby_fold_masked(got, base, V, M, slots, pane, gb._colmap,
+                                NW)
+    kernels.fold_plain(ref, base, V, M, slots, pane, gb._colmap, NW)
     torch.cuda.synchronize()
-    check(kernels.TOUCH_LAUNCHES["groupby_fold_masked_scalar"] == 1,
+    check(kernels.TOUCH_LAUNCHES["groupby_fold_masked"] == 1,
           "#2 touch: the launch bumped no touch column")
     err = state_err(got, ref, exact=("n", "act", "mn", "mx", "touch"))
     m_rows = int(base.sum().item())
     check(int(got["touch"].long().sum()) - int(st["touch"].long().sum())
           == m_rows, "#2 touch: one count per masked row")
-    fn = functools.partial(kernels.groupby_fold_masked_scalar, got, base, V,
-                           M, slots, pane, gb._colmap)
+    fn = functools.partial(kernels.groupby_fold_masked, got, base, V, M,
+                           slots, pane, gb._colmap, NW)
     untracked = {k: v for k, v in got.items() if k != "touch"}
     t_k = time_ms(torch, fn, REPS)
-    t_u = time_ms(torch, lambda: kernels.groupby_fold_masked_scalar(
-        untracked, base, V, M, slots, pane, gb._colmap), REPS)
-    split = launch_split(torch, fn, "fold_masked_scalar_kernel", REPS)
+    t_u = time_ms(torch, lambda: kernels.groupby_fold_masked(
+        untracked, base, V, M, slots, pane, gb._colmap, NW), REPS)
+    split = launch_split(torch, fn, "groupby_fold_kernel", REPS)
     t_p = time_ms(torch, functools.partial(
-        kernels.fold_masked_scalar_plain, ref, base, V, M, slots, pane,
-        gb._colmap), REPS)
+        kernels.fold_plain, ref, base, V, M, slots, pane, gb._colmap, NW),
+        REPS)
     t32 = torch.zeros(SLOTS, dtype=torch.int32, device=dev)
     idx = slots.long()[base]
     ones = torch.ones_like(idx, dtype=torch.int32)
@@ -7022,7 +7116,7 @@ def masked_touch_check(torch, seed, kernels, plan_fused_rule, TorchGroupBy,
     nbytes = (ROWS + m_rows * (slots.element_size() + 5 * S)
               + touched * width * 8 + touched * 8)
     b_ms, b_by = bound(nbytes, m_rows * (len(gb._colmap) + 2))
-    print(f"kernel groupby_fold_masked_scalar/touch P={P} pane={pane} "
+    print(f"kernel groupby_fold_masked/touch P={P} pane={pane} "
           f"R={ROWS} real={n_real} masked={m_rows} C={SLOTS} slots=uint16 "
           f"bound_bytes={nbytes}: max_abs_err={err[0]:.3g} touch exact "
           f"kernel_ms={t_k:.4f} (without touch {t_u:.4f}) "
@@ -7033,7 +7127,7 @@ def masked_touch_check(torch, seed, kernels, plan_fused_rule, TorchGroupBy,
                bound_by=b_by, library_ms=t_l)
     del st, ref, got, untracked, gb
     torch.cuda.empty_cache()
-    return {"groupby_fold_masked_scalar/touch": row}
+    return {"groupby_fold_masked/touch": row}
 
 
 def m_values(rng, n):
@@ -7061,38 +7155,50 @@ def countmin_kernel_checks(torch, seed, kernels, dev):
     rows = {}
     rng = np.random.default_rng(seed + 120)
     vals = torch.from_numpy(m_values(rng, ROWS)).to(dev)
-    got = torch.zeros((M_DEPTH, M_WIDTH), device=dev)
-    ref = got.clone()
-    kernels.cms_update(got, vals)
-    kernels.cms_update_plain(ref, vals)
-    torch.cuda.synchronize()
-    check(torch.equal(got, ref), "cms_update: counts differ")
-    cells = torch.from_numpy(
-        np_cms_cells(vals.cpu().numpy(), M_DEPTH, M_WIDTH)
-        + np.arange(M_DEPTH)[:, None] * M_WIDTH).to(dev)
-    check(torch.equal(kernels._cms_cells_plain(vals, M_DEPTH, M_WIDTH),
-                      cells), "cms_update: the plain cells differ from the "
-          "numpy twin's")
-    flat = cells.reshape(-1)
-    ones = torch.ones(flat.shape, device=dev)
-    t_k = time_ms(torch, lambda: kernels.cms_update(got, vals), REPS)
-    split = launch_split(torch, lambda: kernels.cms_update(got, vals),
-                         "cms_update_kernel", REPS)
-    t_p = time_ms(torch, lambda: kernels.cms_update_plain(ref, vals), REPS)
-    t_l = time_ms(torch, lambda: ref.view(-1).index_add_(0, flat, ones),
-                  REPS)
-    # the values read once, the counts read and written once; one atomic
-    # add per (value, row)
-    nbytes = ROWS * 4 + 2 * M_DEPTH * M_WIDTH * 4
-    b_ms, b_by = bound(nbytes, ROWS * M_DEPTH)
-    print(f"kernel cms_update n={ROWS} d={M_DEPTH} w={M_WIDTH} "
-          f"bound_bytes={nbytes} updates={ROWS * M_DEPTH}: max_abs_err=0 "
-          f"kernel_ms={t_k:.4f} {split_text(split)} plain_ms={t_p:.4f} "
-          f"library_ms={t_l:.4f} bound_ms={b_ms:.5f} ({b_by})")
-    rows["cms_update"] = dict(max_abs_err=0.0, ms=t_k, **split,
-                              plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
-                              library_ms=t_l)
-    counts = got.clone()
+    uniform = torch.from_numpy(rng.integers(0, 1 << 20, ROWS).astype(
+        np.float32)).to(dev)
+    # #10 on M's stream and on a uniform one; the plain and library
+    # versions timed on M's only (their time does not depend on the mix)
+    for tag, v in (("", vals), ("/uniform", uniform)):
+        got = torch.zeros((M_DEPTH, M_WIDTH), device=dev)
+        ref = got.clone()
+        kernels.cms_update(got, v)
+        kernels.cms_update_plain(ref, v)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"cms_update{tag}: counts differ")
+        cells = torch.from_numpy(
+            np_cms_cells(v.cpu().numpy(), M_DEPTH, M_WIDTH)
+            + np.arange(M_DEPTH)[:, None] * M_WIDTH).to(dev)
+        check(torch.equal(kernels._cms_cells_plain(v, M_DEPTH, M_WIDTH),
+                          cells), "cms_update: the plain cells differ from "
+              "the numpy twin's")
+        flat = cells.reshape(-1)
+        ones = torch.ones(flat.shape, device=dev)
+        fn = functools.partial(kernels.cms_update, got, v)
+        name = "cms_update_kernel"
+        calls = one_kernel_a_call(torch, fn, name, f"cms_update{tag}")
+        t_k = time_ms(torch, fn, REPS)
+        split = launch_split(torch, fn, name, REPS)
+        if tag == "":
+            t_p = time_ms(torch, lambda: kernels.cms_update_plain(ref, v),
+                          REPS)
+            t_l = time_ms(torch, lambda: ref.view(-1).index_add_(
+                0, flat, ones), REPS)
+        # the values read once, the counts read and written once; one add
+        # per (value, row)
+        nbytes = ROWS * 4 + 2 * M_DEPTH * M_WIDTH * 4
+        b_ms, b_by = bound(nbytes, ROWS * M_DEPTH)
+        print(f"kernel cms_update{tag} n={ROWS} d={M_DEPTH} "
+              f"w={M_WIDTH} bound_bytes={nbytes} updates={ROWS * M_DEPTH}: "
+              f"max_abs_err=0 kernels_a_call={calls:g} "
+              f"kernel_ms={t_k:.4f} "
+              f"{split_text(split)} plain_ms={t_p:.4f} "
+              f"library_ms={t_l:.4f} bound_ms={b_ms:.5f} ({b_by})")
+        rows["cms_update" + tag] = dict(
+            max_abs_err=0.0, ms=t_k, **split, plain_ms=t_p, bound_ms=b_ms,
+            bound_by=b_by, library_ms=t_l)
+        if tag == "":
+            counts = got.clone()
     for n in (4096, 8192):
         q = torch.from_numpy(np.unique(m_values(rng, 4 * n))[:n]).to(dev)
         est = kernels.cms_query(counts, q)
@@ -7848,7 +7954,7 @@ def run_phase_n(torch, seed, kernels, sketches, mods, TorchGroupBy, dev):
     res = refold_result(node, em, rps, launches, row_pane, stream, t_check)
     check(res["triggers"] == res["want_triggers"],
           f"n5: {res['triggers']} triggers, {res['want_triggers']} rows")
-    check(launches["groupby_fold_masked_scalar"] == 0
+    check(launches["groupby_fold_masked"] == 0
           and launches["groupby_fold"] == 0
           and launches["sharded_fold"] > 0
           and res["routes"]["cached"] == 0 and res["routes"]["host"] > 0,
@@ -8210,8 +8316,6 @@ def main() -> int:
                 "ring_advance": "ring_advance/pct",
                 "ring_flip": "ring_flip/pct",
                 "ring_query": "ring_query/pct",
-                "groupby_fold_masked_scalar": "groupby_fold_masked_scalar",
-                "groupby_fold_masked_wide": "groupby_fold_masked_wide",
                 "tier_demote": "tier_demote/g1",
                 "tier_promote": "tier_promote/g2",
                 "multirule_fold_wide": "multirule_fold_wide/hll",
@@ -8227,8 +8331,7 @@ def main() -> int:
                  "multirule_fold": "e1", "multirule_fold_order": "e1",
                  "multirule_finalize": "e1",
                  "multirule_reset_pane": "e1",
-                 "groupby_fold_masked_scalar": "f2",
-                 "groupby_fold_masked_wide": "f1",
+                 "groupby_fold_masked": "f2",
                  "tier_demote": "g1", "tier_promote": "g2a",
                  "multirule_fold_wide": "h5_hll",
                  "multirule_finalize_wide": "h5_hll",
@@ -8273,8 +8376,13 @@ def main() -> int:
         entry["multirule_fold"][tag] = rows[f"multirule_fold/{tag}"]
     entry["multirule_finalize"]["hopping_subset"] = rows[
         "multirule_finalize/hopping_subset"]
-    entry["groupby_fold_masked_wide"]["hll_rule"] = rows[
-        "groupby_fold_masked_wide/hll"]
+    # #2 on F1's heavy_hitters and F3's hll rules, and a stale refold's
+    # group of segments in one launch
+    for tag in ("hh", "hll"):
+        entry["groupby_fold_masked"][f"{tag}_rule"] = rows[
+            f"groupby_fold_masked/{tag}"]
+    entry["groupby_fold_masked"]["segments"] = rows[
+        "groupby_fold_masked/segments"]
     # #1's touch branch (tiered key state), launched on the G paths
     entry["groupby_fold"]["touch"] = dict(
         rows["groupby_fold/touch"], launches_by_path={
@@ -8299,11 +8407,13 @@ def main() -> int:
     entry["segscan_shift"]["one_segment"] = rows["segscan_shift/one_segment"]
     entry["segscan_sort"]["one_segment"] = rows["segscan_sort/one_segment"]
     # #2's touch branch (tiered sliding rules), launched on the refold path
-    entry["groupby_fold_masked_scalar"]["touch"] = dict(
-        rows["groupby_fold_masked_scalar/touch"], launches_by_path={
-            p: touch[p]["groupby_fold_masked_scalar"]
-            for p in TOUCH_PATHS["groupby_fold_masked_scalar"]})
+    entry["groupby_fold_masked"]["touch"] = dict(
+        rows["groupby_fold_masked/touch"], launches_by_path={
+            p: touch[p]["groupby_fold_masked"]
+            for p in TOUCH_PATHS["groupby_fold_masked"]})
     entry["cms_query"]["at_8192"] = rows["cms_query/8192"]
+    # #10 on a uniform stream
+    entry["cms_update"]["uniform"] = rows["cms_update/uniform"]
     # the mesh (#23, #24): the pane vector's fold and merge (N4), the
     # sketch rules' folds and merges
     entry["sharded_fold"]["pane_vec"] = dict(
@@ -8318,7 +8428,7 @@ def main() -> int:
     # one kernel launch a fold chunk, for every mix of columns (the trace)
     entry["groupby_fold"]["launches_a_chunk"] = fold_trace["groupby_fold"]
     entry["sharded_fold"]["launches_a_chunk"] = fold_trace["sharded_fold"]
-    check(len(table["kernels"]) == 27 and len(entry) == 27, "kernel table")
+    check(len(table["kernels"]) == 26 and len(entry) == 26, "kernel table")
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,7 @@
 // The one-launch fold of a micro-batch chunk, shared by csrc/groupby.cu
-// (#1, DeviceGroupBy._fold_core, ekuiper_tpu/ops/groupby.py:348-441) and
+// (#1, DeviceGroupBy._fold_core, ekuiper_tpu/ops/groupby.py:348-441, and
+// #2, _fold_masked_impl, 353-354: _fold_core under the refold's row mask
+// over a refold's cached segments concatenated) and
 // csrc/sharded.cu (#23 / #24, ShardedGroupBy's local_fold,
 // ekuiper_tpu/parallel/sharded.py:221-331, 371-474): act, the scalar
 // columns, the touch count and the hll / hist / hh columns of one chunk in

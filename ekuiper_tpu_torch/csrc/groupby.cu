@@ -14,19 +14,21 @@
 //                        launch a chunk: act, the scalar columns, the touch
 //                        column's bump (379-385), the per-row pane vector
 //                        (334-338) and the hll / hist / hh branches
-//                        (419-439); csrc/fold.cuh
-// groupby_fold_masked_scalar replaces _fold_masked_impl (354): the same
-//                        fold under an explicit (mb,) row mask, into one
-//                        pane (the sliding refold's edge folds), the
-//                        touch column's bump included
+//                        (419-439); csrc/fold.cuh. It also replaces
+//                        _fold_masked_impl (353-354), which is _fold_core
+//                        under the refold's row mask: the sliding
+//                        refold's cached segments, concatenated, go into
+//                        its scratch pane in one launch a segment group
+//                        (ekuiper_tpu_torch/ops/groupby.py
+//                        fold_masked_many), base being their row masks
+//                        after WHERE
 // groupby_finalize_scalar replaces _finalize_impl/_finalize_dyn_impl ->
 //                        _finalize_body/_merged/_final_value (444-520)
 // groupby_reset_pane     replaces _reset_pane_impl (763), for every
 //                        component: the scalar ones, act, and the wide
 //                        sketch components of csrc/sketches.cu
 //
-// The sketch kernels (the wide fold, the wide finalize, heavy-hitter
-// recovery) live in csrc/sketches.cu and fill other rows of the same
+// The sketch kernels (the wide finalize, heavy-hitter recovery) live in csrc/sketches.cu and fill other rows of the same
 // finalize output: groupby_finalize_scalar writes each scalar spec's row
 // and act, and skips the sketch kinds.
 //
@@ -36,13 +38,12 @@
 // (65,536 rows, 16,384 slots) each takes longer than that; how much of
 // it is launch overhead and how much the body (for the folds, their
 // atomics at L2) is what chip_smoke.py's body_ms / kernel_ms split
-// reports. The fold is one launch a chunk for every mix of columns
-// (csrc/fold.cuh); the other entry points are one launch each, with no scratch and no second pass. The
-// masked fold reads the mask of every row of the padded batch, and the
-// slot, values and spec masks only of the rows the mask keeps (an edge
-// refold keeps a time cut of one bucket), whose atomics it issues; like
-// the fold, it takes far longer than its byte bound, its atomics at L2
-// being the likely limit.
+// reports. The fold is one launch a chunk (or a masked fold's segment
+// group) for every mix of columns (csrc/fold.cuh); the other entry points
+// are one launch each, with no scratch and no second pass. A masked
+// fold reads the mask of every row of the padded batches, and the slot,
+// values and spec masks only of the rows the mask keeps (an edge refold
+// keeps a time cut of one bucket), whose atomics it issues.
 
 #include <type_traits>
 
@@ -55,32 +56,6 @@ template <typename SlotT>
 __global__ void __launch_bounds__(FOLD_THREADS)
     groupby_fold_kernel(const __grid_constant__ FoldChunk a) {
   fold_body<SlotT>(a);
-}
-
-// The masked fold (#2): one thread per row of a cached, padded batch,
-// grid-stride. mask[r] is the refold's row mask after WHERE (the rows of
-// one bucket inside the window's time cut; padding rows are 0); M[s] is
-// already ANDed with it. Every row goes to the one pane `pane` (the
-// sliding refold's scratch pane). A row with mask 0 writes nothing, so
-// the padding past the batch's real rows (slot 0) changes no act, no
-// min/max identity, no counter. With a touch column (a tiered sliding
-// rule) each row past the mask adds one to its slot's uint32 counter, as
-// the reference's _fold_core does for its masked fold (groupby.py:379-385):
-// the edge refolds count as touches of the rule's scratch-pane state.
-template <typename SlotT>
-__global__ void fold_masked_scalar_kernel(const uint8_t* __restrict__ mask,
-                                          const float* __restrict__ V,
-                                          const uint8_t* __restrict__ M,
-                                          const SlotT* __restrict__ slots,
-                                          int R, int pane, int P, int C,
-                                          ColMap cm, Comps cp,
-                                          float* __restrict__ act,
-                                          unsigned int* __restrict__ touch) {
-  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < R;
-       r += gridDim.x * blockDim.x) {
-    if (!mask[r]) continue;
-    fold_scalar_row(cm, cp, V, M, slots, R, r, pane, P, C, act, touch);
-  }
 }
 
 // One thread per slot: finalize_slot (csrc/groupby_common.cuh) writes each
@@ -162,33 +137,6 @@ int groupby_fold(const uint8_t* base, const float* V, const uint8_t* M,
     err = launch_fold(groupby_fold_kernel<SlotT>, a, st);
   });
   return (int)err;
-}
-
-// The masked fold (#2). mask: device uint8 (R,), the row mask after WHERE;
-// V / M: device (S, R); slots: device (R,) of uint16 if slot_u16, else
-// int32; pane: the destination pane, inside [0, P). colmap: host int32
-// (ncols, 3) = (comp, k, spec). comp_ptrs / comp_k: host arrays of
-// N_COMPS device pointers (null = absent) and widths. touch: device
-// uint32 (C,), or null.
-int groupby_fold_masked_scalar(const uint8_t* mask, const float* V,
-                               const uint8_t* M, const void* slots,
-                               int slot_u16, int R, int pane, int P, int C,
-                               const int32_t* colmap, int ncols,
-                               float* const* comp_ptrs, const int32_t* comp_k,
-                               float* act, unsigned int* touch,
-                               void* stream) {
-  ColMap cm;
-  if (!make_colmap(colmap, ncols, &cm) || R < 0 || pane < 0 || pane >= P)
-    return (int)cudaErrorInvalidValue;
-  if (R == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const Comps cp = make_comps(comp_ptrs, comp_k);
-  cudaStream_t st = (cudaStream_t)stream;
-  with_slot_type(slots, slot_u16, [&](auto s) {
-    fold_masked_scalar_kernel<<<grid_for(R, threads), threads, 0, st>>>(
-        mask, V, M, s, R, pane, P, C, cm, cp, act, touch);
-  });
-  return (int)cudaGetLastError();
 }
 
 // spectab: host int32 (nspecs, 2 + N_COMPS) = (kind, k_n, k_s1, k_s2,

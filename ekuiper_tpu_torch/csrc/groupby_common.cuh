@@ -98,34 +98,6 @@ __device__ __forceinline__ void fold_row_columns(const ColMap& cm,
   }
 }
 
-// One row of a single rule's scalar fold into pane p: act and every scalar
-// column, for a row already past its row mask, and the row's touch count
-// when the state tracks touch (tiered key state: `touch` is the uint32
-// (C,) column, else null; the reference's touch.at[slots].add(base),
-// ekuiper_tpu/ops/groupby.py:379-385, pane-independent). A slot outside
-// [0, C) or a pane outside [0, P) is dropped, as XLA drops an
-// out-of-range scatter update. SlotT is the slot vector's type: uint16
-// while the key capacity is at most 65,535, int32 past it (the
-// reference's slot_dtype); a cached sliding batch keeps the type it was
-// uploaded with.
-template <typename SlotT>
-__device__ __forceinline__ void fold_scalar_row(const ColMap& cm,
-                                                const Comps& cp,
-                                                const float* __restrict__ V,
-                                                const uint8_t* __restrict__ M,
-                                                const SlotT* __restrict__ slots,
-                                                int n_rows, int r, int p, int P,
-                                                int C, float* __restrict__ act,
-                                                unsigned int* __restrict__ touch) {
-  const int slot = (int)slots[r];
-  if (slot < 0 || slot >= C) return;
-  if (touch != nullptr) atomicAdd(touch + slot, 1u);
-  if (p < 0 || p >= P) return;
-  const int64_t pc = (int64_t)p * C + slot;
-  atomicAdd(act + pc, 1.0f);
-  fold_row_columns(cm, cp, V, M, n_rows, r, pc);
-}
-
 // Pane merge of column k of one component for slot c under the pane mask.
 __device__ __forceinline__ float merged(const Comps& cp, int comp, int k,
                                         const uint8_t* pm, int P, int C,

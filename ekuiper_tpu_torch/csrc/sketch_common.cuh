@@ -127,23 +127,6 @@ __device__ __forceinline__ void fold_wide_columns(const float* __restrict__ V,
   }
 }
 
-// One row of the wide fold into pane p (fold_wide_columns), dropping a
-// slot outside [0, C) or a pane outside [0, P). SlotT: uint16 or int32, as
-// the scalar fold's (csrc/groupby_common.cuh fold_scalar_row). The mesh
-// (csrc/sharded.cu) refuses heavy_hitters at plan time.
-template <typename SlotT>
-__device__ __forceinline__ void fold_wide_row(const float* __restrict__ V,
-                                              const uint8_t* __restrict__ M,
-                                              const SlotT* __restrict__ slots,
-                                              int R, int r, int p, int P,
-                                              int C, const WideCols& wc,
-                                              const Wide& w,
-                                              const HistConsts& hc) {
-  const int slot = (int)slots[r];
-  if (slot < 0 || slot >= C || p < 0 || p >= P) return;
-  fold_wide_columns(V, M, R, r, (int64_t)p * C + slot, wc, w, hc);
-}
-
 // The heavy-hitters update of one (row, depth) (sketches.hh_update_parts
 // scattered by _fold_core, groupby.py:433-439): 1.0 added to the total
 // (counter 0) and to counter 1 + b of each set bit b < HH_BITS of `code`,

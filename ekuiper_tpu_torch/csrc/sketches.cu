@@ -12,19 +12,12 @@
 //   wide[c] : float32 (P, C, K_c, W_c) for c in hll (W 256), hist (W 1024),
 //             hh (W 2688); identity 0 (absent component: null)
 //
-// The fold of #1 (the hll / hist / hh branches of DeviceGroupBy._fold_core,
-// groupby.py:419-439) is csrc/groupby.cu's groupby_fold, which launches
-// one kernel for act, the scalar and the sketch columns; the device code
-// of its sketch roles is csrc/sketch_common.cuh's.
+// The folds of #1 and #2 (the hll / hist / hh branches of
+// DeviceGroupBy._fold_core, groupby.py:419-439, and of _fold_masked_impl,
+// 353-354) are csrc/groupby.cu's groupby_fold, one kernel for act, the
+// scalar and the sketch columns; the device code of its sketch roles is
+// csrc/sketch_common.cuh's.
 //
-// groupby_fold_masked_wide replaces the hll / hist / hh branches of
-//                       _fold_masked_impl (groupby.py:354) with
-//                       sketches.hll_parts / hist_bin / hh_update_parts:
-//                       the wide fold under an explicit (mb,) row mask
-//                       into one pane, after groupby_fold_masked_scalar
-//                       (csrc/groupby.cu): one launch for the hll / hist
-//                       columns and one for the hh columns, each only where
-//                       the batch has such columns.
 // groupby_finalize_wide replaces the hll and percentile_approx final
 //                       values of _final_value (groupby.py:510-519) with
 //                       sketches.hll_estimate / hist_quantile, and their
@@ -33,34 +26,20 @@
 //                       with sketches.hh_candidates (sketches.py:180-228).
 //
 // What bounds them on an H100 at the main path's sizes (65,536 rows,
-// 16,384 slots):
-// - the masked fold moves the rows in (~0.6 MB) and the touched register lines;
-//   each row issues 1 atomic (hll, hist) or 2·(1 + popcount(code)), at
-//   most 42, atomics (hh), so atomics at L2 rather than bytes are its
-//   likely limit. hll / hist: one thread per row, native float atomicAdd,
-//   and for the hll registers the float atomic max of
-//   csrc/groupby_common.cuh, a native integer atomicMax here (rho >= 0,
-//   so the float bits order as ints): no compare-and-swap loop. hh: one
-//   row's adds all land in two 84-byte cells (one a depth) of its key's
-//   10,752-byte block, so one thread per (row, depth) adds its cell's
-//   counters four at a time with sm_90's float4 atomics: at most 6
-//   atomics a cell instead of 1 + popcount(code), up to 21
-//   (fold_hh_kernel below, csrc/sketch_common.cuh fold_hh_cell).
-// - both finalizes read every live pane of their component once: 352 MB
-//   for the heavy-hitters hopping state (2 panes x 16,384 x 2,688 floats),
-//   0.105 ms at 3.35 TB/s; so they are bytes-bound. The hll / percentile
-//   finalize is the rule group's (csrc/sketch_common.cuh
-//   finalize_wide_warps: a warp a slot, float4 loads, warp shuffles, a
-//   persistent grid); the heavy-hitters one runs a block per slot, which
-//   reads the slot's contiguous counters coalesced, then recovers the
-//   128 cells' codes and their top-k in shared memory.
+// 16,384 slots): both finalizes read every live pane of their component
+// once: 352 MB for the heavy-hitters hopping state (2 panes x 16,384 x
+// 2,688 floats), 0.105 ms at 3.35 TB/s; so they are bytes-bound. The hll
+// / percentile finalize is the rule group's (csrc/sketch_common.cuh
+// finalize_wide_warps: a warp a slot, float4 loads, warp shuffles, a
+// persistent grid); the heavy-hitters one runs a block per slot, which
+// reads the slot's contiguous counters coalesced, then recovers the 128
+// cells' codes and their top-k in shared memory.
 //
-// The hashes, the hll register and rho, the histogram bin, the row fold
-// and the hll / percentile final values are csrc/sketch_common.cuh's,
+// The hashes, the hll register and rho, the histogram bin and the hll /
+// percentile final values are csrc/sketch_common.cuh's,
 // which the rule group's batched kernels (csrc/multirule.cu) share.
 
 #include "sketch_common.cuh"
-#include "slot_type.cuh"
 
 struct HHSpecs {  // heavy_hitters specs: k in the hh component, 2·topk, row
   int n;
@@ -68,87 +47,6 @@ struct HHSpecs {  // heavy_hitters specs: k in the hh component, 2·topk, row
   int k2[MAX_SPECS];
   int row[MAX_SPECS];  // first of the 2·k2 rows (k2 codes, then k2 est)
 };
-
-// The masked wide fold (#2): one thread per row of a cached, padded batch,
-// grid-stride, into the one pane `pane`. mask[r] is the refold's row mask
-// after WHERE (0 on padding rows), M[s] already ANDed with it; a row with
-// mask 0 is skipped before its spec masks are read. The hh columns go to
-// fold_hh_kernel under the same mask.
-template <typename SlotT>
-__global__ void fold_masked_wide_kernel(const uint8_t* __restrict__ mask,
-                                        const float* __restrict__ V,
-                                        const uint8_t* __restrict__ M,
-                                        const SlotT* __restrict__ slots, int R,
-                                        int pane, int P, int C, WideCols wc,
-                                        Wide w, HistConsts hc) {
-  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < R;
-       r += gridDim.x * blockDim.x) {
-    if (!mask[r]) continue;
-    fold_wide_row(V, M, slots, R, r, pane, P, C, wc, w, hc);
-  }
-}
-
-// ------------------------------------------------ the heavy-hitters fold
-// The hh branch of #2 (and the hh role of csrc/groupby.cu's one-launch
-// fold): for each hh column j whose spec mask M[spec_j, r] is set, row r
-// adds its code into column k_j of its key block (pane, slot) by
-// fold_hh_cell (csrc/sketch_common.cuh), one thread per (row, depth).
-// mask: #2's row mask, read before anything else of the row. Rows whose
-// slot is outside [0, C) add nothing.
-struct HHCols {  // the hh columns of a wide column map: k in hh, spec
-  int n;
-  int k[MAX_COLS];
-  int spec[MAX_COLS];
-};
-
-#define HH_FOLD_THREADS 256
-
-template <typename SlotT>
-__global__ void __launch_bounds__(HH_FOLD_THREADS) fold_hh_kernel(
-    const uint8_t* __restrict__ mask, const float* __restrict__ V,
-    const uint8_t* __restrict__ M, const SlotT* __restrict__ slots, int R,
-    int pane, int C, HHCols hc, float* __restrict__ hh, int K) {
-  const unsigned n = 2u * (unsigned)R;
-  for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    const int r = (int)(i >> 1), d = (int)(i & 1u);
-    if (!mask[r]) continue;
-    const int slot = (int)slots[r];
-    if (slot < 0 || slot >= C) continue;
-    const long long key = (long long)pane * C + slot;
-    for (int j = 0; j < hc.n; ++j) {
-      const int64_t at = (int64_t)hc.spec[j] * R + r;
-      if (!M[at]) continue;
-      fold_hh_cell(hh, key, K, hc.k[j], d, (uint32_t)(long long)V[at]);
-    }
-  }
-}
-
-// Moves the hh columns of wc into hc (the rest keep their order). An
-// error where an hh column has no hh state, 2·R passes 32 bits, or the
-// hh state is not 16-byte aligned.
-static cudaError_t split_hh_cols(WideCols* wc, HHCols* hc, const Wide& w,
-                                 int R) {
-  int n = 0;
-  hc->n = 0;
-  for (int j = 0; j < wc->n; ++j) {
-    if (wc->comp[j] == W_HH) {
-      hc->k[hc->n] = wc->k[j];
-      hc->spec[hc->n++] = wc->spec[j];
-    } else {
-      wc->comp[n] = wc->comp[j];
-      wc->k[n] = wc->k[j];
-      wc->spec[n++] = wc->spec[j];
-    }
-  }
-  wc->n = n;
-  if (hc->n == 0) return cudaSuccess;
-  if (w.p[W_HH] == nullptr || (long long)R * 2 > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(w.p[W_HH]) & 15u)
-    return cudaErrorMisalignedAddress;
-  return cudaSuccess;
-}
 
 // The wide finalize of one rule (csrc/sketch_common.cuh
 // finalize_wide_warps, #16's body as a group of one rule with K = C):
@@ -217,41 +115,6 @@ hh_finalize_kernel(const float* __restrict__ hh, int K,
 }
 
 extern "C" {
-
-// The masked wide fold (#2). mask: device uint8 (R,), the row mask after
-// WHERE; V / M: device (S, R); slots: device (R,) of uint16 if slot_u16,
-// else int32; pane: the destination pane, inside [0, P). colmap: host
-// int32 (ncols, 3) = (wide comp, k, spec). wide_ptrs / wide_k: host
-// arrays of N_WIDE device pointers (null = absent) and K. hist_consts:
-// host float32 (lo, hi, 1/lo, 1/log_gamma, log_gamma, center_scale).
-int groupby_fold_masked_wide(const uint8_t* mask, const float* V,
-                             const uint8_t* M, const void* slots, int slot_u16,
-                             int R, int pane, int P, int C,
-                             const int32_t* colmap, int ncols,
-                             float* const* wide_ptrs, const int32_t* wide_k,
-                             const float* hist_consts, void* stream) {
-  WideCols wc;
-  HHCols hh;
-  const Wide w = make_wide(wide_ptrs, wide_k);
-  if (!make_widecols(colmap, ncols, &wc) || R < 0 || pane < 0 || pane >= P)
-    return (int)cudaErrorInvalidValue;
-  const cudaError_t bad = split_hh_cols(&wc, &hh, w, R);
-  if (bad != cudaSuccess) return (int)bad;
-  if (R == 0 || ncols == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const HistConsts hc = make_hc(hist_consts);
-  cudaStream_t st = (cudaStream_t)stream;
-  with_slot_type(slots, slot_u16, [&](auto s) {
-    if (wc.n)
-      fold_masked_wide_kernel<<<grid_for(R, threads), threads, 0, st>>>(
-          mask, V, M, s, R, pane, P, C, wc, w, hc);
-    if (hh.n)
-      fold_hh_kernel<<<grid_for(2LL * R, HH_FOLD_THREADS), HH_FOLD_THREADS,
-                       0, st>>>(mask, V, M, s, R, pane, C, hh, w.p[W_HH],
-                                w.k[W_HH]);
-  });
-  return (int)cudaGetLastError();
-}
 
 // spectab: host int32 (nspecs, 3) = (kind WK_*, k, output row); fracs:
 // host float32 (nspecs,); hll_num: float32(alpha·m·m); out: device

@@ -1,5 +1,5 @@
 // The slot dtype of a fold's batch, shared by csrc/groupby.cu and
-// csrc/sketches.cu. Slots go up as uint16 while the capacity is at most
+// csrc/sharded.cu. Slots go up as uint16 while the capacity is at most
 // 65,535, else int32 (ekuiper_tpu_torch/ops/groupby.py slot_dtype), and a
 // sliding refold's cache may hold both, so every fold kernel is templated
 // on the slot type and instantiated once per dtype.

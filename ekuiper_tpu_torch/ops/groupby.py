@@ -34,7 +34,7 @@ folds (see ops/prefinalize.py).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -359,26 +359,140 @@ class TorchGroupBy:
         """Refold a cached pre-padded device batch into pane `pane_idx`
         under a host (micro_batch,) bool row mask, in place (the
         reference's fold_masked; rows outside the mask, the padding among
-        them, contribute nothing). dev_cols: each plan column and its
-        `__valid_<col>` mask (None where absent), as cached. Only the mask
-        crosses to the card; the row mask after WHERE goes to the masked
-        fold kernels (#2) with each spec's mask ANDed with it."""
-        cols = {k: v for k, v in dev_cols.items() if v is not None}
-        R = len(slots_dev)
-        if len(mask) != R:
-            raise ValueError(f"row mask of {len(mask)} for a batch of {R}")
+        them, contribute nothing): fold_masked_many of one segment."""
+        if len(mask) != len(slots_dev):
+            raise ValueError(f"row mask of {len(mask)} for a batch of "
+                             f"{len(slots_dev)}")
+        return self.fold_masked_many(state, [(dev_cols, slots_dev, mask)],
+                                     pane_idx)
+
+    def fold_masked_many(self, state: Dict[str, torch.Tensor],
+                         segments: Sequence[Tuple[
+                             Dict[str, Optional[torch.Tensor]], torch.Tensor,
+                             np.ndarray]],
+                         pane_idx: int) -> Dict[str, torch.Tensor]:
+        """Refold cached pre-padded device batches into pane `pane_idx`,
+        each under its host bool row mask, in place: the reference's
+        fold_masked of each segment in turn, in one masked-fold (#2) launch
+        a group of segments.
+
+        segments: (dev_cols, slots_dev, mask) each, dev_cols every plan
+        column and its `__valid_<col>` mask (None where absent), as
+        cached, mask one bool a row of slots_dev, or fewer (the rows past
+        it, a batch's padding, are off). Every mask crosses to the card
+        in ONE pinned, non-blocking copy, packed eight rows a byte. The
+        segments go in groups of consecutive segments whose columns,
+        slots, values and masks take at most FOLD_MASKED_GROUP_BYTES (64
+        MB; a segment alone past it is a group of its own). A group's
+        columns and slots are concatenated (the slots as int32 where the
+        group mixes uint16 and int32), a transient device copy within that
+        bound (a group of one segment reads its cached tensors in place);
+        its closures (WHERE, each spec's value and mask) run once over
+        them, then one launch folds the group."""
         pane = int(pane_idx)
         if not 0 <= pane < self.n_panes:
             raise ValueError(f"pane {pane} outside [0, {self.n_panes})")
-        base = self._where(cols, (R,)) & self.upload(mask, np.bool_)
-        V, M = self._spec_values(cols, R)
-        M = M & base
-        kernels.groupby_fold_masked_scalar(state, base, V, M, slots_dev, pane,
-                                           self._colmap)
-        if len(self._widemap):
-            kernels.groupby_fold_masked_wide(state, base, V, M, slots_dev,
-                                             pane, self._widemap)
+        segs, masks = [], []
+        for dev_cols, slots_dev, mask in segments:
+            if len(mask) > len(slots_dev):
+                raise ValueError(f"row mask of {len(mask)} for a batch of "
+                                 f"{len(slots_dev)}")
+            segs.append(({k: v for k, v in dev_cols.items()
+                          if v is not None}, slots_dev))
+            masks.append(mask)
+        if not segs:
+            return state
+        rows = [len(s) for _, s in segs]
+        packed, first = self._upload_masks(masks, rows)
+        j = 0
+        for group in self._masked_groups(segs):
+            k = j + len(group)
+            n = sum(rows[j:k])
+            if len(group) == 1:
+                cols, slots = group[0]
+            else:
+                cols = self._concat_columns(group)
+                slots = concat_slots([s for _, s in group])
+            base = self._where(cols, (n,)) & self._unpack_rows(
+                packed, first[j:k], rows[j:k])
+            V, M = self._spec_values(cols, n)
+            kernels.groupby_fold_masked(state, base, V, M & base, slots,
+                                        pane, self._colmap, self._widemap)
+            j = k
         return state
+
+    #: the transient device bytes of one group of masked-fold segments
+    FOLD_MASKED_GROUP_BYTES = 64 << 20
+
+    def _masked_groups(self, segs):
+        """fold_masked_many's groups of (columns, slots) segments, in
+        order."""
+        ncols = len(self.plan.columns)
+        # per row: each column and its validity mask, the int32 slot, each
+        # spec's value and mask with their temporaries, the WHERE, row and
+        # base masks
+        row_bytes = 5 * ncols + 10 * len(self.plan.specs) + 7
+        most = max(self.FOLD_MASKED_GROUP_BYTES // row_bytes, 1)
+        group, rows = [], 0
+        for seg in segs:
+            n = len(seg[1])
+            if group and rows + n > most:
+                yield group
+                group, rows = [], 0
+            group.append(seg)
+            rows += n
+        if group:
+            yield group
+
+    def _concat_columns(self, group) -> Dict[str, torch.Tensor]:
+        """A group's columns, segment after segment; a validity mask that
+        some segments lack is all true in those."""
+        names = {k for cols, _ in group for k in cols}
+        out = {}
+        for name in names:
+            parts = []
+            for cols, s in group:
+                t = cols.get(name)
+                if t is None:
+                    if not name.startswith("__valid_"):
+                        raise ValueError(f"a cached segment lacks {name}")
+                    t = torch.ones(len(s), dtype=torch.bool,
+                                   device=self.device)
+                parts.append(t)
+            out[name] = torch.cat(parts)
+        return out
+
+    def _upload_masks(self, masks: Sequence[np.ndarray],
+                      rows: Sequence[int]) -> Tuple[torch.Tensor, List[int]]:
+        """fold_masked_many's row masks as one uint8 tensor on the device,
+        each segment's a run of ceil(rows / 8) bytes, row r its bit r % 8
+        of byte r // 8 (the bits past a shorter mask off), through a pinned
+        staging buffer and ONE non-blocking copy on a CUDA device; and each
+        run's first byte."""
+        nbytes = [(n + 7) // 8 for n in rows]
+        first = np.cumsum([0] + nbytes[:-1]).tolist()
+        host = torch.zeros(sum(nbytes), dtype=torch.uint8,
+                           pin_memory=self.device.type == "cuda")
+        flat = host.numpy()
+        for f, m in zip(first, masks):
+            bits = np.packbits(np.asarray(m, dtype=np.bool_),
+                               bitorder="little")
+            flat[f:f + len(bits)] = bits
+        if self.device.type != "cuda":
+            return host, first
+        return host.to(self.device, non_blocking=True), first
+
+    def _unpack_rows(self, packed: torch.Tensor, first: Sequence[int],
+                     rows: Sequence[int]) -> torch.Tensor:
+        """The bool rows of consecutive segments from their packed runs
+        (_upload_masks), segment after segment."""
+        lo, hi = first[0], first[-1] + (rows[-1] + 7) // 8
+        shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+        bits = ((packed[lo:hi, None] >> shifts) & 1).reshape(-1).bool()
+        if all(n % 8 == 0 for n in rows[:-1]):
+            return bits[:sum(rows)]
+        return torch.cat([bits[8 * (f - lo):8 * (f - lo) + n]
+                          for f, n in zip(first, rows)])
 
     def _fold_chunk(self, state: Dict[str, torch.Tensor],
                     cols: Dict[str, torch.Tensor], n: int,
@@ -628,3 +742,13 @@ class TorchGroupBy:
         else:
             host.pop("touch", None)
         return host, cap
+
+
+def concat_slots(slots: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Segments' slots, one after another: uint16 kept where every segment
+    has it (joined as int16 views, the same bits), else int32."""
+    if all(s.dtype == torch.uint16 for s in slots):
+        return torch.cat([s.view(torch.int16) for s in slots]).view(
+            torch.uint16)
+    return torch.cat([s.view(torch.int16).to(torch.int32) & 0xFFFF
+                      if s.dtype == torch.uint16 else s for s in slots])

@@ -1,13 +1,14 @@
 """The port's CUDA kernels: their build, the wrappers that launch them, their
 plain PyTorch versions and their launch counts.
 
-Twenty-six kernels, written by hand in CUDA C++ for Hopper, each
-replacing one device program of the reference, and one helper kernel
+Twenty-four kernels, written by hand in CUDA C++ for Hopper, each
+replacing one device program of the reference (the fold's two: #1 and
+the masked fold #2, one kernel behind two wrappers), and one helper kernel
 that replaces none (the rule group's row order) (ekuiper_tpu/ops/groupby.py,
 ekuiper_tpu/ops/slidingring.py, ekuiper_tpu/parallel/multirule.py,
 ekuiper_tpu/ops/tierstore.py, ekuiper_tpu/ops/joinring.py,
 ekuiper_tpu/ops/segscan.py, ekuiper_tpu/ops/sketches.py and
-ekuiper_tpu/parallel/sharded.py). Four in
+ekuiper_tpu/parallel/sharded.py). Three in
 ekuiper_tpu_torch/csrc/groupby.cu (the fold's body in csrc/fold.cuh):
 
 - `groupby_fold` replaces `DeviceGroupBy._fold_impl` → `_fold_core`
@@ -36,12 +37,17 @@ ekuiper_tpu_torch/csrc/groupby.cu (the fold's body in csrc/fold.cuh):
   owning slot ranges in shared memory, no global atomic) took 4-25
   times as long at the main path's shape and are not kept
   (fold_routes.py, PERF.md).
-- `groupby_fold_masked_scalar` replaces `_fold_masked_impl` (groupby.py:354):
-  the same fold of a cached, padded batch under an explicit (mb,) row mask
-  (mask ∧ WHERE), into one pane: the sliding refold's edge folds, with
-  the touch column's bump of a tiered sliding rule. Bound as the fold's;
-  one thread per row, a row with mask 0 (a hole, or the padding past the
-  batch's real rows) writes nothing.
+- `groupby_fold_masked` replaces `_fold_masked_impl` (groupby.py:353-354),
+  which is `_fold_core` under the refold's row mask: groupby_fold's
+  kernel, counted apart, over a refold's cached, padded segments
+  concatenated (ops/groupby.py fold_masked_many), base their (mb,) row
+  masks ∧ WHERE, into one pane: act, the scalar, touch and sketch columns
+  of a segment group in ONE launch (the sliding refold's edge folds and a
+  stale window's whole refold). Bound: each segment's mask of every row,
+  and the slot, values and masks of the rows its mask keeps, summed over
+  the segments, with the state the group touches counted once; a row
+  with mask 0 (a hole, or the padding past a batch's real rows) writes
+  nothing.
 - `groupby_finalize_scalar` replaces `_finalize_impl`/`_finalize_dyn_impl`
   → `_finalize_body`/`_merged`/`_final_value` (groupby.py:444-520): pane
   merge under a (P,) mask tensor, the per-spec final value, and the
@@ -57,15 +63,10 @@ ekuiper_tpu_torch/csrc/groupby.cu (the fold's body in csrc/fold.cuh):
   Design: one launch covers every component; each pane of a component is
   one contiguous run, stored grid-stride and coalesced.
 
-And three in ekuiper_tpu_torch/csrc/sketches.cu, for the sketch
+And two in ekuiper_tpu_torch/csrc/sketches.cu, for the sketch
 aggregates (hll, percentile_approx, heavy_hitters), whose state
 components are wide: (P, C, K, W) with W = 256 / 1,024 / 2,688:
 
-- `groupby_fold_masked_wide` replaces the hll/hist/hh branches of
-  `_fold_masked_impl` (groupby.py:354): the wide fold under the refold's
-  row mask into one pane, beside groupby_fold_masked_scalar: one thread a
-  row for hll / hist, one a (row, depth) for hh (the hh cell adds of
-  groupby_fold's hh role).
 - `groupby_finalize_wide` replaces the `hll` and `percentile_approx`
   kinds of `_final_value` (groupby.py:510-519) and their pane merge:
   multirule_finalize_wide's body as a group of one rule (a warp per slot);
@@ -201,9 +202,11 @@ And two in ekuiper_tpu_torch/csrc/countmin.cu, for `CountMinSketch`
 
 - `cms_update` replaces `CountMinSketch._update_impl` (sketches.py:282):
   each value adds one into cell hash_f32(v, d + 2) % w of each row d.
-  One thread per value, d atomics. Bound: the values read once and the
-  counts read and written once (0.5 MB at 65,536 values into (4, 8192)),
-  but its n·d atomics at L2 are the likely limit.
+  Bound: the values read once and the counts read and written once (0.5
+  MB at 65,536 values into (4, 8192)). Design: a thread a value, the
+  lanes of a warp that hash to one cell adding their count with one
+  global atomic (`__match_any_sync`), so a heavy hitter's cell takes one
+  atomic a warp instead of one a value, at every width.
 - `cms_query` replaces `_query_impl` (sketches.py:288): each value's min
   over its d cells. Bound: the values, the n·d cells, the (n,) result.
 
@@ -228,12 +231,11 @@ partials of R row shards, (R·P', C, k[, W]), row shard r's block at r·P'
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and
 only there; for a CUDA tensor it launches the kernel or raises. A wrapper
 adds one to `LAUNCHES[name]` where it launches its kernel and nowhere else:
-`LAUNCHES` counts wrapper calls, and a call of `groupby_fold_masked_wide`
-whose widemap mixes hh with hll or hist columns launches two kernels for
-its one count; a rule-group fold's one count covers its pack and fold
-launches (and, called without an order, the order's call, counted under
-`multirule_fold_order`). `groupby_fold` and `sharded_fold` launch one
-kernel a call, whatever their columns.
+`LAUNCHES` counts wrapper calls; a rule-group fold's one count covers its
+pack and fold launches (and, called without an order, the order's call,
+counted under `multirule_fold_order`). Each count of `groupby_fold`,
+`groupby_fold_masked` and `sharded_fold` is one kernel, whatever their
+columns.
 """
 from __future__ import annotations
 
@@ -315,8 +317,7 @@ HLL_NUM = float(np.float32(0.7213 / (1.0 + 1.079 / sketches.HLL_M)
 
 #: launches of each kernel since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"groupby_fold": 0,
-                            "groupby_fold_masked_scalar": 0,
-                            "groupby_fold_masked_wide": 0,
+                            "groupby_fold_masked": 0,
                             "groupby_finalize_scalar": 0,
                             "groupby_reset_pane": 0,
                             "groupby_finalize_wide": 0,
@@ -349,7 +350,7 @@ ROW_PANE_LAUNCHES: Dict[str, int] = {"groupby_fold": 0,
                                      "sharded_fold": 0}
 #: of LAUNCHES' folds, those that bumped a touch column (tiered key state)
 TOUCH_LAUNCHES: Dict[str, int] = {"groupby_fold": 0,
-                                 "groupby_fold_masked_scalar": 0,
+                                 "groupby_fold_masked": 0,
                                  "sharded_fold": 0}
 
 #: the loaded libraries (SimpleNamespace(groupby=..., sketches=...,
@@ -439,15 +440,10 @@ def _load():
             gb = ctypes.CDLL(str(paths["groupby"]))
             gb.groupby_fold.argtypes = [P, P, P, P, I, I, I, P, I, I, P, I,
                                         P, I, P, P, P, P, P, P, P, P]
-            gb.groupby_fold_masked_scalar.argtypes = [P, P, P, P, I, I, I,
-                                                      I, I, P, I, P, P, P, P,
-                                                      P]
             gb.groupby_finalize_scalar.argtypes = [P, P, P, P, I, I, P, I,
                                                    I, P, P]
             gb.groupby_reset_pane.argtypes = [P, P, P, I, I, P]
             sk = ctypes.CDLL(str(paths["sketches"]))
-            sk.groupby_fold_masked_wide.argtypes = [P, P, P, P, I, I, I, I,
-                                                    I, P, I, P, P, P, P]
             sk.groupby_finalize_wide.argtypes = [P, P, P, I, I, P, P, I, P,
                                                  L, P, P]
             sk.groupby_hh_finalize.argtypes = [P, I, P, I, I, P, I, P, P]
@@ -494,11 +490,9 @@ def _load():
                                         P, I, P, I, P, P, P, P, P, P, P, P]
             sh.shard_merge.argtypes = [P, P, P, P, P, I, I, I, I, P, P, I, P]
             for lib, fns in ((gb, ("groupby_fold",
-                                   "groupby_fold_masked_scalar",
                                    "groupby_finalize_scalar",
                                    "groupby_reset_pane")),
-                             (sk, ("groupby_fold_masked_wide",
-                                   "groupby_finalize_wide",
+                             (sk, ("groupby_finalize_wide",
                                    "groupby_hh_finalize")),
                              (pf, ("groupby_components", "groupby_absorb")),
                              (sr, ("ring_advance", "ring_flip",
@@ -615,7 +609,26 @@ def groupby_fold(state: Dict[str, torch.Tensor], base: torch.Tensor,
     out-of-range slot is). A state holding a `touch` column (uint32 (C,),
     tiered key state) also counts each row past `base` into touch[slot].
     """
-    name = "groupby_fold"
+    _fold("groupby_fold", state, base, V, M, slots, pane, colmap, widemap,
+          pane_vec)
+
+
+def groupby_fold_masked(state: Dict[str, torch.Tensor], base: torch.Tensor,
+                        V: torch.Tensor, M: torch.Tensor, slots: torch.Tensor,
+                        pane: int, colmap: np.ndarray,
+                        widemap: np.ndarray) -> None:
+    """The masked fold (#2): groupby_fold's kernel into the one pane
+    `pane`, counted under its own name. base: bool (R,), a refold's row
+    masks ∧ WHERE over its cached, padded segments concatenated (0 on
+    their padding rows); V, M, slots, colmap, widemap as groupby_fold's
+    over the same rows (each spec's mask ANDed with base)."""
+    _fold("groupby_fold_masked", state, base, V, M, slots, pane, colmap,
+          widemap, None)
+
+
+def _fold(name, state, base, V, M, slots, pane, colmap, widemap,
+          pane_vec) -> None:
+    """groupby_fold's launch, counted under `name`."""
     if not _on_cuda(name, state):
         fold_plain(state, base, V, M, slots, pane, colmap, widemap, pane_vec)
         return
@@ -800,92 +813,6 @@ def fold_wide_plain(state, V, M, slots, pane, widemap,
             idx, wts = sketches.hh_update_parts(v, m.to(arr.dtype))
             flat.index_put_(((row[:, None] + idx).reshape(-1),),
                             wts.reshape(-1), accumulate=True)
-
-
-# ----------------------------------------------------------- masked fold
-def groupby_fold_masked_scalar(state: Dict[str, torch.Tensor],
-                               mask: torch.Tensor, V: torch.Tensor,
-                               M: torch.Tensor, slots: torch.Tensor,
-                               pane: int, colmap: np.ndarray) -> None:
-    """The masked fold (#2): fold a cached, padded batch into pane `pane`
-    of `state` in place, act and the scalar components, under the row mask
-    `mask` (bool (R,): the refold's rows ∧ WHERE; 0 on padding rows).
-
-    V: float32 (S, R); M: bool (S, R), each spec's mask already ANDed with
-    `mask`. slots: uint16 or int32 (R,). colmap: as groupby_fold's.
-    A state holding a `touch` column (a tiered sliding rule) also counts
-    each row past `mask` into touch[slot].
-    """
-    name = "groupby_fold_masked_scalar"
-    if not _on_cuda(name, state):
-        fold_masked_scalar_plain(state, mask, V, M, slots, pane, colmap)
-        return
-    act = state["act"]
-    P, C = act.shape
-    S, R = V.shape
-    dev = act.device
-    _check(name, mask, torch.bool, (R,), dev)
-    colmap = _check_batch(name, V, M, slots, pane, P, colmap, dev)
-    ptrs, ks = _comp_table(name, state)
-    touch = state.get("touch")
-    if touch is not None:
-        _check(name, touch, torch.uint32, (C,), dev)
-    lib = _load()
-    with torch.cuda.device(dev):
-        rc = lib.groupby.groupby_fold_masked_scalar(
-            _ptr(mask), _ptr(V), _ptr(M), _ptr(slots), _u16(slots), R,
-            int(pane), P, C, _ptr(colmap), len(colmap), _ptr(ptrs), _ptr(ks),
-            _ptr(act), _opt_ptr(touch), _stream(dev))
-        LAUNCHES[name] += 1
-        if touch is not None:
-            TOUCH_LAUNCHES[name] += 1
-    _raise_on(lib, name, rc)
-
-
-def fold_masked_scalar_plain(state, mask, V, M, slots, pane,
-                             colmap) -> None:
-    """Plain PyTorch version of groupby_fold_masked_scalar (the reference's
-    _fold_core under base = mask): the fold's, into one pane, the touch
-    column included."""
-    P, C = state["act"].shape
-    pc, ok = _pane_rows(pane, None, slots, P, C)
-    _fold_columns_plain(state, pc, mask & ok, V, M & ok, colmap)
-    _touch_plain(state, mask, slots)
-
-
-def groupby_fold_masked_wide(state: Dict[str, torch.Tensor],
-                             mask: torch.Tensor, V: torch.Tensor,
-                             M: torch.Tensor, slots: torch.Tensor, pane: int,
-                             widemap: np.ndarray) -> None:
-    """The masked fold (#2) of the wide sketch components, in place: mask,
-    V, M, slots and pane as groupby_fold_masked_scalar's; widemap as
-    groupby_fold's."""
-    name = "groupby_fold_masked_wide"
-    if not _on_cuda(name, state):
-        fold_masked_wide_plain(state, mask, V, M, slots, pane, widemap)
-        return
-    act = state["act"]
-    P, C = act.shape
-    S, R = V.shape
-    dev = act.device
-    _check(name, mask, torch.bool, (R,), dev)
-    widemap = _check_batch(name, V, M, slots, pane, P, widemap, dev)
-    ptrs, ks = _wide_table(name, state)
-    _check_wide_cols(name, widemap, ks)
-    lib = _load()
-    with torch.cuda.device(dev):
-        rc = lib.sketches.groupby_fold_masked_wide(
-            _ptr(mask), _ptr(V), _ptr(M), _ptr(slots), _u16(slots), R,
-            int(pane), P, C, _ptr(widemap), len(widemap), _ptr(ptrs),
-            _ptr(ks), _ptr(HIST_CONSTS), _stream(dev))
-        LAUNCHES[name] += 1
-    _raise_on(lib, name, rc)
-
-
-def fold_masked_wide_plain(state, mask, V, M, slots, pane, widemap) -> None:
-    """Plain PyTorch version of groupby_fold_masked_wide: fold_wide_plain
-    with the row mask ANDed into every spec mask."""
-    fold_wide_plain(state, V, M & mask, slots, pane, widemap)
 
 
 # -------------------------------------------------------------- finalize

@@ -128,7 +128,7 @@ class ShardedGroupBy(TorchGroupBy):
             self.note_rows(slots, n_rows)
         return super().fold(state, cols, slots, valid, pane_idx, n_rows)
 
-    def fold_masked(self, state, dev_cols, slots_dev, mask, pane_idx):
+    def fold_masked_many(self, state, segments, pane_idx):
         """The masked fold (#2) reads a single-chip state: a sharded
         rule's refolds take host rows through fold (the reference's)."""
         raise NotImplementedError(

@@ -60,8 +60,9 @@ of the reference's two implementations:
   batch is uploaded once, padded to the micro-batch, and kept on the card
   (`_dev_ring`, capped by the same budget, oldest entries evicted first).
   A trigger refolds its two edge buckets into the scratch pane, from the
-  cached batches under a row mask (`fold_masked`, the masked fold
-  kernels) or from the host rows of evicted ones, then finalizes the full
+  cached batches under a row mask (all of a trigger's cached segments in
+  one `fold_masked_many` call: one masked-fold launch a segment group)
+  or from the host rows of evicted ones, then finalizes the full
   panes and the scratch pane under one pane mask: heavy_hitters
   synchronously (source `"sync"`), the others on the emit worker
   (`"refold"` deliveries, source `"device-async"`), and resets the scratch
@@ -1905,8 +1906,11 @@ class FusedWindowAggNode(Node):
             elif b in self._ring:
                 stale = True  # pane recycled, rows still retained
         if stale:
+            # the window's time cuts apply to its end buckets only: every
+            # row of a bucket between them lies inside (lo, hi]
             full = []
-            edges = [(b, lo, hi) for b in range(b_lo, b_hi + 1)]
+            edges = [(b, lo if b == b_lo else None, hi if b == b_hi else None)
+                     for b in range(b_lo, b_hi + 1)]
             self.refold_counts["stale"] += 1
         elif b_lo == b_hi:
             edges = [(b_lo, lo, hi)]
@@ -1920,9 +1924,12 @@ class FusedWindowAggNode(Node):
                 full.append(b_hi)
             else:
                 edges.append((b_hi, None, hi))
-        used_scratch = False
+        used_scratch, cached = False, {}
         for b, lo_excl, hi_incl in edges:
-            used_scratch |= self._refold_bucket(b, lo_excl, hi_incl)
+            used_scratch |= self._refold_bucket(b, lo_excl, hi_incl, cached)
+        if cached:
+            self.state = self.gb.fold_masked_many(
+                self.state, list(cached.values()), self._scratch_pane)
         panes = sorted({b % R for b in full})
         if used_scratch:
             panes.append(self._scratch_pane)
@@ -1946,11 +1953,13 @@ class FusedWindowAggNode(Node):
             self._reset_pane_tiered(self._scratch_pane)
 
     def _refold_bucket(self, b: int, lo_excl: Optional[int],
-                       hi_incl: Optional[int]) -> bool:
+                       hi_incl: Optional[int], cached: dict) -> bool:
         """Refold bucket b's rows inside (lo_excl, hi_incl] into the
-        scratch pane: a cached segment through fold_masked (only its
-        (mb,) row mask crosses to the card), an evicted or uncached one
-        from its host rows. True if any row folded."""
+        scratch pane: an evicted or uncached segment from its host rows
+        here, a cached one into `cached` (its batch's tensors and row
+        mask, by the batch's slot tensor: the entries of one batch in
+        several buckets share one mask), which the trigger folds in one
+        fold_masked_many call. True if any row folded."""
         used = False
         devs = self._dev_ring.get(b, [])
         for i, (cols, valid, slots, ts) in enumerate(self._ring.get(b, [])):
@@ -1958,22 +1967,22 @@ class FusedWindowAggNode(Node):
             if dev is not None:
                 # the whole batch's tensors, this bucket's rows, and the
                 # whole batch's timestamps
-                dev_all, s_dev, bmask, ts = dev
-                m = bmask.copy()
+                dev_all, s_dev, m, ts = dev
             else:
                 m = np.ones(len(ts), dtype=np.bool_)
             if lo_excl is not None:
-                m &= ts > lo_excl
+                m = m & (ts > lo_excl)
             if hi_incl is not None:
-                m &= ts <= hi_incl
+                m = m & (ts <= hi_incl)
             if not m.any():
                 continue
             used = True
             if dev is not None:
-                mb = self.gb.micro_batch
-                self.state = self.gb.fold_masked(
-                    self.state, dev_all, s_dev, np.pad(m, (0, mb - len(m))),
-                    self._scratch_pane)
+                seg = cached.get(id(s_dev))
+                if seg is None:
+                    cached[id(s_dev)] = [dev_all, s_dev, m]
+                else:
+                    seg[2] = seg[2] | m
                 self.refold_counts["cached"] += 1
             else:
                 sel = np.nonzero(m)[0]

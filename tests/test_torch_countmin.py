@@ -152,3 +152,27 @@ def test_plain_versions_match_the_reference_kernels():
         j._query_padded(q))
     kernels.cms_update(counts, torch.zeros(0))
     assert kernels.cms_query(counts, torch.zeros(0)).shape == (0,)
+
+
+@pytest.mark.parametrize("calls", [1, 3, 7])
+@pytest.mark.parametrize("stream", ["skewed", "uniform"])
+def test_update_plain_version_matches_reference_streams(stream, calls):
+    """cms_update's plain version (on CPU tensors) against the JAX
+    sketch's update at phase M's shape, (4, 8192) counts and 65,536 values
+    a batch, on its skewed mix (7, 13 and 99 at 70 %; the cells the card's
+    kernel once serialized on) and on a uniform stream over [0, 2^20),
+    each batch in `calls` updates of uneven lengths: counts bit-equal, no
+    tolerance (integer counts below 2^24)."""
+    rng = np.random.default_rng(12 if stream == "skewed" else 13)
+    j = JaxCMS(depth=4, width=8192)
+    counts = torch.zeros((4, 8192))
+    for _ in range(2):
+        v = (skewed(rng, 65536) if stream == "skewed"
+             else rng.integers(0, 1 << 20, 65536).astype(np.float32))
+        cuts = np.sort(rng.choice(np.arange(1, 65536), calls - 1,
+                                  replace=False))
+        for part in np.split(v, cuts):
+            kernels.cms_update(counts, torch.from_numpy(part))
+        j.update(v)
+        np.testing.assert_array_equal(counts.numpy(), np.asarray(j.counts))
+    assert float(counts.sum()) == 2 * 4 * 65536

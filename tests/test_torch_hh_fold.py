@@ -1,5 +1,5 @@
 """Parity of the heavy-hitters fold (the hh role of #1 `groupby_fold`
-and #2 `groupby_fold_masked_wide`, through their plain PyTorch versions on
+and #2 `groupby_fold_masked`, through their plain PyTorch versions on
 CPU tensors) against the JAX package's DeviceGroupBy fold and masked fold
 on the CPU.
 

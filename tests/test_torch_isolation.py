@@ -629,17 +629,16 @@ def test_refold_rule_needs_cuda_unless_cpu_is_asked(options, monkeypatch):
 @pytest.mark.parametrize("slot_dtype", [torch.uint16, torch.int32])
 def test_masked_fold_wrappers_never_take_the_plain_versions(slot_dtype,
                                                             monkeypatch):
-    """The masked fold's two wrappers (#2), and the fold (#1) on uint16
-    slots, given CUDA tensors: the launch path fails loudly without a card
-    or nvcc, and no plain version runs; slots of another dtype, a row mask
-    of another shape or dtype and a pane outside the state are refused
-    before any build."""
+    """The masked fold's wrapper (#2) and the fold (#1) on uint16 slots,
+    given CUDA tensors: the launch path fails loudly without a card or
+    nvcc, and no plain version runs; slots of another dtype, a row mask of
+    another shape or dtype and a pane outside the state are refused before
+    any build."""
     _needs_no_card()
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     taken = []
-    for name in ("fold_masked_scalar_plain", "fold_masked_wide_plain",
-                 "fold_scalar_plain", "fold_wide_plain"):
+    for name in ("fold_plain", "fold_scalar_plain", "fold_wide_plain"):
         monkeypatch.setattr(kernels, name,
                             lambda *a, _n=name, **k: taken.append(_n))
     kernels.reset_launches()
@@ -660,30 +659,30 @@ def test_masked_fold_wrappers_never_take_the_plain_versions(slot_dtype,
     colmap = kernels.column_map({"n": [0]})
     widemap = kernels.wide_column_map({"hh": [0]})
     calls = [
-        lambda: kernels.groupby_fold_masked_scalar(state, mask, V, M, slots,
-                                                   P - 1, colmap),
-        lambda: kernels.groupby_fold_masked_wide(state, mask, V, M, slots,
-                                                 P - 1, widemap),
+        lambda: kernels.groupby_fold_masked(state, mask, V, M, slots, P - 1,
+                                            colmap, widemap),
+        lambda: kernels.groupby_fold_masked(state, mask, V, M, slots, P - 1,
+                                            colmap, NO_WIDE),
         lambda: kernels.groupby_fold(state, mask, V, M, slots, 0, colmap,
                                      widemap),
         lambda: kernels.groupby_fold(state, mask, V, M, slots, P - 1,
                                      colmap, widemap),
     ]
+    fn = kernels.groupby_fold_masked
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)  # fake data_ptr()
         for call in calls:
             with pytest.raises((RuntimeError, AssertionError)):
                 call()
-        for fn, cmap in ((kernels.groupby_fold_masked_scalar, colmap),
-                         (kernels.groupby_fold_masked_wide, widemap)):
+        for cmap, wmap in ((colmap, NO_WIDE), (NO_WIDE, widemap)):
             with pytest.raises(TypeError):
-                fn(state, mask, V, M, wrong["slots"], 0, cmap)
+                fn(state, mask, V, M, wrong["slots"], 0, cmap, wmap)
             with pytest.raises(ValueError):
-                fn(state, wrong["mask"], V, M, slots, 0, cmap)
+                fn(state, wrong["mask"], V, M, slots, 0, cmap, wmap)
             with pytest.raises(TypeError):
-                fn(state, wrong["mask_dtype"], V, M, slots, 0, cmap)
+                fn(state, wrong["mask_dtype"], V, M, slots, 0, cmap, wmap)
             with pytest.raises(ValueError):
-                fn(state, mask, V, M, slots, P, cmap)
+                fn(state, mask, V, M, slots, P, cmap, wmap)
     assert taken == []
     assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
 
@@ -714,7 +713,7 @@ def test_tier_wrappers_never_take_the_plain_versions(monkeypatch):
 
     taken = []
     for name in ("tier_demote_plain", "tier_promote_plain",
-                 "fold_scalar_plain", "fold_masked_scalar_plain"):
+                 "fold_scalar_plain", "fold_plain"):
         monkeypatch.setattr(kernels, name,
                             lambda *a, _n=name, **k: taken.append(_n))
     kernels.reset_launches()
@@ -738,8 +737,8 @@ def test_tier_wrappers_never_take_the_plain_versions(monkeypatch):
         lambda: kernels.tier_promote(state, packed, slots, comps),
         lambda: kernels.groupby_fold(state, base, V, M, slots, 0, colmap,
                                      NO_WIDE),
-        lambda: kernels.groupby_fold_masked_scalar(state, base, V, M, slots,
-                                                   1, colmap),
+        lambda: kernels.groupby_fold_masked(state, base, V, M, slots, 1,
+                                            colmap, NO_WIDE),
     ]
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)  # fake data_ptr()
@@ -747,9 +746,9 @@ def test_tier_wrappers_never_take_the_plain_versions(monkeypatch):
             with pytest.raises((RuntimeError, AssertionError)):
                 call()
         with pytest.raises(TypeError):
-            kernels.groupby_fold_masked_scalar(
+            kernels.groupby_fold_masked(
                 {**state, "touch": wrong["touch"]}, base, V, M, slots, 0,
-                colmap)
+                colmap, NO_WIDE)
         with pytest.raises(TypeError):
             kernels.tier_demote(state, wrong["slots"], 2, comps)
         with pytest.raises(ValueError):

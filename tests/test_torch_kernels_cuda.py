@@ -44,6 +44,7 @@ import pytest
 import torch
 
 from ekuiper_tpu_torch.ops import kernels
+from ekuiper_tpu_torch.ops.groupby import concat_slots
 from ekuiper_tpu_torch.ops.aggspec import encode_hll_column
 from ekuiper_tpu_torch.planner.fused import plan_fused_rule
 
@@ -267,10 +268,10 @@ def test_fold_hh_codes_past_20_bits(masked):
         base, V, M, slots, pv = _hh_inputs(g, 70 + seed, np.int32, masked,
                                            edge_codes=hb.PAST_CODES)
         if masked:
-            kernels.groupby_fold_masked_wide(got, base, V, M, slots, 1,
-                                             g._widemap)
-            kernels.fold_masked_wide_plain(ref, base, V, M, slots, 1,
-                                           g._widemap)
+            kernels.groupby_fold_masked(got, base, V, M, slots, 1,
+                                        g._colmap, g._widemap)
+            kernels.fold_plain(ref, base, V, M, slots, 1, g._colmap,
+                               g._widemap)
         else:
             kernels.groupby_fold(got, base, V, M, slots, 0, g._colmap,
                                  g._widemap, pv)
@@ -278,7 +279,7 @@ def test_fold_hh_codes_past_20_bits(masked):
                                g._widemap, pv)
     torch.cuda.synchronize()
     _same(got, ref, 1e-5)
-    name = "groupby_fold_masked_wide" if masked else "groupby_fold"
+    name = "groupby_fold_masked" if masked else "groupby_fold"
     assert kernels.LAUNCHES[name] == 3
 
 
@@ -1134,11 +1135,12 @@ def _masked_inputs(gb, seed, slot_dtype, rows=4096, n=3000, keys=300):
 @pytest.mark.parametrize("slot_dtype", [np.uint16, np.int32])
 @pytest.mark.parametrize("which", ["scalar", "wide", "hh", "hh2", "mixed"])
 def test_fold_masked_matches_plain(gb, sgb, which, slot_dtype):
-    """#2 against its plain version: the kernel over the padded batch,
-    the plain version over its real rows only, so the padding (slot 0,
-    mask 0) must change nothing; uint16 and int32 slots. hh2 / mixed:
-    tests/torch_hh_batches.py's heavy-hitters edge cases under their row
-    mask, hll, hist and hh bit-equal."""
+    """#2 against its plain version, one segment a launch: the kernel over
+    the padded batch, the plain version over its real rows only, so the
+    padding (slot 0, mask 0) must change nothing; uint16 and int32 slots;
+    act, the scalar columns and the wide ones of each kind in ONE launch.
+    hh2 / mixed: tests/torch_hh_batches.py's heavy-hitters edge cases
+    under their row mask, hll, hist and hh bit-equal."""
     if which in hb.PLANS:
         g = _hh_gb(which)
         pane = g.n_panes - 1
@@ -1147,13 +1149,13 @@ def test_fold_masked_matches_plain(gb, sgb, which, slot_dtype):
         for seed in range(3):
             base, V, M, slots, _ = _hh_inputs(g, 90 + seed, slot_dtype,
                                               masked=True)
-            kernels.groupby_fold_masked_wide(got, base, V, M, slots, pane,
-                                             g._widemap)
-            kernels.fold_masked_wide_plain(ref, base, V, M, slots, pane,
-                                           g._widemap)
+            kernels.groupby_fold_masked(got, base, V, M, slots, pane,
+                                        g._colmap, g._widemap)
+            kernels.fold_plain(ref, base, V, M, slots, pane, g._colmap,
+                               g._widemap)
         torch.cuda.synchronize()
-        _same(got, ref, 0)
-        assert kernels.LAUNCHES["groupby_fold_masked_wide"] == 3
+        _same(got, ref, 1e-5)
+        assert kernels.LAUNCHES["groupby_fold_masked"] == 3
         assert float(got["hh"][pane, :, 1].sum()) > 0
         assert float(got["hh"][:pane].abs().sum()) == 0
         return
@@ -1167,25 +1169,79 @@ def test_fold_masked_matches_plain(gb, sgb, which, slot_dtype):
     pane = g.n_panes - 1
     for seed in range(3):
         base, V, M, slots, n = _masked_inputs(g, 80 + seed, slot_dtype)
-        kernels.groupby_fold_masked_scalar(got, base, V, M, slots, pane,
-                                           g._colmap)
-        kernels.fold_masked_scalar_plain(ref, base[:n], V[:, :n], M[:, :n],
-                                         slots[:n], pane, g._colmap)
-        if len(wide):
-            kernels.groupby_fold_masked_wide(got, base, V, M, slots, pane,
-                                             wide)
-            kernels.fold_masked_wide_plain(ref, base[:n], V[:, :n],
-                                           M[:, :n], slots[:n], pane, wide)
+        kernels.groupby_fold_masked(got, base, V, M, slots, pane,
+                                    g._colmap, wide)
+        kernels.fold_plain(ref, base[:n], V[:, :n], M[:, :n], slots[:n],
+                           pane, g._colmap, wide)
     torch.cuda.synchronize()
     _same(got, ref, 1e-5)
-    assert kernels.LAUNCHES["groupby_fold_masked_scalar"] == 3
-    assert kernels.LAUNCHES["groupby_fold_masked_wide"] == (
-        3 if len(wide) else 0)
+    assert kernels.LAUNCHES["groupby_fold_masked"] == 3
     assert float(got["act"].sum()) > 0
     if which == "hh":
         assert float(got["hh"].sum()) > 0 and float(got["hll"].sum()) == 0
     if which == "wide":
         assert float(got["hll"].max()) > 0 and float(got["hh"].sum()) == 0
+
+
+def _segments(g, seed, nseg, slot_dtype, rows):
+    """nseg padded batches of `rows` rows as a refold caches them, each
+    with its own real rows, mask holes and padding (one segment's mask
+    empty, and past two segments one of no rows; slot_dtype "mixed":
+    uint16 and int32 segments in turn), as the masked fold's group (base,
+    V, M and the slots over every segment's rows, joined as
+    fold_masked_many joins them) and as the plain version's segments (the
+    same over each one's real rows)."""
+    parts, real = [], []
+    for j in range(nseg):
+        sdt = ((np.uint16, np.int32)[j % 2] if slot_dtype == "mixed"
+               else slot_dtype)
+        base, V, M, slots, k = _masked_inputs(
+            g, seed + j, sdt, rows=rows, n=rows * 3 // 4,
+            keys=g.capacity - 1)
+        if nseg > 2 and j == nseg // 2:  # a segment of no rows
+            base, V, M, slots, k = base[:0], V[:, :0], M[:, :0], slots[:0], 0
+        if nseg > 1 and j == 1:
+            base = torch.zeros_like(base)
+            M = torch.zeros_like(M)
+        parts.append((base, V, M, slots))
+        real.append((base[:k], V[:, :k], M[:, :k], slots[:k]))
+    group = (torch.cat([p[0] for p in parts]),
+             torch.cat([p[1] for p in parts], dim=1),
+             torch.cat([p[2] for p in parts], dim=1),
+             concat_slots([p[3] for p in parts]))
+    return group, real
+
+
+@pytest.mark.parametrize("slot_dtype", [np.uint16, np.int32, "mixed"])
+@pytest.mark.parametrize("which", ["scalar", "sketch"])
+@pytest.mark.parametrize("nseg", [1, 2, 300])
+def test_fold_masked_segments_match_plain(gb, sgb, which, nseg, slot_dtype):
+    """#2 over a refold's segment group in ONE launch: 1, 2 and 300
+    segments, among them an empty mask and a segment of no rows, on
+    uint16, int32 and mixed slots (joined as int32); the scalar rule and
+    the sketch rule (act, count, avg, hll, hist and hh in one launch)
+    against the plain version over each segment's real rows in turn; s1 /
+    s2 within rtol 1e-5, the rest bit-equal, the other panes untouched."""
+    g = gb if which == "scalar" else sgb
+    rows = 4096 if nseg < 300 else 96
+    (base, V, M, slots), real = _segments(g, 300 + nseg, nseg, slot_dtype,
+                                          rows)
+    mixed = slot_dtype == "mixed" and nseg > 1
+    assert slots.dtype == (torch.int32 if mixed or slot_dtype == np.int32
+                           else torch.uint16)
+    pane = g.n_panes - 1
+    kernels.reset_launches()
+    got, ref = g.init_state(), g.init_state()
+    kernels.groupby_fold_masked(got, base, V, M, slots, pane, g._colmap,
+                                g._widemap)
+    for rb, rV, rM, rs in real:
+        kernels.fold_plain(ref, rb, rV, rM, rs, pane, g._colmap, g._widemap)
+    torch.cuda.synchronize()
+    _same(got, ref, 1e-5)
+    assert kernels.LAUNCHES["groupby_fold_masked"] == 1
+    assert float(got["act"][pane].sum()) == float(sum(r[0].sum()
+                                                      for r in real))
+    assert float(got["act"][:pane].sum()) == 0
 
 
 @pytest.mark.parametrize("which", ["scalar", "sketch"])
@@ -1431,17 +1487,16 @@ def test_fold_masked_touch_column_matches_plain(tnode, slot_dtype):
         base &= torch.from_numpy(mask).to(gb.device)
         M &= base
         s = torch.from_numpy(slots.astype(slot_dtype)).to(gb.device)
-        kernels.groupby_fold_masked_scalar(got, base, V, M, s,
-                                           gb.n_panes - 1, gb._colmap)
-        kernels.fold_masked_scalar_plain(ref, base[:n], V[:, :n], M[:, :n],
-                                         s[:n], gb.n_panes - 1, gb._colmap)
+        kernels.groupby_fold_masked(got, base, V, M, s, gb.n_panes - 1,
+                                    gb._colmap, gb._widemap)
+        kernels.fold_plain(ref, base[:n], V[:, :n], M[:, :n], s[:n],
+                           gb.n_panes - 1, gb._colmap, gb._widemap)
     torch.cuda.synchronize()
-    assert kernels.TOUCH_LAUNCHES["groupby_fold_masked_scalar"] == 3
+    assert kernels.TOUCH_LAUNCHES["groupby_fold_masked"] == 3
     np.testing.assert_array_equal(got["touch"].cpu().numpy(),
                                   ref["touch"].cpu().numpy())
-    _same({k: v for k, v in got.items() if k in kernels.COMP_IDS
-           or k == "act"}, {k: v for k, v in ref.items()
-                            if k in kernels.COMP_IDS or k == "act"}, 1e-5)
+    _same({k: v for k, v in got.items() if k != "touch"},
+          {k: v for k, v in ref.items() if k != "touch"}, 1e-5)
     assert int(got["touch"].to(torch.int64).sum()) > int(
         tnode.state["touch"].to(torch.int64).sum())
 
@@ -1689,6 +1744,51 @@ def test_cms_update_and_query_match_plain(cuda_dev, depth, width, n):
     assert kernels.LAUNCHES["cms_query"] == 1
     np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
     np.testing.assert_array_equal(est.cpu().numpy(), want.cpu().numpy())
+    assert float(got.sum()) == 2 * depth * n
+
+
+def _cms_stream(kind, n, rng):
+    """Phase M's mix (7 at 35 %, 13 at 20 %, 99 at 15 %, the rest over
+    [100, 20,100)) or a uniform stream over [0, 2^20), with -0.0, +0.0 and
+    NaN among the first values."""
+    if kind == "mix":
+        u = rng.random(n)
+        v = np.where(u < 0.35, 7, np.where(u < 0.55, 13, np.where(
+            u < 0.7, 99, rng.integers(100, 20_100, n))))
+    else:
+        v = rng.integers(0, 1 << 20, n)
+    v = v.astype(np.float32)
+    v[:min(n, 3)] = [-0.0, 0.0, np.nan][:min(n, 3)]
+    return v
+
+
+CMS_CASES = [  # stream, depth, width, n
+    pytest.param("mix", 4, 8192, 65536, id="m_mix"),
+    pytest.param("uniform", 4, 8192, 65536, id="uniform"),
+    pytest.param("mix", 4, 8192, 1, id="n1"),
+    pytest.param("mix", 4, 8192, 65536 + 37, id="off_block"),
+    pytest.param("uniform", 3, 1000, 4099, id="width_1000"),
+    pytest.param("mix", 2, 65536, 20_000, id="past_shared_memory")]
+
+
+@pytest.mark.parametrize("kind,depth,width,n", CMS_CASES)
+def test_cms_update_streams_match_plain(cuda_dev, kind, depth, width, n):
+    """#10's warp-aggregated atomics bit-equal to the plain version
+    (integer counts under 2^24): at phase M's (4, 8192) on its mix and on
+    a uniform stream, one value, a count off a block multiple, a width
+    that is not a power of two, and a row of 256 KB, past a block's shared
+    memory."""
+    rng = np.random.default_rng(depth * width + n)
+    vals = torch.from_numpy(_cms_stream(kind, n, rng)).to(cuda_dev)
+    got = torch.zeros((depth, width), device=cuda_dev)
+    ref = got.clone()
+    kernels.reset_launches()
+    for _ in range(2):
+        kernels.cms_update(got, vals)
+        kernels.cms_update_plain(ref, vals)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["cms_update"] == 2
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
     assert float(got.sum()) == 2 * depth * n
 
 

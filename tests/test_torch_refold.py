@@ -567,3 +567,188 @@ def test_fold_masked_matches_reference(plan, slots_dtype):
     # nothing reached the other panes, the padding rows' slot 0 included
     for comp, arr in got.items():
         assert (arr[:3] == tgb.init_state()[comp][:3].numpy()).all(), comp
+
+
+def _segment(tgb, rng, n, sdt, code_pool=(7, 13, 21, 40), rows=MB):
+    """One cached segment of the refold: a padded batch of `rows` rows, n
+    of them real (as host arrays, each plan column and its validity
+    mask), its padded slots and a row mask with holes, 0 past the real
+    rows."""
+    v = rng.normal(20, 5, rows).astype(np.float32)
+    code = rng.choice(code_pool, rows).astype(np.float32)
+    cols = {}
+    for name in tgb.plan.columns:
+        if name.startswith(HLL_COL_PREFIX):
+            cols[name] = encode_hll_column(v, rows)
+        elif name.startswith(HH_COL_PREFIX):
+            cols[name] = code
+        else:
+            cols[name] = v
+    for arr in cols.values():
+        arr[n:] = 0
+    valid = ({"v": np.pad(rng.random(n) > 0.1, (0, rows - n))}
+             if "v" in cols else {})
+    slots = np.pad(rng.integers(0, CAP, n), (0, rows - n)).astype(sdt)
+    mask = np.pad(rng.random(n) > 0.3, (0, rows - n))
+    return cols, valid, slots, mask
+
+
+@pytest.mark.parametrize("nseg", [1, 3, 40])
+@pytest.mark.parametrize("plan", ["scalar", "sketch", "hh"])
+def test_fold_masked_many_matches_successive_reference(plan, nseg,
+                                                       monkeypatch):
+    """TorchGroupBy.fold_masked_many (the multi-segment masked fold's
+    plain version) against DeviceGroupBy.fold_masked called once a
+    segment on the same segments: 1, 3 and 40 padded 128-row batches with
+    holes in their masks, one mask empty, uint16 and int32 slots mixed at
+    40 (a group that mixes them folds its slots as int32), into pane 3 of
+    4 over a state
+    that already holds rows; at 40 a group bound of four segments' bytes
+    forces several groups, batches of 124-128 rows put segments off
+    8-row boundaries of the packed masks, and some masks end at their
+    batch's real rows (the port takes a mask shorter than its batch).
+    Counts, act, min/max and the sketch components exact; sums rtol
+    1e-5."""
+    import jax.numpy as jnp
+
+    sql = FOLD_SQL[plan]
+    jgb = DeviceGroupBy(jax_plan_of(jax_parse(sql)), capacity=CAP,
+                        n_panes=4, micro_batch=MB)
+    tgb = TorchGroupBy(extract_kernel_plan(parse_select(sql)), capacity=CAP,
+                       n_panes=4, micro_batch=MB, device="cpu")
+    if nseg == 40:
+        row_bytes = (5 * len(tgb.plan.columns) + 10 * len(tgb.plan.specs)
+                     + 7)
+        monkeypatch.setattr(tgb, "FOLD_MASKED_GROUP_BYTES",
+                            4 * MB * row_bytes)
+    rng = np.random.default_rng(70 + nseg + len(plan))
+    # pane 3 already holds rows
+    cols, valid, slots, _ = _segment(tgb, rng, 90, np.int32)
+    js = jgb.fold(jgb.init_state(), cols, slots, valid, 3)
+    ts = tgb.fold(tgb.init_state(), cols, slots, valid, 3)
+    segs = []
+    for j in range(nseg):
+        sdt = np.uint16 if (nseg < 40 or j % 7 < 4) else np.int32
+        rows = MB if nseg < 40 else MB - j % 5
+        n = int(rng.integers(40, rows + 1))
+        cols, valid, slots, mask = _segment(tgb, rng, n, sdt, rows=rows)
+        if nseg > 1 and j == 1:
+            mask[:] = False
+        jcols, tcols = {}, {}
+        for name in tgb.plan.columns:
+            jcols[name] = jnp.asarray(cols[name])
+            tcols[name] = torch.from_numpy(cols[name])
+            vm = valid.get(name)
+            jcols["__valid_" + name] = (None if vm is None
+                                        else jnp.asarray(vm))
+            tcols["__valid_" + name] = (None if vm is None
+                                        else torch.from_numpy(vm))
+        js = jgb.fold_masked(js, jcols, jnp.asarray(slots), mask, 3)
+        segs.append((tcols, torch.from_numpy(slots),
+                     mask[:n] if nseg == 40 and j % 3 == 0 else mask))
+    ts = tgb.fold_masked_many(ts, segs, 3)
+    got = tgb.state_to_host(ts)
+    for comp, r in jgb.state_to_host(js).items():
+        if comp in ("s1", "s2"):
+            np.testing.assert_allclose(got[comp], r, rtol=1e-5,
+                                       err_msg=comp)
+        else:
+            np.testing.assert_array_equal(got[comp], r, err_msg=comp)
+    groups = list(tgb._masked_groups([(c, s) for c, s, _ in segs]))
+    assert sum(len(g) for g in groups) == nseg
+    if nseg == 40:
+        assert 10 <= len(groups) < nseg
+        assert any(len({s.dtype for _, s in g}) == 2 for g in groups)
+
+
+def test_stale_refold_calls_the_masked_fold_once_a_group(pairs, monkeypatch):
+    """A stale whole-window refold (test_stale_pane_refolds_the_whole_window's
+    stream) folds its cached segments through the masked fold's wrapper
+    once a segment group (a group bound of three segments' bytes here),
+    not once a segment: a spy on kernels.groupby_fold_masked counts its
+    calls and their rows. Every window equals the JAX refold node's,
+    and refold_counts equal the JAX node's own route counts (its
+    fold_masked calls, and its folds of host rows into the scratch
+    pane)."""
+    calls = []
+    wrapper = nodes_fused_kernels().groupby_fold_masked
+
+    def spy(state, base, V, M, slots, *a, **k):
+        calls.append(len(slots))  # the group's rows
+        return wrapper(state, base, V, M, slots, *a, **k)
+
+    monkeypatch.setattr(nodes_fused_kernels(), "groupby_fold_masked", spy)
+    jclock = jax_timex.set_mock_clock(0)
+    tclock = timex.set_mock_clock(0)
+    try:
+        pair = pairs(SQL_DELAY)
+        row_bytes = (5 * len(pair.t.plan.columns)
+                     + 10 * len(pair.t.plan.specs) + 7)
+        monkeypatch.setattr(pair.t.gb, "FOLD_MASKED_GROUP_BYTES",
+                            3 * MB * row_bytes)
+        jroutes = {"cached": 0, "host": 0}
+        jgb = pair.j.gb
+        j_masked, j_fold = jgb.fold_masked, jgb.fold
+
+        def j_masked_spy(*a, **k):
+            jroutes["cached"] += 1
+            return j_masked(*a, **k)
+
+        def j_fold_spy(state, cols, slots, valid=None, pane_idx=0, *a, **k):
+            if np.isscalar(pane_idx) and pane_idx == pair.j._scratch_pane:
+                jroutes["host"] += 1
+            return j_fold(state, cols, slots, valid, pane_idx, *a, **k)
+
+        jgb.fold_masked, jgb.fold = j_masked_spy, j_fold_spy
+        many, groups = pair.t.gb.fold_masked_many, []
+
+        def many_spy(state, segments, pane):
+            segs = list(segments)
+            groups.append((len(segs), len(list(pair.t.gb._masked_groups(
+                [(c, s) for c, s, _ in segs])))))
+            return many(state, segs, pane)
+
+        pair.t.gb.fold_masked_many = many_spy
+        batches = random_trigger_batches(seed=29, n_batches=20, rows=40,
+                                         spike_every=23)
+        for b in batches:
+            t = int(b.timestamps[-1])
+            jclock.set(t)
+            pair.pump()
+            tclock.set(t)
+            pair.feed(b)
+        R, B = pair.t.n_ring_panes, pair.t.bucket_ms
+        lo_bucket = 10_000 // B
+        ts = (np.arange(6 * B, step=5) + (lo_bucket + 2 + R) * B).astype(
+            np.int64)
+        rng = np.random.default_rng(3)
+        ids = np.array([f"d{i}" for i in rng.integers(0, 5, len(ts))],
+                       dtype=np.object_)
+        pair.feed(JaxBatch(n=len(ts), columns={
+            "deviceId": ids,
+            "temp": rng.uniform(0, 88, len(ts)).astype(np.float32)},
+            timestamps=ts, emitter="s"))
+        jclock.advance(5_000)
+        pair.pump()
+        tclock.advance(5_000)
+        pair.check(min_triggers=10)
+        counts = pair.t.refold_counts
+        assert counts["stale"] >= 1, counts
+        assert counts["cached"] == jroutes["cached"] > 0
+        assert counts["host"] == jroutes["host"]
+        # one wrapper call a group, each of at most three segments
+        assert len(calls) == sum(g for _, g in groups)
+        assert max(calls) <= 3 * MB
+        segs, most = max(groups)
+        assert segs > most >= 2  # the stale refold: several groups
+        assert len(calls) < jroutes["cached"]
+    finally:
+        jax_timex.use_real_clock()
+        timex.use_real_clock()
+
+
+def nodes_fused_kernels():
+    """The kernels module the port's group-by launches through."""
+    from ekuiper_tpu_torch.ops import groupby
+
+    return groupby.kernels

@@ -811,7 +811,7 @@ def test_sliding_rule_on_mesh_takes_the_refold_path(nodes, monkeypatch):
     def no_masked(*a, **k):
         raise AssertionError("masked fold on a sharded state")
 
-    monkeypatch.setattr(kernels, "groupby_fold_masked_scalar", no_masked)
+    monkeypatch.setattr(kernels, "groupby_fold_masked", no_masked)
     t = plan_fused_rule(SLIDE, key_slots=64, micro_batch=MB, device=CPU8,
                         options={"planOptimizeStrategy": {
                             "mesh": {"rows": 2, "keys": 4}}})

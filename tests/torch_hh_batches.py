@@ -1,5 +1,5 @@
 """Edge-case batches for the heavy-hitters fold (the hh role of #1
-`groupby_fold` and #2 `groupby_fold_masked_wide`), made from a numpy
+`groupby_fold` and #2 `groupby_fold_masked`), made from a numpy
 seed. tests/test_torch_hh_fold.py holds the port's plain versions to the
 JAX package with them on the CPU. tests/test_torch_kernels_cuda.py holds
 the kernels to the plain versions with them on the card.

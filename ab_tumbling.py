@@ -40,6 +40,19 @@ work. `--phase` picks the rows:
 - `countmin`: #10 and #11's kernel rows of phase 2 (in a tree that has
   it, #10 on a uniform stream beside phase M's), then phase M's update
   values/s.
+- `join`: #20 at J1's 2,048² and J3's 16,384² (with the (PL, PR)
+  residual l.v > r.w and without one: kernel ms, body, host), then the
+  stages of one J1 and one J3 match (the key encode, the rebase, the
+  upload, the residual's torch pass, the kernel, the copy back, the
+  unpack or the byte mask's numpy and count) and the whole match, host
+  ms each a median of three calls ending in a synchronize; then phase J
+  of chip_smoke.py end to end (J1's match rows/s, J2's window p50 / p99,
+  J3's match wall); then, in a tree with the packed mask, the unpack at
+  256², 2,048² and 16,384² by task size and on one thread, beside the
+  (i, j) pairs read straight from the packed words.
+- `merge`: #23 / #24's `shard_merge` rows of phase 2 (the flagship
+  rule with touch, I3's 8-pane vector, the percentile and hll rules on a
+  2x4 mesh of the card: kernel, body, host, plain, library, bound).
 - `trace`: #16's wide finalize at H5's shapes (hll and pct families)
   timed by CUDA events alone, then on the same launches inside one
   profiler session by events and by the trace (after an idle sleep and
@@ -65,6 +78,8 @@ checkout unpacked into a directory that .gitignore lists:
     python3 ab_tumbling.py _archive/parent . --phase trace --out DIR
     python3 ab_tumbling.py _archive/parent . --phase refold --out DIR
     python3 ab_tumbling.py _archive/parent . --phase countmin --out DIR
+    python3 ab_tumbling.py _archive/parent . --phase join --out DIR
+    python3 ab_tumbling.py _archive/parent . --phase merge --out DIR
 
 With --out, each run's result is written to DIR/ab_<phase>_<tag><i>.json.
 The last line of the output is one JSON object {"a": [...], "b": [...]},
@@ -452,6 +467,139 @@ rows["m"] = dict(values_per_s=m["values_per_s"],
 print(json.dumps(rows))
 """
 
+JOIN = r"""
+from ekuiper_tpu_torch.planner import relational
+from ekuiper_tpu_torch.sql.parser import parse_select
+
+dev = torch.device("cuda")
+rows = {}
+rng = np.random.default_rng(2000)
+lo, hi = -cs.J_BAND, cs.J_BAND
+for n in (cs.J1_ROWS, cs.J3_ROWS):
+    (left, v), (right, w) = (cs.join_inputs(torch, rng, n, dev),
+                             cs.join_inputs(torch, rng, n, dev))
+    for tag, resid in (("resid", v[:, None] > w[None, :]), ("none", None)):
+        call = functools.partial(kernels.join_match, *left, *right, lo, hi,
+                                 resid)
+        rows[f"join_match/{n}/{tag}"] = dict(
+            ms=cs.time_ms(torch, call, cs.REPS),
+            **cs.launch_split(torch, call, "join_match_kernel", cs.REPS))
+    del left, right, v, w, resid
+    torch.cuda.empty_cache()
+
+
+def timed(fn, reps=3):
+    walls, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return out, sorted(walls)[len(walls) // 2]
+
+
+def byte_mask_stages(ring, lb, rb):
+    # the stages of a match that returns the byte mask (the parent's)
+    st = {}
+    (sl, sr), st["slots"] = timed(lambda: (ring._slots(lb), ring._slots(rb)))
+    (tl, tr), st["ts32"] = timed(lambda: ring._ts32(lb, rb))
+    pl, pr = (1 << (n - 1).bit_length() for n in (lb.n, rb.n))
+
+    def upload():
+        return [ring._to_dev(np.pad(a, (0, p - len(a))))
+                for a, p in ((sl, pl), (tl, pl), (np.arange(pl) < lb.n, pl),
+                             (sr, pr), (tr, pr), (np.arange(pr) < rb.n, pr))]
+
+    sides, st["upload"] = timed(upload)
+    res, st["residual"] = timed(lambda: ring._residual_mask(lb, rb, pl, pr))
+    mask, st["kernel"] = timed(lambda: kernels.join_match(
+        *sides, ring.lo, ring.hi, res))
+    host, st["copy"] = timed(lambda: mask[:lb.n, :rb.n].cpu())
+    _, st["unpack"] = timed(lambda: np.count_nonzero(host.numpy()))
+    _, st["match"] = timed(lambda: ring.match(lb, rb))
+    return st
+
+
+# one match's stages at J1's and J3's windows (J1's rule)
+stmt = parse_select(cs.J_RULE.format(jt="INNER"))
+ring = relational.lower_join(stmt, stmt.joins).build_ring()
+for tag, n, seed in (("j1", cs.J1_ROWS, 3000), ("j3", cs.J3_ROWS, 3200)):
+    r = np.random.default_rng(seed)
+    lb, rb = cs.j_batches(cs.j_side(r, n), cs.j_side(r, n))
+    ring.match(lb, rb)  # warm: the key table, the pinned buffer
+    st = (cs.j3_stages(torch, kernels, ring, lb, rb)
+          if hasattr(cs, "j3_stages") else byte_mask_stages(ring, lb, rb))
+    rows[f"{tag}_stages"] = {f"{k}_ms": v for k, v in st.items()}
+del ring
+torch.cuda.empty_cache()
+
+# phase J end to end, as chip_smoke.py runs it: J1's match leg, J2's rules
+from ekuiper_tpu_torch.data.batch import ColumnBatch
+from ekuiper_tpu_torch.planner.planner import plan_host_rule
+from ekuiper_tpu_torch.runtime.node import Node
+
+j = cs.run_phase_j(torch, 0, kernels, plan_host_rule, ColumnBatch, Node)
+rows["j1"] = dict(rows_per_s=j["j1"]["rows_per_s"],
+                  window_ms=2e3 * cs.J1_ROWS / j["j1"]["rows_per_s"])
+for jt, r in j["j2"].items():
+    rows[f"j2/{jt}"] = dict(p50_ms=r["p50"], p99_ms=r["p99"],
+                            rows_per_s=r["rows_per_s"])
+rows["j3"] = dict(match_ms=max(j["j3"]["match_ms"]),
+                  match_min_ms=min(j["j3"]["match_ms"]))
+
+# the unpack of packed masks at J2's, J1's and J3's widths (a density of
+# J1's pairs) by the tree's unpack_mask, with tasks of 2^20 to 2^26 bits
+# on its pool and on the calling thread alone (2^40), and the (i, j) pairs
+# read straight from the packed words (what a join step without the
+# unpack would need on the host)
+try:
+    from ekuiper_tpu_torch.ops import joinring
+    unpack_mask = joinring.unpack_mask
+except (ImportError, AttributeError):
+    unpack_mask = None
+
+
+def pairs_of(packed):
+    w = packed.view(np.uint64)
+    i, c = np.nonzero(w)
+    bits = np.unpackbits(w[i, c].view(np.uint8).reshape(-1, 8), axis=1,
+                         bitorder="little")
+    k, b = np.nonzero(bits)
+    return i[k], c[k] * 64 + b
+
+
+r = np.random.default_rng(7)
+for n in (256, cs.J1_ROWS, cs.J3_ROWS) if unpack_mask else ():
+    packed = np.zeros((n, n // 8), dtype=np.uint8)
+    hit = r.integers(0, n * n, n * n // 6000)
+    np.bitwise_or.at(packed.reshape(-1), hit // 8,
+                     (1 << (hit % 8)).astype(np.uint8))
+    (pi, pj), pairs_ms = timed(lambda: pairs_of(packed), 5)
+    rows[f"pairs/{n}"] = dict(pairs_ms=pairs_ms, hits=len(pi))
+    kept = joinring.UNPACK_TASK_BITS
+    for log2 in (20, 22, 24, 26, 40):
+        joinring.UNPACK_TASK_BITS = 1 << log2
+        (mask, hits), ms = timed(lambda: unpack_mask(packed, n), 5)
+        assert hits == len(pi) and mask[pi, pj].all()
+        rows[f"unpack/{n}/2^{log2}"] = dict(unpack_ms=ms)
+        del mask
+    joinring.UNPACK_TASK_BITS = kept
+print(json.dumps(rows))
+"""
+
+MERGE = r"""
+from ekuiper_tpu_torch.ops import sketches
+from ekuiper_tpu_torch.ops.groupby import TorchGroupBy
+from ekuiper_tpu_torch.planner.fused import plan_fused_rule
+
+dev = torch.device("cuda")
+rows = cs.sharded_kernel_checks(torch, 0, kernels, sketches, plan_fused_rule,
+                                TorchGroupBy, dev)
+print(json.dumps({k: v for k, v in rows.items()
+                  if k.startswith("shard_merge")}))
+"""
+
 HOST = r"""
 import statistics
 from ekuiper_tpu_torch.data.batch import ColumnBatch
@@ -493,7 +641,8 @@ print(json.dumps(dict(fold_idle_ms=statistics.median(idle), fold_b2b_ms=b2b,
 PHASES = {"tumbling": (TUMBLING, 600), "multirule": (MULTIRULE, 1500),
           "fold": (FOLD, 600), "host": (HOST, 600), "tier": (TIER, 900),
           "sketch": (SKETCH, 900), "trace": (TRACE, 900),
-          "refold": (REFOLD, 900), "countmin": (COUNTMIN, 600)}
+          "refold": (REFOLD, 900), "countmin": (COUNTMIN, 600),
+          "join": (JOIN, 600), "merge": (MERGE, 600)}
 #: the numbers of a multirule or fold row the summary keeps
 KEYS = ("chunk_ms", "ms", "fold_only_ms", "readback_ms", "scalar_pane_ms",
         "body_ms", "launches_a_chunk", "kernels_a_call", "one_row_ms",
@@ -503,7 +652,10 @@ KEYS = ("chunk_ms", "ms", "fold_only_ms", "readback_ms", "scalar_pane_ms",
         "segments", "stall_p50_ms", "stall_p99_ms",
         "stall_max_ms", "masked_calls", "masked_segments", "call_host_ms",
         "segment_host_ms", "device_span_ms", "refold_bucket_ms",
-        "values_per_s", "query_ms")
+        "values_per_s", "query_ms", "slots_ms", "ts32_ms", "upload_ms",
+        "residual_ms", "kernel_ms", "copy_ms", "unpack_ms", "unpack_1t_ms",
+        "match_ms", "match_min_ms", "window_ms", "p50_ms", "p99_ms",
+        "rows_per_s", "pairs_ms")
 
 
 def _fmt(v) -> str:

@@ -246,7 +246,9 @@ J. interval joins (bench.py:2500-2598 bench_join_heavy: 512 keys, times
    GROUP BY TUMBLINGWINDOW(ss, 10)` through plan_host_rule, 40 windows of
    256 rows a side on the mock clock, every window's rows against a
    Python nested loop in the reference's emission order; J3 J1's rule at
-   16,384 rows a side (a 268 MB mask), its kernel time beside its bound;
+   16,384 rows a side (a 268 MB mask, packed to 33.5 MB on the card),
+   its kernel time beside its bound and the host ms of each stage of a
+   match;
    0 fallback windows everywhere. Per run: match rows/s and pairs a
    window, window p50/p99, match ms;
 K. analytics over the flagship stream (10,000 devices): K1 `lag(
@@ -6483,8 +6485,9 @@ def phase_i_lines(i):
 def join_bytes(n, residual_cols=1):
     """#20's bytes at n rows a side: each side's slot, time (int32),
     validity (bool) and float32 residual columns read once, the (n, n)
-    bool mask written once."""
-    return 2 * n * (9 + 4 * residual_cols) + n * n
+    mask written once, packed one bit a pair (the function's output since
+    the mask is packed; a byte a pair before)."""
+    return 2 * n * (9 + 4 * residual_cols) + n * n // 8
 
 
 def join_inputs(torch, rng, n, dev):
@@ -6518,27 +6521,44 @@ def relational_kernel_checks(torch, seed, kernels, dev):
         want = kernels.join_match_plain(*left, *right, lo, hi, resid)
         torch.cuda.synchronize()
         check(bool(torch.equal(got, want)), f"join_match {n}: differs")
-        pairs = int(got.sum())
-        del got, want
+        bare = kernels.join_match(*left, *right, lo, hi)
+        check(bool(torch.equal(bare, kernels.join_match_plain(
+            *left, *right, lo, hi))), f"join_match {n}, no residual: differs")
+        pairs = int(np.unpackbits(got.cpu().numpy()).sum())
+        del got, want, bare
         call = functools.partial(kernels.join_match, *left, *right, lo, hi,
                                  resid)
         t_k = time_ms(torch, call, REPS)
         split = launch_split(torch, call, "join_match_kernel", REPS)
-        # the plain version is the library yardstick itself: torch's
-        # broadcast compares and ANDs
-        t_p = t_l = time_ms(torch, lambda: kernels.join_match_plain(
+        # the kernel without a residual: what a join with no (PL, PR)
+        # residual to read runs
+        t_bare = time_ms(torch, functools.partial(
+            kernels.join_match, *left, *right, lo, hi), REPS)
+        t_p = time_ms(torch, lambda: kernels.join_match_plain(
             *left, *right, lo, hi, resid), REPS)
+        # the library yardstick: torch's broadcast compares and ANDs, the
+        # byte mask (no PyTorch call packs bits)
+        t_l = time_ms(torch, lambda: (
+            (left[0][:, None] == right[0][None, :])
+            & (left[1][:, None] - right[1][None, :] >= lo)
+            & (left[1][:, None] - right[1][None, :] <= hi)
+            & left[2][:, None] & right[2][None, :] & resid), REPS)
         # the residual's torch pass that writes the (PL, PR) bool the
         # kernel reads: part of #20's work, outside the kernel's time
         t_r = time_ms(torch, lambda: v[:, None] > w[None, :], REPS)
         b_ms, b_by = bound(join_bytes(n), 0)
+        # the kernel's own bytes: the function's and the residual's read
+        k_ms, _ = bound(join_bytes(n) + n * n, 0)
         print(f"kernel join_match PL=PR={n} pairs={pairs}: max_abs_err=0 "
-              f"kernel_ms={t_k:.4f} residual_ms={t_r:.4f} "
-              f"{split_text(split)} plain_ms={t_p:.4f} "
-              f"library_ms={t_l:.4f} bound_ms={b_ms:.5f} ({b_by})")
+              f"kernel_ms={t_k:.4f} no_residual_ms={t_bare:.4f} "
+              f"residual_ms={t_r:.4f} {split_text(split)} "
+              f"plain_ms={t_p:.4f} library_ms={t_l:.4f} "
+              f"bound_ms={b_ms:.5f} ({b_by}; with the residual's read "
+              f"{k_ms:.5f})")
         rows[f"join_match/{n}"] = dict(
-            max_abs_err=0.0, ms=t_k, residual_ms=t_r, **split, plain_ms=t_p,
-            bound_ms=b_ms, bound_by=b_by, library_ms=t_l, pairs=pairs)
+            max_abs_err=0.0, ms=t_k, no_residual_ms=t_bare, residual_ms=t_r,
+            **split, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+            bound_with_residual_ms=k_ms, library_ms=t_l, pairs=pairs)
         del resid
         torch.cuda.empty_cache()
     for tag, B, slots in (("8192", K_SHIFT_SMALL, N_KEYS),
@@ -6817,9 +6837,10 @@ def run_j2(torch, seed, kernels, plan_host_rule, ColumnBatch, Node):
 
 
 def run_j3(torch, seed, kernels, ring_of):
-    """J3: J1's rule on windows of 16,384 rows a side (a 268 MB mask on the
-    card), through JoinRing.match; each mask against the twin, the
-    kernel's body time from a profiler trace against its bound."""
+    """J3: J1's rule on windows of 16,384 rows a side (a 268 MB mask,
+    33.5 MB packed on the card), through JoinRing.match; each mask against
+    the twin, the kernel's body time from a profiler trace against its
+    bound, then each stage of one match (j3_stages)."""
     rng = np.random.default_rng(seed + 3200)
     ring = ring_of(J_RULE.format(jt="INNER"))
     kernels.reset_launches()
@@ -6845,7 +6866,48 @@ def run_j3(torch, seed, kernels, ring_of):
     b_ms, b_by = bound(join_bytes(J3_ROWS), 0)
     return dict(match_ms=walls, body_ms=body, bound_ms=b_ms,
                 bound_by=b_by, pairs=pairs, launches=launches,
-                fallback=ring.fallback_windows_total)
+                fallback=ring.fallback_windows_total,
+                stages=j3_stages(torch, kernels, ring, lb, rb))
+
+
+def j3_stages(torch, kernels, ring, lb, rb, reps=3):
+    """Host ms of each stage of one JoinRing.match on J3's window, each a
+    median of `reps` calls that end in a synchronize: the key encode of
+    both sides, the event times' rebase, the padded sides' upload, the
+    residual's torch pass, the kernel, the packed rows' copy into pinned
+    memory, their unpack (with the count of matches; `unpack_1t` the same
+    by numpy on the calling thread alone, what the pool's tasks replace),
+    and the whole match."""
+    from ekuiper_tpu_torch.ops.joinring import unpack_mask
+
+    def timed(fn):
+        walls, out = [], None
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return out, statistics.median(walls)
+
+    st = {}
+    (sl, sr), st["slots"] = timed(lambda: (ring._slots(lb),
+                                           ring._slots(rb)))
+    (tl, tr), st["ts32"] = timed(lambda: ring._ts32(lb, rb))
+    (a, b), st["upload"] = timed(lambda: ring._upload(sl, tl, sr, tr))
+    res, st["residual"] = timed(lambda: ring._residual_mask(
+        lb, rb, len(a[0]), len(b[0])))
+    packed, st["kernel"] = timed(lambda: kernels.join_match(
+        *a, *b, ring.lo, ring.hi, res))
+    rows = packed[:lb.n]
+    host = torch.empty(rows.shape, dtype=torch.uint8, pin_memory=True)
+    _, st["copy"] = timed(lambda: host.copy_(rows, non_blocking=True))
+    _, st["unpack"] = timed(lambda: unpack_mask(host.numpy(), rb.n))
+    _, st["unpack_1t"] = timed(lambda: (np.unpackbits(
+        host.numpy(), axis=1, count=rb.n, bitorder="little"),
+        np.bitwise_count(host.numpy().view(np.uint64)).sum()))
+    _, st["match"] = timed(lambda: ring.match(lb, rb))
+    return st
 
 
 def collector(Node):
@@ -6903,8 +6965,9 @@ def phase_j_lines(j):
            f"body_ms={j3['body_ms']} "
            f"bound_ms={j3['bound_ms']:.5f} ({j3['bound_by']}) pairs="
            f"{j3['pairs']} fallback_windows={j3['fallback']} "
-           f"launches={nz_dict(j3['launches'])} (phase J wall "
-           f"{j['wall']:.1f} s)")
+           f"launches={nz_dict(j3['launches'])} stages_ms="
+           + " ".join(f"{k}={v:.3f}" for k, v in j3["stages"].items())
+           + f" (phase J wall {j['wall']:.1f} s)")
 
 
 def nz_dict(d):

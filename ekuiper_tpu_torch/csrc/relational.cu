@@ -11,23 +11,44 @@
 // join_match replaces JoinRing._match_impl (ekuiper_tpu/ops/joinring.py:186):
 //   mask[i, j] = slot_l[i] == slot_r[j] AND lo <= ts_l[i] - ts_r[j] <= hi
 //                AND vl[i] AND vr[j] AND residual[i, j]
-//   over the padded (PL, PR) candidate block, PL and PR powers of two. The
+//   over the padded (PL, PR) candidate block, PL and PR powers of two,
+//   written packed one bit a pair: row i is ceil(PR / 32) uint32 words,
+//   bit j % 32 of word j / 32 is mask[i, j] (numpy's packbits with
+//   bitorder "little" on a little-endian host; bits past PR are 0). The
 //   event times are rebased int32 (a call's range at most 2^28, NULL rows
 //   at the sentinels -2^30 / 2^30) and the band is clamped to +-2^28, so
 //   dt is formed in int32 exactly as the reference forms it and never
-//   overflows. The ON residual is the expression IR's bool result over the
-//   broadcast (PL, 1) / (1, PR) columns, computed by torch before the
-//   launch as the fold's WHERE closures are (ops/groupby.py); the kernel
-//   reads it through two strides, so a residual that depends on one side
-//   only stays (PL, 1) or (1, PR). Bound of the function (residual columns
-//   in, mask out): each side's slot, time, validity and float32 residual
-//   columns read once, PL * PR bytes written (268 MB at 16,384 a side,
-//   0.080 ms at 3.35 TB/s). The kernel itself also reads the materialised
-//   (PL, PR) residual, which torch's broadcast compare writes before it.
-//   Design: one thread per (i, j), neighbouring threads on neighbouring j,
-//   so the right side's columns are read and the mask written coalesced;
-//   grid.y walks the left rows (a grid-stride loop past 65,535).
-//
+//   overflows (the kernel subtracts modulo 2^32, as torch's int32 does).
+//   The ON residual is the expression IR's bool result over the broadcast
+//   (PL, 1) / (1, PR) columns, computed by torch before the launch as the
+//   fold's WHERE closures are (ops/groupby.py); the kernel reads it
+//   through its stride along i and a stride along j of 0 or 1 (the
+//   wrapper makes any other layout contiguous), so a residual that
+//   depends on one side only stays (PL, 1) or (1, PR).
+//   Bound of the function (residual columns in, mask out): each side's
+//   slot, time, validity and float32 residual columns read once, PL * PR
+//   bits written (33.5 MB at 16,384 a side, 0.010 ms at 3.35 TB/s). A
+//   (PL, PR) residual adds its PL * PR bytes to the kernel's own reads
+//   (268 MB, 0.080 ms): torch's broadcast compare writes it before.
+//   Design: a warp owns a strip of 1,024 columns (32 words). Lane l keeps
+//   the right side's slot and time of columns j0 + 32k + l, k < 32, in
+//   registers, loaded once a strip, and the validity of its own word's
+//   32 columns as a word (a ballot a k). The warp walks a run of rows: a
+//   row's slot, time and validity are loaded by one lane each, 32 rows at
+//   a time, and passed round by shuffles. For each k, __ballot_sync of
+//   "slot equal and dt in the band" is word k of the row, which lane k
+//   keeps; two rows a pass, so that the scheduler has two independent
+//   chains. The row's strip is then one 128-byte coalesced store. A (PL,
+//   PR) residual is read as 32 bytes a lane (two 16-byte loads issued
+//   before the pair's ballots, turned into a word by multiplies after
+//   them) and ANDed into the lane's word. A persistent grid (the card's
+//   SMs times the kernel's occupancy): work items of (strip, a run of at
+//   least 8 rows) sized so that each warp takes about one, so a strip's
+//   registers are loaded about once a warp. Each pair costs a lane about
+//   five instructions (the compares, its share of the ballot, the select),
+//   so without a (PL, PR) residual the kernel is bound by issue, not by
+//   its store.
+
 // segscan_shift replaces SegScan._shift_impl (ekuiper_tpu/ops/segscan.py:124):
 //   a stable sort of one micro-batch by slot (arrival order within a slot),
 //   then per row its row number continuing the carry's count, lag(1) (the
@@ -99,27 +120,197 @@
 __device__ __forceinline__ float qnan() { return __int_as_float(0x7fc00000); }
 
 // ------------------------------------------------------------------ #20
-__global__ void join_match_kernel(const int32_t* __restrict__ slot_l,
-                                  const int32_t* __restrict__ ts_l,
-                                  const uint8_t* __restrict__ vl,
-                                  const int32_t* __restrict__ slot_r,
-                                  const int32_t* __restrict__ ts_r,
-                                  const uint8_t* __restrict__ vr, int PL,
-                                  int PR, int lo, int hi,
-                                  const uint8_t* __restrict__ resid,
-                                  long long rs_i, long long rs_j,
-                                  uint8_t* __restrict__ mask) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= PR) return;
-  const int32_t sr = slot_r[j];
-  const int32_t tr = ts_r[j];
-  const bool okr = vr[j] != 0;
-  for (int i = blockIdx.y; i < PL; i += gridDim.y) {
-    const int32_t dt = ts_l[i] - tr;
-    bool m = okr && vl[i] != 0 && slot_l[i] == sr && dt >= lo && dt <= hi;
-    if (m && resid != nullptr) m = resid[i * rs_i + j * rs_j] != 0;
-    mask[(long long)i * PR + j] = m ? 1 : 0;
+#define JM_THREADS 256
+#define JM_WORDS 32  // words of 32 pairs a warp owns in a row: its strip
+#define JM_STRIP (32 * JM_WORDS)
+
+struct JoinArgs {
+  const int32_t* slot_l;
+  const int32_t* ts_l;
+  const uint8_t* vl;
+  const int32_t* slot_r;
+  const int32_t* ts_r;
+  const uint8_t* vr;
+  const uint8_t* resid;  // null, or read at i * rs_i (+ j when rs_j is 1)
+  long long rs_i;
+  uint32_t* mask;        // (PL, words)
+  int PL, PR, words, strips;
+  int rows;              // rows a work item takes
+  long long items;       // strips x ceil(PL / rows)
+  int lo;
+  uint32_t span;         // hi - lo; the band is empty when `empty`
+  bool empty;
+};
+
+// Four bytes of 0 / 1 as four bits, byte b to bit b: each byte's bit is
+// multiplied to bit 24 + b, and no two products share a bit.
+__device__ __forceinline__ uint32_t nibble(uint32_t v) {
+  return ((v & 0x01010101u) * 0x01020408u) >> 24;
+}
+
+// 32 residual bytes, loaded as two 16-byte halves, as a word.
+__device__ __forceinline__ uint32_t word_of(uint4 a, uint4 b) {
+  return nibble(a.x) | nibble(a.y) << 4 | nibble(a.z) << 8 |
+         nibble(a.w) << 12 | nibble(b.x) << 16 | nibble(b.y) << 20 |
+         nibble(b.z) << 24 | nibble(b.w) << 28;
+}
+
+// The residual's n (<= 32) bytes at p as a word, byte b to bit b.
+__device__ __forceinline__ uint32_t resid_word(const uint8_t* p, int n) {
+  if (n == 32 && (reinterpret_cast<uintptr_t>(p) & 15u) == 0)
+    return word_of(__ldg(reinterpret_cast<const uint4*>(p)),
+                   __ldg(reinterpret_cast<const uint4*>(p + 16)));
+  uint32_t w = 0u;
+  for (int b = 0; b < n; ++b) w |= (uint32_t)(p[b] != 0) << b;
+  return w;
+}
+
+// The ballots of two rows (slot s0 / s1, time less lo dl0 / dl1) against
+// the strip: word k of each row, kept by lane k. Two rows a pass give the
+// scheduler two independent chains.
+__device__ __forceinline__ void ballot_rows(const int32_t (&sr)[JM_WORDS],
+                                            const int32_t (&tr)[JM_WORDS],
+                                            int32_t s0, uint32_t dl0,
+                                            int32_t s1, uint32_t dl1,
+                                            uint32_t span, int lane,
+                                            uint32_t* w0, uint32_t* w1) {
+#pragma unroll
+  for (int k = 0; k < JM_WORDS; ++k) {
+    // ts_l - lo - ts_r = dt - lo, modulo 2^32: in [0, hi - lo] exactly
+    // when lo <= dt <= hi
+    const uint32_t b0 = __ballot_sync(
+        FULL_MASK, s0 == sr[k] && dl0 - (uint32_t)tr[k] <= span);
+    const uint32_t b1 = __ballot_sync(
+        FULL_MASK, s1 == sr[k] && dl1 - (uint32_t)tr[k] <= span);
+    if (lane == k) {
+      *w0 = b0;
+      *w1 = b1;
+    }
   }
+}
+
+// RES: 0 no residual; 1 one value a row (stride 0 along j); 2 a row of
+// values contiguous along j.
+template <int RES>
+__global__ void __launch_bounds__(JM_THREADS)
+    join_match_kernel(const __grid_constant__ JoinArgs a) {
+  const int lane = threadIdx.x & 31;
+  const long long nwarps = (long long)gridDim.x * (JM_THREADS / 32);
+  int loaded = -1;
+  int32_t sr[JM_WORDS], tr[JM_WORDS];
+  uint32_t vword = 0u;  // validity of this lane's word's 32 columns
+  for (long long it = ((long long)blockIdx.x * JM_THREADS + threadIdx.x) >> 5;
+       it < a.items; it += nwarps) {
+    const int strip = (int)(it % a.strips);
+    const int i0 = (int)(it / a.strips) * a.rows;
+    const int i1 = min(i0 + a.rows, a.PL);
+    const int j0 = strip * JM_STRIP;
+    const int nk = min(JM_WORDS, a.words - strip * JM_WORDS);  // in strip
+    if (strip != loaded) {  // columns past PR: invalid, never stored
+#pragma unroll
+      for (int k = 0; k < JM_WORDS; ++k) {
+        const int j = j0 + 32 * k + lane;
+        const bool in = j < a.PR;
+        sr[k] = in ? __ldg(a.slot_r + j) : 0;
+        tr[k] = in ? __ldg(a.ts_r + j) : 0;
+        const uint32_t v = __ballot_sync(FULL_MASK, in && a.vr[j] != 0);
+        if (lane == k) vword = v;
+      }
+      loaded = strip;
+    }
+    const int jw = j0 + 32 * lane;  // this lane's word's first column
+    const int nj = max(0, min(32, a.PR - jw));
+    const bool mine = lane < nk;  // this lane's word lies in the row
+    uint32_t rconst = ~0u;  // a (1, PR) residual: the same word every row
+    if (RES == 2 && a.rs_i == 0 && mine)
+      rconst = resid_word(a.resid + jw, nj);
+    // a (PL, PR) residual whose rows keep this lane's 32 bytes on a
+    // 16-byte boundary: loaded raw before a pair's ballots and turned into
+    // words after them, so the loads overlap the ballots
+    const bool rvec =
+        RES == 2 && mine && nj == 32 && a.rs_i != 0 &&
+        ((reinterpret_cast<uintptr_t>(a.resid + jw) | (uintptr_t)a.rs_i) &
+         15u) == 0;
+    for (int ib = i0; ib < i1; ib += 32) {
+      const int il = ib + lane;
+      int32_t sl = 0;
+      uint32_t tl = 0u;
+      bool ok = false;
+      if (il < i1) {
+        sl = __ldg(a.slot_l + il);
+        tl = (uint32_t)__ldg(a.ts_l + il) - (uint32_t)a.lo;
+        ok = !a.empty && a.vl[il] != 0;
+        if (RES == 1 && ok) ok = a.resid[il * a.rs_i] != 0;
+      }
+      const uint32_t rows_ok = __ballot_sync(FULL_MASK, ok);
+      const int nrow = min(32, i1 - ib);
+      for (int t = 0; t < nrow; t += 2) {
+        const int t1 = t + 1 < nrow ? t + 1 : t;
+        const long long r0 = ib + t, r1 = ib + t1;
+        uint4 x0 = {}, x1 = {}, x2 = {}, x3 = {};
+        if (rvec) {
+          const uint4* p0 =
+              reinterpret_cast<const uint4*>(a.resid + r0 * a.rs_i + jw);
+          const uint4* p1 =
+              reinterpret_cast<const uint4*>(a.resid + r1 * a.rs_i + jw);
+          x0 = __ldcs(p0);
+          x1 = __ldcs(p0 + 1);
+          x2 = __ldcs(p1);
+          x3 = __ldcs(p1 + 1);
+        }
+        uint32_t w0 = 0u, w1 = 0u;
+        if ((rows_ok >> t) & 3u)  // the same branch in every lane
+          ballot_rows(sr, tr, __shfl_sync(FULL_MASK, sl, t),
+                      __shfl_sync(FULL_MASK, tl, t),
+                      __shfl_sync(FULL_MASK, sl, t1),
+                      __shfl_sync(FULL_MASK, tl, t1), a.span, lane, &w0,
+                      &w1);
+        if (!((rows_ok >> t) & 1u)) w0 = 0u;
+        if (!((rows_ok >> t1) & 1u)) w1 = 0u;
+        uint32_t q0 = ~0u, q1 = ~0u;  // the residual's words
+        if (RES == 2 && mine) {
+          if (a.rs_i == 0) {
+            q0 = q1 = rconst;
+          } else if (rvec) {
+            q0 = word_of(x0, x1);
+            q1 = word_of(x2, x3);
+          } else {
+            q0 = resid_word(a.resid + r0 * a.rs_i + jw, nj);
+            q1 = resid_word(a.resid + r1 * a.rs_i + jw, nj);
+          }
+        }
+        if (mine) {
+          a.mask[r0 * a.words + strip * JM_WORDS + lane] = w0 & vword & q0;
+          if (t1 != t) a.mask[r1 * a.words + strip * JM_WORDS + lane] =
+              w1 & vword & q1;
+        }
+      }
+    }
+  }
+}
+
+// Blocks of #20's persistent grid: as many as the current card holds at
+// once (its SMs times the kernel's occupancy, cached a device and a
+// residual form), -1 on an error of the runtime.
+static int join_blocks(int res) {
+  static int cached[64][3] = {{0}};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+  int most = dev >= 0 && dev < 64 ? cached[dev][res] : 0;
+  if (most == 0) {
+    const void* k = res == 0   ? (const void*)join_match_kernel<0>
+                    : res == 1 ? (const void*)join_match_kernel<1>
+                               : (const void*)join_match_kernel<2>;
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, JM_THREADS,
+                                                      0) != cudaSuccess)
+      return -1;
+    most = sms * (per_sm > 0 ? per_sm : 1);
+    if (dev >= 0 && dev < 64) cached[dev][res] = most;
+  }
+  return most;
 }
 
 
@@ -526,19 +717,54 @@ static SortBufs bufs_of(char* s, const Layout& L) {
 
 extern "C" {
 
-// slot_* / ts_*: device int32 (P*,); v*: device bool (P*,); resid: device
-// bool read at i * rs_i + j * rs_j, or null; mask: device bool (PL, PR).
+// slot_* / ts_*: device int32 (P*,); v*: device bool (P*,); resid:
+// device bool read at i * rs_i + j * rs_j (rs_j 0 or 1), or null; mask:
+// device uint32 (PL, ceil(PR / 32)), the packed mask.
 int join_match(const int32_t* slot_l, const int32_t* ts_l, const uint8_t* vl,
                int PL, const int32_t* slot_r, const int32_t* ts_r,
                const uint8_t* vr, int PR, int lo, int hi, const uint8_t* resid,
-               long long rs_i, long long rs_j, uint8_t* mask, void* stream) {
-  if (PL < 0 || PR < 0) return (int)cudaErrorInvalidValue;
+               long long rs_i, long long rs_j, uint32_t* mask, void* stream) {
+  if (PL < 0 || PR < 0 || rs_i < 0 || (rs_j != 0 && rs_j != 1))
+    return (int)cudaErrorInvalidValue;
   if (PL == 0 || PR == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const dim3 grid(blocks_of(PR, threads), PL < 65535 ? PL : 65535);
-  join_match_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      slot_l, ts_l, vl, slot_r, ts_r, vr, PL, PR, lo, hi, resid, rs_i, rs_j,
-      mask);
+  JoinArgs a;
+  a.slot_l = slot_l;
+  a.ts_l = ts_l;
+  a.vl = vl;
+  a.slot_r = slot_r;
+  a.ts_r = ts_r;
+  a.vr = vr;
+  a.resid = resid;
+  a.rs_i = rs_i;
+  a.mask = mask;
+  a.PL = PL;
+  a.PR = PR;
+  a.words = (PR + 31) / 32;
+  a.strips = (a.words + JM_WORDS - 1) / JM_WORDS;
+  a.lo = lo;
+  a.empty = lo > hi;
+  a.span = (uint32_t)hi - (uint32_t)lo;
+  const int res = resid == nullptr ? 0 : rs_j == 0 ? 1 : 2;
+  const int most = join_blocks(res);
+  if (most < 0) return (int)cudaGetLastError();
+  // rows a work item: each warp of the grid about one item
+  const long long warps = (long long)most * (JM_THREADS / 32);
+  long long per_strip = warps / a.strips;
+  if (per_strip < 1) per_strip = 1;
+  // (at least 8 rows, so that loading a strip stays a small part of it)
+  long long rows = (PL + per_strip - 1) / per_strip;
+  if (rows < 8) rows = 8;
+  a.rows = (int)rows;
+  a.items = (long long)a.strips * ((PL + rows - 1) / rows);
+  const long long need = (a.items * 32 + JM_THREADS - 1) / JM_THREADS;
+  const int blocks = (int)(need < most ? need : most);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (res == 0)
+    join_match_kernel<0><<<blocks, JM_THREADS, 0, st>>>(a);
+  else if (res == 1)
+    join_match_kernel<1><<<blocks, JM_THREADS, 0, st>>>(a);
+  else
+    join_match_kernel<2><<<blocks, JM_THREADS, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 

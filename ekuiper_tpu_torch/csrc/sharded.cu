@@ -45,7 +45,19 @@
 // column, as the single-chip fold does (csrc/fold.cuh). The merge reads the
 // R partials once and reads and writes one pane of the state (all P panes
 // for the pane vector): (R + 2)·P'·C·width floats, plus the partials it
-// writes back to the identity (only the touched elements).
+// writes back to the identity (only the touched elements). Its design:
+// every component's merged elements (P'·C·K_c[·W] floats) and the touch
+// column's C counts form one flat index space of 16-byte units, each
+// component's run of blocks starting at an offset in the launch's table
+// (a block finds its component there), so the components merge in
+// parallel, in one launch sized to the space. A thread takes one unit
+// (four floats, or four uint32 counts), with the R partials' loads issued
+// together (eight at a time) and merged in r order, as the reference's
+// psum adds them; a unit that a pointer's 16-byte phase or a length cuts
+// (the run's head and tail, or a component whose partials lie at another
+// phase than its state) is merged element by element, by the same ops.
+
+#include <string.h>
 
 #include <type_traits>
 
@@ -55,15 +67,27 @@
 #include "slot_type.cuh"
 
 #define MAX_MERGE 16
-enum { OP_ADD = 0, OP_MIN = 1, OP_MAX = 2 };
+#define MERGE_THREADS 256
+#define MERGE_LOADS 8  // partials a thread loads at once
+enum { OP_ADD = 0, OP_MIN = 1, OP_MAX = 2, OP_TOUCH = 3 };
 
-struct MergeTab {  // every component: state, partials, one pane's floats
+// Every component of one merge, the touch column last: where its merged
+// elements go in the state and its row shard 0's partial (shard r's at r
+// · len), the elements a row shard holds, its first block in the flat
+// space, the state's phase in elements past a 16-byte boundary (unit u
+// is elements [4u - head, 4u - head + 4), so a whole unit is aligned),
+// whether the partials share the state's phase (then a whole unit is one
+// float4 each), its op and its identity's bits.
+struct MergeTab {
   int n;
-  float* state[MAX_MERGE];
-  float* part[MAX_MERGE];
-  long long len[MAX_MERGE];
-  int op[MAX_MERGE];
-  float ident[MAX_MERGE];
+  void* state[MAX_MERGE + 1];
+  void* part[MAX_MERGE + 1];
+  long long len[MAX_MERGE + 1];
+  long long block0[MAX_MERGE + 2];
+  int head[MAX_MERGE + 1];
+  int vec[MAX_MERGE + 1];
+  int op[MAX_MERGE + 1];
+  uint32_t ident[MAX_MERGE + 1];
 };
 
 // The one-launch sharded fold (#23, #24): csrc/fold.cuh fold_body over
@@ -83,49 +107,126 @@ __device__ __forceinline__ float merge_op(int op, float a, float b) {
   return __fadd_rn(a, b);
 }
 
-// One thread per element of one pane's worth of partials (P' panes of
-// C·K_c·W floats), grid-stride, each component in turn: the R row
-// shards' partials reduced in r order by the component's op, combined
-// into the state (pane `pane` when P' = 1, pane p for p < P' otherwise),
-// and every partial element that left the identity written back to it.
-// The touch counts: the R uint32 counts of a slot summed into touch[slot]
-// (wrapping modulo 2^32, as the fold's atomicAdd does) and zeroed.
-__global__ void shard_merge_kernel(MergeTab mt, int R, int P, int pane,
-                                   unsigned int* __restrict__ touch,
-                                   unsigned int* __restrict__ touch_part,
-                                   int C) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  for (int j = 0; j < mt.n; ++j) {
-    const int64_t total = (int64_t)P * mt.len[j];
-    float* part = mt.part[j];
-    float* dst = mt.state[j] + (P == 1 ? (int64_t)pane * mt.len[j] : 0);
-    const int op = mt.op[j];
-    const unsigned int ident = __float_as_uint(mt.ident[j]);
-    for (int64_t e = first; e < total; e += stride) {
-      float acc = part[e];
-      if (__float_as_uint(acc) != ident) part[e] = mt.ident[j];
-      for (int r = 1; r < R; ++r) {
-        const float v = part[(int64_t)r * total + e];
-        if (__float_as_uint(v) != ident) part[(int64_t)r * total + e] =
-            mt.ident[j];
-        acc = merge_op(op, acc, v);
-      }
-      dst[e] = merge_op(op, dst[e], acc);
-    }
-  }
-  if (touch == nullptr) return;
-  for (int64_t s = first; s < C; s += stride) {
-    unsigned int add = 0u;
+__device__ __forceinline__ float4 merge4(int op, float4 a, float4 b) {
+  return make_float4(merge_op(op, a.x, b.x), merge_op(op, a.y, b.y),
+                     merge_op(op, a.z, b.z), merge_op(op, a.w, b.w));
+}
+
+__device__ __forceinline__ uint4 add4(uint4 a, uint4 b) {
+  return make_uint4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// One element e of component j: the R partials in r order (a float's by
+// its op, the touch counts added modulo 2^32), combined into the state,
+// each partial that left the identity written back to it.
+__device__ __forceinline__ void merge_one(const MergeTab& mt, int j, int R,
+                                          long long e) {
+  const long long len = mt.len[j];
+  const uint32_t id = mt.ident[j];
+  uint32_t* part = (uint32_t*)mt.part[j] + e;
+  uint32_t* dst = (uint32_t*)mt.state[j] + e;
+  if (mt.op[j] == OP_TOUCH) {
+    uint32_t add = 0u;
     for (int r = 0; r < R; ++r) {
-      const unsigned int v = touch_part[(int64_t)r * C + s];
+      const uint32_t v = part[r * len];
       if (v != 0u) {
         add += v;
-        touch_part[(int64_t)r * C + s] = 0u;
+        part[r * len] = 0u;
       }
     }
-    if (add != 0u) touch[s] += add;
+    if (add != 0u) *dst += add;
+    return;
   }
+  const int op = mt.op[j];
+  float acc = 0.f;
+  for (int r = 0; r < R; ++r) {
+    const uint32_t v = part[r * len];
+    if (v != id) part[r * len] = id;
+    acc = r == 0 ? __uint_as_float(v) : merge_op(op, acc, __uint_as_float(v));
+  }
+  *dst = __float_as_uint(merge_op(op, __uint_as_float(*dst), acc));
+}
+
+__device__ __forceinline__ bool same4(float4 v, uint32_t b) {
+  return __float_as_uint(v.x) == b && __float_as_uint(v.y) == b &&
+         __float_as_uint(v.z) == b && __float_as_uint(v.w) == b;
+}
+
+// One 16-byte unit of a float component at element e (past the state's
+// head, so every pointer is on a 16-byte boundary): merge_one's ops four
+// elements at a time, the R partials' loads issued MERGE_LOADS at a time.
+__device__ __forceinline__ void merge_unit(const MergeTab& mt, int j, int R,
+                                           long long e) {
+  const int op = mt.op[j];
+  const uint32_t id = mt.ident[j];
+  const float fid = __uint_as_float(id);
+  const long long step = mt.len[j] / 4;  // a row shard, in units
+  float4* part = reinterpret_cast<float4*>((float*)mt.part[j] + e);
+  float4* dst = reinterpret_cast<float4*>((float*)mt.state[j] + e);
+  const float4 d = *dst;
+  float4 acc = make_float4(fid, fid, fid, fid);
+  for (int r0 = 0; r0 < R; r0 += MERGE_LOADS) {
+    float4 v[MERGE_LOADS];
+#pragma unroll
+    for (int q = 0; q < MERGE_LOADS; ++q)
+      if (r0 + q < R) v[q] = __ldcs(part + (r0 + q) * step);
+#pragma unroll
+    for (int q = 0; q < MERGE_LOADS; ++q) {
+      if (r0 + q < R) {
+        if (!same4(v[q], id))
+          part[(r0 + q) * step] = make_float4(fid, fid, fid, fid);
+        acc = r0 + q == 0 ? v[q] : merge4(op, acc, v[q]);
+      }
+    }
+  }
+  *dst = merge4(op, d, acc);
+}
+
+// The touch column's unit: four slots' R counts added, zeroed, and added
+// into the state where any is not 0.
+__device__ __forceinline__ void touch_unit(const MergeTab& mt, int R,
+                                           int j, long long e) {
+  const long long step = mt.len[j] / 4;
+  uint4* part = reinterpret_cast<uint4*>((uint32_t*)mt.part[j] + e);
+  uint4* dst = reinterpret_cast<uint4*>((uint32_t*)mt.state[j] + e);
+  uint4 acc = make_uint4(0u, 0u, 0u, 0u);
+  for (int r0 = 0; r0 < R; r0 += MERGE_LOADS) {
+    uint4 v[MERGE_LOADS];
+#pragma unroll
+    for (int q = 0; q < MERGE_LOADS; ++q)
+      if (r0 + q < R) v[q] = __ldcs(part + (r0 + q) * step);
+#pragma unroll
+    for (int q = 0; q < MERGE_LOADS; ++q) {
+      if (r0 + q < R && (v[q].x | v[q].y | v[q].z | v[q].w) != 0u) {
+        part[(r0 + q) * step] = make_uint4(0u, 0u, 0u, 0u);
+        acc = add4(acc, v[q]);
+      }
+    }
+  }
+  if ((acc.x | acc.y | acc.z | acc.w) != 0u) *dst = add4(*dst, acc);
+}
+
+// The merge of every component (#23's psum / pmin / pmax and the pane
+// combine, #24's over every pane): a thread a 16-byte unit of the flat
+// space, its block's component from the table.
+__global__ void __launch_bounds__(MERGE_THREADS)
+    shard_merge_kernel(const __grid_constant__ MergeTab mt, int R) {
+  int j = 0;
+  while (j + 1 < mt.n && mt.block0[j + 1] <= (long long)blockIdx.x) ++j;
+  const long long u =
+      ((long long)blockIdx.x - mt.block0[j]) * MERGE_THREADS + threadIdx.x;
+  const long long e = 4 * u - mt.head[j];
+  const long long len = mt.len[j];
+  if (e >= len) return;
+  if (mt.vec[j] && e >= 0 && e + 4 <= len) {
+    if (mt.op[j] == OP_TOUCH)
+      touch_unit(mt, R, j, e);
+    else
+      merge_unit(mt, j, R, e);
+    return;
+  }
+  for (long long x = e < 0 ? 0 : e; x < e + 4 && x < len; ++x)
+    merge_one(mt, j, R, x);
 }
 
 extern "C" {
@@ -194,22 +295,49 @@ int shard_merge(float* const* state_ptrs, float* const* part_ptrs,
       (touch == nullptr) != (touch_part == nullptr))
     return (int)cudaErrorInvalidValue;
   MergeTab mt;
-  mt.n = n;
-  long long most = touch != nullptr ? C : 0;
-  for (int j = 0; j < n; ++j) {
-    mt.state[j] = state_ptrs[j];
-    mt.part[j] = part_ptrs[j];
-    mt.len[j] = lens[j];
-    mt.op[j] = ops[j];
-    mt.ident[j] = idents[j];
-    if ((long long)P * lens[j] > most) most = (long long)P * lens[j];
+  mt.n = 0;
+  long long blocks = 0;
+  for (int j = 0; j <= n; ++j) {
+    void* dst;
+    void* part;
+    long long len;
+    int op;
+    uint32_t ident;
+    if (j < n) {
+      len = (long long)P * lens[j];
+      dst = state_ptrs[j] + (P == 1 ? (long long)pane * lens[j] : 0);
+      part = part_ptrs[j];
+      op = ops[j];
+      ident = 0u;
+      memcpy(&ident, &idents[j], sizeof ident);
+    } else {
+      if (touch == nullptr) break;
+      len = C;
+      dst = touch;
+      part = touch_part;
+      op = OP_TOUCH;
+      ident = 0u;
+    }
+    if (len <= 0) continue;
+    const uintptr_t d = (uintptr_t)dst, p = (uintptr_t)part;
+    const int k = mt.n++;
+    mt.state[k] = dst;
+    mt.part[k] = part;
+    mt.len[k] = len;
+    mt.op[k] = op;
+    mt.ident[k] = ident;
+    // float4 units where every partial shares the state's 16-byte phase
+    mt.vec[k] = (d & 15u) == (p & 15u) && (R == 1 || len % 4 == 0);
+    mt.head[k] = mt.vec[k] ? (int)((d & 15u) / 4u) : 0;
+    mt.block0[k] = blocks;
+    const long long units = (len + mt.head[k] + 3) / 4;
+    blocks += (units + MERGE_THREADS - 1) / MERGE_THREADS;
   }
-  if (most == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const long long blocks = (most + threads - 1) / threads;
-  shard_merge_kernel<<<blocks < 8192 ? (int)blocks : 8192, threads, 0,
-                       (cudaStream_t)stream>>>(mt, R, P, pane, touch,
-                                               touch_part, C);
+  if (blocks == 0) return (int)cudaSuccess;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  mt.block0[mt.n] = blocks;
+  shard_merge_kernel<<<(int)blocks, MERGE_THREADS, 0,
+                       (cudaStream_t)stream>>>(mt, R);
   return (int)cudaGetLastError();
 }
 

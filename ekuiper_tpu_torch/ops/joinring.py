@@ -7,7 +7,9 @@ expression through the row interpreter. Here both sides key-encode through
 one KeyTable (identical values get identical int32 slots), event time
 rebases to a per-call int32 offset, and the join predicate becomes index
 arithmetic over a padded [PL, PR] candidate block, one CUDA kernel
-(ops/kernels.py `join_match`, csrc/relational.cu):
+(ops/kernels.py `join_match`, csrc/relational.cu) that writes the mask
+packed one bit a pair; the packed rows come back through a pinned buffer
+the ring keeps and are unpacked on the host (`unpack_mask`):
 
     eq[i,j]   = slot_l[i] == slot_r[j]           -- equi-key conjuncts
     band[i,j] = lo <= ts_l[i] - ts_r[j] <= hi    -- interval conjuncts
@@ -36,6 +38,8 @@ and the window runs the host nested loop instead.
 """
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -76,6 +80,44 @@ class JoinWindowFallback(Exception):
     def __init__(self, msg: str, reason: str = "join_runtime") -> None:
         super().__init__(msg)
         self.reason = reason
+
+
+#: bits of a packed mask one unpack task covers, in whole rows; a mask of
+#: one task is unpacked on the calling thread, a larger one on the pool
+#: (smaller tasks lose to one thread at 2,048² and to this size at 16,384²:
+#: `ab_tumbling.py --phase join`)
+UNPACK_TASK_BITS = 1 << 24
+
+#: the unpack's workers (their threads start at the first mask of two tasks)
+_UNPACK_POOL = ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                                  thread_name_prefix="join-unpack")
+
+
+def _popcount(packed: np.ndarray) -> int:
+    return int(np.bitwise_count(packed.view(np.uint64)).sum())
+
+
+def unpack_mask(packed: np.ndarray, nr: int) -> Tuple[np.ndarray, int]:
+    """The bool (rows, nr) mask of join_match's packed rows and its count
+    of True. A packed row is whole 64-bit words (bit j % 8 of byte j // 8;
+    its pad bits from nr on are 0, as join_match writes them), so the count
+    is a popcount of the words. A mask of more than UNPACK_TASK_BITS is
+    unpacked and counted in tasks of that many bits of whole rows on the
+    pool (numpy's unpackbits and bitwise_count release the GIL)."""
+    rows = packed.shape[0]
+    step = max(1, UNPACK_TASK_BITS // max(nr, 1))
+    if rows <= step:
+        out = np.unpackbits(packed, axis=1, count=nr, bitorder="little")
+        return out.view(bool), _popcount(packed)
+    out = np.empty((rows, nr), dtype=np.uint8)
+
+    def task(lo: int) -> int:
+        part = packed[lo:lo + step]
+        out[lo:lo + step] = np.unpackbits(part, axis=1, count=nr,
+                                          bitorder="little")
+        return _popcount(part)
+
+    return out.view(bool), sum(_UNPACK_POOL.map(task, range(0, rows, step)))
 
 
 def _pad_pow2(n: int) -> int:
@@ -156,6 +198,9 @@ class JoinRing:
         self.rows_total = {"l": 0, "r": 0}
         self.matches_total = 0
         self.fallback_windows_total = 0
+        # pinned host bytes the packed mask comes back into (grown on
+        # demand; a CUDA ring only)
+        self._pinned: Optional[torch.Tensor] = None
 
     # --------------------------------------------------------- host prep
     def _slots(self, batch: SideBatch) -> np.ndarray:
@@ -288,22 +333,49 @@ class JoinRing:
         nl, nr = left.n, right.n
         slot_l, slot_r = self._slots(left), self._slots(right)
         ts_l, ts_r = self._ts32(left, right)
-        pl, pr = _pad_pow2(nl), _pad_pow2(nr)
-        vl = np.zeros(pl, dtype=bool)
-        vl[:nl] = True
-        vr = np.zeros(pr, dtype=bool)
-        vr[:nr] = True
-        mask = kernels.join_match(
-            self._to_dev(np.pad(slot_l, (0, pl - nl))),
-            self._to_dev(np.pad(ts_l, (0, pl - nl))), self._to_dev(vl),
-            self._to_dev(np.pad(slot_r, (0, pr - nr))),
-            self._to_dev(np.pad(ts_r, (0, pr - nr))), self._to_dev(vr),
-            self.lo, self.hi, self._residual_mask(left, right, pl, pr))
-        out = mask[:nl, :nr].cpu().numpy()
+        side_l, side_r = self._upload(slot_l, ts_l, slot_r, ts_r)
+        packed = kernels.join_match(
+            *side_l, *side_r, self.lo, self.hi,
+            self._residual_mask(left, right, len(side_l[0]),
+                                len(side_r[0])))
+        out, hits = self._fetch(packed, nl, nr)
         self.rows_total["l"] += nl
         self.rows_total["r"] += nr
-        self.matches_total += int(np.count_nonzero(out))
+        self.matches_total += hits
         return out
+
+    def _upload(self, slot_l: np.ndarray, ts_l: np.ndarray,
+                slot_r: np.ndarray, ts_r: np.ndarray):
+        """Each side's (slots, times, validity), padded to a power of two,
+        on the ring's device."""
+        sides = []
+        for slot, ts in ((slot_l, ts_l), (slot_r, ts_r)):
+            n = len(slot)
+            p = _pad_pow2(n)
+            valid = np.zeros(p, dtype=bool)
+            valid[:n] = True
+            sides.append((self._to_dev(np.pad(slot, (0, p - n))),
+                          self._to_dev(np.pad(ts, (0, p - n))),
+                          self._to_dev(valid)))
+        return sides
+
+    def _fetch(self, packed: torch.Tensor, nl: int,
+               nr: int) -> Tuple[np.ndarray, int]:
+        """The packed mask's first nl rows on the host, unpacked to a bool
+        [nl, nr], and its count of matches. From a card the rows are
+        copied into the ring's pinned buffer on the current stream, which
+        is then synchronized."""
+        rows = packed[:nl]
+        if rows.device.type == "cuda":
+            n = rows.numel()
+            if self._pinned is None or self._pinned.numel() < n:
+                self._pinned = torch.empty(n, dtype=torch.uint8,
+                                           pin_memory=True)
+            host = self._pinned[:n].view(rows.shape)
+            host.copy_(rows, non_blocking=True)
+            torch.cuda.current_stream(rows.device).synchronize()
+            rows = host
+        return unpack_mask(rows.numpy(), nr)
 
     def match_host(self, left: SideBatch, right: SideBatch) -> np.ndarray:
         """Numpy shadow twin of `match` from the same lowering — same slots,

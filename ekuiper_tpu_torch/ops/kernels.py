@@ -181,8 +181,10 @@ tier (ops/joinring.py, ops/segscan.py):
 - `join_match` replaces `JoinRing._match_impl` (joinring.py:186): the
   interval join's (PL, PR) pairing mask, slot equality ∧ the int32 band
   ∧ validity ∧ the ON residual (a bool tensor the expression IR computed,
-  read through its broadcast strides). One thread per (i, j). Bound:
-  writing PL·PR bytes (0.080 ms at 16,384 a side).
+  read through its broadcast strides), packed one bit a pair. A warp owns
+  1,024 columns in registers and writes a row's 32 words, each a
+  `__ballot_sync`, as one store; a persistent grid. Bound: writing PL·PR
+  bits (0.010 ms at 16,384 a side; a (PL, PR) residual's read adds 0.080).
 - `segscan_shift` replaces `SegScan._shift_impl` (segscan.py:124): a
   stable LSD radix sort by slot (csrc/radix_sort.cuh; 8-bit digits;
   one histogram launch counts every place, a place whose keys share one
@@ -223,10 +225,13 @@ partials of R row shards, (R·P', C, k[, W]), row shard r's block at r·P'
   (P' = P), `_build_fold_vec` (353, 371-474). Bound: the fold's bytes
   (~3 MB at the flagship shape with a touch column, 0.9 µs at 3.35 TB/s).
 - `shard_merge` replaces their psum / pmin / pmax over "rows" and the add
-  / min / max into the state (313-323, 403-407, 452-460): one thread per
-  element, the R partials reduced in r order, combined into the pane (or
-  every pane), the partials written back to identity. Bound: the R
-  partials read once and one pane (P' panes) of state read and written.
+  / min / max into the state (313-323, 403-407, 452-460): every
+  component and the touch column in one flat index space of float4s (a
+  block's component from the launch's table), a thread a float4 with the
+  R partials' loads issued together and merged in r order, combined into
+  the pane (or every pane), the partial float4s that left the identity
+  written back to it. Bound: the R partials read once and one pane (P'
+  panes) of state read and written.
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and
 only there; for a CUDA tensor it launches the kernel or raises. A wrapper
@@ -2039,6 +2044,9 @@ def _residual_view(name: str, residual: Optional[torch.Tensor], PL: int,
                          f"{tuple(residual.shape)} does not broadcast to "
                          f"({PL}, {PR})")
     view = residual.expand(PL, PR)
+    if view.stride(1) not in (0, 1):  # the kernel reads along j in order
+        residual = residual.contiguous()
+        view = residual.expand(PL, PR)
     return residual, view.stride(0), view.stride(1)
 
 
@@ -2046,9 +2054,12 @@ def join_match(slot_l: torch.Tensor, ts_l: torch.Tensor, vl: torch.Tensor,
                slot_r: torch.Tensor, ts_r: torch.Tensor, vr: torch.Tensor,
                lo: int, hi: int,
                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The interval join's pairing mask over a padded candidate block: a
-    fresh bool (PL, PR) with mask[i, j] = slot_l[i] == slot_r[j] ∧ lo ≤
-    ts_l[i] − ts_r[j] ≤ hi ∧ vl[i] ∧ vr[j] ∧ residual[i, j].
+    """The interval join's pairing mask over a padded candidate block,
+    mask[i, j] = slot_l[i] == slot_r[j] ∧ lo ≤ ts_l[i] − ts_r[j] ≤ hi ∧
+    vl[i] ∧ vr[j] ∧ residual[i, j], packed one bit a pair: a fresh uint8
+    (PL, 4·ceil(PR / 32)), bit j % 8 of byte j // 8 of row i (numpy's
+    `packbits(..., bitorder="little")`, rows padded to whole 32-bit words
+    with 0 bits; ops/joinring.py `unpack_mask` turns it back).
 
     slot_*, ts_*: int32 (PL,) / (PR,), PL and PR powers of two (the event
     times rebased so that every difference fits int32, ops/joinring.py);
@@ -2068,7 +2079,7 @@ def join_match(slot_l: torch.Tensor, ts_l: torch.Tensor, vl: torch.Tensor,
         if not _I32[0] <= int(b) <= _I32[1]:
             raise ValueError(f"{name}: band bound {b} outside int32")
     res, rs_i, rs_j = _residual_view(name, residual, PL, PR, dev)
-    mask = torch.empty((PL, PR), dtype=torch.bool, device=dev)
+    mask = torch.empty((PL, _mask_bytes(PR)), dtype=torch.uint8, device=dev)
     lib = _load()
     with torch.cuda.device(dev):
         rc = lib.relational.join_match(
@@ -2080,16 +2091,29 @@ def join_match(slot_l: torch.Tensor, ts_l: torch.Tensor, vl: torch.Tensor,
     return mask
 
 
+def _mask_bytes(PR: int) -> int:
+    """Bytes of a packed mask row: whole 32-bit words."""
+    return 4 * ((PR + 31) // 32)
+
+
 def join_match_plain(slot_l, ts_l, vl, slot_r, ts_r, vr, lo: int, hi: int,
                      residual=None) -> torch.Tensor:
     """Plain PyTorch version of join_match (the reference's broadcast
-    compares, int32 differences)."""
+    compares, int32 differences), packed by a weighted sum over groups of
+    8 (the CPU's torch has no shifts on uint32)."""
     dt = ts_l[:, None] - ts_r[None, :]
     mask = ((slot_l[:, None] == slot_r[None, :]) & (dt >= lo) & (dt <= hi)
             & vl[:, None] & vr[None, :])
     if residual is not None:
         mask = mask & residual
-    return mask
+    PL, PR = mask.shape
+    nb = _mask_bytes(PR)
+    if nb * 8 != PR:  # the last word's pad bits: 0
+        mask = torch.cat([mask, mask.new_zeros((PL, nb * 8 - PR))], 1)
+    weights = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.uint8,
+                           device=mask.device)
+    return (mask.reshape(PL, nb, 8).to(torch.uint8) * weights).sum(
+        -1, dtype=torch.uint8)
 
 
 def _seg_keys_checked(name: str, seg, vals, valid, dev) -> int:

@@ -12,13 +12,19 @@ each case of tests/test_joinring.py, each fallback reason included. The
 join steps of tests/test_join_e2e.py:166-246 (INNER / LEFT / RIGHT / FULL /
 CROSS, window-only bounds, a residual, late rows, a fallback window) run
 through both packages' DeviceJoinNode and JoinNode and must emit equal
-messages in equal order. Tolerance: none; every comparison is exact.
+messages in equal order. The packed mask of `join_match_plain` (one bit a
+pair) unpacks to the JAX `JoinRing._match_impl` mask on the same padded
+inputs, for each residual shape the expression IR gives and pads of 256
+to 4,096 columns; `match` keeps the exact (nl, nr) shape where nr is not a
+multiple of 8, and on masks of one unpack task and of several.
+Tolerance: none; every comparison is exact.
 """
 import gc
 import random
 
 import numpy as np
 import pytest
+import torch
 
 from ekuiper_tpu.data.rows import JoinTuple as JJoinTuple
 from ekuiper_tpu.data.rows import Tuple as JTuple
@@ -30,6 +36,7 @@ from ekuiper_tpu.runtime.nodes_relational import DeviceJoinNode as JDevJoin
 from ekuiper_tpu.sql.expr_ir import NotVectorizable as JNotVectorizable
 from ekuiper_tpu.sql.parser import parse_select as jparse
 from ekuiper_tpu_torch.data.rows import JoinTuple, Tuple
+from ekuiper_tpu_torch.ops import joinring, kernels
 from ekuiper_tpu_torch.ops.joinring import (JOIN_PAD_FLOOR, TS_RANGE_CAP,
                                             JoinWindowFallback, SideBatch)
 from ekuiper_tpu_torch.planner import relational
@@ -300,6 +307,106 @@ def test_ring_append_window_evict():
     assert port.ring_rows("l") == jax.ring_rows("l")
     port.reset_ring()
     assert port.ring_rows("l") == 0
+
+
+# ---------------------------------------------------------- packed mask
+#: (statement, the port's residual shape over (pl, pr)): no residual, one
+#: that reads the left side only, the right side only, and both
+PACKED_SQLS = [
+    (BAND2, "none"),
+    ("SELECT l.v FROM l INNER JOIN r ON l.k = r.k AND l.ts - r.ts >= -2 "
+     "AND l.ts - r.ts <= 2 AND l.v > 2 GROUP BY TUMBLINGWINDOW(ss, 1)",
+     "left"),
+    ("SELECT l.v FROM l INNER JOIN r ON l.k = r.k AND l.ts - r.ts >= -2 "
+     "AND l.ts - r.ts <= 2 AND r.w < 3 GROUP BY TUMBLINGWINDOW(ss, 1)",
+     "right"),
+    (JOIN_SQL, "full"),
+]
+
+
+def _edge_sides(rng, n, col, ts_hi=30):
+    """One side's rows: keys "a", "b", "" and NULL, NULL event times, event
+    times on and past the band's edges, NULL residual operands."""
+    keys = [rng.choice(["a", "b", None, ""]) for _ in range(n)]
+    ts = [rng.choice([rng.randint(0, ts_hi), None, 0, 2, 5, 7])
+          for _ in range(n)]
+    vals = [rng.choice([0.0, 1.0, 2.0, 3.0, 5.0, None]) for _ in range(n)]
+    return _sides(keys, ts=ts, **{col: vals})
+
+
+@pytest.mark.parametrize("nl,nr", [(3, 200), (300, 1000), (50, 4000)])
+@pytest.mark.parametrize("sql,shape", PACKED_SQLS,
+                         ids=[shape for _, shape in PACKED_SQLS])
+def test_packed_plain_unpacks_to_the_jax_match_impl(sql, shape, nl, nr):
+    """join_match_plain's packed mask over the port's padded inputs,
+    unpacked, equals the JAX ring's `_match_impl` on the same slots, times
+    and validity (its residual from the JAX IR over the same columns); the
+    pad columns' bits are 0; `match` returns its first (nl, nr)."""
+    import jax.numpy as jnp
+
+    port, jax = _rings(sql)
+    rng = random.Random(nl * 7 + nr)
+    left = _edge_sides(rng, nl, "__jl_v")
+    right = _edge_sides(rng, nr, "__jr_w")
+    sl, sr = port._slots(left[0]), port._slots(right[0])
+    tl, tr = port._ts32(left[0], right[0])
+    side_l, side_r = port._upload(sl, tl, sr, tr)
+    pl, pr = len(side_l[0]), len(side_r[0])
+    res = port._residual_mask(left[0], right[0], pl, pr)
+    assert (None if res is None else tuple(res.shape)) == {
+        "none": None, "left": (pl, 1), "right": (1, pr),
+        "full": (pl, pr)}[shape]
+    packed = kernels.join_match_plain(*side_l, *side_r, port.lo, port.hi,
+                                      res)
+    assert packed.dtype == torch.uint8 and packed.shape == (pl, pr // 8)
+    bits = np.unpackbits(packed.numpy(), axis=1, bitorder="little")
+    want = np.asarray(jax._match_impl(
+        *(jnp.asarray(t.numpy()) for t in side_l),
+        *(jnp.asarray(t.numpy()) for t in side_r),
+        jnp.asarray(port.lo, dtype=jnp.int32),
+        jnp.asarray(port.hi, dtype=jnp.int32),
+        {k: jnp.asarray(v) for k, v in
+         jax._prep_cols(left[1], jax.resid_l, pl).items()},
+        {k: jnp.asarray(v) for k, v in
+         jax._prep_cols(right[1], jax.resid_r, pr).items()}))
+    np.testing.assert_array_equal(bits.view(bool), want)
+    assert not bits[nl:].any() and not bits[:, nr:].any()
+    assert want[:nl, :nr].any()
+    np.testing.assert_array_equal(port.match(left[0], right[0]),
+                                  want[:nl, :nr])
+
+
+@pytest.mark.parametrize("nr", [1, 13, 257, 1001])
+def test_match_shape_when_nr_is_not_a_multiple_of_8(nr):
+    """The unpacked mask is exactly (nl, nr), equal to both JAX matches."""
+    rng = random.Random(nr)
+    got = _match_all(_rings(JOIN_SQL), _edge_sides(rng, 37, "__jl_v"),
+                     _edge_sides(rng, nr, "__jr_w"))
+    assert got.shape == (37, nr)
+
+
+@pytest.mark.parametrize("nl,nr", [(37, 1001), (4099, 4097), (8200, 4096)])
+def test_unpack_pool_matches_one_thread(nl, nr):
+    """Packed rows as join_match writes them (whole 64-bit words, the pad
+    bits 0), in one unpack task or several on the pool: the same mask and
+    count as numpy's unpackbits on one thread, and the ring's match equal
+    to its numpy twin."""
+    rng = np.random.default_rng(nr + nl)
+    pr = joinring._pad_pow2(nr)
+    bits = rng.random((nl, pr)) < 0.3
+    bits[:, nr:] = False
+    packed = np.packbits(bits, axis=1, bitorder="little")
+    tasks = -(-nl // max(1, joinring.UNPACK_TASK_BITS // nr))
+    assert (tasks > 1) == (nl * nr > joinring.UNPACK_TASK_BITS)
+    got, hits = joinring.unpack_mask(packed, nr)
+    np.testing.assert_array_equal(got, bits[:, :nr])
+    assert hits == int(bits.sum()) and got.shape == (nl, nr)
+    port = _rings(KEY_ONLY)[0]
+    keys = [f"k{i % 97}" for i in range(nl)]
+    left, right = _sides(keys)[0], _sides(keys[:nr])[0]
+    mask = port.match(left, right)
+    np.testing.assert_array_equal(mask, port.match_host(left, right))
+    assert port.matches_total == int(mask.sum())
 
 
 # ---------------------------------------------------------- join steps

@@ -1603,6 +1603,73 @@ def test_join_match_matches_plain(cuda_dev, shape):
         assert shape == "const" or bool(got.any())
 
 
+#: residual forms of the packed-mask cases: none, each shape the
+#: expression IR gives, a transposed (PL, PR) view (made contiguous by the
+#: wrapper) and a (PL, PR) view one byte off its allocation (read a byte
+#: at a time)
+PACKED_RESIDUALS = ["none", "full", "left", "right", "const", "transposed",
+                    "offset"]
+
+
+def _coin(rng, shape):
+    return torch.from_numpy(rng.integers(0, 2, shape, dtype=np.uint8)
+                            .astype(bool))
+
+
+def _packed_residual(rng, form, PL, PR, dev):
+    if form == "none":
+        return None
+    shape = {"full": (PL, PR), "left": (PL, 1), "right": (1, PR),
+             "const": (1, 1), "transposed": (PR, PL),
+             "offset": (PL * PR + 1,)}[form]
+    r = _coin(rng, shape).to(dev)
+    if form == "transposed":
+        return r.t()
+    if form == "offset":
+        return r[1:].view(PL, PR)
+    return r
+
+
+@pytest.mark.parametrize("form", PACKED_RESIDUALS)
+@pytest.mark.parametrize("PL,PR", [(256, 256), (2048, 2048),
+                                   (16384, 16384), (64, 4096), (4096, 8),
+                                   (32, 32)])
+def test_join_match_packed_bit_equal(cuda_dev, PL, PR, form):
+    """#20's packed mask bit-equal to its plain version at 256², J1's
+    2,048² and J3's 16,384², and on narrow and uneven blocks (a row of
+    one partial word, strips of fewer than 32 words), with every residual
+    form; it unpacks to the byte mask of the broadcast compares, and a
+    word's bits past PR are 0."""
+    rng = np.random.default_rng(PL * 7 + PR)
+    keys = max(2, min(PL, PR) // 8)
+    left = _join_sides(rng, PL, keys, cuda_dev, -(1 << 30))
+    right = _join_sides(rng, PR, keys, cuda_dev, 1 << 30)
+    resid = _packed_residual(rng, form, PL, PR, cuda_dev)
+    kernels.reset_launches()
+    for lo, hi in ((-300, 300), (-(1 << 28), 0), (5, 4),
+                   (-(1 << 30), 1 << 30)):
+        got = kernels.join_match(*left, *right, lo, hi, resid)
+        want = kernels.join_match_plain(*left, *right, lo, hi, resid)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.uint8
+        assert got.shape == (PL, 4 * ((PR + 31) // 32))
+        assert torch.equal(got, want), (lo, hi)
+        if PL * PR <= 1 << 22:
+            dt = left[1][:, None] - right[1][None, :]
+            byte = ((left[0][:, None] == right[0][None, :]) & (dt >= lo)
+                    & (dt <= hi) & left[2][:, None] & right[2][None, :])
+            if resid is not None:
+                byte = byte & resid
+            bits = np.unpackbits(got.cpu().numpy(), axis=1,
+                                 bitorder="little")
+            np.testing.assert_array_equal(bits[:, :PR],
+                                          byte.cpu().numpy())
+            assert not bits[:, PR:].any()
+        if lo > hi:
+            assert not bool(got.any())
+    assert kernels.LAUNCHES["join_match"] == 4
+
+
 def _seg_ids(rng, B, slots, kind):
     """Segment ids: uniform over `slots`, Zipf-skewed sizes over `slots`,
     or spread over [0, 2^30) so that every digit place of the sort varies."""
@@ -1853,6 +1920,107 @@ def test_sharded_kernels_match_plain(cuda_dev, mesh, vec):
     assert kernels.LAUNCHES["shard_merge"] == 1
     assert kernels.ROW_PANE_LAUNCHES["sharded_fold"] == int(vec)
     assert kernels.TOUCH_LAUNCHES["sharded_fold"] == 1
+
+
+#: a merge's component mixes: name -> ({component: trailing shape},
+#: touch column, P' = P)
+MERGE_MIXES = {
+    "scalar": ({"act": (), "n": (2,), "s1": (2,), "s2": (1,), "mn": (2,),
+                "mx": (1,)}, True, False),
+    "pct": ({"act": (), "n": (1,), "hist": (1, 67)}, False, False),
+    "hll": ({"act": (), "hll": (2, 256)}, False, False),
+    "touch": ({"act": ()}, True, False),
+    "pane_vec": ({"act": (), "n": (1,), "s1": (1,), "mn": (1,),
+                  "mx": (1,)}, False, True),
+}
+
+
+def _placed(shape, dtype, dev, off):
+    """A contiguous tensor `off` elements past a fresh allocation's
+    start."""
+    n = int(np.prod(shape))
+    return torch.empty(n + off, dtype=dtype, device=dev)[off:].view(shape)
+
+
+def _merge_case(rng, mix, R, C, P, dev, offs):
+    """A state and its R row shards' partials, every tensor at the given
+    element offsets (state, partials) from its allocation; about half the
+    partial elements at the identity, the sums' others with some -0.0,
+    the touch counts near 2^32 so that sums wrap."""
+    comps, touch, vec = MERGE_MIXES[mix]
+    Pp = P if vec else 1
+    state, parts = {}, {}
+    for comp, tail in comps.items():
+        ident = kernels.INIT[comp]
+        st = _placed((P, C) + tail, torch.float32, dev, offs[0])
+        st.copy_(torch.from_numpy(
+            rng.normal(5, 3, st.shape).astype(np.float32)))
+        pa = rng.normal(5, 3, (R * Pp, C) + tail).astype(np.float32)
+        if comp in ("n", "s1", "s2", "act"):
+            pa[rng.random(pa.shape) < 0.05] = -0.0
+        if comp in ("hll", "hist"):
+            pa = np.rint(np.abs(pa)).astype(np.float32)
+        pa[rng.random(pa.shape) < 0.5] = ident
+        part = _placed(pa.shape, torch.float32, dev, offs[1])
+        part.copy_(torch.from_numpy(pa))
+        state[comp], parts[comp] = st, part
+    if touch:
+        t = rng.integers(0, 1 << 32, C, dtype=np.uint64).astype(np.uint32)
+        tp = rng.integers((1 << 32) - 9, 1 << 32, (R, C),
+                          dtype=np.uint64).astype(np.uint32)
+        tp[rng.random(tp.shape) < 0.5] = 0
+        state["touch"] = _placed((C,), torch.uint32, dev, offs[0])
+        state["touch"].copy_(torch.from_numpy(t.astype(np.int64)).to(
+            dev).to(torch.uint32))
+        parts["touch"] = _placed((R, C), torch.uint32, dev, offs[1])
+        parts["touch"].copy_(torch.from_numpy(tp.astype(np.int64)).to(
+            dev).to(torch.uint32))
+    return state, parts
+
+
+def _bits(t):
+    """A tensor's bytes as int64 numpy, to compare bit for bit."""
+    if t.dtype == torch.uint32:
+        return t.cpu().long().numpy()
+    return t.contiguous().view(torch.int32).cpu().numpy()
+
+
+#: (C, state offset, partials offset): whole float4 units; a length off
+#: 16 bytes (element by element where R > 1); state and partials 4 bytes
+#: past a boundary (a head and a tail); partials at another phase than the
+#: state (element by element)
+MERGE_LAYOUTS = {"aligned": (64, 0, 0), "odd": (37, 0, 0),
+                 "offset": (64, 1, 1), "phases": (64, 1, 2)}
+
+
+@pytest.mark.parametrize("layout", sorted(MERGE_LAYOUTS))
+@pytest.mark.parametrize("mix", sorted(MERGE_MIXES))
+@pytest.mark.parametrize("R", [1, 2, 4, 8, 11])
+def test_shard_merge_flat_bit_equal(cuda_dev, R, mix, layout):
+    """#23 / #24's merge (one launch over every component and the touch
+    column) bit-equal to shard_merge_plain for R past the eight loads a
+    thread issues at once, each component mix, #24's P' = P vector, and
+    lengths and pointers off 16-byte boundaries; the partials back at
+    their identity afterwards."""
+    C, so, po = MERGE_LAYOUTS[layout]
+    P = 3
+    rng = np.random.default_rng(R * 100 + len(mix) * 10 + C + so + po)
+    state, parts = _merge_case(rng, mix, R, C, P, cuda_dev, (so, po))
+    st_p = {k: t.clone() for k, t in state.items()}
+    pa_p = {k: t.clone() for k, t in parts.items()}
+    kernels.reset_launches()
+    kernels.shard_merge(state, parts, 1, R)
+    kernels.shard_merge_plain(st_p, pa_p, 1, R)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["shard_merge"] == 1
+    for comp in st_p:
+        np.testing.assert_array_equal(_bits(state[comp]), _bits(st_p[comp]),
+                                      err_msg=comp)
+        np.testing.assert_array_equal(_bits(parts[comp]), _bits(pa_p[comp]),
+                                      err_msg=comp)
+        ident = (0 if comp == "touch" else
+                 np.float32(kernels.INIT[comp]).view(np.int32))
+        assert (_bits(parts[comp]) == ident).all(), comp
 
 
 def test_sharded_rule_matches_single_chip(cuda_dev):

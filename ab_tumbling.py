@@ -23,10 +23,14 @@ work. `--phase` picks the rows:
   and on a 2x4 mesh of the card the tumbling rule with touch (#23), the
   percentile rule and I3's rule on its 8-pane vector (#24).
 - `tier`: the tier store's kernel rows of phase 2 (#18's demote and #19's
-  promote at G1's, G2's, the hll and the percentile plans' state).
+  promote at G1's, G2's, the hll and the percentile plans' state), then
+  `TierStore.promote` whole as `TierManager.admit` calls it (host block
+  and slots in, ending in a synchronize) at G2's and the percentile
+  plan's row width, with 2,000 rows and with one.
 - `sketch`: the sketch kernel rows of phase 2 (the sketch folds, #3's
   wide finalize on the pct and hll rules and #4's hll subset mask, the
-  heavy-hitters finalize, the pane reset over hh state).
+  heavy-hitters finalize, the pane reset over hh state), then #8 at F1's
+  plan (53 panes, the refold's scratch pane the only live one).
 - `refold`: #2, the masked fold: its kernel rows of phase 2 (F2's scalar,
   F1's heavy-hitters and F3's hll plans, the touch branch at L2's plan,
   and in a tree that has it a stale refold's segment group), then F4 (D2's
@@ -266,10 +270,37 @@ print(json.dumps(rows))
 """
 
 TIER = r"""
+import statistics
 from ekuiper_tpu_torch.planner.fused import plan_fused_rule
 
-rows = cs.tier_kernel_checks(torch, 0, kernels, plan_fused_rule,
-                             torch.device("cuda"))
+dev = torch.device("cuda")
+rows = cs.tier_kernel_checks(torch, 0, kernels, plan_fused_rule, dev)
+# TierStore.promote whole, as TierManager.admit calls it: a host block of
+# n rows and host slots in, host ms a call ending in a synchronize
+# (median of 30 after 3 warm-up calls), at G2's plan (Wp 60) and the
+# percentile plan's (Wp 1,026), a block of D - 48 rows and of one
+for tag, sql, opts, cap in (
+        ("g2", cs.G2_RULE, {"tierHotMb": cs.G_HOT_MB}, cs.G_SLOTS),
+        ("pct", cs.PCT_RULE, {"tierHotMb": 128}, cs.SLOTS)):
+    node = plan_fused_rule(sql, key_slots=cap, micro_batch=cs.ROWS,
+                           device=dev, options=opts)
+    store, gb = node.tier.ts, node.gb
+    st = gb.init_state()
+    r = np.random.default_rng(5)
+    for n in (store.demote_batch - 48, 1):
+        block = r.normal(0, 1, (n, store.packed_w)).astype(np.float32)
+        slots = r.choice(gb.capacity, n, replace=False).astype(np.int32)
+        times = []
+        for _ in range(33):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            store.promote(st, block, slots)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        rows[f"tier_store_promote/{tag}/n{n}"] = dict(
+            call_host_ms=statistics.median(times[3:]))
+    del node, st
+    torch.cuda.empty_cache()
 print(json.dumps(rows))
 """
 
@@ -278,8 +309,34 @@ from ekuiper_tpu_torch.ops import sketches
 from ekuiper_tpu_torch.ops.groupby import TorchGroupBy
 from ekuiper_tpu_torch.planner.fused import plan_fused_rule
 
+dev = torch.device("cuda")
 rows = cs.sketch_kernel_checks(torch, 0, kernels, sketches, plan_fused_rule,
-                               TorchGroupBy, torch.device("cuda"))
+                               TorchGroupBy, dev)
+# #8 at F1's plan: the refold's scratch pane of 53 the only live one
+node = plan_fused_rule(cs.F1_RULE, key_slots=cs.SLOTS, micro_batch=cs.ROWS,
+                       device=dev)
+plan, P, pane = node.plan, node.n_panes, node._scratch_pane
+del node
+torch.cuda.empty_cache()
+gb = TorchGroupBy(plan, capacity=cs.SLOTS, n_panes=P, micro_batch=cs.ROWS,
+                  device=dev)
+st = gb.init_state()
+base, V, M, s_dev, _ = cs.sketch_inputs(torch, gb, 7, dev)
+kernels.fold_plain(st, base, V, M, s_dev, pane, gb._colmap, gb._widemap)
+pm = gb._pane_mask([pane])
+out = torch.full((gb._rows, cs.SLOTS), -1.0, device=dev)
+ref = out.clone()
+fin = functools.partial(kernels.groupby_hh_finalize, st, pm, gb._hhtab, out)
+fin()
+kernels.hh_finalize_plain(st, pm, gb._hhtab, ref)
+torch.cuda.synchronize()
+nbytes = (st["hh"][0].numel() * 4
+          + int(gb._hhtab[:, 1].sum()) * 2 * cs.SLOTS * 4)
+rows["groupby_hh_finalize/f1"] = dict(
+    ms=cs.time_ms(torch, fin, cs.REPS),
+    **cs.launch_split(torch, fin, "hh_finalize_kernel", cs.REPS),
+    bound_ms=cs.bound(nbytes, 0)[0], panes=P,
+    equal=bool(torch.equal(out, ref)))
 print(json.dumps(rows))
 """
 
@@ -646,6 +703,7 @@ PHASES = {"tumbling": (TUMBLING, 600), "multirule": (MULTIRULE, 1500),
 #: the numbers of a multirule or fold row the summary keeps
 KEYS = ("chunk_ms", "ms", "fold_only_ms", "readback_ms", "scalar_pane_ms",
         "body_ms", "launches_a_chunk", "kernels_a_call", "one_row_ms",
+        "merge_only_ms", "bound_all_rows_ms", "equal", "panes",
         "host_ms", "plain_ms", "library_ms", "library_idx_ms", "bound_ms",
         "bound_inputs_ms", "kernel_rounds_ms", "library_rounds_ms",
         "idle_ms", "idle_body_ms", "b2b_ms", "b2b_body_ms", "ms_again",

@@ -935,6 +935,15 @@ def worst_errs(worst, d, r):
             max(worst[1], float(rel.max(initial=0.0))))
 
 
+def same_bits(torch, got, ref) -> bool:
+    """Every component equal element for element, float32 by its bits
+    (signs of zero included)."""
+    return got.keys() == ref.keys() and all(
+        torch.equal(got[c].view(torch.int32), ref[c].view(torch.int32))
+        if ref[c].element_size() == 4 else torch.equal(got[c], ref[c])
+        for c in ref)
+
+
 def state_err(got, ref, exact=("n", "act", "mn", "mx"), rtol=1e-5):
     """(max abs, max rel) |got - ref| over every component; exact
     components must be bit-equal, summed ones (float32 atomics in another
@@ -1434,16 +1443,21 @@ def sketch_kernel_checks(torch, seed, kernels, sketches, plan_fused_rule,
                 split = launch_split(torch, fin, "hh_finalize_kernel", REPS)
                 t_p = time_ms(torch, lambda: kernels.hh_finalize_plain(
                     got, pm, gb._hhtab, out_p), REPS)
+                # a partial yardstick, not the function: the pane merge
+                # alone as PyTorch computes it (no call recovers codes)
+                t_m = time_ms(torch, lambda: got["hh"][pm].sum(0), REPS)
                 nbytes = (live * got["hh"][0].numel() * 4
                           + int(gb._hhtab[:, 1].sum()) * 2 * SLOTS * 4)
                 b_ms, b_by = bound(nbytes, 0)
                 print(f"kernel groupby_hh_finalize P={P} mask={mtag} "
                       f"C={SLOTS}: max_abs_err=0 kernel_ms={t_k:.4f} "
                       f"{split_text(split)} plain_ms={t_p:.4f} "
+                      f"merge_only_ms={t_m:.4f} "
                       f"library_ms=null bound_ms={b_ms:.5f} ({b_by})")
                 rows[f"groupby_hh_finalize/{mtag}"] = dict(
                     max_abs_err=0.0, ms=t_k, **split, plain_ms=t_p,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                    merge_only_ms=t_m, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=None)
 
         if tag == "hh":  # the pane reset over the widest state
             a, b = clone_state(got), clone_state(got)
@@ -4545,13 +4559,35 @@ def library_demote(torch, state, idx, n, comps, kernels):
     return packed
 
 
+def library_promote(torch, state, packed, idx, comps):
+    """Yardstick, never called by the port: #19 on the real rows as
+    PyTorch's own calls (`index_add_`, `scatter_reduce_` amin / amax per
+    block; their min and max keep self on a -0.0 / +0.0 tie, which the
+    kernel orders)."""
+    n, col = len(idx), 0
+    for c in comps:
+        arr = state[c]
+        P, tail = arr.shape[0], tuple(arr.shape[2:])
+        w = P * int(np.prod(tail, dtype=np.int64))
+        seg = packed[:n, col:col + w].reshape(n, P, *tail).movedim(0, 1)
+        col += w
+        if c in ("mn", "mx", "hll"):
+            at = idx.view(1, n, *([1] * len(tail))).expand_as(seg)
+            arr.scatter_reduce_(1, at, seg, "amin" if c == "mn" else "amax",
+                                include_self=True)
+        else:
+            arr.index_add_(1, idx, seg)
+
+
 def tier_kernel_checks(torch, seed, kernels, plan_fused_rule, dev):
     """#18 and #19 against their plain versions at G1's state (1 pane, Wp
     4, 1,048,576 slots), G2's (10 panes, Wp 60, 262,144 slots) and the wide
     plans' (phase B's hll hopping state, PCT_RULE's percentile hist, each
     tiered at 16,384 slots): a block of 2,000 real slots and 48 pad rows
-    repeating the first, bit-equal; and the fold's touch column (#1's touch
-    branch) at G1's state against the plain fold, exact."""
+    repeating the first, bit-equal (the promote takes the 2,000 real rows
+    and slots alone, and is also checked and timed with one real row); and
+    the fold's touch column (#1's touch branch) at G1's state against the
+    plain fold, exact."""
     rows = {}
     cases = (("g1", G1_RULE, G1_OPTS, G_SLOTS),
              ("g2", G2_RULE, {"tierHotMb": G_HOT_MB}, G_SLOTS),
@@ -4605,36 +4641,53 @@ def tier_kernel_checks(torch, seed, kernels, plan_fused_rule, dev):
             kernels_a_call=a_call, one_row_ms=t_one, plain_ms=t_p,
             bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
 
-        # promote: the demoted rows back into other slots holding data,
-        # identity pad rows on the repeated pad slot
-        block = np.tile(ts.init_row(), (D, 1))
-        block[:real] = want.cpu().numpy()[:real][::-1]
-        d, _ = ts._slots(r.choice(gb.capacity, n, replace=False))
+        # promote: the demoted rows back into other slots holding data;
+        # the n real rows and slots go up, the reference's identity pads on
+        # slots[0] are the kernel's to merge
+        d = r.choice(gb.capacity, n, replace=False).astype(np.int32)
         d_dev = torch.from_numpy(d).to(dev)
-        pk = torch.from_numpy(block).to(dev)
+        pk = torch.from_numpy(want.cpu().numpy()[:real][::-1].copy()).to(dev)
         got, ref = clone_state(st), clone_state(st)
-        kernels.tier_promote(got, pk, d_dev, ts.comps)
-        kernels.tier_promote_plain(ref, pk, d_dev, ts.comps)
+        kernels.tier_promote(got, pk, d_dev, real, D, ts.comps)
+        kernels.tier_promote_plain(ref, pk, d_dev, real, D, ts.comps)
         torch.cuda.synchronize()
         err = state_err(got, ref, exact=tuple(ref))
+        check(same_bits(torch, got, ref), f"{tag}: tier_promote state bits")
         promote = functools.partial(kernels.tier_promote, got, pk, d_dev,
-                                    ts.comps)
+                                    real, D, ts.comps)
         t_k = time_ms(torch, promote, REPS)
         split = launch_split(torch, promote, "tier_promote_kernel", REPS)
-        # the plain version is the library yardstick itself: index_add_
-        # and scatter_reduce_ (amin / amax) along the slot axis, per block
-        t_p = t_l = time_ms(torch, lambda: kernels.tier_promote_plain(
-            ref, pk, d_dev, ts.comps), REPS)
-        # the block and the slots read, n rows of state read and written
-        nbytes = D * Wp * 4 + D * 4 + 2 * real * Wp * 4
+        # one real row (a boundary that promotes one key: the identity
+        # merged into its slot as the 2,047 pads would)
+        a, b = clone_state(st), clone_state(st)
+        kernels.tier_promote(a, pk[:1], d_dev[:1], 1, D, ts.comps)
+        kernels.tier_promote_plain(b, pk[:1], d_dev[:1], 1, D, ts.comps)
+        torch.cuda.synchronize()
+        check(same_bits(torch, a, b), f"{tag}: tier_promote one row bits")
+        del a, b
+        t_one = time_ms(torch, functools.partial(
+            kernels.tier_promote, got, pk[:1], d_dev[:1], 1, D, ts.comps),
+            REPS)
+        t_p = time_ms(torch, lambda: kernels.tier_promote_plain(
+            ref, pk, d_dev, real, D, ts.comps), REPS)
+        idx = d_dev.long()
+        t_l = time_ms(torch, lambda: library_promote(
+            torch, ref, pk, idx, ts.comps), REPS)
+        # the n real rows and slots read, n rows of state read and written;
+        # before PR 20 the block's D rows and D slots were read
+        nbytes = real * Wp * 4 + real * 4 + 2 * real * Wp * 4
         b_ms, b_by = bound(nbytes, real * Wp)
+        b_all, _ = bound(nbytes + (D - real) * (Wp + 1) * 4, real * Wp)
         print(f"kernel tier_promote {tag} P={gb.n_panes} C={gb.capacity} "
               f"Wp={Wp} D={D} n={real}: max_abs_err={err[0]:.3g} "
-              f"kernel_ms={t_k:.4f} {split_text(split)} plain_ms={t_p:.4f} "
-              f"library_ms={t_l:.4f} bound_ms={b_ms:.5f} ({b_by})")
+              f"kernel_ms={t_k:.4f} {split_text(split)} "
+              f"one_row_ms={t_one:.4f} plain_ms={t_p:.4f} "
+              f"library_ms={t_l:.4f} bound_ms={b_ms:.5f} ({b_by}) "
+              f"bound_all_rows_ms={b_all:.5f}")
         rows[f"tier_promote/{tag}"] = dict(
             max_abs_err=err[0], max_rel_err=err[1], ms=t_k, **split,
-            plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+            one_row_ms=t_one, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+            bound_all_rows_ms=b_all, library_ms=t_l)
         if tag == "g1":
             rows["groupby_fold/touch"] = touch_fold_check(
                 torch, seed, kernels, gb, st, dev)

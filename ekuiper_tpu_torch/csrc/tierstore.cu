@@ -43,14 +43,20 @@
 //   counter.
 //
 // tier_promote replaces TierStore._promote_impl (tierstore.py:278): the
-//   rows of a (D, Wp) block merged into their slots, add for n, s1, s2,
-//   hist, hh and act, min for mn, max for mx and hll (the absorb's
-//   algebra). Pad rows hold the combine identity and repeat slots[0], so
-//   every (slot, element) gets one real contribution and identity ones:
-//   the merge is an atomic add / min / max per element (the float atomic
-//   min/max of csrc/groupby_common.cuh), whose result does not depend on
-//   the order. Bound: reading the block and reading and writing D·Wp
-//   floats of state.
+//   n real rows of a packed block merged into their slots, add for n, s1,
+//   s2, hist, hh and act, min for mn, max for mx and hll (the absorb's
+//   algebra). The reference pads the block to D rows of the combine
+//   identity on slots[0]; here only the real rows come up, and where n <
+//   D row 0 merges the identity once more, which is all those pads change
+//   (a -0.0 sum becomes +0.0, an hll register below +0.0 rises to it).
+//   Bound: reading the n rows of the block and reading and writing n·Wp
+//   floats of state; at G2's narrow rows (Wp 60, every (row, pane,
+//   component) a different 32-byte sector) the sectors set it. Design: a
+//   thread a (row, column), a float atomic a column. Measured against a
+//   load, merge and store (the merge needs the old value: one dependent
+//   read more) and against the demote's runs with float4 stores or float4
+//   atomics (promote_routes.cu / .py, PERF.md §6): at G2 the atomics win,
+//   the runs lose to the parent's kernel.
 
 #include "groupby_common.cuh"
 
@@ -66,19 +72,6 @@ struct TierTab {  // the packed row's blocks, in packed order (act last)
   float init[MAX_TIER_COMPS];     // fold identity
   int op[MAX_TIER_COMPS];         // promote's merge
 };
-
-// The state element behind packed column j of a row on `slot`; *b is set
-// to the column's block.
-__device__ __forceinline__ float* tier_elem(const TierTab& t, long long j,
-                                            int slot, int C, int* b) {
-  int k = 0;
-  while (k + 1 < t.n && j >= t.off[k + 1]) ++k;
-  *b = k;
-  const long long local = j - t.off[k];
-  const long long p = local / t.w[k];
-  const long long e = local - p * t.w[k];
-  return t.p[k] + (p * C + slot) * t.w[k] + e;
-}
 
 #define DEMOTE_THREADS 256
 #define DEMOTE_CLASSES (2 * MAX_TIER_COMPS)
@@ -208,25 +201,46 @@ tier_demote_kernel(TierTab t, DemotePlan dp,
   if (b == 0 && p == 0 && g == 0 && touch != nullptr) touch[slot] = 0u;
 }
 
-// One thread per (row, column) of the block, pads included: an atomic
-// add / min / max of the packed value into its state element.
-__global__ void tier_promote_kernel(TierTab t, const int32_t* __restrict__ slots,
-                                    long long total, long long Wp, int C,
-                                    const float* __restrict__ packed) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    const long long d = i / Wp;
-    const long long j = i - d * Wp;
-    const int slot = slots[d];
-    if (slot < 0 || slot >= C) continue;
-    int b;
-    float* dst = tier_elem(t, j, slot, C, &b);
-    const float v = packed[i];
-    switch (t.op[b]) {
-      case TOP_MIN: atomic_min_f32(dst, v); break;
-      case TOP_MAX: atomic_max_f32(dst, v); break;
-      default: atomicAdd(dst, v); break;
-    }
+// One thread a (real row, packed column): the row's slot and the packed
+// value loaded together, the column's block found by a scan of at most
+// MAX_TIER_COMPS offsets, then one float atomic add / min / max (the
+// sign-split min / max of csrc/groupby_common.cuh). Its result is unused,
+// so it is a reduction done at L2 with no round trip to the thread; the
+// real slots are distinct (ops/tierstore.py _slots), so no two atomics
+// meet. On a padded block (pads) row 0 takes a second atomic of the
+// identity, as the reference's pad rows on slots[0]. A slot outside [0,
+// C) merges nothing (never reached: ops/tierstore.py checks). 32-bit
+// indices: the entry point refuses n·Wp past 2^31.
+__global__ void __launch_bounds__(DEMOTE_THREADS)
+tier_promote_kernel(TierTab t, const int32_t* __restrict__ slots, int n,
+                    int C, int Wp, bool pads,
+                    const float* __restrict__ packed) {
+  const int i = (int)blockIdx.x * DEMOTE_THREADS + (int)threadIdx.x;
+  if (i >= n * Wp) return;
+  const int d = i / Wp;
+  const int j = i - d * Wp;
+  const float v = packed[i];
+  const int slot = slots[d];
+  if (slot < 0 || slot >= C) return;
+  int b = 0;
+  while (b + 1 < t.n && j >= (int)t.off[b + 1]) ++b;
+  const int w = (int)t.w[b];
+  const int local = j - (int)t.off[b];
+  const int p = local / w;
+  float* dst = t.p[b] + ((long long)p * C + slot) * w + (local - p * w);
+  const bool pad = pads && d == 0;
+  switch (t.op[b]) {
+    case TOP_MIN:
+      atomic_min_f32(dst, v);
+      if (pad) atomic_min_f32(dst, t.init[b]);
+      break;
+    case TOP_MAX:
+      atomic_max_f32(dst, v);
+      if (pad) atomic_max_f32(dst, t.init[b]);
+      break;
+    default:
+      atomicAdd(dst, v);
+      if (pad) atomicAdd(dst, t.init[b]);
   }
 }
 
@@ -251,11 +265,6 @@ static inline bool make_tiertab(float* const* ptrs, const long long* ws,
   }
   *Wp = col;
   return true;
-}
-
-static inline int blocks_for(long long total, int threads) {
-  const long long b = (total + threads - 1) / threads;
-  return b < 1 ? 1 : (b > 65535 ? 65535 : (int)b);
 }
 
 static inline int log2_up(long long x) {
@@ -324,22 +333,24 @@ int tier_demote(float* const* ptrs, const long long* ws, const float* inits,
   return (int)cudaGetLastError();
 }
 
-// packed: device float32 (D, Wp); slots: device int32 (D,).
+// packed: device float32 (at least n rows of Wp); slots: device int32 (at
+// least n, the first n distinct); D: the reference's block length (n < D:
+// row 0 also merges the identity, as the pads would).
 int tier_promote(float* const* ptrs, const long long* ws, const float* inits,
                  const int32_t* ops, int ncomps, int P, int C,
-                 const int32_t* slots, int D, const float* packed,
+                 const int32_t* slots, int n, int D, const float* packed,
                  void* stream) {
   TierTab t;
   long long Wp = 0;
-  if (!make_tiertab(ptrs, ws, inits, ops, ncomps, P, &t, &Wp) || D < 0 ||
-      C < 0)
+  if (!make_tiertab(ptrs, ws, inits, ops, ncomps, P, &t, &Wp) || n < 0 ||
+      n > D || C < 0 || Wp > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  if (D == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const long long total = (long long)D * Wp;
-  tier_promote_kernel<<<blocks_for(total, threads), threads, 0,
-                        (cudaStream_t)stream>>>(t, slots, total, Wp, C,
-                                                packed);
+  if ((long long)n * Wp > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  const int total = n * (int)Wp;
+  tier_promote_kernel<<<(total + DEMOTE_THREADS - 1) / DEMOTE_THREADS,
+                        DEMOTE_THREADS, 0, (cudaStream_t)stream>>>(
+      t, slots, n, C, (int)Wp, n < D, packed);
   return (int)cudaGetLastError();
 }
 

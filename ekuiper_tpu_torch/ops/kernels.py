@@ -74,11 +74,12 @@ components are wide: (P, C, K, W) with W = 256 / 1,024 / 2,688:
   groupby_finalize_scalar fills. Bound: reading the live panes of the
   wide components once.
 - `groupby_hh_finalize` replaces `_hh_finalize_impl` (groupby.py:628-656)
-  with `sketches.hh_candidates`: one block per slot merges the panes,
-  recovers each (depth, slot) cell's code by bit majority, validates and
-  estimates it, and keeps the top 2k in lax.top_k's order. Bound:
-  reading the live panes of hh once (352 MB at the main path's sizes,
-  0.105 ms).
+  with `sketches.hh_candidates`: a warp per slot on a persistent grid
+  brings the live panes' columns into shared memory by bulk copies ahead
+  of their use, merges them, recovers each (depth, slot) cell's code by
+  bit majority, validates and estimates it, and keeps the top 2k in
+  lax.top_k's order, ranked by ballots. Bound: reading the live panes of
+  hh once (352 MB at the main path's sizes, 0.105 ms).
 
 And two in ekuiper_tpu_torch/csrc/prefinalize.cu, for the latency-hiding
 window emit (ops/prefinalize.py):
@@ -172,8 +173,10 @@ block of one slot flattened in C order, the components sorted, act last:
   thread; row 0's pieces copied to the pads by the block that resets them,
   after its barrier.
 - `tier_promote` replaces `_promote_impl` (tierstore.py:278): a block's
-  rows merged into their slots by atomic add / min / max (identity pad
-  rows on a repeated slot change nothing).
+  n real rows merged into their distinct slots, a thread and a float
+  atomic add / min / max a (row, column); where the reference pads the
+  block, row 0 merges the identity once more instead (nothing of the pads
+  is built or uploaded).
 
 And three in ekuiper_tpu_torch/csrc/relational.cu, for the relational
 tier (ops/joinring.py, ops/segscan.py):
@@ -273,7 +276,8 @@ SOURCES = {"groupby": _PKG / "csrc" / "groupby.cu",
            "countmin": _PKG / "csrc" / "countmin.cu",
            "sharded": _PKG / "csrc" / "sharded.cu"}
 #: headers the sources include (part of every library's build tag)
-HEADERS = (_PKG / "csrc" / "fold.cuh",
+HEADERS = (_PKG / "csrc" / "bulk_copy.cuh",
+           _PKG / "csrc" / "fold.cuh",
            _PKG / "csrc" / "groupby_common.cuh",
            _PKG / "csrc" / "sketch_common.cuh",
            _PKG / "csrc" / "slot_type.cuh",
@@ -477,7 +481,7 @@ def _load():
             mr.multirule_reset_pane.argtypes = [P, P, P, I, I, I, I, P]
             ts = ctypes.CDLL(str(paths["tierstore"]))
             ts.tier_demote.argtypes = [P, P, P, P, I, I, I, P, I, I, P, P, P]
-            ts.tier_promote.argtypes = [P, P, P, P, I, I, I, P, I, P, P]
+            ts.tier_promote.argtypes = [P, P, P, P, I, I, I, P, I, I, P, P]
             LL = ctypes.c_longlong
             rl = ctypes.CDLL(str(paths["relational"]))
             rl.join_match.argtypes = [P, P, P, I, P, P, P, I, I, I, P, LL,
@@ -1960,45 +1964,72 @@ def tier_demote_plain(state, slots, n: int, comps) -> torch.Tensor:
 
 
 def tier_promote(state: Dict[str, torch.Tensor], packed: torch.Tensor,
-                 slots: torch.Tensor, comps: Sequence[str]) -> None:
-    """Merge the rows of `packed` (float32 (D, Wp), tier_demote's layout)
-    into `slots` (int32 (D,)) in place: min for mn, max for mx and hll,
-    add otherwise. Pad rows hold the identity (TierStore.init_row)."""
+                 slots: torch.Tensor, n: int, D: int,
+                 comps: Sequence[str]) -> None:
+    """Merge rows [0, n) of `packed` (float32 (n', Wp), n' >= n,
+    tier_demote's layout) into slots[:n] (int32, at least n, distinct) in
+    place: min for mn, max for mx and hll, add otherwise. `D` is the
+    reference's block length (n >= 1 where D > 0): where n < D its pad
+    rows (the combine identity on slots[0]) are merged into slots[0] too,
+    without a row of them being built or uploaded."""
     name = "tier_promote"
+    if not min(D, 1) <= n <= D:
+        raise ValueError(f"{name}: {n} real rows of {D}")
     if not _on_cuda(name, state):
-        tier_promote_plain(state, packed, slots, comps)
+        tier_promote_plain(state, packed, slots, n, D, comps)
         return
     dev = state["act"].device
-    D = _check_tier_slots(name, slots, dev)
+    if _check_tier_slots(name, slots, dev) < n:
+        raise ValueError(f"{name}: {len(slots)} slots for {n} rows")
     ptrs, ws, inits, ops, P, C, Wp = _tier_table(name, state, comps)
-    _check(name, packed, torch.float32, (D, Wp), dev)
+    if packed.dim() != 2 or packed.shape[0] < n:
+        raise ValueError(f"{name}: packed {tuple(packed.shape)} for {n} "
+                         f"rows of {Wp}")
+    _check(name, packed, torch.float32, (packed.shape[0], Wp), dev)
     lib = _load()
     with torch.cuda.device(dev):
         rc = lib.tierstore.tier_promote(
             _ptr(ptrs), _ptr(ws), _ptr(inits), _ptr(ops), len(comps), P, C,
-            _ptr(slots), D, _ptr(packed), _stream(dev))
+            _ptr(slots), int(n), int(D), _ptr(packed), _stream(dev))
         LAUNCHES[name] += 1
     _raise_on(lib, name, rc)
 
 
-def tier_promote_plain(state, packed, slots, comps) -> None:
-    """Plain PyTorch version of tier_promote (the reference's scatter-add /
-    -min / -max along the slot axis)."""
-    idx = slots.long()
-    D = len(idx)
+def _split_key(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 keys in the sign-split order of the kernels'
+    float atomics (csrc/groupby_common.cuh atomic_min_f32: -0.0 below
+    +0.0, as XLA orders them), an involution."""
+    b = x.view(torch.int32)
+    return b ^ ((b >> 31) & 0x7FFFFFFF)
+
+
+def tier_promote_plain(state, packed, slots, n: int, D: int, comps) -> None:
+    """Plain PyTorch version of tier_promote: the reference's padded
+    scatter-add / -min / -max along the slot axis, its pad rows (the
+    identity on slots[0]) merged once into slots[0]. The real slots are
+    distinct, so min and max gather the slots' values, merge and write
+    them back."""
+    idx = slots[:n].long()
     col = 0
     for c in comps:
         arr = state[c]
         P, tail = arr.shape[0], tuple(arr.shape[2:])
         w = P * int(np.prod(tail, dtype=np.int64))
-        seg = packed[:, col:col + w].reshape(D, P, *tail).movedim(0, 1)
+        seg = packed[:n, col:col + w].reshape(n, P, *tail).movedim(0, 1)
         col += w
         if c in ("mn", "mx", "hll"):
-            at = idx.view(1, D, *([1] * len(tail))).expand_as(seg)
-            arr.scatter_reduce_(1, at, seg, "amin" if c == "mn" else "amax",
-                                include_self=True)
+            pick = torch.minimum if c == "mn" else torch.maximum
+            keys = pick(_split_key(arr[:, idx]), _split_key(seg.contiguous()))
+            if n < D:
+                pad = _split_key(torch.tensor(INIT[c], dtype=torch.float32,
+                                              device=arr.device))
+                keys[:, 0] = pick(keys[:, 0], pad)
+            arr[:, idx] = _split_key(keys).view(torch.float32)
         else:
             arr.index_add_(1, idx, seg)
+            if n < D:
+                arr.index_add_(1, idx[:1], torch.full_like(seg[:, :1],
+                                                            INIT[c]))
 
 
 # ------------------------------------------------------- relational tier

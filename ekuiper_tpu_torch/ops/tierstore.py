@@ -207,14 +207,15 @@ class TierStore:
 
     def promote(self, state, packed, slots: np.ndarray):
         """Merge packed rows (a host array of at least len(slots) rows)
-        into `slots`: pad rows are `init_row()`, so the repeated pad slot
-        is merged with the identity only. The block goes up non-blocking
-        on the current (fold) stream, ordered before the next fold."""
+        into `slots`. Only the n real rows and slots go up (non-blocking,
+        on the current (fold) stream, ordered before the next fold); the
+        reference's `init_row()` pads on slots[0] are the kernel's to
+        merge (the identity, once)."""
         s, n = self._slots(slots)
-        block = np.tile(self.init_row(), (self.demote_batch, 1))
-        block[:n] = np.asarray(packed, dtype=np.float32)[:n]
+        block = np.asarray(packed, dtype=np.float32)[:n]
         kernels.tier_promote(state, self.gb.upload(block, np.float32),
-                             self.gb.upload(s, np.int32), self.comps)
+                             self.gb.upload(s[:n], np.int32), n,
+                             self.demote_batch, self.comps)
         return state
 
 

@@ -32,6 +32,7 @@ from ekuiper_tpu_torch.ops.aggspec import (encode_hll_column,
 from ekuiper_tpu_torch.ops.groupby import TorchGroupBy
 from ekuiper_tpu_torch.sql.parser import parse_select
 
+import torch_finalize_cases as fc
 import torch_hh_batches as hb
 
 CAP, ROWS, PANES = 64, 512, 2
@@ -123,3 +124,33 @@ def test_hh_batches_cover_the_edges():
     assert (b["slots"] == CAP - 1).any() and (b["slots"] >= CAP).any()
     assert (b["slots"] == np.iinfo(np.uint16).max).any()
     assert (b["pane_vec"] >= PANES).any() and not b["mask"].all()
+
+
+@pytest.mark.parametrize("mask", list(fc.HH_MASKS))
+def test_hh_finalize_matches_reference(mask):
+    """#8 as the group-by calls it (TorchGroupBy._finalize: the scalar
+    finalize and groupby_hh_finalize into one result, their plain versions
+    here) against the reference's _hh_finalize_impl, on
+    tests/torch_finalize_cases.py's hh edge slots in two heavy_hitters
+    columns (k2 6 and 128) of four panes, under no, one, two, three and
+    every pane live: every row bit-equal."""
+    sql = fc.HH_SQL
+    jgb = DeviceGroupBy(jax_plan_of(jax_parse(sql)), capacity=fc.HH_CAP,
+                        n_panes=fc.HH_PANES, micro_batch=ROWS)
+    tgb = TorchGroupBy(extract_kernel_plan(parse_select(sql)),
+                       capacity=fc.HH_CAP, n_panes=fc.HH_PANES,
+                       micro_batch=ROWS, device="cpu")
+    host = {k: np.array(v) for k, v in
+            jgb.state_to_host(jgb.init_state()).items()}
+    host["hh"] = fc.hh_state(host["hh"].shape, seed=12)
+    host["n"][:] = np.arange(fc.HH_CAP, dtype=np.float32)[None, :, None]
+    host["act"][:] = host["n"][..., 0]
+    pm = np.asarray(fc.HH_MASKS[mask])
+    want = np.asarray(jgb._hh_finalize_impl(jgb.state_from_host(host),
+                                            jnp.asarray(pm)))
+    kernels.reset_launches()
+    got = tgb._finalize(tgb.state_from_host(host),
+                        tgb._mask_tensor(pm)).numpy()
+    assert kernels.LAUNCHES["groupby_hh_finalize"] == 0  # the plain version
+    assert sorted(tgb._hhtab[:, 1].tolist()) == [6, 128]
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))

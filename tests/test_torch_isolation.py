@@ -706,8 +706,9 @@ def test_tier_wrappers_never_take_the_plain_versions(monkeypatch):
     """tier_demote and tier_promote (and the fold with a touch column)
     given CUDA tensors: the launch path fails loudly without a card or
     nvcc, and no plain version runs; slots of another dtype, a packed
-    block of another shape, a touch column of another dtype and a real
-    row count past the block are refused before any build."""
+    block of another width or with fewer rows than the real count, a touch
+    column of another dtype and a real row count past the block are
+    refused before any build."""
     _needs_no_card()
     from torch._subclasses.fake_tensor import FakeTensorMode
 
@@ -730,11 +731,12 @@ def test_tier_wrappers_never_take_the_plain_versions(monkeypatch):
         base = torch.ones(D, dtype=torch.bool, device="cuda")
         wrong = {"slots": torch.zeros(D, dtype=torch.int64, device="cuda"),
                  "packed": torch.zeros((D, 3), device="cuda"),
+                 "short": torch.zeros((1, 2 * P), device="cuda"),
                  "touch": torch.zeros(C, dtype=torch.int32, device="cuda")}
     colmap = kernels.column_map({"n": [0]})
     calls = [
         lambda: kernels.tier_demote(state, slots, 2, comps),
-        lambda: kernels.tier_promote(state, packed, slots, comps),
+        lambda: kernels.tier_promote(state, packed, slots, 2, D, comps),
         lambda: kernels.groupby_fold(state, base, V, M, slots, 0, colmap,
                                      NO_WIDE),
         lambda: kernels.groupby_fold_masked(state, base, V, M, slots, 1,
@@ -754,7 +756,13 @@ def test_tier_wrappers_never_take_the_plain_versions(monkeypatch):
         with pytest.raises(ValueError):
             kernels.tier_demote(state, slots, D + 1, comps)
         with pytest.raises(ValueError):
-            kernels.tier_promote(state, wrong["packed"], slots, comps)
+            kernels.tier_promote(state, wrong["packed"], slots, 2, D, comps)
+        with pytest.raises(ValueError):
+            kernels.tier_promote(state, packed, slots, D + 1, D, comps)
+        with pytest.raises(ValueError):
+            kernels.tier_promote(state, wrong["short"], slots, 2, D, comps)
+        with pytest.raises(TypeError):
+            kernels.tier_promote(state, packed, wrong["slots"], 2, D, comps)
         with pytest.raises(TypeError):
             kernels.tier_demote({**state, "touch": wrong["touch"]}, slots,
                                 2, comps)

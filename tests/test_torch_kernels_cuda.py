@@ -324,6 +324,63 @@ def test_hh_finalize_matches_plain(sgb, panes):
     assert (got[row + k2] > 0).sum() > 0  # some key has a heavy hitter
 
 
+@pytest.mark.parametrize("mask", list(fc.HH_MASKS))
+@pytest.mark.parametrize("k2s", [(6, 128), (1, 2), (128, 1)])
+def test_hh_finalize_edge_states(mask, k2s):
+    """#8's kernel against its plain version on
+    tests/torch_finalize_cases.py's hh edge slots (an all-zero slot, fewer
+    positive estimates than k2, a valid code of estimate 0 tying the
+    invalid cells, codes 0 and 2^20 - 1, ties) in two columns, k2 = 1 and
+    128, under no, one, two, three and every pane of four live (every
+    route of the kernel's column ring: nothing copied, one buffer read,
+    two read together, a running sum). Rows bit-equal; other rows
+    untouched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    hh = fc.hh_state((fc.HH_PANES, fc.HH_CAP, 2, fc.HH_SIZE), seed=11)
+    _hh_finalize_pair(hh, fc.HH_MASKS[mask], k2s)
+
+
+@pytest.mark.parametrize("live", [1, 9, 37])
+def test_hh_finalize_many_panes(live):
+    """#8 over 37 panes (the refold's scratch pane alone, nine live, all
+    live), 3,001 slots of random skewed codes: more items than the
+    persistent grid's warps, so each warp's ring wraps many times."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(live)
+    P, C = 37, 3001
+    hh = np.zeros((P, C, 1, fc.HH_SIZE), dtype=np.float32)
+    for p in range(P):
+        for c in rng.choice(C, 400, replace=False):
+            for code in rng.zipf(1.5, 8) % 50:
+                fc.hh_add(hh[p, c, 0], int(code) * 977, int(rng.integers(1,
+                                                                         4)))
+    pm = np.zeros(P, dtype=bool)
+    pm[rng.choice(P, live, replace=False)] = True
+    _hh_finalize_pair(hh, pm.tolist(), (6,))
+
+
+def _hh_finalize_pair(hh, pm, k2s):
+    dev = torch.device("cuda")
+    P, C, K = hh.shape[:3]
+    state = {"hh": torch.from_numpy(hh).to(dev),
+             "act": torch.zeros((P, C), device=dev)}
+    pm_t = torch.tensor(pm, dtype=torch.bool, device=dev)
+    rows = 2 * sum(k2s) + 3
+    hhtab = np.array([[K - 1 - i, k2, 1 + 2 * sum(k2s[:i])]
+                      for i, k2 in enumerate(k2s)], dtype=np.int32)
+    got = torch.full((rows, C), -1.0, device=dev)
+    ref = got.clone()
+    kernels.reset_launches()
+    kernels.groupby_hh_finalize(state, pm_t, hhtab, got)
+    kernels.hh_finalize_plain(state, pm_t, hhtab, ref)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["groupby_hh_finalize"] == 1
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                  ref.cpu().numpy().view(np.uint32))
+
+
 def test_sketch_rule_finalizes_through_the_kernels(sgb):
     """The whole finalize of a plan with scalar, sketch and heavy-hitters
     specs: the three finalize kernels fill one result, read once."""
@@ -1403,9 +1460,10 @@ def test_tier_demote_edge_states(case):
 
 @pytest.mark.parametrize("n", [1, 37, 2048])
 def test_tier_promote_matches_plain(tnode, n):
-    """#19 against its plain version, bit-equal: a demoted block merged
-    back into other slots holding data (add, min, max per component);
-    identity pad rows on the repeated pad slot."""
+    """#19 against its plain version, bit-equal: n demoted rows merged
+    back into other slots holding data (add, min, max per component), the
+    block and the slots holding the n real rows only (the reference's
+    identity pads on slots[0] merged by the kernel where n < D)."""
     ts = tnode.tier.ts
     gb = tnode.gb
     rng = np.random.default_rng(100 + n)
@@ -1417,18 +1475,73 @@ def test_tier_promote_matches_plain(tnode, n):
         st, torch.from_numpy(s).to(gb.device), real, ts.comps)
     rows = block.cpu().numpy()[:real][::-1].copy()
     dst = rng.choice(gb.capacity, size=k, replace=False).astype(np.int32)
-    d, _ = ts._slots(dst)
-    full = np.tile(ts.init_row(), (ts.demote_batch, 1))
-    full[:real] = rows
-    packed = torch.from_numpy(full).to(gb.device)
-    d_dev = torch.from_numpy(d).to(gb.device)
+    packed = torch.from_numpy(rows).to(gb.device)
+    d_dev = torch.from_numpy(dst).to(gb.device)
     got, ref = _clone(st), _clone(st)
     kernels.reset_launches()
-    kernels.tier_promote(got, packed, d_dev, ts.comps)
-    kernels.tier_promote_plain(ref, packed, d_dev, ts.comps)
+    kernels.tier_promote(got, packed, d_dev, real, ts.demote_batch, ts.comps)
+    kernels.tier_promote_plain(ref, packed, d_dev, real, ts.demote_batch,
+                               ts.comps)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["tier_promote"] == 1
-    _same_exact(got, ref)
+    _same_bits(got, ref)
+
+
+def _same_bits(got, ref):
+    """Every component equal element for element, float32 by its bits."""
+    assert got.keys() == ref.keys()
+    for comp in ref:
+        g, r = got[comp].cpu().numpy(), ref[comp].cpu().numpy()
+        if g.dtype == np.float32:
+            g, r = g.view(np.uint32), r.view(np.uint32)
+        np.testing.assert_array_equal(g, r, err_msg=comp)
+
+
+@pytest.mark.parametrize("case", list(fc.TIER_CASES))
+def test_tier_promote_edge_states(case):
+    """#19's kernel against its plain version on
+    tests/torch_finalize_cases.py's blocks: one real row of 2,048 (the
+    identity merged into slots[0] once), half or all of the block real,
+    rows of 18, 774 and 1,027 floats, scalar, hll and percentile state
+    and rows holding +/-0.0 and +/-inf in mn, mx and hll and -0.0 in
+    slots[0]'s and row 0's additive elements; a block and slots longer
+    than n. The state bit-equal, signs of zero included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ekuiper_tpu_torch.ops import tierstore as tts
+    from ekuiper_tpu_torch.ops.aggspec import extract_kernel_plan
+    from ekuiper_tpu_torch.ops.groupby import TorchGroupBy
+    from ekuiper_tpu_torch.sql.parser import parse_select
+    plan_tag, n, touch = fc.TIER_CASES[case]
+    sql, n_panes = fc.TIER_SQL[plan_tag]
+    gb = TorchGroupBy(extract_kernel_plan(parse_select(sql)),
+                      capacity=fc.TIER_CAP, n_panes=n_panes, micro_batch=64,
+                      track_touch=touch)
+    ts = tts.TierStore(gb, tts.TierLayout(
+        hot_slots=fc.TIER_CAP, demote_batch=fc.TIER_D,
+        scan_interval_ms=100, min_idle_scans=1))
+    rng = np.random.default_rng(7)
+    host = fc.tier_fill(gb.state_to_host(gb.init_state()), seed=5)
+    s, real = ts._slots(fc.tier_slots(n, seed=6))
+    block = kernels.tier_demote_plain(
+        gb.state_from_host(host), torch.from_numpy(s).to(gb.device), real,
+        ts.comps)
+    rows = fc.promote_rows(block.cpu().numpy(), ts.blocks, n, rng)
+    back = fc.tier_slots(n, seed=8)
+    for comp, arr in host.items():
+        if arr.dtype == np.float32:
+            fc.promote_specials(arr, comp, rng, zero_cols=back[0])
+    extra = rng.normal(0, 1, (3, ts.packed_w)).astype(np.float32)
+    packed = torch.from_numpy(np.concatenate([rows, extra])).to(gb.device)
+    slots = torch.from_numpy(np.concatenate([back, [0, 1, 2]]).astype(
+        np.int32)).to(gb.device)
+    got, ref = gb.state_from_host(host), gb.state_from_host(host)
+    kernels.reset_launches()
+    kernels.tier_promote(got, packed, slots, n, fc.TIER_D, ts.comps)
+    kernels.tier_promote_plain(ref, packed, slots, n, fc.TIER_D, ts.comps)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["tier_promote"] == 1
+    _same_bits(got, ref)
 
 
 def test_fold_touch_column_matches_plain(tnode):

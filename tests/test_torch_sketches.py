@@ -8,7 +8,8 @@ turns their divisions by constants into multiplies by reciprocals, which
 the port follows). Tolerances, each against the JAX function:
 - hashes, register indices, histogram bins, heavy-hitters scatter
   indices and weights, recovered candidates (codes, estimates and their
-  order): exact;
+  order), the heavy-hitters finalize's rows (#8's plain version,
+  hh_finalize_plain, on tests/torch_finalize_cases.py's edge states): exact;
 - rho: exact wherever jnp.log2 gives the exact floor(log2) of float32(h2);
   the port reads that from the float's exponent field, so at the values
   where XLA's log2 misses (found in float64 here, and counted) the two
@@ -26,7 +27,10 @@ import pytest
 import torch
 
 from ekuiper_tpu.ops import sketches as ref
+from ekuiper_tpu_torch.ops import kernels
 from ekuiper_tpu_torch.ops import sketches as port
+
+import torch_finalize_cases as fc
 
 
 # the reference functions as the JAX package runs them: inside one jitted
@@ -142,7 +146,7 @@ def _hh_sketches():
     return hh
 
 
-@pytest.mark.parametrize("k2", [2, 6, 128])
+@pytest.mark.parametrize("k2", [1, 2, 6, 128])
 def test_hh_candidates_match_reference(k2):
     """The recovery, ties ordered as lax.top_k orders them."""
     hh = _hh_sketches()
@@ -151,3 +155,57 @@ def test_hh_candidates_match_reference(k2):
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
     assert (got[0][:, 0] == 7).mean() > 0.9
+
+
+@functools.lru_cache(maxsize=None)
+def _hh_edge_state():
+    return fc.hh_state((fc.HH_PANES, fc.HH_CAP, 2, ref.HH_SIZE), seed=11)
+
+
+def test_hh_edge_state_codes_hash_like_the_reference():
+    """The cases' numpy hash is the sketch's: each kind-2 code lands where
+    the reference's hh_update_parts puts it."""
+    idx, _ = _hh_update_parts(jnp.asarray([91_001.0, 0.0, 1048575.0],
+                                          dtype=jnp.float32),
+                              jnp.ones(3, jnp.float32))
+    cells = np.asarray(idx)[:, ::1 + ref.HH_BITS] // (1 + ref.HH_BITS)
+    for row, code in zip(cells, (91_001, 0, (1 << 20) - 1)):
+        assert row.tolist() == [d * ref.HH_WIDTH + fc.hh_slot(code, d)
+                                for d in range(ref.HH_DEPTH)]
+
+
+@pytest.mark.parametrize("mask", list(fc.HH_MASKS))
+@pytest.mark.parametrize("k2s", [(6, 128), (1, 2), (128, 1)])
+def test_hh_finalize_edge_states_match_reference(mask, k2s):
+    """#8's plain version (hh_finalize_plain: the pane merge, then
+    hh_candidates for each of two heavy_hitters columns) against the
+    reference's merge (DeviceGroupBy._merged's where + sum) and its
+    hh_candidates, on tests/torch_finalize_cases.py's edge slots: an
+    all-zero slot, fewer positive estimates than k2, a valid code of
+    estimate 0 tying the invalid cells, codes 0 and 2^20 - 1, ties, k2 =
+    1 and 128, under no, one, two, three and every pane live. Rows
+    exact; rows outside the specs untouched."""
+    hh = _hh_edge_state()
+    pm = np.asarray(fc.HH_MASKS[mask])
+    rows = 2 * sum(k2s) + 3
+    hhtab = np.array([[1, k2s[0], 1], [0, k2s[1], 2 + 2 * k2s[0]]],
+                     dtype=np.int32)
+    P, C = hh.shape[:2]
+    state = {"hh": torch.from_numpy(hh), "act": torch.zeros((P, C))}
+    out = torch.full((rows, C), -1.0)
+    kernels.hh_finalize_plain(state, torch.from_numpy(pm), hhtab, out)
+    want = np.full((rows, C), -1.0, dtype=np.float32)
+    jpm = jnp.asarray(pm).reshape(-1, 1, 1)
+    for k, k2, row in hhtab.tolist():
+        merged = jnp.sum(jnp.where(jpm, jnp.asarray(hh[:, :, k]), 0.0),
+                         axis=0)
+        codes, est = (np.asarray(t) for t in _hh_candidates(merged, k2))
+        want[row:row + k2] = codes.T
+        want[row + k2:row + 2 * k2] = est.T
+    got = out.numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    if mask == "all" and k2s[0] == 128:  # the kinds did what they are for
+        codes, est = got[1:129], got[129:257]  # column 1: kind (c + 1) % 8
+        assert (codes[:, 7] == 0).all() and (est[:, 7] == 0).all()  # kind 0
+        assert 0 < (est[:, 0] > 0).sum() < 6  # kind 1
+        assert ((codes[:, 1] == 91_001) & (est[:, 1] == 0)).any()  # kind 2

@@ -348,6 +348,67 @@ def test_demote_edge_states_match_reference(case):
     _assert_state_equal(ts, js)
 
 
+def _same_bits(got, ref, what):
+    """Equal element for element, float32 by its bits (signs of zero)."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    assert got.dtype == ref.dtype, what
+    if got.dtype == np.float32:
+        got, ref = got.view(np.uint32), ref.view(np.uint32)
+    np.testing.assert_array_equal(got, ref, err_msg=what)
+
+
+@pytest.mark.parametrize("case", list(fc.TIER_CASES))
+def test_promote_edge_states_match_reference(case):
+    """tier_promote's plain version against the reference's padded
+    TierStore.promote on tests/torch_finalize_cases.py's blocks (one real
+    row and 2,047 pads, half or all of the block real; scalar, hll and
+    percentile state): state and rows with +/-0.0 and +/-inf in mn, mx and
+    hll, -0.0 in slots[0]'s additive elements and in half of row 0's. The
+    port's TierStore.promote (the n real rows up, no pads), and
+    kernels.tier_promote given a block and slots longer than n: the state
+    after bit for bit, signs of zero included."""
+    plan_tag, n, touch = fc.TIER_CASES[case]
+    sql, n_panes = fc.TIER_SQL[plan_tag]
+    jplan, tplan = _plans(sql)
+    jgb = DeviceGroupBy(jplan, capacity=fc.TIER_CAP, n_panes=n_panes,
+                        micro_batch=64, track_touch=touch)
+    tgb = TorchGroupBy(tplan, capacity=fc.TIER_CAP, n_panes=n_panes,
+                       micro_batch=64, device="cpu", track_touch=touch)
+    host = fc.tier_fill(jgb.state_to_host(jgb.init_state()), seed=5)
+    args = dict(hot_slots=fc.TIER_CAP, demote_batch=fc.TIER_D,
+                scan_interval_ms=100, min_idle_scans=1)
+    jstore = jts.TierStore(jgb, jts.TierLayout(**args))
+    tstore = tts.TierStore(tgb, tts.TierLayout(**args))
+    rng = np.random.default_rng(7)
+    js, block = jstore.demote(jgb.state_from_host(host), fc.tier_slots(n, 6))
+    rows = fc.promote_rows(np.asarray(block), jstore.blocks, n, rng)
+    back = fc.tier_slots(n, seed=8)
+    host = {k: np.array(v) for k, v in jgb.state_to_host(js).items()}
+    for comp, arr in host.items():
+        if arr.dtype == np.float32:
+            fc.promote_specials(arr, comp, rng, zero_cols=back[0])
+    want = jgb.state_to_host(jstore.promote(jgb.state_from_host(host), rows,
+                                            back))
+    kernels.reset_launches()
+    got = tgb.state_to_host(tstore.promote(tgb.state_from_host(host), rows,
+                                           back))
+    st = tgb.state_from_host(host)
+    extra = rng.normal(0, 1, (3, tstore.packed_w)).astype(np.float32)
+    kernels.tier_promote(
+        st, torch.from_numpy(np.concatenate([rows, extra])),
+        torch.from_numpy(np.concatenate([back, [0, 1, 2]]).astype(np.int32)),
+        n, fc.TIER_D, tstore.comps)
+    assert kernels.LAUNCHES["tier_promote"] == 0  # CPU: the plain version
+    direct = tgb.state_to_host(st)
+    for comp in want:
+        _same_bits(got[comp], want[comp], comp)
+        _same_bits(direct[comp], want[comp], comp)
+    # the pads' identity reached slots[0] only where the block had pads:
+    # -0.0 + -0.0 stays -0.0 in row 0's first column, + 0.0 makes it +0.0
+    sign = np.signbit(want["act"][0, back[0]])
+    assert sign == (n == fc.TIER_D)
+
+
 def test_tier_store_refuses_what_the_kernels_do_not_take():
     _, tstore, _, ts = _tier_pair(SQL, 2)
     for bad in ([], [1, 1], [48], [-1], list(range(9))):

@@ -17,6 +17,15 @@ Tier demote: blocks of 2,048 rows over 2,100 slots of a scalar plan
 (three panes, 18 floats a row), an hll plan (three panes, 774) and a
 percentile plan (one pane, 1,027): no row width a multiple of 4, one real
 row with 2,047 pad rows, a full block, with and without the touch column.
+The tier promote runs on the same blocks, its state and rows also holding
++/-0.0 and +/-inf in mn, mx and hll, and -0.0 in slots[0]'s additive
+elements and in row 0's.
+
+Heavy-hitters finalize (#8 groupby_hh_finalize): two heavy_hitters specs
+(topk 3 and 64: k2 6 and 128, so K = 2 hh columns) over four hopping
+panes, slots of eight kinds (below), pane masks with no, one, two, three
+and every pane live; counts are whole numbers, so every pane sum is
+exact.
 """
 import numpy as np
 
@@ -152,3 +161,134 @@ def tier_slots(n, seed=0):
     """n distinct real slots of TIER_CAP."""
     return np.random.default_rng(seed).choice(
         TIER_CAP, size=n, replace=False).astype(np.int32)
+
+
+SPECIALS = np.array([0.0, -0.0, np.inf, -np.inf], dtype=np.float32)
+
+
+def promote_specials(arr, comp, rng, zero_cols=None):
+    """`arr` (a component's state, (P, C, ...), or a packed block's
+    columns) with a quarter of its mn / mx / hll elements set to +/-0.0 or
+    +/-inf, in place; an additive component's elements at `zero_cols`
+    (an index of the slot axis) set to -0.0."""
+    if comp in ("mn", "mx", "hll"):
+        hit = rng.random(arr.shape) < 0.25
+        arr[hit] = rng.choice(SPECIALS, int(hit.sum()))
+    elif zero_cols is not None:
+        arr[:, zero_cols] = -0.0
+    return arr
+
+
+def promote_rows(block, blocks, n, rng):
+    """Rows [0, n) of a demoted block (numpy (D, Wp)) reversed, with
+    promote_specials in the mn / mx / hll columns, and -0.0 in half of
+    row 0's additive columns; `blocks` the store's (comp, offset, tail)."""
+    rows = block[:n][::-1].copy()
+    for comp, off, width in _block_columns(blocks, rows.shape[1]):
+        cols = rows[:, off:off + width]
+        if comp in ("mn", "mx", "hll"):
+            promote_specials(cols, comp, rng)
+        else:
+            cols[0, ::2] = -0.0
+    return rows
+
+
+def _block_columns(blocks, wp):
+    """(comp, first column, columns) of each block of a packed row."""
+    offs = [off for _, off, _ in blocks] + [wp]
+    return [(comp, off, offs[i + 1] - off)
+            for i, (comp, off, _) in enumerate(blocks)]
+
+
+# ---------------------------------------------------------- hh finalize
+HH_SQL = ("SELECT k, heavy_hitters(a, 3) AS t1, count(*) AS c, "
+          "heavy_hitters(b, 64) AS t2 FROM s "
+          "GROUP BY k, HOPPINGWINDOW(ss, 8, 2)")
+HH_PANES, HH_CAP = 4, 40
+HH_MASKS = {"all": [True] * 4, "three": [True, True, False, True],
+            "two": [False, True, False, True], "one": [False, False, True,
+                                                      False],
+            "none": [False] * 4}
+#: slot kinds, by slot % 8: 0 all zero; 1 two codes (fewer positive
+#: estimates than k2); 2 a valid code whose other depth's cell is empty
+#: (estimate 0, tying the invalid cells); 3 many codes, Zipf counts (more
+#: positive cells than 128's half); 4 random counts (mostly invalid
+#: cells); 5 code 0 and code 2^20 - 1; 6 four codes of equal count (ties
+#: by cell index); 7 a different code in each pane
+HH_KINDS = 8
+_HH_DEPTH, _HH_WIDTH, _HH_BITS = 2, 64, 20
+_HH_CELL = 1 + _HH_BITS
+HH_SIZE = _HH_DEPTH * _HH_WIDTH * _HH_CELL
+
+
+def _splitmix32(x):
+    x = np.asarray(x, dtype=np.uint64) & 0xFFFFFFFF
+    x ^= x >> 16
+    x = (x * 0x7FEB352D) & 0xFFFFFFFF
+    x ^= x >> 15
+    x = (x * 0x846CA68B) & 0xFFFFFFFF
+    x ^= x >> 16
+    return x
+
+
+def hh_slot(code, d):
+    """The width slot of `code` at depth d (the sketch's hash)."""
+    salt = (0x9E3779B9 * (d + 7)) & 0xFFFFFFFF
+    return int(_splitmix32(int(code) ^ salt)) & (_HH_WIDTH - 1)
+
+
+def hh_add(col, code, count, depths=range(_HH_DEPTH)):
+    """Add `count` rows of `code` to one hh column (HH_SIZE,) in place."""
+    for d in depths:
+        base = (d * _HH_WIDTH + hh_slot(code, d)) * _HH_CELL
+        col[base] += count
+        for b in range(_HH_BITS):
+            if (code >> b) & 1:
+                col[base + 1 + b] += count
+
+
+def _hh_slot_panes(rng, kind, P):
+    """(P, HH_SIZE) columns of one slot of `kind`."""
+    cols = np.zeros((P, HH_SIZE), dtype=np.float32)
+    if kind == 1:
+        hh_add(cols[1], 7, 5)
+        hh_add(cols[3], 4242, 2)
+    elif kind == 2:
+        code = 91_001
+        hh_add(cols[2], code, 4, depths=(0,))
+        hh_add(cols[0], 5, 1)
+    elif kind == 3:
+        codes = rng.integers(0, 1 << _HH_BITS, 300)
+        for p in range(P):
+            for code in codes[rng.zipf(1.6, 60) % 300]:
+                hh_add(cols[p], int(code), 1)
+    elif kind == 4:
+        cells = cols.reshape(P, -1, _HH_CELL)
+        tot = rng.integers(0, 20, cells.shape[:2])
+        cells[..., 0] = tot
+        cells[..., 1:] = rng.integers(0, tot[..., None] + 1,
+                                      cells[..., 1:].shape)
+    elif kind == 5:
+        hh_add(cols[0], 0, 3)
+        hh_add(cols[1], (1 << _HH_BITS) - 1, 3)
+        hh_add(cols[3], 0, 1)
+    elif kind == 6:
+        for code in (11, 222, 3333, 44444):
+            hh_add(cols[int(rng.integers(0, P))], code, 6)
+    elif kind == 7:
+        for p in range(P):
+            hh_add(cols[p], 1000 + 17 * p, 2 + p)
+            hh_add(cols[p], 77, 1)
+    return cols
+
+
+def hh_state(shape, seed=0):
+    """An hh component (numpy float32 of `shape` (P, C, K, HH_SIZE)): slot
+    c of column k of kind (c + k) % HH_KINDS."""
+    rng = np.random.default_rng(seed)
+    P, C, K, _ = shape
+    hh = np.zeros(shape, dtype=np.float32)
+    for c in range(C):
+        for k in range(K):
+            hh[:, c, k] = _hh_slot_panes(rng, (c + k) % HH_KINDS, P)
+    return hh
